@@ -26,3 +26,9 @@ if os.environ.get("CHTPU_WATCHDOG"):
     import sys
     faulthandler.dump_traceback_later(
         int(os.environ["CHTPU_WATCHDOG"]), repeat=True, file=sys.stderr)
+
+
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA GPU and nvcc (hand-written kernel "
+        "tests of clickhouse_tpu_torch); skipped without a card")
