@@ -21,21 +21,6 @@ enum ChttDtype {
   DT_F64 = 7,
 };
 
-// Integer element widened to 64 bits: signed types sign-extend, unsigned
-// types zero-extend.  Sums of the widened bits wrap mod 2^64, which is the
-// reference's integer-sum semantics for signed and unsigned alike.
-__device__ __forceinline__ u64 load_int_u64(const void* p, int dtype,
-                                            long long i) {
-  switch (dtype) {
-    case DT_BOOL:
-    case DT_U8: return (u64)((const uint8_t*)p)[i];
-    case DT_I8: return (u64)(long long)((const int8_t*)p)[i];
-    case DT_I16: return (u64)(long long)((const int16_t*)p)[i];
-    case DT_I32: return (u64)(long long)((const int32_t*)p)[i];
-    default: return (u64)((const long long*)p)[i];
-  }
-}
-
 // IEEE double -> u64 whose unsigned order is the float total order
 // (-0.0 below +0.0; NaN is handled by the callers).
 __device__ __forceinline__ u64 f64_order_key(double d) {

@@ -11,8 +11,10 @@ PyTorch's current stream and allocate nothing: the wrappers in ``ops/``
 allocate outputs and scratch with torch.  Each C entry point returns
 ``cudaGetLastError()`` and :func:`check` raises on a non-zero code.
 
-Each wrapper adds one to its entry in :data:`LAUNCHES` when it launches its
-kernel, so a run can show that its path went through the kernels.
+Each wrapper calls :func:`count_launch` where it launches its kernel: that
+adds one to the kernel's entry in :data:`LAUNCHES` and records the launch's
+row count in :data:`LAUNCH_ROWS`, so a run can show that its path went
+through the kernels, and at which sizes.
 """
 from __future__ import annotations
 
@@ -23,10 +25,11 @@ import shutil
 import subprocess
 import threading
 from pathlib import Path
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
-__all__ = ["LAUNCHES", "KernelBuildError", "build", "library", "check",
-           "reset_launches", "stream_ptr", "dtype_code", "grid_blocks"]
+__all__ = ["LAUNCHES", "LAUNCH_ROWS", "KernelBuildError", "build", "library",
+           "check", "count_launch", "reset_launches", "stream_ptr",
+           "dtype_code", "grid_blocks", "aligned16"]
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -37,6 +40,8 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # kernel name -> launches since the last reset
 LAUNCHES: Dict[str, int] = {"masked_reduce": 0, "dense_group_reduce": 0,
                             "topk_smallest": 0}
+# kernel name -> row count of each launch since the last reset
+LAUNCH_ROWS: Dict[str, List[int]] = {k: [] for k in LAUNCHES}
 
 _LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
@@ -49,6 +54,12 @@ class KernelBuildError(RuntimeError):
 def reset_launches() -> None:
     for k in LAUNCHES:
         LAUNCHES[k] = 0
+        LAUNCH_ROWS[k].clear()
+
+
+def count_launch(name: str, rows: int) -> None:
+    LAUNCHES[name] += 1
+    LAUNCH_ROWS[name].append(int(rows))
 
 
 def _nvcc() -> str:
@@ -103,9 +114,12 @@ def library() -> ctypes.CDLL:
             lib.chtt_dense_group_reduce.argtypes = [P, I, P, LL, I, I, P, I,
                                                     P, P, P, P, P, I, P]
             lib.chtt_dense_group_reduce.restype = I
-            lib.chtt_topk_smallest.argtypes = [P, P, LL, I, I, I, P, P, P,
-                                               P]
+            lib.chtt_topk_smallest.argtypes = [P, I, P, LL, I, I, P, P, P]
             lib.chtt_topk_smallest.restype = I
+            lib.chtt_topk_blocks.argtypes = [I, LL, I]
+            lib.chtt_topk_blocks.restype = I
+            lib.chtt_topk_scratch_bytes.argtypes = [I, I, I]
+            lib.chtt_topk_scratch_bytes.restype = LL
             lib.chtt_error_string.argtypes = [I]
             lib.chtt_error_string.restype = ctypes.c_char_p
             _LIB = lib
@@ -140,3 +154,9 @@ def grid_blocks(device, n: int, threads: int = 256, per_sm: int = 8) -> int:
     import torch
     sms = torch.cuda.get_device_properties(device).multi_processor_count
     return max(1, min(sms * per_sm, (n + threads - 1) // threads))
+
+
+def aligned16(t):
+    """t itself if it starts on a 16-byte boundary (the kernels' vector
+    loads need it), else an aligned copy; None stays None."""
+    return t if t is None or t.data_ptr() % 16 == 0 else t.clone()

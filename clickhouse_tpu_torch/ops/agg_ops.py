@@ -92,7 +92,7 @@ def _masked_reduce_cuda(op, data, mask, unsigned):
         int(unsigned), out.data_ptr(), acc.data_ptr(), partials.data_ptr(),
         nb, _native.stream_ptr(dev))
     _native.check(rc, "masked_reduce")
-    _native.LAUNCHES["masked_reduce"] += 1
+    _native.count_launch("masked_reduce", n)
     return out
 
 

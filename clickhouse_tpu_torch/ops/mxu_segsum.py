@@ -4,10 +4,10 @@ Reference: clickhouse_tpu/ops/mxu_segsum.py, which runs these as f32
 one-hot matmuls over 8-bit limbs (the TPU serializes scatter).  The
 contract is kept: for S <= MAX_DENSE_GROUPS slots, exact per-slot counts
 and integer sums mod 2^64 in ONE pass over the data.  Here the pass is K2
-(csrc/dense_group_reduce.cu), a shared-memory histogram with 64-bit
-atomics; signed and unsigned sums share the same bits, so no limbs and no
-sign bias are needed.  Counts are int64 throughout (the reference carries
-them in int32 across chunks; the two agree below 2^31 rows per slot).
+(csrc/dense_group_reduce.cu), a shared-memory histogram; signed and
+unsigned sums share the same bits, so no limbs and no sign bias are
+needed.  Counts are int64 throughout (the reference carries them in int32
+across chunks; the two agree below 2^31 rows per slot).
 """
 from __future__ import annotations
 
@@ -22,6 +22,7 @@ __all__ = ["MAX_DENSE_GROUPS", "dense_group_reduce", "mxu_group_reduce",
 
 MAX_DENSE_GROUPS = 16384
 _MAX_ARRAYS = 16                   # per kind; csrc/dense_group_reduce.cu
+_RUN = 4                           # rows a thread reads at once (kRun)
 _SUM_DTYPES = (torch.bool, torch.int8, torch.uint8, torch.int16,
                torch.int32, torch.int64)
 
@@ -82,7 +83,21 @@ def _dense_group_reduce_cuda(ids, base_mask, count_masks, sum_values,
             _check_rowwise(m, n, dev, "a mask", (torch.bool,))
     for v in sum_values:
         _check_rowwise(v, n, dev, "a summed value", _SUM_DTYPES)
-    counts = torch.zeros((C, S), dtype=torch.int64, device=dev)
+    # count arrays with the same mask (the same tensor, or None) are
+    # counted once; the kernel needs 16-byte-aligned rows
+    distinct, which = [], []
+    for m in count_masks:
+        j = next((j for j, d in enumerate(distinct) if d is m), None)
+        if j is None:
+            j = len(distinct)
+            distinct.append(m)
+        which.append(j)
+    al = _native.aligned16
+    ids, base_mask = al(ids), al(base_mask)
+    distinct = [al(m) for m in distinct]
+    sum_values = [al(v) for v in sum_values]
+    sum_masks = [al(m) for m in sum_masks]
+    counts = torch.zeros((len(distinct), S), dtype=torch.int64, device=dev)
     sums = torch.zeros((K, S), dtype=torch.int64, device=dev)
 
     def ptrs(ts):
@@ -91,17 +106,21 @@ def _dense_group_reduce_cuda(ids, base_mask, count_masks, sum_values,
 
     dtypes = (ctypes.c_int * max(K, 1))(
         *[_native.dtype_code(v.dtype) for v in sum_values])
-    cm, sv, sm = ptrs(count_masks), ptrs(sum_values), ptrs(sum_masks)
+    cm, sv, sm = ptrs(distinct), ptrs(sum_values), ptrs(sum_masks)
     lib = _native.library()
     rc = lib.chtt_dense_group_reduce(
         ids.data_ptr(), int(ids.dtype == torch.int64),
         base_mask.data_ptr() if base_mask is not None else None, n, S,
-        C, ctypes.cast(cm, ctypes.c_void_p), K,
+        len(distinct), ctypes.cast(cm, ctypes.c_void_p), K,
         ctypes.cast(sv, ctypes.c_void_p), ctypes.cast(dtypes, ctypes.c_void_p),
         ctypes.cast(sm, ctypes.c_void_p), counts.data_ptr(), sums.data_ptr(),
-        _native.grid_blocks(dev, n, per_sm=4), _native.stream_ptr(dev))
+        _native.grid_blocks(dev, -(-n // _RUN), per_sm=4),
+        _native.stream_ptr(dev))
     _native.check(rc, "dense_group_reduce")
-    _native.LAUNCHES["dense_group_reduce"] += 1
+    _native.count_launch("dense_group_reduce", n)
+    if which != list(range(len(distinct))):
+        # views stacked: a list index would copy it to the card and wait
+        counts = torch.stack([counts[j] for j in which])
     return counts, sums
 
 

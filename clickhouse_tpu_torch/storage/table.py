@@ -192,7 +192,7 @@ class Database:
 class Catalog:
     """Databases/tables registry (DatabaseCatalog analog)."""
 
-    def __init__(self, device="cpu"):
+    def __init__(self, device):
         self.databases: Dict[str, Database] = {"default": Database("default"),
                                                "system": Database("system")}
         self.current_database = "default"

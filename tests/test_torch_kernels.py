@@ -18,8 +18,9 @@ from clickhouse_tpu_torch.ops.agg_ops import (_masked_reduce_plain,
                                               masked_reduce)
 from clickhouse_tpu_torch.ops.mxu_segsum import (_dense_group_reduce_plain,
                                                  dense_group_reduce)
-from clickhouse_tpu_torch.ops.sort_ops import (_topk_smallest_plain,
-                                               topk_smallest)
+from clickhouse_tpu_torch.ops.sort_ops import (_topk_smallest32_plain,
+                                               _topk_smallest_plain,
+                                               topk_smallest, topk_smallest32)
 
 pytestmark = pytest.mark.cuda
 
@@ -113,6 +114,78 @@ def test_dense_group_reduce_matches_plain(dev, S):
                              cu(sms), S)
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("case", ["one_slot", "zipf"])
+def test_dense_group_reduce_skewed_slots_match_plain(dev, case):
+    """Lanes of a warp share slots: S = 1, and Zipf(1.1) slots over 1,024;
+    both count masks None (counted once, then copied)."""
+    rng = np.random.default_rng(7)
+    n = 3_000_000
+    if case == "one_slot":
+        S, ids = 1, np.zeros(n, np.int32)
+    else:
+        S, ids = 1024, ((rng.zipf(1.1, n) - 1) % 1024).astype(np.int32)
+    ids = torch.from_numpy(ids)
+    base = torch.from_numpy(rng.random(n) < 0.9)
+    x = _values(rng, torch.int64, n)
+    want = _dense_group_reduce_plain(ids, base, [None, None], [x], [None], S)
+    got = dense_group_reduce(ids.to(dev), base.to(dev), [None, None],
+                             [x.to(dev)], [None], S)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("case", ["counts_none", "same_mask_tensor", "S4096",
+                                  "S8192", "S16384"])
+def test_dense_group_reduce_count_masks_and_tiles_match_plain(dev, case):
+    """Count arrays with the same mask (None twice, or one tensor twice) are
+    counted once; one count and one sum over S = 4,096 fill one 48 KB
+    histogram, S = 8,192 one 96 KB histogram, S = 16,384 two 96 KB tiles."""
+    rng = np.random.default_rng(11)
+    n = 3_000_000
+    S = int(case[1:]) if case.startswith("S") else 1024
+    ids = torch.from_numpy(rng.integers(-3, S + 3, n).astype(np.int32))
+    base = torch.from_numpy(rng.random(n) < 0.9)
+    x = _values(rng, torch.int64, n)
+    m = torch.from_numpy(rng.random(n) < 0.5)
+    cms = {"counts_none": [None, None], "same_mask_tensor": [m, None, m]}.get(
+        case, [None])
+    want = _dense_group_reduce_plain(ids, base, cms, [x], [m], S)
+    mc = m.to(dev)
+    got = dense_group_reduce(ids.to(dev), base.to(dev),
+                             [mc if t is m else None for t in cms],
+                             [x.to(dev)], [mc], S)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("n,k", [(10, 3), (10, 40), (5000, 100),
+                                 (3_000_000, 100), (3_000_000, 4096),
+                                 (100_000, 1)])
+@pytest.mark.parametrize("order", ["random", "descending", "ascending",
+                                   "constant"])
+def test_topk_smallest32_matches_plain(dev, n, k, order):
+    """The 32-bit entry: ties, keys 2^32 - 2 and 2^32 - 1, invalid rows,
+    monotone keys (every row admitted), and one key everywhere (ties across
+    every block boundary)."""
+    rng = np.random.default_rng(n + k + len(order))
+    key = rng.integers(-50, 50, n).astype(np.int32)
+    key[:4] = np.array([-1, -2, -1, 0], np.int32)[:min(4, n)]
+    if order == "descending":
+        key = np.arange(n, 0, -1, dtype=np.int32)
+    elif order == "ascending":
+        key = np.arange(n, dtype=np.int32)
+    elif order == "constant":
+        key = np.full(n, 5, np.int32)
+    key = torch.from_numpy(key)
+    valid = torch.from_numpy(rng.random(n) < 0.8)
+    for v in (valid, None):
+        want = _topk_smallest32_plain(key, v, k)
+        got = topk_smallest32(key.to(dev), None if v is None else v.to(dev),
+                              k)
+        m = min(n if v is None else int(v.sum()), k)
+        assert torch.equal(got.cpu()[:m], want[:m])
 
 
 @pytest.mark.parametrize("n,k", [(10, 3), (10, 40), (5000, 100),

@@ -200,6 +200,43 @@ def test_topk_permutation32_matches_reference(n, k):
     assert got[:m].tolist() == ref[:m].tolist()
 
 
+def _key32_case(case, rng, n):
+    """(u32 keys, validity) for one case of the 32-bit entry."""
+    key = rng.integers(0, 1 << 32, n).astype(np.uint32)
+    valid = np.ones(n, bool)
+    if case == "ties":
+        key = rng.integers(0, 50, n).astype(np.uint32)
+    elif case == "extremes":                 # 2^32 - 2 and 2^32 - 1 tie
+        key[rng.random(n) < 0.5] = 2**32 - 1
+        key[rng.random(n) < 0.5] = 2**32 - 2
+        key[rng.random(n) < 0.001] = 3
+    elif case == "invalid":
+        valid = rng.random(n) < 0.3
+        key[::3] = 0                         # the smallest keys, some invalid
+    elif case == "k_over_valid":
+        valid = np.zeros(n, bool)
+        valid[rng.choice(n, 40, replace=False)] = True
+    elif case == "descending":               # topk_key32's DESC key: ~key
+        key = ~rng.integers(0, 1000, n).astype(np.uint32)
+    return key, valid
+
+
+@pytest.mark.parametrize("case", ["ties", "extremes", "invalid",
+                                  "k_over_valid", "descending"])
+@pytest.mark.parametrize("n,k", [(1 << 16, 100), (70_000, 4096)])
+def test_topk_permutation32_int32_entry_matches_reference(case, n, k):
+    rng = np.random.default_rng(n + k + len(case))
+    key, valid = _key32_case(case, rng, n)
+    ref = np.asarray(jsort.topk_permutation32(jnp.asarray(key),
+                                              jnp.asarray(valid), k))
+    bits = torch.from_numpy(key.view(np.int32).copy())   # the u32 as int32
+    got = tsort.topk_permutation32(bits, _t(valid), k).numpy()
+    plain = tsort.topk_smallest32(bits, _t(valid), k).numpy()
+    m = min(int(valid.sum()), k)
+    assert got[:m].tolist() == ref[:m].tolist()
+    assert plain[:m].tolist() == ref[:m].tolist()
+
+
 def test_topk_clamped_keys_tie():
     key = torch.tensor([2**32 - 1, 2**32 - 2, 5], dtype=torch.int64)
     valid = torch.ones(3, dtype=torch.bool)
@@ -243,7 +280,9 @@ def test_topk_key32_matches_reference(name):
         if ref is None:
             assert got is None
         else:
-            assert got.tolist() == np.asarray(ref).astype(np.int64).tolist()
+            assert got.dtype == torch.int32     # the u32 key as int32 bits
+            assert got.numpy().view(np.uint32).tolist() == \
+                np.asarray(ref).astype(np.uint32).tolist()
 
 
 # -- the port itself -----------------------------------------------------------

@@ -117,6 +117,25 @@ def test_bench_queries_match_reference(sessions, sql):
     assert rows
 
 
+def test_order_by_int64_limit_takes_32bit_topk_on_both(sessions,
+                                                      monkeypatch):
+    """ORDER BY an Int64 column with proven bounds, over >= 2^16 rows,
+    takes the 32-bit top-k on both packages and gives the same rows."""
+    from clickhouse_tpu.ops import sort_ops as jsort
+    from clickhouse_tpu_torch.ops import sort_ops as tsort
+    calls = []
+    for mod, name in ((jsort, "jax"), (tsort, "torch")):
+        fn = mod.topk_permutation32
+
+        def spy(*args, _fn=fn, _name=name):
+            calls.append(_name)
+            return _fn(*args)
+        monkeypatch.setattr(mod, "topk_permutation32", spy)
+    _both(sessions, "SELECT x, x % 7 AS r FROM hits WHERE x > 1000 "
+                    "ORDER BY x DESC LIMIT 37")
+    assert sorted(set(calls)) == ["jax", "torch"]
+
+
 @pytest.mark.parametrize("sql", [
     "SELECT count(), sum(n) FROM t WHERE n > 10",
     "SELECT count() FROM t WHERE n IS NULL",
