@@ -2,29 +2,37 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --k2-wide   # only K2 at S = 16,384 (see k2_wide)
+    python3 chip_smoke.py --queries   # only Q1-Q3 times (see time_queries)
 
 Needs one NVIDIA Hopper card, nvcc and PyTorch built for CUDA; exits
 non-zero without them.  Phases, each of which fails the run:
 
-  1. build the three hand-written kernels (csrc/*.cu) with nvcc for sm_90a;
+  1. build the three hand-written kernels (csrc/*.cu) with nvcc for sm_90a,
+     one nvcc a source, all started together;
   2. hold each kernel against its plain PyTorch version on the card: edge
-     cases (K2 with skewed slots, both K3 entries with ties, extreme keys,
-     invalid rows, monotone keys and ties across blocks); integer results
-     must agree exactly, float sums within rtol 1e-12;
+     cases (K1 with and without filter terms over every storage type and
+     comparison, constants outside the storage range, NaN, NULLs, row
+     bounds off the 16-row grid and misaligned views; K2 with skewed slots;
+     both K3 entries with ties, extreme keys, invalid rows, monotone keys
+     and ties across blocks); integer results must agree exactly, float
+     sums within rtol 1e-12;
   3. drive the main path through the public API: connect(device="cuda"),
      CREATE TABLE hits (x Int64), insert_pydict 100M rows of
      (arange * 2654435761) % 1_000_003, then Q1, Q2 and Q3 (the SQL of
      bench.py), each checked against a numpy answer, with the kernels'
      launch counters reset before and read after to show the queries went
-     through K1, K2 and K3;
+     through K1, K2 and K3; Q1 must reach K1 once at 100M rows with its
+     filter as a term (read in x's int32 storage) and allocate no row mask;
   4. replay each kernel on the exact inputs the main path gave it (its
      largest launch in Q1-Q3), held against its plain version, and time
      it, its plain version and, where one exists, the single PyTorch call
      computing the same function (CUDA events, L2 flushed, device time);
-     print bytes and bound_ms (bytes / 3.35 TB/s) for each, K2 on skewed
-     slots at 100M rows and at S = 16,384, and K3's level 1 and merge apart
-     (torch.profiler); time each query
-     (median wall time of a few runs, synchronised).
+     print bytes and bound_ms (bytes / 3.35 TB/s) for each, K1 also over a
+     bool mask of 100M rows (and the kernels of one call from a
+     torch.profiler trace), K2 on skewed slots at 100M rows and at
+     S = 16,384, and K3's level 1 and merge apart (torch.profiler); time
+     each query (median wall time of 20 runs, synchronised) and Q1's
+     device-busy time (torch.profiler).
 
 The second-to-last line is a JSON object of per-kernel results (name,
 route, source, replaces, launches, ms, plain_ms, bound_ms, bound_by,
@@ -44,7 +52,7 @@ Q1 = "SELECT count() FROM hits WHERE x > 500000"
 Q2 = ("SELECT x % 1024 AS k, count() AS c, sum(x) FROM hits GROUP BY k "
       "ORDER BY c DESC LIMIT 10")
 Q3 = "SELECT x FROM hits ORDER BY x LIMIT 100"
-QUERY_REPS = 5
+QUERY_REPS = 20
 KERNEL_REPS = 20
 FLOAT_RTOL = 1e-12      # the kernel adds float partials in another order
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
@@ -53,7 +61,11 @@ SLEEP_CYCLES = 1_000_000    # ~0.5 ms of device time to cover host enqueue
 # per-kernel keys of the kernels line beyond the contract's
 EXTRA_KEYS = ("level1_ms", "merge_ms", "entry64_ms", "entry64_bound_ms",
               "one_slot_ms", "zipf_ms", "wide_s_ms", "counts_only_ms",
-              "sums_only_ms")
+              "sums_only_ms", "mask_form_ms", "mask_form_plain_ms",
+              "mask_form_library_ms", "mask_form_bytes",
+              "mask_form_bound_ms", "kernels_per_call")
+CMPS = ["equals", "notEquals", "less", "lessOrEquals", "greater",
+        "greaterOrEquals"]
 
 
 def fail(msg):
@@ -114,6 +126,115 @@ def max_abs_err(got: torch.Tensor, want: torch.Tensor) -> float:
     return 0.0
 
 
+def _lit_type(v) -> str:
+    """The type the analyzer gives a numeric literal: the narrowest
+    unsigned type for v >= 0, signed for v < 0, Float64 for a float."""
+    if isinstance(v, float):
+        return "Float64"
+    for bits in (8, 16, 32, 64):
+        if 0 <= v < 1 << bits:
+            return f"UInt{bits}"
+        if -(1 << (bits - 1)) <= v < 0:
+            return f"Int{bits}"
+    raise ValueError(v)
+
+
+def term_cases(rng, n):
+    """(column type, values, literals) for K1's filter terms: every storage
+    type a term reads (Int64 narrowed to int8 / int16 / int32, full int64,
+    uint8, UInt16 in int32, UInt32 in int64, UInt64 bits, Float64 stored as
+    float32, float32, float64), NULLs, NaN, -0.0 and infinities, and
+    constants outside the storage range."""
+    big = rng.integers(-(1 << 62), 1 << 62, n)
+    u64 = rng.integers(0, 1 << 62, n).astype(np.uint64)
+    u64[rng.random(n) < 0.3] += np.uint64(1 << 63)
+    f = rng.normal(0, 100, n)
+    f[rng.random(n) < 0.05] = np.nan
+    f[rng.random(n) < 0.05] = -0.0
+    f[:3] = [np.inf, -np.inf, 0.0]
+    nul = rng.integers(-50, 50, n).astype(object)
+    nul[rng.random(n) < 0.2] = None
+    lits = [0, 7, -1, -129, 127, 300, 40000, -(1 << 40), 1 << 40,
+            (1 << 63) + 5, 1.5, -0.0, float("nan"), float("inf")]
+    return [
+        ("Int64", rng.integers(-100, 100, n), lits),               # int8
+        ("Int64", rng.integers(-30000, 30000, n), lits),           # int16
+        ("Int64", (np.arange(n) * 2654435761) % 1_000_003, lits),  # int32
+        ("Int64", big, lits + [int(big[5]), -(1 << 63) + 1]),
+        ("UInt8", rng.integers(0, 256, n).astype(np.uint8), lits),
+        ("UInt16", rng.integers(0, 65536, n).astype(np.uint16), lits),
+        ("UInt32", rng.integers(0, 1 << 32, n).astype(np.uint32), lits),
+        ("UInt64", u64, lits + [int(u64[3]), (1 << 64) - 1]),
+        ("UInt64", rng.integers(0, 200, n).astype(np.uint64), lits),
+        ("Float32", f.astype(np.float32), lits + [float(np.float32(f[7]))]),
+        ("Float64", f.astype(np.float32).astype(np.float64), lits),
+        ("Float64", f, lits + [float(f[9])]),
+        ("Nullable(Int32)", nul, lits),
+    ]
+
+
+def make_term(values, type_name, cmp, lit, dev):
+    """The executor's K1 term for `c CMP lit` over a column of `values`."""
+    from clickhouse_tpu_torch.core import dtypes as dt
+    from clickhouse_tpu_torch.core.column import column_from_numpy
+    from clickhouse_tpu_torch.exec.executor import _filter_term
+    from clickhouse_tpu_torch.exprs.expr import (BoundCall, BoundColumn,
+                                                 BoundLiteral,
+                                                 colval_from_column)
+    col = column_from_numpy(np.asarray(values), dt.parse_type_name(type_name),
+                            device=dev)
+    cv = colval_from_column(col)
+    expr = BoundCall(cmp, [BoundColumn("c", cv.dtype), BoundLiteral(
+        lit, dt.parse_type_name(_lit_type(lit)))], dt.UInt8)
+    term = _filter_term(expr, {"c": cv}, col.capacity)
+    if term is None:
+        fail(f"`{type_name} {cmp} {lit!r}` did not become a K1 term")
+    return term
+
+
+def check_k1_terms(dev) -> int:
+    """K1 with filter terms against its plain version: every case of
+    term_cases, every comparison, row bounds off the 16-row grid (and 0),
+    a count, a sum and a min of a second column, and views starting 1 and
+    3 rows in (misaligned for every type).  -> calls compared."""
+    import dataclasses
+    from clickhouse_tpu_torch.ops.agg_ops import (_masked_reduce_plain,
+                                                  masked_reduce)
+    rng = np.random.default_rng(4)
+    n = 10_007
+    calls = 0
+    for type_name, values, lits in term_cases(rng, n):
+        y = torch.from_numpy(rng.integers(-(1 << 40), 1 << 40, n)).to(dev)
+        for cmp in CMPS:
+            for lit in lits:
+                t = make_term(values, type_name, cmp, lit, dev)
+                data = torch.zeros(t.storage.shape[0], dtype=torch.int64,
+                                   device=dev)
+                data[:n] = y
+                for rows in (n, n - 5, 0):
+                    for op, d in (("sum", None), ("sum", data),
+                                  ("min", data)):
+                        max_abs_err(
+                            masked_reduce(op, d, None, n_rows=rows,
+                                          terms=[t]),
+                            _masked_reduce_plain(op, d, None, False, rows,
+                                                 [t]))
+                        calls += 1
+                for off in (1, 3):
+                    tv = dataclasses.replace(
+                        t, storage=t.storage[off:],
+                        validity=None if t.validity is None
+                        else t.validity[off:])
+                    for d in (None, data[off:]):
+                        max_abs_err(
+                            masked_reduce("sum", d, None, n_rows=n - 9,
+                                          terms=[tv]),
+                            _masked_reduce_plain("sum", d, None, False,
+                                                 n - 9, [tv]))
+                        calls += 1
+    return calls
+
+
 def check_k1(dev):
     from clickhouse_tpu_torch.ops.agg_ops import (_masked_reduce_plain,
                                                   masked_reduce)
@@ -149,7 +270,9 @@ def check_k1(dev):
         got = masked_reduce(op, x.to(dev), None if m is None else m.to(dev),
                             unsigned=uns)
         max_abs_err(got, want)
-    print(f"K1 masked_reduce edge cases: {len(cases)} agree", flush=True)
+    n_terms = check_k1_terms(dev)
+    print(f"K1 masked_reduce edge cases: {len(cases)} without terms and "
+          f"{n_terms} with filter terms agree", flush=True)
 
 
 def check_k2(dev):
@@ -253,16 +376,19 @@ def main_path_args(session):
     return the arguments of each kernel's largest launch: the exact inputs
     the main path hands it."""
     from clickhouse_tpu_torch.ops import agg_ops, mxu_segsum, sort_ops
-    spied = {"masked_reduce": (agg_ops, "_masked_reduce_cuda", 1),
+    # kernel -> (module, wrapper, rows of a launch from its arguments)
+    spied = {"masked_reduce": (agg_ops, "_masked_reduce_cuda",
+                               lambda a: a[4]),
              "dense_group_reduce": (mxu_segsum, "_dense_group_reduce_cuda",
-                                    0),
-             "topk_smallest": (sort_ops, "_topk_cuda", 0)}
+                                    lambda a: a[0].shape[0]),
+             "topk_smallest": (sort_ops, "_topk_cuda",
+                               lambda a: a[0].shape[0])}
     got, saved = {}, {}
-    for name, (mod, attr, row_arg) in spied.items():
+    for name, (mod, attr, rows_of) in spied.items():
         fn = saved[name] = getattr(mod, attr)
 
-        def spy(*args, _fn=fn, _name=name, _row_arg=row_arg):
-            rows = args[_row_arg].shape[0]
+        def spy(*args, _fn=fn, _name=name, _rows_of=rows_of):
+            rows = _rows_of(args)
             if _name not in got or rows > got[_name][1]:
                 got[_name] = (args, rows)
             return _fn(*args)
@@ -309,11 +435,10 @@ def k2_wide(dev) -> float:
     return ms
 
 
-def k3_split(call, reps=5):
-    """Device ms of K3's level 1 (k_topk_stream) and of its merge
-    (k_topk_bound + k_topk_final) in one call, from a torch.profiler trace
-    of `reps` calls, the L2 flushed before each.  None where the trace
-    holds no device time for them."""
+def device_kernels(call, reps=5):
+    """{kernel name: device ms per call} over `reps` calls of call(), the L2
+    flushed before each, from a torch.profiler trace (the flush's own
+    kernel left out)."""
     from torch.profiler import ProfilerActivity, profile
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     call()
@@ -323,17 +448,92 @@ def k3_split(call, reps=5):
             flush.zero_()
             call()
         torch.cuda.synchronize()
-    us = {"k_topk_stream": 0.0, "k_topk_bound": 0.0, "k_topk_final": 0.0}
+    out = {}
     for e in prof.key_averages():
         t = getattr(e, "device_time_total", None)
         if t is None:
             t = getattr(e, "cuda_time_total", 0.0)
-        for name in us:
-            if name in e.key:
-                us[name] += t
-    level1 = us["k_topk_stream"] / reps / 1e3
-    merge = (us["k_topk_bound"] + us["k_topk_final"]) / reps / 1e3
-    return (level1 or None), (merge or None)
+        if t > 0 and e.count >= reps:
+            out[e.key] = t / reps / 1e3
+    flush_keys = [k for k in out if "fill" in k.lower()
+                  or "memset" in k.lower()]
+    for k in flush_keys:
+        del out[k]
+    return out
+
+
+def k1_forms(dev, args):
+    """K1 at Q1's inputs (its filter as a term over x's int32 storage, the
+    row bound, no mask) and over a bool mask of the same rows (the form
+    K1 took before it read filter terms; a mask of x > c made here), each
+    held against its plain version and timed beside it.  -> record of the
+    kernels line."""
+    from clickhouse_tpu_torch.ops.agg_ops import (_masked_reduce_plain,
+                                                  masked_reduce)
+    op, data, mask, unsigned, n_rows, terms = args
+    if data is not None or mask is not None or len(terms) != 1 \
+            or terms[0].storage.dtype != torch.int32 or n_rows < N_ROWS:
+        fail(f"Q1 did not reach K1 as one int32 term over {N_ROWS} rows: "
+             f"data {data is not None}, mask {mask is not None}, "
+             f"{[t.storage.dtype for t in terms]}, {n_rows} rows")
+    t = terms[0]
+
+    def fused():
+        return masked_reduce(op, None, None, n_rows=n_rows, terms=terms)
+
+    def fused_plain():
+        return _masked_reduce_plain(op, None, None, False, n_rows, terms)
+    rec = dict(
+        max_abs_err=max_abs_err(fused(), fused_plain()),
+        ms=cuda_ms(fused), plain_ms=cuda_ms(fused_plain),
+        library_ms=None,
+        library="none: no single PyTorch call counts x > c "
+                "(torch.count_nonzero(x > c) timed for information)",
+        # the rows the kernel must read, 4 bytes each, and the count
+        bytes=n_rows * t.storage.element_size() + 8,
+        shape=f"count over {n_rows} rows of `x {t.cmp} {t.constant}`, x "
+              f"stored as {t.storage.dtype}")
+    x = t.storage
+    c = t.constant
+    info_ms = cuda_ms(lambda: torch.count_nonzero(x > c))
+    kernels = device_kernels(fused)
+    rec["kernels_per_call"] = len(kernels)
+    print(f"masked_reduce at Q1's inputs, device kernels of one call "
+          f"(torch.profiler): {kernels}; torch.count_nonzero(x > c) "
+          f"{info_ms:.4f} ms, for information", flush=True)
+    if len(kernels) != 1:
+        fail(f"one K1 call ran {len(kernels)} device kernels: {kernels}")
+    # the mask form: a bool mask of every row of the column
+    m = x > c
+    mb = m.numel() + 8
+    max_abs_err(masked_reduce("sum", None, m),
+                _masked_reduce_plain("sum", None, m))
+    rec.update(
+        mask_form_ms=cuda_ms(lambda: masked_reduce("sum", None, m)),
+        mask_form_plain_ms=cuda_ms(
+            lambda: _masked_reduce_plain("sum", None, m)),
+        mask_form_library_ms=cuda_ms(lambda: torch.sum(m)),
+        mask_form_bytes=mb, mask_form_bound_ms=bound_ms(mb))
+    print(f"masked_reduce, mask form (count over bool{tuple(m.shape)}): "
+          f"kernel {rec['mask_form_ms']:.4f} ms, plain "
+          f"{rec['mask_form_plain_ms']:.4f} ms, library "
+          f"{rec['mask_form_library_ms']:.4f} ms (torch.sum(mask)), {mb} "
+          f"bytes, bound {bound_ms(mb):.4f} ms, share of bound "
+          f"{bound_ms(mb) / rec['mask_form_ms']:.3f}", flush=True)
+    return rec
+
+
+def k3_split(call):
+    """Device ms of K3's level 1 (k_topk_stream) and of its merge
+    (k_topk_bound + k_topk_final) in one call, from a torch.profiler trace
+    (device_kernels).  None where the trace holds no device time for
+    them."""
+    kernels = device_kernels(call)
+
+    def ms(*names):
+        return sum(t for k, t in kernels.items()
+                   if any(n in k for n in names)) or None
+    return ms("k_topk_stream"), ms("k_topk_bound", "k_topk_final")
 
 
 def q_shapes(dev, args):
@@ -341,24 +541,14 @@ def q_shapes(dev, args):
     against its plain version and timed beside it, beside one PyTorch call
     of the same function where there is one (timed here only; the port
     never calls it).  -> {name: record}."""
-    from clickhouse_tpu_torch.ops.agg_ops import (_masked_reduce_plain,
-                                                  masked_reduce)
     from clickhouse_tpu_torch.ops.mxu_segsum import (
         _dense_group_reduce_plain, dense_group_reduce)
     from clickhouse_tpu_torch.ops.sort_ops import (
         _topk_smallest32_plain, _topk_smallest_plain, topk_smallest,
         topk_smallest32)
     out = {}
-    # Q1: count() = K1 sum over the filter's bool row mask
-    op, mask, m1, _ = args["masked_reduce"]
-    out["masked_reduce"] = dict(
-        max_abs_err=max_abs_err(masked_reduce(op, mask, m1),
-                                _masked_reduce_plain(op, mask, m1)),
-        ms=cuda_ms(lambda: masked_reduce(op, mask, m1)),
-        plain_ms=cuda_ms(lambda: _masked_reduce_plain(op, mask, m1)),
-        library_ms=cuda_ms(lambda: torch.sum(mask)),
-        library="torch.sum(mask)", bytes=nbytes(mask, m1) + 8,
-        shape=f"{op} over {tuple(mask.shape)} {mask.dtype}")
+    # Q1: count() with the filter `x > 500000` as a K1 term
+    out["masked_reduce"] = k1_forms(dev, args["masked_reduce"])
     # Q2: slot ids, base mask, counts for count() and the group count (one
     # mask, counted once), sum(x)
     k2 = args["dense_group_reduce"]
@@ -474,6 +664,67 @@ def expected_answers(x: np.ndarray):
     return {"Q1": q1, "Q2": q2, "Q3": q3}
 
 
+def load_hits(ch):
+    """A cuda session with hits (x Int64) of N_ROWS rows on the device."""
+    x = (np.arange(N_ROWS, dtype=np.int64) * 2654435761) % 1_000_003
+    s = ch.connect(device="cuda")
+    s.execute("CREATE TABLE hits (x Int64)")
+    t0 = time.perf_counter()
+    s.insert_pydict("hits", {"x": x})
+    s.catalog.get_table("default", "hits").read_block()
+    torch.cuda.synchronize()
+    print(f"insert + device block of {N_ROWS} rows: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return s, x
+
+
+def device_busy(s, sql, reps=QUERY_REPS):
+    """(device-busy ms, device operations, wall ms) per run of sql, from a
+    torch.profiler trace of `reps` runs (busy: the union of the intervals
+    of the device's kernels, copies and fills; the wall is the traced
+    one)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    s.execute(sql)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(reps):
+            s.execute(sql)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    busy, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy += b - max(a, end)
+            end = b
+    return busy / reps / 1e3, len(spans) / reps, wall / reps * 1e3
+
+
+def time_queries(s):
+    """Median wall of QUERY_REPS runs of each query (after one untimed run),
+    then Q1's device-busy time from a trace.  Uses only the public API, so
+    copied into an unpacked older checkout (``--queries``) it times that
+    tree alike."""
+    for name, sql in (("Q1", Q1), ("Q2", Q2), ("Q3", Q3)):
+        s.execute(sql)
+        times = []
+        for _ in range(QUERY_REPS):
+            t0 = time.perf_counter()
+            s.execute(sql)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        print(f"{name} median wall {statistics.median(times) * 1e3:.3f} ms "
+              f"over {QUERY_REPS} runs ({N_ROWS} rows): {sql}", flush=True)
+    busy, ops, wall = device_busy(s, Q1)
+    print(f"Q1 under torch.profiler: device busy {busy:.4f} ms of "
+          f"{wall:.3f} ms wall a run, {ops:g} device operations a run",
+          flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this check needs a GPU")
@@ -495,33 +746,46 @@ def main():
         # beside a checkout of an earlier tree to time K2 there alike
         k2_wide(dev)
         return
+    if sys.argv[1:] == ["--queries"]:
+        time_queries(load_hits(ch)[0])
+        return
 
     check_k1(dev)
     check_k2(dev)
     check_k3(dev)
 
-    x = (np.arange(N_ROWS, dtype=np.int64) * 2654435761) % 1_000_003
+    s, x = load_hits(ch)
     want = expected_answers(x)
-    s = ch.connect(device="cuda")
-    s.execute("CREATE TABLE hits (x Int64)")
-    t0 = time.perf_counter()
-    s.insert_pydict("hits", {"x": x})
-    s.catalog.get_table("default", "hits").read_block()
-    torch.cuda.synchronize()
-    print(f"insert + device block of {N_ROWS} rows: "
-          f"{time.perf_counter() - t0:.1f} s", flush=True)
 
     # the main path, once, through the public API
     _native.reset_launches()
     per_query = {}
     for name, sql in (("Q1", Q1), ("Q2", Q2), ("Q3", Q3)):
         before = dict(_native.LAUNCHES)
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
         rows = s.execute(sql).rows()
+        extra = torch.cuda.max_memory_allocated() - base
         if rows != want[name]:
             fail(f"{name} returned {rows[:5]}..., numpy says "
                  f"{want[name][:5]}...")
         per_query[name] = {k: _native.LAUNCHES[k] - before[k]
                            for k in before}
+        if name == "Q1":
+            # one K1 launch over every row, and no row mask on the way (a
+            # bool mask of the rows alone would take N_ROWS bytes)
+            if per_query["Q1"]["masked_reduce"] != 1 \
+                    or _native.LAUNCH_ROWS["masked_reduce"][-1] < N_ROWS:
+                fail(f"Q1 did not reach K1 once over {N_ROWS} rows: "
+                     f"{per_query['Q1']}, "
+                     f"{_native.LAUNCH_ROWS['masked_reduce']}")
+            if extra >= N_ROWS:
+                fail(f"Q1 allocated {extra} bytes of device memory")
+            print(f"Q1: one K1 launch over "
+                  f"{_native.LAUNCH_ROWS['masked_reduce'][-1]} rows; "
+                  f"{extra} bytes of device memory allocated at its peak",
+                  flush=True)
     launches = dict(_native.LAUNCHES)
     launch_rows = {k: list(v) for k, v in _native.LAUNCH_ROWS.items()}
     for name, kernel in (("Q1", "masked_reduce"),
@@ -531,16 +795,7 @@ def main():
             fail(f"{name} did not launch {kernel}: {per_query[name]}")
     print(f"Q1-Q3 match numpy; launches per query: {per_query}",
           flush=True)
-
-    for name, sql in (("Q1", Q1), ("Q2", Q2), ("Q3", Q3)):
-        times = []
-        for _ in range(QUERY_REPS):
-            t0 = time.perf_counter()
-            s.execute(sql)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-        print(f"{name} median wall {statistics.median(times) * 1e3:.3f} ms "
-              f"over {QUERY_REPS} runs ({N_ROWS} rows): {sql}", flush=True)
+    time_queries(s)
 
     shapes = q_shapes(dev, main_path_args(s))
 

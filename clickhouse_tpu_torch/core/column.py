@@ -144,8 +144,8 @@ def factorize_strings(values: np.ndarray):
 
 
 def column_from_numpy(values: np.ndarray, dtype: Optional[dt.DType] = None,
-                      capacity: Optional[int] = None,
-                      device="cpu") -> Column:
+                      capacity: Optional[int] = None, *,
+                      device) -> Column:
     """Build a Column on `device` from host data, dictionary-encoding
     strings."""
     values = np.asarray(values)

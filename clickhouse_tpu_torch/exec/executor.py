@@ -6,6 +6,13 @@ mask), so Filter is an AND and rows move only where an operator needs it
 (aggregate, top-k).  Plans run eagerly, one torch operation or kernel at a
 time; the first host synchronisation is ``materialize``.
 
+The row mask stays in parts (``agg_ops.RowMask``: the scan's row count, a
+Filter's ``column CMP literal`` terms over numeric columns, and a bool mask
+for every other predicate) until a consumer needs a tensor.  GROUP BY ()
+reductions and counts hand the parts to K1, which reads each term's column
+in its narrow storage: ``SELECT count() FROM t WHERE x > c`` is one pass.
+The route is chosen by the predicate's form alone.
+
 Ported nodes: Scan, Filter, Project, Aggregate (GROUP BY () and dense
 GROUP BY), Sort with a LIMIT the top-k path takes, and Limit.  Every other
 node, and every path of these nodes that is not ported, raises
@@ -14,7 +21,7 @@ node, and every path of these nodes that is not ported, raises
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -25,8 +32,10 @@ from ..core.column import pad_to
 from ..core.errors import NotImplementedError_
 from ..core.settings import Settings
 from ..exprs import aggregates as agg_reg
-from ..exprs.expr import ColVal, colval_from_column, evaluate
-from ..ops import agg_ops, filter_ops, sort_ops
+from ..exprs.expr import (DEVICE_KEY, BoundCall, BoundColumn, BoundLiteral,
+                          ColVal, _literal_colval, colval_from_column,
+                          evaluate)
+from ..ops import _native, agg_ops, filter_ops, sort_ops
 from ..plan import logical as L
 
 __all__ = ["ExecBlock", "ExecContext", "execute_plan", "materialize"]
@@ -34,23 +43,26 @@ __all__ = ["ExecBlock", "ExecContext", "execute_plan", "materialize"]
 
 @dataclasses.dataclass
 class ExecBlock:
-    """A masked block: full-capacity columns + row validity mask."""
+    """A masked block: full-capacity columns + row mask."""
     cols: Dict[str, ColVal]        # field id -> ColVal
-    valid: torch.Tensor            # bool (capacity,)
+    rows: agg_ops.RowMask          # kept in parts until a tensor is needed
     capacity: int
+
+    @property
+    def valid(self) -> torch.Tensor:
+        """The row mask as a bool (capacity,) tensor (built once)."""
+        return self.rows.tensor()
 
     def env(self) -> Dict[str, ColVal]:
         env = dict(self.cols)
-        # reserved key: the block row mask, for mask-aware functions
-        env["__row_valid__"] = ColVal(dt.UInt8, self.valid.to(torch.uint8),
-                                      None)
+        env[DEVICE_KEY] = ColVal(dt.UInt8, torch.empty(
+            0, dtype=torch.uint8, device=self.rows.device))
         return env
-
 
 
 class ExecContext:
     def __init__(self, table_blocks: Dict[Tuple[str, str], Block],
-                 settings: Settings, device="cpu"):
+                 settings: Settings, device):
         self.table_blocks = table_blocks
         self.settings = settings
         self.device = torch.device(device)
@@ -72,6 +84,52 @@ def _bool_mask(cv: ColVal, capacity: int) -> torch.Tensor:
     if cv.validity is not None:
         m = m & cv.validity.to(torch.bool)
     return m
+
+
+# comparison -> the same comparison with its arguments swapped
+_CMP_SWAPPED = {"equals": "equals", "notEquals": "notEquals",
+                "less": "greater", "greater": "less",
+                "lessOrEquals": "greaterOrEquals",
+                "greaterOrEquals": "lessOrEquals"}
+_PLAIN_NUMERIC = {"Int8", "Int16", "Int32", "Int64", "UInt8", "UInt16",
+                  "UInt32", "UInt64", "Float32", "Float64"}
+
+
+def _conjuncts(expr) -> list:
+    """The operands of a (nested) AND; [expr] for any other predicate."""
+    if isinstance(expr, BoundCall) and expr.name == "and":
+        return [c for a in expr.args for c in _conjuncts(a)]
+    return [expr]
+
+
+def _filter_term(expr, env: Dict[str, ColVal],
+                 capacity: int) -> Optional[agg_ops.Term]:
+    """`column CMP literal` over a plain numeric column as a K1 term (the
+    literal cast as _cmp_exec casts it), or None for any other form."""
+    if not isinstance(expr, BoundCall) or expr.name not in _CMP_SWAPPED \
+            or len(expr.args) != 2:
+        return None
+    a, b = expr.args
+    cmp = expr.name
+    if isinstance(a, BoundLiteral) and isinstance(b, BoundColumn):
+        a, b, cmp = b, a, _CMP_SWAPPED[cmp]
+    if not isinstance(a, BoundColumn) or not isinstance(b, BoundLiteral) \
+            or b.value is None or b.dtype.nullable \
+            or b.dtype.name not in _PLAIN_NUMERIC:
+        return None
+    cv = env.get(a.name)
+    if cv is None or cv.dictionary is not None or cv.is_const \
+            or dt.remove_nullable(cv.dtype).name not in _PLAIN_NUMERIC:
+        return None
+    col = cv.storage
+    if col.dim() != 1 or col.shape[0] != capacity or (
+            cv.validity is not None and cv.validity.shape != col.shape):
+        return None
+    logical = dt.remove_nullable(cv.dtype).np_dtype
+    compare = np.promote_types(logical, b.dtype.np_dtype)
+    lit = _literal_colval(b, torch.device("cpu"))
+    constant = dt.cast_tensor(lit.data, b.dtype.np_dtype, compare).item()
+    return agg_ops.Term(col, cv.validity, logical, cmp, compare, constant)
 
 
 def _gather_colval(cv: ColVal, idx: torch.Tensor, capacity: int) -> ColVal:
@@ -106,17 +164,26 @@ def _exec_scan(node: L.ScanNode, ctx: ExecContext) -> ExecBlock:
     cap = blk.capacity
     if node.column_stats:
         ctx.field_bounds.update(node.column_stats)
-    n = blk.num_rows
-    valid = _arange(cap, ctx.device) < int(n)
-    ctx.count("rows_scanned", int(n))
-    return ExecBlock(cols, valid, cap)
+    n = int(blk.num_rows)
+    ctx.count("rows_scanned", n)
+    return ExecBlock(cols, agg_ops.RowMask(cap, ctx.device, n), cap)
 
 
 def _exec_filter(node: L.FilterNode, ctx: ExecContext) -> ExecBlock:
+    """AND the predicate into the row mask: each `column CMP literal`
+    conjunct as a K1 term (up to K1's limit), the rest as a bool mask."""
     child = execute_plan(node.child, ctx)
-    pred = evaluate(node.predicate, child.env())
-    mask = _bool_mask(pred, child.capacity)
-    return ExecBlock(child.cols, child.valid & mask, child.capacity)
+    env = child.env()
+    rows = child.rows
+    for conj in _conjuncts(node.predicate):
+        term = _filter_term(conj, env, child.capacity) \
+            if len(rows.terms) < _native.K1_MAX_TERMS else None
+        if term is not None:
+            rows = rows.and_term(term)
+        else:
+            rows = rows.and_mask(_bool_mask(evaluate(conj, env),
+                                            child.capacity))
+    return ExecBlock(child.cols, rows, child.capacity)
 
 
 def _exec_project(node: L.ProjectNode, ctx: ExecContext) -> ExecBlock:
@@ -133,7 +200,7 @@ def _exec_project(node: L.ProjectNode, ctx: ExecContext) -> ExecBlock:
         b = ranges.infer_bounds(e, ctx.field_bounds)
         if b is not None:
             ctx.field_bounds[f.id] = b
-    return ExecBlock(cols, child.valid, child.capacity)
+    return ExecBlock(cols, child.rows, child.capacity)
 
 
 def _agg_key_arrays(node: L.AggregateNode, child: ExecBlock,
@@ -145,8 +212,7 @@ def _agg_key_arrays(node: L.AggregateNode, child: ExecBlock,
     cap = child.capacity
     key_cvs = [evaluate(e, child.env()) for _, e in node.keys]
     if not key_cvs:
-        return key_cvs, [torch.zeros((cap,), dtype=torch.int32,
-                                     device=ctx.device)], None, True
+        return key_cvs, [], None, True
     arrays: List[torch.Tensor] = []
     dims: List = []
     dense_ok = True
@@ -206,6 +272,9 @@ def _stage1(node: L.AggregateNode, child: ExecBlock,
     """Local grouping + per-aggregate partial states."""
     cap = child.capacity
     from ..plan import ranges
+    # GROUP BY () hands the row mask's parts to K1; the groupings that
+    # compute per-row slots take it as a tensor
+    rows = child.rows if global_agg else child.valid
     per_agg_inputs = []
     for item in node.aggregates:
         arg_cvs = []
@@ -217,19 +286,18 @@ def _stage1(node: L.AggregateNode, child: ExecBlock,
         cond = None
         if item.cond is not None:
             cond = _bool_mask(evaluate(item.cond, child.env()), cap)
-        premask = agg_reg.compose_row_mask(child.valid, arg_cvs, cond)
+        premask = agg_reg.compose_row_mask(rows, arg_cvs, cond)
         per_agg_inputs.append((item, arg_cvs, cond, premask))
 
     if global_agg:
         # GROUP BY (): masked reductions (K1), never a sort
-        grouping = agg_ops.group_trivial(child.valid, cap_g)
+        grouping = agg_ops.group_trivial(ctx.device, cap_g)
     elif dims is not None:
         # provably-small key space: direct-array grouping (K2)
-        grouping = agg_ops.group_by_dense(key_arrays, dims, child.valid,
-                                          cap_g)
+        grouping = agg_ops.group_by_dense(key_arrays, dims, rows, cap_g)
     else:
-        grouping = agg_ops.group_by_sort(key_arrays, child.valid, cap_g)
-    gctx = agg_reg.GroupContext(row_valid=child.valid, grouping=grouping)
+        grouping = agg_ops.group_by_sort(key_arrays, rows, cap_g)
+    gctx = agg_reg.GroupContext(row_valid=rows, grouping=grouping)
 
     if grouping.kind == "dense":
         group_counts, states_per_agg = _dense_stage1(
@@ -240,9 +308,14 @@ def _stage1(node: L.AggregateNode, child: ExecBlock,
         grouping.num_groups = grouping.present.to(torch.int64).sum()
         return grouping, group_counts, states_per_agg
 
-    group_counts = grouping.count_rows(child.valid)
+    group_counts = grouping.count_rows(rows)
+    if global_agg:
+        grouping.num_groups = (group_counts[0] > 0).to(torch.int64)
+    # a count over exactly the block's rows is the group count
     states_per_agg = [
         (item, arg_cvs,
+         [group_counts] if isinstance(item.fn, agg_reg.CountAgg)
+         and premask is rows else
          item.fn.update(dataclasses.replace(gctx, premask=premask),
                         arg_cvs, cond))
         for item, arg_cvs, cond, premask in per_agg_inputs]
@@ -320,7 +393,7 @@ def _finalize(node: L.AggregateNode, key_cvs, unique_keys, num_groups,
         if global_agg:
             num_groups = torch.clamp(num_groups, min=1)
         group_valid = _arange(cap_g, ctx.device) < num_groups
-    return ExecBlock(cols, group_valid, cap_g)
+    return ExecBlock(cols, agg_ops.RowMask.of(group_valid), cap_g)
 
 
 def _agg_capacity(child: ExecBlock, dims, global_agg: bool,
@@ -381,7 +454,7 @@ def _exec_sort(node: L.SortNode, ctx: ExecContext) -> ExecBlock:
 def _sort_block(node: L.SortNode, child: ExecBlock, ctx: ExecContext
                 ) -> ExecBlock:
     cap = child.capacity
-    n_valid = filter_ops.count_mask(child.valid)
+    n_valid = filter_ops.count_mask(child.rows)
 
     s = ctx.settings
     # tokens are built only on the path that reads them: eager torch, unlike
@@ -405,7 +478,7 @@ def _sort_block(node: L.SortNode, child: ExecBlock, ctx: ExecContext
         cols = {fid: _gather_colval(cv, idx_full, cap)
                 for fid, cv in child.cols.items()}
         valid = _arange(out_cap, ctx.device) < torch.clamp(n_valid, max=k)
-        return ExecBlock(cols, valid, out_cap)
+        return ExecBlock(cols, agg_ops.RowMask.of(valid), out_cap)
 
     tokens = [_token_for_sort(evaluate(i.expr, child.env()), i, cap)
               for i in node.items]
@@ -413,7 +486,7 @@ def _sort_block(node: L.SortNode, child: ExecBlock, ctx: ExecContext
     cols = {fid: _gather_colval(cv, perm, cap)
             for fid, cv in child.cols.items()}
     valid = _arange(cap, ctx.device) < n_valid
-    return ExecBlock(cols, valid, cap)
+    return ExecBlock(cols, agg_ops.RowMask.of(valid), cap)
 
 
 def _exec_limit(node: L.LimitNode, ctx: ExecContext) -> ExecBlock:
@@ -422,7 +495,7 @@ def _exec_limit(node: L.LimitNode, ctx: ExecContext) -> ExecBlock:
     keep = child.valid & (rank >= node.offset)
     if node.limit >= 0:
         keep = keep & (rank < node.offset + node.limit)
-    return ExecBlock(child.cols, keep, child.capacity)
+    return ExecBlock(child.cols, agg_ops.RowMask.of(keep), child.capacity)
 
 
 _DISPATCH: Dict[type, Callable] = {

@@ -12,7 +12,7 @@ errors (UnknownFunction / NotImplementedError_).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -29,9 +29,20 @@ __all__ = ["AggregateFunction", "get_aggregate", "is_aggregate_name",
 @dataclasses.dataclass
 class GroupContext:
     """Everything an aggregate needs to produce per-group states."""
-    row_valid: torch.Tensor        # bool row mask of the block
+    # the block's rows: a bool mask, or (GROUP BY ()) the RowMask whose
+    # parts K1 takes as they are
+    row_valid: Union[torch.Tensor, agg_ops.RowMask]
     grouping: agg_ops.Grouping
-    premask: Optional[torch.Tensor] = None
+    premask: Union[torch.Tensor, agg_ops.RowMask, None] = None
+
+    @property
+    def capacity(self) -> int:
+        return _capacity(self.row_valid)
+
+
+def _capacity(rows) -> int:
+    return rows.capacity if isinstance(rows, agg_ops.RowMask) \
+        else rows.shape[0]
 
 
 def _arg_valid(cv: Optional[ColVal], capacity: int):
@@ -43,18 +54,25 @@ def _arg_valid(cv: Optional[ColVal], capacity: int):
     return v
 
 
-def compose_row_mask(row_valid: torch.Tensor, args: List[ColVal],
-                     cond: Optional[torch.Tensor]) -> torch.Tensor:
-    """rows an aggregate consumes: valid & arg validities & -If condition."""
-    cap = row_valid.shape[0]
-    m = row_valid
+def compose_row_mask(row_valid, args: List[ColVal],
+                     cond: Optional[torch.Tensor]):
+    """rows an aggregate consumes: valid & arg validities & -If condition.
+
+    `row_valid` is a bool tensor or a RowMask; the result is of the same
+    kind, and is `row_valid` itself when nothing narrows it."""
+    cap = _capacity(row_valid)
+    m = None
     for a in args:
         av = _arg_valid(a, cap)
         if av is not None:
-            m = m & av
+            m = av if m is None else m & av
     if cond is not None:
-        m = m & cond
-    return m
+        m = cond if m is None else m & cond
+    if m is None:
+        return row_valid
+    if isinstance(row_valid, agg_ops.RowMask):
+        return row_valid.and_mask(m)
+    return row_valid & m
 
 
 def _u64_to_f64(v: torch.Tensor) -> torch.Tensor:
@@ -85,14 +103,14 @@ class AggregateFunction:
         raise NotImplementedError
 
     def _row_mask(self, ctx: GroupContext, args: List[ColVal],
-                  cond: Optional[torch.Tensor]) -> torch.Tensor:
+                  cond: Optional[torch.Tensor]):
         if ctx.premask is not None:
             return ctx.premask
         return compose_row_mask(ctx.row_valid, args, cond)
 
     @staticmethod
     def _value(ctx: GroupContext, cv: ColVal) -> torch.Tensor:
-        return cv.broadcast(ctx.row_valid.shape[0]).data
+        return cv.broadcast(ctx.capacity).data
 
 
 class CountAgg(AggregateFunction):

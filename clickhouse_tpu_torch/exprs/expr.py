@@ -22,8 +22,13 @@ from ..core import dtypes as dt
 from ..core.column import Column, Dictionary
 from ..core.errors import NotImplementedError_, TypeError_, UnknownIdentifier
 
-__all__ = ["ColVal", "BoundExpr", "BoundColumn", "BoundLiteral", "BoundCall",
-           "BoundInList", "evaluate", "colval_from_column", "storage_np"]
+__all__ = ["ColVal", "StoredColVal", "BoundExpr", "BoundColumn",
+           "BoundLiteral", "BoundCall", "BoundInList", "evaluate",
+           "colval_from_column", "storage_np", "DEVICE_KEY"]
+
+# reserved environment key: a ColVal whose (empty) tensor names the block's
+# device, for literals
+DEVICE_KEY = "__device__"
 
 
 @dataclasses.dataclass
@@ -44,6 +49,11 @@ class ColVal:
     def is_const(self) -> bool:
         return getattr(self.data, "ndim", 0) == 0
 
+    @property
+    def storage(self):
+        """The tensor as stored (StoredColVal: narrower than `data`)."""
+        return self.data
+
     def broadcast(self, capacity: int) -> "ColVal":
         data = self.data
         if self.is_const:
@@ -61,15 +71,44 @@ def storage_np(cv: ColVal) -> np.dtype:
     return dt.remove_nullable(cv.dtype).np_dtype
 
 
+class StoredColVal(ColVal):
+    """A scanned column stored narrower than its logical type
+    (core/column.py narrow_storage).  `storage` is the narrow tensor, which
+    K1's filter terms read as it is; `data` widens it to the logical type
+    at its first read."""
+
+    def __init__(self, dtype: dt.DType, storage, validity=None):
+        self._storage = storage
+        super().__init__(dtype, None, validity)
+
+    @property
+    def data(self):
+        if self._wide is None:
+            self._wide = self._storage.to(
+                dt.remove_nullable(self.dtype).torch_dtype)
+        return self._wide
+
+    @data.setter
+    def data(self, value):
+        self._wide = value
+
+    @property
+    def storage(self):
+        return self._storage
+
+    @property
+    def is_const(self) -> bool:
+        return False
+
+    def broadcast(self, capacity: int) -> "ColVal":
+        return self              # a full column, validity full or None
+
+
 def colval_from_column(col: Column) -> ColVal:
-    data = col.data
-    if not col.dtype.is_dictionary:
-        want = dt.remove_nullable(col.dtype).torch_dtype
-        if data.dtype != want:
-            # narrow physical storage (core/column.py narrow_storage):
-            # widen to the logical type on read
-            data = data.to(want)
-    return ColVal(col.dtype, data, col.validity, col.dictionary)
+    if not col.dtype.is_dictionary \
+            and col.data.dtype != dt.remove_nullable(col.dtype).torch_dtype:
+        return StoredColVal(col.dtype, col.data, col.validity)
+    return ColVal(col.dtype, col.data, col.validity, col.dictionary)
 
 
 # -- bound expression nodes --------------------------------------------------
@@ -143,9 +182,9 @@ class BoundInList(BoundExpr):
 
 
 def _env_device(env: Dict[str, ColVal]) -> torch.device:
-    rv = env.get("__row_valid__")
-    if rv is not None:
-        return rv.data.device
+    marker = env.get(DEVICE_KEY)
+    if marker is not None:
+        return marker.data.device
     for cv in env.values():
         if isinstance(cv.data, torch.Tensor):
             return cv.data.device

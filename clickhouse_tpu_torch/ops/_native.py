@@ -1,10 +1,11 @@
 """Build, load and call the engine's CUDA kernels (``csrc/*.cu``).
 
 The sources compile with ``nvcc`` for ``sm_90a`` into ONE shared library
-with a plain C interface, loaded with ctypes.  The build runs at the first
-launch, into ``clickhouse_tpu_torch/_build/`` (named by a digest of the
-sources and flags, so an edited source builds anew); nothing is compiled
-or loaded when a module is imported.
+with a plain C interface, loaded with ctypes: one ``nvcc`` a source, all
+started together, then one link.  The build runs at the first launch, into
+``clickhouse_tpu_torch/_build/`` (named by a digest of the sources and
+flags, so an edited source builds anew); nothing is compiled or loaded when
+a module is imported.
 
 Every pointer and the stream go to C as ``c_void_p``; kernels run on
 PyTorch's current stream and allocate nothing: the wrappers in ``ops/``
@@ -29,13 +30,14 @@ from typing import Dict, List, Optional
 
 __all__ = ["LAUNCHES", "LAUNCH_ROWS", "KernelBuildError", "build", "library",
            "check", "count_launch", "reset_launches", "stream_ptr",
-           "dtype_code", "grid_blocks", "aligned16"]
+           "dtype_code", "grid_blocks", "aligned16", "K1_MAX_TERMS",
+           "K1Term", "K1Args"]
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "_build"
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC"]
+ARCH_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 # kernel name -> launches since the last reset
 LAUNCHES: Dict[str, int] = {"masked_reduce": 0, "dense_group_reduce": 0,
@@ -45,6 +47,31 @@ LAUNCH_ROWS: Dict[str, List[int]] = {k: [] for k in LAUNCHES}
 
 _LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
+
+
+K1_MAX_TERMS = 4       # kMaxTerms of csrc/masked_reduce.cu
+
+
+class K1Term(ctypes.Structure):
+    """ChttK1Term of csrc/masked_reduce.cu (one `column CMP constant`)."""
+    _fields_ = [("col", ctypes.c_void_p), ("valid", ctypes.c_void_p),
+                ("lo", ctypes.c_ulonglong), ("span", ctypes.c_ulonglong),
+                ("xorv", ctypes.c_ulonglong), ("dtype", ctypes.c_int),
+                ("mode", ctypes.c_int), ("neg", ctypes.c_int),
+                ("nan_pass", ctypes.c_int), ("u64src", ctypes.c_int),
+                ("vec", ctypes.c_int), ("valid_vec", ctypes.c_int),
+                ("pad", ctypes.c_int)]
+
+
+class K1Args(ctypes.Structure):
+    """ChttK1Args of csrc/masked_reduce.cu (one call of K1)."""
+    _fields_ = [("data", ctypes.c_void_p), ("mask", ctypes.c_void_p),
+                ("out", ctypes.c_void_p), ("partials", ctypes.c_void_p),
+                ("ticket", ctypes.c_void_p), ("n", ctypes.c_longlong),
+                ("head", ctypes.c_longlong), ("dtype", ctypes.c_int),
+                ("data_vec", ctypes.c_int), ("mask_vec", ctypes.c_int),
+                ("uns", ctypes.c_int), ("n_terms", ctypes.c_int),
+                ("pad", ctypes.c_int), ("terms", K1Term * K1_MAX_TERMS)]
 
 
 class KernelBuildError(RuntimeError):
@@ -89,14 +116,32 @@ def build() -> Path:
     out = BUILD_DIR / f"libchtt_{h.hexdigest()[:16]}.so"
     if out.exists():
         return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    objs = BUILD_DIR / f"{out.stem}.{os.getpid()}.obj"
+    objs.mkdir(parents=True, exist_ok=True)
+    nvcc = _nvcc()
+    procs = []
+    for p in cus:
+        cmd = [nvcc, *NVCC_FLAGS, "-I", str(CSRC_DIR), "-c", "-o",
+               str(objs / f"{p.stem}.o"), str(p)]
+        procs.append((cmd, subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)))
+    failed = []
+    for cmd, proc in procs:
+        _, err = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"nvcc exited {proc.returncode}: {' '.join(cmd)}"
+                          f"\n{err}")
     tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", str(tmp),
-           *[str(p) for p in cus]]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise KernelBuildError(
-            f"nvcc exited {proc.returncode}: {' '.join(cmd)}\n{proc.stderr}")
+    if not failed:
+        cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+               *[str(objs / f"{p.stem}.o") for p in cus]]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        if proc.returncode != 0:
+            failed.append(f"nvcc exited {proc.returncode}: {' '.join(cmd)}"
+                          f"\n{proc.stderr}")
+    shutil.rmtree(objs, ignore_errors=True)
+    if failed:
+        raise KernelBuildError("\n".join(failed))
     os.replace(tmp, out)
     return out
 
@@ -108,8 +153,7 @@ def library() -> ctypes.CDLL:
         if _LIB is None:
             lib = ctypes.CDLL(str(build()))
             P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
-            lib.chtt_masked_reduce.argtypes = [P, I, P, LL, I, I, P, P, P,
-                                               I, P]
+            lib.chtt_masked_reduce.argtypes = [P, I, I, P]
             lib.chtt_masked_reduce.restype = I
             lib.chtt_dense_group_reduce.argtypes = [P, I, P, LL, I, I, P, I,
                                                     P, P, P, P, P, I, P]

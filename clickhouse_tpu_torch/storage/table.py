@@ -48,8 +48,7 @@ class Table:
 
     def __init__(self, name: str, schema: List[Tuple[str, dt.DType]],
                  engine: str = "Memory",
-                 order_by: Optional[List[str]] = None,
-                 device="cpu"):
+                 order_by: Optional[List[str]] = None, *, device):
         self.name = name
         self.schema: Dict[str, dt.DType] = dict(schema)
         self.engine = engine

@@ -9,10 +9,13 @@ imports no JAX, so on a machine with a card it runs on its own:
 Integer results must be bit-exact.  Float sums: rtol=1e-12, because the
 kernel adds per-block partials in another order than torch's sum.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
 
+from chip_smoke import CMPS, make_term, term_cases
 from clickhouse_tpu_torch.ops import _native
 from clickhouse_tpu_torch.ops.agg_ops import (_masked_reduce_plain,
                                               masked_reduce)
@@ -206,6 +209,91 @@ def test_topk_smallest_matches_plain(dev, n, k, order):
         n_valid = n if v is None else int(v.sum())
         m = min(n_valid, k)
         assert torch.equal(got.cpu()[:m], want[:m])
+
+
+@pytest.mark.parametrize("case", range(13))
+def test_masked_reduce_terms_match_plain(dev, case):
+    """The term entry, exact against its plain version: every CMP and
+    literal, a row bound that is not a multiple of 16, reductions of a
+    second column, and a misaligned view of every column."""
+    rng = np.random.default_rng(case)
+    n = 10_007
+    type_name, values, lits = term_cases(rng, n)[case]
+    y = torch.from_numpy(rng.integers(-(1 << 40), 1 << 40, n)).to(dev)
+    yf = torch.from_numpy(rng.normal(0, 1, n)).to(dev)
+    for cmp in CMPS:
+        for lit in lits:
+            t = make_term(values, type_name, cmp, lit, dev)
+            cap = t.storage.shape[0]
+            yc = torch.zeros(cap, dtype=torch.int64, device=dev)
+            yc[:n] = y
+            for n_rows in (n, n - 5, 0):
+                for op, data in (("sum", None), ("sum", yc), ("min", yc),
+                                 ("any", yc)):
+                    got = masked_reduce(op, data, None, n_rows=n_rows,
+                                        terms=[t])
+                    want = _masked_reduce_plain(op, data, None, False,
+                                                n_rows, [t])
+                    _same(got, want)
+            # views starting 1..3 rows in: misaligned for every type
+            for off in (1, 3):
+                tv = dataclasses.replace(
+                    t, storage=t.storage[off:],
+                    validity=None if t.validity is None
+                    else t.validity[off:])
+                got = masked_reduce("sum", None, None, n_rows=n - 9,
+                                    terms=[tv])
+                _same(got, _masked_reduce_plain("sum", None, None, False,
+                                                n - 9, [tv]))
+                fv = torch.zeros(cap, dtype=torch.float64, device=dev)
+                fv[:n] = yf
+                got = masked_reduce("sum", fv[off:], None, terms=[tv])
+                _same(got, _masked_reduce_plain("sum", fv[off:], None,
+                                                False, None, [tv]))
+
+
+def test_masked_reduce_two_terms_mask_and_nan_ops(dev):
+    """Two terms ANDed with a bool mask, on float and int data, every op."""
+    rng = np.random.default_rng(5)
+    n = 100_003
+    x = (np.arange(n) * 2654435761) % 1_000_003
+    f = rng.normal(0, 1e3, n)
+    f[rng.random(n) < 0.02] = np.nan
+    t1 = make_term(x, "Int64", "greater", 5, dev)
+    t2 = make_term(f, "Float64", "lessOrEquals", 300.5, dev)
+    cap = t1.storage.shape[0]
+    mask = torch.from_numpy(rng.random(cap) < 0.7).to(dev)
+    fd = torch.zeros(cap, dtype=torch.float64, device=dev)
+    fd[:n] = torch.from_numpy(f)
+    for data in (None, fd, t1.storage, fd.to(torch.float32)):
+        for op in OPS:
+            if data is None and op != "sum":
+                continue
+            if op in ("bor", "band", "bxor") and data.is_floating_point():
+                continue
+            got = masked_reduce(op, data, mask, n_rows=n, terms=[t1, t2])
+            _same(got, _masked_reduce_plain(op, data, mask, False, n,
+                                            [t1, t2]))
+
+
+def test_masked_reduce_never_copies_a_column(dev):
+    """The wrapper reads columns where they lie: an aligned column, a
+    misaligned view and a count over a mask allocate no copy."""
+    n = 10_000_000
+    x = torch.arange(n, dtype=torch.int32, device=dev)
+    t = make_term(np.arange(1000), "Int64", "greater", 5, dev)
+    term = dataclasses.replace(t, storage=x, validity=None)
+    view = dataclasses.replace(t, storage=x[1:], validity=None)
+    mask = x % 3 == 0
+    masked_reduce("sum", None, None, terms=[term])
+    torch.cuda.synchronize()
+    for args in ((None, None, [term]), (None, None, [view]),
+                 (None, mask, []), (x[1:], None, [view])):
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        masked_reduce("sum", args[0], args[1], terms=args[2])
+        torch.cuda.synchronize()
+        assert torch.cuda.max_memory_allocated() - before < 1 << 20
 
 
 def test_launch_counters_count_kernel_launches(dev):

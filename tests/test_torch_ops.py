@@ -113,9 +113,100 @@ def test_count_mask_matches_reference():
     assert int(tfilter.count_mask(_t(m))) == \
         int(jfilter.count_mask(jnp.asarray(m)))
     g = jagg.group_trivial(jnp.ones(5000, jnp.bool_))
-    gt = tagg.group_trivial(torch.ones(5000, dtype=torch.bool))
+    gt = tagg.group_trivial(torch.device("cpu"))
     assert np.asarray(g.count_rows(jnp.asarray(m))).tolist() == \
         gt.count_rows(_t(m)).tolist()
+
+
+@pytest.mark.parametrize("case", range(13))
+def test_masked_reduce_terms_match_reference(case):
+    """The plain K1 with a filter term and a row bound against the
+    reference's comparison, count_mask and Grouping._reduce_trivial: every
+    storage type a term reads, every comparison, NaN, NULLs, constants
+    beyond the storage range and UInt64 against signed constants (compared
+    in float64)."""
+    from chip_smoke import CMPS, _lit_type, make_term, term_cases
+    from clickhouse_tpu.exprs import functions as jfn
+    from clickhouse_tpu.exprs.expr import BoundLiteral as JLiteral
+    from clickhouse_tpu.exprs.expr import _literal_colval as jliteral
+    rng = np.random.default_rng(case)
+    n, n_rows = 3000, 2993
+    type_name, values, lits = term_cases(rng, n)[case]
+    jt = jdt.parse_type_name(type_name)
+    vals, validity = np.asarray(values), None
+    if vals.dtype == object:                 # NULLs
+        validity = np.array([v is not None for v in vals])
+        vals = np.where(validity, vals, 0)
+        validity = jnp.asarray(validity.astype(np.uint8))
+    col = JColVal(jt, jnp.asarray(vals.astype(jdt.remove_nullable(jt)
+                                              .np_dtype)), validity)
+    y = rng.integers(-(1 << 40), 1 << 40, n)
+    g = jagg.group_trivial(jnp.ones(n, jnp.bool_))
+    for cmp in CMPS:
+        for lit in lits:
+            pred = jfn.get(cmp).execute(
+                [col, jliteral(JLiteral(lit, jdt.parse_type_name(
+                    _lit_type(lit))))], jdt.UInt8)
+            m = (np.asarray(pred.data) != 0) & (np.arange(n) < n_rows)
+            if pred.validity is not None:
+                m &= np.asarray(pred.validity) != 0
+            t = make_term(values, type_name, cmp, lit, "cpu")
+            got = tagg.masked_reduce("sum", None, n_rows=n_rows, terms=[t])
+            assert int(got) == int(jfilter.count_mask(jnp.asarray(m))), \
+                (type_name, cmp, lit)
+            yt = np.zeros(t.storage.shape[0], np.int64)
+            yt[:n] = y
+            for op in ("sum", "min", "max"):
+                ref = np.asarray(g.reduce(op, jnp.asarray(y),
+                                          jnp.asarray(m)))[:1]
+                got = tagg.masked_reduce(op, _t(yt), n_rows=n_rows,
+                                         terms=[t])
+                _same(got.reshape(1), ref)
+
+
+def _k1_term_rows(kt, storage: np.ndarray) -> np.ndarray:
+    """csrc/masked_reduce.cu term_pass over host values, from the kernel
+    parameters _k1_term gives (validity left out)."""
+    U = np.uint64
+    if storage.dtype.kind == "f":
+        d = storage.astype(np.float32).astype(np.float64) \
+            if kt.mode == tagg._TM_F32 else storage.astype(np.float64)
+    elif kt.mode == tagg._TM_I32:
+        k = (storage.astype(np.int64) - kt.lo) & 0xFFFFFFFF
+        return (k <= kt.span) != bool(kt.neg)
+    elif kt.mode == tagg._TM_K64:
+        key = storage.astype(np.int64).view(U) ^ U(kt.xorv)
+        return ((key - U(kt.lo)) <= U(kt.span)) != bool(kt.neg)
+    else:
+        x = storage.astype(np.int64)
+        d = x.astype(np.float32).astype(np.float64) \
+            if kt.mode == tagg._TM_F32 else x.astype(np.float64)
+        if kt.u64src:
+            d = np.where(x < 0, d + 18446744073709551616.0, d)
+    nan = np.isnan(d)
+    b = np.where(d == 0, 0.0, d).view(U)
+    key = np.where(b >> U(63), ~b, b | U(1 << 63))
+    ok = ((key - U(kt.lo)) <= U(kt.span)) != bool(kt.neg)
+    return np.where(nan, bool(kt.nan_pass), ok)
+
+
+def test_k1_term_parameters_give_the_plain_rows():
+    """The kernel's form of every term (key range, negation, NaN answer,
+    32-bit test for narrow columns), emulated on the host, selects the rows
+    the plain version selects."""
+    from chip_smoke import CMPS, make_term, term_cases
+    rng = np.random.default_rng(3)
+    n = 5000
+    for type_name, values, lits in term_cases(rng, n):
+        for cmp in CMPS:
+            for lit in lits:
+                t = make_term(values, type_name, cmp, lit, "cpu")
+                kt = tagg._k1_term(t, 0)
+                got = _k1_term_rows(kt, t.storage.numpy())
+                if t.validity is not None:
+                    got = got & (t.validity.numpy() != 0)
+                want = t.evaluate().numpy()
+                assert got.tolist() == want.tolist(), (type_name, cmp, lit)
 
 
 # -- K2 ----------------------------------------------------------------------

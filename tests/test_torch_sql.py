@@ -155,6 +155,78 @@ def test_global_aggregates_match_reference(sessions, sql):
 
 
 @pytest.mark.parametrize("sql", [
+    "SELECT count() FROM hits WHERE x = 500000",
+    "SELECT count(), sum(x) FROM hits WHERE x != 1000",
+    "SELECT count(), sum(x) FROM hits WHERE x < 1000",
+    "SELECT count() FROM hits WHERE x <= 999983",
+    "SELECT count(), min(x) FROM hits WHERE x >= 500000",
+    "SELECT count() FROM hits WHERE 500000 < x",
+    "SELECT count(), sum(x), min(x), avg(x) FROM hits "
+    "WHERE x > 1000 AND x < 900000",
+    "SELECT count(), sum(n), min(n), avg(n) FROM t WHERE n >= -10",
+    "SELECT count(), sum(a) FROM t WHERE u > 9223372036854775808 AND a < 5",
+    "SELECT count(), sum(a) FROM t WHERE u > -1",
+    "SELECT count(), max(f), min(g) FROM t WHERE f > 0.5 AND g <= 3",
+    "SELECT count(), sum(a) FROM t WHERE b = 300 OR b < 1",
+    "SELECT count() FROM t WHERE b != 300",
+    "SELECT count(), sum(a), max(f) FROM t WHERE a > 2 AND a < 8 AND b != 1 "
+    "AND f > -50 AND g < 10",
+    "SELECT count(), countIf(a > 3), sum(a) FROM t WHERE n < 20 AND a + 1 > 2",
+], ids=["equals", "notEquals", "less", "lessOrEquals", "greaterOrEquals",
+        "literal-first", "and-of-two-terms", "nullable", "uint64-and-int32",
+        "uint64-vs-signed", "floats", "or-unfused", "beyond-storage-range",
+        "five-conjuncts", "term-and-expression"])
+def test_filter_terms_match_reference(sessions, sql):
+    """WHERE clauses whose `column CMP literal` conjuncts K1 takes as terms
+    (and the rest as a mask) give the reference's rows."""
+    _both(sessions, sql)
+
+
+@pytest.mark.parametrize("n_rows", [0, 1500], ids=["empty", "not-1024k"])
+def test_filter_terms_over_small_tables(sessions, n_rows):
+    """An empty table, and one whose row count is not a multiple of 1024."""
+    js, ts = sessions
+    x = (np.arange(n_rows, dtype=np.int64) * 7919) % 3001 - 1500
+    for s in (js, ts):
+        s.execute(f"CREATE TABLE small{n_rows} (x Int64, y Nullable(Int32))")
+        if n_rows:
+            s.insert_pydict(f"small{n_rows}", {
+                "x": x, "y": np.where(x % 5 == 0, None, x // 3)
+                .astype(object)})
+    for sql in ("SELECT count(), sum(x), min(x), avg(x) FROM {t} "
+                "WHERE x > 100",
+                "SELECT count(), sum(y) FROM {t} WHERE y <= 0 AND x != 7",
+                "SELECT count() FROM {t}"):
+        _both(sessions, sql.format(t=f"small{n_rows}"))
+
+
+def test_q1_is_one_k1_call_with_a_term(sessions, monkeypatch):
+    """Q1 reaches K1 once, with `x > 500000` as a term over x's int32
+    storage and no mask, and builds no row mask of the table."""
+    from clickhouse_tpu_torch.ops import agg_ops
+    calls, built = [], []
+    plain = agg_ops._masked_reduce_plain
+    tensor = agg_ops.RowMask.tensor
+
+    def spy(op, data, mask, unsigned=False, n_rows=None, terms=()):
+        calls.append((op, data, mask, n_rows, terms))
+        return plain(op, data, mask, unsigned, n_rows, terms)
+
+    def spy_tensor(self):
+        built.append(self.capacity)
+        return tensor(self)
+    monkeypatch.setattr(agg_ops, "_masked_reduce_plain", spy)
+    monkeypatch.setattr(agg_ops.RowMask, "tensor", spy_tensor)
+    _both(sessions, "SELECT count() FROM hits WHERE x > 500000")
+    assert len(calls) == 1
+    op, data, mask, n_rows, terms = calls[0]
+    assert op == "sum" and data is None and mask is None
+    assert n_rows == N_HITS and len(terms) == 1
+    assert terms[0].storage.dtype == torch.int32 and terms[0].cmp == "greater"
+    assert terms[0].storage.shape[0] not in built
+
+
+@pytest.mark.parametrize("sql", [
     "SELECT a, b, count(), sum(n), sum(u) FROM t GROUP BY a, b",
     "SELECT b, count(), countIf(a > 4), avg(a) FROM t GROUP BY b",
     "SELECT a % 3 AS m, count() AS c, sum(a) FROM t WHERE n IS NOT NULL "
