@@ -2,37 +2,47 @@
 
     python3 chip_smoke.py
     python3 chip_smoke.py --k2-wide   # only K2 at S = 16,384 (see k2_wide)
-    python3 chip_smoke.py --queries   # only Q1-Q3 times (see time_queries)
+    python3 chip_smoke.py --queries   # only the query times (time_queries)
 
 Needs one NVIDIA Hopper card, nvcc and PyTorch built for CUDA; exits
 non-zero without them.  Phases, each of which fails the run:
 
-  1. build the three hand-written kernels (csrc/*.cu) with nvcc for sm_90a,
+  1. build the six hand-written kernels (csrc/*.cu) with nvcc for sm_90a,
      one nvcc a source, all started together;
   2. hold each kernel against its plain PyTorch version on the card: edge
      cases (K1 with and without filter terms over every storage type and
      comparison, constants outside the storage range, NaN, NULLs, row
      bounds off the 16-row grid and misaligned views; K2 with skewed slots;
      both K3 entries with ties, extreme keys, invalid rows, monotone keys
-     and ties across blocks); integer results must agree exactly, float
-     sums within rtol 1e-12;
+     and ties across blocks; K4 over every key type's token, UInt64 above
+     2^63, NaN and -0.0, all-equal keys, one row, row counts off the tile
+     grid, invalid rows, no valid row and multi-key chains; K5 with one
+     group, a group a row, and more groups than slots; K6 for every op,
+     with masks, empty and fully masked groups, and one group holding 40 %
+     of the rows); integer results must agree exactly, K1's and K2's float
+     sums within rtol 1e-12, K6's within n_g * eps * sum(|x|) a group of
+     n_g rows (its atomics add a group's parts in a varying order);
   3. drive the main path through the public API: connect(device="cuda"),
      CREATE TABLE hits (x Int64), insert_pydict 100M rows of
-     (arange * 2654435761) % 1_000_003, then Q1, Q2 and Q3 (the SQL of
-     bench.py), each checked against a numpy answer, with the kernels'
-     launch counters reset before and read after to show the queries went
-     through K1, K2 and K3; Q1 must reach K1 once at 100M rows with its
-     filter as a term (read in x's int32 storage) and allocate no row mask;
+     (arange * 2654435761) % 1_000_003, then Q1, Q2, Q2b, Q2m and Q3
+     (Q1-Q3 and Q2b the SQL of bench.py), each checked against a numpy
+     answer, with the kernels' launch counters reset before and read after
+     to show the queries went through K1-K6: Q1 must reach K1 once at 100M
+     rows with its filter as a term (read in x's int32 storage) and
+     allocate no row mask; Q2b and Q2m must reach K4 and K5 over every
+     row, and Q2m K6;
   4. replay each kernel on the exact inputs the main path gave it (its
-     largest launch in Q1-Q3), held against its plain version, and time
-     it, its plain version and, where one exists, the single PyTorch call
-     computing the same function (CUDA events, L2 flushed, device time);
-     print bytes and bound_ms (bytes / 3.35 TB/s) for each, K1 also over a
-     bool mask of 100M rows (and the kernels of one call from a
-     torch.profiler trace), K2 on skewed slots at 100M rows and at
-     S = 16,384, and K3's level 1 and merge apart (torch.profiler); time
-     each query (median wall time of 20 runs, synchronised) and Q1's
-     device-busy time (torch.profiler).
+     largest launch on the main path), held against its plain version, and
+     time it, its plain version and, where one exists, the single PyTorch
+     call computing the same function (CUDA events, L2 flushed, device
+     time); print bytes and bound_ms (bytes / 3.35 TB/s) for each, K1 in
+     both its forms (Q1's filter term, and the largest bool-mask count the
+     main path made: the aggregated block's row count in _sort_block) and
+     the kernels of one call from a torch.profiler trace, K2 on skewed slots at 100M rows and at
+     S = 16,384, K3's level 1 and merge apart (torch.profiler), K6 for
+     each of Q2m's ops and over 100M rows where one group holds 40 % of
+     them; time each query (median wall time of 20 runs, synchronised) and
+     the device-busy time of Q1, Q2b and Q2m (torch.profiler).
 
 The second-to-last line is a JSON object of per-kernel results (name,
 route, source, replaces, launches, ms, plain_ms, bound_ms, bound_by,
@@ -52,6 +62,12 @@ Q1 = "SELECT count() FROM hits WHERE x > 500000"
 Q2 = ("SELECT x % 1024 AS k, count() AS c, sum(x) FROM hits GROUP BY k "
       "ORDER BY c DESC LIMIT 10")
 Q3 = "SELECT x FROM hits ORDER BY x LIMIT 100"
+Q2B = ("SELECT x AS k, count() AS c FROM hits GROUP BY k ORDER BY c DESC "
+       "LIMIT 10 SETTINGS max_groups = 2097152")
+Q2M = ("SELECT intDiv(x, 4) AS k, count() AS c, sum(x) AS s, min(x) AS lo, "
+       "max(x) AS hi, any(x) AS a FROM hits GROUP BY k ORDER BY s DESC "
+       "LIMIT 10")
+QUERIES = (("Q1", Q1), ("Q2", Q2), ("Q2b", Q2B), ("Q2m", Q2M), ("Q3", Q3))
 QUERY_REPS = 20
 KERNEL_REPS = 20
 FLOAT_RTOL = 1e-12      # the kernel adds float partials in another order
@@ -63,7 +79,11 @@ EXTRA_KEYS = ("level1_ms", "merge_ms", "entry64_ms", "entry64_bound_ms",
               "one_slot_ms", "zipf_ms", "wide_s_ms", "counts_only_ms",
               "sums_only_ms", "mask_form_ms", "mask_form_plain_ms",
               "mask_form_library_ms", "mask_form_bytes",
-              "mask_form_bound_ms", "kernels_per_call")
+              "mask_form_bound_ms", "mask_form_shape", "launches_fused",
+              "launches_mask_form", "kernels_per_call", "passes",
+              "digit_bits", "per_op_ms", "skew_ms", "skew_bound_ms",
+              "information", "hist_ms", "scan_ms", "scatter_ms")
+F64_EPS = 2.0 ** -52
 CMPS = ["equals", "notEquals", "less", "lessOrEquals", "greater",
         "greaterOrEquals"]
 
@@ -371,30 +391,240 @@ def check_k3(dev):
           "ties across blocks agree", flush=True)
 
 
+# multi-key sorts of the sort_key_columns, least significant key last
+SORT_KEY_CHAINS = [["bool", "int32_bounded"], ["float64", "uint64", "int64"],
+                   ["uint64", "float64", "float32", "bool"]]
+
+
+def sort_key_columns(rng, n):
+    """CPU SortKeys of n rows for every kind of key K4 sorts: signed and
+    unsigned ints, UInt64 bits above 2^63, floats with NaN, -0.0 and +0.0,
+    bools and a bounded int32 (Q2b's key)."""
+    from clickhouse_tpu_torch.ops.sort_ops import SortKey
+    f = rng.normal(0, 1, n)
+    f[rng.random(n) < 0.05] = np.nan
+    f[rng.random(n) < 0.05] = -0.0
+    f[rng.random(n) < 0.05] = 0.0
+    u = rng.integers(0, 4, n).astype(np.uint64) << np.uint64(62)
+    return {
+        "int64": SortKey(torch.from_numpy(rng.integers(-3, 3, n))),
+        "uint64": SortKey(torch.from_numpy(u.view(np.int64)), unsigned=True),
+        "float64": SortKey(torch.from_numpy(f)),
+        "float32": SortKey(torch.from_numpy(f.astype(np.float32))),
+        "int16": SortKey(torch.from_numpy(
+            rng.integers(-300, 300, n).astype(np.int16))),
+        "uint8": SortKey(torch.from_numpy(
+            rng.integers(0, 256, n).astype(np.uint8))),
+        "bool": SortKey(torch.from_numpy(rng.random(n) < 0.5),
+                        bounds=(0, 1)),
+        "int32_bounded": SortKey(torch.from_numpy(
+            rng.integers(0, 1_000_003, n).astype(np.int32)),
+            bounds=(0, 1_000_002)),
+    }
+
+
+def check_k4(dev):
+    """K4 against its plain version: raw keys (one row, row counts off the
+    4,096-row tile grid, all-equal keys, u64 keys above 2^63, 0 bits), and
+    the whole pass plan of sort_rows (every key type's token, NaN and -0.0,
+    invalid rows, no valid row, multi-key chains) on the card against the
+    same call on the CPU copies."""
+    import dataclasses
+    from clickhouse_tpu_torch.ops.sort_ops import (
+        _radix_sort_pairs_plain, radix_sort_pairs, sort_rows)
+    rng = np.random.default_rng(6)
+    calls = 0
+    for n in (1, 4095, 4097, 1_000_003):
+        cases = [
+            (torch.from_numpy(rng.integers(0, 1 << 21, n).astype(np.int32)),
+             21),
+            (torch.from_numpy(rng.integers(0, 1 << 32, n, dtype=np.uint64)
+                              .astype(np.uint32).view(np.int32)), 32),
+            (torch.from_numpy(rng.integers(-(1 << 63), (1 << 63) - 1, n,
+                                           dtype=np.int64)), 64),
+            (torch.from_numpy(rng.integers(0, 3, n).astype(np.int64) << 62),
+             64),
+            (torch.full((n,), 5, dtype=torch.int32), 3),
+            (torch.zeros(n, dtype=torch.int64), 0)]
+        perm = torch.from_numpy(rng.permutation(n).astype(np.int32)).to(dev)
+        for key, bits in cases:
+            for vals in (None, perm):
+                got = radix_sort_pairs(key.to(dev), bits, vals)
+                want = _radix_sort_pairs_plain(key.to(dev), bits, vals)
+                for a, b in zip(got, want):
+                    max_abs_err(a, b)
+                calls += 1
+    n = 1_000_003
+    cols = sort_key_columns(rng, n)
+    chains = [[k] for k in cols] + SORT_KEY_CHAINS
+    valids = [None, torch.from_numpy(rng.random(n) < 0.8),
+              torch.zeros(n, dtype=torch.bool)]
+    for names in chains:
+        for valid in valids:
+            keys = [cols[k] for k in names]
+            want, wk = sort_rows(keys, valid)
+            got, gk = sort_rows(
+                [dataclasses.replace(k, data=k.data.to(dev)) for k in keys],
+                None if valid is None else valid.to(dev))
+            m = n if valid is None else int(valid.sum())
+            max_abs_err(got.cpu()[:m], want[:m])
+            for a, b in zip(gk, wk):
+                max_abs_err(a.cpu()[:m], b[:m])
+            calls += 1
+    print(f"K4 radix_sort_pairs edge cases: {calls} calls agree (raw keys "
+          f"at n in (1, 4095, 4097, 1000003); sort_rows over every key "
+          f"type, chains, invalid rows and no valid row)", flush=True)
+
+
+def check_k5(dev):
+    """K5 against its plain version: one group, a group a row, more groups
+    than slots, invalid rows, no valid row, two key arrays."""
+    from clickhouse_tpu_torch.ops.scan_ops import (_segment_bounds_plain,
+                                                   segment_bounds)
+    rng = np.random.default_rng(7)
+    n = 3_000_017
+    base = np.sort(rng.integers(0, 200_000, n))
+    cases = {"one_group": ([np.zeros(n, np.int32)], n, 1 << 20),
+             "group_a_row": ([np.arange(n, dtype=np.int64)], n, 1 << 22),
+             "over_cap": ([(np.arange(n) // 3).astype(np.int32)], n, 1024),
+             "invalid_rows": ([base.astype(np.int32)], n - 54_321, 1 << 18),
+             "no_valid_row": ([base.astype(np.int32)], 0, 1 << 18),
+             "two_keys": ([base.astype(np.int32),
+                           np.where(base % 7 == 0, rng.integers(0, 2, n), 0)
+                           .astype(np.int64)], n, 1 << 18)}
+    for name, (keys, nv, cap_g) in cases.items():
+        kd = [torch.from_numpy(k).to(dev) for k in keys]
+        nvt = torch.tensor(nv, dtype=torch.int64, device=dev)
+        for a, b in zip(segment_bounds(kd, nvt, cap_g),
+                        _segment_bounds_plain(kd, nvt, cap_g)):
+            max_abs_err(a, b)
+    print(f"K5 segment_bounds edge cases agree: {', '.join(cases)}",
+          flush=True)
+
+
+def grouped_rows(n, groups, dev, skew=None, seed=8):
+    """(perm, gid) of n rows over `groups` groups, key-sorted on the card
+    (a `skew` share of the rows in one group), the rows of each group in
+    ascending row order: what K4 and K5 give K6."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    key = torch.randint(0, groups, (n,), generator=g, device=dev)
+    if skew is not None:
+        key[torch.rand(n, generator=g, device=dev) < skew] = groups // 2
+    order = torch.sort(key, stable=True)
+    ks = order.values
+    head = torch.ones(n, dtype=torch.bool, device=dev)
+    head[1:] = ks[1:] != ks[:-1]
+    gid = (torch.cumsum(head.to(torch.int32), 0) - 1).to(torch.int32)
+    return order.indices.to(torch.int32), gid
+
+
+def k6_agrees(op, data, mask, perm, gid, cap_g, unsigned=False) -> float:
+    """K6 against its plain version on the same inputs; float sums within
+    n_g * eps * sum(|x|) a group of n_g masked-in rows.  -> max abs err."""
+    from clickhouse_tpu_torch.ops.scan_ops import (_segment_reduce_plain,
+                                                   segment_reduce)
+    got = segment_reduce(op, data, mask, perm, gid, cap_g,
+                         unsigned=unsigned)
+    want = _segment_reduce_plain(op, data, mask, perm, gid, cap_g, unsigned)
+    if not (op == "sum" and got.is_floating_point()):
+        if got.is_floating_point():     # min/max/any: the same bits
+            bits = torch.int64 if got.dtype == torch.float64 else torch.int32
+            got, want = got.view(bits), want.view(bits)
+        return max_abs_err(got, want)
+    scale = _segment_reduce_plain("sum", data.abs().to(torch.float64), mask,
+                                  perm, gid, cap_g, False)
+    cnt = _segment_reduce_plain("count", None, mask, perm, gid, cap_g,
+                                False)
+    nan = torch.isnan(want)
+    if not torch.equal(torch.isnan(got), nan):
+        fail(f"K6 {op}: NaN groups differ")
+    err = (got - want).abs()[~nan]
+    if not bool((err <= (cnt.to(torch.float64) * F64_EPS * scale)[~nan])
+                .all()):
+        fail(f"K6 float sum beyond n_g * eps * sum(|x|) a group")
+    return float(err.max()) if err.numel() else 0.0
+
+
+def check_k6(dev):
+    """K6 against its plain version: every op over every storage type, with
+    no mask, a partial mask and a mask of no row (empty and fully masked
+    groups), UInt64 bits, and 3M rows where one group holds 40 %."""
+    rng = np.random.default_rng(9)
+    n = 1_000_003
+    perm, gid = grouped_rows(n, 70_000, dev)
+    masks = [None, torch.from_numpy(rng.random(n) < 0.3).to(dev),
+             torch.zeros(n, dtype=torch.bool, device=dev)]
+    calls = 0
+    for dtype in (torch.bool, torch.int8, torch.uint8, torch.int16,
+                  torch.int32, torch.int64, torch.float32, torch.float64):
+        if dtype.is_floating_point:
+            x = torch.from_numpy(rng.normal(0, 1e6, n)).to(dtype)
+            x[::97] = -0.0
+            x[::89] = float("nan")
+        elif dtype == torch.bool:
+            x = torch.from_numpy(rng.random(n) < 0.5)
+        else:
+            info = torch.iinfo(dtype)
+            x = torch.from_numpy(rng.integers(info.min, info.max, n,
+                                              endpoint=True)).to(dtype)
+        for op in ("sum", "min", "max", "any", "bor", "band", "bxor",
+                   "count"):
+            if op in ("bor", "band", "bxor") and dtype.is_floating_point:
+                continue
+            for m in masks:
+                for uns in ((False, True) if dtype == torch.int64
+                            else (False,)):
+                    k6_agrees(op, None if op == "count" else x.to(dev), m,
+                              perm, gid, 1 << 17, unsigned=uns)
+                    calls += 1
+    sperm, sgid = grouped_rows(3_000_000, 200_000, dev, skew=0.4)
+    y = torch.from_numpy(rng.integers(-(1 << 40), 1 << 40, 3_000_000)).to(dev)
+    for op in ("sum", "min", "max", "any", "count"):
+        k6_agrees(op, None if op == "count" else y, None, sperm, sgid,
+                  1 << 18)
+        calls += 1
+    print(f"K6 segment_reduce edge cases: {calls} calls agree (every op "
+          f"and storage type, masks of some and of no row, a group of 40 % "
+          f"of the rows)", flush=True)
+
+
 def main_path_args(session):
-    """Run Q1-Q3 once more with each kernel's launch wrapper spied on, and
-    return the arguments of each kernel's largest launch: the exact inputs
-    the main path hands it."""
-    from clickhouse_tpu_torch.ops import agg_ops, mxu_segsum, sort_ops
+    """Run the main path's queries once more with each kernel's launch
+    wrapper spied on, and return the arguments of each kernel's largest
+    launch (K1: of each form, its filter terms and its bool mask; K6: of
+    each op): the exact inputs the main path hands it."""
+    from clickhouse_tpu_torch.ops import agg_ops, mxu_segsum, scan_ops, \
+        sort_ops
     # kernel -> (module, wrapper, rows of a launch from its arguments)
     spied = {"masked_reduce": (agg_ops, "_masked_reduce_cuda",
                                lambda a: a[4]),
              "dense_group_reduce": (mxu_segsum, "_dense_group_reduce_cuda",
                                     lambda a: a[0].shape[0]),
              "topk_smallest": (sort_ops, "_topk_cuda",
-                               lambda a: a[0].shape[0])}
+                               lambda a: a[0].shape[0]),
+             "radix_sort_pairs": (sort_ops, "_radix_sort_cuda",
+                                  lambda a: a[0].shape[0]),
+             "segment_bounds": (scan_ops, "_segment_bounds_cuda",
+                                lambda a: a[0][0].shape[0]),
+             "segment_reduce": (scan_ops, "_segment_reduce_cuda",
+                                lambda a: a[4].shape[0])}
     got, saved = {}, {}
     for name, (mod, attr, rows_of) in spied.items():
         fn = saved[name] = getattr(mod, attr)
 
         def spy(*args, _fn=fn, _name=name, _rows_of=rows_of):
             rows = _rows_of(args)
-            if _name not in got or rows > got[_name][1]:
-                got[_name] = (args, rows)
+            key = _name
+            if _name == "segment_reduce":
+                key = f"{_name}:{args[0]}"
+            elif _name == "masked_reduce" and not args[5]:
+                key = f"{_name}:mask"
+            if key not in got or rows > got[key][1]:
+                got[key] = (args, rows)
             return _fn(*args)
         setattr(mod, attr, spy)
     try:
-        for sql in (Q1, Q2, Q3):
+        for _, sql in QUERIES:
             session.execute(sql)
     finally:
         for name, (mod, attr, _) in spied.items():
@@ -462,12 +692,12 @@ def device_kernels(call, reps=5):
     return out
 
 
-def k1_forms(dev, args):
+def k1_forms(dev, args, mask_args):
     """K1 at Q1's inputs (its filter as a term over x's int32 storage, the
-    row bound, no mask) and over a bool mask of the same rows (the form
-    K1 took before it read filter terms; a mask of x > c made here), each
-    held against its plain version and timed beside it.  -> record of the
-    kernels line."""
+    row bound, no mask) and at the main path's largest count over a bool
+    mask (mask_args: the aggregated block's rows that _sort_block counts),
+    each held against its plain version and timed beside it.  -> record of
+    the kernels line."""
     from clickhouse_tpu_torch.ops.agg_ops import (_masked_reduce_plain,
                                                   masked_reduce)
     op, data, mask, unsigned, n_rows, terms = args
@@ -503,18 +733,27 @@ def k1_forms(dev, args):
           f"{info_ms:.4f} ms, for information", flush=True)
     if len(kernels) != 1:
         fail(f"one K1 call ran {len(kernels)} device kernels: {kernels}")
-    # the mask form: a bool mask of every row of the column
-    m = x > c
-    mb = m.numel() + 8
-    max_abs_err(masked_reduce("sum", None, m),
-                _masked_reduce_plain("sum", None, m))
+    # the mask form, at the main path's largest bool-mask count
+    mop, mdata, m, muns, mrows, mterms = mask_args
+    if mdata is not None or m is None or mterms:
+        fail(f"K1's largest mask-form launch is not a count over a mask: "
+             f"data {mdata is not None}, mask {m is not None}, {mterms}")
+
+    def mask_form():
+        return masked_reduce(mop, None, m, n_rows=mrows)
+    # the mask's rows below the row bound, and the count
+    mb = mrows * m.element_size() + 8
+    max_abs_err(mask_form(),
+                _masked_reduce_plain(mop, None, m, False, mrows))
     rec.update(
-        mask_form_ms=cuda_ms(lambda: masked_reduce("sum", None, m)),
+        mask_form_ms=cuda_ms(mask_form),
         mask_form_plain_ms=cuda_ms(
-            lambda: _masked_reduce_plain("sum", None, m)),
-        mask_form_library_ms=cuda_ms(lambda: torch.sum(m)),
-        mask_form_bytes=mb, mask_form_bound_ms=bound_ms(mb))
-    print(f"masked_reduce, mask form (count over bool{tuple(m.shape)}): "
+            lambda: _masked_reduce_plain(mop, None, m, False, mrows)),
+        mask_form_library_ms=cuda_ms(lambda: torch.sum(m[:mrows])),
+        mask_form_bytes=mb, mask_form_bound_ms=bound_ms(mb),
+        mask_form_shape=f"count over bool{tuple(m.shape)}, {mrows} rows")
+    print(f"masked_reduce, mask form (count over bool{tuple(m.shape)}, "
+          f"{mrows} rows, the main path's largest): "
           f"kernel {rec['mask_form_ms']:.4f} ms, plain "
           f"{rec['mask_form_plain_ms']:.4f} ms, library "
           f"{rec['mask_form_library_ms']:.4f} ms (torch.sum(mask)), {mb} "
@@ -547,8 +786,12 @@ def q_shapes(dev, args):
         _topk_smallest32_plain, _topk_smallest_plain, topk_smallest,
         topk_smallest32)
     out = {}
+    for key in ("masked_reduce", "masked_reduce:mask"):
+        if key not in args:
+            fail(f"the main path gave {key} no launch")
     # Q1: count() with the filter `x > 500000` as a K1 term
-    out["masked_reduce"] = k1_forms(dev, args["masked_reduce"])
+    out["masked_reduce"] = k1_forms(dev, args["masked_reduce"],
+                                    args["masked_reduce:mask"])
     # Q2: slot ids, base mask, counts for count() and the group count (one
     # mask, counted once), sum(x)
     k2 = args["dense_group_reduce"]
@@ -647,6 +890,141 @@ def q_shapes(dev, args):
     return out
 
 
+def sort_shapes(dev, args):
+    """K4, K5 and K6 on the inputs the main path gave them (Q2b's sort and
+    bounds over 100M rows, Q2m's reductions), each held against its plain
+    version and timed beside it and beside a PyTorch call of the same
+    function where there is one.  -> {name: record}."""
+    from clickhouse_tpu_torch.ops.scan_ops import (
+        COUNTED_OPS, _segment_bounds_plain, _segment_reduce_plain,
+        segment_bounds, segment_reduce)
+
+    def slot_bytes(op):
+        """Bytes K6 writes a group slot: the state, and the count where
+        the op keeps one (a count keeps the count alone)."""
+        return 8 * ((op != "count") + (op in COUNTED_OPS))
+    from clickhouse_tpu_torch.ops.sort_ops import (
+        _radix_sort_pairs_plain, radix_sort_pairs, sort_pass_plan)
+    out = {}
+    key, bits, vals = args["radix_sort_pairs"]
+    n = key.shape[0]
+    got = radix_sort_pairs(key, bits, vals)
+    want = _radix_sort_pairs_plain(key, bits, vals)
+    passes, digit = sort_pass_plan(bits)
+    out["radix_sort_pairs"] = dict(
+        max_abs_err=max(max_abs_err(a, b) for a, b in zip(got, want)),
+        ms=cuda_ms(lambda: radix_sort_pairs(key, bits, vals)),
+        plain_ms=cuda_ms(lambda: _radix_sort_pairs_plain(key, bits, vals),
+                         reps=5),
+        library_ms=cuda_ms(lambda: torch.sort(key, stable=True)),
+        library="torch.sort(key, stable=True)",
+        # read each key (and value) once, write sorted keys and row ids
+        bytes=nbytes(key, vals) + n * key.element_size() + n * 4,
+        passes=passes, digit_bits=digit,
+        shape=f"{n} {key.dtype} keys of {bits} bits, "
+              f"{'row ids' if vals is None else 'given values'}: "
+              f"{passes} passes of {digit}-bit digits")
+    # its three kernels a pass apart, summed over the passes (a trace)
+    split = device_kernels(lambda: radix_sort_pairs(key, bits, vals))
+    for part in ("hist", "scan", "scatter"):
+        out["radix_sort_pairs"][f"{part}_ms"] = sum(
+            t for k, t in split.items() if f"k_radix_{part}" in k) or None
+    print(f"radix_sort_pairs device time by kernel (torch.profiler): "
+          f"{split}", flush=True)
+    del got, want
+    keys, nv, cap_g = args["segment_bounds"]
+    got = segment_bounds(keys, nv, cap_g)
+    want = _segment_bounds_plain(keys, nv, cap_g)
+    k0 = keys[0]
+    info = cuda_ms(lambda: torch.unique_consecutive(k0, return_counts=True),
+                   reps=5)
+    out["segment_bounds"] = dict(
+        max_abs_err=max(max_abs_err(a, b) for a, b in zip(got, want)),
+        ms=cuda_ms(lambda: segment_bounds(keys, nv, cap_g)),
+        plain_ms=cuda_ms(lambda: _segment_bounds_plain(keys, nv, cap_g),
+                         reps=5),
+        library_ms=None,
+        library="none: no single PyTorch call gives the group ids and "
+                "bounds",
+        information=f"torch.unique_consecutive(key, return_counts=True) "
+                    f"{info:.4f} ms",
+        # read the keys, write a group id a row and 16 bytes a slot
+        bytes=nbytes(keys) + k0.shape[0] * 4 + cap_g * 16 + 8,
+        shape=f"{len(keys)} sorted key array(s) of {k0.shape[0]} "
+              f"{k0.dtype}, {cap_g} group slots")
+    del got, want
+    ops = sorted(k.split(":")[1] for k in args if
+                 k.startswith("segment_reduce:"))
+    if not ops:
+        fail("the main path gave K6 no launch")
+    rec = None
+    per_op = {}
+    for op in ops:
+        a = args[f"segment_reduce:{op}"]
+        op_, data, mask, perm, gid, cap_g, uns = a
+        err = k6_agrees(op_, data, mask, perm, gid, cap_g, uns)
+        ms = cuda_ms(lambda: segment_reduce(op_, data, mask, perm, gid,
+                                            cap_g, unsigned=uns))
+        per_op[op] = ms
+        if op == "sum" or rec is None:
+            rows = gid.shape[0]
+            rec = dict(
+                max_abs_err=err, ms=ms,
+                plain_ms=cuda_ms(lambda: _segment_reduce_plain(
+                    op_, data, mask, perm, gid, cap_g, uns), reps=5),
+                library_ms=None,
+                library="none: no single PyTorch call gathers through the "
+                        "permutation and reduces each group",
+                # a group id, a permutation entry, a value (and a mask
+                # byte) a row; the state (and count) a slot
+                bytes=rows * (8 + data.element_size()
+                              + (0 if mask is None else 1))
+                + cap_g * slot_bytes(op),
+                shape=f"{op} over {rows} sorted rows, data "
+                      f"{data.dtype}, mask {mask is not None}, {cap_g} "
+                      f"group slots")
+    rec["per_op_ms"] = per_op
+    # for information: torch.segment_reduce over the values gathered into
+    # sorted order beforehand (floats only), at Q2m's groups
+    a = args["segment_reduce:sum"] if "sum" in ops else \
+        args[f"segment_reduce:{ops[0]}"]
+    _, data, _, perm, gid, _, _ = a
+    nvalid = int((gid < a[5]).sum())
+    lengths = torch.bincount(gid[:nvalid].long())
+    vals = data.index_select(0, perm[:nvalid]).to(torch.float64)
+    info = cuda_ms(lambda: torch.segment_reduce(vals, "sum",
+                                                lengths=lengths), reps=5)
+    rec["information"] = (f"torch.segment_reduce(sum) over pre-gathered "
+                          f"float64 values {info:.4f} ms")
+    del vals
+    # one group holding 40 % of 100M rows
+    sperm, sgid = grouped_rows(N_ROWS, 1 << 20, dev, skew=0.4)
+    x = data if data.shape[0] >= N_ROWS else torch.arange(
+        N_ROWS, dtype=torch.int32, device=dev)
+    k6_agrees("sum", x, None, sperm, sgid, 1 << 21)
+    rec["skew_ms"] = cuda_ms(lambda: segment_reduce("sum", x, None, sperm,
+                                                    sgid, 1 << 21))
+    sb = N_ROWS * (8 + x.element_size()) + (1 << 21) * slot_bytes("sum")
+    rec["skew_bound_ms"] = bound_ms(sb)
+    print(f"segment_reduce over {N_ROWS} rows, one group holding 40 % of "
+          f"them: {rec['skew_ms']:.4f} ms, bound "
+          f"{rec['skew_bound_ms']:.4f} ms ({sb} bytes; agrees with the "
+          f"plain version); per op at Q2m's inputs {per_op}", flush=True)
+    del sperm, sgid
+    out["segment_reduce"] = rec
+    for name, r in out.items():
+        r["bound_ms"] = bound_ms(r["bytes"])
+        lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
+        print(f"{name} at the main path's shape ({r['shape']}): max_abs_err "
+              f"{r['max_abs_err']}, kernel {r['ms']:.4f} ms, plain "
+              f"{r['plain_ms']:.4f} ms, library {lib} ms ({r['library']}), "
+              f"{r['bytes']} bytes, bound {r['bound_ms']:.4f} ms, share of "
+              f"bound {r['bound_ms'] / r['ms']:.3f}"
+              + (f"; {r['information']}" if "information" in r else ""),
+              flush=True)
+    return out
+
+
 def expected_answers(x: np.ndarray):
     q1 = [(int((x > 500000).sum()),)]
     k = x % 1024
@@ -661,7 +1039,22 @@ def expected_answers(x: np.ndarray):
     top = np.lexsort((np.arange(1024), -cnt))[:10]
     q2 = [(int(i), int(cnt[i]), int(sums[i])) for i in top]
     q3 = [(int(v),) for v in np.sort(np.partition(x, 100)[:100])]
-    return {"Q1": q1, "Q2": q2, "Q3": q3}
+    # Q2b: a group a distinct x, in ascending key order; ties of c keep it
+    cnt_b = np.bincount(x)
+    top_b = np.lexsort((np.arange(len(cnt_b)), -cnt_b))[:10]
+    q2b = [(int(i), int(cnt_b[i])) for i in top_b]
+    # Q2m: groups of intDiv(x, 4) (x >= 0: floor division) by (-s, k);
+    # any(x) is the first row of the group in row order
+    km = x // 4
+    cnt_m = np.bincount(km)
+    sum_m = np.bincount(km, weights=x.astype(np.float64)).astype(np.int64)
+    top_m = np.lexsort((np.arange(len(sum_m)), -sum_m))[:10]
+    q2m = []
+    for g in top_m:
+        rows = np.flatnonzero(km == g)
+        q2m.append((int(g), int(cnt_m[g]), int(sum_m[g]),
+                    int(x[rows].min()), int(x[rows].max()), int(x[rows[0]])))
+    return {"Q1": q1, "Q2": q2, "Q2b": q2b, "Q2m": q2m, "Q3": q3}
 
 
 def load_hits(ch):
@@ -679,10 +1072,11 @@ def load_hits(ch):
 
 
 def device_busy(s, sql, reps=QUERY_REPS):
-    """(device-busy ms, device operations, wall ms) per run of sql, from a
-    torch.profiler trace of `reps` runs (busy: the union of the intervals
-    of the device's kernels, copies and fills; the wall is the traced
-    one)."""
+    """(device-busy ms, device operations, wall ms, top) per run of sql,
+    from a torch.profiler trace of `reps` runs (busy: the union of the
+    intervals of the device's kernels, copies and fills; the wall is the
+    traced one; top: the 8 device operations that take the most device
+    time, as (name, ms a run))."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     s.execute(sql)
@@ -694,23 +1088,37 @@ def device_busy(s, sql, reps=QUERY_REPS):
             s.execute(sql)
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
-    spans = sorted((e.time_range.start, e.time_range.end)
-                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
     busy, end = 0.0, float("-inf")
     for a, b in spans:
         if b > end:
             busy += b - max(a, end)
             end = b
-    return busy / reps / 1e3, len(spans) / reps, wall / reps * 1e3
+    by_name = {}
+    for e in events:
+        by_name[e.name] = by_name.get(e.name, 0.0) + (
+            e.time_range.end - e.time_range.start)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
+    top = [(name[:70], t / reps / 1e3) for name, t in top]
+    return busy / reps / 1e3, len(spans) / reps, wall / reps * 1e3, top
 
 
 def time_queries(s):
     """Median wall of QUERY_REPS runs of each query (after one untimed run),
-    then Q1's device-busy time from a trace.  Uses only the public API, so
-    copied into an unpacked older checkout (``--queries``) it times that
-    tree alike."""
-    for name, sql in (("Q1", Q1), ("Q2", Q2), ("Q3", Q3)):
-        s.execute(sql)
+    then the device-busy time of Q1, Q2b and Q2m from a trace.  Uses only
+    the public API, so copied into an unpacked older checkout
+    (``--queries``) it times that tree alike; a query that tree does not
+    run (NotImplementedError_) is reported and skipped."""
+    from clickhouse_tpu_torch.core.errors import NotImplementedError_
+    ran = set()
+    for name, sql in QUERIES:
+        try:
+            s.execute(sql)
+        except NotImplementedError_ as e:
+            print(f"{name} not ported in this tree: {e}", flush=True)
+            continue
+        ran.add(name)
         times = []
         for _ in range(QUERY_REPS):
             t0 = time.perf_counter()
@@ -719,10 +1127,16 @@ def time_queries(s):
             times.append(time.perf_counter() - t0)
         print(f"{name} median wall {statistics.median(times) * 1e3:.3f} ms "
               f"over {QUERY_REPS} runs ({N_ROWS} rows): {sql}", flush=True)
-    busy, ops, wall = device_busy(s, Q1)
-    print(f"Q1 under torch.profiler: device busy {busy:.4f} ms of "
-          f"{wall:.3f} ms wall a run, {ops:g} device operations a run",
-          flush=True)
+    for name, sql in QUERIES:
+        if name in ("Q1", "Q2b", "Q2m") and name in ran:
+            busy, ops, wall, top = device_busy(s, sql)
+            print(f"{name} under torch.profiler: device busy {busy:.4f} ms "
+                  f"of {wall:.3f} ms wall a run, {ops:g} device operations "
+                  f"a run", flush=True)
+            if name != "Q1":
+                print(f"{name} device ms a run by operation (the top 8): "
+                      + "; ".join(f"{n} {t:.4f}" for n, t in top),
+                      flush=True)
 
 
 def main():
@@ -753,65 +1167,150 @@ def main():
     check_k1(dev)
     check_k2(dev)
     check_k3(dev)
+    check_k4(dev)
+    check_k5(dev)
+    check_k6(dev)
 
     s, x = load_hits(ch)
     want = expected_answers(x)
 
-    # the main path, once, through the public API
-    _native.reset_launches()
+    # the main path, once, through the public API: each query with the
+    # launch counters set to 0 just before it and read just after.  Two
+    # wrappers are watched on the way (each call passed on as it is): K1's,
+    # for its launches with and without filter terms, and K4's, for the
+    # bits it sorts
+    from clickhouse_tpu_torch.ops import agg_ops, sort_ops
     per_query = {}
-    for name, sql in (("Q1", Q1), ("Q2", Q2), ("Q3", Q3)):
-        before = dict(_native.LAUNCHES)
+    launches = {k: 0 for k in _native.LAUNCHES}
+    launch_rows = {k: [] for k in _native.LAUNCHES}
+    k1_forms_seen = {"fused": 0, "mask_form": 0}
+    k4_calls = []
+    k1_cuda, k4_cuda = agg_ops._masked_reduce_cuda, sort_ops._radix_sort_cuda
+
+    def k1_watch(*a):
+        k1_forms_seen["fused" if a[5] else "mask_form"] += 1
+        return k1_cuda(*a)
+
+    def k4_watch(keys, bits, values):
+        k4_calls.append((keys.shape[0], bits))
+        return k4_cuda(keys, bits, values)
+    agg_ops._masked_reduce_cuda = k1_watch
+    sort_ops._radix_sort_cuda = k4_watch
+    try:
+        main_path(s, want, per_query, launches, launch_rows, k1_forms_seen,
+                  k4_calls)
+    finally:
+        agg_ops._masked_reduce_cuda = k1_cuda
+        sort_ops._radix_sort_cuda = k4_cuda
+    time_queries(s)
+
+    args = main_path_args(s)
+    shapes = q_shapes(dev, args)
+    shapes.update(sort_shapes(dev, args))
+    del args
+    shapes["masked_reduce"].update(
+        launches_fused=k1_forms_seen["fused"],
+        launches_mask_form=k1_forms_seen["mask_form"])
+    print(f"masked_reduce launches on the main path: "
+          f"{k1_forms_seen['fused']} with filter terms, "
+          f"{k1_forms_seen['mask_form']} without (bool-mask counts)",
+          flush=True)
+    kernel_line(card, shapes, launches, launch_rows)
+
+
+def main_path(s, want, per_query, launches, launch_rows, k1_forms_seen,
+              k4_calls):
+    """Q1, Q2, Q2b, Q2m and Q3 once each, checked against numpy, with the
+    launch counters set to 0 before each and read after; fails unless
+    each query reached the kernels of its path."""
+    from clickhouse_tpu_torch.ops import _native
+    from clickhouse_tpu_torch.ops.sort_ops import sort_rows_bytes
+    for name, sql in QUERIES:
+        k1_before = dict(k1_forms_seen)
+        del k4_calls[:]
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
+        _native.reset_launches()
         rows = s.execute(sql).rows()
+        per_query[name] = dict(_native.LAUNCHES)
+        rows_of = {k: list(v) for k, v in _native.LAUNCH_ROWS.items()}
         extra = torch.cuda.max_memory_allocated() - base
         if rows != want[name]:
             fail(f"{name} returned {rows[:5]}..., numpy says "
                  f"{want[name][:5]}...")
-        per_query[name] = {k: _native.LAUNCHES[k] - before[k]
-                           for k in before}
+        for k, v in rows_of.items():
+            launches[k] += per_query[name][k]
+            launch_rows[k] += v
+        # the rows of this query's largest launch of each kernel
+        big = {k: max(v, default=0) for k, v in rows_of.items()}
+        k1_split = {f: k1_forms_seen[f] - k1_before[f] for f in k1_before}
+        print(f"{name}: K1 launches {k1_split}; device memory at its peak "
+              f"{extra} bytes above what was allocated before it",
+              flush=True)
+        if name in ("Q2b", "Q2m"):
+            for kernel in ("radix_sort_pairs", "segment_bounds") + (
+                    ("segment_reduce",) if name == "Q2m" else ()):
+                if big[kernel] < N_ROWS:
+                    fail(f"{name} did not reach {kernel} over {N_ROWS} "
+                         f"rows: {per_query[name]}, largest launch "
+                         f"{big[kernel]} rows")
+            est = sort_rows_bytes(k4_calls[0][0], [b for _, b in k4_calls])
+            print(f"{name}: K4 calls (rows, bits) {k4_calls}; sort_rows' "
+                  f"working set by sort_rows_bytes {est} bytes, the "
+                  f"query's peak {extra} bytes", flush=True)
+            print(f"{name}: K4, K5{', K6' if name == 'Q2m' else ''} over "
+                  f"{big['radix_sort_pairs']} rows; launches "
+                  f"{per_query[name]}", flush=True)
+        elif any(per_query[name][k] for k in ("radix_sort_pairs",
+                                              "segment_bounds",
+                                              "segment_reduce")):
+            fail(f"{name} launched a sort kernel: {per_query[name]}")
         if name == "Q1":
             # one K1 launch over every row, and no row mask on the way (a
             # bool mask of the rows alone would take N_ROWS bytes)
             if per_query["Q1"]["masked_reduce"] != 1 \
-                    or _native.LAUNCH_ROWS["masked_reduce"][-1] < N_ROWS:
+                    or big["masked_reduce"] < N_ROWS:
                 fail(f"Q1 did not reach K1 once over {N_ROWS} rows: "
-                     f"{per_query['Q1']}, "
-                     f"{_native.LAUNCH_ROWS['masked_reduce']}")
+                     f"{per_query['Q1']}, {rows_of['masked_reduce']}")
             if extra >= N_ROWS:
                 fail(f"Q1 allocated {extra} bytes of device memory")
-            print(f"Q1: one K1 launch over "
-                  f"{_native.LAUNCH_ROWS['masked_reduce'][-1]} rows; "
+            print(f"Q1: one K1 launch over {big['masked_reduce']} rows; "
                   f"{extra} bytes of device memory allocated at its peak",
                   flush=True)
-    launches = dict(_native.LAUNCHES)
-    launch_rows = {k: list(v) for k, v in _native.LAUNCH_ROWS.items()}
     for name, kernel in (("Q1", "masked_reduce"),
                          ("Q2", "dense_group_reduce"),
                          ("Q3", "topk_smallest")):
         if per_query[name][kernel] < 1:
             fail(f"{name} did not launch {kernel}: {per_query[name]}")
-    print(f"Q1-Q3 match numpy; launches per query: {per_query}",
-          flush=True)
-    time_queries(s)
+    print(f"Q1, Q2, Q2b, Q2m and Q3 match numpy; launches per query: "
+          f"{per_query}", flush=True)
 
-    shapes = q_shapes(dev, main_path_args(s))
 
+def kernel_line(card, shapes, launches, launch_rows):
+    """Print the card and the kernels line, then the last line."""
     sources = {"masked_reduce": ("clickhouse_tpu_torch/csrc/masked_reduce.cu",
                                  "scratch/q1_profile.py:92"),
                "dense_group_reduce": (
                    "clickhouse_tpu_torch/csrc/dense_group_reduce.cu",
                    "clickhouse_tpu/ops/mxu_segsum.py:51"),
                "topk_smallest": ("clickhouse_tpu_torch/csrc/topk_smallest.cu",
-                                 "clickhouse_tpu/ops/sort_ops.py:110")}
+                                 "clickhouse_tpu/ops/sort_ops.py:110"),
+               "radix_sort_pairs": (
+                   "clickhouse_tpu_torch/csrc/radix_sort.cu",
+                   "clickhouse_tpu/ops/agg_ops.py:227"),
+               "segment_bounds": (
+                   "clickhouse_tpu_torch/csrc/segment_bounds.cu",
+                   "clickhouse_tpu/ops/scan_ops.py:52"),
+               "segment_reduce": (
+                   "clickhouse_tpu_torch/csrc/segment_reduce.cu",
+                   "clickhouse_tpu/ops/scan_ops.py:147")}
     kernels = []
     for name, (src, repl) in sources.items():
         r = shapes[name]
         big = sum(1 for m in launch_rows[name] if m >= N_ROWS)
-        print(f"{name}: {launches[name]} launches in Q1-Q3, {big} of them "
-              f"over {N_ROWS} rows", flush=True)
+        print(f"{name}: {launches[name]} launches on the main path, {big} "
+              f"of them over {N_ROWS} rows", flush=True)
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": repl, "launches": launches[name],
                         "launches_at_100M_rows": big,

@@ -33,4 +33,36 @@ __device__ __forceinline__ double f64_order_unkey(u64 k) {
   return __longlong_as_double((long long)b);
 }
 
+// Exclusive prefix sum of one int a thread over a block of THREADS threads
+// (a multiple of 32, at most 1024), in thread order; *total gets the
+// block's sum.  warp_sums holds 32 ints of shared memory.  Every thread of
+// the block must call it; it synchronises the block.
+template <int THREADS>
+__device__ __forceinline__ int block_exclusive_scan(int v, int* warp_sums,
+                                                    int* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int x = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const int y = __shfl_up_sync(0xffffffffu, x, o);
+    if (lane >= o) x += y;
+  }
+  if (lane == 31) warp_sums[warp] = x;
+  __syncthreads();
+  if (warp == 0) {
+    int w = lane < THREADS / 32 ? warp_sums[lane] : 0;
+#pragma unroll
+    for (int o = 1; o < 32; o <<= 1) {
+      const int y = __shfl_up_sync(0xffffffffu, w, o);
+      if (lane >= o) w += y;
+    }
+    warp_sums[lane] = w;               // inclusive sums of the warps
+  }
+  __syncthreads();
+  const int out = x - v + (warp > 0 ? warp_sums[warp - 1] : 0);
+  *total = warp_sums[THREADS / 32 - 1];
+  __syncthreads();                     // warp_sums may be reused
+  return out;
+}
+
 inline int chtt_last_error() { return (int)cudaGetLastError(); }

@@ -13,15 +13,20 @@ reductions and counts hand the parts to K1, which reads each term's column
 in its narrow storage: ``SELECT count() FROM t WHERE x > c`` is one pass.
 The route is chosen by the predicate's form alone.
 
-Ported nodes: Scan, Filter, Project, Aggregate (GROUP BY () and dense
-GROUP BY), Sort with a LIMIT the top-k path takes, and Limit.  Every other
-node, and every path of these nodes that is not ported, raises
-``NotImplementedError_`` naming it.
+Ported nodes: Scan, Filter, Project, Aggregate (GROUP BY (), dense and
+sort GROUP BY), Sort (top-k for a LIMIT up to 4,096 rows, else a full
+stable sort) and Limit.  Every other node, and every path of these nodes
+that is not ported, raises ``NotImplementedError_`` naming it.
+
+A GROUP BY whose groups may outnumber their slots (the sort grouping, at
+most ``max_groups``) registers a capacity check; ``materialize`` reads the
+group count there (its first host read) and raises ``CapacityError`` with
+the count needed, which the session's autotuner retries with more slots.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Any, Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -29,7 +34,7 @@ import torch
 from ..core import dtypes as dt
 from ..core.block import Block
 from ..core.column import pad_to
-from ..core.errors import NotImplementedError_
+from ..core.errors import CapacityError, NotImplementedError_
 from ..core.settings import Settings
 from ..exprs import aggregates as agg_reg
 from ..exprs.expr import (DEVICE_KEY, BoundCall, BoundColumn, BoundLiteral,
@@ -60,16 +65,31 @@ class ExecBlock:
         return env
 
 
+@dataclasses.dataclass
+class Check:
+    """A capacity to test at materialize: `value` (a device scalar) must
+    not exceed `limit`; `setting` bounds the capacity (the session's
+    autotuner retries with it raised)."""
+    value: Any
+    limit: int
+    message: str
+    setting: Optional[str] = None
+
+
 class ExecContext:
     def __init__(self, table_blocks: Dict[Tuple[str, str], Block],
                  settings: Settings, device):
         self.table_blocks = table_blocks
         self.settings = settings
         self.device = torch.device(device)
+        self.checks: List[Check] = []
         self.profile: Dict[str, int] = {}
         # interval-analysis facts: field id -> (lo, hi), filled at scans from
         # part minmax stats and propagated through projections
         self.field_bounds: Dict[str, Tuple[int, int]] = {}
+        # device bytes a sort may take (the governor's budget less its
+        # estimate); None: no limit
+        self.memory_headroom: Optional[int] = None
 
     def count(self, name: str, value: int = 1):
         self.profile[name] = self.profile.get(name, 0) + value
@@ -205,7 +225,13 @@ def _exec_project(node: L.ProjectNode, ctx: ExecContext) -> ExecBlock:
 
 def _agg_key_arrays(node: L.AggregateNode, child: ExecBlock,
                     ctx: ExecContext):
-    """-> (key_cvs, key_arrays, dense_dims or None, global_agg)."""
+    """-> (key_cvs, key_arrays, dense_dims or None, global_agg).
+
+    key_arrays are sort keys (sort_ops.SortKey): a Nullable key gives its
+    validity and then its data zeroed where NULL; integer keys carry their
+    proven bounds (narrowed to int32 where the bounds fit) and UInt64 keys
+    their unsignedness; String keys are dictionary codes, floats sort by
+    token."""
     from ..plan import ranges
     from ..ops.mxu_segsum import MAX_DENSE_GROUPS
     settings = ctx.settings
@@ -213,7 +239,7 @@ def _agg_key_arrays(node: L.AggregateNode, child: ExecBlock,
     key_cvs = [evaluate(e, child.env()) for _, e in node.keys]
     if not key_cvs:
         return key_cvs, [], None, True
-    arrays: List[torch.Tensor] = []
+    arrays: List[sort_ops.SortKey] = []
     dims: List = []
     dense_ok = True
     total = 1
@@ -223,7 +249,7 @@ def _agg_key_arrays(node: L.AggregateNode, child: ExecBlock,
         if cv.validity is not None:
             v = cv.validity.to(torch.bool)
             data = torch.where(v, data, torch.zeros_like(data))
-            arrays.append(v)
+            arrays.append(sort_ops.SortKey(v, bounds=(0, 1)))
             dims.append((0, 2))
             total *= 2
         b = None
@@ -237,7 +263,9 @@ def _agg_key_arrays(node: L.AggregateNode, child: ExecBlock,
                 and data.element_size() == 8 \
                 and -2**31 <= b[0] and b[1] < 2**31:
             data = data.to(torch.int32)
-        arrays.append(data)
+        unsigned = data.dtype == torch.int64 and not cv.dtype.is_dictionary \
+            and dt.remove_nullable(cv.dtype).np_dtype == np.uint64
+        arrays.append(sort_ops.SortKey(data, unsigned=unsigned, bounds=b))
         if b is None:
             dense_ok = False
             dims.append(None)
@@ -267,14 +295,15 @@ def _exec_aggregate(node: L.AggregateNode, ctx: ExecContext) -> ExecBlock:
 
 
 def _stage1(node: L.AggregateNode, child: ExecBlock,
-            key_arrays: List[torch.Tensor], dims, cap_g: int,
+            key_arrays: List[sort_ops.SortKey], dims, cap_g: int,
             ctx: ExecContext, global_agg: bool = False):
     """Local grouping + per-aggregate partial states."""
     cap = child.capacity
     from ..plan import ranges
-    # GROUP BY () hands the row mask's parts to K1; the groupings that
-    # compute per-row slots take it as a tensor
-    rows = child.rows if global_agg else child.valid
+    # GROUP BY () hands the row mask's parts to K1 and the sort grouping
+    # to K4 (a scan's rows are sorted with no mask); the dense grouping
+    # takes it as a tensor
+    rows = child.valid if dims is not None else child.rows
     per_agg_inputs = []
     for item in node.aggregates:
         arg_cvs = []
@@ -294,9 +323,12 @@ def _stage1(node: L.AggregateNode, child: ExecBlock,
         grouping = agg_ops.group_trivial(ctx.device, cap_g)
     elif dims is not None:
         # provably-small key space: direct-array grouping (K2)
-        grouping = agg_ops.group_by_dense(key_arrays, dims, rows, cap_g)
+        grouping = agg_ops.group_by_dense([k.data for k in key_arrays],
+                                          dims, rows, cap_g)
     else:
-        grouping = agg_ops.group_by_sort(key_arrays, rows, cap_g)
+        # the generic path: a stable sort by the keys (K4, K5), then K6
+        grouping = agg_ops.group_by_sort(key_arrays, rows, cap_g,
+                                         max_bytes=ctx.memory_headroom)
     gctx = agg_reg.GroupContext(row_valid=rows, grouping=grouping)
 
     if grouping.kind == "dense":
@@ -415,6 +447,11 @@ def _aggregate_local(node: L.AggregateNode, child: ExecBlock, key_cvs,
     cap_g = _agg_capacity(child, dims, global_agg, s)
     grouping, group_counts, states_per_agg = _stage1(
         node, child, key_arrays, dims, cap_g, ctx, global_agg)
+    if not global_agg and dims is None:
+        ctx.checks.append(Check(grouping.num_groups, cap_g,
+                                "GROUP BY cardinality exceeded max_groups; "
+                                "raise the max_groups setting",
+                                setting="max_groups"))
     return _finalize(node, key_cvs, grouping.unique_keys,
                      grouping.num_groups, group_counts, states_per_agg,
                      cap_g, global_agg, ctx,
@@ -465,12 +502,19 @@ def _sort_block(node: L.SortNode, child: ExecBlock, ctx: ExecContext
         k = int(node.limit_hint)
         it0 = node.items[0]
         cv0 = evaluate(it0.expr, child.env()).broadcast(cap)
-        key32 = sort_ops.topk_key32(cv0, it0.descending)
-        if key32 is not None and cap >= (1 << 16) and k <= 4096:
-            idx = sort_ops.topk_permutation32(key32, child.valid, k)
+        if k > sort_ops.MAX_TOPK:
+            # above K3's k: the first k rows of the full stable sort, the
+            # same rows by (invalid, token, row id)
+            idx = sort_ops.sort_permutation(
+                [_token_for_sort(cv0, it0, cap)], child.valid,
+                max_bytes=ctx.memory_headroom)[:k]
         else:
-            idx = sort_ops.topk_permutation(_token_for_sort(cv0, it0, cap),
-                                            child.valid, k)
+            key32 = sort_ops.topk_key32(cv0, it0.descending)
+            if key32 is not None and cap >= (1 << 16):
+                idx = sort_ops.topk_permutation32(key32, child.valid, k)
+            else:
+                idx = sort_ops.topk_permutation(
+                    _token_for_sort(cv0, it0, cap), child.valid, k)
         out_cap = pad_to(k)
         idx_full = torch.zeros((out_cap,), dtype=torch.int64,
                                device=ctx.device)
@@ -480,9 +524,11 @@ def _sort_block(node: L.SortNode, child: ExecBlock, ctx: ExecContext
         valid = _arange(out_cap, ctx.device) < torch.clamp(n_valid, max=k)
         return ExecBlock(cols, agg_ops.RowMask.of(valid), out_cap)
 
+    # no top-k: the full stable multi-key sort (K4)
     tokens = [_token_for_sort(evaluate(i.expr, child.env()), i, cap)
               for i in node.items]
-    perm = sort_ops.sort_permutation(tokens, child.valid)
+    perm = sort_ops.sort_permutation(tokens, child.valid,
+                                     max_bytes=ctx.memory_headroom)
     cols = {fid: _gather_colval(cv, perm, cap)
             for fid, cv in child.cols.items()}
     valid = _arange(cap, ctx.device) < n_valid
@@ -510,10 +556,17 @@ _DISPATCH: Dict[type, Callable] = {
 
 # -- materialization ---------------------------------------------------------
 
-def materialize(block: ExecBlock, schema: List[L.Field]
-                ) -> Dict[str, np.ndarray]:
-    """Pull the visible rows to host, in order (first host sync point)."""
+def materialize(block: ExecBlock, schema: List[L.Field],
+                ctx: Optional[ExecContext] = None) -> Dict[str, np.ndarray]:
+    """Pull the visible rows to host, in order (first host sync point),
+    after testing the plan's capacity checks."""
     valid_np = block.valid.cpu().numpy()
+    for check in (ctx.checks if ctx is not None else ()):
+        actual = int(check.value)
+        if actual > check.limit:
+            raise CapacityError(f"{check.message} (needed {actual}, "
+                                f"capacity {check.limit})",
+                                setting=check.setting, needed=actual)
     out: Dict[str, np.ndarray] = {}
     for f in schema:
         cv = block.cols[f.id].broadcast(block.capacity)

@@ -21,7 +21,8 @@ import torch
 
 from ..core import dtypes as dt
 from ..core import typed
-from ..core.errors import (AnalysisError, MemoryLimitExceeded,
+from ..core.column import pad_to
+from ..core.errors import (AnalysisError, CapacityError, MemoryLimitExceeded,
                            NotImplementedError_)
 from ..core.settings import Settings
 from ..plan.analyzer import Analyzer
@@ -119,9 +120,25 @@ class Session:
         return self.settings.copy_with(merged) if merged else self.settings
 
     def _run_select(self, stmt, overrides: Dict[str, Any]) -> Result:
+        """SELECT with capacity autotuning, as the reference's: a
+        CapacityError that names a setting (GROUP BY groups beyond
+        max_groups) re-plans the query with that setting raised to
+        max(pad(needed * 5/4 + 1), twice its value), at most
+        capacity_autotune_max_retries times."""
         settings = self._query_settings(stmt, overrides)
-        plan = self._plan(stmt, settings)
-        cols, ctx = self._execute(plan, settings)
+        retries = settings.capacity_autotune_max_retries \
+            if settings.capacity_autotune else 0
+        for attempt in range(retries + 1):
+            try:
+                plan = self._plan(stmt, settings)
+                cols, ctx = self._execute(plan, settings)
+                break
+            except CapacityError as e:
+                if attempt >= retries or not e.setting or e.needed is None:
+                    raise
+                cur = getattr(settings, e.setting)
+                new = max(pad_to(int(e.needed * 5 // 4) + 1), cur * 2)
+                settings = settings.copy_with({e.setting: new})
         types = [(f.display, str(f.dtype)) for f in plan.schema]
         return Result(cols, types,
                       rows_read=ctx.profile.get("rows_scanned", 0))
@@ -137,9 +154,10 @@ class Session:
             self._collect_table_blocks(c, out)
         return out
 
-    def _governor_check(self, plan: L.PlanNode, settings: Settings) -> None:
+    def _governor_check(self, plan: L.PlanNode, settings: Settings) -> int:
         """Refuse plans that the reference would stream, and plans whose
-        whole-block footprint exceeds the device budget."""
+        whole-block footprint exceeds the device budget.  -> the bytes of
+        the budget the estimate leaves (for a sort's working set)."""
         from .streaming import (check_not_streamed, effective_memory_budget,
                                 estimate_plan_device_bytes)
         check_not_streamed(plan, self.catalog, settings)
@@ -149,13 +167,15 @@ class Session:
             raise MemoryLimitExceeded(
                 f"query would need ~{est >> 20} MiB of device memory "
                 f"(budget {budget >> 20} MiB)")
+        return budget - est
 
     def _execute(self, plan: L.PlanNode, settings: Settings):
-        self._governor_check(plan, settings)
+        headroom = self._governor_check(plan, settings)
         blocks = self._collect_table_blocks(plan)
         ctx = ExecContext(blocks, settings, device=self.device)
+        ctx.memory_headroom = headroom
         out = execute_plan(plan, ctx)
-        return materialize(out, plan.schema), ctx
+        return materialize(out, plan.schema, ctx), ctx
 
     # -- DDL / INSERT ----------------------------------------------------------
     def _run_create_table(self, stmt: ast.CreateTable) -> Result:

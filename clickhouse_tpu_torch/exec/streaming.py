@@ -58,7 +58,10 @@ def _field_est_bytes(f: L.Field) -> int:
 def estimate_plan_device_bytes(plan: L.PlanNode, catalog,
                                settings: Settings) -> int:
     """Scan bytes + the largest operator intermediate (capacity x row
-    width)."""
+    width), as the reference estimates.  Whether a GROUP BY sorts is known
+    only when it runs, so a sort's working set is held against what this
+    estimate leaves of the budget there (sort_ops.sort_rows'
+    max_bytes)."""
     caps: Dict[int, int] = {}
 
     def cap_of(node: L.PlanNode) -> int:

@@ -2,10 +2,15 @@
 
 Each function defines update (rows -> per-group states) and finalize;
 every reduction goes through Grouping.reduce (ops/agg_ops.py), which runs
-K1 for GROUP BY () and K2 for dense groupings.  Merging partial states
-(-State/-Merge, two-stage aggregation) is not ported.
+K1 for GROUP BY (), K2 for dense groupings and K6 for the sort grouping
+(K6 reads a scanned column's narrow storage itself; the states come back
+in the column's logical type).  Merging partial states (-State/-Merge,
+two-stage aggregation) is not ported.
 
-Ported: count, sum, avg, min, max and any, each with the -If combinator.
+Ported: count, sum, avg, min, max and any, each with the -If combinator,
+under every grouping kind: sum/count/avg of integers may take the dense
+grouping; min, max, any and float sums take the sort grouping (or K1 under
+GROUP BY ()).  min/max of a String compare its dictionary ranks.
 Every other aggregate name and combinator raises the reference's typed
 errors (UnknownFunction / NotImplementedError_).
 """
@@ -110,7 +115,17 @@ class AggregateFunction:
 
     @staticmethod
     def _value(ctx: GroupContext, cv: ColVal) -> torch.Tensor:
-        return cv.broadcast(ctx.capacity).data
+        """The argument's values, raw row order: under the sort grouping
+        the column as stored (K6 widens as it reads), else its data."""
+        cv = cv.broadcast(ctx.capacity)
+        return cv.storage if ctx.grouping.kind == "sort" else cv.data
+
+    def _logical(self, s: torch.Tensor) -> torch.Tensor:
+        """A min/max/any state in the argument's logical type (K6 gives it
+        in the storage's); dictionary codes and ranks stay as they are."""
+        want = dt.remove_nullable(self.arg_types[0]).torch_dtype
+        return s if s.dtype == want or self.arg_types[0].is_dictionary \
+            else s.to(want)
 
 
 class CountAgg(AggregateFunction):
@@ -189,7 +204,8 @@ class MinMaxAgg(AggregateFunction):
         v = self._prep(ctx, args[0])
         unsigned = dt.remove_nullable(self.arg_types[0]).np_dtype == \
             np.dtype("uint64") and args[0].dictionary is None
-        return [ctx.grouping.reduce(self.op, v, mask, unsigned=unsigned)]
+        return [self._logical(
+            ctx.grouping.reduce(self.op, v, mask, unsigned=unsigned))]
 
     def finalize(self, states):
         s = states[0]
@@ -249,7 +265,8 @@ class AnyAgg(AggregateFunction):
 
     def update(self, ctx, args, cond):
         mask = self._row_mask(ctx, args, cond)
-        return [ctx.grouping.reduce("any", self._value(ctx, args[0]), mask)]
+        return [self._logical(
+            ctx.grouping.reduce("any", self._value(ctx, args[0]), mask))]
 
     def finalize(self, states):
         return states[0], None
@@ -268,11 +285,23 @@ _BASE: Dict[str, type] = _register_base()
 AGGREGATES = _BASE
 
 
+# combinators get_aggregate knows and refuses as not ported
+_UNPORTED_COMBINATORS = ("state", "merge", "array", "foreach", "distinct",
+                         "ornull", "ordefault")
+
+
 def is_aggregate_name(name: str) -> bool:
+    """Whether the analyzer should treat `name` as an aggregate call:
+    the ported ones, -If, and the unported combinators of a ported
+    aggregate (get_aggregate then raises NotImplementedError_ naming
+    them)."""
     base = name.lower()
     if base in _BASE:
         return True
-    return base.endswith("if") and base[:-2] in _BASE
+    if base.endswith("if") and base[:-2] in _BASE:
+        return True
+    return any(base.endswith(suf) and is_aggregate_name(base[:-len(suf)])
+               for suf in _UNPORTED_COMBINATORS)
 
 
 def get_aggregate(name: str, arg_types: List[dt.DType],
@@ -286,9 +315,8 @@ def get_aggregate(name: str, arg_types: List[dt.DType],
         lname = lname[:-2]
         arg_types = arg_types[:-1]  # last arg is the condition
     if lname not in _BASE:
-        for suf in ("state", "merge", "array", "foreach", "distinct",
-                    "ornull", "ordefault"):
-            if lname.endswith(suf) and lname[:-len(suf)] in _BASE:
+        for suf in _UNPORTED_COMBINATORS:
+            if lname.endswith(suf) and is_aggregate_name(lname[:-len(suf)]):
                 raise NotImplementedError_(
                     f"Combinator -{suf} ('{name}') is not ported to the "
                     f"CUDA engine yet")

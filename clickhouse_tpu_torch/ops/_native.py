@@ -41,7 +41,8 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 
 # kernel name -> launches since the last reset
 LAUNCHES: Dict[str, int] = {"masked_reduce": 0, "dense_group_reduce": 0,
-                            "topk_smallest": 0}
+                            "topk_smallest": 0, "radix_sort_pairs": 0,
+                            "segment_bounds": 0, "segment_reduce": 0}
 # kernel name -> row count of each launch since the last reset
 LAUNCH_ROWS: Dict[str, List[int]] = {k: [] for k in LAUNCHES}
 
@@ -164,6 +165,19 @@ def library() -> ctypes.CDLL:
             lib.chtt_topk_blocks.restype = I
             lib.chtt_topk_scratch_bytes.argtypes = [I, I, I]
             lib.chtt_topk_scratch_bytes.restype = LL
+            lib.chtt_radix_sort_pairs.argtypes = [P, I, P, LL, I, I, P, P, P,
+                                                  P, P, P, P]
+            lib.chtt_radix_sort_pairs.restype = I
+            lib.chtt_radix_tile_rows.argtypes = [I]
+            lib.chtt_radix_tile_rows.restype = I
+            lib.chtt_segment_bounds.argtypes = [P, P, I, LL, P, I, P, P, P,
+                                                P, P, I, P]
+            lib.chtt_segment_bounds.restype = I
+            lib.chtt_segment_tile_rows.argtypes = []
+            lib.chtt_segment_tile_rows.restype = I
+            lib.chtt_segment_reduce.argtypes = [I, P, I, I, P, P, P, LL, I, P,
+                                                P, P]
+            lib.chtt_segment_reduce.restype = I
             lib.chtt_error_string.argtypes = [I]
             lib.chtt_error_string.restype = ctypes.c_char_p
             _LIB = lib

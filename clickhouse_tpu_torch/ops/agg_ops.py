@@ -1,16 +1,18 @@
-"""Grouping machinery for the trivial and dense GROUP BY kinds, and K1.
+"""Grouping machinery: the sort, dense and trivial GROUP BY kinds, and K1.
 
-Reference: clickhouse_tpu/ops/agg_ops.py.  Two of its three grouping kinds
-are in this port:
+Reference: clickhouse_tpu/ops/agg_ops.py.  Its three grouping kinds:
 
+  * sort    -- generic (unbounded keys, min/max/any, or
+               group_by_algorithm='sort'): a stable sort of the rows by
+               (invalid, keys...) with K4 (``sort_ops.sort_rows``), group
+               ids and segment bounds with K5, reductions with K6
+               (``scan_ops``); groups come out in ascending key order, the
+               NULL group first;
   * dense   -- provably-small key space (interval analysis): the slot is a
                mixed-radix function of the keys; counts and integer sums run
                in one pass of K2 (``mxu_segsum.dense_group_reduce``);
   * trivial -- GROUP BY (): masked whole-column reductions, K1
                (:func:`masked_reduce`).
-
-The sort kind (``group_by_sort``, the reference's generic path) is not
-ported yet and raises ``NotImplementedError_`` naming it.
 
 Unsigned values ride as signed bit patterns (u16 in int32, u32 and u64 in
 int64), so a reduction whose order matters for 64-bit unsigned values
@@ -29,8 +31,7 @@ import numpy as np
 import torch
 
 from ..core import dtypes as dt
-from ..core.errors import NotImplementedError_
-from . import _native, mxu_segsum
+from . import _native, mxu_segsum, scan_ops, sort_ops
 
 __all__ = ["Grouping", "RowMask", "Term", "group_by_sort", "group_by_dense",
            "group_trivial", "masked_reduce"]
@@ -394,6 +395,9 @@ def _masked_reduce_plain(op: str, data: Optional[torch.Tensor],
 class Grouping:
     """Group id of each (valid) row.
 
+    kind='sort':    rows are key-sorted; group_ids (sorted order) are
+                    ascending dense ranks; perm maps a sorted position to
+                    its row; starts/ends give each group slot its rows.
     kind='dense':   slot is a function of the key; rows keep their order;
                     empty slots possible (`present` mask).
     kind='trivial': single global group at slot 0; no per-row group id
@@ -409,6 +413,12 @@ class Grouping:
     unique_keys: List[torch.Tensor]    # each (num_groups_cap,)
     num_groups_cap: int
     present: Optional[torch.Tensor] = None     # (cap_g,) bool (dense only)
+    perm: Optional[torch.Tensor] = None        # int32 (sort only)
+    starts: Optional[torch.Tensor] = None      # (cap_g,) int64 (sort only)
+    ends: Optional[torch.Tensor] = None        # (cap_g,) int64 (sort only)
+    # the rows the grouping was built with (identity-checked: a reduction
+    # over exactly these rows needs no mask)
+    row_valid_ref: Optional[RowMask] = None
 
     def group_valid(self) -> torch.Tensor:
         if self.present is not None:
@@ -420,16 +430,37 @@ class Grouping:
     def reduce(self, op: str, data: torch.Tensor, mask, *,
                unsigned: bool = False) -> torch.Tensor:
         """Per-group reduction over the rows where `mask` (a bool tensor,
-        or a RowMask for the trivial grouping) holds."""
+        or a RowMask for the trivial and sort groupings) holds; data and
+        mask in raw row order."""
         if self.kind == "trivial":
             return self._reduce_trivial(op, data, mask, unsigned)
+        if self.kind == "sort":
+            return scan_ops.segment_reduce(
+                op, data, self._sort_mask(mask), self.perm, self.group_ids,
+                self.num_groups_cap, unsigned=unsigned)
         return self._reduce_dense(op, data, mask)
 
     def count_rows(self, mask) -> torch.Tensor:
         """Rows per group (int64)."""
         if self.kind == "dense":
             return self.dense_counts(mask)
+        if self.kind == "sort":
+            if mask is self.row_valid_ref:
+                # the grouping already segregated exactly these rows
+                return self.ends - self.starts
+            return scan_ops.segment_reduce(
+                "count", None, self._sort_mask(mask), self.perm,
+                self.group_ids, self.num_groups_cap)
         return self._reduce_trivial("sum", None, mask)
+
+    def _sort_mask(self, mask):
+        """The mask K6 reads: None for the grouping's own rows (invalid rows
+        have no group), else a bool (capacity,) tensor."""
+        if mask is None or mask is self.row_valid_ref:
+            return None
+        if isinstance(mask, RowMask):
+            return mask.tensor()
+        return mask.to(torch.bool)
 
     def _reduce_trivial(self, op, data, mask, unsigned=False):
         if data is not None:
@@ -472,13 +503,44 @@ def _mask_arg(mask, data):
     return mask.to(torch.bool).contiguous()
 
 
-def group_by_sort(keys: Sequence[torch.Tensor], row_valid: torch.Tensor,
-                  num_groups_cap: int, secondary=(), payloads=()):
-    """The sort grouping (unbounded keys) is not ported yet."""
-    raise NotImplementedError_(
-        "group_by_sort (GROUP BY over keys without proven small bounds, "
-        "min/max under GROUP BY, or group_by_algorithm='sort') is not "
-        "ported to the CUDA engine yet")
+def group_by_sort(keys: Sequence[sort_ops.SortKey],
+                  rows: Union[RowMask, torch.Tensor], num_groups_cap: int,
+                  *, max_bytes: Optional[int] = None) -> Grouping:
+    """Generic grouping: K4 sorts the rows stably by (invalid, keys...),
+    K5 finds the groups; unique keys are read at each group's first row.
+
+    keys      -- the GROUP BY key arrays (a Nullable key as its validity,
+                 then its data zeroed where NULL), with their signedness and
+                 proven bounds
+    rows      -- the rows to group (a RowMask, or a bool mask); the others
+                 belong to no group.  Where they are the first n rows, only
+                 those are sorted, with no invalid flag
+    max_bytes -- sort_ops.sort_rows' limit on its working set
+    """
+    if isinstance(rows, torch.Tensor):
+        rows = RowMask.of(rows.to(torch.bool))
+    cap = rows.capacity
+    n = min(rows.n_rows, cap)
+    if rows.mask is None and not rows.terms and n > 0:
+        # a scan's rows: the first n, all valid
+        head = [dataclasses.replace(k, data=k.data[:n])
+                if k.data.dim() else k for k in keys]
+        perm, sorted_keys = sort_ops.sort_rows(head, None,
+                                               max_bytes=max_bytes)
+        n_valid = torch.full((), n, dtype=torch.int64, device=rows.device)
+    else:
+        perm, sorted_keys = sort_ops.sort_rows(keys, rows.tensor(),
+                                               max_bytes=max_bytes)
+        n_valid = rows.count()
+    gid, num_groups, starts, ends = scan_ops.segment_bounds(
+        sorted_keys, n_valid, num_groups_cap)
+    first = perm.index_select(
+        0, torch.clamp(starts, 0, max(perm.shape[0] - 1, 0)))
+    unique_keys = [k.data.expand(cap).index_select(0, first) for k in keys]
+    return Grouping(kind="sort", group_ids=gid, num_groups=num_groups,
+                    unique_keys=unique_keys, num_groups_cap=num_groups_cap,
+                    perm=perm, starts=starts, ends=ends,
+                    row_valid_ref=rows)
 
 
 def group_by_dense(keys: Sequence[torch.Tensor],

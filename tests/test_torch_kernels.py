@@ -7,7 +7,9 @@ imports no JAX, so on a machine with a card it runs on its own:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_kernels.py
 
 Integer results must be bit-exact.  Float sums: rtol=1e-12, because the
-kernel adds per-block partials in another order than torch's sum.
+kernel adds per-block partials in another order than torch's sum; K6's
+float sums within n_g * eps * sum(|x|) of each group of n_g rows, because
+its atomics add a group's parts in an order that varies from run to run.
 """
 import dataclasses
 
@@ -15,14 +17,20 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import CMPS, make_term, term_cases
+from chip_smoke import (CMPS, SORT_KEY_CHAINS, grouped_rows, make_term,
+                        sort_key_columns, term_cases)
 from clickhouse_tpu_torch.ops import _native
 from clickhouse_tpu_torch.ops.agg_ops import (_masked_reduce_plain,
                                               masked_reduce)
 from clickhouse_tpu_torch.ops.mxu_segsum import (_dense_group_reduce_plain,
                                                  dense_group_reduce)
-from clickhouse_tpu_torch.ops.sort_ops import (_topk_smallest32_plain,
+from clickhouse_tpu_torch.ops.scan_ops import (_segment_bounds_plain,
+                                               _segment_reduce_plain,
+                                               segment_bounds, segment_reduce)
+from clickhouse_tpu_torch.ops.sort_ops import (_radix_sort_pairs_plain,
+                                               _topk_smallest32_plain,
                                                _topk_smallest_plain,
+                                               radix_sort_pairs, sort_rows,
                                                topk_smallest, topk_smallest32)
 
 pytestmark = pytest.mark.cuda
@@ -302,8 +310,180 @@ def test_launch_counters_count_kernel_launches(dev):
     masked_reduce("sum", x)
     dense_group_reduce(x.to(torch.int32), None, [None], [x], [None], 10)
     topk_smallest(x, None, 3)
+    key, perm = radix_sort_pairs(x.to(torch.int32), 4)
+    gid, _, _, _ = segment_bounds([key], torch.tensor(10, device=dev), 16)
+    segment_reduce("sum", x, None, perm, gid, 16)
     assert _native.LAUNCHES == {"masked_reduce": 1, "dense_group_reduce": 1,
-                                "topk_smallest": 1}
+                                "topk_smallest": 1, "radix_sort_pairs": 1,
+                                "segment_bounds": 1, "segment_reduce": 1}
+
+
+# -- K4 radix_sort_pairs, K5 segment_bounds, K6 segment_reduce ----------------
+
+def _sort_keys(case, rng, n):
+    """(key tensor of u32 / u64 bits, significant bits) for K4."""
+    if case == "u32_21_bits":                 # Q2b's packed key
+        return torch.from_numpy(rng.integers(0, 1 << 21, n)
+                                .astype(np.int32)), 21
+    if case == "u32_full":
+        return torch.from_numpy(rng.integers(0, 1 << 32, n, dtype=np.uint64)
+                                .astype(np.uint32).view(np.int32)), 32
+    if case == "u64_full":                    # values above 2^63 included
+        return torch.from_numpy(rng.integers(-(1 << 63), (1 << 63) - 1, n,
+                                             dtype=np.int64)), 64
+    if case == "u64_ties":
+        return torch.from_numpy(rng.integers(0, 5, n).astype(np.int64)
+                                << 60), 64
+    if case == "all_equal":
+        return torch.full((n,), 3, dtype=torch.int32), 2
+    if case == "zero_bits":
+        return torch.zeros(n, dtype=torch.int32), 0
+    raise ValueError(case)
+
+
+@pytest.mark.parametrize("case", ["u32_21_bits", "u32_full", "u64_full",
+                                  "u64_ties", "all_equal", "zero_bits"])
+@pytest.mark.parametrize("n", [1, 4095, 4097, 1_000_003])
+def test_radix_sort_pairs_matches_plain(dev, case, n):
+    rng = np.random.default_rng(n + len(case))
+    key, bits = _sort_keys(case, rng, n)
+    values = torch.from_numpy(rng.permutation(n).astype(np.int32))
+    for v in (None, values):
+        vd = None if v is None else v.to(dev)
+        got = radix_sort_pairs(key.to(dev), bits, vd)
+        want = _radix_sort_pairs_plain(key.to(dev), bits, vd)
+        assert torch.equal(got[0], want[0])
+        assert torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("names", [["int32_bounded"], ["int64"], ["uint64"],
+                                   ["float64"], ["float32"], ["uint8"]]
+                         + SORT_KEY_CHAINS, ids="-".join)
+@pytest.mark.parametrize("invalid", [False, True])
+def test_sort_rows_chain_matches_plain(dev, names, invalid):
+    """The whole pass plan on the card (packing, chained K4 calls) gives
+    the permutation of the plain path, invalid rows last."""
+    n = 100_003
+    rng = np.random.default_rng(len(names))
+    cols = sort_key_columns(rng, n)
+    valid = torch.from_numpy(rng.random(n) < 0.8) if invalid else None
+    keys = [cols[k] for k in names]
+    want, wkeys = sort_rows(keys, valid)
+    got, gkeys = sort_rows(
+        [dataclasses.replace(k, data=k.data.to(dev)) for k in keys],
+        None if valid is None else valid.to(dev))
+    m = n if valid is None else int(valid.sum())
+    assert torch.equal(got.cpu()[:m], want[:m])
+    for g, w in zip(gkeys, wkeys):
+        assert torch.equal(g.cpu()[:m], w[:m])
+
+
+@pytest.mark.parametrize("case", ["one_group", "every_row", "over_cap",
+                                  "invalid_rows", "two_keys", "no_valid",
+                                  "six_keys"])
+def test_segment_bounds_matches_plain(dev, case):
+    rng = np.random.default_rng(len(case))
+    n = 1_000_003
+    cap_g = 1 << 20
+    nv = n
+    keys = [np.sort(rng.integers(0, 50_000, n)).astype(np.int32)]
+    if case == "one_group":
+        keys = [np.zeros(n, np.int32)]
+    elif case == "every_row":
+        keys = [np.arange(n, dtype=np.int64)]
+    elif case == "over_cap":
+        keys, cap_g = [np.arange(n, dtype=np.int32) // 3], 1024
+    elif case == "invalid_rows":
+        nv = n - 12_345
+    elif case == "two_keys":
+        keys.append(rng.integers(0, 2, n).astype(np.int64))
+        keys = [keys[0], np.where(keys[0] % 7 == 0, keys[1], 0)]
+    elif case == "no_valid":
+        nv = 0
+    elif case == "six_keys":                  # more arrays than K5 compares
+        keys += [np.where(keys[0] % p == 0, rng.integers(0, 3, n), 0)
+                 .astype(np.int64 if p % 2 else np.int32)
+                 for p in (2, 3, 5, 7, 11)]
+    kd = [torch.from_numpy(k).to(dev) for k in keys]
+    nvt = torch.tensor(nv, dtype=torch.int64, device=dev)
+    got = segment_bounds(kd, nvt, cap_g)
+    want = _segment_bounds_plain(kd, nvt, cap_g)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def _check_group_values(got, want, op, data, mask, perm, gid, cap_g):
+    if got.is_floating_point() and op == "sum":
+        absd = data.abs().to(torch.float64)
+        scale = _segment_reduce_plain("sum", absd, mask, perm, gid, cap_g,
+                                      False)
+        cnt = _segment_reduce_plain("count", None, mask, perm, gid, cap_g,
+                                    False)
+        tol = cnt.to(torch.float64) * 2.3e-16 * scale
+        nan = torch.isnan(want)
+        assert torch.equal(torch.isnan(got), nan)
+        assert bool(((got - want).abs() <= tol)[~nan].all())
+    elif got.is_floating_point():
+        assert torch.equal(got.view(torch.int64) if got.dtype ==
+                           torch.float64 else got.view(torch.int32),
+                           want.view(torch.int64) if want.dtype ==
+                           torch.float64 else want.view(torch.int32))
+    else:
+        assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("dtype,op", [
+    (d, op) for op in OPS + ["count"] for d in DTYPES
+    if not (d.is_floating_point and op in ("bor", "band", "bxor"))], ids=str)
+def test_segment_reduce_matches_plain(dev, dtype, op):
+    rng = np.random.default_rng(7)
+    n, groups, cap_g = 1_000_003, 70_000, 1 << 17
+    x = _values(rng, dtype, n)
+    if dtype.is_floating_point:
+        x[::101] = float("nan")
+    perm, gid = grouped_rows(n, groups, dev)
+    for m in (None, torch.from_numpy(rng.random(n) < 0.3),
+              torch.zeros(n, dtype=torch.bool)):
+        md = None if m is None else m.to(dev)
+        d = None if op == "count" else x.to(dev)
+        got = segment_reduce(op, d, md, perm, gid, cap_g)
+        want = _segment_reduce_plain(op, d, md, perm, gid, cap_g, False)
+        _check_group_values(got, want, op, d, md, perm, gid, cap_g)
+
+
+@pytest.mark.parametrize("op", ["sum", "min", "max", "any", "count"])
+def test_segment_reduce_skewed_group_matches_plain(dev, op):
+    """One group holds 40 % of the rows: it spans many tiles, combined by
+    atomics; small groups around it stay whole in a tile."""
+    rng = np.random.default_rng(11)
+    n = 3_000_000
+    perm, gid = grouped_rows(n, 200_000, dev, skew=0.4)
+    x = torch.from_numpy(rng.integers(-(1 << 40), 1 << 40, n)).to(dev)
+    d = None if op == "count" else x
+    for m in (None, torch.from_numpy(rng.random(n) < 0.5).to(dev)):
+        got = segment_reduce(op, d, m, perm, gid, 1 << 18)
+        want = _segment_reduce_plain(op, d, m, perm, gid, 1 << 18, False)
+        assert torch.equal(got, want)
+
+
+def test_segment_reduce_unsigned_and_narrow_storage(dev):
+    """UInt64 bits compare unsigned; a column's narrow storage reduces as
+    its values."""
+    rng = np.random.default_rng(12)
+    n = 200_000
+    perm, gid = grouped_rows(n, 5000, dev)
+    u = torch.from_numpy(rng.integers(-(1 << 63), (1 << 63) - 1, n,
+                                      dtype=np.int64)).to(dev)
+    for op in ("min", "max", "sum", "any"):
+        got = segment_reduce(op, u, None, perm, gid, 8192, unsigned=True)
+        want = _segment_reduce_plain(op, u, None, perm, gid, 8192, True)
+        assert torch.equal(got, want)
+    narrow = torch.from_numpy(rng.integers(-1000, 1000, n)
+                              .astype(np.int16)).to(dev)
+    for op in ("min", "max", "sum"):
+        a = segment_reduce(op, narrow, None, perm, gid, 8192)
+        b = segment_reduce(op, narrow.to(torch.int64), None, perm, gid, 8192)
+        assert torch.equal(a.to(torch.int64), b)
 
 
 SQL_ON_CARD = [
@@ -322,6 +502,21 @@ SQL_ON_CARD = [
     "SELECT f FROM t ORDER BY f DESC LIMIT 30",
     "SELECT n FROM t ORDER BY n LIMIT 30",
     "SELECT k, u FROM t ORDER BY u DESC LIMIT 25",
+    "SELECT x AS k, count() AS c FROM hits GROUP BY k ORDER BY c DESC, k "
+    "LIMIT 10",
+    "SELECT intDiv(x, 4) AS k, count() AS c, sum(x) AS s, min(x) AS lo, "
+    "max(x) AS hi, any(x) AS a FROM hits GROUP BY k ORDER BY s DESC LIMIT 10",
+    "SELECT n, k, count(), min(f), max(f), any(a), avg(a) FROM t "
+    "GROUP BY n, k",
+    "SELECT u, count(), sum(a), minIf(a, b > 1) FROM t GROUP BY u",
+    "SELECT f, count() FROM t GROUP BY f",
+    "SELECT x FROM hits ORDER BY x DESC",
+    "SELECT a, f FROM t ORDER BY a DESC, f",
+    "SELECT x FROM hits ORDER BY x LIMIT 5000",
+    # more groups than slots: K5 and K6 skip the groups past max_groups,
+    # then the session retries with more slots
+    "SELECT x % 5000 AS k, count(), min(x), any(x) FROM hits GROUP BY k "
+    "SETTINGS max_groups = 1024",
 ]
 
 

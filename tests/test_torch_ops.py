@@ -4,10 +4,18 @@ the JAX reference functions they replace, on the same numpy inputs.
   K1 masked_reduce       vs Grouping.reduce of group_trivial / count_mask
   K2 dense_group_reduce  vs mxu_counts_and_sums / mxu_group_reduce
   K3 topk_smallest       vs topk_permutation / topk_permutation32
+  K4 radix_sort_pairs    vs sort_permutation and group_by_sort's perm
+  K5 segment_bounds      vs group_by_sort's group ids, bounds, unique keys
+  K6 segment_reduce      vs seg_reduce_sorted
   order_token, topk_key32 on every dtype
 
 Integers must be bit-exact.  Float sums: rtol=1e-12, because the two sum
-in different orders (pairwise in XLA, sequential partials in torch).
+in different orders (pairwise in XLA, sequential partials in torch).  A
+float sum over the sort grouping is held to an absolute tolerance of
+n * eps * max|prefix| instead: the reference takes each group's sum as a
+difference of two prefix sums over all n sorted rows, so its error scales
+with the running prefix, not with the group, while K6 adds each group's
+own values.
 """
 import subprocess
 import sys
@@ -22,12 +30,14 @@ from clickhouse_tpu.exprs.expr import ColVal as JColVal
 from clickhouse_tpu.ops import agg_ops as jagg
 from clickhouse_tpu.ops import filter_ops as jfilter
 from clickhouse_tpu.ops import mxu_segsum as jmxu
+from clickhouse_tpu.ops import scan_ops as jscan
 from clickhouse_tpu.ops import sort_ops as jsort
 from clickhouse_tpu_torch.core import dtypes as tdt
 from clickhouse_tpu_torch.exprs.expr import ColVal as TColVal
 from clickhouse_tpu_torch.ops import agg_ops as tagg
 from clickhouse_tpu_torch.ops import filter_ops as tfilter
 from clickhouse_tpu_torch.ops import mxu_segsum as tmxu
+from clickhouse_tpu_torch.ops import scan_ops as tscan
 from clickhouse_tpu_torch.ops import sort_ops as tsort
 
 NP_DTYPES = ["bool", "int8", "uint8", "int16", "uint16", "int32", "uint32",
@@ -355,6 +365,30 @@ def test_order_token_matches_reference(name):
             assert got.numpy().view(np.uint64).tolist() == ref.tolist()
 
 
+@pytest.mark.parametrize("name", ["float32", "float64", "int64"])
+def test_sortable_bits_match_reference(name):
+    """Floats enter a sort as the reference's tokens (-0.0 and +0.0 apart,
+    NaNs last) and decode to their own bits; other types pass as they
+    are."""
+    from clickhouse_tpu.ops import hash_ops as jhash
+    from clickhouse_tpu_torch.ops import hash_ops as thash
+    rng = np.random.default_rng(3)
+    x = _values(rng, name, 500)
+    if np.dtype(name).kind == "f":
+        x[:5] = [np.nan, -np.nan, -np.inf, -0.0, np.inf]
+    ref, ref_decode = jhash.sortable_bits(jnp.asarray(x))
+    got, decode = thash.sortable_bits(_t(x))
+    assert (decode is None) == (ref_decode is None)
+    if decode is None:
+        assert got.numpy().tolist() == x.tolist()
+        return
+    assert got.numpy().view(np.uint64).tolist() == np.asarray(ref).tolist()
+    bits = np.dtype(f"uint{8 * x.itemsize}")
+    assert decode(got).numpy().view(bits).tolist() == x.view(bits).tolist()
+    assert np.asarray(ref_decode(ref)).view(bits).tolist() == \
+        x.view(bits).tolist()
+
+
 @pytest.mark.parametrize("name", NP_DTYPES)
 def test_topk_key32_matches_reference(name):
     rng = np.random.default_rng(2)
@@ -397,12 +431,207 @@ def test_wrappers_refuse_devices_without_a_kernel():
 
 
 def test_unported_paths_raise_typed_errors():
+    """The sort grouping and the full sort answer as the reference's (they
+    raised before K4-K6); K3's own k > 4,096 refusal stays."""
     from clickhouse_tpu_torch.core.errors import NotImplementedError_
-    with pytest.raises(NotImplementedError_, match="group_by_sort"):
-        tagg.group_by_sort([torch.zeros(4)], torch.ones(4, dtype=torch.bool),
-                           4)
-    with pytest.raises(NotImplementedError_, match="sort_permutation"):
-        tsort.sort_permutation([torch.zeros(4)], torch.ones(4, dtype=bool))
+    x = np.array([3, 1, 3, 2], np.int64)
+    valid = np.array([1, 1, 0, 1], bool)
+    g = tagg.group_by_sort([tsort.SortKey(_t(x))], _t(valid), 4)
+    ref = jagg.group_by_sort([jnp.asarray(x)], jnp.asarray(valid), 4)
+    assert g.perm[:3].tolist() == np.asarray(ref.perm)[:3].tolist()
+    assert g.unique_keys[0][:3].tolist() == \
+        np.asarray(ref.unique_keys[0])[:3].tolist()
+    tok = tsort.order_token(_t(x))
+    assert tsort.sort_permutation([tok], _t(valid))[:3].tolist() == \
+        np.asarray(jsort.sort_permutation(
+            [jsort.order_token(jnp.asarray(x))], jnp.asarray(valid)))[
+            :3].tolist()
     with pytest.raises(NotImplementedError_, match="large-k"):
         tsort.topk_smallest(torch.zeros(10_000, dtype=torch.int64), None,
                             5000)
+
+
+# -- K4, K5, K6 --------------------------------------------------------------
+
+def _key_values(rng, name, n):
+    """Keys with ties (and NaN, -0.0 and +0.0 for floats; UInt64 above
+    2^63), away from the 64-bit maxima where the reference's clamped min/max
+    tokens tie."""
+    d = np.dtype(name)
+    if d.kind == "b":
+        return rng.random(n) < 0.5
+    if d.kind == "f":
+        a = rng.integers(-20, 20, n).astype(np.float64) / 4
+        a[rng.random(n) < 0.05] = np.nan
+        a[rng.random(n) < 0.05] = -0.0
+        return a.astype(d)
+    info = np.iinfo(d)
+    pool = rng.integers(info.min, info.max - 1, 40, endpoint=True, dtype=d)
+    return pool[rng.integers(0, 40, n)]
+
+
+def _sort_key(x: np.ndarray) -> tsort.SortKey:
+    return tsort.SortKey(_t(x), unsigned=x.dtype == np.uint64)
+
+
+@pytest.mark.parametrize("name", NP_DTYPES)
+def test_sort_permutation_matches_reference(name):
+    """Two tokens (the second descending), invalid rows: the valid rows
+    come in the reference's stable order; K4's pass plan and packing run
+    through its plain version."""
+    rng = np.random.default_rng(len(name) + 5)
+    n = 5000
+    a, b = _key_values(rng, name, n), _key_values(rng, "int16", n)
+    valid = rng.random(n) < 0.8
+    ref = np.asarray(jsort.sort_permutation(
+        [jsort.order_token(jnp.asarray(a)),
+         jsort.order_token(jnp.asarray(b), descending=True)],
+        jnp.asarray(valid)))
+    got = tsort.sort_permutation(
+        [tsort.order_token(_t(a), unsigned=name == "uint64"),
+         tsort.order_token(_t(b), descending=True)], _t(valid))
+    m = int(valid.sum())
+    assert got.dtype == torch.int64
+    assert got[:m].tolist() == ref[:m].tolist()
+
+
+def _groupings(keys, valid, cap_g):
+    ref = jagg.group_by_sort([jnp.asarray(k) for k in keys],
+                             jnp.asarray(valid), cap_g)
+    got = tagg.group_by_sort([_sort_key(k) for k in keys], _t(valid), cap_g)
+    return ref, got
+
+
+@pytest.mark.parametrize("name", NP_DTYPES)
+@pytest.mark.parametrize("cap_g", [64, 4096])
+def test_group_by_sort_matches_reference(name, cap_g):
+    """K4's perm, K5's group ids, group count, segment bounds and the
+    unique keys, for every key type; cap_g 64 leaves groups without a
+    slot."""
+    rng = np.random.default_rng(len(name) + cap_g)
+    n = 3000
+    keys = [_key_values(rng, name, n)]
+    if name == "int32":                  # a Nullable key: validity, data
+        v = rng.random(n) < 0.9
+        keys = [v, np.where(v, keys[0], 0).astype(np.int32),
+                _key_values(rng, "uint64", n)]
+    valid = rng.random(n) < 0.85
+    ref, got = _groupings(keys, valid, cap_g)
+    m = int(valid.sum())
+    assert got.perm[:m].tolist() == np.asarray(ref.perm)[:m].tolist()
+    assert got.group_ids.tolist() == np.asarray(ref.group_ids).tolist()
+    ng = int(ref.num_groups)
+    assert int(got.num_groups) == ng
+    assert got.starts.tolist() == np.asarray(ref.starts).tolist()
+    assert got.ends.tolist() == np.asarray(ref.ends).tolist()
+    for g, r in zip(got.unique_keys, ref.unique_keys):
+        k = min(ng, cap_g)
+        _same(g[:k], np.asarray(r)[:k])
+
+
+def _sum_atol(data, ref_grouping, mask):
+    """n * eps * max|prefix| of the reference's prefix sums of the masked
+    data in sorted order."""
+    d = np.asarray(data, np.float64)[np.asarray(ref_grouping.perm)]
+    if mask is not None:
+        d = np.where(np.asarray(mask)[np.asarray(ref_grouping.perm)], d, 0.0)
+    d = np.where(np.isfinite(d), d, 0.0)
+    return len(d) * np.finfo(np.float64).eps * np.abs(np.cumsum(d)).max()
+
+
+@pytest.mark.parametrize("name", NP_DTYPES)
+def test_segment_reduce_matches_reference(name):
+    """K6's plain version against seg_reduce_sorted over the reference's
+    grouping of the same keys: every op, with and without a mask, groups
+    without a masked-in row, NaN and -0.0."""
+    rng = np.random.default_rng(len(name) + 9)
+    n, cap_g = 3000, 1024
+    keys = [rng.integers(0, 300, n)]
+    valid = rng.random(n) < 0.9
+    ref_g, got_g = _groupings(keys, valid, cap_g)
+    d = np.dtype(name)
+    x = _key_values(rng, name, n) if d.kind != "f" else _values(rng, name, n)
+    if d.kind == "f":
+        x[rng.random(n) < 0.02] = np.nan
+    gid = got_g.group_ids
+    for op in OPS:
+        if op in ("bor", "band", "bxor") and d.kind == "f":
+            continue
+        for m in (None, rng.random(n) < 0.3, np.zeros(n, bool)):
+            if op == "band" and name == "bool" and m is not None:
+                # the reference gives masked-out bool rows False as band's
+                # identity (clickhouse_tpu/ops/scan_ops.py:226 inverts it
+                # for integer types only): ROADMAP queue 3
+                continue
+            mj = None if m is None else ref_g.take(jnp.asarray(m))
+            xs = x
+            if op == "sum" and d.kind == "f":
+                # the reference's prefix difference turns every group after
+                # a NaN into NaN (ROADMAP queue 3); K6 sums each group
+                xs = np.where(np.isnan(x), 0.5, x).astype(d)
+            want = np.asarray(jscan.seg_reduce_sorted(
+                op, ref_g.take(jnp.asarray(xs)), ref_g.group_ids,
+                ref_g.boundary, ref_g.starts, ref_g.ends, cap_g,
+                mask_sorted=mj))
+            got = tscan.segment_reduce(op, _t(xs), None if m is None
+                                       else _t(m), got_g.perm, gid, cap_g,
+                                       unsigned=name == "uint64")
+            if op == "sum" and d.kind == "f":
+                g = got.numpy()
+                assert np.isnan(g).tolist() == np.isnan(want).tolist()
+                ok = ~np.isnan(want)
+                np.testing.assert_allclose(
+                    g[ok], want[ok], rtol=0,
+                    atol=_sum_atol(xs, ref_g, m))
+            else:
+                _same(got, want)
+    cnt = tscan.segment_reduce("count", None, _t(valid), got_g.perm, gid,
+                               cap_g)
+    assert cnt.tolist() == (got_g.ends - got_g.starts).tolist()
+
+
+def test_radix_sort_pass_plan(monkeypatch):
+    """K4 sorts only the bits that vary, in even digits: x's 20 bits plus
+    the invalid flag take three 7-bit passes, and Q2b's scan rows (every
+    row below the row count valid) the 20 bits alone, also in three."""
+    assert tsort.sort_pass_plan(21) == (3, 7)
+    assert tsort.sort_pass_plan(32) == (4, 8)
+    assert tsort.sort_pass_plan(64) == (8, 8)
+    assert tsort.sort_pass_plan(0) == (1, 1)
+    x = np.arange(200_000, dtype=np.int64) * 2654435761 % 1_000_003
+    seen = []
+    plain = tsort._radix_sort_pairs_plain
+
+    def spy(keys, bits, values):
+        seen.append((keys.dtype, bits))
+        return plain(keys, bits, values)
+    monkeypatch.setattr(tsort, "_radix_sort_pairs_plain", spy)
+    key = tsort.SortKey(_t(x).to(torch.int32), bounds=(0, 1_000_002))
+    perm, _ = tsort.sort_rows([key], torch.ones(len(x), dtype=bool))
+    assert seen == [(torch.int32, 21)]
+    assert perm.tolist() == np.argsort(x, kind="stable").tolist()
+    rows = tagg.RowMask(len(x) + 100, torch.device("cpu"), len(x))
+    padded = tsort.SortKey(torch.cat([key.data, key.data[:100]]),
+                           bounds=key.bounds)
+    g = tagg.group_by_sort([padded], rows, 1 << 20)
+    assert seen[1:] == [(torch.int32, 20)]
+    assert g.perm.tolist() == perm.tolist()
+    assert int(g.num_groups) == len(np.unique(x))
+
+
+def test_segment_bounds_folds_key_arrays_past_the_fourth():
+    """K5 compares four key arrays a row; six arrays give the groups that
+    comparing all six gives (the last three folded into their own group
+    ids first)."""
+    rng = np.random.default_rng(11)
+    n, cap_g = 5000, 1024
+    lead = np.sort(rng.integers(0, 300, n))
+    keys = [_t(lead.astype(np.int32))] + [
+        _t(np.where(lead % p == 0, rng.integers(0, 3, n), 0).astype(dt))
+        for p, dt in ((2, np.int64), (3, np.int32), (5, np.int64),
+                      (7, np.int32), (11, np.int64))]
+    nv = torch.tensor(n - 37)
+    got = tscan.segment_bounds(keys, nv, cap_g)
+    want = tscan._segment_bounds_plain(keys, nv, cap_g)
+    for g, w in zip(got, want):
+        assert g.tolist() == w.tolist()
