@@ -15,11 +15,13 @@ non-zero without them.  Phases, each of which fails the run:
      bounds off the 16-row grid and misaligned views; K2 with skewed slots;
      both K3 entries with ties, extreme keys, invalid rows, monotone keys
      and ties across blocks; K4 over every key type's token, UInt64 above
-     2^63, NaN and -0.0, all-equal keys, one row, row counts off the tile
-     grid, invalid rows, no valid row and multi-key chains; K5 with one
-     group, a group a row, and more groups than slots; K6 for every op,
-     with masks, empty and fully masked groups, and one group holding 40 %
-     of the rows); integer results must agree exactly, K1's and K2's float
+     2^63, NaN and -0.0, all-equal keys, a constant top digit, one row,
+     one tile and one tile plus a row, more tiles than the card holds at
+     once (the look-back waits), invalid rows, no valid row and multi-key
+     chains; K5 with one group, a group a row, and more groups than slots;
+     K6 for every op, with masks, empty and fully masked groups, one group
+     holding 40 % of the rows, and several ops over two columns and two
+     masks in one launch); integer results must agree exactly, K1's and K2's float
      sums within rtol 1e-12, K6's within n_g * eps * sum(|x|) a group of
      n_g rows (its atomics add a group's parts in a varying order);
   3. drive the main path through the public API: connect(device="cuda"),
@@ -29,8 +31,9 @@ non-zero without them.  Phases, each of which fails the run:
      answer, with the kernels' launch counters reset before and read after
      to show the queries went through K1-K6: Q1 must reach K1 once at 100M
      rows with its filter as a term (read in x's int32 storage) and
-     allocate no row mask; Q2b and Q2m must reach K4 and K5 over every
-     row, and Q2m K6;
+     allocate no row mask; Q2b and Q2m must reach K4 once and K5 over
+     every row, Q2m K6 exactly once (all four aggregates in one launch)
+     and Q2b never;
   4. replay each kernel on the exact inputs the main path gave it (its
      largest launch on the main path), held against its plain version, and
      time it, its plain version and, where one exists, the single PyTorch
@@ -39,10 +42,12 @@ non-zero without them.  Phases, each of which fails the run:
      both its forms (Q1's filter term, and the largest bool-mask count the
      main path made: the aggregated block's row count in _sort_block) and
      the kernels of one call from a torch.profiler trace, K2 on skewed slots at 100M rows and at
-     S = 16,384, K3's level 1 and merge apart (torch.profiler), K6 for
-     each of Q2m's ops and over 100M rows where one group holds 40 % of
-     them; time each query (median wall time of 20 runs, synchronised) and
-     the device-busy time of Q1, Q2b and Q2m (torch.profiler).
+     S = 16,384, K3's level 1 and merge apart (torch.profiler), K4 at
+     Q2b's and Q2m's inputs with its histogram and scatter kernels apart
+     (torch.profiler: one histogram and one scatter a pass), K6's one launch of Q2m's four aggregates, each of them
+     alone and over 100M rows where one group holds 40 % of them; time
+     each query (median wall time of 20 runs, synchronised) and the
+     device-busy time of Q1, Q2b and Q2m (torch.profiler).
 
 The second-to-last line is a JSON object of per-kernel results (name,
 route, source, replaces, launches, ms, plain_ms, bound_ms, bound_by,
@@ -82,7 +87,8 @@ EXTRA_KEYS = ("level1_ms", "merge_ms", "entry64_ms", "entry64_bound_ms",
               "mask_form_bound_ms", "mask_form_shape", "launches_fused",
               "launches_mask_form", "kernels_per_call", "passes",
               "digit_bits", "per_op_ms", "skew_ms", "skew_bound_ms",
-              "information", "hist_ms", "scan_ms", "scatter_ms")
+              "information", "hist_ms", "scatter_ms", "q2m_ms", "q2m_bound_ms", "q2m_library_ms",
+              "specs", "launches_per_query")
 F64_EPS = 2.0 ** -52
 CMPS = ["equals", "notEquals", "less", "lessOrEquals", "greater",
         "greaterOrEquals"]
@@ -423,37 +429,62 @@ def sort_key_columns(rng, n):
     }
 
 
+# K4 row counts: one row, off the tile grid, one u32 tile (8,192 rows)
+# and one more row, and more tiles than an H100 holds at once (132 SMs x
+# 2 blocks x 8,192 rows), so the look-back waits on running tiles
+K4_ROWS = (1, 4095, 8192, 8193, 1_000_003, 5_000_011)
+
+
+def k4_keys(rng, n):
+    """(key as u32 / u64 bits, significant bits) cases of K4 at n rows."""
+    return [
+        (torch.from_numpy(rng.integers(0, 1 << 21, n).astype(np.int32)), 21),
+        (torch.from_numpy(rng.integers(0, 1 << 32, n, dtype=np.uint64)
+                          .astype(np.uint32).view(np.int32)), 32),
+        (torch.from_numpy(rng.integers(-(1 << 63), (1 << 63) - 1, n,
+                                       dtype=np.int64)), 64),
+        (torch.from_numpy(rng.integers(0, 3, n).astype(np.int64) << 62), 64),
+        # one digit takes every row of every tile
+        (torch.full((n,), 5, dtype=torch.int32), 3),
+        # the top digit (bits 14-20) is constant
+        (torch.from_numpy((rng.integers(0, 1 << 14, n) | (77 << 14))
+                          .astype(np.int32)), 21),
+        (torch.zeros(n, dtype=torch.int64), 0)]
+
+
 def check_k4(dev):
-    """K4 against its plain version: raw keys (one row, row counts off the
-    4,096-row tile grid, all-equal keys, u64 keys above 2^63, 0 bits), and
-    the whole pass plan of sort_rows (every key type's token, NaN and -0.0,
-    invalid rows, no valid row, multi-key chains) on the card against the
-    same call on the CPU copies."""
+    """K4 against its plain version: raw keys (K4_ROWS: one row, one tile
+    and one more row, more tiles than the card holds at once; all-equal
+    keys, a constant top digit, u64 keys above 2^63, 0 bits; row ids and
+    given values, and a u64 chain of two calls), and the whole pass plan of
+    sort_rows (every key type's token, NaN and -0.0, invalid rows, no
+    valid row, multi-key chains) on the card against the same call on the
+    CPU copies."""
     import dataclasses
     from clickhouse_tpu_torch.ops.sort_ops import (
         _radix_sort_pairs_plain, radix_sort_pairs, sort_rows)
     rng = np.random.default_rng(6)
     calls = 0
-    for n in (1, 4095, 4097, 1_000_003):
-        cases = [
-            (torch.from_numpy(rng.integers(0, 1 << 21, n).astype(np.int32)),
-             21),
-            (torch.from_numpy(rng.integers(0, 1 << 32, n, dtype=np.uint64)
-                              .astype(np.uint32).view(np.int32)), 32),
-            (torch.from_numpy(rng.integers(-(1 << 63), (1 << 63) - 1, n,
-                                           dtype=np.int64)), 64),
-            (torch.from_numpy(rng.integers(0, 3, n).astype(np.int64) << 62),
-             64),
-            (torch.full((n,), 5, dtype=torch.int32), 3),
-            (torch.zeros(n, dtype=torch.int64), 0)]
+    for n in K4_ROWS:
         perm = torch.from_numpy(rng.permutation(n).astype(np.int32)).to(dev)
-        for key, bits in cases:
+        for key, bits in k4_keys(rng, n):
             for vals in (None, perm):
                 got = radix_sort_pairs(key.to(dev), bits, vals)
                 want = _radix_sort_pairs_plain(key.to(dev), bits, vals)
                 for a, b in zip(got, want):
                     max_abs_err(a, b)
                 calls += 1
+        # a chain: the low u64 key, then the high one in the order so far
+        lo, hi = (torch.from_numpy(rng.integers(-(1 << 63), (1 << 63) - 1, n,
+                                                dtype=np.int64)).to(dev)
+                  for _ in range(2))
+        p_got = radix_sort_pairs(lo, 64)[1]
+        p_want = _radix_sort_pairs_plain(lo, 64, None)[1]
+        got = radix_sort_pairs(hi[p_got.long()], 64, p_got)
+        want = _radix_sort_pairs_plain(hi[p_want.long()], 64, p_want)
+        for a, b in zip(got, want):
+            max_abs_err(a, b)
+        calls += 1
     n = 1_000_003
     cols = sort_key_columns(rng, n)
     chains = [[k] for k in cols] + SORT_KEY_CHAINS
@@ -472,7 +503,7 @@ def check_k4(dev):
                 max_abs_err(a.cpu()[:m], b[:m])
             calls += 1
     print(f"K4 radix_sort_pairs edge cases: {calls} calls agree (raw keys "
-          f"at n in (1, 4095, 4097, 1000003); sort_rows over every key "
+          f"and a u64 chain at n in {K4_ROWS}; sort_rows over every key "
           f"type, chains, invalid rows and no valid row)", flush=True)
 
 
@@ -518,14 +549,24 @@ def grouped_rows(n, groups, dev, skew=None, seed=8):
     return order.indices.to(torch.int32), gid
 
 
-def k6_agrees(op, data, mask, perm, gid, cap_g, unsigned=False) -> float:
-    """K6 against its plain version on the same inputs; float sums within
+def k6_agrees(specs, perm, gid, cap_g, group_rows=None) -> float:
+    """K6 (one segment_reduce_many call over `specs`) against its plain
+    version, spec by spec, on the same inputs; float sums within
     n_g * eps * sum(|x|) a group of n_g masked-in rows.  -> max abs err."""
     from clickhouse_tpu_torch.ops.scan_ops import (_segment_reduce_plain,
-                                                   segment_reduce)
-    got = segment_reduce(op, data, mask, perm, gid, cap_g,
-                         unsigned=unsigned)
-    want = _segment_reduce_plain(op, data, mask, perm, gid, cap_g, unsigned)
+                                                   segment_reduce_many)
+    got = segment_reduce_many(specs, perm, gid, cap_g, group_rows=group_rows)
+    err = 0.0
+    for (op, data, mask, uns), g in zip(specs, got):
+        want = _segment_reduce_plain(op, data, mask, perm, gid, cap_g, uns)
+        err = max(err, k6_close(op, g, want, data, mask, perm, gid, cap_g))
+    return err
+
+
+def k6_close(op, got, want, data, mask, perm, gid, cap_g) -> float:
+    """One K6 result against the plain version's: exact, but for float
+    sums within n_g * eps * sum(|x|) a group.  -> max abs err."""
+    from clickhouse_tpu_torch.ops.scan_ops import _segment_reduce_plain
     if not (op == "sum" and got.is_floating_point()):
         if got.is_floating_point():     # min/max/any: the same bits
             bits = torch.int64 if got.dtype == torch.float64 else torch.int32
@@ -545,10 +586,51 @@ def k6_agrees(op, data, mask, perm, gid, cap_g, unsigned=False) -> float:
     return float(err.max()) if err.numel() else 0.0
 
 
+def k6_values(rng, dtype, n):
+    """n values of dtype for K6's cases (floats with -0.0 and NaN)."""
+    if dtype.is_floating_point:
+        x = torch.from_numpy(rng.normal(0, 1e6, n)).to(dtype)
+        x[::97] = -0.0
+        x[::89] = float("nan")
+    elif dtype == torch.bool:
+        x = torch.from_numpy(rng.random(n) < 0.5)
+    else:
+        info = torch.iinfo(dtype)
+        x = torch.from_numpy(rng.integers(info.min, info.max, n,
+                                          endpoint=True)).to(dtype)
+    return x
+
+
+def k6_many_specs(rng, n, dev):
+    """Spec lists of one K6 launch: Q2m's four ops over one column; two
+    columns (int64, float64) under two masks and none, with counts; and
+    eleven specs over five columns, which take more than one launch."""
+    x = torch.from_numpy(rng.integers(-(1 << 40), 1 << 40, n)).to(dev)
+    f = k6_values(rng, torch.float64, n).to(dev)
+    m1 = torch.from_numpy(rng.random(n) < 0.3).to(dev)
+    m2 = torch.from_numpy(rng.random(n) < 0.7).to(dev)
+    narrow = [k6_values(rng, t, n).to(dev) for t in (torch.int8, torch.int16,
+                                                     torch.int32)]
+    return {
+        "q2m": [("sum", x, None, False), ("min", x, None, False),
+                ("max", x, None, False), ("any", x, None, False)],
+        "two_columns_two_masks": [
+            ("sum", x, m1, False), ("min", f, m1, False),
+            ("max", x, m2, False), ("sum", f, m2, False),
+            ("count", None, m1, False), ("any", f, None, False),
+            ("bxor", x, None, True), ("count", None, m2, False)],
+        "split": [(op, c, m, False) for c in narrow + [x, f]
+                  for op, m in (("min", m1), ("sum", None))]
+        + [("band", x, m2, False)],
+    }
+
+
 def check_k6(dev):
     """K6 against its plain version: every op over every storage type, with
     no mask, a partial mask and a mask of no row (empty and fully masked
-    groups), UInt64 bits, and 3M rows where one group holds 40 %."""
+    groups), UInt64 bits, 3M rows where one group holds 40 %, and several
+    specs in one call (k6_many_specs), with and without group_rows."""
+    from clickhouse_tpu_torch.ops.scan_ops import _segment_reduce_plain
     rng = np.random.default_rng(9)
     n = 1_000_003
     perm, gid = grouped_rows(n, 70_000, dev)
@@ -557,16 +639,7 @@ def check_k6(dev):
     calls = 0
     for dtype in (torch.bool, torch.int8, torch.uint8, torch.int16,
                   torch.int32, torch.int64, torch.float32, torch.float64):
-        if dtype.is_floating_point:
-            x = torch.from_numpy(rng.normal(0, 1e6, n)).to(dtype)
-            x[::97] = -0.0
-            x[::89] = float("nan")
-        elif dtype == torch.bool:
-            x = torch.from_numpy(rng.random(n) < 0.5)
-        else:
-            info = torch.iinfo(dtype)
-            x = torch.from_numpy(rng.integers(info.min, info.max, n,
-                                              endpoint=True)).to(dtype)
+        x = k6_values(rng, dtype, n)
         for op in ("sum", "min", "max", "any", "bor", "band", "bxor",
                    "count"):
             if op in ("bor", "band", "bxor") and dtype.is_floating_point:
@@ -574,25 +647,36 @@ def check_k6(dev):
             for m in masks:
                 for uns in ((False, True) if dtype == torch.int64
                             else (False,)):
-                    k6_agrees(op, None if op == "count" else x.to(dev), m,
-                              perm, gid, 1 << 17, unsigned=uns)
+                    k6_agrees([(op, None if op == "count" else x.to(dev), m,
+                                uns)], perm, gid, 1 << 17)
                     calls += 1
+    rows = _segment_reduce_plain("count", None, None, perm, gid, 1 << 17,
+                                 False)
+    for specs in k6_many_specs(rng, n, dev).values():
+        for group_rows in (None, rows):
+            k6_agrees(specs, perm, gid, 1 << 17, group_rows)
+            calls += 1
     sperm, sgid = grouped_rows(3_000_000, 200_000, dev, skew=0.4)
     y = torch.from_numpy(rng.integers(-(1 << 40), 1 << 40, 3_000_000)).to(dev)
     for op in ("sum", "min", "max", "any", "count"):
-        k6_agrees(op, None if op == "count" else y, None, sperm, sgid,
-                  1 << 18)
+        k6_agrees([(op, None if op == "count" else y, None, False)], sperm,
+                  sgid, 1 << 18)
         calls += 1
+    k6_agrees([(op, y, None, False) for op in ("sum", "min", "max", "any")],
+              sperm, sgid, 1 << 18)
+    calls += 1
     print(f"K6 segment_reduce edge cases: {calls} calls agree (every op "
           f"and storage type, masks of some and of no row, a group of 40 % "
-          f"of the rows)", flush=True)
+          f"of the rows, several specs over two columns and two masks in "
+          f"one launch)", flush=True)
 
 
 def main_path_args(session):
     """Run the main path's queries once more with each kernel's launch
     wrapper spied on, and return the arguments of each kernel's largest
-    launch (K1: of each form, its filter terms and its bool mask; K6: of
-    each op): the exact inputs the main path hands it."""
+    launch (K1: of each form, its filter terms and its bool mask; K4: of
+    each query, as "radix_sort_pairs:Q2b"): the exact inputs the main path
+    hands it."""
     from clickhouse_tpu_torch.ops import agg_ops, mxu_segsum, scan_ops, \
         sort_ops
     # kernel -> (module, wrapper, rows of a launch from its arguments)
@@ -606,17 +690,18 @@ def main_path_args(session):
                                   lambda a: a[0].shape[0]),
              "segment_bounds": (scan_ops, "_segment_bounds_cuda",
                                 lambda a: a[0][0].shape[0]),
-             "segment_reduce": (scan_ops, "_segment_reduce_cuda",
-                                lambda a: a[4].shape[0])}
+             "segment_reduce": (scan_ops, "_segment_reduce_many_cuda",
+                                lambda a: a[1].shape[0])}
     got, saved = {}, {}
+    query = [""]
     for name, (mod, attr, rows_of) in spied.items():
         fn = saved[name] = getattr(mod, attr)
 
         def spy(*args, _fn=fn, _name=name, _rows_of=rows_of):
             rows = _rows_of(args)
             key = _name
-            if _name == "segment_reduce":
-                key = f"{_name}:{args[0]}"
+            if _name == "radix_sort_pairs":
+                key = f"{_name}:{query[0]}"
             elif _name == "masked_reduce" and not args[5]:
                 key = f"{_name}:mask"
             if key not in got or rows > got[key][1]:
@@ -624,7 +709,8 @@ def main_path_args(session):
             return _fn(*args)
         setattr(mod, attr, spy)
     try:
-        for _, sql in QUERIES:
+        for name, sql in QUERIES:
+            query[0] = name
             session.execute(sql)
     finally:
         for name, (mod, attr, _) in spied.items():
@@ -665,10 +751,11 @@ def k2_wide(dev) -> float:
     return ms
 
 
-def device_kernels(call, reps=5):
+def device_kernels(call, reps=5, launches=None):
     """{kernel name: device ms per call} over `reps` calls of call(), the L2
     flushed before each, from a torch.profiler trace (the flush's own
-    kernel left out)."""
+    kernel left out).  launches: a dict that takes {kernel name: launches
+    per call}."""
     from torch.profiler import ProfilerActivity, profile
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     call()
@@ -685,10 +772,14 @@ def device_kernels(call, reps=5):
             t = getattr(e, "cuda_time_total", 0.0)
         if t > 0 and e.count >= reps:
             out[e.key] = t / reps / 1e3
+            if launches is not None:
+                launches[e.key] = e.count / reps
     flush_keys = [k for k in out if "fill" in k.lower()
                   or "memset" in k.lower()]
     for k in flush_keys:
         del out[k]
+        if launches is not None:
+            launches.pop(k, None)
     return out
 
 
@@ -890,28 +981,16 @@ def q_shapes(dev, args):
     return out
 
 
-def sort_shapes(dev, args):
-    """K4, K5 and K6 on the inputs the main path gave them (Q2b's sort and
-    bounds over 100M rows, Q2m's reductions), each held against its plain
-    version and timed beside it and beside a PyTorch call of the same
-    function where there is one.  -> {name: record}."""
-    from clickhouse_tpu_torch.ops.scan_ops import (
-        COUNTED_OPS, _segment_bounds_plain, _segment_reduce_plain,
-        segment_bounds, segment_reduce)
-
-    def slot_bytes(op):
-        """Bytes K6 writes a group slot: the state, and the count where
-        the op keeps one (a count keeps the count alone)."""
-        return 8 * ((op != "count") + (op in COUNTED_OPS))
+def k4_record(key, bits, vals):
+    """K4 on one main-path input, held against its plain version and timed
+    beside it and beside torch.sort.  -> record of the kernels line."""
     from clickhouse_tpu_torch.ops.sort_ops import (
         _radix_sort_pairs_plain, radix_sort_pairs, sort_pass_plan)
-    out = {}
-    key, bits, vals = args["radix_sort_pairs"]
     n = key.shape[0]
     got = radix_sort_pairs(key, bits, vals)
     want = _radix_sort_pairs_plain(key, bits, vals)
     passes, digit = sort_pass_plan(bits)
-    out["radix_sort_pairs"] = dict(
+    return dict(
         max_abs_err=max(max_abs_err(a, b) for a, b in zip(got, want)),
         ms=cuda_ms(lambda: radix_sort_pairs(key, bits, vals)),
         plain_ms=cuda_ms(lambda: _radix_sort_pairs_plain(key, bits, vals),
@@ -924,14 +1003,61 @@ def sort_shapes(dev, args):
         shape=f"{n} {key.dtype} keys of {bits} bits, "
               f"{'row ids' if vals is None else 'given values'}: "
               f"{passes} passes of {digit}-bit digits")
-    # its three kernels a pass apart, summed over the passes (a trace)
-    split = device_kernels(lambda: radix_sort_pairs(key, bits, vals))
-    for part in ("hist", "scan", "scatter"):
-        out["radix_sort_pairs"][f"{part}_ms"] = sum(
-            t for k, t in split.items() if f"k_radix_{part}" in k) or None
+
+
+def k6_bytes(specs, rows, cap_g, group_rows):
+    """Bytes one K6 launch over `specs` must move: a group id, a
+    permutation entry, each distinct column's value and each distinct
+    mask byte a row; each op's state and each count kept a slot."""
+    from clickhouse_tpu_torch.ops.scan_ops import _plan_launches
+    launches, _ = _plan_launches(specs, group_rows is not None)
+    total = 0
+    for la in launches:
+        total += rows * (8 + sum(t.element_size() for t in la.data)
+                         + sum(t.element_size() for t in la.masks)) \
+            + cap_g * 8 * (len(la.specs) + len(la.counts))
+    return total, len(launches)
+
+
+def sort_shapes(dev, args):
+    """K4, K5 and K6 on the inputs the main path gave them (K4 at Q2b's and
+    Q2m's sorts, K5 at Q2b's bounds, K6 at Q2m's one launch), each held
+    against its plain version and timed beside it and beside a PyTorch
+    call of the same function where there is one.  -> {name: record}."""
+    from clickhouse_tpu_torch.ops.scan_ops import (
+        _segment_bounds_plain, _segment_reduce_plain, segment_bounds,
+        segment_reduce, segment_reduce_many)
+    from clickhouse_tpu_torch.ops.sort_ops import _radix_sort_cuda
+    out = {}
+    for q in ("Q2b", "Q2m"):
+        if f"radix_sort_pairs:{q}" not in args:
+            fail(f"{q} gave K4 no launch")
+    key, bits, vals = args["radix_sort_pairs:Q2b"]
+    rec = out["radix_sort_pairs"] = k4_record(key, bits, vals)
+    # its kernels apart (a trace): one histogram for every pass, then one
+    # scatter a pass
+    per_call = {}
+    split = device_kernels(lambda: _radix_sort_cuda(key, bits, vals),
+                           launches=per_call)
+    for part in ("hist", "scatter"):
+        rec[f"{part}_ms"] = sum(
+            t for k, t in split.items() if f"k_onesweep_{part}" in k) or None
+    rec["kernels_per_call"] = per_call
+    hists = sum(c for k, c in per_call.items() if "k_onesweep_hist" in k)
+    scatters = sum(c for k, c in per_call.items()
+                   if "k_onesweep_scatter" in k)
+    if split and (hists != 1 or scatters != rec["passes"]
+                  or len(per_call) != 2):
+        fail(f"a K4 call ran {per_call} device kernels, not one histogram "
+             f"and {rec['passes']} scatters")
+    q2m = k4_record(*args["radix_sort_pairs:Q2m"])
+    rec.update(q2m_ms=q2m["ms"], q2m_bound_ms=bound_ms(q2m["bytes"]),
+               q2m_library_ms=q2m["library_ms"])
     print(f"radix_sort_pairs device time by kernel (torch.profiler): "
-          f"{split}", flush=True)
-    del got, want
+          f"{split}, launches a call {per_call}; at Q2m's inputs "
+          f"({q2m['shape']}) "
+          f"{q2m['ms']:.4f} ms, bound {rec['q2m_bound_ms']:.4f} ms, "
+          f"torch.sort {q2m['library_ms']:.4f} ms", flush=True)
     keys, nv, cap_g = args["segment_bounds"]
     got = segment_bounds(keys, nv, cap_g)
     want = _segment_bounds_plain(keys, nv, cap_g)
@@ -953,43 +1079,44 @@ def sort_shapes(dev, args):
         shape=f"{len(keys)} sorted key array(s) of {k0.shape[0]} "
               f"{k0.dtype}, {cap_g} group slots")
     del got, want
-    ops = sorted(k.split(":")[1] for k in args if
-                 k.startswith("segment_reduce:"))
-    if not ops:
+    if "segment_reduce" not in args:
         fail("the main path gave K6 no launch")
-    rec = None
-    per_op = {}
-    for op in ops:
-        a = args[f"segment_reduce:{op}"]
-        op_, data, mask, perm, gid, cap_g, uns = a
-        err = k6_agrees(op_, data, mask, perm, gid, cap_g, uns)
-        ms = cuda_ms(lambda: segment_reduce(op_, data, mask, perm, gid,
-                                            cap_g, unsigned=uns))
-        per_op[op] = ms
-        if op == "sum" or rec is None:
-            rows = gid.shape[0]
-            rec = dict(
-                max_abs_err=err, ms=ms,
-                plain_ms=cuda_ms(lambda: _segment_reduce_plain(
-                    op_, data, mask, perm, gid, cap_g, uns), reps=5),
-                library_ms=None,
-                library="none: no single PyTorch call gathers through the "
-                        "permutation and reduces each group",
-                # a group id, a permutation entry, a value (and a mask
-                # byte) a row; the state (and count) a slot
-                bytes=rows * (8 + data.element_size()
-                              + (0 if mask is None else 1))
-                + cap_g * slot_bytes(op),
-                shape=f"{op} over {rows} sorted rows, data "
-                      f"{data.dtype}, mask {mask is not None}, {cap_g} "
-                      f"group slots")
-    rec["per_op_ms"] = per_op
+    # Q2m's one launch: its four aggregates over x's storage
+    specs, perm, gid, cap_g, group_rows = args["segment_reduce"]
+    rows = gid.shape[0]
+    nb, n_launch = k6_bytes(specs, rows, cap_g, group_rows)
+    if n_launch != 1:
+        fail(f"Q2m's K6 specs take {n_launch} launches")
+
+    def many():
+        return segment_reduce_many(specs, perm, gid, cap_g,
+                                   group_rows=group_rows)
+
+    def many_plain():
+        return [_segment_reduce_plain(op, d, m, perm, gid, cap_g, u)
+                for op, d, m, u in specs]
+    rec = dict(
+        max_abs_err=k6_agrees(specs, perm, gid, cap_g, group_rows),
+        ms=cuda_ms(many), plain_ms=cuda_ms(many_plain, reps=5),
+        library_ms=None,
+        library="none: no single PyTorch call gathers through the "
+                "permutation and reduces each group",
+        bytes=nb, specs=[op for op, _, _, _ in specs],
+        shape=f"{', '.join(op for op, _, _, _ in specs)} in one launch over "
+              f"{rows} sorted rows, columns "
+              f"{sorted({str(d.dtype) for _, d, _, _ in specs})}, masks "
+              f"{sum(m is not None for _, _, m, _ in specs)}, {cap_g} group "
+              f"slots, group_rows {group_rows is not None}")
+    # each op alone, as a one-spec call (which keeps a count for min, max
+    # and any)
+    rec["per_op_ms"] = {
+        op: cuda_ms(lambda op=op, d=d, m=m, u=u: segment_reduce(
+            op, d, m, perm, gid, cap_g, unsigned=u))
+        for op, d, m, u in specs}
     # for information: torch.segment_reduce over the values gathered into
     # sorted order beforehand (floats only), at Q2m's groups
-    a = args["segment_reduce:sum"] if "sum" in ops else \
-        args[f"segment_reduce:{ops[0]}"]
-    _, data, _, perm, gid, _, _ = a
-    nvalid = int((gid < a[5]).sum())
+    data = next(d for op, d, _, _ in specs if d is not None)
+    nvalid = int((gid < cap_g).sum())
     lengths = torch.bincount(gid[:nvalid].long())
     vals = data.index_select(0, perm[:nvalid]).to(torch.float64)
     info = cuda_ms(lambda: torch.segment_reduce(vals, "sum",
@@ -1001,15 +1128,16 @@ def sort_shapes(dev, args):
     sperm, sgid = grouped_rows(N_ROWS, 1 << 20, dev, skew=0.4)
     x = data if data.shape[0] >= N_ROWS else torch.arange(
         N_ROWS, dtype=torch.int32, device=dev)
-    k6_agrees("sum", x, None, sperm, sgid, 1 << 21)
+    k6_agrees([("sum", x, None, False)], sperm, sgid, 1 << 21)
     rec["skew_ms"] = cuda_ms(lambda: segment_reduce("sum", x, None, sperm,
                                                     sgid, 1 << 21))
-    sb = N_ROWS * (8 + x.element_size()) + (1 << 21) * slot_bytes("sum")
+    sb = N_ROWS * (8 + x.element_size()) + (1 << 21) * 8
     rec["skew_bound_ms"] = bound_ms(sb)
     print(f"segment_reduce over {N_ROWS} rows, one group holding 40 % of "
           f"them: {rec['skew_ms']:.4f} ms, bound "
           f"{rec['skew_bound_ms']:.4f} ms ({sb} bytes; agrees with the "
-          f"plain version); per op at Q2m's inputs {per_op}", flush=True)
+          f"plain version); each op alone at Q2m's inputs "
+          f"{rec['per_op_ms']}", flush=True)
     del sperm, sgid
     out["segment_reduce"] = rec
     for name, r in out.items():
@@ -1208,6 +1336,9 @@ def main():
     shapes = q_shapes(dev, args)
     shapes.update(sort_shapes(dev, args))
     del args
+    for name in ("radix_sort_pairs", "segment_reduce"):
+        shapes[name]["launches_per_query"] = {
+            q: per_query[q][name] for q in ("Q2b", "Q2m")}
     shapes["masked_reduce"].update(
         launches_fused=k1_forms_seen["fused"],
         launches_mask_form=k1_forms_seen["mask_form"])
@@ -1255,6 +1386,14 @@ def main_path(s, want, per_query, launches, launch_rows, k1_forms_seen,
                     fail(f"{name} did not reach {kernel} over {N_ROWS} "
                          f"rows: {per_query[name]}, largest launch "
                          f"{big[kernel]} rows")
+            # one sort; Q2m's four aggregates in ONE K6 launch, Q2b's
+            # count() in none
+            k6 = 1 if name == "Q2m" else 0
+            if per_query[name]["radix_sort_pairs"] != 1 \
+                    or per_query[name]["segment_reduce"] != k6:
+                fail(f"{name} launched K4 {per_query[name]['radix_sort_pairs']}"
+                     f" times (want 1) and K6 "
+                     f"{per_query[name]['segment_reduce']} (want {k6})")
             est = sort_rows_bytes(k4_calls[0][0], [b for _, b in k4_calls])
             print(f"{name}: K4 calls (rows, bits) {k4_calls}; sort_rows' "
                   f"working set by sort_rows_bytes {est} bytes, the "

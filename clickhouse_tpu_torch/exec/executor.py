@@ -343,14 +343,24 @@ def _stage1(node: L.AggregateNode, child: ExecBlock,
     group_counts = grouping.count_rows(rows)
     if global_agg:
         grouping.num_groups = (group_counts[0] > 0).to(torch.int64)
-    # a count over exactly the block's rows is the group count
-    states_per_agg = [
-        (item, arg_cvs,
-         [group_counts] if isinstance(item.fn, agg_reg.CountAgg)
-         and premask is rows else
-         item.fn.update(dataclasses.replace(gctx, premask=premask),
-                        arg_cvs, cond))
-        for item, arg_cvs, cond, premask in per_agg_inputs]
+    # every aggregate's reductions in one reduce_many call (K6 launched
+    # once under the sort grouping); a count over exactly the block's rows
+    # is the group count
+    plans, specs = [], []
+    for item, arg_cvs, cond, premask in per_agg_inputs:
+        if isinstance(item.fn, agg_reg.CountAgg) and premask is rows:
+            plans.append((item, arg_cvs, None, 0))
+            continue
+        s, finish = item.fn.reductions(
+            dataclasses.replace(gctx, premask=premask), arg_cvs, cond)
+        plans.append((item, arg_cvs, finish, len(s)))
+        specs += s
+    results = grouping.reduce_many(specs) if specs else []
+    states_per_agg = []
+    for item, arg_cvs, finish, k in plans:
+        states = [group_counts] if finish is None else finish(results[:k])
+        results = results[k:]
+        states_per_agg.append((item, arg_cvs, states))
     return grouping, group_counts, states_per_agg
 
 

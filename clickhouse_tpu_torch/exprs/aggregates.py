@@ -1,11 +1,15 @@
 """Aggregate functions (reference: clickhouse_tpu/exprs/aggregates.py).
 
-Each function defines update (rows -> per-group states) and finalize;
-every reduction goes through Grouping.reduce (ops/agg_ops.py), which runs
+Each function defines reductions (the per-group reductions its states
+need, and how the states follow from their results), update (rows ->
+per-group states, through Grouping.reduce_many) and finalize.  Every
+reduction goes through Grouping.reduce_many (ops/agg_ops.py), which runs
 K1 for GROUP BY (), K2 for dense groupings and K6 for the sort grouping
 (K6 reads a scanned column's narrow storage itself; the states come back
-in the column's logical type).  Merging partial states (-State/-Merge,
-two-stage aggregation) is not ported.
+in the column's logical type); the executor hands every aggregate's
+reductions to one reduce_many call, so a sort GROUP BY launches K6 once.
+Merging partial states (-State/-Merge, two-stage aggregation) is not
+ported.
 
 Ported: count, sum, avg, min, max and any, each with the -If combinator,
 under every grouping kind: sum/count/avg of integers may take the dense
@@ -17,7 +21,7 @@ errors (UnknownFunction / NotImplementedError_).
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple, Union
+from typing import Callable, Dict, List, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -29,6 +33,9 @@ from .expr import ColVal
 
 __all__ = ["AggregateFunction", "get_aggregate", "is_aggregate_name",
            "AGGREGATES", "GroupContext"]
+
+# the states of an aggregate from its reductions' results
+Finish = Callable[[List[torch.Tensor]], List[torch.Tensor]]
 
 
 @dataclasses.dataclass
@@ -99,9 +106,18 @@ class AggregateFunction:
     def result_type(self) -> dt.DType:
         raise NotImplementedError
 
+    def reductions(self, ctx: GroupContext, args: List[ColVal],
+                   cond: Optional[torch.Tensor]
+                   ) -> Tuple[List[agg_ops.ReduceSpec], Finish]:
+        """-> (specs, finish): the (op, data, mask, unsigned) reductions
+        Grouping.reduce_many must run, and the function turning their
+        results (in spec order) into this aggregate's states."""
+        raise NotImplementedError
+
     def update(self, ctx: GroupContext, args: List[ColVal],
                cond: Optional[torch.Tensor]) -> List[torch.Tensor]:
-        raise NotImplementedError
+        specs, finish = self.reductions(ctx, args, cond)
+        return finish(ctx.grouping.reduce_many(specs))
 
     def finalize(self, states):
         """-> (data, validity or None), each (num_groups_cap,)."""
@@ -135,9 +151,9 @@ class CountAgg(AggregateFunction):
     def result_type(self):
         return dt.UInt64
 
-    def update(self, ctx, args, cond):
-        mask = self._row_mask(ctx, args, cond)
-        return [ctx.grouping.count_rows(mask)]
+    def reductions(self, ctx, args, cond):
+        return [("count", None, self._row_mask(ctx, args, cond), False)], \
+            list
 
     def finalize(self, states):
         return states[0].to(torch.int64), None
@@ -165,11 +181,11 @@ class SumAgg(AggregateFunction):
             return dt.Float64
         return dt.UInt64 if t0.np_dtype.kind == "u" else dt.Int64
 
-    def update(self, ctx, args, cond):
+    def reductions(self, ctx, args, cond):
         mask = self._row_mask(ctx, args, cond)
-        v = self._value(ctx, args[0])
-        s = ctx.grouping.reduce("sum", v, mask)
-        return [s.to(_sum_state_dtype(self.arg_types[0]))]
+        want = _sum_state_dtype(self.arg_types[0])
+        return [("sum", self._value(ctx, args[0]), mask, False)], \
+            lambda r: [r[0].to(want)]
 
     def finalize(self, states):
         return states[0], None
@@ -199,13 +215,13 @@ class MinMaxAgg(AggregateFunction):
             return torch.from_numpy(rank).to(v.device)[v.clamp(min=0).long()]
         return v
 
-    def update(self, ctx, args, cond):
+    def reductions(self, ctx, args, cond):
         mask = self._row_mask(ctx, args, cond)
         v = self._prep(ctx, args[0])
         unsigned = dt.remove_nullable(self.arg_types[0]).np_dtype == \
             np.dtype("uint64") and args[0].dictionary is None
-        return [self._logical(
-            ctx.grouping.reduce(self.op, v, mask, unsigned=unsigned))]
+        return [(self.op, v, mask, unsigned)], \
+            lambda r: [self._logical(r[0])]
 
     def finalize(self, states):
         s = states[0]
@@ -236,11 +252,13 @@ class AvgAgg(AggregateFunction):
     def _unsigned(self):
         return dt.remove_nullable(self.arg_types[0]).np_dtype.kind == "u"
 
-    def update(self, ctx, args, cond):
+    def reductions(self, ctx, args, cond):
         mask = self._row_mask(ctx, args, cond)
-        v = self._value(ctx, args[0])
-        s = ctx.grouping.reduce("sum", v, mask)
-        c = ctx.grouping.count_rows(mask)
+        return [("sum", self._value(ctx, args[0]), mask, False),
+                ("count", None, mask, False)], self._states
+
+    def _states(self, r):
+        s, c = r
         s = _u64_to_f64(s) if self._unsigned() and not s.is_floating_point() \
             else s.to(torch.float64)
         return [s, c]
@@ -263,10 +281,10 @@ class AnyAgg(AggregateFunction):
     def result_type(self):
         return self.arg_types[0]
 
-    def update(self, ctx, args, cond):
+    def reductions(self, ctx, args, cond):
         mask = self._row_mask(ctx, args, cond)
-        return [self._logical(
-            ctx.grouping.reduce("any", self._value(ctx, args[0]), mask))]
+        return [("any", self._value(ctx, args[0]), mask, False)], \
+            lambda r: [self._logical(r[0])]
 
     def finalize(self, states):
         return states[0], None

@@ -31,7 +31,8 @@ from typing import Dict, List, Optional
 __all__ = ["LAUNCHES", "LAUNCH_ROWS", "KernelBuildError", "build", "library",
            "check", "count_launch", "reset_launches", "stream_ptr",
            "dtype_code", "grid_blocks", "aligned16", "K1_MAX_TERMS",
-           "K1Term", "K1Args"]
+           "K1Term", "K1Args", "K6_MAX_SPECS", "K6_MAX_DATA", "K6_MAX_MASKS",
+           "K6Spec", "K6Count", "K6Args"]
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -73,6 +74,38 @@ class K1Args(ctypes.Structure):
                 ("data_vec", ctypes.c_int), ("mask_vec", ctypes.c_int),
                 ("uns", ctypes.c_int), ("n_terms", ctypes.c_int),
                 ("pad", ctypes.c_int), ("terms", K1Term * K1_MAX_TERMS)]
+
+
+K6_MAX_SPECS = 8       # kMaxSpecs of csrc/segment_reduce.cu
+K6_MAX_DATA = 4        # kMaxData
+K6_MAX_MASKS = 4       # kMaxMasks (and kMaxMasks + 1 counts)
+
+
+class K6Spec(ctypes.Structure):
+    """ChttSegSpec of csrc/segment_reduce.cu (one reduction)."""
+    _fields_ = [("op", ctypes.c_int), ("data", ctypes.c_int),
+                ("mask", ctypes.c_int), ("uns", ctypes.c_int),
+                ("acc", ctypes.c_void_p)]
+
+
+class K6Count(ctypes.Structure):
+    """ChttSegCount of csrc/segment_reduce.cu (one masked-in row count)."""
+    _fields_ = [("mask", ctypes.c_int), ("pad", ctypes.c_int),
+                ("out", ctypes.c_void_p)]
+
+
+class K6Args(ctypes.Structure):
+    """ChttSegArgs of csrc/segment_reduce.cu (one launch of K6)."""
+    _fields_ = [("perm", ctypes.c_void_p), ("gid", ctypes.c_void_p),
+                ("n", ctypes.c_longlong), ("cap_g", ctypes.c_int),
+                ("n_specs", ctypes.c_int), ("n_data", ctypes.c_int),
+                ("n_masks", ctypes.c_int), ("n_counts", ctypes.c_int),
+                ("pad", ctypes.c_int),
+                ("data", ctypes.c_void_p * K6_MAX_DATA),
+                ("dtype", ctypes.c_int * K6_MAX_DATA),
+                ("mask", ctypes.c_void_p * K6_MAX_MASKS),
+                ("count", K6Count * (K6_MAX_MASKS + 1)),
+                ("spec", K6Spec * K6_MAX_SPECS)]
 
 
 class KernelBuildError(RuntimeError):
@@ -166,7 +199,7 @@ def library() -> ctypes.CDLL:
             lib.chtt_topk_scratch_bytes.argtypes = [I, I, I]
             lib.chtt_topk_scratch_bytes.restype = LL
             lib.chtt_radix_sort_pairs.argtypes = [P, I, P, LL, I, I, P, P, P,
-                                                  P, P, P, P]
+                                                  P, P, LL, P]
             lib.chtt_radix_sort_pairs.restype = I
             lib.chtt_radix_tile_rows.argtypes = [I]
             lib.chtt_radix_tile_rows.restype = I
@@ -175,8 +208,7 @@ def library() -> ctypes.CDLL:
             lib.chtt_segment_bounds.restype = I
             lib.chtt_segment_tile_rows.argtypes = []
             lib.chtt_segment_tile_rows.restype = I
-            lib.chtt_segment_reduce.argtypes = [I, P, I, I, P, P, P, LL, I, P,
-                                                P, P]
+            lib.chtt_segment_reduce.argtypes = [P, P]
             lib.chtt_segment_reduce.restype = I
             lib.chtt_error_string.argtypes = [I]
             lib.chtt_error_string.restype = ctypes.c_char_p

@@ -6,8 +6,9 @@ Reference: clickhouse_tpu/ops/agg_ops.py.  Its three grouping kinds:
                group_by_algorithm='sort'): a stable sort of the rows by
                (invalid, keys...) with K4 (``sort_ops.sort_rows``), group
                ids and segment bounds with K5, reductions with K6
-               (``scan_ops``); groups come out in ascending key order, the
-               NULL group first;
+               (``scan_ops``: :meth:`Grouping.reduce_many` takes every
+               aggregate of a GROUP BY to one launch); groups come out in
+               ascending key order, the NULL group first;
   * dense   -- provably-small key space (interval analysis): the slot is a
                mixed-radix function of the keys; counts and integer sums run
                in one pass of K2 (``mxu_segsum.dense_group_reduce``);
@@ -34,10 +35,13 @@ from ..core import dtypes as dt
 from . import _native, mxu_segsum, scan_ops, sort_ops
 
 __all__ = ["Grouping", "RowMask", "Term", "group_by_sort", "group_by_dense",
-           "group_trivial", "masked_reduce"]
+           "group_trivial", "masked_reduce", "ReduceSpec"]
 
 _OPS = {"sum": 0, "min": 1, "max": 2, "any": 3, "bor": 4, "band": 5,
         "bxor": 6}
+# one reduction of Grouping.reduce_many: (op, data, mask, unsigned); the
+# mask a bool tensor, a RowMask or None
+ReduceSpec = Tuple[str, Optional[torch.Tensor], object, bool]
 _BITOPS = ("bor", "band", "bxor")
 _SIGN = -(1 << 63)                 # int64 bits of 1 << 63
 _I64_MAX = (1 << 63) - 1
@@ -435,9 +439,7 @@ class Grouping:
         if self.kind == "trivial":
             return self._reduce_trivial(op, data, mask, unsigned)
         if self.kind == "sort":
-            return scan_ops.segment_reduce(
-                op, data, self._sort_mask(mask), self.perm, self.group_ids,
-                self.num_groups_cap, unsigned=unsigned)
+            return self.reduce_many([(op, data, mask, unsigned)])[0]
         return self._reduce_dense(op, data, mask)
 
     def count_rows(self, mask) -> torch.Tensor:
@@ -448,10 +450,25 @@ class Grouping:
             if mask is self.row_valid_ref:
                 # the grouping already segregated exactly these rows
                 return self.ends - self.starts
-            return scan_ops.segment_reduce(
-                "count", None, self._sort_mask(mask), self.perm,
-                self.group_ids, self.num_groups_cap)
+            return self.reduce_many([("count", None, mask, False)])[0]
         return self._reduce_trivial("sum", None, mask)
+
+    def reduce_many(self, specs: Sequence[ReduceSpec]
+                    ) -> List[torch.Tensor]:
+        """Several reductions, specs of (op, data, mask, unsigned) as
+        :meth:`reduce` takes them, op "count" (data None) counting the rows
+        where mask holds.  The sort grouping hands them all to ONE
+        scan_ops.segment_reduce_many call (K6 once, with the groups' row
+        counts from the bounds); the other kinds reduce a spec at a
+        time."""
+        if self.kind != "sort":
+            return [self.count_rows(m) if op == "count"
+                    else self.reduce(op, d, m, unsigned=u)
+                    for op, d, m, u in specs]
+        return scan_ops.segment_reduce_many(
+            [(op, d, self._sort_mask(m), u) for op, d, m, u in specs],
+            self.perm, self.group_ids, self.num_groups_cap,
+            group_rows=self.ends - self.starts)
 
     def _sort_mask(self, mask):
         """The mask K6 reads: None for the grouping's own rows (invalid rows

@@ -9,9 +9,11 @@ a sort of each group's first position.  The card scatters well, so:
   * K5 ``segment_bounds`` (csrc/segment_bounds.cu) finds the boundaries of
     the sorted packed keys, gives each sorted row its dense group id and
     writes each group's [start, end) where its boundary is found;
-  * K6 ``segment_reduce`` (csrc/segment_reduce.cu) reduces each group
-    directly, reading each row's value and mask through the permutation
-    (the reference's Grouping.take becomes a gather inside K6).
+  * K6 ``segment_reduce_many`` (csrc/segment_reduce.cu) reduces each
+    group directly, every reduction of a GROUP BY in one launch, reading
+    each row's values and masks through the permutation (the reference's
+    Grouping.take becomes a gather inside K6); ``segment_reduce`` is its
+    one-spec form.
 
 Results follow the reference's seg_reduce_sorted: sums widen integers to
 64 bits (wrapping) and floats to float64; min/max pick by order token
@@ -24,7 +26,8 @@ varies from run to run).
 from __future__ import annotations
 
 import ctypes
-from typing import Optional, Sequence, Tuple
+import dataclasses
+from typing import List, Optional, Sequence, Tuple
 
 import torch
 
@@ -32,7 +35,11 @@ from . import _native
 from .hash_ops import _f32_from_token, f64_from_token
 from .sort_ops import SortKey, order_value
 
-__all__ = ["segment_bounds", "segment_reduce", "COUNTED_OPS"]
+__all__ = ["segment_bounds", "segment_reduce", "segment_reduce_many",
+           "COUNTED_OPS", "Spec"]
+
+# one reduction of segment_reduce_many: (op, data, mask, unsigned)
+Spec = Tuple[str, Optional[torch.Tensor], Optional[torch.Tensor], bool]
 
 # op -> csrc/segment_reduce.cu SegOp (a float sum is OP_FSUM)
 _OPS = {"sum": 0, "min": 1, "max": 2, "any": 3, "bor": 4, "band": 5,
@@ -155,22 +162,60 @@ def segment_reduce(op: str, data: Optional[torch.Tensor],
                    mask: Optional[torch.Tensor], perm: torch.Tensor,
                    gid: torch.Tensor, cap_g: int, *,
                    unsigned: bool = False) -> torch.Tensor:
-    """Per-group reduction of key-sorted rows; -> (cap_g,).
+    """One per-group reduction of key-sorted rows; -> (cap_g,).  The
+    one-spec form of :func:`segment_reduce_many` (which documents the
+    arguments)."""
+    return segment_reduce_many([(op, data, mask, unsigned)], perm, gid,
+                               cap_g)[0]
 
-    op     -- sum | min | max | any | bor | band | bxor | count
-    data   -- values in RAW row order (any storage type; a column's narrow
-              storage is read as it is); None for count
-    mask   -- rows to include, raw row order (bool), None = every row
+
+def segment_reduce_many(specs: Sequence[Spec], perm: torch.Tensor,
+                        gid: torch.Tensor, cap_g: int, *,
+                        group_rows: Optional[torch.Tensor] = None
+                        ) -> List[torch.Tensor]:
+    """Per-group reductions of key-sorted rows; -> one (cap_g,) tensor a
+    spec.
+
+    specs  -- (op, data, mask, unsigned) each:
+              op   -- sum | min | max | any | bor | band | bxor | count
+              data -- values in RAW row order (any storage type; a
+                      column's narrow storage is read as it is); None for
+                      count
+              mask -- rows to include, raw row order (bool), None = every
+                      row
+              unsigned -- int64 data holds UInt64 bits (min/max compare
+                      unsigned)
     perm   -- int32: sorted position -> raw row
     gid    -- int32 dense group id of each sorted row (>= cap_g: skipped)
-    unsigned -- int64 data holds UInt64 bits (min/max compare unsigned)
+    group_rows -- (cap_g,) int64 rows of each group slot (the grouping's
+              ends - starts), or None.  Where given, a spec over every row
+              (mask None) takes its groups' counts from it: a count over
+              every row launches nothing, and K6 keeps no count for it.
 
     sum gives int64 (wrapping) or float64, count int64, the others data's
     type; a group without a masked-in row gives 0.
 
-    A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel.
+    A CPU tensor takes the plain version, a spec at a time.  A CUDA tensor
+    launches K6 once for all the specs (each distinct column gathered once,
+    each distinct mask read once), or once for each K6_MAX_SPECS
+    reductions, K6_MAX_DATA columns or K6_MAX_MASKS masks.
     """
+    specs = [_checked_spec(sp) for sp in specs]
+    dev = gid.device
+    if perm.shape != gid.shape or perm.dtype != torch.int32 \
+            or gid.dtype != torch.int32:
+        raise ValueError("segment_reduce: perm and gid must be int32 of one "
+                         "length")
+    if dev.type == "cpu":
+        return [_segment_reduce_plain(op, data, mask, perm, gid, cap_g, uns)
+                for op, data, mask, uns in specs]
+    if dev.type != "cuda":
+        raise RuntimeError(f"segment_reduce: no kernel for {dev}")
+    return _segment_reduce_many_cuda(specs, perm, gid, cap_g, group_rows)
+
+
+def _checked_spec(spec: Spec) -> Spec:
+    op, data, mask, unsigned = spec
     if op not in _OPS:
         raise ValueError(f"segment_reduce: unknown op {op!r}")
     if (data is None) != (op == "count"):
@@ -178,51 +223,143 @@ def segment_reduce(op: str, data: Optional[torch.Tensor],
                          f"{'no' if op == 'count' else 'its'} data")
     if data is not None and op in _BITOPS and data.is_floating_point():
         raise TypeError(f"segment_reduce: {op} needs integer data")
-    n, dev = gid.shape[0], gid.device
-    if perm.shape != gid.shape or perm.dtype != torch.int32 \
-            or gid.dtype != torch.int32:
-        raise ValueError("segment_reduce: perm and gid must be int32 of one "
-                         "length")
     unsigned = bool(unsigned) and data is not None \
         and data.dtype == torch.int64
-    if dev.type == "cpu":
-        return _segment_reduce_plain(op, data, mask, perm, gid, cap_g,
-                                     unsigned)
-    if dev.type != "cuda":
-        raise RuntimeError(f"segment_reduce: no kernel for {dev}")
-    return _segment_reduce_cuda(op, data, mask, perm, gid, cap_g, unsigned)
+    return op, data, mask, unsigned
 
 
-def _segment_reduce_cuda(op, data, mask, perm, gid, cap_g, unsigned):
+@dataclasses.dataclass
+class _Launch:
+    """One launch of K6: its columns, its masks, the mask slot of each
+    count it keeps (-1: every row), and each reduction as (spec index,
+    column slot or -1, mask slot or -1)."""
+    data: List[torch.Tensor] = dataclasses.field(default_factory=list)
+    masks: List[torch.Tensor] = dataclasses.field(default_factory=list)
+    counts: List[int] = dataclasses.field(default_factory=list)
+    specs: List[Tuple[int, int, int]] = dataclasses.field(
+        default_factory=list)
+
+
+def _same_tensor(t: torch.Tensor):
+    """What K6 reads of t: two tensors with one key are one column."""
+    return t.data_ptr(), t.dtype, tuple(t.shape), t.stride()
+
+
+def _is_new(ts: List[torch.Tensor], t: Optional[torch.Tensor]) -> bool:
+    return t is not None and _same_tensor(t) not in [_same_tensor(u)
+                                                     for u in ts]
+
+
+def _slot(ts: List[torch.Tensor], t: Optional[torch.Tensor]) -> int:
+    """t's slot in ts (-1 for None), appended where it is new."""
+    if t is None:
+        return -1
+    if _is_new(ts, t):
+        ts.append(t)
+    return [_same_tensor(u) for u in ts].index(_same_tensor(t))
+
+
+def _plan_launches(specs: Sequence[Spec], have_group_rows: bool
+                   ) -> Tuple[List[_Launch], List[Tuple[int, int, int]]]:
+    """K6's launches for the checked specs, and where each spec's result
+    lies: (launch or -1, reduction slot or -1, count slot or -1).  A count
+    spec and the ops of COUNTED_OPS need their mask's count, except over
+    every row where group_rows gives it; `any` keeps a row id and reads no
+    column."""
+    launches: List[_Launch] = []
+    where = []
+    for op, data, mask, _ in specs:
+        reduces = op != "count"
+        counted = op in COUNTED_OPS and not (mask is None and have_group_rows)
+        if not reduces and not counted:
+            where.append((-1, -1, -1))
+            continue
+        col = None if op in ("any", "count") else data
+        cur = launches[-1] if launches else None
+        if cur is None \
+                or len(cur.specs) + reduces > _native.K6_MAX_SPECS \
+                or len(cur.data) + _is_new(cur.data, col) \
+                > _native.K6_MAX_DATA \
+                or len(cur.masks) + _is_new(cur.masks, mask) \
+                > _native.K6_MAX_MASKS:
+            cur = _Launch()
+            launches.append(cur)
+        d, m = _slot(cur.data, col), _slot(cur.masks, mask)
+        c = -1
+        if counted:
+            if m not in cur.counts:
+                cur.counts.append(m)
+            c = cur.counts.index(m)
+        q = -1
+        if reduces:
+            cur.specs.append((len(where), d, m))
+            q = len(cur.specs) - 1
+        where.append((len(launches) - 1, q, c))
+    return launches, where
+
+
+def _segment_reduce_many_cuda(specs, perm, gid, cap_g, group_rows):
     n, dev = gid.shape[0], gid.device
-    for t in (data, mask, perm):
-        if t is not None and (t.device != dev or t.dim() != 1):
-            raise ValueError("segment_reduce: data, mask and perm must be "
-                             "1-d tensors on the group ids' device")
-    if mask is not None and (mask.dtype != torch.bool
-                             or (data is not None
-                                 and mask.shape != data.shape)):
-        raise ValueError("segment_reduce: mask must be bool of the data's "
-                         "shape")
-    code = _FSUM if op == "sum" and data.is_floating_point() \
-        else _OPS[op]
-    cnt = torch.zeros(cap_g, dtype=torch.int64, device=dev) \
-        if op in COUNTED_OPS else None
-    acc = None if op == "count" else torch.full(
-        (cap_g,), _IDENTITY[op], dtype=torch.int64, device=dev)
-    if n:
-        data_c = None if data is None else data.contiguous()
-        mask_c = None if mask is None else mask.contiguous()
-        rc = _native.library().chtt_segment_reduce(
-            code, None if data_c is None else data_c.data_ptr(),
-            0 if data_c is None else _native.dtype_code(data_c.dtype),
-            int(unsigned), None if mask_c is None else mask_c.data_ptr(),
-            perm.contiguous().data_ptr(), gid.contiguous().data_ptr(), n,
-            cap_g, None if acc is None else acc.data_ptr(),
-            None if cnt is None else cnt.data_ptr(), _native.stream_ptr(dev))
+    checked = []
+    for op, data, mask, uns in specs:
+        for t in (data, mask):
+            if t is not None and (t.device != dev or t.dim() != 1):
+                raise ValueError("segment_reduce: data and masks must be "
+                                 "1-d tensors on the group ids' device")
+        if mask is not None and (mask.dtype != torch.bool
+                                 or (data is not None
+                                     and mask.shape != data.shape)):
+            raise ValueError("segment_reduce: mask must be bool of the "
+                             "data's shape")
+        checked.append((op, None if data is None else data.contiguous(),
+                        None if mask is None else mask.contiguous(), uns))
+    if group_rows is not None and (group_rows.shape != (cap_g,)
+                                   or group_rows.device != dev):
+        raise ValueError("segment_reduce: group_rows must be (cap_g,) on "
+                         "the group ids' device")
+    launches, where = _plan_launches(checked, group_rows is not None)
+    perm = _native.aligned16(perm.contiguous())
+    gid = _native.aligned16(gid.contiguous())
+    stream = _native.stream_ptr(dev)
+    accs, cnts = [], []
+    for launch in launches:
+        acc = [torch.full((cap_g,), _IDENTITY[checked[i][0]],
+                          dtype=torch.int64, device=dev)
+               for i, _, _ in launch.specs]
+        cnt = [torch.zeros(cap_g, dtype=torch.int64, device=dev)
+               for _ in launch.counts]
+        accs.append(acc)
+        cnts.append(cnt)
+        if not n:
+            continue
+        args = _native.K6Args(
+            perm=perm.data_ptr(), gid=gid.data_ptr(), n=n, cap_g=cap_g,
+            n_specs=len(launch.specs), n_data=len(launch.data),
+            n_masks=len(launch.masks), n_counts=len(launch.counts))
+        for d, t in enumerate(launch.data):
+            args.data[d] = t.data_ptr()
+            args.dtype[d] = _native.dtype_code(t.dtype)
+        for m, t in enumerate(launch.masks):
+            args.mask[m] = t.data_ptr()
+        for c, m in enumerate(launch.counts):
+            args.count[c] = _native.K6Count(mask=m, out=cnt[c].data_ptr())
+        for q, (i, d, m) in enumerate(launch.specs):
+            op, data, _, uns = checked[i]
+            code = _FSUM if op == "sum" and data.is_floating_point() \
+                else _OPS[op]
+            args.spec[q] = _native.K6Spec(op=code, data=d, mask=m,
+                                          uns=int(uns),
+                                          acc=acc[q].data_ptr())
+        rc = _native.library().chtt_segment_reduce(ctypes.byref(args),
+                                                   stream)
         _native.check(rc, "segment_reduce")
         _native.count_launch("segment_reduce", n)
-    return _finish(op, acc, cnt, data, unsigned)
+    out = []
+    for (op, data, _, uns), (li, q, c) in zip(checked, where):
+        cnt = group_rows if c < 0 else cnts[li][c]
+        out.append(cnt if op == "count"
+                   else _finish(op, accs[li][q], cnt, data, uns))
+    return out
 
 
 def _from_order_key(k: torch.Tensor, dtype, unsigned: bool) -> torch.Tensor:

@@ -32,7 +32,7 @@ __all__ = ["order_token", "sort_permutation", "topk_permutation",
            "topk_key32", "topk_permutation32", "topk_smallest",
            "topk_smallest32", "MAX_TOPK", "SortKey", "order_value",
            "sort_rows", "sort_rows_bytes", "radix_sort_pairs",
-           "sort_pass_plan"]
+           "sort_pass_plan", "k4_scratch_bytes"]
 
 MAX_TOPK = 4096
 _SIGN = -(1 << 63)                 # int64 bits of 1 << 63
@@ -165,6 +165,22 @@ def sort_pass_plan(bits: int) -> Tuple[int, int]:
     return passes, max(1, math.ceil(bits / passes))
 
 
+# rows of K4's scatter tiles by key bytes: 512 threads, 16 u32 keys a
+# thread or 8 u64 (csrc/radix_sort.cu tile_rows; chtt_radix_tile_rows)
+K4_TILE_ROWS = {4: 8192, 8: 4096}
+
+
+def k4_scratch_bytes(n: int, key_bytes: int, bits: int) -> int:
+    """Device bytes of K4's scratch for n keys of key_bytes bytes sorted by
+    `bits` bits (csrc/radix_sort.cu scratch_bytes): the passes x radix
+    digit histogram, a tile counter a pass, and one look-back status word
+    (8 bytes) a (tile, digit)."""
+    passes, digit = sort_pass_plan(bits)
+    ints = (passes << digit) + passes
+    return (ints + (ints & 1)) * 4 \
+        + -(-n // K4_TILE_ROWS[key_bytes]) * (1 << digit) * 8
+
+
 @dataclasses.dataclass
 class _Field:
     """One key's place in a packed sort key: its width in bits and how to
@@ -239,17 +255,18 @@ def sort_rows_bytes(n: int, widths: Sequence[int]) -> int:
     """Device bytes sort_rows holds at its peak for n rows whose packed
     keys are `widths` bits wide (least significant first): every packed
     key (4 bytes a row up to 32 bits, else 8), and during one K4 call its
-    key and row id buffers (two of each above one pass) and, after the
-    first call, its input key gathered into the order so far and the row
-    ids it is given."""
+    key and row id buffers (two of each above one pass), its scratch
+    (k4_scratch_bytes) and, after the first call, its input key gathered
+    into the order so far and the row ids it is given."""
     k4 = 0
     total = 0
     for i, w in enumerate(widths):
         b = 4 if w <= 32 else 8
         total += b
         bufs = 2 if sort_pass_plan(w)[0] > 1 else 1
-        k4 = max(k4, bufs * (b + 4) + (b + 4 if i else 0))
-    return n * (total + k4)
+        k4 = max(k4, n * (bufs * (b + 4) + (b + 4 if i else 0))
+                 + k4_scratch_bytes(n, b, w))
+    return n * total + k4
 
 
 def sort_rows(keys: Sequence[SortKey], row_valid: Optional[torch.Tensor], *,
@@ -332,24 +349,25 @@ def radix_sort_pairs(keys: torch.Tensor, bits: int,
 
 
 def _radix_sort_cuda(keys, bits, values):
+    """Launch K4: the histogram kernel, then a scatter a pass."""
     n = keys.shape[0]
     dev = keys.device
     if n == 0:
         return keys.clone(), torch.empty(0, dtype=torch.int32, device=dev)
     passes, digit = sort_pass_plan(bits)
-    lib = _native.library()
-    tiles = -(-n // lib.chtt_radix_tile_rows(keys.element_size()))
+    key_bytes = keys.element_size()
+    keys = _native.aligned16(keys)         # the histogram's 16-byte loads
     ka, va = torch.empty_like(keys), torch.empty(n, dtype=torch.int32,
                                                  device=dev)
     kb, vb = (torch.empty_like(keys), torch.empty_like(va)) if passes > 1 \
         else (ka, va)
-    counts = torch.empty((1 << digit) * tiles, dtype=torch.int32, device=dev)
-    totals = torch.empty(1 << digit, dtype=torch.int32, device=dev)
-    rc = lib.chtt_radix_sort_pairs(
-        keys.data_ptr(), keys.element_size(),
+    scratch = torch.empty(k4_scratch_bytes(n, key_bytes, bits),
+                          dtype=torch.uint8, device=dev)
+    rc = _native.library().chtt_radix_sort_pairs(
+        keys.data_ptr(), key_bytes,
         None if values is None else values.data_ptr(), n, passes, digit,
         ka.data_ptr(), va.data_ptr(), kb.data_ptr(), vb.data_ptr(),
-        counts.data_ptr(), totals.data_ptr(), _native.stream_ptr(dev))
+        scratch.data_ptr(), scratch.numel(), _native.stream_ptr(dev))
     _native.check(rc, "radix_sort_pairs")
     _native.count_launch("radix_sort_pairs", n)
     return (ka, va) if passes % 2 else (kb, vb)

@@ -17,8 +17,9 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (CMPS, SORT_KEY_CHAINS, grouped_rows, make_term,
-                        sort_key_columns, term_cases)
+from chip_smoke import (CMPS, K4_ROWS, SORT_KEY_CHAINS, grouped_rows,
+                        k6_many_specs, make_term, sort_key_columns,
+                        term_cases)
 from clickhouse_tpu_torch.ops import _native
 from clickhouse_tpu_torch.ops.agg_ops import (_masked_reduce_plain,
                                               masked_reduce)
@@ -26,8 +27,10 @@ from clickhouse_tpu_torch.ops.mxu_segsum import (_dense_group_reduce_plain,
                                                  dense_group_reduce)
 from clickhouse_tpu_torch.ops.scan_ops import (_segment_bounds_plain,
                                                _segment_reduce_plain,
-                                               segment_bounds, segment_reduce)
-from clickhouse_tpu_torch.ops.sort_ops import (_radix_sort_pairs_plain,
+                                               segment_bounds, segment_reduce,
+                                               segment_reduce_many)
+from clickhouse_tpu_torch.ops.sort_ops import (K4_TILE_ROWS,
+                                               _radix_sort_pairs_plain,
                                                _topk_smallest32_plain,
                                                _topk_smallest_plain,
                                                radix_sort_pairs, sort_rows,
@@ -334,17 +337,23 @@ def _sort_keys(case, rng, n):
     if case == "u64_ties":
         return torch.from_numpy(rng.integers(0, 5, n).astype(np.int64)
                                 << 60), 64
-    if case == "all_equal":
+    if case == "all_equal":                   # one digit takes every row
         return torch.full((n,), 3, dtype=torch.int32), 2
+    if case == "top_digit_constant":          # bits 14-20 constant
+        return torch.from_numpy((rng.integers(0, 1 << 14, n) | (77 << 14))
+                                .astype(np.int32)), 21
     if case == "zero_bits":
         return torch.zeros(n, dtype=torch.int32), 0
     raise ValueError(case)
 
 
 @pytest.mark.parametrize("case", ["u32_21_bits", "u32_full", "u64_full",
-                                  "u64_ties", "all_equal", "zero_bits"])
-@pytest.mark.parametrize("n", [1, 4095, 4097, 1_000_003])
+                                  "u64_ties", "all_equal",
+                                  "top_digit_constant", "zero_bits"])
+@pytest.mark.parametrize("n", (4097,) + K4_ROWS)
 def test_radix_sort_pairs_matches_plain(dev, case, n):
+    """Row counts of one tile and one more row, and more tiles than the
+    card holds at once (the look-back waits on running tiles)."""
     rng = np.random.default_rng(n + len(case))
     key, bits = _sort_keys(case, rng, n)
     values = torch.from_numpy(rng.permutation(n).astype(np.int32))
@@ -354,6 +363,28 @@ def test_radix_sort_pairs_matches_plain(dev, case, n):
         want = _radix_sort_pairs_plain(key.to(dev), bits, vd)
         assert torch.equal(got[0], want[0])
         assert torch.equal(got[1], want[1])
+
+
+def test_radix_sort_tiles_match_the_library(dev):
+    lib = _native.library()
+    for key_bytes, rows in K4_TILE_ROWS.items():
+        assert lib.chtt_radix_tile_rows(key_bytes) == rows
+
+
+def test_radix_sort_u64_chain_matches_plain(dev):
+    """Two chained u64 calls (the low key, then the high one in the order
+    so far, with the first call's permutation as values)."""
+    rng = np.random.default_rng(21)
+    n = 3_000_017
+    lo, hi = (torch.from_numpy(rng.integers(-(1 << 63), (1 << 63) - 1, n,
+                                            dtype=np.int64)).to(dev)
+              for _ in range(2))
+    p_got = radix_sort_pairs(lo, 64)[1]
+    p_want = _radix_sort_pairs_plain(lo, 64, None)[1]
+    assert torch.equal(p_got, p_want)
+    got = radix_sort_pairs(hi[p_got.long()], 64, p_got)
+    want = _radix_sort_pairs_plain(hi[p_want.long()], 64, p_want)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 @pytest.mark.parametrize("names", [["int32_bounded"], ["int64"], ["uint64"],
@@ -464,6 +495,40 @@ def test_segment_reduce_skewed_group_matches_plain(dev, op):
         got = segment_reduce(op, d, m, perm, gid, 1 << 18)
         want = _segment_reduce_plain(op, d, m, perm, gid, 1 << 18, False)
         assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("case", ["q2m", "two_columns_two_masks", "split"])
+@pytest.mark.parametrize("skew", [None, 0.4], ids=["uniform", "skew40"])
+def test_segment_reduce_many_matches_plain(dev, case, skew):
+    """Several specs in one segment_reduce_many call (one launch, or more
+    for more specs, columns or masks than one takes) against the plain
+    version spec by spec, with and without the grouping's row counts, and
+    with one group holding 40 % of the rows."""
+    rng = np.random.default_rng(13)
+    n, cap_g = 1_000_003, 1 << 17
+    perm, gid = grouped_rows(n, 70_000, dev, skew=skew)
+    specs = k6_many_specs(rng, n, dev)[case]
+    rows = _segment_reduce_plain("count", None, None, perm, gid, cap_g,
+                                 False)
+    for group_rows in (None, rows):
+        got = segment_reduce_many(specs, perm, gid, cap_g,
+                                  group_rows=group_rows)
+        for (op, d, m, u), g in zip(specs, got):
+            want = _segment_reduce_plain(op, d, m, perm, gid, cap_g, u)
+            _check_group_values(g, want, op, d, m, perm, gid, cap_g)
+
+
+def test_segment_reduce_many_launches_once(dev):
+    """Q2m's four ops over one column, no mask and the grouping's row
+    counts: one K6 launch."""
+    rng = np.random.default_rng(14)
+    n = 200_003
+    perm, gid = grouped_rows(n, 5000, dev)
+    rows = _segment_reduce_plain("count", None, None, perm, gid, 8192, False)
+    _native.reset_launches()
+    segment_reduce_many(k6_many_specs(rng, n, dev)["q2m"], perm, gid, 8192,
+                        group_rows=rows)
+    assert _native.LAUNCHES["segment_reduce"] == 1
 
 
 def test_segment_reduce_unsigned_and_narrow_storage(dev):

@@ -539,6 +539,44 @@ def _sum_atol(data, ref_grouping, mask):
     return len(d) * np.finfo(np.float64).eps * np.abs(np.cumsum(d)).max()
 
 
+def _np_sum_atol(x) -> float:
+    """n * eps * sum(|x|) over x's finite values: a bound on the error of
+    any order of summing a group of x's rows."""
+    v = np.asarray(x, np.float64)
+    v = v[np.isfinite(v)]
+    return len(v) * np.finfo(np.float64).eps * float(np.abs(v).sum())
+
+
+def _np_group_reduce(op, x, keys, valid, mask, cap_g):
+    """numpy's per-group answer: the valid rows grouped by key in ascending
+    key order, each group reduced over its rows where mask holds (0 for a
+    group without such a row): sum (float64 for floats), max, band."""
+    out = np.zeros(cap_g, np.float64 if x.dtype.kind == "f" else x.dtype)
+    for slot, k in enumerate(np.unique(keys[valid])[:cap_g]):
+        rows = valid & (keys == k)
+        if mask is not None:
+            rows &= mask
+        v = x[rows]
+        if len(v):
+            out[slot] = {"sum": lambda a: a.astype(np.float64).sum()
+                         if a.dtype.kind == "f" else a.sum(),
+                         "max": np.max,
+                         "band": np.bitwise_and.reduce}[op](v)
+    return out
+
+
+def _reference_reduce(op, x, mask, ref_g, cap_g):
+    """seg_reduce_sorted of x (raw row order) over the reference's
+    grouping; op count counts the masked-in rows."""
+    ones = op == "count"
+    if ones:
+        op, x = "sum", np.ones(len(ref_g.perm), np.int64)
+    mj = None if mask is None else ref_g.take(jnp.asarray(mask))
+    return np.asarray(jscan.seg_reduce_sorted(
+        op, ref_g.take(jnp.asarray(x)), ref_g.group_ids, ref_g.boundary,
+        ref_g.starts, ref_g.ends, cap_g, mask_sorted=mj))
+
+
 @pytest.mark.parametrize("name", NP_DTYPES)
 def test_segment_reduce_matches_reference(name):
     """K6's plain version against seg_reduce_sorted over the reference's
@@ -558,33 +596,27 @@ def test_segment_reduce_matches_reference(name):
         if op in ("bor", "band", "bxor") and d.kind == "f":
             continue
         for m in (None, rng.random(n) < 0.3, np.zeros(n, bool)):
-            if op == "band" and name == "bool" and m is not None:
-                # the reference gives masked-out bool rows False as band's
-                # identity (clickhouse_tpu/ops/scan_ops.py:226 inverts it
-                # for integer types only): ROADMAP queue 3
-                continue
-            mj = None if m is None else ref_g.take(jnp.asarray(m))
-            xs = x
-            if op == "sum" and d.kind == "f":
-                # the reference's prefix difference turns every group after
-                # a NaN into NaN (ROADMAP queue 3); K6 sums each group
-                xs = np.where(np.isnan(x), 0.5, x).astype(d)
-            want = np.asarray(jscan.seg_reduce_sorted(
-                op, ref_g.take(jnp.asarray(xs)), ref_g.group_ids,
-                ref_g.boundary, ref_g.starts, ref_g.ends, cap_g,
-                mask_sorted=mj))
-            got = tscan.segment_reduce(op, _t(xs), None if m is None
+            got = tscan.segment_reduce(op, _t(x), None if m is None
                                        else _t(m), got_g.perm, gid, cap_g,
                                        unsigned=name == "uint64")
             if op == "sum" and d.kind == "f":
+                # the reference's prefix difference turns every group after
+                # a NaN into NaN (DIVERGENCES["float_sum_nan"]): held to
+                # numpy's per-group sums instead
+                want = _np_group_reduce("sum", x, keys[0], valid, m, cap_g)
                 g = got.numpy()
                 assert np.isnan(g).tolist() == np.isnan(want).tolist()
                 ok = ~np.isnan(want)
-                np.testing.assert_allclose(
-                    g[ok], want[ok], rtol=0,
-                    atol=_sum_atol(xs, ref_g, m))
+                np.testing.assert_allclose(g[ok], want[ok], rtol=0,
+                                           atol=_np_sum_atol(x))
+                continue
+            if op == "band" and name == "bool" and m is not None:
+                # the reference's band identity for masked-out bool rows
+                # is False (DIVERGENCES["bool_band_identity"]): numpy's
+                want = _np_group_reduce("band", x, keys[0], valid, m, cap_g)
             else:
-                _same(got, want)
+                want = _reference_reduce(op, x, m, ref_g, cap_g)
+            _same(got, want)
     cnt = tscan.segment_reduce("count", None, _t(valid), got_g.perm, gid,
                                cap_g)
     assert cnt.tolist() == (got_g.ends - got_g.starts).tolist()
@@ -593,11 +625,19 @@ def test_segment_reduce_matches_reference(name):
 def test_radix_sort_pass_plan(monkeypatch):
     """K4 sorts only the bits that vary, in even digits: x's 20 bits plus
     the invalid flag take three 7-bit passes, and Q2b's scan rows (every
-    row below the row count valid) the 20 bits alone, also in three."""
+    row below the row count valid) the 20 bits alone, also in three; Q2m's
+    18-bit intDiv(x, 4) three of 6 bits.  Every plan fits the kernel: at
+    most 8-bit digits, 4 passes of a u32 key and 8 of a u64 key."""
     assert tsort.sort_pass_plan(21) == (3, 7)
+    assert tsort.sort_pass_plan(20) == (3, 7)
+    assert tsort.sort_pass_plan(18) == (3, 6)
     assert tsort.sort_pass_plan(32) == (4, 8)
     assert tsort.sort_pass_plan(64) == (8, 8)
     assert tsort.sort_pass_plan(0) == (1, 1)
+    for bits in range(65):
+        passes, digit = tsort.sort_pass_plan(bits)
+        assert 1 <= digit <= 8 and passes * digit >= bits
+        assert passes <= (4 if bits <= 32 else 8)
     x = np.arange(200_000, dtype=np.int64) * 2654435761 % 1_000_003
     seen = []
     plain = tsort._radix_sort_pairs_plain
@@ -635,3 +675,156 @@ def test_segment_bounds_folds_key_arrays_past_the_fourth():
     want = tscan._segment_bounds_plain(keys, nv, cap_g)
     for g, w in zip(got, want):
         assert g.tolist() == w.tolist()
+
+
+def test_sort_rows_bytes_counts_k4_scratch():
+    """The sort's working set counts K4's scratch: the passes x radix
+    histogram, a tile counter a pass and one 8-byte look-back status word
+    a (tile, digit), 8,192-row tiles of u32 keys and 4,096 of u64."""
+    n = 100_000_000
+    hist = (3 * 128 + 3) * 4 + 4                      # padded to 8 bytes
+    status = -(-n // 8192) * 128 * 8
+    assert tsort.k4_scratch_bytes(n, 4, 20) == hist + status == 12_502_544
+    # Q2b: the packed u32 key; K4's two key and row id buffers
+    assert tsort.sort_rows_bytes(n, [20]) == n * 4 + n * 2 * 8 \
+        + tsort.k4_scratch_bytes(n, 4, 20)
+    # a chain: a u64 key of 8 passes, then a u32 key of one
+    u64 = n * (2 * 12) + tsort.k4_scratch_bytes(n, 8, 64)
+    u32 = n * (8 + 8) + tsort.k4_scratch_bytes(n, 4, 5)
+    assert tsort.k4_scratch_bytes(n, 8, 64) == \
+        (8 * 256 + 8) * 4 + -(-n // 4096) * 256 * 8
+    assert tsort.sort_rows_bytes(n, [64, 5]) == n * 12 + max(u64, u32)
+
+
+# -- K6 with several specs a launch -------------------------------------------
+
+def _many_specs(rng, name, n):
+    """(op, values, mask) lists over the dtype under test and an int64
+    column, two masks, None and an all-false mask, as numpy."""
+    d = np.dtype(name)
+    x = _key_values(rng, name, n) if d.kind != "f" else _values(rng, name, n)
+    y = _key_values(rng, "int64", n)
+    m1, m2, none = rng.random(n) < 0.3, rng.random(n) < 0.7, np.zeros(n, bool)
+    specs = [("sum", x, None), ("min", x, m1), ("max", x, m2),
+             ("any", x, none), ("count", None, m1), ("sum", y, m2),
+             ("max", y, None), ("any", y, m1), ("count", None, None)]
+    if d.kind != "f":
+        specs += [("bxor", x, None), ("band", y, m1)]
+    return specs
+
+
+@pytest.mark.parametrize("name", NP_DTYPES)
+def test_segment_reduce_many_matches_reference(name):
+    """K6's multi-spec entry (plain version) against seg_reduce_sorted over
+    the reference's grouping: one column under several ops, two columns,
+    two masks, no mask and an all-false mask, counts; with and without the
+    grouping's row counts."""
+    rng = np.random.default_rng(len(name) + 17)
+    n, cap_g = 3000, 1024
+    keys = [rng.integers(0, 300, n)]
+    valid = rng.random(n) < 0.9
+    ref_g, got_g = _groupings(keys, valid, cap_g)
+    specs = _many_specs(rng, name, n)
+    wants = [_reference_reduce(op, x, m, ref_g, cap_g) for op, x, m in specs]
+    uns = name == "uint64"
+    for group_rows in (None, got_g.ends - got_g.starts):
+        got = tscan.segment_reduce_many(
+            [(op, None if x is None else _t(x), None if m is None else _t(m),
+              uns and x is not None and x.dtype == np.uint64)
+             for op, x, m in specs], got_g.perm, got_g.group_ids, cap_g,
+            group_rows=group_rows)
+        assert len(got) == len(specs)
+        for (op, x, m), g, want in zip(specs, got, wants):
+            if op == "sum" and x.dtype.kind == "f":
+                np.testing.assert_allclose(g.numpy(), want, rtol=0,
+                                           atol=_sum_atol(x, ref_g, m))
+            else:
+                _same(g, want)
+
+
+def test_k6_launch_plan():
+    """K6's launches: every reduction of Q2m in one launch reading one
+    column (`any` reads none) and keeping no count where the grouping's
+    row counts are given; shared masks counted once; more specs, columns
+    or masks than one launch takes split into more."""
+    x, y = torch.arange(10), torch.arange(10, dtype=torch.int32)
+    m1, m2 = torch.ones(10, dtype=torch.bool), torch.zeros(10, dtype=torch.bool)
+    q2m = [(op, x, None, False) for op in ("sum", "min", "max", "any")]
+    launches, where = tscan._plan_launches(q2m, True)
+    assert len(launches) == 1
+    assert [t is x for t in launches[0].data] == [True]
+    assert launches[0].counts == [] and launches[0].masks == []
+    assert [d for _, d, _ in launches[0].specs] == [0, 0, 0, -1]
+    assert where == [(0, 0, -1), (0, 1, -1), (0, 2, -1), (0, 3, -1)]
+    # no group_rows: min, max and any share one count of every row
+    launches, where = tscan._plan_launches(q2m, False)
+    assert launches[0].counts == [-1]
+    assert [c for _, _, c in where] == [-1, 0, 0, 0]
+    # counts: over every row from group_rows (no launch), one a mask
+    specs = [("count", None, None, False), ("count", None, m1, False),
+             ("min", y, m1, False), ("max", x[:10], m2, False)]
+    launches, where = tscan._plan_launches(specs, True)
+    assert where[0] == (-1, -1, -1)
+    assert len(launches) == 1 and launches[0].counts == [0, 1]
+    assert len(launches[0].data) == 2 and len(launches[0].masks) == 2
+    # splits: nine reductions; five columns; five masks
+    many = [("sum", x, None, False)] * 9
+    assert [len(la.specs) for la in tscan._plan_launches(many, True)[0]] \
+        == [8, 1]
+    cols = [("sum", torch.arange(10) + i, None, False) for i in range(5)]
+    assert [len(la.data) for la in tscan._plan_launches(cols, True)[0]] \
+        == [4, 1]
+    masks = [("sum", x, torch.rand(10) < 0.5, False) for _ in range(5)]
+    assert [len(la.masks) for la in tscan._plan_launches(masks, True)[0]] \
+        == [4, 1]
+
+
+# -- reference divergences (ROADMAP queue 3) -----------------------------------
+# Each: (op, values, mask, numpy's per-group answer, the reference's defect)
+# over the groups of keys 0, 0, 1, 1, 2, 2.  The port gives numpy's answer;
+# the reference does not.
+_M = np.iinfo(np.int64).max
+DIVERGENCES = {
+    # a NaN in group 0 turns every later group's sum into NaN
+    "float_sum_nan": ("sum", np.array([1.0, np.nan, 2.0, 3.0, 4.0, 0.5]),
+                      None, np.array([np.nan, 5.0, 4.5]),
+                      "clickhouse_tpu/ops/scan_ops.py:179-182"),
+    # INT64_MAX and INT64_MAX - 1 share one clamped order token under a
+    # mask, and the later row wins
+    "int64_max_tie": ("max", np.array([_M, _M - 1, 5, 6, 1, 2], np.int64),
+                      np.ones(6, bool), np.array([_M, 6, 2], np.int64),
+                      "clickhouse_tpu/ops/sort_ops.py:59"),
+    # a masked-out bool row takes False, not True, as band's identity
+    "bool_band_identity": ("band", np.array([1, 1, 1, 0, 1, 1], bool),
+                           np.array([1, 0, 1, 1, 0, 0], bool),
+                           np.array([True, False, False]),
+                           "clickhouse_tpu/ops/scan_ops.py:224-227"),
+}
+
+
+def _divergence(case):
+    op, x, mask, want, _ = DIVERGENCES[case]
+    keys = np.array([0, 0, 1, 1, 2, 2])
+    valid = np.ones(6, bool)
+    ref_g, got_g = _groupings([keys], valid, 8)
+    got = tscan.segment_reduce(op, _t(x), None if mask is None else _t(mask),
+                               got_g.perm, got_g.group_ids, 8)
+    return got.numpy()[:3], _reference_reduce(op, x, mask, ref_g, 8)[:3], want
+
+
+@pytest.mark.parametrize("case", sorted(DIVERGENCES))
+def test_port_matches_numpy_where_reference_diverges(case):
+    got, _, want = _divergence(case)
+    np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("case", sorted(DIVERGENCES))
+def test_reference_divergence_is_pinned(case):
+    """The reference's answer differs from the port's (and numpy's) on
+    these inputs, for the defect DIVERGENCES names: the port does not
+    bless it.  Should the reference be repaired, this test fails and the
+    case joins the differential tests."""
+    got, ref, want = _divergence(case)
+    assert not np.array_equal(ref, want, equal_nan=True), \
+        DIVERGENCES[case][4]
+    assert not np.array_equal(got, ref, equal_nan=True)

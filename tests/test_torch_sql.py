@@ -389,7 +389,7 @@ def test_sort_grouping_bench_queries_match_reference(sessions, sql,
     seen = []
     for mod, name in ((sort_ops, "radix_sort_pairs"),
                       (scan_ops, "segment_bounds"),
-                      (scan_ops, "segment_reduce")):
+                      (scan_ops, "segment_reduce_many")):
         fn = getattr(mod, name)
 
         def spy(*args, _fn=fn, _name=name, **kw):
@@ -398,7 +398,29 @@ def test_sort_grouping_bench_queries_match_reference(sessions, sql,
         monkeypatch.setattr(mod, name, spy)
     assert _both(sessions, sql)
     assert {"radix_sort_pairs", "segment_bounds"} <= set(seen)
-    assert ("segment_reduce" in seen) == ("min(x)" in sql)
+    assert ("segment_reduce_many" in seen) == ("min(x)" in sql)
+
+
+def test_q2m_reduces_every_aggregate_in_one_k6_call(sessions, monkeypatch):
+    """Q2m's sum, min, max and any reach K6 as ONE segment_reduce_many
+    call of four specs over x's storage and every row of a group (no
+    mask, so no count: the group counts come from the grouping's bounds),
+    and its count() reaches no kernel; the rows are the reference's."""
+    from clickhouse_tpu_torch.ops import scan_ops
+    calls = []
+    many = scan_ops.segment_reduce_many
+
+    def spy(specs, *args, **kw):
+        calls.append(([(op, d, m) for op, d, m, _ in specs], kw))
+        return many(specs, *args, **kw)
+    monkeypatch.setattr(scan_ops, "segment_reduce_many", spy)
+    _both(sessions, Q2M)
+    assert len(calls) == 1
+    specs, kw = calls[0]
+    assert [op for op, _, _ in specs] == ["sum", "min", "max", "any"]
+    assert all(m is None for _, _, m in specs)
+    assert len({d.data_ptr() for _, d, _ in specs}) == 1
+    assert kw["group_rows"] is not None
 
 
 @pytest.mark.parametrize("sql,ordered", [
