@@ -11,19 +11,25 @@ non-zero without them.  Phases, each of which fails the run:
      one nvcc a source, all started together;
   2. hold each kernel against its plain PyTorch version on the card: edge
      cases (K1 with and without filter terms over every storage type and
-     comparison, constants outside the storage range, NaN, NULLs, row
-     bounds off the 16-row grid and misaligned views; K2 with skewed slots;
-     both K3 entries with ties, extreme keys, invalid rows, monotone keys
-     and ties across blocks; K4 over every key type's token, UInt64 above
-     2^63, NaN and -0.0, all-equal keys, a constant top digit, one row,
-     one tile and one tile plus a row, more tiles than the card holds at
-     once (the look-back waits), invalid rows, no valid row and multi-key
-     chains; K5 with one group, a group a row, and more groups than slots;
-     K6 for every op, with masks, empty and fully masked groups, one group
-     holding 40 % of the rows, and several ops over two columns and two
-     masks in one launch); integer results must agree exactly, K1's and K2's float
-     sums within rtol 1e-12, K6's within n_g * eps * sum(|x|) a group of
-     n_g rows (its atomics add a group's parts in a varying order);
+     comparison, constants outside the storage range, NaN, NULLs, UInt64
+     at and above 2^63 against float constants one ulp from its values,
+     row bounds off the 16-row grid and misaligned views; K2 with skewed
+     slots; both K3 entries with ties, extreme keys, invalid rows,
+     monotone keys and ties across blocks; K4 over every key type's token,
+     UInt64 above 2^63, NaN and -0.0, all-equal keys, a constant top digit,
+     one row, one tile and one tile plus a row, more tiles than the card
+     holds at once (the look-back waits), invalid rows, no valid row and
+     multi-key chains; K5 over K5_CASES: one row, part of a tile, a tile
+     multiple and one row, a group over 100 tiles, a boundary at every
+     tile's first row, more groups than slots, no valid row, u64 keys, two
+     to five key arrays and misaligned views; K6 for every op, with masks,
+     empty and fully masked groups, one group holding 40 % of the rows,
+     and several ops over two columns and two masks in one launch);
+     integer results must agree exactly, K1's and K2's float sums within
+     rtol 1e-12, K6's within n_g * eps * sum(|x|) a group of n_g rows (its
+     atomics add a group's parts in a varying order); then SELECT without
+     FROM, numbers() and INSERT ... VALUES with expressions through
+     connect(device="cuda"), against numpy;
   3. drive the main path through the public API: connect(device="cuda"),
      CREATE TABLE hits (x Int64), insert_pydict 100M rows of
      (arange * 2654435761) % 1_000_003, then Q1, Q2, Q2b, Q2m and Q3
@@ -33,7 +39,9 @@ non-zero without them.  Phases, each of which fails the run:
      rows with its filter as a term (read in x's int32 storage) and
      allocate no row mask; Q2b and Q2m must reach K4 once and K5 over
      every row, Q2m K6 exactly once (all four aggregates in one launch)
-     and Q2b never;
+     and Q2b never; each query's peak device memory is printed, for Q2b
+     and Q2m beside the governor's count for the sort grouping and the
+     grouping's own peak;
   4. replay each kernel on the exact inputs the main path gave it (its
      largest launch on the main path), held against its plain version, and
      time it, its plain version and, where one exists, the single PyTorch
@@ -41,13 +49,16 @@ non-zero without them.  Phases, each of which fails the run:
      time); print bytes and bound_ms (bytes / 3.35 TB/s) for each, K1 in
      both its forms (Q1's filter term, and the largest bool-mask count the
      main path made: the aggregated block's row count in _sort_block) and
-     the kernels of one call from a torch.profiler trace, K2 on skewed slots at 100M rows and at
-     S = 16,384, K3's level 1 and merge apart (torch.profiler), K4 at
-     Q2b's and Q2m's inputs with its histogram and scatter kernels apart
-     (torch.profiler: one histogram and one scatter a pass), K6's one launch of Q2m's four aggregates, each of them
-     alone and over 100M rows where one group holds 40 % of them; time
-     each query (median wall time of 20 runs, synchronised) and the
-     device-busy time of Q1, Q2b and Q2m (torch.profiler).
+     the kernels of one call from a torch.profiler trace, K2 on skewed
+     slots at 100M rows and at S = 16,384, K3's level 1 and merge apart
+     (torch.profiler), K4 at Q2b's and Q2m's inputs with its histogram and
+     scatter kernels apart (torch.profiler: one histogram and one scatter
+     a pass), K5 at Q2b's and Q2m's inputs (torch.profiler: one kernel a
+     call) beside a copy of its key array, K6's one launch of Q2m's four
+     aggregates, each of them alone and over 100M rows where one group
+     holds 40 % of them; time each query (median wall time of 20 runs,
+     synchronised) and the device-busy time of Q1, Q2b and Q2m
+     (torch.profiler).
 
 The second-to-last line is a JSON object of per-kernel results (name,
 route, source, replaces, launches, ms, plain_ms, bound_ms, bound_by,
@@ -88,10 +99,14 @@ EXTRA_KEYS = ("level1_ms", "merge_ms", "entry64_ms", "entry64_bound_ms",
               "launches_mask_form", "kernels_per_call", "passes",
               "digit_bits", "per_op_ms", "skew_ms", "skew_bound_ms",
               "information", "hist_ms", "scatter_ms", "q2m_ms", "q2m_bound_ms", "q2m_library_ms",
-              "specs", "launches_per_query")
+              "specs", "launches_per_query", "copy_ms", "q2m_plain_ms",
+              "q2m_bytes")
 F64_EPS = 2.0 ** -52
 CMPS = ["equals", "notEquals", "less", "lessOrEquals", "greater",
         "greaterOrEquals"]
+# UInt64 values whose float64, converted as signed and moved by 2^64,
+# would be one ulp off numpy's
+U64_EDGE = [9544035305396814861, 1, (1 << 63) + 1025, (1 << 64) - 1]
 
 
 def fail(msg):
@@ -169,8 +184,9 @@ def term_cases(rng, n):
     """(column type, values, literals) for K1's filter terms: every storage
     type a term reads (Int64 narrowed to int8 / int16 / int32, full int64,
     uint8, UInt16 in int32, UInt32 in int64, UInt64 bits, Float64 stored as
-    float32, float32, float64), NULLs, NaN, -0.0 and infinities, and
-    constants outside the storage range."""
+    float32, float32, float64), NULLs, NaN, -0.0 and infinities, constants
+    outside the storage range, and UInt64 values at and above 2^63 against
+    float constants one ulp from their float64 (U64_EDGE)."""
     big = rng.integers(-(1 << 62), 1 << 62, n)
     u64 = rng.integers(0, 1 << 62, n).astype(np.uint64)
     u64[rng.random(n) < 0.3] += np.uint64(1 << 63)
@@ -180,6 +196,9 @@ def term_cases(rng, n):
     f[:3] = [np.inf, -np.inf, 0.0]
     nul = rng.integers(-50, 50, n).astype(object)
     nul[rng.random(n) < 0.2] = None
+    u64_edge = np.resize(np.array(U64_EDGE, dtype=np.uint64), n)
+    u64_edge[::3] = rng.integers(1 << 63, (1 << 64) - 1, len(u64_edge[::3]),
+                                 dtype=np.uint64, endpoint=True)
     lits = [0, 7, -1, -129, 127, 300, 40000, -(1 << 40), 1 << 40,
             (1 << 63) + 5, 1.5, -0.0, float("nan"), float("inf")]
     return [
@@ -196,6 +215,10 @@ def term_cases(rng, n):
         ("Float64", f.astype(np.float32).astype(np.float64), lits),
         ("Float64", f, lits + [float(f[9])]),
         ("Nullable(Int32)", nul, lits),
+        # UInt64 values whose float64 a second rounding would change
+        ("UInt64", u64_edge, lits + [9544035305396816000.0,
+                                     9223372036854777856.0,
+                                     float(1 << 63), 2.0 ** 64]),
     ]
 
 
@@ -507,29 +530,89 @@ def check_k4(dev):
           f"type, chains, invalid rows and no valid row)", flush=True)
 
 
+# K5's edge cases (k5_case): the look-back across tiles of 4,096 rows
+K5_CASES = ("one_row", "under_a_tile", "tile_multiple_plus_one",
+            "group_over_100_tiles", "boundary_at_tile_heads", "one_group",
+            "group_a_row", "over_cap", "invalid_rows", "no_valid_row",
+            "u64_keys", "two_keys", "four_keys", "five_keys",
+            "u32_view_1_in", "u32_view_3_in", "u64_view_1_in")
+
+
+def k5_case(name, rng):
+    """(sorted key arrays (numpy, int32 or int64 bits), valid rows, group
+    slots, rows to skip: the array is a view that starts there) of one K5
+    edge case."""
+    tile = 4096
+    n = 1_000_003
+    base = np.sort(rng.integers(0, 200_000, n))
+    if name == "one_row":
+        return [np.array([7], np.int32)], 1, 4, 0
+    if name == "under_a_tile":
+        return [np.sort(rng.integers(0, 300, 1000)).astype(np.int32)], \
+            1000, 1 << 12, 0
+    if name == "tile_multiple_plus_one":
+        m = 3 * tile + 1
+        return [np.sort(rng.integers(0, 2000, m)).astype(np.int32)], m, \
+            1 << 12, 0
+    if name == "group_over_100_tiles":
+        k = np.concatenate([np.zeros(100), np.ones(120 * tile + 7),
+                            2 + np.sort(rng.integers(0, 5000, 200_000))])
+        return [k.astype(np.int32)], len(k), 1 << 14, 0
+    if name == "boundary_at_tile_heads":
+        m = 40 * tile + 17
+        return [(np.arange(m) // tile).astype(np.int32)], m, 64, 0
+    if name == "one_group":
+        return [np.zeros(n, np.int32)], n, 1 << 20, 0
+    if name == "group_a_row":
+        return [np.arange(n, dtype=np.int64)], n, 1 << 20, 0
+    if name == "over_cap":
+        return [(np.arange(n) // 3).astype(np.int32)], n, 1024, 0
+    if name == "invalid_rows":
+        return [base.astype(np.int32)], n - 54_321, 1 << 18, 0
+    if name == "no_valid_row":
+        return [base.astype(np.int32)], 0, 1 << 18, 0
+    if name == "u64_keys":
+        u = np.sort(rng.integers(0, 1 << 64, n // 40, dtype=np.uint64,
+                                 endpoint=False))
+        return [np.repeat(u, 40).view(np.int64)], n - n % 40 - 99, 1 << 16, 0
+    if name in ("two_keys", "four_keys", "five_keys"):
+        extra = {"two_keys": 1, "four_keys": 3, "five_keys": 4}[name]
+        keys = [base.astype(np.int32)]
+        for p in (7, 3, 5, 2)[:extra]:
+            k = np.where(base % p == 0, rng.integers(0, 2, n), 0)
+            keys.append(k.astype(np.int64 if p % 2 else np.int32))
+        return keys, n - 11, 1 << 18, 0
+    if name.startswith("u32_view"):
+        off = int(name.split("_")[2])
+        return [base.astype(np.int32)], n - off - 5, 1 << 18, off
+    if name == "u64_view_1_in":
+        return [base.astype(np.int64) << 30], n - 1, 1 << 18, 1
+    raise ValueError(name)
+
+
+def k5_args(name, rng, dev):
+    """One K5 edge case as the wrapper's arguments on `dev`."""
+    keys, nv, cap_g, off = k5_case(name, rng)
+    kd = [torch.from_numpy(k).to(dev)[off:] for k in keys]
+    return kd, torch.tensor(nv, dtype=torch.int64, device=dev), cap_g
+
+
 def check_k5(dev):
-    """K5 against its plain version: one group, a group a row, more groups
-    than slots, invalid rows, no valid row, two key arrays."""
+    """K5 against its plain version on every case of K5_CASES: one row, a
+    part of a tile, a tile multiple and one row, a group over 100 tiles, a
+    boundary at every tile's first row, one group, a group a row, more
+    groups than slots, invalid rows, no valid row, u64 keys, two, four and
+    five key arrays, and key arrays that do not start on a 16-byte
+    boundary."""
     from clickhouse_tpu_torch.ops.scan_ops import (_segment_bounds_plain,
                                                    segment_bounds)
     rng = np.random.default_rng(7)
-    n = 3_000_017
-    base = np.sort(rng.integers(0, 200_000, n))
-    cases = {"one_group": ([np.zeros(n, np.int32)], n, 1 << 20),
-             "group_a_row": ([np.arange(n, dtype=np.int64)], n, 1 << 22),
-             "over_cap": ([(np.arange(n) // 3).astype(np.int32)], n, 1024),
-             "invalid_rows": ([base.astype(np.int32)], n - 54_321, 1 << 18),
-             "no_valid_row": ([base.astype(np.int32)], 0, 1 << 18),
-             "two_keys": ([base.astype(np.int32),
-                           np.where(base % 7 == 0, rng.integers(0, 2, n), 0)
-                           .astype(np.int64)], n, 1 << 18)}
-    for name, (keys, nv, cap_g) in cases.items():
-        kd = [torch.from_numpy(k).to(dev) for k in keys]
-        nvt = torch.tensor(nv, dtype=torch.int64, device=dev)
+    for name in K5_CASES:
+        kd, nvt, cap_g = k5_args(name, rng, dev)
         for a, b in zip(segment_bounds(kd, nvt, cap_g),
                         _segment_bounds_plain(kd, nvt, cap_g)):
             max_abs_err(a, b)
-    print(f"K5 segment_bounds edge cases agree: {', '.join(cases)}",
+    print(f"K5 segment_bounds edge cases agree: {', '.join(K5_CASES)}",
           flush=True)
 
 
@@ -674,9 +757,9 @@ def check_k6(dev):
 def main_path_args(session):
     """Run the main path's queries once more with each kernel's launch
     wrapper spied on, and return the arguments of each kernel's largest
-    launch (K1: of each form, its filter terms and its bool mask; K4: of
-    each query, as "radix_sort_pairs:Q2b"): the exact inputs the main path
-    hands it."""
+    launch (K1: of each form, its filter terms and its bool mask; K4 and
+    K5: of each query, as "radix_sort_pairs:Q2b"): the exact inputs the
+    main path hands it."""
     from clickhouse_tpu_torch.ops import agg_ops, mxu_segsum, scan_ops, \
         sort_ops
     # kernel -> (module, wrapper, rows of a launch from its arguments)
@@ -700,7 +783,7 @@ def main_path_args(session):
         def spy(*args, _fn=fn, _name=name, _rows_of=rows_of):
             rows = _rows_of(args)
             key = _name
-            if _name == "radix_sort_pairs":
+            if _name in ("radix_sort_pairs", "segment_bounds"):
                 key = f"{_name}:{query[0]}"
             elif _name == "masked_reduce" and not args[5]:
                 key = f"{_name}:mask"
@@ -1005,6 +1088,30 @@ def k4_record(key, bits, vals):
               f"{passes} passes of {digit}-bit digits")
 
 
+def k5_record(keys, nv, cap_g):
+    """K5 on one main-path input, held against its plain version and timed
+    beside it and beside torch.unique_consecutive.  -> record of the
+    kernels line."""
+    from clickhouse_tpu_torch.ops.scan_ops import (_segment_bounds_plain,
+                                                   segment_bounds)
+    got = segment_bounds(keys, nv, cap_g)
+    want = _segment_bounds_plain(keys, nv, cap_g)
+    k0 = keys[0]
+    return dict(
+        max_abs_err=max(max_abs_err(a, b) for a, b in zip(got, want)),
+        ms=cuda_ms(lambda: segment_bounds(keys, nv, cap_g)),
+        plain_ms=cuda_ms(lambda: _segment_bounds_plain(keys, nv, cap_g),
+                         reps=5),
+        library_ms=cuda_ms(lambda: torch.unique_consecutive(
+            k0, return_inverse=True, return_counts=True)),
+        library="torch.unique_consecutive(key, return_inverse=True, "
+                "return_counts=True)",
+        # read the keys, write a group id a row and 16 bytes a slot
+        bytes=nbytes(keys) + k0.shape[0] * 4 + cap_g * 16 + 8,
+        shape=f"{len(keys)} sorted key array(s) of {k0.shape[0]} "
+              f"{k0.dtype}, {cap_g} group slots")
+
+
 def k6_bytes(specs, rows, cap_g, group_rows):
     """Bytes one K6 launch over `specs` must move: a group id, a
     permutation entry, each distinct column's value and each distinct
@@ -1025,13 +1132,14 @@ def sort_shapes(dev, args):
     against its plain version and timed beside it and beside a PyTorch
     call of the same function where there is one.  -> {name: record}."""
     from clickhouse_tpu_torch.ops.scan_ops import (
-        _segment_bounds_plain, _segment_reduce_plain, segment_bounds,
-        segment_reduce, segment_reduce_many)
+        _segment_bounds_cuda, _segment_reduce_plain, segment_reduce,
+        segment_reduce_many)
     from clickhouse_tpu_torch.ops.sort_ops import _radix_sort_cuda
     out = {}
     for q in ("Q2b", "Q2m"):
-        if f"radix_sort_pairs:{q}" not in args:
-            fail(f"{q} gave K4 no launch")
+        for kernel in ("radix_sort_pairs", "segment_bounds"):
+            if f"{kernel}:{q}" not in args:
+                fail(f"{q} gave {kernel} no launch")
     key, bits, vals = args["radix_sort_pairs:Q2b"]
     rec = out["radix_sort_pairs"] = k4_record(key, bits, vals)
     # its kernels apart (a trace): one histogram for every pass, then one
@@ -1058,27 +1166,34 @@ def sort_shapes(dev, args):
           f"({q2m['shape']}) "
           f"{q2m['ms']:.4f} ms, bound {rec['q2m_bound_ms']:.4f} ms, "
           f"torch.sort {q2m['library_ms']:.4f} ms", flush=True)
-    keys, nv, cap_g = args["segment_bounds"]
-    got = segment_bounds(keys, nv, cap_g)
-    want = _segment_bounds_plain(keys, nv, cap_g)
-    k0 = keys[0]
-    info = cuda_ms(lambda: torch.unique_consecutive(k0, return_counts=True),
-                   reps=5)
-    out["segment_bounds"] = dict(
-        max_abs_err=max(max_abs_err(a, b) for a, b in zip(got, want)),
-        ms=cuda_ms(lambda: segment_bounds(keys, nv, cap_g)),
-        plain_ms=cuda_ms(lambda: _segment_bounds_plain(keys, nv, cap_g),
-                         reps=5),
-        library_ms=None,
-        library="none: no single PyTorch call gives the group ids and "
-                "bounds",
-        information=f"torch.unique_consecutive(key, return_counts=True) "
-                    f"{info:.4f} ms",
-        # read the keys, write a group id a row and 16 bytes a slot
-        bytes=nbytes(keys) + k0.shape[0] * 4 + cap_g * 16 + 8,
-        shape=f"{len(keys)} sorted key array(s) of {k0.shape[0]} "
-              f"{k0.dtype}, {cap_g} group slots")
-    del got, want
+    rec = out["segment_bounds"] = k5_record(*args["segment_bounds:Q2b"])
+    # one device kernel a call (a memset clears its look-back words)
+    per_call = {}
+    split = device_kernels(
+        lambda: _segment_bounds_cuda(*args["segment_bounds:Q2b"]),
+        launches=per_call)
+    rec["kernels_per_call"] = per_call
+    if split and (len(per_call) != 1 or any(
+            "k_seg_onesweep" not in k or c != 1
+            for k, c in per_call.items())):
+        fail(f"a K5 call ran {per_call} device kernels, not one "
+             f"k_seg_onesweep")
+    q2m = k5_record(*args["segment_bounds:Q2m"])
+    rec.update(q2m_ms=q2m["ms"], q2m_plain_ms=q2m["plain_ms"],
+               q2m_bytes=q2m["bytes"], q2m_bound_ms=bound_ms(q2m["bytes"]),
+               q2m_library_ms=q2m["library_ms"])
+    # a yardstick of its streaming: a copy of the key array (the same read,
+    # a write of the group ids' size)
+    k0 = args["segment_bounds:Q2b"][0][0]
+    rec["copy_ms"] = cuda_ms(lambda: k0.clone())
+    print(f"segment_bounds at Q2b's inputs: {rec['ms']:.4f} ms against a "
+          f"copy of its key array {rec['copy_ms']:.4f} ms", flush=True)
+    print(f"segment_bounds device kernels of one call (torch.profiler): "
+          f"{split}, launches a call {per_call}; at Q2m's inputs "
+          f"({q2m['shape']}) {q2m['ms']:.4f} ms, plain "
+          f"{q2m['plain_ms']:.4f} ms, bound {rec['q2m_bound_ms']:.4f} ms, "
+          f"library {q2m['library_ms']:.4f} ms ({q2m['library']})",
+          flush=True)
     if "segment_reduce" not in args:
         fail("the main path gave K6 no launch")
     # Q2m's one launch: its four aggregates over x's storage
@@ -1183,6 +1298,34 @@ def expected_answers(x: np.ndarray):
         q2m.append((int(g), int(cnt_m[g]), int(sum_m[g]),
                     int(x[rows].min()), int(x[rows].max()), int(x[rows[0]])))
     return {"Q1": q1, "Q2": q2, "Q2b": q2b, "Q2m": q2m, "Q3": q3}
+
+
+def check_small_queries(ch):
+    """SELECT without FROM, numbers() and INSERT ... VALUES with
+    expressions through connect(device="cuda"), against numpy."""
+    s = ch.connect(device="cuda")
+    num = np.arange(1000, dtype=np.uint64)
+    k = num % 7
+    cases = [
+        ("SELECT 1", [(1,)]),
+        ("SELECT 1 + 2 AS a, 'x'", [(3, "x")]),
+        ("SELECT count() FROM numbers(10)", [(10,)]),
+        ("SELECT number % 7 AS k, count(), sum(number) FROM numbers(1000) "
+         "GROUP BY k ORDER BY k",
+         [(int(g), int((k == g).sum()), int(num[k == g].sum()))
+          for g in range(7)]),
+        ("SELECT number FROM numbers(5, 3)", [(5,), (6,), (7,)]),
+    ]
+    s.execute("CREATE TABLE ins (a Int64, b Int32)")
+    s.execute("INSERT INTO ins VALUES (1+2, 4), (-7, 2*3)")
+    cases.append(("SELECT a, b FROM ins ORDER BY a", [(-7, 6), (3, 4)]))
+    for sql, want in cases:
+        got = s.execute(sql).rows()
+        if got != want:
+            fail(f"{sql} returned {got}, numpy says {want}")
+    print(f"{len(cases)} small queries on the card match numpy (SELECT "
+          f"without FROM, numbers(), INSERT VALUES with expressions)",
+          flush=True)
 
 
 def load_hits(ch):
@@ -1298,6 +1441,7 @@ def main():
     check_k4(dev)
     check_k5(dev)
     check_k6(dev)
+    check_small_queries(ch)
 
     s, x = load_hits(ch)
     want = expected_answers(x)
@@ -1313,7 +1457,10 @@ def main():
     launch_rows = {k: [] for k in _native.LAUNCHES}
     k1_forms_seen = {"fused": 0, "mask_form": 0}
     k4_calls = []
+    memory = {"count": [], "grouping": []}
     k1_cuda, k4_cuda = agg_ops._masked_reduce_cuda, sort_ops._radix_sort_cuda
+    sort_rows, sort_rows_bytes = sort_ops.sort_rows, sort_ops.sort_rows_bytes
+    group_by_sort = agg_ops.group_by_sort
 
     def k1_watch(*a):
         k1_forms_seen["fused" if a[5] else "mask_form"] += 1
@@ -1322,14 +1469,46 @@ def main():
     def k4_watch(keys, bits, values):
         k4_calls.append((keys.shape[0], bits))
         return k4_cuda(keys, bits, values)
+
+    def sort_rows_watch(*a, **kw):
+        # the working set the governor held against the budget: the
+        # sort's (sort_rows_bytes) and what the caller holds beside it
+        counted = []
+
+        def bytes_watch(*b):
+            counted.append(sort_rows_bytes(*b))
+            return counted[-1]
+        sort_ops.sort_rows_bytes = bytes_watch
+        try:
+            return sort_rows(*a, **kw)
+        finally:
+            sort_ops.sort_rows_bytes = sort_rows_bytes
+            memory["count"].append(sum(counted) + kw.get("held_bytes", 0))
+
+    def group_watch(*a, **kw):
+        # the sort grouping's own peak above what was allocated at its
+        # start (the query's peak so far kept aside)
+        torch.cuda.synchronize()
+        peak_before = torch.cuda.max_memory_allocated()
+        at_start = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = group_by_sort(*a, **kw)
+        torch.cuda.synchronize()
+        memory["grouping"].append(
+            (peak_before, torch.cuda.max_memory_allocated() - at_start))
+        return out
     agg_ops._masked_reduce_cuda = k1_watch
     sort_ops._radix_sort_cuda = k4_watch
+    sort_ops.sort_rows = sort_rows_watch
+    agg_ops.group_by_sort = group_watch
     try:
         main_path(s, want, per_query, launches, launch_rows, k1_forms_seen,
-                  k4_calls)
+                  k4_calls, memory)
     finally:
         agg_ops._masked_reduce_cuda = k1_cuda
         sort_ops._radix_sort_cuda = k4_cuda
+        sort_ops.sort_rows = sort_rows
+        agg_ops.group_by_sort = group_by_sort
     time_queries(s)
 
     args = main_path_args(s)
@@ -1350,15 +1529,17 @@ def main():
 
 
 def main_path(s, want, per_query, launches, launch_rows, k1_forms_seen,
-              k4_calls):
+              k4_calls, memory):
     """Q1, Q2, Q2b, Q2m and Q3 once each, checked against numpy, with the
     launch counters set to 0 before each and read after; fails unless
-    each query reached the kernels of its path."""
+    each query reached the kernels of its path.  memory: the sort checks'
+    counts and the sort groupings' peaks, filled by main's watches."""
     from clickhouse_tpu_torch.ops import _native
-    from clickhouse_tpu_torch.ops.sort_ops import sort_rows_bytes
     for name, sql in QUERIES:
         k1_before = dict(k1_forms_seen)
         del k4_calls[:]
+        for v in memory.values():
+            del v[:]
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
@@ -1366,7 +1547,8 @@ def main_path(s, want, per_query, launches, launch_rows, k1_forms_seen,
         rows = s.execute(sql).rows()
         per_query[name] = dict(_native.LAUNCHES)
         rows_of = {k: list(v) for k, v in _native.LAUNCH_ROWS.items()}
-        extra = torch.cuda.max_memory_allocated() - base
+        extra = max([torch.cuda.max_memory_allocated()]
+                    + [p for p, _ in memory["grouping"]]) - base
         if rows != want[name]:
             fail(f"{name} returned {rows[:5]}..., numpy says "
                  f"{want[name][:5]}...")
@@ -1394,10 +1576,18 @@ def main_path(s, want, per_query, launches, launch_rows, k1_forms_seen,
                 fail(f"{name} launched K4 {per_query[name]['radix_sort_pairs']}"
                      f" times (want 1) and K6 "
                      f"{per_query[name]['segment_reduce']} (want {k6})")
-            est = sort_rows_bytes(k4_calls[0][0], [b for _, b in k4_calls])
-            print(f"{name}: K4 calls (rows, bits) {k4_calls}; sort_rows' "
-                  f"working set by sort_rows_bytes {est} bytes, the "
-                  f"query's peak {extra} bytes", flush=True)
+            if len(memory["count"]) != 1 or len(memory["grouping"]) != 1:
+                fail(f"{name} made {len(memory['count'])} sort checks and "
+                     f"{len(memory['grouping'])} sort groupings, not one")
+            count, own = memory["count"][0], memory["grouping"][0][1]
+            print(f"{name}: K4 calls (rows, bits) {k4_calls}; the "
+                  f"governor's count for the sort grouping (sort_rows_bytes "
+                  f"+ key arrays + K5's outputs and scratch) {count} bytes; "
+                  f"the query's peak {extra} bytes above what was allocated "
+                  f"before it (count - peak {count - extra}); the sort "
+                  f"grouping's own peak {own} bytes above what was "
+                  f"allocated at its start (count - own peak "
+                  f"{count - own})", flush=True)
             print(f"{name}: K4, K5{', K6' if name == 'Q2m' else ''} over "
                   f"{big['radix_sort_pairs']} rows; launches "
                   f"{per_query[name]}", flush=True)

@@ -163,6 +163,14 @@ def to_numpy_storage(t: torch.Tensor, np_dtype=None) -> np.ndarray:
 _U_MASK = {np.dtype("uint16"): 0xFFFF, np.dtype("uint32"): 0xFFFFFFFF}
 
 
+def u64_to_f64(t: torch.Tensor) -> torch.Tensor:
+    """UInt64 bits (an int64 tensor) -> float64 of the unsigned value,
+    rounded once, as numpy's astype: each 32-bit half is exact in float64,
+    so their sum is the only rounding."""
+    hi = ((t >> 32) & 0xFFFFFFFF).to(torch.float64)
+    return hi * 4294967296.0 + (t & 0xFFFFFFFF).to(torch.float64)
+
+
 def cast_tensor(t: torch.Tensor, src, dst) -> torch.Tensor:
     """numpy's ``astype(dst)`` on a tensor holding values of logical type
     `src`, under the unsigned rule (integers wrap, floats truncate toward
@@ -171,9 +179,9 @@ def cast_tensor(t: torch.Tensor, src, dst) -> torch.Tensor:
     want = torch_dtype_of(dst)
     if dst.kind == "f":
         if src == np.uint64 and t.dtype == torch.int64:
-            f = t.to(torch.float64)
-            return torch.where(t < 0, f + 18446744073709551616.0,
-                               f).to(want)
+            # via the correctly rounded float64: float32 has fewer than
+            # half of its bits, so rounding twice gives the same float32
+            return u64_to_f64(t).to(want)
         return t.to(want)
     if dst.kind == "b":
         return t != 0

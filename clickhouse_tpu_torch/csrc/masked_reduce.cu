@@ -66,7 +66,7 @@ struct ChttK1Term {
   const uint8_t* valid;
   u64 lo, span, xorv;
   int dtype, mode, neg, nan_pass;
-  int u64src;          // TM_F64 of UInt64 bits: add 2^64 to negative bits
+  int u64src;          // TM_F64 of UInt64 bits: convert as unsigned
   int vec, valid_vec;  // 16-byte loads allowed in the body
   int pad;
 };
@@ -171,8 +171,8 @@ __device__ __forceinline__ bool term_pass(const ChttK1Term& t, S v) {
     }
     if (t.mode == TM_K64) return in_range(t, (u64)x ^ t.xorv);
     if (t.mode == TM_F32) return in_range(t, cmp_key((double)(float)x));
-    double d = (double)x;
-    if (t.u64src && x < 0) d = d + 18446744073709551616.0;
+    // UInt64 bits convert as unsigned, rounded once
+    const double d = t.u64src ? __ull2double_rn((u64)x) : (double)x;
     return in_range(t, cmp_key(d));
   }
 }

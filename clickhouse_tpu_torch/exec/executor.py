@@ -13,9 +13,10 @@ reductions and counts hand the parts to K1, which reads each term's column
 in its narrow storage: ``SELECT count() FROM t WHERE x > c`` is one pass.
 The route is chosen by the predicate's form alone.
 
-Ported nodes: Scan, Filter, Project, Aggregate (GROUP BY (), dense and
-sort GROUP BY), Sort (top-k for a LIMIT up to 4,096 rows, else a full
-stable sort) and Limit.  Every other node, and every path of these nodes
+Ported nodes: OneRow (SELECT without FROM), Numbers (numbers()), Scan,
+Filter, Project, Aggregate (GROUP BY (), dense and sort GROUP BY), Sort
+(top-k for a LIMIT up to 4,096 rows, else a full stable sort; LIMIT 0
+launches nothing) and Limit.  Every other node, and every path of these nodes
 that is not ported, raises ``NotImplementedError_`` naming it.
 
 A GROUP BY whose groups may outnumber their slots (the sort grouping, at
@@ -245,23 +246,26 @@ def _agg_key_arrays(node: L.AggregateNode, child: ExecBlock,
     total = 1
     for (f, e), cv in zip(node.keys, key_cvs):
         cv = cv.broadcast(cap)
-        data = cv.data
-        if cv.validity is not None:
-            v = cv.validity.to(torch.bool)
-            data = torch.where(v, data, torch.zeros_like(data))
-            arrays.append(sort_ops.SortKey(v, bounds=(0, 1)))
-            dims.append((0, 2))
-            total *= 2
         b = None
         if cv.dtype.is_dictionary:
             d = cv.dictionary
             b = (0, max(len(d) - 1, 0)) if d is not None else None
         elif cv.dtype.np_dtype.kind in ("i", "u", "b"):
             b = ranges.infer_bounds(e, ctx.field_bounds)
+        fits32 = b is not None and -2**31 <= b[0] and b[1] < 2**31
+        # a column stored as int32 whose bounds fit is read as stored: no
+        # widened copy of it
+        data = cv.storage if fits32 and cv.storage.dtype == torch.int32 \
+            else cv.data
+        if cv.validity is not None:
+            v = cv.validity.to(torch.bool)
+            data = torch.where(v, data, torch.zeros_like(data))
+            arrays.append(sort_ops.SortKey(v, bounds=(0, 1)))
+            dims.append((0, 2))
+            total *= 2
         # narrow 64-bit keys to i32 when bounds prove they fit
-        if b is not None and not data.is_floating_point() \
-                and data.element_size() == 8 \
-                and -2**31 <= b[0] and b[1] < 2**31:
+        if fits32 and not data.is_floating_point() \
+                and data.element_size() == 8:
             data = data.to(torch.int32)
         unsigned = data.dtype == torch.int64 and not cv.dtype.is_dictionary \
             and dt.remove_nullable(cv.dtype).np_dtype == np.uint64
@@ -510,6 +514,14 @@ def _sort_block(node: L.SortNode, child: ExecBlock, ctx: ExecContext
             and node.limit_hint <= s.limit_pushdown_threshold
             and node.limit_hint < cap):
         k = int(node.limit_hint)
+        out_cap = pad_to(k)
+        if k == 0:
+            # LIMIT 0: no row, and no kernel
+            cols = {fid: _gather_colval(cv, torch.zeros(
+                out_cap, dtype=torch.int64, device=ctx.device), cap)
+                for fid, cv in child.cols.items()}
+            return ExecBlock(cols, agg_ops.RowMask.of(torch.zeros(
+                out_cap, dtype=torch.bool, device=ctx.device)), out_cap)
         it0 = node.items[0]
         cv0 = evaluate(it0.expr, child.env()).broadcast(cap)
         if k > sort_ops.MAX_TOPK:
@@ -525,7 +537,6 @@ def _sort_block(node: L.SortNode, child: ExecBlock, ctx: ExecContext
             else:
                 idx = sort_ops.topk_permutation(
                     _token_for_sort(cv0, it0, cap), child.valid, k)
-        out_cap = pad_to(k)
         idx_full = torch.zeros((out_cap,), dtype=torch.int64,
                                device=ctx.device)
         idx_full[:k] = idx
@@ -554,7 +565,30 @@ def _exec_limit(node: L.LimitNode, ctx: ExecContext) -> ExecBlock:
     return ExecBlock(child.cols, agg_ops.RowMask.of(keep), child.capacity)
 
 
+def _exec_onerow(node: L.OneRowNode, ctx: ExecContext) -> ExecBlock:
+    """SELECT without FROM: one row of a zero column."""
+    cap = 1024
+    f = node.schema[0]
+    cols = {f.id: ColVal(f.dtype, torch.zeros(
+        cap, dtype=f.dtype.torch_dtype, device=ctx.device))}
+    return ExecBlock(cols, agg_ops.RowMask(cap, ctx.device, 1), cap)
+
+
+def _exec_numbers(node: L.NumbersNode, ctx: ExecContext) -> ExecBlock:
+    """numbers(start, count): UInt64 as int64 bits, its bounds proven."""
+    cap = pad_to(node.count)
+    f = node.schema[0]
+    start = node.start - (1 << 64) if node.start >= 1 << 63 else node.start
+    data = _arange(cap, ctx.device) + start
+    b = (node.start, node.start + max(node.count - 1, 0))
+    ctx.field_bounds[f.id] = b
+    return ExecBlock({f.id: ColVal(f.dtype, data, bounds=b)},
+                     agg_ops.RowMask(cap, ctx.device, node.count), cap)
+
+
 _DISPATCH: Dict[type, Callable] = {
+    L.OneRowNode: _exec_onerow,
+    L.NumbersNode: _exec_numbers,
     L.ScanNode: _exec_scan,
     L.FilterNode: _exec_filter,
     L.ProjectNode: _exec_project,

@@ -87,12 +87,6 @@ def compose_row_mask(row_valid, args: List[ColVal],
     return row_valid & m
 
 
-def _u64_to_f64(v: torch.Tensor) -> torch.Tensor:
-    """UInt64 bits (int64 tensor) -> float64 of the unsigned value."""
-    f = v.to(torch.float64)
-    return torch.where(v < 0, f + 18446744073709551616.0, f)
-
-
 class AggregateFunction:
     """Base class: update (rows -> per-group states) and finalize."""
 
@@ -259,13 +253,13 @@ class AvgAgg(AggregateFunction):
 
     def _states(self, r):
         s, c = r
-        s = _u64_to_f64(s) if self._unsigned() and not s.is_floating_point() \
+        s = dt.u64_to_f64(s) if self._unsigned() and not s.is_floating_point() \
             else s.to(torch.float64)
         return [s, c]
 
     def finalize(self, states):
         s, c = states
-        s = _u64_to_f64(s) if self._unsigned() and not s.is_floating_point() \
+        s = dt.u64_to_f64(s) if self._unsigned() and not s.is_floating_point() \
             else s.to(torch.float64)
         safe = torch.clamp(c, min=1)
         out = s / safe.to(torch.float64)

@@ -204,7 +204,7 @@ def library() -> ctypes.CDLL:
             lib.chtt_radix_tile_rows.argtypes = [I]
             lib.chtt_radix_tile_rows.restype = I
             lib.chtt_segment_bounds.argtypes = [P, P, I, LL, P, I, P, P, P,
-                                                P, P, I, P]
+                                                P, P, LL, P]
             lib.chtt_segment_bounds.restype = I
             lib.chtt_segment_tile_rows.argtypes = []
             lib.chtt_segment_tile_rows.restype = I

@@ -532,22 +532,32 @@ def group_by_sort(keys: Sequence[sort_ops.SortKey],
     rows      -- the rows to group (a RowMask, or a bool mask); the others
                  belong to no group.  Where they are the first n rows, only
                  those are sorted, with no invalid flag
-    max_bytes -- sort_ops.sort_rows' limit on its working set
+    max_bytes -- the limit on the working set: the sort's
+                 (sort_ops.sort_rows_bytes), the key arrays, and K5's
+                 outputs and scratch (scan_ops.segment_bounds_bytes)
     """
     if isinstance(rows, torch.Tensor):
         rows = RowMask.of(rows.to(torch.bool))
     cap = rows.capacity
     n = min(rows.n_rows, cap)
-    if rows.mask is None and not rows.terms and n > 0:
+    scan_rows = rows.mask is None and not rows.terms and n > 0
+    sorted_rows = n if scan_rows else cap
+    held = scan_ops.segment_bounds_bytes(sorted_rows, num_groups_cap,
+                                         len(keys) + 1) \
+        + sum(sorted_rows * k.data.element_size() for k in keys
+              if k.data.dim())
+    if scan_rows:
         # a scan's rows: the first n, all valid
         head = [dataclasses.replace(k, data=k.data[:n])
                 if k.data.dim() else k for k in keys]
         perm, sorted_keys = sort_ops.sort_rows(head, None,
-                                               max_bytes=max_bytes)
+                                               max_bytes=max_bytes,
+                                               held_bytes=held)
         n_valid = torch.full((), n, dtype=torch.int64, device=rows.device)
     else:
         perm, sorted_keys = sort_ops.sort_rows(keys, rows.tensor(),
-                                               max_bytes=max_bytes)
+                                               max_bytes=max_bytes,
+                                               held_bytes=held)
         n_valid = rows.count()
     gid, num_groups, starts, ends = scan_ops.segment_bounds(
         sorted_keys, n_valid, num_groups_cap)

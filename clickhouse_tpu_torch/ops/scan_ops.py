@@ -8,7 +8,8 @@ a sort of each group's first position.  The card scatters well, so:
 
   * K5 ``segment_bounds`` (csrc/segment_bounds.cu) finds the boundaries of
     the sorted packed keys, gives each sorted row its dense group id and
-    writes each group's [start, end) where its boundary is found;
+    writes each group's [start, end) where its boundary is found, in one
+    pass with a decoupled look-back across tiles;
   * K6 ``segment_reduce_many`` (csrc/segment_reduce.cu) reduces each
     group directly, every reduction of a GROUP BY in one launch, reading
     each row's values and masks through the permutation (the reference's
@@ -35,8 +36,9 @@ from . import _native
 from .hash_ops import _f32_from_token, f64_from_token
 from .sort_ops import SortKey, order_value
 
-__all__ = ["segment_bounds", "segment_reduce", "segment_reduce_many",
-           "COUNTED_OPS", "Spec"]
+__all__ = ["segment_bounds", "segment_bounds_bytes", "k5_scratch_bytes",
+           "segment_reduce", "segment_reduce_many", "COUNTED_OPS", "Spec",
+           "K5_TILE_ROWS"]
 
 # one reduction of segment_reduce_many: (op, data, mask, unsigned)
 Spec = Tuple[str, Optional[torch.Tensor], Optional[torch.Tensor], bool]
@@ -51,6 +53,7 @@ _BITOPS = ("bor", "band", "bxor")
 # bxor give their identity, 0, and keep no count)
 COUNTED_OPS = ("min", "max", "any", "band", "count")
 _MAX_KEYS = 4                      # key arrays K5 compares (kMaxKeys)
+K5_TILE_ROWS = 4096                # rows of a K5 tile (kTile)
 _SIGN = -(1 << 63)                 # int64 bits of 1 << 63
 _I64_MAX = (1 << 63) - 1
 # each op's identity, as int64 bits of the kernel's u64 state
@@ -102,27 +105,44 @@ def segment_bounds(keys: Sequence[torch.Tensor], n_valid: torch.Tensor,
     return _segment_bounds_cuda(keys, n_valid, cap_g)
 
 
+def k5_scratch_bytes(n: int) -> int:
+    """Device bytes of K5's scratch for n rows (csrc/segment_bounds.cu): a
+    look-back status word (8 bytes) a tile of K5_TILE_ROWS rows, counting
+    up to 3 rows more for a key array's misaligned head, and the tile
+    counter."""
+    return (-(-(n + 3) // K5_TILE_ROWS) + 1) * 8
+
+
+def segment_bounds_bytes(n: int, cap_g: int, n_keys: int) -> int:
+    """Device bytes a segment_bounds call over n rows, cap_g slots and
+    n_keys key arrays allocates: the group ids (4 bytes a row), starts and
+    ends (16 bytes a slot), num_groups and K5's scratch; with more than
+    four key arrays, also the group ids that fold the arrays past the
+    third."""
+    fold = 4 * n + k5_scratch_bytes(n) + 24 if n_keys > _MAX_KEYS else 0
+    return 4 * n + 16 * cap_g + 8 + k5_scratch_bytes(n) + fold
+
+
 def _segment_bounds_cuda(keys, n_valid, cap_g):
+    """Launch K5: one memset of its look-back words, one kernel."""
     n, dev = keys[0].shape[0], keys[0].device
     nv = n_valid.to(device=dev, dtype=torch.int64).reshape(()).contiguous()
     gid = torch.empty(n, dtype=torch.int32, device=dev)
-    num_groups = torch.zeros((), dtype=torch.int64, device=dev)
     if n == 0:
         z = torch.zeros(cap_g, dtype=torch.int64, device=dev)
-        return gid, num_groups, z, z.clone()
+        return gid, torch.zeros((), dtype=torch.int64, device=dev), z, \
+            z.clone()
+    num_groups = torch.empty((), dtype=torch.int64, device=dev)
     starts = torch.empty(cap_g, dtype=torch.int64, device=dev)
     ends = torch.empty(cap_g, dtype=torch.int64, device=dev)
     keys = [k.contiguous() for k in keys]
-    lib = _native.library()
-    tiles = -(-n // lib.chtt_segment_tile_rows())
-    tile_count = torch.empty(tiles, dtype=torch.int32, device=dev)
+    scratch = torch.empty(k5_scratch_bytes(n), dtype=torch.uint8, device=dev)
     ptrs = (ctypes.c_void_p * len(keys))(*[k.data_ptr() for k in keys])
     widths = (ctypes.c_int * len(keys))(*[k.element_size() for k in keys])
-    rc = lib.chtt_segment_bounds(
+    rc = _native.library().chtt_segment_bounds(
         ptrs, widths, len(keys), n, nv.data_ptr(), cap_g, gid.data_ptr(),
         num_groups.data_ptr(), starts.data_ptr(), ends.data_ptr(),
-        tile_count.data_ptr(), min(-(-cap_g // 256), 4096),
-        _native.stream_ptr(dev))
+        scratch.data_ptr(), scratch.numel(), _native.stream_ptr(dev))
     _native.check(rc, "segment_bounds")
     _native.count_launch("segment_bounds", n)
     return gid, num_groups, starts, ends

@@ -25,7 +25,8 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
-from ..core.errors import MemoryLimitExceeded, NotImplementedError_
+from ..core.errors import (ExecutionError, MemoryLimitExceeded,
+                           NotImplementedError_)
 from . import _native
 
 __all__ = ["order_token", "sort_permutation", "topk_permutation",
@@ -207,19 +208,35 @@ def _pack_groups(fields: List[_Field]) -> List[List[_Field]]:
     return groups
 
 
+def _lo_value(f: _Field) -> int:
+    """The field's lower bound as a value of its key (not an order
+    value)."""
+    x = f.key.data
+    signed = not (f.key.unsigned or x.dtype in (torch.bool, torch.uint8)
+                  or x.is_floating_point())
+    return f.lo - (1 << 63) if signed else f.lo
+
+
+def _narrow_field(f: _Field, dtype: torch.dtype) -> bool:
+    """A narrow integer in a range of < 2^31 values: its packed value is
+    x - lo in 32 bits."""
+    return dtype == torch.int32 and f.key.data.dtype in _NARROW_INTS \
+        and -(1 << 31) <= _lo_value(f) < 1 << 31
+
+
+def _key_dtype(width: int) -> torch.dtype:
+    """A packed key's tensor type: int32 bits up to 31 bits, else int64."""
+    return torch.int32 if width <= 31 else torch.int64
+
+
 def _field_value(f: _Field, valid: Optional[torch.Tensor], n: int, dev,
                  dtype: torch.dtype) -> torch.Tensor:
     """The field's packed value a row (0 on invalid rows), as `dtype`."""
     if f.key is None:
         return (~valid).to(dtype)
     x = f.key.data
-    signed = not (f.key.unsigned or x.dtype in (torch.bool, torch.uint8)
-                  or x.is_floating_point())
-    lo_value = f.lo - (1 << 63) if signed else f.lo
-    if dtype == torch.int32 and x.dtype in _NARROW_INTS \
-            and -(1 << 31) <= lo_value < 1 << 31:
-        # a narrow integer in a range of < 2^31 values: x - lo in 32 bits
-        v = x.to(torch.int32) - lo_value
+    if _narrow_field(f, dtype):
+        v = x.to(torch.int32) - _lo_value(f)
     else:
         lo = f.lo - (1 << 64) if f.lo >= 1 << 63 else f.lo
         v = (order_value(f.key) - lo).to(dtype)
@@ -233,7 +250,7 @@ def _group_key(group: List[_Field], valid, n: int, dev) -> Tuple[
     """One packed key (int32 bits for up to 32 bits, else int64) and its
     width: the group's fields side by side, the first most significant."""
     width = sum(f.width for f in group)
-    dtype = torch.int32 if width <= 31 else torch.int64
+    dtype = _key_dtype(width)
     key = None
     shift = width
     for f in group:
@@ -251,13 +268,39 @@ def _group_key(group: List[_Field], valid, n: int, dev) -> Tuple[
     return key.contiguous(), width
 
 
-def sort_rows_bytes(n: int, widths: Sequence[int]) -> int:
+def _pack_bytes(group: List[_Field]) -> int:
+    """Bytes a row that building the group's packed key takes beside the
+    packed keys: the widest field's value (4 or 8 bytes) and its
+    _field_value temporaries (two int32 for a narrow integer, two int64
+    for another integer, four int64 and a bool for a float's token, a bool
+    for the invalid flag)."""
+    dtype = _key_dtype(sum(f.width for f in group))
+    b = 4 if dtype == torch.int32 else 8
+    most = 0
+    for f in group:
+        if f.width == 0:
+            continue
+        if f.key is None:
+            temp = 1
+        elif _narrow_field(f, dtype):
+            temp = 8
+        elif f.key.data.is_floating_point():
+            temp = 33
+        else:
+            temp = 16
+        most = max(most, b + temp)
+    return most
+
+
+def sort_rows_bytes(n: int, widths: Sequence[int], pack: int = 0) -> int:
     """Device bytes sort_rows holds at its peak for n rows whose packed
     keys are `widths` bits wide (least significant first): every packed
-    key (4 bytes a row up to 32 bits, else 8), and during one K4 call its
-    key and row id buffers (two of each above one pass), its scratch
-    (k4_scratch_bytes) and, after the first call, its input key gathered
-    into the order so far and the row ids it is given."""
+    key (4 bytes a row up to 32 bits, else 8), and the larger of what
+    building one of them takes beside them (`pack` bytes a row,
+    _pack_bytes) and what one K4 call takes: its key and row id buffers
+    (two of each above one pass), its scratch (k4_scratch_bytes) and,
+    after the first call, its input key gathered into the order so far
+    and the row ids it is given."""
     k4 = 0
     total = 0
     for i, w in enumerate(widths):
@@ -266,11 +309,12 @@ def sort_rows_bytes(n: int, widths: Sequence[int]) -> int:
         bufs = 2 if sort_pass_plan(w)[0] > 1 else 1
         k4 = max(k4, n * (bufs * (b + 4) + (b + 4 if i else 0))
                  + k4_scratch_bytes(n, b, w))
-    return n * total + k4
+    return n * total + max(k4, n * pack)
 
 
 def sort_rows(keys: Sequence[SortKey], row_valid: Optional[torch.Tensor], *,
-              want_keys: bool = True, max_bytes: Optional[int] = None
+              want_keys: bool = True, max_bytes: Optional[int] = None,
+              held_bytes: int = 0
               ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
     """Stable sort of the rows by (invalid, keys..., row id), with K4.
 
@@ -280,7 +324,8 @@ def sort_rows(keys: Sequence[SortKey], row_valid: Optional[torch.Tensor], *,
     valid rows have equal packed keys exactly when every key is equal).
     row_valid None: every row is valid.  Invalid rows sort last.
     max_bytes: raise MemoryLimitExceeded, before allocating, where the
-    sort's working set (sort_rows_bytes) is larger.
+    sort's working set (sort_rows_bytes) and the caller's `held_bytes`
+    (what it holds or will allocate beside the sort) are larger.
     """
     first = next(k.data for k in keys if k.data.dim() == 1)
     n, dev = first.shape[0], first.device
@@ -298,7 +343,9 @@ def sort_rows(keys: Sequence[SortKey], row_valid: Optional[torch.Tensor], *,
         fields.append(_Field(k, lo, (hi - lo).bit_length()))
     groups = _pack_groups(fields)
     if max_bytes is not None:
-        need = sort_rows_bytes(n, [sum(f.width for f in g) for g in groups])
+        need = sort_rows_bytes(n, [sum(f.width for f in g) for g in groups],
+                               max(_pack_bytes(g) for g in groups)) \
+            + held_bytes
         if need > max_bytes:
             raise MemoryLimitExceeded(
                 f"sorting {n} rows would need {need} bytes of device "
@@ -466,6 +513,8 @@ def topk_smallest(token: torch.Tensor, valid: Optional[torch.Tensor],
     kernel.
     """
     _check_k(k)
+    if k == 0:
+        return torch.empty(0, dtype=torch.int64, device=token.device)
     if token.device.type == "cpu":
         return _topk_smallest_plain(token, valid, k)
     return _topk_cuda(token, torch.int64, valid, k)
@@ -482,14 +531,16 @@ def topk_smallest32(key32: torch.Tensor, valid: Optional[torch.Tensor],
     kernel.
     """
     _check_k(k)
+    if k == 0:
+        return torch.empty(0, dtype=torch.int64, device=key32.device)
     if key32.device.type == "cpu":
         return _topk_smallest32_plain(key32, valid, k)
     return _topk_cuda(key32, torch.int32, valid, k)
 
 
 def _check_k(k):
-    if k < 1:
-        raise ValueError(f"topk_smallest: k={k}")
+    if k < 0:
+        raise ExecutionError(f"topk_smallest: k={k} (a top-k needs k >= 0)")
     if k > MAX_TOPK:
         raise NotImplementedError_(
             f"large-k top-k (k={k} > {MAX_TOPK}) is not ported to the CUDA "

@@ -17,15 +17,16 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (CMPS, K4_ROWS, SORT_KEY_CHAINS, grouped_rows,
-                        k6_many_specs, make_term, sort_key_columns,
-                        term_cases)
+from chip_smoke import (CMPS, K4_ROWS, K5_CASES, SORT_KEY_CHAINS, U64_EDGE,
+                        grouped_rows, k5_args, k6_many_specs, make_term,
+                        sort_key_columns, term_cases)
 from clickhouse_tpu_torch.ops import _native
 from clickhouse_tpu_torch.ops.agg_ops import (_masked_reduce_plain,
                                               masked_reduce)
 from clickhouse_tpu_torch.ops.mxu_segsum import (_dense_group_reduce_plain,
                                                  dense_group_reduce)
-from clickhouse_tpu_torch.ops.scan_ops import (_segment_bounds_plain,
+from clickhouse_tpu_torch.ops.scan_ops import (K5_TILE_ROWS,
+                                               _segment_bounds_plain,
                                                _segment_reduce_plain,
                                                segment_bounds, segment_reduce,
                                                segment_reduce_many)
@@ -222,7 +223,7 @@ def test_topk_smallest_matches_plain(dev, n, k, order):
         assert torch.equal(got.cpu()[:m], want[:m])
 
 
-@pytest.mark.parametrize("case", range(13))
+@pytest.mark.parametrize("case", range(14))
 def test_masked_reduce_terms_match_plain(dev, case):
     """The term entry, exact against its plain version: every CMP and
     literal, a row bound that is not a multiple of 16, reductions of a
@@ -261,6 +262,28 @@ def test_masked_reduce_terms_match_plain(dev, case):
                 got = masked_reduce("sum", fv[off:], None, terms=[tv])
                 _same(got, _masked_reduce_plain("sum", fv[off:], None,
                                                 False, None, [tv]))
+
+
+def test_masked_reduce_uint64_term_at_the_f1_edge(dev):
+    """A UInt64 column at and above 2^63 against float constants one ulp
+    from its values' float64: the term converts each value as unsigned,
+    rounded once, as the plain version (numpy's astype) does."""
+    n = 4003
+    values = np.resize(np.array(U64_EDGE, dtype=np.uint64), n)
+    for cmp in CMPS:
+        for lit in (9544035305396816000.0, 9544035305396814000.0,
+                    9223372036854777856.0, float(1 << 63), 2.0 ** 64, 1.0):
+            t = make_term(values, "UInt64", cmp, lit, dev)
+            for n_rows in (n, n - 3):
+                got = masked_reduce("sum", None, None, n_rows=n_rows,
+                                    terms=[t])
+                _same(got, _masked_reduce_plain("sum", None, None, False,
+                                                n_rows, [t]))
+    t = make_term(values, "UInt64", "greaterOrEquals",
+                  9544035305396816000.0, dev)
+    # two of each four rows: 9544035305396814861 and 2^64 - 1
+    assert int(masked_reduce("sum", None, None, n_rows=n,
+                             terms=[t])) == n // 4 * 2 + (n % 4 > 0)
 
 
 def test_masked_reduce_two_terms_mask_and_nan_ops(dev):
@@ -441,6 +464,31 @@ def test_segment_bounds_matches_plain(dev, case):
     want = _segment_bounds_plain(kd, nvt, cap_g)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
+
+
+@pytest.mark.parametrize("case", K5_CASES)
+def test_segment_bounds_look_back_cases_match_plain(dev, case):
+    """K5's one pass against its plain version where the look-back and the
+    tiles' edges matter (chip_smoke.k5_case): one row, part of a tile, a
+    tile multiple and one row, a group over 100 tiles, a boundary at every
+    tile's first row, u64 keys, two to five key arrays, no valid row, and
+    key arrays that do not start on a 16-byte boundary."""
+    kd, nvt, cap_g = k5_args(case, np.random.default_rng(len(case)), dev)
+    got = segment_bounds(kd, nvt, cap_g)
+    want = _segment_bounds_plain(kd, nvt, cap_g)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+
+
+def test_segment_bounds_is_one_launch(dev):
+    """One K5 call counts one launch; the wrapper's tile rows are the
+    kernel's."""
+    assert _native.library().chtt_segment_tile_rows() == K5_TILE_ROWS
+    kd, nvt, cap_g = k5_args("invalid_rows", np.random.default_rng(3), dev)
+    _native.reset_launches()
+    segment_bounds(kd, nvt, cap_g)
+    torch.cuda.synchronize()
+    assert _native.LAUNCHES["segment_bounds"] == 1
 
 
 def _check_group_values(got, want, op, data, mask, perm, gid, cap_g):

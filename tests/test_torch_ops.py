@@ -191,8 +191,8 @@ def _k1_term_rows(kt, storage: np.ndarray) -> np.ndarray:
         x = storage.astype(np.int64)
         d = x.astype(np.float32).astype(np.float64) \
             if kt.mode == tagg._TM_F32 else x.astype(np.float64)
-        if kt.u64src:
-            d = np.where(x < 0, d + 18446744073709551616.0, d)
+        if kt.u64src:                  # __ull2double_rn: rounded once
+            d = x.view(U).astype(np.float64)
     nan = np.isnan(d)
     b = np.where(d == 0, 0.0, d).view(U)
     key = np.where(b >> U(63), ~b, b | U(1 << 63))
@@ -694,6 +694,28 @@ def test_sort_rows_bytes_counts_k4_scratch():
     assert tsort.k4_scratch_bytes(n, 8, 64) == \
         (8 * 256 + 8) * 4 + -(-n // 4096) * 256 * 8
     assert tsort.sort_rows_bytes(n, [64, 5]) == n * 12 + max(u64, u32)
+
+
+def test_sort_grouping_counts_packing_and_k5():
+    """The sort grouping's working set counts the packing of its keys
+    beside K4 (where it is the larger), and K5's group ids, slots and
+    look-back scratch: a status word a 4,096-row tile, with up to three
+    rows of a misaligned head, and the tile counter; five key arrays fold
+    the tail into group ids of their own."""
+    n, cap_g = 100_000_000, 2_097_152
+    assert tscan.k5_scratch_bytes(n) == (-(-(n + 3) // 4096) + 1) * 8
+    assert tscan.k5_scratch_bytes(4093) == 16
+    assert tscan.k5_scratch_bytes(4094) == 24
+    k5 = 4 * n + 16 * cap_g + 8 + tscan.k5_scratch_bytes(n)
+    assert tscan.segment_bounds_bytes(n, cap_g, 2) == k5
+    assert tscan.segment_bounds_bytes(n, cap_g, 5) == \
+        k5 + 4 * n + tscan.k5_scratch_bytes(n) + 24
+    # one packed u32 key whose packing (28 bytes a row) outweighs K4's 16
+    assert tsort.sort_rows_bytes(n, [20], 28) == n * 4 + n * 28
+    key = tsort.SortKey(torch.zeros(4, dtype=torch.float64))
+    assert tsort._pack_bytes([tsort._Field(key, 0, 20)]) == 4 + 33
+    narrow = tsort.SortKey(torch.zeros(4, dtype=torch.int32), bounds=(0, 9))
+    assert tsort._pack_bytes([tsort._Field(narrow, 1 << 63, 4)]) == 4 + 8
 
 
 # -- K6 with several specs a launch -------------------------------------------

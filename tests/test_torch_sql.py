@@ -35,6 +35,7 @@ T_TYPES = {"a": "Int32", "b": "UInt8", "u": "UInt64", "n": "Nullable(Int64)",
 N_W = 3000
 W_TYPES = {"f1": "Float64", "f2": "Float64", "f3": "Float64", "u1": "UInt64",
            "u2": "UInt64", "i1": "Int64", "v": "Int64"}
+U64_EDGE = [9544035305396814861, 1, (1 << 63) + 1025, (1 << 64) - 1]
 S_TYPES = {"k": "String", "a": "Int32", "n": "Nullable(String)",
            "f": "Float64", "d": "Date", "i16": "Int16", "u32": "UInt32"}
 
@@ -92,6 +93,11 @@ def sessions():
                "u1 UInt64, u2 UInt64, i1 Int64, v Int64)")
     js.insert_pydict("w", {**{k: c[pick] for k, c in wide.items()},
                            "v": np.arange(N_W, dtype=np.int64)})
+    # u64edge: UInt64 values whose float64 a second rounding would change
+    js.execute("CREATE TABLE u64edge (u UInt64)")
+    js.insert_pydict("u64edge", {"u": np.array(U64_EDGE, dtype=np.uint64)})
+    table_from_numpy(ts, "u64edge", _reference_columns(js, "u64edge"),
+                     {"u": "UInt64"})
     table_from_numpy(ts, "hits", _reference_columns(js, "hits"),
                      {"x": "Int64"})
     table_from_numpy(ts, "w", _reference_columns(js, "w"), W_TYPES)
@@ -476,10 +482,15 @@ def test_group_by_six_wide_keys_matches_reference(sessions, where,
 
 def test_sort_working_set_is_held_to_the_budget(sessions):
     """The governor's estimate is the reference's (scan bytes and the
-    largest intermediate); the sort's working set is held against what it
-    leaves of the budget where the sort runs: Q2b at 3 MiB raises
+    largest intermediate); the sort grouping's working set is held against
+    what it leaves of the budget where the sort runs: Q2b at 3 MiB raises
     MemoryLimitExceeded naming the sort, while the dense GROUP BY of Q2 at
-    the same budget, and Q2b at 4 MiB, answer as the reference does."""
+    the same budget, and Q2b at 7 MiB, answer as the reference does.  The
+    working set of Q2b's 100,000 rows is 4,420,712 bytes beside the
+    estimate's 2,000,000: the packed key, K4's buffers and scratch, the
+    key array, and K5's group ids (4 bytes a row) and 100,352 slots (16
+    bytes each), so Q2b needs 7 MiB where the count without the key array
+    and K5 let it answer at 4 MiB."""
     js, ts = sessions
     q2b = Q2B + ", max_device_memory_bytes = {}"
     q2 = ("SELECT x % 1024 AS k, count() AS c, sum(x) FROM hits GROUP BY k "
@@ -487,7 +498,9 @@ def test_sort_working_set_is_held_to_the_budget(sessions):
     with pytest.raises(MemoryLimitExceeded, match="sorting 100000 rows"):
         ts.execute(q2b.format(3 << 20))
     _both(sessions, q2.format(3 << 20))
-    _both(sessions, q2b.format(4 << 20))
+    with pytest.raises(MemoryLimitExceeded, match="sorting 100000 rows"):
+        ts.execute(q2b.format(6 << 20))
+    _both(sessions, q2b.format(7 << 20))
 
 
 @pytest.mark.parametrize("sql", [
@@ -552,3 +565,86 @@ def test_connect_without_gpu_raises():
         pytest.skip("a GPU is present: connect() succeeds")
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tch.connect()
+
+
+@pytest.mark.parametrize("sql", [
+    "SELECT toFloat64(u) FROM u64edge",
+    "SELECT count() FROM u64edge WHERE u >= 9544035305396816000.0",
+    "SELECT count() FROM u64edge WHERE u + 0.0 >= 9544035305396816000.0",
+    "SELECT count() FROM u64edge WHERE u < 9544035305396816000.0",
+    "SELECT toFloat32(u) FROM u64edge",
+], ids=["toFloat64", "filter-ge", "sum-with-float", "filter-lt",
+        "toFloat32"])
+def test_uint64_to_float_rounds_once(sessions, sql):
+    """UInt64 values at and above 2^63 convert to float64 as numpy does,
+    rounded once (9544035305396814861 and 2^63 + 1025 are one ulp off when
+    converted as signed and then moved by 2^64), so filters against a
+    float constant count the reference's rows; the doubles are the same
+    bits."""
+    js, ts = sessions
+    want, got = js.execute(sql).rows(), ts.execute(sql).rows()
+    assert got == want, (sql, got, want)
+    assert all(type(g) is type(w) for gr, wr in zip(got, want)
+               for g, w in zip(gr, wr))
+
+
+@pytest.mark.parametrize("sql,topk", [
+    ("SELECT x FROM hits ORDER BY x LIMIT 0", []),
+    ("SELECT x FROM hits ORDER BY x DESC LIMIT 0 OFFSET 3",
+     ["topk_smallest32"]),
+], ids=["limit-0", "desc-limit-0-offset"])
+def test_order_by_limit_0_returns_no_row(sessions, sql, topk, monkeypatch):
+    """ORDER BY one key LIMIT 0 gives no row, as the reference does, and
+    reaches no top-k or sort; with OFFSET 3 the sort keeps its top 3 (the
+    limit hint is offset + limit) and the LIMIT drops them."""
+    from clickhouse_tpu_torch.ops import sort_ops
+    calls = []
+    for name in ("topk_smallest", "topk_smallest32", "radix_sort_pairs"):
+        fn = getattr(sort_ops, name)
+
+        def spy(*args, _fn=fn, _name=name, **kw):
+            calls.append(_name)
+            return _fn(*args, **kw)
+        monkeypatch.setattr(sort_ops, name, spy)
+    assert _both(sessions, sql) == []
+    assert calls == topk
+
+
+def test_insert_values_with_expressions(sessions):
+    """INSERT ... VALUES whose values are expressions runs each one as a
+    SELECT without FROM and inserts the row the reference inserts."""
+    js, ts = sessions
+    for s in (js, ts):
+        s.execute("CREATE TABLE ins (d Date, a Int64, b Int32, c String)")
+        s.execute("INSERT INTO ins VALUES (toDate('2020-01-03'), 1+2, 4, 'c')")
+        s.execute("INSERT INTO ins VALUES (toDate('2021-05-06'), -7, 2*3, "
+                  "'dd')")
+    rows = _both(sessions, "SELECT d, a, b, c FROM ins ORDER BY a")
+    assert len(rows) == 2 and rows[1][1] == 3
+    for s in (js, ts):
+        s.execute("DROP TABLE ins")
+
+
+@pytest.mark.parametrize("sql", [
+    "SELECT 1",
+    "SELECT 1 + 2 AS a, 'x'",
+    "SELECT count() FROM numbers(10)",
+    "SELECT number % 7 AS k, count(), sum(number) FROM numbers(1000) "
+    "GROUP BY k ORDER BY k",
+    "SELECT number FROM numbers(5, 3)",
+], ids=["select-1", "select-expr-and-string", "numbers-count",
+        "numbers-group-by", "numbers-start-count"])
+def test_select_without_from_and_numbers(sessions, sql, monkeypatch):
+    """SELECT without FROM (one row) and numbers() give the reference's
+    rows; numbers()' bounds are proven, so a GROUP BY of `number % 7`
+    takes the dense grouping as in the reference."""
+    from clickhouse_tpu_torch.ops import agg_ops
+    dense = []
+    fn = agg_ops.group_by_dense
+
+    def spy(*args, **kw):
+        dense.append(args[1])
+        return fn(*args, **kw)
+    monkeypatch.setattr(agg_ops, "group_by_dense", spy)
+    assert _both(sessions, sql)
+    assert bool(dense) == ("GROUP BY" in sql)
