@@ -7,7 +7,7 @@
 Needs one NVIDIA Hopper card, nvcc and PyTorch built for CUDA; exits
 non-zero without them.  Phases, each of which fails the run:
 
-  1. build the six hand-written kernels (csrc/*.cu) with nvcc for sm_90a,
+  1. build the nine hand-written kernels (csrc/*.cu) with nvcc for sm_90a,
      one nvcc a source, all started together;
   2. hold each kernel against its plain PyTorch version on the card: edge
      cases (K1 with and without filter terms over every storage type and
@@ -24,12 +24,23 @@ non-zero without them.  Phases, each of which fails the run:
      tile's first row, more groups than slots, no valid row, u64 keys, two
      to five key arrays and misaligned views; K6 for every op, with masks,
      empty and fully masked groups, one group holding 40 % of the rows,
-     and several ops over two columns and two masks in one launch);
-     integer results must agree exactly, K1's and K2's float sums within
-     rtol 1e-12, K6's within n_g * eps * sum(|x|) a group of n_g rows (its
-     atomics add a group's parts in a varying order); then SELECT without
-     FROM, numbers() and INSERT ... VALUES with expressions through
-     connect(device="cuda"), against numpy;
+     and several ops over two columns and two masks in one launch; K7
+     over K7_CASES: unique keys, holes, probe keys outside the range,
+     invalid rows, a Nullable payload, sentinels at both int32 edges, key
+     words, a presence table, int8/int16/int64 and UInt64 keys, views one
+     row in; K8 over K8_CASES, three runs each: duplicates (the smallest
+     row id wins), one to four key words, float keys with -0.0/+0.0/NaN, a
+     table of one key, nothing matching, ten words, views one row in; K9
+     over K9_CASES: no match, LEFT, ANY,
+     one probe row holding 90 % of the output, a count beyond the
+     capacity, no probe row, 20M probe rows); integer results must agree
+     exactly, K1's and K2's float sums within rtol 1e-12, K6's within
+     n_g * eps * sum(|x|) a group of n_g rows (its atomics add a group's
+     parts in a varying order); then SELECT without FROM, numbers() and
+     INSERT ... VALUES with expressions through connect(device="cuda"),
+     against numpy, and 17 small join queries (every ported form) on the
+     card against the CPU, and a 1:N join past max_joined_rows raising
+     CapacityError;
   3. drive the main path through the public API: connect(device="cuda"),
      CREATE TABLE hits (x Int64), insert_pydict 100M rows of
      (arange * 2654435761) % 1_000_003, then Q1, Q2, Q2b, Q2m and Q3
@@ -41,7 +52,12 @@ non-zero without them.  Phases, each of which fails the run:
      every row, Q2m K6 exactly once (all four aggregates in one launch)
      and Q2b never; each query's peak device memory is printed, for Q2b
      and Q2m beside the governor's count for the sort grouping and the
-     grouping's own peak;
+     grouping's own peak; then, over tables of 1M build and 100M probe
+     rows, Q4 (bench.py:505-507 over bench.py:492-504's data), Q4h (keys
+     far apart) and Q4x (each build key twice), checked against numpy,
+     each launching exactly the kernels of its path (JOIN_PATHS: Q4 K7,
+     Q4h K8, Q4x K4, K5, K8 and K9; K1 for the aggregate), its peak
+     memory beside the governor's estimate;
   4. replay each kernel on the exact inputs the main path gave it (its
      largest launch on the main path), held against its plain version, and
      time it, its plain version and, where one exists, the single PyTorch
@@ -56,15 +72,19 @@ non-zero without them.  Phases, each of which fails the run:
      a pass), K5 at Q2b's and Q2m's inputs (torch.profiler: one kernel a
      call) beside a copy of its key array, K6's one launch of Q2m's four
      aggregates, each of them alone and over 100M rows where one group
-     holds 40 % of them; time each query (median wall time of 20 runs,
-     synchronised) and the device-busy time of Q1, Q2b and Q2m
-     (torch.profiler).
+     holds 40 % of them, K7 at Q4's inputs beside index_select, K8 at
+     Q4h's (and its probe at Q4x's) beside searchsorted for information,
+     K9 at Q4x's beside repeat_interleave, each with its kernels a call;
+     time each query (median wall time of 20 runs, synchronised), the
+     device-busy time of Q1, Q2b, Q2m, Q4, Q4h and Q4x (torch.profiler)
+     and Q4's wall over the probe roofline of bench.py:509-525.
 
 The second-to-last line is a JSON object of per-kernel results (name,
 route, source, replaces, launches, ms, plain_ms, bound_ms, bound_by,
 library_ms, ...); the last line is {"ok": true, "device": {...}}.
 """
 import json
+import math
 import statistics
 import subprocess
 import sys
@@ -84,6 +104,27 @@ Q2M = ("SELECT intDiv(x, 4) AS k, count() AS c, sum(x) AS s, min(x) AS lo, "
        "max(x) AS hi, any(x) AS a FROM hits GROUP BY k ORDER BY s DESC "
        "LIMIT 10")
 QUERIES = (("Q1", Q1), ("Q2", Q2), ("Q2b", Q2B), ("Q2m", Q2M), ("Q3", Q3))
+# the join queries: Q4 is bench.py:505-507 over its data (bench.py:492-504);
+# Q4h the same SQL over keys far apart (the hash table), Q4x over a build
+# side whose keys repeat (the 1:N expansion)
+Q4 = "SELECT count(), sum(label) FROM fact INNER JOIN dim ON fact.fk = dim.k"
+Q4H = ("SELECT count(), sum(label) FROM fact_h INNER JOIN dim_h "
+       "ON fact_h.fk = dim_h.k")
+Q4X = ("SELECT count(), sum(label) FROM fact INNER JOIN dim2 "
+       "ON fact.fk = dim2.k")
+JOIN_QUERIES = (("Q4", Q4), ("Q4h", Q4H), ("Q4x", Q4X))
+N_DIM = 1_000_000
+# each join query's launches, exactly (every other kernel: none): K1 twice
+# for count() and sum(label), and once more in Q4x for the build side's
+# valid rows
+JOIN_PATHS = {"Q4": {"dense_join": 1, "masked_reduce": 2},
+              "Q4h": {"hash_join": 1, "masked_reduce": 2},
+              "Q4x": {"radix_sort_pairs": 1, "segment_bounds": 1,
+                      "hash_join": 2, "expand_matches": 1,
+                      "masked_reduce": 3}}
+# the kernel of each join query that must cover every probe row
+JOIN_PROBE = {"Q4": "dense_join", "Q4h": "hash_join",
+              "Q4x": "expand_matches"}
 QUERY_REPS = 20
 KERNEL_REPS = 20
 FLOAT_RTOL = 1e-12      # the kernel adds float partials in another order
@@ -100,7 +141,8 @@ EXTRA_KEYS = ("level1_ms", "merge_ms", "entry64_ms", "entry64_bound_ms",
               "digit_bits", "per_op_ms", "skew_ms", "skew_bound_ms",
               "information", "hist_ms", "scatter_ms", "q2m_ms", "q2m_bound_ms", "q2m_library_ms",
               "specs", "launches_per_query", "copy_ms", "q2m_plain_ms",
-              "q2m_bytes")
+              "q2m_bytes", "q4x_probe_ms", "q4x_probe_bound_ms",
+              "l2_resident")
 F64_EPS = 2.0 ** -52
 CMPS = ["equals", "notEquals", "less", "lessOrEquals", "greater",
         "greaterOrEquals"]
@@ -754,6 +796,283 @@ def check_k6(dev):
           f"one launch)", flush=True)
 
 
+# K7's edge cases (k7_case): the direct-address join
+K7_CASES = ("unique", "holes", "outside", "invalid_rows", "nullable_payload",
+            "sentinel_below", "sentinel_above", "key_words", "presence",
+            "int8_probe", "int16_probe", "int64_probe", "uint64_keys",
+            "views_1_in")
+
+
+def on_card(a, dev, off=0):
+    """A numpy array on `dev`; off > 0: as a view that many rows into a
+    longer tensor (so not on the allocation's alignment)."""
+    a = np.ascontiguousarray(a)
+    if off:
+        a = np.concatenate([np.zeros(off, a.dtype), a])
+    return torch.from_numpy(a).to(dev)[off:]
+
+
+def k7_case(name, rng):
+    """(build key, build valid, probe key, probe valid, words, lo, hi) of
+    one K7 edge case, in numpy: words as the wrapper takes them (("word",
+    int32 array, sentinel), ("key",), ("keyvalid",))."""
+    lo, hi, nb, n = 0, 999_999, 600_000, 2_000_003
+    kind = np.int32
+    if name == "int8_probe":
+        lo, hi, nb, n, kind = -100, 100, 150, 10_007, np.int8
+    elif name == "int16_probe":
+        lo, hi, nb, n, kind = -3000, 9000, 5000, 100_003, np.int16
+    elif name == "int64_probe":
+        lo, hi, kind = -(1 << 40), -(1 << 40) + 999_999, np.int64
+    bk = rng.permutation(hi - lo + 1)[:nb].astype(np.int64) + lo
+    if name == "unique":
+        bk = rng.permutation(hi - lo + 1).astype(np.int64) + lo
+        nb = len(bk)
+    pk = rng.integers(lo, hi + 1, n)
+    if name in ("outside", "int8_probe", "int16_probe"):
+        span = 100 if name != "outside" else 1000
+        pk = rng.integers(max(lo - span, np.iinfo(kind).min),
+                          min(hi + span, np.iinfo(kind).max) + 1, n)
+    bv = np.ones(nb, bool)
+    pv = np.ones(n, bool)
+    if name == "invalid_rows":
+        bv = rng.random(nb) < 0.8
+        pv = rng.random(n) < 0.7
+    w = rng.integers(0, 97, nb).astype(np.int32)
+    words = [("word", w, -1)]
+    if name == "nullable_payload":
+        words = [("word", w, 97), ("word", (rng.random(nb) < 0.5)
+                                   .astype(np.int32), 2)]
+    elif name == "sentinel_below":
+        # words at the bottom of int32, the sentinel their lower bound - 1
+        words = [("word", (w.astype(np.int64) - 2**31 + 5).astype(np.int32),
+                  -2**31 + 4)]
+    elif name == "sentinel_above":
+        # words at the top of int32, the sentinel their upper bound + 1
+        words = [("word", (w.astype(np.int64) + 2**31 - 100).astype(np.int32),
+                  2**31 - 3)]
+    elif name == "key_words":
+        words = [("key",), ("word", w, -1), ("keyvalid",)]
+    elif name == "presence":
+        words = []
+    elif name == "uint64_keys":
+        # UInt64 keys at and above 2^63 (int64 bits)
+        lo = (1 << 63) + 5
+        hi = lo + 999_999
+        bk = (bk.astype(np.uint64) + np.uint64(lo)).view(np.int64)
+        pk = (rng.integers(0, 1_000_100, n).astype(np.uint64)
+              + np.uint64(lo - 50)).view(np.int64)
+        kind = np.int64
+    return bk, bv, pk.astype(kind), pv, words, lo, hi
+
+
+def k7_args(name, rng, dev):
+    """One K7 edge case as the wrapper's arguments on `dev` (views_1_in:
+    every array a view one row into its tensor)."""
+    bk, bv, pk, pv, words, lo, hi = k7_case(name, rng)
+
+    def t(a):
+        return on_card(a, dev, int(name == "views_1_in"))
+    return (t(bk), t(bv), t(pk), t(pv),
+            [(e[0], t(e[1]), e[2]) if e[0] == "word" else e for e in words],
+            lo, hi)
+
+
+def check_k7(dev):
+    """K7 against its plain version on every case of K7_CASES: unique keys
+    filling the range, a range with holes, probe keys outside it, invalid
+    build and probe rows, a Nullable payload (its validity word), the
+    sentinel below and above the words, the key's own words, a presence
+    table, int8/int16/int64 probe keys, UInt64 keys above 2^63 and views
+    one row in."""
+    from clickhouse_tpu_torch.ops.join_ops import (_dense_gather_join_plain,
+                                                   dense_gather_join)
+    rng = np.random.default_rng(17)
+    for name in K7_CASES:
+        bk, bv, pk, pv, words, lo, hi = k7_args(name, rng, dev)
+        got = dense_gather_join(bk, bv, pk, pv, words, lo, hi)
+        want = _dense_gather_join_plain(bk, bv, pk, pv, words, lo,
+                                        hi - lo + 1)
+        max_abs_err(got.matched, want.matched)
+        for a, b in zip(got.words, want.words):
+            max_abs_err(a, b)
+    print(f"K7 dense_join edge cases agree: {', '.join(K7_CASES)}",
+          flush=True)
+
+
+# K8's edge cases (k8_case): the hash table's build and probe
+K8_CASES = ("unique", "duplicates", "one_key_word_i32", "two_key_words",
+            "three_key_words", "four_key_words", "float_keys", "one_key",
+            "nothing_matches", "one_key_every_row", "ten_words",
+            "views_1_in")
+
+
+def k8_case(name, rng):
+    """(build keys, build valid, probe keys, probe valid, build words) of
+    one K8 edge case, in numpy (keys of one type a pair: int32 or int64,
+    or float64 for float_keys)."""
+    nb, n = 300_000, 1_000_003
+    bv = rng.random(nb) < 0.95
+    pv = rng.random(n) < 0.95
+    words = [np.arange(nb, dtype=np.int32),
+             rng.integers(-50, 50, nb).astype(np.int32)]
+    if name == "unique":
+        bk = [rng.permutation(np.unique(rng.integers(0, 1 << 40, nb)))]
+        nb = len(bk[0])
+        bv, words = bv[:nb], [w[:nb] for w in words]
+        pk = [np.where(rng.random(n) < 0.5, bk[0][rng.integers(0, nb, n)],
+                       rng.integers(0, 1 << 40, n))]
+    elif name == "duplicates":
+        bk = [rng.integers(0, nb // 20, nb).astype(np.int64)]
+        pk = [rng.integers(0, nb // 10, n).astype(np.int64)]
+    elif name.endswith("key_words") or name in ("one_key_word_i32",
+                                                 "views_1_in"):
+        nk = {"one_key_word_i32": 1, "two_key_words": 2,
+              "three_key_words": 3, "four_key_words": 4,
+              "views_1_in": 2}[name]
+        kinds = [np.int32, np.int64, np.int32, np.int64][:nk]
+        bk = [rng.integers(0, 30, nb).astype(k) for k in kinds]
+        pk = [rng.integers(0, 40, n).astype(k) for k in kinds]
+    elif name == "float_keys":
+        pool = np.array([0.0, -0.0, np.nan, 1.5, -2.25, np.inf, 3.0])
+        bk = [pool[rng.integers(0, 6, nb)]]
+        pk = [pool[rng.integers(0, 7, n)]]
+    elif name == "one_key":
+        nb = 1
+        bv, words = np.ones(1, bool), [np.array([42], np.int32)]
+        bk = [np.array([7], np.int64)]
+        pk = [rng.integers(0, 10, n).astype(np.int64)]
+    elif name == "nothing_matches":
+        bk = [rng.integers(0, 1000, nb).astype(np.int64) * 2]
+        pk = [rng.integers(0, 1000, n).astype(np.int64) * 2 + 1]
+    elif name == "one_key_every_row":
+        bk = [np.full(nb, 5, np.int64)]
+        pk = [rng.integers(4, 7, n).astype(np.int64)]
+    elif name == "ten_words":
+        bk = [rng.integers(0, nb, nb).astype(np.int64)]
+        pk = [rng.integers(0, nb, n).astype(np.int64)]
+        words = [rng.integers(-9, 9, nb).astype(np.int32) for _ in range(10)]
+    else:
+        raise ValueError(name)
+    return bk, bv, pk, pv, words
+
+
+def k8_args(name, rng, dev):
+    """One K8 edge case as propagate_join's arguments on `dev` (views_1_in:
+    every array a view one row into its tensor)."""
+    bk, bv, pk, pv, words = k8_case(name, rng)
+
+    def t(a):
+        return on_card(a, dev, int(name == "views_1_in"))
+    return [t(k) for k in bk], t(bv), [t(k) for k in pk], t(pv), \
+        [t(w) for w in words]
+
+
+def k8_plain(bk, bv, pk, pv, words):
+    from clickhouse_tpu_torch.ops.join_ops import (_first_match_plain,
+                                                   _take_words, key_words)
+    match = _first_match_plain(key_words(bk), bv, key_words(pk), pv)
+    return _take_words(match, words)
+
+
+def check_k8(dev):
+    """K8 against its plain version on every case of K8_CASES (three runs
+    each: where keys repeat, the smallest build row id must win whatever
+    order the threads insert in): unique keys, many duplicates, one to four
+    key words, float keys with -0.0, +0.0 and NaN, a table of one key, a
+    probe where nothing matches, every build row one key, ten words (two
+    probes), two key words as views one row in."""
+    from clickhouse_tpu_torch.ops.join_ops import propagate_join
+    rng = np.random.default_rng(18)
+    for name in K8_CASES:
+        args = k8_args(name, rng, dev)
+        want_m, want_w = k8_plain(*args)
+        for _ in range(3):
+            got = propagate_join(*args)
+            max_abs_err(got.matched, want_m)
+            for a, b in zip(got.words, want_w):
+                max_abs_err(a, b)
+    print(f"K8 hash_join edge cases agree (three runs each): "
+          f"{', '.join(K8_CASES)}", flush=True)
+
+
+# K9's edge cases (k9_case): the match expansion
+K9_CASES = ("zero_lengths", "inner", "left", "any", "left_any",
+            "one_row_90_percent", "beyond_capacity", "no_probe_row",
+            "many_tiles")
+
+
+def k9_case(name, rng):
+    """(matched, valid, seg_start, seg_len, out_cap, left, any_join) of one
+    K9 edge case, in numpy."""
+    n = 1_000_003
+    matched = rng.random(n) < 0.6
+    valid = rng.random(n) < 0.9
+    seg_len = np.where(matched, rng.integers(1, 6, n), 0).astype(np.int32)
+    seg_start = np.where(matched, rng.integers(0, 1 << 20, n), 0).astype(
+        np.int32)
+    cap, left, any_join = 4 * n, False, False
+    if name == "zero_lengths":
+        seg_len[:] = 0
+        matched[:] = False
+    elif name == "left":
+        left = True
+    elif name == "any":
+        any_join = True
+    elif name == "left_any":
+        left = any_join = True
+    elif name == "one_row_90_percent":
+        seg_len[n // 3] = 9 * n * 3
+        matched[n // 3] = valid[n // 3] = True
+        cap = 31 * n
+    elif name == "beyond_capacity":
+        cap = n
+    elif name == "no_probe_row":
+        return (np.zeros(0, bool), np.zeros(0, bool), np.zeros(0, np.int32),
+                np.zeros(0, np.int32), 1024, False, False)
+    elif name == "many_tiles":
+        n2 = 20_000_003
+        matched = rng.random(n2) < 0.5
+        valid = np.ones(n2, bool)
+        seg_len = np.where(matched, 2, 0).astype(np.int32)
+        seg_start = np.where(matched, 7, 0).astype(np.int32)
+        cap = n2 + 1024
+    return matched, valid, seg_start, seg_len, cap, left, any_join
+
+
+def k9_args(name, rng, dev):
+    """One K9 edge case as expand_matches' arguments on `dev`."""
+    from clickhouse_tpu_torch.ops.join_ops import ProbeResult
+    m, v, ss, sl, cap, left, any_join = k9_case(name, rng)
+
+    def t(a):
+        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+    return ProbeResult(t(m), t(ss), t(sl)), t(v), cap, left, any_join
+
+
+def check_k9(dev):
+    """K9 against its plain version on every case of K9_CASES: no match,
+    INNER, LEFT (length at least 1), ANY (at most 1), both, one probe row
+    holding 90 % of the output, an output count beyond the capacity (the
+    count must exceed it, and the capacity check must fire on the card),
+    no probe row, and 20M probe rows (many look-back tiles)."""
+    from clickhouse_tpu_torch.ops.join_ops import (_expand_matches_plain,
+                                                   expand_matches)
+    rng = np.random.default_rng(19)
+    for name in K9_CASES:
+        args = k9_args(name, rng, dev)
+        got = expand_matches(*args)
+        want = _expand_matches_plain(*args)
+        for a, b in zip(got, want):
+            max_abs_err(a, b)
+        if name == "beyond_capacity" and int(got[3]) <= args[2]:
+            fail(f"K9's beyond_capacity case counted {int(got[3])} rows, "
+                 f"within its capacity {args[2]}")
+        del got, want, args
+    print(f"K9 expand_matches edge cases agree: {', '.join(K9_CASES)}",
+          flush=True)
+
+
 def main_path_args(session):
     """Run the main path's queries once more with each kernel's launch
     wrapper spied on, and return the arguments of each kernel's largest
@@ -1053,15 +1372,23 @@ def q_shapes(dev, args):
           f"(torch.profiler): level 1 {level1} ms, merge {merge} ms; 64-bit "
           f"entry at Q3's rows {ms64:.4f} ms, bound {bound_ms(b64):.4f} ms "
           f"({b64} bytes)", flush=True)
-    for name, r in out.items():
+    report(out)
+    return out
+
+
+def report(records):
+    """Set each record's bound_ms from its bytes and print the record."""
+    for name, r in records.items():
         r["bound_ms"] = bound_ms(r["bytes"])
         lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
         print(f"{name} at the main path's shape ({r['shape']}): max_abs_err "
               f"{r['max_abs_err']}, kernel {r['ms']:.4f} ms, plain "
               f"{r['plain_ms']:.4f} ms, library {lib} ms ({r['library']}), "
               f"{r['bytes']} bytes, bound {r['bound_ms']:.4f} ms, share of "
-              f"bound {r['bound_ms'] / r['ms']:.3f}", flush=True)
-    return out
+              f"bound {r['bound_ms'] / r['ms']:.3f}"
+              + (f"; {r['information']}" if "information" in r else "")
+              + (f"; in L2: {r['l2_resident']}" if "l2_resident" in r
+                 else ""), flush=True)
 
 
 def k4_record(key, bits, vals):
@@ -1255,16 +1582,7 @@ def sort_shapes(dev, args):
           f"{rec['per_op_ms']}", flush=True)
     del sperm, sgid
     out["segment_reduce"] = rec
-    for name, r in out.items():
-        r["bound_ms"] = bound_ms(r["bytes"])
-        lib = "null" if r["library_ms"] is None else f"{r['library_ms']:.4f}"
-        print(f"{name} at the main path's shape ({r['shape']}): max_abs_err "
-              f"{r['max_abs_err']}, kernel {r['ms']:.4f} ms, plain "
-              f"{r['plain_ms']:.4f} ms, library {lib} ms ({r['library']}), "
-              f"{r['bytes']} bytes, bound {r['bound_ms']:.4f} ms, share of "
-              f"bound {r['bound_ms'] / r['ms']:.3f}"
-              + (f"; {r['information']}" if "information" in r else ""),
-              flush=True)
+    report(out)
     return out
 
 
@@ -1377,29 +1695,37 @@ def device_busy(s, sql, reps=QUERY_REPS):
 
 def time_queries(s):
     """Median wall of QUERY_REPS runs of each query (after one untimed run),
-    then the device-busy time of Q1, Q2b and Q2m from a trace.  Uses only
-    the public API, so copied into an unpacked older checkout
-    (``--queries``) it times that tree alike; a query that tree does not
-    run (NotImplementedError_) is reported and skipped."""
+    then the device-busy time of Q1, Q2b, Q2m and the join queries from a
+    trace, and Q4's wall over the probe roofline.  Uses only the public
+    API, so copied into an unpacked older checkout (``--queries``) it
+    times that tree alike; a query that tree does not run
+    (NotImplementedError_) is reported and skipped."""
     from clickhouse_tpu_torch.core.errors import NotImplementedError_
-    ran = set()
-    for name, sql in QUERIES:
+    ran = {}
+    for name, sql in QUERIES + JOIN_QUERIES:
         try:
             s.execute(sql)
         except NotImplementedError_ as e:
             print(f"{name} not ported in this tree: {e}", flush=True)
             continue
-        ran.add(name)
         times = []
         for _ in range(QUERY_REPS):
             t0 = time.perf_counter()
             s.execute(sql)
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
-        print(f"{name} median wall {statistics.median(times) * 1e3:.3f} ms "
+        ran[name] = statistics.median(times) * 1e3
+        print(f"{name} median wall {ran[name]:.3f} ms "
               f"over {QUERY_REPS} runs ({N_ROWS} rows): {sql}", flush=True)
-    for name, sql in QUERIES:
-        if name in ("Q1", "Q2b", "Q2m") and name in ran:
+    if "Q4" in ran:
+        roof = probe_roofline(torch.device("cuda", 0))
+        print(f"Q4 probe roofline (bench.py:509-525 on this card: one "
+              f"gather tbl[idx] of {N_ROWS} int32 indices from a {N_DIM}-"
+              f"entry int32 table, CUDA events, L2 flushed): {roof:.4f} ms; "
+              f"Q4's median wall {ran['Q4']:.3f} ms is "
+              f"{ran['Q4'] / roof:.2f}x it", flush=True)
+    for name, sql in QUERIES + JOIN_QUERIES:
+        if name in ("Q1", "Q2b", "Q2m", "Q4", "Q4h", "Q4x") and name in ran:
             busy, ops, wall, top = device_busy(s, sql)
             print(f"{name} under torch.profiler: device busy {busy:.4f} ms "
                   f"of {wall:.3f} ms wall a run, {ops:g} device operations "
@@ -1408,6 +1734,361 @@ def time_queries(s):
                 print(f"{name} device ms a run by operation (the top 8): "
                       + "; ".join(f"{n} {t:.4f}" for n, t in top),
                       flush=True)
+
+
+def load_join_tables(s):
+    """The join queries' tables in session s: dim and fact as bench.py:492-507
+    makes them, dim_h / fact_h (unique keys far apart, every 10th probe row
+    without a match) and dim2 (each key twice).  -> (fact.fk, dim.label)
+    as numpy, for the answers."""
+    k = np.arange(N_DIM, dtype=np.int64)
+    label = (k * 7) % 97
+    i = np.arange(N_ROWS, dtype=np.int64)
+    fk = (i * 40503) % N_DIM
+    kh = k * 2654435761
+    t0 = time.perf_counter()
+    for name, cols in (("dim", {"k": k, "label": label}),
+                       ("dim_h", {"k": kh, "label": label}),
+                       ("dim2", {"k": k // 2, "label": label}),
+                       ("fact", {"fk": fk}),
+                       ("fact_h", {"fk": kh[fk] + (i % 10 == 0)})):
+        s.execute(f"CREATE TABLE {name} ("
+                  + ", ".join(f"{c} Int64" for c in cols) + ")")
+        s.insert_pydict(name, cols)
+        s.catalog.get_table("default", name).read_block()
+    torch.cuda.synchronize()
+    print(f"insert + device blocks of the join tables (dim, dim_h, dim2 of "
+          f"{N_DIM} rows, fact and fact_h of {N_ROWS}): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return fk, label
+
+
+def join_answers(fk, label):
+    """count() and sum(label) of Q4, Q4h and Q4x, from numpy."""
+    cnt = np.bincount(fk, minlength=N_DIM)
+    # fact_h: every 10th row's key is one past a build key
+    cnt_h = cnt - np.bincount(fk[::10], minlength=N_DIM)
+    # dim2: key g holds the build rows 2g and 2g + 1
+    half = N_DIM // 2
+    pair = label[0::2] + label[1::2]
+    return {"Q4": [(int(cnt.sum()), int((cnt * label).sum()))],
+            "Q4h": [(int(cnt_h.sum()), int((cnt_h * label).sum()))],
+            "Q4x": [(int(2 * cnt[:half].sum()),
+                     int((cnt[:half] * pair).sum()))]}
+
+
+def join_path(s, want, per_query, launches, launch_rows, memory):
+    """Q4, Q4h and Q4x once each, checked against numpy, with the launch
+    counters set to 0 before each and read after; fails unless each
+    launched exactly the kernels of its path (JOIN_PATHS), its probe
+    kernel over every probe row.  -> {query: (peak bytes above what was
+    allocated before it, the governor's estimate)}."""
+    from clickhouse_tpu_torch.exec.streaming import \
+        estimate_plan_device_bytes
+    from clickhouse_tpu_torch.ops import _native
+    from clickhouse_tpu_torch.sql import parse
+    out = {}
+    for name, sql in JOIN_QUERIES:
+        for v in memory.values():
+            del v[:]
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        _native.reset_launches()
+        rows = s.execute(sql).rows()
+        per_query[name] = dict(_native.LAUNCHES)
+        rows_of = {k: list(v) for k, v in _native.LAUNCH_ROWS.items()}
+        extra = max([torch.cuda.max_memory_allocated()]
+                    + [p for p, _ in memory["grouping"]]) - base
+        if rows != want[name]:
+            fail(f"{name} returned {rows}, numpy says {want[name]}")
+        for k, v in rows_of.items():
+            launches[k] += per_query[name][k]
+            launch_rows[k] += v
+        path = {k: JOIN_PATHS[name].get(k, 0) for k in per_query[name]}
+        if per_query[name] != path:
+            fail(f"{name} launched {per_query[name]}; its path is "
+                 f"{JOIN_PATHS[name]} and nothing else")
+        probe = max(rows_of[JOIN_PROBE[name]], default=0)
+        if probe < N_ROWS:
+            fail(f"{name}'s {JOIN_PROBE[name]} covered {probe} probe rows, "
+                 f"not {N_ROWS}")
+        est = estimate_plan_device_bytes(s._plan(parse(sql), s.settings),
+                                         s.catalog, s.settings)
+        out[name] = (extra, est)
+        print(f"{name}: launches "
+              f"{ {k: v for k, v in per_query[name].items() if v} }, rows a "
+              f"launch { {k: v for k, v in rows_of.items() if v} }; device "
+              f"memory at its peak {extra} bytes above what was allocated "
+              f"before it, the governor's estimate {est} bytes", flush=True)
+    print(f"Q4, Q4h and Q4x match numpy over {N_ROWS} probe rows, each on "
+          f"its kernel path", flush=True)
+    return out
+
+
+def join_args(session):
+    """Run the join queries once more with K7's, K8's and K9's wrappers
+    spied on; -> the arguments each was given: "dense_join" (Q4's K7
+    call), "hash_join" (Q4h's propagate_join), "hash_join:probe" (Q4x's
+    probe_join_table) and "expand_matches" (Q4x's K9 call)."""
+    from clickhouse_tpu_torch.ops import join_ops
+    spied = {"dense_join": "_dense_gather_join_cuda",
+             "hash_join": "propagate_join",
+             "hash_join:probe": "probe_join_table",
+             "expand_matches": "_expand_matches_cuda"}
+    got, saved = {}, {}
+    for key, attr in spied.items():
+        fn = saved[key] = getattr(join_ops, attr)
+
+        def spy(*args, _fn=fn, _key=key):
+            got[_key] = args
+            return _fn(*args)
+        setattr(join_ops, attr, spy)
+    try:
+        for _, sql in JOIN_QUERIES:
+            session.execute(sql)
+    finally:
+        for key, attr in spied.items():
+            setattr(join_ops, attr, saved[key])
+    for key in spied:
+        if key not in got:
+            fail(f"the join queries gave {key} no call")
+    return got
+
+
+def join_shapes(dev, args):
+    """K7, K8 and K9 on the inputs the main path gave them (Q4's, Q4h's
+    and Q4x's), each held against its plain version and timed beside it
+    and beside one PyTorch call (K7: index_select from the table; K8: none,
+    searchsorted of the probe keys over the sorted build keys for
+    information; K9: repeat_interleave).  Every table a kernel gathers
+    from here fits in the 50 MB L2, so bytes count each input once.
+    -> {name: record}."""
+    from clickhouse_tpu_torch.ops.join_ops import (
+        _dense_gather_join_plain, _expand_lengths, _expand_matches_plain,
+        _hash_probe_cuda, dense_gather_join, expand_matches, hash_capacity,
+        key_words, propagate_join)
+    out = {}
+    # K7: Q4's call, its build over dim's 1M rows, its probe over fact's
+    bk, bv, pk, pv, entries, lo, R = args["dense_join"]
+    hi = lo + R - 1
+    got = dense_gather_join(bk, bv, pk, pv, entries, lo, hi)
+    want = _dense_gather_join_plain(bk, bv, pk, pv, entries, lo, R)
+    err = max([max_abs_err(got.matched, want.matched)]
+              + [max_abs_err(a, b) for a, b in zip(got.words, want.words)])
+    word = next(e for e in entries if e[0] == "word")
+    table = torch.full((R,), word[2], dtype=torch.int32, device=dev)
+    keep = torch.ones_like(bk, dtype=torch.bool) if bv is None \
+        else bv.to(torch.bool)
+    table[(bk.long() - lo)[keep]] = word[1][keep]
+    idx = pk if lo == 0 else (pk.long() - lo).clamp(0, R - 1)
+    n = pk.shape[0]
+    out["dense_join"] = dict(
+        max_abs_err=err,
+        ms=cuda_ms(lambda: dense_gather_join(bk, bv, pk, pv, entries, lo,
+                                             hi)),
+        plain_ms=cuda_ms(lambda: _dense_gather_join_plain(
+            bk, bv, pk, pv, entries, lo, R), reps=5),
+        library_ms=cuda_ms(lambda: torch.index_select(table, 0, idx)),
+        library="torch.index_select(table, 0, probe keys): the gather "
+                "alone, from a table built beforehand",
+        bytes=nbytes(bk, bv, pk, pv, [e[1] for e in entries
+                                      if e[0] == "word"])
+        + n + 4 * n * len(entries),
+        l2_resident=f"the table: {R} slots of 4 bytes",
+        shape=f"build {bk.shape[0]} {bk.dtype} keys, probe {n} {pk.dtype} "
+              f"keys, {len(entries)} output word(s) "
+              f"{[e[0] for e in entries]}, R = {R}")
+    # K8: Q4h's propagate_join (its build and its probe)
+    bks, bvh, pks, pvh, words = args["hash_join"]
+    got = propagate_join(bks, bvh, pks, pvh, words)
+    want_m, want_w = k8_plain(bks, bvh, pks, pvh, words)
+    err = max([max_abs_err(got.matched, want_m)]
+              + [max_abs_err(a, b) for a, b in zip(got.words, want_w)])
+    n = pks[0].shape[0]
+    sorted_bk = torch.sort(bks[0]).values
+    info = cuda_ms(lambda: torch.searchsorted(sorted_bk, pks[0]))
+    out["hash_join"] = dict(
+        max_abs_err=err,
+        ms=cuda_ms(lambda: propagate_join(bks, bvh, pks, pvh, words)),
+        plain_ms=cuda_ms(lambda: k8_plain(bks, bvh, pks, pvh, words),
+                         reps=3),
+        library_ms=None,
+        library="none: no single PyTorch call joins by key",
+        information=f"torch.searchsorted(sorted build keys, probe keys) "
+                    f"{info:.4f} ms",
+        bytes=nbytes(bks, bvh, pks, pvh, words) + n + 4 * n * len(words),
+        l2_resident=f"the buckets ({hash_capacity(bks[0].shape[0])} of 4 "
+                    f"bytes), the build keys and words",
+        shape=f"build {bks[0].shape[0]} rows, probe {n} rows, keys "
+              f"{[k.dtype for k in bks]}, {len(words)} word(s)")
+    # K8's probe at Q4x's inputs: each probe row's group in the table of
+    # dim2's 500,000 keys
+    tbl, pkx, pvx = args["hash_join:probe"]
+    bw, pw = key_words(tbl.key_cols), key_words(pkx)
+    src = [tbl.seg_start, tbl.seg_len]
+    nx = pw[0].shape[0]
+    pvb = None if pvx is None else pvx.to(torch.bool)
+    out["hash_join"]["q4x_probe_ms"] = cuda_ms(
+        lambda: _hash_probe_cuda(bw, pw, tbl.buckets, pvb, src))
+    qb = nbytes(pw, pvx) + nx * 9
+    out["hash_join"]["q4x_probe_bound_ms"] = bound_ms(qb)
+    print(f"hash_join's probe at Q4x's inputs ({nx} probe rows, "
+          f"{tbl.group_capacity} group slots): "
+          f"{out['hash_join']['q4x_probe_ms']:.4f} ms, bound "
+          f"{bound_ms(qb):.4f} ms ({qb} bytes)", flush=True)
+    del tbl, pkx, pvx, bw, pw, src
+    # K9: Q4x's expansion, 2 build rows for half the probe rows
+    probe, valid, out_cap, left, any_join = args["expand_matches"]
+    got = expand_matches(probe, valid, out_cap, left, any_join)
+    want = _expand_matches_plain(probe, valid, out_cap, left, any_join)
+    err = max(max_abs_err(a, b) for a, b in zip(got, want))
+    total = int(got[3])
+    del want
+    lens = _expand_lengths(probe.matched, valid.to(torch.bool),
+                           probe.seg_len, left, any_join)
+    ar = torch.arange(lens.shape[0], device=dev)
+    n = lens.shape[0]
+    out["expand_matches"] = dict(
+        max_abs_err=err,
+        ms=cuda_ms(lambda: expand_matches(probe, valid, out_cap, left,
+                                          any_join)),
+        plain_ms=cuda_ms(lambda: _expand_matches_plain(
+            probe, valid, out_cap, left, any_join), reps=3),
+        library_ms=cuda_ms(lambda: torch.repeat_interleave(
+            ar, lens, output_size=total)),
+        library=f"torch.repeat_interleave(arange(N), lens, output_size="
+                f"{total}): the probe row of each slot alone",
+        bytes=n * 10 + out_cap * 9 + 8,
+        shape=f"{n} probe rows, {total} output rows, capacity {out_cap}")
+    report(out)
+    # the kernels of one call (torch.profiler)
+    for name, call in (
+            ("dense_join", lambda: dense_gather_join(bk, bv, pk, pv,
+                                                     entries, lo, hi)),
+            ("hash_join", lambda: propagate_join(bks, bvh, pks, pvh,
+                                                 words)),
+            ("expand_matches", lambda: expand_matches(
+                probe, valid, out_cap, left, any_join))):
+        per_call = {}
+        split = device_kernels(call, launches=per_call)
+        out[name]["kernels_per_call"] = per_call
+        print(f"{name} device ms by kernel (torch.profiler): {split}, "
+              f"launches a call {per_call}", flush=True)
+    return out
+
+
+def probe_roofline(dev) -> float:
+    """bench.py:509-525's probe roofline on this card: one gather of 100M
+    int32 indices from a 1M-entry int32 table (tbl[idx]).  -> ms."""
+    idx = ((torch.arange(N_ROWS, dtype=torch.int64, device=dev) * 40503)
+           % N_DIM).to(torch.int32)
+    tbl = torch.arange(N_DIM, dtype=torch.int32, device=dev)
+    ms = cuda_ms(lambda: tbl[idx])
+    del idx, tbl
+    return ms
+
+
+def check_small_joins(ch):
+    """The join forms over small tables on the card, row for row against
+    the same session on the CPU (whose answers the tests hold against the
+    JAX reference), and the capacity check of a 1:N join firing."""
+    from clickhouse_tpu_torch.core.errors import CapacityError
+    rng = np.random.default_rng(23)
+    n, nd = 20_000, 1000
+    fl_pool = np.array([0.0, -0.0, np.nan, 1.5, -2.25, 3.0])
+    nk = rng.integers(0, 50, n).astype(object)
+    nk[rng.random(n) < 0.2] = None
+    dk = np.concatenate([np.arange(nd), np.arange(nd // 3)])
+    tables = {
+        "jf": {"fk": ("Int64", rng.integers(0, 2 * nd, n)),
+               "w": ("Float64", rng.normal(size=n)),
+               "s": ("String", np.asarray([f"s{v}" for v in
+                                           rng.integers(0, 30, n)], object)),
+               "nk": ("Nullable(Int64)", nk),
+               "fl": ("Float64", fl_pool[rng.integers(0, 6, n)]),
+               "a": ("Int32", rng.integers(0, 6, n).astype(np.int32))},
+        "jd": {"k": ("Int64", np.arange(nd)),
+               "label": ("Int64", (np.arange(nd) * 7) % 97),
+               "big": ("UInt64", np.arange(nd).astype(np.uint64)
+                       * np.uint64(2**40) + np.uint64(2**63)),
+               "name": ("String", np.asarray([f"v{x % 13}" for x in
+                                              range(nd)], object)),
+               "f": ("Float64", np.arange(nd) * 0.5)},
+        "jdd": {"k": ("Int64", dk), "label": ("Int64", (dk * 3) % 101),
+                "name": ("String", np.asarray([f"d{x % 7}" for x in dk],
+                                              object))},
+        "js": {"s": ("String", np.asarray([f"s{v}" for v in range(15, 45)],
+                                          object)),
+               "v": ("Int64", np.arange(30))},
+        "jn": {"nk": ("Nullable(Int64)", np.asarray(
+            [None if v % 7 == 0 else v for v in range(60)], object)),
+               "v": ("Int64", np.arange(60))},
+        "jfl": {"fl": ("Float64", np.array([0.0, -0.0, np.nan, 1.5, 9.0])),
+                "v": ("Int64", np.arange(5))},
+        "jm": {"a": ("Int32", np.repeat(np.arange(6), 3).astype(np.int32)),
+               "v": ("Int64", np.arange(18))},
+    }
+    queries = [
+        "SELECT count(), sum(label) FROM jf INNER JOIN jd ON jf.fk = jd.k",
+        "SELECT fk, label, big, name, f FROM jf INNER JOIN jd "
+        "ON jf.fk = jd.k",
+        "SELECT fk, label, big, name, f FROM jf LEFT JOIN jd "
+        "ON jf.fk = jd.k SETTINGS join_dense_gather = 0",
+        "SELECT fk, label, name FROM jf LEFT JOIN jd ON jf.fk = jd.k "
+        "SETTINGS join_use_nulls = 1",
+        "SELECT k, label, fk FROM jf RIGHT JOIN jd ON jf.fk = jd.k",
+        "SELECT count() FROM jf LEFT SEMI JOIN jdd ON jf.fk = jdd.k",
+        "SELECT fk, w FROM jf LEFT ANTI JOIN jdd ON jf.fk = jdd.k",
+        "SELECT fk, label, name FROM jf ANY LEFT JOIN jdd ON jf.fk = jdd.k",
+        "SELECT fk, label, name FROM jf INNER JOIN jdd ON jf.fk = jdd.k",
+        "SELECT fk, label, name FROM jf LEFT JOIN jdd ON jf.fk = jdd.k",
+        "SELECT fk, w, label FROM jf INNER JOIN jdd ON jf.fk = jdd.k "
+        "AND jdd.label > 50",
+        "SELECT jf.s, v FROM jf INNER JOIN js ON jf.s = js.s",
+        "SELECT jf.nk, v FROM jf LEFT JOIN jn ON jf.nk = jn.nk",
+        "SELECT jf.fl, v FROM jf INNER JOIN jfl ON jf.fl = jfl.fl",
+        "SELECT jf.a, v, fk FROM jf INNER JOIN jm ON jf.a = jm.a",
+        "SELECT jm.a, jfl.v FROM jm CROSS JOIN jfl",
+        "SELECT jm.a, jfl.v FROM jm INNER JOIN jfl ON jm.a < jfl.v",
+    ]
+    got_s, want_s = ch.connect(device="cuda"), ch.connect(device="cpu")
+    for name, cols in tables.items():
+        for s in (got_s, want_s):
+            s.execute(f"CREATE TABLE {name} ("
+                      + ", ".join(f"{c} {t}" for c, (t, _) in cols.items())
+                      + ")")
+            s.insert_pydict(name, {c: v for c, (_, v) in cols.items()})
+    for sql in queries:
+        got, want = got_s.execute(sql).rows(), want_s.execute(sql).rows()
+        if len(got) != len(want) or any(
+                len(g) != len(w) or not all(_same(a, b) for a, b in zip(g, w))
+                for g, w in zip(got, want)):
+            fail(f"{sql} on the card differs from the CPU: "
+                 f"{got[:3]} vs {want[:3]} ({len(got)} vs {len(want)} rows)")
+    try:
+        got_s.execute("SELECT fk, label FROM jf INNER JOIN jdd "
+                      "ON jf.fk = jdd.k SETTINGS max_joined_rows = 1024, "
+                      "capacity_autotune = 0")
+    except CapacityError as e:
+        if e.setting != "max_joined_rows":
+            fail(f"the 1:N join's capacity check named {e.setting}")
+    else:
+        fail("a 1:N join over its max_joined_rows raised no CapacityError")
+    print(f"{len(queries)} small join queries on the card match the CPU row "
+          f"for row (INNER, LEFT, RIGHT, SEMI, ANTI, ANY, 1:N, residual, "
+          f"String, Nullable and Float64 keys, CROSS, non-equi); a 1:N "
+          f"join past max_joined_rows raised CapacityError", flush=True)
+
+
+def _same(a, b) -> bool:
+    """One value of a row: equal, both NULL, both NaN, or floats within
+    FLOAT_RTOL (sums add in another order on the card)."""
+    if isinstance(a, float) and isinstance(b, float):
+        if math.isnan(a) or math.isnan(b):
+            return math.isnan(a) and math.isnan(b)
+        return math.isclose(a, b, rel_tol=FLOAT_RTOL, abs_tol=0.0)
+    return a == b
 
 
 def main():
@@ -1432,7 +2113,9 @@ def main():
         k2_wide(dev)
         return
     if sys.argv[1:] == ["--queries"]:
-        time_queries(load_hits(ch)[0])
+        s = load_hits(ch)[0]
+        load_join_tables(s)
+        time_queries(s)
         return
 
     check_k1(dev)
@@ -1441,10 +2124,16 @@ def main():
     check_k4(dev)
     check_k5(dev)
     check_k6(dev)
+    check_k7(dev)
+    check_k8(dev)
+    check_k9(dev)
     check_small_queries(ch)
+    check_small_joins(ch)
 
     s, x = load_hits(ch)
     want = expected_answers(x)
+    want.update(join_answers(*load_join_tables(s)))
+    del x
 
     # the main path, once, through the public API: each query with the
     # launch counters set to 0 just before it and read just after.  Two
@@ -1504,6 +2193,7 @@ def main():
     try:
         main_path(s, want, per_query, launches, launch_rows, k1_forms_seen,
                   k4_calls, memory)
+        join_path(s, want, per_query, launches, launch_rows, memory)
     finally:
         agg_ops._masked_reduce_cuda = k1_cuda
         sort_ops._radix_sort_cuda = k4_cuda
@@ -1515,9 +2205,13 @@ def main():
     shapes = q_shapes(dev, args)
     shapes.update(sort_shapes(dev, args))
     del args
-    for name in ("radix_sort_pairs", "segment_reduce"):
+    shapes.update(join_shapes(dev, join_args(s)))
+    for name in ("radix_sort_pairs", "segment_reduce", "segment_bounds"):
         shapes[name]["launches_per_query"] = {
-            q: per_query[q][name] for q in ("Q2b", "Q2m")}
+            q: per_query[q][name] for q in ("Q2b", "Q2m", "Q4x")}
+    for name in ("dense_join", "hash_join", "expand_matches"):
+        shapes[name]["launches_per_query"] = {
+            q: per_query[q][name] for q, _ in JOIN_QUERIES}
     shapes["masked_reduce"].update(
         launches_fused=k1_forms_seen["fused"],
         launches_mask_form=k1_forms_seen["mask_form"])
@@ -1633,7 +2327,14 @@ def kernel_line(card, shapes, launches, launch_rows):
                    "clickhouse_tpu/ops/scan_ops.py:52"),
                "segment_reduce": (
                    "clickhouse_tpu_torch/csrc/segment_reduce.cu",
-                   "clickhouse_tpu/ops/scan_ops.py:147")}
+                   "clickhouse_tpu/ops/scan_ops.py:147"),
+               "dense_join": ("clickhouse_tpu_torch/csrc/dense_join.cu",
+                              "clickhouse_tpu/ops/join_ops.py:65"),
+               "hash_join": ("clickhouse_tpu_torch/csrc/hash_join.cu",
+                             "clickhouse_tpu/ops/join_ops.py:131"),
+               "expand_matches": (
+                   "clickhouse_tpu_torch/csrc/expand_matches.cu",
+                   "clickhouse_tpu/ops/join_ops.py:328")}
     kernels = []
     for name, (src, repl) in sources.items():
         r = shapes[name]

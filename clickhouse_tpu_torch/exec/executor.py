@@ -16,8 +16,18 @@ The route is chosen by the predicate's form alone.
 Ported nodes: OneRow (SELECT without FROM), Numbers (numbers()), Scan,
 Filter, Project, Aggregate (GROUP BY (), dense and sort GROUP BY), Sort
 (top-k for a LIMIT up to 4,096 rows, else a full stable sort; LIMIT 0
-launches nothing) and Limit.  Every other node, and every path of these nodes
-that is not ported, raises ``NotImplementedError_`` naming it.
+launches nothing), Limit and Join (INNER, LEFT, RIGHT as the analyzer's
+swapped LEFT, SEMI, ANTI, ANY and CROSS, with USING, residual ON
+predicates and NULL keys; ASOF raises).  Every other node, and every path
+of these nodes that is not ported, raises ``NotImplementedError_`` naming
+it.
+
+A join keeps the probe (left) side's rows in place where each probe row
+takes at most one build row (``_join_propagate``: K7's direct-address
+table for unique keys in a small proven range, else K8's hash table), and
+expands the matches otherwise (the build side grouped with K4 and K5, K8's
+probe, K9's expansion): output rows probe-major, build rows in key-sorted
+order, as the reference's.
 
 A GROUP BY whose groups may outnumber their slots (the sort grouping, at
 most ``max_groups``) registers a capacity check; ``materialize`` reads the
@@ -39,9 +49,9 @@ from ..core.errors import CapacityError, NotImplementedError_
 from ..core.settings import Settings
 from ..exprs import aggregates as agg_reg
 from ..exprs.expr import (DEVICE_KEY, BoundCall, BoundColumn, BoundLiteral,
-                          ColVal, _literal_colval, colval_from_column,
-                          evaluate)
-from ..ops import _native, agg_ops, filter_ops, sort_ops
+                          ColVal, StoredColVal, _literal_colval,
+                          colval_from_column, evaluate, storage_np)
+from ..ops import _native, agg_ops, filter_ops, join_ops, sort_ops
 from ..plan import logical as L
 
 __all__ = ["ExecBlock", "ExecContext", "execute_plan", "materialize"]
@@ -154,10 +164,12 @@ def _filter_term(expr, env: Dict[str, ColVal],
 
 
 def _gather_colval(cv: ColVal, idx: torch.Tensor, capacity: int) -> ColVal:
+    """The column's rows at idx (a column stored narrow stays narrow)."""
     cv = cv.broadcast(capacity)
-    data = cv.data[idx]
     validity = cv.validity[idx] if cv.validity is not None else None
-    return ColVal(cv.dtype, data, validity, cv.dictionary)
+    if isinstance(cv, StoredColVal):
+        return StoredColVal(cv.dtype, cv.storage[idx], validity)
+    return ColVal(cv.dtype, cv.data[idx], validity, cv.dictionary)
 
 
 def _arange(n: int, device, dtype=torch.int64) -> torch.Tensor:
@@ -586,6 +598,389 @@ def _exec_numbers(node: L.NumbersNode, ctx: ExecContext) -> ExecBlock:
                      agg_ops.RowMask(cap, ctx.device, node.count), cap)
 
 
+# -- joins -------------------------------------------------------------------
+
+def _unify_join_keys(lk: ColVal, rk: ColVal, lcap: int, rcap: int,
+                     bounds=None):
+    """Common representation of one join key pair (dictionary unification
+    for strings, numpy's supertype cast otherwise).  bounds: the proven
+    (lo, hi) over both sides' integer keys, or None; where both keys are
+    8-byte integers within int32 they come back as int32 (the reference
+    narrows them so), read from a column's int32 storage without a copy.
+    -> (left keys, right keys, left validity, right validity)."""
+    lk = lk.broadcast(lcap)
+    rk = rk.broadcast(rcap)
+    if lk.dtype.is_dictionary and rk.dtype.is_dictionary:
+        from ..exprs.functions import _string_codes_common
+        la, ra, _merged = _string_codes_common(lk, rk)
+        return la, ra, lk.validity, rk.validity
+    lt, rt = storage_np(lk), storage_np(rk)
+    ct = np.promote_types(lt, rt)
+    if ct.kind in ("i", "u") and ct.itemsize == 8 and bounds is not None \
+            and -2**31 <= bounds[0] and bounds[1] < 2**31:
+        return _int32_key(lk, lt), _int32_key(rk, rt), lk.validity, \
+            rk.validity
+    return dt.cast_tensor(lk.data, lt, ct), dt.cast_tensor(rk.data, rt, ct), \
+        lk.validity, rk.validity
+
+
+def _int32_key(cv: ColVal, logical) -> torch.Tensor:
+    """An integer key proven within int32, as int32 (its storage itself
+    where that is int32)."""
+    st = cv.storage
+    if st.dtype == torch.int32:
+        return st
+    if st.dtype in (torch.int8, torch.int16, torch.uint8):
+        return st.to(torch.int32)
+    return dt.cast_tensor(cv.data, logical, np.int32)
+
+
+def _colval_words(cv: ColVal, capacity: int, bounds=None):
+    """Decompose a ColVal into 32-bit words + a reassembler (the build
+    columns' words that the N:1 join carries to its probe rows).
+    -> (words, rebuild, narrow): rebuild(words) gives the column's data;
+    narrow says the data is its one word's value (the column is then kept
+    as that int32 word, read as stored); None for types without words."""
+    cv = cv.broadcast(capacity)
+    logical = storage_np(cv)
+    kind = logical.kind
+    itemsize = logical.itemsize
+    words: List[torch.Tensor] = []
+    narrow = False
+    fits = bounds is not None and -2**31 <= bounds[0] and bounds[1] < 2**31
+    if kind in ("i", "u", "b") and (itemsize <= 4 or fits):
+        words.append(dt.cast_tensor(cv.data, logical, np.int32))
+        # the word holds the value itself unless it wrapped (UInt32)
+        narrow = fits or logical != np.uint32
+
+        def rebuild(ws, lt=logical):
+            return dt.cast_tensor(ws[0], np.int32, lt)
+    elif kind in ("i", "u"):
+        data = cv.data.to(torch.int64)
+        words.append((data & 0xFFFFFFFF).to(torch.int32))          # lo
+        words.append((data >> 32).to(torch.int32))                 # hi
+
+        def rebuild(ws, lt=logical):
+            lo = ws[0].to(torch.int64) & 0xFFFFFFFF
+            return ((ws[1].to(torch.int64) << 32) | lo).to(
+                dt.torch_dtype_of(lt))
+    elif logical == np.float32:
+        words.append(cv.data.to(torch.float32).contiguous().view(
+            torch.int32))
+
+        def rebuild(ws):
+            return ws[0].contiguous().view(torch.float32)
+    elif logical == np.float64:
+        from ..ops.hash_ops import f64_from_token, f64_token
+        bits = f64_token(cv.data)
+        words.append((bits & 0xFFFFFFFF).to(torch.int32))
+        words.append((bits >> 32).to(torch.int32))
+
+        def rebuild(ws):
+            lo = ws[0].to(torch.int64) & 0xFFFFFFFF
+            return f64_from_token((ws[1].to(torch.int64) << 32) | lo)
+    else:
+        return None
+    if cv.validity is not None:
+        words.append(cv.validity.to(torch.int32))
+    return words, rebuild, narrow
+
+
+def _propagate_ok(node: L.JoinNode, right: ExecBlock) -> bool:
+    """Can this join run on the propagate (no-expansion) path?"""
+    if node.kind == "cross":
+        return False
+    if node.strictness in ("semi", "anti", "any", "asof"):
+        ok_kinds = True
+    elif node.strictness == "all" and node.kind in ("inner", "left") \
+            and node.build_unique:
+        ok_kinds = True
+    else:
+        return False
+    left_ids = {f.id for f in node.left.schema}
+    for f in node.schema:
+        if f.id in left_ids:
+            continue
+        cv = right.cols.get(f.id)
+        if cv is None or cv.dtype.is_array or getattr(
+                cv.data, "ndim", 1) > 1:
+            return False
+    return ok_kinds
+
+
+def _dense_words(node: L.JoinNode, per_field, build_words, ctx):
+    """The direct-address path's output words (the reference's dense
+    eligibility: one unique integer key in a proven range of at most
+    join_dense_table_entries slots, each payload word with a sentinel
+    outside its proven range, at most join_dense_gather_max_words
+    gathers), as (entries, (lo, hi)); None where it does not apply.  Two
+    departures, both to the hash path: a UInt32 payload whose values pass
+    2^31 (its wrapped word may equal the sentinel, which the reference
+    does not check), and more than K7_MAX_ENTRIES words (K7's limit a
+    call)."""
+    from ..plan import ranges
+    s = ctx.settings
+    rb = ranges.infer_bounds(node.right_keys[0], ctx.field_bounds)
+    if rb is None or rb[1] - rb[0] + 1 > s.join_dense_table_entries:
+        return None
+    key_field = node.right_keys[0].name \
+        if isinstance(node.right_keys[0], BoundColumn) else None
+    entries = []
+    n_gathers = 0
+    wi = 0
+    for f, cvb, n_data, _rebuild, narrow in per_field:
+        fb = ctx.field_bounds.get(f.id)
+        n_words = n_data + (1 if cvb.validity is not None else 0)
+        fws = build_words[wi:wi + n_words]
+        wi += n_words
+        is_key = f.id == key_field and n_data == 1
+        for j, w in enumerate(fws):
+            if is_key:                    # value == probe key: free
+                entries.append(("key",) if j < n_data else ("keyvalid",))
+            elif j >= n_data:             # validity word in {0, 1}
+                entries.append(("word", w, 2))
+                n_gathers += 1
+            elif n_data == 1 and fb is not None and narrow:
+                # (a word that wrapped, a UInt32 above 2^31, could equal
+                # a sentinel taken from its value's bounds)
+                lo_, hi_ = int(fb[0]), int(fb[1])
+                if lo_ > -(2 ** 31) + 1:
+                    entries.append(("word", w, lo_ - 1))
+                elif hi_ < 2 ** 31 - 2:
+                    entries.append(("word", w, hi_ + 1))
+                else:
+                    return None           # no sentinel available
+                n_gathers += 1
+            else:
+                return None               # unbounded / multi-word
+    if n_gathers > s.join_dense_gather_max_words or len(entries) \
+            + (n_gathers == 0) > _native.K7_MAX_ENTRIES:
+        return None
+    return entries, rb
+
+
+def _join_propagate(node: L.JoinNode, left: ExecBlock, right: ExecBlock,
+                    lkeys, rkeys, probe_ok, build_ok,
+                    ctx: ExecContext) -> ExecBlock:
+    """Propagate-join execution: the output keeps the probe rows in place
+    (capacity = the probe side's)."""
+    s = ctx.settings
+    lcap, rcap = left.capacity, right.capacity
+    left_ids = {f.id for f in node.left.schema}
+    right_fields = [f for f in node.schema if f.id not in left_ids]
+    per_field = []           # (field, cv, n_data_words, rebuild, narrow)
+    build_words: List[torch.Tensor] = []
+    for f in right_fields:
+        cv = right.cols[f.id]
+        dec = _colval_words(cv, rcap, bounds=ctx.field_bounds.get(f.id))
+        if dec is None:
+            raise NotImplementedError_(
+                f"JOIN payload columns of type {cv.dtype} are not ported to "
+                f"the CUDA engine yet")
+        words, rebuild, narrow = dec
+        cvb = cv.broadcast(rcap)
+        n_data = len(words) - (1 if cvb.validity is not None else 0)
+        per_field.append((f, cvb, n_data, rebuild, narrow))
+        build_words.extend(words)
+
+    # Dense direct-address fast path (K7): unique build keys in a small
+    # proven range turn the join into one table scatter and one gather a
+    # probe row per payload word
+    pr = None
+    if (len(rkeys) == 1 and s.join_dense_gather
+            and (node.build_unique or node.strictness in ("semi", "anti"))
+            and not rkeys[0].is_floating_point()
+            and rkeys[0].dtype != torch.bool
+            and not node.right_keys[0].dtype.is_dictionary):
+        dense = _dense_words(node, per_field, build_words, ctx)
+        if dense is not None:
+            entries, rb = dense
+            ctx.count("DenseGatherJoins")
+            pr = join_ops.dense_gather_join(rkeys[0], build_ok, lkeys[0],
+                                            probe_ok, entries, rb[0], rb[1])
+    if pr is None:
+        pr = join_ops.propagate_join(rkeys, build_ok, lkeys, probe_ok,
+                                     build_words)
+
+    if node.strictness in ("semi", "anti"):
+        keep = pr.matched if node.strictness == "semi" else ~pr.matched
+        return ExecBlock(left.cols, left.rows.and_mask(keep), lcap)
+
+    left_outer = node.kind == "left"
+    mmask = pr.matched
+    cols: Dict[str, ColVal] = {f.id: left.cols[f.id] for f in node.schema
+                               if f.id in left_ids}
+    wi = 0
+    for f, cv, nw, rebuild, narrow in per_field:
+        has_v = cv.validity is not None
+        ws = pr.words[wi:wi + nw]
+        wi += nw + (1 if has_v else 0)
+        validity = (pr.words[wi - 1] & 1).to(torch.uint8) if has_v else None
+        if left_outer:
+            data = rebuild(ws)
+            if s.join_use_nulls or cv.dtype.nullable:
+                v = validity if validity is not None \
+                    else torch.ones(data.shape, dtype=torch.uint8,
+                                    device=data.device)
+                validity = torch.where(mmask, v, 0).to(torch.uint8)
+            else:
+                data = torch.where(mmask, data, _default_scalar(cv))
+            cols[f.id] = ColVal(cv.dtype, data, validity, cv.dictionary)
+        elif narrow and not cv.dtype.is_dictionary:
+            # the kernels wrote 0 where unmatched: the word as stored
+            cols[f.id] = StoredColVal(cv.dtype, ws[0], validity)
+        else:
+            data = rebuild(ws)
+            data = torch.where(mmask, data, torch.zeros((), dtype=data.dtype,
+                                                        device=data.device))
+            cols[f.id] = ColVal(cv.dtype, data, validity, cv.dictionary)
+
+    rows = left.rows if left_outer else left.rows.and_mask(mmask)
+    out = ExecBlock(cols, rows, lcap)
+    if node.residual is not None:
+        pred = evaluate(node.residual, out.env())
+        out = ExecBlock(out.cols, out.rows.and_mask(_bool_mask(pred, lcap)),
+                        lcap)
+    return out
+
+
+def _exec_join(node: L.JoinNode, ctx: ExecContext) -> ExecBlock:
+    if node.strictness == "asof":
+        raise NotImplementedError_(
+            "ASOF JOIN is not ported to the CUDA engine yet")
+    left = execute_plan(node.left, ctx)
+    right = execute_plan(node.right, ctx)
+    lcap, rcap = left.capacity, right.capacity
+    s = ctx.settings
+    dev = ctx.device
+
+    if node.kind == "cross":
+        lkeys = [torch.zeros(lcap, dtype=torch.int32, device=dev)]
+        rkeys = [torch.zeros(rcap, dtype=torch.int32, device=dev)]
+        lvs, rvs = [], []
+    else:
+        from ..plan import ranges
+        lkey_cvs = [evaluate(e, left.env()) for e in node.left_keys]
+        rkey_cvs = [evaluate(e, right.env()) for e in node.right_keys]
+        lkeys, rkeys, lvs, rvs = [], [], [], []
+        for le, re_, lk_cv, rk_cv in zip(node.left_keys, node.right_keys,
+                                         lkey_cvs, rkey_cvs):
+            lb = ranges.infer_bounds(le, ctx.field_bounds)
+            rb = ranges.infer_bounds(re_, ctx.field_bounds)
+            both = None if lb is None or rb is None \
+                else (min(lb[0], rb[0]), max(lb[1], rb[1]))
+            la, ra, lv, rv = _unify_join_keys(lk_cv, rk_cv, lcap, rcap, both)
+            lkeys.append(la)
+            rkeys.append(ra)
+            if lv is not None:     # NULL keys never match
+                lvs.append(lv.to(torch.bool))
+            if rv is not None:
+                rvs.append(rv.to(torch.bool))
+    build_ok = right.valid
+    for v in rvs:
+        build_ok = build_ok & v
+
+    if _propagate_ok(node, right):
+        # the probe rows past the scan's row count need no mask: the
+        # output's row mask drops them
+        probe_ok = None
+        if left.rows.mask is not None or left.rows.terms or lvs:
+            probe_ok = left.valid
+            for v in lvs:
+                probe_ok = probe_ok & v
+        return _join_propagate(node, left, right, lkeys, rkeys,
+                               probe_ok, build_ok, ctx)
+
+    probe_ok = left.valid
+    for v in lvs:
+        probe_ok = probe_ok & v
+    cap_g = pad_to(min(rcap, s.max_join_build_rows))
+    table = join_ops.build_join_table(rkeys, build_ok, cap_g,
+                                      max_bytes=ctx.memory_headroom)
+    pr = join_ops.probe_join_table(table, lkeys, probe_ok)
+
+    if node.strictness in ("semi", "anti"):
+        keep = pr.matched if node.strictness == "semi" else ~pr.matched
+        return ExecBlock(left.cols, left.rows.and_mask(keep), lcap)
+
+    left_outer = node.kind == "left"
+    any_join = node.strictness == "any"
+    if node.kind == "cross":
+        out_cap = pad_to(min(lcap * rcap, 1 << 24))
+    elif s.max_joined_rows > 0:
+        out_cap = pad_to(s.max_joined_rows)
+    else:
+        out_cap = pad_to(lcap + rcap)
+    p_idx, b_pos, mmask, out_count = join_ops.expand_matches(
+        pr, left.valid, out_cap, left=left_outer, any_join=any_join)
+    ctx.checks.append(Check(out_count, out_cap,
+                            "JOIN result exceeded the output capacity; raise "
+                            "the max_joined_rows setting",
+                            setting="max_joined_rows"))
+
+    # b_pos addresses the key-sorted build order: each build column is
+    # gathered through row_order once (build-sized), then once a slot
+    order = table.row_order
+    if order.numel() == 0:
+        order = torch.zeros(1, dtype=torch.int32, device=dev)
+    b_idx = torch.clamp(b_pos, 0, order.shape[0] - 1)
+    cols: Dict[str, ColVal] = {}
+    left_ids = {f.id for f in node.left.schema}
+    for f in node.schema:
+        if f.id in left_ids:
+            cols[f.id] = _gather_colval(left.cols[f.id], p_idx, lcap)
+            continue
+        cv = right.cols[f.id].broadcast(rcap)
+        stored = isinstance(cv, StoredColVal)      # gathered as stored
+        data = (cv.storage if stored else cv.data).index_select(
+            0, order).index_select(0, b_idx)
+        validity = None if cv.validity is None else \
+            cv.validity.index_select(0, order).index_select(0, b_idx)
+        if left_outer:
+            # join_use_nulls=0 semantics: unmatched -> default value
+            if s.join_use_nulls or cv.dtype.nullable:
+                v = validity if validity is not None \
+                    else torch.ones(data.shape, dtype=torch.uint8,
+                                    device=dev)
+                validity = torch.where(mmask, v, 0).to(torch.uint8)
+            else:
+                data = torch.where(mmask, data, torch.zeros(
+                    (), dtype=data.dtype, device=dev) if stored
+                    else _default_scalar(cv))
+        cols[f.id] = StoredColVal(cv.dtype, data, validity) if stored \
+            else ColVal(cv.dtype, data, validity, cv.dictionary)
+
+    # the match flags are False past out_count: an INNER or CROSS join's
+    # rows are its matched slots
+    valid = _arange(out_cap, dev, torch.int32) < out_count \
+        if node.kind == "left" else mmask
+    out = ExecBlock(cols, agg_ops.RowMask.of(valid), out_cap)
+    if node.residual is not None:
+        pred = evaluate(node.residual, out.env())
+        out = ExecBlock(out.cols,
+                        out.rows.and_mask(_bool_mask(pred, out_cap)),
+                        out_cap)
+    return out
+
+
+def _default_scalar(cv: ColVal) -> torch.Tensor:
+    """A LEFT join's value for an unmatched row (join_use_nulls=0): 0, or
+    '' for a String, added to its dictionary where it is missing."""
+    dev = cv.data.device
+    if cv.dtype.is_dictionary:
+        d = cv.dictionary
+        if d is not None:
+            code = d.lookup("")
+            if code < 0:
+                d.values = np.append(d.values, "")
+                d._index = None
+                d._values_str = None
+                d.sorted_ = False
+                code = len(d.values) - 1
+            return torch.tensor(code, dtype=cv.data.dtype, device=dev)
+    return torch.zeros((), dtype=cv.data.dtype, device=dev)
+
+
 _DISPATCH: Dict[type, Callable] = {
     L.OneRowNode: _exec_onerow,
     L.NumbersNode: _exec_numbers,
@@ -595,6 +990,7 @@ _DISPATCH: Dict[type, Callable] = {
     L.AggregateNode: _exec_aggregate,
     L.SortNode: _exec_sort,
     L.LimitNode: _exec_limit,
+    L.JoinNode: _exec_join,
 }
 
 

@@ -66,6 +66,10 @@ class Session:
         self.device = _resolve_device(device)
         self.settings = settings or Settings()
         self.catalog = catalog or Catalog(device=self.device)
+        # counters of the queries run (the reference's ProfileEvents):
+        # Query, SelectedRows, CapacityRetunes and the executor's own
+        # (DenseGatherJoins, ...)
+        self.profile_events: Dict[str, int] = {}
 
     # -- public API ----------------------------------------------------------
     def execute(self, sql: str, settings: Optional[Dict[str, Any]] = None
@@ -139,9 +143,18 @@ class Session:
                 cur = getattr(settings, e.setting)
                 new = max(pad_to(int(e.needed * 5 // 4) + 1), cur * 2)
                 settings = settings.copy_with({e.setting: new})
+                self._count("CapacityRetunes")
         types = [(f.display, str(f.dtype)) for f in plan.schema]
+        self._count("Query")
+        self._count("SelectedRows", ctx.profile.get("rows_scanned", 0))
+        for k, v in ctx.profile.items():
+            if k != "rows_scanned":
+                self._count(k, v)
         return Result(cols, types,
                       rows_read=ctx.profile.get("rows_scanned", 0))
+
+    def _count(self, name: str, value: int = 1) -> None:
+        self.profile_events[name] = self.profile_events.get(name, 0) + value
 
     def _collect_table_blocks(self, plan: L.PlanNode, out=None):
         if out is None:

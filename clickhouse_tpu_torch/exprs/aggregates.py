@@ -126,9 +126,11 @@ class AggregateFunction:
     @staticmethod
     def _value(ctx: GroupContext, cv: ColVal) -> torch.Tensor:
         """The argument's values, raw row order: under the sort grouping
-        the column as stored (K6 widens as it reads), else its data."""
+        and GROUP BY () the column as stored (K6 and K1 widen as they
+        read), else its data."""
         cv = cv.broadcast(ctx.capacity)
-        return cv.storage if ctx.grouping.kind == "sort" else cv.data
+        return cv.storage if ctx.grouping.kind in ("sort", "trivial") \
+            else cv.data
 
     def _logical(self, s: torch.Tensor) -> torch.Tensor:
         """A min/max/any state in the argument's logical type (K6 gives it

@@ -1,14 +1,21 @@
 """Device operators and the engine's hand-written CUDA kernels.
 
-Three kernels carry the slice's main path, each beside its plain PyTorch
-version in the module that uses it:
+Nine kernels carry the main path, each beside its plain PyTorch version in
+the module that uses it:
 
-  K1 agg_ops.masked_reduce          (csrc/masked_reduce.cu)
-  K2 mxu_segsum.dense_group_reduce  (csrc/dense_group_reduce.cu)
-  K3 sort_ops.topk_smallest         (csrc/topk_smallest.cu)
+  K1 agg_ops.masked_reduce             (csrc/masked_reduce.cu)
+  K2 mxu_segsum.dense_group_reduce     (csrc/dense_group_reduce.cu)
+  K3 sort_ops.topk_smallest            (csrc/topk_smallest.cu)
+  K4 sort_ops.radix_sort_pairs         (csrc/radix_sort.cu)
+  K5 scan_ops.segment_bounds           (csrc/segment_bounds.cu)
+  K6 scan_ops.segment_reduce_many      (csrc/segment_reduce.cu)
+  K7 join_ops.dense_gather_join        (csrc/dense_join.cu)
+  K8 join_ops.propagate_join, build/probe_join_table (csrc/hash_join.cu)
+  K9 join_ops.expand_matches           (csrc/expand_matches.cu)
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches its kernel or raises.  ``_native`` builds the kernels at the first
 launch.
 """
-from . import hash_ops, agg_ops, filter_ops, mxu_segsum, sort_ops
+from . import (hash_ops, agg_ops, filter_ops, join_ops, mxu_segsum, scan_ops,
+               sort_ops)

@@ -32,7 +32,8 @@ __all__ = ["LAUNCHES", "LAUNCH_ROWS", "KernelBuildError", "build", "library",
            "check", "count_launch", "reset_launches", "stream_ptr",
            "dtype_code", "grid_blocks", "aligned16", "K1_MAX_TERMS",
            "K1Term", "K1Args", "K6_MAX_SPECS", "K6_MAX_DATA", "K6_MAX_MASKS",
-           "K6Spec", "K6Count", "K6Args"]
+           "K6Spec", "K6Count", "K6Args", "K7_MAX_ENTRIES", "K7Entry",
+           "K7Args", "K8_MAX_KEYS", "K8_MAX_WORDS", "K8Args", "K9Args"]
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -43,7 +44,9 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 # kernel name -> launches since the last reset
 LAUNCHES: Dict[str, int] = {"masked_reduce": 0, "dense_group_reduce": 0,
                             "topk_smallest": 0, "radix_sort_pairs": 0,
-                            "segment_bounds": 0, "segment_reduce": 0}
+                            "segment_bounds": 0, "segment_reduce": 0,
+                            "dense_join": 0, "hash_join": 0,
+                            "expand_matches": 0}
 # kernel name -> row count of each launch since the last reset
 LAUNCH_ROWS: Dict[str, List[int]] = {k: [] for k in LAUNCHES}
 
@@ -106,6 +109,60 @@ class K6Args(ctypes.Structure):
                 ("mask", ctypes.c_void_p * K6_MAX_MASKS),
                 ("count", K6Count * (K6_MAX_MASKS + 1)),
                 ("spec", K6Spec * K6_MAX_SPECS)]
+
+
+K7_MAX_ENTRIES = 8     # kMaxEntries of csrc/dense_join.cu
+
+
+class K7Entry(ctypes.Structure):
+    """ChttDenseEntry of csrc/dense_join.cu (one output word)."""
+    _fields_ = [("word", ctypes.c_void_p), ("table", ctypes.c_void_p),
+                ("out", ctypes.c_void_p), ("kind", ctypes.c_int),
+                ("sentinel", ctypes.c_int)]
+
+
+class K7Args(ctypes.Structure):
+    """ChttDenseArgs of csrc/dense_join.cu (one call of K7)."""
+    _fields_ = [("build_key", ctypes.c_void_p),
+                ("build_valid", ctypes.c_void_p),
+                ("n_build", ctypes.c_longlong),
+                ("probe_key", ctypes.c_void_p),
+                ("probe_valid", ctypes.c_void_p),
+                ("n_probe", ctypes.c_longlong), ("lo", ctypes.c_longlong),
+                ("R", ctypes.c_longlong), ("matched", ctypes.c_void_p),
+                ("build_dtype", ctypes.c_int), ("probe_dtype", ctypes.c_int),
+                ("n_entries", ctypes.c_int), ("first", ctypes.c_int),
+                ("e", K7Entry * K7_MAX_ENTRIES)]
+
+
+K8_MAX_KEYS = 8        # kMaxKeys of csrc/hash_join.cu
+K8_MAX_WORDS = 8       # kMaxWords
+
+
+class K8Args(ctypes.Structure):
+    """ChttHashArgs of csrc/hash_join.cu (one build or probe of K8)."""
+    _fields_ = [("build", ctypes.c_void_p * K8_MAX_KEYS),
+                ("probe", ctypes.c_void_p * K8_MAX_KEYS),
+                ("bytes", ctypes.c_int * K8_MAX_KEYS), ("nk", ctypes.c_int),
+                ("n_words", ctypes.c_int), ("build_valid", ctypes.c_void_p),
+                ("probe_valid", ctypes.c_void_p),
+                ("n_build", ctypes.c_longlong),
+                ("n_probe", ctypes.c_longlong), ("table", ctypes.c_void_p),
+                ("cap", ctypes.c_longlong), ("matched", ctypes.c_void_p),
+                ("src", ctypes.c_void_p * K8_MAX_WORDS),
+                ("out", ctypes.c_void_p * K8_MAX_WORDS)]
+
+
+class K9Args(ctypes.Structure):
+    """ChttExpandArgs of csrc/expand_matches.cu (one call of K9)."""
+    _fields_ = [("matched", ctypes.c_void_p), ("valid", ctypes.c_void_p),
+                ("seg_start", ctypes.c_void_p), ("seg_len", ctypes.c_void_p),
+                ("n", ctypes.c_longlong), ("out_cap", ctypes.c_longlong),
+                ("left", ctypes.c_int), ("any_join", ctypes.c_int),
+                ("offsets", ctypes.c_void_p), ("out_count", ctypes.c_void_p),
+                ("status", ctypes.c_void_p), ("p_idx", ctypes.c_void_p),
+                ("build_pos", ctypes.c_void_p), ("mask", ctypes.c_void_p),
+                ("tiles", ctypes.c_int), ("pad", ctypes.c_int)]
 
 
 class KernelBuildError(RuntimeError):
@@ -210,6 +267,16 @@ def library() -> ctypes.CDLL:
             lib.chtt_segment_tile_rows.restype = I
             lib.chtt_segment_reduce.argtypes = [P, P]
             lib.chtt_segment_reduce.restype = I
+            lib.chtt_dense_join.argtypes = [P, P]
+            lib.chtt_dense_join.restype = I
+            lib.chtt_hash_build.argtypes = [P, P]
+            lib.chtt_hash_build.restype = I
+            lib.chtt_hash_probe.argtypes = [P, P]
+            lib.chtt_hash_probe.restype = I
+            lib.chtt_expand_matches.argtypes = [P, P]
+            lib.chtt_expand_matches.restype = I
+            lib.chtt_expand_tile_rows.argtypes = []
+            lib.chtt_expand_tile_rows.restype = I
             lib.chtt_error_string.argtypes = [I]
             lib.chtt_error_string.restype = ctypes.c_char_p
             _LIB = lib

@@ -31,6 +31,26 @@ class Part:
     num_rows: int
     minmax: Dict[str, Tuple[float, float]] = dataclasses.field(
         default_factory=dict)
+    # lazy per-column uniqueness stat (absent = not computed yet)
+    _unique: Dict[str, bool] = dataclasses.field(default_factory=dict)
+
+    # columns larger than this skip the uniqueness stat (host np.unique cost)
+    UNIQUE_STAT_MAX_ROWS = 64_000_000
+
+    def is_unique(self, name: str) -> Optional[bool]:
+        """True iff this part's values in `name` are all distinct (the
+        planner's N:1-join statistic; computed lazily, cached).  None when
+        unknown (too large / non-numeric)."""
+        if name in self._unique:
+            return self._unique[name]
+        v = self.columns.get(name)
+        if v is None or v.dtype == object \
+                or v.dtype.kind not in ("i", "u", "f") \
+                or len(v) > self.UNIQUE_STAT_MAX_ROWS:
+            return None
+        u = bool(len(np.unique(v)) == len(v))
+        self._unique[name] = u
+        return u
 
     @staticmethod
     def from_pydict(data: Dict[str, np.ndarray]) -> "Part":
@@ -140,6 +160,27 @@ class Table:
                 else:
                     total += t.np_dtype.itemsize * n
         return total
+
+    def column_unique(self, name: str) -> bool:
+        """Whole-table uniqueness of a column: every part unique AND part
+        minmax ranges pairwise disjoint (cheap conservative check)."""
+        if not self.parts:
+            return True
+        ranges = []
+        for p in self.parts:
+            if p.num_rows == 0:
+                continue
+            if p.is_unique(name) is not True:
+                return False
+            mm = p.minmax.get(name)
+            if mm is None:
+                return len([q for q in self.parts if q.num_rows]) == 1
+            ranges.append(mm)
+        ranges.sort()
+        for (lo_a, hi_a), (lo_b, hi_b) in zip(ranges, ranges[1:]):
+            if lo_b <= hi_a:
+                return False
+        return True
 
     def column_bounds(self, name: str):
         """Integer (lo, hi) over all parts, or None (minmax-index analog)."""

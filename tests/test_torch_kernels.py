@@ -17,12 +17,19 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (CMPS, K4_ROWS, K5_CASES, SORT_KEY_CHAINS, U64_EDGE,
-                        grouped_rows, k5_args, k6_many_specs, make_term,
-                        sort_key_columns, term_cases)
+from chip_smoke import (CMPS, K4_ROWS, K5_CASES, K7_CASES, K8_CASES,
+                        K9_CASES, SORT_KEY_CHAINS, U64_EDGE, grouped_rows,
+                        k5_args, k6_many_specs, k7_args, k8_args, k8_plain,
+                        k9_args, make_term, sort_key_columns, term_cases)
 from clickhouse_tpu_torch.ops import _native
 from clickhouse_tpu_torch.ops.agg_ops import (_masked_reduce_plain,
                                               masked_reduce)
+from clickhouse_tpu_torch.ops.join_ops import (ProbeResult,
+                                               _dense_gather_join_plain,
+                                               _expand_matches_plain,
+                                               dense_gather_join,
+                                               expand_matches,
+                                               propagate_join)
 from clickhouse_tpu_torch.ops.mxu_segsum import (_dense_group_reduce_plain,
                                                  dense_group_reduce)
 from clickhouse_tpu_torch.ops.scan_ops import (K5_TILE_ROWS,
@@ -339,9 +346,16 @@ def test_launch_counters_count_kernel_launches(dev):
     key, perm = radix_sort_pairs(x.to(torch.int32), 4)
     gid, _, _, _ = segment_bounds([key], torch.tensor(10, device=dev), 16)
     segment_reduce("sum", x, None, perm, gid, 16)
+    word = x.to(torch.int32)
+    dense_gather_join(x, None, x, None, [("word", word, -1)], 0, 9)
+    propagate_join([x], None, [x], None, [word])
+    ones = torch.ones(10, dtype=torch.bool, device=dev)
+    expand_matches(ProbeResult(ones, word, torch.ones_like(word)), ones, 1024)
     assert _native.LAUNCHES == {"masked_reduce": 1, "dense_group_reduce": 1,
                                 "topk_smallest": 1, "radix_sort_pairs": 1,
-                                "segment_bounds": 1, "segment_reduce": 1}
+                                "segment_bounds": 1, "segment_reduce": 1,
+                                "dense_join": 1, "hash_join": 1,
+                                "expand_matches": 1}
 
 
 # -- K4 radix_sort_pairs, K5 segment_bounds, K6 segment_reduce ----------------
@@ -682,3 +696,48 @@ def test_sql_on_card_matches_cpu(sessions_cpu_cuda, sql):
                 assert a != a
             else:
                 assert a == b
+
+
+def _exact(got: torch.Tensor, want: torch.Tensor):
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("case", K7_CASES)
+def test_dense_join_cases(dev, case):
+    """K7 on the cases of chip_smoke.k7_case: unique keys, holes, probe
+    keys outside the range, invalid rows, a Nullable payload, sentinels
+    below and above, key words, presence, narrow and UInt64 keys."""
+    bk, bv, pk, pv, words, lo, hi = k7_args(case, np.random.default_rng(
+        len(case)), dev)
+    got = dense_gather_join(bk, bv, pk, pv, words, lo, hi)
+    want = _dense_gather_join_plain(bk, bv, pk, pv, words, lo, hi - lo + 1)
+    _exact(got.matched, want.matched)
+    for a, b in zip(got.words, want.words):
+        _exact(a, b)
+
+
+@pytest.mark.parametrize("case", K8_CASES)
+def test_hash_join_cases(dev, case):
+    """K8 on the cases of chip_smoke.k8_case, three runs each: the smallest
+    build row id must win where keys repeat."""
+    args = k8_args(case, np.random.default_rng(len(case)), dev)
+    want_m, want_w = k8_plain(*args)
+    for _ in range(3):
+        got = propagate_join(*args)
+        _exact(got.matched, want_m)
+        for a, b in zip(got.words, want_w):
+            _exact(a, b)
+
+
+@pytest.mark.parametrize("case", K9_CASES)
+def test_expand_matches_cases(dev, case):
+    """K9 on the cases of chip_smoke.k9_case: no match, INNER, LEFT, ANY,
+    one probe row holding 90 % of the output, a count beyond the capacity,
+    no probe row, many look-back tiles."""
+    args = k9_args(case, np.random.default_rng(len(case)), dev)
+    got = expand_matches(*args)
+    for a, b in zip(got, _expand_matches_plain(*args)):
+        _exact(a, b)
+    if case == "beyond_capacity":
+        assert int(got[3]) > args[2]

@@ -7,6 +7,9 @@ the JAX reference functions they replace, on the same numpy inputs.
   K4 radix_sort_pairs    vs sort_permutation and group_by_sort's perm
   K5 segment_bounds      vs group_by_sort's group ids, bounds, unique keys
   K6 segment_reduce      vs seg_reduce_sorted
+  K7 dense_gather_join   vs dense_gather_join
+  K8 propagate_join, build/probe_join_table vs the same functions
+  K9 expand_matches      vs expand_matches
   order_token, topk_key32 on every dtype
 
 Integers must be bit-exact.  Float sums: rtol=1e-12, because the two sum
@@ -29,6 +32,7 @@ from clickhouse_tpu.core import dtypes as jdt
 from clickhouse_tpu.exprs.expr import ColVal as JColVal
 from clickhouse_tpu.ops import agg_ops as jagg
 from clickhouse_tpu.ops import filter_ops as jfilter
+from clickhouse_tpu.ops import join_ops as jjoin
 from clickhouse_tpu.ops import mxu_segsum as jmxu
 from clickhouse_tpu.ops import scan_ops as jscan
 from clickhouse_tpu.ops import sort_ops as jsort
@@ -36,6 +40,7 @@ from clickhouse_tpu_torch.core import dtypes as tdt
 from clickhouse_tpu_torch.exprs.expr import ColVal as TColVal
 from clickhouse_tpu_torch.ops import agg_ops as tagg
 from clickhouse_tpu_torch.ops import filter_ops as tfilter
+from clickhouse_tpu_torch.ops import join_ops as tjoin
 from clickhouse_tpu_torch.ops import mxu_segsum as tmxu
 from clickhouse_tpu_torch.ops import scan_ops as tscan
 from clickhouse_tpu_torch.ops import sort_ops as tsort
@@ -850,3 +855,142 @@ def test_reference_divergence_is_pinned(case):
     assert not np.array_equal(ref, want, equal_nan=True), \
         DIVERGENCES[case][4]
     assert not np.array_equal(got, ref, equal_nan=True)
+
+
+# -- K7, K8, K9: joins -------------------------------------------------------
+# The observable results are compared: match flags and the matched rows'
+# words, or per valid output slot the probe row and the build row it
+# pairs (row_order[build_pos]), and the output count.  The reference's
+# words of an unmatched row are whatever its sorts carried (the caller
+# masks them); the port's are 0.
+
+
+def _join_keys(rng, name, nb, n):
+    """(build keys, probe keys) of one type: duplicates among the build
+    keys, half the probe keys without a match; floats with -0.0, +0.0 and
+    NaN."""
+    if name == "float64":
+        pool = np.array([0.0, -0.0, np.nan, 1.5, -2.25, 3.0, np.inf, 7.5])
+        return pool[rng.integers(0, 6, nb)], pool[rng.integers(0, 8, n)]
+    d = np.dtype(name)
+    return (rng.integers(0, max(nb // 2, 1), nb).astype(d),
+            rng.integers(0, max(nb, 1), n).astype(d))
+
+
+@pytest.mark.parametrize("sentinel", [-1, 100], ids=["lo-1", "hi+1"])
+@pytest.mark.parametrize("probe_type", ["int64", "int32", "int16"])
+def test_dense_gather_join_matches_reference(probe_type, sentinel):
+    rng = np.random.default_rng(31)
+    lo, hi, nb, n = -200, 1799, 700, 5000
+    bk = rng.permutation(hi - lo + 1)[:nb] + lo
+    bv = rng.random(nb) < 0.9
+    pk = rng.integers(lo - 100, hi + 100, n).astype(probe_type)
+    pv = rng.random(n) < 0.9
+    w = rng.integers(0, 100, nb).astype(np.int32)
+    v = (rng.random(nb) < 0.5).astype(np.int32)
+    for words in ([("word", w, sentinel)],
+                  [("key",), ("word", w, sentinel), ("keyvalid",),
+                   ("word", v, 2)],
+                  [], [("key",), ("keyvalid",)]):
+        ref = jjoin.dense_gather_join(
+            jnp.asarray(bk), jnp.asarray(bv), jnp.asarray(pk),
+            jnp.asarray(pv), [(e[0], jnp.asarray(e[1]), e[2])
+                              if e[0] == "word" else e for e in words],
+            lo, hi)
+        got = tjoin.dense_gather_join(
+            _t(bk), _t(bv), _t(pk), _t(pv),
+            [(e[0], _t(e[1]), e[2]) if e[0] == "word" else e
+             for e in words], lo, hi)
+        np.testing.assert_array_equal(got.matched.numpy(),
+                                      np.asarray(ref.matched))
+        for a, b in zip(got.words, ref.words):
+            np.testing.assert_array_equal(a.numpy(), np.asarray(b))
+
+
+@pytest.mark.parametrize("name", ["int64", "int32", "uint8", "float64"])
+@pytest.mark.parametrize("nk", [1, 2])
+def test_propagate_join_matches_reference(name, nk):
+    """Each probe row takes the smallest build row id with its keys."""
+    rng = np.random.default_rng(32)
+    nb, n = 600, 4000
+    pairs = [_join_keys(rng, name, nb, n) for _ in range(nk)]
+    bv = rng.random(nb) < 0.9
+    pv = rng.random(n) < 0.9
+    words = [np.arange(nb, dtype=np.int32),
+             rng.integers(-9, 9, nb).astype(np.int32)]
+    ref = jjoin.propagate_join([jnp.asarray(b) for b, _ in pairs],
+                               jnp.asarray(bv),
+                               [jnp.asarray(p) for _, p in pairs],
+                               jnp.asarray(pv),
+                               [jnp.asarray(w) for w in words])
+    got = tjoin.propagate_join([_t(b) for b, _ in pairs], _t(bv),
+                               [_t(p) for _, p in pairs], _t(pv),
+                               [_t(w) for w in words])
+    m = np.asarray(ref.matched)
+    assert m.any() and not m.all()
+    np.testing.assert_array_equal(got.matched.numpy(), m)
+    for a, b in zip(got.words, ref.words):
+        np.testing.assert_array_equal(a.numpy()[m], np.asarray(b)[m])
+        assert not a.numpy()[~m].any()
+
+
+def _build_rows(row_order, start, length):
+    return [sorted(row_order[s:s + l].tolist()) if l else []
+            for s, l in zip(start, length)]
+
+
+@pytest.mark.parametrize("name", ["int64", "int32", "float64"])
+def test_build_and_probe_join_table_match_reference(name):
+    """Each probe row's match and its matching build rows."""
+    rng = np.random.default_rng(33)
+    nb, n, cap_g = 900, 3000, 1024
+    b, p = _join_keys(rng, name, nb, n)
+    bv = rng.random(nb) < 0.9
+    pv = rng.random(n) < 0.9
+    ref_t = jjoin.build_join_table([jnp.asarray(b)], jnp.asarray(bv), cap_g)
+    ref = jjoin.probe_join_table(ref_t, [jnp.asarray(p)], jnp.asarray(pv))
+    got_t = tjoin.build_join_table([_t(b)], _t(bv), cap_g)
+    got = tjoin.probe_join_table(got_t, [_t(p)], _t(pv))
+    assert int(got_t.num_groups) == int(ref_t.num_groups)
+    m = np.asarray(ref.matched)
+    np.testing.assert_array_equal(got.matched.numpy(), m)
+    assert _build_rows(got_t.row_order.numpy(), got.seg_start.numpy()[m],
+                       got.seg_len.numpy()[m]) == \
+        _build_rows(np.asarray(ref_t.row_order), np.asarray(ref.seg_start)[m],
+                    np.asarray(ref.seg_len)[m])
+    # rows of one key come in ascending build row id
+    order = got_t.row_order.numpy()
+    for s_, l_ in zip(got.seg_start.numpy()[m], got.seg_len.numpy()[m]):
+        assert (np.diff(order[s_:s_ + l_]) > 0).all()
+
+
+@pytest.mark.parametrize("left,any_join", [(False, False), (True, False),
+                                           (False, True), (True, True)])
+@pytest.mark.parametrize("cap", [1024, 40_960])
+def test_expand_matches_matches_reference(left, any_join, cap):
+    """The same probe result expanded by both: each valid slot's probe row
+    and build position, its flag, and the output count (beyond the
+    capacity too)."""
+    rng = np.random.default_rng(34)
+    n = 6000
+    matched = rng.random(n) < 0.6
+    valid = rng.random(n) < 0.9
+    seg_len = np.where(matched, rng.integers(0, 6, n), 0).astype(np.int32)
+    seg_len[n // 2] = 3000 if matched[n // 2] else 0      # a heavy key
+    seg_start = np.where(matched, rng.integers(0, 500, n), 0).astype(
+        np.int32)
+    ref = jjoin.expand_matches(
+        jjoin.ProbeResult(jnp.asarray(matched), jnp.asarray(seg_start),
+                          jnp.asarray(seg_len)),
+        jnp.asarray(valid), cap, left=left, any_join=any_join)
+    got = tjoin.expand_matches(
+        tjoin.ProbeResult(_t(matched), _t(seg_start), _t(seg_len)),
+        _t(valid), cap, left=left, any_join=any_join)
+    count = int(ref[3])
+    assert int(got[3]) == count
+    live = min(count, cap)
+    for a, b in zip(got[:2], ref[:2]):
+        np.testing.assert_array_equal(a.numpy()[:live], np.asarray(b)[:live])
+    np.testing.assert_array_equal(got[2].numpy(), np.asarray(ref[2]))
+    assert not got[2].numpy()[live:].any()
+    assert not got[0].numpy()[live:].any()
