@@ -3,6 +3,7 @@
     python3 chip_smoke.py
     python3 chip_smoke.py --k2-wide   # only K2 at S = 16,384 (see k2_wide)
     python3 chip_smoke.py --queries   # only the query times (time_queries)
+    python3 chip_smoke.py --gathers   # only random gathers by table size
 
 Needs one NVIDIA Hopper card, nvcc and PyTorch built for CUDA; exits
 non-zero without them.  Phases, each of which fails the run:
@@ -27,10 +28,18 @@ non-zero without them.  Phases, each of which fails the run:
      and several ops over two columns and two masks in one launch; K7
      over K7_CASES: unique keys, holes, probe keys outside the range,
      invalid rows, a Nullable payload, sentinels at both int32 edges, key
-     words, a presence table, int8/int16/int64 and UInt64 keys, views one
-     row in; K8 over K8_CASES, three runs each: duplicates (the smallest
-     row id wins), one to four key words, float keys with -0.0/+0.0/NaN, a
-     table of one key, nothing matching, ten words, views one row in; K9
+     words, a presence table, int8/int16/int64 and UInt64 keys, views 1-3
+     rows in, a narrow table of each width (1, 2, 4 bytes) with the
+     sentinel at the width's edges, 2-8 words packed in one slot, 1, 3
+     and 4k + 1 probe rows, a toInt8 payload, and stated ranges that do
+     not hold (a word, a build key), which must set out_of_range; K8 over
+     K8_CASES, three runs each: duplicates
+     (the smallest row id wins), one key of 4 and of 8 bytes, two to eight
+     key words, hashes forced equal (the word-by-word check), a run past
+     the last bucket, float keys with -0.0/+0.0/NaN, a table of one key,
+     nothing matching, 300,000 rows of one key, one, five and ten words,
+     views one row in, Q4x's group-index table, words kept in the payload
+     array rather than the bucket; K9
      over K9_CASES: no match, LEFT, ANY,
      one probe row holding 90 % of the output, a count beyond the
      capacity, no probe row, 20M probe rows); integer results must agree
@@ -38,8 +47,9 @@ non-zero without them.  Phases, each of which fails the run:
      n_g * eps * sum(|x|) a group of n_g rows (its atomics add a group's
      parts in a varying order); then SELECT without FROM, numbers() and
      INSERT ... VALUES with expressions through connect(device="cuda"),
-     against numpy, and 17 small join queries (every ported form) on the
-     card against the CPU, and a 1:N join past max_joined_rows raising
+     against numpy, and 20 small join queries (every ported form, and
+     three-table chains whose middle key is not built) on the card
+     against the CPU, and a 1:N join past max_joined_rows raising
      CapacityError;
   3. drive the main path through the public API: connect(device="cuda"),
      CREATE TABLE hits (x Int64), insert_pydict 100M rows of
@@ -74,10 +84,14 @@ non-zero without them.  Phases, each of which fails the run:
      aggregates, each of them alone and over 100M rows where one group
      holds 40 % of them, K7 at Q4's inputs beside index_select, K8 at
      Q4h's (and its probe at Q4x's) beside searchsorted for information,
-     K9 at Q4x's beside repeat_interleave, each with its kernels a call;
-     time each query (median wall time of 20 runs, synchronised), the
-     device-busy time of Q1, Q2b, Q2m, Q4, Q4h and Q4x (torch.profiler)
-     and Q4's wall over the probe roofline of bench.py:509-525.
+     both also with the unread build key's words beside label (the
+     inputs before the join built only what is read), K9 at Q4x's beside repeat_interleave, each with its kernels a
+     call; fails unless Q4's K7 call carries label alone and Q4h's K8 call
+     one word; time each query (median wall time of 20 runs,
+     synchronised) with its peak memory beside the governor's estimate,
+     the device-busy time of Q1, Q2b, Q2m, Q4, Q4h and Q4x
+     (torch.profiler) and Q4's wall over the probe roofline of
+     bench.py:509-525.
 
 The second-to-last line is a JSON object of per-kernel results (name,
 route, source, replaces, launches, ms, plain_ms, bound_ms, bound_by,
@@ -142,7 +156,11 @@ EXTRA_KEYS = ("level1_ms", "merge_ms", "entry64_ms", "entry64_bound_ms",
               "information", "hist_ms", "scatter_ms", "q2m_ms", "q2m_bound_ms", "q2m_library_ms",
               "specs", "launches_per_query", "copy_ms", "q2m_plain_ms",
               "q2m_bytes", "q4x_probe_ms", "q4x_probe_bound_ms",
-              "l2_resident")
+              "l2_resident", "with_key_ms", "with_key_bound_ms",
+              "with_key_plain_ms", "with_key_bytes",
+              "with_key_4_byte_slots_ms", "words_in_bucket_ms",
+              "words_in_payload_ms", "q4x_probe_words_in_bucket_ms",
+              "q4x_probe_words_in_payload_ms")
 F64_EPS = 2.0 ** -52
 CMPS = ["equals", "notEquals", "less", "lessOrEquals", "greater",
         "greaterOrEquals"]
@@ -796,11 +814,23 @@ def check_k6(dev):
           f"one launch)", flush=True)
 
 
-# K7's edge cases (k7_case): the direct-address join
+# K7's edge cases (k7_case): the direct-address join.  Words carry their
+# proven range (as the executor gives them) unless a case says otherwise,
+# so the table is narrow: label-like words in [0, 96] take one byte
 K7_CASES = ("unique", "holes", "outside", "invalid_rows", "nullable_payload",
             "sentinel_below", "sentinel_above", "key_words", "presence",
             "int8_probe", "int16_probe", "int64_probe", "uint64_keys",
-            "views_1_in")
+            "views_1_in", "views_2_in", "views_3_in", "width1_below",
+            "width1_above", "width2_below", "width2_above", "width4_below",
+            "width4_above", "packed_2_words", "packed_3_words",
+            "packed_4_words", "packed_8_words", "rows_1", "rows_3",
+            "rows_4k_plus_1", "int64_rows_3", "int8_payload",
+            "wrapped_payload", "build_key_outside")
+# a word's values at one edge of its width: (lowest value less the
+# sentinel's side, span); the sentinel sits just outside
+K7_WIDTHS = {"width1_below": (1, 255), "width1_above": (0, 255),
+             "width2_below": (1, 65535), "width2_above": (0, 65535),
+             "width4_below": (1, 1 << 24), "width4_above": (0, 1 << 24)}
 
 
 def on_card(a, dev, off=0):
@@ -812,18 +842,36 @@ def on_card(a, dev, off=0):
     return torch.from_numpy(a).to(dev)[off:]
 
 
+def _edge_word(rng, name, nb):
+    """A width case's word entry: values at the bottom of the width with
+    the sentinel just below them, or at its top with the sentinel just
+    above; the 4-byte cases at the ends of int32."""
+    below, span = K7_WIDTHS[name]
+    if name.startswith("width4"):
+        base = -2**31 if below else 2**31 - 1 - span
+    else:
+        base = int(rng.integers(-1000, 1000))
+    vals = base + below + rng.integers(0, span, nb)
+    vals[: 2] = (base + below, base + below + span - 1)      # both edges
+    sentinel = base if below else base + span
+    return ("word", vals.astype(np.int32), sentinel,
+            (base + below, base + below + span - 1))
+
+
 def k7_case(name, rng):
     """(build key, build valid, probe key, probe valid, words, lo, hi) of
     one K7 edge case, in numpy: words as the wrapper takes them (("word",
-    int32 array, sentinel), ("key",), ("keyvalid",))."""
+    int32 array, sentinel[, proven range]), ("key",), ("keyvalid",))."""
     lo, hi, nb, n = 0, 999_999, 600_000, 2_000_003
     kind = np.int32
     if name == "int8_probe":
         lo, hi, nb, n, kind = -100, 100, 150, 10_007, np.int8
     elif name == "int16_probe":
         lo, hi, nb, n, kind = -3000, 9000, 5000, 100_003, np.int16
-    elif name == "int64_probe":
+    elif name in ("int64_probe", "int64_rows_3"):
         lo, hi, kind = -(1 << 40), -(1 << 40) + 999_999, np.int64
+    n = {"rows_1": 1, "rows_3": 3, "int64_rows_3": 3,
+         "rows_4k_plus_1": 4 * 250_007 + 1}.get(name, n)
     bk = rng.permutation(hi - lo + 1)[:nb].astype(np.int64) + lo
     if name == "unique":
         bk = rng.permutation(hi - lo + 1).astype(np.int64) + lo
@@ -839,12 +887,13 @@ def k7_case(name, rng):
         bv = rng.random(nb) < 0.8
         pv = rng.random(n) < 0.7
     w = rng.integers(0, 97, nb).astype(np.int32)
-    words = [("word", w, -1)]
+    flag = (rng.random(nb) < 0.5).astype(np.int32)
+    words = [("word", w, -1, (0, 96))]
     if name == "nullable_payload":
-        words = [("word", w, 97), ("word", (rng.random(nb) < 0.5)
-                                   .astype(np.int32), 2)]
+        words = [("word", w, 97, (0, 96)), ("word", flag, 2, (0, 1))]
     elif name == "sentinel_below":
         # words at the bottom of int32, the sentinel their lower bound - 1
+        # (no proven range: four bytes a word)
         words = [("word", (w.astype(np.int64) - 2**31 + 5).astype(np.int32),
                   -2**31 + 4)]
     elif name == "sentinel_above":
@@ -852,9 +901,37 @@ def k7_case(name, rng):
         words = [("word", (w.astype(np.int64) + 2**31 - 100).astype(np.int32),
                   2**31 - 3)]
     elif name == "key_words":
-        words = [("key",), ("word", w, -1), ("keyvalid",)]
+        words = [("key",), ("word", w, -1, (0, 96)), ("keyvalid",)]
     elif name == "presence":
         words = []
+    elif name in K7_WIDTHS:
+        words = [_edge_word(rng, name, nb)]
+    elif name.startswith("packed_"):
+        # two to eight words of mixed widths side by side in one slot:
+        # 2 + 1 bytes (a 4-byte slot), 4 + 1 + 1 (8), 4 + 4 + 2 + 1 (16),
+        # eight of 4 bytes (32), with the key and its validity among them
+        pool = [_edge_word(rng, "width1_above", nb), ("key",),
+                _edge_word(rng, "width2_below", nb),
+                _edge_word(rng, "width4_below", nb), ("keyvalid",),
+                ("word", flag, 2, (0, 1)), _edge_word(rng, "width4_above",
+                                                      nb)]
+        words = {"packed_2_words": [pool[0], pool[1], pool[2]],
+                 "packed_3_words": [pool[3], pool[0], pool[4], pool[5]],
+                 "packed_4_words": [pool[0], pool[3], pool[2], pool[6],
+                                    pool[1]],
+                 "packed_8_words": [_edge_word(rng, "width4_" + (
+                     "below" if j % 2 else "above"), nb)
+                     for j in range(8)]}[name]
+    elif name in ("int8_payload", "wrapped_payload"):
+        # toInt8 of values in [0, 300]: stated as the int8 range (exact), or
+        # as [0, 300], a range that does not hold (out_of_range set)
+        w8 = rng.integers(0, 301, nb).astype(np.int8).astype(np.int32)
+        w8[:2] = (-128, -1)
+        words = [("word", w8, -129, (-128, 127))] \
+            if name == "int8_payload" else [("word", w8, -1, (0, 300))]
+    elif name == "build_key_outside":
+        # one valid build key past the stated hi (out_of_range set)
+        hi = int(bk.max()) - 1
     elif name == "uint64_keys":
         # UInt64 keys at and above 2^63 (int64 bits)
         lo = (1 << 63) + 5
@@ -867,34 +944,54 @@ def k7_case(name, rng):
 
 
 def k7_args(name, rng, dev):
-    """One K7 edge case as the wrapper's arguments on `dev` (views_1_in:
-    every array a view one row into its tensor)."""
+    """One K7 edge case as the wrapper's arguments on `dev` (views_1_in,
+    views_2_in and views_3_in: every array a view that many rows into its
+    tensor)."""
     bk, bv, pk, pv, words, lo, hi = k7_case(name, rng)
+    off = int(name[6]) if name.startswith("views_") else 0
 
     def t(a):
-        return on_card(a, dev, int(name == "views_1_in"))
+        return on_card(a, dev, off)
     return (t(bk), t(bv), t(pk), t(pv),
-            [(e[0], t(e[1]), e[2]) if e[0] == "word" else e for e in words],
-            lo, hi)
+            [(e[0], t(e[1])) + tuple(e[2:]) if e[0] == "word" else e
+             for e in words], lo, hi)
+
+
+def k7_outputs(res):
+    """The outputs of one K7 call that its plain version defines: the
+    out_of_range flag, and where it is 0 the match flags and the words (a
+    stated range that does not hold leaves them undefined)."""
+    if int(res.out_of_range):
+        return [res.out_of_range]
+    return [res.out_of_range, res.matched] + res.words
 
 
 def check_k7(dev):
     """K7 against its plain version on every case of K7_CASES: unique keys
     filling the range, a range with holes, probe keys outside it, invalid
     build and probe rows, a Nullable payload (its validity word), the
-    sentinel below and above the words, the key's own words, a presence
-    table, int8/int16/int64 probe keys, UInt64 keys above 2^63 and views
-    one row in."""
+    sentinel below and above the words (four bytes a word), the key's own
+    words, a presence table, int8/int16/int64 probe keys, UInt64 keys
+    above 2^63, views 1, 2 and 3 rows in, a narrow table at each width (1,
+    2, 4 bytes) with the sentinel at that width's edges, two to eight
+    words packed in one slot (4- to 32-byte slots), 1, 3 and 4k + 1
+    probe rows (3 with int64 keys), a toInt8 payload over [0, 300] stated
+    as the int8 range, and two stated ranges that do not hold (that
+    payload stated as [0, 300], a build key past hi), which must set
+    out_of_range."""
     from clickhouse_tpu_torch.ops.join_ops import (_dense_gather_join_plain,
                                                    dense_gather_join)
     rng = np.random.default_rng(17)
     for name in K7_CASES:
         bk, bv, pk, pv, words, lo, hi = k7_args(name, rng, dev)
-        got = dense_gather_join(bk, bv, pk, pv, words, lo, hi)
-        want = _dense_gather_join_plain(bk, bv, pk, pv, words, lo,
-                                        hi - lo + 1)
-        max_abs_err(got.matched, want.matched)
-        for a, b in zip(got.words, want.words):
+        got = k7_outputs(dense_gather_join(bk, bv, pk, pv, words, lo, hi))
+        want = k7_outputs(_dense_gather_join_plain(bk, bv, pk, pv, words,
+                                                   lo, hi - lo + 1))
+        if len(got) != len(want) or (len(want) == 1) != (
+                name in ("wrapped_payload", "build_key_outside")):
+            fail(f"K7 case {name}: out_of_range {int(got[0])}, plain "
+                 f"{int(want[0])}")
+        for a, b in zip(got, want):
             max_abs_err(a, b)
     print(f"K7 dense_join edge cases agree: {', '.join(K7_CASES)}",
           flush=True)
@@ -902,9 +999,23 @@ def check_k7(dev):
 
 # K8's edge cases (k8_case): the hash table's build and probe
 K8_CASES = ("unique", "duplicates", "one_key_word_i32", "two_key_words",
-            "three_key_words", "four_key_words", "float_keys", "one_key",
-            "nothing_matches", "one_key_every_row", "ten_words",
-            "views_1_in")
+            "three_key_words", "four_key_words", "eight_key_words",
+            "hash_collisions", "wraps_past_last_bucket", "float_keys",
+            "one_key", "nothing_matches", "one_key_every_row", "one_word",
+            "five_words", "ten_words", "six_words_i32", "views_1_in",
+            "q4x_group_table", "payload_only_one_word",
+            "payload_only_i32_two_words")
+# cases run with K8's test hook: every row's 64-bit hash forced equal
+K8_HASH_MASK = {"hash_collisions": 0}
+
+
+def mix64_np(z):
+    """csrc/hash_join.cu's mix64 (splitmix64's finaliser) over uint64."""
+    with np.errstate(over="ignore"):
+        z = z.astype(np.uint64) + np.uint64(0x9E3779B97F4A7C15)
+        z = (z ^ (z >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+        z = (z ^ (z >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+        return z ^ (z >> np.uint64(31))
 
 
 def k8_case(name, rng):
@@ -916,23 +1027,59 @@ def k8_case(name, rng):
     pv = rng.random(n) < 0.95
     words = [np.arange(nb, dtype=np.int32),
              rng.integers(-50, 50, nb).astype(np.int32)]
-    if name == "unique":
-        bk = [rng.permutation(np.unique(rng.integers(0, 1 << 40, nb)))]
+    if name in ("unique", "one_word", "five_words", "six_words_i32",
+                "q4x_group_table", "payload_only_one_word",
+                "payload_only_i32_two_words"):
+        # keys of 8 bytes; of 4 for Q4x's (int32 storage) and the i32 cases
+        top = 1 << (31 if name in ("q4x_group_table", "six_words_i32",
+                                   "payload_only_i32_two_words") else 40)
+        bk = [rng.permutation(np.unique(rng.integers(0, top, nb)))]
         nb = len(bk[0])
         bv, words = bv[:nb], [w[:nb] for w in words]
         pk = [np.where(rng.random(n) < 0.5, bk[0][rng.integers(0, nb, n)],
-                       rng.integers(0, 1 << 40, n))]
+                       rng.integers(0, top, n))]
+        if top < 1 << 40:
+            bk, pk = [bk[0].astype(np.int32)], [pk[0].astype(np.int32)]
+        if name in ("one_word", "payload_only_one_word"):  # Q4h's shape
+            words = words[1:]
+        elif name in ("five_words", "six_words_i32"):
+            # a chunk of 4 in the payload, then one (two for a 4-byte key)
+            # in the bucket
+            words = [rng.integers(-9, 9, nb).astype(np.int32)
+                     for _ in range(5 if name == "five_words" else 6)]
+        elif name == "q4x_group_table":   # each key twice (Q4x's dim2)
+            bk = [np.repeat(bk[0][: nb // 2], 2)]
+            bv = np.ones(len(bk[0]), bool)
     elif name == "duplicates":
         bk = [rng.integers(0, nb // 20, nb).astype(np.int64)]
         pk = [rng.integers(0, nb // 10, n).astype(np.int64)]
     elif name.endswith("key_words") or name in ("one_key_word_i32",
-                                                 "views_1_in"):
+                                                 "views_1_in",
+                                                 "hash_collisions"):
         nk = {"one_key_word_i32": 1, "two_key_words": 2,
               "three_key_words": 3, "four_key_words": 4,
-              "views_1_in": 2}[name]
-        kinds = [np.int32, np.int64, np.int32, np.int64][:nk]
-        bk = [rng.integers(0, 30, nb).astype(k) for k in kinds]
-        pk = [rng.integers(0, 40, n).astype(k) for k in kinds]
+              "eight_key_words": 8, "views_1_in": 2,
+              "hash_collisions": 2}[name]
+        kinds = [np.int32, np.int64] * 4
+        if name == "hash_collisions":
+            # every hash equal: one run of every key, confirmed word by word
+            nb, n = 3000, 20_003
+            bv, pv = bv[:nb], pv[:n]
+            words = [w[:nb] for w in words]
+        hi = 3 if nk == 8 else 30
+        bk = [rng.integers(0, hi, nb).astype(k) for k in kinds[:nk]]
+        pk = [rng.integers(0, hi + 10, n).astype(k) for k in kinds[:nk]]
+    elif name == "wraps_past_last_bucket":
+        # 200 build rows (1,024 buckets) whose keys all hash to the last
+        # bucket: their run wraps to bucket 0
+        nb = 200
+        cand = rng.integers(0, 1 << 40, 2_000_000).astype(np.int64)
+        last = cand[(mix64_np(cand) & np.uint64(1023)) == np.uint64(1023)]
+        bk = [np.unique(last)[:nb]]
+        nb = len(bk[0])
+        bv, words = np.ones(nb, bool), [w[:nb] for w in words]
+        pk = [np.where(rng.random(n) < 0.7, bk[0][rng.integers(0, nb, n)],
+                       rng.integers(0, 1 << 40, n))]
     elif name == "float_keys":
         pool = np.array([0.0, -0.0, np.nan, 1.5, -2.25, np.inf, 3.0])
         bk = [pool[rng.integers(0, 6, nb)]]
@@ -959,13 +1106,15 @@ def k8_case(name, rng):
 
 def k8_args(name, rng, dev):
     """One K8 edge case as propagate_join's arguments on `dev` (views_1_in:
-    every array a view one row into its tensor)."""
+    every array a view one row into its tensor) and its keywords (the hash
+    hook)."""
     bk, bv, pk, pv, words = k8_case(name, rng)
 
     def t(a):
         return on_card(a, dev, int(name == "views_1_in"))
-    return [t(k) for k in bk], t(bv), [t(k) for k in pk], t(pv), \
-        [t(w) for w in words]
+    kw = {"hash_mask": K8_HASH_MASK[name]} if name in K8_HASH_MASK else {}
+    return ([t(k) for k in bk], t(bv), [t(k) for k in pk], t(pv),
+            [t(w) for w in words]), kw
 
 
 def k8_plain(bk, bv, pk, pv, words):
@@ -975,22 +1124,71 @@ def k8_plain(bk, bv, pk, pv, words):
     return _take_words(match, words)
 
 
+def k8_group_table(bk, bv, pk, pv):
+    """The 1:N join's K8 (Q4x's shape): the group-index table that
+    build_join_table builds on the card, probed by probe_join_table, and
+    the plain lookup over the same groups.  -> (got, want): (matched,
+    seg_start, seg_len) each."""
+    from clickhouse_tpu_torch.ops.join_ops import (
+        _first_match_plain, _take_words, build_join_table, key_words,
+        probe_join_table)
+    cap_g = 1 << (bk[0].shape[0] - 1).bit_length()
+    tbl = build_join_table(bk, bv, cap_g)
+    got = probe_join_table(tbl, pk, pv)
+    real = torch.arange(cap_g, device=bk[0].device) < tbl.num_groups
+    want = _take_words(_first_match_plain(
+        key_words(tbl.key_cols), real, key_words(pk), pv),
+        [tbl.seg_start, tbl.seg_len])
+    return (got.matched, got.seg_start, got.seg_len), \
+        (want[0], *want[1])
+
+
+def k8_payload_only(bk, bv, pk, pv, words):
+    """K8's build and probe with every word in the payload array (the
+    wrapper's measurement hook), not in the bucket.  -> (matched, words)"""
+    from clickhouse_tpu_torch.ops.join_ops import (
+        _bool, _hash_build_cuda, _hash_probe_cuda, key_words)
+    bw, pw = key_words(bk), key_words(pk)
+    return _hash_probe_cuda(bw, pw, _hash_build_cuda(bw, _bool(bv)),
+                            _bool(pv), list(words), words_in_bucket=False)
+
+
+def k8_results(name, args, kw):
+    """(got, want) of one K8 case: the match flags and the words."""
+    from clickhouse_tpu_torch.ops.join_ops import propagate_join
+    if name == "q4x_group_table":
+        return k8_group_table(*args[:4])
+    if name.startswith("payload_only"):
+        got_m, got_w = k8_payload_only(*args)
+    else:
+        got = propagate_join(*args, **kw)
+        got_m, got_w = got.matched, got.words
+    want_m, want_w = k8_plain(*args)
+    return [got_m] + got_w, [want_m] + want_w
+
+
 def check_k8(dev):
     """K8 against its plain version on every case of K8_CASES (three runs
     each: where keys repeat, the smallest build row id must win whatever
-    order the threads insert in): unique keys, many duplicates, one to four
-    key words, float keys with -0.0, +0.0 and NaN, a table of one key, a
-    probe where nothing matches, every build row one key, ten words (two
-    probes), two key words as views one row in."""
-    from clickhouse_tpu_torch.ops.join_ops import propagate_join
+    order the threads insert in): unique keys of 8 and of 4 bytes inline in
+    the buckets, many duplicates, two to eight key words through the hash
+    path, two-word keys whose 64-bit hashes are all forced equal (the
+    word-by-word check), a run that wraps past the table's last bucket,
+    float keys with -0.0, +0.0 and NaN, a table of one key, a probe where
+    nothing matches, 300,000 build rows of one key, one word (in the
+    bucket), two (in the bucket of a 4-byte key, else the payload), five,
+    six and ten words (chunks of 4, the last in the bucket where it fits),
+    two key words as views one row in, Q4x's group-index table over
+    4-byte keys, and one word (8-byte key) and two (4-byte key) kept in
+    the payload array rather than the bucket (the measurement hook)."""
     rng = np.random.default_rng(18)
     for name in K8_CASES:
-        args = k8_args(name, rng, dev)
-        want_m, want_w = k8_plain(*args)
+        args, kw = k8_args(name, rng, dev)
         for _ in range(3):
-            got = propagate_join(*args)
-            max_abs_err(got.matched, want_m)
-            for a, b in zip(got.words, want_w):
+            got, want = k8_results(name, args, kw)
+            if len(got) != len(want):
+                fail(f"K8 case {name}: {len(got)} outputs, want {len(want)}")
+            for a, b in zip(got, want):
                 max_abs_err(a, b)
     print(f"K8 hash_join edge cases agree (three runs each): "
           f"{', '.join(K8_CASES)}", flush=True)
@@ -1162,13 +1360,17 @@ def device_kernels(call, reps=5, launches=None):
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     call()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            flush.zero_()
-            call()
-        torch.cuda.synchronize()
+    for _ in range(3):          # a trace now and then comes back empty
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                flush.zero_()
+                call()
+            torch.cuda.synchronize()
+        events = prof.key_averages()
+        if any(e.count >= reps for e in events):
+            break
     out = {}
-    for e in prof.key_averages():
+    for e in events:
         t = getattr(e, "device_time_total", None)
         if t is None:
             t = getattr(e, "cuda_time_total", 0.0)
@@ -1694,13 +1896,18 @@ def device_busy(s, sql, reps=QUERY_REPS):
 
 
 def time_queries(s):
-    """Median wall of QUERY_REPS runs of each query (after one untimed run),
-    then the device-busy time of Q1, Q2b, Q2m and the join queries from a
-    trace, and Q4's wall over the probe roofline.  Uses only the public
-    API, so copied into an unpacked older checkout (``--queries``) it
-    times that tree alike; a query that tree does not run
-    (NotImplementedError_) is reported and skipped."""
+    """Median wall of QUERY_REPS runs of each query (after one untimed run)
+    and its peak device memory above what was allocated before it, beside
+    the governor's estimate; then the device-busy time of Q1, Q2b, Q2m
+    and the join queries from a trace, and Q4's wall over the probe
+    roofline.  Uses only the public API (and the governor's estimate), so
+    copied into an unpacked older checkout (``--queries``) it times that
+    tree alike; a query that tree does not run (NotImplementedError_) is
+    reported and skipped."""
     from clickhouse_tpu_torch.core.errors import NotImplementedError_
+    from clickhouse_tpu_torch.exec.streaming import \
+        estimate_plan_device_bytes
+    from clickhouse_tpu_torch.sql import parse
     ran = {}
     for name, sql in QUERIES + JOIN_QUERIES:
         try:
@@ -1715,8 +1922,18 @@ def time_queries(s):
             torch.cuda.synchronize()
             times.append(time.perf_counter() - t0)
         ran[name] = statistics.median(times) * 1e3
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        s.execute(sql)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated() - base
+        est = estimate_plan_device_bytes(s._plan(parse(sql), s.settings),
+                                         s.catalog, s.settings)
         print(f"{name} median wall {ran[name]:.3f} ms "
-              f"over {QUERY_REPS} runs ({N_ROWS} rows): {sql}", flush=True)
+              f"over {QUERY_REPS} runs ({N_ROWS} rows); peak {peak} bytes "
+              f"above what was allocated before it, the governor's "
+              f"estimate {est} bytes: {sql}", flush=True)
     if "Q4" in ran:
         roof = probe_roofline(torch.device("cuda", 0))
         print(f"Q4 probe roofline (bench.py:509-525 on this card: one "
@@ -1861,67 +2078,129 @@ def join_shapes(dev, args):
     and Q4x's), each held against its plain version and timed beside it
     and beside one PyTorch call (K7: index_select from the table; K8: none,
     searchsorted of the probe keys over the sorted build keys for
-    information; K9: repeat_interleave).  Every table a kernel gathers
-    from here fits in the 50 MB L2, so bytes count each input once.
-    -> {name: record}."""
+    information; K9: repeat_interleave).  K7 and K8 are also timed with
+    the build key's words beside `label` (K7's "key" word; K8's two words
+    of dim_h.k), the output words the join carried before it built only
+    what is read.  Every table a
+    kernel gathers from here fits in the 50 MB L2, so bytes count each
+    input once.  Fails unless Q4's K7 call carries `label` alone (no
+    "key" word) and Q4h's K8 call one word.  -> {name: record}."""
     from clickhouse_tpu_torch.ops.join_ops import (
         _dense_gather_join_plain, _expand_lengths, _expand_matches_plain,
-        _hash_probe_cuda, dense_gather_join, expand_matches, hash_capacity,
-        key_words, propagate_join)
+        _bool, _hash_build_cuda, _hash_probe_cuda, dense_gather_join,
+        dense_slot_layout,
+        expand_matches, hash_capacity, key_words, propagate_join)
     out = {}
     # K7: Q4's call, its build over dim's 1M rows, its probe over fact's
     bk, bv, pk, pv, entries, lo, R = args["dense_join"]
+    if [e[0] for e in entries] != ["word"]:
+        fail(f"Q4's K7 call carries {[e[0] for e in entries]}, not one "
+             f"word (label)")
     hi = lo + R - 1
-    got = dense_gather_join(bk, bv, pk, pv, entries, lo, hi)
-    want = _dense_gather_join_plain(bk, bv, pk, pv, entries, lo, R)
-    err = max([max_abs_err(got.matched, want.matched)]
-              + [max_abs_err(a, b) for a, b in zip(got.words, want.words)])
-    word = next(e for e in entries if e[0] == "word")
+    n = pk.shape[0]
+    word = entries[0]
     table = torch.full((R,), word[2], dtype=torch.int32, device=dev)
     keep = torch.ones_like(bk, dtype=torch.bool) if bv is None \
         else bv.to(torch.bool)
     table[(bk.long() - lo)[keep]] = word[1][keep]
     idx = pk if lo == 0 else (pk.long() - lo).clamp(0, R - 1)
-    n = pk.shape[0]
+    library_ms = cuda_ms(lambda: torch.index_select(table, 0, idx))
+    del table, keep
+
+    def k7_record(ents):
+        got = dense_gather_join(bk, bv, pk, pv, ents, lo, hi)
+        want = _dense_gather_join_plain(bk, bv, pk, pv, ents, lo, R)
+        err = max([max_abs_err(got.matched, want.matched)]
+                  + [max_abs_err(a, b) for a, b in zip(got.words,
+                                                        want.words)])
+        del got, want
+        b = nbytes(bk, bv, pk, pv, [e[1] for e in ents if e[0] == "word"]) \
+            + n + 4 * n * len(ents)
+        return dict(max_abs_err=err, ms=cuda_ms(
+            lambda: dense_gather_join(bk, bv, pk, pv, ents, lo, hi)),
+            plain_ms=cuda_ms(lambda: _dense_gather_join_plain(
+                bk, bv, pk, pv, ents, lo, R), reps=5), bytes=b,
+            bound_ms=bound_ms(b))
+    with_key = [("key",)] + entries
+    rk = k7_record(with_key)
+    wide = k7_record([("key",), word[:3]])     # no range: 4-byte slots
     out["dense_join"] = dict(
-        max_abs_err=err,
-        ms=cuda_ms(lambda: dense_gather_join(bk, bv, pk, pv, entries, lo,
-                                             hi)),
-        plain_ms=cuda_ms(lambda: _dense_gather_join_plain(
-            bk, bv, pk, pv, entries, lo, R), reps=5),
-        library_ms=cuda_ms(lambda: torch.index_select(table, 0, idx)),
+        **k7_record(entries), library_ms=library_ms,
         library="torch.index_select(table, 0, probe keys): the gather "
-                "alone, from a table built beforehand",
-        bytes=nbytes(bk, bv, pk, pv, [e[1] for e in entries
-                                      if e[0] == "word"])
-        + n + 4 * n * len(entries),
-        l2_resident=f"the table: {R} slots of 4 bytes",
+                "alone, from an int32 table built beforehand",
+        with_key_ms=rk["ms"], with_key_bound_ms=rk["bound_ms"],
+        with_key_plain_ms=rk["plain_ms"], with_key_bytes=rk["bytes"],
+        with_key_4_byte_slots_ms=wide["ms"],
+        l2_resident=f"the table: {R} slots of "
+                    f"{dense_slot_layout(entries)[1]} byte(s)",
         shape=f"build {bk.shape[0]} {bk.dtype} keys, probe {n} {pk.dtype} "
-              f"keys, {len(entries)} output word(s) "
-              f"{[e[0] for e in entries]}, R = {R}")
+              f"keys, output words {[e[0] for e in entries]} (with the "
+              f"build key: {[e[0] for e in with_key]}), R = {R}")
+    print(f"dense_join with the build key (key and label words): "
+          f"{rk['ms']:.4f} ms, bound {rk['bound_ms']:.4f} ms "
+          f"({rk['bytes']} bytes), plain {rk['plain_ms']:.4f} ms; with "
+          f"4-byte slots (no proven range) {wide['ms']:.4f} ms", flush=True)
     # K8: Q4h's propagate_join (its build and its probe)
     bks, bvh, pks, pvh, words = args["hash_join"]
-    got = propagate_join(bks, bvh, pks, pvh, words)
-    want_m, want_w = k8_plain(bks, bvh, pks, pvh, words)
-    err = max([max_abs_err(got.matched, want_m)]
-              + [max_abs_err(a, b) for a, b in zip(got.words, want_w)])
+    if len(words) != 1:
+        fail(f"Q4h's K8 call carries {len(words)} words, not one (label)")
     n = pks[0].shape[0]
+    k64 = bks[0].to(torch.int64)
+    words_k = [(k64 & 0xFFFFFFFF).to(torch.int32), (k64 >> 32).to(
+        torch.int32)] + list(words)
+    del k64
+
+    def k8_record(ws):
+        got = propagate_join(bks, bvh, pks, pvh, ws)
+        want_m, want_w = k8_plain(bks, bvh, pks, pvh, ws)
+        err = max([max_abs_err(got.matched, want_m)]
+                  + [max_abs_err(a, b) for a, b in zip(got.words, want_w)])
+        del got, want_m, want_w
+        b = nbytes(bks, bvh, pks, pvh, ws) + n + 4 * n * len(ws)
+        return dict(max_abs_err=err, ms=cuda_ms(
+            lambda: propagate_join(bks, bvh, pks, pvh, ws)),
+            plain_ms=cuda_ms(lambda: k8_plain(bks, bvh, pks, pvh, ws),
+                             reps=3), bytes=b, bound_ms=bound_ms(b))
+    rk = k8_record(words_k)
+    # one layout for the words against the other, in turns (in the bucket,
+    # in the payload array, in the payload array, in the bucket)
+    pay_m, pay_w = k8_payload_only(bks, bvh, pks, pvh, words)
+    inb = propagate_join(bks, bvh, pks, pvh, words)
+    for a, b in zip([pay_m] + pay_w, [inb.matched] + inb.words):
+        max_abs_err(a, b)
+    del pay_m, pay_w, inb
+    bw8, pw8 = key_words(bks), key_words(pks)
+    bvb, pvb8 = _bool(bvh), _bool(pvh)
+    layout_ms = {True: [], False: []}
+    for inb in (True, False, False, True):
+        layout_ms[inb].append(cuda_ms(lambda: _hash_probe_cuda(
+            bw8, pw8, _hash_build_cuda(bw8, bvb), pvb8, list(words),
+            words_in_bucket=inb)))
+    del bw8, pw8, bvb, pvb8
+    print(f"hash_join at Q4h's inputs, build and probe, words in the "
+          f"bucket {layout_ms[True]} ms, in the payload array "
+          f"{layout_ms[False]} ms (turns)", flush=True)
     sorted_bk = torch.sort(bks[0]).values
     info = cuda_ms(lambda: torch.searchsorted(sorted_bk, pks[0]))
+    del sorted_bk
     out["hash_join"] = dict(
-        max_abs_err=err,
-        ms=cuda_ms(lambda: propagate_join(bks, bvh, pks, pvh, words)),
-        plain_ms=cuda_ms(lambda: k8_plain(bks, bvh, pks, pvh, words),
-                         reps=3),
-        library_ms=None,
+        **k8_record(words), library_ms=None,
         library="none: no single PyTorch call joins by key",
         information=f"torch.searchsorted(sorted build keys, probe keys) "
                     f"{info:.4f} ms",
-        bytes=nbytes(bks, bvh, pks, pvh, words) + n + 4 * n * len(words),
-        l2_resident=f"the buckets ({hash_capacity(bks[0].shape[0])} of 4 "
+        with_key_ms=rk["ms"], with_key_bound_ms=rk["bound_ms"],
+        with_key_plain_ms=rk["plain_ms"], with_key_bytes=rk["bytes"],
+        words_in_bucket_ms=layout_ms[True],
+        words_in_payload_ms=layout_ms[False],
+        l2_resident=f"the buckets ({hash_capacity(bks[0].shape[0])} of 16 "
                     f"bytes), the build keys and words",
         shape=f"build {bks[0].shape[0]} rows, probe {n} rows, keys "
-              f"{[k.dtype for k in bks]}, {len(words)} word(s)")
+              f"{[k.dtype for k in bks]}, {len(words)} word(s) (with the "
+              f"build key: {len(words_k)})")
+    print(f"hash_join with the build key (three words): {rk['ms']:.4f} ms, "
+          f"bound {rk['bound_ms']:.4f} ms ({rk['bytes']} bytes), plain "
+          f"{rk['plain_ms']:.4f} ms", flush=True)
+    del words_k
     # K8's probe at Q4x's inputs: each probe row's group in the table of
     # dim2's 500,000 keys
     tbl, pkx, pvx = args["hash_join:probe"]
@@ -1931,10 +2210,26 @@ def join_shapes(dev, args):
     pvb = None if pvx is None else pvx.to(torch.bool)
     out["hash_join"]["q4x_probe_ms"] = cuda_ms(
         lambda: _hash_probe_cuda(bw, pw, tbl.buckets, pvb, src))
+    inb_out = _hash_probe_cuda(bw, pw, tbl.buckets, pvb, src)
+    pay_out = _hash_probe_cuda(bw, pw, tbl.buckets, pvb, src,
+                               words_in_bucket=False)
+    for a, b in zip([pay_out[0]] + pay_out[1], [inb_out[0]] + inb_out[1]):
+        max_abs_err(a, b)
+    del inb_out, pay_out
+    layout_ms = {True: [], False: []}
+    for inb in (True, False, False, True):
+        layout_ms[inb].append(cuda_ms(lambda: _hash_probe_cuda(
+            bw, pw, tbl.buckets, pvb, src, words_in_bucket=inb)))
+    out["hash_join"]["q4x_probe_words_in_bucket_ms"] = layout_ms[True]
+    out["hash_join"]["q4x_probe_words_in_payload_ms"] = layout_ms[False]
+    print(f"hash_join's probe at Q4x's inputs, words in the bucket "
+          f"{layout_ms[True]} ms, in the payload array {layout_ms[False]} "
+          f"ms (turns)", flush=True)
     qb = nbytes(pw, pvx) + nx * 9
     out["hash_join"]["q4x_probe_bound_ms"] = bound_ms(qb)
     print(f"hash_join's probe at Q4x's inputs ({nx} probe rows, "
-          f"{tbl.group_capacity} group slots): "
+          f"{tbl.group_capacity} group slots, "
+          f"{hash_capacity(tbl.group_capacity)} buckets): "
           f"{out['hash_join']['q4x_probe_ms']:.4f} ms, bound "
           f"{bound_ms(qb):.4f} ms ({qb} bytes)", flush=True)
     del tbl, pkx, pvx, bw, pw, src
@@ -1968,11 +2263,14 @@ def join_shapes(dev, args):
                                                      entries, lo, hi)),
             ("hash_join", lambda: propagate_join(bks, bvh, pks, pvh,
                                                  words)),
+            ("hash_join:with_key", lambda: propagate_join(
+                bks, bvh, pks, pvh, [words[0]] * 3)),
             ("expand_matches", lambda: expand_matches(
                 probe, valid, out_cap, left, any_join))):
         per_call = {}
         split = device_kernels(call, launches=per_call)
-        out[name]["kernels_per_call"] = per_call
+        if name in out:
+            out[name]["kernels_per_call"] = per_call
         print(f"{name} device ms by kernel (torch.profiler): {split}, "
               f"launches a call {per_call}", flush=True)
     return out
@@ -1987,6 +2285,32 @@ def probe_roofline(dev) -> float:
     ms = cuda_ms(lambda: tbl[idx])
     del idx, tbl
     return ms
+
+
+GATHER_TABLE_MB = (1, 4, 8, 16, 20, 24, 28, 32, 40, 48, 64)
+
+
+def gather_curve(dev):
+    """The card's random-gather time against the table's size: one
+    index_select of N_ROWS uniform random int32 indices from int32 tables
+    of GATHER_TABLE_MB megabytes (CUDA events, L2 flushed).  Where the
+    time starts to rise is how much of a table that every SM reads the
+    L2 keeps (K7's and K8's tables)."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(1)
+    out = []
+    for mb in GATHER_TABLE_MB:
+        rows = (mb << 20) // 4
+        tbl = torch.zeros(rows, dtype=torch.int32, device=dev)
+        idx = torch.randint(0, rows, (N_ROWS,), device=dev, generator=g,
+                            dtype=torch.int64).to(torch.int32)
+        out.append((mb, cuda_ms(lambda: torch.index_select(tbl, 0, idx),
+                                reps=5)))
+        del tbl, idx
+    print("random gathers of 4 bytes (index_select, 100M int32 indices) by "
+          "table size: " + ", ".join(f"{mb} MB {ms:.4f} ms"
+                                     for mb, ms in out), flush=True)
+    return out
 
 
 def check_small_joins(ch):
@@ -2051,6 +2375,13 @@ def check_small_joins(ch):
         "SELECT jf.a, v, fk FROM jf INNER JOIN jm ON jf.a = jm.a",
         "SELECT jm.a, jfl.v FROM jm CROSS JOIN jfl",
         "SELECT jm.a, jfl.v FROM jm INNER JOIN jfl ON jm.a < jfl.v",
+        # chains whose middle key nothing reads (J3: it is not built)
+        "SELECT count(), sum(jd.label), sum(jn.v) FROM jf INNER JOIN jd "
+        "ON jf.fk = jd.k INNER JOIN jn ON jf.a = jn.v",
+        "SELECT count(), sum(jd.label), sum(jdd.label) FROM jf INNER JOIN jd "
+        "ON jf.fk = jd.k INNER JOIN jdd ON jd.label = jdd.k",
+        "SELECT count(), sum(js.v), sum(jd.label) FROM jf INNER JOIN jd "
+        "ON jf.fk = jd.k ANY RIGHT JOIN js ON jf.s = js.s",
     ]
     got_s, want_s = ch.connect(device="cuda"), ch.connect(device="cpu")
     for name, cols in tables.items():
@@ -2077,7 +2408,8 @@ def check_small_joins(ch):
         fail("a 1:N join over its max_joined_rows raised no CapacityError")
     print(f"{len(queries)} small join queries on the card match the CPU row "
           f"for row (INNER, LEFT, RIGHT, SEMI, ANTI, ANY, 1:N, residual, "
-          f"String, Nullable and Float64 keys, CROSS, non-equi); a 1:N "
+          f"String, Nullable and Float64 keys, CROSS, non-equi, chains of "
+          f"three tables); a 1:N "
           f"join past max_joined_rows raised CapacityError", flush=True)
 
 
@@ -2116,6 +2448,9 @@ def main():
         s = load_hits(ch)[0]
         load_join_tables(s)
         time_queries(s)
+        return
+    if sys.argv[1:] == ["--gathers"]:
+        gather_curve(dev)
         return
 
     check_k1(dev)

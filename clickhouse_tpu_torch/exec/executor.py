@@ -45,7 +45,8 @@ import torch
 from ..core import dtypes as dt
 from ..core.block import Block
 from ..core.column import pad_to
-from ..core.errors import CapacityError, NotImplementedError_
+from ..core.errors import (CapacityError, MemoryLimitExceeded,
+                           NotImplementedError_)
 from ..core.settings import Settings
 from ..exprs import aggregates as agg_reg
 from ..exprs.expr import (DEVICE_KEY, BoundCall, BoundColumn, BoundLiteral,
@@ -701,6 +702,12 @@ def _propagate_ok(node: L.JoinNode, right: ExecBlock) -> bool:
     for f in node.schema:
         if f.id in left_ids:
             continue
+        if not node.reads(f.id):
+            # never built (a key a join below the build side evaluates):
+            # its type alone decides, as it does where it is built
+            if f.dtype.is_array:
+                return False
+            continue
         cv = right.cols.get(f.id)
         if cv is None or cv.dtype.is_array or getattr(
                 cv.data, "ndim", 1) > 1:
@@ -713,7 +720,8 @@ def _dense_words(node: L.JoinNode, per_field, build_words, ctx):
     eligibility: one unique integer key in a proven range of at most
     join_dense_table_entries slots, each payload word with a sentinel
     outside its proven range, at most join_dense_gather_max_words
-    gathers), as (entries, (lo, hi)); None where it does not apply.  Two
+    gathers), as (entries, (lo, hi)); None where it does not apply.  Each
+    word entry carries its proven range, from which K7 sizes its slot.  Two
     departures, both to the hash path: a UInt32 payload whose values pass
     2^31 (its wrapped word may equal the sentinel, which the reference
     does not check), and more than K7_MAX_ENTRIES words (K7's limit a
@@ -738,25 +746,37 @@ def _dense_words(node: L.JoinNode, per_field, build_words, ctx):
             if is_key:                    # value == probe key: free
                 entries.append(("key",) if j < n_data else ("keyvalid",))
             elif j >= n_data:             # validity word in {0, 1}
-                entries.append(("word", w, 2))
+                entries.append(("word", w, 2, (0, 1)))
                 n_gathers += 1
             elif n_data == 1 and fb is not None and narrow:
                 # (a word that wrapped, a UInt32 above 2^31, could equal
                 # a sentinel taken from its value's bounds)
                 lo_, hi_ = int(fb[0]), int(fb[1])
                 if lo_ > -(2 ** 31) + 1:
-                    entries.append(("word", w, lo_ - 1))
+                    entries.append(("word", w, lo_ - 1, (lo_, hi_)))
                 elif hi_ < 2 ** 31 - 2:
-                    entries.append(("word", w, hi_ + 1))
+                    entries.append(("word", w, hi_ + 1, (lo_, hi_)))
                 else:
                     return None           # no sentinel available
                 n_gathers += 1
             else:
                 return None               # unbounded / multi-word
-    if n_gathers > s.join_dense_gather_max_words or len(entries) \
-            + (n_gathers == 0) > _native.K7_MAX_ENTRIES:
+    if n_gathers > s.join_dense_gather_max_words \
+            or len(entries) > _native.K7_MAX_ENTRIES:
         return None
     return entries, rb
+
+
+def _check_join_bytes(ctx: ExecContext, need: int, n_probe: int) -> None:
+    """Hold a join's working set against what the governor's estimate
+    leaves of the budget, before the join allocates any of it (the
+    estimate counts one 8-byte intermediate a row of the join's schema,
+    not the kernels' flags, words, tables and slots)."""
+    left = ctx.memory_headroom
+    if left is not None and need > left:
+        raise MemoryLimitExceeded(
+            f"joining {n_probe} probe rows would need {need} bytes of device "
+            f"memory ({max(left, 0)} bytes of the budget left)")
 
 
 def _join_propagate(node: L.JoinNode, left: ExecBlock, right: ExecBlock,
@@ -767,7 +787,9 @@ def _join_propagate(node: L.JoinNode, left: ExecBlock, right: ExecBlock,
     s = ctx.settings
     lcap, rcap = left.capacity, right.capacity
     left_ids = {f.id for f in node.left.schema}
-    right_fields = [f for f in node.schema if f.id not in left_ids]
+    # only the right-side columns read above the join are carried
+    right_fields = [f for f in node.schema
+                    if f.id not in left_ids and node.reads(f.id)]
     per_field = []           # (field, cv, n_data_words, rebuild, narrow)
     build_words: List[torch.Tensor] = []
     for f in right_fields:
@@ -795,10 +817,20 @@ def _join_propagate(node: L.JoinNode, left: ExecBlock, right: ExecBlock,
         dense = _dense_words(node, per_field, build_words, ctx)
         if dense is not None:
             entries, rb = dense
+            # K7's match flags, output words and table
+            _check_join_bytes(ctx, lcap * (1 + 4 * len(entries))
+                              + (rb[1] - rb[0] + 1)
+                              * join_ops.dense_slot_layout(entries)[1], lcap)
             ctx.count("DenseGatherJoins")
             pr = join_ops.dense_gather_join(rkeys[0], build_ok, lkeys[0],
                                             probe_ok, entries, rb[0], rb[1])
+            # the table's layout trusts the proven ranges: K7 tests them
+            ctx.checks.append(Check(pr.out_of_range, 0,
+                                    "a JOIN build row lies outside its "
+                                    "proven value range"))
     if pr is None:
+        _check_join_bytes(ctx, join_ops.hash_join_bytes(
+            rcap, lcap, len(build_words)), lcap)
         pr = join_ops.propagate_join(rkeys, build_ok, lkeys, probe_ok,
                                      build_words)
 
@@ -809,7 +841,7 @@ def _join_propagate(node: L.JoinNode, left: ExecBlock, right: ExecBlock,
     left_outer = node.kind == "left"
     mmask = pr.matched
     cols: Dict[str, ColVal] = {f.id: left.cols[f.id] for f in node.schema
-                               if f.id in left_ids}
+                               if f.id in left_ids and node.reads(f.id)}
     wi = 0
     for f, cv, nw, rebuild, narrow in per_field:
         has_v = cv.validity is not None
@@ -895,22 +927,27 @@ def _exec_join(node: L.JoinNode, ctx: ExecContext) -> ExecBlock:
     for v in lvs:
         probe_ok = probe_ok & v
     cap_g = pad_to(min(rcap, s.max_join_build_rows))
-    table = join_ops.build_join_table(rkeys, build_ok, cap_g,
-                                      max_bytes=ctx.memory_headroom)
-    pr = join_ops.probe_join_table(table, lkeys, probe_ok)
-
-    if node.strictness in ("semi", "anti"):
-        keep = pr.matched if node.strictness == "semi" else ~pr.matched
-        return ExecBlock(left.cols, left.rows.and_mask(keep), lcap)
-
-    left_outer = node.kind == "left"
-    any_join = node.strictness == "any"
+    semi = node.strictness in ("semi", "anti")
     if node.kind == "cross":
         out_cap = pad_to(min(lcap * rcap, 1 << 24))
     elif s.max_joined_rows > 0:
         out_cap = pad_to(s.max_joined_rows)
     else:
         out_cap = pad_to(lcap + rcap)
+    # K8's table over the groups and its probe (two words), and K9's
+    # offsets and 9 bytes a slot (the grouping holds its own check)
+    _check_join_bytes(ctx, join_ops.hash_join_bytes(cap_g, lcap, 2) + (
+        0 if semi else 4 * (lcap + 1) + 9 * out_cap), lcap)
+    table = join_ops.build_join_table(rkeys, build_ok, cap_g,
+                                      max_bytes=ctx.memory_headroom)
+    pr = join_ops.probe_join_table(table, lkeys, probe_ok)
+
+    if semi:
+        keep = pr.matched if node.strictness == "semi" else ~pr.matched
+        return ExecBlock(left.cols, left.rows.and_mask(keep), lcap)
+
+    left_outer = node.kind == "left"
+    any_join = node.strictness == "any"
     p_idx, b_pos, mmask, out_count = join_ops.expand_matches(
         pr, left.valid, out_cap, left=left_outer, any_join=any_join)
     ctx.checks.append(Check(out_count, out_cap,
@@ -927,6 +964,8 @@ def _exec_join(node: L.JoinNode, ctx: ExecContext) -> ExecBlock:
     cols: Dict[str, ColVal] = {}
     left_ids = {f.id for f in node.left.schema}
     for f in node.schema:
+        if not node.reads(f.id):
+            continue                 # nothing above the join reads it
         if f.id in left_ids:
             cols[f.id] = _gather_colval(left.cols[f.id], p_idx, lcap)
             continue

@@ -32,8 +32,8 @@ __all__ = ["LAUNCHES", "LAUNCH_ROWS", "KernelBuildError", "build", "library",
            "check", "count_launch", "reset_launches", "stream_ptr",
            "dtype_code", "grid_blocks", "aligned16", "K1_MAX_TERMS",
            "K1Term", "K1Args", "K6_MAX_SPECS", "K6_MAX_DATA", "K6_MAX_MASKS",
-           "K6Spec", "K6Count", "K6Args", "K7_MAX_ENTRIES", "K7Entry",
-           "K7Args", "K8_MAX_KEYS", "K8_MAX_WORDS", "K8Args", "K9Args"]
+           "K6Spec", "K6Count", "K6Args", "K7_MAX_ENTRIES", "K7Word",
+           "K7Out", "K7Args", "K8_MAX_KEYS", "K8_MAX_WORDS", "K8Args", "K9Args"]
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -111,14 +111,22 @@ class K6Args(ctypes.Structure):
                 ("spec", K6Spec * K6_MAX_SPECS)]
 
 
-K7_MAX_ENTRIES = 8     # kMaxEntries of csrc/dense_join.cu
+K7_MAX_ENTRIES = 8     # kMaxOuts of csrc/dense_join.cu (and kMaxWords)
 
 
-class K7Entry(ctypes.Structure):
-    """ChttDenseEntry of csrc/dense_join.cu (one output word)."""
-    _fields_ = [("word", ctypes.c_void_p), ("table", ctypes.c_void_p),
-                ("out", ctypes.c_void_p), ("kind", ctypes.c_int),
-                ("sentinel", ctypes.c_int)]
+class K7Word(ctypes.Structure):
+    """ChttDenseWord of csrc/dense_join.cu (one word of a table slot)."""
+    _fields_ = [("src", ctypes.c_void_p), ("base", ctypes.c_uint),
+                ("bytes", ctypes.c_int), ("offset", ctypes.c_int),
+                ("empty", ctypes.c_uint), ("lo", ctypes.c_uint),
+                ("span", ctypes.c_uint)]
+
+
+class K7Out(ctypes.Structure):
+    """ChttDenseOut of csrc/dense_join.cu (one output word)."""
+    _fields_ = [("out", ctypes.c_void_p), ("kind", ctypes.c_int),
+                ("base", ctypes.c_uint), ("bytes", ctypes.c_int),
+                ("offset", ctypes.c_int)]
 
 
 class K7Args(ctypes.Structure):
@@ -129,14 +137,18 @@ class K7Args(ctypes.Structure):
                 ("probe_key", ctypes.c_void_p),
                 ("probe_valid", ctypes.c_void_p),
                 ("n_probe", ctypes.c_longlong), ("lo", ctypes.c_longlong),
-                ("R", ctypes.c_longlong), ("matched", ctypes.c_void_p),
+                ("R", ctypes.c_longlong), ("table", ctypes.c_void_p),
+                ("matched", ctypes.c_void_p),
+                ("out_of_range", ctypes.c_void_p),
                 ("build_dtype", ctypes.c_int), ("probe_dtype", ctypes.c_int),
-                ("n_entries", ctypes.c_int), ("first", ctypes.c_int),
-                ("e", K7Entry * K7_MAX_ENTRIES)]
+                ("slot_bytes", ctypes.c_int), ("n_words", ctypes.c_int),
+                ("n_outs", ctypes.c_int), ("pad", ctypes.c_int),
+                ("w", K7Word * K7_MAX_ENTRIES),
+                ("o", K7Out * K7_MAX_ENTRIES)]
 
 
 K8_MAX_KEYS = 8        # kMaxKeys of csrc/hash_join.cu
-K8_MAX_WORDS = 8       # kMaxWords
+K8_MAX_WORDS = 4       # kMaxWords: the words of one probe launch
 
 
 class K8Args(ctypes.Structure):
@@ -148,7 +160,10 @@ class K8Args(ctypes.Structure):
                 ("probe_valid", ctypes.c_void_p),
                 ("n_build", ctypes.c_longlong),
                 ("n_probe", ctypes.c_longlong), ("table", ctypes.c_void_p),
-                ("cap", ctypes.c_longlong), ("matched", ctypes.c_void_p),
+                ("cap", ctypes.c_longlong), ("payload", ctypes.c_void_p),
+                ("stride", ctypes.c_int), ("pad", ctypes.c_int),
+                ("hash_mask", ctypes.c_ulonglong),
+                ("matched", ctypes.c_void_p),
                 ("src", ctypes.c_void_p * K8_MAX_WORDS),
                 ("out", ctypes.c_void_p * K8_MAX_WORDS)]
 

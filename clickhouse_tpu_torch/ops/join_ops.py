@@ -50,10 +50,10 @@ from . import _native, agg_ops, sort_ops
 __all__ = ["PropagateResult", "JoinTable", "ProbeResult",
            "dense_gather_join", "propagate_join", "build_join_table",
            "probe_join_table", "expand_matches", "key_words",
-           "hash_capacity"]
+           "hash_capacity", "hash_join_bytes", "SlotWord",
+           "dense_slot_layout"]
 
-_KINDS = {"word": 0, "key": 1, "keyvalid": 2}
-_PRESENCE = 3
+_KINDS = {"word": 0, "key": 1, "keyvalid": 2}   # OutKind of dense_join.cu
 _EXPAND_TILE = 4096                # kTile of csrc/expand_matches.cu
 
 
@@ -62,6 +62,10 @@ class PropagateResult:
     """Per-probe-row join result in raw probe order (no expansion)."""
     matched: torch.Tensor          # (Np,) bool
     words: List[torch.Tensor]      # each (Np,) int32, 0 where unmatched
+    # K7 only: 0-d int32, 1 where a valid build row's key lies outside
+    # [lo, hi] or a word outside its stated range (the words are then not
+    # to be trusted), else 0
+    out_of_range: Optional[torch.Tensor] = None
 
 
 @dataclasses.dataclass
@@ -72,7 +76,8 @@ class JoinTable:
     seg_len: torch.Tensor          # (G,) int32 rows per group (0: padding)
     row_order: torch.Tensor        # int32 build row ids, key-sorted
     num_groups: torch.Tensor       # 0-d int64
-    # K8's buckets over key_cols (group indices); None on the CPU
+    # K8's buckets over key_cols (group indices), 16 bytes each as two
+    # int64; None on the CPU
     buckets: Optional[torch.Tensor] = None
 
     @property
@@ -132,27 +137,30 @@ def dense_gather_join(build_key: torch.Tensor,
                       hi: int) -> PropagateResult:
     """N:1 join against a dense direct-address table (K7).
 
-    The (unique) build keys lie in the proven range [lo, hi]; each payload
-    word gets a table of R = hi - lo + 1 int32 slots filled with its
-    sentinel and the build rows' words, and a probe row takes its key's
-    slot.  Requires unique build keys, or no words (SEMI/ANTI presence
-    checks).
+    The (unique) build keys lie in the proven range [lo, hi]; a table of
+    R = hi - lo + 1 slots holds each build row's words (a slot where no
+    build row lies holds every word's sentinel), and a probe row takes its
+    key's slot.  Requires unique build keys, or no words (SEMI/ANTI
+    presence checks).
 
     build_key, probe_key -- integer keys (int8/16/32/64, uint8, bool; UInt64
         as int64 bits), each in its own storage type
-    build_words -- entries ("word", int32 (Nb,) tensor, sentinel int) with
-        a sentinel provably outside the word's values, ("key",) for the
-        join key's own value (the probe key as int32 where matched) and
-        ("keyvalid",) for its validity (the match flag)
-    -> matched (a valid probe row whose key has a build row) and one int32
-       word an entry (0 where unmatched).
+    build_words -- entries ("word", int32 (Nb,) tensor, sentinel[, (lo,
+        hi)]) with a sentinel provably outside the word's values, and
+        optionally the word's proven range (the kernel then keeps the word
+        in fewer bytes), ("key",) for the join key's own value (the probe
+        key as int32 where matched) and ("keyvalid",) for its validity
+        (the match flag)
+    -> matched (a valid probe row whose key has a build row), one int32
+       word an entry (0 where unmatched) and out_of_range: the ranges are
+       the caller's proof, which the call checks (a valid build row whose
+       key or stated word range does not hold sets it).
     """
     R = int(hi) - int(lo) + 1
     if not 1 <= R < 1 << 31:
         raise ValueError(f"dense_gather_join: {R} table slots")
     entries = list(build_words)
-    if len(entries) + (not any(e[0] == "word" for e in entries)) \
-            > _native.K7_MAX_ENTRIES:
+    if len(entries) > _native.K7_MAX_ENTRIES:
         raise ValueError(f"dense_gather_join: more than "
                          f"{_native.K7_MAX_ENTRIES} output words")
     nb, n = build_key.shape[0], probe_key.shape[0]
@@ -173,54 +181,109 @@ def dense_gather_join(build_key: torch.Tensor,
                                     probe_valid, entries, lo, R)
 
 
+@dataclasses.dataclass
+class SlotWord:
+    """Where K7 keeps one word in a table slot: the field holds (word -
+    base) mod 2^(8 bytes) at byte `offset`; `empty` is the field of the
+    sentinel (a slot without a build row)."""
+    entry: Optional[int]       # its index in the entries; None: presence
+    bytes: int                 # 1, 2 or 4
+    base: int                  # int32
+    empty: int                 # unsigned field value
+    lo: int = 0                # the stated range: (word - lo) mod 2^32
+    span: int = 0xFFFFFFFF     # <= span (every word without a range)
+    offset: int = 0
+
+
+def dense_slot_layout(entries) -> Tuple[List[SlotWord], int]:
+    """K7's table slot for these entries: each "word" in the fewest bytes
+    (1, 2 or 4) that its proven range and sentinel need (4 without a
+    range), the widest first, each on a multiple of its width; no word: a
+    presence byte (1 where a build row lies, sentinel 0).  -> (the words,
+    first deciding the match; the slot's bytes, a power of two)."""
+    words = []
+    for i, e in enumerate(entries):
+        if e[0] != "word":
+            continue
+        sentinel = int(e[2])
+        bounds = e[3] if len(e) > 3 else None
+        rng = {}
+        if bounds is None:
+            nbytes, base = 4, 0
+        else:
+            rng = {"lo": int(bounds[0]) & 0xFFFFFFFF,
+                   "span": int(bounds[1]) - int(bounds[0])}
+            lo_, hi_ = min(int(bounds[0]), sentinel), max(int(bounds[1]),
+                                                         sentinel)
+            span = hi_ - lo_
+            nbytes, base = (1, lo_) if span < 1 << 8 else \
+                (2, lo_) if span < 1 << 16 else (4, 0)
+        mask = (1 << (8 * nbytes)) - 1
+        words.append(SlotWord(i, nbytes, base, (sentinel - base) & mask,
+                              **rng))
+    if not words:
+        words.append(SlotWord(None, 1, 0, 0, lo=1, span=0))
+    words.sort(key=lambda w: -w.bytes)         # stable: the entries' order
+    off = 0
+    for w in words:
+        w.offset = off
+        off += w.bytes
+    return words, 1 << max(off - 1, 0).bit_length()
+
+
+def _u32(v: int) -> int:
+    return int(v) & 0xFFFFFFFF
+
+
 def _dense_gather_join_cuda(build_key, build_valid, probe_key, probe_valid,
                             entries, lo, R):
     dev = probe_key.device
     n = probe_key.shape[0]
     bk, pk = build_key.contiguous(), probe_key.contiguous()
     bv, pv = _bool(build_valid), _bool(probe_valid)
+    words, slot_bytes = dense_slot_layout(entries)
+    # R slots, padded to 16 bytes (the init kernel writes whole 16 bytes)
+    table = torch.empty(-(-R * slot_bytes // 16) * 16, dtype=torch.uint8,
+                        device=dev)
     matched = torch.empty(n, dtype=torch.bool, device=dev)
+    out_of_range = torch.empty((), dtype=torch.int32, device=dev)
     args = _native.K7Args(
         build_key=bk.data_ptr(), build_valid=None if bv is None
         else bv.data_ptr(), n_build=bk.shape[0], probe_key=pk.data_ptr(),
         probe_valid=None if pv is None else pv.data_ptr(), n_probe=n,
-        lo=_wrap64(lo), R=R, matched=matched.data_ptr(),
+        lo=_wrap64(lo), R=R, table=table.data_ptr(),
+        matched=matched.data_ptr(), out_of_range=out_of_range.data_ptr(),
         build_dtype=_native.dtype_code(bk.dtype),
-        probe_dtype=_native.dtype_code(pk.dtype))
-    keep = []                       # tensors the launch reads or writes
+        probe_dtype=_native.dtype_code(pk.dtype), slot_bytes=slot_bytes,
+        n_words=len(words), n_outs=len(entries))
+    keep = []                       # tensors the launch reads
+    where = {}
+    for j, w in enumerate(words):
+        src = None
+        if w.entry is not None:
+            src = entries[w.entry][1].to(torch.int32).contiguous()
+            keep.append(src)
+            where[w.entry] = w
+        args.w[j] = _native.K7Word(
+            src=None if src is None else src.data_ptr(), base=_u32(w.base),
+            bytes=w.bytes, offset=w.offset, empty=w.empty, lo=w.lo,
+            span=w.span)
     outs: List[torch.Tensor] = []
-    first = None
     for i, e in enumerate(entries):
         out = torch.empty(n, dtype=torch.int32, device=dev)
         outs.append(out)
-        word = table = None
-        sentinel = 0
-        if e[0] == "word":
-            word = e[1].to(torch.int32).contiguous()
-            table = torch.empty(R, dtype=torch.int32, device=dev)
-            sentinel = int(e[2])
-            keep += [word, table]
-            first = i if first is None else first
-        args.e[i] = _native.K7Entry(
-            word=None if word is None else word.data_ptr(),
-            table=None if table is None else table.data_ptr(),
-            out=out.data_ptr(), kind=_KINDS[e[0]], sentinel=sentinel)
-    n_entries = len(entries)
-    if first is None:
-        # no payload word: a presence table (1 where a build key lies)
-        table = torch.empty(R, dtype=torch.int32, device=dev)
-        keep.append(table)
-        args.e[n_entries] = _native.K7Entry(
-            word=None, table=table.data_ptr(), out=None, kind=_PRESENCE,
-            sentinel=0)
-        first = n_entries
-        n_entries += 1
-    args.n_entries, args.first = n_entries, first
+        w = where.get(i)
+        args.o[i] = _native.K7Out(
+            out=out.data_ptr(), kind=_KINDS[e[0]],
+            base=0 if w is None else _u32(w.base),
+            bytes=4 if w is None else w.bytes,
+            offset=0 if w is None else w.offset)
     rc = _native.library().chtt_dense_join(ctypes.byref(args),
                                            _native.stream_ptr(dev))
     _native.check(rc, "dense_gather_join")
     _native.count_launch("dense_join", n)
-    return PropagateResult(matched=matched, words=outs)
+    return PropagateResult(matched=matched, words=outs,
+                           out_of_range=out_of_range)
 
 
 def _dense_gather_join_plain(build_key, build_valid, probe_key, probe_valid,
@@ -229,8 +292,14 @@ def _dense_gather_join_plain(build_key, build_valid, probe_key, probe_valid,
     lo = _wrap64(lo)
     boff = build_key.to(torch.int64) - lo
     bok = (boff >= 0) & (boff < R)
-    if build_valid is not None:
-        bok &= build_valid.to(torch.bool)
+    bvalid = torch.ones_like(bok) if build_valid is None \
+        else build_valid.to(torch.bool)
+    bad = bvalid & ~bok
+    bok &= bvalid
+    for e in entries:
+        if e[0] == "word" and len(e) > 3 and e[3] is not None:
+            w = e[1].to(torch.int64)
+            bad |= bok & ((w < int(e[3][0])) | (w > int(e[3][1])))
     bidx = torch.where(bok, boff, R)
     poff = probe_key.to(torch.int64) - lo
     inb = (poff >= 0) & (poff < R)
@@ -263,7 +332,8 @@ def _dense_gather_join_plain(build_key, build_valid, probe_key, probe_valid,
                                      zero))
         else:
             words.append(matched.to(torch.int32))
-    return PropagateResult(matched=matched, words=words)
+    return PropagateResult(matched=matched, words=words,
+                           out_of_range=bad.any().to(torch.int32))
 
 
 # -- K8: hash join ------------------------------------------------------------
@@ -309,9 +379,13 @@ def _key_pairs(name, build_keys, probe_keys):
     return bw, pw
 
 
-def _hash_args(bw, pw, build_valid, probe_valid, buckets):
+_ALL_ONES = (1 << 64) - 1
+
+
+def _hash_args(bw, pw, build_valid, probe_valid, buckets, hash_mask):
     args = _native.K8Args(nk=len(bw), table=buckets.data_ptr(),
-                          cap=buckets.shape[0])
+                          cap=buckets.shape[0] // 2,
+                          hash_mask=hash_mask & _ALL_ONES)
     for i, (b, p) in enumerate(zip(bw, pw)):
         args.build[i] = b.data_ptr()
         args.probe[i] = p.data_ptr() if p is not None else None
@@ -326,34 +400,57 @@ def _hash_args(bw, pw, build_valid, probe_valid, buckets):
     return args
 
 
-def _hash_build_cuda(bw, build_valid):
-    """K8's table build: the buckets (int32, -1 where empty) over the
-    valid build rows."""
+def _hash_build_cuda(bw, build_valid, hash_mask=-1):
+    """K8's table build: the buckets (16 bytes each, as int64 pairs: key
+    word, then row id and word) over the valid build rows."""
     dev = bw[0].device
-    buckets = torch.empty(hash_capacity(bw[0].shape[0]), dtype=torch.int32,
-                          device=dev)
-    args = _hash_args(bw, [None] * len(bw), build_valid, None, buckets)
+    buckets = torch.empty(2 * hash_capacity(bw[0].shape[0]),
+                          dtype=torch.int64, device=dev)
+    args = _hash_args(bw, [None] * len(bw), build_valid, None, buckets,
+                      hash_mask)
     rc = _native.library().chtt_hash_build(ctypes.byref(args),
                                            _native.stream_ptr(dev))
     _native.check(rc, "hash_join build")
     return buckets
 
 
-def _hash_probe_cuda(bw, pw, buckets, probe_valid, src):
+def _payload_stride(n_words: int, in_bucket: int = 1) -> int:
+    """int32 words a build row of K8's payload array for one probe launch
+    of n_words words (0: they ride in the bucket, which holds `in_bucket`:
+    two for one 4-byte key, else one)."""
+    return 0 if n_words <= in_bucket else n_words if n_words <= 2 else 4
+
+
+def _in_bucket(bw) -> int:
+    """The words a K8 bucket holds itself for these key words."""
+    return 2 if len(bw) == 1 and bw[0].element_size() == 4 else 1
+
+
+def _hash_probe_cuda(bw, pw, buckets, probe_valid, src, hash_mask=-1,
+                     words_in_bucket=True):
     """K8's probe: (matched, one int32 word a probe row for each source
-    word, 0 where unmatched); more than K8_MAX_WORDS source words take
-    another probe a chunk."""
+    word, 0 where unmatched).  Each launch first writes its words into the
+    buckets (or the payload array, by build row); more than K8_MAX_WORDS
+    source words take another launch a chunk.  words_in_bucket=False (a
+    measurement hook) keeps every word in the payload array."""
     dev = pw[0].device
     n = pw[0].shape[0]
     matched = torch.empty(n, dtype=torch.bool, device=dev)
     outs = [torch.empty(n, dtype=torch.int32, device=dev) for _ in src]
     src = [w.to(torch.int32).contiguous() for w in src]
     step = _native.K8_MAX_WORDS
+    in_bucket = _in_bucket(bw) if words_in_bucket else 0
+    # the first chunk is the widest
+    stride = _payload_stride(min(len(src), step), in_bucket)
+    payload = torch.empty(bw[0].shape[0] * stride, dtype=torch.int32,
+                          device=dev) if stride else None
     for c in range(0, max(len(src), 1), step):
-        args = _hash_args(bw, pw, None, probe_valid, buckets)
+        args = _hash_args(bw, pw, None, probe_valid, buckets, hash_mask)
         args.matched = matched.data_ptr() if c == 0 else None
         chunk = src[c:c + step]
         args.n_words = len(chunk)
+        args.stride = _payload_stride(len(chunk), in_bucket)
+        args.payload = payload.data_ptr() if args.stride else None
         for i, (w, o) in enumerate(zip(chunk, outs[c:c + step])):
             args.src[i] = w.data_ptr()
             args.out[i] = o.data_ptr()
@@ -361,6 +458,15 @@ def _hash_probe_cuda(bw, pw, buckets, probe_valid, src):
                                                _native.stream_ptr(dev))
         _native.check(rc, "hash_join probe")
     return matched, outs
+
+
+def hash_join_bytes(n_build: int, n_probe: int, n_words: int) -> int:
+    """Device bytes of K8's build and one probe beyond its inputs, at most:
+    the buckets (16 bytes each), the payload array (as if a bucket held
+    one word), the match flags and the output words."""
+    stride = _payload_stride(min(n_words, _native.K8_MAX_WORDS))
+    return hash_capacity(n_build) * 16 + n_build * 4 * stride \
+        + n_probe * (1 + 4 * n_words)
 
 
 def _first_match_plain(bw, build_valid, pw, probe_valid) -> torch.Tensor:
@@ -401,7 +507,8 @@ def propagate_join(build_keys: Sequence[torch.Tensor],
                    build_valid: Optional[torch.Tensor],
                    probe_keys: Sequence[torch.Tensor],
                    probe_valid: Optional[torch.Tensor],
-                   build_words: Sequence[torch.Tensor]) -> PropagateResult:
+                   build_words: Sequence[torch.Tensor], *,
+                   hash_mask: int = -1) -> PropagateResult:
     """N:1 / ANY / SEMI / ANTI join by hash table (K8, one build and one
     probe): each valid probe row matches the smallest build row id among
     the valid build rows with its keys, and takes that row's 32-bit words
@@ -409,6 +516,8 @@ def propagate_join(build_keys: Sequence[torch.Tensor],
 
     build_keys, probe_keys -- the join keys, pairwise of one unified type
     build_words -- int32 (Nb,) words of the build-side output columns
+    hash_mask -- a test hook: the kernel's 64-bit hash is ANDed with it (0
+        makes every row's hash equal); the result does not depend on it
     """
     bw, pw = _key_pairs("propagate_join", build_keys, probe_keys)
     nb, n = bw[0].shape[0], pw[0].shape[0]
@@ -423,9 +532,9 @@ def propagate_join(build_keys: Sequence[torch.Tensor],
     if nb >= 1 << 30 or n >= 1 << 31:
         raise ValueError(f"propagate_join: {nb} build and {n} probe rows")
     if _route("propagate_join", dev):
-        buckets = _hash_build_cuda(bw, _bool(build_valid))
+        buckets = _hash_build_cuda(bw, _bool(build_valid), hash_mask)
         matched, words = _hash_probe_cuda(bw, pw, buckets, _bool(probe_valid),
-                                          list(build_words))
+                                          list(build_words), hash_mask)
         _native.count_launch("hash_join", n)
         return PropagateResult(matched=matched, words=words)
     matched, words = _take_words(
@@ -449,6 +558,8 @@ def build_join_table(keys: Sequence[torch.Tensor],
     key_cols = list(g.unique_keys)
     buckets = None
     if _route("build_join_table", g.num_groups.device):
+        # sized by the group capacity: the group count stays on the device
+        # (reading it would stall the host mid-query)
         buckets = _hash_build_cuda(key_words(key_cols), real)
         _native.count_launch("hash_join", group_capacity)
     return JoinTable(key_cols=key_cols,

@@ -9,7 +9,7 @@ into unique QueryTree column nodes.
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Dict, List, Optional, Sequence, Tuple
+from typing import Any, Dict, List, Optional, Sequence, Set, Tuple
 
 from ..core import dtypes as dt
 from ..exprs.expr import BoundExpr
@@ -249,9 +249,18 @@ class JoinNode(PlanNode):
     asof_left: Optional[BoundExpr] = None
     asof_right: Optional[BoundExpr] = None
     asof_op: str = "<="
+    # the output field ids that the join's parent and its residual read
+    # (set when the plan's columns are pruned; None: every field of
+    # `schema`).  `schema` stays the reference's, so the governor's
+    # estimate does too; the executor builds only these columns.
+    read_fields: Optional[Set[str]] = None
 
     def children(self):
         return (self.left, self.right)
+
+    def reads(self, field_id: str) -> bool:
+        """Whether an output field is read above the join (so built)."""
+        return self.read_fields is None or field_id in self.read_fields
 
     def label(self):
         return f"Join {self.strictness} {self.kind}"

@@ -682,6 +682,9 @@ def _prune_columns(node: L.PlanNode, needed: Set[str]) -> None:
         node.schema = [f for f in node.schema
                        if f.id in kept_left or f.id in kept_right
                        or f.id in needed]
+        # the schema keeps the keys evaluated below the join; the executor
+        # builds only what is read above it
+        node.read_fields = extra
         return
     if isinstance(node, L.UnionNode):
         # positional: keep positions needed in the union output

@@ -18,6 +18,8 @@ __all__ = ["infer_bounds", "Bounds"]
 Bounds = Tuple[int, int]            # inclusive [lo, hi]
 
 _INT_KINDS = ("i", "u")
+_CAST_BITS = {"toInt8": 8, "toInt16": 16, "toInt32": 32, "toInt64": 64,
+              "toUInt8": 8, "toUInt16": 16, "toUInt32": 32, "toUInt64": 64}
 
 
 def _dtype_bounds(e: BoundColumn) -> Optional[Bounds]:
@@ -102,13 +104,18 @@ def _call_bounds(e: BoundCall, fb: Dict[str, Bounds]) -> Optional[Bounds]:
         if a and c and c[0] == c[1] and c[0] > 0:
             return (a[0] // c[0] if a[0] >= 0 else -((-a[0]) // c[0]),
                     a[1] // c[0] if a[1] >= 0 else -((-a[1]) // c[0]))
-    elif name in ("toInt8", "toInt16", "toInt32", "toInt64", "toUInt8",
-                  "toUInt16", "toUInt32", "toUInt64", "identity",
-                  "materialize", "assumeNotNull", "toNullable"):
+    elif name in _CAST_BITS:
         a = b(0)
-        if a is not None and name.startswith("toUInt") and a[0] < 0:
-            return None               # wrapping cast loses the interval
-        return a
+        if a is None:
+            return None
+        bits = _CAST_BITS[name]
+        t = (0, (1 << bits) - 1) if name.startswith("toUInt") \
+            else (-(1 << (bits - 1)), (1 << (bits - 1)) - 1)
+        # a cast that wraps some value of the interval can give any value
+        # of its type
+        return a if t[0] <= a[0] and a[1] <= t[1] else t
+    elif name in ("identity", "materialize", "assumeNotNull", "toNullable"):
+        return b(0)
     elif name in ("least",) and len(args) == 2:
         a, c = b(0), b(1)
         if a and c:

@@ -426,3 +426,259 @@ def test_uint32_payload_at_the_sentinel_is_kept():
     assert ts.execute(sql).rows() == want
     assert js.execute(sql).rows() != want
     assert js.execute(sql, settings={"join_dense_gather": 0}).rows() == want
+
+
+# -- J3: the join builds only the columns read above it ----------------------
+# Q4's, Q4h's and Q4x's shapes (chip_smoke.load_join_tables) at small size:
+# dim's keys unique in a small range (the direct-address join, K7), dim_h's
+# unique and far apart (the hash join, K8), dim2's each twice (the 1:N
+# join); fact_h's keys miss on every 10th row.
+
+N_SHAPED = 20_000
+N_SHAPED_DIM = 1000
+SHAPES = {"q4": ("fact4", "dim4"), "q4h": ("fact4h", "dim4h"),
+          "q4x": ("fact4", "dim4x")}
+
+
+@pytest.fixture(scope="module")
+def shaped_sessions():
+    k = np.arange(N_SHAPED_DIM, dtype=np.int64)
+    label = (k * 7) % 97
+    i = np.arange(N_SHAPED, dtype=np.int64)
+    fk = (i * 40503) % N_SHAPED_DIM
+    kh = k * 2654435761
+    tables = {"dim4": {"k": k, "label": label},
+              "dim4h": {"k": kh, "label": label},
+              "dim4x": {"k": k // 2, "label": label},
+              "fact4": {"fk": fk},
+              "fact4h": {"fk": kh[fk] + (i % 10 == 0)}}
+    js = jch.connect()
+    ts = tch.connect(device="cpu")
+    for name, cols in tables.items():
+        types = {c: "Int64" for c in cols}
+        js.execute(f"CREATE TABLE {name} ("
+                   + ", ".join(f"{c} Int64" for c in cols) + ")")
+        js.insert_pydict(name, cols)
+        table_from_numpy(ts, name, _reference_columns(js, name), types)
+    return js, ts
+
+
+SHAPED_FORMS = {
+    "count-sum": "SELECT count(), sum(label) FROM {f} INNER JOIN {d} "
+                 "ON {f}.fk = {d}.k",
+    "star": "SELECT * FROM {f} INNER JOIN {d} ON {f}.fk = {d}.k",
+    "residual-on-build-key": "SELECT fk, label FROM {f} INNER JOIN {d} "
+                             "ON {f}.fk = {d}.k AND {d}.k % 3 = 1",
+    "left-use-nulls": "SELECT fk, label FROM {f} LEFT JOIN {d} "
+                      "ON {f}.fk = {d}.k SETTINGS join_use_nulls = 1",
+}
+
+
+@pytest.mark.parametrize("form", list(SHAPED_FORMS))
+@pytest.mark.parametrize("shape", list(SHAPES))
+def test_shaped_joins_match_reference(shaped_sessions, shape, form):
+    """Q4-, Q4h- and Q4x-shaped joins give the reference's rows in order,
+    whether the build key is read above the join (SELECT *, a residual on
+    it) or not (count(), sum(label))."""
+    f, d = SHAPES[shape]
+    rows = _both(shaped_sessions, SHAPED_FORMS[form].format(f=f, d=d))
+    assert rows
+
+
+def _spy_calls(monkeypatch, module, names):
+    calls = {name: [] for name in names}
+    for name in names:
+        fn = getattr(module, name)
+
+        def spy(*args, _fn=fn, _name=name, **kw):
+            calls[_name].append(args)
+            return _fn(*args, **kw)
+        monkeypatch.setattr(module, name, spy)
+    return calls
+
+
+def _join_blocks(monkeypatch):
+    """The blocks the port's joins return, as they run."""
+    from clickhouse_tpu_torch.exec import executor
+    blocks = []
+    run = executor._DISPATCH[TL.JoinNode]
+
+    def spy(node, ctx):
+        blocks.append((node, run(node, ctx)))
+        return blocks[-1][1]
+    monkeypatch.setitem(executor._DISPATCH, TL.JoinNode, spy)
+    return blocks
+
+
+@pytest.mark.parametrize("shape", list(SHAPES))
+def test_join_builds_only_what_is_read(shaped_sessions, monkeypatch, shape):
+    """Q4's K7 call carries `label` alone, one word with its sentinel and
+    proven range and no "key" word; Q4h's K8 call carries one word; Q4x's
+    1:N join gathers `label` alone.  The join's schema still holds the
+    build key (the plan is the reference's), and no right-side column
+    outside what is read above the join is built."""
+    from clickhouse_tpu_torch.ops import join_ops
+    f, d = SHAPES[shape]
+    calls = _spy_calls(monkeypatch, join_ops,
+                       ["dense_gather_join", "propagate_join",
+                        "build_join_table"])
+    blocks = _join_blocks(monkeypatch)
+    _both(shaped_sessions, SHAPED_FORMS["count-sum"].format(f=f, d=d))
+    (node, block), = blocks
+    right = {fld.id for fld in node.right.schema}
+    assert {fld.display for fld in node.schema
+            if fld.id in right} == {"k", "label"}
+    assert [fld.display for fld in node.schema
+            if fld.id in right and fld.id in block.cols] == ["label"]
+    if shape == "q4":
+        (args,) = calls["dense_gather_join"]
+        entries = args[4]
+        assert [e[0] for e in entries] == ["word"]
+        assert entries[0][2] == -1 and tuple(entries[0][3]) == (0, 96)
+        assert not calls["propagate_join"]
+    elif shape == "q4h":
+        (args,) = calls["propagate_join"]
+        assert len(args[4]) == 1
+        assert not calls["dense_gather_join"]
+    else:
+        assert len(calls["build_join_table"]) == 1
+        assert not calls["propagate_join"] and not calls["dense_gather_join"]
+
+
+@pytest.mark.parametrize("form", ["count-sum", "star"])
+@pytest.mark.parametrize("shape", list(SHAPES))
+def test_join_estimate_is_the_reference(shaped_sessions, shape, form):
+    """The governor's estimate of the shaped joins' plans is the
+    reference's: the join's schema keeps what the reference's keeps."""
+    from clickhouse_tpu.exec.streaming import \
+        estimate_plan_device_bytes as jest
+    from clickhouse_tpu_torch.exec.streaming import \
+        estimate_plan_device_bytes as test_
+    js, ts = shaped_sessions
+    f, d = SHAPES[shape]
+    sql = SHAPED_FORMS[form].format(f=f, d=d)
+    jplan = js._plan(jparse(sql), js.settings)
+    tplan = ts._plan(tparse(sql), ts.settings)
+    assert [x.display for x in _find_join(tplan).schema] == \
+        [x.display for x in _find_join(jplan).schema]
+    assert test_(tplan, ts.catalog, ts.settings) == \
+        jest(jplan, js.catalog, js.settings)
+
+
+@pytest.mark.parametrize("shape", list(SHAPES))
+def test_join_working_set_is_held_to_the_budget(shaped_sessions, monkeypatch,
+                                                shape):
+    """A budget that the governor's estimate passes, with less left than
+    the join's own working set (match flags and words, K7's table, K8's
+    buckets and payload, K9's slots), raises MemoryLimitExceeded naming the
+    join before any join kernel runs; at the default budget the query
+    answers."""
+    from clickhouse_tpu_torch.core.errors import MemoryLimitExceeded
+    from clickhouse_tpu_torch.exec.streaming import \
+        estimate_plan_device_bytes
+    from clickhouse_tpu_torch.ops import join_ops
+    js, ts = shaped_sessions
+    f, d = SHAPES[shape]
+    sql = SHAPED_FORMS["count-sum"].format(f=f, d=d)
+    est = estimate_plan_device_bytes(ts._plan(tparse(sql), ts.settings),
+                                     ts.catalog, ts.settings)
+    calls = _spy_calls(monkeypatch, join_ops,
+                       ["dense_gather_join", "propagate_join",
+                        "build_join_table", "probe_join_table",
+                        "expand_matches"])
+    with pytest.raises(MemoryLimitExceeded, match="joining"):
+        ts.execute(sql, settings={"max_device_memory_bytes": est + 4096})
+    assert not any(calls.values())
+    _both(shaped_sessions, sql)
+
+
+# -- J3 through chains of joins ----------------------------------------------
+# The inner join of a chain keeps its build key in its schema but does not
+# build it unless something above reads it; none of these queries selects
+# the middle key.  Each chain gives the reference's rows and takes the
+# reference's routes: (N:1 calls, 1:N builds).
+
+CHAINS = {
+    "n1-then-n1": ("SELECT count(), sum(dim.label), sum(dimn.v) FROM fact "
+                   "INNER JOIN dim ON fact.fk = dim.k "
+                   "INNER JOIN dimn ON fact.a = dimn.v", (2, 0)),
+    "n1-then-left-n1": ("SELECT fk, dim.label, dimn.v FROM fact "
+                        "LEFT JOIN dim ON fact.fk = dim.k "
+                        "LEFT JOIN dimn ON fact.a = dimn.v", (2, 0)),
+    "n1-then-1n": ("SELECT count(), sum(dim.label), sum(dimd.f) FROM fact "
+                   "INNER JOIN dim ON fact.fk = dim.k "
+                   "INNER JOIN dimd ON dim.label = dimd.k", (1, 1)),
+    "right-through-a-join": ("SELECT dims.s, dims.v, fk, label FROM fact "
+                             "INNER JOIN dim ON fact.fk = dim.k "
+                             "RIGHT JOIN dims ON fact.s = dims.s", (1, 1)),
+    "any-right-through-a-join": ("SELECT count(), sum(dims.v), sum(label) "
+                                 "FROM fact INNER JOIN dim "
+                                 "ON fact.fk = dim.k ANY RIGHT JOIN dims "
+                                 "ON fact.s = dims.s", (2, 0)),
+}
+
+
+@pytest.mark.parametrize("chain", list(CHAINS))
+def test_join_chains_match_reference(sessions, monkeypatch, chain):
+    """Three-table joins whose middle key nothing reads: the outer join
+    finds every column it reads (the inner join built it) and keeps the
+    route that the build side's types decide, with the unread key left
+    out."""
+    from clickhouse_tpu_torch.ops import join_ops
+    sql, (n1, expand) = CHAINS[chain]
+    calls = _spy_calls(monkeypatch, join_ops,
+                       ["dense_gather_join", "propagate_join",
+                        "build_join_table"])
+    blocks = _join_blocks(monkeypatch)
+    rows = _both(sessions, sql)
+    assert rows
+    assert len(calls["dense_gather_join"]) + len(calls["propagate_join"]) \
+        == n1
+    assert len(calls["build_join_table"]) == expand
+    for node, block in blocks:
+        built = {fld.id for fld in node.schema if fld.id in block.cols}
+        assert built == {fld.id for fld in node.schema if node.reads(fld.id)}
+    inner = blocks[0][0]          # the first to finish
+    assert any(not inner.reads(fld.id) for fld in inner.schema)
+
+
+def test_wrapped_toint8_payload_is_exact():
+    """toInt8 of values in [0, 300] on the build side wraps; its proven
+    range is the int8 range (not the input's [0, 300]), so the join gives
+    numpy's values, -128 and -1 among them, as the reference does."""
+    v = np.arange(301, dtype=np.int64)
+    fk = np.tile(np.array([0, 127, 128, 255, 256, 300, 5000]), 300)
+    js, ts = jch.connect(), tch.connect(device="cpu")
+    for s_ in (js, ts):
+        s_.execute("CREATE TABLE d8 (k Int64, v Int64)")
+        s_.insert_pydict("d8", {"k": v, "v": v})
+        s_.execute("CREATE TABLE f8 (fk Int64)")
+        s_.insert_pydict("f8", {"fk": fk})
+    for how in ("INNER", "ANY LEFT"):
+        sql = (f"SELECT fk, t FROM f8 {how} JOIN (SELECT k, toInt8(v) AS t "
+               f"FROM d8) AS dd ON f8.fk = dd.k")
+        want = [(int(f), int(np.int64(f).astype(np.int8)) if f <= 300
+                 else 0) for f in fk if f <= 300 or how != "INNER"]
+        assert ts.execute(sql).rows() == want
+        _both((js, ts), sql)
+
+
+def test_dense_join_range_that_does_not_hold_raises(shaped_sessions,
+                                                    monkeypatch):
+    """K7's table trusts each word's proven range; where a stated range
+    does not hold (here `label`'s stated as [1, 96] over values in
+    [0, 96]), the call's out_of_range flag makes the query raise at
+    materialize instead of answering from a table it may have filled
+    wrong."""
+    from clickhouse_tpu_torch.exec import executor
+    dense_words = executor._dense_words
+
+    def narrowed(*args):
+        entries, rb = dense_words(*args)
+        return [e[:3] + ((e[3][0] + 1, e[3][1]),) if e[0] == "word" else e
+                for e in entries], rb
+    monkeypatch.setattr(executor, "_dense_words", narrowed)
+    f, d = SHAPES["q4"]
+    with pytest.raises(CapacityError, match="proven value range"):
+        shaped_sessions[1].execute(
+            SHAPED_FORMS["count-sum"].format(f=f, d=d))

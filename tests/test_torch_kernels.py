@@ -19,8 +19,9 @@ import torch
 
 from chip_smoke import (CMPS, K4_ROWS, K5_CASES, K7_CASES, K8_CASES,
                         K9_CASES, SORT_KEY_CHAINS, U64_EDGE, grouped_rows,
-                        k5_args, k6_many_specs, k7_args, k8_args, k8_plain,
-                        k9_args, make_term, sort_key_columns, term_cases)
+                        k5_args, k6_many_specs, k7_args, k7_outputs,
+                        k8_args, k8_results, k9_args, make_term,
+                        sort_key_columns, term_cases)
 from clickhouse_tpu_torch.ops import _native
 from clickhouse_tpu_torch.ops.agg_ops import (_masked_reduce_plain,
                                               masked_reduce)
@@ -707,26 +708,32 @@ def _exact(got: torch.Tensor, want: torch.Tensor):
 def test_dense_join_cases(dev, case):
     """K7 on the cases of chip_smoke.k7_case: unique keys, holes, probe
     keys outside the range, invalid rows, a Nullable payload, sentinels
-    below and above, key words, presence, narrow and UInt64 keys."""
+    below and above, key words, presence, narrow and UInt64 keys, views
+    1-3 rows in, a table of each width with the sentinel at its edges,
+    2-8 words packed in a slot, 1, 3 and 4k + 1 probe rows, a toInt8
+    payload, and stated ranges that do not hold (out_of_range set)."""
     bk, bv, pk, pv, words, lo, hi = k7_args(case, np.random.default_rng(
         len(case)), dev)
-    got = dense_gather_join(bk, bv, pk, pv, words, lo, hi)
-    want = _dense_gather_join_plain(bk, bv, pk, pv, words, lo, hi - lo + 1)
-    _exact(got.matched, want.matched)
-    for a, b in zip(got.words, want.words):
+    got = k7_outputs(dense_gather_join(bk, bv, pk, pv, words, lo, hi))
+    want = k7_outputs(_dense_gather_join_plain(bk, bv, pk, pv, words, lo,
+                                               hi - lo + 1))
+    assert len(got) == len(want)
+    assert (len(want) == 1) == (case in ("wrapped_payload",
+                                         "build_key_outside"))
+    for a, b in zip(got, want):
         _exact(a, b)
 
 
 @pytest.mark.parametrize("case", K8_CASES)
 def test_hash_join_cases(dev, case):
     """K8 on the cases of chip_smoke.k8_case, three runs each: the smallest
-    build row id must win where keys repeat."""
-    args = k8_args(case, np.random.default_rng(len(case)), dev)
-    want_m, want_w = k8_plain(*args)
+    build row id must win where keys repeat; forced-equal hashes, a run
+    past the last bucket, payload chunks and Q4x's group-index table."""
+    args, kw = k8_args(case, np.random.default_rng(len(case)), dev)
     for _ in range(3):
-        got = propagate_join(*args)
-        _exact(got.matched, want_m)
-        for a, b in zip(got.words, want_w):
+        got, want = k8_results(case, args, kw)
+        assert len(got) == len(want)
+        for a, b in zip(got, want):
             _exact(a, b)
 
 

@@ -907,6 +907,144 @@ def test_dense_gather_join_matches_reference(probe_type, sentinel):
             np.testing.assert_array_equal(a.numpy(), np.asarray(b))
 
 
+def _slot_fields(entries, layout, nb):
+    """K7's table rows as csrc/dense_join.cu writes them (k_dense_build),
+    emulated in numpy: (nb + 1, slot bytes) uint8, the last row the empty
+    slot (k_dense_init)."""
+    words, slot_bytes = layout
+    slots = np.zeros((nb + 1, slot_bytes), np.uint8)
+    for w in words:
+        vals = np.ones(nb, np.int64) if w.entry is None \
+            else entries[w.entry][1].astype(np.int64)
+        mask = (1 << (8 * w.bytes)) - 1
+        field = np.append((vals - w.base) & mask, w.empty).astype(np.uint64)
+        for b in range(w.bytes):
+            slots[:, w.offset + b] = (field >> np.uint64(8 * b)) & \
+                np.uint64(0xFF)
+    return slots
+
+
+def _slot_value(slots, w):
+    field = np.zeros(slots.shape[0], np.uint64)
+    for b in range(w.bytes):
+        field |= slots[:, w.offset + b].astype(np.uint64) << np.uint64(8 * b)
+    return field
+
+
+@pytest.mark.parametrize("case", ["one_byte", "two_bytes", "four_bytes",
+                                  "no_range", "packed", "eight_words",
+                                  "presence"])
+def test_dense_slot_layout_round_trips(case):
+    """K7's narrow table: each word in 1, 2 or 4 bytes less its lower bound
+    (the fewest its range and sentinel need), the widest first, each on a
+    multiple of its width, in a slot of 1-32 bytes; every build word comes
+    back from its field, and the first word's field is never its sentinel's
+    but in the empty slot."""
+    rng = np.random.default_rng(35)
+    nb = 500
+
+    def word(lo, hi, sentinel, bounds=True):
+        v = rng.integers(lo, hi + 1, nb).astype(np.int32)
+        v[:2] = lo, hi
+        return ("word", v, sentinel) + (((lo, hi),) if bounds else ())
+    entries = {
+        "one_byte": [word(0, 96, -1)],
+        "two_bytes": [word(-700, 64_000, 64_001)],
+        "four_bytes": [word(-2**31 + 1, 5, -2**31)],
+        "no_range": [word(0, 96, -1, bounds=False)],
+        "packed": [("key",), word(0, 1, 2), word(-9, 300, -10),
+                   word(5, 2**20, 4), ("keyvalid",), word(-3, 250, 251)],
+        "eight_words": [word(-2**31 + 1, 2**31 - 1, -2**31)
+                        for _ in range(8)],
+        "presence": [("key",)],
+    }[case]
+    layout = tjoin.dense_slot_layout(entries)
+    words, slot_bytes = layout
+    want_bytes = {"one_byte": [1], "two_bytes": [2], "four_bytes": [4],
+                  "no_range": [4], "packed": [4, 2, 1, 1],
+                  "eight_words": [4] * 8, "presence": [1]}[case]
+    assert [w.bytes for w in words] == want_bytes
+    assert slot_bytes in (1, 2, 4, 8, 16, 32)
+    assert sum(want_bytes) <= slot_bytes < 2 * sum(want_bytes)
+    for w in words:
+        assert w.offset % w.bytes == 0 and w.offset + w.bytes <= slot_bytes
+    slots = _slot_fields(entries, layout, nb)
+    for w in words:
+        field = _slot_value(slots, w)
+        assert field[-1] == w.empty
+        if w.entry is None:
+            assert (field[:-1] == 1).all()
+            continue
+        got = ((field.astype(np.int64) + w.base) & 0xFFFFFFFF).astype(
+            np.uint32).view(np.int32)
+        np.testing.assert_array_equal(got[:-1], entries[w.entry][1])
+        assert int(got[-1]) == entries[w.entry][2]
+    assert (_slot_value(slots, words[0])[:-1] != words[0].empty).all()
+
+
+@pytest.mark.parametrize("case", ["int8_range", "range_does_not_hold",
+                                  "key_past_hi", "invalid_row_past_hi"])
+def test_dense_gather_join_tests_the_stated_ranges(case):
+    """K7's plain version sets out_of_range where a valid build row's key
+    lies outside [lo, hi] or a word outside its stated range (toInt8 of
+    values in [0, 300] stated as [0, 300]); where the ranges hold (the
+    int8 range, or the row past hi invalid) it is 0 and the words are the
+    reference's."""
+    rng = np.random.default_rng(36)
+    nb, n = 301, 2000
+    bk = np.arange(nb)
+    bv = np.ones(nb, bool)
+    pk = rng.integers(-10, nb + 10, n)
+    w8 = np.arange(nb).astype(np.int8).astype(np.int32)
+    word = ("word", w8, -129, (-128, 127))
+    lo, hi = 0, nb - 1
+    if case == "range_does_not_hold":
+        word = ("word", w8, -1, (0, 300))
+    elif case in ("key_past_hi", "invalid_row_past_hi"):
+        hi = nb - 2
+        bv[-1] = case == "key_past_hi"
+    got = tjoin.dense_gather_join(_t(bk), _t(bv), _t(pk), None,
+                                  [(word[0], _t(word[1])) + word[2:]],
+                                  lo, hi)
+    assert got.out_of_range.shape == () and got.out_of_range.dtype == \
+        torch.int32
+    holds = case in ("int8_range", "invalid_row_past_hi")
+    assert int(got.out_of_range) == (0 if holds else 1)
+    if holds:
+        ref = jjoin.dense_gather_join(
+            jnp.asarray(bk), jnp.asarray(bv), jnp.asarray(pk),
+            jnp.ones(n, bool), [("word", jnp.asarray(w8), -129)], lo, hi)
+        np.testing.assert_array_equal(got.matched.numpy(),
+                                      np.asarray(ref.matched))
+        np.testing.assert_array_equal(got.words[0].numpy(),
+                                      np.asarray(ref.words[0]))
+
+
+@pytest.mark.parametrize("fn,interval,want", [
+    ("toInt8", (0, 300), (-128, 127)),
+    ("toInt8", (-5, 100), (-5, 100)),
+    ("toUInt8", (-1, 10), (0, 255)),
+    ("toUInt8", (3, 255), (3, 255)),
+    ("toInt16", (0, 40_000), (-32768, 32767)),
+    ("toUInt16", (0, 70_000), (0, 65535)),
+    ("toInt32", (-2**31, 2**31), (-2**31, 2**31 - 1)),
+    ("toUInt32", (0, 2**32 - 1), (0, 2**32 - 1)),
+    ("toInt64", (0, 2**64 - 1), (-2**63, 2**63 - 1)),
+    ("toUInt64", (-1, 5), (0, 2**64 - 1)),
+    ("identity", (-7, 300), (-7, 300)),
+])
+def test_cast_bounds_hold_where_the_cast_wraps(fn, interval, want):
+    """A narrowing cast's bounds: the input's where every value of it fits
+    the target type, else the target type's whole range (the port's
+    ranges; the reference passes the input's through)."""
+    from clickhouse_tpu_torch.core import dtypes as tdt_
+    from clickhouse_tpu_torch.exprs.expr import BoundCall, BoundColumn
+    from clickhouse_tpu_torch.plan import ranges
+    col = BoundColumn("x", tdt_.Int64)
+    e = BoundCall(fn, [col], tdt_.Int64)
+    assert ranges.infer_bounds(e, {"x": interval}) == want
+
+
 @pytest.mark.parametrize("name", ["int64", "int32", "uint8", "float64"])
 @pytest.mark.parametrize("nk", [1, 2])
 def test_propagate_join_matches_reference(name, nk):
