@@ -4,6 +4,7 @@
     python3 chip_smoke.py --k2-wide   # only K2 at S = 16,384 (see k2_wide)
     python3 chip_smoke.py --queries   # only the query times (time_queries)
     python3 chip_smoke.py --gathers   # only random gathers by table size
+    python3 chip_smoke.py --k9        # only K9 alone (k9_turn)
 
 Needs one NVIDIA Hopper card, nvcc and PyTorch built for CUDA; exits
 non-zero without them.  Phases, each of which fails the run:
@@ -40,9 +41,13 @@ non-zero without them.  Phases, each of which fails the run:
      nothing matching, 300,000 rows of one key, one, five and ten words,
      views one row in, Q4x's group-index table, words kept in the payload
      array rather than the bucket; K9
-     over K9_CASES: no match, LEFT, ANY,
+     over K9_CASES, three runs each: no match, LEFT, ANY,
      one probe row holding 90 % of the output, a count beyond the
-     capacity, no probe row, 20M probe rows); integer results must agree
+     capacity, no probe row, 20M probe rows, a tile's output at the spill
+     threshold less one, at it and above it, heavy rows in adjacent tiles,
+     an empty tile, the capacity mid-tile and mid-heavy-row, a row count
+     mid-tile (with and without a mask) and at 0, a row count off the
+     16-row grid, views 1-3 rows in); integer results must agree
      exactly, K1's and K2's float sums within rtol 1e-12, K6's within
      n_g * eps * sum(|x|) a group of n_g rows (its atomics add a group's
      parts in a varying order); then SELECT without FROM, numbers() and
@@ -85,8 +90,11 @@ non-zero without them.  Phases, each of which fails the run:
      holds 40 % of them, K7 at Q4's inputs beside index_select, K8 at
      Q4h's (and its probe at Q4x's) beside searchsorted for information,
      both also with the unread build key's words beside label (the
-     inputs before the join built only what is read), K9 at Q4x's beside repeat_interleave, each with its kernels a
-     call; fails unless Q4's K7 call carries label alone and Q4h's K8 call
+     inputs before the join built only what is read), K9 at Q4x's (the
+     probe rows as their row count) beside repeat_interleave, also with
+     the rows as a bool mask, its scan pass alone, on the heavy-row and
+     many-tile cases and at each spill threshold of K9_HEAVY_SWEEP, each
+     with its kernels a call; fails unless Q4's K7 call carries label alone and Q4h's K8 call
      one word; time each query (median wall time of 20 runs,
      synchronised) with its peak memory beside the governor's estimate,
      the device-busy time of Q1, Q2b, Q2m, Q4, Q4h and Q4x
@@ -160,7 +168,11 @@ EXTRA_KEYS = ("level1_ms", "merge_ms", "entry64_ms", "entry64_bound_ms",
               "with_key_plain_ms", "with_key_bytes",
               "with_key_4_byte_slots_ms", "words_in_bucket_ms",
               "words_in_payload_ms", "q4x_probe_words_in_bucket_ms",
-              "q4x_probe_words_in_payload_ms")
+              "q4x_probe_words_in_payload_ms", "with_mask_ms",
+              "with_mask_bytes", "with_mask_bound_ms", "heavy_ms",
+              "heavy_bytes", "heavy_bound_ms", "many_tiles_ms",
+              "many_tiles_bytes", "many_tiles_bound_ms", "threshold_ms",
+              "scan_only_ms", "scan_only_bound_ms")
 F64_EPS = 2.0 ** -52
 CMPS = ["equals", "notEquals", "less", "lessOrEquals", "greater",
         "greaterOrEquals"]
@@ -1194,22 +1206,48 @@ def check_k8(dev):
           f"{', '.join(K8_CASES)}", flush=True)
 
 
-# K9's edge cases (k9_case): the match expansion
+# K9's edge cases (k9_case): the match expansion.  Those past many_tiles
+# probe the one-pass design: a tile's output at the spill threshold (the
+# join_ops.EXPAND_HEAVY_SLOTS) less one, at it and one above (one row
+# holds it), heavy rows in adjacent rows and tiles, a tile with no output,
+# the capacity falling mid-tile and mid-heavy-row, the row count (the
+# rows past it invalid) cutting mid-tile with and without a mask and at
+# 0, a row count not a multiple of 16, and views 1-3 rows into their
+# storage (no 16-byte loads)
 K9_CASES = ("zero_lengths", "inner", "left", "any", "left_any",
             "one_row_90_percent", "beyond_capacity", "no_probe_row",
-            "many_tiles")
+            "many_tiles", "heavy_minus_1", "heavy_at", "heavy_plus_1",
+            "heavy_adjacent", "empty_tile", "cap_mid_tile", "cap_mid_heavy",
+            "count_mid_tile", "count_no_mask", "count_left", "count_zero",
+            "ragged_n", "view_1", "view_2", "view_3")
+K9_TILE = 4096          # kTile of csrc/expand_matches.cu
+K9_REPS = 3             # runs of each case
+
+
+def k9_lengths(matched, valid, seg_len, left, any_join, n_rows):
+    """Each probe row's output slots, in numpy (K9's rule)."""
+    v = np.arange(len(matched)) < n_rows
+    if valid is not None:
+        v &= valid
+    lens = np.where(matched & v, seg_len.astype(np.int64), 0)
+    if any_join:
+        lens = np.minimum(lens, 1)
+    if left:
+        lens = np.where(v, np.maximum(lens, 1), 0)
+    return lens
 
 
 def k9_case(name, rng):
-    """(matched, valid, seg_start, seg_len, out_cap, left, any_join) of one
-    K9 edge case, in numpy."""
+    """(matched, valid or None, seg_start, seg_len, out_cap, left,
+    any_join, n_rows or None, view offset) of one K9 edge case, in
+    numpy."""
     n = 1_000_003
     matched = rng.random(n) < 0.6
     valid = rng.random(n) < 0.9
     seg_len = np.where(matched, rng.integers(1, 6, n), 0).astype(np.int32)
     seg_start = np.where(matched, rng.integers(0, 1 << 20, n), 0).astype(
         np.int32)
-    cap, left, any_join = 4 * n, False, False
+    cap, left, any_join, n_rows, off = 4 * n, False, False, None, 0
     if name == "zero_lengths":
         seg_len[:] = 0
         matched[:] = False
@@ -1227,7 +1265,7 @@ def k9_case(name, rng):
         cap = n
     elif name == "no_probe_row":
         return (np.zeros(0, bool), np.zeros(0, bool), np.zeros(0, np.int32),
-                np.zeros(0, np.int32), 1024, False, False)
+                np.zeros(0, np.int32), 1024, False, False, None, 0)
     elif name == "many_tiles":
         n2 = 20_000_003
         matched = rng.random(n2) < 0.5
@@ -1235,40 +1273,91 @@ def k9_case(name, rng):
         seg_len = np.where(matched, 2, 0).astype(np.int32)
         seg_start = np.where(matched, 7, 0).astype(np.int32)
         cap = n2 + 1024
-    return matched, valid, seg_start, seg_len, cap, left, any_join
+    elif name not in ("inner",):
+        from clickhouse_tpu_torch.ops.join_ops import EXPAND_HEAVY_SLOTS
+        heavy = EXPAND_HEAVY_SLOTS
+        n = 5 * K9_TILE + 77
+        matched, valid = matched[:n], valid[:n]
+        seg_len, seg_start = seg_len[:n], seg_start[:n]
+        t1 = slice(K9_TILE, 2 * K9_TILE)
+        if name.startswith("heavy_") and name != "heavy_adjacent":
+            # tile 1's output is one row's
+            d = {"heavy_minus_1": -1, "heavy_at": 0, "heavy_plus_1": 1}[name]
+            matched[t1] = False
+            r = K9_TILE + 1234
+            matched[r] = valid[r] = True
+            seg_len[r] = heavy + d
+        elif name == "heavy_adjacent":
+            for r, m in ((K9_TILE - 1, 2), (K9_TILE, 2), (K9_TILE + 1, 3),
+                         (2 * K9_TILE + 5, 3), (3 * K9_TILE + 4095, 1)):
+                matched[r] = valid[r] = True
+                seg_len[r] = m * heavy + r % 7
+        elif name == "empty_tile":
+            matched[t1] = False
+        elif name in ("cap_mid_tile", "cap_mid_heavy"):
+            if name == "cap_mid_heavy":
+                r = 2 * K9_TILE + 100
+                matched[r] = valid[r] = True
+                seg_len[r] = 10 * heavy
+            lens = k9_lengths(matched, valid, seg_len, False, False, n)
+            first = np.concatenate([[0], np.cumsum(lens)])
+            cap = int(first[2 * K9_TILE + 100]) + (
+                3 * heavy + 17 if name == "cap_mid_heavy" else 1001)
+        elif name in ("count_mid_tile", "count_left"):
+            n_rows = 2 * K9_TILE + 1234
+            left = name == "count_left"
+        elif name == "count_no_mask":
+            n_rows, valid = 3 * K9_TILE + 999, None
+        elif name == "count_zero":
+            n_rows, valid = 0, None
+        elif name == "ragged_n":
+            n = 3 * K9_TILE + 5
+            matched, valid = matched[:n], valid[:n]
+            seg_len, seg_start = seg_len[:n], seg_start[:n]
+            n_rows = n - 2
+        elif name.startswith("view_"):
+            off = int(name[-1])
+            n_rows = n - off
+        else:
+            raise ValueError(f"no K9 case {name}")
+    return matched, valid, seg_start, seg_len, cap, left, any_join, n_rows, \
+        off
 
 
 def k9_args(name, rng, dev):
-    """One K9 edge case as expand_matches' arguments on `dev`."""
+    """One K9 edge case as expand_matches' arguments on `dev`: (probe,
+    probe_valid, out_capacity, left, any_join, n_rows)."""
     from clickhouse_tpu_torch.ops.join_ops import ProbeResult
-    m, v, ss, sl, cap, left, any_join = k9_case(name, rng)
-
-    def t(a):
-        return torch.from_numpy(np.ascontiguousarray(a)).to(dev)
-    return ProbeResult(t(m), t(ss), t(sl)), t(v), cap, left, any_join
+    m, v, ss, sl, cap, left, any_join, n_rows, off = k9_case(name, rng)
+    probe = ProbeResult(on_card(m, dev, off), on_card(ss, dev, off),
+                        on_card(sl, dev, off))
+    return (probe, None if v is None else on_card(v, dev, off), cap, left,
+            any_join, n_rows)
 
 
 def check_k9(dev):
-    """K9 against its plain version on every case of K9_CASES: no match,
-    INNER, LEFT (length at least 1), ANY (at most 1), both, one probe row
-    holding 90 % of the output, an output count beyond the capacity (the
-    count must exceed it, and the capacity check must fire on the card),
-    no probe row, and 20M probe rows (many look-back tiles)."""
+    """K9 against its plain version on every case of K9_CASES, K9_REPS runs
+    each: no match, INNER, LEFT (length at least 1), ANY (at most 1), both,
+    one probe row holding 90 % of the output, an output count beyond the
+    capacity (the count must exceed it, and the capacity check must fire
+    on the card), no probe row, 20M probe rows (many look-back tiles), and
+    the one-pass design's edges (K9_CASES' comment)."""
     from clickhouse_tpu_torch.ops.join_ops import (_expand_matches_plain,
                                                    expand_matches)
     rng = np.random.default_rng(19)
     for name in K9_CASES:
         args = k9_args(name, rng, dev)
-        got = expand_matches(*args)
         want = _expand_matches_plain(*args)
-        for a, b in zip(got, want):
-            max_abs_err(a, b)
+        for _ in range(K9_REPS):
+            got = expand_matches(*args)
+            for a, b in zip(got, want):
+                max_abs_err(a, b)
         if name == "beyond_capacity" and int(got[3]) <= args[2]:
             fail(f"K9's beyond_capacity case counted {int(got[3])} rows, "
                  f"within its capacity {args[2]}")
         del got, want, args
-    print(f"K9 expand_matches edge cases agree: {', '.join(K9_CASES)}",
-          flush=True)
+    print(f"K9 expand_matches edge cases agree ({K9_REPS} runs each): "
+          f"{', '.join(K9_CASES)}", flush=True)
 
 
 def main_path_args(session):
@@ -2073,6 +2162,121 @@ def join_args(session):
     return got
 
 
+def k9_bytes(n: int, out_cap: int, with_mask: bool) -> int:
+    """K9's bytes: each probe row's flag, segment start and length (and
+    its mask) read once, each slot's row, build position and flag written
+    once, and the count."""
+    return n * (10 if with_mask else 9) + out_cap * 9 + 8
+
+
+K9_HEAVY_SWEEP = (4096, 8192, 16384, 32768, 65536, 1 << 20)
+K9_SWEEP_CASES = ("q4x", "rows_of_4", "rows_of_16", "one_row_90_percent")
+
+
+def k9_case_args(name, dev):
+    """expand_matches' arguments (probe, mask, capacity, left, any_join)
+    of a timed K9 case: one_row_90_percent and many_tiles from k9_case,
+    rows_of_4 and rows_of_16 (80M output rows from probe rows of that many
+    matches each: a tile's output 4 or 16 times its rows)."""
+    from clickhouse_tpu_torch.ops.join_ops import ProbeResult
+    if name.startswith("rows_of_"):
+        m = int(name.rsplit("_", 1)[1])
+        n = 80_000_000 // m
+        ones = torch.ones(n, dtype=torch.bool, device=dev)
+        start = (torch.arange(n, device=dev, dtype=torch.int32) % 1000) * m
+        return (ProbeResult(ones, start, torch.full_like(start, m)), ones,
+                n * m + 1024, False, False)
+    m, v, ss, sl, cap, left, any_join, _, _ = k9_case(
+        name, np.random.default_rng(19))
+    return (ProbeResult(on_card(m, dev), on_card(ss, dev), on_card(sl, dev)),
+            on_card(v, dev), cap, left, any_join)
+
+
+def k9_extra(dev, k9, rows):
+    """K9 records beside the main path's call k9 (Q4x's): with the rows as
+    the equivalent bool mask (`rows`), its scan pass alone (a capacity of
+    1,024 slots), on one_row_90_percent and many_tiles
+    (each held against the plain version), and each K9_SWEEP_CASES case at
+    each spill threshold of K9_HEAVY_SWEEP (the threshold's choice), each
+    held against the plain version too."""
+    from clickhouse_tpu_torch.ops.join_ops import (_expand_matches_cuda,
+                                                   _expand_matches_plain,
+                                                   expand_matches)
+    probe, _, out_cap, left, any_join, n_rows = k9
+    n = probe.matched.shape[0]
+    masked = (probe, rows, out_cap, left, any_join)
+    got = expand_matches(*masked)
+    for a, b in zip(got, expand_matches(*k9)):
+        max_abs_err(a, b)
+    del got
+    # the scan pass alone: every probe row read, 1,024 slots written
+    scan = (probe, None, 1024, left, any_join, n_rows)
+    rec = dict(with_mask_ms=cuda_ms(lambda: expand_matches(*masked)),
+               with_mask_bytes=k9_bytes(n, out_cap, True),
+               with_mask_bound_ms=bound_ms(k9_bytes(n, out_cap, True)),
+               scan_only_ms=cuda_ms(lambda: expand_matches(*scan)),
+               scan_only_bound_ms=bound_ms(k9_bytes(n, 1024, False)))
+    for name, key in (("one_row_90_percent", "heavy"),
+                      ("many_tiles", "many_tiles")):
+        a = k9_case_args(name, dev)
+        for x, y in zip(expand_matches(*a), _expand_matches_plain(*a)):
+            max_abs_err(x, y)
+        b = k9_bytes(a[0].matched.shape[0], a[2], True)
+        rec.update({f"{key}_ms": cuda_ms(lambda: expand_matches(*a)),
+                    f"{key}_bytes": b, f"{key}_bound_ms": bound_ms(b)})
+        del a
+    sweep = {}
+    for name in K9_SWEEP_CASES:
+        a = k9 if name == "q4x" else k9_case_args(name, dev) + (None,)
+        a = a[:5] + (a[0].matched.shape[0] if a[5] is None else a[5],)
+        want = _expand_matches_plain(*a)
+        sweep[name] = {}
+        for h in K9_HEAVY_SWEEP:
+            for x, y in zip(_expand_matches_cuda(*a, heavy=h), want):
+                max_abs_err(x, y)
+            sweep[name][h] = cuda_ms(lambda: _expand_matches_cuda(
+                *a, heavy=h))
+        del a, want
+        print(f"K9 at {name} by spill threshold (slots: ms): "
+              f"{sweep[name]}", flush=True)
+    rec["threshold_ms"] = sweep
+    return rec
+
+
+def k9_turn(dev):
+    """--k9: K9 alone at Q4x's inputs (made on the card as the main path
+    makes them) with the probe rows as a bool mask, and as their row count
+    where this tree's expand_matches takes one, and on one_row_90_percent
+    and many_tiles; each held against the plain version once and timed.
+    Uses only expand_matches' signature, so copied into an unpacked older
+    checkout it times that tree's K9 alike (parent, change, change, parent
+    in one call)."""
+    import inspect
+    from clickhouse_tpu_torch.core.column import pad_to
+    from clickhouse_tpu_torch.ops.join_ops import (ProbeResult,
+                                                   _expand_matches_plain,
+                                                   expand_matches)
+    n = pad_to(N_ROWS)
+    i = torch.arange(n, device=dev)
+    fk = torch.where(i < N_ROWS, (i * 40503) % N_DIM, 0)
+    hit = fk < N_DIM // 2                  # dim2: keys 0..N_DIM/2 - 1, twice
+    probe = ProbeResult(hit, torch.where(hit, 2 * fk, 0).to(torch.int32),
+                        torch.where(hit, 2, 0).to(torch.int32))
+    cap = pad_to(n + pad_to(N_DIM))
+    cases = {"q4x_mask": (probe, i < N_ROWS, cap, False, False)}
+    del i, fk, hit
+    if "n_rows" in inspect.signature(expand_matches).parameters:
+        cases["q4x_count"] = (probe, None, cap, False, False, N_ROWS)
+    for name in ("one_row_90_percent", "many_tiles"):
+        cases[name] = k9_case_args(name, dev)
+    times = {}
+    for name, a in cases.items():
+        for x, y in zip(expand_matches(*a), _expand_matches_plain(*a)):
+            max_abs_err(x, y)
+        times[name] = cuda_ms(lambda: expand_matches(*a))
+    print(f"K9 alone (ms, CUDA events, L2 flushed): {times}", flush=True)
+
+
 def join_shapes(dev, args):
     """K7, K8 and K9 on the inputs the main path gave them (Q4's, Q4h's
     and Q4x's), each held against its plain version and timed beside it
@@ -2233,29 +2437,38 @@ def join_shapes(dev, args):
           f"{out['hash_join']['q4x_probe_ms']:.4f} ms, bound "
           f"{bound_ms(qb):.4f} ms ({qb} bytes)", flush=True)
     del tbl, pkx, pvx, bw, pw, src
-    # K9: Q4x's expansion, 2 build rows for half the probe rows
-    probe, valid, out_cap, left, any_join = args["expand_matches"]
-    got = expand_matches(probe, valid, out_cap, left, any_join)
-    want = _expand_matches_plain(probe, valid, out_cap, left, any_join)
+    # K9: Q4x's expansion, 2 build rows for half the probe rows; the probe
+    # rows' validity is their row count (no mask)
+    probe, valid, out_cap, left, any_join, n_rows = args["expand_matches"]
+    if valid is not None:
+        fail("Q4x's K9 call was given a row mask, not the row count alone")
+    k9 = (probe, valid, out_cap, left, any_join, n_rows)
+    got = expand_matches(*k9)
+    want = _expand_matches_plain(*k9)
     err = max(max_abs_err(a, b) for a, b in zip(got, want))
     total = int(got[3])
-    del want
-    lens = _expand_lengths(probe.matched, valid.to(torch.bool),
-                           probe.seg_len, left, any_join)
-    ar = torch.arange(lens.shape[0], device=dev)
-    n = lens.shape[0]
+    del want, got
+    n = probe.matched.shape[0]
+    rows = torch.arange(n, device=dev) < n_rows
+    lens = _expand_lengths(probe.matched, rows, probe.seg_len, left,
+                           any_join)
+    ar = torch.arange(n, device=dev)
     out["expand_matches"] = dict(
-        max_abs_err=err,
-        ms=cuda_ms(lambda: expand_matches(probe, valid, out_cap, left,
-                                          any_join)),
-        plain_ms=cuda_ms(lambda: _expand_matches_plain(
-            probe, valid, out_cap, left, any_join), reps=3),
+        max_abs_err=err, ms=cuda_ms(lambda: expand_matches(*k9)),
+        plain_ms=cuda_ms(lambda: _expand_matches_plain(*k9), reps=3),
         library_ms=cuda_ms(lambda: torch.repeat_interleave(
             ar, lens, output_size=total)),
         library=f"torch.repeat_interleave(arange(N), lens, output_size="
                 f"{total}): the probe row of each slot alone",
-        bytes=n * 10 + out_cap * 9 + 8,
-        shape=f"{n} probe rows, {total} output rows, capacity {out_cap}")
+        bytes=k9_bytes(n, out_cap, False),
+        shape=f"{n} probe rows ({n_rows} valid, as a row count), {total} "
+              f"output rows, capacity {out_cap}")
+    del ar, lens
+    # the same with the rows as a bool mask (the inputs K9 took before the
+    # probe rows came as a count), the heavy-row and many-tile cases, and
+    # the spill threshold's sweep
+    out["expand_matches"].update(k9_extra(dev, k9, rows))
+    del rows
     report(out)
     # the kernels of one call (torch.profiler)
     for name, call in (
@@ -2265,8 +2478,7 @@ def join_shapes(dev, args):
                                                  words)),
             ("hash_join:with_key", lambda: propagate_join(
                 bks, bvh, pks, pvh, [words[0]] * 3)),
-            ("expand_matches", lambda: expand_matches(
-                probe, valid, out_cap, left, any_join))):
+            ("expand_matches", lambda: expand_matches(*k9))):
         per_call = {}
         split = device_kernels(call, launches=per_call)
         if name in out:
@@ -2451,6 +2663,9 @@ def main():
         return
     if sys.argv[1:] == ["--gathers"]:
         gather_curve(dev)
+        return
+    if sys.argv[1:] == ["--k9"]:
+        k9_turn(dev)
         return
 
     check_k1(dev)

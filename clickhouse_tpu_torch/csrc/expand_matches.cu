@@ -5,40 +5,47 @@
 // each slot its probe row with a reverse cumulative minimum, because a TPU
 // serialises scatter (the reference's ROADMAP, queue 2 item 8).  Here:
 //
+//   valid[i]   = i < n_rows, and the probe mask where one is given;
 //   lens[i]    = its build matches (seg_len) if probe row i matched and is
 //                valid, else 0; at most 1 for an ANY join; at least 1 for a
 //                valid row of a LEFT join, 0 for an invalid one;
-//   offsets[i] = lens[0] + ... + lens[i-1], clamped to the capacity;
+//   off[i]     = lens[0] + ... + lens[i-1];
 //   slot j     < min(out_count, out_cap) belongs to the last row p with
-//                offsets[p] <= j: probe row p, build position
-//                seg_start[p] + (j - offsets[p]), flagged by matched[p] and
+//                off[p] <= j: probe row p, build position
+//                seg_start[p] + (j - off[p]), flagged by matched[p] and
 //                valid[p].  Slots past the rows written get 0, 0, false.
 //
 // Output rows are probe-major, and within a probe row follow the build
 // side's key-sorted order, as the reference's.
 //
 // Bound on the card: bytes.  Each probe row's flags, segment start and
-// length are read once; each output slot's probe row, build position and
-// flag are written once (the offsets are an intermediate of 4 bytes a
-// probe row, written and read once more).
-// Design: one call, four steps on the stream:
-//   * memsets of the look-back words and of the head marks (the probe-row
-//     output, -1 a slot);
+// length are read once (and its mask, where one is given); each output
+// slot's probe row, build position and flag are written once.
+// Design: one memset (the look-back words, the tile counter and the spill
+// table) and two kernels:
 //   * k_expand_scan, one pass over the probe rows in 4,096-row tiles taken
-//     from a tile counter: a block scan of the tile's lengths (16 rows a
-//     thread), then a decoupled look-back in which warp 0 reads the status
-//     words of the 32 tiles before it at once (64-bit words: a 2-bit flag,
-//     a 62-bit count, so counts past 2^32 are kept); each row writes its
-//     clamped offset and, if its length is not 0, marks its first slot
-//     with its row id (the heads are distinct slots); the row holding the
-//     last probe row writes offsets[n] and out_count;
-//   * k_expand_write, one block a tile of 4,096 output slots: warp 0 finds
-//     the row holding the tile's first slot by a 32-ary search of the
-//     offsets, the block takes a prefix maximum of the tile's head marks
-//     from it, and writes each slot's row, build position and flag with
-//     coalesced stores.  A probe row with many matches (a heavy key, a
-//     CROSS join) covers whole tiles, so its slots spread over as many
-//     blocks; no thread loops over a row's matches.
+//     from a tile counter.  A block loads its tile coalesced (segment
+//     starts and lengths in 16-byte chunks striped over the block into
+//     shared memory, each thread's 16 flags with one 16-byte load), scans
+//     the lengths (16 rows a thread), publishes the tile's count for the
+//     decoupled look-back (warp 0 reads the status words of the 32 tiles
+//     before it at once; 64-bit words: a 2-bit flag and a 62-bit count, so
+//     counts past 2^32 are kept), and then writes its own output slots
+//     [base, base + count) below the capacity: each thread takes four
+//     consecutive slots (16-byte stores, consecutive threads on
+//     consecutive slots) and finds their probe rows from the tile's
+//     offsets in shared memory (a binary search, then a short walk).  No
+//     offsets array and no head marks go through device memory.
+//   * k_expand_spill, one block a tile of 4,096 output slots: where a
+//     tile's output is larger than `heavy` slots (a heavy key, a CROSS
+//     join), its scanning block writes none of it and records the tile in
+//     the spill table under every output tile it covers (at most two
+//     heavy tiles meet an output tile, since each spans more than one);
+//     the spill block reloads and rescans such a tile (from the L2) and
+//     writes its slots within its own 4,096, so a heavy row spreads over
+//     as many blocks as it has output tiles.  It also zeroes the tail
+//     [min(out_count, out_cap), out_cap).  Its blocks with nothing to
+//     write exit after reading three words.
 #include "common.cuh"
 
 namespace {
@@ -46,34 +53,63 @@ namespace {
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
-constexpr int kItems = 16;                 // rows (or slots) a thread scans
-constexpr int kTile = kThreads * kItems;   // 4,096
+constexpr int kItems = 16;                 // rows a thread scans
+constexpr int kTile = kThreads * kItems;   // 4,096 rows
+constexpr int kChunks = kTile / 4;         // 16-byte chunks of a tile's ints
+constexpr int kSlots = 4096;               // output slots a spill block
 constexpr u64 kAggregate = 1, kInclusive = 2;
 constexpr u64 kCountMask = (1ull << 62) - 1;
+constexpr int kIntMax = 0x7fffffff;
 
 }  // namespace
 
 // Layout shared with ops/_native.py.
 struct ChttExpandArgs {
   const unsigned char* matched;   // n probe rows each
-  const unsigned char* valid;
+  const unsigned char* valid;     // or null: every row below n_rows
   const int* seg_start;
   const int* seg_len;
   long long n;
+  long long n_rows;               // rows at or past it are invalid (<= n)
   long long out_cap;              // below 2^31
+  long long heavy;                // a tile's output above it: spilled
   int left;
   int any_join;
-  int* offsets;                   // n + 1
+  int vec;                        // every input starts on 16 bytes
+  int tiles;
   long long* out_count;
-  u64* status;                    // a look-back word a tile, then a counter
+  // tiles look-back words, the tile counter, then two spill words an
+  // output tile of kSlots: the heavy tile holding its first slot, and the
+  // heavy tile whose first slot lies inside it (0: none; else
+  // (tile + 1) << 32 | the tile's first slot)
+  u64* status;
   int* p_idx;                     // out_cap slots each
   int* build_pos;
   unsigned char* mask;
-  int tiles;
-  int pad;
 };
 
 namespace {
+
+// A tile in shared memory.  `off` holds 16-byte chunks in a swizzled order
+// (chunk q at q ^ ((q >> 3) & 7)), so that both the block's striped chunk
+// stores and a thread's reads of its own four chunks are free of bank
+// conflicts: first the rows' segment lengths, then their exclusive
+// offsets within the tile, clamped to 2^31 - 1 (a slot below the capacity
+// never reaches it).
+struct Tile {
+  int off[kTile];
+  int start[kTile];               // segment starts, in row order
+  unsigned char hit[kTile];       // matched and valid
+  long long warp_tot[kWarps];
+  long long total;                // the tile's slots
+  long long base;                 // the slots of the tiles before it
+  int tile;
+};
+
+__device__ __forceinline__ int swz(int i) {
+  const int q = i >> 2;
+  return ((q ^ ((q >> 3) & 7)) << 2) | (i & 3);
+}
 
 __device__ __forceinline__ void publish(u64* p, u64 flag, long long count) {
   *reinterpret_cast<volatile u64*>(p) = (flag << 62) | (u64)count;
@@ -110,35 +146,85 @@ __device__ __forceinline__ long long look_back(const u64* status, int tile) {
   }
 }
 
-__device__ __forceinline__ int clamp_cap(long long v, long long cap) {
-  return (int)(v < cap ? v : cap);
+__device__ __forceinline__ void scalar_chunk(const int* p, long long r,
+                                             long long n, int4& v) {
+  v.x = r < n ? __ldg(p + r) : 0;
+  v.y = r + 1 < n ? __ldg(p + r + 1) : 0;
+  v.z = r + 2 < n ? __ldg(p + r + 2) : 0;
+  v.w = r + 3 < n ? __ldg(p + r + 3) : 0;
 }
 
-__global__ void __launch_bounds__(kThreads) k_expand_scan(ChttExpandArgs a) {
-  __shared__ long long warp_tot[kWarps];
-  __shared__ int s_tile;
-  __shared__ long long s_before;
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (threadIdx.x == 0)
-    s_tile = atomicAdd(reinterpret_cast<int*>(a.status + a.tiles), 1);
+// Flags of rows r..r+15 (0 past n), one byte each in a uint4.
+__device__ __forceinline__ uint4 load_flags(const unsigned char* p,
+                                            long long r, long long n,
+                                            bool vec) {
+  if (vec && r + kItems <= n)
+    return __ldg(reinterpret_cast<const uint4*>(p + r));
+  unsigned w[4] = {0, 0, 0, 0};
+#pragma unroll
+  for (int e = 0; e < kItems; ++e)
+    if (r + e < n) w[e >> 2] |= (unsigned)p[r + e] << (8 * (e & 3));
+  return make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+__device__ __forceinline__ bool flag(const uint4& f, int e) {
+  const unsigned w = e < 4 ? f.x : e < 8 ? f.y : e < 12 ? f.z : f.w;
+  return ((w >> (8 * (e & 3))) & 0xffu) != 0;
+}
+
+// Loads tile `tile` into t and scans its lengths: t.off then holds each
+// row's exclusive offset within the tile, t.start and t.hit its segment
+// start and flag, t.total the tile's slots.  Every thread must call it; it
+// synchronises the block.  Returns the thread's slots (its 16 rows).
+__device__ long long scan_tile(const ChttExpandArgs& a, int tile, Tile& t) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long long r0 = (long long)tile * kTile;
+  // segment lengths and starts: 16-byte chunks striped over the block
+#pragma unroll
+  for (int k = 0; k < kChunks / kThreads; ++k) {
+    const int q = k * kThreads + tid;
+    const long long r = r0 + 4 * q;
+    int4 l, s;
+    if (a.vec && r + 4 <= a.n) {
+      l = __ldg(reinterpret_cast<const int4*>(a.seg_len + r));
+      s = __ldg(reinterpret_cast<const int4*>(a.seg_start + r));
+    } else {
+      scalar_chunk(a.seg_len, r, a.n, l);
+      scalar_chunk(a.seg_start, r, a.n, s);
+    }
+    reinterpret_cast<int4*>(t.off)[q ^ ((q >> 3) & 7)] = l;
+    reinterpret_cast<int4*>(t.start)[q] = s;
+  }
+  // the thread's 16 rows' flags: one 16-byte load each
+  const long long rt = r0 + kItems * tid;
+  const uint4 m = load_flags(a.matched, rt, a.n, a.vec);
+  const uint4 v = a.valid != nullptr ? load_flags(a.valid, rt, a.n, a.vec)
+                                     : make_uint4(0, 0, 0, 0);
   __syncthreads();
-  const int tile = s_tile;
-  const long long row0 = (long long)tile * kTile + threadIdx.x * kItems;
   int len[kItems];
+  unsigned hit[4] = {0, 0, 0, 0};
   long long mine = 0;
 #pragma unroll
-  for (int e = 0; e < kItems; ++e) {
-    const long long r = row0 + e;
-    int l = 0;
-    if (r < a.n) {
-      const bool v = a.valid[r] != 0;
-      l = (a.matched[r] && v) ? __ldg(a.seg_len + r) : 0;
+  for (int c = 0; c < kItems / 4; ++c) {
+    const int q = (kItems / 4) * tid + c;
+    const int4 l4 = reinterpret_cast<const int4*>(t.off)[q ^ ((q >> 3) & 7)];
+    const int ls[4] = {l4.x, l4.y, l4.z, l4.w};
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int e = 4 * c + u;
+      const bool ok = rt + e < a.n_rows &&
+                      (a.valid == nullptr || flag(v, e));
+      const bool h = ok && flag(m, e);
+      int l = h ? ls[u] : 0;
       if (a.any_join) l = l < 1 ? l : 1;
-      if (a.left) l = v ? (l > 1 ? l : 1) : 0;
+      if (a.left) l = ok ? (l > 1 ? l : 1) : 0;
+      len[e] = l;
+      hit[c] |= (unsigned)h << (8 * u);
+      mine += l;
     }
-    len[e] = l;
-    mine += l;
   }
+  reinterpret_cast<uint4*>(t.hit)[tid] =
+      make_uint4(hit[0], hit[1], hit[2], hit[3]);
   // the block's exclusive scan of the threads' sums
   long long incl = mine;
 #pragma unroll
@@ -146,15 +232,107 @@ __global__ void __launch_bounds__(kThreads) k_expand_scan(ChttExpandArgs a) {
     const long long y = __shfl_up_sync(kFull, incl, o);
     if (lane >= o) incl += y;
   }
-  if (lane == 31) warp_tot[warp] = incl;
+  if (lane == 31) t.warp_tot[warp] = incl;
   __syncthreads();
-  long long before_warp = 0, total = 0;
+  long long run = incl - mine, total = 0;
 #pragma unroll
   for (int w = 0; w < kWarps; ++w) {
-    total += warp_tot[w];
-    if (w < warp) before_warp += warp_tot[w];
+    total += t.warp_tot[w];
+    if (w < warp) run += t.warp_tot[w];
   }
-  if (warp == 0) {
+  // the rows' offsets, clamped, over the thread's own chunks of t.off
+#pragma unroll
+  for (int c = 0; c < kItems / 4; ++c) {
+    int o[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      o[u] = (int)(run < kIntMax ? run : kIntMax);
+      run += len[4 * c + u];
+    }
+    const int q = (kItems / 4) * tid + c;
+    reinterpret_cast<int4*>(t.off)[q ^ ((q >> 3) & 7)] =
+        make_int4(o[0], o[1], o[2], o[3]);
+  }
+  if (tid == 0) t.total = total;
+  return mine;
+}
+
+// The last row p >= lo whose offset is not above jl (the offset of row lo
+// is not): steps doubling from lo until one overshoots, then halving.
+__device__ __forceinline__ int row_from(const Tile& t, int lo, int jl) {
+  int p = lo, step = 1;
+  while (p + step < kTile && t.off[swz(p + step)] <= jl) {
+    p += step;
+    step <<= 1;
+  }
+  for (step >>= 1; step > 0; step >>= 1)
+    if (p + step < kTile && t.off[swz(p + step)] <= jl) p += step;
+  return p;
+}
+
+// Writes the slots [j_begin, j_end) of the scanned tile t, whose first
+// slot is `base`: each thread four consecutive slots (16-byte stores of
+// rows and build positions, 4 bytes of flags; consecutive threads on
+// consecutive groups), the first slot's row found by a binary search of
+// the tile's offsets, the next ones' by row_from.  j_end <= out_cap <
+// 2^31.
+__device__ __forceinline__ void write_slots(const ChttExpandArgs& a,
+                                            const Tile& t, long long base,
+                                            long long j_begin,
+                                            long long j_end) {
+  const long long r0 = (long long)t.tile * kTile;
+  for (long long g = (j_begin >> 2) + threadIdx.x; 4 * g < j_end;
+       g += kThreads) {
+    const long long j = 4 * g;
+    const int u0 = j < j_begin ? (int)(j_begin - j) : 0;
+    const int u1 = j + 4 <= j_end ? 4 : (int)(j_end - j);
+    const int jl0 = (int)(j + u0 - base);
+    int p = 0;
+#pragma unroll
+    for (int step = kTile / 2; step > 0; step >>= 1)
+      if (t.off[swz(p + step)] <= jl0) p += step;
+    int row[4], pos[4];
+    unsigned flags = 0;
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      row[u] = pos[u] = 0;
+      if (u < u0 || u >= u1) continue;
+      const int jl = jl0 + (u - u0);
+      if (u > u0) p = row_from(t, p, jl);
+      row[u] = (int)(r0 + p);
+      pos[u] = t.start[p] + (jl - t.off[swz(p)]);
+      flags |= (unsigned)t.hit[p] << (8 * u);
+    }
+    if (u0 == 0 && u1 == 4) {
+      *reinterpret_cast<int4*>(a.p_idx + j) =
+          make_int4(row[0], row[1], row[2], row[3]);
+      *reinterpret_cast<int4*>(a.build_pos + j) =
+          make_int4(pos[0], pos[1], pos[2], pos[3]);
+      *reinterpret_cast<unsigned*>(a.mask + j) = flags;
+    } else {
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+        if (u < u0 || u >= u1) continue;
+        a.p_idx[j + u] = row[u];
+        a.build_pos[j + u] = pos[u];
+        a.mask[j + u] = (unsigned char)(flags >> (8 * u));
+      }
+    }
+  }
+}
+
+__global__ void __launch_bounds__(kThreads) k_expand_scan(ChttExpandArgs a) {
+  __shared__ Tile t;
+  const int tid = threadIdx.x;
+  if (tid == 0)
+    t.tile = atomicAdd(reinterpret_cast<int*>(a.status + a.tiles), 1);
+  __syncthreads();
+  const int tile = t.tile;
+  scan_tile(a, tile, t);
+  __syncthreads();
+  if (tid < 32) {
+    const int lane = tid;
+    const long long total = t.total;
     long long before = 0;
     if (tile == 0) {
       if (lane == 0) publish(a.status, kInclusive, total);
@@ -163,132 +341,81 @@ __global__ void __launch_bounds__(kThreads) k_expand_scan(ChttExpandArgs a) {
       before = look_back(a.status, tile);
       if (lane == 0) publish(a.status + tile, kInclusive, before + total);
     }
-    if (lane == 0) s_before = before;
+    if (lane == 0) {
+      t.base = before;
+      if (tile == a.tiles - 1) *a.out_count = before + total;
+    }
   }
   __syncthreads();
-  long long run = s_before + before_warp + incl - mine;
-#pragma unroll
-  for (int e = 0; e < kItems; ++e) {
-    const long long r = row0 + e;
-    if (r < a.n) {
-      a.offsets[r] = clamp_cap(run, a.out_cap);
-      if (len[e] > 0 && run < a.out_cap) a.p_idx[run] = (int)r;
-      run += len[e];
-      if (r == a.n - 1) {
-        a.offsets[a.n] = clamp_cap(run, a.out_cap);
-        *a.out_count = run;
-      }
-    }
-  }
-}
-
-__global__ void __launch_bounds__(kThreads) k_expand_write(ChttExpandArgs a) {
-  __shared__ int s_src[kTile];
-  __shared__ int s_warp_max[kWarps];
-  __shared__ int s_p0;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const long long j0 = (long long)blockIdx.x * kTile;
-  const long long j1 = j0 + kTile < a.out_cap ? j0 + kTile : a.out_cap;
-  const long long total = a.offsets[a.n];    // slots written (clamped)
-  const long long jv = j1 < total ? j1 : total;
-  if (j0 >= jv) {
-    for (long long j = j0 + tid; j < j1; j += kThreads) {
-      a.p_idx[j] = 0;
-      a.build_pos[j] = 0;
-      a.mask[j] = 0;
-    }
+  const long long base = t.base;
+  const long long end = base + t.total < a.out_cap ? base + t.total
+                                                   : a.out_cap;
+  if (base >= end) return;
+  if (end - base <= a.heavy) {
+    write_slots(a, t, base, base, end);
     return;
   }
-  // the last row p with offsets[p] <= j0 (offsets[0] = 0 <= j0): each step
-  // reads 32 evenly spaced offsets and keeps the span after the last one
-  // not above j0
-  if (warp == 0) {
-    long long lo = 0, hi = a.n;
-    while (hi - lo > 1) {
-      const long long step = (hi - lo + 31) / 32;
-      const long long idx = lo + lane * step;
-      const bool ok = idx < hi && a.offsets[idx] <= j0;
-      const unsigned b = __ballot_sync(kFull, ok);
-      const int last = 31 - __clz(b);
-      lo += last * step;
-      hi = lo + step < hi ? lo + step : hi;
-    }
-    if (lane == 0) s_p0 = (int)lo;
+  // a heavy tile: recorded under each output tile it covers
+  u64* spill = a.status + a.tiles + 1;
+  const u64 entry = ((u64)(tile + 1) << 32) | (u64)base;
+  const long long k0 = base / kSlots, k1 = (end - 1) / kSlots;
+  for (long long k = k0 + tid; k <= k1; k += kThreads)
+    spill[2 * k + (k * kSlots >= base ? 0 : 1)] = entry;
+}
+
+__global__ void __launch_bounds__(kThreads) k_expand_spill(ChttExpandArgs a) {
+  __shared__ Tile t;
+  const long long j0 = (long long)blockIdx.x * kSlots;
+  const long long j1 = j0 + kSlots < a.out_cap ? j0 + kSlots : a.out_cap;
+  const u64* spill = a.status + a.tiles + 1 + 2 * (long long)blockIdx.x;
+  const u64 entry[2] = {spill[0], spill[1]};
+  const long long count = *a.out_count;
+  const long long tail = count < a.out_cap ? count : a.out_cap;
+  for (long long j = (j0 > tail ? j0 : tail) + threadIdx.x; j < j1;
+       j += kThreads) {
+    a.p_idx[j] = 0;
+    a.build_pos[j] = 0;
+    a.mask[j] = 0;
   }
-  for (int jj = tid; jj < kTile; jj += kThreads)
-    s_src[jj] = j0 + jj < jv ? a.p_idx[j0 + jj] : -1;
-  __syncthreads();
-  // prefix maximum of the head marks, from the row holding slot j0
-  int v[kItems];
-  int m = tid == 0 ? s_p0 : -1;
-#pragma unroll
-  for (int e = 0; e < kItems; ++e) {
-    const int x = s_src[tid * kItems + e];
-    m = x > m ? x : m;
-    v[e] = m;
-  }
-  int incl = m;
-#pragma unroll
-  for (int o = 1; o < 32; o <<= 1) {
-    const int y = __shfl_up_sync(kFull, incl, o);
-    if (lane >= o) incl = y > incl ? y : incl;
-  }
-  if (lane == 31) s_warp_max[warp] = incl;
-  int before = __shfl_up_sync(kFull, incl, 1);
-  if (lane == 0) before = -1;
-  __syncthreads();
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w)
-    if (w < warp) before = s_warp_max[w] > before ? s_warp_max[w] : before;
-#pragma unroll
-  for (int e = 0; e < kItems; ++e)
-    s_src[tid * kItems + e] = v[e] > before ? v[e] : before;
-  __syncthreads();
-  for (int jj = tid; jj < j1 - j0; jj += kThreads) {
-    const long long j = j0 + jj;
-    if (j < jv) {
-      const int p = s_src[jj];
-      a.p_idx[j] = p;
-      a.build_pos[j] = __ldg(a.seg_start + p) + (int)(j - a.offsets[p]);
-      a.mask[j] = a.matched[p] && a.valid[p];
-    } else {
-      a.p_idx[j] = 0;
-      a.build_pos[j] = 0;
-      a.mask[j] = 0;
-    }
+#pragma unroll 1
+  for (int h = 0; h < 2; ++h) {
+    if (entry[h] == 0) continue;          // the same for every thread
+    const int tile = (int)(entry[h] >> 32) - 1;
+    const long long base = (long long)(entry[h] & 0xffffffffull);
+    if (threadIdx.x == 0) t.tile = tile;
+    scan_tile(a, tile, t);
+    __syncthreads();
+    long long end = base + t.total;
+    end = end < j1 ? end : j1;
+    write_slots(a, t, base, base > j0 ? base : j0, end);
+    __syncthreads();                      // before t is loaded again
   }
 }
 
 }  // namespace
 
-// Rows of a scan tile (the Python wrapper sizes the look-back words from
-// it).
+// Rows of a scan tile and slots of a spill block (the Python wrapper sizes
+// the status words from them).
 extern "C" int chtt_expand_tile_rows() { return kTile; }
+extern "C" int chtt_expand_spill_slots() { return kSlots; }
 
-// offsets: n + 1 ints; status: tiles + 1 words, tiles = ceil(n / tile rows)
-// (at least 1); p_idx, build_pos and mask: out_cap slots each.
+// status: tiles + 1 + 2 * ceil(out_cap / spill slots) words, tiles =
+// ceil(n / tile rows); p_idx, build_pos and mask: out_cap slots each.
 extern "C" int chtt_expand_matches(const ChttExpandArgs* args, void* stream) {
   ChttExpandArgs a = *args;
-  if (a.n < 0 || a.n >= (1ll << 31) || a.out_cap < 1 ||
-      a.out_cap >= (1ll << 31) ||
+  if (a.n < 0 || a.n >= (1ll << 31) || a.n_rows < 0 || a.n_rows > a.n ||
+      a.out_cap < 1 || a.out_cap >= (1ll << 31) || a.heavy < kSlots ||
       (long long)a.tiles != (a.n + kTile - 1) / kTile)
     return (int)cudaErrorInvalidValue;
   cudaStream_t st = (cudaStream_t)stream;
-  cudaError_t e = cudaMemsetAsync(a.p_idx, 0xff,
-                                  sizeof(int) * (size_t)a.out_cap, st);
+  const long long blocks = (a.out_cap + kSlots - 1) / kSlots;
+  cudaError_t e = cudaMemsetAsync(
+      a.status, 0, sizeof(u64) * ((size_t)a.tiles + 1 + 2 * (size_t)blocks),
+      st);
+  if (e == cudaSuccess && a.n == 0)
+    e = cudaMemsetAsync(a.out_count, 0, sizeof(long long), st);
   if (e != cudaSuccess) return (int)e;
-  if (a.n == 0) {
-    e = cudaMemsetAsync(a.offsets, 0, sizeof(int), st);
-    if (e == cudaSuccess)
-      e = cudaMemsetAsync(a.out_count, 0, sizeof(long long), st);
-    if (e != cudaSuccess) return (int)e;
-  } else {
-    e = cudaMemsetAsync(a.status, 0, sizeof(u64) * ((size_t)a.tiles + 1),
-                        st);
-    if (e != cudaSuccess) return (int)e;
-    k_expand_scan<<<(unsigned)a.tiles, kThreads, 0, st>>>(a);
-  }
-  const long long blocks = (a.out_cap + kTile - 1) / kTile;
-  k_expand_write<<<(unsigned)blocks, kThreads, 0, st>>>(a);
+  if (a.n > 0) k_expand_scan<<<(unsigned)a.tiles, kThreads, 0, st>>>(a);
+  k_expand_spill<<<(unsigned)blocks, kThreads, 0, st>>>(a);
   return chtt_last_error();
 }

@@ -923,9 +923,12 @@ def _exec_join(node: L.JoinNode, ctx: ExecContext) -> ExecBlock:
         return _join_propagate(node, left, right, lkeys, rkeys,
                                probe_ok, build_ok, ctx)
 
-    probe_ok = left.valid
+    # a scan's probe rows (no mask, no terms) go to K8 and K9 as their row
+    # count: K9 gives the rows past it no slot, and no row mask is built
+    counted = left.rows.mask is None and not left.rows.terms
+    probe_ok = None if counted else left.valid
     for v in lvs:
-        probe_ok = probe_ok & v
+        probe_ok = v if probe_ok is None else probe_ok & v
     cap_g = pad_to(min(rcap, s.max_join_build_rows))
     semi = node.strictness in ("semi", "anti")
     if node.kind == "cross":
@@ -934,10 +937,10 @@ def _exec_join(node: L.JoinNode, ctx: ExecContext) -> ExecBlock:
         out_cap = pad_to(s.max_joined_rows)
     else:
         out_cap = pad_to(lcap + rcap)
-    # K8's table over the groups and its probe (two words), and K9's
-    # offsets and 9 bytes a slot (the grouping holds its own check)
+    # K8's table over the groups and its probe (two words), and K9's slots
+    # and status words (the grouping holds its own check)
     _check_join_bytes(ctx, join_ops.hash_join_bytes(cap_g, lcap, 2) + (
-        0 if semi else 4 * (lcap + 1) + 9 * out_cap), lcap)
+        0 if semi else join_ops.expand_matches_bytes(lcap, out_cap)), lcap)
     table = join_ops.build_join_table(rkeys, build_ok, cap_g,
                                       max_bytes=ctx.memory_headroom)
     pr = join_ops.probe_join_table(table, lkeys, probe_ok)
@@ -949,7 +952,8 @@ def _exec_join(node: L.JoinNode, ctx: ExecContext) -> ExecBlock:
     left_outer = node.kind == "left"
     any_join = node.strictness == "any"
     p_idx, b_pos, mmask, out_count = join_ops.expand_matches(
-        pr, left.valid, out_cap, left=left_outer, any_join=any_join)
+        pr, None if counted else left.valid, out_cap, left=left_outer,
+        any_join=any_join, n_rows=left.rows.n_rows)
     ctx.checks.append(Check(out_count, out_cap,
                             "JOIN result exceeded the output capacity; raise "
                             "the max_joined_rows setting",

@@ -23,7 +23,7 @@ import torch
 from ..core import dtypes as dt
 from ..core.column import Dictionary
 from ..core.errors import NotImplementedError_, TypeError_, UnknownFunction
-from .expr import ColVal, storage_np
+from .expr import ColVal, StoredColVal, storage_np
 
 __all__ = ["get", "exists", "register", "ScalarFunction", "FUNCTIONS",
            "canonical_name"]
@@ -252,11 +252,27 @@ def _resolve_divide(ts):
 register("divide", _resolve_divide, _div_exec)
 
 
+def _host_number(b: ColVal):
+    """A literal's Python number, else None (then the value is on the
+    device, and reading it waits for the device)."""
+    h = b.host
+    return h if isinstance(h, (int, float, np.number)) else None
+
+
 def _const_nonzero(b: ColVal) -> bool:
     """True when the divisor is a nonzero constant (`x % 1024`)."""
     if not b.is_const:
         return False
-    return float(b.data.item()) != 0.0
+    h = _host_number(b)
+    return float(b.data.item() if h is None else h) != 0.0
+
+
+def _const_int(b: ColVal, st) -> int:
+    """A constant divisor's value in the signed computation type `st`."""
+    h = _host_number(b)
+    if isinstance(h, (int, np.integer)):
+        return int(h)
+    return int(_as(b, st).item())
 
 
 def _udivmod64(x, y):
@@ -287,19 +303,62 @@ def _div_rem(x, y, unsigned64: bool):
     return torch.where(neg1, -x, q), torch.where(neg1, torch.zeros_like(r), r)
 
 
+def _div_rem_const(x, b: ColVal, st, which: int):
+    """The quotient (which 0) or the remainder (1) of _div_rem by the
+    nonzero constant b, built alone: one result a row, no divisor column."""
+    if st == np.uint64:
+        return _udivmod64(x, _as(b, st))[which]
+    c = _const_int(b, st)
+    if c == -1:                     # MIN / -1 wraps, as in _div_rem
+        return -x if which == 0 else torch.zeros_like(x)
+    return torch.div(x, c, rounding_mode="trunc") if which == 0 \
+        else torch.fmod(x, c)
+
+
+_NARROW_INTS = (torch.int8, torch.int16, torch.int32)
+
+
+def _narrow_div_rem(a: ColVal, b: ColVal, st, which: int):
+    """_div_rem_const over a scanned column's narrow storage, or None.
+
+    For a column stored in a signed integer type narrower than the
+    computation type `st` (signed) and an integer constant c that fits the
+    storage type, c not in {0, -1}: truncating division in the storage type
+    cannot overflow (only MIN / -1 does), so it equals the wide result, and
+    only the result is widened: 12 bytes a row for int32 storage, where
+    the wide path reads the widened column (cached on the StoredColVal).
+    """
+    if not isinstance(a, StoredColVal) or np.dtype(st).kind != "i" \
+            or storage_np(b).kind not in "iu":
+        return None
+    s = a.storage
+    wide = dt.torch_dtype_of(np.dtype(st))
+    if s.dtype not in _NARROW_INTS or s.element_size() >= wide.itemsize:
+        return None
+    c = _const_int(b, st)
+    info = torch.iinfo(s.dtype)
+    if c in (0, -1) or not info.min <= c <= info.max:
+        return None
+    out = torch.div(s, c, rounding_mode="trunc") if which == 0 \
+        else torch.fmod(s, c)
+    return out.to(wide)
+
+
 def _intdiv_like(which: int, name: str):
     def ex(args, out_dtype):
         _no_decimal_or_dates(name, *(a.dtype for a in args))
         a, b = args
         st = dt.remove_nullable(out_dtype).np_dtype
+        if _const_nonzero(b):
+            out = _narrow_div_rem(a, b, st, which)
+            if out is None:
+                out = _div_rem_const(_as(a, st), b, st, which)
+            return ColVal(dt.remove_nullable(out_dtype).with_nullable(
+                a.dtype.nullable), out, _and_validity(args))
         x, y = _as(a, st), _as(b, st)
         if x.dim() < y.dim():
             x = x.expand(y.shape)
         uns = st == np.uint64
-        if _const_nonzero(b):
-            out = _div_rem(x, y.expand(x.shape), uns)[which]
-            return ColVal(dt.remove_nullable(out_dtype).with_nullable(
-                a.dtype.nullable), out, _and_validity(args))
         y = y.expand(x.shape) if y.dim() < x.dim() else y
         zero = y == 0
         safe = torch.where(zero, torch.ones_like(y), y)
@@ -325,16 +384,31 @@ def _or_zero(base_exec):
     """xOrZero variants: zero result (and valid) where the divisor is 0."""
     def ex(args, out_dtype):
         out = base_exec(args, out_dtype)
-        zero = args[1].data == 0
-        data = torch.where(zero, torch.zeros_like(out.data), out.data)
+        if _const_nonzero(args[1]):
+            data = out.data
+        else:
+            zero = args[1].data == 0
+            data = torch.where(zero, torch.zeros_like(out.data), out.data)
         return ColVal(dt.remove_nullable(out.dtype).with_nullable(
             any(a.dtype.nullable for a in args)), data, _and_validity(args))
     return ex
 
 
+def _intdiv_orzero_exec(args, out_dtype):
+    out = _or_zero(_intdiv_like(0, "intDivOrZero"))(args, out_dtype)
+    st = dt.remove_nullable(out_dtype).np_dtype
+    b = args[1]
+    if st.kind != "i" or (b.is_const and _const_int(b, st) != -1):
+        return out
+    # signed MIN / -1 overflows: the reference returns 0
+    ovf = (_as(args[0], st) == np.iinfo(st).min) & (_as(b, st) == -1)
+    return ColVal(out.dtype, torch.where(
+        ovf, torch.zeros((), dtype=out.data.dtype, device=out.data.device),
+        out.data), out.validity)
+
+
 register("intDiv", _resolve_intdiv, _intdiv_like(0, "intDiv"))
-register("intDivOrZero", _resolve_intdiv,
-         _or_zero(_intdiv_like(0, "intDivOrZero")))
+register("intDivOrZero", _resolve_intdiv, _intdiv_orzero_exec)
 # modulo truncates (sign of the dividend), as the reference's lax.rem
 register("modulo", _resolve_intdiv, _intdiv_like(1, "modulo"))
 register("moduloOrZero", _resolve_intdiv,

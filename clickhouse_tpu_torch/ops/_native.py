@@ -172,12 +172,13 @@ class K9Args(ctypes.Structure):
     """ChttExpandArgs of csrc/expand_matches.cu (one call of K9)."""
     _fields_ = [("matched", ctypes.c_void_p), ("valid", ctypes.c_void_p),
                 ("seg_start", ctypes.c_void_p), ("seg_len", ctypes.c_void_p),
-                ("n", ctypes.c_longlong), ("out_cap", ctypes.c_longlong),
+                ("n", ctypes.c_longlong), ("n_rows", ctypes.c_longlong),
+                ("out_cap", ctypes.c_longlong), ("heavy", ctypes.c_longlong),
                 ("left", ctypes.c_int), ("any_join", ctypes.c_int),
-                ("offsets", ctypes.c_void_p), ("out_count", ctypes.c_void_p),
-                ("status", ctypes.c_void_p), ("p_idx", ctypes.c_void_p),
-                ("build_pos", ctypes.c_void_p), ("mask", ctypes.c_void_p),
-                ("tiles", ctypes.c_int), ("pad", ctypes.c_int)]
+                ("vec", ctypes.c_int), ("tiles", ctypes.c_int),
+                ("out_count", ctypes.c_void_p), ("status", ctypes.c_void_p),
+                ("p_idx", ctypes.c_void_p), ("build_pos", ctypes.c_void_p),
+                ("mask", ctypes.c_void_p)]
 
 
 class KernelBuildError(RuntimeError):
@@ -292,6 +293,8 @@ def library() -> ctypes.CDLL:
             lib.chtt_expand_matches.restype = I
             lib.chtt_expand_tile_rows.argtypes = []
             lib.chtt_expand_tile_rows.restype = I
+            lib.chtt_expand_spill_slots.argtypes = []
+            lib.chtt_expand_spill_slots.restype = I
             lib.chtt_error_string.argtypes = [I]
             lib.chtt_error_string.restype = ctypes.c_char_p
             _LIB = lib

@@ -49,12 +49,17 @@ from . import _native, agg_ops, sort_ops
 
 __all__ = ["PropagateResult", "JoinTable", "ProbeResult",
            "dense_gather_join", "propagate_join", "build_join_table",
-           "probe_join_table", "expand_matches", "key_words",
+           "probe_join_table", "expand_matches", "expand_matches_bytes",
+           "EXPAND_HEAVY_SLOTS", "key_words",
            "hash_capacity", "hash_join_bytes", "SlotWord",
            "dense_slot_layout"]
 
 _KINDS = {"word": 0, "key": 1, "keyvalid": 2}   # OutKind of dense_join.cu
 _EXPAND_TILE = 4096                # kTile of csrc/expand_matches.cu
+_EXPAND_SLOTS = 4096               # kSlots of csrc/expand_matches.cu
+# K9's spill threshold: a tile whose output holds more slots is written by
+# the spill grid, 4,096 slots a block, not by the block that scanned it
+EXPAND_HEAVY_SLOTS = 65536
 
 
 @dataclasses.dataclass
@@ -594,12 +599,15 @@ def probe_join_table(table: JoinTable, probe_keys: Sequence[torch.Tensor],
 
 # -- K9: match expansion ------------------------------------------------------
 
-def expand_matches(probe: ProbeResult, probe_valid: torch.Tensor,
+def expand_matches(probe: ProbeResult, probe_valid: Optional[torch.Tensor],
                    out_capacity: int, left: bool = False,
-                   any_join: bool = False
+                   any_join: bool = False, n_rows: Optional[int] = None
                    ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor,
                               torch.Tensor]:
     """Expand 1-to-N matches into output row pairs (K9).
+
+    A probe row is valid below `n_rows` (None: every row) where
+    `probe_valid` holds (None: everywhere), the parts K1 takes.
 
     Returns (probe_row_idx, build_pos, match_mask, out_count):
       probe_row_idx[j] -- int32 source probe row of output row j
@@ -617,11 +625,21 @@ def expand_matches(probe: ProbeResult, probe_valid: torch.Tensor,
     if not 1 <= out_capacity < 1 << 31 or n >= 1 << 31:
         raise ValueError(f"expand_matches: {n} probe rows, out_capacity "
                          f"{out_capacity}")
+    n_rows = n if n_rows is None else max(0, min(int(n_rows), n))
     if _route("expand_matches", dev):
         return _expand_matches_cuda(probe, probe_valid, out_capacity, left,
-                                    any_join)
+                                    any_join, n_rows)
     return _expand_matches_plain(probe, probe_valid, out_capacity, left,
-                                 any_join)
+                                 any_join, n_rows)
+
+
+def expand_matches_bytes(n: int, out_capacity: int) -> int:
+    """Device bytes an expand_matches call over n probe rows allocates: 9
+    bytes a slot (row, build position, flag), the count, and K9's status
+    words (a look-back word a tile, the tile counter, two spill words an
+    output tile)."""
+    words = -(-n // _EXPAND_TILE) + 1 + 2 * -(-out_capacity // _EXPAND_SLOTS)
+    return 9 * out_capacity + 8 + 8 * words
 
 
 def _expand_lengths(matched, valid, seg_len, left, any_join):
@@ -633,26 +651,31 @@ def _expand_lengths(matched, valid, seg_len, left, any_join):
     return lens
 
 
-def _expand_matches_cuda(probe, probe_valid, out_cap, left, any_join):
+def _expand_matches_cuda(probe, probe_valid, out_cap, left, any_join,
+                         n_rows, heavy=EXPAND_HEAVY_SLOTS):
     dev = probe.matched.device
     n = probe.matched.shape[0]
     matched, valid = _bool(probe.matched), _bool(probe_valid)
     seg_start = probe.seg_start.to(torch.int32).contiguous()
     seg_len = probe.seg_len.to(torch.int32).contiguous()
     tiles = -(-n // _EXPAND_TILE)
-    offsets = torch.empty(n + 1, dtype=torch.int32, device=dev)
+    words = tiles + 1 + 2 * -(-out_cap // _EXPAND_SLOTS)
     out_count = torch.empty((), dtype=torch.int64, device=dev)
-    status = torch.empty(tiles + 1, dtype=torch.int64, device=dev)
+    status = torch.empty(words, dtype=torch.int64, device=dev)
     p_idx = torch.empty(out_cap, dtype=torch.int32, device=dev)
     build_pos = torch.empty(out_cap, dtype=torch.int32, device=dev)
     mask = torch.empty(out_cap, dtype=torch.bool, device=dev)
+    ins = [t for t in (matched, valid, seg_start, seg_len) if t is not None]
     args = _native.K9Args(
-        matched=matched.data_ptr(), valid=valid.data_ptr(),
+        matched=matched.data_ptr(),
+        valid=None if valid is None else valid.data_ptr(),
         seg_start=seg_start.data_ptr(), seg_len=seg_len.data_ptr(), n=n,
-        out_cap=out_cap, left=int(left), any_join=int(any_join),
-        offsets=offsets.data_ptr(), out_count=out_count.data_ptr(),
-        status=status.data_ptr(), p_idx=p_idx.data_ptr(),
-        build_pos=build_pos.data_ptr(), mask=mask.data_ptr(), tiles=tiles)
+        n_rows=n_rows, out_cap=out_cap, heavy=heavy, left=int(left),
+        any_join=int(any_join),
+        vec=int(all(t.data_ptr() % 16 == 0 for t in ins)), tiles=tiles,
+        out_count=out_count.data_ptr(), status=status.data_ptr(),
+        p_idx=p_idx.data_ptr(), build_pos=build_pos.data_ptr(),
+        mask=mask.data_ptr())
     rc = _native.library().chtt_expand_matches(ctypes.byref(args),
                                                _native.stream_ptr(dev))
     _native.check(rc, "expand_matches")
@@ -660,12 +683,15 @@ def _expand_matches_cuda(probe, probe_valid, out_cap, left, any_join):
     return p_idx, build_pos, mask, out_count
 
 
-def _expand_matches_plain(probe, probe_valid, out_cap, left, any_join):
+def _expand_matches_plain(probe, probe_valid, out_cap, left, any_join,
+                          n_rows=None):
     """Plain PyTorch version of K9: the slot's row by a binary search of
     the cumulative lengths."""
     dev = probe.matched.device
     n = probe.matched.shape[0]
-    valid = probe_valid.to(torch.bool)
+    valid = torch.arange(n, device=dev) < (n if n_rows is None else n_rows)
+    if probe_valid is not None:
+        valid = valid & probe_valid.to(torch.bool)
     matched = probe.matched.to(torch.bool)
     lens = _expand_lengths(matched, valid, probe.seg_len, left, any_join)
     cum = torch.cumsum(lens, 0)

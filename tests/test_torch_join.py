@@ -682,3 +682,37 @@ def test_dense_join_range_that_does_not_hold_raises(shaped_sessions,
     with pytest.raises(CapacityError, match="proven value range"):
         shaped_sessions[1].execute(
             SHAPED_FORMS["count-sum"].format(f=f, d=d))
+
+
+@pytest.mark.parametrize("form", ["inner", "left", "residual"])
+def test_one_to_n_join_takes_the_probe_rows_as_a_count(shaped_sessions,
+                                                       monkeypatch, form):
+    """A scan's probe rows (no mask, no filter terms, no NULL keys) reach
+    the 1:N route as their row count: K8's probe gets no validity, so the
+    padding rows past the count (key 0, which dim4x holds) match there,
+    and K9 gets the count and no mask, and gives them no output row.  The
+    rows are the reference's, in order."""
+    from clickhouse_tpu_torch.ops import join_ops
+    on = {"inner": "INNER JOIN dim4x ON fact4.fk = dim4x.k",
+          "left": "LEFT JOIN dim4x ON fact4.fk = dim4x.k",
+          "residual": "INNER JOIN dim4x ON fact4.fk = dim4x.k "
+                      "AND fact4.fk + dim4x.label > 100"}
+    seen = {}
+    for name in ("probe_join_table", "expand_matches"):
+        fn = getattr(join_ops, name)
+
+        def spy(*args, _fn=fn, _name=name, **kw):
+            out = _fn(*args, **kw)
+            seen[_name] = (args, kw, out)
+            return out
+        monkeypatch.setattr(join_ops, name, spy)
+    _both(shaped_sessions, f"SELECT fk, label FROM fact4 {on[form]}")
+    pargs, _, pr = seen["probe_join_table"]
+    eargs, ekw, (p_idx, _, _, count) = seen["expand_matches"]
+    assert pargs[2] is None and eargs[1] is None
+    assert ekw["n_rows"] == N_SHAPED
+    n = pr.matched.shape[0]
+    assert n > N_SHAPED and bool((pargs[1][0][N_SHAPED:] == 0).all())
+    assert bool(pr.matched[N_SHAPED:].all())
+    live = min(int(count), p_idx.shape[0])
+    assert live and int(p_idx[:live].max()) < N_SHAPED

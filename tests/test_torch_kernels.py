@@ -27,6 +27,7 @@ from clickhouse_tpu_torch.ops.agg_ops import (_masked_reduce_plain,
                                               masked_reduce)
 from clickhouse_tpu_torch.ops.join_ops import (ProbeResult,
                                                _dense_gather_join_plain,
+                                               _expand_matches_cuda,
                                                _expand_matches_plain,
                                                dense_gather_join,
                                                expand_matches,
@@ -739,12 +740,68 @@ def test_hash_join_cases(dev, case):
 
 @pytest.mark.parametrize("case", K9_CASES)
 def test_expand_matches_cases(dev, case):
-    """K9 on the cases of chip_smoke.k9_case: no match, INNER, LEFT, ANY,
-    one probe row holding 90 % of the output, a count beyond the capacity,
-    no probe row, many look-back tiles."""
+    """K9 on the cases of chip_smoke.k9_case, three runs each: no match,
+    INNER, LEFT, ANY, one probe row holding 90 % of the output, a count
+    beyond the capacity, no probe row, many look-back tiles, a tile's
+    output at the spill threshold less one, at it and above it, heavy rows
+    in adjacent tiles, an empty tile, the capacity mid-tile and mid-heavy
+    row, a row count mid-tile (with and without a mask) and at 0, a row
+    count off the 16-row grid, and views 1-3 rows in."""
     args = k9_args(case, np.random.default_rng(len(case)), dev)
-    got = expand_matches(*args)
-    for a, b in zip(got, _expand_matches_plain(*args)):
-        _exact(a, b)
+    want = _expand_matches_plain(*args)
+    for _ in range(3):
+        got = expand_matches(*args)
+        for a, b in zip(got, want):
+            _exact(a, b)
     if case == "beyond_capacity":
         assert int(got[3]) > args[2]
+
+
+def test_expand_matches_tile_constants(dev):
+    """The Python side's tile rows and spill slots are the kernel's."""
+    from chip_smoke import K9_TILE
+    from clickhouse_tpu_torch.ops import join_ops
+    lib = _native.library()
+    assert lib.chtt_expand_tile_rows() == join_ops._EXPAND_TILE == K9_TILE
+    assert lib.chtt_expand_spill_slots() == join_ops._EXPAND_SLOTS
+    assert join_ops.EXPAND_HEAVY_SLOTS >= join_ops._EXPAND_SLOTS
+
+
+@pytest.mark.parametrize("heavy", [4096, 1 << 30])
+@pytest.mark.parametrize("case", ["heavy_adjacent", "cap_mid_heavy",
+                                  "count_mid_tile", "view_3",
+                                  "one_row_90_percent"])
+def test_expand_matches_at_other_spill_thresholds(dev, case, heavy):
+    """Every tile with output spilled to the second grid (4,096), or none
+    (2^30): the same slots as the plain version."""
+    args = k9_args(case, np.random.default_rng(len(case)), dev)
+    n_rows = args[5] if args[5] is not None else args[0].matched.shape[0]
+    got = _expand_matches_cuda(*args[:5], n_rows, heavy=heavy)
+    for a, b in zip(got, _expand_matches_plain(*args)):
+        _exact(a, b)
+
+
+def test_intdiv_by_a_constant_stays_in_the_narrow_storage(dev):
+    """intDiv and modulo of an Int64 column stored as int32 by a constant
+    allocate at most 12 bytes a row (the int32 result and its int64
+    widening) and leave the widened column unmade."""
+    from clickhouse_tpu_torch.core import dtypes as dt
+    from clickhouse_tpu_torch.exprs import functions
+    from clickhouse_tpu_torch.exprs.expr import ColVal, StoredColVal
+    n = 10_000_000
+    s = torch.randint(-2**31, 2**31, (n,), dtype=torch.int32, device=dev)
+    for fn, c in (("intDiv", 4), ("modulo", 1024)):
+        a = StoredColVal(dt.Int64, s)
+        b = ColVal(dt.Int64, torch.tensor(c, dtype=torch.int64, device=dev))
+        f = functions.get(fn)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        out = f.execute([a, b], f.resolve([dt.Int64, dt.Int64]))
+        torch.cuda.synchronize()
+        assert torch.cuda.max_memory_allocated() - before <= 12 * n + (1 << 20)
+        assert a._wide is None
+        want = s.to(torch.int64)
+        want = torch.div(want, c, rounding_mode="trunc") if fn == "intDiv" \
+            else torch.fmod(want, c)
+        _exact(out.data, want)

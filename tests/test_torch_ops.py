@@ -1102,13 +1102,16 @@ def test_build_and_probe_join_table_match_reference(name):
         assert (np.diff(order[s_:s_ + l_]) > 0).all()
 
 
+@pytest.mark.parametrize("form", ["mask", "count", "count-and-mask"])
 @pytest.mark.parametrize("left,any_join", [(False, False), (True, False),
                                            (False, True), (True, True)])
 @pytest.mark.parametrize("cap", [1024, 40_960])
-def test_expand_matches_matches_reference(left, any_join, cap):
+def test_expand_matches_matches_reference(left, any_join, cap, form):
     """The same probe result expanded by both: each valid slot's probe row
     and build position, its flag, and the output count (beyond the
-    capacity too)."""
+    capacity too).  The probe rows' validity is a bool mask, a row count
+    (the rows past it invalid, no mask), or both; the reference is given
+    the equivalent bool mask."""
     rng = np.random.default_rng(34)
     n = 6000
     matched = rng.random(n) < 0.6
@@ -1117,13 +1120,19 @@ def test_expand_matches_matches_reference(left, any_join, cap):
     seg_len[n // 2] = 3000 if matched[n // 2] else 0      # a heavy key
     seg_start = np.where(matched, rng.integers(0, 500, n), 0).astype(
         np.int32)
+    n_rows = None if form == "mask" else n - 1234
+    mask = None if form == "count" else valid
+    ref_valid = np.ones(n, bool) if mask is None else mask.copy()
+    if n_rows is not None:
+        ref_valid[n_rows:] = False
     ref = jjoin.expand_matches(
         jjoin.ProbeResult(jnp.asarray(matched), jnp.asarray(seg_start),
                           jnp.asarray(seg_len)),
-        jnp.asarray(valid), cap, left=left, any_join=any_join)
+        jnp.asarray(ref_valid), cap, left=left, any_join=any_join)
     got = tjoin.expand_matches(
         tjoin.ProbeResult(_t(matched), _t(seg_start), _t(seg_len)),
-        _t(valid), cap, left=left, any_join=any_join)
+        None if mask is None else _t(mask), cap, left=left,
+        any_join=any_join, n_rows=n_rows)
     count = int(ref[3])
     assert int(got[3]) == count
     live = min(count, cap)

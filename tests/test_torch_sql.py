@@ -648,3 +648,82 @@ def test_select_without_from_and_numbers(sessions, sql, monkeypatch):
     monkeypatch.setattr(agg_ops, "group_by_dense", spy)
     assert _both(sessions, sql)
     assert bool(dense) == ("GROUP BY" in sql)
+
+
+# -- intDiv / modulo by a constant in the column's narrow storage -----------
+# d.x is an Int64 column stored as int32 (its values include ±(2^31 - 1) and
+# -2^31), d.i an Int32 column stored as int16, d.n a Nullable(Int64) stored
+# as int32, d.j an Int32 column at INT32_MIN and INT32_MAX (stored as it is)
+
+DIV_TYPES = {"r": "Int64", "x": "Int64", "i": "Int32",
+             "n": "Nullable(Int64)", "j": "Int32"}
+DIV_CONSTANTS = ["4", "1024", "7", "-3", "-1", "1", "3000000000",
+                 "2147483647", "-2147483648", "40000"]
+
+
+@pytest.fixture(scope="module")
+def div_sessions():
+    rng = np.random.default_rng(99)
+    edge = [2**31 - 1, -2**31, -(2**31 - 1), 0, 1, -1, 1023, -1025, 4, -4]
+    x = np.concatenate([edge, rng.integers(-2**31, 2**31, 500)]).astype(
+        np.int64)
+    n = x.astype(object)
+    n[rng.random(len(x)) < 0.25] = None
+    j = np.where(np.arange(len(x)) % 2 == 0, -2**31, 2**31 - 1).astype(
+        np.int32)
+    cols = {"r": np.arange(len(x), dtype=np.int64), "x": x,
+            "i": ((x % 65536) - 32768).astype(np.int32), "n": n, "j": j}
+    js = jch.connect()
+    ts = tch.connect(device="cpu")
+    js.execute("CREATE TABLE d (" + ", ".join(
+        f"{c} {t}" for c, t in DIV_TYPES.items()) + ")")
+    js.insert_pydict("d", cols)
+    table_from_numpy(ts, "d", _reference_columns(js, "d"), DIV_TYPES)
+    stored = ts.catalog.get_table("default", "d").read_block().columns
+    assert {c: stored[c].data.dtype for c in "xinj"} == {
+        "x": torch.int32, "i": torch.int16, "n": torch.int32,
+        "j": torch.int32}
+    return js, ts
+
+
+@pytest.mark.parametrize("col", ["x", "i", "n", "j"])
+@pytest.mark.parametrize("fn", ["intDiv", "modulo", "intDivOrZero",
+                                "moduloOrZero"])
+def test_div_by_constants_match_reference(div_sessions, fn, col):
+    """intDiv, modulo and their OrZero forms by constants (positive,
+    negative, -1, 1, beyond int32, INT32_MIN and INT32_MAX, 0 for the OrZero
+    forms) and by a column, bit for bit with the reference."""
+    consts = DIV_CONSTANTS + (["0"] if fn.endswith("OrZero") else [])
+    sql = ("SELECT r, " + ", ".join(f"{fn}({col}, {c})" for c in consts)
+           + f", {fn}({col}, r - 3) FROM d ORDER BY r")
+    assert _both(div_sessions, sql)
+
+
+@pytest.mark.parametrize("fn,c", [("intDiv", 4), ("modulo", 1024),
+                                  ("intDiv", -7), ("modulo", -2**31)])
+def test_div_by_a_constant_reads_the_narrow_storage(fn, c):
+    """On the narrow path the scanned column's widened copy is never made
+    (its cache on the StoredColVal stays unset), and the result is the
+    int64 one; divisor -1 and a divisor beyond the storage type take the
+    wide path."""
+    from clickhouse_tpu_torch.core import dtypes as dt
+    from clickhouse_tpu_torch.exprs import functions
+    from clickhouse_tpu_torch.exprs.expr import ColVal, StoredColVal
+    s = torch.tensor([2**31 - 1, -2**31, -(2**31 - 1), 0, 5, -5, 1023],
+                     dtype=torch.int32)
+    want = s.to(torch.int64)
+    want = torch.div(want, c, rounding_mode="trunc") if fn == "intDiv" \
+        else torch.fmod(want, c)
+    f = functions.get(fn)
+
+    def run(d):
+        a = StoredColVal(dt.Int64, s)
+        b = ColVal(dt.Int64, torch.tensor(d, dtype=torch.int64))
+        out = f.execute([a, b], f.resolve([dt.Int64, dt.Int64]))
+        return a, out
+    a, out = run(c)
+    assert a._wide is None
+    assert out.data.dtype == torch.int64 and torch.equal(out.data, want)
+    for d in (-1, 2**31):
+        a, _ = run(d)
+        assert a._wide is not None
