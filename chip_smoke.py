@@ -9,7 +9,7 @@
 Needs one NVIDIA Hopper card, nvcc and PyTorch built for CUDA; exits
 non-zero without them.  Phases, each of which fails the run:
 
-  1. build the nine hand-written kernels (csrc/*.cu) with nvcc for sm_90a,
+  1. build the ten hand-written kernels (csrc/*.cu) with nvcc for sm_90a,
      one nvcc a source, all started together;
   2. hold each kernel against its plain PyTorch version on the card: edge
      cases (K1 with and without filter terms over every storage type and
@@ -47,7 +47,12 @@ non-zero without them.  Phases, each of which fails the run:
      threshold less one, at it and above it, heavy rows in adjacent tiles,
      an empty tile, the capacity mid-tile and mid-heavy-row, a row count
      mid-tile (with and without a mask) and at 0, a row count off the
-     16-row grid, views 1-3 rows in); integer results must agree
+     16-row grid, views 1-3 rows in); K10 over K10_CASES, prefix and
+     suffix each with and without negate, three runs each (0, 1 and 3
+     values, a value count off the block, values of 0-3, 64-66 and 4,000
+     bytes, chars at an odd address, needles past 48 bytes and past the
+     kernel's shared-memory stage, int64 offsets, chars past 2^31 bytes);
+     integer results must agree
      exactly, K1's and K2's float sums within rtol 1e-12, K6's within
      n_g * eps * sum(|x|) a group of n_g rows (its atomics add a group's
      parts in a varying order); then SELECT without FROM, numbers() and
@@ -72,7 +77,16 @@ non-zero without them.  Phases, each of which fails the run:
      far apart) and Q4x (each build key twice), checked against numpy,
      each launching exactly the kernels of its path (JOIN_PATHS: Q4 K7,
      Q4h K8, Q4x K4, K5, K8 and K9; K1 for the aggregate), its peak
-     memory beside the governor's estimate;
+     memory beside the governor's estimate; then Q2t (Q2 WITH TOTALS: its
+     rows and Result.totals), Q2l (LIMIT 2 BY intDiv(x, 4)) and Q2d
+     (DISTINCT intDiv(x, 4)) over hits, and over hits_s (url String,
+     bench.py:455-465: 50M urls, 25M distinct; the host time of its
+     device block printed) Q7 (bench.py: 466-468), Q7b (bench.py:473-475:
+     K10's prefix and K1; its first run builds the dictionary's chars,
+     once and under the governor's check, their time and bytes printed),
+     Q7d (DISTINCT url) and Q7s (LIKE '%99': K10's suffix), each against
+     numpy and launching exactly the kernels of its path (SLICE10_PATHS),
+     its peak beside the governor's estimate;
   4. replay each kernel on the exact inputs the main path gave it (its
      largest launch on the main path), held against its plain version, and
      time it, its plain version and, where one exists, the single PyTorch
@@ -94,12 +108,14 @@ non-zero without them.  Phases, each of which fails the run:
      probe rows as their row count) beside repeat_interleave, also with
      the rows as a bool mask, its scan pass alone, on the heavy-row and
      many-tile cases and at each spill threshold of K9_HEAVY_SWEEP, each
-     with its kernels a call; fails unless Q4's K7 call carries label alone and Q4h's K8 call
-     one word; time each query (median wall time of 20 runs,
-     synchronised) with its peak memory beside the governor's estimate,
-     the device-busy time of Q1, Q2b, Q2m, Q4, Q4h and Q4x
-     (torch.profiler) and Q4's wall over the probe roofline of
-     bench.py:509-525.
+     with its kernels a call; K10 at Q7b's inputs (its bytes: the chars'
+     32-byte sectors holding a compared byte, the offsets and the output)
+     and at Q7s's; fails unless Q4's K7 call carries label alone and
+     Q4h's K8 call one word; time each query (median wall time of 20
+     runs, synchronised) with its peak memory beside the governor's
+     estimate, the device-busy time of Q1, Q2b, Q2m, Q4, Q4h, Q4x and the
+     slice-10 queries (torch.profiler) and Q4's wall over the probe
+     roofline of bench.py:509-525.
 
 The second-to-last line is a JSON object of per-kernel results (name,
 route, source, replaces, launches, ms, plain_ms, bound_ms, bound_by,
@@ -147,6 +163,39 @@ JOIN_PATHS = {"Q4": {"dense_join": 1, "masked_reduce": 2},
 # the kernel of each join query that must cover every probe row
 JOIN_PROBE = {"Q4": "dense_join", "Q4h": "hash_join",
               "Q4x": "expand_matches"}
+# slice 10: DISTINCT, LIMIT BY and WITH TOTALS over hits, and the string
+# configuration hits_s (url String), bench.py:455-465: N_S_ROWS rows of
+# 'http://example.com/p' + str(i % N_S_DISTINCT), with Q7 (bench.py:466-468),
+# Q7b (bench.py:473-475), Q7d (DISTINCT) and Q7s (K10's suffix form)
+N_S_ROWS = 50_000_000
+N_S_DISTINCT = N_S_ROWS // 2
+URL_PREFIX = "http://example.com/p"
+Q2T = ("SELECT x % 1024 AS k, count() AS c, sum(x) FROM hits GROUP BY k "
+       "WITH TOTALS ORDER BY c DESC LIMIT 10")
+Q2L = "SELECT count() FROM (SELECT x FROM hits LIMIT 2 BY intDiv(x, 4))"
+Q2D = "SELECT count() FROM (SELECT DISTINCT intDiv(x, 4) FROM hits)"
+Q7 = ("SELECT count() FROM (SELECT url, count() AS c FROM hits_s "
+      "GROUP BY url) SETTINGS max_groups = 67108864")
+Q7B = ("SELECT count() FROM hits_s "
+       "WHERE startsWith(url, 'http://example.com/p1')")
+Q7D = ("SELECT count() FROM (SELECT DISTINCT url FROM hits_s) "
+       "SETTINGS max_groups = 67108864")
+Q7S = "SELECT count() FROM hits_s WHERE url LIKE '%99'"
+SLICE10_QUERIES = (("Q2t", Q2T), ("Q2l", Q2L), ("Q2d", Q2D), ("Q7", Q7),
+                   ("Q7b", Q7B), ("Q7d", Q7D), ("Q7s", Q7S))
+# each query's launches, exactly (every other kernel: none): K4 and K5 for
+# the sort grouping and K1 for the outer count(); Q2t's dense grouping
+# (K2), its top-k (K3) and its totals' count() and sum(x) (K1 twice);
+# Q7b's and Q7s's K10 over the dictionary and K1's count of the mask
+_SORTED = {"radix_sort_pairs": 1, "segment_bounds": 1, "masked_reduce": 1}
+_AFFIX = {"prefix_match": 1, "masked_reduce": 1}
+SLICE10_PATHS = {"Q2t": {"dense_group_reduce": 1, "topk_smallest": 1,
+                         "masked_reduce": 2},
+                 "Q2l": _SORTED, "Q2d": _SORTED, "Q7": _SORTED,
+                 "Q7d": _SORTED, "Q7b": _AFFIX, "Q7s": _AFFIX}
+# the queries whose device-busy time a trace takes
+BUSY_QUERIES = ("Q1", "Q2b", "Q2m", "Q4", "Q4h", "Q4x") + tuple(
+    q for q, _ in SLICE10_QUERIES)
 QUERY_REPS = 20
 KERNEL_REPS = 20
 FLOAT_RTOL = 1e-12      # the kernel adds float partials in another order
@@ -172,7 +221,8 @@ EXTRA_KEYS = ("level1_ms", "merge_ms", "entry64_ms", "entry64_bound_ms",
               "with_mask_bytes", "with_mask_bound_ms", "heavy_ms",
               "heavy_bytes", "heavy_bound_ms", "many_tiles_ms",
               "many_tiles_bytes", "many_tiles_bound_ms", "threshold_ms",
-              "scan_only_ms", "scan_only_bound_ms")
+              "scan_only_ms", "scan_only_bound_ms", "suffix_ms",
+              "suffix_plain_ms", "suffix_bytes", "suffix_bound_ms")
 F64_EPS = 2.0 ** -52
 CMPS = ["equals", "notEquals", "less", "lessOrEquals", "greater",
         "greaterOrEquals"]
@@ -1360,6 +1410,105 @@ def check_k9(dev):
           f"{', '.join(K9_CASES)}", flush=True)
 
 
+K10_CASES = ("u0", "u1", "u3", "ragged_block", "short_values",
+             "long_values", "odd_chars", "long_needle", "needle_past_stage",
+             "int64_offsets", "chars_past_2gb")
+K10_STAGE = 16384       # kStage of csrc/prefix_match.cu
+K10_REPS = 3            # runs of each case
+
+
+def k10_values(rng, name):
+    """The dictionary values of one K10 case, as bytes."""
+    def word(n):
+        return bytes(rng.integers(97, 100, n).astype(np.uint8))
+    if name == "u0":
+        return []
+    if name == "u1":
+        return [word(5)]
+    if name == "u3":
+        return [word(3), b"", word(7)]
+    if name == "short_values":
+        return [word(int(k)) for k in rng.integers(0, 4, 2000)]
+    if name == "long_values":
+        return [word(int(k)) for k in rng.choice([64, 65, 66, 4000], 300)]
+    if name == "needle_past_stage":
+        base = word(K10_STAGE + 500)
+        return [base, base[:-1] + b"x", b"y" + base[1:], base[:100],
+                word(K10_STAGE + 3000)]
+    # ragged_block, odd_chars, long_needle, int64_offsets: 1 to 120 bytes,
+    # U not a multiple of the block; UTF-8 in some
+    vals = [word(int(k)) for k in rng.integers(1, 120, 1000 + 37)]
+    vals[3] = "ünïcødé-ß".encode()
+    return vals
+
+
+def k10_needles(rng, vals):
+    """Needles of a case: empty, a value's prefix and suffix of several
+    lengths, whole values, one longer than every value, a miss."""
+    out = [b"", b"a", b"zz"]
+    longest = max((len(v) for v in vals), default=0)
+    for v in vals[:: max(1, len(vals) // 4)][:4]:
+        for k in (1, 3, 21, 49, 64, 65, len(v)):
+            out += [v[:k], v[-k:] if k else b""]
+    out.append(b"a" * (longest + 1))
+    return sorted(set(out), key=lambda b: (len(b), b))
+
+
+def k10_args(name, rng, dev):
+    """One K10 case on `dev`: (chars, offsets, needles)."""
+    if name == "chars_past_2gb":
+        # 2^21 + 3 values of 1,024 bytes: 2^31 + 3,072 chars, int64 offsets
+        u, w = (1 << 21) + 3, 1024
+        g = torch.Generator(device=dev).manual_seed(10)
+        chars = torch.randint(97, 99, (u * w,), dtype=torch.uint8,
+                              device=dev, generator=g)
+        offsets = torch.arange(u + 1, dtype=torch.int64, device=dev) * w
+        head = chars[:w].cpu().numpy().tobytes()
+        tail = chars[-w:].cpu().numpy().tobytes()
+        return chars, offsets, [b"", head[:1], head[:30], head, tail[-17:],
+                                tail, b"a" * (w + 1)]
+    vals = k10_values(rng, name)
+    lens = np.array([len(v) for v in vals], np.int64)
+    offsets = np.zeros(len(vals) + 1, np.int64)
+    np.cumsum(lens, out=offsets[1:])
+    chars = np.frombuffer(b"".join(vals), np.uint8)
+    pad = 1 if name == "odd_chars" else 0   # chars at an odd address
+    buf = torch.zeros(len(chars) + pad, dtype=torch.uint8, device=dev)
+    buf[pad:] = torch.from_numpy(chars.copy()).to(dev)
+    off = torch.from_numpy(offsets).to(dev)
+    if name != "int64_offsets":
+        off = off.to(torch.int32)
+    return buf[pad:], off, k10_needles(rng, vals)
+
+
+def check_k10(dev):
+    """K10 against its plain version on every case of K10_CASES, prefix and
+    suffix each with and without negate, K10_REPS runs each: 0, 1 and 3
+    values, a value count off the block, values of 0-3 bytes, of 64-66 and
+    4,000 bytes, chars at an odd address, needles past 48 bytes and past
+    the kernel's shared-memory stage, int64 offsets, and chars past 2^31
+    bytes."""
+    from clickhouse_tpu_torch.ops.string_ops import (_prefix_match_plain,
+                                                     prefix_match)
+    rng = np.random.default_rng(23)
+    calls = 0
+    for name in K10_CASES:
+        chars, offsets, needles = k10_args(name, rng, dev)
+        for nd in needles:
+            for suffix in (False, True):
+                for negate in (False, True):
+                    want = _prefix_match_plain(chars, offsets, nd, suffix,
+                                               negate)
+                    for _ in range(K10_REPS):
+                        max_abs_err(prefix_match(chars, offsets, nd, suffix,
+                                                 negate), want)
+                        calls += 1
+        del chars, offsets
+    torch.cuda.synchronize()
+    print(f"K10 prefix_match edge cases agree ({K10_REPS} runs each, "
+          f"{calls} calls): {', '.join(K10_CASES)}", flush=True)
+
+
 def main_path_args(session):
     """Run the main path's queries once more with each kernel's launch
     wrapper spied on, and return the arguments of each kernel's largest
@@ -1906,7 +2055,25 @@ def expected_answers(x: np.ndarray):
         rows = np.flatnonzero(km == g)
         q2m.append((int(g), int(cnt_m[g]), int(sum_m[g]),
                     int(x[rows].min()), int(x[rows].max()), int(x[rows[0]])))
-    return {"Q1": q1, "Q2": q2, "Q2b": q2b, "Q2m": q2m, "Q3": q3}
+    # slice 10: Q2's rows with the totals row (the key at 0); LIMIT 2 BY
+    # intDiv(x, 4) keeps at most two rows a group; DISTINCT its groups
+    total = (0, len(x), int(x.sum()))
+    q2l = [(int(np.minimum(cnt_m, 2).sum()),)]
+    q2d = [(int((cnt_m > 0).sum()),)]
+    return {"Q1": q1, "Q2": q2, "Q2b": q2b, "Q2m": q2m, "Q3": q3,
+            "Q2t": q2, "Q2t:totals": [total], "Q2l": q2l, "Q2d": q2d}
+
+
+def string_answers():
+    """Q7, Q7b, Q7d and Q7s over hits_s, from the integers behind the urls
+    (each of N_S_DISTINCT values twice): the values whose decimal digits
+    start with 1, and those ending in 99."""
+    copies = N_S_ROWS // N_S_DISTINCT
+    ones = sum(max(0, min(2 * 10 ** d, N_S_DISTINCT) - 10 ** d)
+               for d in range(len(str(N_S_DISTINCT))))
+    end99 = len(range(99, N_S_DISTINCT, 100))
+    return {"Q7": [(N_S_DISTINCT,)], "Q7b": [(copies * ones,)],
+            "Q7d": [(N_S_DISTINCT,)], "Q7s": [(copies * end99,)]}
 
 
 def check_small_queries(ch):
@@ -1951,6 +2118,26 @@ def load_hits(ch):
     return s, x
 
 
+def load_hits_s(s):
+    """hits_s (url String) in session s, as bench.py:455-465 makes it;
+    prints the host time of the table's device block (its dictionary: a
+    sort of the urls).  The dictionary's chars are not built here: Q7b's
+    first run builds them, under the governor's check."""
+    t0 = time.perf_counter()
+    urls = np.char.add(URL_PREFIX,
+                       (np.arange(N_S_ROWS) % N_S_DISTINCT).astype(str))
+    t1 = time.perf_counter()
+    s.execute("CREATE TABLE hits_s (url String)")
+    s.insert_pydict("hits_s", {"url": urls})
+    del urls
+    col = s.catalog.get_table("default", "hits_s").read_block()["url"]
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    print(f"hits_s: {N_S_ROWS} urls made in {t1 - t0:.1f} s; insert + "
+          f"device block (codes, {len(col.dictionary)} dictionary values) "
+          f"{t2 - t1:.1f} s", flush=True)
+
+
 def device_busy(s, sql, reps=QUERY_REPS):
     """(device-busy ms, device operations, wall ms, top) per run of sql,
     from a torch.profiler trace of `reps` runs (busy: the union of the
@@ -1993,15 +2180,16 @@ def time_queries(s):
     copied into an unpacked older checkout (``--queries``) it times that
     tree alike; a query that tree does not run (NotImplementedError_) is
     reported and skipped."""
-    from clickhouse_tpu_torch.core.errors import NotImplementedError_
+    from clickhouse_tpu_torch.core.errors import (NotImplementedError_,
+                                                  UnknownFunction)
     from clickhouse_tpu_torch.exec.streaming import \
         estimate_plan_device_bytes
     from clickhouse_tpu_torch.sql import parse
     ran = {}
-    for name, sql in QUERIES + JOIN_QUERIES:
+    for name, sql in QUERIES + JOIN_QUERIES + SLICE10_QUERIES:
         try:
             s.execute(sql)
-        except NotImplementedError_ as e:
+        except (NotImplementedError_, UnknownFunction) as e:
             print(f"{name} not ported in this tree: {e}", flush=True)
             continue
         times = []
@@ -2019,8 +2207,9 @@ def time_queries(s):
         peak = torch.cuda.max_memory_allocated() - base
         est = estimate_plan_device_bytes(s._plan(parse(sql), s.settings),
                                          s.catalog, s.settings)
+        rows = N_S_ROWS if "hits_s" in sql else N_ROWS
         print(f"{name} median wall {ran[name]:.3f} ms "
-              f"over {QUERY_REPS} runs ({N_ROWS} rows); peak {peak} bytes "
+              f"over {QUERY_REPS} runs ({rows} rows); peak {peak} bytes "
               f"above what was allocated before it, the governor's "
               f"estimate {est} bytes: {sql}", flush=True)
     if "Q4" in ran:
@@ -2030,8 +2219,8 @@ def time_queries(s):
               f"entry int32 table, CUDA events, L2 flushed): {roof:.4f} ms; "
               f"Q4's median wall {ran['Q4']:.3f} ms is "
               f"{ran['Q4'] / roof:.2f}x it", flush=True)
-    for name, sql in QUERIES + JOIN_QUERIES:
-        if name in ("Q1", "Q2b", "Q2m", "Q4", "Q4h", "Q4x") and name in ran:
+    for name, sql in QUERIES + JOIN_QUERIES + SLICE10_QUERIES:
+        if name in BUSY_QUERIES and name in ran:
             busy, ops, wall, top = device_busy(s, sql)
             print(f"{name} under torch.profiler: device busy {busy:.4f} ms "
                   f"of {wall:.3f} ms wall a run, {ops:g} device operations "
@@ -2083,53 +2272,106 @@ def join_answers(fk, label):
                      int((cnt[:half] * pair).sum()))]}
 
 
-def join_path(s, want, per_query, launches, launch_rows, memory):
-    """Q4, Q4h and Q4x once each, checked against numpy, with the launch
-    counters set to 0 before each and read after; fails unless each
-    launched exactly the kernels of its path (JOIN_PATHS), its probe
-    kernel over every probe row.  -> {query: (peak bytes above what was
-    allocated before it, the governor's estimate)}."""
-    from clickhouse_tpu_torch.exec.streaming import \
-        estimate_plan_device_bytes
+def path_phase(s, queries, paths, cover, want, per_query, launches,
+               launch_rows, memory, label, chars_built=None):
+    """Each query of `queries` once, checked against numpy, with the launch
+    counters set to 0 before it and read after; fails unless it launched
+    exactly the kernels of its path (`paths`), the kernel `cover` names
+    over at least its rows, and built a dictionary's device chars exactly
+    as often as `chars_built` says (default 0), each under the governor's
+    check.  -> {query: (peak bytes above what was allocated before it,
+    the governor's estimate)}."""
+    from clickhouse_tpu_torch.exec.streaming import (
+        effective_memory_budget, estimate_plan_device_bytes)
     from clickhouse_tpu_torch.ops import _native
     from clickhouse_tpu_torch.sql import parse
     out = {}
-    for name, sql in JOIN_QUERIES:
+    for name, sql in queries:
         for v in memory.values():
             del v[:]
         torch.cuda.synchronize()
         base = torch.cuda.memory_allocated()
         torch.cuda.reset_peak_memory_stats()
         _native.reset_launches()
-        rows = s.execute(sql).rows()
+        res = s.execute(sql)
+        rows = res.rows()
         per_query[name] = dict(_native.LAUNCHES)
         rows_of = {k: list(v) for k, v in _native.LAUNCH_ROWS.items()}
         extra = max([torch.cuda.max_memory_allocated()]
                     + [p for p, _ in memory["grouping"]]) - base
         if rows != want[name]:
-            fail(f"{name} returned {rows}, numpy says {want[name]}")
+            fail(f"{name} returned {rows[:5]}, numpy says {want[name][:5]}")
+        if f"{name}:totals" in want:
+            got = None if res.totals is None else [
+                tuple(cell_value(v[0]) for v in res.totals.values())]
+            if got != want[f"{name}:totals"]:
+                fail(f"{name}'s totals are {got}, numpy says "
+                     f"{want[name + ':totals']}")
         for k, v in rows_of.items():
             launches[k] += per_query[name][k]
             launch_rows[k] += v
-        path = {k: JOIN_PATHS[name].get(k, 0) for k in per_query[name]}
+        path = {k: paths[name].get(k, 0) for k in per_query[name]}
         if per_query[name] != path:
             fail(f"{name} launched {per_query[name]}; its path is "
-                 f"{JOIN_PATHS[name]} and nothing else")
-        probe = max(rows_of[JOIN_PROBE[name]], default=0)
-        if probe < N_ROWS:
-            fail(f"{name}'s {JOIN_PROBE[name]} covered {probe} probe rows, "
-                 f"not {N_ROWS}")
+                 f"{paths[name]} and nothing else")
+        kernel, need = cover[name]
+        covered = max(rows_of[kernel], default=0)
+        if covered < need:
+            fail(f"{name}'s {kernel} covered {covered} rows, not {need}")
         est = estimate_plan_device_bytes(s._plan(parse(sql), s.settings),
                                          s.catalog, s.settings)
         out[name] = (extra, est)
+        built = list(memory["chars"])
+        if len(built) != (chars_built or {}).get(name, 0) \
+                or not all(checked for _, _, checked in built):
+            fail(f"{name} built dictionary chars {built} (seconds, bytes, "
+                 f"checked); its path builds "
+                 f"{(chars_built or {}).get(name, 0)}, each checked")
+        for secs, size, _ in built:
+            left = effective_memory_budget(s.settings) - est
+            print(f"{name}: built a dictionary's chars and offsets on the "
+                  f"device ({size} bytes) in {secs:.3f} s, held first "
+                  f"against the {left} bytes the governor's estimate "
+                  f"({est} bytes) leaves of the budget; the peak below "
+                  f"includes them", flush=True)
         print(f"{name}: launches "
               f"{ {k: v for k, v in per_query[name].items() if v} }, rows a "
               f"launch { {k: v for k, v in rows_of.items() if v} }; device "
               f"memory at its peak {extra} bytes above what was allocated "
               f"before it, the governor's estimate {est} bytes", flush=True)
-    print(f"Q4, Q4h and Q4x match numpy over {N_ROWS} probe rows, each on "
-          f"its kernel path", flush=True)
+    print(f"{label} match numpy, each on its kernel path", flush=True)
     return out
+
+
+def cell_value(v):
+    """A result cell as a Python value."""
+    return v.item() if hasattr(v, "item") else v
+
+
+def join_path(s, want, per_query, launches, launch_rows, memory):
+    """Q4, Q4h and Q4x (JOIN_PATHS), their probe kernel over every probe
+    row."""
+    return path_phase(s, JOIN_QUERIES, JOIN_PATHS,
+                      {q: (k, N_ROWS) for q, k in JOIN_PROBE.items()}, want,
+                      per_query, launches, launch_rows, memory,
+                      f"Q4, Q4h and Q4x over {N_ROWS} probe rows")
+
+
+def slice10_path(s, want, per_query, launches, launch_rows, memory):
+    """Q2t, Q2l and Q2d over hits, then Q7, Q7b, Q7d and Q7s over hits_s
+    (SLICE10_PATHS), each one's first kernel over every row (K10: over
+    every dictionary value)."""
+    cover = {"Q2t": ("dense_group_reduce", N_ROWS),
+             "Q2l": ("radix_sort_pairs", N_ROWS),
+             "Q2d": ("radix_sort_pairs", N_ROWS),
+             "Q7": ("radix_sort_pairs", N_S_ROWS),
+             "Q7b": ("prefix_match", N_S_DISTINCT),
+             "Q7d": ("radix_sort_pairs", N_S_ROWS),
+             "Q7s": ("prefix_match", N_S_DISTINCT)}
+    return path_phase(s, SLICE10_QUERIES, SLICE10_PATHS, cover, want,
+                      per_query, launches, launch_rows, memory,
+                      "Q2t, Q2l, Q2d, Q7, Q7b, Q7d and Q7s",
+                      chars_built={"Q7b": 1})
 
 
 def join_args(session):
@@ -2160,6 +2402,89 @@ def join_args(session):
         if key not in got:
             fail(f"the join queries gave {key} no call")
     return got
+
+
+def string_args(session):
+    """Run Q7b and Q7s once more with K10's launch wrapper spied on; ->
+    {query: the arguments of its K10 call}."""
+    from clickhouse_tpu_torch.ops import string_ops
+    got = {}
+    real = string_ops._prefix_match_cuda
+    query = [""]
+
+    def spy(*args):
+        got[query[0]] = args
+        return real(*args)
+    string_ops._prefix_match_cuda = spy
+    try:
+        for name, sql in SLICE10_QUERIES:
+            if name in ("Q7b", "Q7s"):
+                query[0] = name
+                session.execute(sql)
+    finally:
+        string_ops._prefix_match_cuda = real
+    if set(got) != {"Q7b", "Q7s"}:
+        fail(f"Q7b and Q7s gave K10 calls {sorted(got)}")
+    return got
+
+
+def k10_bytes(chars, offsets, needle: bytes, suffix: bool) -> int:
+    """K10's bytes: the 32-byte sectors of the chars that hold a compared
+    byte (the first or last p bytes of each value at least p bytes long;
+    a prefix past a value's first differing byte is counted too), each
+    value's offsets (U + 1), its output byte, and the needle."""
+    off = offsets.to(torch.int64)
+    p = len(needle)
+    sectors = 0
+    if p and chars.numel():
+        start, end = off[:-1], off[1:]
+        ok = end - start >= p
+        first = (end - p if suffix else start)[ok]
+        mark = torch.zeros(chars.numel() // 32 + 2, dtype=torch.bool,
+                           device=chars.device)
+        lo = first // 32
+        hi = (first + p - 1) // 32
+        for k in range((p + 31) // 32 + 1):
+            idx = lo + k
+            mark[idx[idx <= hi]] = True
+        sectors = int(mark.sum())
+    return min(32 * sectors, chars.numel()) + nbytes(offsets) \
+        + offsets.numel() - 1 + p
+
+
+def string_shapes(dev, args):
+    """K10 at Q7b's inputs (the prefix of 21 bytes over the 25M-value
+    dictionary's chars), held against its plain version and timed beside
+    it, with its kernels a call (torch.profiler); and at Q7s's (a suffix of
+    2 bytes, `suffix_*`).  No single PyTorch call computes the function:
+    library_ms is null."""
+    from clickhouse_tpu_torch.ops.string_ops import (_prefix_match_plain,
+                                                     prefix_match)
+    rec = {}
+    for name, key in (("Q7b", ""), ("Q7s", "suffix_")):
+        chars, offsets, needle, suffix, negate = args[name]
+        call = (chars, offsets, needle, suffix, negate)
+        err = max_abs_err(prefix_match(*call), _prefix_match_plain(*call))
+        ms = cuda_ms(lambda: prefix_match(*call))
+        plain = cuda_ms(lambda: _prefix_match_plain(*call), reps=5)
+        nb = k10_bytes(chars, offsets, needle, suffix)
+        rec.update({f"{key}ms": ms, f"{key}plain_ms": plain,
+                    f"{key}bytes": nb, f"{key}bound_ms": bound_ms(nb)})
+        if not key:
+            per_call = {}
+            kernels = device_kernels(lambda: prefix_match(*call),
+                                     launches=per_call)
+            rec.update(max_abs_err=err, library_ms=None,
+                       kernels_per_call=per_call)
+            print(f"prefix_match kernels a call at Q7b's inputs (device ms):"
+                  f" {kernels}", flush=True)
+        print(f"prefix_match at {name}'s inputs ({offsets.numel() - 1} "
+              f"values, {chars.numel()} chars, {offsets.dtype} offsets, "
+              f"needle of {len(needle)} bytes, suffix={suffix}): {ms:.4f} "
+              f"ms, {nb} bytes, bound {bound_ms(nb):.4f} ms (share "
+              f"{bound_ms(nb) / ms:.3f}), plain {plain:.4f} ms (exact "
+              f"against it)", flush=True)
+    return {"prefix_match": rec}
 
 
 def k9_bytes(n: int, out_cap: int, with_mask: bool) -> int:
@@ -2659,6 +2984,7 @@ def main():
     if sys.argv[1:] == ["--queries"]:
         s = load_hits(ch)[0]
         load_join_tables(s)
+        load_hits_s(s)
         time_queries(s)
         return
     if sys.argv[1:] == ["--gathers"]:
@@ -2677,6 +3003,7 @@ def main():
     check_k7(dev)
     check_k8(dev)
     check_k9(dev)
+    check_k10(dev)
     check_small_queries(ch)
     check_small_joins(ch)
 
@@ -2684,22 +3011,26 @@ def main():
     want = expected_answers(x)
     want.update(join_answers(*load_join_tables(s)))
     del x
+    load_hits_s(s)
+    want.update(string_answers())
 
     # the main path, once, through the public API: each query with the
     # launch counters set to 0 just before it and read just after.  Two
     # wrappers are watched on the way (each call passed on as it is): K1's,
     # for its launches with and without filter terms, and K4's, for the
     # bits it sorts
+    from clickhouse_tpu_torch.core.column import Dictionary
     from clickhouse_tpu_torch.ops import agg_ops, sort_ops
     per_query = {}
     launches = {k: 0 for k in _native.LAUNCHES}
     launch_rows = {k: [] for k in _native.LAUNCHES}
     k1_forms_seen = {"fused": 0, "mask_form": 0}
     k4_calls = []
-    memory = {"count": [], "grouping": []}
+    memory = {"count": [], "grouping": [], "chars": []}
     k1_cuda, k4_cuda = agg_ops._masked_reduce_cuda, sort_ops._radix_sort_cuda
     sort_rows, sort_rows_bytes = sort_ops.sort_rows, sort_ops.sort_rows_bytes
     group_by_sort = agg_ops.group_by_sort
+    device_chars = Dictionary.device_chars
 
     def k1_watch(*a):
         k1_forms_seen["fused" if a[5] else "mask_form"] += 1
@@ -2736,19 +3067,34 @@ def main():
         memory["grouping"].append(
             (peak_before, torch.cuda.max_memory_allocated() - at_start))
         return out
+    def chars_watch(d, device, check=None):
+        # a dictionary's chars built on the device (not a cached copy):
+        # (seconds, bytes, whether the governor's check was given)
+        if str(torch.device(device)) in d._chars:
+            return device_chars(d, device, check)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = device_chars(d, device, check)
+        torch.cuda.synchronize()
+        memory["chars"].append((time.perf_counter() - t0, nbytes(*out),
+                                check is not None))
+        return out
     agg_ops._masked_reduce_cuda = k1_watch
     sort_ops._radix_sort_cuda = k4_watch
     sort_ops.sort_rows = sort_rows_watch
     agg_ops.group_by_sort = group_watch
+    Dictionary.device_chars = chars_watch
     try:
         main_path(s, want, per_query, launches, launch_rows, k1_forms_seen,
                   k4_calls, memory)
         join_path(s, want, per_query, launches, launch_rows, memory)
+        slice10_path(s, want, per_query, launches, launch_rows, memory)
     finally:
         agg_ops._masked_reduce_cuda = k1_cuda
         sort_ops._radix_sort_cuda = k4_cuda
         sort_ops.sort_rows = sort_rows
         agg_ops.group_by_sort = group_by_sort
+        Dictionary.device_chars = device_chars
     time_queries(s)
 
     args = main_path_args(s)
@@ -2756,6 +3102,7 @@ def main():
     shapes.update(sort_shapes(dev, args))
     del args
     shapes.update(join_shapes(dev, join_args(s)))
+    shapes.update(string_shapes(dev, string_args(s)))
     for name in ("radix_sort_pairs", "segment_reduce", "segment_bounds"):
         shapes[name]["launches_per_query"] = {
             q: per_query[q][name] for q in ("Q2b", "Q2m", "Q4x")}
@@ -2884,7 +3231,9 @@ def kernel_line(card, shapes, launches, launch_rows):
                              "clickhouse_tpu/ops/join_ops.py:131"),
                "expand_matches": (
                    "clickhouse_tpu_torch/csrc/expand_matches.cu",
-                   "clickhouse_tpu/ops/join_ops.py:328")}
+                   "clickhouse_tpu/ops/join_ops.py:328"),
+               "prefix_match": ("clickhouse_tpu_torch/csrc/prefix_match.cu",
+                                "clickhouse_tpu/exprs/functions.py:611")}
     kernels = []
     for name, (src, repl) in sources.items():
         r = shapes[name]

@@ -4,7 +4,10 @@
   device; the number of valid rows is tracked by the enclosing Block.
 * Strings are dictionary codes (int32) on device + a host-side numpy array
   of the unique values (the reference's ColumnLowCardinality made
-  mandatory).
+  mandatory).  A dictionary's values also go to the device on demand as
+  ClickHouse's ColumnString keeps them (``Dictionary.device_chars``: one
+  chars buffer of the concatenated UTF-8 bytes and U + 1 offsets), for the
+  string kernels.
 * Nullability is a separate uint8 validity mask (1 = valid).
 * Storage is narrowed to the smallest exact width (``narrow_storage``), so
   an Int64 column whose values fit in 32 bits costs 4 bytes a row.
@@ -14,7 +17,7 @@ Array and AggregateFunction columns are not ported yet.
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 import torch
@@ -43,13 +46,25 @@ class Dictionary:
     dictionaries produced by np.unique (lookups become binary searches).
     """
 
-    __slots__ = ("values", "_index", "sorted_", "_values_str")
+    __slots__ = ("values", "_index", "sorted_", "_values_str", "_chars")
 
     def __init__(self, values: np.ndarray, sorted_: bool = False):
         self.values = np.asarray(values, dtype=object)
         self._index: Optional[dict] = None
         self.sorted_ = sorted_
         self._values_str: Optional[np.ndarray] = None
+        # device -> (chars, offsets) of device_chars
+        self._chars: dict = {}
+
+    def append(self, value: str) -> int:
+        """Add a value at the end (the dictionary is no longer sorted);
+        -> its code."""
+        self.values = np.append(self.values, value)
+        self._index = None
+        self._values_str = None
+        self._chars = {}
+        self.sorted_ = False
+        return len(self.values) - 1
 
     def __len__(self) -> int:
         return len(self.values)
@@ -58,6 +73,27 @@ class Dictionary:
         if self._values_str is None:
             self._values_str = self.values.astype(str)
         return self._values_str
+
+    def device_chars(self, device, check=None
+                     ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """The values on `device` as ClickHouse's ColumnString keeps them:
+        (chars, offsets), chars one uint8 buffer of the values' UTF-8 bytes
+        back to back, offsets U + 1 int32 (int64 once the chars pass 2^31
+        bytes) with value u at chars[offsets[u]:offsets[u + 1]].  Nothing
+        is truncated.  Built once per device from values_str() (vectorized
+        numpy, a chunk of values at a time) and cached; check(nbytes), when
+        given, is called with their device bytes before they are copied
+        there (not when cached), and may raise."""
+        key = str(torch.device(device))
+        got = self._chars.get(key)
+        if got is None:
+            chars, offsets = utf8_chars(self.values_str())
+            if check is not None:
+                check(chars.nbytes + offsets.nbytes)
+            got = (torch.from_numpy(chars).to(device),
+                   torch.from_numpy(offsets).to(device))
+            self._chars[key] = got
+        return got
 
     def index(self) -> dict:
         if self._index is None:
@@ -92,6 +128,66 @@ class Dictionary:
         merged = Dictionary(np.asarray(merged_vals, dtype=object))
         merged._index = idx
         return merged, np.arange(len(a), dtype=np.int32), recode_b
+
+
+# code points a chunk of utf8_chars (bounds its host temporaries to a few
+# hundred MB)
+_UTF8_CHUNK = 1 << 24
+
+
+def _offset_itemsize(total: int) -> int:
+    return 4 if total < 2**31 else 8
+
+
+def _code_points(vs: np.ndarray, i: int, step: int):
+    """Rows i..i+step of a numpy str array as a (rows, width) uint32 code
+    point matrix, and each row's length in code points (a str array pads
+    with NUL; a value ends after its last non-NUL code point)."""
+    w = vs.dtype.itemsize // 4
+    cp = np.ascontiguousarray(vs[i:i + step]).view(np.uint32).reshape(-1, w)
+    nz = cp != 0
+    n = np.where(nz.any(axis=1), w - np.argmax(nz[:, ::-1], axis=1), 0)
+    return cp, n
+
+
+def _utf8_widths(cp: np.ndarray, n: np.ndarray) -> np.ndarray:
+    """UTF-8 bytes of each code point (0 past a row's length)."""
+    nb = 1 + (cp >= 0x80).astype(np.uint8) + (cp >= 0x800) + (cp >= 0x10000)
+    return np.where(np.arange(cp.shape[1]) < n[:, None], nb, 0)
+
+
+def utf8_chars(vs: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
+    """(chars uint8, offsets) of a numpy str array, ColumnString's layout:
+    each value's UTF-8 bytes back to back, and U + 1 offsets, int32 while
+    the chars fit in 2^31 bytes, else int64."""
+    vs = np.asarray(vs, dtype=str)
+    pieces, lens = [], np.zeros(len(vs), np.int64)
+    step = max(1, _UTF8_CHUNK // max(vs.dtype.itemsize // 4, 1))
+    for i in range(0, len(vs), step):
+        cp, n = _code_points(vs, i, step)
+        inside = np.arange(cp.shape[1]) < n[:, None]
+        if cp.size == 0 or int(cp.max()) < 0x80:      # ASCII: a byte each
+            pieces.append(cp.astype(np.uint8)[inside])
+            lens[i:i + len(cp)] = n
+            continue
+        nb = _utf8_widths(cp, n)
+        c = cp.astype(np.uint32)
+        cont = lambda x: 0x80 | (x & 0x3F)            # a continuation byte
+        b0 = np.where(nb == 1, c, np.where(nb == 2, 0xC0 | (c >> 6),
+                      np.where(nb == 3, 0xE0 | (c >> 12), 0xF0 | (c >> 18))))
+        b1 = np.where(nb == 2, cont(c),
+                      np.where(nb == 3, cont(c >> 6), cont(c >> 12)))
+        b2 = np.where(nb == 3, cont(c), cont(c >> 6))
+        b3 = cont(c)
+        planes = np.stack([b0, b1, b2, b3], axis=-1).astype(np.uint8)
+        pieces.append(planes[np.arange(4) < nb[..., None]])
+        lens[i:i + len(cp)] = nb.sum(axis=1)
+    chars = np.concatenate(pieces) if pieces else np.zeros(0, np.uint8)
+    offsets = np.zeros(len(vs) + 1, np.int64)
+    np.cumsum(lens, out=offsets[1:])
+    if _offset_itemsize(int(offsets[-1])) == 4:
+        offsets = offsets.astype(np.int32)
+    return chars, offsets
 
 
 @dataclasses.dataclass
@@ -139,8 +235,9 @@ def narrow_storage(data_np: np.ndarray) -> np.ndarray:
 def factorize_strings(values: np.ndarray):
     """-> (codes int32 (n,), sorted Dictionary)."""
     uniq, codes = np.unique(values.astype(str), return_inverse=True)
-    return codes.astype(np.int32), Dictionary(uniq.astype(object),
-                                              sorted_=True)
+    dic = Dictionary(uniq.astype(object), sorted_=True)
+    dic._values_str = uniq
+    return codes.astype(np.int32), dic
 
 
 def column_from_numpy(values: np.ndarray, dtype: Optional[dt.DType] = None,

@@ -14,13 +14,22 @@ in its narrow storage: ``SELECT count() FROM t WHERE x > c`` is one pass.
 The route is chosen by the predicate's form alone.
 
 Ported nodes: OneRow (SELECT without FROM), Numbers (numbers()), Scan,
-Filter, Project, Aggregate (GROUP BY (), dense and sort GROUP BY), Sort
-(top-k for a LIMIT up to 4,096 rows, else a full stable sort; LIMIT 0
-launches nothing), Limit and Join (INNER, LEFT, RIGHT as the analyzer's
-swapped LEFT, SEMI, ANTI, ANY and CROSS, with USING, residual ON
-predicates and NULL keys; ASOF raises).  Every other node, and every path
-of these nodes that is not ported, raises ``NotImplementedError_`` naming
-it.
+Filter, Project, Aggregate (GROUP BY (), dense and sort GROUP BY, WITH
+TOTALS), Sort (top-k for a LIMIT up to 4,096 rows, else a full stable
+sort; LIMIT 0 launches nothing), Limit, LimitBy, Distinct and Join (INNER,
+LEFT, RIGHT as the analyzer's swapped LEFT, SEMI, ANTI, ANY and CROSS,
+with USING, residual ON predicates and NULL keys; ASOF raises).  Every
+other node, and every path of these nodes that is not ported, raises
+``NotImplementedError_`` naming it.
+
+DISTINCT and LIMIT BY group the rows with the sort grouping (K4, K5):
+DISTINCT emits one row a group in ascending key order, LIMIT BY keeps the
+rows of each group whose rank among the group's valid rows (in stream
+order: the sort is stable) falls in [offset, offset + n).  WITH TOTALS
+aggregates every row of the Aggregate's input as one global group (K1)
+beside the grouped result; the totals block rides on the context through
+the projections above, and the session materializes it into
+``Result.totals``.
 
 A join keeps the probe (left) side's rows in place where each probe row
 takes at most one build row (``_join_propagate``: K7's direct-address
@@ -44,9 +53,9 @@ import torch
 
 from ..core import dtypes as dt
 from ..core.block import Block
-from ..core.column import pad_to
-from ..core.errors import (CapacityError, MemoryLimitExceeded,
-                           NotImplementedError_)
+from ..core.column import Dictionary, pad_to
+from ..core.errors import (AnalysisError, CapacityError,
+                           MemoryLimitExceeded, NotImplementedError_)
 from ..core.settings import Settings
 from ..exprs import aggregates as agg_reg
 from ..exprs.expr import (DEVICE_KEY, BoundCall, BoundColumn, BoundLiteral,
@@ -99,9 +108,12 @@ class ExecContext:
         # interval-analysis facts: field id -> (lo, hi), filled at scans from
         # part minmax stats and propagated through projections
         self.field_bounds: Dict[str, Tuple[int, int]] = {}
-        # device bytes a sort may take (the governor's budget less its
-        # estimate); None: no limit
+        # device bytes a sort, a join or a dictionary's chars may take
+        # (the governor's budget less its estimate); None: no limit
         self.memory_headroom: Optional[int] = None
+        # WITH TOTALS: the one-row totals block, carried through the
+        # projections above the Aggregate (None: no totals)
+        self.totals_block: Optional[ExecBlock] = None
 
     def count(self, name: str, value: int = 1):
         self.profile[name] = self.profile.get(name, 0) + value
@@ -215,8 +227,8 @@ def _exec_filter(node: L.FilterNode, ctx: ExecContext) -> ExecBlock:
         if term is not None:
             rows = rows.and_term(term)
         else:
-            rows = rows.and_mask(_bool_mask(evaluate(conj, env),
-                                            child.capacity))
+            pred = evaluate(conj, env, ctx.memory_headroom)
+            rows = rows.and_mask(_bool_mask(pred, child.capacity))
     return ExecBlock(child.cols, rows, child.capacity)
 
 
@@ -229,28 +241,74 @@ def _exec_project(node: L.ProjectNode, ctx: ExecContext) -> ExecBlock:
             cv0.bounds = ctx.field_bounds[name]
     cols = {}
     for f, e in zip(node.schema, node.exprs):
-        cv = evaluate(e, env)
+        cv = evaluate(e, env, ctx.memory_headroom)
         cols[f.id] = cv.broadcast(child.capacity)
         b = ranges.infer_bounds(e, ctx.field_bounds)
         if b is not None:
             ctx.field_bounds[f.id] = b
+    if ctx.totals_block is not None:
+        t = ctx.totals_block
+        tcols = {}
+        for f, e in zip(node.schema, node.exprs):
+            try:
+                tcols[f.id] = evaluate(e, t.env(), ctx.memory_headroom
+                                       ).broadcast(t.capacity)
+            except (AnalysisError, NotImplementedError_):
+                # as the reference: an expression the totals row cannot
+                # evaluate shows its type's zero
+                tcols[f.id] = ColVal(f.dtype, torch.zeros(
+                    t.capacity, dtype=f.dtype.torch_dtype, device=ctx.device))
+        ctx.totals_block = ExecBlock(tcols, t.rows, t.capacity)
     return ExecBlock(cols, child.rows, child.capacity)
+
+
+def _key_bounds(cv: ColVal, expr, ctx: ExecContext):
+    """Proven (lo, hi) of a grouping key: a String's dictionary codes, an
+    integer's interval analysis; None otherwise."""
+    from ..plan import ranges
+    if cv.dtype.is_dictionary:
+        d = cv.dictionary
+        return (0, max(len(d) - 1, 0)) if d is not None else None
+    if cv.dtype.np_dtype.kind in ("i", "u", "b"):
+        return ranges.infer_bounds(expr, ctx.field_bounds)
+    return None
+
+
+def _sort_keys(cv: ColVal, b) -> List[sort_ops.SortKey]:
+    """One grouping key (broadcast to the block) as sort keys: a Nullable
+    key gives its validity and then its data zeroed where NULL; integer
+    keys carry their proven bounds b (narrowed to int32 where they fit)
+    and UInt64 keys their unsignedness; String keys are dictionary codes,
+    floats sort by token."""
+    fits32 = b is not None and -2**31 <= b[0] and b[1] < 2**31
+    # a column stored as int32 whose bounds fit is read as stored: no
+    # widened copy of it
+    data = cv.storage if fits32 and cv.storage.dtype == torch.int32 \
+        else cv.data
+    out = []
+    if cv.validity is not None:
+        v = cv.validity.to(torch.bool)
+        data = torch.where(v, data, torch.zeros_like(data))
+        out.append(sort_ops.SortKey(v, bounds=(0, 1)))
+    # narrow 64-bit keys to i32 when bounds prove they fit
+    if fits32 and not data.is_floating_point() \
+            and data.element_size() == 8:
+        data = data.to(torch.int32)
+    unsigned = data.dtype == torch.int64 and not cv.dtype.is_dictionary \
+        and dt.remove_nullable(cv.dtype).np_dtype == np.uint64
+    out.append(sort_ops.SortKey(data, unsigned=unsigned, bounds=b))
+    return out
 
 
 def _agg_key_arrays(node: L.AggregateNode, child: ExecBlock,
                     ctx: ExecContext):
-    """-> (key_cvs, key_arrays, dense_dims or None, global_agg).
-
-    key_arrays are sort keys (sort_ops.SortKey): a Nullable key gives its
-    validity and then its data zeroed where NULL; integer keys carry their
-    proven bounds (narrowed to int32 where the bounds fit) and UInt64 keys
-    their unsignedness; String keys are dictionary codes, floats sort by
-    token."""
-    from ..plan import ranges
+    """-> (key_cvs, key_arrays, dense_dims or None, global_agg); key_arrays
+    are each key's sort keys (_sort_keys)."""
     from ..ops.mxu_segsum import MAX_DENSE_GROUPS
     settings = ctx.settings
     cap = child.capacity
-    key_cvs = [evaluate(e, child.env()) for _, e in node.keys]
+    key_cvs = [evaluate(e, child.env(), ctx.memory_headroom)
+               for _, e in node.keys]
     if not key_cvs:
         return key_cvs, [], None, True
     arrays: List[sort_ops.SortKey] = []
@@ -259,30 +317,12 @@ def _agg_key_arrays(node: L.AggregateNode, child: ExecBlock,
     total = 1
     for (f, e), cv in zip(node.keys, key_cvs):
         cv = cv.broadcast(cap)
-        b = None
-        if cv.dtype.is_dictionary:
-            d = cv.dictionary
-            b = (0, max(len(d) - 1, 0)) if d is not None else None
-        elif cv.dtype.np_dtype.kind in ("i", "u", "b"):
-            b = ranges.infer_bounds(e, ctx.field_bounds)
-        fits32 = b is not None and -2**31 <= b[0] and b[1] < 2**31
-        # a column stored as int32 whose bounds fit is read as stored: no
-        # widened copy of it
-        data = cv.storage if fits32 and cv.storage.dtype == torch.int32 \
-            else cv.data
-        if cv.validity is not None:
-            v = cv.validity.to(torch.bool)
-            data = torch.where(v, data, torch.zeros_like(data))
-            arrays.append(sort_ops.SortKey(v, bounds=(0, 1)))
+        b = _key_bounds(cv, e, ctx)
+        keys = _sort_keys(cv, b)
+        arrays.extend(keys)
+        if len(keys) == 2:             # a Nullable key's validity first
             dims.append((0, 2))
             total *= 2
-        # narrow 64-bit keys to i32 when bounds prove they fit
-        if fits32 and not data.is_floating_point() \
-                and data.element_size() == 8:
-            data = data.to(torch.int32)
-        unsigned = data.dtype == torch.int64 and not cv.dtype.is_dictionary \
-            and dt.remove_nullable(cv.dtype).np_dtype == np.uint64
-        arrays.append(sort_ops.SortKey(data, unsigned=unsigned, bounds=b))
         if b is None:
             dense_ok = False
             dims.append(None)
@@ -304,9 +344,8 @@ def _exec_aggregate(node: L.AggregateNode, ctx: ExecContext) -> ExecBlock:
     holistic = any(a.fn.holistic for a in node.aggregates)
     if holistic or not all(a.fn.sum_only for a in node.aggregates):
         dims = None          # dense grouping serves sum-family aggregates
-    if node.with_totals:
-        raise NotImplementedError_(
-            "GROUP BY ... WITH TOTALS is not ported to the CUDA engine yet")
+    if node.with_totals and not global_agg:
+        ctx.totals_block = _aggregate_totals(node, child, ctx)
     return _aggregate_local(node, child, key_cvs, key_arrays, dims,
                             global_agg, ctx)
 
@@ -325,13 +364,14 @@ def _stage1(node: L.AggregateNode, child: ExecBlock,
     for item in node.aggregates:
         arg_cvs = []
         for a in item.args:
-            cv = evaluate(a, child.env()).broadcast(cap)
+            cv = evaluate(a, child.env(), ctx.memory_headroom).broadcast(cap)
             if cv.bounds is None:
                 cv.bounds = ranges.infer_bounds(a, ctx.field_bounds)
             arg_cvs.append(cv)
         cond = None
         if item.cond is not None:
-            cond = _bool_mask(evaluate(item.cond, child.env()), cap)
+            cond = _bool_mask(evaluate(item.cond, child.env(),
+                                      ctx.memory_headroom), cap)
         premask = agg_reg.compose_row_mask(rows, arg_cvs, cond)
         per_agg_inputs.append((item, arg_cvs, cond, premask))
 
@@ -486,6 +526,26 @@ def _aggregate_local(node: L.AggregateNode, child: ExecBlock, key_cvs,
                      else grouping.group_valid())
 
 
+def _aggregate_totals(node: L.AggregateNode, child: ExecBlock,
+                      ctx: ExecContext) -> ExecBlock:
+    """WITH TOTALS: the aggregates over every row of the Aggregate's input
+    (before HAVING) as one global group (K1); the key columns hold their
+    type's default, 0 or '' (ClickHouse's TotalsHavingTransform)."""
+    tnode = dataclasses.replace(node, keys=[], with_totals=False,
+                                schema=[a.field for a in node.aggregates])
+    tot = _aggregate_local(tnode, child, [], [], None, True, ctx)
+    for f, _ in node.keys:
+        t = dt.remove_nullable(f.dtype)
+        if f.dtype.is_dictionary:
+            tot.cols[f.id] = ColVal(f.dtype, torch.zeros(
+                tot.capacity, dtype=torch.int32, device=ctx.device),
+                dictionary=Dictionary(np.asarray([""], dtype=object)))
+        else:
+            tot.cols[f.id] = ColVal(f.dtype, torch.zeros(
+                tot.capacity, dtype=t.torch_dtype, device=ctx.device))
+    return tot
+
+
 def _token_for_sort(cv: ColVal, item: L.SortItem,
                     capacity: int) -> torch.Tensor:
     cv = cv.broadcast(capacity)
@@ -536,7 +596,8 @@ def _sort_block(node: L.SortNode, child: ExecBlock, ctx: ExecContext
             return ExecBlock(cols, agg_ops.RowMask.of(torch.zeros(
                 out_cap, dtype=torch.bool, device=ctx.device)), out_cap)
         it0 = node.items[0]
-        cv0 = evaluate(it0.expr, child.env()).broadcast(cap)
+        cv0 = evaluate(it0.expr, child.env(),
+                       ctx.memory_headroom).broadcast(cap)
         if k > sort_ops.MAX_TOPK:
             # above K3's k: the first k rows of the full stable sort, the
             # same rows by (invalid, token, row id)
@@ -559,7 +620,8 @@ def _sort_block(node: L.SortNode, child: ExecBlock, ctx: ExecContext
         return ExecBlock(cols, agg_ops.RowMask.of(valid), out_cap)
 
     # no top-k: the full stable multi-key sort (K4)
-    tokens = [_token_for_sort(evaluate(i.expr, child.env()), i, cap)
+    tokens = [_token_for_sort(evaluate(i.expr, child.env(),
+                                       ctx.memory_headroom), i, cap)
               for i in node.items]
     perm = sort_ops.sort_permutation(tokens, child.valid,
                                      max_bytes=ctx.memory_headroom)
@@ -576,6 +638,65 @@ def _exec_limit(node: L.LimitNode, ctx: ExecContext) -> ExecBlock:
     if node.limit >= 0:
         keep = keep & (rank < node.offset + node.limit)
     return ExecBlock(child.cols, agg_ops.RowMask.of(keep), child.capacity)
+
+
+def _group_rows(child: ExecBlock, keys, ctx: ExecContext, what: str):
+    """The sort grouping (K4, K5) of the block's rows by keys, (ColVal,
+    bound expression) pairs, at most max_groups slots (a capacity check
+    the session's autotuner retries).  -> (grouping, slots)."""
+    cap = child.capacity
+    sort_keys: List[sort_ops.SortKey] = []
+    for cv, e in keys:
+        cv = cv.broadcast(cap)
+        sort_keys.extend(_sort_keys(cv, _key_bounds(cv, e, ctx)))
+    cap_g = pad_to(min(cap, ctx.settings.max_groups))
+    g = agg_ops.group_by_sort(sort_keys, child.rows, cap_g,
+                              max_bytes=ctx.memory_headroom)
+    ctx.checks.append(Check(g.num_groups, cap_g,
+                            f"{what} cardinality exceeded max_groups; raise "
+                            f"the max_groups setting", setting="max_groups"))
+    return g, cap_g
+
+
+def _exec_limit_by(node: L.LimitByNode, ctx: ExecContext) -> ExecBlock:
+    """LIMIT n [OFFSET m] BY keys: the sort grouping (K4, K5) ranks each
+    valid row among its group's valid rows in stream order (the sort is
+    stable); the rows ranked in [m, m + n) keep their place."""
+    child = execute_plan(node.child, ctx)
+    cap = child.capacity
+    env = child.env()
+    g, cap_g = _group_rows(child, [(evaluate(e, env, ctx.memory_headroom), e)
+                                   for e in node.keys],
+                           ctx, "LIMIT BY")
+    # a group's valid rows are the sorted positions [starts, ends): the
+    # rank of position i is i - starts[gid] (int32: K5 takes fewer than
+    # 2^31 rows)
+    gid = g.group_ids
+    start = g.starts.to(torch.int32).index_select(
+        0, torch.clamp(gid, max=cap_g - 1))
+    rank = _arange(gid.shape[0], ctx.device, torch.int32) - start
+    keep_sorted = (gid < cap_g) & (rank >= node.offset) \
+        & (rank < node.offset + node.n)
+    # back to row order: a scatter through the permutation
+    keep = torch.zeros(cap, dtype=torch.bool, device=ctx.device).scatter_(
+        0, g.perm.long(), keep_sorted)
+    return ExecBlock(child.cols, child.rows.and_mask(keep), cap)
+
+
+def _exec_distinct(node: L.DistinctNode, ctx: ExecContext) -> ExecBlock:
+    """SELECT DISTINCT: the sort grouping (K4, K5) over every output
+    column; one row a group, at its first row, in ascending key order."""
+    child = execute_plan(node.child, ctx)
+    cap = child.capacity
+    cvs = [child.cols[f.id].broadcast(cap) for f in node.schema]
+    g, cap_g = _group_rows(child, [(cv, BoundColumn(f.id, f.dtype))
+                                   for f, cv in zip(node.schema, cvs)],
+                           ctx, "DISTINCT")
+    first = g.perm.index_select(
+        0, torch.clamp(g.starts, 0, max(g.perm.shape[0] - 1, 0))).long()
+    cols = {f.id: _gather_colval(cv, first, cap)
+            for f, cv in zip(node.schema, cvs)}
+    return ExecBlock(cols, agg_ops.RowMask.of(g.group_valid()), cap_g)
 
 
 def _exec_onerow(node: L.OneRowNode, ctx: ExecContext) -> ExecBlock:
@@ -870,7 +991,7 @@ def _join_propagate(node: L.JoinNode, left: ExecBlock, right: ExecBlock,
     rows = left.rows if left_outer else left.rows.and_mask(mmask)
     out = ExecBlock(cols, rows, lcap)
     if node.residual is not None:
-        pred = evaluate(node.residual, out.env())
+        pred = evaluate(node.residual, out.env(), ctx.memory_headroom)
         out = ExecBlock(out.cols, out.rows.and_mask(_bool_mask(pred, lcap)),
                         lcap)
     return out
@@ -892,8 +1013,10 @@ def _exec_join(node: L.JoinNode, ctx: ExecContext) -> ExecBlock:
         lvs, rvs = [], []
     else:
         from ..plan import ranges
-        lkey_cvs = [evaluate(e, left.env()) for e in node.left_keys]
-        rkey_cvs = [evaluate(e, right.env()) for e in node.right_keys]
+        lkey_cvs = [evaluate(e, left.env(), ctx.memory_headroom)
+                    for e in node.left_keys]
+        rkey_cvs = [evaluate(e, right.env(), ctx.memory_headroom)
+                    for e in node.right_keys]
         lkeys, rkeys, lvs, rvs = [], [], [], []
         for le, re_, lk_cv, rk_cv in zip(node.left_keys, node.right_keys,
                                          lkey_cvs, rkey_cvs):
@@ -999,7 +1122,7 @@ def _exec_join(node: L.JoinNode, ctx: ExecContext) -> ExecBlock:
         if node.kind == "left" else mmask
     out = ExecBlock(cols, agg_ops.RowMask.of(valid), out_cap)
     if node.residual is not None:
-        pred = evaluate(node.residual, out.env())
+        pred = evaluate(node.residual, out.env(), ctx.memory_headroom)
         out = ExecBlock(out.cols,
                         out.rows.and_mask(_bool_mask(pred, out_cap)),
                         out_cap)
@@ -1015,11 +1138,7 @@ def _default_scalar(cv: ColVal) -> torch.Tensor:
         if d is not None:
             code = d.lookup("")
             if code < 0:
-                d.values = np.append(d.values, "")
-                d._index = None
-                d._values_str = None
-                d.sorted_ = False
-                code = len(d.values) - 1
+                code = d.append("")
             return torch.tensor(code, dtype=cv.data.dtype, device=dev)
     return torch.zeros((), dtype=cv.data.dtype, device=dev)
 
@@ -1033,6 +1152,8 @@ _DISPATCH: Dict[type, Callable] = {
     L.AggregateNode: _exec_aggregate,
     L.SortNode: _exec_sort,
     L.LimitNode: _exec_limit,
+    L.LimitByNode: _exec_limit_by,
+    L.DistinctNode: _exec_distinct,
     L.JoinNode: _exec_join,
 }
 

@@ -151,7 +151,8 @@ class Session:
             if k != "rows_scanned":
                 self._count(k, v)
         return Result(cols, types,
-                      rows_read=ctx.profile.get("rows_scanned", 0))
+                      rows_read=ctx.profile.get("rows_scanned", 0),
+                      totals=ctx.totals)
 
     def _count(self, name: str, value: int = 1) -> None:
         self.profile_events[name] = self.profile_events.get(name, 0) + value
@@ -188,7 +189,11 @@ class Session:
         ctx = ExecContext(blocks, settings, device=self.device)
         ctx.memory_headroom = headroom
         out = execute_plan(plan, ctx)
-        return materialize(out, plan.schema, ctx), ctx
+        cols = materialize(out, plan.schema, ctx)
+        # WITH TOTALS: the totals block's one row, as the result's columns
+        ctx.totals = None if ctx.totals_block is None else \
+            materialize(ctx.totals_block, plan.schema)
+        return cols, ctx
 
     # -- DDL / INSERT ----------------------------------------------------------
     def _run_create_table(self, stmt: ast.CreateTable) -> Result:

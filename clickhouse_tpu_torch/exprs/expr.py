@@ -191,9 +191,12 @@ def _env_device(env: Dict[str, ColVal]) -> torch.device:
     return torch.device("cpu")
 
 
-def evaluate(expr: BoundExpr, env: Dict[str, ColVal]) -> ColVal:
+def evaluate(expr: BoundExpr, env: Dict[str, ColVal],
+             max_bytes: Optional[int] = None) -> ColVal:
     """Evaluate a bound expression against a block environment
-    (column name -> ColVal)."""
+    (column name -> ColVal).  max_bytes: the device bytes a function may
+    build beside the query's working set (a dictionary's chars; the
+    budget the governor's estimate leaves), None for no limit."""
     if isinstance(expr, BoundColumn):
         if expr.name not in env:
             raise UnknownIdentifier(f"Column '{expr.name}' not in block "
@@ -204,10 +207,10 @@ def evaluate(expr: BoundExpr, env: Dict[str, ColVal]) -> ColVal:
     if isinstance(expr, BoundCall):
         from . import functions
         fn = functions.get(expr.name)
-        args = [evaluate(a, env) for a in expr.args]
-        return fn.execute(args, expr.dtype)
+        args = [evaluate(a, env, max_bytes) for a in expr.args]
+        return fn.execute(args, expr.dtype, max_bytes)
     if isinstance(expr, BoundInList):
-        return _evaluate_in_list(expr, env)
+        return _evaluate_in_list(expr, env, max_bytes)
     if isinstance(expr, BoundDictGet):
         raise NotImplementedError_(
             "dictGet is not ported to the CUDA engine yet")
@@ -218,8 +221,9 @@ def evaluate(expr: BoundExpr, env: Dict[str, ColVal]) -> ColVal:
     raise TypeError_(f"Cannot evaluate expression node {expr!r}")
 
 
-def _evaluate_in_list(expr: BoundInList, env: Dict[str, ColVal]) -> ColVal:
-    arg = evaluate(expr.arg, env)
+def _evaluate_in_list(expr: BoundInList, env: Dict[str, ColVal],
+                      max_bytes: Optional[int]) -> ColVal:
+    arg = evaluate(expr.arg, env, max_bytes)
     vals = expr.values
     data = arg.data
     dev = data.device

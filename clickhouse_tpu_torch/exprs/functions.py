@@ -1,8 +1,11 @@
 """Scalar function registry (reference: clickhouse_tpu/exprs/functions.py).
 
 Ported families: comparison, arithmetic, logic, conditional / NULL
-handling and casts.  Everything runs as plain elementwise torch on the
-block's tensors; string functions work on host dictionaries.  A function
+handling, casts and the dictionary strings (length, lower, LIKE,
+startsWith, substring, concat, ...).  Everything runs as plain elementwise
+torch on the block's tensors; string functions compute a lookup table a
+dictionary value (host numpy, or K10 on the device for a prefix or
+suffix) that the rows gather by code.  A function
 that is not ported surfaces as the reference's typed ``UnknownFunction``
 when the analyzer resolves it; a ported function meeting a type it does
 not handle yet (Decimal, date arithmetic, Enum) raises
@@ -15,7 +18,8 @@ numpy types (numpy's promotion rules, as the reference's jnp ops).
 """
 from __future__ import annotations
 
-from typing import Callable, Dict, List, Sequence
+import re
+from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
 import torch
@@ -34,22 +38,32 @@ _SIGN = -(1 << 63)                 # int64 bits of 1 << 63
 
 
 class ScalarFunction:
+    """A scalar function; with device_bytes, its execute also takes
+    max_bytes, the device bytes it may build beside the query's working
+    set (the budget the governor's estimate leaves; None: no limit)."""
+
     def __init__(self, name: str, resolve: Callable, execute: Callable,
-                 case_insensitive: bool = False):
+                 case_insensitive: bool = False, device_bytes: bool = False):
         self.name = name
         self._resolve = resolve
         self._execute = execute
         self.case_insensitive = case_insensitive
+        self.device_bytes = device_bytes
 
     def resolve(self, arg_types: List[dt.DType]) -> dt.DType:
         return self._resolve(arg_types)
 
-    def execute(self, args: List[ColVal], out_dtype: dt.DType) -> ColVal:
+    def execute(self, args: List[ColVal], out_dtype: dt.DType,
+                max_bytes: Optional[int] = None) -> ColVal:
+        if self.device_bytes:
+            return self._execute(args, out_dtype, max_bytes)
         return self._execute(args, out_dtype)
 
 
-def register(name: str, resolve, execute, case_insensitive=False):
-    fn = ScalarFunction(name, resolve, execute, case_insensitive)
+def register(name: str, resolve, execute, case_insensitive=False,
+             device_bytes=False):
+    fn = ScalarFunction(name, resolve, execute, case_insensitive,
+                        device_bytes)
     FUNCTIONS[name] = fn
     if case_insensitive:
         _CASE_INSENSITIVE[name.lower()] = name
@@ -693,6 +707,272 @@ register("assumeNotNull", lambda ts: dt.remove_nullable(ts[0]),
 register("toNullable", lambda ts: dt.make_nullable(ts[0]),
          lambda args, t: ColVal(t, args[0].data, args[0].validity,
                                 args[0].dictionary))
+
+
+# -- strings (dictionary-LUT execution) --------------------------------------
+# A string function is computed once a dictionary value on the host (numpy,
+# as the reference), into a lookup table the rows gather by code; a String
+# result is a new sorted dictionary.  startsWith, endsWith and LIKE 'p%' /
+# '%s' compute their table on the device from the dictionary's bytes (K10,
+# ops/string_ops.prefix_match), for every dictionary size.
+
+def _string_fn_lut(host_fn, out_np_dtype, vec_fn=None):
+    """Apply host_fn to each dictionary value, gather the LUT by code.
+
+    vec_fn, when given, is a numpy-vectorized implementation over the whole
+    unique-value array, taken for dictionaries of more than 512 values (a
+    Python loop a value for the smaller ones, as the reference)."""
+    def ex(args, out_dtype):
+        a = args[0]
+        if not a.dtype.is_dictionary:
+            raise TypeError_("String function expects a String argument")
+        vals = a.dictionary.values if a.dictionary else np.asarray([], object)
+        if vec_fn is not None and len(vals) > 512:
+            lut_np = np.asarray(vec_fn(a.dictionary.values_str()),
+                                dtype=out_np_dtype)
+        else:
+            lut_np = np.asarray(
+                [host_fn(str(v)) for v in vals] or [host_fn("")],
+                dtype=out_np_dtype)
+        if out_np_dtype == object:
+            # produces a new string dictionary
+            uniq, codes = np.unique(lut_np.astype(str), return_inverse=True)
+            lut = torch.from_numpy(codes.astype(np.int32)).to(a.data.device)
+            return ColVal(out_dtype, _by_code(lut, a.data),
+                          _and_validity(args),
+                          Dictionary(uniq.astype(object), sorted_=True))
+        lut = dt.tensor_from_numpy(lut_np, a.data.device)
+        return ColVal(out_dtype, _by_code(lut, a.data), _and_validity(args))
+    return ex
+
+
+def _by_code(lut: torch.Tensor, codes: torch.Tensor) -> torch.Tensor:
+    """lut[code] of each row (a NULL's code -1 reads entry 0; its validity
+    hides it), gathered with the codes as stored (int32)."""
+    codes = codes.clamp(min=0)
+    if codes.dim() == 0:
+        return lut[codes.long()]
+    return lut.index_select(0, codes)
+
+
+def _const_str(cv: ColVal, what: str) -> str:
+    """The value of a constant String argument; TypeError_ for a column (a
+    needle or pattern a row is not supported, as the reference's LIKE)."""
+    if not cv.is_const or cv.dictionary is None or not cv.dtype.is_dictionary:
+        raise TypeError_(f"{what} must be a constant string")
+    vals = cv.dictionary.values
+    return str(vals[0] if len(vals) == 1 else vals[int(cv.data.clamp(min=0))])
+
+
+def _prefix_lut(a: ColVal, needle: str, suffix: bool, negate: bool,
+                out_dtype, max_bytes: Optional[int]) -> ColVal:
+    """startsWith / endsWith (XOR negate) of a String over its dictionary's
+    bytes on the device (K10), gathered by code."""
+    from ..ops import string_ops
+    d = a.dictionary
+    # built at the first use, held (with the LUT) to max_bytes
+    chars, offsets = d.device_chars(
+        a.data.device, check=lambda nbytes: string_ops.check_chars_bytes(
+            nbytes + len(d), max_bytes))
+    lut = string_ops.prefix_match(chars, offsets, needle.encode("utf-8"),
+                                  suffix=suffix, negate=negate)
+    return ColVal(out_dtype, _by_code(lut, a.data), _and_validity([a]))
+
+
+def _on_device_dict(a: ColVal) -> bool:
+    return a.dtype.is_dictionary and a.dictionary is not None \
+        and len(a.dictionary) > 0
+
+
+def _length_type(ts):
+    if ts and (ts[0].is_array or dt.is_map(dt.remove_nullable(ts[0]))):
+        raise NotImplementedError_(
+            "length of an Array or Map is not ported to the CUDA engine yet")
+    return dt.UInt64.with_nullable(ts[0].nullable)
+
+
+register("length", _length_type,
+         _string_fn_lut(lambda s: len(s.encode()), np.uint64,
+                        vec_fn=lambda sv: np.char.str_len(
+                            np.char.encode(sv, "utf-8"))),
+         case_insensitive=True)
+register("lengthUTF8", lambda ts: dt.UInt64.with_nullable(ts[0].nullable),
+         _string_fn_lut(len, np.uint64, vec_fn=np.char.str_len))
+register("empty", lambda ts: dt.UInt8.with_nullable(ts[0].nullable),
+         _string_fn_lut(lambda s: np.uint8(len(s) == 0), np.uint8,
+                        vec_fn=lambda sv: np.char.str_len(sv) == 0))
+register("notEmpty", lambda ts: dt.UInt8.with_nullable(ts[0].nullable),
+         _string_fn_lut(lambda s: np.uint8(len(s) != 0), np.uint8,
+                        vec_fn=lambda sv: np.char.str_len(sv) != 0))
+register("lower", lambda ts: dt.String.with_nullable(ts[0].nullable),
+         _string_fn_lut(str.lower, object, vec_fn=np.char.lower),
+         case_insensitive=True)
+register("upper", lambda ts: dt.String.with_nullable(ts[0].nullable),
+         _string_fn_lut(str.upper, object, vec_fn=np.char.upper),
+         case_insensitive=True)
+register("reverse", lambda ts: dt.String.with_nullable(ts[0].nullable),
+         _string_fn_lut(lambda s: s[::-1], object), case_insensitive=True)
+register("trim", lambda ts: dt.String.with_nullable(ts[0].nullable),
+         _string_fn_lut(str.strip, object, vec_fn=np.char.strip),
+         case_insensitive=True)
+
+
+def _like_to_regex(pattern: str) -> str:
+    out = []
+    i = 0
+    while i < len(pattern):
+        c = pattern[i]
+        if c == "\\" and i + 1 < len(pattern):
+            out.append(re.escape(pattern[i + 1]))
+            i += 2
+            continue
+        if c == "%":
+            out.append(".*")
+        elif c == "_":
+            out.append(".")
+        else:
+            out.append(re.escape(c))
+        i += 1
+    return "^" + "".join(out) + "$"
+
+
+def _like_exec(negate=False, icase=False):
+    def ex(args, out_dtype, max_bytes=None):
+        a, pat = args
+        pattern = _const_str(pat, "LIKE pattern")
+        rx = re.compile(_like_to_regex(pattern),
+                        re.IGNORECASE if icase else 0)
+        fn = lambda s: np.uint8((rx.match(s) is not None) != negate)
+        # %-only patterns: a prefix or suffix on the device (K10), the
+        # others vectorized on the host; escapes, '_' and an inner '%' take
+        # the regex
+        vec = None
+        core = pattern.strip("%")
+        plain = "%" not in core and "_" not in core and "\\" not in core
+        if plain and not icase:
+            if _on_device_dict(a) and pattern in (f"{core}%", f"%{core}"):
+                return _prefix_lut(a, core, pattern != f"{core}%", negate,
+                                   out_dtype, max_bytes)
+            if pattern == f"%{core}%":
+                vec = lambda sv: (np.char.find(sv, core) >= 0) != negate
+            elif "%" not in pattern and "_" not in pattern:
+                vec = lambda sv: (sv == pattern) != negate
+        return _string_fn_lut(fn, np.uint8, vec_fn=vec)([a], out_dtype)
+    return ex
+
+
+register("like", lambda ts: dt.UInt8.with_nullable(ts[0].nullable),
+         _like_exec(False), device_bytes=True)
+register("notLike", lambda ts: dt.UInt8.with_nullable(ts[0].nullable),
+         _like_exec(True), device_bytes=True)
+register("ilike", lambda ts: dt.UInt8.with_nullable(ts[0].nullable),
+         _like_exec(False, True), device_bytes=True)
+register("notILike", lambda ts: dt.UInt8.with_nullable(ts[0].nullable),
+         _like_exec(True, True), device_bytes=True)
+
+
+def _match_exec(args, out_dtype):
+    rx = re.compile(_const_str(args[1], "match pattern"))
+    return _string_fn_lut(lambda s: np.uint8(rx.search(s) is not None),
+                          np.uint8)([args[0]], out_dtype)
+
+
+register("match", lambda ts: dt.UInt8.with_nullable(ts[0].nullable),
+         _match_exec)
+
+
+def _affix_exec(suffix: bool):
+    def ex(args, out_dtype, max_bytes=None):
+        a, pref = args
+        p = _const_str(pref, "endsWith suffix" if suffix
+                       else "startsWith prefix")
+        if _on_device_dict(a):
+            return _prefix_lut(a, p, suffix, False, out_dtype, max_bytes)
+        # an empty dictionary (no value to read): a one-entry LUT
+        return _string_fn_lut(
+            lambda s: np.uint8(s.endswith(p) if suffix else s.startswith(p)),
+            np.uint8)([a], out_dtype)
+    return ex
+
+
+register("startsWith", lambda ts: dt.UInt8.with_nullable(ts[0].nullable),
+         _affix_exec(suffix=False), device_bytes=True)
+register("endsWith", lambda ts: dt.UInt8.with_nullable(ts[0].nullable),
+         _affix_exec(suffix=True), device_bytes=True)
+
+
+def _position_exec(args, out_dtype):
+    sub = _const_str(args[1], "position needle")
+    return _string_fn_lut(lambda s: np.uint64(s.find(sub) + 1),
+                          np.uint64)([args[0]], out_dtype)
+
+
+register("position", lambda ts: dt.UInt64.with_nullable(ts[0].nullable),
+         _position_exec)
+
+
+def _host_int(cv: ColVal) -> int:
+    h = cv.host
+    return int(h) if isinstance(h, (int, np.integer)) else int(cv.data)
+
+
+def _substring_exec(args, out_dtype):
+    a = args[0]
+    start = _host_int(args[1])
+    length = _host_int(args[2]) if len(args) > 2 else None
+
+    def fn(s):
+        b = start - 1 if start > 0 else len(s) + start
+        return s[b:b + length] if length is not None else s[b:]
+    return _string_fn_lut(fn, object)([a], out_dtype)
+
+
+register("substring", lambda ts: dt.String.with_nullable(ts[0].nullable),
+         _substring_exec, case_insensitive=True)
+register("substr", lambda ts: dt.String.with_nullable(ts[0].nullable),
+         _substring_exec, case_insensitive=True)
+
+
+def _concat_exec(args, out_dtype):
+    # a constant and one column through the column's LUT; two columns by
+    # the product of their (small) dictionaries; more pairwise
+    dev = args[0].data.device
+    non_const = [a for a in args if not a.is_const]
+    if len(non_const) <= 1:
+        col = non_const[0] if non_const else None
+        if col is None:
+            s = "".join(str(a.dictionary.values[0]) for a in args)
+            d = Dictionary(np.asarray([s], object))
+            return ColVal(out_dtype, torch.zeros((), dtype=torch.int32,
+                                                 device=dev), None, d)
+        idx = next(i for i, a in enumerate(args) if a is col)
+        pre = "".join(str(a.dictionary.values[0]) for a in args[:idx])
+        post = "".join(str(a.dictionary.values[0]) for a in args[idx + 1:])
+        return _string_fn_lut(
+            lambda s: pre + s + post, object,
+            vec_fn=lambda sv: np.char.add(np.char.add(pre, sv), post))(
+            [col], out_dtype)
+    a, b = non_const[0], non_const[1]
+    da = a.dictionary.values if a.dictionary else np.asarray([], object)
+    db = b.dictionary.values if b.dictionary else np.asarray([], object)
+    if len(da) * len(db) > 1 << 20:
+        raise TypeError_("concat of two high-cardinality string columns is "
+                         "not supported yet")
+    prod = np.asarray([str(x) + str(y) for x in da for y in db] or [""],
+                      object)
+    uniq, codes = np.unique(prod.astype(str), return_inverse=True)
+    lut = torch.from_numpy(codes.astype(np.int32).reshape(
+        max(len(da), 1), max(len(db), 1))).to(dev)
+    data = lut[a.data.clamp(min=0).long(), b.data.clamp(min=0).long()]
+    out = ColVal(out_dtype, data, _and_validity(args),
+                 Dictionary(uniq.astype(object), sorted_=True))
+    if len(non_const) > 2:
+        return _concat_exec([out] + non_const[2:], out_dtype)
+    return out
+
+
+register("concat", lambda ts: dt.String.with_nullable(
+    any(t.nullable for t in ts)), _concat_exec, case_insensitive=True)
 
 
 # -- type conversions --------------------------------------------------------

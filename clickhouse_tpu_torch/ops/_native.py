@@ -46,7 +46,7 @@ LAUNCHES: Dict[str, int] = {"masked_reduce": 0, "dense_group_reduce": 0,
                             "topk_smallest": 0, "radix_sort_pairs": 0,
                             "segment_bounds": 0, "segment_reduce": 0,
                             "dense_join": 0, "hash_join": 0,
-                            "expand_matches": 0}
+                            "expand_matches": 0, "prefix_match": 0}
 # kernel name -> row count of each launch since the last reset
 LAUNCH_ROWS: Dict[str, List[int]] = {k: [] for k in LAUNCHES}
 
@@ -295,6 +295,9 @@ def library() -> ctypes.CDLL:
             lib.chtt_expand_tile_rows.restype = I
             lib.chtt_expand_spill_slots.argtypes = []
             lib.chtt_expand_spill_slots.restype = I
+            lib.chtt_prefix_match.argtypes = [P, P, I, LL, P, I, I, I, P, I,
+                                              P]
+            lib.chtt_prefix_match.restype = I
             lib.chtt_error_string.argtypes = [I]
             lib.chtt_error_string.restype = ctypes.c_char_p
             _LIB = lib

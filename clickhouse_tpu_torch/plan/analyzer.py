@@ -508,6 +508,28 @@ class Analyzer:
             bound_order.append(L.SortItem(be, oi.descending, nl,
                                           fill=self._bind_fill(oi)))
 
+        # LIMIT BY keys: a projected column, else a hidden projection column
+        # as ORDER BY's (the reference binds such a key below the
+        # projection, whose block no longer holds its columns)
+        limit_by_keys = None
+        if sel.limit_by is not None:
+            limit_by_keys = []
+            for raw in sel.limit_by[1]:
+                inner = bind_post(expand(raw))
+                key = ast.format_expr(raw)
+                matched = None
+                for (bexpr, name), f in zip(bound_items, out_fields):
+                    if name == key:
+                        matched = BoundColumn(f.id, f.dtype)
+                        break
+                if matched is None:
+                    hf = self.field(f"__limit_by_{len(proj_exprs)}",
+                                    inner.dtype)
+                    proj_exprs.append(inner)
+                    proj_scope_fields.append(hf)
+                    matched = BoundColumn(hf.id, hf.dtype)
+                limit_by_keys.append(matched)
+
         plan = L.ProjectNode(plan, proj_exprs, proj_scope_fields)
 
         if sel.distinct:
@@ -543,20 +565,9 @@ class Analyzer:
                 hint = limit_val + offset_val
             plan = L.SortNode(plan, bound_order, plan.schema, limit_hint=hint)
 
-        if sel.limit_by is not None:
+        if limit_by_keys is not None:
             n = _const_int(sel.limit_by[0])
-            by = [bind_post(expand(e)) for e in sel.limit_by[1]]
-            # LIMIT BY keys must reference projected columns
-            by2 = []
-            for e, raw in zip(by, sel.limit_by[1]):
-                key = ast.format_expr(raw)
-                matched = None
-                for (bexpr, name), f in zip(bound_items, out_fields):
-                    if name == key:
-                        matched = BoundColumn(f.id, f.dtype)
-                        break
-                by2.append(matched or e)
-            plan = L.LimitByNode(plan, n, 0, by2, plan.schema)
+            plan = L.LimitByNode(plan, n, 0, limit_by_keys, plan.schema)
 
         if limit_val is not None or offset_val:
             plan = L.LimitNode(plan, limit_val if limit_val is not None else -1,

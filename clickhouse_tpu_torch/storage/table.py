@@ -133,7 +133,11 @@ class Table:
             pieces = [p.columns[name] for p in self.parts] or \
                 [np.zeros(0, ctype.np_dtype if not ctype.is_dictionary
                           else object)]
-            if ctype.is_dictionary:
+            if ctype.is_dictionary and all(
+                    np.asarray(p).dtype.kind == "U" for p in pieces):
+                # numpy str parts stay str (no Python object a value)
+                merged = np.concatenate(pieces)
+            elif ctype.is_dictionary:
                 merged = np.concatenate([np.asarray(p, dtype=object)
                                          for p in pieces])
             else:

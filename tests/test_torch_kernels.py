@@ -18,10 +18,10 @@ import pytest
 import torch
 
 from chip_smoke import (CMPS, K4_ROWS, K5_CASES, K7_CASES, K8_CASES,
-                        K9_CASES, SORT_KEY_CHAINS, U64_EDGE, grouped_rows,
-                        k5_args, k6_many_specs, k7_args, k7_outputs,
-                        k8_args, k8_results, k9_args, make_term,
-                        sort_key_columns, term_cases)
+                        K9_CASES, K10_CASES, SORT_KEY_CHAINS, U64_EDGE,
+                        grouped_rows, k5_args, k6_many_specs, k7_args,
+                        k7_outputs, k8_args, k8_results, k9_args, k10_args,
+                        make_term, sort_key_columns, term_cases)
 from clickhouse_tpu_torch.ops import _native
 from clickhouse_tpu_torch.ops.agg_ops import (_masked_reduce_plain,
                                               masked_reduce)
@@ -39,6 +39,8 @@ from clickhouse_tpu_torch.ops.scan_ops import (K5_TILE_ROWS,
                                                _segment_reduce_plain,
                                                segment_bounds, segment_reduce,
                                                segment_reduce_many)
+from clickhouse_tpu_torch.ops.string_ops import (_prefix_match_plain,
+                                                 prefix_match)
 from clickhouse_tpu_torch.ops.sort_ops import (K4_TILE_ROWS,
                                                _radix_sort_pairs_plain,
                                                _topk_smallest32_plain,
@@ -353,11 +355,13 @@ def test_launch_counters_count_kernel_launches(dev):
     propagate_join([x], None, [x], None, [word])
     ones = torch.ones(10, dtype=torch.bool, device=dev)
     expand_matches(ProbeResult(ones, word, torch.ones_like(word)), ones, 1024)
+    prefix_match(torch.full((10,), 97, dtype=torch.uint8, device=dev),
+                 word[:6], b"a")
     assert _native.LAUNCHES == {"masked_reduce": 1, "dense_group_reduce": 1,
                                 "topk_smallest": 1, "radix_sort_pairs": 1,
                                 "segment_bounds": 1, "segment_reduce": 1,
                                 "dense_join": 1, "hash_join": 1,
-                                "expand_matches": 1}
+                                "expand_matches": 1, "prefix_match": 1}
 
 
 # -- K4 radix_sort_pairs, K5 segment_bounds, K6 segment_reduce ----------------
@@ -646,6 +650,16 @@ SQL_ON_CARD = [
     # then the session retries with more slots
     "SELECT x % 5000 AS k, count(), min(x), any(x) FROM hits GROUP BY k "
     "SETTINGS max_groups = 1024",
+    # DISTINCT, LIMIT BY and WITH TOTALS (K4, K5; K1)
+    "SELECT DISTINCT a, n FROM t",
+    "SELECT DISTINCT k FROM t WHERE b > 1",
+    "SELECT k, a FROM t LIMIT 2 BY k",
+    "SELECT count() FROM (SELECT x FROM hits LIMIT 2 BY intDiv(x, 4))",
+    "SELECT k, count(), sum(a) FROM t GROUP BY k WITH TOTALS ORDER BY k",
+    # the dictionary strings (K10 for the prefixes and suffixes)
+    "SELECT count() FROM t WHERE startsWith(k, 'k1')",
+    "SELECT k LIKE '%3', endsWith(k, '2'), k NOT LIKE 'k2%', length(k), "
+    "upper(k), position(k, '1') FROM t",
 ]
 
 
@@ -698,6 +712,52 @@ def test_sql_on_card_matches_cpu(sessions_cpu_cuda, sql):
                 assert a != a
             else:
                 assert a == b
+
+
+def test_with_totals_on_card_matches_cpu(sessions_cpu_cuda):
+    cpu, cuda = sessions_cpu_cuda
+    sql = ("SELECT k, count() AS c, sum(a), min(f) FROM t GROUP BY k "
+           "WITH TOTALS HAVING c > 6000 ORDER BY k")
+    want, got = cpu.execute(sql), cuda.execute(sql)
+    assert got.rows() == want.rows()
+    assert list(got.totals) == list(want.totals)
+    assert list(got.totals["k"]) == list(want.totals["k"]) == [""]
+    for name in list(want.totals)[1:]:
+        np.testing.assert_allclose(np.asarray(got.totals[name], float),
+                                   np.asarray(want.totals[name], float),
+                                   rtol=1e-12)
+
+
+def test_startswith_launches_k10_once(sessions_cpu_cuda):
+    """Q7b's form on the card: one K10 launch over the dictionary and one
+    K1 count of the rows' mask."""
+    cuda = sessions_cpu_cuda[1]
+    cuda.execute("SELECT count() FROM t WHERE startsWith(k, 'k2')")
+    _native.reset_launches()
+    got = cuda.execute("SELECT count() FROM t WHERE startsWith(k, 'k2')")
+    assert _native.LAUNCHES["prefix_match"] == 1
+    assert _native.LAUNCHES["masked_reduce"] == 1
+    assert sum(_native.LAUNCHES.values()) == 2
+    assert got.rows() == sessions_cpu_cuda[0].execute(
+        "SELECT count() FROM t WHERE startsWith(k, 'k2')").rows()
+
+
+@pytest.mark.parametrize("case", K10_CASES)
+def test_prefix_match_cases(dev, case):
+    """K10 on the cases of chip_smoke.k10_args, prefix and suffix, each
+    with and without negate, three runs each: 0, 1 and 3 values, a value
+    count off the block, values of 0-3 bytes, of 64-66 and 4,000 bytes,
+    chars at an odd address, needles past 48 bytes and past the kernel's
+    shared-memory stage, int64 offsets, chars past 2^31 bytes."""
+    chars, offsets, needles = k10_args(case, np.random.default_rng(
+        len(case)), dev)
+    for nd in needles:
+        for suffix in (False, True):
+            for negate in (False, True):
+                want = _prefix_match_plain(chars, offsets, nd, suffix, negate)
+                for _ in range(3):
+                    _exact(prefix_match(chars, offsets, nd, suffix, negate),
+                           want)
 
 
 def _exact(got: torch.Tensor, want: torch.Tensor):

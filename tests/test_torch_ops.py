@@ -10,6 +10,7 @@ the JAX reference functions they replace, on the same numpy inputs.
   K7 dense_gather_join   vs dense_gather_join
   K8 propagate_join, build/probe_join_table vs the same functions
   K9 expand_matches      vs expand_matches
+  K10 prefix_match       vs _device_prefix_lut
   order_token, topk_key32 on every dtype
 
 Integers must be bit-exact.  Float sums: rtol=1e-12, because the two sum
@@ -807,54 +808,204 @@ def test_k6_launch_plan():
 
 
 # -- reference divergences (ROADMAP queue 3) -----------------------------------
-# Each: (op, values, mask, numpy's per-group answer, the reference's defect)
-# over the groups of keys 0, 0, 1, 1, 2, 2.  The port gives numpy's answer;
-# the reference does not.
+# Each case's runner gives (the port's answer, the reference's, the answer
+# the port must give, the right answer), where an answer may be the name of
+# the error raised.  The port gives its answer; the reference gives
+# neither it nor the right one.
 _M = np.iinfo(np.int64).max
-DIVERGENCES = {
-    # a NaN in group 0 turns every later group's sum into NaN
-    "float_sum_nan": ("sum", np.array([1.0, np.nan, 2.0, 3.0, 4.0, 0.5]),
-                      None, np.array([np.nan, 5.0, 4.5]),
-                      "clickhouse_tpu/ops/scan_ops.py:179-182"),
-    # INT64_MAX and INT64_MAX - 1 share one clamped order token under a
-    # mask, and the later row wins
-    "int64_max_tie": ("max", np.array([_M, _M - 1, 5, 6, 1, 2], np.int64),
-                      np.ones(6, bool), np.array([_M, 6, 2], np.int64),
-                      "clickhouse_tpu/ops/sort_ops.py:59"),
-    # a masked-out bool row takes False, not True, as band's identity
-    "bool_band_identity": ("band", np.array([1, 1, 1, 0, 1, 1], bool),
-                           np.array([1, 0, 1, 1, 0, 0], bool),
-                           np.array([True, False, False]),
-                           "clickhouse_tpu/ops/scan_ops.py:224-227"),
-}
 
 
-def _divergence(case):
-    op, x, mask, want, _ = DIVERGENCES[case]
+def _reduce_divergence(op, x, mask, want):
+    """op over the groups of keys 0, 0, 1, 1, 2, 2 in both engines."""
     keys = np.array([0, 0, 1, 1, 2, 2])
     valid = np.ones(6, bool)
     ref_g, got_g = _groupings([keys], valid, 8)
     got = tscan.segment_reduce(op, _t(x), None if mask is None else _t(mask),
                                got_g.perm, got_g.group_ids, 8)
-    return got.numpy()[:3], _reference_reduce(op, x, mask, ref_g, 8)[:3], want
+    ref = _reference_reduce(op, x, mask, ref_g, 8)[:3]
+    return got.numpy()[:3], ref, want, want
+
+
+_SQL_SESSIONS = []
+
+
+def _sql_sessions():
+    """One reference and one port session (CPU) over the divergence
+    tables: u (S1: 70,000 values 'v%06d' and one value of 73 bytes ending
+    'xyz'), p (S2: rows (s, u)), g (S4: a String key b, c, b, d) and h
+    (S5, S6: 20,000 rows of x)."""
+    if not _SQL_SESSIONS:
+        import clickhouse_tpu as jch
+        import clickhouse_tpu_torch as tch
+        from clickhouse_tpu_torch.interop import table_from_numpy
+        js, ts = jch.connect(), tch.connect(device="cpu")
+        u = np.array([f"v{i:06d}" for i in range(70000)]
+                     + ["A" * 70 + "xyz"], dtype=object)
+        x = (np.arange(20000, dtype=np.int64) * 2654435761) % 1_000_003
+        tables = {
+            "u": ({"u": u}, {"u": "String"}),
+            "p": ({"s": np.array(["ab", "b", "ba", "c"], dtype=object),
+                   "u": np.array(["a", "b", "b", "x"], dtype=object)},
+                  {"s": "String", "u": "String"}),
+            "g": ({"s": np.array(["b", "c", "b", "d"], dtype=object)},
+                  {"s": "String"}),
+            "h": ({"x": x}, {"x": "Int64"})}
+        for name, (cols, types) in tables.items():
+            js.execute(f"CREATE TABLE {name} ("
+                       + ", ".join(f"{c} {t}" for c, t in types.items())
+                       + ")")
+            js.insert_pydict(name, cols)
+            table_from_numpy(ts, name, cols, types)
+        _SQL_SESSIONS.extend([js, ts, x])
+    return _SQL_SESSIONS
+
+
+def _answer(session, sql, read=lambda r: r.rows()):
+    """The rows of sql (read from its Result), or the name of the error."""
+    try:
+        return read(session.execute(sql))
+    except Exception as e:           # the error is the engine's answer
+        return type(e).__name__.rstrip("_")
+
+
+def _sql_divergence(sql, want, right=None, read=lambda r: r.rows()):
+    js, ts = _sql_sessions()[:2]
+    return (_answer(ts, sql, read), _answer(js, sql, read), want,
+            want if right is None else right)
+
+
+def _s5():
+    x = _sql_sessions()[2]
+    n = int(np.minimum(np.bincount(x // 4), 2).sum())
+    return _sql_divergence("SELECT count() FROM (SELECT x FROM h "
+                           "LIMIT 2 BY intDiv(x, 4))", [(n,)])
+
+
+def _s6():
+    r = _sql_sessions()[2] % 3000
+    want = [(int(r[i]),) for i in sorted(np.unique(r, return_index=True)[1])]
+    return _sql_divergence("SELECT x % 3000 AS r FROM h LIMIT 1 BY r "
+                           "SETTINGS max_groups = 1024", want)
+
+
+DIVERGENCES = {
+    # a NaN in group 0 turns every later group's sum into NaN
+    "float_sum_nan": (lambda: _reduce_divergence(
+        "sum", np.array([1.0, np.nan, 2.0, 3.0, 4.0, 0.5]), None,
+        np.array([np.nan, 5.0, 4.5])),
+        "clickhouse_tpu/ops/scan_ops.py:179-182"),
+    # INT64_MAX and INT64_MAX - 1 share one clamped order token under a
+    # mask, and the later row wins
+    "int64_max_tie": (lambda: _reduce_divergence(
+        "max", np.array([_M, _M - 1, 5, 6, 1, 2], np.int64),
+        np.ones(6, bool), np.array([_M, 6, 2], np.int64)),
+        "clickhouse_tpu/ops/sort_ops.py:59"),
+    # a masked-out bool row takes False, not True, as band's identity
+    "bool_band_identity": (lambda: _reduce_divergence(
+        "band", np.array([1, 1, 1, 0, 1, 1], bool),
+        np.array([1, 0, 1, 1, 0, 0], bool), np.array([True, False, False])),
+        "clickhouse_tpu/ops/scan_ops.py:224-227"),
+    # S1: the device byte matrix truncates values to 64 bytes, and the
+    # suffix of a longer value is read from the truncated bytes
+    "s1_endswith_past_64_bytes": (lambda: _sql_divergence(
+        "SELECT count() FROM u WHERE endsWith(u, 'xyz')", [(1,)]),
+        "clickhouse_tpu/core/column.py:65,123,128,141-145"),
+    "s1_like_suffix_past_64_bytes": (lambda: _sql_divergence(
+        "SELECT count() FROM u WHERE u LIKE '%xyz'", [(1,)]),
+        "clickhouse_tpu/core/column.py:65,123,128,141-145"),
+    # S2: a needle column is replaced by its first dictionary value; the
+    # port refuses a needle that is not a constant, as LIKE does
+    "s2_needle_column": (lambda: _sql_divergence(
+        "SELECT startsWith(s, u) FROM p", "TypeError",
+        [(1,), (1,), (1,), (0,)]),
+        "clickhouse_tpu/exprs/functions.py:1405"),
+    # S4: the totals row shows a String key as its dictionary's first
+    # value, not the type's default ''
+    "s4_totals_string_key": (lambda: _sql_divergence(
+        "SELECT s, count() FROM g GROUP BY s WITH TOTALS", [("", 4)],
+        read=lambda r: list(zip(*[list(v) for v in r.totals.values()]))),
+        "clickhouse_tpu/exec/executor.py:547-551"),
+    # S5: a LIMIT BY key that is an expression over an unselected column is
+    # bound below the projection, whose block no longer holds the column
+    "s5_limit_by_unselected_expression": (
+        _s5, "clickhouse_tpu/plan/analyzer.py (LIMIT BY keys)"),
+    # S6: LIMIT BY past max_groups has no capacity check: the groups past
+    # the slots share the last slot's rank (the port retries with more)
+    "s6_limit_by_past_max_groups": (
+        _s6, "clickhouse_tpu/exec/executor.py:1337-1351"),
+}
+
+
+def _same_answer(a, b) -> bool:
+    if isinstance(a, str) or isinstance(b, str) or isinstance(a, list):
+        return a == b
+    return np.array_equal(a, b, equal_nan=True)
 
 
 @pytest.mark.parametrize("case", sorted(DIVERGENCES))
 def test_port_matches_numpy_where_reference_diverges(case):
-    got, _, want = _divergence(case)
-    np.testing.assert_array_equal(got, want)
+    got, _, want, _ = DIVERGENCES[case][0]()
+    assert _same_answer(got, want), (got, want)
 
 
 @pytest.mark.parametrize("case", sorted(DIVERGENCES))
 def test_reference_divergence_is_pinned(case):
-    """The reference's answer differs from the port's (and numpy's) on
-    these inputs, for the defect DIVERGENCES names: the port does not
-    bless it.  Should the reference be repaired, this test fails and the
-    case joins the differential tests."""
-    got, ref, want = _divergence(case)
-    assert not np.array_equal(ref, want, equal_nan=True), \
-        DIVERGENCES[case][4]
-    assert not np.array_equal(got, ref, equal_nan=True)
+    """The reference's answer differs from the port's and from the right
+    one on these inputs, for the defect DIVERGENCES names: the port does
+    not bless it.  Should the reference be repaired, this test fails and
+    the case joins the differential tests."""
+    got, ref, want, right = DIVERGENCES[case][0]()
+    assert not _same_answer(ref, want), DIVERGENCES[case][1]
+    assert not _same_answer(ref, right), DIVERGENCES[case][1]
+    assert not _same_answer(got, ref)
+
+
+# -- K10: prefix_match ------------------------------------------------------
+# The port's plain version over a dictionary's chars and offsets against
+# the reference's _device_prefix_lut over its byte matrix, on a dictionary
+# of 65,536 values (the bottom of the reference's device window) of at
+# most 64 bytes (its matrix's width), with UTF-8, empty values and values
+# that are prefixes of others.
+
+_K10_DICTS = []
+
+
+def _k10_dicts():
+    if not _K10_DICTS:
+        from clickhouse_tpu.core.column import Dictionary as JDictionary
+        from clickhouse_tpu_torch.core.column import Dictionary as TDictionary
+        rng = np.random.default_rng(41)
+        pieces = np.array(["a", "b", "ab", "é", "日", "😀", "x", " "])
+        vals = {"", "ab", "abé", "ab" * 32}
+        while len(vals) < 65536:
+            w = "".join(rng.choice(pieces, int(rng.integers(1, 14))))
+            if len(w.encode()) <= 64:
+                vals.add(w)
+        vals = np.array(sorted(vals), dtype=object)
+        _K10_DICTS.extend([JDictionary(vals, sorted_=True),
+                           TDictionary(vals, sorted_=True)])
+    return _K10_DICTS
+
+
+K10_NEEDLES = {"empty": "", "one_byte": "a", "two_bytes": "ab",
+               "utf8": "é", "whole_value": "abé", "sixty_four": "ab" * 32,
+               "emoji_suffix": "😀", "miss": "zz"}
+
+
+@pytest.mark.parametrize("suffix", [False, True], ids=["prefix", "suffix"])
+@pytest.mark.parametrize("needle", sorted(K10_NEEDLES))
+def test_prefix_match_matches_reference(needle, suffix):
+    from clickhouse_tpu.exprs.functions import _device_prefix_lut
+    from clickhouse_tpu_torch.ops.string_ops import prefix_match
+    jd, td = _k10_dicts()
+    nd = K10_NEEDLES[needle]
+    ref = np.asarray(_device_prefix_lut(jd, nd, suffix))
+    chars, offsets = td.device_chars("cpu")
+    got = prefix_match(chars, offsets, nd.encode(), suffix=suffix)
+    np.testing.assert_array_equal(got.numpy(), ref.astype(np.uint8))
+    neg = prefix_match(chars, offsets, nd.encode(), suffix=suffix,
+                       negate=True)
+    np.testing.assert_array_equal(neg.numpy(), 1 - ref.astype(np.uint8))
 
 
 # -- K7, K8, K9: joins -------------------------------------------------------
