@@ -5,11 +5,13 @@
     python3 chip_smoke.py --queries   # only the query times (time_queries)
     python3 chip_smoke.py --gathers   # only random gathers by table size
     python3 chip_smoke.py --k9        # only K9 alone (k9_turn)
+    python3 chip_smoke.py --vectors   # only K11's cases, Q8, Q8l, Q8w and
+                                      # K11 at Q8's inputs
 
 Needs one NVIDIA Hopper card, nvcc and PyTorch built for CUDA; exits
 non-zero without them.  Phases, each of which fails the run:
 
-  1. build the ten hand-written kernels (csrc/*.cu) with nvcc for sm_90a,
+  1. build the eleven hand-written kernels (csrc/*.cu) with nvcc for sm_90a,
      one nvcc a source, all started together;
   2. hold each kernel against its plain PyTorch version on the card: edge
      cases (K1 with and without filter terms over every storage type and
@@ -52,7 +54,11 @@ non-zero without them.  Phases, each of which fails the run:
      values, a value count off the block, values of 0-3, 64-66 and 4,000
      bytes, chars at an odd address, needles past 48 bytes and past the
      kernel's shared-memory stage, int64 offsets, chars past 2^31 bytes);
-     integer results must agree
+     K11 over K11_CASES for each of its four ops (widths 8, 24, 128 and
+     136, ragged lengths 0, 1, W - 1 and W, a zero row, a zero query, a
+     row count off the block, rows past n, which must hold the zero row's
+     value unread), within 1e-5 relative plus 1e-6 of the row's scale
+     (k11_error); integer results must agree
      exactly, K1's and K2's float sums within rtol 1e-12, K6's within
      n_g * eps * sum(|x|) a group of n_g rows (its atomics add a group's
      parts in a varying order); then SELECT without FROM, numbers() and
@@ -86,7 +92,17 @@ non-zero without them.  Phases, each of which fails the run:
      once and under the governor's check, their time and bytes printed),
      Q7d (DISTINCT url) and Q7s (LIKE '%99': K10's suffix), each against
      numpy and launching exactly the kernels of its path (SLICE10_PATHS),
-     its peak beside the governor's estimate;
+     its peak beside the governor's estimate; then over vecs (id Int64, v
+     Array(Float32): bench.py:538-543's 10,000,000 x 128 normals, the
+     host time of the data and of its device block printed) Q8
+     (bench.py:545-550: ORDER BY cosineDistance LIMIT 10, K11 and K3's
+     32-bit entry), Q8l (L2Distance to a Float64 literal: K3's 64-bit
+     entry) and Q8w (WHERE id < 1000000 ... LIMIT 3: K1's count too),
+     their ids against numpy's float64 top-k, whose k-th and (k+1)-th
+     distances must lie further apart than the engine's float32 error,
+     each launching exactly SLICE11_PATHS; Q2's and Q2t's peaks are split
+     by allocation (watch_dense: the dense grouping's slots and ids, K2's
+     inputs and outputs);
   4. replay each kernel on the exact inputs the main path gave it (its
      largest launch on the main path), held against its plain version, and
      time it, its plain version and, where one exists, the single PyTorch
@@ -110,7 +126,9 @@ non-zero without them.  Phases, each of which fails the run:
      many-tile cases and at each spill threshold of K9_HEAVY_SWEEP, each
      with its kernels a call; K10 at Q7b's inputs (its bytes: the chars'
      32-byte sectors holding a compared byte, the offsets and the output)
-     and at Q7s's; fails unless Q4's K7 call carries label alone and
+     and at Q7s's; K11 at Q8's inputs beside torch.mv(A, q) (the dot
+     alone, for information); fails unless Q4's K7 call carries label
+     alone and
      Q4h's K8 call one word; time each query (median wall time of 20
      runs, synchronised) with its peak memory beside the governor's
      estimate, the device-busy time of Q1, Q2b, Q2m, Q4, Q4h, Q4x and the
@@ -194,7 +212,8 @@ SLICE10_PATHS = {"Q2t": {"dense_group_reduce": 1, "topk_smallest": 1,
                  "Q2l": _SORTED, "Q2d": _SORTED, "Q7": _SORTED,
                  "Q7d": _SORTED, "Q7b": _AFFIX, "Q7s": _AFFIX}
 # the queries whose device-busy time a trace takes
-BUSY_QUERIES = ("Q1", "Q2b", "Q2m", "Q4", "Q4h", "Q4x") + tuple(
+BUSY_QUERIES = ("Q1", "Q2b", "Q2m", "Q4", "Q4h", "Q4x", "Q8", "Q8l",
+                "Q8w") + tuple(
     q for q, _ in SLICE10_QUERIES)
 QUERY_REPS = 20
 KERNEL_REPS = 20
@@ -1509,6 +1528,322 @@ def check_k10(dev):
           f"{calls} calls): {', '.join(K10_CASES)}", flush=True)
 
 
+# -- slice 11: vector search (K11, Q8) ---------------------------------------
+
+K11_CASES = ("w8", "w24", "w128", "w136", "zero_query", "n_off_block",
+             "rows_past_n")
+K11_RTOL, K11_ATOL = 1e-5, 1e-6   # see k11_error
+N_VECS, W_VECS = 10_000_000, 128
+K11_LIBRARY = "torch.mv(A, q)"
+
+
+def k11_case(name, rng):
+    """One K11 case as numpy: (A (cap, W) float32, zero past each row's
+    length; lengths int32; q (W,) float32; n).  Ragged lengths hold 0, 1,
+    W - 1 and W, row 5 is a zero row of full length; rows_past_n fills the
+    rows past n with data and lengths, which K11 must not read."""
+    w = {"w8": 8, "w24": 24, "w136": 136}.get(name, 128)
+    rows = {"n_off_block": 1000 + 37}.get(name, 5000)
+    cap = rows + (259 if name == "rows_past_n" else 0)
+    lens = rng.integers(0, w + 1, cap).astype(np.int32)
+    lens[:4] = [0, 1, w - 1, w]
+    lens[5] = w
+    a = rng.normal(size=(cap, w)).astype(np.float32)
+    a[np.arange(w)[None, :] >= lens[:, None]] = 0
+    a[5] = 0
+    q = rng.normal(size=w).astype(np.float32)
+    if name == "zero_query":
+        q[:] = 0
+    return a, lens, q, rows
+
+
+def k11_error(got, want, A, lengths, q, op, n) -> float:
+    """Largest |got - want| over rows < n after checking each row within
+    K11_RTOL * |want| + K11_ATOL * scale: scale 1 for cosine, 1 + |a|^2 +
+    |q[:len]|^2 for the others (the size of the float32 sums they come
+    from; L2 is compared squared, as L2Squared).  Rows at and past n must
+    be exactly the zero row's value."""
+    from clickhouse_tpu_torch.ops.vector_ops import zero_row_distance
+    g, w = got[:n].double(), want[:n].double()
+    if op == "l2":
+        g, w = g * g, w * w
+    if op == "cosine":
+        scale = torch.ones_like(w)
+    else:
+        a2 = torch.zeros(n, dtype=torch.float64, device=A.device)
+        for lo in range(0, n, 1 << 20):
+            blk = A[lo:lo + (1 << 20)][:n - lo].double()
+            a2[lo:lo + blk.shape[0]] = (blk * blk).sum(1)
+        pre = torch.cat([torch.zeros(1, dtype=torch.float64,
+                                     device=A.device),
+                         torch.cumsum(q.double() ** 2, 0)])
+        scale = 1 + a2 + pre[lengths[:n].long().clamp(0, q.shape[0])]
+    if not torch.equal(torch.isnan(g), torch.isnan(w)):
+        fail(f"K11 {op}: NaN positions differ")
+    bad = (g - w).abs() > K11_RTOL * w.abs() + K11_ATOL * scale
+    if bool(bad.any()):
+        i = int(torch.nonzero(bad)[0])
+        fail(f"K11 {op}: row {i} gives {float(got[i])}, its plain version "
+             f"{float(want[i])}")
+    if not bool((got[n:] == zero_row_distance(op)).all()):
+        fail(f"K11 {op}: a row past n = {n} is not the zero row's value")
+    return float((got[:n].double() - want[:n].double()).abs().max()) \
+        if n else 0.0
+
+
+def check_k11(dev):
+    """K11 against its plain version for each op on every case of
+    K11_CASES: widths 8, 24, 128 and 136 (one and two float4 steps a
+    lane), ragged lengths 0, 1, W - 1 and W, a zero row, a zero query
+    (cosine 1), a row count off the block, and rows past n."""
+    from clickhouse_tpu_torch.ops.vector_ops import (DISTANCE_OPS,
+                                                     _vector_distance_plain,
+                                                     vector_distance)
+    rng = np.random.default_rng(31)
+    worst = 0.0
+    for name in K11_CASES:
+        a, lens, q, n = k11_case(name, rng)
+        A = torch.from_numpy(a).to(dev)
+        L = torch.from_numpy(lens).to(dev)
+        Q = torch.from_numpy(q).to(dev)
+        for op in DISTANCE_OPS:
+            got = vector_distance(A, L, Q, op, n)
+            want = _vector_distance_plain(A, L, Q, op, n)
+            worst = max(worst, k11_error(got, want, A, L, Q, op, n))
+            if name == "zero_query" and op == "cosine" \
+                    and not bool((got == 1).all()):
+                fail("K11: cosine to a zero query is not 1")
+    torch.cuda.synchronize()
+    print(f"K11 vector_distance edge cases agree with the plain version "
+          f"(each op; max |err| {worst:.3g}, within {K11_RTOL} relative + "
+          f"{K11_ATOL} x the row's scale): {', '.join(K11_CASES)}",
+          flush=True)
+
+
+def q8_query() -> np.ndarray:
+    """bench.py:544's query vector as Q8's literal gives it (5 decimals)."""
+    q = np.random.default_rng(9).normal(size=W_VECS).astype(np.float32)
+    return np.array([float(f"{x:.5f}") for x in q])
+
+
+def slice11_queries():
+    q = q8_query()
+    body = "[" + ",".join(f"{x:.5f}" for x in q) + "]"
+    q32 = f"CAST({body} AS Array(Float32))"
+    return (("Q8", f"SELECT id FROM vecs ORDER BY cosineDistance(v, {q32}) "
+                   f"LIMIT 10"),
+            ("Q8l", f"SELECT id FROM vecs ORDER BY L2Distance(v, {body}) "
+                    f"LIMIT 10"),
+            ("Q8w", f"SELECT id FROM vecs WHERE id < 1000000 ORDER BY "
+                    f"cosineDistance(v, {q32}) LIMIT 3"))
+
+
+SLICE11_QUERIES = slice11_queries()
+SLICE11_PATHS = {"Q8": {"vector_distance": 1, "topk_smallest": 1},
+                 "Q8l": {"vector_distance": 1, "topk_smallest": 1},
+                 "Q8w": {"vector_distance": 1, "topk_smallest": 1,
+                         "masked_reduce": 1}}
+
+
+def load_vecs(s):
+    """vecs (id Int64, v Array(Float32)) in session s, as bench.py:538-543
+    makes it: 10,000,000 x 128 normals from default_rng(8).  -> the matrix
+    (numpy float32).  Prints the host seconds of the data and of the
+    insert with its device block."""
+    t0 = time.perf_counter()
+    v = np.random.default_rng(8).normal(size=(N_VECS, W_VECS)).astype(
+        np.float32)
+    t1 = time.perf_counter()
+    s.execute("CREATE TABLE vecs (id Int64, v Array(Float32))")
+    s.insert_pydict("vecs", {"id": np.arange(N_VECS, dtype=np.int64),
+                             "v": v})
+    s.catalog.get_table("default", "vecs").read_block()
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    print(f"vecs: {N_VECS} x {W_VECS} float32 made in {t1 - t0:.1f} s; "
+          f"insert + device block {t2 - t1:.1f} s (host)", flush=True)
+    return v
+
+
+def vector_answers(v: np.ndarray):
+    """Q8, Q8l and Q8w from numpy's float64 distances (1M rows at a time);
+    fails unless the k-th and (k+1)-th distances lie further apart than
+    the engine's float32 error could move them: each by K11's tolerance
+    (k11_error; for L2 the squared distance's, over 2 d)."""
+    q = q8_query()
+    q32 = q.astype(np.float32).astype(np.float64)
+    cos = np.empty(N_VECS)
+    l2 = np.empty(N_VECS)
+    a2 = np.empty(N_VECS)
+    for lo in range(0, N_VECS, 1 << 20):
+        blk = v[lo:lo + (1 << 20)].astype(np.float64)
+        sq = (blk * blk).sum(1)
+        a2[lo:lo + len(blk)] = sq
+        cos[lo:lo + len(blk)] = 1 - blk @ q32 / np.maximum(
+            np.sqrt(sq) * np.linalg.norm(q32), 1e-300)
+        l2[lo:lo + len(blk)] = np.sqrt(np.maximum(sq - 2 * (blk @ q)
+                                                  + q @ q, 0))
+    tol = {"cos": K11_RTOL * np.abs(cos) + K11_ATOL,
+           "l2": (K11_RTOL * l2 ** 2 + K11_ATOL * (1 + a2 + q @ q))
+           / np.maximum(2 * l2, 1e-300)}
+    out = {}
+    for name, d, t, k in (("Q8", cos, tol["cos"], 10),
+                          ("Q8l", l2, tol["l2"], 10),
+                          ("Q8w", cos[:1_000_000], tol["cos"], 3)):
+        order = np.argpartition(d, k + 1)[:k + 1]
+        order = order[np.lexsort((order, d[order]))]
+        gap = d[order[k]] - d[order[k - 1]]
+        need = t[order[k]] + t[order[k - 1]]
+        if gap <= need:
+            fail(f"{name}: numpy's {k}-th and {k + 1}-th distances are "
+                 f"{gap:.3g} apart, within the engine's float32 error "
+                 f"{need:.3g}")
+        out[name] = [(int(i),) for i in order[:k]]
+        print(f"{name}: numpy's float64 top-{k}; the gap to the next row "
+              f"{gap:.4g} (the float32 error of the two {need:.3g})",
+              flush=True)
+    return out
+
+
+def slice11_path(s, want, per_query, launches, launch_rows, memory):
+    """Q8, Q8l and Q8w over vecs (SLICE11_PATHS): K11 once over every row,
+    K3 once (Q8, Q8w: its 32-bit entry; Q8l: its 64-bit one)."""
+    cover = {q: ("vector_distance", N_VECS) for q, _ in SLICE11_QUERIES}
+    return path_phase(s, SLICE11_QUERIES, SLICE11_PATHS, cover, want,
+                      per_query, launches, launch_rows, memory,
+                      "Q8, Q8l and Q8w")
+
+
+def vector_args(session):
+    """Run Q8 once more with K11's launch wrapper spied on; -> its K11
+    call's arguments (A, lengths, q, op, n)."""
+    from clickhouse_tpu_torch.ops import vector_ops
+    got = []
+    real = vector_ops._vector_distance_cuda
+
+    def spy(*args):
+        got.append(args)
+        return real(*args)
+    vector_ops._vector_distance_cuda = spy
+    try:
+        session.execute(SLICE11_QUERIES[0][1])
+    finally:
+        vector_ops._vector_distance_cuda = real
+    if len(got) != 1:
+        fail(f"Q8 gave K11 {len(got)} calls, not one")
+    return got[0]
+
+
+def vector_shapes(dev, args):
+    """K11 at Q8's inputs (10,000,384 x 128 float32, cosine), held against
+    its plain version and timed beside it and beside torch.mv(A, q) (the
+    dot alone, for information: no one PyTorch call computes the
+    distance), with its kernels a call (torch.profiler).  Bytes: A's rows
+    below n read once, their lengths, the output."""
+    from clickhouse_tpu_torch.ops.vector_ops import (_vector_distance_plain,
+                                                     vector_distance)
+    A, lengths, q, op, n = args
+    call = (A, lengths, q, op, n)
+    err = k11_error(vector_distance(*call), _vector_distance_plain(*call),
+                    A, lengths, q, op, n)
+    ms = cuda_ms(lambda: vector_distance(*call))
+    plain = cuda_ms(lambda: _vector_distance_plain(*call), reps=5)
+    lib = cuda_ms(lambda: torch.mv(A, q))
+    nb = n * A.shape[1] * 4 + n * 4 + A.shape[0] * 4
+    per_call = {}
+    kernels = device_kernels(lambda: vector_distance(*call),
+                             launches=per_call)
+    print(f"vector_distance kernels a call at Q8's inputs (device ms): "
+          f"{kernels}", flush=True)
+    print(f"vector_distance at Q8's inputs ({n} rows of {A.shape[1]} "
+          f"float32, capacity {A.shape[0]}, {op}): {ms:.4f} ms, {nb} bytes, "
+          f"bound {bound_ms(nb):.4f} ms (share {bound_ms(nb) / ms:.3f}), "
+          f"plain {plain:.4f} ms (max |err| {err:.3g} against it), "
+          f"{K11_LIBRARY} {lib:.4f} ms", flush=True)
+    return {"vector_distance": {
+        "ms": ms, "plain_ms": plain, "bytes": nb, "bound_ms": bound_ms(nb),
+        "max_abs_err": err, "library_ms": lib,
+        "kernels_per_call": per_call}}
+
+
+def peak_since(base: int, memory) -> int:
+    """A query's peak device bytes above `base`: the allocator's peak and
+    the peaks main's watches saw before they reset it."""
+    return max([torch.cuda.max_memory_allocated()]
+               + [p for p, _ in memory["grouping"]]
+               + [r["peak_before"] for r in memory["dense"] + memory["k2"]]
+               ) - base
+
+
+def print_dense_split(name, memory, base, extra):
+    """Where a dense GROUP BY's peak goes (main's watches): the dense
+    grouping's own peak (the int64 slots and one key's offsets, then the
+    int32 ids) and what K2's call is given and returns."""
+    for r in memory["dense"]:
+        print(f"{name}: the dense grouping holds {r['at_start'] - base} "
+              f"bytes of the query at its start; its own peak {r['own']} "
+              f"bytes above that (int64 slots and a key's int64 offsets); "
+              f"its int32 ids {r['ids']} bytes; its budget check counted "
+              f"{r['counted']} bytes", flush=True)
+    for r in memory["k2"]:
+        print(f"{name}: K2's call: the query holds {r['at_start'] - base} "
+              f"bytes at its start; its inputs: ids {r['ids']}, base mask "
+              f"{r['base']}, other masks {r['masks']}, summed values "
+              f"{r['values']} bytes; its outputs {r['outputs']} bytes; its "
+              f"own peak {r['own']} bytes above its start; the query's peak "
+              f"{extra} bytes above what was allocated before it",
+              flush=True)
+
+
+def watch_dense(memory):
+    """Wrap agg_ops.group_by_dense and mxu_segsum.mxu_group_reduce (each
+    call passed on as it is) to record into memory["dense"] and
+    memory["k2"] the bytes each holds, is given and returns.  -> a
+    function that unwraps them."""
+    from clickhouse_tpu_torch.ops import agg_ops, mxu_segsum
+    dense_fn, k2_fn = agg_ops.group_by_dense, mxu_segsum.mxu_group_reduce
+
+    def start():
+        torch.cuda.synchronize()
+        rec = {"peak_before": torch.cuda.max_memory_allocated(),
+               "at_start": torch.cuda.memory_allocated()}
+        torch.cuda.reset_peak_memory_stats()
+        return rec
+
+    def own(rec):
+        torch.cuda.synchronize()
+        rec["own"] = torch.cuda.max_memory_allocated() - rec["at_start"]
+
+    def dense_watch(keys, *a, **kw):
+        rec = start()
+        out = dense_fn(keys, *a, **kw)
+        own(rec)
+        rec.update(ids=nbytes(out.group_ids), counted=agg_ops.
+                   dense_group_bytes(keys[0].shape[0],
+                                     kw.get("held_bytes", 0)))
+        memory["dense"].append(rec)
+        return out
+
+    def k2_watch(ids, base_mask, count_masks, sum_specs, S):
+        rec = start()
+        rec.update(ids=nbytes(ids), base=nbytes(base_mask),
+                   masks=nbytes([m for m in count_masks]
+                                + [sp[3] for sp in sum_specs]),
+                   values=nbytes([sp[0] for sp in sum_specs]))
+        counts, sums = k2_fn(ids, base_mask, count_masks, sum_specs, S)
+        own(rec)
+        rec["outputs"] = nbytes(counts, sums)
+        memory["k2"].append(rec)
+        return counts, sums
+    agg_ops.group_by_dense = dense_watch
+    mxu_segsum.mxu_group_reduce = k2_watch
+
+    def unwatch():
+        agg_ops.group_by_dense = dense_fn
+        mxu_segsum.mxu_group_reduce = k2_fn
+    return unwatch
+
+
 def main_path_args(session):
     """Run the main path's queries once more with each kernel's launch
     wrapper spied on, and return the arguments of each kernel's largest
@@ -2186,7 +2521,8 @@ def time_queries(s):
         estimate_plan_device_bytes
     from clickhouse_tpu_torch.sql import parse
     ran = {}
-    for name, sql in QUERIES + JOIN_QUERIES + SLICE10_QUERIES:
+    for name, sql in QUERIES + JOIN_QUERIES + SLICE10_QUERIES \
+            + SLICE11_QUERIES:
         try:
             s.execute(sql)
         except (NotImplementedError_, UnknownFunction) as e:
@@ -2207,7 +2543,8 @@ def time_queries(s):
         peak = torch.cuda.max_memory_allocated() - base
         est = estimate_plan_device_bytes(s._plan(parse(sql), s.settings),
                                          s.catalog, s.settings)
-        rows = N_S_ROWS if "hits_s" in sql else N_ROWS
+        rows = N_S_ROWS if "hits_s" in sql else (
+            N_VECS if "vecs" in sql else N_ROWS)
         print(f"{name} median wall {ran[name]:.3f} ms "
               f"over {QUERY_REPS} runs ({rows} rows); peak {peak} bytes "
               f"above what was allocated before it, the governor's "
@@ -2219,7 +2556,8 @@ def time_queries(s):
               f"entry int32 table, CUDA events, L2 flushed): {roof:.4f} ms; "
               f"Q4's median wall {ran['Q4']:.3f} ms is "
               f"{ran['Q4'] / roof:.2f}x it", flush=True)
-    for name, sql in QUERIES + JOIN_QUERIES + SLICE10_QUERIES:
+    for name, sql in QUERIES + JOIN_QUERIES + SLICE10_QUERIES \
+            + SLICE11_QUERIES:
         if name in BUSY_QUERIES and name in ran:
             busy, ops, wall, top = device_busy(s, sql)
             print(f"{name} under torch.profiler: device busy {busy:.4f} ms "
@@ -2297,10 +2635,10 @@ def path_phase(s, queries, paths, cover, want, per_query, launches,
         rows = res.rows()
         per_query[name] = dict(_native.LAUNCHES)
         rows_of = {k: list(v) for k, v in _native.LAUNCH_ROWS.items()}
-        extra = max([torch.cuda.max_memory_allocated()]
-                    + [p for p, _ in memory["grouping"]]) - base
+        extra = peak_since(base, memory)
         if rows != want[name]:
             fail(f"{name} returned {rows[:5]}, numpy says {want[name][:5]}")
+        print_dense_split(name, memory, base, extra)
         if f"{name}:totals" in want:
             got = None if res.totals is None else [
                 tuple(cell_value(v[0]) for v in res.totals.values())]
@@ -2985,7 +3323,30 @@ def main():
         s = load_hits(ch)[0]
         load_join_tables(s)
         load_hits_s(s)
+        try:
+            load_vecs(s)
+        except Exception as e:      # a tree without Array columns
+            print(f"vecs not loaded in this tree: {e}", flush=True)
         time_queries(s)
+        return
+    if sys.argv[1:] == ["--vectors"]:
+        # K11's edge cases, Q8, Q8l and Q8w on their path, and K11 at
+        # Q8's inputs, alone
+        check_k11(dev)
+        s = ch.connect(device="cuda")
+        want = vector_answers(load_vecs(s))
+        memory = {"count": [], "grouping": [], "chars": [], "dense": [],
+                  "k2": []}
+        launches = {k: 0 for k in _native.LAUNCHES}
+        launch_rows = {k: [] for k in _native.LAUNCHES}
+        slice11_path(s, want, {}, launches, launch_rows, memory)
+        vector_shapes(dev, vector_args(s))
+        for name, sql in SLICE11_QUERIES:
+            busy, ops, wall, top = device_busy(s, sql)
+            print(f"{name} under torch.profiler: device busy {busy:.4f} ms "
+                  f"of {wall:.3f} ms wall a run, {ops:g} device operations "
+                  f"a run; top: "
+                  + "; ".join(f"{n} {t:.4f}" for n, t in top), flush=True)
         return
     if sys.argv[1:] == ["--gathers"]:
         gather_curve(dev)
@@ -3004,6 +3365,7 @@ def main():
     check_k8(dev)
     check_k9(dev)
     check_k10(dev)
+    check_k11(dev)
     check_small_queries(ch)
     check_small_joins(ch)
 
@@ -3013,6 +3375,7 @@ def main():
     del x
     load_hits_s(s)
     want.update(string_answers())
+    want.update(vector_answers(load_vecs(s)))
 
     # the main path, once, through the public API: each query with the
     # launch counters set to 0 just before it and read just after.  Two
@@ -3026,7 +3389,8 @@ def main():
     launch_rows = {k: [] for k in _native.LAUNCHES}
     k1_forms_seen = {"fused": 0, "mask_form": 0}
     k4_calls = []
-    memory = {"count": [], "grouping": [], "chars": []}
+    memory = {"count": [], "grouping": [], "chars": [], "dense": [],
+              "k2": []}
     k1_cuda, k4_cuda = agg_ops._masked_reduce_cuda, sort_ops._radix_sort_cuda
     sort_rows, sort_rows_bytes = sort_ops.sort_rows, sort_ops.sort_rows_bytes
     group_by_sort = agg_ops.group_by_sort
@@ -3079,6 +3443,7 @@ def main():
         memory["chars"].append((time.perf_counter() - t0, nbytes(*out),
                                 check is not None))
         return out
+    unwatch_dense = watch_dense(memory)
     agg_ops._masked_reduce_cuda = k1_watch
     sort_ops._radix_sort_cuda = k4_watch
     sort_ops.sort_rows = sort_rows_watch
@@ -3089,7 +3454,9 @@ def main():
                   k4_calls, memory)
         join_path(s, want, per_query, launches, launch_rows, memory)
         slice10_path(s, want, per_query, launches, launch_rows, memory)
+        slice11_path(s, want, per_query, launches, launch_rows, memory)
     finally:
+        unwatch_dense()
         agg_ops._masked_reduce_cuda = k1_cuda
         sort_ops._radix_sort_cuda = k4_cuda
         sort_ops.sort_rows = sort_rows
@@ -3103,6 +3470,7 @@ def main():
     del args
     shapes.update(join_shapes(dev, join_args(s)))
     shapes.update(string_shapes(dev, string_args(s)))
+    shapes.update(vector_shapes(dev, vector_args(s)))
     for name in ("radix_sort_pairs", "segment_reduce", "segment_bounds"):
         shapes[name]["launches_per_query"] = {
             q: per_query[q][name] for q in ("Q2b", "Q2m", "Q4x")}
@@ -3138,8 +3506,7 @@ def main_path(s, want, per_query, launches, launch_rows, k1_forms_seen,
         rows = s.execute(sql).rows()
         per_query[name] = dict(_native.LAUNCHES)
         rows_of = {k: list(v) for k, v in _native.LAUNCH_ROWS.items()}
-        extra = max([torch.cuda.max_memory_allocated()]
-                    + [p for p, _ in memory["grouping"]]) - base
+        extra = peak_since(base, memory)
         if rows != want[name]:
             fail(f"{name} returned {rows[:5]}..., numpy says "
                  f"{want[name][:5]}...")
@@ -3148,6 +3515,7 @@ def main_path(s, want, per_query, launches, launch_rows, k1_forms_seen,
             launch_rows[k] += v
         # the rows of this query's largest launch of each kernel
         big = {k: max(v, default=0) for k, v in rows_of.items()}
+        print_dense_split(name, memory, base, extra)
         k1_split = {f: k1_forms_seen[f] - k1_before[f] for f in k1_before}
         print(f"{name}: K1 launches {k1_split}; device memory at its peak "
               f"{extra} bytes above what was allocated before it",
@@ -3233,16 +3601,20 @@ def kernel_line(card, shapes, launches, launch_rows):
                    "clickhouse_tpu_torch/csrc/expand_matches.cu",
                    "clickhouse_tpu/ops/join_ops.py:328"),
                "prefix_match": ("clickhouse_tpu_torch/csrc/prefix_match.cu",
-                                "clickhouse_tpu/exprs/functions.py:611")}
+                                "clickhouse_tpu/exprs/functions.py:611"),
+               "vector_distance": (
+                   "clickhouse_tpu_torch/csrc/vector_distance.cu",
+                   "clickhouse_tpu/exprs/functions_ext.py:2204")}
     kernels = []
     for name, (src, repl) in sources.items():
         r = shapes[name]
-        big = sum(1 for m in launch_rows[name] if m >= N_ROWS)
+        full = N_VECS if name == "vector_distance" else N_ROWS
+        big = sum(1 for m in launch_rows[name] if m >= full)
         print(f"{name}: {launches[name]} launches on the main path, {big} "
-              f"of them over {N_ROWS} rows", flush=True)
+              f"of them over {full} rows", flush=True)
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": repl, "launches": launches[name],
-                        "launches_at_100M_rows": big,
+                        f"launches_at_{full // 1_000_000}M_rows": big,
                         "max_abs_err": r["max_abs_err"], "ms": r["ms"],
                         "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                         "bound_by": "bytes", "bytes": r["bytes"],

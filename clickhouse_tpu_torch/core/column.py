@@ -11,8 +11,14 @@
 * Nullability is a separate uint8 validity mask (1 = valid).
 * Storage is narrowed to the smallest exact width (``narrow_storage``), so
   an Int64 column whose values fit in 32 bits costs 4 bytes a row.
+* Array(T) of a numeric T is the reference's layout: a (capacity,
+  max_len) matrix, max_len a multiple of 8, zero past each row's length,
+  and int32 ``lengths`` (ClickHouse's size0 + data substreams with a
+  static width).  A 2-D numpy matrix becomes one without a Python loop a
+  row (10M x 128 embeddings).
 
-Array and AggregateFunction columns are not ported yet.
+Array(String), Array(Tuple), arrays of other inner types, and
+AggregateFunction columns are not ported yet.
 """
 from __future__ import annotations
 
@@ -26,7 +32,7 @@ from . import dtypes as dt
 from .errors import NotImplementedError_
 
 __all__ = ["Column", "Dictionary", "column_from_numpy", "PAD_MULTIPLE",
-           "pad_to", "narrow_storage"]
+           "pad_to", "narrow_storage", "check_array_type", "array_width"]
 
 # Pad every column to a multiple of 1024 rows, as the reference does.
 PAD_MULTIPLE = 1024
@@ -94,6 +100,12 @@ class Dictionary:
                    torch.from_numpy(offsets).to(device))
             self._chars[key] = got
         return got
+
+    def cached_chars_bytes(self, device) -> int:
+        """Device bytes of the chars and offsets cached on `device` (0
+        before device_chars built them there)."""
+        got = self._chars.get(str(torch.device(device)))
+        return 0 if got is None else sum(t.nbytes for t in got)
 
     def index(self) -> dict:
         if self._index is None:
@@ -192,12 +204,14 @@ def utf8_chars(vs: np.ndarray) -> Tuple[np.ndarray, np.ndarray]:
 
 @dataclasses.dataclass
 class Column:
-    """A typed, padded device tensor (+ optional validity, dictionary)."""
+    """A typed, padded device tensor (+ optional validity, dictionary;
+    an Array's per-row lengths)."""
 
     dtype: dt.DType
-    data: torch.Tensor                   # (capacity,)
+    data: torch.Tensor                   # (capacity,) or (capacity, max_len)
     validity: Optional[torch.Tensor] = None  # (capacity,) uint8, 1=valid
     dictionary: Optional[Dictionary] = None
+    lengths: Optional[torch.Tensor] = None   # (capacity,) int32, arrays only
 
     @property
     def capacity(self) -> int:
@@ -240,6 +254,63 @@ def factorize_strings(values: np.ndarray):
     return codes.astype(np.int32), dic
 
 
+_ARRAY_INNER = {"Int8", "Int16", "Int32", "Int64", "UInt8", "UInt16",
+                "UInt32", "UInt64", "Float32", "Float64"}
+
+
+def check_array_type(t: dt.DType) -> None:
+    """Raise NotImplementedError_ naming an Array type whose inner type is
+    not a plain number (Array(String), Array(Tuple(...)), ...)."""
+    inner = dt.array_inner(dt.remove_nullable(t))
+    if inner.name not in _ARRAY_INNER or inner.nullable:
+        raise NotImplementedError_(
+            f"{t} columns are not ported to the CUDA engine yet (Array "
+            f"columns hold a plain number type)")
+
+
+def array_width(k: int) -> int:
+    """The padded width of arrays of at most k elements (a multiple of
+    8, at least 8)."""
+    return max(((k + 7) // 8) * 8, 8)
+
+
+def _array_column(values: np.ndarray, dtype: Optional[dt.DType], n: int,
+                  cap: int, device) -> Column:
+    """An Array(T) column: a (cap, max_len) matrix and int32 lengths.  A
+    2-D numeric matrix is copied in once, with no loop a row; a list a row
+    goes through a loop, as the reference's."""
+    two_d = values.ndim == 2 and values.dtype != object
+    if dtype is None:
+        if two_d:
+            kind = values.dtype.kind
+        else:
+            flat = [x for v in values if v is not None for x in v]
+            if any(isinstance(x, str) for x in flat):
+                raise NotImplementedError_(
+                    "Array(String) columns are not ported to the CUDA "
+                    "engine yet")
+            kind = "f" if any(isinstance(x, float) for x in flat) else "i"
+        dtype = dt.Array(dt.Float64 if kind == "f" else dt.Int64)
+    check_array_type(dtype)
+    inner = dt.array_inner(dtype)
+    lens = np.zeros(cap, np.int32)
+    if two_d:
+        d = values.shape[1]
+        mat = np.zeros((cap, array_width(d)), inner.np_dtype)
+        mat[:n, :d] = values
+        lens[:n] = d
+    else:
+        lists = [list(v) if v is not None else [] for v in values]
+        lens[:n] = [len(v) for v in lists]
+        mat = np.zeros((cap, array_width(int(lens.max(initial=0)))),
+                       inner.np_dtype)
+        for i, v in enumerate(lists):
+            if v:
+                mat[i, :len(v)] = np.asarray(v, inner.np_dtype)
+    return Column(dtype, dt.tensor_from_numpy(mat, device), None,
+                  lengths=dt.tensor_from_numpy(lens, device))
+
+
 def column_from_numpy(values: np.ndarray, dtype: Optional[dt.DType] = None,
                       capacity: Optional[int] = None, *,
                       device) -> Column:
@@ -248,13 +319,18 @@ def column_from_numpy(values: np.ndarray, dtype: Optional[dt.DType] = None,
     values = np.asarray(values)
     n = len(values)
     cap = capacity or pad_to(n)
-    if dtype is not None and (dtype.agg_state is not None or dtype.is_array
+    if dtype is not None and (dtype.agg_state is not None
                               or dt.is_composite(dtype)):
         raise NotImplementedError_(
             f"{dtype} columns are not ported to the CUDA engine yet")
+    if (dtype is not None and dtype.is_array) or values.ndim == 2 or (
+            dtype is None and values.dtype == object and n
+            and all(isinstance(v, (list, tuple, np.ndarray))
+                    for v in values)):
+        return _array_column(values, dtype, n, cap, device)
     if values.ndim != 1:
         raise NotImplementedError_(
-            "Array columns are not ported to the CUDA engine yet")
+            f"{values.ndim}-d columns are not ported to the CUDA engine yet")
 
     validity_np = None
     if values.dtype == object:
@@ -267,10 +343,6 @@ def column_from_numpy(values: np.ndarray, dtype: Optional[dt.DType] = None,
         import datetime as _dtime
         if all(isinstance(v, str) for v in values):
             values = values.astype(object)
-        elif len(values) and all(isinstance(v, (list, tuple, np.ndarray))
-                                 for v in values):
-            raise NotImplementedError_(
-                "Array columns are not ported to the CUDA engine yet")
         elif len(values) and all(isinstance(v, (_dtime.datetime,
                                                 _dtime.date)) for v in values):
             import calendar as _cal

@@ -177,12 +177,15 @@ def _filter_term(expr, env: Dict[str, ColVal],
 
 
 def _gather_colval(cv: ColVal, idx: torch.Tensor, capacity: int) -> ColVal:
-    """The column's rows at idx (a column stored narrow stays narrow)."""
+    """The column's rows at idx (a column stored narrow stays narrow; an
+    Array's rows with their lengths)."""
     cv = cv.broadcast(capacity)
     validity = cv.validity[idx] if cv.validity is not None else None
     if isinstance(cv, StoredColVal):
         return StoredColVal(cv.dtype, cv.storage[idx], validity)
-    return ColVal(cv.dtype, cv.data[idx], validity, cv.dictionary)
+    lengths = cv.lengths[idx] if cv.lengths is not None else None
+    return ColVal(cv.dtype, cv.data[idx], validity, cv.dictionary,
+                  lengths=lengths)
 
 
 def _arange(n: int, device, dtype=torch.int64) -> torch.Tensor:
@@ -380,8 +383,10 @@ def _stage1(node: L.AggregateNode, child: ExecBlock,
         grouping = agg_ops.group_trivial(ctx.device, cap_g)
     elif dims is not None:
         # provably-small key space: direct-array grouping (K2)
-        grouping = agg_ops.group_by_dense([k.data for k in key_arrays],
-                                          dims, rows, cap_g)
+        grouping = agg_ops.group_by_dense(
+            [k.data for k in key_arrays], dims, rows, cap_g,
+            max_bytes=ctx.memory_headroom,
+            held_bytes=_dense_held_bytes(per_agg_inputs, cap, cap_g))
     else:
         # the generic path: a stable sort by the keys (K4, K5), then K6
         grouping = agg_ops.group_by_sort(key_arrays, rows, cap_g,
@@ -419,6 +424,18 @@ def _stage1(node: L.AggregateNode, child: ExecBlock,
         results = results[k:]
         states_per_agg.append((item, arg_cvs, states))
     return grouping, group_counts, states_per_agg
+
+
+def _dense_held_bytes(per_agg_inputs, cap: int, cap_g: int) -> int:
+    """What K2's pass holds beside the dense grouping: each aggregate's
+    summed value at its logical width and a row mask (a byte a row), and
+    its int64 outputs (a count and a sum of cap_g slots each)."""
+    held = 8 * cap_g
+    for item, arg_cvs, _, _ in per_agg_inputs:
+        held += cap + 16 * cap_g
+        if isinstance(item.fn, (agg_reg.SumAgg, agg_reg.AvgAgg)):
+            held += cap * dt.remove_nullable(arg_cvs[0].dtype).itemsize
+    return held
 
 
 def _dense_stage1(grouping, child: ExecBlock, gctx, per_agg_inputs):
@@ -1160,6 +1177,21 @@ _DISPATCH: Dict[type, Callable] = {
 
 # -- materialization ---------------------------------------------------------
 
+def _array_rows(cv: ColVal, data: np.ndarray, valid_np: np.ndarray
+                ) -> np.ndarray:
+    """An Array result's visible rows (data: their (rows, max_len)
+    matrix) as Python lists of their first `length` elements, as the
+    reference gives them (lengths None: full-width rows)."""
+    if cv.lengths is None:
+        lens = np.full(len(data), data.shape[-1])
+    else:
+        lens = cv.lengths.cpu().numpy()[valid_np]
+    rows = np.empty(len(data), object)
+    for i in range(len(data)):
+        rows[i] = data[i][:lens[i]].tolist()
+    return rows
+
+
 def materialize(block: ExecBlock, schema: List[L.Field],
                 ctx: Optional[ExecContext] = None) -> Dict[str, np.ndarray]:
     """Pull the visible rows to host, in order (first host sync point),
@@ -1174,13 +1206,14 @@ def materialize(block: ExecBlock, schema: List[L.Field],
     out: Dict[str, np.ndarray] = {}
     for f in schema:
         cv = block.cols[f.id].broadcast(block.capacity)
-        if cv.dtype.is_array or dt.is_composite(cv.dtype) \
-                or cv.dtype.agg_state is not None:
+        if dt.is_composite(cv.dtype) or cv.dtype.agg_state is not None:
             raise NotImplementedError_(
                 f"{cv.dtype} results are not ported to the CUDA engine yet")
         data = dt.to_numpy_storage(
             cv.data, dt.remove_nullable(cv.dtype).np_dtype)[valid_np]
-        if cv.dtype.is_dictionary:
+        if cv.dtype.is_array:
+            data = _array_rows(cv, data, valid_np)
+        elif cv.dtype.is_dictionary:
             codes = data.astype(np.int64)
             vals = np.empty(len(codes), object)
             d = cv.dictionary

@@ -21,7 +21,7 @@ import torch
 
 from ..core import dtypes as dt
 from ..core import typed
-from ..core.column import pad_to
+from ..core.column import check_array_type, pad_to
 from ..core.errors import (AnalysisError, CapacityError, MemoryLimitExceeded,
                            NotImplementedError_)
 from ..core.settings import Settings
@@ -184,10 +184,19 @@ class Session:
         return budget - est
 
     def _execute(self, plan: L.PlanNode, settings: Settings):
+        from .streaming import cached_chars_bytes
         headroom = self._governor_check(plan, settings)
         blocks = self._collect_table_blocks(plan)
+        # a string dictionary's chars, cached on the device by an earlier
+        # query, count against every query that reads the column
+        chars = cached_chars_bytes(plan, blocks, self.device)
+        if chars > headroom:
+            raise MemoryLimitExceeded(
+                f"query would need its estimate and {chars} bytes of cached "
+                f"string dictionary chars ({max(headroom, 0)} bytes of the "
+                f"budget left beside the estimate)")
         ctx = ExecContext(blocks, settings, device=self.device)
-        ctx.memory_headroom = headroom
+        ctx.memory_headroom = headroom - chars
         out = execute_plan(plan, ctx)
         cols = materialize(out, plan.schema, ctx)
         # WITH TOTALS: the totals block's one row, as the result's columns
@@ -213,7 +222,17 @@ class Session:
         for c in stmt.columns:
             if not c.type_name:
                 raise AnalysisError(f"Column '{c.name}' needs a type")
-            schema.append((c.name, dt.parse_type_name(c.type_name)))
+            try:
+                t = dt.parse_type_name(c.type_name)
+            except ValueError as e:        # nested arrays
+                if not c.type_name.lower().startswith("array("):
+                    raise
+                raise NotImplementedError_(
+                    f"{c.type_name} columns are not ported to the CUDA "
+                    f"engine yet ({e})") from None
+            if t.is_array:
+                check_array_type(t)
+            schema.append((c.name, t))
         t = Table(stmt.table, schema, stmt.engine,
                   order_by=[ast.format_expr(e) for e in (stmt.order_by or [])],
                   device=self.device)
@@ -270,6 +289,8 @@ def _literal_value(e: ast.Expr, evalr=None):
     if isinstance(e, ast.FuncCall) and e.name == "negate" \
             and isinstance(e.args[0], ast.Literal):
         return -e.args[0].value
+    if isinstance(e, ast.FuncCall) and e.name == "array":
+        return [_literal_value(x, evalr) for x in e.args]
     if evalr is not None:
         return evalr(e)
     raise AnalysisError("INSERT VALUES must be literals")
@@ -284,11 +305,19 @@ def _align_insert(data: Dict[str, np.ndarray], table: Table
             raise AnalysisError(f"Unknown column '{name}' in INSERT")
         ctype = table.schema[name]
         v = np.asarray(vals)
-        if ctype.agg_state is not None or ctype.is_array \
-                or dt.is_composite(ctype):
+        if ctype.agg_state is not None or dt.is_composite(ctype):
             raise NotImplementedError_(
                 f"{ctype} columns are not ported to the CUDA engine yet")
-        if ctype.is_dictionary:
+        if ctype.is_array:
+            if v.ndim == 2 and v.dtype != object:
+                out[name] = v        # a vector matrix goes in as it is
+                continue
+            rows = np.empty(len(v), object)     # a list a row
+            for i, x in enumerate(v):
+                rows[i] = list(x) if isinstance(
+                    x, (list, tuple, np.ndarray)) else x
+            out[name] = rows
+        elif ctype.is_dictionary:
             if dt.remove_nullable(ctype).fixed_len is not None:
                 raise NotImplementedError_(
                     "FixedString columns are not ported to the CUDA engine "

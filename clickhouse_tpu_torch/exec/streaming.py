@@ -14,7 +14,8 @@ from ..core.settings import Settings
 from ..plan import logical as L
 
 __all__ = ["estimate_plan_device_bytes", "effective_memory_budget",
-           "estimate_plan_scan_bytes", "check_not_streamed"]
+           "estimate_plan_scan_bytes", "check_not_streamed",
+           "cached_chars_bytes"]
 
 
 def _collect_scans(node: L.PlanNode, out: List[L.ScanNode]) -> None:
@@ -41,6 +42,22 @@ def estimate_plan_scan_bytes(plan: L.PlanNode, catalog) -> int:
         t = catalog.get_table(*key)
         if t.num_rows:
             total += t.physical_bytes(cols)
+    return total
+
+
+def cached_chars_bytes(plan: L.PlanNode, blocks, device) -> int:
+    """Device bytes of the string dictionaries' chars cached on `device`
+    (Dictionary.device_chars) among the columns the plan scans: memory
+    that a query reading them holds beside the estimate, whichever query
+    built them.  blocks: (database, table) -> the scanned Block."""
+    total, seen = 0, set()
+    for key, cols in _scanned_columns(plan).items():
+        blk = blocks[key]
+        for c in cols:
+            d = blk[c].dictionary
+            if d is not None and id(d) not in seen:
+                seen.add(id(d))
+                total += d.cached_chars_bytes(device)
     return total
 
 

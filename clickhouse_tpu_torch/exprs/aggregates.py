@@ -32,7 +32,7 @@ from ..ops import agg_ops
 from .expr import ColVal
 
 __all__ = ["AggregateFunction", "get_aggregate", "is_aggregate_name",
-           "AGGREGATES", "GroupContext"]
+           "AGGREGATES", "REFERENCE_AGGREGATES", "GroupContext"]
 
 # the states of an aggregate from its reductions' results
 Finish = Callable[[List[torch.Tensor]], List[torch.Tensor]]
@@ -299,23 +299,75 @@ _BASE: Dict[str, type] = _register_base()
 AGGREGATES = _BASE
 
 
+# Every aggregate name the reference registers (lower case, its
+# AGGREGATES once all of its modules are loaded; a test holds the copy to
+# that registry).  The analyzer treats each as an aggregate call, so an
+# unported one reaches get_aggregate and raises there, naming it.
+REFERENCE_AGGREGATES = frozenset({
+    "aggthrow", "analysisofvariance", "anova", "any", "any_respect_nulls",
+    "any_value", "anyheavy", "anylast", "anylast_respect_nulls", "argmax",
+    "argmin", "avg", "avgweighted", "boundingratio", "contingency", "corr",
+    "corrstable", "count", "countdistinct", "covar_pop", "covar_samp",
+    "covarpop", "covarpopstable", "covarsamp", "covarsampstable", "cramersv",
+    "cramersvbiascorrected", "deltasum", "deltasumtimestamp", "entropy",
+    "exponentialmovingaverage", "exponentialtimedecayedavg",
+    "exponentialtimedecayedcount", "exponentialtimedecayedmax",
+    "exponentialtimedecayedsum", "first_value", "first_value_respect_nulls",
+    "grouparray", "grouparraydistinct", "grouparraylast",
+    "grouparraymovingavg", "grouparraymovingsum", "grouparraysample",
+    "grouparraysorted", "groupbitand", "groupbitmap", "groupbitor",
+    "groupbitxor", "groupuniqarray", "intervallengthsum",
+    "kolmogorovsmirnovtest", "kurtpop", "kurtsamp", "last_value",
+    "last_value_respect_nulls", "mannwhitneyutest", "max", "maxintersections",
+    "maxintersectionsposition", "maxmap", "maxmappedarrays", "meanztest",
+    "median", "medianbfloat16", "mediandd", "mediandeterministic",
+    "medianexact", "medianexacthigh", "medianexactlow", "medianexactweighted",
+    "medianinterpolatedweighted", "mediantdigest", "mediantdigestweighted",
+    "mediantiming", "mediantimingweighted", "min", "minmap",
+    "minmappedarrays", "nothing", "quantile", "quantilebfloat16",
+    "quantilebfloat16weighted", "quantiledd", "quantiledeterministic",
+    "quantileexact", "quantileexactexclusive", "quantileexacthigh",
+    "quantileexactinclusive", "quantileexactlow", "quantileexactweighted",
+    "quantilegk", "quantileinterpolated", "quantileinterpolatedweighted",
+    "quantiles", "quantilesbfloat16", "quantilesdd", "quantilesdeterministic",
+    "quantilesexact", "quantilesexactexclusive", "quantilesexacthigh",
+    "quantilesexactinclusive", "quantilesexactlow", "quantilesexactweighted",
+    "quantilesgk", "quantilesinterpolated", "quantilestdigest",
+    "quantilestiming", "quantiletdigest", "quantiletdigestweighted",
+    "quantiletiming", "quantiletimingweighted", "rankcorr", "retention",
+    "sequencematch", "simplelinearregression", "singlevalueornull", "skewpop",
+    "skewsamp", "stddev_pop", "stddev_samp", "stddevpop", "stddevpopstable",
+    "stddevsamp", "stddevsampstable", "stochasticlinearregression",
+    "studentttest", "sum", "sumcount", "sumkahan", "summap",
+    "summappedarrays", "sumwithoverflow", "theilsu", "topk", "topkweighted",
+    "uniq", "uniqcombined", "uniqcombined64", "uniqexact", "uniqhll12",
+    "uniqtheta", "uniqthetasketch", "uniqupto", "var_pop", "var_samp",
+    "varpop", "varpopstable", "varsamp", "varsampstable", "welchttest",
+    "windowfunnel"})
+
 # combinators get_aggregate knows and refuses as not ported
 _UNPORTED_COMBINATORS = ("state", "merge", "array", "foreach", "distinct",
                          "ornull", "ordefault")
+_COMBINATORS = ("if",) + _UNPORTED_COMBINATORS
 
 
 def is_aggregate_name(name: str) -> bool:
-    """Whether the analyzer should treat `name` as an aggregate call:
-    the ported ones, -If, and the unported combinators of a ported
-    aggregate (get_aggregate then raises NotImplementedError_ naming
-    them)."""
+    """Whether the analyzer should treat `name` as an aggregate call: a
+    name of the reference's registry, after its combinator suffixes are
+    stripped as the reference strips them (-If, -State and -Merge always;
+    the others where what remains is an aggregate's name)."""
     base = name.lower()
-    if base in _BASE:
-        return True
-    if base.endswith("if") and base[:-2] in _BASE:
-        return True
-    return any(base.endswith(suf) and is_aggregate_name(base[:-len(suf)])
-               for suf in _UNPORTED_COMBINATORS)
+    changed = True
+    while changed and base not in REFERENCE_AGGREGATES:
+        changed = False
+        for suf in _COMBINATORS:
+            if base.endswith(suf) and len(base) > len(suf) \
+                    and (suf in ("if", "state", "merge")
+                         or base[:-len(suf)] in REFERENCE_AGGREGATES):
+                base = base[:-len(suf)]
+                changed = True
+                break
+    return base in REFERENCE_AGGREGATES
 
 
 def get_aggregate(name: str, arg_types: List[dt.DType],
@@ -334,5 +386,9 @@ def get_aggregate(name: str, arg_types: List[dt.DType],
                 raise NotImplementedError_(
                     f"Combinator -{suf} ('{name}') is not ported to the "
                     f"CUDA engine yet")
+        if is_aggregate_name(lname):
+            raise UnknownFunction(
+                f"Aggregate function '{name}' is not ported to the CUDA "
+                f"engine yet")
         raise UnknownFunction(f"Unknown aggregate function '{name}'")
     return _BASE[lname](arg_types), has_if

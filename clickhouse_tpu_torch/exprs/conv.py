@@ -3,7 +3,8 @@
 One `_cast` scalar function covers the ported (source, target) pairs:
 numeric <-> numeric and Bool, Date/DateTime from numbers and between each
 other, String <-> numbers (host dictionary lookup tables; numbers become
-strings on the host, since execution is eager).  Decimal, DateTime64,
+strings on the host, since execution is eager), and Array to Array of
+numbers (element by element, lengths kept).  Decimal, DateTime64,
 Enum, FixedString, UUID and IP targets raise ``NotImplementedError_``.
 """
 from __future__ import annotations
@@ -15,7 +16,7 @@ import torch
 
 from ..core import dtypes as dt
 from ..core import typed
-from ..core.column import Dictionary
+from ..core.column import Dictionary, check_array_type
 from ..core.errors import NotImplementedError_, TypeError_
 from .expr import ColVal, storage_np
 from .functions import _and_validity, register
@@ -52,7 +53,13 @@ def cast_exec(args, out_dtype: dt.DType) -> ColVal:
     dst = dt.remove_nullable(out_dtype)
     v = _and_validity(args)
     if src == dst:
-        return ColVal(out_dtype, a.data, v, a.dictionary)
+        return ColVal(out_dtype, a.data, v, a.dictionary, lengths=a.lengths)
+    if src.is_array and dst.is_array:
+        # element cast, each row's length kept
+        check_array_type(dst)
+        return ColVal(out_dtype, dt.cast_tensor(
+            a.data, dt.array_inner(src).np_dtype,
+            dt.array_inner(dst).np_dtype), v, lengths=a.lengths)
     for t in (src, dst):
         if dt.is_decimal(t) or dt.is_datetime64(t) or dt.is_enum(t) \
                 or t.fixed_len is not None or t.is_array \

@@ -36,7 +36,9 @@ class ColVal:
     """A column value during evaluation: device data + metadata.
 
     data may be a full (capacity,) tensor or a 0-d tensor (constants
-    broadcast lazily, the reference's ColumnConst analog).
+    broadcast lazily, the reference's ColumnConst analog).  An Array(T)
+    value is a (capacity, max_len) matrix with (capacity,) int32 lengths,
+    or, as a constant, a (max_len,) row with 0-d lengths.
     """
     dtype: dt.DType
     data: Any                          # torch tensor (0-d or (cap,))
@@ -44,10 +46,12 @@ class ColVal:
     dictionary: Optional[Dictionary] = None
     bounds: Optional[tuple] = None     # proven integer value range
     host: Any = None                   # python value of a literal
+    lengths: Optional[Any] = None      # Array(T): elements a row (int32)
 
     @property
     def is_const(self) -> bool:
-        return getattr(self.data, "ndim", 0) == 0
+        nd = getattr(self.data, "ndim", 0)
+        return nd <= 1 if self.dtype.is_array else nd == 0
 
     @property
     def storage(self):
@@ -55,15 +59,22 @@ class ColVal:
         return self.data
 
     def broadcast(self, capacity: int) -> "ColVal":
-        data = self.data
+        data, lengths = self.data, self.lengths
         if self.is_const:
-            data = data.expand(capacity)
+            if self.dtype.is_array:
+                data = data.expand(capacity, data.shape[-1])
+                if lengths is not None and lengths.dim() == 0:
+                    lengths = lengths.expand(capacity)
+            else:
+                data = data.expand(capacity)
         v = self.validity
         if v is not None and getattr(v, "ndim", 0) == 0:
             v = v.expand(capacity)
-        if data is self.data and v is self.validity:
+        if data is self.data and v is self.validity \
+                and lengths is self.lengths:
             return self
-        return ColVal(self.dtype, data, v, self.dictionary, self.bounds)
+        return ColVal(self.dtype, data, v, self.dictionary, self.bounds,
+                      lengths=lengths)
 
 
 def storage_np(cv: ColVal) -> np.dtype:
@@ -105,10 +116,11 @@ class StoredColVal(ColVal):
 
 
 def colval_from_column(col: Column) -> ColVal:
-    if not col.dtype.is_dictionary \
+    if not col.dtype.is_dictionary and not col.dtype.is_array \
             and col.data.dtype != dt.remove_nullable(col.dtype).torch_dtype:
         return StoredColVal(col.dtype, col.data, col.validity)
-    return ColVal(col.dtype, col.data, col.validity, col.dictionary)
+    return ColVal(col.dtype, col.data, col.validity, col.dictionary,
+                  lengths=col.lengths)
 
 
 # -- bound expression nodes --------------------------------------------------
@@ -205,6 +217,13 @@ def evaluate(expr: BoundExpr, env: Dict[str, ColVal],
     if isinstance(expr, BoundLiteral):
         return _literal_colval(expr, _env_device(env))
     if isinstance(expr, BoundCall):
+        if expr.name == "array" and expr.args and all(
+                isinstance(a, BoundLiteral) and a.value is not None
+                for a in expr.args):
+            # an array of literals: one row built on the host, one copy
+            return _literal_colval(BoundLiteral(
+                [a.value for a in expr.args], expr.dtype),
+                _env_device(env))
         from . import functions
         fn = functions.get(expr.name)
         args = [evaluate(a, env, max_bytes) for a in expr.args]
@@ -265,9 +284,19 @@ def _literal_colval(expr: BoundLiteral, device) -> ColVal:
         d = Dictionary(np.asarray([v], dtype=object))
         return ColVal(t, torch.zeros((), dtype=torch.int32, device=device),
                       None, d, host=v)
-    if dt.is_composite(t) or t.is_array:
+    if dt.is_composite(t):
         raise NotImplementedError_(
             f"{t} literals are not ported to the CUDA engine yet")
+    if t.is_array:
+        # a (max_len,) row, zero past its length, as the array constructor
+        # makes it
+        from ..core.column import array_width
+        vals = np.asarray(list(v), dt.array_inner(t).np_dtype)
+        row = np.zeros(array_width(len(vals)), vals.dtype)
+        row[:len(vals)] = vals
+        return ColVal(t, dt.tensor_from_numpy(row, device), host=list(v),
+                      lengths=torch.tensor(len(vals), dtype=torch.int32,
+                                           device=device))
     bounds = (int(v), int(v)) if isinstance(v, (int, np.integer)) \
         and not isinstance(v, bool) else None
     arr = np.asarray(v).astype(t.np_dtype).reshape(())

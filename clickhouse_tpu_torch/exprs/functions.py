@@ -1,8 +1,9 @@
 """Scalar function registry (reference: clickhouse_tpu/exprs/functions.py).
 
 Ported families: comparison, arithmetic, logic, conditional / NULL
-handling, casts and the dictionary strings (length, lower, LIKE,
-startsWith, substring, concat, ...).  Everything runs as plain elementwise
+handling, casts, the dictionary strings (length, lower, LIKE,
+startsWith, substring, concat, ...), the array() constructor over
+numbers, and (functions_ext.py) the vector distances and norms.  Everything runs as plain elementwise
 torch on the block's tensors; string functions compute a lookup table a
 dictionary value (host numpy, or K10 on the device for a prefix or
 suffix) that the rows gather by code.  A function
@@ -933,26 +934,43 @@ register("substr", lambda ts: dt.String.with_nullable(ts[0].nullable),
          _substring_exec, case_insensitive=True)
 
 
+def _const_text(a: ColVal) -> str:
+    return str(a.dictionary.values[0])
+
+
 def _concat_exec(args, out_dtype):
-    # a constant and one column through the column's LUT; two columns by
-    # the product of their (small) dictionaries; more pairwise
+    # every constant is folded into a neighbouring column's LUT (the ones
+    # before the first column into its prefix, every other one into the
+    # suffix of the column before it); the columns then concatenate by the
+    # product of their (small) dictionaries, pairwise
     dev = args[0].data.device
-    non_const = [a for a in args if not a.is_const]
-    if len(non_const) <= 1:
-        col = non_const[0] if non_const else None
-        if col is None:
-            s = "".join(str(a.dictionary.values[0]) for a in args)
-            d = Dictionary(np.asarray([s], object))
-            return ColVal(out_dtype, torch.zeros((), dtype=torch.int32,
-                                                 device=dev), None, d)
-        idx = next(i for i, a in enumerate(args) if a is col)
-        pre = "".join(str(a.dictionary.values[0]) for a in args[:idx])
-        post = "".join(str(a.dictionary.values[0]) for a in args[idx + 1:])
-        return _string_fn_lut(
-            lambda s: pre + s + post, object,
-            vec_fn=lambda sv: np.char.add(np.char.add(pre, sv), post))(
-            [col], out_dtype)
-    a, b = non_const[0], non_const[1]
+    cols = [i for i, a in enumerate(args) if not a.is_const]
+    if not cols:
+        d = Dictionary(np.asarray(["".join(_const_text(a) for a in args)],
+                                  object))
+        return ColVal(out_dtype, torch.zeros((), dtype=torch.int32,
+                                             device=dev), None, d)
+    folded = []
+    for j, i in enumerate(cols):
+        pre = "".join(_const_text(a) for a in args[:i]) if j == 0 else ""
+        end = cols[j + 1] if j + 1 < len(cols) else len(args)
+        post = "".join(_const_text(a) for a in args[i + 1:end])
+        col = args[i]
+        if pre or post:
+            col = _string_fn_lut(
+                lambda s, pre=pre, post=post: pre + s + post, object,
+                vec_fn=lambda sv, pre=pre, post=post: np.char.add(
+                    np.char.add(pre, sv), post))([col], out_dtype)
+        folded.append(col)
+    out = folded[0]
+    for b in folded[1:]:
+        out = _concat_pair(out, b, out_dtype)
+    return out
+
+
+def _concat_pair(a: ColVal, b: ColVal, out_dtype) -> ColVal:
+    """Two String columns concatenated: a LUT over the product of their
+    dictionaries, gathered by both codes."""
     da = a.dictionary.values if a.dictionary else np.asarray([], object)
     db = b.dictionary.values if b.dictionary else np.asarray([], object)
     if len(da) * len(db) > 1 << 20:
@@ -962,17 +980,73 @@ def _concat_exec(args, out_dtype):
                       object)
     uniq, codes = np.unique(prod.astype(str), return_inverse=True)
     lut = torch.from_numpy(codes.astype(np.int32).reshape(
-        max(len(da), 1), max(len(db), 1))).to(dev)
+        max(len(da), 1), max(len(db), 1))).to(a.data.device)
     data = lut[a.data.clamp(min=0).long(), b.data.clamp(min=0).long()]
-    out = ColVal(out_dtype, data, _and_validity(args),
-                 Dictionary(uniq.astype(object), sorted_=True))
-    if len(non_const) > 2:
-        return _concat_exec([out] + non_const[2:], out_dtype)
-    return out
+    return ColVal(out_dtype, data, _and_validity([a, b]),
+                  Dictionary(uniq.astype(object), sorted_=True))
 
 
 register("concat", lambda ts: dt.String.with_nullable(
     any(t.nullable for t in ts)), _concat_exec, case_insensitive=True)
+
+
+# -- arrays (padded (rows, max_len) + lengths; SURVEY §2.1 ColumnArray) ------
+# The base of the reference's array section: the element mask, the array()
+# constructor over numbers, and the argument check the vector functions of
+# functions_ext.py use.  Array(String) and arrays of tuples are not ported.
+
+def _elem_mask(cv: ColVal) -> torch.Tensor:
+    """Bool mask of the elements inside each row's length."""
+    ml = cv.data.shape[-1]
+    idx = torch.arange(ml, device=cv.data.device)
+    if cv.lengths is None:       # no lengths recorded: full-width rows
+        return torch.ones(cv.data.shape, dtype=torch.bool,
+                          device=cv.data.device)
+    return idx < cv.lengths[..., None].to(torch.int64)
+
+
+def _resolve_array_ctor(ts):
+    from ..core.column import check_array_type
+    if not ts:
+        return dt.Array(dt.Int64)
+    inner = ts[0]
+    for t in ts[1:]:
+        inner = dt.common_supertype(inner, t)
+    out = dt.Array(dt.remove_nullable(inner))
+    check_array_type(out)
+    return out
+
+
+def _array_ctor_exec(args, out_dtype):
+    """array(x1, ..., xk) over numbers: each row's k values, zero-padded
+    to a multiple of 8; a constant when every argument is one (1-d data,
+    0-d lengths), as the reference builds it."""
+    from ..core.column import array_width
+    inner = dt.array_inner(out_dtype)
+    k = len(args)
+    dev = args[0].data.device if args else torch.device("cpu")
+    ml = array_width(k)
+    if k == 0:
+        return ColVal(out_dtype, torch.zeros(ml, dtype=inner.torch_dtype,
+                                             device=dev),
+                      lengths=torch.zeros((), dtype=torch.int32, device=dev))
+    vals = torch.broadcast_tensors(*[_as(a, inner.np_dtype) for a in args])
+    stacked = torch.stack(vals, dim=-1)
+    pad = torch.zeros(stacked.shape[:-1] + (ml - k,), dtype=stacked.dtype,
+                      device=dev)
+    data = torch.cat([stacked, pad], dim=-1)
+    lengths = torch.full(stacked.shape[:-1], k, dtype=torch.int32,
+                         device=dev)
+    return ColVal(out_dtype, data, _and_validity(args), lengths=lengths)
+
+
+register("array", _resolve_array_ctor, _array_ctor_exec)
+
+
+def _array_arg(a: ColVal) -> ColVal:
+    if not a.dtype.is_array:
+        raise TypeError_("Expected an Array argument")
+    return a
 
 
 # -- type conversions --------------------------------------------------------
@@ -1011,3 +1085,4 @@ register("toString", lambda ts: dt.String.with_nullable(ts[0].nullable),
          _to_string_exec)
 
 from . import conv as _conv_module  # noqa: E402,F401  (registers _cast etc.)
+from . import functions_ext as _ext_module  # noqa: E402,F401  (distances)

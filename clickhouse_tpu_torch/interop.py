@@ -21,7 +21,10 @@ def table_from_numpy(session, name: str, columns: Dict[str, np.ndarray],
                      database: str = None) -> Table:
     """Create table `name` in `session` with `types` (DType or type name
     per column, in the order of `columns`) and insert `columns` as one
-    part.  Object arrays may hold None for NULL in Nullable columns."""
+    part.  Object arrays may hold None for NULL in Nullable columns.  An
+    Array(T) column is a 2-D (N, W) numpy matrix (every row W elements,
+    the form the reference's insert_pydict takes too) or an object array
+    of a list a row."""
     db = database or session.catalog.current_database
     schema = []
     for col in columns:

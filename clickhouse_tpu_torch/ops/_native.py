@@ -33,7 +33,8 @@ __all__ = ["LAUNCHES", "LAUNCH_ROWS", "KernelBuildError", "build", "library",
            "dtype_code", "grid_blocks", "aligned16", "K1_MAX_TERMS",
            "K1Term", "K1Args", "K6_MAX_SPECS", "K6_MAX_DATA", "K6_MAX_MASKS",
            "K6Spec", "K6Count", "K6Args", "K7_MAX_ENTRIES", "K7Word",
-           "K7Out", "K7Args", "K8_MAX_KEYS", "K8_MAX_WORDS", "K8Args", "K9Args"]
+           "K7Out", "K7Args", "K8_MAX_KEYS", "K8_MAX_WORDS", "K8Args", "K9Args",
+           "K11_MAX_WIDTH"]
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -46,7 +47,8 @@ LAUNCHES: Dict[str, int] = {"masked_reduce": 0, "dense_group_reduce": 0,
                             "topk_smallest": 0, "radix_sort_pairs": 0,
                             "segment_bounds": 0, "segment_reduce": 0,
                             "dense_join": 0, "hash_join": 0,
-                            "expand_matches": 0, "prefix_match": 0}
+                            "expand_matches": 0, "prefix_match": 0,
+                            "vector_distance": 0}
 # kernel name -> row count of each launch since the last reset
 LAUNCH_ROWS: Dict[str, List[int]] = {k: [] for k in LAUNCHES}
 
@@ -181,6 +183,9 @@ class K9Args(ctypes.Structure):
                 ("mask", ctypes.c_void_p)]
 
 
+K11_MAX_WIDTH = 4096   # kMaxWidth of csrc/vector_distance.cu
+
+
 class KernelBuildError(RuntimeError):
     """nvcc is missing or refused the sources (message holds its stderr)."""
 
@@ -298,6 +303,9 @@ def library() -> ctypes.CDLL:
             lib.chtt_prefix_match.argtypes = [P, P, I, LL, P, I, I, I, P, I,
                                               P]
             lib.chtt_prefix_match.restype = I
+            lib.chtt_vector_distance.argtypes = [P, P, P, LL, LL, I, I, P,
+                                                 I, P]
+            lib.chtt_vector_distance.restype = I
             lib.chtt_error_string.argtypes = [I]
             lib.chtt_error_string.restype = ctypes.c_char_p
             _LIB = lib

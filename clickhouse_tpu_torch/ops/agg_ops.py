@@ -32,10 +32,12 @@ import numpy as np
 import torch
 
 from ..core import dtypes as dt
+from ..core.errors import MemoryLimitExceeded
 from . import _native, mxu_segsum, scan_ops, sort_ops
 
 __all__ = ["Grouping", "RowMask", "Term", "group_by_sort", "group_by_dense",
-           "group_trivial", "masked_reduce", "ReduceSpec"]
+           "dense_group_bytes", "group_trivial", "masked_reduce",
+           "ReduceSpec"]
 
 _OPS = {"sum": 0, "min": 1, "max": 2, "any": 3, "bor": 4, "band": 5,
         "bxor": 6}
@@ -570,29 +572,62 @@ def group_by_sort(keys: Sequence[sort_ops.SortKey],
                     row_valid_ref=rows)
 
 
+# device bytes a row of the dense grouping and its K2 pass hold at their
+# peak, counted as if all were live at once: the int64 slot array and one
+# key's int64 offsets beside it (16), the int32 ids (4), and the dense
+# stage's row mask, its comparison and its clamped int32 ids (1 + 1 + 4,
+# exec/executor.py _dense_stage1)
+DENSE_ROW_BYTES = 26
+
+
+def dense_group_bytes(cap: int, held_bytes: int = 0) -> int:
+    """The dense grouping's working set over `cap` rows (DENSE_ROW_BYTES a
+    row) and the caller's `held_bytes` (K2's summed values, masks and
+    outputs)."""
+    return DENSE_ROW_BYTES * cap + held_bytes
+
+
 def group_by_dense(keys: Sequence[torch.Tensor],
                    dims: Sequence[Tuple[int, int]],
                    row_valid: torch.Tensor, num_groups_cap: int,
-                   present: Optional[torch.Tensor] = None) -> Grouping:
+                   present: Optional[torch.Tensor] = None, *,
+                   max_bytes: Optional[int] = None,
+                   held_bytes: int = 0) -> Grouping:
     """Direct-array grouping: slot computed from the key.
 
     dims[i] = (lo_i, size_i) proven bounds per key array; the first key
     varies fastest.  `present`/num_groups are filled in by the caller from
-    the dense counts.
+    the dense counts.  max_bytes: raise MemoryLimitExceeded, before
+    allocating, where dense_group_bytes (the slots, the ids, the dense
+    stage's passes and the caller's `held_bytes`) is larger.  The slots
+    are computed in place, one key's int64 offsets beside them.
     """
     cap = keys[0].shape[0]
     dev = keys[0].device
-    slot = torch.zeros((cap,), dtype=torch.int64, device=dev)
-    stride = 1
     total = 1
-    for k, (lo, size) in zip(keys, dims):
-        d = torch.clamp(k.to(torch.int64) - lo, 0, size - 1)
-        slot = slot + d * stride
-        stride *= size
+    for _, size in dims:
         total *= size
     if total > num_groups_cap:
         raise ValueError("dense grouping exceeds capacity")
-    ids = torch.where(row_valid, slot, num_groups_cap).to(torch.int32)
+    if max_bytes is not None:
+        need = dense_group_bytes(cap, held_bytes)
+        if need > max_bytes:
+            raise MemoryLimitExceeded(
+                f"grouping {cap} rows densely would need {need} bytes of "
+                f"device memory ({max(max_bytes, 0)} bytes of the budget "
+                f"left)")
+    slot = None
+    stride = 1
+    for k, (lo, size) in zip(keys, dims):
+        d = k.to(torch.int64, copy=True).sub_(lo).clamp_(0, size - 1)
+        if stride != 1:
+            d.mul_(stride)
+        slot = d if slot is None else slot.add_(d)
+        del d
+        stride *= size
+    slot.masked_fill_(~row_valid, num_groups_cap)
+    ids = slot.to(torch.int32)
+    del slot
     uks = []
     idx = torch.arange(num_groups_cap, dtype=torch.int64, device=dev)
     stride = 1

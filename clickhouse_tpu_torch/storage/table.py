@@ -6,7 +6,8 @@ tensors on the table's device once after each insert.
 
 Ported: in-memory tables of any engine name (no merges, replication,
 persistence, skip indexes, JSON/Variant shredding, remote sources or
-system tables).
+system tables).  An Array column's part is a 2-D numpy matrix (a vector
+column, kept as it is) or an object array of a list a row.
 """
 from __future__ import annotations
 
@@ -44,7 +45,7 @@ class Part:
         if name in self._unique:
             return self._unique[name]
         v = self.columns.get(name)
-        if v is None or v.dtype == object \
+        if v is None or v.dtype == object or v.ndim != 1 \
                 or v.dtype.kind not in ("i", "u", "f") \
                 or len(v) > self.UNIQUE_STAT_MAX_ROWS:
             return None
@@ -58,7 +59,8 @@ class Part:
         minmax = {}
         for name, vals in data.items():
             v = np.asarray(vals)
-            if v.dtype != object and v.dtype.kind in "iuf" and len(v):
+            if v.dtype != object and v.ndim == 1 and v.dtype.kind in "iuf" \
+                    and len(v):
                 minmax[name] = (float(v.min()), float(v.max()))
         return Part({k: np.asarray(v) for k, v in data.items()}, n, minmax)
 
@@ -106,6 +108,8 @@ class Table:
                     raise AnalysisError("INSERT column length mismatch")
             elif ctype.is_dictionary:
                 v = np.asarray([""] * n, dtype=object)
+            elif ctype.is_array:
+                v = np.zeros((n, 0), ctype.np_dtype)     # empty arrays
             else:
                 v = np.zeros(n, ctype.np_dtype)
             cols[name] = v
@@ -140,6 +144,8 @@ class Table:
             elif ctype.is_dictionary:
                 merged = np.concatenate([np.asarray(p, dtype=object)
                                          for p in pieces])
+            elif ctype.is_array:
+                merged = _array_rows(pieces)
             else:
                 merged = np.concatenate(pieces)
             cols[name] = column_from_numpy(merged, ctype, capacity=cap,
@@ -203,6 +209,22 @@ class Table:
         if lo is None:
             return None
         return (int(lo), int(hi))
+
+
+def _array_rows(pieces: List[np.ndarray]) -> np.ndarray:
+    """An Array column's parts as one host array: one 2-D matrix as it is,
+    2-D matrices of one width stacked (no loop a row), else an object
+    array of a list a row."""
+    if len(pieces) == 1:
+        return pieces[0]
+    if all(p.ndim == 2 and p.dtype != object for p in pieces) \
+            and len({p.shape[1] for p in pieces}) == 1:
+        return np.concatenate(pieces)
+    rows = [list(r) if r is not None else [] for p in pieces for r in p]
+    out = np.empty(len(rows), object)
+    for i, r in enumerate(rows):
+        out[i] = r
+    return out
 
 
 def _pick_narrow_int(base: np.dtype, bounds: Tuple[int, int]):

@@ -18,10 +18,11 @@ import pytest
 import torch
 
 from chip_smoke import (CMPS, K4_ROWS, K5_CASES, K7_CASES, K8_CASES,
-                        K9_CASES, K10_CASES, SORT_KEY_CHAINS, U64_EDGE,
-                        grouped_rows, k5_args, k6_many_specs, k7_args,
-                        k7_outputs, k8_args, k8_results, k9_args, k10_args,
-                        make_term, sort_key_columns, term_cases)
+                        K9_CASES, K10_CASES, K11_CASES, SORT_KEY_CHAINS,
+                        U64_EDGE, grouped_rows, k5_args, k6_many_specs,
+                        k7_args, k7_outputs, k8_args, k8_results, k9_args,
+                        k10_args, k11_case, k11_error, make_term,
+                        sort_key_columns, term_cases)
 from clickhouse_tpu_torch.ops import _native
 from clickhouse_tpu_torch.ops.agg_ops import (_masked_reduce_plain,
                                               masked_reduce)
@@ -41,6 +42,9 @@ from clickhouse_tpu_torch.ops.scan_ops import (K5_TILE_ROWS,
                                                segment_reduce_many)
 from clickhouse_tpu_torch.ops.string_ops import (_prefix_match_plain,
                                                  prefix_match)
+from clickhouse_tpu_torch.ops.vector_ops import (DISTANCE_OPS,
+                                                 _vector_distance_plain,
+                                                 vector_distance)
 from clickhouse_tpu_torch.ops.sort_ops import (K4_TILE_ROWS,
                                                _radix_sort_pairs_plain,
                                                _topk_smallest32_plain,
@@ -357,11 +361,49 @@ def test_launch_counters_count_kernel_launches(dev):
     expand_matches(ProbeResult(ones, word, torch.ones_like(word)), ones, 1024)
     prefix_match(torch.full((10,), 97, dtype=torch.uint8, device=dev),
                  word[:6], b"a")
+    vector_distance(torch.ones((10, 8), device=dev),
+                    torch.full((10,), 8, dtype=torch.int32, device=dev),
+                    torch.ones(8, device=dev), "cosine")
     assert _native.LAUNCHES == {"masked_reduce": 1, "dense_group_reduce": 1,
                                 "topk_smallest": 1, "radix_sort_pairs": 1,
                                 "segment_bounds": 1, "segment_reduce": 1,
                                 "dense_join": 1, "hash_join": 1,
-                                "expand_matches": 1, "prefix_match": 1}
+                                "expand_matches": 1, "prefix_match": 1,
+                                "vector_distance": 1}
+
+
+# -- K11 vector_distance -------------------------------------------------------
+
+@pytest.mark.parametrize("op", sorted(DISTANCE_OPS))
+@pytest.mark.parametrize("case", K11_CASES)
+def test_vector_distance_matches_plain(dev, case, op):
+    """K11 against its plain version on chip_smoke's K11_CASES (widths 8,
+    24, 128 and 136, ragged lengths, a zero row and a zero query, a row
+    count off the block, rows past n), within chip_smoke.k11_error's
+    tolerance; rows past n hold the zero row's value."""
+    a, lens, q, n = k11_case(case, np.random.default_rng(31))
+    A, L, Q = (torch.from_numpy(x).to(dev) for x in (a, lens, q))
+    got = vector_distance(A, L, Q, op, n)
+    want = _vector_distance_plain(A, L, Q, op, n)
+    torch.cuda.synchronize()
+    k11_error(got, want, A, L, Q, op, n)
+
+
+def test_vector_distance_refuses_what_it_does_not_take(dev):
+    """A misaligned matrix, a width past K11's shared memory and a width
+    off the 8-element grid raise before a launch."""
+    lens = torch.full((16,), 8, dtype=torch.int32, device=dev)
+    buf = torch.zeros(16 * 8 + 1, device=dev)
+    with pytest.raises(ValueError, match="16-byte"):
+        vector_distance(buf[1:].view(16, 8), lens, torch.ones(8, device=dev),
+                        "dot")
+    wide = _native.K11_MAX_WIDTH + 8
+    with pytest.raises(ValueError, match="wider"):
+        vector_distance(torch.zeros((16, wide), device=dev), lens,
+                        torch.ones(wide, device=dev), "dot")
+    with pytest.raises(ValueError, match="multiple of 8"):
+        vector_distance(torch.zeros((16, 12), device=dev), lens,
+                        torch.ones(12, device=dev), "dot")
 
 
 # -- K4 radix_sort_pairs, K5 segment_bounds, K6 segment_reduce ----------------
@@ -865,3 +907,34 @@ def test_intdiv_by_a_constant_stays_in_the_narrow_storage(dev):
         want = torch.div(want, c, rounding_mode="trunc") if fn == "intDiv" \
             else torch.fmod(want, c)
         _exact(out.data, want)
+
+
+def test_vector_top_k_on_card_matches_cpu():
+    """ORDER BY cosineDistance / L2Distance ... LIMIT k over 100,000
+    vectors of 32 Float32 (with and without a WHERE) gives the CPU's ids
+    on the card, each query through K11 once over every row and K3 once."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    import clickhouse_tpu_torch as ch
+    from clickhouse_tpu_torch.interop import table_from_numpy
+    rng = np.random.default_rng(8)
+    v = rng.normal(size=(100_000, 32)).astype(np.float32)
+    q = ",".join(f"{x:.5f}" for x in rng.normal(size=32))
+    sessions = []
+    for device in ("cpu", "cuda"):
+        s = ch.connect(device=device)
+        table_from_numpy(s, "vecs", {"id": np.arange(100_000), "v": v},
+                         {"id": "Int64", "v": "Array(Float32)"})
+        sessions.append(s)
+    for sql in [f"SELECT id FROM vecs ORDER BY cosineDistance(v, CAST([{q}] "
+                f"AS Array(Float32))) LIMIT 10",
+                f"SELECT id FROM vecs ORDER BY L2Distance(v, [{q}]) LIMIT 10",
+                f"SELECT id FROM vecs WHERE id < 50000 ORDER BY "
+                f"cosineDistance(v, CAST([{q}] AS Array(Float32))) LIMIT 3"]:
+        want = sessions[0].execute(sql).rows()
+        _native.reset_launches()
+        got = sessions[1].execute(sql).rows()
+        assert got == want, sql
+        assert _native.LAUNCHES["vector_distance"] == 1
+        assert _native.LAUNCH_ROWS["vector_distance"][0] >= 100_000
+        assert _native.LAUNCHES["topk_smallest"] == 1

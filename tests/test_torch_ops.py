@@ -888,6 +888,15 @@ def _s6():
                            "SETTINGS max_groups = 1024", want)
 
 
+def _s7_want():
+    """concat('y', s, '-', s, u) over table p, row by row in numpy."""
+    s = np.array(["ab", "b", "ba", "c"])
+    u = np.array(["a", "b", "b", "x"])
+    got = np.char.add(np.char.add(np.char.add(np.char.add("y", s), "-"), s),
+                      u)
+    return [(str(v),) for v in got]
+
+
 DIVERGENCES = {
     # a NaN in group 0 turns every later group's sum into NaN
     "float_sum_nan": (lambda: _reduce_divergence(
@@ -933,6 +942,11 @@ DIVERGENCES = {
     # the slots share the last slot's rank (the port retries with more)
     "s6_limit_by_past_max_groups": (
         _s6, "clickhouse_tpu/exec/executor.py:1337-1351"),
+    # S7: concat of a constant and two or more columns takes the product
+    # of the columns' dictionaries and drops every constant argument
+    "s7_concat_drops_constants": (lambda: _sql_divergence(
+        "SELECT concat('y', s, '-', s, u) FROM p", _s7_want()),
+        "clickhouse_tpu/exprs/functions.py:1452-1487"),
 }
 
 

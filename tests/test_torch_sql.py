@@ -361,18 +361,45 @@ def test_ddl_insert_values_and_drop(sessions):
      "WITH FILL"),
     ("SELECT a, sumState(n) FROM t GROUP BY a", NotImplementedError_,
      "-state"),
+    ("SELECT a, uniqExact(b) FROM t GROUP BY a", UnknownFunction,
+     "uniqExact"),
+    ("SELECT a, argMax(b, f) FROM t GROUP BY a", UnknownFunction, "argMax"),
+    ("SELECT a, groupBitOr(b) FROM t GROUP BY a", UnknownFunction,
+     "groupBitOr"),
+    ("SELECT a, uniq(b) FROM t GROUP BY a", UnknownFunction, "uniq"),
+    ("SELECT a, quantile(0.5)(f) FROM t GROUP BY a", UnknownFunction,
+     "quantile"),
+    ("SELECT a, uniqExactState(b) FROM t GROUP BY a", NotImplementedError_,
+     "uniqExactState"),
 ], ids=["unknown-aggregate", "unknown-scalar", "full-sort", "unbounded-keys",
         "minmax-group-by", "sort-setting", "large-k", "union", "alter",
-        "with-totals", "with-fill", "state-combinator"])
+        "with-totals", "with-fill", "state-combinator",
+        "grouped-uniqExact", "grouped-argMax", "grouped-groupBitOr",
+        "grouped-uniq", "grouped-quantile", "grouped-unported-combinator"])
 def test_unported_paths_raise_typed_errors(sessions, sql, err, match):
-    """Unported paths raise typed errors naming them; the paths ported
-    since (err None: the full sort, the sort grouping, k > 4,096, WITH
-    TOTALS) answer as the reference does."""
+    """Unported paths raise typed errors naming them (an unported
+    aggregate under GROUP BY names the aggregate, not its argument); the
+    paths ported since (err None: the full sort, the sort grouping,
+    k > 4,096, WITH TOTALS) answer as the reference does."""
     if err is None:
         _both(sessions, sql)
         return
     with pytest.raises(err, match=match):
         sessions[1].execute(sql)
+
+
+def test_aggregate_names_are_the_references():
+    """The port's copy of the reference's aggregate names is its registry,
+    and every name (and a combinator of it) is an aggregate call."""
+    from clickhouse_tpu.exprs import aggregates as jagg
+    from clickhouse_tpu_torch.exprs import aggregates as tagg
+    assert tagg.REFERENCE_AGGREGATES == set(jagg.AGGREGATES)
+    for name in sorted(jagg.AGGREGATES):
+        for form in (name, name + "If", name + "State", name + "Merge"):
+            assert tagg.is_aggregate_name(form) \
+                == jagg.is_aggregate_name(form), form
+    for name in ("plus", "concat", "cosineDistance", "ifNull"):
+        assert not tagg.is_aggregate_name(name)
 
 
 Q2B = ("SELECT x AS k, count() AS c FROM hits GROUP BY k ORDER BY c DESC "
@@ -483,20 +510,25 @@ def test_sort_working_set_is_held_to_the_budget(sessions):
     """The governor's estimate is the reference's (scan bytes and the
     largest intermediate); the sort grouping's working set is held against
     what it leaves of the budget where the sort runs: Q2b at 3 MiB raises
-    MemoryLimitExceeded naming the sort, while the dense GROUP BY of Q2 at
-    the same budget, and Q2b at 7 MiB, answer as the reference does.  The
-    working set of Q2b's 100,000 rows is 4,420,712 bytes beside the
-    estimate's 2,000,000: the packed key, K4's buffers and scratch, the
-    key array, and K5's group ids (4 bytes a row) and 100,352 slots (16
-    bytes each), so Q2b needs 7 MiB where the count without the key array
-    and K5 let it answer at 4 MiB."""
+    MemoryLimitExceeded naming the sort, and the dense GROUP BY of Q2 at
+    the same budget raises it naming the dense grouping (its 3,653,632
+    bytes of slots, ids and K2's inputs and outputs, held to the budget
+    since the dense grouping has its own check), while Q2 and Q2b at 7
+    MiB answer as the reference does.  The working set of Q2b's 100,000
+    rows is 4,420,712 bytes beside the estimate's 2,000,000: the packed
+    key, K4's buffers and scratch, the key array, and K5's group ids (4
+    bytes a row) and 100,352 slots (16 bytes each), so Q2b needs 7 MiB
+    where the count without the key array and K5 let it answer at 4
+    MiB."""
     js, ts = sessions
     q2b = Q2B + ", max_device_memory_bytes = {}"
     q2 = ("SELECT x % 1024 AS k, count() AS c, sum(x) FROM hits GROUP BY k "
           "ORDER BY c DESC LIMIT 10 SETTINGS max_device_memory_bytes = {}")
     with pytest.raises(MemoryLimitExceeded, match="sorting 100000 rows"):
         ts.execute(q2b.format(3 << 20))
-    _both(sessions, q2.format(3 << 20))
+    with pytest.raises(MemoryLimitExceeded, match="densely"):
+        ts.execute(q2.format(3 << 20))
+    _both(sessions, q2.format(7 << 20))
     with pytest.raises(MemoryLimitExceeded, match="sorting 100000 rows"):
         ts.execute(q2b.format(6 << 20))
     _both(sessions, q2b.format(7 << 20))
@@ -890,3 +922,72 @@ def test_distinct_and_limit_by_max_groups(sessions, sql, needed):
         want = [(int(r[i]),) for i in sorted(np.unique(
             r, return_index=True)[1])]
     assert ts.execute(sql + " SETTINGS max_groups = 1024").rows() == want
+
+
+# -- the governor: the dense grouping's working set and cached chars --------
+
+def _estimate(ts, sql):
+    from clickhouse_tpu_torch.exec.streaming import \
+        estimate_plan_device_bytes
+    from clickhouse_tpu_torch.sql import parse
+    return estimate_plan_device_bytes(ts._plan(parse(sql), ts.settings),
+                                      ts.catalog, ts.settings)
+
+
+@pytest.mark.parametrize("sql", [
+    "SELECT x % 1024 AS k, count() AS c, sum(x) FROM hits GROUP BY k "
+    "ORDER BY c DESC LIMIT 10",
+    "SELECT b, a, count(), avg(a), sum(b) FROM t GROUP BY b, a "
+    "ORDER BY b, a",
+], ids=["Q2", "two-keys"])
+def test_dense_grouping_is_held_to_the_budget(sessions, sql, monkeypatch):
+    """A dense GROUP BY holds its working set (the slots, the ids, the
+    dense stage's passes, K2's inputs and outputs) against what the
+    governor's estimate leaves of the budget: one byte less raises the
+    sort path's MemoryLimitExceeded, the exact budget and the default one
+    answer as the reference does."""
+    from clickhouse_tpu_torch.core.errors import MemoryLimitExceeded
+    from clickhouse_tpu_torch.ops import agg_ops
+    js, ts = sessions
+    needs = []
+    fn = agg_ops.dense_group_bytes
+
+    def spy(*args, **kw):
+        needs.append(fn(*args, **kw))
+        return needs[-1]
+    monkeypatch.setattr(agg_ops, "dense_group_bytes", spy)
+    assert _both(sessions, sql)
+    assert len(needs) == 1
+    budget = _estimate(ts, sql) + needs[0]
+    with pytest.raises(MemoryLimitExceeded, match="densely"):
+        ts.execute(sql + f" SETTINGS max_device_memory_bytes = {budget - 1}")
+    got = ts.execute(sql + f" SETTINGS max_device_memory_bytes = {budget}")
+    assert got.rows() == js.execute(sql).rows()
+
+
+def test_cached_dictionary_chars_count_for_every_reader(sessions):
+    """A String column's dictionary chars, once cached on the device by
+    one query, count against the budget of every later query that reads
+    the column (one byte short raises MemoryLimitExceeded naming them),
+    and not against a query of another table."""
+    from clickhouse_tpu_torch.core.errors import MemoryLimitExceeded
+    js, ts = sessions
+    d = ts.catalog.get_table("default", "s").read_block()["k"].dictionary
+    d._chars = {}
+    build = "SELECT count() FROM s WHERE startsWith(k, 'k1')"
+    assert ts.execute(build).rows() == js.execute(build).rows()
+    chars = d.cached_chars_bytes(ts.device)
+    assert chars == sum(len(v.encode()) for v in d.values_str()) \
+        + 4 * (len(d) + 1)
+    reader = "SELECT count() FROM s WHERE k = 'k1' OR a > 3"
+    budget = _estimate(ts, reader) + chars
+    with pytest.raises(MemoryLimitExceeded, match="cached string"):
+        ts.execute(reader + f" SETTINGS max_device_memory_bytes = "
+                   f"{budget - 1}")
+    got = ts.execute(reader + f" SETTINGS max_device_memory_bytes = "
+                     f"{budget}")
+    assert got.rows() == js.execute(reader).rows()
+    other = "SELECT count() FROM hits WHERE x > 3"
+    got = ts.execute(other + f" SETTINGS max_device_memory_bytes = "
+                     f"{_estimate(ts, other)}")
+    assert got.rows() == js.execute(other).rows()
