@@ -7,6 +7,10 @@
     python3 chip_smoke.py --k9        # only K9 alone (k9_turn)
     python3 chip_smoke.py --vectors   # only K11's cases, Q8, Q8l, Q8w and
                                       # K11 at Q8's inputs
+    python3 chip_smoke.py --aggregates  # only K6's cases (both entries),
+                                      # Q2u, Q2ug, Q2q, Q2s2 and Q2g and
+                                      # K6's sorted-order entry at Q2ug's
+                                      # inputs
 
 Needs one NVIDIA Hopper card, nvcc and PyTorch built for CUDA; exits
 non-zero without them.  Phases, each of which fails the run:
@@ -28,7 +32,11 @@ non-zero without them.  Phases, each of which fails the run:
      tile's first row, more groups than slots, no valid row, u64 keys, two
      to five key arrays and misaligned views; K6 for every op, with masks,
      empty and fully masked groups, one group holding 40 % of the rows,
-     and several ops over two columns and two masks in one launch; K7
+     and several ops over two columns and two masks in one launch, and
+     its sorted-order entry (data already in sorted order, no
+     permutation) over every op and storage type, partial masks, masks of
+     no row and of no row in every other group, invalid rows and a 40 %
+     group (check_k6_sorted); K7
      over K7_CASES: unique keys, holes, probe keys outside the range,
      invalid rows, a Nullable payload, sentinels at both int32 edges, key
      words, a presence table, int8/int16/int64 and UInt64 keys, views 1-3
@@ -100,7 +108,13 @@ non-zero without them.  Phases, each of which fails the run:
      entry) and Q8w (WHERE id < 1000000 ... LIMIT 3: K1's count too),
      their ids against numpy's float64 top-k, whose k-th and (k+1)-th
      distances must lie further apart than the engine's float32 error,
-     each launching exactly SLICE11_PATHS; Q2's and Q2t's peaks are split
+     each launching exactly SLICE11_PATHS; then the aggregate tail over
+     hits (SLICE12_QUERIES: Q2u count(DISTINCT x), Q2ug the same by x %
+     1024, Q2q median and quantiles, Q2s2 argMax, varSamp, stddevPop,
+     corr and groupBitXor, Q2g varPop, argMin and median under GROUP BY
+     ()), each against numpy (integers exact, floats within STAT_TOL of
+     the statistic's largest term) and launching exactly SLICE12_PATHS,
+     its peak beside the governor's estimate; Q2's and Q2t's peaks are split
      by allocation (watch_dense: the dense grouping's slots and ids, K2's
      inputs and outputs);
   4. replay each kernel on the exact inputs the main path gave it (its
@@ -127,7 +141,9 @@ non-zero without them.  Phases, each of which fails the run:
      with its kernels a call; K10 at Q7b's inputs (its bytes: the chars'
      32-byte sectors holding a compared byte, the offsets and the output)
      and at Q7s's; K11 at Q8's inputs beside torch.mv(A, q) (the dot
-     alone, for information); fails unless Q4's K7 call carries label
+     alone, for information); K6's sorted-order entry at Q2ug's inputs
+     (its first-occurrence flags) beside torch.segment_reduce(sum,
+     lengths=group rows); fails unless Q4's K7 call carries label
      alone and
      Q4h's K8 call one word; time each query (median wall time of 20
      runs, synchronised) with its peak memory beside the governor's
@@ -211,10 +227,51 @@ SLICE10_PATHS = {"Q2t": {"dense_group_reduce": 1, "topk_smallest": 1,
                          "masked_reduce": 2},
                  "Q2l": _SORTED, "Q2d": _SORTED, "Q7": _SORTED,
                  "Q7d": _SORTED, "Q7b": _AFFIX, "Q7s": _AFFIX}
+# slice 12: the aggregate tail over hits.  Q2u and Q2g take GROUP BY ()
+# (K1 for the sums, K4 over x and K5 for the holistic ones); Q2ug is the
+# shape of ClickBench's `RegionID, COUNT(DISTINCT UserID)`
+Q2U = "SELECT count(DISTINCT x) FROM hits"
+Q2UG = ("SELECT x % 1024 AS k, count(DISTINCT x) AS u FROM hits GROUP BY k "
+        "ORDER BY u DESC, k LIMIT 10")
+Q2Q = ("SELECT x % 1024 AS k, median(x), quantiles(0.1, 0.9)(x) FROM hits "
+       "GROUP BY k ORDER BY k LIMIT 10")
+Q2S2 = ("SELECT x % 1024 AS k, argMax(x, x % 7), varSamp(x), stddevPop(x), "
+        "corr(x, x % 7), groupBitXor(x) FROM hits GROUP BY k ORDER BY k "
+        "LIMIT 10")
+Q2G = "SELECT varPop(x), argMin(x, x % 7), median(x) FROM hits"
+SLICE12_QUERIES = (("Q2u", Q2U), ("Q2ug", Q2UG), ("Q2q", Q2Q),
+                   ("Q2s2", Q2S2), ("Q2g", Q2G))
+# each query's launches, exactly: K4 once for a word of x (the secondary
+# key of count(DISTINCT x) and of median/quantiles, sorted in its own
+# word) and once for the group key's word, K5 over the group key's words
+# alone, K6's sorted-order entry for uniqExact's first-occurrence flags
+# and argMax's rows at the best value (quantiles read their values at
+# starts + offset: no K6), K6 once for Q2s2's seven reductions (x and
+# x % 7 as stored; the statistics' squares and products formed in
+# registers), K1 for GROUP BY ()'s sums and argMin
+# (its min, then `any` of the rows at it) and for the ORDER BY's row mask,
+# K3 for ORDER BY k LIMIT 10 and K4 once more for ORDER BY u DESC, k
+SLICE12_PATHS = {
+    "Q2u": {"radix_sort_pairs": 1, "segment_bounds": 1,
+            "segment_reduce_sorted": 1},
+    "Q2ug": {"radix_sort_pairs": 3, "segment_bounds": 1,
+             "segment_reduce_sorted": 1, "masked_reduce": 1},
+    "Q2q": {"radix_sort_pairs": 2, "segment_bounds": 1, "masked_reduce": 1,
+            "topk_smallest": 1},
+    "Q2s2": {"radix_sort_pairs": 1, "segment_bounds": 1,
+             "segment_reduce": 1, "segment_reduce_sorted": 1,
+             "masked_reduce": 1, "topk_smallest": 1},
+    "Q2g": {"masked_reduce": 4, "radix_sort_pairs": 1, "segment_bounds": 1}}
+# float results of the slice-12 queries: within 1e-9 of the statistic's
+# largest term (the variance's mean square s2/c, the standard deviation's
+# root mean square; a correlation's 1): the engine cancels float64 sums
+# (s2/c - mean^2) that K6 and K1 add in another order than numpy's
+# two-pass variance
+STAT_TOL = 1e-9
 # the queries whose device-busy time a trace takes
 BUSY_QUERIES = ("Q1", "Q2b", "Q2m", "Q4", "Q4h", "Q4x", "Q8", "Q8l",
                 "Q8w") + tuple(
-    q for q, _ in SLICE10_QUERIES)
+    q for q, _ in SLICE10_QUERIES) + tuple(q for q, _ in SLICE12_QUERIES)
 QUERY_REPS = 20
 KERNEL_REPS = 20
 FLOAT_RTOL = 1e-12      # the kernel adds float partials in another order
@@ -241,7 +298,12 @@ EXTRA_KEYS = ("level1_ms", "merge_ms", "entry64_ms", "entry64_bound_ms",
               "heavy_bytes", "heavy_bound_ms", "many_tiles_ms",
               "many_tiles_bytes", "many_tiles_bound_ms", "threshold_ms",
               "scan_only_ms", "scan_only_bound_ms", "suffix_ms",
-              "suffix_plain_ms", "suffix_bytes", "suffix_bound_ms")
+              "suffix_plain_ms", "suffix_bytes", "suffix_bound_ms",
+              "sorted_entry", "sorted_ms", "sorted_plain_ms",
+              "sorted_library_ms", "sorted_library", "sorted_bytes",
+              "sorted_bound_ms", "sorted_shape", "sorted_read_bytes",
+              "launches_sorted", "launches_permuted", "q2s2_ms",
+              "q2s2_plain_ms", "q2s2_bytes", "q2s2_bound_ms", "q2s2_shape")
 F64_EPS = 2.0 ** -52
 CMPS = ["equals", "notEquals", "less", "lessOrEquals", "greater",
         "greaterOrEquals"]
@@ -783,14 +845,19 @@ def k6_agrees(specs, perm, gid, cap_g, group_rows=None) -> float:
     err = 0.0
     for (op, data, mask, uns), g in zip(specs, got):
         want = _segment_reduce_plain(op, data, mask, perm, gid, cap_g, uns)
-        err = max(err, k6_close(op, g, want, data, mask, perm, gid, cap_g))
+        err = max(err, k6_close(op, g, want, data, mask, perm, gid, cap_g,
+                                uns))
     return err
 
 
-def k6_close(op, got, want, data, mask, perm, gid, cap_g) -> float:
+def k6_close(op, got, want, data, mask, perm, gid, cap_g,
+             unsigned=False) -> float:
     """One K6 result against the plain version's: exact, but for float
     sums within n_g * eps * sum(|x|) a group.  -> max abs err."""
-    from clickhouse_tpu_torch.ops.scan_ops import _segment_reduce_plain
+    from clickhouse_tpu_torch.ops.scan_ops import (_segment_reduce_plain,
+                                                   fsumx_column)
+    if op == "fsumx":
+        op, data = "sum", fsumx_column(data, unsigned)
     if not (op == "sum" and got.is_floating_point()):
         if got.is_floating_point():     # min/max/any: the same bits
             bits = torch.int64 if got.dtype == torch.float64 else torch.int32
@@ -835,9 +902,28 @@ def k6_many_specs(rng, n, dev):
     m2 = torch.from_numpy(rng.random(n) < 0.7).to(dev)
     narrow = [k6_values(rng, t, n).to(dev) for t in (torch.int8, torch.int16,
                                                      torch.int32)]
+    i32 = narrow[2]
+    u = torch.from_numpy(rng.integers(-(1 << 63), (1 << 63) - 1, n,
+                                      dtype=np.int64)).to(dev)
+    g = k6_values(rng, torch.float32, n).to(dev)
     return {
         "q2m": [("sum", x, None, False), ("min", x, None, False),
                 ("max", x, None, False), ("any", x, None, False)],
+        # the statistics' terms, formed in registers (OP_FSUMX): Q2s2's
+        # shape (x and y as stored, squares and a product) and every
+        # power over narrow, UInt64, float32 and float64 columns
+        "f64_terms": [("fsumx", (i32, None, p), m1 if p % 2 else None,
+                       (False, False)) for p in (1, 2, 3, 4)]
+        + [("fsumx", (i32, narrow[0], 1), None, (False, False)),
+           ("fsumx", (narrow[0], None, 2), m2, (False, False)),
+           ("max", narrow[0], None, False), ("bxor", i32, None, False)],
+        "f64_term_types": [
+            ("fsumx", (u, None, 2), None, (True, False)),
+            ("fsumx", (u, f, 1), m1, (True, False)),
+            ("fsumx", (g, None, 3), None, (False, False)),
+            ("fsumx", (f, None, 4), m2, (False, False)),
+            ("fsumx", (narrow[1], g, 1), None, (False, False)),
+            ("fsumx", (narrow[0], u, 4), None, (False, True))],
         "two_columns_two_masks": [
             ("sum", x, m1, False), ("min", f, m1, False),
             ("max", x, m2, False), ("sum", f, m2, False),
@@ -893,6 +979,68 @@ def check_k6(dev):
           f"and storage type, masks of some and of no row, a group of 40 % "
           f"of the rows, several specs over two columns and two masks in "
           f"one launch)", flush=True)
+
+
+def check_k6_sorted(dev):
+    """K6's sorted-order entry (segment_reduce_sorted: data and masks
+    already in sorted order, no permutation) against its plain version:
+    every op over int8, uint8, int16, int32, int64, float32, float64 and
+    bool data, with no mask, a partial mask, a mask of no row and a mask
+    of no row in every other group (fully masked groups), UInt64 bits,
+    empty slots past the last group and invalid rows past the last valid
+    one, several specs in one launch with and without group_rows, and 3M
+    rows where one group holds 40 %."""
+    from clickhouse_tpu_torch.ops.scan_ops import (_segment_reduce_plain,
+                                                   segment_reduce_sorted)
+    rng = np.random.default_rng(12)
+    n, cap_g = 1_000_003, 1 << 17
+    _, gid = grouped_rows(n, 70_000, dev, seed=12)
+    gid[-5000:] = cap_g                    # invalid rows sort last
+    masks = [None, torch.from_numpy(rng.random(n) < 0.3).to(dev),
+             torch.zeros(n, dtype=torch.bool, device=dev),
+             (gid % 2 == 1) & torch.from_numpy(rng.random(n) < 0.8).to(dev)]
+    calls, err = 0, 0.0
+
+    def agree(specs, g, cg, group_rows=None):
+        got = segment_reduce_sorted(specs, g, cg, group_rows=group_rows)
+        e = 0.0
+        for (op, d, m, u), r in zip(specs, got):
+            want = _segment_reduce_plain(op, d, m, None, g, cg, u)
+            e = max(e, k6_close(op, r, want, d, m, None, g, cg, u))
+        return e
+    for dtype in (torch.bool, torch.int8, torch.uint8, torch.int16,
+                  torch.int32, torch.int64, torch.float32, torch.float64):
+        x = k6_values(rng, dtype, n).to(dev)
+        for op in ("sum", "min", "max", "any", "bor", "band", "bxor",
+                   "count"):
+            if op in ("bor", "band", "bxor") and dtype.is_floating_point:
+                continue
+            for m in masks:
+                for uns in ((False, True) if dtype == torch.int64
+                            else (False,)):
+                    err = max(err, agree([(op, None if op == "count" else x,
+                                           m, uns)], gid, cap_g))
+                    calls += 1
+    rows = _segment_reduce_plain("count", None, None, None, gid, cap_g,
+                                 False)
+    for specs in k6_many_specs(rng, n, dev).values():
+        for group_rows in (None, rows):
+            err = max(err, agree(specs, gid, cap_g, group_rows))
+            calls += 1
+    _, sgid = grouped_rows(3_000_000, 200_000, dev, skew=0.4, seed=13)
+    y = torch.from_numpy(rng.integers(-(1 << 40), 1 << 40, 3_000_000)).to(dev)
+    f = k6_values(rng, torch.float64, 3_000_000).to(dev)
+    for op in ("sum", "min", "max", "any", "count"):
+        for d in (y, f):
+            err = max(err, agree([(op, None if op == "count" else d, None,
+                                   False)], sgid, 1 << 18))
+            calls += 1
+    print(f"K6 sorted-order entry edge cases: {calls} calls agree with the "
+          f"plain version (every op and storage type, masks of some rows, "
+          f"of no row and of no row in every other group, invalid rows, a "
+          f"group of 40 % of the rows, several specs in one launch); max "
+          f"abs err {err:g}", flush=True)
+    return err
 
 
 # K7's edge cases (k7_case): the direct-address join.  Words carry their
@@ -2522,7 +2670,7 @@ def time_queries(s):
     from clickhouse_tpu_torch.sql import parse
     ran = {}
     for name, sql in QUERIES + JOIN_QUERIES + SLICE10_QUERIES \
-            + SLICE11_QUERIES:
+            + SLICE11_QUERIES + SLICE12_QUERIES:
         try:
             s.execute(sql)
         except (NotImplementedError_, UnknownFunction) as e:
@@ -2557,7 +2705,7 @@ def time_queries(s):
               f"Q4's median wall {ran['Q4']:.3f} ms is "
               f"{ran['Q4'] / roof:.2f}x it", flush=True)
     for name, sql in QUERIES + JOIN_QUERIES + SLICE10_QUERIES \
-            + SLICE11_QUERIES:
+            + SLICE11_QUERIES + SLICE12_QUERIES:
         if name in BUSY_QUERIES and name in ran:
             busy, ops, wall, top = device_busy(s, sql)
             print(f"{name} under torch.profiler: device busy {busy:.4f} ms "
@@ -2567,6 +2715,25 @@ def time_queries(s):
                 print(f"{name} device ms a run by operation (the top 8): "
                       + "; ".join(f"{n} {t:.4f}" for n, t in top),
                       flush=True)
+
+
+def aggregate_times(s):
+    """Median wall of QUERY_REPS runs of each slice-12 query and its
+    device-busy time from a torch.profiler trace (``--aggregates``)."""
+    for name, sql in SLICE12_QUERIES:
+        s.execute(sql)
+        times = []
+        for _ in range(QUERY_REPS):
+            t0 = time.perf_counter()
+            s.execute(sql)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        busy, ops, wall, top = device_busy(s, sql)
+        print(f"{name} median wall {statistics.median(times) * 1e3:.3f} ms "
+              f"over {QUERY_REPS} runs; under torch.profiler: device busy "
+              f"{busy:.4f} ms of {wall:.3f} ms wall a run, {ops:g} device "
+              f"operations a run; top: "
+              + "; ".join(f"{n} {t:.4f}" for n, t in top), flush=True)
 
 
 def load_join_tables(s):
@@ -2611,14 +2778,15 @@ def join_answers(fk, label):
 
 
 def path_phase(s, queries, paths, cover, want, per_query, launches,
-               launch_rows, memory, label, chars_built=None):
-    """Each query of `queries` once, checked against numpy, with the launch
-    counters set to 0 before it and read after; fails unless it launched
-    exactly the kernels of its path (`paths`), the kernel `cover` names
-    over at least its rows, and built a dictionary's device chars exactly
-    as often as `chars_built` says (default 0), each under the governor's
-    check.  -> {query: (peak bytes above what was allocated before it,
-    the governor's estimate)}."""
+               launch_rows, memory, label, chars_built=None, agree=None):
+    """Each query of `queries` once, checked against numpy (equal rows, or
+    agree(name, rows) where given), with the launch counters set to 0
+    before it and read after; fails unless it launched exactly the
+    kernels of its path (`paths`), the kernel `cover` names over at least
+    its rows, and built a dictionary's device chars exactly as often as
+    `chars_built` says (default 0), each under the governor's check.  ->
+    {query: (peak bytes above what was allocated before it, the
+    governor's estimate)}."""
     from clickhouse_tpu_torch.exec.streaming import (
         effective_memory_budget, estimate_plan_device_bytes)
     from clickhouse_tpu_torch.ops import _native
@@ -2636,7 +2804,7 @@ def path_phase(s, queries, paths, cover, want, per_query, launches,
         per_query[name] = dict(_native.LAUNCHES)
         rows_of = {k: list(v) for k, v in _native.LAUNCH_ROWS.items()}
         extra = peak_since(base, memory)
-        if rows != want[name]:
+        if not (agree(name, rows) if agree else rows == want[name]):
             fail(f"{name} returned {rows[:5]}, numpy says {want[name][:5]}")
         print_dense_split(name, memory, base, extra)
         if f"{name}:totals" in want:
@@ -2710,6 +2878,241 @@ def slice10_path(s, want, per_query, launches, launch_rows, memory):
                       per_query, launches, launch_rows, memory,
                       "Q2t, Q2l, Q2d, Q7, Q7b, Q7d and Q7s",
                       chars_built={"Q7b": 1})
+
+
+def slice12_answers(x: np.ndarray):
+    """Q2u, Q2ug, Q2q, Q2s2 and Q2g by numpy, and the scale of each float
+    cell (STAT_TOL; 0: the cell must be equal).  The values of a group of
+    x % 1024 are the residues k, k + 1024, ... below 1,000,003, each as
+    often as bincount says; Q2s2's groups 0-9 from their rows in row
+    order."""
+    p = 1_000_003
+    cnt = np.bincount(x, minlength=p)
+    present = np.flatnonzero(cnt)
+    u = np.bincount(present % 1024, minlength=1024)
+    top = np.lexsort((np.arange(1024), -u))[:10]
+
+    def at(vals, mult, q):
+        # the floor(q * (n - 1))-th smallest of vals repeated mult times
+        pos = int(math.floor(q * (int(mult.sum()) - 1)))
+        return int(vals[np.searchsorted(np.cumsum(mult), pos,
+                                        side="right")])
+    q2q = []
+    for k in range(10):
+        vals = np.arange(k, p, 1024)
+        q2q.append((k, at(vals, cnt[vals], 0.5),
+                    [at(vals, cnt[vals], 0.1), at(vals, cnt[vals], 0.9)]))
+    km = x % 1024
+    rows = np.flatnonzero(km < 10)
+    xs, ks = x[rows], km[rows]
+    q2s2, scale_s2 = [], []
+    for k in range(10):
+        v = xs[ks == k]
+        m = v % 7
+        vf = v.astype(np.float64)
+        ms2 = float(np.mean(vf * vf))
+        q2s2.append((k, int(v[np.argmax(m)]), float(vf.var(ddof=1)),
+                     float(vf.std()), float(np.corrcoef(vf, m)[0, 1]),
+                     int(np.bitwise_xor.reduce(v))))
+        scale_s2.append((0, 0, ms2, math.sqrt(ms2), 1.0, 0))
+    vals = np.arange(p)
+    n = len(x)
+    mean = float((vals * cnt).sum()) / n
+    var = float((cnt * (vals - mean) ** 2).sum()) / n
+    ms_all = float((cnt * vals.astype(np.float64) ** 2).sum()) / n
+    m7 = x % 7
+    q2g = [(var, int(x[np.argmin(m7)]), at(vals, cnt, 0.5))]
+    del m7
+    return {"Q2u": [(len(present),)],
+            "Q2ug": [(int(k), int(u[k])) for k in top],
+            "Q2q": q2q, "Q2s2": q2s2, "Q2s2:scale": scale_s2,
+            "Q2g": q2g, "Q2g:scale": [(ms_all, 0, 0)]}
+
+
+def slice12_agree(want):
+    """-> agree(name, rows) for path_phase: integers (and arrays) equal,
+    each float within STAT_TOL of its cell's scale."""
+    def agree(name, rows):
+        scale = want.get(f"{name}:scale")
+        if scale is None:
+            return rows == want[name]
+        if len(rows) != len(want[name]):
+            return False
+        for got, w, sc in zip(rows, want[name], scale):
+            for g, v, c in zip(got, w, sc):
+                if c == 0 and g != v:
+                    return False
+                if c and not (isinstance(g, float)
+                              and abs(g - v) <= STAT_TOL * c):
+                    return False
+        return True
+    return agree
+
+
+def slice12_path(s, want, per_query, launches, launch_rows, memory):
+    """Q2u, Q2ug, Q2q, Q2s2 and Q2g over hits (SLICE12_PATHS), their first
+    sort (or K6 sorted-order entry) over every row; -> (the phase's peaks
+    and estimates, the arguments of Q2ug's K6 sorted-order call, those of
+    Q2s2's K6 permuted call)."""
+    from clickhouse_tpu_torch.exprs.aggregates import GroupContext
+    from clickhouse_tpu_torch.ops import scan_ops
+    cover = {"Q2u": ("segment_reduce_sorted", N_ROWS),
+             "Q2ug": ("segment_reduce_sorted", N_ROWS),
+             "Q2q": ("radix_sort_pairs", N_ROWS),
+             "Q2s2": ("segment_reduce_sorted", N_ROWS),
+             "Q2g": ("radix_sort_pairs", N_ROWS)}
+    entry, execute = scan_ops.segment_reduce_sorted, s.execute
+    many = scan_ops.segment_reduce_many
+    hold = GroupContext.hold
+    current, got, held = [""], {}, {}
+
+    def execute_watch(sql, *a, **kw):
+        current[0] = sql
+        return execute(sql, *a, **kw)
+
+    def hold_watch(ctx, nbytes, what):
+        # the aggregates' working set the governor held (passed on)
+        hold(ctx, nbytes, what)
+        held[current[0]] = max(held.get(current[0], 0), ctx.shared["bytes"])
+
+    def entry_watch(specs, gid, cap_g, *, group_rows=None):
+        # the call's inputs, kept to replay it (passed on as it is)
+        if current[0] == Q2UG:
+            got["args"] = (list(specs), gid, cap_g, group_rows)
+        return entry(specs, gid, cap_g, group_rows=group_rows)
+
+    def many_watch(specs, perm, gid, cap_g, *, group_rows=None):
+        # Q2s2's seven reductions, kept to replay them (passed on as is)
+        if current[0] == Q2S2:
+            got["q2s2"] = (list(specs), perm, gid, cap_g, group_rows)
+        return many(specs, perm, gid, cap_g, group_rows=group_rows)
+    s.execute, scan_ops.segment_reduce_sorted = execute_watch, entry_watch
+    scan_ops.segment_reduce_many = many_watch
+    GroupContext.hold = hold_watch
+    try:
+        out = path_phase(s, SLICE12_QUERIES, SLICE12_PATHS, cover, want,
+                         per_query, launches, launch_rows, memory,
+                         "Q2u, Q2ug, Q2q, Q2s2 and Q2g",
+                         agree=slice12_agree(want))
+    finally:
+        s.execute, scan_ops.segment_reduce_sorted = execute, entry
+        scan_ops.segment_reduce_many = many
+        GroupContext.hold = hold
+    if "args" not in got:
+        fail("Q2ug did not reach K6's sorted-order entry")
+    if "q2s2" not in got:
+        fail("Q2s2 did not reach K6's permuted entry")
+    for name, sql in SLICE12_QUERIES:
+        print(f"{name}: the aggregates' working set held against the "
+              f"budget (GroupContext.hold: the grouping's perm and group "
+              f"ids, the float64 columns, the holistic steps) "
+              f"{held.get(sql, 0)} bytes; peak {out[name][0]} bytes, the "
+              f"governor's estimate {out[name][1]} bytes", flush=True)
+    return out, got["args"], got["q2s2"]
+
+
+def k6_sorted_shape(dev, args):
+    """K6's sorted-order entry on Q2ug's inputs (its first-occurrence
+    flags over 100M sorted rows): against its plain version, timed beside
+    its bound and torch.segment_reduce(sum, lengths=group rows), which
+    computes the same per-group sum of the flags (it takes floating types
+    only: it gets a float32 copy of the flags, made before its timing)."""
+    from clickhouse_tpu_torch.ops.scan_ops import (_checked_spec,
+                                                   _plan_launches,
+                                                   _segment_reduce_plain,
+                                                   segment_reduce_sorted)
+    specs, gid, cap_g, group_rows = args
+    rows = gid.shape[0]
+    launches_, _ = _plan_launches([_checked_spec(sp) for sp in specs],
+                                  group_rows is not None)
+    # the bound's bytes: what the function needs, as
+    # torch.segment_reduce(lengths=) reads it: each column and mask byte a
+    # row, each group's length (8 bytes a slot), each output (8 bytes a
+    # slot a state).  K6 reads a group id (4 bytes) a row in their place
+    # (sorted_read_bytes)
+    outs = sum(rows * (sum(t.element_size() for t in la.data)
+                       + sum(t.element_size() for t in la.masks))
+               + cap_g * 8 * (len(la.specs) + len(la.counts))
+               for la in launches_)
+    nb = outs + cap_g * 8
+    read = outs + rows * 4 * len(launches_)
+
+    def sorted_call():
+        return segment_reduce_sorted(specs, gid, cap_g, group_rows=group_rows)
+
+    def plain():
+        return [_segment_reduce_plain(op, d, m, None, gid, cap_g, u)
+                for op, d, m, u in specs]
+    got = sorted_call()
+    err = 0.0
+    for (op, d, m, u), g, w in zip(specs, got, plain()):
+        err = max(err, k6_close(op, g, w, d, m, None, gid, cap_g))
+    rec = dict(sorted_entry="segment_reduce_sorted", sorted_bytes=nb,
+               sorted_read_bytes=read,
+               sorted_bound_ms=bound_ms(nb), sorted_ms=cuda_ms(sorted_call),
+               sorted_plain_ms=cuda_ms(plain, reps=5),
+               sorted_shape=f"{[op for op, _, _, _ in specs]} over {rows} "
+                            f"sorted rows (Q2ug's first-occurrence flags), "
+                            f"{cap_g} group slots, {len(launches_)} launch",
+               sorted_max_abs_err=err)
+    op, d, m, _ = specs[0]
+    if len(specs) == 1 and op == "count" and group_rows is not None:
+        n_valid = int(group_rows.sum())
+        flags = m[:n_valid].to(torch.float32)
+        lib = torch.segment_reduce(flags, "sum", lengths=group_rows)
+        if not torch.equal(lib.to(torch.int64), got[0]):
+            fail("torch.segment_reduce's sums of the flags differ from K6's")
+        rec["sorted_library_ms"] = cuda_ms(lambda: torch.segment_reduce(
+            flags, "sum", lengths=group_rows))
+        rec["sorted_library"] = ("torch.segment_reduce(float32 copy of the "
+                                 "flags, 'sum', lengths=group rows)")
+        del flags
+    else:
+        rec["sorted_library_ms"] = None
+        rec["sorted_library"] = "none"
+    print(f"segment_reduce_sorted (K6's sorted-order entry) at Q2ug's "
+          f"inputs ({rec['sorted_shape']}): {rec['sorted_ms']:.4f} ms, "
+          f"plain {rec['sorted_plain_ms']:.4f} ms, bound "
+          f"{rec['sorted_bound_ms']:.4f} ms ({nb} bytes; K6 reads "
+          f"{read}: a group id a row for the lengths), library "
+          f"{rec['sorted_library_ms']} ms ({rec['sorted_library']}); "
+          f"agrees with the plain version (max abs err {err:g})",
+          flush=True)
+    return rec
+
+
+def k6_q2s2_shape(args):
+    """K6's permuted entry at Q2s2's inputs (its one launch: argMax's max
+    of x % 7, the statistics' terms of x and x % 7 formed in registers,
+    groupBitXor's bxor, over 100M rows through perm): against its plain
+    version, timed beside its bound."""
+    from clickhouse_tpu_torch.ops.scan_ops import (_segment_reduce_plain,
+                                                   segment_reduce_many)
+    specs, perm, gid, cap_g, group_rows = args
+    rows = gid.shape[0]
+    nb, n_launch = k6_bytes(specs, rows, cap_g, group_rows)
+    if n_launch != 1:
+        fail(f"Q2s2's K6 specs take {n_launch} launches")
+
+    def many():
+        return segment_reduce_many(specs, perm, gid, cap_g,
+                                   group_rows=group_rows)
+
+    def plain():
+        return [_segment_reduce_plain(op, d, m, perm, gid, cap_g, u)
+                for op, d, m, u in specs]
+    rec = dict(q2s2_max_abs_err=k6_agrees(specs, perm, gid, cap_g,
+                                          group_rows),
+               q2s2_ms=cuda_ms(many), q2s2_plain_ms=cuda_ms(plain, reps=1),
+               q2s2_bytes=nb, q2s2_bound_ms=bound_ms(nb),
+               q2s2_shape=f"{[op for op, _, _, _ in specs]} in one launch "
+                          f"over {rows} sorted rows, {cap_g} group slots")
+    print(f"segment_reduce at Q2s2's inputs ({rec['q2s2_shape']}): "
+          f"{rec['q2s2_ms']:.4f} ms, plain {rec['q2s2_plain_ms']:.4f} ms, "
+          f"bound {rec['q2s2_bound_ms']:.4f} ms ({nb} bytes); agrees with "
+          f"the plain version (max abs err {rec['q2s2_max_abs_err']:g})",
+          flush=True)
+    return rec
 
 
 def join_args(session):
@@ -3354,28 +3757,47 @@ def main():
     if sys.argv[1:] == ["--k9"]:
         k9_turn(dev)
         return
+    if sys.argv[1:] == ["--aggregates"]:
+        # K6's cases (both entries), Q2u, Q2ug, Q2q, Q2s2 and Q2g on their
+        # path, K6's sorted-order entry at Q2ug's inputs, and the five
+        # queries' times
+        check_k6(dev)
+        check_k6_sorted(dev)
+        s, x = load_hits(ch)
+        want = slice12_answers(x)
+        del x
+        memory = {"count": [], "grouping": [], "chars": [], "dense": [],
+                  "k2": []}
+        launches = {k: 0 for k in _native.LAUNCHES}
+        launch_rows = {k: [] for k in _native.LAUNCHES}
+        _, q2ug_args, q2s2_args = slice12_path(s, want, {}, launches,
+                                               launch_rows, memory)
+        k6_sorted_shape(dev, q2ug_args)
+        k6_q2s2_shape(q2s2_args)
+        del q2ug_args, q2s2_args
+        aggregate_times(s)
+        return
 
-    check_k1(dev)
-    check_k2(dev)
-    check_k3(dev)
-    check_k4(dev)
-    check_k5(dev)
-    check_k6(dev)
-    check_k7(dev)
-    check_k8(dev)
-    check_k9(dev)
-    check_k10(dev)
-    check_k11(dev)
+    for check in (check_k1, check_k2, check_k3, check_k4, check_k5,
+                  check_k6, check_k6_sorted, check_k7, check_k8, check_k9,
+                  check_k10, check_k11):
+        check(dev)
+        print(f"[{time.perf_counter() - t0:.1f} s] {check.__name__} done",
+              flush=True)
     check_small_queries(ch)
     check_small_joins(ch)
+    print(f"[{time.perf_counter() - t0:.1f} s] small queries done",
+          flush=True)
 
     s, x = load_hits(ch)
     want = expected_answers(x)
+    want.update(slice12_answers(x))
     want.update(join_answers(*load_join_tables(s)))
     del x
     load_hits_s(s)
     want.update(string_answers())
     want.update(vector_answers(load_vecs(s)))
+    print(f"[{time.perf_counter() - t0:.1f} s] tables loaded", flush=True)
 
     # the main path, once, through the public API: each query with the
     # launch counters set to 0 just before it and read just after.  Two
@@ -3455,6 +3877,8 @@ def main():
         join_path(s, want, per_query, launches, launch_rows, memory)
         slice10_path(s, want, per_query, launches, launch_rows, memory)
         slice11_path(s, want, per_query, launches, launch_rows, memory)
+        _, q2ug_args, q2s2_args = slice12_path(s, want, per_query, launches,
+                                               launch_rows, memory)
     finally:
         unwatch_dense()
         agg_ops._masked_reduce_cuda = k1_cuda
@@ -3462,18 +3886,36 @@ def main():
         sort_ops.sort_rows = sort_rows
         agg_ops.group_by_sort = group_by_sort
         Dictionary.device_chars = device_chars
+    print(f"[{time.perf_counter() - t0:.1f} s] main path done", flush=True)
     time_queries(s)
+    print(f"[{time.perf_counter() - t0:.1f} s] query times done", flush=True)
 
     args = main_path_args(s)
     shapes = q_shapes(dev, args)
     shapes.update(sort_shapes(dev, args))
     del args
+    k6 = shapes["segment_reduce"]
+    k6.update(k6_sorted_shape(dev, q2ug_args))
+    k6.update(k6_q2s2_shape(q2s2_args))
+    k6["max_abs_err"] = max(k6["max_abs_err"], k6.pop("sorted_max_abs_err"),
+                            k6.pop("q2s2_max_abs_err"))
+    del q2ug_args, q2s2_args
     shapes.update(join_shapes(dev, join_args(s)))
     shapes.update(string_shapes(dev, string_args(s)))
     shapes.update(vector_shapes(dev, vector_args(s)))
+    print(f"[{time.perf_counter() - t0:.1f} s] kernel times done",
+          flush=True)
     for name in ("radix_sort_pairs", "segment_reduce", "segment_bounds"):
         shapes[name]["launches_per_query"] = {
-            q: per_query[q][name] for q in ("Q2b", "Q2m", "Q4x")}
+            q: per_query[q][name] + (per_query[q]["segment_reduce_sorted"]
+                                     if name == "segment_reduce" else 0)
+            for q in ("Q2b", "Q2m", "Q4x")
+            + tuple(q for q, _ in SLICE12_QUERIES)}
+    shapes["segment_reduce"]["launches_sorted"] = \
+        launches["segment_reduce_sorted"]
+    shapes["segment_reduce"]["launches_permuted"] = launches["segment_reduce"]
+    launches["segment_reduce"] += launches["segment_reduce_sorted"]
+    launch_rows["segment_reduce"] += launch_rows["segment_reduce_sorted"]
     for name in ("dense_join", "hash_join", "expand_matches"):
         shapes[name]["launches_per_query"] = {
             q: per_query[q][name] for q, _ in JOIN_QUERIES}

@@ -42,6 +42,17 @@
 //     for `any`; double add for float sums, whose order then varies from
 //     run to run).  The wrapper fills the outputs with each op's identity
 //     first;
+//   * a float sum of x^p (p 1-4) or of x * y (OP_FSUMX: the variance
+//     family's, the covariance's and the moments' terms) is formed in
+//     registers from the columns as stored, so those aggregates read
+//     their arguments' narrow storage like any other reduction and no
+//     float64 column of their terms is built;
+//   * the sorted-order entry (perm null; reference agg_ops.py:109,
+//     Grouping.reduce_sorted) takes data and masks that are already in
+//     sorted order, as the holistic aggregates make them (uniqExact's
+//     first-occurrence flags, argMin's rows at the best token): the same
+//     body with row i read at i, so no permutation is read and no gather
+//     is made;
 //   * min/max compare order keys (sort_ops.order_value: signed ints with
 //     the sign bit flipped, floats as their tokens: -0.0 below +0.0, a
 //     positive NaN above every number, a negative NaN below), as the
@@ -60,13 +71,20 @@ constexpr int kMaxCounts = kMaxMasks + 1;
 
 // One reduction: op (SegOp) of column `data` (a slot of ChttSegArgs.data;
 // -1 for `any`, which keeps a row id and reads no value) over the rows
-// where mask slot `mask` holds (-1: every row of a group).
+// where mask slot `mask` holds (-1: every row of a group).  OP_FSUMX sums
+// a term formed in registers from the columns as stored: the value of
+// `data` in double raised to `pow` (1-4), times the value of column
+// `data2` where data2 >= 0.
 struct ChttSegSpec {
   int op;
   int data;
   int mask;
   int uns;                   // int64 data holds UInt64 bits
-  void* acc;                 // cap_g u64 states (double bits for OP_FSUM)
+  int data2;                 // OP_FSUMX's second column, or -1
+  int pow;                   // OP_FSUMX's power of `data`
+  int uns2;                  // int64 data2 holds UInt64 bits
+  int pad;
+  void* acc;                 // cap_g u64 states (double bits for OP_FSUM*)
 };
 
 // One masked-in row count: of mask slot `mask` (-1: every row).
@@ -77,7 +95,8 @@ struct ChttSegCount {
 };
 
 struct ChttSegArgs {
-  const int* perm;           // sorted position -> raw row
+  const int* perm;           // sorted position -> raw row; null: the data
+                             // and masks are in sorted order (row i is i)
   const int* gid;            // sorted order; >= cap_g: no slot
   long long n;
   int cap_g;
@@ -112,6 +131,7 @@ enum SegOp {
   OP_BAND = 5,
   OP_BXOR = 6,
   OP_FSUM = 8,     // float sum in double
+  OP_FSUMX = 9,    // float sum in double of x^pow (* y)
 };
 
 __device__ __forceinline__ u64 identity(int op) {
@@ -121,7 +141,7 @@ __device__ __forceinline__ u64 identity(int op) {
 template <int OP> __device__ __forceinline__ u64 combine(u64 a, u64 b) {
   switch (OP) {
     case OP_SUM: return a + b;
-    case OP_FSUM:
+    case OP_FSUM: case OP_FSUMX:
       return (u64)__double_as_longlong(__longlong_as_double((long long)a) +
                                        __longlong_as_double((long long)b));
     case OP_MIN: case OP_ANY: return a < b ? a : b;
@@ -138,7 +158,7 @@ __device__ __forceinline__ void atomic_combine(int op, u64* p, u64 v) {
   auto* q = reinterpret_cast<unsigned long long*>(p);
   switch (op) {
     case OP_SUM: atomicAdd(q, v); break;
-    case OP_FSUM:
+    case OP_FSUM: case OP_FSUMX:
       atomicAdd(reinterpret_cast<double*>(p),
                 __longlong_as_double((long long)v));
       break;
@@ -205,21 +225,58 @@ __device__ __forceinline__ u64 contribution(u64 raw, int dtype, int uns,
   return bits;
 }
 
+// A stored value as a double (UInt64 bits read unsigned).
+__device__ __forceinline__ double to_double(u64 raw, int dtype, int uns) {
+  switch (dtype) {
+    case DT_BOOL: return raw != 0 ? 1.0 : 0.0;
+    case DT_U8: return (double)(unsigned)raw;
+    case DT_I8: return (double)(int8_t)raw;
+    case DT_I16: return (double)(int16_t)raw;
+    case DT_I32: return (double)(int)raw;
+    case DT_I64: return uns ? (double)raw : (double)(long long)raw;
+    case DT_F32: return (double)__uint_as_float((unsigned)raw);
+    default: return __longlong_as_double((long long)raw);
+  }
+}
+
+// OP_FSUMX's second column and power, as a spec states them.
+struct Xform {
+  int dtype2;                // ChttDtype of the second column; -1: none
+  int uns2;
+  int pow;                   // 1-4
+};
+
+// OP_FSUMX's term: x^pow (x*x, (x*x)*x, (x*x)*(x*x), as the plain
+// version multiplies), times y where there is a second column.
+__device__ __forceinline__ u64 fsumx_term(u64 x, int dtype, int uns, u64 y,
+                                          const Xform& xf) {
+  const double a = to_double(x, dtype, uns);
+  const double a2 = a * a;
+  double t = xf.pow == 1 ? a : xf.pow == 2 ? a2 : xf.pow == 3 ? a2 * a
+                                                              : a2 * a2;
+  if (xf.dtype2 >= 0) t = t * to_double(y, xf.dtype2, xf.uns2);
+  return (u64)__double_as_longlong(t);
+}
+
 // Reduce K rows a lane (bit k of `in`: row k is masked in) of op OP over
 // the warp's runs of equal group id (bit k of `same`: the lane 2^k above
 // has this lane's group; the K rows of a lane share its group) and add
 // each run into its shared slot (`write`: this lane heads a run with a
-// slot).
+// slot).  y and xf: OP_FSUMX's second column and power.
 template <int OP, int K>
 __device__ __forceinline__ void reduce_rows(const u64 (&x)[K],
+                                            const u64 (&y)[K],
                                             const int (&r)[K], unsigned in,
-                                            int dtype, int uns, unsigned same,
+                                            int dtype, int uns,
+                                            const Xform& xf, unsigned same,
                                             bool write, u64* slot) {
   u64 v = identity(OP);
 #pragma unroll
   for (int k = 0; k < K; ++k)
-    if ((in >> k) & 1u) v = combine<OP>(v, contribution<OP>(x[k], dtype, uns,
-                                                            r[k]));
+    if ((in >> k) & 1u)
+      v = combine<OP>(v, OP == OP_FSUMX
+                             ? fsumx_term(x[k], dtype, uns, y[k], xf)
+                             : contribution<OP>(x[k], dtype, uns, r[k]));
 #pragma unroll
   for (int k = 0; k < 5; ++k) {
     const u64 v2 = __shfl_down_sync(kFull, v, 1 << k);
@@ -228,38 +285,30 @@ __device__ __forceinline__ void reduce_rows(const u64 (&x)[K],
   if (write && v != identity(OP)) atomic_combine(OP, slot, v);
 }
 
-template <int K>
+template <int K, bool XF>
 __device__ __forceinline__ void reduce_op(int op, const u64 (&x)[K],
+                                          const u64 (&y)[K],
                                           const int (&r)[K], unsigned in,
-                                          int dtype, int uns, unsigned same,
+                                          int dtype, int uns,
+                                          const Xform& xf, unsigned same,
                                           bool write, u64* slot) {
+#define CHTT_REDUCE(OPC) \
+  reduce_rows<OPC, K>(x, y, r, in, dtype, uns, xf, same, write, slot)
   switch (op) {
-    case OP_SUM:
-      reduce_rows<OP_SUM, K>(x, r, in, dtype, uns, same, write, slot);
+    case OP_SUM: CHTT_REDUCE(OP_SUM); break;
+    case OP_FSUM: CHTT_REDUCE(OP_FSUM); break;
+    case OP_FSUMX:
+      if constexpr (XF) CHTT_REDUCE(OP_FSUMX);
       break;
-    case OP_FSUM:
-      reduce_rows<OP_FSUM, K>(x, r, in, dtype, uns, same, write, slot);
-      break;
-    case OP_MIN:
-      reduce_rows<OP_MIN, K>(x, r, in, dtype, uns, same, write, slot);
-      break;
-    case OP_MAX:
-      reduce_rows<OP_MAX, K>(x, r, in, dtype, uns, same, write, slot);
-      break;
-    case OP_ANY:
-      reduce_rows<OP_ANY, K>(x, r, in, dtype, uns, same, write, slot);
-      break;
-    case OP_BOR:
-      reduce_rows<OP_BOR, K>(x, r, in, dtype, uns, same, write, slot);
-      break;
-    case OP_BAND:
-      reduce_rows<OP_BAND, K>(x, r, in, dtype, uns, same, write, slot);
-      break;
-    case OP_BXOR:
-      reduce_rows<OP_BXOR, K>(x, r, in, dtype, uns, same, write, slot);
-      break;
+    case OP_MIN: CHTT_REDUCE(OP_MIN); break;
+    case OP_MAX: CHTT_REDUCE(OP_MAX); break;
+    case OP_ANY: CHTT_REDUCE(OP_ANY); break;
+    case OP_BOR: CHTT_REDUCE(OP_BOR); break;
+    case OP_BAND: CHTT_REDUCE(OP_BAND); break;
+    case OP_BXOR: CHTT_REDUCE(OP_BXOR); break;
     default: break;
   }
+#undef CHTT_REDUCE
 }
 
 // What the reductions of one kernel instance read: the specs and counts
@@ -270,6 +319,10 @@ struct Reductions {
   const int* mask;
   const int* uns;
   const int* dtype;
+  const int* data2;          // OP_FSUMX: second column slot, power,
+  const int* pow;            // its signedness and type (-1: none)
+  const int* uns2;
+  const int* dtype2;
   const int* cmask;
   int n_specs;
   int n_counts;
@@ -281,7 +334,7 @@ struct Reductions {
 
 // Rows S0 .. S0 + K - 1 of each lane, which share the lane's group gs:
 // every count and spec.  Every lane of the warp must call it.
-template <int NDATA, int S0, int K>
+template <int NDATA, int S0, int K, bool XF>
 __device__ __forceinline__ void reduce_lane_rows(
     const Reductions& R, int gs, const int (&r)[kSlots],
     const u64 (&raw)[NDATA > 0 ? NDATA : 1][kSlots],
@@ -320,39 +373,47 @@ __device__ __forceinline__ void reduce_lane_rows(
 #pragma unroll
   for (int k = 0; k < K; ++k) rr[k] = r[S0 + k];
   for (int q = 0; q < R.n_specs; ++q) {
-    const int qd = R.data[q];
-    u64 x[K];
+    const int qd = R.data[q], qd2 = XF ? R.data2[q] : -1;
+    u64 x[K], y[K];
 #pragma unroll
     for (int k = 0; k < K; ++k) {
       x[k] = 0;
+      y[k] = 0;
 #pragma unroll
-      for (int d = 0; d < NDATA; ++d)
+      for (int d = 0; d < NDATA; ++d) {
         if (d == qd) x[k] = raw[d][S0 + k];
+        if (XF && d == qd2) y[k] = raw[d][S0 + k];
+      }
     }
-    reduce_op<K>(R.op[q], x, rr, passing(R.mask[q]), R.dtype[q], R.uns[q],
-                 same, write, &R.acc[q * kTile + l]);
+    const Xform xf = XF ? Xform{R.dtype2[q], R.uns2[q], R.pow[q]}
+                        : Xform{-1, 0, 1};
+    reduce_op<K, XF>(R.op[q], x, y, rr, passing(R.mask[q]), R.dtype[q],
+                     R.uns[q], xf, same, write, &R.acc[q * kTile + l]);
   }
 }
 
 // Row slots S0 .. S0 + 3 (one 128-row chunk of the warp): where every
 // lane's four rows share its group, one segmented reduction for all four
 // rows; else one a row slot.
-template <int NDATA, int S0>
+template <int NDATA, int S0, bool XF>
 __device__ __forceinline__ void reduce_chunk(
     const Reductions& R, const int (&g)[kSlots], const int (&r)[kSlots],
     const u64 (&raw)[NDATA > 0 ? NDATA : 1][kSlots],
     const unsigned (&mbits)[kMaxMasks]) {
   if (__all_sync(kFull, g[S0] == g[S0 + 3])) {
-    reduce_lane_rows<NDATA, S0, 4>(R, g[S0], r, raw, mbits);
+    reduce_lane_rows<NDATA, S0, 4, XF>(R, g[S0], r, raw, mbits);
   } else {
-    reduce_lane_rows<NDATA, S0, 1>(R, g[S0], r, raw, mbits);
-    reduce_lane_rows<NDATA, S0 + 1, 1>(R, g[S0 + 1], r, raw, mbits);
-    reduce_lane_rows<NDATA, S0 + 2, 1>(R, g[S0 + 2], r, raw, mbits);
-    reduce_lane_rows<NDATA, S0 + 3, 1>(R, g[S0 + 3], r, raw, mbits);
+    reduce_lane_rows<NDATA, S0, 1, XF>(R, g[S0], r, raw, mbits);
+    reduce_lane_rows<NDATA, S0 + 1, 1, XF>(R, g[S0 + 1], r, raw, mbits);
+    reduce_lane_rows<NDATA, S0 + 2, 1, XF>(R, g[S0 + 2], r, raw, mbits);
+    reduce_lane_rows<NDATA, S0 + 3, 1, XF>(R, g[S0 + 3], r, raw, mbits);
   }
 }
 
-template <int NDATA>
+// XF: some spec is OP_FSUMX (its second column and power are read; the
+// other launches compile without them).  SORTED: the sorted-order entry
+// (no permutation: row i is sorted position i).
+template <int NDATA, bool XF, bool SORTED>
 __global__ void __launch_bounds__(kThreads) k_segment_reduce(
     const __grid_constant__ ChttSegArgs a) {
   extern __shared__ __align__(16) unsigned char smem[];
@@ -362,7 +423,9 @@ __global__ void __launch_bounds__(kThreads) k_segment_reduce(
   // each spec's op, column slot, mask slot and signedness, and each
   // count's mask slot, read once from the arguments
   __shared__ int s_op[kMaxSpecs], s_data[kMaxSpecs], s_mask[kMaxSpecs],
-      s_uns[kMaxSpecs], s_dtype[kMaxSpecs], s_cmask[kMaxCounts];
+      s_uns[kMaxSpecs], s_dtype[kMaxSpecs], s_data2[kMaxSpecs],
+      s_pow[kMaxSpecs], s_uns2[kMaxSpecs], s_dtype2[kMaxSpecs],
+      s_cmask[kMaxCounts];
   __shared__ int s_last;
   const long long tile_start = (long long)blockIdx.x * kTile;
   const long long tile_end =
@@ -378,6 +441,11 @@ __global__ void __launch_bounds__(kThreads) k_segment_reduce(
     s_mask[q] = a.spec[q].mask;
     s_uns[q] = a.spec[q].uns;
     s_dtype[q] = a.spec[q].data < 0 ? 0 : a.dtype[a.spec[q].data];
+    const bool x2 = a.spec[q].op == OP_FSUMX && a.spec[q].data2 >= 0;
+    s_data2[q] = x2 ? a.spec[q].data2 : -1;
+    s_dtype2[q] = x2 ? a.dtype[a.spec[q].data2] : -1;
+    s_uns2[q] = a.spec[q].uns2;
+    s_pow[q] = a.spec[q].pow;
   }
   if (threadIdx.x < a.n_counts) s_cmask[threadIdx.x] = a.count[threadIdx.x].mask;
 
@@ -390,17 +458,22 @@ __global__ void __launch_bounds__(kThreads) k_segment_reduce(
     const long long i0 = base + 128 * c + 4 * lane;
     if (i0 + 3 < tile_end) {
       const int4 gv = *reinterpret_cast<const int4*>(a.gid + i0);
-      const int4 pv = *reinterpret_cast<const int4*>(a.perm + i0);
       g[4 * c] = gv.x; g[4 * c + 1] = gv.y;
       g[4 * c + 2] = gv.z; g[4 * c + 3] = gv.w;
-      r[4 * c] = pv.x; r[4 * c + 1] = pv.y;
-      r[4 * c + 2] = pv.z; r[4 * c + 3] = pv.w;
+      if constexpr (!SORTED) {
+        const int4 pv = *reinterpret_cast<const int4*>(a.perm + i0);
+        r[4 * c] = pv.x; r[4 * c + 1] = pv.y;
+        r[4 * c + 2] = pv.z; r[4 * c + 3] = pv.w;
+      } else {
+#pragma unroll
+        for (int k = 0; k < 4; ++k) r[4 * c + k] = (int)(i0 + k);
+      }
     } else {
 #pragma unroll
       for (int k = 0; k < 4; ++k) {
         const long long i = i0 + k;
         g[4 * c + k] = i < tile_end ? a.gid[i] : a.cap_g;
-        r[4 * c + k] = i < tile_end ? a.perm[i] : 0;
+        r[4 * c + k] = i >= tile_end ? 0 : SORTED ? (int)i : a.perm[i];
       }
     }
   }
@@ -446,11 +519,13 @@ __global__ void __launch_bounds__(kThreads) k_segment_reduce(
   __syncthreads();
 
   // phase 3: the reductions, a 128-row chunk of the warp at a time
-  const Reductions R{s_op, s_data, s_mask, s_uns, s_dtype, s_cmask,
-                     a.n_specs, a.n_counts, a.cap_g, g0, s_acc, s_cnt};
+  const Reductions R{s_op,    s_data,   s_mask,    s_uns,
+                     s_dtype, s_data2,  s_pow,     s_uns2,
+                     s_dtype2, s_cmask, a.n_specs, a.n_counts,
+                     a.cap_g, g0,       s_acc,     s_cnt};
   static_assert(kSlots == 8, "two chunks of four row slots");
-  reduce_chunk<NDATA, 0>(R, g, r, raw, mbits);
-  reduce_chunk<NDATA, 4>(R, g, r, raw, mbits);
+  reduce_chunk<NDATA, 0, XF>(R, g, r, raw, mbits);
+  reduce_chunk<NDATA, 4, XF>(R, g, r, raw, mbits);
   __syncthreads();
 
   // the first and last groups of the tile may have rows in other tiles
@@ -476,38 +551,62 @@ __global__ void __launch_bounds__(kThreads) k_segment_reduce(
   }
 }
 
-template <int NDATA>
+template <int NDATA, bool XF, bool SORTED>
 int launch(const ChttSegArgs& a, cudaStream_t s) {
   const long long tiles = (a.n + kTile - 1) / kTile;
   const size_t smem = (size_t)kTile * (8 * a.n_specs + 4 * a.n_counts);
   cudaError_t e = cudaFuncSetAttribute(
-      k_segment_reduce<NDATA>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      k_segment_reduce<NDATA, XF, SORTED>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (e != cudaSuccess) return (int)e;
-  k_segment_reduce<NDATA><<<(unsigned)tiles, kThreads, smem, s>>>(a);
+  k_segment_reduce<NDATA, XF, SORTED>
+      <<<(unsigned)tiles, kThreads, smem, s>>>(a);
   return chtt_last_error();
+}
+
+template <bool SORTED>
+int dispatch(const ChttSegArgs& a, bool xf, cudaStream_t s) {
+  switch (a.n_data) {
+    case 0: return launch<0, false, SORTED>(a, s);
+    case 1: return xf ? launch<1, true, SORTED>(a, s)
+                      : launch<1, false, SORTED>(a, s);
+    case 2: return xf ? launch<2, true, SORTED>(a, s)
+                      : launch<2, false, SORTED>(a, s);
+    case 3: return xf ? launch<3, true, SORTED>(a, s)
+                      : launch<3, false, SORTED>(a, s);
+    default: return xf ? launch<4, true, SORTED>(a, s)
+                       : launch<4, false, SORTED>(a, s);
+  }
 }
 
 }  // namespace
 
 // Reduce n key-sorted rows into cap_g group slots: every spec and count of
 // *args in one launch.  Each spec's acc holds its op's identity and each
-// count's out zeros on entry; perm and gid start on 16-byte boundaries.
+// count's out zeros on entry; perm (where given) and gid start on 16-byte
+// boundaries.  With perm null (the sorted-order entry) row i of the data
+// and masks is sorted position i: no permutation is read, the reads are
+// contiguous, and `any` keeps the smallest sorted position.
 extern "C" int chtt_segment_reduce(const ChttSegArgs* args, void* stream) {
   const ChttSegArgs& a = *args;
   if (a.n < 1 || a.n >= (1ll << 31) || a.cap_g < 1 || a.n_specs < 0 ||
       a.n_specs > kMaxSpecs || a.n_data < 0 || a.n_data > kMaxData ||
       a.n_masks < 0 || a.n_masks > kMaxMasks || a.n_counts < 0 ||
       a.n_counts > kMaxCounts || a.n_specs + a.n_counts == 0 ||
-      reinterpret_cast<uintptr_t>(a.perm) % 16 != 0 ||
+      reinterpret_cast<uintptr_t>(a.perm) % 16 != 0 ||  // null passes
       reinterpret_cast<uintptr_t>(a.gid) % 16 != 0)
     return (int)cudaErrorInvalidValue;
+  bool xf = false;
   for (int q = 0; q < a.n_specs; ++q) {
     const ChttSegSpec& sp = a.spec[q];
+    xf = xf || sp.op == OP_FSUMX;
     if (sp.acc == nullptr || sp.data < -1 || sp.data >= a.n_data ||
         (sp.data < 0 && sp.op != OP_ANY) ||
         sp.mask < -1 || sp.mask >= a.n_masks || sp.op < OP_SUM ||
-        sp.op > OP_FSUM || sp.op == 7)
+        sp.op > OP_FSUMX || sp.op == 7 ||
+        (sp.op == OP_FSUMX &&
+         (sp.pow < 1 || sp.pow > 4 || sp.data2 < -1 || sp.data2 >= a.n_data)))
       return (int)cudaErrorInvalidValue;
   }
   for (int c = 0; c < a.n_counts; ++c)
@@ -515,11 +614,6 @@ extern "C" int chtt_segment_reduce(const ChttSegArgs* args, void* stream) {
         a.count[c].mask >= a.n_masks)
       return (int)cudaErrorInvalidValue;
   cudaStream_t s = (cudaStream_t)stream;
-  switch (a.n_data) {
-    case 0: return launch<0>(a, s);
-    case 1: return launch<1>(a, s);
-    case 2: return launch<2>(a, s);
-    case 3: return launch<3>(a, s);
-    default: return launch<4>(a, s);
-  }
+  return a.perm != nullptr ? dispatch<false>(a, xf, s)
+                           : dispatch<true>(a, xf, s);
 }

@@ -61,7 +61,7 @@ from ..exprs import aggregates as agg_reg
 from ..exprs.expr import (DEVICE_KEY, BoundCall, BoundColumn, BoundLiteral,
                           ColVal, StoredColVal, _literal_colval,
                           colval_from_column, evaluate, storage_np)
-from ..ops import _native, agg_ops, filter_ops, join_ops, sort_ops
+from ..ops import _native, agg_ops, filter_ops, join_ops, scan_ops, sort_ops
 from ..plan import logical as L
 
 __all__ = ["ExecBlock", "ExecContext", "execute_plan", "materialize"]
@@ -363,6 +363,9 @@ def _stage1(node: L.AggregateNode, child: ExecBlock,
     # to K4 (a scan's rows are sorted with no mask); the dense grouping
     # takes it as a tensor
     rows = child.valid if dims is not None else child.rows
+    gctx = agg_reg.GroupContext(row_valid=rows, grouping=None,
+                                keys=key_arrays,
+                                max_bytes=ctx.memory_headroom)
     per_agg_inputs = []
     for item in node.aggregates:
         arg_cvs = []
@@ -375,8 +378,13 @@ def _stage1(node: L.AggregateNode, child: ExecBlock,
         if item.cond is not None:
             cond = _bool_mask(evaluate(item.cond, child.env(),
                                       ctx.memory_headroom), cap)
-        premask = agg_reg.compose_row_mask(rows, arg_cvs, cond)
-        per_agg_inputs.append((item, arg_cvs, cond, premask))
+        # RESPECT NULLS takes NULL rows as values: its row mask leaves the
+        # argument validities out (reference exec/executor.py:576-582)
+        premask = agg_reg.compose_row_mask(
+            rows, [] if item.fn.respect_nulls else arg_cvs, cond)
+        sec = item.fn.secondary(dataclasses.replace(gctx, premask=premask),
+                                arg_cvs, cond) if item.fn.holistic else None
+        per_agg_inputs.append((item, arg_cvs, cond, premask, sec))
 
     if global_agg:
         # GROUP BY (): masked reductions (K1), never a sort
@@ -388,16 +396,23 @@ def _stage1(node: L.AggregateNode, child: ExecBlock,
             max_bytes=ctx.memory_headroom,
             held_bytes=_dense_held_bytes(per_agg_inputs, cap, cap_g))
     else:
-        # the generic path: a stable sort by the keys (K4, K5), then K6
+        # the generic path: a stable sort by the keys (K4, K5), then K6; the
+        # first holistic aggregate's secondary keys order each group's rows
+        # as it needs them, so its sort is the grouping's own
+        first_sec = next((x[4] for x in per_agg_inputs if x[4] is not None),
+                         ())
         grouping = agg_ops.group_by_sort(key_arrays, rows, cap_g,
+                                         secondary=first_sec,
                                          max_bytes=ctx.memory_headroom)
-    gctx = agg_reg.GroupContext(row_valid=rows, grouping=grouping)
+        # the grouping's perm and group ids stay while the aggregates run
+        gctx.hold(8 * grouping.perm.shape[0], "the sort grouping")
+    gctx.grouping = grouping
 
     if grouping.kind == "dense":
         group_counts, states_per_agg = _dense_stage1(
             grouping, child, gctx,
             [(item, arg_cvs, cond)
-             for item, arg_cvs, cond, _ in per_agg_inputs])
+             for item, arg_cvs, cond, _, _ in per_agg_inputs])
         grouping.present = group_counts > 0
         grouping.num_groups = grouping.present.to(torch.int64).sum()
         return grouping, group_counts, states_per_agg
@@ -406,24 +421,60 @@ def _stage1(node: L.AggregateNode, child: ExecBlock,
     if global_agg:
         grouping.num_groups = (group_counts[0] > 0).to(torch.int64)
     # every aggregate's reductions in one reduce_many call (K6 launched
-    # once under the sort grouping); a count over exactly the block's rows
-    # is the group count
-    plans, specs = [], []
-    for item, arg_cvs, cond, premask in per_agg_inputs:
+    # once under the sort grouping, the same reduction asked twice reduced
+    # once); a count over exactly the block's rows is the group count
+    plans, specs, index = [], [], {}
+    for item, arg_cvs, cond, premask, _ in per_agg_inputs:
         if isinstance(item.fn, agg_reg.CountAgg) and premask is rows:
-            plans.append((item, arg_cvs, None, 0))
+            plans.append((item, arg_cvs, None, []))
             continue
         s, finish = item.fn.reductions(
             dataclasses.replace(gctx, premask=premask), arg_cvs, cond)
-        plans.append((item, arg_cvs, finish, len(s)))
-        specs += s
+        slots = []
+        for spec in s:
+            key = scan_ops.spec_key(spec)
+            if key not in index:
+                index[key] = len(specs)
+                specs.append(spec)
+            slots.append(index[key])
+        plans.append((item, arg_cvs, finish, slots))
     results = grouping.reduce_many(specs) if specs else []
     states_per_agg = []
-    for item, arg_cvs, finish, k in plans:
-        states = [group_counts] if finish is None else finish(results[:k])
-        results = results[k:]
+    sorted_groupings = [grouping] if grouping.kind == "sort" else []
+    for (item, arg_cvs, finish, slots), (_, _, cond, premask, sec) in zip(
+            plans, per_agg_inputs):
+        states = [group_counts] if finish is None \
+            else finish([results[i] for i in slots])
+        if item.fn.two_step:
+            actx = dataclasses.replace(gctx, premask=premask)
+            g = grouping if sec is None \
+                else _holistic_grouping(sorted_groupings, sec, actx, cap_g)
+            states = item.fn.sorted_step(actx, g, arg_cvs, cond, states)
         states_per_agg.append((item, arg_cvs, states))
     return grouping, group_counts, states_per_agg
+
+
+def _same_keys(a, b) -> bool:
+    return len(a) == len(b) and all(
+        x.data is y.data and x.unsigned == y.unsigned and x.bounds == y.bounds
+        for x, y in zip(a, b))
+
+
+def _holistic_grouping(groupings, sec, gctx, cap_g):
+    """The sort grouping by (keys, sec): one of `groupings` sorted with
+    the same secondary keys, else a new one (K4, K5; its working set held
+    against what the aggregates leave of the budget, and its perm and
+    group ids counted while the aggregates run)."""
+    for g in groupings:
+        if _same_keys(g.secondary, sec):
+            return g
+    left = None if gctx.max_bytes is None \
+        else gctx.max_bytes - gctx.shared["bytes"]
+    g = agg_ops.group_by_sort(gctx.keys, gctx.row_valid, cap_g,
+                              secondary=sec, max_bytes=left)
+    gctx.hold(8 * g.perm.shape[0], "a holistic aggregate's sort grouping")
+    groupings.append(g)
+    return g
 
 
 def _dense_held_bytes(per_agg_inputs, cap: int, cap_g: int) -> int:
@@ -431,7 +482,7 @@ def _dense_held_bytes(per_agg_inputs, cap: int, cap_g: int) -> int:
     summed value at its logical width and a row mask (a byte a row), and
     its int64 outputs (a count and a sum of cap_g slots each)."""
     held = 8 * cap_g
-    for item, arg_cvs, _, _ in per_agg_inputs:
+    for item, arg_cvs, _, _, _ in per_agg_inputs:
         held += cap + 16 * cap_g
         if isinstance(item.fn, (agg_reg.SumAgg, agg_reg.AvgAgg)):
             held += cap * dt.remove_nullable(arg_cvs[0].dtype).itemsize
@@ -499,12 +550,19 @@ def _finalize(node: L.AggregateNode, key_cvs, unique_keys, num_groups,
     for item, arg_cvs, states in states_per_agg:
         out = item.fn.finalize(states)
         data, validity = out[0], out[1]
+        lengths = out[2] if len(out) > 2 else None
         if not isinstance(item.fn, agg_reg.CountAgg):
-            data = torch.where(group_counts > 0, data, torch.zeros_like(data))
+            have = group_counts > 0
+            data = torch.where(have[:, None] if data.dim() == 2 else have,
+                               data, torch.zeros_like(data))
+            if lengths is not None:
+                lengths = torch.where(have, lengths,
+                                      torch.zeros_like(lengths))
         dict_ = arg_cvs[0].dictionary if (item.args
                                           and item.field.dtype.is_dictionary) \
             else None
-        cols[item.field.id] = ColVal(item.field.dtype, data, validity, dict_)
+        cols[item.field.id] = ColVal(item.field.dtype, data, validity, dict_,
+                                     lengths=lengths)
     if group_valid is None:
         if global_agg:
             num_groups = torch.clamp(num_groups, min=1)
@@ -1177,15 +1235,15 @@ _DISPATCH: Dict[type, Callable] = {
 
 # -- materialization ---------------------------------------------------------
 
-def _array_rows(cv: ColVal, data: np.ndarray, valid_np: np.ndarray
-                ) -> np.ndarray:
+def _array_rows(cv: ColVal, data: np.ndarray, pick) -> np.ndarray:
     """An Array result's visible rows (data: their (rows, max_len)
-    matrix) as Python lists of their first `length` elements, as the
-    reference gives them (lengths None: full-width rows)."""
+    matrix; pick: the visible rows of a tensor) as Python lists of their
+    first `length` elements, as the reference gives them (lengths None:
+    full-width rows)."""
     if cv.lengths is None:
         lens = np.full(len(data), data.shape[-1])
     else:
-        lens = cv.lengths.cpu().numpy()[valid_np]
+        lens = pick(cv.lengths).cpu().numpy()
     rows = np.empty(len(data), object)
     for i in range(len(data)):
         rows[i] = data[i][:lens[i]].tolist()
@@ -1196,7 +1254,15 @@ def materialize(block: ExecBlock, schema: List[L.Field],
                 ctx: Optional[ExecContext] = None) -> Dict[str, np.ndarray]:
     """Pull the visible rows to host, in order (first host sync point),
     after testing the plan's capacity checks."""
-    valid_np = block.valid.cpu().numpy()
+    valid = block.valid
+    valid_np = valid.cpu().numpy()
+    # the visible rows are picked on the device: only they cross to the
+    # host (a sorted block keeps every slot, LIMIT a few of them)
+    sel = None if valid_np.all() else torch.from_numpy(
+        np.flatnonzero(valid_np)).to(valid.device)
+
+    def pick(t: torch.Tensor) -> torch.Tensor:
+        return t if sel is None else t.index_select(0, sel)
     for check in (ctx.checks if ctx is not None else ()):
         actual = int(check.value)
         if actual > check.limit:
@@ -1210,9 +1276,9 @@ def materialize(block: ExecBlock, schema: List[L.Field],
             raise NotImplementedError_(
                 f"{cv.dtype} results are not ported to the CUDA engine yet")
         data = dt.to_numpy_storage(
-            cv.data, dt.remove_nullable(cv.dtype).np_dtype)[valid_np]
+            pick(cv.data), dt.remove_nullable(cv.dtype).np_dtype)
         if cv.dtype.is_array:
-            data = _array_rows(cv, data, valid_np)
+            data = _array_rows(cv, data, pick)
         elif cv.dtype.is_dictionary:
             codes = data.astype(np.int64)
             vals = np.empty(len(codes), object)
@@ -1223,7 +1289,7 @@ def materialize(block: ExecBlock, schema: List[L.Field],
             vals[~ok] = ""
             data = vals
         if cv.validity is not None:
-            v = cv.validity.cpu().numpy()[valid_np]
+            v = pick(cv.validity).cpu().numpy()
             data = data.astype(object) if data.dtype != object \
                 else data.copy()
             data[v == 0] = None

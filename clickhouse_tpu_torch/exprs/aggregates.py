@@ -7,28 +7,45 @@ reduction goes through Grouping.reduce_many (ops/agg_ops.py), which runs
 K1 for GROUP BY (), K2 for dense groupings and K6 for the sort grouping
 (K6 reads a scanned column's narrow storage itself; the states come back
 in the column's logical type); the executor hands every aggregate's
-reductions to one reduce_many call, so a sort GROUP BY launches K6 once.
+reductions to one reduce_many call, so a sort GROUP BY launches K6 once
+for all of its sum-family aggregates (variance, covariance, moments,
+avgWeighted and groupBit* are sets of sums and bit reductions).
 Merging partial states (-State/-Merge, two-stage aggregation) is not
 ported.
 
-Ported: count, sum, avg, min, max and any, each with the -If combinator,
-under every grouping kind: sum/count/avg of integers may take the dense
-grouping; min, max, any and float sums take the sort grouping (or K1 under
-GROUP BY ()).  min/max of a String compare its dictionary ranks.
-Every other aggregate name and combinator raises the reference's typed
-errors (UnknownFunction / NotImplementedError_).
+Two-step aggregates run a second step after reduce_many (`sorted_step`):
+argMin/argMax take the rows at their group's best order value; the
+holistic ones (uniqExact, quantileExact and their spellings) need each
+group's rows in an order of their own, which the sort grouping gives when
+it is sorted with their `secondary` keys (agg_ops.group_by_sort), and
+reduce what Grouping.take puts in sorted order with K6's sorted-order
+entry (Grouping.reduce_sorted).
+
+Ported: the reference's base registry (_register_base), each with the -If
+combinator: count, sum (sumKahan), sumWithOverflow, avg, avgWeighted, min,
+max, any (anyLast, anyHeavy, first_value, last_value) and any RESPECT
+NULLS, the variance family, covariance and correlation, skewness and
+kurtosis, argMin/argMax, groupBitAnd/Or/Xor, uniqExact (countDistinct,
+groupBitmap, uniqThetaSketch), and quantileExact/median with their exact
+spellings, `quantiles(...)` giving an Array (the High, Exclusive and
+Inclusive spellings by ClickHouse's rules, not the reference's).  sum/count/avg of integers
+may take the dense grouping; the rest take the sort grouping (or K1 under
+GROUP BY ()).  min/max (and argMin/argMax's order) of a String compare its
+dictionary ranks.  Every other aggregate name and combinator raises the
+reference's typed errors (UnknownFunction / NotImplementedError_).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict, List, Optional, Tuple, Union
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import numpy as np
 import torch
 
 from ..core import dtypes as dt
-from ..core.errors import NotImplementedError_, UnknownFunction
-from ..ops import agg_ops
+from ..core.errors import (AnalysisError, MemoryLimitExceeded,
+                           NotImplementedError_, TypeError_, UnknownFunction)
+from ..ops import agg_ops, scan_ops, sort_ops
 from .expr import ColVal
 
 __all__ = ["AggregateFunction", "get_aggregate", "is_aggregate_name",
@@ -44,12 +61,45 @@ class GroupContext:
     # the block's rows: a bool mask, or (GROUP BY ()) the RowMask whose
     # parts K1 takes as they are
     row_valid: Union[torch.Tensor, agg_ops.RowMask]
-    grouping: agg_ops.Grouping
+    grouping: Optional[agg_ops.Grouping]
     premask: Union[torch.Tensor, agg_ops.RowMask, None] = None
+    # the GROUP BY keys as sort keys (none under GROUP BY ()): a holistic
+    # aggregate's own sort grouping sorts by them first
+    keys: Sequence[sort_ops.SortKey] = ()
+    # device bytes the aggregates' working set may take (None: no limit),
+    # and what is taken so far with the columns built for the aggregates
+    # (one dict for every aggregate of the GROUP BY: a column is built
+    # once, by the first aggregate that needs it)
+    max_bytes: Optional[int] = None
+    shared: Dict = dataclasses.field(default_factory=lambda: {"bytes": 0})
 
     @property
     def capacity(self) -> int:
         return _capacity(self.row_valid)
+
+    def hold(self, nbytes: int, what: str) -> None:
+        """Count nbytes more of the aggregates' working set, raising
+        MemoryLimitExceeded, before they are allocated, where the total
+        passes max_bytes."""
+        total = self.shared["bytes"] + int(nbytes)
+        if self.max_bytes is not None and total > self.max_bytes:
+            raise MemoryLimitExceeded(
+                f"{what} would need {total} bytes of device memory for the "
+                f"aggregates ({max(self.max_bytes, 0)} bytes of the budget "
+                f"left)")
+        self.shared["bytes"] = total
+
+    def built(self, tag: str, srcs: Tuple[torch.Tensor, ...],
+              make: Callable[[], torch.Tensor], nbytes: int,
+              what: str) -> torch.Tensor:
+        """The column `tag` of the tensors `srcs`, built once for the GROUP
+        BY by make() after holding its nbytes."""
+        key = (tag,) + tuple(id(t) for t in srcs)
+        hit = self.shared.get(key)
+        if hit is None or any(a is not b for a, b in zip(hit[0], srcs)):
+            self.hold(nbytes, what)
+            hit = self.shared[key] = (srcs, make())
+        return hit[1]
 
 
 def _capacity(rows) -> int:
@@ -93,6 +143,10 @@ class AggregateFunction:
     name: str = ""
     holistic: bool = False
     sum_only: bool = False      # True: all reductions are sums (dense-able)
+    # a second step after Grouping.reduce_many (sorted_step)
+    two_step: bool = False
+    # any ... RESPECT NULLS: the executor keeps NULL rows in the row mask
+    respect_nulls: bool = False
 
     def __init__(self, arg_types: List[dt.DType]):
         self.arg_types = arg_types
@@ -114,7 +168,25 @@ class AggregateFunction:
         return finish(ctx.grouping.reduce_many(specs))
 
     def finalize(self, states):
-        """-> (data, validity or None), each (num_groups_cap,)."""
+        """-> (data, validity or None[, lengths]), each (num_groups_cap,)
+        (an Array result: a (num_groups_cap, max_len) matrix and int32
+        lengths)."""
+        raise NotImplementedError
+
+    def secondary(self, ctx: GroupContext, args: List[ColVal],
+                  cond: Optional[torch.Tensor]
+                  ) -> List[sort_ops.SortKey]:
+        """A holistic aggregate's order of the rows within each group: the
+        secondary keys of its sort grouping."""
+        raise NotImplementedError
+
+    def sorted_step(self, ctx: GroupContext, g: agg_ops.Grouping,
+                    args: List[ColVal], cond: Optional[torch.Tensor],
+                    states: List[torch.Tensor]) -> List[torch.Tensor]:
+        """A two-step aggregate's states from its reductions' (`states`)
+        over `g`: the query's grouping (a sort grouping sorted with this
+        aggregate's secondary keys where it is holistic, else the trivial
+        one for GROUP BY ())."""
         raise NotImplementedError
 
     def _row_mask(self, ctx: GroupContext, args: List[ColVal],
@@ -286,14 +358,702 @@ class AnyAgg(AggregateFunction):
         return states[0], None
 
 
+class AnyRespectNullsAgg(AggregateFunction):
+    """any/first_value/last_value ... RESPECT NULLS: a row of the group with
+    NULL a value like any other, so any(x) RESPECT NULLS over [NULL, 1] is
+    NULL (ClickHouse's AggregateFunctionAnyRespectNulls).  Both states take
+    the same row, the first masked-in one: its value and its validity (a
+    group's row count where the argument has no validity)."""
+    name = "any_respect_nulls"
+    respect_nulls = True
+
+    def result_type(self):
+        return self.arg_types[0]
+
+    def reductions(self, ctx, args, cond):
+        mask = self._row_mask(ctx, args, cond)
+        specs = [("any", self._value(ctx, args[0]), mask, False)]
+        av = _arg_valid(args[0], ctx.capacity)
+        if av is None:
+            specs.append(("count", None, mask, False))
+            return specs, lambda r: [self._logical(r[0]), r[1] > 0]
+        specs.append(("any", av, mask, False))
+        return specs, lambda r: [self._logical(r[0]), r[1]]
+
+    def _row_mask(self, ctx, args, cond):
+        if ctx.premask is not None:
+            return ctx.premask
+        return compose_row_mask(ctx.row_valid, [], cond)
+
+    def finalize(self, states):
+        return states[0], states[1].to(torch.uint8)
+
+
+def _numeric(agg: AggregateFunction, *which: int) -> None:
+    """A statistic takes numbers: raise TypeError_ for another argument."""
+    for i in which:
+        t = dt.remove_nullable(agg.arg_types[i])
+        if t.is_dictionary or t.is_array or t.np_dtype.kind not in "iufb":
+            raise TypeError_(f"Illegal type {agg.arg_types[i]} of argument "
+                             f"of aggregate function {agg.name}")
+
+
+def _u64(cv: ColVal, data: torch.Tensor) -> bool:
+    """data holds UInt64 bits."""
+    return dt.remove_nullable(cv.dtype).np_dtype == np.uint64 \
+        and data.dtype == torch.int64
+
+
+def _f64_sum(ctx: GroupContext, mask, cv: ColVal, power: int = 1,
+             times: Optional[ColVal] = None) -> agg_ops.ReduceSpec:
+    """The reduction summing, over `mask`, the argument's value in float64
+    raised to `power` (x*x, (x*x)*x, (x*x)*(x*x), as the reference
+    multiplies), times `times`' value where given.  Under the sort
+    grouping an fsumx spec (scan_ops.Spec), whose term K6 forms in
+    registers from the columns as stored; else a sum of its float64
+    column, built once for the GROUP BY and held against the aggregates'
+    budget (ctx.hold)."""
+    x = AggregateFunction._value(ctx, cv)
+    y = None if times is None else AggregateFunction._value(ctx, times)
+    term = (x, y, power)
+    unsigned = (_u64(cv, x), y is not None and _u64(times, y))
+    if ctx.grouping.kind == "sort":
+        return "fsumx", term, mask, unsigned
+    col = ctx.built(f"f64^{power}", (x,) if y is None else (x, y),
+                    lambda: scan_ops.fsumx_column(term, unsigned),
+                    8 * x.shape[0], f"a float64 column of {cv.dtype}")
+    return "sum", col, mask, False
+
+
+class SumSquaresMixin(AggregateFunction):
+    """The variance family's states: [sum, sum of squares, count], summed
+    in float64 (over the sort grouping in the same K6 launch as the
+    query's other aggregates)."""
+
+    def __init__(self, arg_types):
+        super().__init__(arg_types)
+        _numeric(self, 0)
+
+    def result_type(self):
+        return dt.Float64
+
+    def reductions(self, ctx, args, cond):
+        mask = self._row_mask(ctx, args, cond)
+        return [_f64_sum(ctx, mask, args[0]), _f64_sum(ctx, mask, args[0], 2),
+                ("count", None, mask, False)], list
+
+    def _moments(self, states):
+        s, s2, c = states
+        cf = torch.clamp(c, min=1).to(torch.float64)
+        mean = s / cf
+        var = s2 / cf - mean * mean
+        return torch.clamp(var, min=0.0), c.to(torch.float64)
+
+
+class VarPopAgg(SumSquaresMixin):
+    name = "varPop"
+
+    def finalize(self, states):
+        return self._moments(states)[0], None
+
+
+class VarSampAgg(SumSquaresMixin):
+    name = "varSamp"
+
+    def finalize(self, states):
+        var, c = self._moments(states)
+        return var * (c / torch.clamp(c - 1.0, min=1.0)), None
+
+
+class StddevPopAgg(VarPopAgg):
+    name = "stddevPop"
+
+    def finalize(self, states):
+        return torch.sqrt(self._moments(states)[0]), None
+
+
+class StddevSampAgg(VarSampAgg):
+    name = "stddevSamp"
+
+    def finalize(self, states):
+        return torch.sqrt(VarSampAgg.finalize(self, states)[0]), None
+
+
+def _take(ctx: GroupContext, g: agg_ops.Grouping, t: torch.Tensor,
+          what: str) -> torch.Tensor:
+    """t (raw row order) in g's sorted order (Grouping.take), gathered once
+    for the GROUP BY and held against the aggregates' budget."""
+    return ctx.built("take", (t, g.perm), lambda: g.take(t),
+                     g.perm.shape[0] * t.element_size(), what)
+
+
+def _take_mask(ctx: GroupContext, g: agg_ops.Grouping,
+               mask) -> Optional[torch.Tensor]:
+    """A row mask in g's sorted order (Grouping.sorted_mask), gathered once
+    for the GROUP BY; None for the grouping's own rows."""
+    if mask is None or mask is g.row_valid_ref:
+        return None
+    return ctx.built("take", (mask, g.perm), lambda: g.sorted_mask(mask),
+                     g.perm.shape[0], "a row mask in sorted order")
+
+
+def _bits(t: torch.Tensor) -> torch.Tensor:
+    """Values compared as the reference compares order tokens: floats by
+    their bits (-0.0 and +0.0 two values, equal NaNs one), others as
+    they are."""
+    if t.dtype == torch.float64:
+        return t.view(torch.int64)
+    if t.dtype == torch.float32:
+        return t.view(torch.int32)
+    return t
+
+
+class ArgMinMaxAgg(AggregateFunction):
+    """argMin(val, ord) / argMax: val at the row of the smallest (largest)
+    ord, by order value (floats: -0.0 below +0.0, a positive NaN above
+    every number); of the rows at that value, the lowest row id.  A String
+    ord compares its dictionary ranks (ClickHouse's string order; the
+    reference compares codes).
+
+    Step 1 (reduce_many): the best ord a group.  Step 2 (sorted_step): the
+    rows at it, in sorted order, and the smallest row id among them (K6's
+    sorted-order entry over the grouping's perm); under GROUP BY () the
+    first such row (K1's `any`)."""
+    minimize = True
+    two_step = True
+
+    def result_type(self):
+        return dt.remove_nullable(self.arg_types[0])
+
+    def _order(self, ctx, cv: ColVal) -> Tuple[torch.Tensor, bool]:
+        """ord as K6/K1 compare it, and whether it is UInt64 bits."""
+        v = self._value(ctx, cv)
+        if cv.dictionary is not None and len(cv.dictionary):
+            def make():
+                vals = cv.dictionary.values.astype(str)
+                rank = np.empty(len(vals), np.int64)
+                rank[np.argsort(vals, kind="stable")] = np.arange(len(vals))
+                return torch.from_numpy(rank).to(v.device)[
+                    v.clamp(min=0).long()]
+            return ctx.built("rank", (v,), make, 8 * v.shape[0],
+                             "dictionary ranks"), False
+        if v.is_floating_point() and ctx.grouping.kind == "trivial":
+            # K1's float min/max propagate NaN; the order is the token's
+            return ctx.built("token", (v,), lambda: sort_ops.order_value(
+                sort_ops.SortKey(v)), 8 * v.shape[0], "order tokens"), True
+        unsigned = dt.remove_nullable(cv.dtype).np_dtype == np.uint64 \
+            and v.dtype == torch.int64
+        return v, unsigned
+
+    def reductions(self, ctx, args, cond):
+        mask = self._row_mask(ctx, args, cond)
+        o, uns = self._order(ctx, args[1])
+        return [("min" if self.minimize else "max", o, mask, uns)], list
+
+    def sorted_step(self, ctx, g, args, cond, states):
+        mask = self._row_mask(ctx, args, cond)
+        o, _ = self._order(ctx, args[1])
+        best = _bits(states[0])
+        v = self._value(ctx, args[0])
+        if g.kind == "trivial":
+            ctx.hold(o.shape[0], f"{self.name}'s rows at the best value")
+            at_best = _bits(o) == best[0]
+            at = mask.and_mask(at_best) if isinstance(mask, agg_ops.RowMask) \
+                else mask & at_best
+            return [self._logical(g.reduce("any", v, at))]
+        os_ = _take(ctx, g, o, f"{self.name}'s order in sorted order")
+        ms = _take_mask(ctx, g, mask)
+        ctx.hold(g.perm.shape[0] * (best.element_size() + 1),
+                 f"{self.name}'s rows at the best value")
+        gid = torch.clamp(g.group_ids, max=g.num_groups_cap - 1)
+        at_best = _bits(os_) == best.index_select(0, gid)
+        if ms is not None:
+            at_best &= ms
+        rows, cnt = g.reduce_sorted([("min", g.perm, at_best, False),
+                                     ("count", None, at_best, False)])
+        val = v.index_select(0, rows.to(torch.int64))
+        val = torch.where(cnt > 0, val, torch.zeros((), dtype=val.dtype,
+                                                    device=val.device))
+        return [self._logical(val)]
+
+    def finalize(self, states):
+        return states[0], None
+
+
+class ArgMinAgg(ArgMinMaxAgg):
+    name, minimize = "argMin", True
+
+
+class ArgMaxAgg(ArgMinMaxAgg):
+    name, minimize = "argMax", False
+
+
+class _SortedValues(AggregateFunction):
+    """A holistic aggregate over its argument's values in order within
+    each group: the sort grouping by (keys, masked-out flag, value), so
+    each group's masked-in rows come first, in value order (floats by
+    token: -0.0 below +0.0, NaNs last)."""
+    holistic = True
+    two_step = True
+
+    def secondary(self, ctx, args, cond):
+        mask = self._row_mask(ctx, args, cond)
+        out = []
+        if mask is not ctx.row_valid:
+            m = mask.tensor() if isinstance(mask, agg_ops.RowMask) else mask
+            out.append(sort_ops.SortKey(
+                ctx.built("notm", (m,), lambda: ~m, m.shape[0],
+                          "masked-out flags"), bounds=(0, 1)))
+        cv = args[0]
+        v = cv.broadcast(ctx.capacity).storage    # _value's, as stored
+        unsigned = dt.remove_nullable(cv.dtype).np_dtype == np.uint64 \
+            and v.dtype == torch.int64
+        b = cv.bounds if cv.dictionary is None else None
+        out.append(sort_ops.SortKey(v, unsigned=unsigned, bounds=b))
+        return out
+
+
+class UniqExactAgg(_SortedValues):
+    """Exact distinct count: in each group's value-sorted masked-in rows,
+    the rows whose decoded value differs from the row before (as the
+    reference compares them: NaN rows count one each, -0.0 and +0.0 once
+    together; a String by its dictionary code), counted with K6's
+    sorted-order entry."""
+    name = "uniqExact"
+
+    def __init__(self, arg_types):
+        super().__init__(arg_types)
+        if len(arg_types) != 1:
+            # ClickHouse counts distinct tuples; the reference reads the
+            # first argument alone (exprs/aggregates.py:450)
+            raise NotImplementedError_(
+                f"uniqExact of {len(arg_types)} arguments (distinct tuples) "
+                f"is not ported to the CUDA engine yet")
+
+    def result_type(self):
+        return dt.UInt64
+
+    def reductions(self, ctx, args, cond):
+        return [], list
+
+    def sorted_step(self, ctx, g, args, cond, states):
+        mask = self._row_mask(ctx, args, cond)
+        v = self._value(ctx, args[0])
+        n = g.perm.shape[0]
+        vs = _take(ctx, g, v, "uniqExact's sorted values")
+        ms = _take_mask(ctx, g, mask)
+        ctx.hold(2 * n, "uniqExact's first-occurrence flags")
+        gid = g.group_ids
+        first = torch.ones(n, dtype=torch.bool, device=vs.device)
+        if n > 1:
+            first[1:] = (vs[1:] != vs[:-1]) | (gid[1:] != gid[:-1])
+        if ms is not None:
+            first &= ms
+        return g.reduce_sorted([("count", None, first, False)])
+
+    def finalize(self, states):
+        return states[0], None
+
+
+class QuantileExactAgg(_SortedValues):
+    """quantileExact(q)(x): in each group's value-sorted masked-in rows,
+    the one at floor(q * (len - 1)), read at starts[g] + that offset (the
+    reference compacts the masked-in values first: its sort carries the
+    mask as a payload; here the masked-out rows sort after them).  A group
+    without a masked-in row gives 0, or NaN for floats (ClickHouse's
+    QuantileExact; the reference reads a neighbouring group's value).
+    With `qs` (quantiles(q1, ...)(x)) an Array of each level.
+
+    `rule` picks the value: "low" is the reference's floor(q * (len - 1));
+    the subclasses take ClickHouse's rules of their spellings, which the
+    reference serves with this one."""
+    name = "quantileExact"
+    rule = "low"
+
+    def __init__(self, arg_types, q: float = 0.5, qs=None):
+        super().__init__(arg_types)
+        self.q = q
+        self.qs = list(qs) if qs is not None else None
+        t = dt.remove_nullable(arg_types[0])
+        if t.is_dictionary or t.is_array:
+            raise TypeError_(f"Illegal type {arg_types[0]} of argument of "
+                             f"aggregate function {self.name}")
+
+    def result_type(self):
+        base = dt.Float64 if self.rule in _INTERPOLATING \
+            else dt.remove_nullable(self.arg_types[0])
+        return dt.Array(base) if self.qs is not None else base
+
+    def _pick(self, g, v, lens, q):
+        """Each group's value at level q (lens: its masked-in rows)."""
+        last = max(g.perm.shape[0] - 1, 0)
+        top = torch.clamp(lens - 1, min=0)
+        nf = lens.to(torch.float64)
+
+        def at(off):
+            pos = torch.clamp(g.starts + torch.minimum(
+                torch.clamp(off, min=0), top), 0, last)
+            return v.index_select(0, g.perm.index_select(0, pos).long())
+        if self.rule not in _INTERPOLATING:
+            off = torch.floor(q * (nf - 1.0)) if self.rule == "low" \
+                else torch.floor(nf / 2) if q == 0.5 \
+                else torch.floor(q * nf) if q < 1 else nf - 1.0
+            val = self._logical(at(off.to(torch.int64)))
+            empty = float("nan") if val.is_floating_point() else 0
+            return torch.where(lens > 0, val, torch.full_like(val, empty))
+        # ClickHouse's QuantileExactExclusive / Inclusive: h is the level's
+        # 1-based rank; between ranks floor(h) and floor(h) + 1, linearly
+        h = q * (nf + 1.0) if self.rule == "exclusive" \
+            else q * (nf - 1.0) + 1.0
+        k = torch.floor(h).to(torch.int64)
+        inside = (k >= 1) & (k < lens)
+        lo = torch.where(k >= lens, top, k - 1)
+        frac = torch.where(inside, h - k.to(torch.float64), 0.0)
+        unsigned = dt.remove_nullable(self.arg_types[0]).np_dtype \
+            == np.uint64 and v.dtype == torch.int64
+
+        def f64(t):
+            return dt.u64_to_f64(t) if unsigned else t.to(torch.float64)
+        a = f64(at(lo))
+        val = a + frac * (f64(at(lo + 1)) - a)
+        return torch.where(lens > 0, val, torch.full_like(val, float("nan")))
+
+    def reductions(self, ctx, args, cond):
+        mask = self._row_mask(ctx, args, cond)
+        return [("count", None, mask, False)], list
+
+    def sorted_step(self, ctx, g, args, cond, states):
+        lens = states[0]
+        v = self._value(ctx, args[0])
+        picks = [self._pick(g, v, lens, q)
+                 for q in (self.qs if self.qs is not None else [self.q])]
+        if self.qs is None:
+            return picks
+        k = len(picks)
+        width = -(-k // 8) * 8
+        mat = torch.zeros((lens.shape[0], width), dtype=picks[0].dtype,
+                          device=lens.device)
+        mat[:, :k] = torch.stack(picks, dim=1)
+        return [mat, torch.full(lens.shape, k, dtype=torch.int32,
+                                device=lens.device)]
+
+    def finalize(self, states):
+        if self.qs is not None:
+            return states[0], None, states[1]
+        return states[0], None
+
+
+# the rules that interpolate between two ranks (a Float64 result)
+_INTERPOLATING = ("exclusive", "inclusive")
+
+
+class QuantileExactHighAgg(QuantileExactAgg):
+    """quantileExactHigh: ClickHouse's QuantileExactHigh, the upper
+    median at level 0.5 (floor(len / 2)), else floor(q * len) (len - 1 at
+    q >= 1)."""
+    name, rule = "quantileExactHigh", "high"
+
+
+class QuantileExactExclusiveAgg(QuantileExactAgg):
+    """quantileExactExclusive: ClickHouse's QuantileExactExclusive (Excel
+    PERCENTILE.EXC, R-6): rank h = q * (len + 1), linear between the
+    values about it, a Float64; levels 0 and 1 are refused."""
+    name, rule = "quantileExactExclusive", "exclusive"
+
+    def __init__(self, arg_types, q: float = 0.5, qs=None):
+        super().__init__(arg_types, q, qs)
+        for level in (self.qs if self.qs is not None else [q]):
+            if level in (0.0, 1.0):
+                raise AnalysisError(
+                    f"{self.name} cannot interpolate for the levels 0 "
+                    f"and 1")
+
+
+class QuantileExactInclusiveAgg(QuantileExactAgg):
+    """quantileExactInclusive (and quantileInterpolated, whose name asks
+    for linear interpolation): ClickHouse's QuantileExactInclusive (Excel
+    PERCENTILE.INC, R-7): rank h = q * (len - 1) + 1, linear between the
+    values about it, a Float64."""
+    name, rule = "quantileExactInclusive", "inclusive"
+
+
+class MedianAgg(QuantileExactAgg):
+    name = "median"
+
+    def __init__(self, arg_types):
+        super().__init__(arg_types, q=0.5)
+
+
+class MedianExactHighAgg(QuantileExactHighAgg):
+    name = "medianExactHigh"
+
+    def __init__(self, arg_types):
+        super().__init__(arg_types, q=0.5)
+
+
+class CovarAgg(AggregateFunction):
+    """covarPop/covarSamp(x, y): [sum xy, sum x, sum y, n] in float64."""
+    sample = False
+
+    def __init__(self, arg_types):
+        super().__init__(arg_types)
+        _numeric(self, 0, 1)
+
+    def result_type(self):
+        return dt.Float64
+
+    def reductions(self, ctx, args, cond):
+        mask = self._row_mask(ctx, args, cond)
+        return [_f64_sum(ctx, mask, args[0], times=args[1]),
+                _f64_sum(ctx, mask, args[0]), _f64_sum(ctx, mask, args[1]),
+                ("count", None, mask, False)], list
+
+    def finalize(self, states):
+        sxy, sx, sy, n = states
+        nf = n.to(torch.float64)
+        safe = torch.clamp(nf, min=1.0)
+        cov = sxy / safe - (sx / safe) * (sy / safe)
+        if self.sample:
+            cov = torch.where(n > 1, cov * nf / (nf - 1.0),
+                              torch.full_like(cov, float("nan")))
+        return cov, None
+
+
+class CovarPopAgg(CovarAgg):
+    name, sample = "covarPop", False
+
+
+class CovarSampAgg(CovarAgg):
+    name, sample = "covarSamp", True
+
+
+class CorrAgg(AggregateFunction):
+    """corr(x, y): [sum xy, sum x, sum y, sum x^2, sum y^2, n] in
+    float64."""
+    name = "corr"
+
+    def __init__(self, arg_types):
+        super().__init__(arg_types)
+        _numeric(self, 0, 1)
+
+    def result_type(self):
+        return dt.Float64
+
+    def reductions(self, ctx, args, cond):
+        mask = self._row_mask(ctx, args, cond)
+        return [_f64_sum(ctx, mask, args[0], times=args[1]),
+                _f64_sum(ctx, mask, args[0]), _f64_sum(ctx, mask, args[1]),
+                _f64_sum(ctx, mask, args[0], 2),
+                _f64_sum(ctx, mask, args[1], 2),
+                ("count", None, mask, False)], list
+
+    def finalize(self, states):
+        sxy, sx, sy, sxx, syy, n = states
+        nf = torch.clamp(n.to(torch.float64), min=1.0)
+        num = sxy - sx * sy / nf
+        den = torch.sqrt(torch.clamp(sxx - sx * sx / nf, min=0.0)
+                         * torch.clamp(syy - sy * sy / nf, min=0.0))
+        return torch.where(den > 0, num / den,
+                           torch.full_like(num, float("nan"))), None
+
+
+class MomentsAgg(AggregateFunction):
+    """skewness/kurtosis: [sum x, x^2, x^3, x^4, n] in float64."""
+
+    def __init__(self, arg_types):
+        super().__init__(arg_types)
+        _numeric(self, 0)
+
+    def result_type(self):
+        return dt.Float64
+
+    def reductions(self, ctx, args, cond):
+        mask = self._row_mask(ctx, args, cond)
+        return [_f64_sum(ctx, mask, args[0], p) for p in (1, 2, 3, 4)] \
+            + [("count", None, mask, False)], list
+
+    def _central(self, states):
+        s1, s2, s3, s4, n = states
+        nf = torch.clamp(n.to(torch.float64), min=1.0)
+        m = s1 / nf
+        m2 = s2 / nf - m * m
+        m3 = s3 / nf - 3 * m * s2 / nf + 2 * m ** 3
+        m4 = s4 / nf - 4 * m * s3 / nf + 6 * m * m * s2 / nf - 3 * m ** 4
+        var_samp = torch.where(n > 1, m2 * nf / (nf - 1.0),
+                               torch.full_like(m2, float("nan")))
+        return torch.clamp(m2, min=0.0), m3, m4, var_samp
+
+
+def _nan_unless(ok: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    return torch.where(ok, v, torch.full_like(v, float("nan")))
+
+
+class SkewPopAgg(MomentsAgg):
+    name = "skewPop"
+
+    def finalize(self, states):
+        m2, m3, _, _ = self._central(states)
+        return _nan_unless(m2 > 0, m3 / m2 ** 1.5), None
+
+
+class SkewSampAgg(MomentsAgg):
+    name = "skewSamp"
+
+    def finalize(self, states):
+        _, m3, _, vs = self._central(states)
+        return _nan_unless(vs > 0, m3 / vs ** 1.5), None
+
+
+class KurtPopAgg(MomentsAgg):
+    name = "kurtPop"
+
+    def finalize(self, states):
+        m2, _, m4, _ = self._central(states)
+        return _nan_unless(m2 > 0, m4 / (m2 * m2)), None
+
+
+class KurtSampAgg(MomentsAgg):
+    name = "kurtSamp"
+
+    def finalize(self, states):
+        _, _, m4, vs = self._central(states)
+        return _nan_unless(vs > 0, m4 / (vs * vs)), None
+
+
+class AvgWeightedAgg(AggregateFunction):
+    """avgWeighted(x, w): [sum x*w, sum w] in float64."""
+    name = "avgWeighted"
+
+    def __init__(self, arg_types):
+        super().__init__(arg_types)
+        _numeric(self, 0, 1)
+
+    def result_type(self):
+        return dt.Float64
+
+    def reductions(self, ctx, args, cond):
+        mask = self._row_mask(ctx, args, cond)
+        return [_f64_sum(ctx, mask, args[0], times=args[1]),
+                _f64_sum(ctx, mask, args[1])], list
+
+    def finalize(self, states):
+        s, w = states
+        return _nan_unless(w != 0, s / w), None
+
+
+class SumWithOverflowAgg(SumAgg):
+    """sum in the argument's own type, wrapping (ClickHouse's
+    sumWithOverflow)."""
+    name = "sumWithOverflow"
+
+    def result_type(self):
+        return dt.remove_nullable(self.arg_types[0])
+
+    def finalize(self, states):
+        t = dt.remove_nullable(self.arg_types[0])
+        src = np.float64 if states[0].is_floating_point() \
+            else np.uint64 if t.np_dtype == np.uint64 else np.int64
+        return dt.cast_tensor(states[0], src, t.np_dtype), None
+
+
+class GroupBitAgg(AggregateFunction):
+    """groupBitAnd/Or/Xor over an integer argument: K6's (K1's) band, bor
+    and bxor of the values' bits, in the argument's type."""
+    bit_op = "bor"
+
+    def result_type(self):
+        t0 = dt.remove_nullable(self.arg_types[0])
+        if not dt.is_integer(t0):
+            raise TypeError_(f"{self.name} requires an integer argument")
+        return t0
+
+    def reductions(self, ctx, args, cond):
+        mask = self._row_mask(ctx, args, cond)
+        return [(self.bit_op, self._value(ctx, args[0]), mask, False)], list
+
+    def finalize(self, states):
+        t = dt.remove_nullable(self.arg_types[0]).np_dtype
+        s = states[0]
+        src = np.uint64 if t == np.uint64 else \
+            np.dtype(f"int{8 * s.element_size()}") if s.dtype != torch.uint8 \
+            else np.uint8
+        return dt.cast_tensor(s, src, t), None
+
+
+class GroupBitAndAgg(GroupBitAgg):
+    name, bit_op = "groupBitAnd", "band"
+
+
+class GroupBitOrAgg(GroupBitAgg):
+    name, bit_op = "groupBitOr", "bor"
+
+
+class GroupBitXorAgg(GroupBitAgg):
+    name, bit_op = "groupBitXor", "bxor"
+
+
 def _register_base() -> Dict[str, type]:
+    """The reference's _register_base (exprs/aggregates.py:743-884), less
+    the names whose class lives in agg_sketch.py / agg_ext*.py (not
+    ported), and less quantilesExactWeighted, a weighted spelling the
+    reference serves with the unweighted class."""
     base: Dict[str, type] = {}
-    for _cls in [CountAgg, SumAgg, MinAgg, MaxAgg, AvgAgg, AnyAgg]:
+    for _cls in [CountAgg, SumAgg, MinAgg, MaxAgg, AvgAgg, AnyAgg, VarPopAgg,
+                 VarSampAgg, StddevPopAgg, StddevSampAgg, ArgMinAgg,
+                 ArgMaxAgg, UniqExactAgg, MedianAgg, CovarPopAgg,
+                 CovarSampAgg, CorrAgg, SkewPopAgg, SkewSampAgg, KurtPopAgg,
+                 KurtSampAgg, AvgWeightedAgg, SumWithOverflowAgg,
+                 GroupBitAndAgg, GroupBitOrAgg, GroupBitXorAgg]:
         base[_cls.name.lower()] = _cls
-    base["any_value"] = AnyAgg
-    base["first_value"] = AnyAgg
+    for alias, cls in {
+            "anylast": AnyAgg, "anyheavy": AnyAgg, "any_value": AnyAgg,
+            "first_value": AnyAgg, "last_value": AnyAgg,
+            "any_respect_nulls": AnyRespectNullsAgg,
+            "anylast_respect_nulls": AnyRespectNullsAgg,
+            "first_value_respect_nulls": AnyRespectNullsAgg,
+            "last_value_respect_nulls": AnyRespectNullsAgg,
+            "countdistinct": UniqExactAgg, "uniqthetasketch": UniqExactAgg,
+            "groupbitmap": UniqExactAgg,
+            "var_pop": VarPopAgg, "var_samp": VarSampAgg,
+            "stddev_pop": StddevPopAgg, "stddev_samp": StddevSampAgg,
+            "varpopstable": VarPopAgg, "varsampstable": VarSampAgg,
+            "stddevpopstable": StddevPopAgg,
+            "stddevsampstable": StddevSampAgg,
+            "covar_pop": CovarPopAgg, "covar_samp": CovarSampAgg,
+            "covarpopstable": CovarPopAgg, "covarsampstable": CovarSampAgg,
+            "corrstable": CorrAgg, "sumkahan": SumAgg}.items():
+        base[alias] = cls
+    # the quantile and median spellings the sort path serves exactly; those
+    # whose ClickHouse rule is not the reference's take their own class
+    for name in _QUANTILE_NAMES:
+        base[name] = _QUANTILE_RULES.get(name.replace("quantiles", "quantile"),
+                                         QuantileExactAgg)
+    for name in _MEDIAN_NAMES:
+        base[name] = MedianExactHighAgg if name == "medianexacthigh" \
+            else MedianAgg
     return base
 
+
+_QUANTILE_RULES = {"quantileexacthigh": QuantileExactHighAgg,
+                   "quantileexactexclusive": QuantileExactExclusiveAgg,
+                   "quantileexactinclusive": QuantileExactInclusiveAgg,
+                   "quantileinterpolated": QuantileExactInclusiveAgg}
+
+
+_QUANTILE_NAMES = (
+    "quantile", "quantileexact", "quantileexactlow", "quantileexacthigh",
+    "quantileexactexclusive", "quantileexactinclusive", "quantiletdigest",
+    "quantiledeterministic", "quantiletiming", "quantilebfloat16",
+    "quantilegk", "quantiledd", "quantileinterpolated", "quantiles",
+    "quantilesexact", "quantilesexactlow", "quantilesexacthigh",
+    "quantilesexactexclusive", "quantilesexactinclusive",
+    "quantilesbfloat16", "quantilesdeterministic", "quantilesinterpolated",
+    "quantilesgk", "quantilestiming", "quantilestdigest", "quantilesdd")
+_MEDIAN_NAMES = ("medianexact", "medianexactlow", "medianexacthigh",
+                 "mediantdigest", "mediantiming", "medianbfloat16",
+                 "mediandeterministic", "mediandd")
+# the spellings whose result is an Array of every level (reference :925)
+_MULTI_Q = frozenset(n for n in _QUANTILE_NAMES if n.startswith("quantiles"))
 
 _BASE: Dict[str, type] = _register_base()
 AGGREGATES = _BASE
@@ -373,7 +1133,9 @@ def is_aggregate_name(name: str) -> bool:
 def get_aggregate(name: str, arg_types: List[dt.DType],
                   params: Optional[list] = None
                   ) -> Tuple[AggregateFunction, bool]:
-    """-> (instance, has_if_combinator).  Raises UnknownFunction."""
+    """-> (instance, has_if_combinator).  Raises UnknownFunction.  The
+    parameters are the reference's: a quantile's level (quantileGK's
+    leading accuracy dropped), every level of a `quantiles` spelling."""
     lname = name.lower()
     has_if = False
     if lname not in _BASE and lname.endswith("if") and len(lname) > 2:
@@ -391,4 +1153,13 @@ def get_aggregate(name: str, arg_types: List[dt.DType],
                 f"Aggregate function '{name}' is not ported to the CUDA "
                 f"engine yet")
         raise UnknownFunction(f"Unknown aggregate function '{name}'")
-    return _BASE[lname](arg_types), has_if
+    cls = _BASE[lname]
+    if lname in ("quantilegk", "quantilesgk") and params:
+        params = params[1:]
+    if lname in _MULTI_Q:
+        qs = [float(p) for p in params] if params else [0.5]
+        return cls(arg_types, qs=qs), has_if
+    if lname in _QUANTILE_NAMES:
+        q = float(params[0]) if params else 0.5
+        return cls(arg_types, q), has_if
+    return cls(arg_types), has_if

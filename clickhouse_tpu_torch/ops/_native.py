@@ -46,6 +46,7 @@ NVCC_FLAGS = ARCH_FLAGS + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC"]
 LAUNCHES: Dict[str, int] = {"masked_reduce": 0, "dense_group_reduce": 0,
                             "topk_smallest": 0, "radix_sort_pairs": 0,
                             "segment_bounds": 0, "segment_reduce": 0,
+                            "segment_reduce_sorted": 0,
                             "dense_join": 0, "hash_join": 0,
                             "expand_matches": 0, "prefix_match": 0,
                             "vector_distance": 0}
@@ -90,6 +91,8 @@ class K6Spec(ctypes.Structure):
     """ChttSegSpec of csrc/segment_reduce.cu (one reduction)."""
     _fields_ = [("op", ctypes.c_int), ("data", ctypes.c_int),
                 ("mask", ctypes.c_int), ("uns", ctypes.c_int),
+                ("data2", ctypes.c_int), ("pow", ctypes.c_int),
+                ("uns2", ctypes.c_int), ("pad", ctypes.c_int),
                 ("acc", ctypes.c_void_p)]
 
 

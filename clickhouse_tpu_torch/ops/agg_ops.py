@@ -425,12 +425,37 @@ class Grouping:
     # the rows the grouping was built with (identity-checked: a reduction
     # over exactly these rows needs no mask)
     row_valid_ref: Optional[RowMask] = None
+    # the keys ordering the rows within each group (sort only)
+    secondary: Tuple[sort_ops.SortKey, ...] = ()
 
     def group_valid(self) -> torch.Tensor:
         if self.present is not None:
             return self.present
         return torch.arange(self.num_groups_cap, dtype=torch.int64,
                             device=self.num_groups.device) < self.num_groups
+
+    # -- row-order plumbing --------------------------------------------------
+    def take(self, raw: torch.Tensor) -> torch.Tensor:
+        """Raw row order -> sorted order (reference agg_ops.py:65): one
+        gather by perm.  The reference permutes by sorting by the inverse
+        permutation, a TPU workaround for slow random gathers; the card
+        gathers."""
+        return raw.index_select(0, self.perm)
+
+    def sorted_mask(self, mask) -> Optional[torch.Tensor]:
+        """A raw-order row mask in sorted order; None for the grouping's own
+        rows (every sorted row of a group)."""
+        m = self._sort_mask(mask)
+        return None if m is None else self.take(m)
+
+    def reduce_sorted(self, specs: Sequence[ReduceSpec]
+                      ) -> List[torch.Tensor]:
+        """Reductions of data and masks already in sorted order (reference
+        agg_ops.py:109), specs as :meth:`reduce_many` takes them: ONE
+        scan_ops.segment_reduce_sorted call (K6's sorted-order entry)."""
+        return scan_ops.segment_reduce_sorted(
+            specs, self.group_ids, self.num_groups_cap,
+            group_rows=self.ends - self.starts)
 
     # -- reductions ----------------------------------------------------------
     def reduce(self, op: str, data: torch.Tensor, mask, *,
@@ -524,19 +549,27 @@ def _mask_arg(mask, data):
 
 def group_by_sort(keys: Sequence[sort_ops.SortKey],
                   rows: Union[RowMask, torch.Tensor], num_groups_cap: int,
-                  *, max_bytes: Optional[int] = None) -> Grouping:
-    """Generic grouping: K4 sorts the rows stably by (invalid, keys...),
-    K5 finds the groups; unique keys are read at each group's first row.
+                  *, secondary: Sequence[sort_ops.SortKey] = (),
+                  max_bytes: Optional[int] = None) -> Grouping:
+    """Generic grouping: K4 sorts the rows stably by (invalid, keys...,
+    secondary...), K5 finds the groups; unique keys are read at each
+    group's first row.
 
     keys      -- the GROUP BY key arrays (a Nullable key as its validity,
                  then its data zeroed where NULL), with their signedness and
-                 proven bounds
+                 proven bounds; none: one group of every row (GROUP BY ()
+                 with secondary keys)
     rows      -- the rows to group (a RowMask, or a bool mask); the others
                  belong to no group.  Where they are the first n rows, only
                  those are sorted, with no invalid flag
+    secondary -- keys ordering the rows WITHIN each group (the reference's
+                 group_by_sort(..., secondary=), agg_ops.py:200): packed
+                 into words of their own, which K5 never compares, so they
+                 never move a group's boundaries
     max_bytes -- the limit on the working set: the sort's
-                 (sort_ops.sort_rows_bytes), the key arrays, and K5's
-                 outputs and scratch (scan_ops.segment_bounds_bytes)
+                 (sort_ops.sort_rows_bytes, the secondary keys' packed words
+                 among its words), the key arrays, and K5's outputs and
+                 scratch (scan_ops.segment_bounds_bytes)
     """
     if isinstance(rows, torch.Tensor):
         rows = RowMask.of(rows.to(torch.bool))
@@ -546,20 +579,21 @@ def group_by_sort(keys: Sequence[sort_ops.SortKey],
     sorted_rows = n if scan_rows else cap
     held = scan_ops.segment_bounds_bytes(sorted_rows, num_groups_cap,
                                          len(keys) + 1) \
-        + sum(sorted_rows * k.data.element_size() for k in keys
-              if k.data.dim())
+        + sum(sorted_rows * k.data.element_size()
+              for k in list(keys) + list(secondary) if k.data.dim())
     if scan_rows:
         # a scan's rows: the first n, all valid
-        head = [dataclasses.replace(k, data=k.data[:n])
-                if k.data.dim() else k for k in keys]
-        perm, sorted_keys = sort_ops.sort_rows(head, None,
-                                               max_bytes=max_bytes,
-                                               held_bytes=held)
+        def head(ks):
+            return [dataclasses.replace(k, data=k.data[:n])
+                    if k.data.dim() else k for k in ks]
+        perm, sorted_keys = sort_ops.sort_rows(
+            head(keys), None, secondary=head(secondary),
+            max_bytes=max_bytes, held_bytes=held)
         n_valid = torch.full((), n, dtype=torch.int64, device=rows.device)
     else:
-        perm, sorted_keys = sort_ops.sort_rows(keys, rows.tensor(),
-                                               max_bytes=max_bytes,
-                                               held_bytes=held)
+        perm, sorted_keys = sort_ops.sort_rows(
+            keys, rows.tensor(), secondary=secondary, max_bytes=max_bytes,
+            held_bytes=held)
         n_valid = rows.count()
     gid, num_groups, starts, ends = scan_ops.segment_bounds(
         sorted_keys, n_valid, num_groups_cap)
@@ -569,7 +603,7 @@ def group_by_sort(keys: Sequence[sort_ops.SortKey],
     return Grouping(kind="sort", group_ids=gid, num_groups=num_groups,
                     unique_keys=unique_keys, num_groups_cap=num_groups_cap,
                     perm=perm, starts=starts, ends=ends,
-                    row_valid_ref=rows)
+                    row_valid_ref=rows, secondary=tuple(secondary))
 
 
 # device bytes a row of the dense grouping and its K2 pass hold at their

@@ -14,7 +14,8 @@ a sort of each group's first position.  The card scatters well, so:
     group directly, every reduction of a GROUP BY in one launch, reading
     each row's values and masks through the permutation (the reference's
     Grouping.take becomes a gather inside K6); ``segment_reduce`` is its
-    one-spec form.
+    one-spec form, and ``segment_reduce_sorted`` its entry for data and
+    masks already in sorted order (no permutation read).
 
 Results follow the reference's seg_reduce_sorted: sums widen integers to
 64 bits (wrapping) and floats to float64; min/max pick by order token
@@ -32,20 +33,55 @@ from typing import List, Optional, Sequence, Tuple
 
 import torch
 
+from ..core.dtypes import u64_to_f64
 from . import _native
 from .hash_ops import _f32_from_token, f64_from_token
 from .sort_ops import SortKey, order_value
 
 __all__ = ["segment_bounds", "segment_bounds_bytes", "k5_scratch_bytes",
-           "segment_reduce", "segment_reduce_many", "COUNTED_OPS", "Spec",
+           "segment_reduce", "segment_reduce_many", "segment_reduce_sorted",
+           "fsumx_column", "spec_key", "COUNTED_OPS", "Spec",
            "K5_TILE_ROWS"]
 
-# one reduction of segment_reduce_many: (op, data, mask, unsigned)
-Spec = Tuple[str, Optional[torch.Tensor], Optional[torch.Tensor], bool]
+# one reduction of segment_reduce_many: (op, data, mask, unsigned).  Op
+# "fsumx" sums a float64 term formed a row at a time from columns as they
+# are stored: its data is (x, y, power), x^power (power 1-4: x, x*x,
+# (x*x)*x, (x*x)*(x*x), as the reference multiplies) times y where y is
+# not None, and its unsigned is (x holds UInt64 bits, y holds UInt64
+# bits).  K6 forms the term in registers (OP_FSUMX), so the variance
+# family, the covariance and the moments sum their terms without a
+# float64 column of them; the plain version takes fsumx_column's.
+Spec = Tuple[str, object, Optional[torch.Tensor], object]
+
+
+def fsumx_column(data, unsigned) -> torch.Tensor:
+    """The float64 column of an "fsumx" spec's term (its data and
+    unsigned, as Spec describes them)."""
+    x, y, power = data
+
+    def f64(t, uns):
+        return u64_to_f64(t) if uns and t.dtype == torch.int64 \
+            else t.to(torch.float64)
+    t = a = f64(x, unsigned[0])
+    if power > 1:
+        a2 = a * a
+        t = a2 if power == 2 else a2 * a if power == 3 else a2 * a2
+    return t if y is None else t * f64(y, unsigned[1])
+
+
+def spec_key(spec: Spec) -> tuple:
+    """What makes two specs one reduction: the op, the identity of each
+    tensor it reads, and the rest as it is."""
+    op, data, mask, unsigned = spec
+    if op == "fsumx":
+        x, y, power = data
+        return op, id(x), id(y), power, id(mask), unsigned
+    return op, id(data), id(mask), unsigned
+
 
 # op -> csrc/segment_reduce.cu SegOp (a float sum is OP_FSUM)
 _OPS = {"sum": 0, "min": 1, "max": 2, "any": 3, "bor": 4, "band": 5,
-        "bxor": 6, "count": 7}
+        "bxor": 6, "count": 7, "fsumx": 9}
 _FSUM = 8
 _BITOPS = ("bor", "band", "bxor")
 # the ops whose groups K6 also counts: a group without a masked-in row
@@ -57,8 +93,8 @@ K5_TILE_ROWS = 4096                # rows of a K5 tile (kTile)
 _SIGN = -(1 << 63)                 # int64 bits of 1 << 63
 _I64_MAX = (1 << 63) - 1
 # each op's identity, as int64 bits of the kernel's u64 state
-_IDENTITY = {"sum": 0, "min": -1, "max": 0, "any": -1, "bor": 0, "band": -1,
-             "bxor": 0}
+_IDENTITY = {"sum": 0, "fsumx": 0, "min": -1, "max": 0, "any": -1, "bor": 0,
+             "band": -1, "bxor": 0}
 
 
 # -- K5: segment bounds -------------------------------------------------------
@@ -198,6 +234,7 @@ def segment_reduce_many(specs: Sequence[Spec], perm: torch.Tensor,
 
     specs  -- (op, data, mask, unsigned) each:
               op   -- sum | min | max | any | bor | band | bxor | count
+                      | fsumx (Spec describes its data and unsigned)
               data -- values in RAW row order (any storage type; a
                       column's narrow storage is read as it is); None for
                       count
@@ -212,20 +249,47 @@ def segment_reduce_many(specs: Sequence[Spec], perm: torch.Tensor,
               (mask None) takes its groups' counts from it: a count over
               every row launches nothing, and K6 keeps no count for it.
 
-    sum gives int64 (wrapping) or float64, count int64, the others data's
-    type; a group without a masked-in row gives 0.
+    sum gives int64 (wrapping) or float64, fsumx float64, count int64,
+    the others data's type; a group without a masked-in row gives 0.
 
     A CPU tensor takes the plain version, a spec at a time.  A CUDA tensor
     launches K6 once for all the specs (each distinct column gathered once,
     each distinct mask read once), or once for each K6_MAX_SPECS
     reductions, K6_MAX_DATA columns or K6_MAX_MASKS masks.
     """
-    specs = [_checked_spec(sp) for sp in specs]
-    dev = gid.device
-    if perm.shape != gid.shape or perm.dtype != torch.int32 \
-            or gid.dtype != torch.int32:
+    if perm.shape != gid.shape or perm.dtype != torch.int32:
         raise ValueError("segment_reduce: perm and gid must be int32 of one "
                          "length")
+    return _segment_reduce_entry(specs, perm, gid, cap_g, group_rows)
+
+
+def segment_reduce_sorted(specs: Sequence[Spec], gid: torch.Tensor,
+                          cap_g: int, *,
+                          group_rows: Optional[torch.Tensor] = None
+                          ) -> List[torch.Tensor]:
+    """K6's sorted-order entry (the reference's seg_reduce_sorted over data
+    Grouping.take already put in sorted order): :func:`segment_reduce_many`
+    with each spec's data and mask in SORTED order, row i at sorted
+    position i.  No permutation is read; `any` is the first masked-in row
+    in sorted order.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches K6 with
+    no permutation (counted as ``segment_reduce_sorted``).
+    """
+    return _segment_reduce_entry(specs, None, gid, cap_g, group_rows)
+
+
+def _segment_reduce_entry(specs, perm, gid, cap_g, group_rows):
+    specs = [_checked_spec(sp) for sp in specs]
+    dev = gid.device
+    if gid.dtype != torch.int32 or gid.dim() != 1:
+        raise ValueError("segment_reduce: gid must be 1-d int32")
+    for op, data, mask, _ in specs:
+        for t in _tensors(op, data) + [mask]:
+            if t is not None and t.shape[0] != gid.shape[0] \
+                    and perm is None:
+                raise ValueError("segment_reduce_sorted: data and masks "
+                                 "must have a row a sorted position")
     if dev.type == "cpu":
         return [_segment_reduce_plain(op, data, mask, perm, gid, cap_g, uns)
                 for op, data, mask, uns in specs]
@@ -241,6 +305,14 @@ def _checked_spec(spec: Spec) -> Spec:
     if (data is None) != (op == "count"):
         raise ValueError(f"segment_reduce: {op} takes "
                          f"{'no' if op == 'count' else 'its'} data")
+    if op == "fsumx":
+        x, y, power = data
+        if power not in (1, 2, 3, 4):
+            raise ValueError(f"segment_reduce: fsumx of power {power}")
+        ux, uy = unsigned
+        return op, data, mask, (bool(ux) and x.dtype == torch.int64,
+                                y is not None and bool(uy)
+                                and y.dtype == torch.int64)
     if data is not None and op in _BITOPS and data.is_floating_point():
         raise TypeError(f"segment_reduce: {op} needs integer data")
     unsigned = bool(unsigned) and data is not None \
@@ -251,13 +323,15 @@ def _checked_spec(spec: Spec) -> Spec:
 @dataclasses.dataclass
 class _Launch:
     """One launch of K6: its columns, its masks, the mask slot of each
-    count it keeps (-1: every row), and each reduction as (spec index,
-    column slot or -1, mask slot or -1)."""
+    count it keeps (-1: every row), each reduction as (spec index, column
+    slot or -1, mask slot or -1), and each reduction's second column slot
+    (an fsumx term's y; -1: none)."""
     data: List[torch.Tensor] = dataclasses.field(default_factory=list)
     masks: List[torch.Tensor] = dataclasses.field(default_factory=list)
     counts: List[int] = dataclasses.field(default_factory=list)
     specs: List[Tuple[int, int, int]] = dataclasses.field(
         default_factory=list)
+    second: List[int] = dataclasses.field(default_factory=list)
 
 
 def _same_tensor(t: torch.Tensor):
@@ -285,7 +359,7 @@ def _plan_launches(specs: Sequence[Spec], have_group_rows: bool
     lies: (launch or -1, reduction slot or -1, count slot or -1).  A count
     spec and the ops of COUNTED_OPS need their mask's count, except over
     every row where group_rows gives it; `any` keeps a row id and reads no
-    column."""
+    column; an fsumx term reads its one or two columns."""
     launches: List[_Launch] = []
     where = []
     for op, data, mask, _ in specs:
@@ -294,17 +368,26 @@ def _plan_launches(specs: Sequence[Spec], have_group_rows: bool
         if not reduces and not counted:
             where.append((-1, -1, -1))
             continue
-        col = None if op in ("any", "count") else data
+        cols = _columns(op, data)
         cur = launches[-1] if launches else None
+
+        def new_cols(launch):
+            seen: List[torch.Tensor] = list(launch.data)
+            n_new = 0
+            for c in cols:
+                if _is_new(seen, c):
+                    seen.append(c)
+                    n_new += 1
+            return n_new
         if cur is None \
                 or len(cur.specs) + reduces > _native.K6_MAX_SPECS \
-                or len(cur.data) + _is_new(cur.data, col) \
-                > _native.K6_MAX_DATA \
+                or len(cur.data) + new_cols(cur) > _native.K6_MAX_DATA \
                 or len(cur.masks) + _is_new(cur.masks, mask) \
                 > _native.K6_MAX_MASKS:
             cur = _Launch()
             launches.append(cur)
-        d, m = _slot(cur.data, col), _slot(cur.masks, mask)
+        slots = [_slot(cur.data, c) for c in cols] + [-1, -1]
+        d, d2, m = slots[0], slots[1], _slot(cur.masks, mask)
         c = -1
         if counted:
             if m not in cur.counts:
@@ -313,32 +396,53 @@ def _plan_launches(specs: Sequence[Spec], have_group_rows: bool
         q = -1
         if reduces:
             cur.specs.append((len(where), d, m))
+            cur.second.append(d2)
             q = len(cur.specs) - 1
         where.append((len(launches) - 1, q, c))
     return launches, where
+
+
+def _tensors(op: str, data) -> List[torch.Tensor]:
+    """The columns a reduction takes (none for count)."""
+    if op == "fsumx":
+        return [t for t in data[:2] if t is not None]
+    return [] if data is None else [data]
+
+
+def _columns(op: str, data) -> List[torch.Tensor]:
+    """The columns K6 reads for a reduction (`any` keeps a row id)."""
+    return [] if op == "any" else _tensors(op, data)
 
 
 def _segment_reduce_many_cuda(specs, perm, gid, cap_g, group_rows):
     n, dev = gid.shape[0], gid.device
     checked = []
     for op, data, mask, uns in specs:
-        for t in (data, mask):
+        cols = _tensors(op, data)
+        for t in cols + [mask]:
             if t is not None and (t.device != dev or t.dim() != 1):
                 raise ValueError("segment_reduce: data and masks must be "
                                  "1-d tensors on the group ids' device")
         if mask is not None and (mask.dtype != torch.bool
-                                 or (data is not None
-                                     and mask.shape != data.shape)):
+                                 or any(mask.shape != t.shape
+                                        for t in cols)):
             raise ValueError("segment_reduce: mask must be bool of the "
                              "data's shape")
-        checked.append((op, None if data is None else data.contiguous(),
+        if op == "fsumx":
+            x, y, power = data
+            data = (x.contiguous(), None if y is None else y.contiguous(),
+                    power)
+        elif data is not None:
+            data = data.contiguous()
+        checked.append((op, data,
                         None if mask is None else mask.contiguous(), uns))
     if group_rows is not None and (group_rows.shape != (cap_g,)
                                    or group_rows.device != dev):
         raise ValueError("segment_reduce: group_rows must be (cap_g,) on "
                          "the group ids' device")
     launches, where = _plan_launches(checked, group_rows is not None)
-    perm = _native.aligned16(perm.contiguous())
+    if perm is not None:
+        perm = _native.aligned16(perm.contiguous())
     gid = _native.aligned16(gid.contiguous())
     stream = _native.stream_ptr(dev)
     accs, cnts = [], []
@@ -353,7 +457,8 @@ def _segment_reduce_many_cuda(specs, perm, gid, cap_g, group_rows):
         if not n:
             continue
         args = _native.K6Args(
-            perm=perm.data_ptr(), gid=gid.data_ptr(), n=n, cap_g=cap_g,
+            perm=None if perm is None else perm.data_ptr(),
+            gid=gid.data_ptr(), n=n, cap_g=cap_g,
             n_specs=len(launch.specs), n_data=len(launch.data),
             n_masks=len(launch.masks), n_counts=len(launch.counts))
         for d, t in enumerate(launch.data):
@@ -363,17 +468,24 @@ def _segment_reduce_many_cuda(specs, perm, gid, cap_g, group_rows):
             args.mask[m] = t.data_ptr()
         for c, m in enumerate(launch.counts):
             args.count[c] = _native.K6Count(mask=m, out=cnt[c].data_ptr())
-        for q, (i, d, m) in enumerate(launch.specs):
+        for q, ((i, d, m), d2) in enumerate(zip(launch.specs,
+                                                launch.second)):
             op, data, _, uns = checked[i]
+            if op == "fsumx":
+                args.spec[q] = _native.K6Spec(
+                    op=_OPS[op], data=d, mask=m, uns=int(uns[0]), data2=d2,
+                    pow=data[2], uns2=int(uns[1]), acc=acc[q].data_ptr())
+                continue
             code = _FSUM if op == "sum" and data.is_floating_point() \
                 else _OPS[op]
             args.spec[q] = _native.K6Spec(op=code, data=d, mask=m,
-                                          uns=int(uns),
+                                          uns=int(uns), data2=-1, pow=1,
                                           acc=acc[q].data_ptr())
         rc = _native.library().chtt_segment_reduce(ctypes.byref(args),
                                                    stream)
         _native.check(rc, "segment_reduce")
-        _native.count_launch("segment_reduce", n)
+        _native.count_launch("segment_reduce" if perm is not None
+                             else "segment_reduce_sorted", n)
     out = []
     for (op, data, _, uns), (li, q, c) in zip(checked, where):
         cnt = group_rows if c < 0 else cnts[li][c]
@@ -400,6 +512,8 @@ def _finish(op, acc, cnt, data, unsigned):
     masked-in rows a group; read for COUNTED_OPS only)."""
     if op == "count":
         return cnt
+    if op == "fsumx":
+        return acc.view(torch.float64)
     if op == "sum":
         return acc.view(torch.float64) if data.is_floating_point() else acc
     if op not in COUNTED_OPS:                     # bor, bxor
@@ -418,10 +532,14 @@ def _finish(op, acc, cnt, data, unsigned):
 
 def _segment_reduce_plain(op, data, mask, perm, gid, cap_g, unsigned):
     """Plain PyTorch version of K6 (the same states as the kernel, each
-    group reduced in sorted row order)."""
+    group reduced in sorted row order); perm None: the sorted-order entry's
+    (row i is sorted position i)."""
     dev = gid.device
+    if op == "fsumx":
+        op, data, unsigned = "sum", fsumx_column(data, unsigned), False
     g = gid.to(torch.int64)
-    rows = perm.to(torch.int64)
+    rows = torch.arange(g.shape[0], device=dev) if perm is None \
+        else perm.to(torch.int64)
     m = g < cap_g
     if mask is not None:
         m = m & mask.to(torch.bool)[rows]

@@ -313,35 +313,46 @@ def sort_rows_bytes(n: int, widths: Sequence[int], pack: int = 0) -> int:
 
 
 def sort_rows(keys: Sequence[SortKey], row_valid: Optional[torch.Tensor], *,
-              want_keys: bool = True, max_bytes: Optional[int] = None,
-              held_bytes: int = 0
+              secondary: Sequence[SortKey] = (), want_keys: bool = True,
+              max_bytes: Optional[int] = None, held_bytes: int = 0
               ) -> Tuple[torch.Tensor, List[torch.Tensor]]:
-    """Stable sort of the rows by (invalid, keys..., row id), with K4.
+    """Stable sort of the rows by (invalid, keys..., secondary..., row id),
+    with K4.
 
     -> (perm, sorted): perm (int32) maps a sorted position to its row;
-    sorted holds the packed keys in sorted order (empty unless
-    `want_keys`), whose equality between rows is the keys' equality (two
-    valid rows have equal packed keys exactly when every key is equal).
+    sorted holds the packed words of (invalid, keys...) in sorted order
+    (empty unless `want_keys`), whose equality between rows is the keys'
+    equality (two valid rows have equal packed words exactly when every
+    key is equal).  The secondary keys order the rows within equal keys
+    and are packed into words of their own, so they never reach `sorted`.
     row_valid None: every row is valid.  Invalid rows sort last.
     max_bytes: raise MemoryLimitExceeded, before allocating, where the
     sort's working set (sort_rows_bytes) and the caller's `held_bytes`
     (what it holds or will allocate beside the sort) are larger.
     """
-    first = next(k.data for k in keys if k.data.dim() == 1)
+    every = list(keys) + list(secondary)
+    first = next(k.data for k in every if k.data.dim() == 1)
     n, dev = first.shape[0], first.device
     valid = None if row_valid is None else row_valid.to(torch.bool)
     fields = [_Field(None, 0, 0 if valid is None else 1)]
-    ranges = [_bounded_range(k) for k in keys]
+    ranges = [_bounded_range(k) for k in every]
     todo = [i for i, r in enumerate(ranges) if r is None]
     if todo and n:
-        got = _measured_ranges([order_value(keys[i]).expand(n)
+        got = _measured_ranges([order_value(every[i]).expand(n)
                                 for i in todo], valid)
         for i, r in zip(todo, got):
             ranges[i] = r
-    for k, r in zip(keys, ranges):
+    for k, r in zip(every, ranges):
         lo, hi = r if r is not None else (0, 0)
         fields.append(_Field(k, lo, (hi - lo).bit_length()))
-    groups = _pack_groups(fields)
+    # least significant first: the secondary keys' words, then the keys'
+    n_sec = 0
+    if secondary:
+        sec = _pack_groups(fields[1 + len(keys):])
+        n_sec = len(sec)
+        groups = sec + _pack_groups(fields[:1 + len(keys)])
+    else:
+        groups = _pack_groups(fields)
     if max_bytes is not None:
         need = sort_rows_bytes(n, [sum(f.width for f in g) for g in groups],
                                max(_pack_bytes(g) for g in groups)) \
@@ -353,13 +364,17 @@ def sort_rows(keys: Sequence[SortKey], row_valid: Optional[torch.Tensor], *,
     packed = [_group_key(g, valid, n, dev) for g in groups]
     perm = None
     last = None
-    for key, width in packed:
+    for i, (key, width) in enumerate(packed):
+        if width == 0 and (perm is not None or i < len(packed) - 1):
+            last = key                 # zeros: every order keeps them
+            continue
         if perm is not None:
             key = key.index_select(0, perm)
         last, perm = radix_sort_pairs(key, width, perm)
     out: List[torch.Tensor] = []
     if want_keys:
-        out = [last] + [k.index_select(0, perm) for k, _ in packed[:-1]]
+        out = [last] + [k.index_select(0, perm)
+                        for k, _ in packed[n_sec:-1]]
     return perm, out
 
 

@@ -39,7 +39,9 @@ from clickhouse_tpu_torch.ops.scan_ops import (K5_TILE_ROWS,
                                                _segment_bounds_plain,
                                                _segment_reduce_plain,
                                                segment_bounds, segment_reduce,
-                                               segment_reduce_many)
+                                               fsumx_column,
+                                               segment_reduce_many,
+                                               segment_reduce_sorted)
 from clickhouse_tpu_torch.ops.string_ops import (_prefix_match_plain,
                                                  prefix_match)
 from clickhouse_tpu_torch.ops.vector_ops import (DISTANCE_OPS,
@@ -354,6 +356,7 @@ def test_launch_counters_count_kernel_launches(dev):
     key, perm = radix_sort_pairs(x.to(torch.int32), 4)
     gid, _, _, _ = segment_bounds([key], torch.tensor(10, device=dev), 16)
     segment_reduce("sum", x, None, perm, gid, 16)
+    segment_reduce_sorted([("sum", x, None, False)], gid, 16)
     word = x.to(torch.int32)
     dense_gather_join(x, None, x, None, [("word", word, -1)], 0, 9)
     propagate_join([x], None, [x], None, [word])
@@ -367,7 +370,7 @@ def test_launch_counters_count_kernel_launches(dev):
     assert _native.LAUNCHES == {"masked_reduce": 1, "dense_group_reduce": 1,
                                 "topk_smallest": 1, "radix_sort_pairs": 1,
                                 "segment_bounds": 1, "segment_reduce": 1,
-                                "dense_join": 1, "hash_join": 1,
+                                "segment_reduce_sorted": 1, "dense_join": 1, "hash_join": 1,
                                 "expand_matches": 1, "prefix_match": 1,
                                 "vector_distance": 1}
 
@@ -553,7 +556,10 @@ def test_segment_bounds_is_one_launch(dev):
     assert _native.LAUNCHES["segment_bounds"] == 1
 
 
-def _check_group_values(got, want, op, data, mask, perm, gid, cap_g):
+def _check_group_values(got, want, op, data, mask, perm, gid, cap_g,
+                        unsigned=False):
+    if op == "fsumx":
+        op, data = "sum", fsumx_column(data, unsigned)
     if got.is_floating_point() and op == "sum":
         absd = data.abs().to(torch.float64)
         scale = _segment_reduce_plain("sum", absd, mask, perm, gid, cap_g,
@@ -607,7 +613,8 @@ def test_segment_reduce_skewed_group_matches_plain(dev, op):
         assert torch.equal(got, want)
 
 
-@pytest.mark.parametrize("case", ["q2m", "two_columns_two_masks", "split"])
+@pytest.mark.parametrize("case", ["q2m", "two_columns_two_masks", "split",
+                                  "f64_terms", "f64_term_types"])
 @pytest.mark.parametrize("skew", [None, 0.4], ids=["uniform", "skew40"])
 def test_segment_reduce_many_matches_plain(dev, case, skew):
     """Several specs in one segment_reduce_many call (one launch, or more
@@ -625,7 +632,7 @@ def test_segment_reduce_many_matches_plain(dev, case, skew):
                                   group_rows=group_rows)
         for (op, d, m, u), g in zip(specs, got):
             want = _segment_reduce_plain(op, d, m, perm, gid, cap_g, u)
-            _check_group_values(g, want, op, d, m, perm, gid, cap_g)
+            _check_group_values(g, want, op, d, m, perm, gid, cap_g, u)
 
 
 def test_segment_reduce_many_launches_once(dev):
@@ -659,6 +666,94 @@ def test_segment_reduce_unsigned_and_narrow_storage(dev):
         a = segment_reduce(op, narrow, None, perm, gid, 8192)
         b = segment_reduce(op, narrow.to(torch.int64), None, perm, gid, 8192)
         assert torch.equal(a.to(torch.int64), b)
+
+
+@pytest.mark.parametrize("dtype,op", [
+    (d, op) for op in OPS + ["count"] for d in DTYPES
+    if not (d.is_floating_point and op in ("bor", "band", "bxor"))], ids=str)
+@pytest.mark.parametrize("skew", [None, 0.4], ids=["uniform", "skew40"])
+def test_segment_reduce_sorted_matches_plain(dev, dtype, op, skew):
+    """K6's sorted-order entry (data and masks in sorted order, no
+    permutation) against its plain version: every op and storage type,
+    with no mask, a partial mask, a mask of no row and a mask of no row in
+    every other group (fully masked groups), empty slots past the last
+    group, invalid rows past the last valid one, and one group holding
+    40 % of the rows."""
+    rng = np.random.default_rng(17)
+    n, cap_g = 1_000_003, 1 << 17
+    x = _values(rng, dtype, n)
+    if dtype.is_floating_point:
+        x[::101] = float("nan")
+    _, gid = grouped_rows(n, 70_000, dev, skew=skew)
+    gid[-3000:] = cap_g
+    d = None if op == "count" else x.to(dev)
+    for m in (None, torch.from_numpy(rng.random(n) < 0.3).to(dev),
+              torch.zeros(n, dtype=torch.bool, device=dev),
+              (gid % 2 == 1)):
+        got = segment_reduce_sorted([(op, d, m, False)], gid, cap_g)[0]
+        want = _segment_reduce_plain(op, d, m, None, gid, cap_g, False)
+        _check_group_values(got, want, op, d, m, None, gid, cap_g)
+
+
+def test_segment_reduce_sorted_launches_once_and_reads_no_perm(dev):
+    """Several specs over sorted data: one launch of the sorted-order
+    entry, none of the permuted one."""
+    rng = np.random.default_rng(18)
+    n = 200_003
+    _, gid = grouped_rows(n, 5000, dev)
+    specs = k6_many_specs(rng, n, dev)["q2m"]
+    _native.reset_launches()
+    got = segment_reduce_sorted(specs, gid, 8192)
+    assert _native.LAUNCHES["segment_reduce_sorted"] == 1
+    assert _native.LAUNCHES["segment_reduce"] == 0
+    for (op, d, m, u), g in zip(specs, got):
+        assert torch.equal(g, _segment_reduce_plain(op, d, m, None, gid,
+                                                    8192, u))
+
+
+@pytest.mark.parametrize("case", ["f64_terms", "f64_term_types"])
+def test_segment_reduce_sorted_f64_terms_match_plain(dev, case):
+    """The statistics' terms (powers and products formed in registers)
+    through the sorted-order entry."""
+    rng = np.random.default_rng(20)
+    n, cap_g = 1_000_003, 1 << 17
+    _, gid = grouped_rows(n, 70_000, dev, skew=0.4)
+    specs = k6_many_specs(rng, n, dev)[case]
+    got = segment_reduce_sorted(specs, gid, cap_g)
+    for (op, d, m, u), g in zip(specs, got):
+        want = _segment_reduce_plain(op, d, m, None, gid, cap_g, u)
+        _check_group_values(g, want, op, d, m, None, gid, cap_g, u)
+
+
+@pytest.mark.parametrize("groups", [1, 1000])
+def test_uniq_exact_and_quantile_on_card_match_numpy(groups):
+    """count(DISTINCT x), median and quantiles over 1M rows through
+    connect(device="cuda") (K4 with x as a secondary word, K5, K6's
+    sorted-order entry) against numpy."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    import clickhouse_tpu_torch as ch
+    from clickhouse_tpu_torch.interop import table_from_numpy
+    rng = np.random.default_rng(19)
+    n = 1_000_000
+    x = rng.integers(0, 300_000, n)
+    k = rng.integers(0, groups, n)
+    s = ch.connect(device="cuda")
+    table_from_numpy(s, "u", {"k": k, "x": x}, {"k": "Int64", "x": "Int64"})
+    _native.reset_launches()
+    got = s.execute("SELECT k, count(DISTINCT x), median(x), "
+                    "quantiles(0.1, 0.9)(x) FROM u GROUP BY k "
+                    "ORDER BY k").rows()
+    assert _native.LAUNCHES["segment_reduce_sorted"] >= 1
+    want = []
+    for g in range(groups):
+        v = np.sort(x[k == g])
+        pick = [int(v[int(np.floor(q * (len(v) - 1)))])
+                for q in (0.5, 0.1, 0.9)]
+        want.append((g, len(np.unique(v)), pick[0], pick[1:]))
+    assert got == want
+    assert s.execute("SELECT count(DISTINCT x) FROM u").rows() \
+        == [(len(np.unique(x)),)]
 
 
 SQL_ON_CARD = [
