@@ -11,11 +11,14 @@
                                       # Q2u, Q2ug, Q2q, Q2s2 and Q2g and
                                       # K6's sorted-order entry at Q2ug's
                                       # inputs
+    python3 chip_smoke.py --calendar  # only K12's cases, Qt1-Qt5 over
+                                      # hits_t and K12 at Qt2's and Qt1's
+                                      # inputs
 
 Needs one NVIDIA Hopper card, nvcc and PyTorch built for CUDA; exits
 non-zero without them.  Phases, each of which fails the run:
 
-  1. build the eleven hand-written kernels (csrc/*.cu) with nvcc for sm_90a,
+  1. build the twelve hand-written kernels (csrc/*.cu) with nvcc for sm_90a,
      one nvcc a source, all started together;
   2. hold each kernel against its plain PyTorch version on the card: edge
      cases (K1 with and without filter terms over every storage type and
@@ -66,7 +69,11 @@ non-zero without them.  Phases, each of which fails the run:
      136, ragged lengths 0, 1, W - 1 and W, a zero row, a zero query, a
      row count off the block, rows past n, which must hold the zero row's
      value unread), within 1e-5 relative plus 1e-6 of the row's scale
-     (k11_error); integer results must agree
+     (k11_error); K12 over every op use of K12_SPECS, days and seconds,
+     int8/int16/int32/int64 storage, the edge days of K12_EDGE_DATES
+     (1900, 2000 and 2100's Februaries, month and year ends, days before
+     1970), K12_ROWS rows and views 1-3 rows in; integer results must
+     agree
      exactly, K1's and K2's float sums within rtol 1e-12, K6's within
      n_g * eps * sum(|x|) a group of n_g rows (its atomics add a group's
      parts in a varying order); then SELECT without FROM, numbers() and
@@ -114,7 +121,14 @@ non-zero without them.  Phases, each of which fails the run:
      corr and groupBitXor, Q2g varPop, argMin and median under GROUP BY
      ()), each against numpy (integers exact, floats within STAT_TOL of
      the statistic's largest term) and launching exactly SLICE12_PATHS,
-     its peak beside the governor's estimate; Q2's and Q2t's peaks are split
+     its peak beside the governor's estimate; then over hits_t (t
+     DateTime, d Date, x Int64: every second of July 2013 in a scattered
+     order, its day, hits' x; 100M rows) Qt1-Qt5 (SLICE13_QUERIES:
+     ClickBench Q43's date_trunc('minute') bucket, toHour/toDayOfWeek
+     groups, a toYYYYMMDD day series, a month step and dateDiff, and
+     round/sqrt/log/bitAnd aggregates) against numpy's datetime64
+     conversions, launching exactly SLICE13_PATHS, each K12 launch (one a
+     calendar function) over every row; Q2's and Q2t's peaks are split
      by allocation (watch_dense: the dense grouping's slots and ids, K2's
      inputs and outputs);
   4. replay each kernel on the exact inputs the main path gave it (its
@@ -143,8 +157,9 @@ non-zero without them.  Phases, each of which fails the run:
      and at Q7s's; K11 at Q8's inputs beside torch.mv(A, q) (the dot
      alone, for information); K6's sorted-order entry at Q2ug's inputs
      (its first-occurrence flags) beside torch.segment_reduce(sum,
-     lengths=group rows); fails unless Q4's K7 call carries label
-     alone and
+     lengths=group rows); K12 at Qt2's toHour and Qt1's minute bucket
+     over t's int32 storage (library none); fails unless Q4's K7 call
+     carries label alone and
      Q4h's K8 call one word; time each query (median wall time of 20
      runs, synchronised) with its peak memory beside the governor's
      estimate, the device-busy time of Q1, Q2b, Q2m, Q4, Q4h, Q4x and the
@@ -271,7 +286,8 @@ STAT_TOL = 1e-9
 # the queries whose device-busy time a trace takes
 BUSY_QUERIES = ("Q1", "Q2b", "Q2m", "Q4", "Q4h", "Q4x", "Q8", "Q8l",
                 "Q8w") + tuple(
-    q for q, _ in SLICE10_QUERIES) + tuple(q for q, _ in SLICE12_QUERIES)
+    q for q, _ in SLICE10_QUERIES) + tuple(q for q, _ in SLICE12_QUERIES) \
+    + ("Qt1", "Qt2", "Qt3", "Qt4", "Qt5")
 QUERY_REPS = 20
 KERNEL_REPS = 20
 FLOAT_RTOL = 1e-12      # the kernel adds float partials in another order
@@ -303,7 +319,13 @@ EXTRA_KEYS = ("level1_ms", "merge_ms", "entry64_ms", "entry64_bound_ms",
               "sorted_library_ms", "sorted_library", "sorted_bytes",
               "sorted_bound_ms", "sorted_shape", "sorted_read_bytes",
               "launches_sorted", "launches_permuted", "q2s2_ms",
-              "q2s2_plain_ms", "q2s2_bytes", "q2s2_bound_ms", "q2s2_shape")
+              "q2s2_plain_ms", "q2s2_bytes", "q2s2_bound_ms", "q2s2_shape",
+              "bucket_ms", "bucket_plain_ms", "bucket_bytes",
+              "bucket_bound_ms", "bucket_kernels_per_call", "k12_calls",
+              "yyyymmdd_ms", "yyyymmdd_plain_ms", "yyyymmdd_bytes",
+              "yyyymmdd_bound_ms", "yyyymmdd_kernels_per_call",
+              "add_months_ms", "add_months_plain_ms", "add_months_bytes",
+              "add_months_bound_ms", "add_months_kernels_per_call")
 F64_EPS = 2.0 ** -52
 CMPS = ["equals", "notEquals", "less", "lessOrEquals", "greater",
         "greaterOrEquals"]
@@ -2670,7 +2692,7 @@ def time_queries(s):
     from clickhouse_tpu_torch.sql import parse
     ran = {}
     for name, sql in QUERIES + JOIN_QUERIES + SLICE10_QUERIES \
-            + SLICE11_QUERIES + SLICE12_QUERIES:
+            + SLICE11_QUERIES + SLICE12_QUERIES + SLICE13_QUERIES:
         try:
             s.execute(sql)
         except (NotImplementedError_, UnknownFunction) as e:
@@ -2705,7 +2727,7 @@ def time_queries(s):
               f"Q4's median wall {ran['Q4']:.3f} ms is "
               f"{ran['Q4'] / roof:.2f}x it", flush=True)
     for name, sql in QUERIES + JOIN_QUERIES + SLICE10_QUERIES \
-            + SLICE11_QUERIES + SLICE12_QUERIES:
+            + SLICE11_QUERIES + SLICE12_QUERIES + SLICE13_QUERIES:
         if name in BUSY_QUERIES and name in ran:
             busy, ops, wall, top = device_busy(s, sql)
             print(f"{name} under torch.profiler: device busy {busy:.4f} ms "
@@ -2715,25 +2737,6 @@ def time_queries(s):
                 print(f"{name} device ms a run by operation (the top 8): "
                       + "; ".join(f"{n} {t:.4f}" for n, t in top),
                       flush=True)
-
-
-def aggregate_times(s):
-    """Median wall of QUERY_REPS runs of each slice-12 query and its
-    device-busy time from a torch.profiler trace (``--aggregates``)."""
-    for name, sql in SLICE12_QUERIES:
-        s.execute(sql)
-        times = []
-        for _ in range(QUERY_REPS):
-            t0 = time.perf_counter()
-            s.execute(sql)
-            torch.cuda.synchronize()
-            times.append(time.perf_counter() - t0)
-        busy, ops, wall, top = device_busy(s, sql)
-        print(f"{name} median wall {statistics.median(times) * 1e3:.3f} ms "
-              f"over {QUERY_REPS} runs; under torch.profiler: device busy "
-              f"{busy:.4f} ms of {wall:.3f} ms wall a run, {ops:g} device "
-              f"operations a run; top: "
-              + "; ".join(f"{n} {t:.4f}" for n, t in top), flush=True)
 
 
 def load_join_tables(s):
@@ -3591,6 +3594,304 @@ def gather_curve(dev):
     return out
 
 
+# -- slice 13: dates, times, math and bit functions (K12, hits_t) ------------
+
+T_JULY_2013 = 1372636800            # 2013-07-01 00:00:00 UTC
+JULY_SECONDS = 31 * 86400
+Q_T = {
+    "Qt1": "SELECT date_trunc('minute', t) AS m, count() AS c FROM hits_t "
+           "WHERE d >= '2013-07-14' AND d <= '2013-07-15' GROUP BY m "
+           "ORDER BY m LIMIT 10 OFFSET 1000",
+    "Qt2": "SELECT toHour(t) AS h, toDayOfWeek(t) AS w, count(), sum(x) "
+           "FROM hits_t GROUP BY h, w ORDER BY h, w",
+    "Qt3": "SELECT toYYYYMMDD(t) AS day, count() FROM hits_t GROUP BY day "
+           "ORDER BY day",
+    "Qt4": "SELECT count() FROM hits_t WHERE t + INTERVAL 1 MONTH > "
+           "toDateTime('2013-08-20 00:00:00') AND dateDiff('hour', "
+           "toStartOfDay(t), t) >= 12",
+    "Qt5": "SELECT round(avg(sqrt(x)), 3), max(log(x + 1)), "
+           "sum(bitAnd(x, 255)) FROM hits_t"}
+SLICE13_QUERIES = tuple(Q_T.items())
+# each query's launches: one K12 launch a calendar function (Qt5's math
+# is plain torch)
+SLICE13_PATHS = {
+    "Qt1": {"calendar_part": 1, "masked_reduce": 2, "radix_sort_pairs": 1,
+            "segment_bounds": 1, "topk_smallest": 1},
+    "Qt2": {"calendar_part": 2, "dense_group_reduce": 1, "masked_reduce": 1,
+            "radix_sort_pairs": 1},
+    "Qt3": {"calendar_part": 1, "masked_reduce": 1, "radix_sort_pairs": 2,
+            "segment_bounds": 1},
+    "Qt4": {"calendar_part": 2, "masked_reduce": 1},
+    "Qt5": {"masked_reduce": 3}}
+T_RTOL = 1e-12                  # floats against numpy's (sum order, ulps)
+# (op, output numpy type, c0, c1) of every use the functions make of K12
+K12_SPECS = (
+    ("year", "uint16", 0, 0), ("quarter", "uint8", 0, 0),
+    ("month", "uint8", 0, 0), ("day_of_month", "uint8", 0, 0),
+    ("day_of_year", "uint16", 0, 0), ("day_of_week", "uint8", 0, 0),
+    ("iso_year", "uint16", 0, 0), ("iso_week", "uint8", 0, 0),
+    ("hour", "uint8", 0, 0), ("minute", "uint8", 0, 0),
+    ("second", "uint8", 0, 0), ("yyyymm", "uint32", 0, 0),
+    ("yyyymmdd", "uint32", 0, 0), ("yyyymmddhhmmss", "uint64", 0, 0),
+    ("relative_quarter", "uint32", 0, 0), ("relative_month", "uint32", 0, 0),
+    ("relative_month", "int64", 0, 0), ("relative_week", "uint32", 0, 0),
+    ("floor_seconds", "uint32", 3600, 0), ("floor_seconds", "uint32", 1, 0),
+    ("day_number", "int32", 0, 0), ("day_number", "uint32", 719528, 0),
+    ("day_number", "int64", 0, 0), ("start_of_months", "int32", 1, 0),
+    ("start_of_months", "int32", 3, 0), ("start_of_months", "int32", 12, 0),
+    ("start_of_months", "int32", 60, 0), ("start_of_days", "int32", 7, 3),
+    ("start_of_days", "int32", 7, 4), ("start_of_days", "int32", 35, 3),
+    ("start_of_days", "int32", 5, 0), ("last_day_of_week", "int32", 4, 0),
+    ("start_of_seconds", "int64", 60, 0),
+    ("start_of_seconds", "int64", 86400, 0),
+    ("start_of_seconds", "int64", 900, 0),
+    ("last_day_of_month", "int32", 0, 0), ("add_months", "int32", 1, 0),
+    ("add_months", "int64", -13, 0), ("add_months", "int64", 1200, 0))
+K12_DTYPES = (torch.int8, torch.int16, torch.int32, torch.int64)
+K12_ROWS = (1, 7, 8, 9, 4099, 1_000_003)   # one row, part of a group of 8
+K12_EDGE_DATES = ("1900-02-28", "1900-03-01", "2000-02-29", "2000-03-01",
+                  "2100-02-28", "2100-03-01", "1969-12-31", "1970-01-01",
+                  "2012-12-31", "2013-01-01", "2013-01-31", "2014-12-29",
+                  "2015-12-31", "2016-01-03", "1600-02-29", "0001-01-01",
+                  "9999-12-31", "2013-07-14", "2013-07-31")
+
+
+def k12_values(rng, dtype, seconds: bool, n: int) -> np.ndarray:
+    """n values for K12 in storage `dtype`: the edge days (and their first
+    and last seconds) that fit, then random values over the type's range
+    (int64: over +-3e11, years far past 9999 and before 1)."""
+    days = np.array([np.datetime64(d, "D").astype(np.int64)
+                     for d in K12_EDGE_DATES])
+    edge = np.concatenate([days * 86400, days * 86400 + 86399, [-1, 0, 1]]) \
+        if seconds else np.concatenate([days, [-1, 0, 1]])
+    info = np.iinfo(torch.empty((), dtype=dtype).numpy().dtype)
+    lo, hi = max(info.min, -3 * 10**11), min(info.max, 3 * 10**11)
+    edge = edge[(edge >= lo) & (edge <= hi)]
+    out = rng.integers(lo, hi, n, endpoint=True)
+    out[:min(n, len(edge))] = edge[:n]
+    return out
+
+
+def k12_cases(dev, dtypes=K12_DTYPES):
+    """Yield (x, op, seconds, out_np, c0, c1) over every K12_SPECS op, both
+    units and each storage type of `dtypes`, at each row count of K12_ROWS
+    and as views 1-3 rows into the column (the scalar path)."""
+    rng = np.random.default_rng(12)
+    for dtype in dtypes:
+        for seconds in (False, True):
+            base = torch.from_numpy(k12_values(
+                rng, dtype, seconds, max(K12_ROWS) + 3)).to(dtype).to(dev)
+            for n in K12_ROWS:
+                for off in (0, 1, 2, 3):
+                    x = base[off:off + n]
+                    for op, out_np, c0, c1 in K12_SPECS:
+                        yield x, op, seconds, out_np, c0, c1
+
+
+def check_k12(dev):
+    """K12 against its plain version over every op of K12_SPECS, both units
+    (days, seconds), every storage type (int8, int16, int32, int64), the
+    edge days of K12_EDGE_DATES, K12_ROWS rows and views 1-3 rows in:
+    exact."""
+    from clickhouse_tpu_torch.ops.calendar_ops import (_calendar_part_plain,
+                                                       calendar_part)
+    calls = 0
+    for x, op, seconds, out_np, c0, c1 in k12_cases(dev):
+        max_abs_err(calendar_part(x, op, seconds, out_np, c0, c1),
+                    _calendar_part_plain(x, op, seconds, out_np, c0, c1))
+        calls += 1
+    torch.cuda.synchronize()
+    print(f"K12 calendar_part agrees with its plain version ({calls} "
+          f"calls: {len(K12_SPECS)} op uses x 2 units x "
+          f"{len(K12_DTYPES)} storage types x {len(K12_ROWS)} row counts x "
+          f"4 offsets)", flush=True)
+
+
+def hits_t_columns(n: int = N_ROWS):
+    """hits_t: every second of July 2013 in a scattered order (as
+    ClickBench's hits.EventTime), its day, and hits' x."""
+    r = np.arange(n, dtype=np.int64) * 2654435761
+    t = T_JULY_2013 + r % JULY_SECONDS
+    return {"t": t, "d": (t // 86400).astype(np.int32), "x": r % 1_000_003}
+
+
+def load_hits_t(s):
+    """hits_t (t DateTime, d Date, x Int64) of N_ROWS rows in session s,
+    on the device (t int32, d int16, x int32 by narrow storage); -> its
+    columns as numpy, for the answers."""
+    t0 = time.perf_counter()
+    cols = hits_t_columns()
+    t1 = time.perf_counter()
+    s.execute("CREATE TABLE hits_t (t DateTime, d Date, x Int64)")
+    s.insert_pydict("hits_t", cols)
+    blk = s.catalog.get_table("default", "hits_t").read_block()
+    torch.cuda.synchronize()
+    print(f"hits_t: {N_ROWS} rows made in {t1 - t0:.1f} s; insert + device "
+          f"block {time.perf_counter() - t1:.1f} s; storage "
+          f"{ {k: str(blk[k].data.dtype) for k in cols} }", flush=True)
+    return cols
+
+
+def slice13_answers(cols):
+    """Qt1-Qt5 by numpy's datetime64 conversions ([s] -> [m], [h], [D],
+    [M], [Y]) and float64 math."""
+    t, x = cols["t"], cols["x"]
+    ts = t.astype("datetime64[s]")
+    day = ts.astype("datetime64[D]")
+    out = {}
+    keep = (day >= np.datetime64("2013-07-14")) \
+        & (day <= np.datetime64("2013-07-15"))
+    mins, cnt = np.unique(ts[keep].astype("datetime64[m]"),
+                          return_counts=True)
+    out["Qt1"] = [(m.astype("datetime64[s]").astype(object), int(c))
+                  for m, c in zip(mins[1000:1010], cnt[1000:1010])]
+    hour = (ts - day).astype("timedelta64[h]").astype(np.int64)
+    dow = (day - np.datetime64("1970-01-05")).astype(np.int64) % 7 + 1
+    g = hour * 8 + dow
+    c = np.bincount(g, minlength=24 * 8)
+    # each group's sum below 2^53: exact in float64
+    sx = np.bincount(g, weights=x.astype(np.float64), minlength=24 * 8)
+    out["Qt2"] = [(h, w, int(c[h * 8 + w]), int(sx[h * 8 + w]))
+                  for h in range(24) for w in range(1, 8) if c[h * 8 + w]]
+    first = day.min()
+    dcnt = np.bincount((day - first).astype(np.int64))
+    days = first + np.flatnonzero(dcnt).astype("timedelta64[D]")
+    month = days.astype("datetime64[M]")
+    ymd = (month.astype("datetime64[Y]").astype(np.int64) + 1970) * 10000 \
+        + (month.astype(np.int64) % 12 + 1) * 100 \
+        + (days - month.astype("datetime64[D]")).astype(np.int64) + 1
+    out["Qt3"] = [(int(a), int(b)) for a, b in zip(ymd, dcnt[dcnt > 0])]
+    month = day.astype("datetime64[M]")
+    # one month on: the same day and time of the next month (July's days
+    # all exist in August)
+    on = (month + 1).astype("datetime64[s]") + (ts - month.astype(
+        "datetime64[s]"))
+    q4 = (on > np.datetime64("2013-08-20T00:00:00")) & (hour >= 12)
+    out["Qt4"] = [(int(q4.sum()),)]
+    xf = x.astype(np.float64)
+    out["Qt5"] = [(round(float(np.sqrt(xf).mean()), 3),
+                   float(np.log(xf + 1).max()), int((x & 255).sum()))]
+    return out
+
+
+def slice13_agree(want):
+    def agree(name, rows):
+        w = want[name]
+        return len(rows) == len(w) and all(
+            len(g) == len(v) and all(
+                math.isclose(a, b, rel_tol=T_RTOL) if isinstance(b, float)
+                else a == b for a, b in zip(g, v))
+            for g, v in zip(rows, w))
+    return agree
+
+
+def slice13_path(s, want, per_query, launches, launch_rows, memory):
+    """Qt1-Qt5 over hits_t, each against numpy, launching exactly the
+    kernels of SLICE13_PATHS, and each K12 launch (one a calendar function)
+    over every row; -> {query: [(op, storage, rows, result type)]}, the
+    K12 calls each query made."""
+    from clickhouse_tpu_torch.ops import calendar_ops
+    k12, execute = calendar_ops._calendar_part_cuda, s.execute
+    calls, current = {}, [""]
+
+    def k12_watch(x, code, seconds, out_np, c0, c1):
+        # the call's op and input, recorded (passed on as it is)
+        op = next(k for k, v in calendar_ops.OPS.items() if v == code)
+        calls.setdefault(current[0], []).append(
+            (op, str(x.dtype), x.numel(), str(np.dtype(out_np))))
+        return k12(x, code, seconds, out_np, c0, c1)
+
+    def execute_watch(sql, *a, **kw):
+        current[0] = next(k for k, v in SLICE13_QUERIES if v == sql)
+        return execute(sql, *a, **kw)
+    cover = {q: ("calendar_part", N_ROWS) for q in ("Qt1", "Qt2", "Qt3",
+                                                    "Qt4")}
+    cover["Qt5"] = ("masked_reduce", N_ROWS)
+    calendar_ops._calendar_part_cuda, s.execute = k12_watch, execute_watch
+    try:
+        path_phase(s, SLICE13_QUERIES, SLICE13_PATHS, cover, want, per_query,
+                   launches, launch_rows, memory, "Qt1, Qt2, Qt3, Qt4 and Qt5",
+                   agree=slice13_agree(want))
+    finally:
+        calendar_ops._calendar_part_cuda, s.execute = k12, execute
+    for name, _ in SLICE13_QUERIES:
+        got = calls.get(name, [])
+        if any(n < N_ROWS for _, _, n, _ in got):
+            fail(f"{name}'s K12 calls {got}: each must cover its {N_ROWS} "
+                 f"rows")
+        print(f"{name}: K12 calls (op, storage, rows, result) {got}",
+              flush=True)
+    return calls
+
+
+# K12's calls on the main path that calendar_shapes replays: the row's
+# key prefix, the op, its result type and constant
+K12_SHAPES = (("", "hour", "uint8", 0),
+              ("bucket_", "start_of_seconds", "int64", 60),
+              ("yyyymmdd_", "yyyymmdd", "uint32", 0),
+              ("add_months_", "add_months", "int64", 1))
+K12_SHAPE_QUERY = {"": "Qt2", "bucket_": "Qt1", "yyyymmdd_": "Qt3",
+                   "add_months_": "Qt4"}
+
+
+def calendar_shapes(dev, s):
+    """K12 at Qt2's toHour, at Qt1's bucket (date_trunc('minute', t),
+    `bucket_*`) and, for information, at Qt3's toYYYYMMDD and Qt4's month
+    step (the civil calendar's ops) over hits_t's t as the main path read
+    it (int32 storage), each held against its plain version and timed
+    beside it, with its kernels a call (torch.profiler).  Bytes: each
+    value read once, each result written once.  No single PyTorch call
+    computes a calendar function: library_ms is null."""
+    from clickhouse_tpu_torch.ops.calendar_ops import (_calendar_part_plain,
+                                                       calendar_part)
+    t = s.catalog.get_table("default", "hits_t").read_block()["t"].data
+    rec = {"library_ms": None, "max_abs_err": 0.0}
+    for key, op, out_np, c0 in K12_SHAPES:
+        call = (t, op, True, out_np, c0)
+        got = calendar_part(*call)
+        rec["max_abs_err"] = max(rec["max_abs_err"], max_abs_err(
+            got, _calendar_part_plain(*call)))
+        ms = cuda_ms(lambda: calendar_part(*call))
+        plain = cuda_ms(lambda: _calendar_part_plain(*call), reps=3)
+        nb = nbytes(t, got)
+        per_call = {}
+        kernels = device_kernels(lambda: calendar_part(*call),
+                                 launches=per_call)
+        if list(per_call.values()) != [1]:
+            fail(f"calendar_part {op} ran the device kernels {per_call} a "
+                 f"call, not one kernel once")
+        rec.update({f"{key}ms": ms, f"{key}plain_ms": plain,
+                    f"{key}bytes": nb, f"{key}bound_ms": bound_ms(nb),
+                    f"{key}kernels_per_call": per_call})
+        print(f"calendar_part {op} at {K12_SHAPE_QUERY[key]}'s input "
+              f"({t.numel()} {t.dtype} values -> {got.dtype}): {ms:.4f} ms, "
+              f"{nb} bytes, bound {bound_ms(nb):.4f} ms (share "
+              f"{bound_ms(nb) / ms:.3f}), plain {plain:.4f} ms (exact "
+              f"against it), library none; device kernels a call "
+              f"{kernels}", flush=True)
+        del got
+    return {"calendar_part": rec}
+
+
+def query_times(s, queries):
+    """Median wall of QUERY_REPS runs of each query and its device-busy
+    time from a torch.profiler trace (``--aggregates``, ``--calendar``)."""
+    for name, sql in queries:
+        s.execute(sql)
+        times = []
+        for _ in range(QUERY_REPS):
+            t0 = time.perf_counter()
+            s.execute(sql)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        busy, ops, wall, top = device_busy(s, sql)
+        print(f"{name} median wall {statistics.median(times) * 1e3:.3f} ms "
+              f"over {QUERY_REPS} runs; under torch.profiler: device busy "
+              f"{busy:.4f} ms of {wall:.3f} ms wall a run, {ops:g} device "
+              f"operations a run; top: "
+              + "; ".join(f"{n} {t:.4f}" for n, t in top), flush=True)
+
+
 def check_small_joins(ch):
     """The join forms over small tables on the card, row for row against
     the same session on the CPU (whose answers the tests hold against the
@@ -3730,6 +4031,7 @@ def main():
             load_vecs(s)
         except Exception as e:      # a tree without Array columns
             print(f"vecs not loaded in this tree: {e}", flush=True)
+        load_hits_t(s)
         time_queries(s)
         return
     if sys.argv[1:] == ["--vectors"]:
@@ -3750,6 +4052,20 @@ def main():
                   f"of {wall:.3f} ms wall a run, {ops:g} device operations "
                   f"a run; top: "
                   + "; ".join(f"{n} {t:.4f}" for n, t in top), flush=True)
+        return
+    if sys.argv[1:] == ["--calendar"]:
+        # K12's cases, Qt1-Qt5 on their path, K12 at Qt2's and Qt1's
+        # inputs, and the five queries' times
+        check_k12(dev)
+        s = ch.connect(device="cuda")
+        want = slice13_answers(load_hits_t(s))
+        memory = {"count": [], "grouping": [], "chars": [], "dense": [],
+                  "k2": []}
+        launches = {k: 0 for k in _native.LAUNCHES}
+        launch_rows = {k: [] for k in _native.LAUNCHES}
+        slice13_path(s, want, {}, launches, launch_rows, memory)
+        calendar_shapes(dev, s)
+        query_times(s, SLICE13_QUERIES)
         return
     if sys.argv[1:] == ["--gathers"]:
         gather_curve(dev)
@@ -3775,12 +4091,12 @@ def main():
         k6_sorted_shape(dev, q2ug_args)
         k6_q2s2_shape(q2s2_args)
         del q2ug_args, q2s2_args
-        aggregate_times(s)
+        query_times(s, SLICE12_QUERIES)
         return
 
     for check in (check_k1, check_k2, check_k3, check_k4, check_k5,
                   check_k6, check_k6_sorted, check_k7, check_k8, check_k9,
-                  check_k10, check_k11):
+                  check_k10, check_k11, check_k12):
         check(dev)
         print(f"[{time.perf_counter() - t0:.1f} s] {check.__name__} done",
               flush=True)
@@ -3797,6 +4113,7 @@ def main():
     load_hits_s(s)
     want.update(string_answers())
     want.update(vector_answers(load_vecs(s)))
+    want.update(slice13_answers(load_hits_t(s)))
     print(f"[{time.perf_counter() - t0:.1f} s] tables loaded", flush=True)
 
     # the main path, once, through the public API: each query with the
@@ -3879,6 +4196,8 @@ def main():
         slice11_path(s, want, per_query, launches, launch_rows, memory)
         _, q2ug_args, q2s2_args = slice12_path(s, want, per_query, launches,
                                                launch_rows, memory)
+        k12_calls = slice13_path(s, want, per_query, launches, launch_rows,
+                                 memory)
     finally:
         unwatch_dense()
         agg_ops._masked_reduce_cuda = k1_cuda
@@ -3903,6 +4222,8 @@ def main():
     shapes.update(join_shapes(dev, join_args(s)))
     shapes.update(string_shapes(dev, string_args(s)))
     shapes.update(vector_shapes(dev, vector_args(s)))
+    shapes.update(calendar_shapes(dev, s))
+    shapes["calendar_part"]["k12_calls"] = k12_calls
     print(f"[{time.perf_counter() - t0:.1f} s] kernel times done",
           flush=True)
     for name in ("radix_sort_pairs", "segment_reduce", "segment_bounds"):
@@ -4046,7 +4367,10 @@ def kernel_line(card, shapes, launches, launch_rows):
                                 "clickhouse_tpu/exprs/functions.py:611"),
                "vector_distance": (
                    "clickhouse_tpu_torch/csrc/vector_distance.cu",
-                   "clickhouse_tpu/exprs/functions_ext.py:2204")}
+                   "clickhouse_tpu/exprs/functions_ext.py:2204"),
+               "calendar_part": (
+                   "clickhouse_tpu_torch/csrc/calendar_part.cu",
+                   "clickhouse_tpu/exprs/functions.py:1043")}
     kernels = []
     for name, (src, repl) in sources.items():
         r = shapes[name]

@@ -18,6 +18,7 @@ from ..core import dtypes as dt
 from ..core import typed
 from ..core.column import Dictionary, check_array_type
 from ..core.errors import NotImplementedError_, TypeError_
+from ..ops import calendar_ops
 from .expr import ColVal, storage_np
 from .functions import _and_validity, register
 
@@ -73,8 +74,8 @@ def cast_exec(args, out_dtype: dt.DType) -> ColVal:
         if src.is_dictionary:
             data = _dict_lut(a, _date_parse, np.int32)
         elif src.name == "DateTime":
-            data = torch.div(a.data.to(torch.int64), 86400,
-                             rounding_mode="floor").to(torch.int32)
+            data = calendar_ops.calendar_part(a.storage, "day_number", True,
+                                              np.int32)
         else:
             data = dt.cast_tensor(a.data, storage_np(a), np.int32)
         return ColVal(out_dtype, data, v)

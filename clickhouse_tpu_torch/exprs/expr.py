@@ -227,7 +227,11 @@ def evaluate(expr: BoundExpr, env: Dict[str, ColVal],
         from . import functions
         fn = functions.get(expr.name)
         args = [evaluate(a, env, max_bytes) for a in expr.args]
-        return fn.execute(args, expr.dtype, max_bytes)
+        out = fn.execute(args, expr.dtype, max_bytes)
+        if not args:            # built on the host (now(), pi())
+            dev = _env_device(env)
+            out = dataclasses.replace(out, data=out.data.to(dev))
+        return out
     if isinstance(expr, BoundInList):
         return _evaluate_in_list(expr, env, max_bytes)
     if isinstance(expr, BoundDictGet):

@@ -1,16 +1,19 @@
 """Scalar function registry (reference: clickhouse_tpu/exprs/functions.py).
 
-Ported families: comparison, arithmetic, logic, conditional / NULL
-handling, casts, the dictionary strings (length, lower, LIKE,
+Ported families: comparison, arithmetic (with Date/DateTime +/- an
+interval), the bit operations, logic, conditional / NULL handling, math,
+dates and times, casts, the dictionary strings (length, lower, LIKE,
 startsWith, substring, concat, ...), the array() constructor over
-numbers, and (functions_ext.py) the vector distances and norms.  Everything runs as plain elementwise
-torch on the block's tensors; string functions compute a lookup table a
+numbers, and (functions_ext.py, functions_ext5.py) the math, bit and date
+extras, the relative date numbers and the vector distances and norms.
+Numbers run as plain elementwise torch on the block's tensors; every
+calendar function is one op of K12 (ops/calendar_ops.calendar_part) over
+the argument's storage; string functions compute a lookup table a
 dictionary value (host numpy, or K10 on the device for a prefix or
-suffix) that the rows gather by code.  A function
-that is not ported surfaces as the reference's typed ``UnknownFunction``
-when the analyzer resolves it; a ported function meeting a type it does
-not handle yet (Decimal, date arithmetic, Enum) raises
-``NotImplementedError_``.
+suffix) that the rows gather by code.  A function that is not ported
+surfaces as the reference's typed ``UnknownFunction`` when the analyzer
+resolves it; a ported function meeting a type it does not handle yet
+(Decimal arithmetic, DateTime64, Enum) raises ``NotImplementedError_``.
 
 Values follow the unsigned rule of core/dtypes.py: a ColVal's tensor holds
 its DType's storage values, with u16 in int32 and u32/u64 in int64, so
@@ -19,7 +22,9 @@ numpy types (numpy's promotion rules, as the reference's jnp ops).
 """
 from __future__ import annotations
 
+import math
 import re
+import time
 from typing import Callable, Dict, List, Optional, Sequence
 
 import numpy as np
@@ -28,6 +33,7 @@ import torch
 from ..core import dtypes as dt
 from ..core.column import Dictionary
 from ..core.errors import NotImplementedError_, TypeError_, UnknownFunction
+from ..ops import calendar_ops
 from .expr import ColVal, StoredColVal, storage_np
 
 __all__ = ["get", "exists", "register", "ScalarFunction", "FUNCTIONS",
@@ -225,22 +231,85 @@ def _resolve_multiply(ts):
     return _resolve_addsubmul()(ts)
 
 
-def _dates_checked(name, op):
-    inner = _binary_numeric(op, name)
+def _plus_exec(args, out_dtype):
+    a0, b0 = (dt.remove_nullable(a.dtype) for a in args)
+    if (dt.is_datetime_like(a0) and (dt.is_interval(b0) or dt.is_integer(b0))) \
+            or (dt.is_datetime_like(b0)
+                and (dt.is_interval(a0) or dt.is_integer(a0))):
+        return _datetime_arith(1)(args, out_dtype)
+    return _binary_numeric(torch.add, "plus")(args, out_dtype)
 
+
+def _minus_exec(args, out_dtype):
+    a, b = args
+    a0, b0 = dt.remove_nullable(a.dtype), dt.remove_nullable(b.dtype)
+    if dt.is_datetime_like(a0) and dt.is_datetime_like(b0):
+        if a0.name != b0.name:
+            # the reference subtracts a day number from seconds
+            raise TypeError_(f"Illegal types {a0} and {b0} of arguments of "
+                             f"function minus")
+        diff = _as(a, np.int64) - _as(b, np.int64)
+        return ColVal(out_dtype, dt.cast_tensor(
+            diff, np.int64, dt.remove_nullable(out_dtype).np_dtype),
+            _and_validity(args))
+    if dt.is_datetime_like(a0) and (dt.is_interval(b0) or dt.is_integer(b0)):
+        return _datetime_arith(-1)(args, out_dtype)
+    return _binary_numeric(torch.sub, "minus")(args, out_dtype)
+
+
+_MONTHS_A_UNIT = {"Month": 1, "Quarter": 3, "Year": 12}
+_SUBSECOND = {"Nanosecond": 10**9, "Microsecond": 10**6, "Millisecond": 10**3}
+_SECONDS_A_UNIT = {"Second": 1, "Minute": 60, "Hour": 3600, "Day": 86400,
+                   "Week": 7 * 86400}
+
+
+def _datetime_arith(sign: int):
+    """Date/DateTime +/- an interval (or an integer: days of a Date,
+    seconds of a DateTime).  Month, quarter and year steps clamp the day
+    to the target month's length on K12 (a constant step only)."""
     def ex(args, out_dtype):
-        if any(dt.is_datetime_like(dt.remove_nullable(a.dtype))
-               for a in args):
+        a, b = args
+        date_cv, iv_cv = (a, b) if dt.is_datetime_like(
+            dt.remove_nullable(a.dtype)) else (b, a)
+        d0 = dt.remove_nullable(date_cv.dtype)
+        iv0 = dt.remove_nullable(iv_cv.dtype)
+        unit = iv0.name[len("Interval"):] if dt.is_interval(iv0) \
+            else ("Day" if d0.name == "Date" else "Second")
+        is_date = d0.name == "Date"
+        if is_date and unit not in ("Day", "Week") \
+                and unit not in _MONTHS_A_UNIT:
+            # ClickHouse makes a DateTime of it; the reference adds 0 or
+            # n // 10^k days to the Date
             raise NotImplementedError_(
-                f"{name} over Date/DateTime is not ported to the CUDA "
-                f"engine yet")
-        return inner(args, out_dtype)
+                f"Date {'+' if sign > 0 else '-'} Interval{unit} is not "
+                f"ported to the CUDA engine yet")
+        out_np = dt.remove_nullable(out_dtype).np_dtype
+        if unit in _MONTHS_A_UNIT:
+            if not iv_cv.is_const:
+                raise NotImplementedError_(
+                    f"a non-constant Interval{unit} is not ported to the "
+                    f"CUDA engine yet")
+            months = _const_int(iv_cv, np.int64) * sign \
+                * _MONTHS_A_UNIT[unit]
+            data = calendar_ops.calendar_part(
+                _calendar_storage(date_cv), "add_months", not is_date,
+                out_np, c0=months)
+        else:
+            n = _as(iv_cv, np.int64) * sign
+            base = _as(date_cv, np.int64)
+            if unit in _SUBSECOND:
+                data = base + torch.div(n, _SUBSECOND[unit],
+                                        rounding_mode="floor")
+            else:
+                step = _SECONDS_A_UNIT[unit] // (86400 if is_date else 1)
+                data = base + n * step
+            data = dt.cast_tensor(data, np.int64, out_np)
+        return ColVal(out_dtype, data, _and_validity(args))
     return ex
 
 
-register("plus", _resolve_arith_dates(), _dates_checked("plus", torch.add))
-register("minus", _resolve_arith_dates(signed_force=True),
-         _dates_checked("minus", torch.sub))
+register("plus", _resolve_arith_dates(), _plus_exec)
+register("minus", _resolve_arith_dates(signed_force=True), _minus_exec)
 register("multiply", _resolve_multiply,
          _binary_numeric(torch.mul, "multiply"))
 
@@ -448,6 +517,106 @@ def _abs_exec(args, out_dtype):
 
 
 register("abs", _resolve_arith(), _abs_exec, case_insensitive=True)
+
+
+# -- bit operations ----------------------------------------------------------
+# On the integer image of the arguments: a float truncates (saturating, as
+# XLA's convert), the second operand takes the first one's type, and the
+# result is cast to the common type.
+
+def _int_image(a: ColVal):
+    """(values, logical numpy type) of an argument of a bit operation."""
+    t = storage_np(a)
+    x = _numeric_data(a)
+    if t.kind == "f":
+        return _f64_to_i64(x.to(torch.float64)), np.dtype(np.int64)
+    return x, t
+
+
+def _f64_to_i64(x: torch.Tensor) -> torch.Tensor:
+    """float64 -> int64 truncating toward zero and saturating, NaN -> 0 (XLA's
+    convert; torch's cast of a value out of range is undefined)."""
+    big = x >= 9223372036854775807.0
+    small = x < -9223372036854775808.0
+    ok = torch.where(big | small | torch.isnan(x), torch.zeros_like(x), x)
+    out = ok.to(torch.int64)
+    out = torch.where(big, torch.full_like(out, (1 << 63) - 1), out)
+    return torch.where(small, torch.full_like(out, -(1 << 63)), out)
+
+
+def _f64_to_u64(x: torch.Tensor) -> torch.Tensor:
+    """float64 -> uint64 bits (int64) truncating and saturating: NaN and
+    values below 0 give 0, values from 2^64 all ones (XLA's convert)."""
+    hi = x >= 9223372036854775808.0
+    over = x >= 18446744073709551616.0
+    low = _f64_to_i64(torch.where(hi, x - 9223372036854775808.0, x))
+    low = torch.where(x > 0, low, torch.zeros_like(low))
+    out = torch.where(hi, low ^ _SIGN, low)
+    return torch.where(over, torch.full_like(out, -1), out)
+
+
+def _bitwise(op):
+    def ex(args, out_dtype):
+        (x, tx), (y, ty) = (_int_image(a) for a in args)
+        if ty != tx:
+            y = dt.cast_tensor(y, ty, tx)
+        return ColVal(out_dtype, dt.cast_tensor(
+            op(x, y), tx, dt.remove_nullable(out_dtype).np_dtype),
+            _and_validity(args))
+    return ex
+
+
+for _n, _op in (("bitAnd", torch.bitwise_and), ("bitOr", torch.bitwise_or),
+                ("bitXor", torch.bitwise_xor)):
+    register(_n, _resolve_arith(), _bitwise(_op))
+
+
+def _bit_not_exec(args, out_dtype):
+    t = storage_np(args[0])
+    if t.kind == "f":
+        raise TypeError_(f"Illegal type {args[0].dtype} of argument of "
+                         f"function bitNot")
+    st = dt.remove_nullable(out_dtype).np_dtype
+    return ColVal(out_dtype, dt.cast_tensor(
+        torch.bitwise_not(_numeric_data(args[0])), t, st),
+        _and_validity(args))
+
+
+register("bitNot", _resolve_arith(), _bit_not_exec)
+
+
+def _shift_exec(left: bool):
+    """bitShiftLeft/Right in the common type: a shift by its width or more
+    (or by a negative count, read unsigned) gives 0, or the sign for an
+    arithmetic right shift, as XLA's shifts; an unsigned type shifts
+    right logically."""
+    def ex(args, out_dtype):
+        st = dt.remove_nullable(out_dtype).np_dtype
+        if st.kind == "f":
+            raise TypeError_("bit shift expects integer arguments")
+        x = _as(args[0], st).to(torch.int64)
+        y = _as(args[1], st).to(torch.int64)
+        bits = st.itemsize * 8
+        out_of_range = (y < 0) | (y >= bits)
+        s = torch.where(out_of_range, torch.zeros_like(y), y)
+        if left:
+            r = torch.where(out_of_range, torch.zeros_like(x), x << s)
+        elif st.kind == "u":
+            if st == np.uint64:                 # logical, of int64 bits
+                half = (x >> 1) & ((1 << 63) - 1)
+                r = torch.where(s == 0, x, half >> (s - 1).clamp(min=0))
+            else:
+                r = x >> s
+            r = torch.where(out_of_range, torch.zeros_like(r), r)
+        else:
+            r = torch.where(out_of_range, x >> 63, x >> s)
+        return ColVal(out_dtype, dt.cast_tensor(r, np.int64, st),
+                      _and_validity(args))
+    return ex
+
+
+register("bitShiftLeft", _resolve_arith(), _shift_exec(True))
+register("bitShiftRight", _resolve_arith(), _shift_exec(False))
 
 
 def _minmax2(pick_min: bool):
@@ -708,6 +877,352 @@ register("assumeNotNull", lambda ts: dt.remove_nullable(ts[0]),
 register("toNullable", lambda ts: dt.make_nullable(ts[0]),
          lambda args, t: ColVal(t, args[0].data, args[0].validity,
                                 args[0].dictionary))
+
+
+# -- math --------------------------------------------------------------------
+# Plain elementwise torch in float64 (the reference's jnp ops; torch's and
+# XLA's transcendental functions may differ in the last bits).
+
+def _float_unary(op):
+    def ex(args, out_dtype):
+        return ColVal(out_dtype, op(_as(args[0], np.float64)),
+                      _and_validity(args))
+    return ex
+
+
+def _cbrt(x):
+    y = torch.sign(x) * torch.pow(torch.abs(x), 1.0 / 3.0)
+    # one Newton step rounds pow's result to the nearest cube root
+    step = y - (y * y * y - x) / (3.0 * y * y)
+    return torch.where((y == 0) | ~torch.isfinite(y), y, step)
+
+
+for _n, _op in [
+    ("sqrt", torch.sqrt), ("cbrt", _cbrt), ("exp", torch.exp),
+    ("log", torch.log), ("ln", torch.log), ("exp2", torch.exp2),
+    ("log2", torch.log2), ("exp10", lambda x: torch.pow(10.0, x)),
+    ("log10", torch.log10), ("sin", torch.sin), ("cos", torch.cos),
+    ("tan", torch.tan), ("asin", torch.asin), ("acos", torch.acos),
+    ("atan", torch.atan), ("sigmoid", torch.sigmoid), ("tanh", torch.tanh),
+    ("erf", torch.erf), ("erfc", lambda x: 1.0 - torch.erf(x)),
+    ("lgamma", torch.lgamma),
+    ("tgamma", lambda x: torch.where(x > 0, torch.exp(torch.lgamma(x)),
+                                     torch.full_like(x, math.nan))),
+]:
+    register(_n, _resolve_float, _float_unary(_op), case_insensitive=True)
+
+
+def _float_binary(op):
+    def ex(args, out_dtype):
+        return ColVal(out_dtype, op(_as(args[0], np.float64),
+                                    _as(args[1], np.float64)),
+                      _and_validity(args))
+    return ex
+
+
+register("pow", _resolve_float, _float_binary(torch.pow),
+         case_insensitive=True)
+register("power", _resolve_float, _float_binary(torch.pow),
+         case_insensitive=True)
+register("atan2", _resolve_float, _float_binary(torch.atan2),
+         case_insensitive=True)
+
+
+def _float_const(v: float):
+    # built on the host; evaluate() moves a call of no argument to the
+    # block's device
+    return lambda args, t: ColVal(t, torch.tensor(v, dtype=torch.float64))
+
+
+register("pi", lambda ts: dt.Float64, _float_const(math.pi),
+         case_insensitive=True)
+register("e", lambda ts: dt.Float64, _float_const(math.e),
+         case_insensitive=True)
+
+
+def _resolve_rounding(ts):
+    _check_numeric(ts, "round")
+    return ts[0] if len(ts) else dt.Float64
+
+
+def _decimal_round(kind: str, xi: torch.Tensor, q) -> torch.Tensor:
+    """Round scaled Decimal integers xi to multiples of q (exact)."""
+    ax = torch.abs(xi)
+    sgn = torch.sign(xi)
+    if kind == "trunc":
+        return sgn * torch.div(ax, q, rounding_mode="floor") * q
+    if kind == "floor":
+        return torch.where(xi >= 0, torch.div(ax, q, rounding_mode="floor") * q,
+                           -torch.div(ax + q - 1, q, rounding_mode="floor") * q)
+    if kind == "ceil":
+        return torch.where(xi >= 0,
+                           torch.div(ax + q - 1, q, rounding_mode="floor") * q,
+                           -torch.div(ax, q, rounding_mode="floor") * q)
+    if kind == "bankers":                  # half to even
+        base = torch.div(ax, q, rounding_mode="floor")
+        rem = ax - base * q
+        up = (2 * rem > q) | ((2 * rem == q) & (torch.remainder(base, 2) == 1))
+        return sgn * (base + up.to(torch.int64)) * q
+    # half away from zero (the Decimal rule)
+    return sgn * torch.div(ax + torch.div(q, 2, rounding_mode="floor"), q,
+                           rounding_mode="floor") * q
+
+
+_FLOAT_ROUND = {"floor": torch.floor, "ceil": torch.ceil, "trunc": torch.trunc,
+                "round": torch.round, "bankers": torch.round}  # half to even
+
+
+def _round_exec(kind: str):
+    def ex(args, out_dtype):
+        out0 = dt.remove_nullable(out_dtype)
+        x = _numeric_data(args[0])
+        if dt.is_decimal(out0):
+            n = _as(args[1], np.int64) if len(args) >= 2 \
+                else torch.zeros((), dtype=torch.int64, device=x.device)
+            q = torch.pow(10, torch.clamp(out0.decimal_scale - n, 0, 18))
+            return ColVal(out_dtype, _decimal_round(kind, x.to(torch.int64),
+                                                    q), _and_validity(args))
+        if dt.is_integer(out0) and len(args) < 2:
+            return ColVal(out_dtype, x, _and_validity(args))
+        k = _FLOAT_ROUND[kind]
+        xf = _as(args[0], np.float64)
+        if len(args) >= 2:
+            scale = torch.pow(10.0, _as(args[1], np.float64))
+            data = k(xf * scale) / scale
+        else:
+            data = k(xf)
+        return ColVal(out_dtype, _from_f64(data, out0.np_dtype),
+                      _and_validity(args))
+    return ex
+
+
+def _from_f64(x: torch.Tensor, st) -> torch.Tensor:
+    """float64 values as logical type st, truncating; a value out of the
+    integer type's range saturates and NaN gives 0 (XLA's convert)."""
+    st = np.dtype(st)
+    if st.kind == "f":
+        return x.to(dt.torch_dtype_of(st))
+    if st == np.uint64:
+        return _f64_to_u64(x)
+    if st.itemsize < 8:
+        info = np.iinfo(st)
+        x = torch.clamp(x, float(info.min), float(info.max))
+    return dt.cast_tensor(_f64_to_i64(x), np.int64, st)
+
+
+register("floor", _resolve_rounding, _round_exec("floor"),
+         case_insensitive=True)
+register("ceil", _resolve_rounding, _round_exec("ceil"), case_insensitive=True)
+register("ceiling", _resolve_rounding, _round_exec("ceil"),
+         case_insensitive=True)
+register("round", _resolve_rounding, _round_exec("round"),
+         case_insensitive=True)
+register("trunc", _resolve_rounding, _round_exec("trunc"),
+         case_insensitive=True)
+register("truncate", _resolve_rounding, _round_exec("trunc"),
+         case_insensitive=True)
+register("roundBankers", _resolve_rounding, _round_exec("bankers"))
+
+
+def _sign_exec(args, out_dtype):
+    s = torch.sign(_as(args[0], np.float64))
+    return ColVal(out_dtype, torch.nan_to_num(s, nan=0.0).to(torch.int8),
+                  _and_validity(args))
+
+
+register("sign", lambda ts: dt.Int8.with_nullable(any(t.nullable for t in ts)),
+         _sign_exec, case_insensitive=True)
+
+
+def _float_test(test):
+    return lambda args, t: ColVal(t, test(_as(args[0], np.float64)).to(
+        torch.uint8), _and_validity(args))
+
+
+register("isNaN", _resolve_bool, _float_test(torch.isnan))
+register("isFinite", _resolve_bool, _float_test(torch.isfinite))
+register("isInfinite", _resolve_bool, _float_test(torch.isinf))
+
+
+# -- date / time -------------------------------------------------------------
+# Every calendar function is one op of K12 (ops/calendar_ops.calendar_part)
+# over the argument's storage as it is stored: one launch over the rows on
+# the card.  A Date is a day number, a DateTime seconds since 1970-01-01;
+# an integer argument reads as the reference reads it (mode below).
+
+def _calendar_storage(a: ColVal) -> torch.Tensor:
+    """The argument's integer storage, as K12 reads it."""
+    t = dt.remove_nullable(a.dtype)
+    if t.is_dictionary or t.np_dtype.kind not in "iu":
+        raise TypeError_(f"Illegal type {t} of argument of a date/time "
+                         f"function")
+    x = a.storage
+    return x.to(torch.int16) if x.dtype in (torch.bool, torch.uint8) else x
+
+
+def _in_seconds(a: ColVal, mode: str, name: str) -> bool:
+    """Whether K12 reads the argument as seconds.  mode "days": a Date or
+    an integer is days, a DateTime seconds (the reference's _as_days);
+    "secs": a Date is its midnight, any other value seconds; "time" (a
+    function of the time of day): as "secs", and a Date is refused, as
+    ClickHouse refuses it (the reference reads its day number as
+    seconds)."""
+    tname = dt.remove_nullable(a.dtype).name
+    if mode == "days":
+        return tname == "DateTime"
+    if mode == "time" and tname == "Date":
+        raise TypeError_(f"Illegal type Date of argument of function "
+                         f"{name}: a Date has no time of day")
+    return tname != "Date"
+
+
+def _cal(a: ColVal, op: str, out_dtype, mode="days", c0=0, c1=0,
+         name="") -> ColVal:
+    data = calendar_ops.calendar_part(
+        _calendar_storage(a), op, _in_seconds(a, mode, name),
+        dt.remove_nullable(out_dtype).np_dtype, c0, c1)
+    return ColVal(out_dtype, data, _and_validity([a]))
+
+
+def _register_cal(name, out_t: dt.DType, op: str, mode="days", c0=0, c1=0,
+                  **kw):
+    register(name, lambda ts: out_t.with_nullable(ts[0].nullable),
+             lambda args, t: _cal(args[0], op, t, mode, c0, c1, name), **kw)
+
+
+_register_cal("toYear", dt.UInt16, "year")
+_register_cal("toMonth", dt.UInt8, "month")
+_register_cal("toDayOfMonth", dt.UInt8, "day_of_month")
+_register_cal("toHour", dt.UInt8, "hour", mode="time")
+_register_cal("toMinute", dt.UInt8, "minute", mode="time")
+_register_cal("toSecond", dt.UInt8, "second", mode="time")
+
+
+def _unix_timestamp_exec(args, out_dtype):
+    a = args[0]
+    secs = _as(a, np.int64)
+    if dt.remove_nullable(a.dtype).name == "Date":
+        secs = secs * 86400            # the reference gives the day number
+    return ColVal(out_dtype, dt.cast_tensor(secs, np.int64, np.uint32),
+                  _and_validity(args))
+
+
+register("toUnixTimestamp", lambda ts: dt.UInt32.with_nullable(ts[0].nullable),
+         _unix_timestamp_exec)
+_register_cal("toDayOfWeek", dt.UInt8, "day_of_week")
+_register_cal("toYYYYMM", dt.UInt32, "yyyymm")
+_register_cal("toYYYYMMDD", dt.UInt32, "yyyymmdd")
+_register_cal("toYYYYMMDDhhmmss", dt.UInt64, "yyyymmddhhmmss", mode="secs")
+_register_cal("toStartOfYear", dt.Date, "start_of_months", c0=12)
+_register_cal("toStartOfMonth", dt.Date, "start_of_months", c0=1)
+
+MONDAY, SUNDAY = 3, 4       # K12's anchor: day 0 (1970-01-01) is a Thursday
+
+
+def _week_anchor(args) -> int:
+    """toStartOfWeek's mode (toWeek's): an odd mode starts the week on a
+    Monday, an even one (0 by default) on a Sunday; the reference always
+    takes Monday."""
+    return MONDAY if len(args) > 1 and _host_int(args[1]) & 1 else SUNDAY
+
+
+register("toStartOfWeek", lambda ts: dt.Date.with_nullable(ts[0].nullable),
+         lambda args, t: _cal(args[0], "start_of_days", t, c0=7,
+                              c1=_week_anchor(args)))
+
+
+def _interval_exec(unit: str):
+    t = dt.INTERVALS[unit]
+
+    def ex(args, out_dtype):
+        return ColVal(t, _as(args[0], np.int64), _and_validity(args),
+                      host=args[0].host)
+    return ex
+
+
+for _unit in dt.INTERVAL_UNITS:
+    register(f"toInterval{_unit}",
+             (lambda u: lambda ts: dt.INTERVALS[u])(_unit),
+             _interval_exec(_unit))
+
+
+def _host_clock_const(days_back=None):
+    """now() (days_back None: seconds), today() (0) or yesterday() (1)
+    from the host clock; built on the host (evaluate() moves a call of no
+    argument to the block's device)."""
+    def ex(args, out_dtype):
+        secs = int(time.time())
+        if days_back is None:
+            return ColVal(out_dtype, torch.tensor(secs, dtype=torch.int64))
+        return ColVal(out_dtype, torch.tensor(secs // 86400 - days_back,
+                                              dtype=torch.int32))
+    return ex
+
+
+register("now", lambda ts: dt.DateTime, _host_clock_const(),
+         case_insensitive=True)
+register("today", lambda ts: dt.Date, _host_clock_const(0),
+         case_insensitive=True)
+register("yesterday", lambda ts: dt.Date, _host_clock_const(1),
+         case_insensitive=True)
+
+
+def _add_unit(unit: str, sign: int):
+    def ex(args, out_dtype):
+        iv = ColVal(dt.INTERVALS[unit], _as(args[1], np.int64),
+                    args[1].validity, host=args[1].host)
+        return _datetime_arith(sign)([args[0], iv], out_dtype)
+    return ex
+
+
+for _unit in dt.INTERVAL_UNITS:
+    register(f"add{_unit}s", lambda ts: ts[0], _add_unit(_unit, 1))
+    register(f"subtract{_unit}s", lambda ts: ts[0], _add_unit(_unit, -1))
+
+
+def _days_of(cv: ColVal) -> torch.Tensor:
+    if dt.remove_nullable(cv.dtype).name == "Date":
+        return _as(cv, np.int64)
+    return calendar_ops.calendar_part(_calendar_storage(cv), "day_number",
+                                      True, np.int64)
+
+
+def _secs_of(cv: ColVal) -> torch.Tensor:
+    x = _as(cv, np.int64)
+    return x * 86400 if dt.remove_nullable(cv.dtype).name == "Date" else x
+
+
+def _month_number(cv: ColVal) -> torch.Tensor:
+    """y * 12 + m of the argument's day (dateDiff's months)."""
+    return calendar_ops.calendar_part(
+        _calendar_storage(cv), "relative_month",
+        dt.remove_nullable(cv.dtype).name != "Date", np.int64)
+
+
+_DIFF_UNITS = {"second": (_secs_of, 1), "minute": (_secs_of, 60),
+               "hour": (_secs_of, 3600), "day": (_days_of, 1),
+               "week": (_days_of, 7), "month": (_month_number, 1),
+               "quarter": (_month_number, 3), "year": (_month_number, 12)}
+
+
+def _date_diff_exec(args, out_dtype):
+    unit_cv, a, b = args
+    unit = str(unit_cv.dictionary.values[0]).lower() \
+        if unit_cv.dictionary is not None else "day"
+    if unit not in _DIFF_UNITS:
+        raise TypeError_(f"dateDiff: unknown unit '{unit}'")
+    of, scale = _DIFF_UNITS[unit]
+    data = torch.div(of(b) - of(a), scale, rounding_mode="floor")
+    return ColVal(out_dtype, data, _and_validity(args[1:]))
+
+
+register("dateDiff", lambda ts: dt.Int64.with_nullable(
+    any(t.nullable for t in ts[1:])), _date_diff_exec)
+_register_cal("toStartOfDay", dt.DateTime, "start_of_seconds", c0=86400)
+_register_cal("toStartOfHour", dt.DateTime, "start_of_seconds", mode="time",
+              c0=3600)
+_register_cal("toStartOfMinute", dt.DateTime, "start_of_seconds",
+              mode="time", c0=60)
 
 
 # -- strings (dictionary-LUT execution) --------------------------------------
@@ -1085,4 +1600,5 @@ register("toString", lambda ts: dt.String.with_nullable(ts[0].nullable),
          _to_string_exec)
 
 from . import conv as _conv_module  # noqa: E402,F401  (registers _cast etc.)
-from . import functions_ext as _ext_module  # noqa: E402,F401  (distances)
+from . import functions_ext as _ext_module  # noqa: E402,F401
+from . import functions_ext5 as _ext5_module  # noqa: E402,F401

@@ -1,6 +1,6 @@
 """Device operators and the engine's hand-written CUDA kernels.
 
-Eleven kernels carry the main path, each beside its plain PyTorch version in
+Twelve kernels carry the main path, each beside its plain PyTorch version in
 the module that uses it:
 
   K1 agg_ops.masked_reduce             (csrc/masked_reduce.cu)
@@ -14,10 +14,11 @@ the module that uses it:
   K9 join_ops.expand_matches           (csrc/expand_matches.cu)
   K10 string_ops.prefix_match          (csrc/prefix_match.cu)
   K11 vector_ops.vector_distance       (csrc/vector_distance.cu)
+  K12 calendar_ops.calendar_part       (csrc/calendar_part.cu)
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches its kernel or raises.  ``_native`` builds the kernels at the first
 launch.
 """
-from . import (hash_ops, agg_ops, filter_ops, join_ops, mxu_segsum, scan_ops,
-               sort_ops, string_ops, vector_ops)
+from . import (hash_ops, agg_ops, calendar_ops, filter_ops, join_ops,
+               mxu_segsum, scan_ops, sort_ops, string_ops, vector_ops)

@@ -49,7 +49,7 @@ LAUNCHES: Dict[str, int] = {"masked_reduce": 0, "dense_group_reduce": 0,
                             "segment_reduce_sorted": 0,
                             "dense_join": 0, "hash_join": 0,
                             "expand_matches": 0, "prefix_match": 0,
-                            "vector_distance": 0}
+                            "vector_distance": 0, "calendar_part": 0}
 # kernel name -> row count of each launch since the last reset
 LAUNCH_ROWS: Dict[str, List[int]] = {k: [] for k in LAUNCHES}
 
@@ -309,6 +309,8 @@ def library() -> ctypes.CDLL:
             lib.chtt_vector_distance.argtypes = [P, P, P, LL, LL, I, I, P,
                                                  I, P]
             lib.chtt_vector_distance.restype = I
+            lib.chtt_calendar_part.argtypes = [P, I, P]
+            lib.chtt_calendar_part.restype = I
             lib.chtt_error_string.argtypes = [I]
             lib.chtt_error_string.restype = ctypes.c_char_p
             _LIB = lib

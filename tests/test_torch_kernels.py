@@ -18,12 +18,15 @@ import pytest
 import torch
 
 from chip_smoke import (CMPS, K4_ROWS, K5_CASES, K7_CASES, K8_CASES,
-                        K9_CASES, K10_CASES, K11_CASES, SORT_KEY_CHAINS,
-                        U64_EDGE, grouped_rows, k5_args, k6_many_specs,
+                        K9_CASES, K10_CASES, K11_CASES, K12_DTYPES,
+                        SORT_KEY_CHAINS, U64_EDGE, grouped_rows, k5_args,
+                        k6_many_specs, k12_cases,
                         k7_args, k7_outputs, k8_args, k8_results, k9_args,
                         k10_args, k11_case, k11_error, make_term,
                         sort_key_columns, term_cases)
 from clickhouse_tpu_torch.ops import _native
+from clickhouse_tpu_torch.ops.calendar_ops import (_calendar_part_plain,
+                                                   calendar_part)
 from clickhouse_tpu_torch.ops.agg_ops import (_masked_reduce_plain,
                                               masked_reduce)
 from clickhouse_tpu_torch.ops.join_ops import (ProbeResult,
@@ -367,12 +370,13 @@ def test_launch_counters_count_kernel_launches(dev):
     vector_distance(torch.ones((10, 8), device=dev),
                     torch.full((10,), 8, dtype=torch.int32, device=dev),
                     torch.ones(8, device=dev), "cosine")
+    calendar_part(x, "year", False, np.uint16)
     assert _native.LAUNCHES == {"masked_reduce": 1, "dense_group_reduce": 1,
                                 "topk_smallest": 1, "radix_sort_pairs": 1,
                                 "segment_bounds": 1, "segment_reduce": 1,
                                 "segment_reduce_sorted": 1, "dense_join": 1, "hash_join": 1,
                                 "expand_matches": 1, "prefix_match": 1,
-                                "vector_distance": 1}
+                                "vector_distance": 1, "calendar_part": 1}
 
 
 # -- K11 vector_distance -------------------------------------------------------
@@ -1033,3 +1037,37 @@ def test_vector_top_k_on_card_matches_cpu():
         assert _native.LAUNCHES["vector_distance"] == 1
         assert _native.LAUNCH_ROWS["vector_distance"][0] >= 100_000
         assert _native.LAUNCHES["topk_smallest"] == 1
+
+
+@pytest.mark.parametrize("dtype", K12_DTYPES, ids=str)
+def test_calendar_part_cases(dev, dtype):
+    """K12 on chip_smoke.k12_cases for one storage type: every op use of
+    K12_SPECS, days and seconds, the edge days, 1 row, part of a group of
+    8 rows, 4,099 and 1,000,003 rows, and views 1-3 rows in: exact."""
+    calls = 0
+    for x, op, seconds, out_np, c0, c1 in k12_cases(dev, (dtype,)):
+        _exact(calendar_part(x, op, seconds, out_np, c0, c1),
+               _calendar_part_plain(x, op, seconds, out_np, c0, c1))
+        calls += 1
+    assert calls
+
+
+def test_calendar_functions_launch_k12_once(sessions_cpu_cuda):
+    """Each calendar function of a query is one K12 launch over the rows
+    on the card, and the answers are the CPU's."""
+    cpu, cuda = sessions_cpu_cuda
+    for s in (cpu, cuda):
+        s.execute("CREATE TABLE ct (t DateTime, d Date)")
+        s.insert_pydict("ct", {"t": 1372636800 + np.arange(70_000) * 37,
+                               "d": np.arange(70_000, dtype=np.int32)
+                               - 30_000})
+    for sql, n in (("SELECT toHour(t), toYear(d), toStartOfMonth(t) "
+                    "FROM ct", 3),
+                   ("SELECT count() FROM ct WHERE t + INTERVAL 1 MONTH > "
+                    "toDateTime('2013-08-01 00:00:00')", 1),
+                   ("SELECT dateDiff('month', d, t), toDate(t) FROM ct", 3)):
+        _native.reset_launches()
+        got = cuda.execute(sql).rows()
+        assert _native.LAUNCHES["calendar_part"] == n, sql
+        assert min(_native.LAUNCH_ROWS["calendar_part"]) >= 70_000
+        assert got == cpu.execute(sql).rows(), sql

@@ -21,6 +21,7 @@ difference of two prefix sums over all n sorted rows, so its error scales
 with the running prefix, not with the group, while K6 adds each group's
 own values.
 """
+import datetime
 import subprocess
 import sys
 
@@ -947,6 +948,66 @@ DIVERGENCES = {
     "s7_concat_drops_constants": (lambda: _sql_divergence(
         "SELECT concat('y', s, '-', s, u) FROM p", _s7_want()),
         "clickhouse_tpu/exprs/functions.py:1452-1487"),
+    # D1: dateTrunc's year, quarter, month and week units hand a DateTime
+    # to a toStartOf* that returns days, read back as seconds; a Date's
+    # day, hour, minute and second units return seconds as days
+    "d1_date_trunc_datetime_month": (lambda: _sql_divergence(
+        "SELECT dateTrunc('month', toDateTime('2013-07-15 10:00:00'))",
+        [(datetime.datetime(2013, 7, 1),)]),
+        "clickhouse_tpu/exprs/functions_ext.py:627-643"),
+    "d1_date_trunc_date_day": (lambda: _sql_divergence(
+        "SELECT date_trunc('day', toDate('2013-07-15'))",
+        [(datetime.date(2013, 7, 15),)]),
+        "clickhouse_tpu/exprs/functions_ext.py:627-643"),
+    # D2: the functions of the time of day read a Date's day number as
+    # seconds (ClickHouse refuses a Date there); toUnixTimestamp(Date)
+    # gives the day number, not the midnight's seconds
+    "d2_to_hour_of_a_date": (lambda: _sql_divergence(
+        "SELECT toHour(toDate('2013-07-15'))", "TypeError", "TypeError"),
+        "clickhouse_tpu/exprs/functions.py:1093-1107"),
+    "d2_unix_timestamp_of_a_date": (lambda: _sql_divergence(
+        "SELECT toUnixTimestamp(toDate('2013-07-15'))", [(1373846400,)]),
+        "clickhouse_tpu/exprs/functions.py:1111-1113"),
+    # D3: a Date plus an interval below a day adds 0 days (hours,
+    # minutes, seconds) or n // 10^k days (the sub-second units); ClickHouse
+    # makes a DateTime of it, which the port does not port yet
+    "d3_date_plus_hours": (lambda: _sql_divergence(
+        "SELECT toDate('2013-07-15') + INTERVAL 25 HOUR",
+        "NotImplementedError", [(datetime.datetime(2013, 7, 16, 1),)]),
+        "clickhouse_tpu/exprs/functions.py:207-222"),
+    # D4: DateTime - Date subtracts a day number from seconds (ClickHouse
+    # refuses the pair)
+    "d4_datetime_minus_date": (lambda: _sql_divergence(
+        "SELECT toDateTime('2013-07-15 10:00:00') - toDate('2013-07-15')",
+        "TypeError", "TypeError"),
+        "clickhouse_tpu/exprs/functions.py:290-296"),
+    # D5: roundDown reads the array's zero padding as boundaries
+    "d5_round_down_padding": (lambda: _sql_divergence(
+        "SELECT roundDown(7, [1, 5, 10])", [(5.0,)]),
+        "clickhouse_tpu/exprs/functions_ext5.py:120-134"),
+    # D6: the week of toStartOfWeek / toLastDayOfWeek starts on a Monday;
+    # ClickHouse's default mode 0 starts it on a Sunday
+    "d6_start_of_week_mode_0": (lambda: _sql_divergence(
+        "SELECT toStartOfWeek(toDate('2013-07-17')), "
+        "toLastDayOfWeek(toDate('2013-07-17'))",
+        [(datetime.date(2013, 7, 14), datetime.date(2013, 7, 20))]),
+        "clickhouse_tpu/exprs/functions.py:1156-1175, "
+        "functions_ext5.py:95-103"),
+    # D7: roundToExp2 takes XLA's inexact log2, which puts some powers of
+    # two below their exponent
+    "d7_round_to_exp2_of_a_power": (lambda: _sql_divergence(
+        "SELECT roundToExp2(64)", [(64,)]),
+        "clickhouse_tpu/exprs/functions_ext.py:101-107"),
+    # D8: add/subtract{Milli,Micro,Nano}seconds round through float64, so
+    # a step below a second vanishes at a large time (the intervals floor)
+    "d8_subtract_nanoseconds": (lambda: _sql_divergence(
+        "SELECT subtractNanoseconds(toDateTime('2033-05-18 03:33:20'), 13)",
+        [(datetime.datetime(2033, 5, 18, 3, 33, 19),)]),
+        "clickhouse_tpu/exprs/functions_ext4.py:740-758"),
+    # D9: XLA flushes a subnormal float64 result to zero on the CPU
+    "d9_subnormal_result": (lambda: _sql_divergence(
+        "SELECT exp10(-311)", [(float(np.power(10.0, -311)),)]),
+        "XLA's CPU float mode (flush to zero)"),
 }
 
 

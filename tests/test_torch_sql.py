@@ -345,7 +345,7 @@ def test_ddl_insert_values_and_drop(sessions):
 
 @pytest.mark.parametrize("sql,err,match", [
     ("SELECT uniq(a) FROM t", UnknownFunction, "uniq"),
-    ("SELECT isFinite(f) FROM t", UnknownFunction, "isFinite"),
+    ("SELECT cityHash64(a) FROM t", UnknownFunction, "cityHash64"),
     ("SELECT x FROM hits ORDER BY x", None, None),
     ("SELECT x, count() FROM hits GROUP BY x", None, None),
     ("SELECT a, min(f) FROM t GROUP BY a", None, None),
@@ -368,17 +368,20 @@ def test_ddl_insert_values_and_drop(sessions):
     ("SELECT a, quantile(0.5)(f) FROM t GROUP BY a", None, None),
     ("SELECT a, uniqExactState(b) FROM t GROUP BY a", NotImplementedError_,
      "uniqExactState"),
+    ("SELECT isFinite(f), isNaN(g) FROM t", None, None),
 ], ids=["unknown-aggregate", "unknown-scalar", "full-sort", "unbounded-keys",
         "minmax-group-by", "sort-setting", "large-k", "union", "alter",
         "with-totals", "with-fill", "state-combinator",
         "grouped-uniqExact", "grouped-argMax", "grouped-groupBitOr",
-        "grouped-uniq", "grouped-quantile", "grouped-unported-combinator"])
+        "grouped-uniq", "grouped-quantile", "grouped-unported-combinator",
+        "ported-scalar-isFinite"])
 def test_unported_paths_raise_typed_errors(sessions, sql, err, match):
     """Unported paths raise typed errors naming them (an unported
     aggregate under GROUP BY names the aggregate, not its argument); the
     paths ported since (err None: the full sort, the sort grouping,
-    k > 4,096, WITH TOTALS, and uniqExact, argMax, groupBitOr and
-    quantile under GROUP BY) answer as the reference does."""
+    k > 4,096, WITH TOTALS, uniqExact, argMax, groupBitOr and quantile
+    under GROUP BY, and isFinite, the case that named an unported scalar
+    before cityHash64 did) answer as the reference does."""
     if err is None:
         _both(sessions, sql)
         return
