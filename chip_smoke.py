@@ -12,8 +12,9 @@
                                       # K6's sorted-order entry at Q2ug's
                                       # inputs
     python3 chip_smoke.py --calendar  # only K12's cases, Qt1-Qt5 over
-                                      # hits_t and K12 at Qt2's and Qt1's
-                                      # inputs
+                                      # hits_t and K12 at their inputs
+    python3 chip_smoke.py --sass calendar_part  # one source's nvcc time,
+                                      # registers and SASS CALLs a kernel
 
 Needs one NVIDIA Hopper card, nvcc and PyTorch built for CUDA; exits
 non-zero without them.  Phases, each of which fails the run:
@@ -72,8 +73,11 @@ non-zero without them.  Phases, each of which fails the run:
      (k11_error); K12 over every op use of K12_SPECS, days and seconds,
      int8/int16/int32/int64 storage, the edge days of K12_EDGE_DATES
      (1900, 2000 and 2100's Februaries, month and year ends, days before
-     1970), K12_ROWS rows and views 1-3 rows in; integer results must
-     agree
+     1970), K12_ROWS rows and views 1-3 rows in, and k12_edge_cases
+     (every int8 and int16 day, every day's first and last second over
+     int32 with INT32_MIN and INT32_MAX, the run-time divisors of
+     K12_DIVISORS with their anchors, the constants of
+     K12_CONSTANT_EDGES); integer results must agree
      exactly, K1's and K2's float sums within rtol 1e-12, K6's within
      n_g * eps * sum(|x|) a group of n_g rows (its atomics add a group's
      parts in a varying order); then SELECT without FROM, numbers() and
@@ -157,8 +161,10 @@ non-zero without them.  Phases, each of which fails the run:
      and at Q7s's; K11 at Q8's inputs beside torch.mv(A, q) (the dot
      alone, for information); K6's sorted-order entry at Q2ug's inputs
      (its first-occurrence flags) beside torch.segment_reduce(sum,
-     lengths=group rows); K12 at Qt2's toHour and Qt1's minute bucket
-     over t's int32 storage (library none); fails unless Q4's K7 call
+     lengths=group rows); K12 at Qt2's toHour and toDayOfWeek, Qt1's
+     minute bucket, Qt3's toYYYYMMDD, Qt4's month step and toStartOfDay
+     over t's int32 storage, and toYYYYMMDD over t widened to int64 (the
+     64-bit path; library none); fails unless Q4's K7 call
      carries label alone and
      Q4h's K8 call one word; time each query (median wall time of 20
      runs, synchronised) with its peak memory beside the governor's
@@ -325,7 +331,13 @@ EXTRA_KEYS = ("level1_ms", "merge_ms", "entry64_ms", "entry64_bound_ms",
               "yyyymmdd_ms", "yyyymmdd_plain_ms", "yyyymmdd_bytes",
               "yyyymmdd_bound_ms", "yyyymmdd_kernels_per_call",
               "add_months_ms", "add_months_plain_ms", "add_months_bytes",
-              "add_months_bound_ms", "add_months_kernels_per_call")
+              "add_months_bound_ms", "add_months_kernels_per_call",
+              "dow_ms", "dow_plain_ms", "dow_bytes", "dow_bound_ms",
+              "dow_kernels_per_call", "start_of_day_ms",
+              "start_of_day_plain_ms", "start_of_day_bytes",
+              "start_of_day_bound_ms", "start_of_day_kernels_per_call",
+              "yyyymmdd64_ms", "yyyymmdd64_plain_ms", "yyyymmdd64_bytes",
+              "yyyymmdd64_bound_ms", "yyyymmdd64_kernels_per_call")
 F64_EPS = 2.0 ** -52
 CMPS = ["equals", "notEquals", "less", "lessOrEquals", "greater",
         "greaterOrEquals"]
@@ -2103,30 +2115,25 @@ def device_kernels(call, reps=5, launches=None):
     flush = torch.empty(L2_FLUSH_BYTES, dtype=torch.uint8, device="cuda")
     call()
     torch.cuda.synchronize()
-    for _ in range(3):          # a trace now and then comes back empty
+    for _ in range(5):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
                 flush.zero_()
                 call()
             torch.cuda.synchronize()
-        events = prof.key_averages()
-        if any(e.count >= reps for e in events):
-            break
-    out = {}
-    for e in events:
-        t = getattr(e, "device_time_total", None)
-        if t is None:
-            t = getattr(e, "cuda_time_total", 0.0)
-        if t > 0 and e.count >= reps:
-            out[e.key] = t / reps / 1e3
-            if launches is not None:
-                launches[e.key] = e.count / reps
-    flush_keys = [k for k in out if "fill" in k.lower()
-                  or "memset" in k.lower()]
-    for k in flush_keys:
-        del out[k]
-        if launches is not None:
-            launches.pop(k, None)
+        out, counts = {}, {}
+        for e in prof.key_averages():
+            t = getattr(e, "device_time_total", None)
+            if t is None:
+                t = getattr(e, "cuda_time_total", 0.0)
+            if t > 0 and e.count >= reps and "fill" not in e.key.lower() \
+                    and "memset" not in e.key.lower():
+                out[e.key] = t / reps / 1e3
+                counts[e.key] = e.count / reps
+        if out:                 # a trace now and then holds no kernel of
+            break               # call's, or no event at all: take another
+    if launches is not None:
+        launches.update(counts)
     return out
 
 
@@ -3672,10 +3679,68 @@ def k12_values(rng, dtype, seconds: bool, n: int) -> np.ndarray:
     return out
 
 
+# the run-time divisors K12's edge cases take through the ops that divide
+# by c0 (the output type as K12_SPECS has it), with c1 in {0, 1, c0 - 1}
+# where the op takes an anchor
+K12_DIVISORS = (1, 2, 3, 5, 7, 60, 900, 3600, 86400, 604800, 2**31 - 1)
+K12_DIVISOR_OPS = (("floor_seconds", "uint32", False),
+                   ("start_of_seconds", "int64", True),
+                   ("start_of_days", "int32", True))
+K12_EDGE_ROWS = 4099
+# constants past the 32-bit path's reach (calendar_ops.narrow_ok: the
+# column goes to the int64 instance) or at its edges (a divisor above
+# 2^31, folded anchors far below 0)
+K12_CONSTANT_EDGES = (("floor_seconds", "uint32", 2**40, 0),
+                      ("start_of_seconds", "int64", 2**31 + 7, 3),
+                      ("start_of_seconds", "int64", 3600, -2**61),
+                      ("start_of_days", "int32", 2**33, 4),
+                      ("start_of_days", "int32", 7, -10**15),
+                      ("start_of_months", "int32", 2**31, 0),
+                      ("add_months", "int64", 12 * 2**30 + 1, 0),
+                      ("add_months", "int32", -12 * 2**30, 0),
+                      ("last_day_of_week", "int32", 2**62, 0),
+                      ("day_number", "int32", 2**35 + 3, 0))
+
+
+def k12_edge_cases(dtypes=K12_DTYPES):
+    """Yield (values, storage dtype, seconds, op, out_np, c0, c1), values
+    an int64 numpy array, over K12's edges: every int8 and every int16 day
+    through every op use of K12_SPECS; every day's first and last second
+    over int32's range, with INT32_MIN and INT32_MAX, through every op use
+    as seconds; and each op that divides by c0 over K12_DIVISORS (c1 in
+    {0, 1, c0 - 1}) and the constants of K12_CONSTANT_EDGES, both units,
+    K12_EDGE_ROWS values of k12_values."""
+    i32 = np.iinfo(np.int32)
+    for dtype in (torch.int8, torch.int16):
+        if dtype in dtypes:
+            info = np.iinfo(torch.empty((), dtype=dtype).numpy().dtype)
+            days = np.arange(info.min, info.max + 1, dtype=np.int64)
+            for spec in K12_SPECS:
+                yield (days, dtype, False) + spec
+    if torch.int32 in dtypes:
+        day = np.arange(i32.min // 86400, i32.max // 86400 + 1,
+                        dtype=np.int64) * 86400
+        secs = np.concatenate([day, day + 86399, [i32.min, i32.max]])
+        secs = secs[(secs >= i32.min) & (secs <= i32.max)]
+        for spec in K12_SPECS:
+            yield (secs, torch.int32, True) + spec
+    rng = np.random.default_rng(14)
+    for dtype in dtypes:
+        for seconds in (False, True):
+            v = k12_values(rng, dtype, seconds, K12_EDGE_ROWS)
+            for op, out_np, anchored in K12_DIVISOR_OPS:
+                for c0 in K12_DIVISORS:
+                    for c1 in ((0, 1, c0 - 1) if anchored else (0,)):
+                        yield v, dtype, seconds, op, out_np, c0, c1
+            for spec in K12_CONSTANT_EDGES:
+                yield (v, dtype, seconds) + spec
+
+
 def k12_cases(dev, dtypes=K12_DTYPES):
     """Yield (x, op, seconds, out_np, c0, c1) over every K12_SPECS op, both
     units and each storage type of `dtypes`, at each row count of K12_ROWS
-    and as views 1-3 rows into the column (the scalar path)."""
+    and as views 1-3 rows into the column (the scalar path); then the
+    edges of k12_edge_cases."""
     rng = np.random.default_rng(12)
     for dtype in dtypes:
         for seconds in (False, True):
@@ -3686,13 +3751,18 @@ def k12_cases(dev, dtypes=K12_DTYPES):
                     x = base[off:off + n]
                     for op, out_np, c0, c1 in K12_SPECS:
                         yield x, op, seconds, out_np, c0, c1
+    for v, dtype, seconds, op, out_np, c0, c1 in k12_edge_cases(dtypes):
+        yield (torch.from_numpy(v).to(dtype).to(dev), op, seconds, out_np,
+               c0, c1)
 
 
 def check_k12(dev):
     """K12 against its plain version over every op of K12_SPECS, both units
     (days, seconds), every storage type (int8, int16, int32, int64), the
-    edge days of K12_EDGE_DATES, K12_ROWS rows and views 1-3 rows in:
-    exact."""
+    edge days of K12_EDGE_DATES, K12_ROWS rows and views 1-3 rows in, and
+    the edges of k12_edge_cases (every int8 and int16 day, every day's
+    first and last second in int32, the divisors of K12_DIVISORS, the
+    constants of K12_CONSTANT_EDGES): exact."""
     from clickhouse_tpu_torch.ops.calendar_ops import (_calendar_part_plain,
                                                        calendar_part)
     calls = 0
@@ -3701,10 +3771,11 @@ def check_k12(dev):
                     _calendar_part_plain(x, op, seconds, out_np, c0, c1))
         calls += 1
     torch.cuda.synchronize()
+    edges = sum(1 for _ in k12_edge_cases())
     print(f"K12 calendar_part agrees with its plain version ({calls} "
           f"calls: {len(K12_SPECS)} op uses x 2 units x "
           f"{len(K12_DTYPES)} storage types x {len(K12_ROWS)} row counts x "
-          f"4 offsets)", flush=True)
+          f"4 offsets, and {edges} edge cases)", flush=True)
 
 
 def hits_t_columns(n: int = N_ROWS):
@@ -3825,35 +3896,43 @@ def slice13_path(s, want, per_query, launches, launch_rows, memory):
 
 
 # K12's calls on the main path that calendar_shapes replays: the row's
-# key prefix, the op, its result type and constant
+# key prefix, the op, its result type and constant; the last one reads t
+# widened to int64 (the 64-bit path), for information
 K12_SHAPES = (("", "hour", "uint8", 0),
               ("bucket_", "start_of_seconds", "int64", 60),
               ("yyyymmdd_", "yyyymmdd", "uint32", 0),
-              ("add_months_", "add_months", "int64", 1))
+              ("add_months_", "add_months", "int64", 1),
+              ("dow_", "day_of_week", "uint8", 0),
+              ("start_of_day_", "start_of_seconds", "int64", 86400),
+              ("yyyymmdd64_", "yyyymmdd", "uint32", 0))
 K12_SHAPE_QUERY = {"": "Qt2", "bucket_": "Qt1", "yyyymmdd_": "Qt3",
-                   "add_months_": "Qt4"}
+                   "add_months_": "Qt4", "dow_": "Qt2",
+                   "start_of_day_": "Qt4", "yyyymmdd64_": "Qt3"}
 
 
 def calendar_shapes(dev, s):
     """K12 at Qt2's toHour, at Qt1's bucket (date_trunc('minute', t),
-    `bucket_*`) and, for information, at Qt3's toYYYYMMDD and Qt4's month
-    step (the civil calendar's ops) over hits_t's t as the main path read
-    it (int32 storage), each held against its plain version and timed
-    beside it, with its kernels a call (torch.profiler).  Bytes: each
-    value read once, each result written once.  No single PyTorch call
-    computes a calendar function: library_ms is null."""
+    `bucket_*`), at Qt3's toYYYYMMDD and Qt4's month step (the civil
+    calendar's ops), at Qt2's toDayOfWeek and Qt4's toStartOfDay, over
+    hits_t's t as the main path read it (int32 storage), and, for
+    information, toYYYYMMDD over t widened to int64 (the 64-bit path),
+    each held against its plain version and timed beside it, with its
+    kernels a call (torch.profiler).  Bytes: each value read once, each
+    result written once.  No single PyTorch call computes a calendar
+    function: library_ms is null."""
     from clickhouse_tpu_torch.ops.calendar_ops import (_calendar_part_plain,
                                                        calendar_part)
     t = s.catalog.get_table("default", "hits_t").read_block()["t"].data
+    t64 = t.to(torch.int64)
     rec = {"library_ms": None, "max_abs_err": 0.0}
     for key, op, out_np, c0 in K12_SHAPES:
-        call = (t, op, True, out_np, c0)
+        call = (t64 if key == "yyyymmdd64_" else t, op, True, out_np, c0)
         got = calendar_part(*call)
         rec["max_abs_err"] = max(rec["max_abs_err"], max_abs_err(
             got, _calendar_part_plain(*call)))
         ms = cuda_ms(lambda: calendar_part(*call))
         plain = cuda_ms(lambda: _calendar_part_plain(*call), reps=3)
-        nb = nbytes(t, got)
+        nb = nbytes(call[0], got)
         per_call = {}
         kernels = device_kernels(lambda: calendar_part(*call),
                                  launches=per_call)
@@ -3864,7 +3943,8 @@ def calendar_shapes(dev, s):
                     f"{key}bytes": nb, f"{key}bound_ms": bound_ms(nb),
                     f"{key}kernels_per_call": per_call})
         print(f"calendar_part {op} at {K12_SHAPE_QUERY[key]}'s input "
-              f"({t.numel()} {t.dtype} values -> {got.dtype}): {ms:.4f} ms, "
+              f"({t.numel()} {call[0].dtype} values -> {got.dtype}): "
+              f"{ms:.4f} ms, "
               f"{nb} bytes, bound {bound_ms(nb):.4f} ms (share "
               f"{bound_ms(nb) / ms:.3f}), plain {plain:.4f} ms (exact "
               f"against it), library none; device kernels a call "
@@ -4002,6 +4082,63 @@ def _same(a, b) -> bool:
     return a == b
 
 
+def sass_report(source: str):
+    """Compile csrc/<source>.cu alone with the build's flags and -Xptxas
+    -v; print its nvcc time and, for each kernel instance, its registers,
+    spill stores, SASS instructions and CALL instructions (cuobjdump
+    -sass), then the instances, their register range and those holding a
+    CALL.  Writes only under the package's _build/."""
+    import re
+    from clickhouse_tpu_torch.ops import _native
+    nvcc = _native._nvcc()
+    tools = nvcc.rsplit("/", 1)[0]
+    obj = _native.BUILD_DIR / f"sass_{source}.o"
+    obj.parent.mkdir(parents=True, exist_ok=True)
+    cmd = [nvcc, *_native.NVCC_FLAGS, "-Xptxas", "-v", "-I",
+           str(_native.CSRC_DIR), "-c", "-o", str(obj),
+           str(_native.CSRC_DIR / f"{source}.cu")]
+    t0 = time.perf_counter()
+    p = subprocess.run(cmd, capture_output=True, text=True)
+    secs = time.perf_counter() - t0
+    if p.returncode:
+        fail(f"nvcc exited {p.returncode}: {p.stderr[-4000:]}")
+    sass = subprocess.run([f"{tools}/cuobjdump", "-sass", str(obj)],
+                          capture_output=True, text=True, check=True).stdout
+    obj.unlink()
+    regs, spills, cur = {}, {}, None
+    for line in (p.stdout + p.stderr).splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        cur = m.group(1) if m else cur
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m and cur:
+            spills[cur] = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur:
+            regs[cur] = int(m.group(1))
+    instrs, calls, fn = {}, {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\w+)", line)
+        if m:
+            fn = m.group(1)
+        elif fn and re.search(r"/\*[0-9a-f]{4}\*/", line):
+            instrs[fn] = instrs.get(fn, 0) + 1
+            calls[fn] = calls.get(fn, 0) + bool(re.search(r"\bCALL\b",
+                                                          line))
+    names = sorted(regs)
+    shown = subprocess.run([f"{tools}/cu++filt"], input="\n".join(names),
+                           capture_output=True, text=True).stdout.split("\n")
+    for name, pretty in zip(names, shown):
+        print(f"{pretty.replace('(anonymous namespace)::', '')}: "
+              f"{regs[name]} registers, {spills.get(name, 0)} bytes spill "
+              f"stores, {instrs.get(name, 0)} SASS instructions, "
+              f"{calls.get(name, 0)} CALL", flush=True)
+    print(f"{source}.cu: nvcc {secs:.1f} s; {len(names)} kernel instances, "
+          f"{min(regs.values())}-{max(regs.values())} registers, "
+          f"{sum(1 for n in names if spills.get(n))} spilling, "
+          f"{sum(1 for n in names if calls.get(n))} holding a CALL",
+          flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this check needs a GPU")
@@ -4013,6 +4150,9 @@ def main():
     print(card, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
+    if sys.argv[1:2] == ["--sass"] and len(sys.argv) == 3:
+        sass_report(sys.argv[2])
+        return
 
     t0 = time.perf_counter()
     _native.library()

@@ -14,6 +14,14 @@ program.  Run eagerly in plain torch, each of their ≈25 int64 operations is
 a pass over the column; K12 (``csrc/calendar_part.cu``) computes one op a
 row in registers.  Division and modulo floor, as ``jnp.floor_divide``.
 
+The kernel is one instance for each (op, output storage) pair of
+:data:`INSTANCES` and each input storage.  int8/int16/int32 storage runs
+in 32-bit arithmetic; a divisor known only at run time comes with the
+multiplier :func:`magic` computes, and the other constants folded
+(:func:`fold`).  A constant the 32-bit path cannot hold exactly
+(:func:`narrow_ok`: a period above 2^31 units, months above 2^30) takes
+the int64 instance over the column widened to int64.
+
 A CPU tensor takes the plain version; a CUDA tensor launches the kernel
 or raises.
 """
@@ -28,10 +36,11 @@ import torch
 from ..core import dtypes as dt
 from . import _native
 
-__all__ = ["OPS", "civil_from_days", "days_from_civil", "days_in_month",
-           "calendar_part", "K12Args"]
+__all__ = ["OPS", "INSTANCES", "civil_from_days", "days_from_civil",
+           "days_in_month", "calendar_part", "magic", "fold", "narrow_ok",
+           "K12Args"]
 
-# op name -> code (the switch of csrc/calendar_part.cu).  c0 and c1 are the
+# op name -> code (CalOp of csrc/calendar_part.cu).  c0 and c1 are the
 # op's int64 constants where it takes them.
 OPS = {
     "year": 0, "quarter": 1, "month": 2, "day_of_month": 3,
@@ -54,14 +63,82 @@ OPS = {
 _SECS_A_DAY = 86400
 
 
+# the (op, output storage) pairs that have a kernel instance (K12_INSTANCES
+# of csrc/calendar_part.cu): every use the functions make of K12
+INSTANCES = {
+    "year": (torch.int32,), "quarter": (torch.uint8,),
+    "month": (torch.uint8,), "day_of_month": (torch.uint8,),
+    "day_of_year": (torch.int32,), "day_of_week": (torch.uint8,),
+    "iso_year": (torch.int32,), "iso_week": (torch.uint8,),
+    "hour": (torch.uint8,), "minute": (torch.uint8,),
+    "second": (torch.uint8,), "yyyymm": (torch.int64,),
+    "yyyymmdd": (torch.int64,), "yyyymmddhhmmss": (torch.int64,),
+    "relative_quarter": (torch.int64,), "relative_month": (torch.int64,),
+    "relative_week": (torch.int64,), "floor_seconds": (torch.int64,),
+    "day_number": (torch.int32, torch.int64),
+    "start_of_months": (torch.int32,), "start_of_days": (torch.int32,),
+    "last_day_of_week": (torch.int32,), "start_of_seconds": (torch.int64,),
+    "last_day_of_month": (torch.int32,),
+    "add_months": (torch.int32, torch.int64)}
+# the ops that divide by c0 at run time
+_DIVIDES = ("floor_seconds", "start_of_days", "start_of_seconds",
+            "start_of_months")
+
+
 class K12Args(ctypes.Structure):
     """ChttCalArgs of csrc/calendar_part.cu (one call of K12)."""
     _fields_ = [("x", ctypes.c_void_p), ("out", ctypes.c_void_p),
                 ("n", ctypes.c_longlong), ("c0", ctypes.c_longlong),
-                ("c1", ctypes.c_longlong), ("in_dtype", ctypes.c_int),
+                ("c1", ctypes.c_longlong), ("f0", ctypes.c_longlong),
+                ("f1", ctypes.c_longlong), ("div64", ctypes.c_ulonglong),
+                ("mul64", ctypes.c_ulonglong), ("div32", ctypes.c_uint),
+                ("mul32", ctypes.c_uint), ("log32", ctypes.c_int),
+                ("log64", ctypes.c_int), ("in_dtype", ctypes.c_int),
                 ("out_dtype", ctypes.c_int), ("op", ctypes.c_int),
                 ("seconds", ctypes.c_int), ("mask_bits", ctypes.c_int),
                 ("vec", ctypes.c_int)]
+
+
+def magic(d: int, bits: int) -> Tuple[int, int]:
+    """(m, l) for dividing by d, 1 <= d < 2^bits, with one multiply-high
+    (Granlund and Montgomery, "Division by invariant integers using
+    multiplication", PLDI 1994, Figure 4.1): l = ceil(log2 d), m =
+    floor(2^bits (2^l - d) / d) + 1 (the low bits of the bits + 1-bit
+    multiplier 2^bits + m), and for every n < 2^bits, t = (m n) >> bits:
+    n // d = (t + ((n - t) >> min(l, 1))) >> max(l - 1, 0)."""
+    if not 1 <= d < 1 << bits:
+        raise ValueError(f"magic: divisor {d} outside [1, 2^{bits})")
+    l = (d - 1).bit_length()
+    return ((1 << bits) * ((1 << l) - d)) // d + 1, l
+
+
+def narrow_ok(op: str, c0: int, c1: int) -> bool:
+    """Whether K12's 32-bit path holds op's constants exactly: a period
+    (start_of_days, start_of_seconds) of at most 2^31, months of at most
+    2^30 (start_of_months), a month step of at most 2^30 years, anchors
+    below 2^62 (so c + x never leaves int64 in the plain version)."""
+    if op in ("start_of_days", "start_of_seconds"):
+        return c0 <= 1 << 31 and abs(c1) < 1 << 62
+    if op == "start_of_months":
+        return c0 <= 1 << 30
+    if op == "add_months":
+        return abs(c0) <= 12 << 30
+    if op == "last_day_of_week":
+        return abs(c0) < 1 << 62
+    return True
+
+
+def fold(op: str, c0: int, c1: int) -> Tuple[int, int]:
+    """(f0, f1): the 32-bit path's constants.  The anchor of a period
+    modulo its width (c1 mod c0), of a week modulo 7 (c0 mod 7), and a
+    month step as whole years and the months left (c0 = 12 f0 + f1)."""
+    if op in ("start_of_days", "start_of_seconds"):
+        return 0, c1 % c0
+    if op == "last_day_of_week":
+        return c0 % 7, 0
+    if op == "add_months":
+        return c0 // 12, c0 % 12
+    return 0, 0
 
 
 def _fdiv(a, b):
@@ -184,6 +261,7 @@ def _plain_op(v: torch.Tensor, op: int, seconds: bool, c0: int,
 
 
 _IN_DTYPES = (torch.int8, torch.int16, torch.int32, torch.int64)
+_OP_NAMES = {v: k for k, v in OPS.items()}
 _MASK_BITS = {np.dtype("uint8"): 8, np.dtype("uint16"): 16,
               np.dtype("uint32"): 32}
 
@@ -220,15 +298,29 @@ def _calendar_part_plain(x: torch.Tensor, op: str, seconds: bool, out_np,
 def _calendar_part_cuda(x, code: int, seconds: bool, out_np, c0: int,
                         c1: int) -> torch.Tensor:
     dev = x.device
+    op = _OP_NAMES[code]
+    want = dt.torch_dtype_of(out_np)
+    if want not in INSTANCES[op]:
+        raise ValueError(f"calendar_part: no kernel instance of {op} into "
+                         f"{want}")
+    if op in _DIVIDES and c0 <= 0:
+        raise ValueError(f"calendar_part: {op} needs a width c0 > 0")
     flat = x.reshape(-1)
+    if flat.dtype != torch.int64 and not narrow_ok(op, c0, c1):
+        flat = flat.to(torch.int64)             # the 64-bit instance
     if not flat.is_contiguous():
         flat = flat.contiguous()
-    out = torch.empty(flat.shape, dtype=dt.torch_dtype_of(out_np),
-                      device=dev)
+    out = torch.empty(flat.shape, dtype=want, device=dev)
     n = flat.numel()
     if n == 0:
         return out.reshape(x.shape)             # no launch
-    args = K12Args(flat.data_ptr(), out.data_ptr(), n, c0, c1,
+    f0, f1 = fold(op, c0, c1) if flat.dtype != torch.int64 else (0, 0)
+    d64 = c0 if op in _DIVIDES else 1
+    d32 = min(d64, 1 << 31)
+    mul32, log32 = magic(d32, 32)
+    mul64, log64 = magic(d64, 64)
+    args = K12Args(flat.data_ptr(), out.data_ptr(), n, c0, c1, f0, f1, d64,
+                   mul64, d32, mul32, log32, log64,
                    _native.dtype_code(flat.dtype),
                    _native.dtype_code(out.dtype), code, int(seconds),
                    _MASK_BITS.get(out_np, 0),

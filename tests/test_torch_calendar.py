@@ -35,8 +35,11 @@ import clickhouse_tpu as jch
 import clickhouse_tpu_torch as tch
 from clickhouse_tpu_torch.core.errors import NotImplementedError_, TypeError_
 from clickhouse_tpu_torch.interop import table_from_numpy
-from chip_smoke import Q_T, hits_t_columns, slice13_agree, slice13_answers
-from clickhouse_tpu_torch.ops import calendar_ops
+from chip_smoke import (K12_DIVISORS, K12_EDGE_ROWS, K12_SPECS, Q_T,
+                        hits_t_columns, k12_edge_cases, k12_values,
+                        slice13_agree, slice13_answers)
+from clickhouse_tpu_torch.core import dtypes as cdt
+from clickhouse_tpu_torch.ops import _native, calendar_ops
 
 N_C = 3000
 _TINY = 2.2250738585072014e-308       # the smallest normal float64
@@ -206,6 +209,356 @@ def test_op_table_is_the_kernels_and_the_smoke_covers_it():
     assert sorted(int(v) for v in enum.values()) \
         == sorted(calendar_ops.OPS.values())
     assert {op for op, *_ in K12_SPECS} == set(calendar_ops.OPS)
+
+
+# -- K12's arithmetic, mirrored on the host -----------------------------------
+# csrc/calendar_part.cu's 32-bit path (op32) step for step in numpy int64,
+# which holds every value exactly: each int32 and u32 intermediate of the
+# kernel is checked to stay in its range, and each division by a run-time
+# divisor goes through calendar_ops.magic's multiplier as the kernel's
+# does.  The kernel composes a result modulo 2^32 (an output of 32 bits or
+# fewer) or in 64 bits, which the output's cast keeps alike.
+
+ERA_DAYS, ERA_BIAS, DOE_BIAS = 146097, 14695, 131235     # the era shift
+I32, U32 = (-2**31, 2**31 - 1), (0, 2**32 - 1)
+_NARROW = (torch.int8, torch.int16, torch.int32)
+
+
+def _in(a, bounds, what):
+    a = np.asarray(a)
+    assert a.size == 0 or bounds[0] <= a.min() and a.max() <= bounds[1], \
+        (what, a.min(), a.max())
+    return a
+
+
+def _gm_udiv(n, d: int, bits: int):
+    """n // d as the kernel's udiv: t = (m n) >> bits, (t + ((n - t) >>
+    min(l, 1))) >> max(l - 1, 0); n uint64 (bits 32) or Python ints."""
+    m, l = calendar_ops.magic(d, bits)
+    s1, s2 = min(l, 1), max(l - 1, 0)
+    if bits == 32:
+        n = np.asarray(n, np.uint64)
+        t = (np.uint64(m) * n) >> np.uint64(32)
+        return (t + ((n - t) >> np.uint64(s1))) >> np.uint64(s2)
+    t = (m * n) >> 64
+    return (t + ((n - t) >> s1)) >> s2
+
+
+def _fdivmod(a, d: int, bits=None):
+    """(floor(a / d), a mod d) as the kernel's fdivmod: b = a ^ (a >> 31),
+    q = b / d, floor = q ^ (a >> 31); by the multiplier where bits is
+    given (the run-time divisor), else by a constant."""
+    a = np.asarray(a, np.int64)
+    s = a >> 63
+    b = a ^ s
+    if bits == 32:
+        q = _gm_udiv(_in(b, U32, "b").astype(np.uint64), d, 32) \
+            .astype(np.int64)
+    elif bits == 64:
+        q = np.array([_gm_udiv(int(x), d, 64) for x in b.ravel()],
+                     np.int64).reshape(b.shape)
+    else:
+        q = b // d
+    rb = b - q * d
+    return q ^ s, np.where(s < 0, d - 1 - rb, rb)
+
+
+def _era_civil(doe):
+    yoe = (doe - doe // 1460 + doe // 36524 - doe // 146096) // 365
+    doy = doe - (365 * yoe + yoe // 4 - yoe // 100)
+    mp = (5 * doy + 2) // 153
+    d = doy - (153 * mp + 2) // 5 + 1
+    m = np.where(mp < 10, mp + 3, mp - 9)
+    leap = ((yoe % 4 == 0) & (yoe % 100 != 0)) | (yoe == 0)
+    return yoe, m, d, np.where(doy >= 306, doy - 305, doy + 60 + leap)
+
+
+def _era_day(yoe, m, d):
+    mp = np.where(m > 2, m - 3, m + 9)
+    return yoe * 365 + yoe // 4 - yoe // 100 + (153 * mp + 2) // 5 + d - 1
+
+
+def _civil32(z, off=0):
+    """The kernel's civil32: (y, m, d, day of the year) of day z + off."""
+    u = _in(z, I32, "z") + 2**31
+    q = u // ERA_DAYS
+    doe = _in(u - q * ERA_DAYS + DOE_BIAS + off, U32, "doe")
+    carry = (doe >= ERA_DAYS).astype(np.int64)
+    doe, q = doe - carry * ERA_DAYS, q + carry
+    yoe, m, d, yday = _era_civil(_in(doe, (0, ERA_DAYS - 1), "doe"))
+    return _in(yoe + (q - ERA_BIAS) * 400 + (m <= 2), I32, "y"), m, d, yday
+
+
+def _days_from_civil32(y, m, d):
+    era, yoe = _fdivmod(_in(y - (m <= 2), I32, "y"), 400)
+    return era * ERA_DAYS + _era_day(yoe, m, d) - 719468
+
+
+def _days_in_month32(y, m):
+    leap = np.where(y % 100 == 0, (y & 15) == 0, (y & 3) == 0)
+    return np.where(m == 2, 28 + leap, 30 + ((m ^ (m >> 3)) & 1))
+
+
+def _op32(v, op: str, seconds: bool, c0: int, c1: int):
+    """The kernel's op32 over int64 values v of int8/16/32 storage: the
+    op's exact value."""
+    f0, f1 = calendar_ops.fold(op, c0, c1)
+    d32 = min(c0, 2**31)
+    z, tod = _fdivmod(v, 86400) if seconds else (v, np.zeros_like(v))
+    if op == "hour":
+        return tod // 3600
+    if op == "minute":
+        return tod // 60 % 60
+    if op == "second":
+        return tod % 60
+    if op == "day_number":
+        return z + c0
+    if op in ("day_of_week", "relative_week", "last_day_of_week"):
+        q, r = _fdivmod(z, 7)
+        return {"day_of_week": (r + 3) % 7 + 1, "relative_week": q + (r >= 3),
+                "last_day_of_week": z - (r + f0) % 7 + 6}[op]
+    if op in ("floor_seconds", "start_of_seconds", "start_of_days"):
+        if op == "start_of_days" or seconds:
+            x = z if op == "start_of_days" else v
+            q, r = _fdivmod(x, d32, 32)
+            d = d32
+        else:
+            x = z * 86400                       # a Date's seconds: 64 bits
+            q, r = _fdivmod(x, c0, 64)
+            d = c0
+        if op == "floor_seconds":
+            return q
+        return x - np.where(r >= d - f1, r - (d - f1), r + f1)
+    if op in ("iso_year", "iso_week"):
+        _, r = _fdivmod(z, 7)
+        y, _, _, yday = _civil32(z, 3 - (r + 3) % 7)
+        return y if op == "iso_year" else (yday - 1) // 7 + 1
+    y, m, d, yday = _civil32(z)
+    hms = tod // 3600 * 10000 + tod // 60 % 60 * 100 + tod % 60
+    simple = {"year": y, "quarter": (m + 2) // 3, "month": m,
+              "day_of_month": d, "day_of_year": yday, "yyyymm": y * 100 + m,
+              "yyyymmdd": y * 10000 + m * 100 + d,
+              "yyyymmddhhmmss": (y * 10000 + m * 100 + d) * 1000000 + hms,
+              "relative_quarter": y * 4 + (m - 1) // 3,
+              "relative_month": y * 12 + m,
+              "last_day_of_month": z + _days_in_month32(y, m) - d}
+    if op in simple:
+        return simple[op]
+    if op == "start_of_months":
+        q, _ = _fdivmod(_in(y * 12 + m - 1, I32, "months"), d32, 32)
+        ny, r = _fdivmod(_in(q * d32, I32, "start"), 12)
+        return _days_from_civil32(ny, r + 1, 1)
+    assert op == "add_months", op
+    t = m - 1 + f1
+    carry = (t >= 12).astype(np.int64)
+    nm = t - 12 * carry + 1
+    ny = _in(y + f0 + carry, I32, "ny")
+    out = _days_from_civil32(ny, nm, np.minimum(d, _days_in_month32(ny, nm)))
+    return out * 86400 + tod if seconds else out
+
+
+def _mirror_cases(dtype):
+    """chip_smoke's K12 edge cases of one storage type, and every op use of
+    K12_SPECS over K12_EDGE_ROWS values of k12_values, both units."""
+    yield from k12_edge_cases((dtype,))
+    rng = np.random.default_rng(1404)
+    for seconds in (False, True):
+        v = k12_values(rng, dtype, seconds, K12_EDGE_ROWS)
+        for spec in K12_SPECS:
+            yield (v, dtype, seconds) + spec
+
+
+def test_k12_magic_divides_every_numerator():
+    """calendar_ops.magic's multiplier, run as the kernel's udiv, is
+    floor division for every c0 of K12_SPECS and K12_DIVISORS and 10,000
+    random divisors in [1, 2^31), over the numerators 0, 1, d - 1, d,
+    d + 1, k d +- 1 up to 2^32 - 1, 2^32 - 1 itself and random ones; the
+    64-bit multiplier alike for those c0 and 300 random divisors below
+    2^63, over 64-bit numerators."""
+    rng = np.random.default_rng(1994)
+    fixed = sorted({c0 for _, _, c0, _ in K12_SPECS if c0 > 0}
+                   | set(K12_DIVISORS) | {2**31})
+    ds = np.concatenate([fixed, rng.integers(1, 2**31, 10_000)])
+    top = 2**32 - 1
+    for d in ds.tolist():
+        k = np.array([2, 3, max(top // d - 1, 1), top // d])
+        n = np.concatenate([[0, 1, d - 1, d, d + 1, top], k * d - 1,
+                            k * d + 1, rng.integers(0, 2**32, 24)])
+        n = np.clip(n, 0, top).astype(np.uint64)
+        np.testing.assert_array_equal(_gm_udiv(n, d, 32), n // np.uint64(d),
+                                      err_msg=f"d={d}")
+    ds64 = fixed + [int(x) for x in rng.integers(1, 2**63, 300,
+                                                 dtype=np.int64)]
+    top = 2**64 - 1
+    for d in ds64:
+        ks = [2, 3, top // d - 1, top // d]
+        for n in [0, 1, d - 1, d, d + 1, top, 2**63, 2**63 - 1] \
+                + [k * d - 1 for k in ks] + [k * d + 1 for k in ks] \
+                + [int(x) for x in rng.integers(0, 2**63, 8)]:
+            n = min(max(n, 0), top)
+            assert _gm_udiv(n, d, 64) == n // d, (d, n)
+    with pytest.raises(ValueError):
+        calendar_ops.magic(0, 32)
+
+
+def test_k12_civil32_steps_match_the_plain_calendar():
+    """The kernel's 32-bit civil steps (civil32 with its era shift,
+    days_from_civil32, days_in_month32, the day of the year) against
+    calendar_ops' over every day of the int16 range, every day an int32
+    count of seconds reaches (-24,856 .. 24,855), the era shift's edges
+    (the days around each carry of doe, the ends of int32) with the ISO
+    Thursday's offsets -3..3, and random int32 days."""
+    rng = np.random.default_rng(146097)
+    eras = np.arange(0, 2**32 // ERA_DAYS + 1) * ERA_DAYS - 2**31
+    edge = (eras[:, None] + (ERA_DAYS - DOE_BIAS)
+            + np.arange(-5, 6)).ravel()
+    z = np.concatenate([np.arange(-32768, 32768), np.arange(-24856, 24856),
+                        edge, eras, [I32[0], I32[0] + 3, I32[1] - 3, I32[1]],
+                        rng.integers(I32[0], I32[1], 100_000,
+                                     endpoint=True)])
+    z = z[(z >= I32[0] + 3) & (z <= I32[1] - 3)]
+    for off in range(-3, 4):
+        y, m, d, yday = _civil32(z, off)
+        want = calendar_ops.civil_from_days(torch.from_numpy(z + off))
+        for got, w in zip((y, m, d), want):
+            np.testing.assert_array_equal(got, w.numpy())
+        one = torch.ones_like(want[0])
+        np.testing.assert_array_equal(
+            yday, z + off - calendar_ops.days_from_civil(want[0], one, one)
+            .numpy() + 1)
+        np.testing.assert_array_equal(_days_from_civil32(y, m, d), z + off)
+        np.testing.assert_array_equal(
+            _days_in_month32(y, m),
+            calendar_ops.days_in_month(*want[:2]).numpy())
+    ends = np.array([I32[0], I32[0] + 1, I32[0] + 2, I32[1] - 2, I32[1]])
+    for off in range(-3, 4):                   # beyond int32, as the ISO
+        y, m, d, _ = _civil32(ends, off)       # Thursday may go
+        want = calendar_ops.civil_from_days(torch.from_numpy(ends + off))
+        for got, w in zip((y, m, d), want):
+            np.testing.assert_array_equal(got, w.numpy())
+    # the month step's years: far beyond the civil calendar's own
+    y = np.concatenate([rng.integers(-2**30 - 6_000_000, 2**30 + 6_000_000,
+                                     50_000), [-1, 0, 1, 1600, 1900, 2000]])
+    m = rng.integers(1, 13, y.size)
+    ty, tm = torch.from_numpy(y), torch.from_numpy(m)
+    np.testing.assert_array_equal(_days_in_month32(y, m),
+                                  calendar_ops.days_in_month(ty, tm).numpy())
+    np.testing.assert_array_equal(
+        _days_from_civil32(y, m, np.ones_like(y)),
+        calendar_ops.days_from_civil(ty, tm, torch.ones_like(ty)).numpy())
+
+
+def test_k12_source_states_the_mirrored_constants():
+    """calendar_part.cu states the era shift, the era's length and the
+    day of 0000-03-01 that the mirror above uses, and K12_INSTANCES is
+    calendar_ops.INSTANCES: every (op, output storage) pair of
+    chip_smoke.K12_SPECS and no other."""
+    import re
+    from pathlib import Path
+    src = (Path(calendar_ops.__file__).parent.parent / "csrc"
+           / "calendar_part.cu").read_text()
+    consts = dict(re.findall(r"constexpr u32 (k\w+) = (\d+);", src))
+    assert {k: int(v) for k, v in consts.items()} == {
+        "kEraDays": ERA_DAYS, "kEraBias": ERA_BIAS, "kDoeBias": DOE_BIAS}
+    assert ERA_BIAS * ERA_DAYS - DOE_BIAS == 2**31 - 719468
+    assert src.count("719468") >= 3
+    enum = {k: int(v) for k, v in re.findall(r"\b(OP_\w+) = (\d+),", src)}
+    names = {v: k for k, v in calendar_ops.OPS.items()}
+    storage = {"DT_U8": torch.uint8, "DT_I32": torch.int32,
+               "DT_I64": torch.int64}
+    macro = src[src.index("#define K12_INSTANCES"):]
+    macro = macro[:macro.index("\n\n")]
+    pairs = {(names[enum[o]], storage[d])
+             for o, d in re.findall(r"X\((OP_\w+), (DT_\w+)\)", macro)}
+    assert pairs == {(op, t) for op, ts in calendar_ops.INSTANCES.items()
+                     for t in ts}
+    assert pairs == {(op, cdt.torch_dtype_of(np.dtype(out_np)))
+                     for op, out_np, _, _ in K12_SPECS}
+
+
+@pytest.mark.parametrize("dtype", _NARROW, ids=str)
+def test_k12_32_bit_path_mirror_matches_plain(dtype):
+    """The kernel's 32-bit path, mirrored, against _calendar_part_plain
+    exactly over chip_smoke's K12 edge cases of one storage type (every
+    int8 and int16 day, every day's first and last second in int32, the
+    divisors of K12_DIVISORS with their anchors, the constants of
+    K12_CONSTANT_EDGES the 32-bit path takes) and every op use of
+    K12_SPECS over random values of the storage's range, both units."""
+    calls = 0
+    for v, dt_, seconds, op, out_np, c0, c1 in _mirror_cases(dtype):
+        if not calendar_ops.narrow_ok(op, c0, c1):
+            continue                    # the int64 instance's
+        got = cdt.cast_tensor(torch.from_numpy(
+            _op32(v.astype(np.int64), op, seconds, c0, c1)), np.int64,
+            np.dtype(out_np))
+        want = calendar_ops._calendar_part_plain(
+            torch.from_numpy(v).to(dt_), op, seconds, out_np, c0, c1)
+        assert got.dtype == want.dtype
+        assert torch.equal(got, want), (op, out_np, seconds, c0, c1)
+        calls += 1
+    assert calls > len(K12_SPECS)
+
+
+class _FakeLibrary:
+    """Stands for the kernel library: records each K12Args it is given."""
+    def __init__(self):
+        self.calls = []
+
+    def chtt_calendar_part(self, args, blocks, stream):
+        a = args._obj
+        self.calls.append({f: getattr(a, f) for f, _ in a._fields_})
+        return 0
+
+
+def test_k12_wrapper_arguments(monkeypatch):
+    """_calendar_part_cuda's launch arguments, taken on the host with the
+    library stubbed: the instance's storages, the magic of c0 for both
+    widths, the folded constants, a constant beyond the 32-bit path's
+    reach sending the column to the int64 instance (one copy), a missing
+    instance and a width c0 <= 0 raising; never the plain version."""
+    lib = _FakeLibrary()
+    monkeypatch.setattr(_native, "library", lambda: lib)
+    monkeypatch.setattr(_native, "grid_blocks", lambda dev, n: 1)
+    monkeypatch.setattr(_native, "stream_ptr", lambda dev: 0)
+
+    def no_plain(*a, **kw):
+        raise AssertionError("the plain version ran")
+    monkeypatch.setattr(calendar_ops, "_calendar_part_plain", no_plain)
+    code = calendar_ops.OPS
+    x = torch.arange(40, dtype=torch.int32)
+    out = calendar_ops._calendar_part_cuda(
+        x, code["start_of_seconds"], True, np.dtype(np.int64), 900, -7)
+    a = lib.calls[-1]
+    assert out.dtype == torch.int64 and a["n"] == 40
+    assert a["in_dtype"] == _native.dtype_code(torch.int32)
+    assert (a["div32"], a["div64"]) == (900, 900)
+    assert (a["mul32"], a["log32"]) == calendar_ops.magic(900, 32)
+    assert (a["mul64"], a["log64"]) == calendar_ops.magic(900, 64)
+    assert (a["f0"], a["f1"], a["c0"], a["c1"]) == (0, 893, 900, -7)
+    calendar_ops._calendar_part_cuda(x, code["add_months"], False,
+                                     np.dtype(np.int32), -13, 0)
+    assert (lib.calls[-1]["f0"], lib.calls[-1]["f1"]) == (-2, 11)
+    calendar_ops._calendar_part_cuda(x, code["floor_seconds"], True,
+                                     np.dtype(np.uint32), 2**40, 0)
+    a = lib.calls[-1]
+    assert (a["div32"], a["div64"], a["mask_bits"]) == (2**31, 2**40, 32)
+    assert a["in_dtype"] == _native.dtype_code(torch.int32)
+    calendar_ops._calendar_part_cuda(x, code["start_of_months"], False,
+                                     np.dtype(np.int32), 2**31, 0)
+    a = lib.calls[-1]
+    assert a["in_dtype"] == _native.dtype_code(torch.int64)
+    assert (a["f0"], a["f1"]) == (0, 0)
+    calendar_ops._calendar_part_cuda(x.to(torch.int64), code["hour"], True,
+                                     np.dtype(np.uint8), 0, 0)
+    assert (lib.calls[-1]["div32"], lib.calls[-1]["mul32"]) == (1, 1)
+    n = len(lib.calls)
+    with pytest.raises(ValueError, match="no kernel instance"):
+        calendar_ops._calendar_part_cuda(x, code["hour"], True,
+                                         np.dtype(np.int64), 0, 0)
+    with pytest.raises(ValueError, match="c0 > 0"):
+        calendar_ops._calendar_part_cuda(x, code["start_of_months"], False,
+                                         np.dtype(np.int32), 0, 0)
+    assert len(lib.calls) == n
 
 
 # -- dates and times ----------------------------------------------------------
