@@ -46,7 +46,7 @@ from ..core import dtypes as dt
 from ..core.errors import (AnalysisError, MemoryLimitExceeded,
                            NotImplementedError_, TypeError_, UnknownFunction)
 from ..ops import agg_ops, scan_ops, sort_ops
-from .expr import ColVal
+from .expr import ColVal, TermColVal
 
 __all__ = ["AggregateFunction", "get_aggregate", "is_aggregate_name",
            "AGGREGATES", "REFERENCE_AGGREGATES", "GroupContext"]
@@ -204,6 +204,18 @@ class AggregateFunction:
         return cv.storage if ctx.grouping.kind in ("sort", "trivial") \
             else cv.data
 
+    @staticmethod
+    def _spec_value(ctx: GroupContext, cv: ColVal):
+        """A reduction spec's data: :meth:`_value`, but under the sort
+        grouping an intDiv/modulo of a stored column as its scan_ops.Term,
+        which K6 forms in registers from the gathered storage.  A sorted
+        step gathers it with _rows_of, never as a tensor."""
+        if ctx.grouping.kind == "sort":
+            b = cv.broadcast(ctx.capacity)
+            if isinstance(b, TermColVal):
+                return b.term
+        return AggregateFunction._value(ctx, cv)
+
     def _logical(self, s: torch.Tensor) -> torch.Tensor:
         """A min/max/any state in the argument's logical type (K6 gives it
         in the storage's); dictionary codes and ranks stay as they are."""
@@ -252,7 +264,7 @@ class SumAgg(AggregateFunction):
     def reductions(self, ctx, args, cond):
         mask = self._row_mask(ctx, args, cond)
         want = _sum_state_dtype(self.arg_types[0])
-        return [("sum", self._value(ctx, args[0]), mask, False)], \
+        return [("sum", self._spec_value(ctx, args[0]), mask, False)], \
             lambda r: [r[0].to(want)]
 
     def finalize(self, states):
@@ -272,8 +284,8 @@ class MinMaxAgg(AggregateFunction):
     def _prep(self, ctx, cv: ColVal):
         """Dictionary (string) args aggregate lexicographic ranks, mapped
         back to codes in finalize."""
-        v = self._value(ctx, cv)
         if cv.dictionary is not None and len(cv.dictionary):
+            v = self._value(ctx, cv)
             vals = cv.dictionary.values.astype(str)
             order = np.argsort(vals, kind="stable")
             rank = np.empty(len(vals), np.int64)
@@ -281,7 +293,7 @@ class MinMaxAgg(AggregateFunction):
             self._dict_order = torch.from_numpy(order.astype(np.int32)) \
                 .to(v.device)
             return torch.from_numpy(rank).to(v.device)[v.clamp(min=0).long()]
-        return v
+        return self._spec_value(ctx, cv)
 
     def reductions(self, ctx, args, cond):
         mask = self._row_mask(ctx, args, cond)
@@ -322,7 +334,7 @@ class AvgAgg(AggregateFunction):
 
     def reductions(self, ctx, args, cond):
         mask = self._row_mask(ctx, args, cond)
-        return [("sum", self._value(ctx, args[0]), mask, False),
+        return [("sum", self._spec_value(ctx, args[0]), mask, False),
                 ("count", None, mask, False)], self._states
 
     def _states(self, r):
@@ -351,7 +363,7 @@ class AnyAgg(AggregateFunction):
 
     def reductions(self, ctx, args, cond):
         mask = self._row_mask(ctx, args, cond)
-        return [("any", self._value(ctx, args[0]), mask, False)], \
+        return [("any", self._spec_value(ctx, args[0]), mask, False)], \
             lambda r: [self._logical(r[0])]
 
     def finalize(self, states):
@@ -372,7 +384,7 @@ class AnyRespectNullsAgg(AggregateFunction):
 
     def reductions(self, ctx, args, cond):
         mask = self._row_mask(ctx, args, cond)
-        specs = [("any", self._value(ctx, args[0]), mask, False)]
+        specs = [("any", self._spec_value(ctx, args[0]), mask, False)]
         av = _arg_valid(args[0], ctx.capacity)
         if av is None:
             specs.append(("count", None, mask, False))
@@ -413,8 +425,8 @@ def _f64_sum(ctx: GroupContext, mask, cv: ColVal, power: int = 1,
     registers from the columns as stored; else a sum of its float64
     column, built once for the GROUP BY and held against the aggregates'
     budget (ctx.hold)."""
-    x = AggregateFunction._value(ctx, cv)
-    y = None if times is None else AggregateFunction._value(ctx, times)
+    x = AggregateFunction._spec_value(ctx, cv)
+    y = None if times is None else AggregateFunction._spec_value(ctx, times)
     term = (x, y, power)
     unsigned = (_u64(cv, x), y is not None and _u64(times, y))
     if ctx.grouping.kind == "sort":
@@ -479,12 +491,21 @@ class StddevSampAgg(VarSampAgg):
         return torch.sqrt(VarSampAgg.finalize(self, states)[0]), None
 
 
-def _take(ctx: GroupContext, g: agg_ops.Grouping, t: torch.Tensor,
+def _rows_of(t, rows: torch.Tensor) -> torch.Tensor:
+    """A spec value (AggregateFunction._spec_value) at raw rows `rows`: a
+    scan_ops.Term gathers its narrow source and forms the term there
+    (Term.index_select), a tensor gathers itself: the one tensor method a
+    sorted step calls on a Term."""
+    return t.index_select(0, rows)
+
+
+def _take(ctx: GroupContext, g: agg_ops.Grouping, t,
           what: str) -> torch.Tensor:
-    """t (raw row order) in g's sorted order (Grouping.take), gathered once
-    for the GROUP BY and held against the aggregates' budget."""
-    return ctx.built("take", (t, g.perm), lambda: g.take(t),
-                     g.perm.shape[0] * t.element_size(), what)
+    """A spec value (raw row order) in g's sorted order (_rows_of by
+    g.perm, as Grouping.take), gathered once for the GROUP BY and held
+    against the aggregates' budget."""
+    return ctx.built("take", (t, g.perm), lambda: _rows_of(t, g.perm),
+                     g.perm.shape[0] * t.dtype.itemsize, what)
 
 
 def _take_mask(ctx: GroupContext, g: agg_ops.Grouping,
@@ -525,10 +546,12 @@ class ArgMinMaxAgg(AggregateFunction):
     def result_type(self):
         return dt.remove_nullable(self.arg_types[0])
 
-    def _order(self, ctx, cv: ColVal) -> Tuple[torch.Tensor, bool]:
-        """ord as K6/K1 compare it, and whether it is UInt64 bits."""
-        v = self._value(ctx, cv)
+    def _order(self, ctx, cv: ColVal) -> Tuple[object, bool]:
+        """ord as K6/K1 compare it (a spec value: _spec_value's Term for an
+        intDiv/modulo under the sort grouping), and whether it is UInt64
+        bits."""
         if cv.dictionary is not None and len(cv.dictionary):
+            v = self._value(ctx, cv)
             def make():
                 vals = cv.dictionary.values.astype(str)
                 rank = np.empty(len(vals), np.int64)
@@ -537,7 +560,8 @@ class ArgMinMaxAgg(AggregateFunction):
                     v.clamp(min=0).long()]
             return ctx.built("rank", (v,), make, 8 * v.shape[0],
                              "dictionary ranks"), False
-        if v.is_floating_point() and ctx.grouping.kind == "trivial":
+        v = self._spec_value(ctx, cv)
+        if ctx.grouping.kind == "trivial" and v.is_floating_point():
             # K1's float min/max propagate NaN; the order is the token's
             return ctx.built("token", (v,), lambda: sort_ops.order_value(
                 sort_ops.SortKey(v)), 8 * v.shape[0], "order tokens"), True
@@ -554,7 +578,7 @@ class ArgMinMaxAgg(AggregateFunction):
         mask = self._row_mask(ctx, args, cond)
         o, _ = self._order(ctx, args[1])
         best = _bits(states[0])
-        v = self._value(ctx, args[0])
+        v = self._spec_value(ctx, args[0])
         if g.kind == "trivial":
             ctx.hold(o.shape[0], f"{self.name}'s rows at the best value")
             at_best = _bits(o) == best[0]
@@ -571,7 +595,7 @@ class ArgMinMaxAgg(AggregateFunction):
             at_best &= ms
         rows, cnt = g.reduce_sorted([("min", g.perm, at_best, False),
                                      ("count", None, at_best, False)])
-        val = v.index_select(0, rows.to(torch.int64))
+        val = _rows_of(v, rows.to(torch.int64))
         val = torch.where(cnt > 0, val, torch.zeros((), dtype=val.dtype,
                                                     device=val.device))
         return [self._logical(val)]
@@ -638,7 +662,7 @@ class UniqExactAgg(_SortedValues):
 
     def sorted_step(self, ctx, g, args, cond, states):
         mask = self._row_mask(ctx, args, cond)
-        v = self._value(ctx, args[0])
+        v = self._spec_value(ctx, args[0])
         n = g.perm.shape[0]
         vs = _take(ctx, g, v, "uniqExact's sorted values")
         ms = _take_mask(ctx, g, mask)
@@ -693,7 +717,7 @@ class QuantileExactAgg(_SortedValues):
         def at(off):
             pos = torch.clamp(g.starts + torch.minimum(
                 torch.clamp(off, min=0), top), 0, last)
-            return v.index_select(0, g.perm.index_select(0, pos).long())
+            return _rows_of(v, g.perm.index_select(0, pos).long())
         if self.rule not in _INTERPOLATING:
             off = torch.floor(q * (nf - 1.0)) if self.rule == "low" \
                 else torch.floor(nf / 2) if q == 0.5 \
@@ -724,7 +748,7 @@ class QuantileExactAgg(_SortedValues):
 
     def sorted_step(self, ctx, g, args, cond, states):
         lens = states[0]
-        v = self._value(ctx, args[0])
+        v = self._spec_value(ctx, args[0])
         picks = [self._pick(g, v, lens, q)
                  for q in (self.qs if self.qs is not None else [self.q])]
         if self.qs is None:
@@ -969,7 +993,8 @@ class GroupBitAgg(AggregateFunction):
 
     def reductions(self, ctx, args, cond):
         mask = self._row_mask(ctx, args, cond)
-        return [(self.bit_op, self._value(ctx, args[0]), mask, False)], list
+        return [(self.bit_op, self._spec_value(ctx, args[0]), mask, False)], \
+            list
 
     def finalize(self, states):
         t = dt.remove_nullable(self.arg_types[0]).np_dtype

@@ -22,7 +22,7 @@ from ..core import dtypes as dt
 from ..core.column import Column, Dictionary
 from ..core.errors import NotImplementedError_, TypeError_, UnknownIdentifier
 
-__all__ = ["ColVal", "StoredColVal", "BoundExpr", "BoundColumn",
+__all__ = ["ColVal", "StoredColVal", "TermColVal", "BoundExpr", "BoundColumn",
            "BoundLiteral", "BoundCall", "BoundInList", "evaluate",
            "colval_from_column", "storage_np", "DEVICE_KEY"]
 
@@ -82,30 +82,25 @@ def storage_np(cv: ColVal) -> np.dtype:
     return dt.remove_nullable(cv.dtype).np_dtype
 
 
-class StoredColVal(ColVal):
-    """A scanned column stored narrower than its logical type
-    (core/column.py narrow_storage).  `storage` is the narrow tensor, which
-    K1's filter terms read as it is; `data` widens it to the logical type
-    at its first read."""
+class _LazyColVal(ColVal):
+    """A full column whose `data` is built (by `_build`) at its first read
+    and kept."""
 
-    def __init__(self, dtype: dt.DType, storage, validity=None):
-        self._storage = storage
+    def __init__(self, dtype: dt.DType, validity=None):
         super().__init__(dtype, None, validity)
 
     @property
     def data(self):
         if self._wide is None:
-            self._wide = self._storage.to(
-                dt.remove_nullable(self.dtype).torch_dtype)
+            self._wide = self._build()
         return self._wide
 
     @data.setter
     def data(self, value):
         self._wide = value
 
-    @property
-    def storage(self):
-        return self._storage
+    def _build(self):
+        raise NotImplementedError
 
     @property
     def is_const(self) -> bool:
@@ -113,6 +108,43 @@ class StoredColVal(ColVal):
 
     def broadcast(self, capacity: int) -> "ColVal":
         return self              # a full column, validity full or None
+
+
+class StoredColVal(_LazyColVal):
+    """A scanned column stored narrower than its logical type
+    (core/column.py narrow_storage).  `storage` is the narrow tensor, which
+    K1's filter terms read as it is; `data` widens it to the logical type
+    at its first read."""
+
+    def __init__(self, dtype: dt.DType, storage, validity=None):
+        self._storage = storage
+        super().__init__(dtype, validity)
+
+    def _build(self):
+        return self._storage.to(dt.remove_nullable(self.dtype).torch_dtype)
+
+    @property
+    def storage(self):
+        return self._storage
+
+
+class TermColVal(_LazyColVal):
+    """intDiv or modulo of a StoredColVal by an integer constant, kept as
+    its term (`term`: a scan_ops.Term over the column's narrow storage) so
+    that K6 can form it in registers from the gathered storage; `data`
+    builds the widened column at its first read, as every other reader
+    takes it."""
+
+    def __init__(self, dtype: dt.DType, term, validity=None):
+        self._term = term
+        super().__init__(dtype, validity)
+
+    def _build(self):
+        return self._term.build()
+
+    @property
+    def term(self):
+        return self._term
 
 
 def colval_from_column(col: Column) -> ColVal:

@@ -33,8 +33,8 @@ import torch
 from ..core import dtypes as dt
 from ..core.column import Dictionary
 from ..core.errors import NotImplementedError_, TypeError_, UnknownFunction
-from ..ops import calendar_ops
-from .expr import ColVal, StoredColVal, storage_np
+from ..ops import calendar_ops, scan_ops
+from .expr import ColVal, StoredColVal, TermColVal, storage_np
 
 __all__ = ["get", "exists", "register", "ScalarFunction", "FUNCTIONS",
            "canonical_name"]
@@ -403,13 +403,16 @@ _NARROW_INTS = (torch.int8, torch.int16, torch.int32)
 
 
 def _narrow_div_rem(a: ColVal, b: ColVal, st, which: int):
-    """_div_rem_const over a scanned column's narrow storage, or None.
+    """_div_rem_const over a scanned column's narrow storage, as a
+    scan_ops.Term, or None.
 
     For a column stored in a signed integer type narrower than the
     computation type `st` (signed) and an integer constant c that fits the
     storage type, c not in {0, -1}: truncating division in the storage type
-    cannot overflow (only MIN / -1 does), so it equals the wide result, and
-    only the result is widened: 12 bytes a row for int32 storage, where
+    cannot overflow (only MIN / -1 does), so it equals the wide result.
+    The result is the term itself: K6 forms it in registers from the
+    gathered storage (4 bytes a row for int32 storage); any other reader
+    builds it, dividing the storage and widening only the result, where
     the wide path reads the widened column (cached on the StoredColVal).
     """
     if not isinstance(a, StoredColVal) or np.dtype(st).kind != "i" \
@@ -423,9 +426,7 @@ def _narrow_div_rem(a: ColVal, b: ColVal, st, which: int):
     info = torch.iinfo(s.dtype)
     if c in (0, -1) or not info.min <= c <= info.max:
         return None
-    out = torch.div(s, c, rounding_mode="trunc") if which == 0 \
-        else torch.fmod(s, c)
-    return out.to(wide)
+    return scan_ops.Term(s, "div" if which == 0 else "mod", c, wide)
 
 
 def _intdiv_like(which: int, name: str):
@@ -434,11 +435,13 @@ def _intdiv_like(which: int, name: str):
         a, b = args
         st = dt.remove_nullable(out_dtype).np_dtype
         if _const_nonzero(b):
-            out = _narrow_div_rem(a, b, st, which)
-            if out is None:
-                out = _div_rem_const(_as(a, st), b, st, which)
-            return ColVal(dt.remove_nullable(out_dtype).with_nullable(
-                a.dtype.nullable), out, _and_validity(args))
+            dtype = dt.remove_nullable(out_dtype).with_nullable(
+                a.dtype.nullable)
+            term = _narrow_div_rem(a, b, st, which)
+            if term is not None:
+                return TermColVal(dtype, term, _and_validity(args))
+            out = _div_rem_const(_as(a, st), b, st, which)
+            return ColVal(dtype, out, _and_validity(args))
         x, y = _as(a, st), _as(b, st)
         if x.dim() < y.dim():
             x = x.expand(y.shape)

@@ -31,8 +31,8 @@ from typing import Dict, List, Optional
 __all__ = ["LAUNCHES", "LAUNCH_ROWS", "KernelBuildError", "build", "library",
            "check", "count_launch", "reset_launches", "stream_ptr",
            "dtype_code", "grid_blocks", "aligned16", "K1_MAX_TERMS",
-           "K1Term", "K1Args", "K6_MAX_SPECS", "K6_MAX_DATA", "K6_MAX_MASKS",
-           "K6Spec", "K6Count", "K6Args", "K7_MAX_ENTRIES", "K7Word",
+           "K1Term", "K1Args", "K6_MAX_SPECS", "K6_MAX_DATA", "K6_MAX_FORMS",
+           "K6_MAX_MASKS", "K6Form", "K6Spec", "K6Count", "K6Args", "K7_MAX_ENTRIES", "K7Word",
            "K7Out", "K7Args", "K8_MAX_KEYS", "K8_MAX_WORDS", "K8Args", "K9Args",
            "K11_MAX_WIDTH"]
 
@@ -84,15 +84,25 @@ class K1Args(ctypes.Structure):
 
 K6_MAX_SPECS = 8       # kMaxSpecs of csrc/segment_reduce.cu
 K6_MAX_DATA = 4        # kMaxData
+K6_MAX_FORMS = 4       # kMaxForms
 K6_MAX_MASKS = 4       # kMaxMasks (and kMaxMasks + 1 counts)
+
+
+class K6Form(ctypes.Structure):
+    """ChttSegForm of csrc/segment_reduce.cu (what a reduction reads of a
+    source column: its value, order key or double, of an optional
+    intDiv/modulo term)."""
+    _fields_ = [("data", ctypes.c_int), ("kind", ctypes.c_int),
+                ("term", ctypes.c_int), ("uns", ctypes.c_int),
+                ("c", ctypes.c_int), ("magic", ctypes.c_uint),
+                ("shift1", ctypes.c_int), ("shift2", ctypes.c_int)]
 
 
 class K6Spec(ctypes.Structure):
     """ChttSegSpec of csrc/segment_reduce.cu (one reduction)."""
-    _fields_ = [("op", ctypes.c_int), ("data", ctypes.c_int),
-                ("mask", ctypes.c_int), ("uns", ctypes.c_int),
-                ("data2", ctypes.c_int), ("pow", ctypes.c_int),
-                ("uns2", ctypes.c_int), ("pad", ctypes.c_int),
+    _fields_ = [("op", ctypes.c_int), ("form", ctypes.c_int),
+                ("mask", ctypes.c_int), ("form2", ctypes.c_int),
+                ("pow", ctypes.c_int), ("pad", ctypes.c_int),
                 ("acc", ctypes.c_void_p)]
 
 
@@ -105,12 +115,14 @@ class K6Count(ctypes.Structure):
 class K6Args(ctypes.Structure):
     """ChttSegArgs of csrc/segment_reduce.cu (one launch of K6)."""
     _fields_ = [("perm", ctypes.c_void_p), ("gid", ctypes.c_void_p),
+                ("starts", ctypes.c_void_p), ("ends", ctypes.c_void_p),
                 ("n", ctypes.c_longlong), ("cap_g", ctypes.c_int),
                 ("n_specs", ctypes.c_int), ("n_data", ctypes.c_int),
-                ("n_masks", ctypes.c_int), ("n_counts", ctypes.c_int),
-                ("pad", ctypes.c_int),
+                ("n_forms", ctypes.c_int), ("n_masks", ctypes.c_int),
+                ("n_counts", ctypes.c_int),
                 ("data", ctypes.c_void_p * K6_MAX_DATA),
                 ("dtype", ctypes.c_int * K6_MAX_DATA),
+                ("form", K6Form * K6_MAX_FORMS),
                 ("mask", ctypes.c_void_p * K6_MAX_MASKS),
                 ("count", K6Count * (K6_MAX_MASKS + 1)),
                 ("spec", K6Spec * K6_MAX_SPECS)]

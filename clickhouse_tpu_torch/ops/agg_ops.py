@@ -452,9 +452,10 @@ class Grouping:
                       ) -> List[torch.Tensor]:
         """Reductions of data and masks already in sorted order (reference
         agg_ops.py:109), specs as :meth:`reduce_many` takes them: ONE
-        scan_ops.segment_reduce_sorted call (K6's sorted-order entry)."""
+        scan_ops.segment_reduce_sorted call (K6's sorted-order entry),
+        which takes the groups as their bounds and reads no group id."""
         return scan_ops.segment_reduce_sorted(
-            specs, self.group_ids, self.num_groups_cap,
+            specs, self.starts, self.ends, self.perm.shape[0],
             group_rows=self.ends - self.starts)
 
     # -- reductions ----------------------------------------------------------
@@ -486,7 +487,8 @@ class Grouping:
         :meth:`reduce` takes them, op "count" (data None) counting the rows
         where mask holds.  The sort grouping hands them all to ONE
         scan_ops.segment_reduce_many call (K6 once, with the groups' row
-        counts from the bounds); the other kinds reduce a spec at a
+        counts from the bounds; a spec's data may be a scan_ops.Term,
+        which K6 forms in registers); the other kinds reduce a spec at a
         time."""
         if self.kind != "sort":
             return [self.count_rows(m) if op == "count"

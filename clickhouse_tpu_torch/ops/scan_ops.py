@@ -15,7 +15,10 @@ a sort of each group's first position.  The card scatters well, so:
     each row's values and masks through the permutation (the reference's
     Grouping.take becomes a gather inside K6); ``segment_reduce`` is its
     one-spec form, and ``segment_reduce_sorted`` its entry for data and
-    masks already in sorted order (no permutation read).
+    masks already in sorted order (no permutation and no group id read:
+    the groups come as K5's starts and ends).  A reduction's data may be a
+    :class:`Term` (intDiv or modulo of a narrow column by a constant),
+    which K6 forms in registers from the gathered column.
 
 Results follow the reference's seg_reduce_sorted: sums widen integers to
 64 bits (wrapping) and floats to float64; min/max pick by order token
@@ -35,29 +38,92 @@ import torch
 
 from ..core.dtypes import u64_to_f64
 from . import _native
+from .calendar_ops import magic
 from .hash_ops import _f32_from_token, f64_from_token
 from .sort_ops import SortKey, order_value
 
 __all__ = ["segment_bounds", "segment_bounds_bytes", "k5_scratch_bytes",
            "segment_reduce", "segment_reduce_many", "segment_reduce_sorted",
-           "fsumx_column", "spec_key", "COUNTED_OPS", "Spec",
-           "K5_TILE_ROWS"]
+           "fsumx_column", "spec_key", "gid_of_bounds", "bounds_of_gid",
+           "Term", "COUNTED_OPS", "Spec", "K5_TILE_ROWS"]
 
-# one reduction of segment_reduce_many: (op, data, mask, unsigned).  Op
-# "fsumx" sums a float64 term formed a row at a time from columns as they
-# are stored: its data is (x, y, power), x^power (power 1-4: x, x*x,
-# (x*x)*x, (x*x)*(x*x), as the reference multiplies) times y where y is
-# not None, and its unsigned is (x holds UInt64 bits, y holds UInt64
-# bits).  K6 forms the term in registers (OP_FSUMX), so the variance
-# family, the covariance and the moments sum their terms without a
-# float64 column of them; the plain version takes fsumx_column's.
+@dataclasses.dataclass(frozen=True, eq=False)
+class Term:
+    """intDiv (op "div") or modulo (op "mod") of a column by an integer
+    constant c, kept unbuilt: K6 gathers `source` and forms the term in
+    registers.  source is a signed int8/int16/int32 column (a scanned
+    column's narrow storage), c fits its type and is neither 0 nor -1, so
+    the division in the storage type cannot overflow; it truncates and the
+    remainder takes the dividend's sign (torch.div(rounding_mode="trunc"),
+    torch.fmod, as the reference's lax.div and lax.rem); the result widens
+    to `dtype`.  A K6 spec takes a Term where it takes a column; every
+    other reader builds it (:meth:`build`, :meth:`index_select`).  It is
+    not a tensor: the wrapper reads its source (_source)."""
+    source: torch.Tensor
+    op: str
+    c: int
+    dtype: torch.dtype
+
+    def __post_init__(self):
+        if self.op not in ("div", "mod") or self.source.dtype not in (
+                torch.int8, torch.int16, torch.int32):
+            raise ValueError(f"Term: {self.op} over {self.source.dtype}")
+        info = torch.iinfo(self.source.dtype)
+        if self.c in (0, -1) or not info.min <= self.c <= info.max:
+            raise ValueError(f"Term: divisor {self.c} for "
+                             f"{self.source.dtype}")
+
+    def apply(self, s: torch.Tensor) -> torch.Tensor:
+        """The term of source values s, widened."""
+        out = torch.div(s, self.c, rounding_mode="trunc") \
+            if self.op == "div" else torch.fmod(s, self.c)
+        return out.to(self.dtype)
+
+    def build(self) -> torch.Tensor:
+        return self.apply(self.source)
+
+    def index_select(self, dim: int, index: torch.Tensor) -> torch.Tensor:
+        """The term at the rows `index`: a gather of the source, then the
+        term (the source's bytes gathered, not the widened column's)."""
+        return self.apply(self.source.index_select(dim, index))
+
+    def key(self) -> tuple:
+        """What makes two terms one: the source as read, the op and c."""
+        return _same_tensor(self.source), self.op, self.c, self.dtype
+
+
+# one reduction of segment_reduce_many: (op, data, mask, unsigned).  data
+# is a column or a Term.  Op "fsumx" sums a float64 term formed a row at a
+# time from columns as they are stored: its data is (x, y, power), x^power
+# (power 1-4: x, x*x, (x*x)*x, (x*x)*(x*x), as the reference multiplies)
+# times y where y is not None, and its unsigned is (x holds UInt64 bits, y
+# holds UInt64 bits).  K6 forms the term in registers (OP_FSUMX), so the
+# variance family, the covariance and the moments sum their terms without
+# a float64 column of them; the plain version takes fsumx_column's.
 Spec = Tuple[str, object, Optional[torch.Tensor], object]
+
+
+def _built(t):
+    """A column, or a Term's built column (None stays None)."""
+    return t.build() if isinstance(t, Term) else t
+
+
+def _source(t):
+    """The tensor K6 reads of a spec's column or Term (a Term's source:
+    the same rows on the same device)."""
+    return t.source if isinstance(t, Term) else t
+
+
+def _is_float(t) -> bool:
+    """A spec's column holds floats (a Term never does)."""
+    return not isinstance(t, Term) and t.is_floating_point()
 
 
 def fsumx_column(data, unsigned) -> torch.Tensor:
     """The float64 column of an "fsumx" spec's term (its data and
     unsigned, as Spec describes them)."""
     x, y, power = data
+    x, y = _built(x), _built(y)
 
     def f64(t, uns):
         return u64_to_f64(t) if uns and t.dtype == torch.int64 \
@@ -69,20 +135,28 @@ def fsumx_column(data, unsigned) -> torch.Tensor:
     return t if y is None else t * f64(y, unsigned[1])
 
 
+def _ident(t):
+    """A spec argument's identity: a tensor's id, a Term's key."""
+    return t.key() if isinstance(t, Term) else id(t)
+
+
 def spec_key(spec: Spec) -> tuple:
     """What makes two specs one reduction: the op, the identity of each
-    tensor it reads, and the rest as it is."""
+    tensor or term it reads, and the rest as it is."""
     op, data, mask, unsigned = spec
     if op == "fsumx":
         x, y, power = data
-        return op, id(x), id(y), power, id(mask), unsigned
-    return op, id(data), id(mask), unsigned
+        return op, _ident(x), _ident(y), power, id(mask), unsigned
+    return op, _ident(data), id(mask), unsigned
 
 
 # op -> csrc/segment_reduce.cu SegOp (a float sum is OP_FSUM)
 _OPS = {"sum": 0, "min": 1, "max": 2, "any": 3, "bor": 4, "band": 5,
         "bxor": 6, "count": 7, "fsumx": 9}
 _FSUM = 8
+# what a reduction reads of a source (FormKind), and a Term's op (TermOp)
+_INT, _KEY, _DBL = 0, 1, 2
+_TERMS = {"div": 1, "mod": 2}
 _BITOPS = ("bor", "band", "bxor")
 # the ops whose groups K6 also counts: a group without a masked-in row
 # gives 0, which only the count tells from the identity (a sum, bor and
@@ -214,9 +288,8 @@ def _segment_bounds_plain(keys, n_valid, cap_g):
 
 # -- K6: segment reductions ---------------------------------------------------
 
-def segment_reduce(op: str, data: Optional[torch.Tensor],
-                   mask: Optional[torch.Tensor], perm: torch.Tensor,
-                   gid: torch.Tensor, cap_g: int, *,
+def segment_reduce(op: str, data, mask: Optional[torch.Tensor],
+                   perm: torch.Tensor, gid: torch.Tensor, cap_g: int, *,
                    unsigned: bool = False) -> torch.Tensor:
     """One per-group reduction of key-sorted rows; -> (cap_g,).  The
     one-spec form of :func:`segment_reduce_many` (which documents the
@@ -236,8 +309,8 @@ def segment_reduce_many(specs: Sequence[Spec], perm: torch.Tensor,
               op   -- sum | min | max | any | bor | band | bxor | count
                       | fsumx (Spec describes its data and unsigned)
               data -- values in RAW row order (any storage type; a
-                      column's narrow storage is read as it is); None for
-                      count
+                      column's narrow storage is read as it is), or a
+                      Term of such a column; None for count
               mask -- rows to include, raw row order (bool), None = every
                       row
               unsigned -- int64 data holds UInt64 bits (min/max compare
@@ -253,49 +326,110 @@ def segment_reduce_many(specs: Sequence[Spec], perm: torch.Tensor,
     the others data's type; a group without a masked-in row gives 0.
 
     A CPU tensor takes the plain version, a spec at a time.  A CUDA tensor
-    launches K6 once for all the specs (each distinct column gathered once,
-    each distinct mask read once), or once for each K6_MAX_SPECS
-    reductions, K6_MAX_DATA columns or K6_MAX_MASKS masks.
+    launches K6 once for all the specs (each distinct source column
+    gathered once, each distinct mask read once, each Term formed in
+    registers), or once for each K6_MAX_SPECS reductions, K6_MAX_DATA
+    source columns, K6_MAX_FORMS forms of them or K6_MAX_MASKS masks.
     """
     if perm.shape != gid.shape or perm.dtype != torch.int32:
         raise ValueError("segment_reduce: perm and gid must be int32 of one "
                          "length")
-    return _segment_reduce_entry(specs, perm, gid, cap_g, group_rows)
+    if gid.dtype != torch.int32 or gid.dim() != 1:
+        raise ValueError("segment_reduce: gid must be 1-d int32")
+    return _segment_reduce_entry(specs, perm, gid, cap_g, group_rows,
+                                 None, gid.shape[0])
 
 
-def segment_reduce_sorted(specs: Sequence[Spec], gid: torch.Tensor,
-                          cap_g: int, *,
+def segment_reduce_sorted(specs: Sequence[Spec], starts: torch.Tensor,
+                          ends: torch.Tensor, n: int, *,
                           group_rows: Optional[torch.Tensor] = None
                           ) -> List[torch.Tensor]:
     """K6's sorted-order entry (the reference's seg_reduce_sorted over data
     Grouping.take already put in sorted order): :func:`segment_reduce_many`
     with each spec's data and mask in SORTED order, row i at sorted
-    position i.  No permutation is read; `any` is the first masked-in row
-    in sorted order.
+    position i, n rows, and the groups given by their bounds: starts and
+    ends, K5's (cap_g,) int64 [start, end) of each slot, the groups one
+    after another from row 0 (starts does not decrease; slots past the
+    last group hold the valid row count; the rows from ends[-1] on have no
+    slot).  No permutation and no group id is read; `any` is the first
+    masked-in row in sorted order.
 
-    A CPU tensor takes the plain version; a CUDA tensor launches K6 with
-    no permutation (counted as ``segment_reduce_sorted``).
+    A CPU tensor takes the plain version (over gid_of_bounds' group ids,
+    which raises where the bounds break that layout); a CUDA tensor
+    launches K6 with no permutation (counted as ``segment_reduce_sorted``),
+    which does not check the layout.
     """
-    return _segment_reduce_entry(specs, None, gid, cap_g, group_rows)
+    cap_g = starts.shape[0]
+    for t in (starts, ends):
+        if t.dim() != 1 or t.dtype != torch.int64 or t.shape[0] != cap_g \
+                or t.device != starts.device:
+            raise ValueError("segment_reduce_sorted: starts and ends must be "
+                             "1-d int64 of one length on one device")
+    return _segment_reduce_entry(specs, None, None, cap_g, group_rows,
+                                 (starts, ends), int(n))
 
 
-def _segment_reduce_entry(specs, perm, gid, cap_g, group_rows):
+def _check_bounds(starts: torch.Tensor, ends: torch.Tensor, n: int):
+    """Raise unless the bounds follow K5's layout, as the sorted-order
+    entry assumes: the groups one after another from row 0 with no gap
+    (starts[0] == 0, starts[g + 1] == ends[g], starts <= ends) within n
+    rows.  K6 does not check it: it would credit the rows of a gap to the
+    group before it."""
+    if not starts.shape[0]:
+        return
+    if (starts[0] != 0 or (starts[1:] != ends[:-1]).any()
+            or (ends < starts).any() or ends[-1] > n):
+        raise ValueError("segment_reduce_sorted: the groups' bounds must "
+                         "follow one another from row 0 with no gap")
+
+
+def gid_of_bounds(starts: torch.Tensor, ends: torch.Tensor,
+                  n: int) -> torch.Tensor:
+    """The group slot of each of n sorted rows from the groups' bounds (as
+    segment_reduce_sorted takes them): the last slot starting at or
+    before the row, cap_g for the rows from ends[-1] on (int32)."""
+    _check_bounds(starts, ends, n)
+    cap_g = starts.shape[0]
+    pos = torch.arange(n, dtype=torch.int64, device=starts.device)
+    if not cap_g:
+        return torch.zeros(n, dtype=torch.int32, device=starts.device)
+    g = torch.searchsorted(starts, pos, right=True) - 1
+    return torch.where(pos < ends[-1], g, cap_g).to(torch.int32)
+
+
+def bounds_of_gid(gid: torch.Tensor, cap_g: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(starts, ends) of the group slots of sorted rows' ascending group ids
+    (cap_g or more for the rows without a slot, which come last): K5's
+    bounds of the same groups."""
+    in_slot = gid < cap_g
+    live = gid[in_slot].to(torch.int64)
+    if not in_slot[:live.shape[0]].all() or (live[1:] < live[:-1]).any():
+        raise ValueError("bounds_of_gid: group ids must ascend, the rows "
+                         "without a slot last")
+    counts = torch.bincount(live, minlength=cap_g)[:cap_g]
+    ends = torch.cumsum(counts, 0)
+    return ends - counts, ends
+
+
+def _segment_reduce_entry(specs, perm, gid, cap_g, group_rows, bounds, n):
     specs = [_checked_spec(sp) for sp in specs]
-    dev = gid.device
-    if gid.dtype != torch.int32 or gid.dim() != 1:
-        raise ValueError("segment_reduce: gid must be 1-d int32")
+    dev = gid.device if bounds is None else bounds[0].device
     for op, data, mask, _ in specs:
         for t in _tensors(op, data) + [mask]:
-            if t is not None and t.shape[0] != gid.shape[0] \
+            if t is not None and _source(t).shape[0] != n \
                     and perm is None:
                 raise ValueError("segment_reduce_sorted: data and masks "
                                  "must have a row a sorted position")
     if dev.type == "cpu":
+        if bounds is not None:
+            gid = gid_of_bounds(bounds[0], bounds[1], n)
         return [_segment_reduce_plain(op, data, mask, perm, gid, cap_g, uns)
                 for op, data, mask, uns in specs]
     if dev.type != "cuda":
         raise RuntimeError(f"segment_reduce: no kernel for {dev}")
-    return _segment_reduce_many_cuda(specs, perm, gid, cap_g, group_rows)
+    return _segment_reduce_many_cuda(specs, perm, gid, cap_g, group_rows,
+                                     bounds, n)
 
 
 def _checked_spec(spec: Spec) -> Spec:
@@ -310,23 +444,29 @@ def _checked_spec(spec: Spec) -> Spec:
         if power not in (1, 2, 3, 4):
             raise ValueError(f"segment_reduce: fsumx of power {power}")
         ux, uy = unsigned
-        return op, data, mask, (bool(ux) and x.dtype == torch.int64,
-                                y is not None and bool(uy)
-                                and y.dtype == torch.int64)
-    if data is not None and op in _BITOPS and data.is_floating_point():
+        return op, data, mask, (_unsigned(x, ux), _unsigned(y, uy))
+    if data is not None and op in _BITOPS and _is_float(data):
         raise TypeError(f"segment_reduce: {op} needs integer data")
-    unsigned = bool(unsigned) and data is not None \
-        and data.dtype == torch.int64
-    return op, data, mask, unsigned
+    return op, data, mask, _unsigned(data, unsigned)
+
+
+def _unsigned(t, unsigned) -> bool:
+    """Whether t holds UInt64 bits: int64 data said to (a Term is
+    signed)."""
+    return bool(unsigned) and isinstance(t, torch.Tensor) \
+        and t.dtype == torch.int64
 
 
 @dataclasses.dataclass
 class _Launch:
-    """One launch of K6: its columns, its masks, the mask slot of each
-    count it keeps (-1: every row), each reduction as (spec index, column
-    slot or -1, mask slot or -1), and each reduction's second column slot
-    (an fsumx term's y; -1: none)."""
+    """One launch of K6: its source columns, the forms it reads of them
+    (source slot, kind, term, c, unsigned), its masks, the mask slot of
+    each count it keeps (-1: every row), each reduction as (spec index,
+    form slot or -1, mask slot or -1), and each reduction's second form
+    slot (an fsumx term's y; -1: none)."""
     data: List[torch.Tensor] = dataclasses.field(default_factory=list)
+    forms: List[Tuple[int, int, int, int, bool]] = dataclasses.field(
+        default_factory=list)
     masks: List[torch.Tensor] = dataclasses.field(default_factory=list)
     counts: List[int] = dataclasses.field(default_factory=list)
     specs: List[Tuple[int, int, int]] = dataclasses.field(
@@ -353,41 +493,81 @@ def _slot(ts: List[torch.Tensor], t: Optional[torch.Tensor]) -> int:
     return [_same_tensor(u) for u in ts].index(_same_tensor(t))
 
 
+def _form(t, kind: int, unsigned: bool):
+    """(source column, kind, term, c, unsigned) of what a reduction reads
+    of t: a Term's source with its op and constant, or t as stored
+    (unsigned only where it changes the key or the double)."""
+    if isinstance(t, Term):
+        return t.source, kind, _TERMS[t.op], t.c, False
+    return t, kind, 0, 0, bool(unsigned) and kind != _INT
+
+
+def _reads(op: str, data, unsigned) -> list:
+    """The forms a reduction reads: its value's (an fsumx term's x and y);
+    none for `any`, which keeps a row id, and for count."""
+    if op in ("any", "count"):
+        return []
+    if op == "fsumx":
+        x, y, _ = data
+        return [_form(x, _DBL, unsigned[0])] + (
+            [] if y is None else [_form(y, _DBL, unsigned[1])])
+    kind = _KEY if op in ("min", "max") else \
+        _DBL if _is_float(data) else _INT
+    return [_form(data, kind, unsigned)]
+
+
 def _plan_launches(specs: Sequence[Spec], have_group_rows: bool
                    ) -> Tuple[List[_Launch], List[Tuple[int, int, int]]]:
     """K6's launches for the checked specs, and where each spec's result
     lies: (launch or -1, reduction slot or -1, count slot or -1).  A count
     spec and the ops of COUNTED_OPS need their mask's count, except over
-    every row where group_rows gives it; `any` keeps a row id and reads no
-    column; an fsumx term reads its one or two columns."""
+    every row where group_rows gives it.  Source columns are one where K6
+    reads one tensor (a Term reads its source), forms one where they read
+    one source alike (kind, term, constant)."""
     launches: List[_Launch] = []
     where = []
-    for op, data, mask, _ in specs:
+    for (op, data, mask, uns) in specs:
         reduces = op != "count"
         counted = op in COUNTED_OPS and not (mask is None and have_group_rows)
         if not reduces and not counted:
             where.append((-1, -1, -1))
             continue
-        cols = _columns(op, data)
+        reads = _reads(op, data, uns)
         cur = launches[-1] if launches else None
 
-        def new_cols(launch):
-            seen: List[torch.Tensor] = list(launch.data)
-            n_new = 0
-            for c in cols:
-                if _is_new(seen, c):
-                    seen.append(c)
-                    n_new += 1
-            return n_new
+        def grows(launch):
+            """(new sources, new forms) the spec adds to launch."""
+            srcs = list(launch.data)
+            keys = [(_same_tensor(launch.data[f[0]]),) + tuple(f[1:])
+                    for f in launch.forms]
+            n_src = n_form = 0
+            for src, *rest in reads:
+                if _is_new(srcs, src):
+                    srcs.append(src)
+                    n_src += 1
+                k = (_same_tensor(src),) + tuple(rest)
+                if k not in keys:
+                    keys.append(k)
+                    n_form += 1
+            return n_src, n_form
+        if cur is not None:
+            n_src, n_form = grows(cur)
         if cur is None \
                 or len(cur.specs) + reduces > _native.K6_MAX_SPECS \
-                or len(cur.data) + new_cols(cur) > _native.K6_MAX_DATA \
+                or len(cur.data) + n_src > _native.K6_MAX_DATA \
+                or len(cur.forms) + n_form > _native.K6_MAX_FORMS \
                 or len(cur.masks) + _is_new(cur.masks, mask) \
                 > _native.K6_MAX_MASKS:
             cur = _Launch()
             launches.append(cur)
-        slots = [_slot(cur.data, c) for c in cols] + [-1, -1]
-        d, d2, m = slots[0], slots[1], _slot(cur.masks, mask)
+        slots = []
+        for src, *rest in reads:
+            f = (_slot(cur.data, src),) + tuple(rest)
+            if f not in cur.forms:
+                cur.forms.append(f)
+            slots.append(cur.forms.index(f))
+        slots += [-1, -1]
+        m = _slot(cur.masks, mask)
         c = -1
         if counted:
             if m not in cur.counts:
@@ -395,30 +575,42 @@ def _plan_launches(specs: Sequence[Spec], have_group_rows: bool
             c = cur.counts.index(m)
         q = -1
         if reduces:
-            cur.specs.append((len(where), d, m))
-            cur.second.append(d2)
+            cur.specs.append((len(where), slots[0], m))
+            cur.second.append(slots[1])
             q = len(cur.specs) - 1
         where.append((len(launches) - 1, q, c))
     return launches, where
 
 
-def _tensors(op: str, data) -> List[torch.Tensor]:
-    """The columns a reduction takes (none for count)."""
+def _tensors(op: str, data) -> list:
+    """The columns or Terms a reduction takes (none for count)."""
     if op == "fsumx":
         return [t for t in data[:2] if t is not None]
     return [] if data is None else [data]
 
 
-def _columns(op: str, data) -> List[torch.Tensor]:
-    """The columns K6 reads for a reduction (`any` keeps a row id)."""
-    return [] if op == "any" else _tensors(op, data)
+def _contiguous(t):
+    if isinstance(t, Term):
+        return dataclasses.replace(t, source=t.source.contiguous())
+    return None if t is None else t.contiguous()
 
 
-def _segment_reduce_many_cuda(specs, perm, gid, cap_g, group_rows):
-    n, dev = gid.shape[0], gid.device
+def _k6_form(slot, kind, term, c, uns) -> "_native.K6Form":
+    """ChttSegForm of a planned form: a Term's divisor as the host's
+    multiplier of |c| (calendar_ops.magic) and its two shifts."""
+    if not term:
+        return _native.K6Form(data=slot, kind=kind, uns=int(uns))
+    m, l = magic(abs(c), 32)
+    return _native.K6Form(data=slot, kind=kind, term=term, c=c,
+                          magic=m, shift1=min(l, 1), shift2=max(l - 1, 0))
+
+
+def _segment_reduce_many_cuda(specs, perm, gid, cap_g, group_rows, bounds,
+                              n):
+    dev = gid.device if bounds is None else bounds[0].device
     checked = []
     for op, data, mask, uns in specs:
-        cols = _tensors(op, data)
+        cols = [_source(t) for t in _tensors(op, data)]
         for t in cols + [mask]:
             if t is not None and (t.device != dev or t.dim() != 1):
                 raise ValueError("segment_reduce: data and masks must be "
@@ -430,20 +622,20 @@ def _segment_reduce_many_cuda(specs, perm, gid, cap_g, group_rows):
                              "data's shape")
         if op == "fsumx":
             x, y, power = data
-            data = (x.contiguous(), None if y is None else y.contiguous(),
-                    power)
-        elif data is not None:
-            data = data.contiguous()
-        checked.append((op, data,
-                        None if mask is None else mask.contiguous(), uns))
+            data = (_contiguous(x), _contiguous(y), power)
+        else:
+            data = _contiguous(data)
+        checked.append((op, data, _contiguous(mask), uns))
     if group_rows is not None and (group_rows.shape != (cap_g,)
                                    or group_rows.device != dev):
         raise ValueError("segment_reduce: group_rows must be (cap_g,) on "
                          "the group ids' device")
     launches, where = _plan_launches(checked, group_rows is not None)
-    if perm is not None:
+    if bounds is None:
         perm = _native.aligned16(perm.contiguous())
-    gid = _native.aligned16(gid.contiguous())
+        gid = _native.aligned16(gid.contiguous())
+    else:
+        starts, ends = (t.contiguous() for t in bounds)
     stream = _native.stream_ptr(dev)
     accs, cnts = [], []
     for launch in launches:
@@ -457,34 +649,34 @@ def _segment_reduce_many_cuda(specs, perm, gid, cap_g, group_rows):
         if not n:
             continue
         args = _native.K6Args(
-            perm=None if perm is None else perm.data_ptr(),
-            gid=gid.data_ptr(), n=n, cap_g=cap_g,
-            n_specs=len(launch.specs), n_data=len(launch.data),
+            n=n, cap_g=cap_g, n_specs=len(launch.specs),
+            n_data=len(launch.data), n_forms=len(launch.forms),
             n_masks=len(launch.masks), n_counts=len(launch.counts))
+        if bounds is None:
+            args.perm, args.gid = perm.data_ptr(), gid.data_ptr()
+        else:
+            args.starts, args.ends = starts.data_ptr(), ends.data_ptr()
         for d, t in enumerate(launch.data):
             args.data[d] = t.data_ptr()
             args.dtype[d] = _native.dtype_code(t.dtype)
+        for f, form in enumerate(launch.forms):
+            args.form[f] = _k6_form(*form)
         for m, t in enumerate(launch.masks):
             args.mask[m] = t.data_ptr()
         for c, m in enumerate(launch.counts):
             args.count[c] = _native.K6Count(mask=m, out=cnt[c].data_ptr())
-        for q, ((i, d, m), d2) in enumerate(zip(launch.specs,
+        for q, ((i, f, m), f2) in enumerate(zip(launch.specs,
                                                 launch.second)):
             op, data, _, uns = checked[i]
-            if op == "fsumx":
-                args.spec[q] = _native.K6Spec(
-                    op=_OPS[op], data=d, mask=m, uns=int(uns[0]), data2=d2,
-                    pow=data[2], uns2=int(uns[1]), acc=acc[q].data_ptr())
-                continue
-            code = _FSUM if op == "sum" and data.is_floating_point() \
+            code = _FSUM if op == "sum" and _is_float(data) \
                 else _OPS[op]
-            args.spec[q] = _native.K6Spec(op=code, data=d, mask=m,
-                                          uns=int(uns), data2=-1, pow=1,
-                                          acc=acc[q].data_ptr())
+            args.spec[q] = _native.K6Spec(
+                op=code, form=f, mask=m, form2=f2,
+                pow=data[2] if op == "fsumx" else 1, acc=acc[q].data_ptr())
         rc = _native.library().chtt_segment_reduce(ctypes.byref(args),
                                                    stream)
         _native.check(rc, "segment_reduce")
-        _native.count_launch("segment_reduce" if perm is not None
+        _native.count_launch("segment_reduce" if bounds is None
                              else "segment_reduce_sorted", n)
     out = []
     for (op, data, _, uns), (li, q, c) in zip(checked, where):
@@ -515,7 +707,7 @@ def _finish(op, acc, cnt, data, unsigned):
     if op == "fsumx":
         return acc.view(torch.float64)
     if op == "sum":
-        return acc.view(torch.float64) if data.is_floating_point() else acc
+        return acc.view(torch.float64) if _is_float(data) else acc
     if op not in COUNTED_OPS:                     # bor, bxor
         return acc.to(data.dtype)
     have = cnt > 0
@@ -523,8 +715,10 @@ def _finish(op, acc, cnt, data, unsigned):
     if op in ("min", "max"):
         v = _from_order_key(acc, data.dtype, unsigned)
     elif op == "any":
-        rows = torch.clamp(acc, 0, max(data.shape[0] - 1, 0))
-        v = data[rows] if data.shape[0] else zero.expand(acc.shape)
+        n = _source(data).shape[0]
+        rows = torch.clamp(acc, 0, max(n - 1, 0))
+        v = data.index_select(0, rows) if n \
+            else zero.expand(acc.shape)
     else:                                         # band
         v = acc.to(data.dtype)
     return torch.where(have, v, zero)
@@ -533,10 +727,11 @@ def _finish(op, acc, cnt, data, unsigned):
 def _segment_reduce_plain(op, data, mask, perm, gid, cap_g, unsigned):
     """Plain PyTorch version of K6 (the same states as the kernel, each
     group reduced in sorted row order); perm None: the sorted-order entry's
-    (row i is sorted position i)."""
+    (row i is sorted position i).  A Term is its built column."""
     dev = gid.device
     if op == "fsumx":
         op, data, unsigned = "sum", fsumx_column(data, unsigned), False
+    data = _built(data)
     g = gid.to(torch.int64)
     rows = torch.arange(g.shape[0], device=dev) if perm is None \
         else perm.to(torch.int64)

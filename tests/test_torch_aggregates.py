@@ -438,9 +438,10 @@ def test_sorted_entry_matches_the_permuted_entry():
     perm = np.argsort(key, kind="stable")
     ks = key[perm]
     gid = np.cumsum(np.r_[True, ks[1:] != ks[:-1]]) - 1
-    gid[gid == 3] = cap_g            # a group of invalid rows
+    gid[gid == gid[-1]] = cap_g      # a group of invalid rows, sorted last
     perm_t = torch.from_numpy(perm.astype(np.int32))
     gid_t = torch.from_numpy(gid.astype(np.int32))
+    starts, ends = scan_ops.bounds_of_gid(gid_t, cap_g)
     masks = [None, torch.from_numpy(rng.random(n) < 0.3),
              torch.from_numpy(key != 7), torch.zeros(n, dtype=torch.bool)]
     for dtype in (torch.bool, torch.int32, torch.int64, torch.float32,
@@ -464,7 +465,7 @@ def test_sorted_entry_matches_the_permuted_entry():
                 got = scan_ops.segment_reduce_sorted(
                     [(op, None if d is None else d[perm_t],
                       None if m is None else m[perm_t], False)],
-                    gid_t, cap_g)[0]
+                    starts, ends, n)[0]
                 if got.is_floating_point():
                     assert torch.equal(torch.isnan(got), torch.isnan(want))
                     ok = ~torch.isnan(want)
@@ -633,3 +634,100 @@ def test_quantile_if_over_a_group_without_rows_divergence():
     assert got[1] == (2, 50, 2.5)
     assert ref[1] == got[1]
     assert ref[0][1] != 0 and not math.isnan(ref[0][2])
+
+
+# -- aggregates over intDiv / modulo terms (K6 forms them in registers) ------
+
+N_TM = 6000
+TM_DIVISORS = {"x8": (2, 7, 1024, -3, 127), "x16": (2, 7, 1024, -3, 32767),
+               "x32": (2, 7, 1024, -3, 2147483647),
+               "xn": (2, 7, 1024, -3, 2147483647)}
+
+
+@pytest.fixture(scope="module")
+def term_sessions():
+    """Table tm: Int64 columns whose values fit int8 (x8), int16 (x16) and
+    int32 (x32, and xn, Nullable), so the port stores them narrow, each
+    holding its storage type's MIN and MAX and negative values."""
+    rng = np.random.default_rng(2027)
+    js = jch.connect()
+    ts = tch.connect(device="cpu")
+    cols = {"k": rng.integers(0, 6, N_TM).astype(np.int32)}
+    for name, st in (("x8", np.int8), ("x16", np.int16), ("x32", np.int32),
+                     ("xn", np.int32)):
+        info = np.iinfo(st)
+        v = rng.integers(info.min, info.max, N_TM, endpoint=True)
+        v[:4] = [info.min, info.max, -1, 0]
+        cols[name] = v.astype(np.int64)
+    xn = cols["xn"].astype(object)
+    xn[rng.random(N_TM) < 0.2] = None
+    cols["xn"] = xn
+    js.execute("CREATE TABLE tm (k Int32, x8 Int64, x16 Int64, x32 Int64, "
+               "xn Nullable(Int64))")
+    js.insert_pydict("tm", cols)
+    table_from_numpy(ts, "tm", _reference_columns(js, "tm"),
+                     {"k": "Int32", "x8": "Int64", "x16": "Int64",
+                      "x32": "Int64", "xn": "Nullable(Int64)"})
+    return js, ts
+
+
+@pytest.mark.parametrize("col,c", [(col, c) for col, cs in
+                                   TM_DIVISORS.items() for c in cs])
+def test_aggregates_over_terms_match_reference(term_sessions, col, c):
+    """Under the sort grouping, argMax/argMin by, min, max, sum,
+    groupBitXor, -If forms, varSamp and corr over `x % c` and
+    `intDiv(x, c)` (each term asked more than once in the query; the port
+    hands K6 a scan_ops.Term of x's narrow storage where c fits it) give
+    the reference's rows: integers exactly; varSamp within rtol 1e-9 and
+    ATOL_SCALE of its mean square term, corr within 1e-9."""
+    js, ts = term_sessions
+    m, d = f"{col} % {c}", f"intDiv({col}, {c})"
+    sql = (f"SELECT k, argMax({col}, {m}), argMin({col}, {d}), min({m}), "
+           f"max({d}), sum({m}), groupBitXor({d}), maxIf({m}, {col} < 0), "
+           f"sumIf({d}, {col} > 0), argMaxIf({col}, {m}, {col} > 0), "
+           f"varSamp({m}), corr({col}, {m}) FROM tm GROUP BY k ORDER BY k "
+           f"SETTINGS group_by_algorithm = 'sort'")
+    want, got = js.execute(sql).rows(), ts.execute(sql).rows()
+    x = np.asarray([v for v in _reference_columns(js, "tm")[col]
+                    if v is not None], dtype=np.int64)
+    r = np.fmod(x, c).astype(np.float64)
+    atol = [0.0] * 10 + [ATOL_SCALE * float(np.mean(r * r)), ATOL_SCALE]
+    assert len(got) == len(want) == 6
+    for g, w in zip(got, want):
+        assert len(g) == len(w)
+        for a, b, tol in zip(g, w, atol):
+            assert _close(a, b, tol), (sql, g, w)
+
+
+def test_q2s2_terms_reach_k6_as_one_source(term_sessions, monkeypatch):
+    """Q2s2's shape over x32 (int32 storage): the aggregates hand
+    segment_reduce_many `x % 7` as scan_ops.Terms (argMax's and corr's),
+    and its plan is ONE launch reading ONE source column (x's storage) in
+    four forms; the rows are the reference's."""
+    from clickhouse_tpu_torch.ops import scan_ops
+    js, ts = term_sessions
+    calls = []
+    many = scan_ops.segment_reduce_many
+
+    def spy(specs, *args, **kw):
+        calls.append(list(specs))
+        return many(specs, *args, **kw)
+    monkeypatch.setattr(scan_ops, "segment_reduce_many", spy)
+    sql = ("SELECT x32 % 1024 AS k, argMax(x32, x32 % 7), varSamp(x32), "
+           "stddevPop(x32), corr(x32, x32 % 7), groupBitXor(x32) FROM tm "
+           "GROUP BY k ORDER BY k LIMIT 10 "
+           "SETTINGS group_by_algorithm = 'sort'")
+    x = _reference_columns(js, "tm")["x32"].astype(np.float64)
+    assert _rows_close(ts.execute(sql).rows(), js.execute(sql).rows(),
+                       ATOL_SCALE * float(np.mean(x * x)))
+    assert len(calls) == 1
+    terms = [d for op, d, _, _ in calls[0] if isinstance(d, scan_ops.Term)]
+    terms += [t for op, d, _, _ in calls[0] if op == "fsumx"
+              for t in d[:2] if isinstance(t, scan_ops.Term)]
+    assert terms and all(t.op == "mod" and t.c == 7
+                         and t.source.dtype == torch.int32 for t in terms)
+    checked = [scan_ops._checked_spec(sp) for sp in calls[0]]
+    launches, _ = scan_ops._plan_launches(checked, True)
+    assert len(launches) == 1 and len(launches[0].data) == 1
+    assert launches[0].data[0].dtype == torch.int32
+    assert len(launches[0].specs) == 7 and len(launches[0].forms) == 4

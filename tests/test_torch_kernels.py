@@ -17,10 +17,11 @@ import numpy as np
 import pytest
 import torch
 
-from chip_smoke import (CMPS, K4_ROWS, K5_CASES, K7_CASES, K8_CASES,
+from chip_smoke import (CMPS, K4_ROWS, K5_CASES, K6_SORTED_LAYOUTS,
+                        K6_TERM_DIVISORS, K7_CASES, K8_CASES,
                         K9_CASES, K10_CASES, K11_CASES, K12_DTYPES,
                         SORT_KEY_CHAINS, U64_EDGE, grouped_rows, k5_args,
-                        k6_many_specs, k12_cases,
+                        k6_many_specs, k12_cases, sorted_gid,
                         k7_args, k7_outputs, k8_args, k8_results, k9_args,
                         k10_args, k11_case, k11_error, make_term,
                         sort_key_columns, term_cases)
@@ -38,9 +39,12 @@ from clickhouse_tpu_torch.ops.join_ops import (ProbeResult,
                                                propagate_join)
 from clickhouse_tpu_torch.ops.mxu_segsum import (_dense_group_reduce_plain,
                                                  dense_group_reduce)
-from clickhouse_tpu_torch.ops.scan_ops import (K5_TILE_ROWS,
+from clickhouse_tpu_torch.ops import scan_ops
+from clickhouse_tpu_torch.ops.scan_ops import (K5_TILE_ROWS, Term,
+                                               _built,
                                                _segment_bounds_plain,
                                                _segment_reduce_plain,
+                                               bounds_of_gid,
                                                segment_bounds, segment_reduce,
                                                fsumx_column,
                                                segment_reduce_many,
@@ -357,9 +361,10 @@ def test_launch_counters_count_kernel_launches(dev):
     dense_group_reduce(x.to(torch.int32), None, [None], [x], [None], 10)
     topk_smallest(x, None, 3)
     key, perm = radix_sort_pairs(x.to(torch.int32), 4)
-    gid, _, _, _ = segment_bounds([key], torch.tensor(10, device=dev), 16)
+    gid, _, starts, ends = segment_bounds([key], torch.tensor(10, device=dev),
+                                          16)
     segment_reduce("sum", x, None, perm, gid, 16)
-    segment_reduce_sorted([("sum", x, None, False)], gid, 16)
+    segment_reduce_sorted([("sum", x, None, False)], starts, ends, 10)
     word = x.to(torch.int32)
     dense_gather_join(x, None, x, None, [("word", word, -1)], 0, 9)
     propagate_join([x], None, [x], None, [word])
@@ -564,6 +569,7 @@ def _check_group_values(got, want, op, data, mask, perm, gid, cap_g,
                         unsigned=False):
     if op == "fsumx":
         op, data = "sum", fsumx_column(data, unsigned)
+    data = _built(data)
     if got.is_floating_point() and op == "sum":
         absd = data.abs().to(torch.float64)
         scale = _segment_reduce_plain("sum", absd, mask, perm, gid, cap_g,
@@ -618,7 +624,8 @@ def test_segment_reduce_skewed_group_matches_plain(dev, op):
 
 
 @pytest.mark.parametrize("case", ["q2m", "two_columns_two_masks", "split",
-                                  "f64_terms", "f64_term_types"])
+                                  "f64_terms", "f64_term_types",
+                                  "q2s2_terms", "term_ops"])
 @pytest.mark.parametrize("skew", [None, 0.4], ids=["uniform", "skew40"])
 def test_segment_reduce_many_matches_plain(dev, case, skew):
     """Several specs in one segment_reduce_many call (one launch, or more
@@ -690,11 +697,13 @@ def test_segment_reduce_sorted_matches_plain(dev, dtype, op, skew):
         x[::101] = float("nan")
     _, gid = grouped_rows(n, 70_000, dev, skew=skew)
     gid[-3000:] = cap_g
+    starts, ends = bounds_of_gid(gid, cap_g)
     d = None if op == "count" else x.to(dev)
     for m in (None, torch.from_numpy(rng.random(n) < 0.3).to(dev),
               torch.zeros(n, dtype=torch.bool, device=dev),
               (gid % 2 == 1)):
-        got = segment_reduce_sorted([(op, d, m, False)], gid, cap_g)[0]
+        got = segment_reduce_sorted([(op, d, m, False)], starts, ends,
+                                    n)[0]
         want = _segment_reduce_plain(op, d, m, None, gid, cap_g, False)
         _check_group_values(got, want, op, d, m, None, gid, cap_g)
 
@@ -705,9 +714,10 @@ def test_segment_reduce_sorted_launches_once_and_reads_no_perm(dev):
     rng = np.random.default_rng(18)
     n = 200_003
     _, gid = grouped_rows(n, 5000, dev)
+    starts, ends = bounds_of_gid(gid, 8192)
     specs = k6_many_specs(rng, n, dev)["q2m"]
     _native.reset_launches()
-    got = segment_reduce_sorted(specs, gid, 8192)
+    got = segment_reduce_sorted(specs, starts, ends, n)
     assert _native.LAUNCHES["segment_reduce_sorted"] == 1
     assert _native.LAUNCHES["segment_reduce"] == 0
     for (op, d, m, u), g in zip(specs, got):
@@ -715,18 +725,121 @@ def test_segment_reduce_sorted_launches_once_and_reads_no_perm(dev):
                                                     8192, u))
 
 
-@pytest.mark.parametrize("case", ["f64_terms", "f64_term_types"])
+@pytest.mark.parametrize("case", ["f64_terms", "f64_term_types",
+                                  "q2s2_terms", "term_ops"])
 def test_segment_reduce_sorted_f64_terms_match_plain(dev, case):
     """The statistics' terms (powers and products formed in registers)
-    through the sorted-order entry."""
+    and the intDiv/modulo Terms through the sorted-order entry."""
     rng = np.random.default_rng(20)
     n, cap_g = 1_000_003, 1 << 17
     _, gid = grouped_rows(n, 70_000, dev, skew=0.4)
+    starts, ends = bounds_of_gid(gid, cap_g)
     specs = k6_many_specs(rng, n, dev)[case]
-    got = segment_reduce_sorted(specs, gid, cap_g)
+    got = segment_reduce_sorted(specs, starts, ends, n)
     for (op, d, m, u), g in zip(specs, got):
         want = _segment_reduce_plain(op, d, m, None, gid, cap_g, u)
         _check_group_values(g, want, op, d, m, None, gid, cap_g, u)
+
+
+@pytest.mark.parametrize("sorted_entry", [False, True],
+                         ids=["permuted", "sorted"])
+@pytest.mark.parametrize("storage", [torch.int8, torch.int16, torch.int32],
+                         ids=str)
+def test_segment_reduce_terms_match_plain(dev, storage, sorted_entry):
+    """Every op over intDiv and modulo Terms of a narrow signed storage
+    (its MIN and MAX among the values) by each of K6_TERM_DIVISORS, formed
+    in registers from the one gathered column, against the plain version
+    over the built column: through both entries; the same Term in two
+    forms of one launch."""
+    rng = np.random.default_rng(21)
+    n, cap_g = 400_003, 1 << 16
+    info = torch.iinfo(storage)
+    src = torch.from_numpy(rng.integers(info.min, info.max, n,
+                                        endpoint=True)).to(storage)
+    src[:4] = torch.tensor([info.min, info.max, -1, 0], dtype=storage)
+    src = src.to(dev)
+    perm, gid = grouped_rows(n, 30_000, dev, skew=0.4)
+    m = torch.from_numpy(rng.random(n) < 0.5).to(dev)
+    cs = K6_TERM_DIVISORS[(torch.int8, torch.int16,
+                           torch.int32).index(storage)]
+    for c in cs:
+        for kind in ("div", "mod"):
+            t = Term(src, kind, c, torch.int64)
+            specs = [("sum", t, None, False), ("min", t, m, False),
+                     ("max", t, None, False), ("any", t, m, False),
+                     ("bxor", t, None, False), ("bor", t, m, False),
+                     ("fsumx", (t, None, 2), None, (False, False)),
+                     ("fsumx", (src, t, 1), m, (False, False))]
+            if sorted_entry:
+                starts, ends = bounds_of_gid(gid, cap_g)
+                got = segment_reduce_sorted(specs, starts, ends, n)
+                p = None
+            else:
+                got = segment_reduce_many(specs, perm, gid, cap_g)
+                p = perm
+            for (op, d, mm, u), g in zip(specs, got):
+                built = (tuple(_built(x) if x is not None and not
+                               isinstance(x, int) else x for x in d)
+                         if op == "fsumx" else _built(d))
+                want = _segment_reduce_plain(op, built, mm, p, gid, cap_g,
+                                             u)
+                _check_group_values(g, want, op, d, mm, p, gid, cap_g, u)
+
+
+@pytest.mark.parametrize("groups", ["two_rows", "one_row"])
+def test_segment_reduce_many_groups_a_warp(dev, groups):
+    """A warp's 256 rows holding a hundred groups and more (each run its
+    own atomic into device memory, the row-slot path of the segmented
+    reduction): two rows a group and a group a row, every op, through
+    both entries (the sorted one with a group boundary in every step)."""
+    rng = np.random.default_rng(22)
+    n = 600_001
+    if groups == "two_rows":
+        perm, gid = grouped_rows(n, n // 2, dev, seed=22)
+    else:
+        perm = torch.randperm(n, device=dev).to(torch.int32)
+        gid = torch.arange(n, dtype=torch.int32, device=dev)
+    cap_g = n
+    x = torch.from_numpy(rng.integers(-(1 << 40), 1 << 40, n)).to(dev)
+    f = torch.from_numpy(rng.normal(0, 1e6, n)).to(dev)
+    m = torch.from_numpy(rng.random(n) < 0.7).to(dev)
+    specs = [("sum", x, None, False), ("min", x, m, False),
+             ("max", f, None, False), ("any", x, m, False),
+             ("band", x, None, False), ("sum", f, m, False),
+             ("count", None, m, False)]
+    starts, ends = bounds_of_gid(gid, cap_g)
+    for p, got in ((perm, segment_reduce_many(specs, perm, gid, cap_g)),
+                   (None, segment_reduce_sorted(specs, starts, ends, n))):
+        for (op, d, mm, u), g in zip(specs, got):
+            want = _segment_reduce_plain(op, d, mm, p, gid, cap_g, u)
+            _check_group_values(g, want, op, d, mm, p, gid, cap_g, u)
+
+
+@pytest.mark.parametrize("layout", range(len(K6_SORTED_LAYOUTS)))
+def test_segment_reduce_sorted_bounds_layouts(dev, layout):
+    """The sorted entry from K5's bounds over chip_smoke.K6_SORTED_LAYOUTS:
+    one-row groups, more groups than slots, a group of 40 % of 3M rows,
+    groups of 2,049 rows, empty slots past the last group; against the
+    plain version over the group ids."""
+    rows, groups, cg, skew, invalid = K6_SORTED_LAYOUTS[layout]
+    rng = np.random.default_rng(23)
+    if groups == rows:
+        gid = torch.arange(rows, dtype=torch.int32, device=dev)
+    elif skew is None and rows == groups * 2049:
+        gid = torch.arange(rows, dtype=torch.int32, device=dev) // 2049
+    else:
+        gid = sorted_gid(rows, groups, dev, skew=skew, seed=14,
+                         invalid=invalid)
+    gid = torch.where(gid >= cg, cg, gid).to(torch.int32)
+    d = torch.from_numpy(rng.integers(-(1 << 40), 1 << 40, rows)).to(dev)
+    m = torch.from_numpy(rng.random(rows) < 0.5).to(dev)
+    specs = [("sum", d, None, False), ("min", d, m, False),
+             ("any", d, m, False), ("count", None, m, False)]
+    starts, ends = bounds_of_gid(gid, cg)
+    got = segment_reduce_sorted(specs, starts, ends, rows)
+    for (op, dd, mm, u), g in zip(specs, got):
+        want = _segment_reduce_plain(op, dd, mm, None, gid, cg, u)
+        _check_group_values(g, want, op, dd, mm, None, gid, cg, u)
 
 
 @pytest.mark.parametrize("groups", [1, 1000])

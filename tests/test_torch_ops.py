@@ -26,6 +26,7 @@ import subprocess
 import sys
 
 import jax.numpy as jnp
+from jax import lax
 import numpy as np
 import pytest
 import torch
@@ -773,9 +774,10 @@ def test_segment_reduce_many_matches_reference(name):
 
 def test_k6_launch_plan():
     """K6's launches: every reduction of Q2m in one launch reading one
-    column (`any` reads none) and keeping no count where the grouping's
-    row counts are given; shared masks counted once; more specs, columns
-    or masks than one launch takes split into more."""
+    column in two forms (its value for the sum, its order key for min and
+    max; `any` reads none) and keeping no count where the grouping's row
+    counts are given; shared masks counted once; more specs, columns,
+    forms or masks than one launch takes split into more."""
     x, y = torch.arange(10), torch.arange(10, dtype=torch.int32)
     m1, m2 = torch.ones(10, dtype=torch.bool), torch.zeros(10, dtype=torch.bool)
     q2m = [(op, x, None, False) for op in ("sum", "min", "max", "any")]
@@ -783,7 +785,9 @@ def test_k6_launch_plan():
     assert len(launches) == 1
     assert [t is x for t in launches[0].data] == [True]
     assert launches[0].counts == [] and launches[0].masks == []
-    assert [d for _, d, _ in launches[0].specs] == [0, 0, 0, -1]
+    assert [f for _, f, _ in launches[0].specs] == [0, 1, 1, -1]
+    assert launches[0].forms == [(0, tscan._INT, 0, 0, False),
+                                 (0, tscan._KEY, 0, 0, False)]
     assert where == [(0, 0, -1), (0, 1, -1), (0, 2, -1), (0, 3, -1)]
     # no group_rows: min, max and any share one count of every row
     launches, where = tscan._plan_launches(q2m, False)
@@ -806,6 +810,240 @@ def test_k6_launch_plan():
     masks = [("sum", x, torch.rand(10) < 0.5, False) for _ in range(5)]
     assert [len(la.masks) for la in tscan._plan_launches(masks, True)[0]] \
         == [4, 1]
+    forms = [(op, torch.arange(10) + i, None, False) for i in range(3)
+             for op in ("sum", "min")]
+    assert [len(la.forms) for la in tscan._plan_launches(forms, True)[0]] \
+        == [4, 2]
+
+
+# K6's Term divisors, as chip_smoke.K6_TERM_DIVISORS: 2, 7, 1024 where it
+# fits, -3 and each storage type's MAX and MIN
+_TERM_DIVISORS = {np.int8: (2, 7, -3, 127, -128),
+                  np.int16: (2, 7, 1024, -3, 32767, -32768),
+                  np.int32: (2, 7, 1024, -3, (1 << 31) - 1, -(1 << 31))}
+
+
+def _term_values(st, rng):
+    """Every int8 and int16 value; for int32 a sample with the edges."""
+    info = np.iinfo(st)
+    if st != np.int32:
+        return np.arange(info.min, info.max + 1, dtype=st)
+    v = rng.integers(info.min, info.max, 200_000, endpoint=True)
+    edges = [info.min, info.min + 1, -1, 0, 1, info.max - 1, info.max]
+    return np.concatenate([np.asarray(edges), v]).astype(st)
+
+
+def _term32(v, c, op):
+    """csrc/segment_reduce.cu apply_term, step for step in numpy: |v| and
+    |c| as u32, the quotient by the host's multiplier (one multiply-high
+    and two shifts), the sign put back in u32 arithmetic."""
+    from clickhouse_tpu_torch.ops.calendar_ops import magic
+    v = v.astype(np.int64)
+    a = np.where(v < 0, -v, v).astype(np.uint64)           # <= 2^31
+    d = abs(c)
+    m, l = magic(d, 32)
+    s1, s2 = min(l, 1), max(l - 1, 0)
+    t = (np.uint64(m) * a) >> np.uint64(32)
+    q = ((t + ((a - t) >> np.uint64(s1))) >> np.uint64(s2)) & 0xFFFFFFFF
+    assert int(q.max(initial=0)) < 1 << 32
+    mask = np.uint64(0xFFFFFFFF)
+    if op == "div":
+        neg = (v < 0) != (c < 0)
+        r = np.where(neg, (np.uint64(1 << 32) - q) & mask, q)
+    else:
+        rem = (a - q * np.uint64(d)) & mask
+        r = np.where(v < 0, (np.uint64(1 << 32) - rem) & mask, rem)
+    return r.astype(np.uint32).view(np.int32).astype(np.int64)
+
+
+@pytest.mark.parametrize("st", [np.int8, np.int16, np.int32],
+                         ids=["int8", "int16", "int32"])
+def test_k6_term_arithmetic_mirror(st):
+    """K6's in-register intDiv and modulo (the host's Granlund-Montgomery
+    multiplier of |c|, u32 arithmetic), mirrored in numpy, equal
+    scan_ops.Term.build (torch's truncating division and fmod) and the
+    reference's intDiv/modulo over the widened values, for every int8 and
+    int16 value, sampled int32 values with MIN and MAX, and every divisor
+    of _TERM_DIVISORS."""
+    rng = np.random.default_rng(40)
+    v = _term_values(st, rng)
+    src = torch.from_numpy(v)
+    for c in _TERM_DIVISORS[st]:
+        for op in ("div", "mod"):
+            want = tscan.Term(src, op, c, torch.int64).build().numpy()
+            assert np.array_equal(_term32(v, c, op), want), (c, op)
+            w = jnp.asarray(v.astype(np.int64))
+            cw = jnp.asarray(c, dtype=jnp.int64)
+            ref = np.asarray(lax.div(w, cw) if op == "div"
+                             else lax.rem(w, cw))
+            assert np.array_equal(ref, want), (c, op)
+
+
+def test_k6_term_is_its_built_column():
+    """A Term spec reduces as its built column: every op, through both of
+    K6's entries' plain versions, with a mask; Term.index_select gathers the
+    source and widens; the same term twice is one spec key and one form;
+    a divisor outside the storage type, 0 or -1 raises."""
+    rng = np.random.default_rng(41)
+    n, cap_g = 5000, 64
+    src = torch.from_numpy(rng.integers(-(1 << 31), 1 << 31, n)
+                           .astype(np.int32))
+    src[0] = -(1 << 31)
+    key = np.sort(rng.integers(0, 40, n))
+    gid = torch.from_numpy(key.astype(np.int32))
+    perm = torch.from_numpy(rng.permutation(n).astype(np.int32))
+    m = torch.from_numpy(rng.random(n) < 0.6)
+    starts, ends = tscan.bounds_of_gid(gid, cap_g)
+    for op_name, c in (("mod", 7), ("div", -3), ("mod", 1024)):
+        t = tscan.Term(src, op_name, c, torch.int64)
+        col = t.build()
+        for op in ("sum", "min", "max", "any", "bxor", "band", "bor"):
+            got = tscan.segment_reduce_many([(op, t, m, False)], perm, gid,
+                                            cap_g)[0]
+            want = tscan.segment_reduce_many([(op, col, m, False)], perm,
+                                             gid, cap_g)[0]
+            assert torch.equal(got, want), (op, op_name, c)
+            got = tscan.segment_reduce_sorted([(op, t, m, False)], starts,
+                                              ends, n)[0]
+            want = tscan._segment_reduce_plain(op, col, m, None, gid, cap_g,
+                                               False)
+            assert torch.equal(got, want), (op, op_name, c)
+        f = tscan.segment_reduce_many(
+            [("fsumx", (src, t, 1), None, (False, False))], perm, gid,
+            cap_g)[0]
+        assert torch.equal(f, tscan.segment_reduce_many(
+            [("fsumx", (src, col, 1), None, (False, False))], perm, gid,
+            cap_g)[0])
+        idx = torch.from_numpy(rng.integers(0, n, 300))
+        assert torch.equal(t.index_select(0, idx), col[idx])
+    t1 = tscan.Term(src, "mod", 7, torch.int64)
+    t2 = tscan.Term(src, "mod", 7, torch.int64)
+    assert tscan.spec_key(("max", t1, None, False)) \
+        == tscan.spec_key(("max", t2, None, False))
+    la, _ = tscan._plan_launches([("max", t1, None, False),
+                                  ("max", t2, m, False)], True)
+    assert len(la) == 1 and len(la[0].data) == 1 and len(la[0].forms) == 1
+    for bad in (0, -1, 1 << 31):
+        with pytest.raises(ValueError):
+            tscan.Term(src, "mod", bad, torch.int64)
+    with pytest.raises(ValueError):
+        tscan.Term(src.to(torch.int64), "mod", 7, torch.int64)
+
+
+def test_k6_plan_q2s2_one_launch_one_source():
+    """Q2s2's seven reductions (max of x % 7, the statistics' terms of x
+    and x % 7, bxor of x) and its count: ONE launch with ONE source column
+    (x's int32 storage) in four forms (x's double and value, x % 7's key
+    and double), the two x % 7 Terms one."""
+    x = torch.arange(-500, 500, dtype=torch.int32)
+    a = tscan.Term(x, "mod", 7, torch.int64)     # argMax's x % 7
+    b = tscan.Term(x, "mod", 7, torch.int64)     # corr's x % 7
+    specs = [("max", a, None, False),
+             ("fsumx", (x, None, 1), None, (False, False)),
+             ("fsumx", (x, None, 2), None, (False, False)),
+             ("fsumx", (x, b, 1), None, (False, False)),
+             ("fsumx", (b, None, 1), None, (False, False)),
+             ("fsumx", (b, None, 2), None, (False, False)),
+             ("bxor", x, None, False), ("count", None, None, False)]
+    la, where = tscan._plan_launches([tscan._checked_spec(sp)
+                                      for sp in specs], True)
+    assert len(la) == 1 and len(la[0].data) == 1 and la[0].data[0] is x
+    assert len(la[0].specs) == 7 and la[0].counts == []
+    assert sorted(la[0].forms) == sorted([
+        (0, tscan._KEY, 2, 7, False), (0, tscan._DBL, 0, 0, False),
+        (0, tscan._DBL, 2, 7, False), (0, tscan._INT, 0, 0, False)])
+    assert where[-1] == (-1, -1, -1)
+
+
+def _layout_gid(name, rng):
+    """(sorted group ids, cap_g) of a sorted-entry layout: rows without a
+    slot carry cap_g or more and come last."""
+    if name == "one_row_groups":
+        return np.arange(3000), 4096
+    if name == "empty_slots":                    # slots past the groups
+        return np.sort(rng.integers(0, 50, 4000)), 200
+    if name == "more_groups_than_slots":         # the rest have no slot
+        return np.sort(rng.integers(0, 900, 5000)), 300
+    if name == "group_over_many_tiles":          # 40 % in one group
+        k = rng.integers(0, 30, 30_000)
+        k[rng.random(30_000) < 0.4] = 11
+        return np.sort(k), 64
+    k = np.sort(rng.integers(0, 80, 6000))       # invalid rows last
+    k[-700:] = 1 << 20
+    return k, 128
+
+
+# bounds that break the sorted entry's layout: (starts, ends, n)
+_BAD_BOUNDS = {
+    "gap_between_groups": ([0, 5, 9], [4, 9, 12], 12),
+    "first_group_after_row_0": ([2, 5, 9], [5, 9, 12], 12),
+    "end_before_start": ([0, 5, 9], [5, 9, 7], 12),
+    "past_the_rows": ([0, 5, 9], [5, 9, 14], 12),
+}
+
+
+@pytest.mark.parametrize("case", sorted(_BAD_BOUNDS))
+def test_sorted_entry_rejects_bounds_with_a_gap(case):
+    """The sorted-order entry's plain version and gid_of_bounds raise for
+    bounds that are not K5's layout (the kernel would credit a gap's rows
+    to the group before it); K5's own bounds pass."""
+    s, e, n = _BAD_BOUNDS[case]
+    starts, ends = torch.tensor(s), torch.tensor(e)
+    x = torch.arange(n, dtype=torch.int64)
+    with pytest.raises(ValueError, match="no gap"):
+        tscan.gid_of_bounds(starts, ends, n)
+    with pytest.raises(ValueError, match="no gap"):
+        tscan.segment_reduce_sorted([("sum", x, None, False)], starts, ends,
+                                    n)
+    ok = torch.tensor([0, 5, 9]), torch.tensor([5, 9, 11])
+    got = tscan.segment_reduce_sorted([("sum", x, None, False)], *ok, n)[0]
+    assert got.tolist() == [10, 26, 19]
+
+
+@pytest.mark.parametrize("gid", [[0, 0, 3, 1, 1], [0, 9, 1, 1, 9]],
+                         ids=["descending", "no_slot_before_a_group"])
+def test_bounds_of_gid_rejects_unsorted_group_ids(gid):
+    """bounds_of_gid takes ascending group ids with the rows without a slot
+    (cap_g or more) last, and raises otherwise."""
+    with pytest.raises(ValueError, match="ascend"):
+        tscan.bounds_of_gid(torch.tensor(gid, dtype=torch.int32), 4)
+
+
+@pytest.mark.parametrize("layout", ["one_row_groups", "empty_slots",
+                                    "more_groups_than_slots",
+                                    "group_over_many_tiles",
+                                    "invalid_rows"])
+def test_sorted_entry_bounds_form_equals_gid_form(layout):
+    """K6's sorted-order entry from K5's bounds (starts/ends: its plain
+    version's group of each row by gid_of_bounds) equals its group-id
+    form, for every op with and without a mask; the bounds come from K5's
+    plain version over the sorted keys and from bounds_of_gid alike, and
+    gid_of_bounds gives K5's group ids back (cap_g where there is no
+    slot)."""
+    rng = np.random.default_rng(42)
+    key, cap_g = _layout_gid(layout, rng)
+    n = len(key)
+    n_valid = int((key < (1 << 20)).sum())
+    kt = torch.from_numpy(key.astype(np.int32))
+    gid, _, starts, ends = tscan._segment_bounds_plain(
+        [kt], torch.tensor(n_valid), cap_g)
+    gid = torch.where(gid >= cap_g, cap_g, gid).to(torch.int32)
+    s2, e2 = tscan.bounds_of_gid(gid, cap_g)
+    assert torch.equal(s2, starts) and torch.equal(e2, ends)
+    assert torch.equal(tscan.gid_of_bounds(starts, ends, n), gid)
+    x = torch.from_numpy(rng.integers(-(1 << 40), 1 << 40, n))
+    f = torch.from_numpy(rng.normal(0, 1e3, n))
+    m = torch.from_numpy(rng.random(n) < 0.5)
+    specs = [(op, d, mm, False) for mm in (None, m)
+             for op, d in (("sum", x), ("min", x), ("max", f), ("any", x),
+                           ("bxor", x), ("sum", f), ("count", None))]
+    got = tscan.segment_reduce_sorted(specs, starts, ends, n,
+                                      group_rows=ends - starts)
+    for (op, d, mm, u), g in zip(specs, got):
+        want = tscan._segment_reduce_plain(op, d, mm, None, gid, cap_g, u)
+        assert torch.equal(g, want) or (
+            g.is_floating_point() and torch.allclose(
+                g, want, rtol=1e-12, atol=0, equal_nan=True)), (op, layout)
 
 
 # -- reference divergences (ROADMAP queue 3) -----------------------------------
