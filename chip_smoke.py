@@ -15,6 +15,9 @@
                                       # (an older checkout's alike)
     python3 chip_smoke.py --calendar  # only K12's cases, Qt1-Qt5 over
                                       # hits_t and K12 at their inputs
+    python3 chip_smoke.py --streaming  # only K13's cases, Q5, Q5b, Q6
+                                      # and Q5np streamed over 1B rows and
+                                      # K13 at their chunks
     python3 chip_smoke.py --sass calendar_part  # one source's nvcc time,
                                       # registers, spills, shared bytes and
                                       # SASS CALLs a kernel (or
@@ -23,7 +26,7 @@
 Needs one NVIDIA Hopper card, nvcc and PyTorch built for CUDA; exits
 non-zero without them.  Phases, each of which fails the run:
 
-  1. build the twelve hand-written kernels (csrc/*.cu) with nvcc for sm_90a,
+  1. build the thirteen hand-written kernels (csrc/*.cu) with nvcc for sm_90a,
      one nvcc a source, all started together;
   2. hold each kernel against its plain PyTorch version on the card: edge
      cases (K1 with and without filter terms over every storage type and
@@ -174,7 +177,19 @@ non-zero without them.  Phases, each of which fails the run:
      runs, synchronised) with its peak memory beside the governor's
      estimate, the device-busy time of Q1, Q2b, Q2m, Q4, Q4h, Q4x and the
      slice-10 queries (torch.profiler) and Q4's wall over the probe
-     roofline of bench.py:509-525.
+     roofline of bench.py:509-525;
+  5. with the earlier tables freed, stream bench.py's BASELINE-scale
+     queries (streaming_phase): big (1B rows of x) and fact (1B rows of
+     fk) inserted in 250M pieces, dim (10M rows); Q5 (its host PREWHERE
+     sends the ~500M rows above 500000), Q5b and Q6 with stream_readers =
+     2, and Q5np (Q5 with the PREWHERE off) packed and, through
+     ChunkSource(pack=False), unpacked: each must stream, read its chunks
+     (aligned: 2 a 250M part), equal numpy, launch exactly
+     stream_paths (K13 a chunk), and hold less device memory above what
+     was allocated before it than its column's bytes; prints the H2D
+     copy rate pinned and pageable, each query's cold and warm walls,
+     wire rate, io_stats, device-busy time and peak; then K13 at Q5np's
+     and Q6's chunks (K13's cases of K13_CASES run in phase 2).
 
 The second-to-last line is a JSON object of per-kernel results (name,
 route, source, replaces, launches, ms, plain_ms, bound_ms, bound_by,
@@ -347,7 +362,9 @@ EXTRA_KEYS = ("level1_ms", "merge_ms", "entry64_ms", "entry64_bound_ms",
               "start_of_day_plain_ms", "start_of_day_bytes",
               "start_of_day_bound_ms", "start_of_day_kernels_per_call",
               "yyyymmdd64_ms", "yyyymmdd64_plain_ms", "yyyymmdd64_bytes",
-              "yyyymmdd64_bound_ms", "yyyymmdd64_kernels_per_call")
+              "yyyymmdd64_bound_ms", "yyyymmdd64_kernels_per_call",
+              "q5_ms", "q5_plain_ms", "q5_bytes", "q5_bound_ms", "q5_shape",
+              "shape")
 F64_EPS = 2.0 ** -52
 CMPS = ["equals", "notEquals", "less", "lessOrEquals", "greater",
         "greaterOrEquals"]
@@ -2408,9 +2425,10 @@ def q_shapes(dev, args):
     out["dense_group_reduce"]["wide_s_ms"] = k2_wide(dev)
 
     def bincount_index_add():
+        # index_add_ sums in its source's type: x's int32 storage widened
         torch.bincount(ids, minlength=1024)
         torch.zeros(1024, dtype=torch.int64, device=dev).index_add_(
-            0, ids, svs[0])
+            0, ids, svs[0].to(torch.int64))
     print(f"dense_group_reduce for information: torch.bincount + "
           f"index_add_ at Q2's shape {cuda_ms(bincount_index_add):.4f} ms",
           flush=True)
@@ -2782,12 +2800,13 @@ def load_hits_s(s):
           f"{t2 - t1:.1f} s", flush=True)
 
 
-def device_busy(s, sql, reps=QUERY_REPS):
+def device_busy(s, sql, reps=QUERY_REPS, events_out=None):
     """(device-busy ms, device operations, wall ms, top) per run of sql,
     from a torch.profiler trace of `reps` runs (busy: the union of the
     intervals of the device's kernels, copies and fills; the wall is the
     traced one; top: the 8 device operations that take the most device
-    time, as (name, ms a run))."""
+    time, as (name, ms a run)).  events_out, a list, gets each device
+    operation's (name, start us, end us)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
     s.execute(sql)
@@ -2800,6 +2819,9 @@ def device_busy(s, sql, reps=QUERY_REPS):
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if events_out is not None:
+        events_out.extend((e.name, e.time_range.start, e.time_range.end)
+                          for e in events)
     spans = sorted((e.time_range.start, e.time_range.end) for e in events)
     busy, end = 0.0, float("-inf")
     for a, b in spans:
@@ -4334,6 +4356,407 @@ def sass_report(source: str):
           flush=True)
 
 
+# -- slice 16: out-of-core streaming (Q5, Q5b, Q6 over 1B rows) ------------
+STREAM_ROWS = 1_000_000_000             # bench.py:37-38
+STREAM_PIECE = 250_000_000              # bench.py inserts in 250M pieces
+JOIN_DIM = 10_000_000
+STREAM_CHUNK_ROWS = 1 << 27             # stream_chunk_bytes / int32 storage
+STREAM_SQL = (
+    ("Q5", "SELECT count() FROM big WHERE x > 500000 "
+           "SETTINGS stream_readers = 2"),
+    ("Q5b", "SELECT x % 1024 AS k, count() AS c, sum(x) FROM big GROUP BY k "
+            "ORDER BY c DESC LIMIT 10 SETTINGS stream_readers = 2"),
+    ("Q6", "SELECT count(), sum(label) FROM fact INNER JOIN dim "
+           "ON fact.fk = dim.k SETTINGS stream_readers = 2"),
+    # Q5 with the host PREWHERE off: every row crosses the link, in the
+    # parts' aligned chunks (the packed and unpacked transport compared)
+    ("Q5np", "SELECT count() FROM big WHERE x > 500000 SETTINGS "
+             "stream_readers = 2, optimize_move_to_prewhere = 0"),
+)
+STREAM_WARM = 5                         # warm runs timed after the cold one
+STREAM_TURNS = 10                       # Q5np packed/unpacked runs in turns
+# K13's cases: (w4, lo, half, rows, output type); offsets below zero, an
+# odd row count, a part's short last chunk, each output width
+K13_CASES = ((4, -7, 1025, 2049, torch.int8), (8, 0, 4097, 8193, torch.uint8),
+             (8, -133, 3, 5, torch.int16), (12, -2053, 65_537, 100_001,
+                                            torch.int16),
+             (20, 0, 1 << 20, (1 << 21) - 3, torch.int32),
+             (20, -300, STREAM_CHUNK_ROWS // 2, 115_782_272, torch.int32),
+             (24, 0, 1 << 20, 1 << 21, torch.int32),
+             (24, -(1 << 23) - 5, 999_999, 1_999_997, torch.int32),
+             (28, -(1 << 27) - 1, 1 << 19, (1 << 20) - 1, torch.int32),
+             (28, (1 << 40) - 3, 1 << 19, (1 << 20) - 1, torch.int64))
+
+
+def stream_paths(chunks: dict) -> dict:
+    """The kernels each streamed query launches, by its chunks: K13 a
+    chunk (one packed column), then Q5 K1 a chunk (its filter as a term)
+    and one K1 a merge of the GROUP BY () carry (count()'s state is the
+    group count); Q5b K2 a chunk and K4, K5 and K6 a merge of the keyed
+    carry (1,024 + 1,024 slots, whose valid ones K1 counts), then the
+    upper plan's K1 (the sorted block's row count) and K3; Q6 K8 (dim's
+    10M keys pass join_dense_table_entries, 8M: the hash join, as in the
+    reference) and two K1 a chunk (count and sum(label)) and two K1 a
+    merge."""
+    out = {}
+    for name, n in chunks.items():
+        m = n - 1
+        if name in ("Q5", "Q5np", "Q5np_unpacked"):
+            p = {"masked_reduce": n + m}
+        elif name == "Q5b":
+            p = {"dense_group_reduce": n, "radix_sort_pairs": m,
+                 "segment_bounds": m, "segment_reduce": m,
+                 "topk_smallest": 1, "masked_reduce": m + 1}
+        else:
+            p = {"hash_join": n, "masked_reduce": 2 * n + 2 * m}
+        if name != "Q5np_unpacked":
+            p["unpack_pairs"] = n
+        out[name] = p
+    return out
+
+
+def k13_case(w4, lo, half, rows, out_dtype, seed=13):
+    """(packed bytes on the host, the values they hold): rows values in
+    [lo, lo + 2^w4), the rest of the 2 * half slots lo (padding), packed
+    as ChunkSource.encode_column packs them."""
+    rng = np.random.default_rng(seed + w4 + half)
+    cap = 2 * half
+    v = np.zeros(cap, np.uint64)
+    v[:rows] = rng.integers(0, 1 << w4, rows, dtype=np.uint64)
+    if rows:
+        v[0], v[rows - 1] = 0, (1 << w4) - 1
+    pairs = v[:half] | (v[half:] << np.uint64(w4))
+    bpp = w4 // 4
+    data = np.ascontiguousarray(pairs.astype("<u8").view(np.uint8).reshape(
+        half, 8)[:, :bpp]).reshape(-1)
+    want = v.astype(np.int64) + np.int64(lo)
+    return data, want, bpp
+
+
+def check_k13(dev):
+    """K13 against its plain version on the card over K13_CASES, and
+    both against the values that were packed."""
+    from clickhouse_tpu_torch.ops.chunk_ops import (_unpack_pairs_plain,
+                                                    unpack_pairs)
+    for w4, lo, half, rows, out_dtype in K13_CASES:
+        data, want, bpp = k13_case(w4, lo, half, rows, out_dtype)
+        d = torch.from_numpy(data).to(dev)
+        got = unpack_pairs(d, w4, lo, bpp, 2 * half, out_dtype)
+        plain = _unpack_pairs_plain(d, w4, lo, bpp, 2 * half, out_dtype)
+        max_abs_err(got, plain)
+        ref = torch.from_numpy(want).to(out_dtype)
+        if not torch.equal(got.cpu(), ref):
+            fail(f"K13 (w4={w4}, lo={lo}, {2 * half} rows, {out_dtype}) "
+                 f"unpacked other values than were packed")
+    print(f"K13 matches its plain version and the packed values over "
+          f"{len(K13_CASES)} cases (w4 4-28, offsets below zero, odd row "
+          f"counts, a part's short last chunk, int8/uint8/int16/int32/"
+          f"int64)", flush=True)
+
+
+def h2d_roofline(dev):
+    """Host->device copy rate (bytes/s) of three distinct 1 GiB buffers,
+    the best of the three (bench.py:357-365), from page-locked and from
+    pageable memory."""
+    out = {}
+    for pinned in (True, False):
+        probes = [torch.full((1 << 28,), i, dtype=torch.int32,
+                             pin_memory=pinned) for i in range(3)]
+        torch.zeros(1 << 28, dtype=torch.int32).to(dev)
+        ts = []
+        for p in probes:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            p.to(dev, non_blocking=pinned)
+            torch.cuda.synchronize()
+            ts.append(time.perf_counter() - t0)
+        out["pinned" if pinned else "pageable"] = probes[0].nbytes / min(ts)
+        del probes
+    return out
+
+
+def chunk_copy_ms(src, dev):
+    """Device time (CUDA events) of copying each of src's chunks, from its
+    encode cache, to the device one after another, as the program's copy
+    stream does: what the link takes of a warm run, which a trace of the
+    run may not show whole (its copies are the feeder thread's)."""
+    start, end = torch.cuda.Event(enable_timing=True), \
+        torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    start.record()
+    for i in range(src.num_chunks):
+        for d, v in src.chunk(i)[0].values():
+            for a in (d, v):
+                if a is not None:
+                    torch.from_numpy(a).to(dev, non_blocking=True)
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end)
+
+
+def traced_copies(events):
+    """(count, ms) of the host->device copies of 1 ms or more in a trace's
+    device operations: a streamed chunk's (a chunk is 335 MB or more)."""
+    spans = [(b - a) / 1e3 for n, a, b in events
+             if n.startswith("Memcpy HtoD") and b - a >= 1e3]
+    return len(spans), sum(spans)
+
+
+def load_stream_tables(ch):
+    """bench.py's big (1B rows of x) and fact (1B rows of fk) and dim
+    (10M rows), inserted in 250M pieces; -> (session, numpy answers,
+    rows of big and of fact).  Cut (and printed) where the host's memory
+    cannot hold them."""
+    total_gb = int(subprocess.run(["free", "-g"], capture_output=True,
+                                  text=True).stdout.split()[7])
+    rows = STREAM_ROWS if total_gb >= 64 else STREAM_ROWS * total_gb // 64
+    print(f"streaming phase: host memory {total_gb} GiB (free -g total); "
+          f"big and fact {rows} rows each"
+          + ("" if rows == STREAM_ROWS else f" (cut from {STREAM_ROWS})"),
+          flush=True)
+    s = ch.connect(device="cuda")
+    s.execute("CREATE TABLE big (x Int64)")
+    s.execute("CREATE TABLE fact (fk Int64)")
+    s.execute("CREATE TABLE dim (k Int64, label Int64)")
+    t0 = time.perf_counter()
+    n_gt, counts, sums = 0, np.zeros(1024, np.int64), np.zeros(1024,
+                                                                np.int64)
+    label_sum = 0
+    lab = (np.arange(JOIN_DIM, dtype=np.int64) * 7) % 97
+    for lo in range(0, rows, STREAM_PIECE):
+        hi = min(lo + STREAM_PIECE, rows)
+        x = (np.arange(lo, hi, dtype=np.int64) * 2654435761) % 1_000_003
+        n_gt += int(np.count_nonzero(x > 500000))
+        k = x & 1023
+        counts += np.bincount(k, minlength=1024)
+        sums += np.bincount(k, weights=x, minlength=1024).astype(np.int64)
+        s.insert_pydict("big", {"x": x})
+        fk = (np.arange(lo, hi, dtype=np.int64) * 40503) % JOIN_DIM
+        label_sum += int(np.bincount(fk, minlength=JOIN_DIM) @ lab)
+        s.insert_pydict("fact", {"fk": fk})
+        del x, k, fk
+    s.insert_pydict("dim", {"k": np.arange(JOIN_DIM, dtype=np.int64),
+                            "label": lab})
+    want = {"Q5": [(n_gt,)], "Q5np": [(n_gt,)], "Q6": [(rows, label_sum)],
+            "Q5b": (counts, sums)}
+    print(f"streaming tables built in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return s, want, rows
+
+
+def stream_agree(name, rows, want) -> bool:
+    if name != "Q5b":
+        return rows == want[name]
+    counts, sums = want["Q5b"]
+    top = sorted(counts.tolist(), reverse=True)[:10]
+    return len(rows) == 10 and [c for _, c, _ in rows] == top and all(
+        c == counts[k] and sm == sums[k] for k, c, sm in rows)
+
+
+def streaming_phase(ch, dev, launches, launch_rows):
+    """Q5, Q5b and Q6 (and Q5np, packed and not) over 1B rows through
+    connect(device="cuda"): each streams (StreamedQueries), reads the
+    expected chunks, equals numpy, launches exactly stream_paths and holds
+    less device memory above what was allocated before it than its
+    streamed column's bytes; prints the H2D roofline, each query's cold
+    and warm walls, wire rate, io_stats, device-busy time and peak.  ->
+    (K13's replay record, the chunk bytes of Q5np and Q6 for it)."""
+    import gc
+    from clickhouse_tpu_torch.ops import _native
+    from clickhouse_tpu_torch.storage.table import ChunkSource
+    roof = h2d_roofline(dev)
+    print(f"host->device copy of a distinct 1 GiB buffer, best of 3: pinned "
+          f"{roof['pinned'] / 1e9:.3f} GB/s, pageable "
+          f"{roof['pageable'] / 1e9:.3f} GB/s", flush=True)
+    s, want, rows = load_stream_tables(ch)
+    parts = -(-rows // STREAM_PIECE)
+    per_part = -(-STREAM_PIECE // STREAM_CHUNK_ROWS)
+    aligned = sum(-(-min(STREAM_PIECE, rows - i * STREAM_PIECE)
+                    // STREAM_CHUNK_ROWS) for i in range(parts))
+    chunks = {"Q5": -(-want["Q5"][0][0] // STREAM_CHUNK_ROWS),
+              "Q5b": aligned, "Q6": aligned, "Q5np": aligned,
+              "Q5np_unpacked": aligned}
+    paths = stream_paths(chunks)
+    print(f"{parts} parts of up to {STREAM_PIECE} rows, {per_part} chunks "
+          f"of {STREAM_CHUNK_ROWS} rows a full part; the paths: {paths}",
+          flush=True)
+    table_big = s.catalog.get_table("default", "big")
+    dim_bytes = s.catalog.get_table("default", "dim").physical_bytes()
+    chunk_bytes = s.settings.stream_chunk_bytes
+    column_bytes = {"Q5": table_big.physical_bytes(),
+                    "Q5np": table_big.physical_bytes(),
+                    "Q5np_unpacked": table_big.physical_bytes(),
+                    "Q5b": table_big.physical_bytes(),
+                    "Q6": s.catalog.get_table(
+                        "default", "fact").physical_bytes()}
+    runs = list(STREAM_SQL) + [("Q5np_unpacked", dict(STREAM_SQL)["Q5np"])]
+    record, progs = {}, {}
+    # stream_readers = 2 must run the read pool: count its runs
+    from clickhouse_tpu_torch.storage import read_pool
+    pool_runs = [0]
+    iter_ordered = read_pool.ParallelChunkReader.iter_ordered
+
+    def counted(self):
+        pool_runs[0] += 1
+        return iter_ordered(self)
+    read_pool.ParallelChunkReader.iter_ordered = counted
+    for name, sql in runs:
+        if name == "Q5np_unpacked":
+            # the same chunks, the column's int32 storage over the link
+            # (ChunkSource(pack=False), put in the table's source cache)
+            key = table_big._chunk_source_cache[0]
+            table_big._chunk_source_cache = (key, ChunkSource(
+                table_big, ["x"], key[2], pack=False))
+            s._stream_cache.clear()
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        before = s.profile_events.get("StreamedQueries", 0)
+        _native.reset_launches()
+        t0 = time.perf_counter()
+        pool_before = pool_runs[0]
+        got = s.execute(sql).rows()
+        torch.cuda.synchronize()
+        cold = time.perf_counter() - t0
+        if pool_runs[0] != pool_before + 1:
+            fail(f"{name} did not run the read pool (stream_readers = 2)")
+        mine = dict(_native.LAUNCHES)
+        rows_of = {k: list(v) for k, v in _native.LAUNCH_ROWS.items()}
+        peak = torch.cuda.max_memory_allocated() - base
+        want_name = "Q5np" if name == "Q5np_unpacked" else name
+        if not stream_agree(want_name, got, want):
+            fail(f"{name} returned {got[:5]}, numpy says "
+                 f"{want[want_name] if name != 'Q5b' else 'other groups'}")
+        if s.profile_events.get("StreamedQueries", 0) != before + 1:
+            fail(f"{name} did not stream")
+        prog = next(v[0] for k, v in s._stream_cache.items() if k[0] == sql)
+        if prog.io_stats["chunks"] != chunks[name]:
+            fail(f"{name} read {prog.io_stats['chunks']} chunks, not "
+                 f"{chunks[name]}")
+        if name == "Q5np_unpacked" and prog.src.packed:
+            fail("Q5np_unpacked's source packs")
+        path = {k: paths[name].get(k, 0) for k in mine}
+        if mine != path:
+            fail(f"{name} launched { {k: v for k, v in mine.items() if v} };"
+                 f" its path is {paths[name]} and nothing else")
+        if peak >= column_bytes[name]:
+            fail(f"{name} held {peak} bytes of device memory above what was "
+                 f"allocated before it, not below its streamed column's "
+                 f"{column_bytes[name]} bytes")
+        for k, v in rows_of.items():
+            launches[k] += mine[k]
+            launch_rows[k] += v
+        io_cold = dict(prog.io_stats)
+        warm = []
+        for _ in range(STREAM_WARM):
+            t0 = time.perf_counter()
+            if s.execute(sql).rows() != got:
+                fail(f"{name}'s warm run returned other rows")
+            torch.cuda.synchronize()
+            warm.append(time.perf_counter() - t0)
+        prog = progs[name] = next(v[0] for k, v in s._stream_cache.items()
+                                  if k[0] == sql)
+        copy_ms = chunk_copy_ms(prog.src, dev)
+        events = []
+        busy, ops, wall, top = device_busy(s, sql, reps=1, events_out=events)
+        n_copies, traced_ms = traced_copies(events)
+        per_row = sum(b for _, _, b in prog.src.packed.values()) / 2 or 4
+        wire = prog.src.total_rows * per_row
+        pinned_ms = wire / roof["pinned"] * 1e3
+        # the trace holds the run's device time only where it holds a
+        # copy a chunk and their time comes to the replayed copies'
+        whole = n_copies >= chunks[name] and traced_ms >= 0.9 * copy_ms
+        med = statistics.median(warm)
+        record[name] = {"cold_s": cold, "warm_s": med, "peak": peak,
+                        "busy_ms": busy, "busy_whole": whole,
+                        "copy_ms": copy_ms}
+        print(f"{name}: {chunks[name]} chunks through the read pool; "
+              f"cold {cold:.3f} s, warm "
+              f"median {med:.3f} s of {STREAM_WARM} ({[round(w, 3) for w in warm]});"
+              f" {rows / med / 1e9:.3f} G rows/s; wire {wire / med / 1e9:.3f}"
+              f" GB/s ({prog.src.total_rows} rows, {per_row:g} B a row) = "
+              f"{wire / med / roof['pinned']:.3f} of the pinned copy rate; "
+              f"io_stats cold {io_cold}, warm (last run) {prog.io_stats}; "
+              f"chunk copies replayed {copy_ms:.3f} ms (the wire bytes at "
+              f"the pinned rate: {pinned_ms:.3f} ms); the trace holds "
+              f"{n_copies} chunk copies of {chunks[name]} chunks, "
+              f"{traced_ms:.3f} ms: device busy {busy:.3f} ms"
+              + ("" if whole else " (partial: the trace misses copies)")
+              + f" of {wall:.3f} ms wall, {ops:g} device operations, top "
+              + "; ".join(f"{n} {t:.3f}" for n, t in top[:5])
+              + f"; peak {peak} bytes above what was allocated before it "
+              f"(3 x stream_chunk_bytes + the build side: "
+              f"{3 * chunk_bytes + (dim_bytes if name == 'Q6' else 0)}); "
+              f"launches { {k: v for k, v in mine.items() if v} }",
+              flush=True)
+    # packed against unpacked, in turns, each program as the session runs
+    # it (its chunks in the encode caches)
+    turns = {"Q5np": [], "Q5np_unpacked": []}
+    for _ in range(STREAM_TURNS):
+        for name in turns:
+            t0 = time.perf_counter()
+            progs[name].run(s)
+            torch.cuda.synchronize()
+            turns[name].append(time.perf_counter() - t0)
+    read_pool.ParallelChunkReader.iter_ordered = iter_ordered
+    packed, unpacked = (statistics.median(turns[n]) for n in turns)
+    print(f"Q5np in turns, {STREAM_TURNS} runs each: packed median "
+          f"{packed:.4f} s (min {min(turns['Q5np']):.4f}), unpacked median "
+          f"{unpacked:.4f} s (min {min(turns['Q5np_unpacked']):.4f}); "
+          f"packing " + ("pays" if packed < unpacked else "does not pay")
+          + " on this card's link, by these walls (the chunk copies "
+          f"replayed: packed {record['Q5np']['copy_ms']:.1f} ms, unpacked "
+          f"{record['Q5np_unpacked']['copy_ms']:.1f} ms a run)", flush=True)
+    # K13 at Q5np's and Q6's first chunk (a full one), from the caches
+    bytes_of = {}
+    for name in ("Q5np", "Q6"):
+        src = progs[name].src
+        col = src.columns[0]
+        data = src.chunk(0)[0][col][0]
+        bytes_of[name] = (torch.from_numpy(data).to(dev), src.packed[col],
+                          src.chunk_rows,
+                          dt_of(src.storage[col]))
+    del s, progs, prog
+    gc.collect()
+    torch.cuda.empty_cache()
+    return k13_shape(bytes_of), record
+
+
+def dt_of(np_dtype):
+    from clickhouse_tpu_torch.core import dtypes
+    return dtypes.torch_dtype_of(np_dtype)
+
+
+def k13_shape(bytes_of):
+    """K13 replayed at Q5np's and Q6's chunk inputs against its plain
+    version: ms, plain_ms, bytes and bound_ms (library: none; Q6's are the
+    record's main numbers, Q5np's under q5_*)."""
+    from clickhouse_tpu_torch.ops.chunk_ops import (_unpack_pairs_plain,
+                                                    unpack_pairs,
+                                                    unpack_pairs_bytes)
+    out = {"library_ms": None, "max_abs_err": 0.0}
+    for name, (d, (w4, off, bpp), cap, out_dtype) in bytes_of.items():
+        got = unpack_pairs(d, w4, off, bpp, cap, out_dtype)
+        plain = _unpack_pairs_plain(d, w4, off, bpp, cap, out_dtype)
+        out["max_abs_err"] = max(out["max_abs_err"], max_abs_err(got, plain))
+        del got, plain
+        ms = cuda_ms(lambda: unpack_pairs(d, w4, off, bpp, cap, out_dtype))
+        plain_ms = cuda_ms(lambda: _unpack_pairs_plain(d, w4, off, bpp, cap,
+                                                       out_dtype), reps=3)
+        nb = unpack_pairs_bytes(cap, bpp, out_dtype)
+        pre = "" if name == "Q6" else "q5_"
+        out.update({f"{pre}ms": ms, f"{pre}plain_ms": plain_ms,
+                    f"{pre}bytes": nb, f"{pre}bound_ms": bound_ms(nb),
+                    f"{pre}shape": f"w4={w4} bpp={bpp} cap={cap} "
+                                   f"{out_dtype}"})
+        print(f"K13 at {name}'s chunk ({cap} values, w4 {w4}, {bpp} B a "
+              f"pair, {out_dtype}): {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"{nb} bytes, bound {bound_ms(nb):.4f} ms (share "
+              f"{bound_ms(nb) / ms:.2f})", flush=True)
+    return out
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this check needs a GPU")
@@ -4413,6 +4836,16 @@ def main():
         # copied into an unpacked older checkout it times that tree alike
         k6_turn(load_hits(ch)[0])
         return
+    if sys.argv[1:] == ["--streaming"]:
+        # K13's cases, then Q5, Q5b, Q6 and Q5np streamed over 1B rows on
+        # their paths, and K13 at their chunks
+        check_k13(dev)
+        launches = {k: 0 for k in _native.LAUNCHES}
+        launch_rows = {k: [] for k in _native.LAUNCHES}
+        k13, _ = streaming_phase(ch, dev, launches, launch_rows)
+        print(json.dumps({"unpack_pairs": k13,
+                          "launches": launches["unpack_pairs"]}), flush=True)
+        return
     if sys.argv[1:] == ["--aggregates"]:
         # K6's cases (both entries), Q2u, Q2ug, Q2q, Q2s2 and Q2g on their
         # path, K6's sorted-order entry at Q2ug's inputs, and the five
@@ -4437,7 +4870,7 @@ def main():
 
     for check in (check_k1, check_k2, check_k3, check_k4, check_k5,
                   check_k6, check_k6_sorted, check_k7, check_k8, check_k9,
-                  check_k10, check_k11, check_k12):
+                  check_k10, check_k11, check_k12, check_k13):
         check(dev)
         print(f"[{time.perf_counter() - t0:.1f} s] {check.__name__} done",
               flush=True)
@@ -4568,6 +5001,15 @@ def main():
     shapes.update(calendar_shapes(dev, s))
     shapes["calendar_part"]["k12_calls"] = k12_calls
     print(f"[{time.perf_counter() - t0:.1f} s] kernel times done",
+          flush=True)
+    # the streaming phase over 1B rows, after the earlier tables are freed
+    import gc
+    del s
+    gc.collect()
+    torch.cuda.empty_cache()
+    shapes["unpack_pairs"], _ = streaming_phase(ch, dev, launches,
+                                                launch_rows)
+    print(f"[{time.perf_counter() - t0:.1f} s] streaming phase done",
           flush=True)
     for name in ("radix_sort_pairs", "segment_reduce", "segment_bounds"):
         shapes[name]["launches_per_query"] = {
@@ -4713,11 +5155,15 @@ def kernel_line(card, shapes, launches, launch_rows):
                    "clickhouse_tpu/exprs/functions_ext.py:2204"),
                "calendar_part": (
                    "clickhouse_tpu_torch/csrc/calendar_part.cu",
-                   "clickhouse_tpu/exprs/functions.py:1043")}
+                   "clickhouse_tpu/exprs/functions.py:1043"),
+               "unpack_pairs": (
+                   "clickhouse_tpu_torch/csrc/unpack_pairs.cu",
+                   "clickhouse_tpu/exec/streaming.py:930")}
     kernels = []
     for name, (src, repl) in sources.items():
         r = shapes[name]
-        full = N_VECS if name == "vector_distance" else N_ROWS
+        full = N_VECS if name == "vector_distance" else \
+            STREAM_CHUNK_ROWS if name == "unpack_pairs" else N_ROWS
         big = sum(1 for m in launch_rows[name] if m >= full)
         print(f"{name}: {launches[name]} launches on the main path, {big} "
               f"of them over {full} rows", flush=True)

@@ -32,7 +32,8 @@ from . import dtypes as dt
 from .errors import NotImplementedError_
 
 __all__ = ["Column", "Dictionary", "column_from_numpy", "PAD_MULTIPLE",
-           "pad_to", "narrow_storage", "check_array_type", "array_width"]
+           "pad_to", "narrow_storage", "check_array_type", "array_width",
+           "hash_tokens128"]
 
 # Pad every column to a multiple of 1024 rows, as the reference does.
 PAD_MULTIPLE = 1024
@@ -252,6 +253,40 @@ def factorize_strings(values: np.ndarray):
     dic = Dictionary(uniq.astype(object), sorted_=True)
     dic._values_str = uniq
     return codes.astype(np.int32), dic
+
+
+def _mix64(z: np.ndarray) -> np.ndarray:
+    """splitmix64's finalizer over uint64 (wrapping)."""
+    z = (z ^ (z >> np.uint64(30))) * np.uint64(0xBF58476D1CE4E5B9)
+    z = (z ^ (z >> np.uint64(27))) * np.uint64(0x94D049BB133111EB)
+    return z ^ (z >> np.uint64(31))
+
+
+def hash_tokens128(values: np.ndarray) -> np.ndarray:
+    """A 128-bit token a string ((lo, hi) uint64 records, which compare
+    and sort as pairs): two seeded splitmix64 chains over each value's
+    UTF-8 bytes, eight at a time, and its length.  Equal strings give
+    equal tokens; the hash-token dictionary of a streamed String column
+    (storage/table.py ChunkSource) keys its codes by them."""
+    b = np.char.encode(np.asarray(values).astype(str), "utf-8")
+    n = len(b)
+    width = max(-(-b.dtype.itemsize // 8) * 8, 8)
+    words = np.zeros((n, width), np.uint8)
+    if n and b.dtype.itemsize:
+        words[:, :b.dtype.itemsize] = np.frombuffer(
+            b.tobytes(), np.uint8).reshape(n, b.dtype.itemsize)
+    words = words.view("<u8")
+    lens = np.char.str_len(b).astype(np.uint64)
+    out = np.empty(n, [("lo", "<u8"), ("hi", "<u8")])
+    with np.errstate(over="ignore"):
+        for field, seed in (("lo", 0x9E3779B97F4A7C15),
+                            ("hi", 0xD1B54A32D192ED03)):
+            h = _mix64(lens + np.uint64(seed))
+            for j in range(words.shape[1]):
+                h = _mix64(h ^ (words[:, j] * np.uint64(
+                    0xC2B2AE3D27D4EB4F) + np.uint64(seed)))
+            out[field] = h
+    return out
 
 
 _ARRAY_INNER = {"Int8", "Int16", "Int32", "Int64", "UInt8", "UInt16",

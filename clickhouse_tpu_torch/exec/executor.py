@@ -15,7 +15,7 @@ The route is chosen by the predicate's form alone.
 
 Ported nodes: OneRow (SELECT without FROM), Numbers (numbers()), Scan,
 Filter, Project, Aggregate (GROUP BY (), dense and sort GROUP BY, WITH
-TOTALS), Sort (top-k for a LIMIT up to 4,096 rows, else a full stable
+TOTALS), BlockSource (the streamed aggregation's merged groups), Sort (top-k for a LIMIT up to 4,096 rows, else a full stable
 sort; LIMIT 0 launches nothing), Limit, LimitBy, Distinct and Join (INNER,
 LEFT, RIGHT as the analyzer's swapped LEFT, SEMI, ANTI, ANY and CROSS,
 with USING, residual ON predicates and NULL keys; ASOF raises).  Every
@@ -59,7 +59,7 @@ from ..core.errors import (AnalysisError, CapacityError,
 from ..core.settings import Settings
 from ..exprs import aggregates as agg_reg
 from ..exprs.expr import (DEVICE_KEY, BoundCall, BoundColumn, BoundLiteral,
-                          ColVal, StoredColVal, _literal_colval,
+                          ColVal, StoredColVal, TermColVal, _literal_colval,
                           colval_from_column, evaluate, storage_np)
 from ..ops import _native, agg_ops, filter_ops, join_ops, scan_ops, sort_ops
 from ..plan import logical as L
@@ -114,6 +114,11 @@ class ExecContext:
         # WITH TOTALS: the one-row totals block, carried through the
         # projections above the Aggregate (None: no totals)
         self.totals_block: Optional[ExecBlock] = None
+        # blocks the streaming program injects (BlockSourceNode key ->
+        # ExecBlock: the merged groups of every chunk)
+        self.injected: Dict[str, ExecBlock] = {}
+        # the aggregates' states will be merged (a streamed chunk's)
+        self.merge_states = False
 
     def count(self, name: str, value: int = 1):
         self.profile[name] = self.profile.get(name, 0) + value
@@ -277,6 +282,20 @@ def _key_bounds(cv: ColVal, expr, ctx: ExecContext):
     return None
 
 
+def _not_array_key(e, schema: List[L.Field], what: str) -> None:
+    """Raise NotImplementedError_ naming an Array key `e` (a bound
+    expression over `schema`) of GROUP BY, DISTINCT, LIMIT BY or ORDER BY
+    (ClickHouse compares arrays element-wise; the port sorts only scalar
+    keys)."""
+    dtype = e.dtype
+    if dtype.is_array:
+        name = next((f.display for f in schema
+                     if f.id == getattr(e, "name", None)), "an expression")
+        raise NotImplementedError_(
+            f"{what} over the {dtype} key {name} is not ported to the "
+            f"CUDA engine yet")
+
+
 def _sort_keys(cv: ColVal, b) -> List[sort_ops.SortKey]:
     """One grouping key (broadcast to the block) as sort keys: a Nullable
     key gives its validity and then its data zeroed where NULL; integer
@@ -284,10 +303,13 @@ def _sort_keys(cv: ColVal, b) -> List[sort_ops.SortKey]:
     and UInt64 keys their unsignedness; String keys are dictionary codes,
     floats sort by token."""
     fits32 = b is not None and -2**31 <= b[0] and b[1] < 2**31
-    # a column stored as int32 whose bounds fit is read as stored: no
-    # widened copy of it
-    data = cv.storage if fits32 and cv.storage.dtype == torch.int32 \
-        else cv.data
+    # a column stored as int32 whose bounds fit is read as stored, and a
+    # term of a narrow column formed in its source's type: no widened copy
+    if fits32 and isinstance(cv, TermColVal):
+        data = cv.term.build_narrow().to(torch.int32)
+    else:
+        data = cv.storage if fits32 and cv.storage.dtype == torch.int32 \
+            else cv.data
     out = []
     if cv.validity is not None:
         v = cv.validity.to(torch.bool)
@@ -320,6 +342,7 @@ def _agg_key_arrays(node: L.AggregateNode, child: ExecBlock,
     total = 1
     for (f, e), cv in zip(node.keys, key_cvs):
         cv = cv.broadcast(cap)
+        _not_array_key(e, node.child.schema, "GROUP BY")
         b = _key_bounds(cv, e, ctx)
         keys = _sort_keys(cv, b)
         arrays.extend(keys)
@@ -365,7 +388,8 @@ def _stage1(node: L.AggregateNode, child: ExecBlock,
     rows = child.valid if dims is not None else child.rows
     gctx = agg_reg.GroupContext(row_valid=rows, grouping=None,
                                 keys=key_arrays,
-                                max_bytes=ctx.memory_headroom)
+                                max_bytes=ctx.memory_headroom,
+                                mergeable=ctx.merge_states)
     per_agg_inputs = []
     for item in node.aggregates:
         arg_cvs = []
@@ -653,6 +677,8 @@ def _exec_sort(node: L.SortNode, ctx: ExecContext) -> ExecBlock:
 def _sort_block(node: L.SortNode, child: ExecBlock, ctx: ExecContext
                 ) -> ExecBlock:
     cap = child.capacity
+    for it in node.items:
+        _not_array_key(it.expr, node.child.schema, "ORDER BY")
     n_valid = filter_ops.count_mask(child.rows)
 
     s = ctx.settings
@@ -740,6 +766,8 @@ def _exec_limit_by(node: L.LimitByNode, ctx: ExecContext) -> ExecBlock:
     child = execute_plan(node.child, ctx)
     cap = child.capacity
     env = child.env()
+    for e in node.keys:
+        _not_array_key(e, node.child.schema, "LIMIT BY")
     g, cap_g = _group_rows(child, [(evaluate(e, env, ctx.memory_headroom), e)
                                    for e in node.keys],
                            ctx, "LIMIT BY")
@@ -763,6 +791,8 @@ def _exec_distinct(node: L.DistinctNode, ctx: ExecContext) -> ExecBlock:
     column; one row a group, at its first row, in ascending key order."""
     child = execute_plan(node.child, ctx)
     cap = child.capacity
+    for f in node.schema:
+        _not_array_key(BoundColumn(f.id, f.dtype), node.schema, "DISTINCT")
     cvs = [child.cols[f.id].broadcast(cap) for f in node.schema]
     g, cap_g = _group_rows(child, [(cv, BoundColumn(f.id, f.dtype))
                                    for f, cv in zip(node.schema, cvs)],
@@ -772,6 +802,12 @@ def _exec_distinct(node: L.DistinctNode, ctx: ExecContext) -> ExecBlock:
     cols = {f.id: _gather_colval(cv, first, cap)
             for f, cv in zip(node.schema, cvs)}
     return ExecBlock(cols, agg_ops.RowMask.of(g.group_valid()), cap_g)
+
+
+def _exec_blocksource(node: L.BlockSourceNode, ctx: ExecContext
+                      ) -> ExecBlock:
+    """The block the streaming program injected (its merged groups)."""
+    return ctx.injected[node.key]
 
 
 def _exec_onerow(node: L.OneRowNode, ctx: ExecContext) -> ExecBlock:
@@ -899,14 +935,8 @@ def _propagate_ok(node: L.JoinNode, right: ExecBlock) -> bool:
         if f.id in left_ids:
             continue
         if not node.reads(f.id):
-            # never built (a key a join below the build side evaluates):
-            # its type alone decides, as it does where it is built
-            if f.dtype.is_array:
-                return False
             continue
-        cv = right.cols.get(f.id)
-        if cv is None or cv.dtype.is_array or getattr(
-                cv.data, "ndim", 1) > 1:
+        if right.cols.get(f.id) is None:
             return False
     return ok_kinds
 
@@ -938,6 +968,11 @@ def _dense_words(node: L.JoinNode, per_field, build_words, ctx):
         fws = build_words[wi:wi + n_words]
         wi += n_words
         is_key = f.id == key_field and n_data == 1
+        if _rebuild is None:              # an Array: row id and lengths
+            for w, (lo_, hi_) in zip(fws, narrow):
+                entries.append(("word", w, lo_ - 1, (lo_, hi_)))
+                n_gathers += 1
+            continue
         for j, w in enumerate(fws):
             if is_key:                    # value == probe key: free
                 entries.append(("key",) if j < n_data else ("keyvalid",))
@@ -986,10 +1021,23 @@ def _join_propagate(node: L.JoinNode, left: ExecBlock, right: ExecBlock,
     # only the right-side columns read above the join are carried
     right_fields = [f for f in node.schema
                     if f.id not in left_ids and node.reads(f.id)]
-    per_field = []           # (field, cv, n_data_words, rebuild, narrow)
+    # (field, cv, n_data_words, rebuild, narrow); an Array's rebuild is
+    # None: its words are its build row id and its lengths, each in
+    # [0, hi] (the proven ranges K7 sizes their slots by)
+    per_field = []
     build_words: List[torch.Tensor] = []
     for f in right_fields:
         cv = right.cols[f.id]
+        if cv.dtype.is_array:
+            cvb = cv.broadcast(rcap)
+            lens = cvb.lengths if cvb.lengths is not None else torch.full(
+                (rcap,), cvb.data.shape[-1], dtype=torch.int32,
+                device=cvb.data.device)
+            per_field.append((f, cvb, 2, None,
+                              ((0, rcap - 1), (0, cvb.data.shape[-1]))))
+            build_words.extend([_arange(rcap, cvb.data.device, torch.int32),
+                                lens.to(torch.int32)])
+            continue
         dec = _colval_words(cv, rcap, bounds=ctx.field_bounds.get(f.id))
         if dec is None:
             raise NotImplementedError_(
@@ -1043,6 +1091,17 @@ def _join_propagate(node: L.JoinNode, left: ExecBlock, right: ExecBlock,
         has_v = cv.validity is not None
         ws = pr.words[wi:wi + nw]
         wi += nw + (1 if has_v else 0)
+        if rebuild is None:
+            # an Array: its matrix rows by the build row id, and its
+            # lengths (an unmatched row is the empty array, [])
+            data = cv.data.index_select(0, ws[0].to(torch.int64).clamp_(
+                0, rcap - 1))
+            data = torch.where(mmask[:, None], data, torch.zeros(
+                (), dtype=data.dtype, device=data.device))
+            lengths = torch.where(mmask, ws[1], torch.zeros(
+                (), dtype=torch.int32, device=data.device))
+            cols[f.id] = ColVal(cv.dtype, data, None, lengths=lengths)
+            continue
         validity = (pr.words[wi - 1] & 1).to(torch.uint8) if has_v else None
         if left_outer:
             data = rebuild(ws)
@@ -1177,6 +1236,19 @@ def _exec_join(node: L.JoinNode, ctx: ExecContext) -> ExecBlock:
             0, order).index_select(0, b_idx)
         validity = None if cv.validity is None else \
             cv.validity.index_select(0, order).index_select(0, b_idx)
+        if cv.dtype.is_array:
+            # an Array: its rows and their lengths (unmatched: [])
+            lengths = torch.full((rcap,), data.shape[-1], dtype=torch.int32,
+                                 device=dev) if cv.lengths is None \
+                else cv.lengths
+            lengths = lengths.index_select(0, order).index_select(0, b_idx)
+            if left_outer:
+                data = torch.where(mmask[:, None], data, torch.zeros(
+                    (), dtype=data.dtype, device=dev))
+                lengths = torch.where(mmask, lengths, torch.zeros(
+                    (), dtype=lengths.dtype, device=dev))
+            cols[f.id] = ColVal(cv.dtype, data, validity, lengths=lengths)
+            continue
         if left_outer:
             # join_use_nulls=0 semantics: unmatched -> default value
             if s.join_use_nulls or cv.dtype.nullable:
@@ -1230,6 +1302,7 @@ _DISPATCH: Dict[type, Callable] = {
     L.LimitByNode: _exec_limit_by,
     L.DistinctNode: _exec_distinct,
     L.JoinNode: _exec_join,
+    L.BlockSourceNode: _exec_blocksource,
 }
 
 

@@ -3,7 +3,9 @@
 ``Session.execute(sql)`` parses, analyzes, optimizes and runs one
 statement: CREATE TABLE, INSERT ... VALUES / SELECT, SELECT and DROP TABLE.
 Plans run eagerly on the session's device (there is no whole-query
-compilation; ``compile_queries`` is accepted and has no effect).  Every
+compilation).  A SELECT over a table above ``max_device_block_bytes``
+streams chunk by chunk (exec/streaming.py) where the reference streams it:
+with ``compile_queries`` set (the default) in a local session.  Every
 other statement raises ``NotImplementedError_`` naming it.
 
 The device is explicit: ``"cuda"`` (the default) runs the hand-written
@@ -70,6 +72,8 @@ class Session:
         # Query, SelectedRows, CapacityRetunes and the executor's own
         # (DenseGatherJoins, ...)
         self.profile_events: Dict[str, int] = {}
+        # streamed programs by (SQL, settings), with their tables' versions
+        self._stream_cache: Dict[tuple, tuple] = {}
 
     # -- public API ----------------------------------------------------------
     def execute(self, sql: str, settings: Optional[Dict[str, Any]] = None
@@ -90,7 +94,7 @@ class Session:
     def _dispatch(self, stmt, overrides: Dict[str, Any], sql: str = ""
                   ) -> Result:
         if isinstance(stmt, (ast.Select, ast.Union, ast.SetOp)):
-            return self._run_select(stmt, overrides)
+            return self._run_select(stmt, overrides, sql)
         if isinstance(stmt, ast.CreateTable):
             return self._run_create_table(stmt)
         if isinstance(stmt, ast.Insert):
@@ -123,19 +127,36 @@ class Session:
         merged.update(overrides)
         return self.settings.copy_with(merged) if merged else self.settings
 
-    def _run_select(self, stmt, overrides: Dict[str, Any]) -> Result:
+    def _run_select(self, stmt, overrides: Dict[str, Any],
+                    sql: str = "") -> Result:
         """SELECT with capacity autotuning, as the reference's: a
         CapacityError that names a setting (GROUP BY groups beyond
         max_groups) re-plans the query with that setting raised to
         max(pad(needed * 5/4 + 1), twice its value), at most
-        capacity_autotune_max_retries times."""
+        capacity_autotune_max_retries times.  A plan over a table above
+        the streaming threshold streams (exec/streaming.try_streaming,
+        counted in StreamedQueries) where it can; one over the budget
+        that cannot raises MemoryLimitExceeded, or, where the reference
+        would chunk an expanding join, NotImplementedError_."""
+        from .streaming import blowup_would_stream, try_streaming
         settings = self._query_settings(stmt, overrides)
         retries = settings.capacity_autotune_max_retries \
             if settings.capacity_autotune else 0
         for attempt in range(retries + 1):
             try:
+                streamed = None
+                if settings.compile_queries:
+                    streamed = try_streaming(self, stmt, settings, sql)
+                if streamed is not None:
+                    plan, cols, ctx = streamed
+                    self._count("StreamedQueries")
+                    break
                 plan = self._plan(stmt, settings)
-                cols, ctx = self._execute(plan, settings)
+                try:
+                    cols, ctx = self._execute(plan, settings)
+                except MemoryLimitExceeded:
+                    blowup_would_stream(self, plan, settings)
+                    raise
                 break
             except CapacityError as e:
                 if attempt >= retries or not e.setting or e.needed is None:
@@ -169,12 +190,11 @@ class Session:
         return out
 
     def _governor_check(self, plan: L.PlanNode, settings: Settings) -> int:
-        """Refuse plans that the reference would stream, and plans whose
-        whole-block footprint exceeds the device budget.  -> the bytes of
-        the budget the estimate leaves (for a sort's working set)."""
-        from .streaming import (check_not_streamed, effective_memory_budget,
+        """Refuse plans whose whole-block footprint exceeds the device
+        budget.  -> the bytes of the budget the estimate leaves (for a
+        sort's working set)."""
+        from .streaming import (effective_memory_budget,
                                 estimate_plan_device_bytes)
-        check_not_streamed(plan, self.catalog, settings)
         budget = effective_memory_budget(settings)
         est = estimate_plan_device_bytes(plan, self.catalog, settings)
         if est > budget:

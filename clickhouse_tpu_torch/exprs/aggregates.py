@@ -10,8 +10,19 @@ in the column's logical type); the executor hands every aggregate's
 reductions to one reduce_many call, so a sort GROUP BY launches K6 once
 for all of its sum-family aggregates (variance, covariance, moments,
 avgWeighted and groupBit* are sets of sums and bit reductions).
-Merging partial states (-State/-Merge, two-stage aggregation) is not
-ported.
+
+Every aggregate that is not holistic merges its partial states (``merge``,
+the reference's AggregateFunction.merge): the states of several partial
+groupings, concatenated, reduced over the grouping of their keys with the
+op of each state (``merge_ops``) in one Grouping.reduce_many call.  The
+streamed aggregation (exec/streaming.py) merges each chunk's states into
+its carry so.  A min, max, any, argMin/argMax or groupBitAnd state keeps,
+when the grouping asks for mergeable states (GroupContext.mergeable), the
+count of the rows it saw as its last state, so a partial group that a -If
+condition or a NULL left with no such row takes no part in the merge.
+What a state holds is fixed by the aggregate and `mergeable` alone, so
+every chunk of a streamed query gives the same states.  -State and -Merge
+are not ported.
 
 Two-step aggregates run a second step after reduce_many (`sorted_step`):
 argMin/argMax take the rows at their group's best order value; the
@@ -46,7 +57,7 @@ from ..core import dtypes as dt
 from ..core.errors import (AnalysisError, MemoryLimitExceeded,
                            NotImplementedError_, TypeError_, UnknownFunction)
 from ..ops import agg_ops, scan_ops, sort_ops
-from .expr import ColVal, TermColVal
+from .expr import ColVal, StoredColVal, TermColVal
 
 __all__ = ["AggregateFunction", "get_aggregate", "is_aggregate_name",
            "AGGREGATES", "REFERENCE_AGGREGATES", "GroupContext"]
@@ -72,6 +83,9 @@ class GroupContext:
     # once, by the first aggregate that needs it)
     max_bytes: Optional[int] = None
     shared: Dict = dataclasses.field(default_factory=lambda: {"bytes": 0})
+    # the states will be merged (a streamed chunk's): the aggregates that
+    # keep presence add the count of their rows as the last state
+    mergeable: bool = False
 
     @property
     def capacity(self) -> int:
@@ -147,9 +161,52 @@ class AggregateFunction:
     two_step: bool = False
     # any ... RESPECT NULLS: the executor keeps NULL rows in the row mask
     respect_nulls: bool = False
+    # a mergeable state ends with the count of rows the aggregate saw
+    # (_presence): min, max, any, argMin/argMax and groupBitAnd, whose
+    # state over no row is not the merge's identity
+    keeps_presence: bool = False
 
     def __init__(self, arg_types: List[dt.DType]):
         self.arg_types = arg_types
+
+    def merge_ops(self) -> List[Tuple[str, bool]]:
+        """Each state's merge: (op, unsigned), op a Grouping.reduce op;
+        the presence count, where one is kept, is not listed."""
+        raise NotImplementedError_(
+            f"merging states of {self.name} is not ported to the CUDA "
+            f"engine yet")
+
+    def merge(self, states: List[torch.Tensor], g: agg_ops.Grouping,
+              mask) -> List[torch.Tensor]:
+        """Partial states of several groupings, concatenated (raw order
+        of g), merged over g's groups; mask: the partial groups that
+        exist.  One reduce_many call (K6 once under the sort grouping)."""
+        return g.reduce_many(self.merge_specs(states, mask))
+
+    def merge_specs(self, states: List[torch.Tensor], mask
+                    ) -> List[agg_ops.ReduceSpec]:
+        """The reductions of :meth:`merge`, in state order (the streamed
+        carry hands every aggregate's to one reduce_many)."""
+        seen = self._seen(states, mask)
+        specs = [(op, st, mask if op in _SUM_LIKE else seen, u)
+                 for (op, u), st in zip(self.merge_ops(), states)]
+        if self.keeps_presence:
+            specs.append(("sum", states[-1], mask, False))
+        return specs
+
+    def _seen(self, states: List[torch.Tensor], mask):
+        """The partial groups whose states hold a row of the aggregate."""
+        return _and_mask(mask, states[-1] > 0) if self.keeps_presence \
+            else mask
+
+    def _presence(self, ctx: GroupContext, mask, specs, finish: Finish):
+        """(specs, finish) with the count of `mask`'s rows appended as the
+        last state where the states will be merged."""
+        if not (self.keeps_presence and ctx.mergeable):
+            return specs, finish
+        k = len(specs)
+        return specs + [("count", None, mask, False)], \
+            lambda r: finish(r[:k]) + [r[k]]
 
     def result_type(self) -> dt.DType:
         raise NotImplementedError
@@ -197,12 +254,12 @@ class AggregateFunction:
 
     @staticmethod
     def _value(ctx: GroupContext, cv: ColVal) -> torch.Tensor:
-        """The argument's values, raw row order: under the sort grouping
-        and GROUP BY () the column as stored (K6 and K1 widen as they
-        read), else its data."""
+        """The argument's values, raw row order: the column as stored
+        (K6, K1 and K2 widen as they read), except a term under the dense
+        grouping, which is built."""
         cv = cv.broadcast(ctx.capacity)
         return cv.storage if ctx.grouping.kind in ("sort", "trivial") \
-            else cv.data
+            or isinstance(cv, StoredColVal) else cv.data
 
     @staticmethod
     def _spec_value(ctx: GroupContext, cv: ColVal):
@@ -224,12 +281,25 @@ class AggregateFunction:
             else s.to(want)
 
 
+_SUM_LIKE = ("sum", "bor", "bxor")
+
+
+def _and_mask(mask, m: torch.Tensor):
+    """mask (a bool tensor or a RowMask) AND m."""
+    if isinstance(mask, agg_ops.RowMask):
+        return mask.and_mask(m)
+    return mask & m
+
+
 class CountAgg(AggregateFunction):
     name = "count"
     sum_only = True
 
     def result_type(self):
         return dt.UInt64
+
+    def merge_ops(self):
+        return [("sum", False)]
 
     def reductions(self, ctx, args, cond):
         return [("count", None, self._row_mask(ctx, args, cond), False)], \
@@ -261,6 +331,9 @@ class SumAgg(AggregateFunction):
             return dt.Float64
         return dt.UInt64 if t0.np_dtype.kind == "u" else dt.Int64
 
+    def merge_ops(self):
+        return [("sum", False)]
+
     def reductions(self, ctx, args, cond):
         mask = self._row_mask(ctx, args, cond)
         want = _sum_state_dtype(self.arg_types[0])
@@ -273,6 +346,7 @@ class SumAgg(AggregateFunction):
 
 class MinMaxAgg(AggregateFunction):
     op = "min"
+    keeps_presence = True
 
     def __init__(self, arg_types):
         super().__init__(arg_types)
@@ -295,13 +369,19 @@ class MinMaxAgg(AggregateFunction):
             return torch.from_numpy(rank).to(v.device)[v.clamp(min=0).long()]
         return self._spec_value(ctx, cv)
 
+    def _unsigned(self) -> bool:
+        return dt.remove_nullable(self.arg_types[0]).np_dtype == \
+            np.dtype("uint64") and not self.arg_types[0].is_dictionary
+
+    def merge_ops(self):
+        return [(self.op, self._unsigned())]
+
     def reductions(self, ctx, args, cond):
         mask = self._row_mask(ctx, args, cond)
         v = self._prep(ctx, args[0])
-        unsigned = dt.remove_nullable(self.arg_types[0]).np_dtype == \
-            np.dtype("uint64") and args[0].dictionary is None
-        return [(self.op, v, mask, unsigned)], \
-            lambda r: [self._logical(r[0])]
+        return self._presence(
+            ctx, mask, [(self.op, v, mask, self._unsigned())],
+            lambda r: [self._logical(r[0])])
 
     def finalize(self, states):
         s = states[0]
@@ -332,6 +412,9 @@ class AvgAgg(AggregateFunction):
     def _unsigned(self):
         return dt.remove_nullable(self.arg_types[0]).np_dtype.kind == "u"
 
+    def merge_ops(self):
+        return [("sum", False), ("sum", False)]
+
     def reductions(self, ctx, args, cond):
         mask = self._row_mask(ctx, args, cond)
         return [("sum", self._spec_value(ctx, args[0]), mask, False),
@@ -357,14 +440,19 @@ class AvgAgg(AggregateFunction):
 
 class AnyAgg(AggregateFunction):
     name = "any"
+    keeps_presence = True
 
     def result_type(self):
         return self.arg_types[0]
 
+    def merge_ops(self):
+        return [("any", False)]
+
     def reductions(self, ctx, args, cond):
         mask = self._row_mask(ctx, args, cond)
-        return [("any", self._spec_value(ctx, args[0]), mask, False)], \
-            lambda r: [self._logical(r[0])]
+        return self._presence(
+            ctx, mask, [("any", self._spec_value(ctx, args[0]), mask, False)],
+            lambda r: [self._logical(r[0])])
 
     def finalize(self, states):
         return states[0], None
@@ -377,10 +465,14 @@ class AnyRespectNullsAgg(AggregateFunction):
     the same row, the first masked-in one: its value and its validity (a
     group's row count where the argument has no validity)."""
     name = "any_respect_nulls"
+    keeps_presence = True
     respect_nulls = True
 
     def result_type(self):
         return self.arg_types[0]
+
+    def merge_ops(self):
+        return [("any", False), ("any", False)]
 
     def reductions(self, ctx, args, cond):
         mask = self._row_mask(ctx, args, cond)
@@ -388,9 +480,12 @@ class AnyRespectNullsAgg(AggregateFunction):
         av = _arg_valid(args[0], ctx.capacity)
         if av is None:
             specs.append(("count", None, mask, False))
-            return specs, lambda r: [self._logical(r[0]), r[1] > 0]
+            return self._presence(
+                ctx, mask, specs,
+                lambda r: [self._logical(r[0]), (r[1] > 0).to(torch.uint8)])
         specs.append(("any", av, mask, False))
-        return specs, lambda r: [self._logical(r[0]), r[1]]
+        return self._presence(ctx, mask, specs,
+                              lambda r: [self._logical(r[0]), r[1]])
 
     def _row_mask(self, ctx, args, cond):
         if ctx.premask is not None:
@@ -448,6 +543,9 @@ class SumSquaresMixin(AggregateFunction):
 
     def result_type(self):
         return dt.Float64
+
+    def merge_ops(self):
+        return [("sum", False)] * 3
 
     def reductions(self, ctx, args, cond):
         mask = self._row_mask(ctx, args, cond)
@@ -542,6 +640,7 @@ class ArgMinMaxAgg(AggregateFunction):
     first such row (K1's `any`)."""
     minimize = True
     two_step = True
+    keeps_presence = True
 
     def result_type(self):
         return dt.remove_nullable(self.arg_types[0])
@@ -572,11 +671,48 @@ class ArgMinMaxAgg(AggregateFunction):
     def reductions(self, ctx, args, cond):
         mask = self._row_mask(ctx, args, cond)
         o, uns = self._order(ctx, args[1])
-        return [("min" if self.minimize else "max", o, mask, uns)], list
+        return self._presence(
+            ctx, mask, [("min" if self.minimize else "max", o, mask, uns)],
+            list)
+
+    def merge_ops(self):
+        # a mergeable order state is signed (sorted_step flips UInt64 bits)
+        return [("min" if self.minimize else "max", False), ("any", False)]
+
+    def merge(self, states, g, mask):
+        """The best order value of the merged group, then the value of
+        its first partial (in g's raw order) at that value: the earliest
+        chunk's, whose row ids are the lowest."""
+        best, val = states[0], states[1]
+        seen = self._seen(states, mask)
+        (op, _), _ = self.merge_ops()
+        b = g.reduce(op, best, seen)
+        if g.kind == "trivial":
+            v = g.reduce("any", val, _and_mask(seen, _bits(best)
+                                               == _bits(b)[0]))
+        else:
+            gid = torch.clamp(g.group_ids, max=g.num_groups_cap - 1)
+            at_best = _bits(g.take(best)) == _bits(b).index_select(0, gid)
+            ms = g.sorted_mask(seen)
+            if ms is not None:
+                at_best &= ms
+            rows, cnt = g.reduce_sorted([("min", g.perm, at_best, False),
+                                         ("count", None, at_best, False)])
+            v = val.index_select(0, rows.to(torch.int64).clamp_(
+                0, val.shape[0] - 1))
+            v = torch.where(cnt > 0, v, torch.zeros((), dtype=v.dtype,
+                                                    device=v.device))
+        return [b, v, g.reduce("sum", states[-1], mask)]
 
     def sorted_step(self, ctx, g, args, cond, states):
+        """-> [order state, value state] (+ the presence count).  A
+        mergeable order state of UInt64 bits has its top bit flipped, so
+        the merge compares every order state signed."""
         mask = self._row_mask(ctx, args, cond)
-        o, _ = self._order(ctx, args[1])
+        o, uns = self._order(ctx, args[1])
+        first = states[0]
+        if ctx.mergeable and uns:
+            first = first ^ torch.iinfo(torch.int64).min
         best = _bits(states[0])
         v = self._spec_value(ctx, args[0])
         if g.kind == "trivial":
@@ -584,7 +720,8 @@ class ArgMinMaxAgg(AggregateFunction):
             at_best = _bits(o) == best[0]
             at = mask.and_mask(at_best) if isinstance(mask, agg_ops.RowMask) \
                 else mask & at_best
-            return [self._logical(g.reduce("any", v, at))]
+            return [first, self._logical(g.reduce("any", v, at))] \
+                + states[1:]
         os_ = _take(ctx, g, o, f"{self.name}'s order in sorted order")
         ms = _take_mask(ctx, g, mask)
         ctx.hold(g.perm.shape[0] * (best.element_size() + 1),
@@ -598,10 +735,10 @@ class ArgMinMaxAgg(AggregateFunction):
         val = _rows_of(v, rows.to(torch.int64))
         val = torch.where(cnt > 0, val, torch.zeros((), dtype=val.dtype,
                                                     device=val.device))
-        return [self._logical(val)]
+        return [first, self._logical(val)] + states[1:]
 
     def finalize(self, states):
-        return states[0], None
+        return states[1], None
 
 
 class ArgMinAgg(ArgMinMaxAgg):
@@ -826,6 +963,9 @@ class CovarAgg(AggregateFunction):
     def result_type(self):
         return dt.Float64
 
+    def merge_ops(self):
+        return [("sum", False)] * 4
+
     def reductions(self, ctx, args, cond):
         mask = self._row_mask(ctx, args, cond)
         return [_f64_sum(ctx, mask, args[0], times=args[1]),
@@ -863,6 +1003,9 @@ class CorrAgg(AggregateFunction):
     def result_type(self):
         return dt.Float64
 
+    def merge_ops(self):
+        return [("sum", False)] * 6
+
     def reductions(self, ctx, args, cond):
         mask = self._row_mask(ctx, args, cond)
         return [_f64_sum(ctx, mask, args[0], times=args[1]),
@@ -890,6 +1033,9 @@ class MomentsAgg(AggregateFunction):
 
     def result_type(self):
         return dt.Float64
+
+    def merge_ops(self):
+        return [("sum", False)] * 5
 
     def reductions(self, ctx, args, cond):
         mask = self._row_mask(ctx, args, cond)
@@ -955,6 +1101,9 @@ class AvgWeightedAgg(AggregateFunction):
     def result_type(self):
         return dt.Float64
 
+    def merge_ops(self):
+        return [("sum", False)] * 2
+
     def reductions(self, ctx, args, cond):
         mask = self._row_mask(ctx, args, cond)
         return [_f64_sum(ctx, mask, args[0], times=args[1]),
@@ -985,16 +1134,25 @@ class GroupBitAgg(AggregateFunction):
     and bxor of the values' bits, in the argument's type."""
     bit_op = "bor"
 
+    @property
+    def keeps_presence(self) -> bool:
+        return self.bit_op == "band"
+
     def result_type(self):
         t0 = dt.remove_nullable(self.arg_types[0])
         if not dt.is_integer(t0):
             raise TypeError_(f"{self.name} requires an integer argument")
         return t0
 
+    def merge_ops(self):
+        return [(self.bit_op, False)]
+
     def reductions(self, ctx, args, cond):
         mask = self._row_mask(ctx, args, cond)
-        return [(self.bit_op, self._spec_value(ctx, args[0]), mask, False)], \
-            list
+        return self._presence(
+            ctx, mask,
+            [(self.bit_op, self._spec_value(ctx, args[0]), mask, False)],
+            list)
 
     def finalize(self, states):
         t = dt.remove_nullable(self.arg_types[0]).np_dtype

@@ -49,7 +49,8 @@ LAUNCHES: Dict[str, int] = {"masked_reduce": 0, "dense_group_reduce": 0,
                             "segment_reduce_sorted": 0,
                             "dense_join": 0, "hash_join": 0,
                             "expand_matches": 0, "prefix_match": 0,
-                            "vector_distance": 0, "calendar_part": 0}
+                            "vector_distance": 0, "calendar_part": 0,
+                            "unpack_pairs": 0}
 # kernel name -> row count of each launch since the last reset
 LAUNCH_ROWS: Dict[str, List[int]] = {k: [] for k in LAUNCHES}
 
@@ -323,6 +324,8 @@ def library() -> ctypes.CDLL:
             lib.chtt_vector_distance.restype = I
             lib.chtt_calendar_part.argtypes = [P, I, P]
             lib.chtt_calendar_part.restype = I
+            lib.chtt_unpack_pairs.argtypes = [P, LL, I, I, LL, I, P, I, P]
+            lib.chtt_unpack_pairs.restype = I
             lib.chtt_error_string.argtypes = [I]
             lib.chtt_error_string.restype = ctypes.c_char_p
             _LIB = lib

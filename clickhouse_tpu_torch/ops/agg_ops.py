@@ -100,7 +100,8 @@ class Term:
 def _selection(n: int, device, mask: Optional[torch.Tensor], n_rows: int,
                terms: Sequence[Term]) -> torch.Tensor:
     """Rows below n_rows where `mask` holds and every term passes."""
-    sel = torch.arange(n, device=device) < n_rows
+    sel = torch.zeros(n, dtype=torch.bool, device=device)
+    sel[:max(min(n_rows, n), 0)] = True       # a fill, not an int64 index
     if mask is not None:
         sel = sel & mask.to(torch.bool)
     for t in terms:
@@ -636,7 +637,8 @@ def group_by_dense(keys: Sequence[torch.Tensor],
     the dense counts.  max_bytes: raise MemoryLimitExceeded, before
     allocating, where dense_group_bytes (the slots, the ids, the dense
     stage's passes and the caller's `held_bytes`) is larger.  The slots
-    are computed in place, one key's int64 offsets beside them.
+    are computed in place (int32 for keys of at most 32 bits, else int64),
+    one key's offsets beside them.
     """
     cap = keys[0].shape[0]
     dev = keys[0].device
@@ -654,8 +656,13 @@ def group_by_dense(keys: Sequence[torch.Tensor],
                 f"left)")
     slot = None
     stride = 1
+    # keys of at most 32 bits give int32 slots (a valid row's key lies in
+    # its dims; an invalid row's slot is overwritten below)
+    wide = torch.int32 if num_groups_cap < 2**31 and all(
+        k.dtype in (torch.bool, torch.uint8, torch.int8, torch.int16,
+                    torch.int32) for k in keys) else torch.int64
     for k, (lo, size) in zip(keys, dims):
-        d = k.to(torch.int64, copy=True).sub_(lo).clamp_(0, size - 1)
+        d = k.to(wide, copy=True).sub_(lo).clamp_(0, size - 1)
         if stride != 1:
             d.mul_(stride)
         slot = d if slot is None else slot.add_(d)

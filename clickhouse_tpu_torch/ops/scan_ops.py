@@ -73,14 +73,22 @@ class Term:
             raise ValueError(f"Term: divisor {self.c} for "
                              f"{self.source.dtype}")
 
+    def _narrow(self, s: torch.Tensor) -> torch.Tensor:
+        """The term of source values s in their type (it fits there:
+        |term| is at most |s|)."""
+        return torch.div(s, self.c, rounding_mode="trunc") \
+            if self.op == "div" else torch.fmod(s, self.c)
+
     def apply(self, s: torch.Tensor) -> torch.Tensor:
         """The term of source values s, widened."""
-        out = torch.div(s, self.c, rounding_mode="trunc") \
-            if self.op == "div" else torch.fmod(s, self.c)
-        return out.to(self.dtype)
+        return self._narrow(s).to(self.dtype)
 
     def build(self) -> torch.Tensor:
         return self.apply(self.source)
+
+    def build_narrow(self) -> torch.Tensor:
+        """The term in its source's type, with no widened column."""
+        return self._narrow(self.source)
 
     def index_select(self, dim: int, index: torch.Tensor) -> torch.Tensor:
         """The term at the rows `index`: a gather of the source, then the

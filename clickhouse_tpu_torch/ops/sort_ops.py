@@ -331,6 +331,10 @@ def sort_rows(keys: Sequence[SortKey], row_valid: Optional[torch.Tensor], *,
     (what it holds or will allocate beside the sort) are larger.
     """
     every = list(keys) + list(secondary)
+    if any(k.data.dim() > 1 for k in every):
+        raise NotImplementedError_(
+            "sorting or grouping by an Array key is not ported to the CUDA "
+            "engine yet")
     first = next(k.data for k in every if k.data.dim() == 1)
     n, dev = first.shape[0], first.device
     valid = None if row_valid is None else row_valid.to(torch.bool)

@@ -716,3 +716,36 @@ def test_one_to_n_join_takes_the_probe_rows_as_a_count(shaped_sessions,
     assert bool(pr.matched[N_SHAPED:].all())
     live = min(int(count), p_idx.shape[0])
     assert live and int(p_idx[:live].max()) < N_SHAPED
+
+
+@pytest.fixture(scope="module")
+def array_sessions():
+    """a(k, x) probes b(k, v Array(Float32)) (unique keys: the N:1 path)
+    and b2 (key 1 twice: the 1:N path), an empty array among the rows."""
+    js, ts = jch.connect(), tch.connect(device="cpu")
+    for s in (js, ts):
+        s.execute("CREATE TABLE a (k Int64, x Int64)")
+        s.execute("CREATE TABLE b (k Int64, v Array(Float32))")
+        s.execute("CREATE TABLE b2 (k Int64, v Array(Float32))")
+        s.execute("INSERT INTO a VALUES (1, 10), (2, 20), (3, 30), (4, 40)")
+        s.execute("INSERT INTO b VALUES (1, [1, 2]), (2, [3]), (3, [])")
+        s.execute("INSERT INTO b2 VALUES (1, [1, 2]), (2, [3]), (3, []), "
+                  "(1, [5, 6, 7])")
+    return js, ts
+
+
+@pytest.mark.parametrize("dense", [1, 0], ids=["dense", "hash"])
+@pytest.mark.parametrize("kind", ["INNER", "LEFT"])
+@pytest.mark.parametrize("build", ["b", "b2"], ids=["n-to-1", "1-to-n"])
+def test_join_keeps_array_lengths(array_sessions, build, kind, dense):
+    """A build-side Array column keeps each row's length through both join
+    paths: [1, 2], [3] and [] (an unmatched LEFT row: []), as the
+    reference gives them, never the padded row."""
+    sql = (f"SELECT a.k, {build}.v FROM a {kind} JOIN {build} "
+           f"ON a.k = {build}.k ORDER BY a.k")
+    js, ts = array_sessions
+    st = {"join_dense_gather": dense}
+    want = js.execute(sql, settings=st).rows()
+    got = ts.execute(sql, settings=st).rows()
+    assert got == want
+    assert (2, [3.0]) in got and (3, []) in got

@@ -18,6 +18,7 @@ import pytest
 import torch
 
 from chip_smoke import (CMPS, K4_ROWS, K5_CASES, K6_SORTED_LAYOUTS,
+                        K13_CASES, k13_case,
                         K6_TERM_DIVISORS, K7_CASES, K8_CASES,
                         K9_CASES, K10_CASES, K11_CASES, K12_DTYPES,
                         SORT_KEY_CHAINS, U64_EDGE, grouped_rows, k5_args,
@@ -376,12 +377,16 @@ def test_launch_counters_count_kernel_launches(dev):
                     torch.full((10,), 8, dtype=torch.int32, device=dev),
                     torch.ones(8, device=dev), "cosine")
     calendar_part(x, "year", False, np.uint16)
+    from clickhouse_tpu_torch.ops.chunk_ops import unpack_pairs
+    unpack_pairs(torch.zeros(10, dtype=torch.uint8, device=dev), 20, 0, 5,
+                 4, torch.int32)
     assert _native.LAUNCHES == {"masked_reduce": 1, "dense_group_reduce": 1,
                                 "topk_smallest": 1, "radix_sort_pairs": 1,
                                 "segment_bounds": 1, "segment_reduce": 1,
                                 "segment_reduce_sorted": 1, "dense_join": 1, "hash_join": 1,
                                 "expand_matches": 1, "prefix_match": 1,
-                                "vector_distance": 1, "calendar_part": 1}
+                                "vector_distance": 1, "calendar_part": 1,
+                                "unpack_pairs": 1}
 
 
 # -- K11 vector_distance -------------------------------------------------------
@@ -1184,3 +1189,21 @@ def test_calendar_functions_launch_k12_once(sessions_cpu_cuda):
         assert _native.LAUNCHES["calendar_part"] == n, sql
         assert min(_native.LAUNCH_ROWS["calendar_part"]) >= 70_000
         assert got == cpu.execute(sql).rows(), sql
+
+
+@pytest.mark.parametrize("case", K13_CASES,
+                         ids=[f"w{c[0]}-lo{c[1]}-{c[4]}" for c in K13_CASES])
+def test_unpack_pairs_matches_plain(dev, case):
+    """K13 against its plain version and the values packed: offsets below
+    zero, odd row counts, a part's short last chunk, every output type."""
+    from clickhouse_tpu_torch.ops.chunk_ops import (_unpack_pairs_plain,
+                                                    unpack_pairs)
+    w4, lo, half, rows, out_dtype = case
+    data, want, bpp = k13_case(*case)
+    d = torch.from_numpy(data).to(dev)
+    before = _native.LAUNCHES["unpack_pairs"]
+    got = unpack_pairs(d, w4, lo, bpp, 2 * half, out_dtype)
+    assert _native.LAUNCHES["unpack_pairs"] == before + 1
+    assert torch.equal(got, _unpack_pairs_plain(d, w4, lo, bpp, 2 * half,
+                                                out_dtype))
+    assert torch.equal(got.cpu(), torch.from_numpy(want).to(out_dtype))

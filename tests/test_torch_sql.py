@@ -103,6 +103,11 @@ def sessions():
     table_from_numpy(ts, "w", _reference_columns(js, "w"), W_TYPES)
     table_from_numpy(ts, "t", _reference_columns(js, "t"), T_TYPES)
     table_from_numpy(ts, "s", _reference_columns(js, "s"), S_TYPES)
+    # arr: an Array column, for the keys the port refuses (GROUP BY,
+    # DISTINCT and ORDER BY over an Array)
+    for s in (js, ts):
+        s.execute("CREATE TABLE arr (k Int64, v Array(Float32))")
+        s.execute("INSERT INTO arr VALUES (1, [1, 2]), (2, [3]), (3, [])")
     return js, ts
 
 
@@ -369,12 +374,21 @@ def test_ddl_insert_values_and_drop(sessions):
     ("SELECT a, uniqExactState(b) FROM t GROUP BY a", NotImplementedError_,
      "uniqExactState"),
     ("SELECT isFinite(f), isNaN(g) FROM t", None, None),
+    ("SELECT v, count() FROM arr GROUP BY v", NotImplementedError_,
+     "GROUP BY over the Array"),
+    ("SELECT DISTINCT v FROM arr", NotImplementedError_,
+     "DISTINCT over the Array"),
+    ("SELECT v FROM arr ORDER BY v", NotImplementedError_,
+     "ORDER BY over the Array"),
+    ("SELECT k, v FROM arr ORDER BY v LIMIT 2", NotImplementedError_,
+     "ORDER BY over the Array"),
 ], ids=["unknown-aggregate", "unknown-scalar", "full-sort", "unbounded-keys",
         "minmax-group-by", "sort-setting", "large-k", "union", "alter",
         "with-totals", "with-fill", "state-combinator",
         "grouped-uniqExact", "grouped-argMax", "grouped-groupBitOr",
         "grouped-uniq", "grouped-quantile", "grouped-unported-combinator",
-        "ported-scalar-isFinite"])
+        "ported-scalar-isFinite", "array-group-by", "array-distinct",
+        "array-order-by", "array-order-by-limit"])
 def test_unported_paths_raise_typed_errors(sessions, sql, err, match):
     """Unported paths raise typed errors naming them (an unported
     aggregate under GROUP BY names the aggregate, not its argument); the
@@ -586,9 +600,16 @@ def test_max_groups_overflow(sessions, autotune):
 
 
 def test_streamed_size_raises_typed_error(sessions):
-    ts = sessions[1]
-    with pytest.raises(NotImplementedError_, match="out-of-core streaming"):
-        ts.execute("SELECT count() FROM hits SETTINGS "
+    """Above max_device_block_bytes an aggregation streams (as the
+    reference's); a shape whose streaming program is not ported raises
+    naming it (TopKProgram: ORDER BY ... LIMIT)."""
+    js, ts = sessions
+    sql = "SELECT count() FROM hits SETTINGS max_device_block_bytes = 1000"
+    before = ts.profile_events.get("StreamedQueries", 0)
+    assert ts.execute(sql).rows() == js.execute(sql).rows() == [(N_HITS,)]
+    assert ts.profile_events.get("StreamedQueries", 0) == before + 1
+    with pytest.raises(NotImplementedError_, match="TopKProgram"):
+        ts.execute("SELECT x FROM hits ORDER BY x LIMIT 5 SETTINGS "
                    "max_device_block_bytes = 1000")
 
 
