@@ -15,9 +15,12 @@
                                       # (an older checkout's alike)
     python3 chip_smoke.py --calendar  # only K12's cases, Qt1-Qt5 over
                                       # hits_t and K12 at their inputs
-    python3 chip_smoke.py --streaming  # only K13's cases, Q5, Q5b, Q6
-                                      # and Q5np streamed over 1B rows and
-                                      # K13 at their chunks
+    python3 chip_smoke.py --streaming  # only K13's and K14's cases, Q5,
+                                      # Q5b, Q6 and Q5np streamed over 1B
+                                      # rows, the other programs' Q5t, Q5c,
+                                      # Q5h, Q5t2, Q5t3, Q6g and Q6x,
+                                      # K13 at
+                                      # their chunks and K14 at Q5c's
     python3 chip_smoke.py --sass calendar_part  # one source's nvcc time,
                                       # registers, spills, shared bytes and
                                       # SASS CALLs a kernel (or
@@ -26,7 +29,7 @@
 Needs one NVIDIA Hopper card, nvcc and PyTorch built for CUDA; exits
 non-zero without them.  Phases, each of which fails the run:
 
-  1. build the thirteen hand-written kernels (csrc/*.cu) with nvcc for sm_90a,
+  1. build the fourteen hand-written kernels (csrc/*.cu) with nvcc for sm_90a,
      one nvcc a source, all started together;
   2. hold each kernel against its plain PyTorch version on the card: edge
      cases (K1 with and without filter terms over every storage type and
@@ -84,7 +87,10 @@ non-zero without them.  Phases, each of which fails the run:
      (every int8 and int16 day, every day's first and last second over
      int32 with INT32_MIN and INT32_MAX, the run-time divisors of
      K12_DIVISORS with their anchors, the constants of
-     K12_CONSTANT_EDGES); integer results must agree
+     K12_CONSTANT_EDGES); K13 over K13_CASES; K14 over K14_CASES (the
+     count and the first `count` indices: one row to a 2^27-row chunk,
+     empty, full, one bit, the tiles' edges, a row bound, K1 terms with
+     and without a mask, views 1 and 3 rows in); integer results must agree
      exactly, K1's and K2's float sums within rtol 1e-12, K6's within
      n_g * eps * sum(|x|) a group of n_g rows (its atomics add a group's
      parts in a varying order); then SELECT without FROM, numbers() and
@@ -189,7 +195,15 @@ non-zero without them.  Phases, each of which fails the run:
      was allocated before it than its column's bytes; prints the H2D
      copy rate pinned and pageable, each query's cold and warm walls,
      wire rate, io_stats, device-busy time and peak; then K13 at Q5np's
-     and Q6's chunks (K13's cases of K13_CASES run in phase 2).
+     and Q6's chunks (K13's cases of K13_CASES run in phase 2); then, in
+     the same session with dim_g (600M rows, above the threshold) added,
+     the other streamed programs (PROGRAM_SQL): Q5t, Q5t2 and Q5t3
+     (TopKProgram; Q5t3's keys do not pack, so K4 sorts its chunks a
+     slice at a time), Q5c and Q5h (CollectProgram, K14 a chunk), Q6g (the
+     grace join, 8 buckets) and Q6x (blow-up streaming of a cross join),
+     each checked for its counter, program, chunks, numpy's answer,
+     exactly its stream_paths and a peak below the 12 GiB budget; then K14
+     at Q5c's chunks (K14's cases of K14_CASES run in phase 2).
 
 The second-to-last line is a JSON object of per-kernel results (name,
 route, source, replaces, launches, ms, plain_ms, bound_ms, bound_by,
@@ -4373,7 +4387,7 @@ STREAM_SQL = (
     ("Q5np", "SELECT count() FROM big WHERE x > 500000 SETTINGS "
              "stream_readers = 2, optimize_move_to_prewhere = 0"),
 )
-STREAM_WARM = 5                         # warm runs timed after the cold one
+STREAM_WARM = 3                         # warm runs timed after the cold one
 STREAM_TURNS = 10                       # Q5np packed/unpacked runs in turns
 # K13's cases: (w4, lo, half, rows, output type); offsets below zero, an
 # odd row count, a part's short last chunk, each output width
@@ -4388,7 +4402,48 @@ K13_CASES = ((4, -7, 1025, 2049, torch.int8), (8, 0, 4097, 8193, torch.uint8),
              (28, (1 << 40) - 3, 1 << 19, (1 << 20) - 1, torch.int64))
 
 
-def stream_paths(chunks: dict) -> dict:
+# the other streamed programs, over the same tables and dim_g
+GRACE_DIM = 600_000_000                 # dim_g: 3e9 bytes, 8 grace buckets
+PROGRAM_SQL = (
+    ("Q5t", "SELECT x FROM big ORDER BY x DESC LIMIT 100 SETTINGS "
+            "stream_readers = 2", "TopKProgram"),
+    ("Q5c", "SELECT x FROM big WHERE x % 1000 = 7 SETTINGS "
+            "stream_readers = 2", "CollectProgram"),
+    ("Q5h", "SELECT quantileExact(0.5)(x), count() FROM big "
+            "WHERE x % 100 = 7 SETTINGS stream_readers = 2",
+     "CollectProgram"),
+    ("Q5t2", "SELECT x % 1000 AS k, x FROM big WHERE x > 500000 "
+             "ORDER BY k DESC, x LIMIT 10 SETTINGS stream_readers = 2",
+     "TopKProgram"),
+    # keys too wide to pack into K3's 31 bits (x * x spans 40): each chunk
+    # is lowered and sorted by K4 a slice of TOPK_SORT_ROWS rows at a time
+    ("Q5t3", "SELECT x % 1000 AS k, x FROM big ORDER BY k DESC, x * x "
+             "LIMIT 10 SETTINGS stream_readers = 2", "TopKProgram"),
+    ("Q6g", "SELECT count(), sum(label) FROM fact INNER JOIN dim_g "
+            "ON fact.fk = dim_g.k SETTINGS stream_readers = 2",
+     "StreamProgram"),
+    ("Q6x", "SELECT count(), sum(label), sum(number) FROM dim CROSS JOIN "
+            "numbers(100) SETTINGS stream_readers = 2", "StreamProgram"),
+)
+PROGRAM_EVENT = {"Q6g": "GraceJoinBuckets", "Q6x": "BlowupStreamedQueries"}
+# K14's cases: (name, capacity, row bound or None, the mask (a density, a
+# bit in the middle or the tiles' edges, or None), K1 terms, rows in)
+K14_CASES = (("one row", 1, None, 1.0, 0, 0),
+             ("a tile and a row", 4097, None, 0.5, 0, 0),
+             ("empty", 3 * 4096 + 17, None, 0.0, 0, 0),
+             ("full", 1_000_003, None, 1.0, 0, 0),
+             ("one bit", 1_000_003, None, "one", 0, 0),
+             ("tile edges", 3 * 4096 + 17, None, "edges", 0, 0),
+             ("half", 1_000_003, None, 0.5, 0, 0),
+             ("row bound", 20_000, 10_001, 0.5, 0, 0),
+             ("mask and terms", 1_000_003, 999_999, 0.7, 2, 0),
+             ("terms alone", 1_000_003, None, None, 2, 0),
+             ("views 1 row in", 100_003, None, 0.3, 2, 1),
+             ("views 3 rows in", 100_003, None, 0.3, 2, 3),
+             ("a chunk at 0.1 %", STREAM_CHUNK_ROWS, None, 0.001, 0, 0))
+
+
+def stream_paths(chunks: dict, slices: int = 0) -> dict:
     """The kernels each streamed query launches, by its chunks: K13 a
     chunk (one packed column), then Q5 K1 a chunk (its filter as a term)
     and one K1 a merge of the GROUP BY () carry (count()'s state is the
@@ -4407,12 +4462,41 @@ def stream_paths(chunks: dict) -> dict:
             p = {"dense_group_reduce": n, "radix_sort_pairs": m,
                  "segment_bounds": m, "segment_reduce": m,
                  "topk_smallest": 1, "masked_reduce": m + 1}
-        else:
+        elif name in ("Q6", "Q6g"):
             p = {"hash_join": n, "masked_reduce": 2 * n + 2 * m}
-        if name != "Q5np_unpacked":
+        else:
+            p = program_path(name, n, slices)
+        if name not in ("Q5np_unpacked", "Q6x"):
             p["unpack_pairs"] = n
         out[name] = p
     return out
+
+
+def program_path(name: str, n: int, slices: int = 0) -> dict:
+    """The kernels of PROGRAM_SQL's streamed queries over n chunks (besides
+    K13 a chunk): Q5t K3 a chunk (x's bounds: the 32-bit entry) and K4 a
+    merge of the carried 1,024 rows with a chunk's; Q5t2 K3 a chunk over
+    its two keys packed into one 32-bit key from their bounds, K1 the
+    chunk's rows (the PREWHERE's term) and K4 a merge; Q5t3 K4 a slice of
+    its chunks (its 51 bits of keys and row flag one 64-bit word) and a
+    merge of each slice's rows into the carry; Q5c K14 a
+    chunk; Q5h K14 a chunk, then the upper plan's holistic GROUP BY ()
+    over the collected rows (two K4 sorts, K5, three K1); Q6x (dim's chunks,
+    not packed) a cross join a chunk (K4, K5 and K8 over numbers(100)'s
+    build rows, K8's probe, K9) and four K1 a chunk, three a merge (Q6g
+    is Q6's path, 8 buckets a chunk each)."""
+    m = n - 1
+    return {"Q5t": {"topk_smallest": n, "radix_sort_pairs": m},
+            "Q5t2": {"topk_smallest": n, "radix_sort_pairs": m,
+                     "masked_reduce": n},
+            "Q5t3": {"radix_sort_pairs": 2 * slices - 1},
+            "Q5c": {"compact_rows": n},
+            "Q5h": {"compact_rows": n, "radix_sort_pairs": 2,
+                    "segment_bounds": 1, "masked_reduce": 3},
+            "Q6x": {"radix_sort_pairs": n, "segment_bounds": n,
+                    "hash_join": 2 * n, "expand_matches": n,
+                    "masked_reduce": 4 * n + 3 * m},
+            }[name]
 
 
 def k13_case(w4, lo, half, rows, out_dtype, seed=13):
@@ -4452,6 +4536,63 @@ def check_k13(dev):
           f"{len(K13_CASES)} cases (w4 4-28, offsets below zero, odd row "
           f"counts, a part's short last chunk, int8/uint8/int16/int32/"
           f"int64)", flush=True)
+
+
+def k14_rows(case, dev):
+    """A K14_CASES case as the RowMask K14 reads: a bool mask, a row
+    bound, K1 terms over an int32 and an int8 column with validity, each
+    a view `shift` rows into its tensor."""
+    from clickhouse_tpu_torch.ops.agg_ops import RowMask, Term
+    _, cap, bound, mask, n_terms, shift = case
+    rng = np.random.default_rng(cap + 7 * n_terms + shift)
+    n = cap + shift
+    m = None
+    if mask == "one":
+        m = np.zeros(n, bool)
+        m[shift + cap // 2] = True
+    elif mask == "edges":
+        m = np.zeros(n, bool)
+        for r in (0, 15, 16, 4095, 4096, 8191, 8192, cap - 1):
+            m[shift + min(r, cap - 1)] = True
+    elif mask is not None:
+        m = rng.random(n) < mask
+    terms = []
+    if n_terms:
+        x = torch.from_numpy(rng.integers(-1000, 1000, n).astype(np.int32))
+        y = torch.from_numpy(rng.integers(-100, 100, n).astype(np.int8))
+        yv = torch.from_numpy((rng.random(n) < 0.9).astype(np.uint8))
+        i64 = np.dtype(np.int64)
+        terms = [Term(x.to(dev)[shift:], None, i64, "greater", i64, -500),
+                 Term(y.to(dev)[shift:], yv.to(dev)[shift:], i64,
+                      "notEquals", i64, 7)]
+    mt = None if m is None else torch.from_numpy(m).to(dev)[shift:]
+    return RowMask(cap, dev, cap if bound is None else bound, tuple(terms),
+                   mt)
+
+
+def check_k14(dev):
+    """K14 against its plain version on the card over K14_CASES: the
+    count and the first `count` indices equal (the slots past the count
+    are unspecified), one launch a call."""
+    from clickhouse_tpu_torch.ops import _native
+    from clickhouse_tpu_torch.ops.filter_ops import (_compact_rows_plain,
+                                                     compact_rows)
+    for case in K14_CASES:
+        rows = k14_rows(case, dev)
+        before = _native.LAUNCHES["compact_rows"]
+        idx, count = compact_rows(rows)
+        torch.cuda.synchronize()
+        if _native.LAUNCHES["compact_rows"] != before + 1:
+            fail(f"K14 ({case[0]}) did not launch once")
+        pidx, pcount = _compact_rows_plain(rows)
+        c = int(count)
+        if c != int(pcount) or not torch.equal(idx[:c], pidx[:c]):
+            fail(f"K14 ({case[0]}): count {c} against {int(pcount)}, or "
+                 f"other indices than its plain version")
+    print(f"K14 matches its plain version over {len(K14_CASES)} cases (one "
+          f"row to a 2^27-row chunk, empty, full, one bit, the tiles' edges, "
+          f"a row bound, K1 terms with and without a mask, views 1 and 3 "
+          f"rows in)", flush=True)
 
 
 def h2d_roofline(dev):
@@ -4518,11 +4659,13 @@ def load_stream_tables(ch):
     s.execute("CREATE TABLE big (x Int64)")
     s.execute("CREATE TABLE fact (fk Int64)")
     s.execute("CREATE TABLE dim (k Int64, label Int64)")
+    s.execute("CREATE TABLE dim_g (k Int64, label Int64)")
     t0 = time.perf_counter()
     n_gt, counts, sums = 0, np.zeros(1024, np.int64), np.zeros(1024,
                                                                 np.int64)
     label_sum = 0
     lab = (np.arange(JOIN_DIM, dtype=np.int64) * 7) % 97
+    tops, tops2, tops3, c7, h7 = [], [], [], [], []
     for lo in range(0, rows, STREAM_PIECE):
         hi = min(lo + STREAM_PIECE, rows)
         x = (np.arange(lo, hi, dtype=np.int64) * 2654435761) % 1_000_003
@@ -4530,17 +4673,50 @@ def load_stream_tables(ch):
         k = x & 1023
         counts += np.bincount(k, minlength=1024)
         sums += np.bincount(k, weights=x, minlength=1024).astype(np.int64)
+        # PROGRAM_SQL: Q5t's 100 largest, Q5t2's 10 first of (x % 1000 DESC,
+        # x) above 500000 (Q5t3's of every row: x * x orders as x), Q5c's
+        # rows in row order, Q5h's values
+        x32 = x.astype(np.int32)
+        tops.append(np.partition(x32, len(x32) - 100)[-100:])
+        r = x32 % 1000
+        above = x32 > 500000
+        key = ((999 - r).astype(np.int64) << 21) | x32
+        tops2.append(np.partition(key[above], 9)[:10])
+        tops3.append(np.partition(key, 9)[:10])
+        c7.append(x32[r == 7])
+        h7.append(x32[r % 100 == 7])
         s.insert_pydict("big", {"x": x})
         fk = (np.arange(lo, hi, dtype=np.int64) * 40503) % JOIN_DIM
         label_sum += int(np.bincount(fk, minlength=JOIN_DIM) @ lab)
         s.insert_pydict("fact", {"fk": fk})
-        del x, k, fk
+        del x, k, fk, x32, r, above, key
     s.insert_pydict("dim", {"k": np.arange(JOIN_DIM, dtype=np.int64),
                             "label": lab})
+    # dim_g: 600M rows (3e9 bytes: int32 k, int8 label), above the 2 GiB
+    # threshold, so Q6g takes the grace join; its first 10M rows are dim's
+    g_rows = GRACE_DIM * rows // STREAM_ROWS
+    for lo in range(0, g_rows, STREAM_PIECE):
+        kg = np.arange(lo, min(lo + STREAM_PIECE, g_rows), dtype=np.int64)
+        s.insert_pydict("dim_g", {"k": kg, "label": (kg * 7) % 97})
+        del kg
+    h = np.concatenate(h7)
+    q = int(np.partition(h, (len(h) - 1) // 2)[(len(h) - 1) // 2])
+    t2 = np.sort(np.concatenate(tops2))[:10]
+    t3 = np.sort(np.concatenate(tops3))[:10]
     want = {"Q5": [(n_gt,)], "Q5np": [(n_gt,)], "Q6": [(rows, label_sum)],
-            "Q5b": (counts, sums)}
-    print(f"streaming tables built in {time.perf_counter() - t0:.1f} s",
-          flush=True)
+            "Q5b": (counts, sums),
+            "Q5t": [(int(v),) for v in
+                    np.sort(np.concatenate(tops))[::-1][:100]],
+            "Q5t2": [(999 - int(v >> 21), int(v & ((1 << 21) - 1)))
+                     for v in t2],
+            "Q5t3": [(999 - int(v >> 21), int(v & ((1 << 21) - 1)))
+                     for v in t3],
+            "Q5c": [(int(v),) for v in np.concatenate(c7)],
+            "Q5h": [(q, len(h))], "Q6g": [(rows, label_sum)],
+            "Q6x": [(JOIN_DIM * 100, 100 * int(lab.sum()),
+                     JOIN_DIM * 4950)]}
+    print(f"streaming tables built in {time.perf_counter() - t0:.1f} s "
+          f"(dim_g {g_rows} rows)", flush=True)
     return s, want, rows
 
 
@@ -4559,8 +4735,9 @@ def streaming_phase(ch, dev, launches, launch_rows):
     expected chunks, equals numpy, launches exactly stream_paths and holds
     less device memory above what was allocated before it than its
     streamed column's bytes; prints the H2D roofline, each query's cold
-    and warm walls, wire rate, io_stats, device-busy time and peak.  ->
-    (K13's replay record, the chunk bytes of Q5np and Q6 for it)."""
+    and warm walls, wire rate, io_stats, device-busy time and peak; then
+    program_phase over the same tables.  -> (K13's replay record, K14's,
+    the queries' numbers)."""
     import gc
     from clickhouse_tpu_torch.ops import _native
     from clickhouse_tpu_torch.storage.table import ChunkSource
@@ -4717,10 +4894,250 @@ def streaming_phase(ch, dev, launches, launch_rows):
         bytes_of[name] = (torch.from_numpy(data).to(dev), src.packed[col],
                           src.chunk_rows,
                           dt_of(src.storage[col]))
-    del s, progs, prog
+    del progs, prog
+    # PROGRAM_SQL's programs over the same tables (the chunk source cache
+    # starts empty: Q5np_unpacked left its unpacked source there)
+    s._stream_cache.clear()
+    table_big._chunk_source_cache = None
+    gc.collect()
+    masks = program_phase(s, dev, want, rows, roof, launches, launch_rows,
+                          record)
+    del s
     gc.collect()
     torch.cuda.empty_cache()
-    return k13_shape(bytes_of), record
+    k14 = k14_shape(masks)
+    del masks
+    torch.cuda.empty_cache()
+    return k13_shape(bytes_of), k14, record
+
+
+def program_phase(s, dev, want, rows, roof, launches, launch_rows, record):
+    """Q5t, Q5t2, Q5t3 (TopKProgram), Q5c, Q5h (CollectProgram), Q6g (the
+    grace join) and Q6x (blow-up streaming) over the streaming phase's
+    tables: each moves its counter, runs its program over the expected
+    chunks, equals numpy, launches exactly stream_paths and holds less
+    device memory above what was allocated before it than the 12 GiB
+    budget (and, but for Q6x, whose streamed table is 50 MB, than its
+    streamed columns' bytes); prints its cold wall, the median of
+    STREAM_WARM warm walls, wire rate, chunk copies replayed (Q5c: the
+    bytes io_stats says it copied back, against the reference's whole
+    chunks) and device-busy time.  -> the row masks K14 was given over
+    Q5c's chunks (a run apart)."""
+    from clickhouse_tpu_torch.exec import streaming
+    from clickhouse_tpu_torch.ops import _native, filter_ops
+    from clickhouse_tpu_torch.storage import read_pool
+    cat = s.catalog
+    big, fact = cat.get_table("default", "big"), cat.get_table("default",
+                                                               "fact")
+    budget = s.settings.max_device_memory_bytes
+    chunk_rows = STREAM_CHUNK_ROWS
+    aligned = sum(-(-p.num_rows // chunk_rows) for p in big.parts)
+    # Q5t3's K4 slices: each chunk's rows in TOPK_SORT_ROWS steps
+    slices = sum(-(-min(chunk_rows, p.num_rows - lo)
+                   // streaming.TOPK_SORT_ROWS)
+                 for p in big.parts for lo in range(0, p.num_rows,
+                                                    chunk_rows))
+    n_gt = want["Q5"][0][0]
+    # each query's program, as the session builds it
+    created = []
+    program = streaming._program
+
+    def program_watch(*a, **kw):
+        created.append(program(*a, **kw))
+        return created[-1]
+    streaming._program = program_watch
+    pool_runs = [0]
+    iter_ordered = read_pool.ParallelChunkReader.iter_ordered
+
+    def counted(self):
+        pool_runs[0] += 1
+        return iter_ordered(self)
+    read_pool.ParallelChunkReader.iter_ordered = counted
+    problems, masks = [], []
+    try:
+        for name, sql, cls in PROGRAM_SQL:
+            event = PROGRAM_EVENT.get(name, "StreamedQueries")
+            torch.cuda.synchronize()
+            torch.cuda.empty_cache()
+            base = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            before = {e: s.profile_events.get(e, 0) for e in
+                      ("StreamedQueries", "GraceJoinBuckets",
+                       "BlowupStreamedQueries")}
+            del created[:]
+            pool_before = pool_runs[0]
+            _native.reset_launches()
+            t0 = time.perf_counter()
+            res = s.execute(sql)
+            torch.cuda.synchronize()
+            cold = time.perf_counter() - t0
+            got = res.rows()
+            mine = dict(_native.LAUNCHES)
+            rows_of = {k: list(v) for k, v in _native.LAUNCH_ROWS.items()}
+            peak = torch.cuda.max_memory_allocated() - base
+            prog = created[-1] if created else None
+            moved = {e: s.profile_events.get(e, 0) - v
+                     for e, v in before.items()}
+            if prog is None or type(prog).__name__ != cls:
+                problems.append(f"{name} ran {type(prog).__name__}, not "
+                                f"{cls}")
+                continue
+            if name == "Q6x":
+                n_chunks = -(-JOIN_DIM // prog.src.chunk_rows)
+                # the cross join's 1e9 rows of label and number
+                streamed = JOIN_DIM * 100 * 16
+            elif name == "Q6g":
+                n_chunks = sum(max(1, -(-src.total_rows // chunk_rows))
+                               for src, _ in prog.sources)
+                streamed = fact.physical_bytes() + cat.get_table(
+                    "default", "dim_g").physical_bytes()
+            else:
+                n_chunks = -(-n_gt // chunk_rows) if name == "Q5t2" \
+                    else aligned
+                streamed = big.physical_bytes()
+            path = stream_paths({name: n_chunks}, slices)[name]
+            if not stream_agree(name, got, want):
+                problems.append(f"{name} returned {got[:3]}... ({len(got)} "
+                                f"rows), numpy says {want[name][:3]}... "
+                                f"({len(want[name])} rows)")
+            want_moved = {"StreamedQueries": 0 if name == "Q6x" else 1,
+                          "GraceJoinBuckets": 8 if name == "Q6g" else 0,
+                          "BlowupStreamedQueries": 1 if name == "Q6x"
+                          else 0}
+            if moved != want_moved:
+                problems.append(f"{name} moved {moved}, not {want_moved}")
+            if prog.io_stats["chunks"] != n_chunks:
+                problems.append(f"{name} read {prog.io_stats['chunks']} "
+                                f"chunks, not {n_chunks}")
+            if mine != {k: path.get(k, 0) for k in mine}:
+                problems.append(
+                    f"{name} launched { {k: v for k, v in mine.items() if v} }"
+                    f"; its path is {path} and nothing else")
+            if n_chunks > len(prog.sources) and pool_runs[0] == pool_before:
+                problems.append(f"{name} did not run the read pool")
+            if peak >= budget or (name != "Q6x" and peak >= streamed):
+                problems.append(f"{name} held {peak} bytes above what was "
+                                f"allocated before it: the budget is "
+                                f"{budget}, its streamed columns "
+                                f"{streamed} bytes")
+            for k, v in rows_of.items():
+                launches[k] += mine[k]
+                launch_rows[k] += v
+            io_cold = dict(prog.io_stats)
+            warm = []
+            for _ in range(STREAM_WARM):
+                t0 = time.perf_counter()
+                res = s.execute(sql)
+                torch.cuda.synchronize()
+                warm.append(time.perf_counter() - t0)
+                if res.rows() != got:
+                    problems.append(f"{name}'s warm run returned other rows")
+            prog = created[-1] if created and name == "Q6x" else prog
+            copy_ms = sum(chunk_copy_ms(src, dev) for src, _ in prog.sources)
+            wire = sum(src.total_rows * (sum(b for _, _, b in
+                                             src.packed.values()) / 2 or
+                                         sum(np.dtype(src.storage[c]).itemsize
+                                             for c in src.columns))
+                       for src, _ in prog.sources)
+            extra = ""
+            if prog.grace is not None:
+                build_ms = sum(chunk_copy_ms(b, dev) for b in prog.grace[1])
+                build_bytes = sum(sum(d.nbytes + (v.nbytes if v is not None
+                                                  else 0)
+                                      for d, v in b.chunk(0)[0].values())
+                                  for b in prog.grace[1])
+                wire += build_bytes
+                copy_ms += build_ms
+                extra += (f"; {len(prog.grace[1])} build buckets of "
+                          f"{prog.grace[1][0].chunk_rows} slots, "
+                          f"{build_bytes} bytes copied a run ({build_ms:.3f}"
+                          f" ms replayed)")
+            if name == "Q5t3":
+                extra += f"; {slices} K4 slices"
+            if name == "Q5c":
+                back = io_cold["back_bytes"]
+                ref_back = aligned * chunk_rows * 9
+                extra += (f"; {back} bytes copied back (io_stats; "
+                          f"{len(got)} rows) against the reference's whole "
+                          f"chunks' {ref_back} (int64 values and a validity "
+                          f"byte a row: {ref_back / max(back, 1):.0f}x)")
+            events = []
+            busy, ops, wall, top = device_busy(s, sql, reps=1,
+                                               events_out=events)
+            n_copies, traced_ms = traced_copies(events)
+            med = statistics.median(warm)
+            record[name] = {"cold_s": cold, "warm_s": med, "peak": peak,
+                            "busy_ms": busy, "copy_ms": copy_ms,
+                            "chunks": n_chunks}
+            print(f"{name} ({cls}): {n_chunks} chunks of "
+                  f"{prog.src.chunk_rows} rows; cold {cold:.3f} s, warm "
+                  f"median {med:.3f} s of {STREAM_WARM} "
+                  f"({[round(w, 3) for w in warm]}); wire "
+                  f"{wire / med / 1e9:.3f} GB/s ({wire:.0f} bytes) = "
+                  f"{wire / med / roof['pinned']:.3f} of the pinned copy "
+                  f"rate; chunk_copy_ms {copy_ms:.3f}; io_stats cold "
+                  f"{io_cold}, warm {prog.io_stats}; device busy "
+                  f"{busy:.3f} ms of {wall:.3f} ms wall ({n_copies} chunk "
+                  f"copies traced, {traced_ms:.3f} ms), {ops:g} device "
+                  f"operations, top " + "; ".join(
+                      f"{n} {t:.3f}" for n, t in top[:5])
+                  + f"; peak {peak} bytes above the start (budget {budget},"
+                  f" streamed {streamed}); counters {moved}; launches "
+                  f"{ {k: v for k, v in mine.items() if v} }" + extra,
+                  flush=True)
+        # K14's inputs over Q5c's chunks, a run apart (the timed runs hold
+        # nothing extra)
+        compact = filter_ops.compact_rows
+
+        def compact_watch(rows):
+            masks.append(rows)
+            return compact(rows)
+        filter_ops.compact_rows = compact_watch
+        try:
+            s.execute(dict((n, q) for n, q, _ in PROGRAM_SQL)["Q5c"])
+        finally:
+            filter_ops.compact_rows = compact
+    finally:
+        streaming._program = program
+        read_pool.ParallelChunkReader.iter_ordered = iter_ordered
+    if problems:
+        fail("; ".join(problems))
+    return masks
+
+
+def k14_shape(masks):
+    """K14 replayed on the row masks of Q5c's chunks against its plain
+    version and torch.nonzero(mask).squeeze(1): ms, plain_ms, library_ms,
+    bytes (the mask, 4 bytes a kept row, the count) and bound_ms of the
+    first chunk (the others printed)."""
+    from clickhouse_tpu_torch.ops.filter_ops import (_compact_rows_plain,
+                                                     compact_rows,
+                                                     compact_rows_bytes)
+    out = {"max_abs_err": 0.0}
+    for i, rows in enumerate(masks):
+        idx, count = compact_rows(rows)
+        pidx, pcount = _compact_rows_plain(rows)
+        c = int(count)
+        if c != int(pcount) or not torch.equal(idx[:c], pidx[:c]):
+            fail(f"K14 at Q5c's chunk {i} differs from its plain version")
+        del idx, pidx
+        n = min(rows.n_rows, rows.capacity)
+        ms = cuda_ms(lambda: compact_rows(rows))
+        plain_ms = cuda_ms(lambda: _compact_rows_plain(rows), reps=3)
+        lib_ms = cuda_ms(lambda: torch.nonzero(rows.mask).squeeze(1)) \
+            if rows.mask is not None and not rows.terms else None
+        nb = compact_rows_bytes(n, c)
+        print(f"K14 at Q5c's chunk {i} ({n} rows, {c} kept, a bool mask"
+              f"{' and terms' if rows.terms else ''}): {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, torch.nonzero "
+              f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, {nb} "
+              f"bytes, bound {bound_ms(nb):.4f} ms (share "
+              f"{bound_ms(nb) / ms:.2f})", flush=True)
+        if i == 0:
+            out.update({"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+                        "bytes": nb, "bound_ms": bound_ms(nb),
+                        "shape": f"{n} rows, {c} kept"})
+    return out
 
 
 def dt_of(np_dtype):
@@ -4837,14 +5254,18 @@ def main():
         k6_turn(load_hits(ch)[0])
         return
     if sys.argv[1:] == ["--streaming"]:
-        # K13's cases, then Q5, Q5b, Q6 and Q5np streamed over 1B rows on
-        # their paths, and K13 at their chunks
+        # K13's and K14's cases, then Q5, Q5b, Q6 and Q5np streamed over
+        # 1B rows and PROGRAM_SQL's queries on their paths, K13 at their
+        # chunks and K14 at Q5c's
         check_k13(dev)
+        check_k14(dev)
         launches = {k: 0 for k in _native.LAUNCHES}
         launch_rows = {k: [] for k in _native.LAUNCHES}
-        k13, _ = streaming_phase(ch, dev, launches, launch_rows)
-        print(json.dumps({"unpack_pairs": k13,
-                          "launches": launches["unpack_pairs"]}), flush=True)
+        k13, k14, _ = streaming_phase(ch, dev, launches, launch_rows)
+        print(json.dumps({"unpack_pairs": k13, "compact_rows": k14,
+                          "launches": {k: launches[k] for k in (
+                              "unpack_pairs", "compact_rows")}}),
+              flush=True)
         return
     if sys.argv[1:] == ["--aggregates"]:
         # K6's cases (both entries), Q2u, Q2ug, Q2q, Q2s2 and Q2g on their
@@ -4870,7 +5291,7 @@ def main():
 
     for check in (check_k1, check_k2, check_k3, check_k4, check_k5,
                   check_k6, check_k6_sorted, check_k7, check_k8, check_k9,
-                  check_k10, check_k11, check_k12, check_k13):
+                  check_k10, check_k11, check_k12, check_k13, check_k14):
         check(dev)
         print(f"[{time.perf_counter() - t0:.1f} s] {check.__name__} done",
               flush=True)
@@ -5007,8 +5428,8 @@ def main():
     del s
     gc.collect()
     torch.cuda.empty_cache()
-    shapes["unpack_pairs"], _ = streaming_phase(ch, dev, launches,
-                                                launch_rows)
+    shapes["unpack_pairs"], shapes["compact_rows"], _ = streaming_phase(
+        ch, dev, launches, launch_rows)
     print(f"[{time.perf_counter() - t0:.1f} s] streaming phase done",
           flush=True)
     for name in ("radix_sort_pairs", "segment_reduce", "segment_bounds"):
@@ -5158,12 +5579,16 @@ def kernel_line(card, shapes, launches, launch_rows):
                    "clickhouse_tpu/exprs/functions.py:1043"),
                "unpack_pairs": (
                    "clickhouse_tpu_torch/csrc/unpack_pairs.cu",
-                   "clickhouse_tpu/exec/streaming.py:930")}
+                   "clickhouse_tpu/exec/streaming.py:930"),
+               "compact_rows": (
+                   "clickhouse_tpu_torch/csrc/compact_rows.cu",
+                   "clickhouse_tpu/ops/filter_ops.py:26")}
     kernels = []
     for name, (src, repl) in sources.items():
         r = shapes[name]
         full = N_VECS if name == "vector_distance" else \
-            STREAM_CHUNK_ROWS if name == "unpack_pairs" else N_ROWS
+            STREAM_CHUNK_ROWS if name in ("unpack_pairs", "compact_rows") \
+            else N_ROWS
         big = sum(1 for m in launch_rows[name] if m >= full)
         print(f"{name}: {launches[name]} launches on the main path, {big} "
               f"of them over {full} rows", flush=True)

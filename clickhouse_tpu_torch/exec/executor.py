@@ -882,7 +882,12 @@ def _colval_words(cv: ColVal, capacity: int, bounds=None):
     narrow = False
     fits = bounds is not None and -2**31 <= bounds[0] and bounds[1] < 2**31
     if kind in ("i", "u", "b") and (itemsize <= 4 or fits):
-        words.append(dt.cast_tensor(cv.data, logical, np.int32))
+        if isinstance(cv, StoredColVal) and cv.storage.dtype in (
+                torch.int8, torch.uint8, torch.int16, torch.int32):
+            # the stored values themselves: no widened column is built
+            words.append(cv.storage.to(torch.int32))
+        else:
+            words.append(dt.cast_tensor(cv.data, logical, np.int32))
         # the word holds the value itself unless it wrapped (UInt32)
         narrow = fits or logical != np.uint32
 
@@ -1189,7 +1194,15 @@ def _exec_join(node: L.JoinNode, ctx: ExecContext) -> ExecBlock:
     cap_g = pad_to(min(rcap, s.max_join_build_rows))
     semi = node.strictness in ("semi", "anti")
     if node.kind == "cross":
-        out_cap = pad_to(min(lcap * rcap, 1 << 24))
+        # every row meets every row: the product of the two sides' rows
+        # (their row bounds, or, above 2^24, their counts read back; the
+        # reference caps the capacity at 2^24 rows, a CapacityError no
+        # setting raises: a streamed cross join's chunk yields more)
+        n_out = min(lcap, left.rows.n_rows) * min(rcap, right.rows.n_rows)
+        if n_out > 1 << 24:
+            n_out = int(filter_ops.count_mask(left.rows)) \
+                * int(filter_ops.count_mask(right.rows))
+        out_cap = pad_to(n_out)
     elif s.max_joined_rows > 0:
         out_cap = pad_to(s.max_joined_rows)
     else:

@@ -136,9 +136,12 @@ class Session:
         capacity_autotune_max_retries times.  A plan over a table above
         the streaming threshold streams (exec/streaming.try_streaming,
         counted in StreamedQueries) where it can; one over the budget
-        that cannot raises MemoryLimitExceeded, or, where the reference
-        would chunk an expanding join, NotImplementedError_."""
-        from .streaming import blowup_would_stream, try_streaming
+        that cannot raises MemoryLimitExceeded, unless an expanding
+        join's probe side streams in chunks that fit
+        (exec/streaming.try_blowup_streaming, counted in
+        BlowupStreamedQueries)."""
+        from .streaming import (_stream_threshold, scans_over_threshold,
+                                try_blowup_streaming, try_streaming)
         settings = self._query_settings(stmt, overrides)
         retries = settings.capacity_autotune_max_retries \
             if settings.capacity_autotune else 0
@@ -146,7 +149,24 @@ class Session:
             try:
                 streamed = None
                 if settings.compile_queries:
-                    streamed = try_streaming(self, stmt, settings, sql)
+                    try:
+                        streamed = try_streaming(self, stmt, settings, sql)
+                    except MemoryLimitExceeded:
+                        # refused before it ran because another table of
+                        # the catalog is above the threshold: the same
+                        # second chance, where no table this plan scans is
+                        # (a plan over a big table that did not stream
+                        # stays refused, as in the reference)
+                        plan = self._plan(stmt, settings)
+                        if scans_over_threshold(
+                                self.catalog, plan,
+                                _stream_threshold(settings)):
+                            raise
+                        blown = try_blowup_streaming(self, plan, settings)
+                        if blown is None:
+                            raise
+                        plan, cols, ctx = blown
+                        break
                 if streamed is not None:
                     plan, cols, ctx = streamed
                     self._count("StreamedQueries")
@@ -155,8 +175,12 @@ class Session:
                 try:
                     cols, ctx = self._execute(plan, settings)
                 except MemoryLimitExceeded:
-                    blowup_would_stream(self, plan, settings)
-                    raise
+                    # the second chance: a cross join's intermediate
+                    # streamed in chunks of its probe side
+                    blown = try_blowup_streaming(self, plan, settings)
+                    if blown is None:
+                        raise
+                    plan, cols, ctx = blown
                 break
             except CapacityError as e:
                 if attempt >= retries or not e.setting or e.needed is None:

@@ -2,21 +2,34 @@
 clickhouse_tpu/exec/streaming.py).
 
 A table above ``max_device_block_bytes`` streams through the engine chunk
-by chunk (ClickHouse's external aggregation).  The plan is split at the
-aggregation:
+by chunk.  The plan is split where the chain over the streamed scan
+(scan -> filter -> project -> probe-side joins) meets its breaker, and the
+lower part runs once a chunk (storage/table.py ChunkSource: one physical
+layout for every chunk, the table's bounds in the plan, so every chunk
+takes the same path):
 
-    upper  (ORDER BY / HAVING / LIMIT / projections over the merged groups)
-    -------- AggregateNode ----------------------------- breaker
-    lower  (scan -> filter -> project -> probe-side joins)
+  * StreamProgram, an aggregation (ClickHouse's external aggregation):
+    each chunk's groups and mergeable states (exprs/aggregates.py
+    ``merge``) are merged into a carry, a GROUP BY () carry over the
+    trivial grouping (K1), a keyed one by regrouping carry ++ partials
+    with the sort grouping (K4, K5) and K6;
+  * TopKProgram, ORDER BY ... LIMIT k (the external sort's top-N): each
+    chunk's k first rows (K3 for one key, K4 for several) merge with the
+    carried k rows by a stable sort of carry ++ chunk (K4);
+  * CollectProgram, any other shape (a holistic aggregate's among them):
+    each chunk's surviving rows are compacted on the device (K14,
+    ops/filter_ops.compact_rows) and only they are copied to the host;
+    the rest of the plan runs over the collected rows on the device where
+    they fit the budget, else a Sort [-> Limit] runs on the host.
 
-and the lower part runs once a chunk (storage/table.py ChunkSource: one
-physical layout for every chunk, the table's bounds in the plan, so every
-chunk takes the same path).  Each chunk's groups and mergeable states
-(exprs/aggregates.py ``merge``) are merged into a carry: a GROUP BY ()
-carry over the trivial grouping (K1), a keyed one by regrouping carry ++
-partials with the sort grouping (K4, K5) and K6.  The upper part runs on
-the merged block (``BlockSourceNode``).  A probe-side join streams with
-its build side read whole, once a chunk.
+The upper part runs on the carried block (``BlockSourceNode``).  A
+probe-side join streams with its build side read whole, once a chunk;
+where the build side is above the threshold too, both sides are
+hash-partitioned on the host into buckets (the grace join, ClickHouse's
+GraceHashJoin) and the program runs bucket by bucket with that bucket's
+build rows.  A plan over the device budget whose excess is a cross join's
+intermediate streams its probe side in chunks that fit
+(``try_blowup_streaming``, the role of max_joined_block_size_rows).
 
 Host side: parts whose min/max refute the filter are never read
 (``_prune_parts``; granules of the ORDER BY key's min/max within the
@@ -25,24 +38,21 @@ first (``host_prewhere_sel``), so only its rows cross the link.  Chunks
 are encoded on reader threads (storage/read_pool.py, ``stream_readers``),
 copied to the card on a stream of their own from page-locked memory by a
 feeder thread, at most ``_PREFETCH_DEPTH`` chunks ahead of the one in use,
-and a bit-packed column is unpacked there by K13 (ops/chunk_ops.py).
-
-Ported: the aggregation split (StreamProgram).  Where the reference
-streams through TopKProgram (ORDER BY ... LIMIT), CollectProgram (every
-other shape, a holistic aggregate among them), a grace join (both join
-sides above the threshold) or blow-up streaming (a cross join's
-intermediate over the budget), the port raises ``NotImplementedError_``
-naming that program.  The governor holds a plan that does not stream
-against the device budget before it runs.
+and a bit-packed column is unpacked there by K13 (ops/chunk_ops.py).  The
+governor holds a plan that does not stream against the device budget
+before it runs.
 """
 from __future__ import annotations
 
 import dataclasses
 import hashlib
 import json
+import os
 import queue
 import threading
 import time
+import zlib
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
@@ -53,15 +63,19 @@ from ..core.block import Block
 from ..core.column import Column, pad_to
 from ..core.errors import MemoryLimitExceeded, NotImplementedError_
 from ..core.settings import Settings
-from ..exprs.expr import ColVal
-from ..ops import agg_ops, sort_ops
+from ..exprs.expr import ColVal, StoredColVal, TermColVal, evaluate
+from ..ops import agg_ops, filter_ops, sort_ops
 from ..ops.chunk_ops import unpack_pairs
 from ..plan import logical as L
+from ..plan import ranges as R
+from .executor import (_DISPATCH, Check, ExecBlock, ExecContext, _finalize,
+                       _gather_colval, _token_for_sort, execute_plan,
+                       materialize)
 
 __all__ = ["estimate_plan_device_bytes", "effective_memory_budget",
            "estimate_plan_scan_bytes", "check_not_streamed",
-           "cached_chars_bytes", "try_streaming", "StreamProgram",
-           "find_split"]
+           "cached_chars_bytes", "try_streaming", "try_blowup_streaming",
+           "StreamProgram", "TopKProgram", "CollectProgram", "find_split"]
 
 _STREAM_KEY = "__stream__"
 
@@ -74,6 +88,11 @@ _GRACE_JOIN_KINDS = ("inner", "left", "semi", "anti")
 # device chunks copied ahead of the one in use (the reference's
 # _device_prefetch depth)
 _PREFETCH_DEPTH = 2
+
+# numbers() sources of at most this many rows are materialized as hidden
+# tables for blow-up streaming (1 GiB of host UInt64)
+_NUMBERS_MAT_LIMIT = 1 << 27
+_TMP_DB = "_stream_tmp"
 
 
 def _collect_scans(node: L.PlanNode, out: List[L.ScanNode]) -> None:
@@ -211,18 +230,23 @@ class StreamSplit:
 
 @dataclasses.dataclass
 class GenericSplit:
-    """Where the reference streams without an aggregation breaker:
-    kind "topk" (TopKProgram: ORDER BY ... LIMIT over the chain) or
-    "collect" (CollectProgram: the chain's rows collected on the host).
-    Detected only: the port raises naming the program."""
+    """Where the chain meets no aggregation breaker: kind "topk"
+    (TopKProgram: ORDER BY ... LIMIT over the chain; the upper plan reads
+    the carried rows in place of the Sort) or "collect" (CollectProgram:
+    the chain's rows collected; the upper plan reads them in place of the
+    chain)."""
     kind: str
     scan: L.ScanNode
     big_key: Tuple[str, str]
-    lower: L.PlanNode
+    lower: L.PlanNode             # the chain's head, run a chunk
+    upper: L.PlanNode
     lower_scan_keys: List[Tuple[str, str]]
     upper_scan_keys: List[Tuple[str, str]]
     path: Optional[list] = None
     lower_i: int = 0
+    sort_items: Optional[list] = None        # topk
+    k_total: int = 0                         # topk: limit + offset
+    limit_total: Optional[int] = None        # collect: rows to stop at
 
 
 def _path_to(root: L.PlanNode, target: L.PlanNode
@@ -325,7 +349,6 @@ def find_generic_split(plan: L.PlanNode, big_key: Tuple[str, str],
         return None
     keys = _scan_keys(lower, scan)
     parent = path[j - 1] if j > 0 else None
-    kind = "collect"
     if isinstance(parent, L.SortNode) and parent.child is lower \
             and not any(i.fill is not None for i in parent.items):
         k = parent.limit_hint
@@ -333,16 +356,36 @@ def find_generic_split(plan: L.PlanNode, big_key: Tuple[str, str],
                 and path[j - 2].limit >= 0:
             k = path[j - 2].limit + path[j - 2].offset
         if k is not None and 0 < k <= settings.stream_topk_max:
-            kind = "topk"
-    breaker = parent if kind == "topk" else lower
-    upper = L.BlockSourceNode(breaker.schema, _STREAM_KEY) \
-        if breaker is plan else _replace_node(
-            plan, breaker, L.BlockSourceNode(breaker.schema, _STREAM_KEY))
-    return GenericSplit(kind, scan, big_key, lower, keys, _scan_keys(upper),
-                        path, j)
+            upper = _replace_node(
+                plan, parent, L.BlockSourceNode(parent.schema, _STREAM_KEY))
+            return GenericSplit("topk", scan, big_key, lower, upper, keys,
+                                _scan_keys(upper), path, j,
+                                sort_items=list(parent.items),
+                                k_total=int(k))
+    upper = L.BlockSourceNode(lower.schema, _STREAM_KEY) if lower is plan \
+        else _replace_node(plan, lower,
+                           L.BlockSourceNode(lower.schema, _STREAM_KEY))
+    limit_total = None
+    if isinstance(parent, L.LimitNode) and parent.limit >= 0:
+        limit_total = parent.limit + parent.offset
+    return GenericSplit("collect", scan, big_key, lower, upper, keys,
+                        _scan_keys(upper), path, j, limit_total=limit_total)
 
 
-# -- grace joins and blow-up streaming: detection ----------------------------
+# -- grace joins: detection and the host partition ---------------------------
+
+@dataclasses.dataclass
+class GraceJoin:
+    """The chain's join whose build side is above the threshold: both
+    sides are hash-partitioned on their key columns into n_buckets."""
+    join: L.JoinNode
+    build_scan: L.ScanNode
+    build_key: Tuple[str, str]
+    probe_cols: List[str]         # the streamed table's key columns
+    build_cols: List[str]         # the build table's key columns
+    kinds: List[str]              # a key pair's hash: int | float | str
+    n_buckets: int = 0
+
 
 def _colmap(node: L.PlanNode) -> Dict[str, tuple]:
     """field id -> (ScanNode, storage column) through Filter/Project
@@ -366,8 +409,8 @@ def _colmap(node: L.PlanNode) -> Dict[str, tuple]:
 
 def _detect_grace(split, scan: L.ScanNode, catalog, thr: int):
     """The chain's join whose build side is above the threshold (the
-    reference's grace join), as (its build table's key or None,
-    compatible: whether the reference can stream the plan at all)."""
+    reference's grace join), as (its GraceJoin or None, compatible:
+    whether the plan can stream at all)."""
     from ..exprs.expr import BoundColumn
     path, j = split.path, split.lower_i
     graces = []
@@ -394,6 +437,7 @@ def _detect_grace(split, scan: L.ScanNode, catalog, thr: int):
         bmap = {f.id: nm for f, nm in zip(bscan.schema, bscan.column_names)}
         big_t = catalog.get_table(scan.database, scan.table)
         build_t = catalog.get_table(bscan.database, bscan.table)
+        probe_cols, build_cols, kinds = [], [], []
         for le, re_ in zip(node.left_keys, node.right_keys):
             if not (isinstance(le, BoundColumn)
                     and isinstance(re_, BoundColumn)):
@@ -401,14 +445,156 @@ def _detect_grace(split, scan: L.ScanNode, catalog, thr: int):
             lm, rn = lmap.get(le.name), bmap.get(re_.name)
             if lm is None or lm[0] is not scan or rn is None:
                 return None, False
-            if big_t.schema[lm[1]].is_dictionary \
-                    != build_t.schema[rn].is_dictionary:
+            lt, rt = big_t.schema[lm[1]], build_t.schema[rn]
+            if lt.is_dictionary != rt.is_dictionary:
                 return None, False
-        graces.append((bscan.database, bscan.table))
+            kinds.append("str" if lt.is_dictionary else "float" if "f" in (
+                lt.np_dtype.kind, rt.np_dtype.kind) else "int")
+            probe_cols.append(lm[1])
+            build_cols.append(rn)
+        graces.append(GraceJoin(node, bscan, (bscan.database, bscan.table),
+                                probe_cols, build_cols, kinds))
     if len(graces) > 1:
         return None, False
     return (graces[0] if graces else None), True
 
+
+def _splitmix64_np(x: np.ndarray) -> np.ndarray:
+    """The reference's splitmix64 finalizer (its parallel/distributed.py
+    _splitmix64_np), over uint64."""
+    with np.errstate(over="ignore"):
+        z = x + np.uint64(0x9E3779B97F4A7C15)
+        z ^= z >> np.uint64(30)
+        z *= np.uint64(0xBF58476D1CE4E5B9)
+        z ^= z >> np.uint64(27)
+        z *= np.uint64(0x94D049BB133111EB)
+        z ^= z >> np.uint64(31)
+        return z
+
+
+def _hash_values_u64(v: np.ndarray, kind: str) -> np.ndarray:
+    """A uint64 a row for the bucket of a key value, equal for equal
+    values whatever their storage type: integers through int64, floats
+    through their float64 bits, strings as crc32 | adler32 << 32 of their
+    UTF-8 bytes.  NULL is 0 (bucket 0; it matches in no bucket)."""
+    n = len(v)
+    if kind == "str":
+        h = np.zeros(n, np.uint64)
+        for i, x in enumerate(v):
+            if x is not None:
+                b = str(x).encode()
+                h[i] = np.uint64(zlib.crc32(b)) \
+                    | (np.uint64(zlib.adler32(b)) << np.uint64(32))
+        return h
+    wide = np.float64 if kind == "float" else np.int64
+    if v.dtype == object:
+        mask = np.asarray([x is not None for x in v], bool)
+        vals = np.zeros(n, wide)
+        if mask.any():
+            vals[mask] = np.asarray([x for x in v if x is not None], wide)
+        h = vals.view(np.uint64) if kind == "float" \
+            else vals.astype(np.uint64)
+        h[~mask] = 0
+        return h
+    if kind == "float":
+        return v.astype(np.float64).view(np.uint64)
+    with np.errstate(over="ignore"):
+        return v.astype(np.int64).astype(np.uint64)
+
+
+def _bucket_dtype(P: int):
+    return np.uint8 if P <= 256 else np.uint16 if P <= 65536 else np.int32
+
+
+def _bucket_of(cols: List[np.ndarray], kinds: List[str], P: int
+               ) -> np.ndarray:
+    """Each row's bucket: splitmix64(h ^ splitmix64(key hash)) over the
+    key columns from h = 0, mod P (the reference's), in the narrowest
+    type that holds P."""
+    h = np.zeros(len(cols[0]), np.uint64)
+    with np.errstate(over="ignore"):
+        for v, kind in zip(cols, kinds):
+            h = _splitmix64_np(h ^ _splitmix64_np(_hash_values_u64(v, kind)))
+    return (h % np.uint64(P)).astype(_bucket_dtype(P))
+
+
+# rows a worker hashes at a time; numpy releases the GIL in its loops
+_HASH_SLICE = 1 << 23
+
+
+def _host_workers() -> int:
+    """Threads for the host's share of a grace join (the partition, the
+    buckets' encoding): the cores, at most 8."""
+    return max(min(os.cpu_count() or 1, 8), 1)
+
+
+def _part_buckets(cols: List[np.ndarray], kinds: List[str], P: int,
+                  pool: Optional[ThreadPoolExecutor]) -> np.ndarray:
+    """One part's bucket ids, hashed in slices of _HASH_SLICE rows on the
+    pool's threads (strings on this one)."""
+    n = len(cols[0])
+    if pool is None or n <= _HASH_SLICE or "str" in kinds:
+        return _bucket_of(cols, kinds, P)
+    out = np.empty(n, _bucket_dtype(P))
+
+    def work(lo: int) -> None:
+        hi = min(lo + _HASH_SLICE, n)
+        out[lo:hi] = _bucket_of([c[lo:hi] for c in cols], kinds, P)
+    list(pool.map(work, range(0, n, _HASH_SLICE)))
+    return out
+
+
+def _partition_rows(parts, cols: List[str], kinds: List[str], P: int):
+    """Each part's rows by bucket, in row order within a bucket: ->
+    sel[bucket][part position] (int64 row indices).  A part's ids are
+    hashed on worker threads, the parts sorted at once on others; the ids
+    take a byte (P <= 256), so numpy's stable sort of them is a radix
+    sort."""
+    def split(a: Optional[np.ndarray]) -> List[np.ndarray]:
+        if a is None:
+            return [np.zeros(0, np.int64)] * P
+        order = np.argsort(a, kind="stable")
+        ends = np.cumsum(np.bincount(a, minlength=P))
+        return np.split(order, ends[:-1])
+
+    with ThreadPoolExecutor(_host_workers()) as pool, \
+            ThreadPoolExecutor(_host_workers()) as sorter:
+        pending = [sorter.submit(split, _part_buckets(
+            [np.asarray(p.columns[c]) for c in cols], kinds, P, pool)
+            if p.num_rows else None) for p in parts]
+        per_part = [f.result() for f in pending]
+    return [[pp[b] for pp in per_part] for b in range(P)]
+
+
+def _grace_bucket_count(build_bytes: int, thr: int, settings) -> int:
+    """grace_join_buckets, or the power of two (2..256) that cuts the
+    build side into buckets of at most a quarter of the threshold."""
+    if settings.grace_join_buckets > 0:
+        return int(settings.grace_join_buckets)
+    target = max(thr // 4, 1)
+    P = 1
+    while P * target < build_bytes and P < 256:
+        P *= 2
+    return max(P, 2)
+
+
+def _grace_build_buckets(table, columns: List[str], sel_per_bucket):
+    """A ChunkSource a build bucket, each one chunk of one shared capacity,
+    in one layout (the first's) and unpacked: its rows stay on the host
+    until its bucket runs (one bucket on the device at a time)."""
+    from ..storage.table import ChunkSource
+    cap = pad_to(max(max(sum(len(s) for s in sels)
+                         for sels in sel_per_bucket), 1))
+    srcs, donor = [], None
+    for sels in sel_per_bucket:
+        src = ChunkSource(table, columns, cap, row_sel=sels, pack=False,
+                          layout_donor=donor)
+        donor = donor or src
+        srcs.append(src)
+    return srcs
+
+
+# -- blow-up streaming: the chunk of an expanding join -----------------------
 
 def _chain_blowup(split, catalog, settings: Settings) -> Tuple[int, int]:
     """-> (output rows a probe row, widest row bytes) over the chain
@@ -442,6 +628,19 @@ def _blowup_chunk_rows(split, catalog, settings: Settings,
     return pad_to(min(chunk_rows, max((budget // 2) // (f * row), 1)))
 
 
+def _split_chunk_rows(split, table, columns, catalog,
+                      settings: Settings) -> int:
+    """The chunk rows of a split's streamed table: the configured chunk,
+    at least a top-k's rows, cut to an expanding join's chunk
+    (_blowup_chunk_rows); NotStreamable where a column cannot stream."""
+    _check_streamable(table, columns)
+    chunk_rows = _chunk_rows_for(table, columns, settings)
+    if isinstance(split, GenericSplit) and split.kind == "topk":
+        chunk_rows = max(chunk_rows, pad_to(split.k_total))
+    return _blowup_chunk_rows(split, catalog, settings, chunk_rows,
+                              table.num_rows)
+
+
 def _check_streamable(table, columns) -> None:
     """NotStreamable where ChunkSource would refuse a column."""
     from ..storage.table import check_streamable
@@ -449,95 +648,22 @@ def _check_streamable(table, columns) -> None:
         check_streamable(table, name)
 
 
-def _not_ported(program: str, what: str) -> NotImplementedError_:
-    return NotImplementedError_(
-        f"streaming {what} through {program} is not ported to the CUDA "
-        f"engine yet")
-
-
-def check_not_streamed(split, grace_key) -> None:
-    """Raise NotImplementedError_ naming the program through which the
-    reference would stream a split that is not the aggregation's: a grace
-    join (grace_key: the build table above the threshold), TopKProgram
-    or CollectProgram (a holistic aggregate's plan among them)."""
-    if grace_key is not None:
-        raise _not_ported("a grace join",
-                          f"the build side {'.'.join(grace_key)}")
-    if isinstance(split, GenericSplit):
-        if split.kind == "topk":
-            raise _not_ported("TopKProgram", "ORDER BY ... LIMIT")
-        holistic = [a.fn.name for n in split.path
-                    if isinstance(n, L.AggregateNode)
-                    for a in n.aggregates if a.fn.holistic]
-        raise _not_ported("CollectProgram", "this plan shape" + (
-            f" (the holistic aggregate {holistic[0]})" if holistic else ""))
-
-
-def blowup_would_stream(session, plan: L.PlanNode, settings: Settings):
-    """After the governor refuses a plan: raise NotImplementedError_ where
-    the reference would chunk the probe side of an expanding join (its
-    try_blowup_streaming: stored scans, largest first, then numbers()
-    sources of at most 2^27 rows), MemoryLimitExceeded where it refuses
-    one joined block; return where neither applies."""
-    from ..storage.table import NotStreamable, _narrow_itemsize
-    catalog = session.catalog
-    budget = effective_memory_budget(settings)
-    if estimate_plan_device_bytes(plan, catalog, settings) <= budget:
-        return
-    cands, seen = [], set()
-    scans: List[L.ScanNode] = []
-    _collect_scans(plan, scans)
-    for s in scans:
-        key = (s.database, s.table)
-        if key not in seen:
-            seen.add(key)
-            t = catalog.get_table(*key)
-            cands.append((t.physical_bytes(set(s.column_names))
-                          if t.num_rows else 0, None, key))
-    cands.sort(key=lambda c: -c[0])
-    nums: List[L.NumbersNode] = []
-
-    def walk(n):
-        if isinstance(n, L.NumbersNode):
-            nums.append(n)
-        for c in n.children():
-            walk(c)
-    walk(plan)
-    cands += [(0, nn, None) for nn in nums if nn.count <= 1 << 27]
-    for _, nn, key in cands:
-        if nn is not None:
-            key = ("_stream_tmp", f"numbers_{nn.start}_{nn.count}")
-            plan2 = _replace_node(plan, nn, L.ScanNode(
-                key[0], key[1], list(nn.schema), ["number"]))
-            rows = nn.count
-            width = _narrow_itemsize(np.dtype(np.uint64), (
-                nn.start, nn.start + max(nn.count - 1, 0)))
-            chunk = pad_to(settings.stream_chunk_rows) \
-                if settings.stream_chunk_rows > 0 else pad_to(
-                    min(settings.stream_chunk_bytes // width, max(rows, 1)))
-            other = estimate_plan_scan_bytes(plan, catalog)
-        else:
-            plan2 = plan
-            table = catalog.get_table(*key)
-        split = find_split(plan2, key) \
-            or find_generic_split(plan2, key, settings)
-        if split is None:
-            continue
-        if nn is None:
-            columns = list(split.scan.column_names)
-            try:
-                _check_streamable(table, columns)
-            except NotStreamable:
-                continue
-            rows = table.num_rows
-            chunk = _chunk_rows_for(table, columns, settings)
-            other = estimate_plan_scan_bytes(plan, catalog) - (
-                table.physical_bytes(set(columns)) if table.num_rows else 0)
-        chunk = _blowup_chunk_rows(split, catalog, settings, chunk, rows)
-        f, row = _chain_blowup(split, catalog, settings)
-        if other + chunk * max(f, 1) * row <= budget * 2:
-            raise _not_ported("blow-up streaming",
-                              "an expanding join's probe side")
+def check_not_streamed(split) -> None:
+    """Raise NotImplementedError_ naming a node above the split that the
+    engine cannot run (a window function over a collect's rows), before
+    any chunk is read."""
+    todo = [split.upper]
+    while todo:
+        node = todo.pop()
+        if type(node) not in _DISPATCH:
+            what = "a window function (WindowNode)" \
+                if isinstance(node, L.WindowNode) else type(node).__name__
+            program = {"topk": "TopKProgram", "collect": "CollectProgram"
+                       }.get(getattr(split, "kind", None), "StreamProgram")
+            raise NotImplementedError_(
+                f"streaming {what} over {program}'s rows is not ported to "
+                f"the CUDA engine yet")
+        todo.extend(node.children())
 
 
 # -- pruning on the host -----------------------------------------------------
@@ -846,7 +972,6 @@ def _stage1_on_chunk(split: StreamSplit, ctx, struct: dict) -> _Partial:
 
 
 def _run(node: L.PlanNode, ctx):
-    from .executor import execute_plan
     return execute_plan(node, ctx)
 
 
@@ -1013,36 +1138,90 @@ def _chunk_block(tensors: Dict[str, tuple], n: int, src, table) -> Block:
     return Block(cols, n)
 
 
-class StreamProgram:
-    """The aggregation split run chunk by chunk (the reference's
-    StreamProgram, its init/step/fin run eagerly)."""
+class _StreamProgramBase:
+    """What the programs share (the reference's _StreamProgramBase): the
+    sources as (ChunkSource, grace bucket or None) pairs, the small
+    tables' blocks (a grace bucket's build rows in place of the build
+    table's), the chunk loop with the read pool and the prefetch, and
+    io_stats."""
 
-    def __init__(self, session, split: StreamSplit, settings: Settings,
-                 src, table, cap_c: int):
-        self.session = session
-        self.split = split
+    def __init__(self, session, split, settings: Settings, sources, table,
+                 grace: Optional[tuple] = None):
+        # grace: (the build table's key, a ChunkSource a bucket) or None
         self.settings = settings
-        self.src = src
+        self.sources = sources
+        self.src = sources[0][0]
         self.table = table
-        self.cap_c = cap_c
+        self.split = split
+        self.grace = grace
         self.device = session.device
         self.struct: Dict[str, Any] = {}
         catalog = session.catalog
+        gk = grace[0] if grace else None
         self.small_lower = {k: catalog.get_table(*k).read_block()
-                            for k in split.lower_scan_keys}
+                            for k in split.lower_scan_keys if k != gk}
         self.small_upper = {k: catalog.get_table(*k).read_block()
                             for k in split.upper_scan_keys}
-        self.total_rows = src.total_rows
+        self.total_rows = sum(src.total_rows for src, _ in sources)
         # host preparation, transfer and the consumer's wait, in seconds,
-        # and the chunks read, of the last run (the reference's
+        # the chunks read and the bytes copied back to the host (a
+        # collect's rows), of the last run (the reference's
         # ProcessorsProfileLog split)
         self.io_stats = {"prep_s": 0.0, "transfer_s": 0.0, "wait_s": 0.0,
-                         "chunks": 0}
+                         "chunks": 0, "back_bytes": 0}
+        # the small tables' blocks a grace bucket reads: one dict, its
+        # build entry replaced bucket by bucket
+        self._grace_blocks: Dict[Tuple[str, str], Any] = {}
+        self._bucket: Optional[int] = None
 
-    def _host_chunks(self):
+    def _lower_blocks(self, bucket: Optional[int]):
+        """The small tables' blocks for a source: a grace bucket's build
+        rows copied to the device once, while its bucket runs (the dict is
+        the same for every bucket, so the one before is freed here)."""
+        if self.grace is None or bucket is None:
+            return self.small_lower
+        blocks, gk = self._grace_blocks, self.grace[0]
+        if self._bucket != bucket:
+            blocks.clear()                    # one bucket on the device
+            src = self.grace[1][bucket]
+            data, n = src.chunk(0)
+            tensors = _to_device(data, self.device, None)
+            blocks.update(self.small_lower)
+            blocks[gk] = _chunk_block(tensors, n, src, src.table)
+            self._bucket = bucket
+        return blocks
+
+    def _lower_on_chunk(self, blk: Block, blocks):
+        """The lower plan over one chunk (the reference's
+        _lower_on_chunk) -> (its ExecBlock, its ExecContext)."""
+        blocks = dict(blocks)
+        blocks[self.split.big_key] = blk
+        ctx = ExecContext(blocks, self.settings, device=self.device)
+        return _run(self.split.lower, ctx), ctx
+
+    def _chunks(self):
+        """(device Block, the small tables' blocks) of every chunk, source
+        by source; a source without rows is skipped once a chunk was
+        read (the first chunk of the first source shapes the carry)."""
+        self.io_stats = {k: 0 if k in ("chunks", "back_bytes") else 0.0
+                         for k in self.io_stats}
+        read = False
+        try:
+            for src, bucket in self.sources:
+                if src.total_rows == 0 and read:
+                    continue
+                blocks = self._lower_blocks(bucket)
+                for blk in self._iter_chunks(src):
+                    read = True
+                    yield blk, blocks
+        finally:
+            self._grace_blocks.clear()
+            self._bucket = None
+
+    def _host_chunks(self, src):
         """(data, rows) of each chunk in index order: from the read pool
         where stream_readers > 1, else encoded here."""
-        src, stats = self.src, self.io_stats
+        stats = self.io_stats
         readers = max(int(self.settings.stream_readers), 1)
         if readers > 1 and src.num_chunks > 1:
             from ..storage.read_pool import ParallelChunkReader
@@ -1059,8 +1238,8 @@ class StreamProgram:
             stats["prep_s"] += time.perf_counter() - t0
             yield data, n
 
-    def _iter_chunks(self):
-        """Device Blocks of the chunks, in index order: the copies of the
+    def _iter_chunks(self, src):
+        """Device Blocks of src's chunks, in index order: the copies of the
         next chunks overlap the compute on this one where there are
         several (_device_prefetch)."""
         dev, stats = self.device, self.io_stats
@@ -1068,7 +1247,7 @@ class StreamProgram:
         copy_stream = torch.cuda.Stream(dev) if cuda else None
 
         def device_chunks(permits):
-            for data, n in self._host_chunks():
+            for data, n in self._host_chunks(src):
                 if permits is not None:
                     permits.acquire()
                 t0 = time.perf_counter()
@@ -1081,11 +1260,14 @@ class StreamProgram:
                 stats["transfer_s"] += time.perf_counter() - t0
                 stats["chunks"] += 1
                 # a list: the consumer empties it, so the packed bytes go
-                # once unpacked
-                yield [tensors, n, ev]
+                # once unpacked (this frame keeps no other reference while
+                # the chunk is processed)
+                item = [tensors, n, ev]
+                del tensors
+                yield item
 
         it = _device_prefetch(device_chunks, _PREFETCH_DEPTH, stats, dev) \
-            if self.src.num_chunks > 1 else device_chunks(None)
+            if src.num_chunks > 1 else device_chunks(None)
         for item in it:
             tensors, n, ev = item
             item.clear()
@@ -1096,21 +1278,47 @@ class StreamProgram:
                     for x in (d, v):
                         if x is not None:
                             x.record_stream(cur)
-            blk = _chunk_block(tensors, n, self.src, self.table)
+            blk = _chunk_block(tensors, n, src, self.table)
             del tensors
             yield blk
 
+    def _checks(self, struct: dict) -> List[Check]:
+        """The lower plan's capacity checks at their largest over the
+        chunks (collected by _keep_checks)."""
+        return [Check(v, limit, msg, setting) for v, (limit, msg, setting)
+                in zip(struct.get("lower_vals", []),
+                       struct.get("lower_checks", []))]
+
+
+def _keep_checks(struct: dict, ctx) -> None:
+    """Carry a chunk's capacity checks: their limits once, their values
+    as the largest over the chunks (on the device: no sync)."""
+    if "lower_checks" not in struct:
+        struct["lower_checks"] = [(c.limit, c.message, c.setting)
+                                  for c in ctx.checks]
+    vals = [torch.as_tensor(c.value, dtype=torch.int64, device=ctx.device)
+            for c in ctx.checks]
+    struct["lower_vals"] = vals if "lower_vals" not in struct else [
+        torch.maximum(a, b) for a, b in zip(struct["lower_vals"], vals)]
+
+
+class StreamProgram(_StreamProgramBase):
+    """The aggregation split run chunk by chunk (the reference's
+    StreamProgram, its init/step/fin run eagerly)."""
+
+    def __init__(self, session, split: StreamSplit, settings: Settings,
+                 sources, table, cap_c: int, grace: Optional[tuple] = None):
+        super().__init__(session, split, settings, sources, table, grace)
+        self.cap_c = cap_c
+
     def run(self, session):
         """-> (the result's host columns, its ExecContext)."""
-        from .executor import Check, ExecContext, _finalize, materialize
         self.struct = struct = {}
-        self.io_stats = {k: 0.0 if k != "chunks" else 0
-                         for k in self.io_stats}
         settings, dev = self.settings, self.device
         carry: Optional[_Partial] = None
         n_groups = None
-        for blk in self._iter_chunks():
-            blocks = dict(self.small_lower)
+        for blk, small in self._chunks():
+            blocks = dict(small)
             blocks[self.split.big_key] = blk
             ctx = ExecContext(blocks, settings, device=dev)
             ctx.merge_states = True
@@ -1150,24 +1358,516 @@ class StreamProgram:
                                 "GROUP BY cardinality exceeded max_groups; "
                                 "raise the max_groups setting",
                                 setting="max_groups"))
-        checks += [Check(v, limit, msg, setting) for v, (limit, msg, setting)
-                   in zip(struct["lower_vals"], struct["lower_checks"])]
-        ctx.checks = checks + ctx.checks
+        ctx.checks = checks + self._checks(struct) + ctx.checks
         cols = materialize(out, self.split.upper.schema, ctx)
         ctx.totals = None
         ctx.profile["rows_scanned"] = self.total_rows
         return cols, ctx
 
 
+def _map_colval(f, cv: ColVal, *more: ColVal) -> ColVal:
+    """A column rebuilt from f over its tensors (stored narrow: storage
+    and validity; else data, validity and lengths), each given with the
+    same tensor of each column of `more`; None stays None.  A slice, a
+    gather, or over two columns of one layout their concatenation."""
+    def g(get):
+        t = get(cv)
+        return None if t is None else f(t, *[get(m) for m in more])
+    if isinstance(cv, StoredColVal) \
+            and all(isinstance(m, StoredColVal) for m in more):
+        return StoredColVal(cv.dtype, g(lambda c: c.storage),
+                            g(lambda c: c.validity))
+    return ColVal(cv.dtype, g(lambda c: c.data), g(lambda c: c.validity),
+                  cv.dictionary, lengths=g(lambda c: c.lengths))
+
+
+def _slice_rows(blk: Block, lo: int, hi: int) -> Block:
+    """Rows [lo, hi) of a chunk's Block (views of its columns)."""
+    def cut(t):
+        return None if t is None else t[lo:hi]
+    return Block({name: dataclasses.replace(
+        c, data=c.data[lo:hi], validity=cut(c.validity),
+        lengths=cut(c.lengths)) for name, c in blk.columns.items()},
+        max(min(blk.num_rows, hi) - lo, 0))
+
+
+def _exact_bounds(b):
+    """Integer bounds that a float of the part statistics holds exactly
+    (|value| <= 2^53), else None."""
+    if b is None or not all(isinstance(v, (int, np.integer)) or float(
+            v).is_integer() for v in b):
+        return None
+    lo, hi = int(b[0]), int(b[1])
+    return (lo, hi) if -(1 << 53) <= lo <= hi <= 1 << 53 else None
+
+
+def _sort_value(eb: ExecBlock, item, ctx) -> ColVal:
+    """A sort item's value over a block, with no widened copy kept on the
+    block (an integer column stored narrow as stored, an intDiv/modulo
+    term formed in its source's type: their tokens and keys are the
+    widened column's) and its proven bounds (so a K3 top-k takes the
+    32-bit entry where they span 32 bits)."""
+    cv = evaluate(item.expr, eb.env(), ctx.memory_headroom)
+    b = _exact_bounds(cv.bounds if cv.bounds is not None
+                      else R.infer_bounds(item.expr, ctx.field_bounds))
+    if isinstance(cv, StoredColVal) and not cv.storage.is_floating_point():
+        return ColVal(cv.dtype, cv.storage, cv.validity, bounds=b)
+    if isinstance(cv, TermColVal):
+        return ColVal(cv.dtype, cv.term.build_narrow(), cv.validity,
+                      bounds=b)
+    cv = cv.broadcast(eb.capacity)
+    return dataclasses.replace(cv, bounds=b) if type(cv) is ColVal else cv
+
+
+def _sort_key(eb: ExecBlock, item, ctx) -> sort_ops.SortKey:
+    """A sort item as a key of K4's sort: a non-NULL integer value whose
+    proven bounds span less than 2^31 as itself in 32 bits where they fit
+    (DESC: hi - value), its bounds given, so sort_rows packs it without
+    measuring it or building a 64-bit token; any other value as its order
+    token.  The order is the token's either way."""
+    cv = _sort_value(eb, item, ctx)
+    x, b = cv.data, cv.bounds
+    if cv.validity is None and cv.dictionary is None and b is not None \
+            and not x.is_floating_point() and x.dtype != torch.bool \
+            and int(b[1]) - int(b[0]) < 1 << 31:
+        lo, hi = int(b[0]), int(b[1])
+        x = x.to(torch.int32 if -(1 << 31) <= lo and hi < 1 << 31
+                 else torch.int64)
+        if item.descending:
+            return sort_ops.SortKey(hi - x, bounds=(0, hi - lo))
+        return sort_ops.SortKey(x, bounds=(lo, hi))
+    return sort_ops.SortKey(_token_for_sort(cv, item, eb.capacity),
+                            unsigned=True)
+
+
+def _packed_key32(keys: List[sort_ops.SortKey]) -> Optional[torch.Tensor]:
+    """Sort keys whose bounds all fit one 31-bit key, packed side by side
+    (the first most significant, each less its lower bound), as int32: its
+    order is the keys' order, so K3's 32-bit entry takes a top-k of
+    several keys over one chunk as it takes one key's (a K4 sort of a
+    2^27-row chunk held 4.6 GB of an H100's memory).  None where they do
+    not fit."""
+    if any(k.bounds is None or k.unsigned for k in keys):
+        return None
+    widths = [(int(k.bounds[1]) - int(k.bounds[0])).bit_length()
+              for k in keys]
+    if sum(widths) > 31:
+        return None
+    out, shift = None, sum(widths)
+    for k, w in zip(keys, widths):
+        shift -= w
+        v = (k.data - int(k.bounds[0])).to(torch.int32)
+        v = v << shift if shift else v
+        out = v if out is None else out.bitwise_or_(v)
+    return out
+
+
+def _sort_perm(eb: ExecBlock, items, valid, ctx) -> torch.Tensor:
+    """The stable sort (K4) of the block's rows by the items: valid rows
+    by (keys, row id), then the rest."""
+    perm, _ = sort_ops.sort_rows([_sort_key(eb, it, ctx) for it in items],
+                                 valid, want_keys=False,
+                                 max_bytes=ctx.memory_headroom)
+    return perm.to(torch.int64)
+
+
+# rows of a chunk's slice that a top-k sorted by K4 lowers and sorts at
+# once (a 2^27-row chunk's projection and K4 sort by two keys held 4.6 GB
+# of an H100)
+TOPK_SORT_ROWS = 1 << 24
+
+
+class TopKProgram(_StreamProgramBase):
+    """ORDER BY ... LIMIT k streamed (the reference's TopKProgram, the
+    external sort's top-N): each chunk's first k rows in the sort's order
+    (K3 for one key or keys packed into one; else the stable sort K4, a
+    slice of TOPK_SORT_ROWS rows at a time), merged with the carried k
+    rows by a stable sort of carry ++ part (K4), so a tie keeps the
+    carry's row first, as one block's stable sort keeps the earlier
+    row."""
+
+    def __init__(self, session, split: GenericSplit, settings: Settings,
+                 sources, table, grace: Optional[tuple] = None):
+        super().__init__(session, split, settings, sources, table, grace)
+        self.k_cap = pad_to(max(split.k_total, 1))
+        self._sliced: Optional[bool] = None  # K4 over slices (_spans)
+
+    def _k3_key(self, eb: ExecBlock, ctx, cap: int):
+        """(the key K3 takes the block's first k rows by, whether it is
+        the 32-bit key or a 64-bit order token), or None where K4 sorts
+        the rows: chunks of `cap` rows below 2^16, k above K3's, or
+        several keys that do not pack into one 31-bit key."""
+        items = self.split.sort_items
+        if cap < 1 << 16 or min(self.k_cap, cap) > sort_ops.MAX_TOPK:
+            return None
+        if len(items) == 1:
+            cv = _sort_value(eb, items[0], ctx)
+            key32 = sort_ops.topk_key32(cv, items[0].descending)
+            return (key32, True) if key32 is not None else (
+                _token_for_sort(cv, items[0], eb.capacity), False)
+        key32 = _packed_key32([_sort_key(eb, it, ctx) for it in items])
+        return None if key32 is None else (key32, True)
+
+    def _spans(self, blk: Block, small):
+        """The row spans of a chunk that are lowered apart: the whole
+        chunk (None) where K3 takes it or it fits TOPK_SORT_ROWS, else
+        its slices of TOPK_SORT_ROWS rows up to its row bound.  K3 or K4
+        is decided once, over the first slice (the keys' types and
+        bounds are the plan's)."""
+        cap = blk.capacity
+        step = max(TOPK_SORT_ROWS, self.k_cap)
+        if step >= cap:
+            return [None]
+        if self._sliced is None:
+            eb, ctx = self._lower_on_chunk(_slice_rows(blk, 0, step), small)
+            self._sliced = self._k3_key(eb, ctx, cap) is None
+        if not self._sliced:
+            return [None]
+        return [(lo, min(lo + step, cap)) for lo in range(0, cap, step)
+                if not lo or lo < blk.num_rows]
+
+    def _top(self, eb: ExecBlock, idx0: torch.Tensor, ctx):
+        """The block's rows at idx0 (its first rows in the sort's order),
+        gathered as stored into k_cap slots, and how many hold a row."""
+        idx = torch.zeros(self.k_cap, dtype=torch.int64, device=ctx.device)
+        idx[:idx0.shape[0]] = idx0
+        count = torch.clamp(filter_ops.count_mask(eb.rows),
+                            max=min(self.split.k_total, idx0.shape[0]))
+        cols = {f.id: _gather_colval(eb.cols[f.id], idx, eb.capacity)
+                for f in self.split.lower.schema}
+        return cols, count
+
+    def _merge(self, carry, part, ctx):
+        """carry ++ part, stably sorted, its first k_cap rows."""
+        (ccols, ccount), (pcols, pcount) = carry, part
+        k_cap, cat_cap = self.k_cap, 2 * self.k_cap
+        cols = {fid: _map_colval(
+            lambda x, y: torch.cat([x, y.to(x.dtype)]), ccols[fid],
+            pcols[fid]) for fid in ccols}
+        ar = torch.arange(k_cap, device=ctx.device)
+        valid = torch.cat([ar < ccount, ar < pcount])
+        eb = ExecBlock(cols, agg_ops.RowMask.of(valid), cat_cap)
+        idx = _sort_perm(eb, self.split.sort_items, valid, ctx)[:k_cap]
+        return ({fid: _gather_colval(cv, idx, cat_cap)
+                 for fid, cv in cols.items()},
+                torch.clamp(ccount + pcount, max=self.split.k_total))
+
+    def run(self, session):
+        """-> (the result's host columns, its ExecContext)."""
+        self.struct = struct = {}
+        carry = None
+        items, k_cap = self.split.sort_items, self.k_cap
+        for blk, small in self._chunks():
+            for span in self._spans(blk, small):
+                eb, ctx = self._lower_on_chunk(
+                    blk if span is None else _slice_rows(blk, *span), small)
+                _keep_checks(struct, ctx)
+                cap = eb.capacity
+                key = None if span else self._k3_key(eb, ctx, cap)
+                if key is None:
+                    idx0 = _sort_perm(eb, items, eb.valid, ctx)[:k_cap]
+                elif key[1]:
+                    idx0 = sort_ops.topk_permutation32(key[0], eb.valid,
+                                                       min(k_cap, cap))
+                else:
+                    idx0 = sort_ops.topk_permutation(key[0], eb.valid,
+                                                     min(k_cap, cap))
+                part = self._top(eb, idx0, ctx)
+                carry = part if carry is None \
+                    else self._merge(carry, part, ctx)
+                del eb, ctx, key, idx0, part
+            del blk
+        cols, count = carry
+        ctx = ExecContext(dict(self.small_upper), self.settings,
+                          device=self.device)
+        valid = torch.arange(self.k_cap, device=self.device) < count
+        ctx.injected[_STREAM_KEY] = ExecBlock(
+            cols, agg_ops.RowMask.of(valid), self.k_cap)
+        out = _run(self.split.upper, ctx)
+        ctx.checks = self._checks(struct) + ctx.checks
+        res = materialize(out, self.split.upper.schema, ctx)
+        ctx.totals = None
+        ctx.profile["rows_scanned"] = self.total_rows
+        return res, ctx
+
+
+class CollectProgram(_StreamProgramBase):
+    """Any other shape streamed (the reference's CollectProgram): each
+    chunk's surviving rows are compacted on the device by K14
+    (filter_ops.compact_rows: their indices in row order and their count,
+    the one value read back a chunk) and only they are copied, as stored,
+    to page-locked host memory; host memory plays the role of the
+    reference's temporary data on disk.  The rest of the plan then runs
+    over the collected rows: a bare block or a LIMIT is cut on the host,
+    rows that fit the budget run the upper plan on the device, and above
+    it a Sort [-> Limit] sorts on the host (_np_order, the external
+    sort)."""
+
+    def run(self, session):
+        """-> (the result's host columns, its ExecContext)."""
+        self.struct = struct = {}
+        schema = self.split.lower.schema
+        acc: Dict[str, List[tuple]] = {f.id: [] for f in schema}
+        total, limit = 0, self.split.limit_total
+        pin = self.device.type == "cuda"
+        for blk, small in self._chunks():
+            eb, ctx = self._lower_on_chunk(blk, small)
+            _keep_checks(struct, ctx)
+            cap = eb.capacity
+            cvs = {f.id: eb.cols[f.id].broadcast(cap) for f in schema}
+            if "kinds" not in struct:
+                struct["kinds"] = {
+                    fid: (isinstance(cv, StoredColVal), cv.dictionary,
+                          cv.validity is not None, cv.lengths is not None)
+                    for fid, cv in cvs.items()}
+            idx, count = filter_ops.compact_rows(eb.rows)
+            n = int(count)
+            if limit is not None:
+                n = min(n, limit - total)
+            if n > 0:
+                sel = idx[:n]
+                for fid, cv in cvs.items():
+                    stored, _, has_v, has_l = struct["kinds"][fid]
+                    piece = tuple(
+                        _to_host(t.index_select(0, sel), pin)
+                        if t is not None else None
+                        for t in (cv.storage if stored else cv.data,
+                                  cv.validity if has_v else None,
+                                  cv.lengths if has_l else None))
+                    self.io_stats["back_bytes"] += sum(
+                        t.nbytes for t in piece if t is not None)
+                    acc[fid].append(piece)
+                total += n
+            del blk, eb, ctx, cvs, idx
+            if limit is not None and total >= limit:
+                break
+        if pin:
+            torch.cuda.current_stream(self.device).synchronize()
+        return self._finalize(session, acc, total)
+
+    def _host_cols(self, acc, total: int) -> Dict[str, ColVal]:
+        """The collected rows, a host ColVal a field (as stored)."""
+        out = {}
+        for f in self.split.lower.schema:
+            stored, dic, has_v, has_l = self.struct["kinds"][f.id]
+            pieces = acc[f.id]
+            parts = []
+            for j in range(3):
+                ts = [p[j] for p in pieces]
+                parts.append(torch.cat(ts) if ts and ts[0] is not None
+                             else None)
+            data, validity, lengths = parts
+            if data is None:
+                data = torch.zeros(0, dtype=dt.remove_nullable(
+                    f.dtype).torch_dtype)
+                validity = torch.zeros(0, dtype=torch.uint8) \
+                    if has_v else None
+                lengths = torch.zeros(0, dtype=torch.int32) \
+                    if has_l else None
+                stored = False
+            out[f.id] = StoredColVal(f.dtype, data, validity) if stored \
+                else ColVal(f.dtype, data, validity, dic, lengths=lengths)
+        return out
+
+    def _block(self, cols: Dict[str, ColVal], n: int, device,
+               pad: bool) -> ExecBlock:
+        """The first n collected rows as an ExecBlock on `device` (padded
+        to the pad unit where the upper plan runs over it)."""
+        cap = pad_to(n) if pad else max(n, 1)
+
+        def fit(t):
+            t = t[:n]
+            if t.shape[0] < cap:
+                t = torch.cat([t, torch.zeros((cap - t.shape[0],)
+                                              + tuple(t.shape[1:]),
+                                              dtype=t.dtype)])
+            return t.to(device)
+        out = {fid: _map_colval(fit, cv) for fid, cv in cols.items()}
+        valid = torch.arange(cap, device=device) < n
+        return ExecBlock(out, agg_ops.RowMask.of(valid), cap)
+
+    def _finalize(self, session, acc, total: int):
+        split, settings = self.split, self.settings
+        upper = split.upper
+        cols = self._host_cols(acc, total)
+        cpu = torch.device("cpu")
+        ctx = ExecContext({}, settings, device=cpu)
+        ctx.checks = self._checks(self.struct)
+
+        def done(eb, schema, c):
+            res = materialize(eb, schema, c)
+            c.totals = None
+            c.profile["rows_scanned"] = self.total_rows
+            return res, c
+        if isinstance(upper, L.BlockSourceNode):
+            return done(self._block(cols, total, cpu, False), upper.schema,
+                        ctx)
+        if isinstance(upper, L.LimitNode) \
+                and isinstance(upper.child, L.BlockSourceNode):
+            lo = upper.offset
+            hi = lo + upper.limit if upper.limit >= 0 else total
+            n = max(min(hi, total) - lo, 0)
+            cols = {fid: _map_colval(lambda t: t[lo:lo + n], cv)
+                    for fid, cv in cols.items()}
+            return done(self._block(cols, n, cpu, False), upper.schema, ctx)
+        est = sum(t.nbytes for cv in cols.values()
+                  for t in (cv.storage, cv.validity) if t is not None)
+        budget = max(int(settings.max_device_memory_bytes), 1)
+        if est <= budget:
+            # the collected rows fit the device: the rest of the plan runs
+            # there over them
+            ectx = ExecContext(dict(self.small_upper), settings,
+                               device=self.device)
+            ectx.injected[_STREAM_KEY] = self._block(cols, total,
+                                                     self.device, True)
+            out = _run(upper, ectx)
+            ectx.checks = ctx.checks + ectx.checks
+            return done(out, upper.schema, ectx)
+        # over the budget: a Sort [-> Limit] chain sorts on the host
+        chain, node = [], upper
+        while not isinstance(node, L.BlockSourceNode):
+            chain.append(node)
+            kids = node.children()
+            if len(kids) != 1:
+                break
+            node = kids[0]
+        if not isinstance(node, L.BlockSourceNode) \
+                or not all(isinstance(c, (L.SortNode, L.LimitNode))
+                           for c in chain) \
+                or sum(isinstance(c, L.SortNode) for c in chain) != 1:
+            raise MemoryLimitExceeded(
+                f"collected streamed rows need ~{est >> 20} MiB on device "
+                f"(budget {budget >> 20} MiB) and the remaining plan is not "
+                "a host-executable Sort/Limit chain; raise "
+                "max_device_memory_bytes or add a LIMIT")
+        n = total
+        for c in reversed(chain):       # bottom-up: the Sort, then Limits
+            if isinstance(c, L.SortNode):
+                perm = torch.from_numpy(_np_order(c.items, cols))
+                cols = {fid: _map_colval(
+                    lambda t: t.index_select(0, perm), cv)
+                    for fid, cv in cols.items()}
+            else:
+                lo = c.offset
+                hi = min(lo + c.limit if c.limit >= 0 else n, n)
+                cols = {fid: _map_colval(lambda t: t[lo:hi], cv)
+                        for fid, cv in cols.items()}
+                n = max(hi - lo, 0)
+        return done(self._block(cols, n, cpu, False), upper.schema, ctx)
+
+
+def _to_host(t: torch.Tensor, pin: bool) -> torch.Tensor:
+    """A device tensor's copy in host memory, page-locked on a CUDA
+    device (enqueued: the caller synchronises before reading it)."""
+    if not pin:
+        return t.clone() if t.device.type == "cpu" else t.cpu()
+    out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    out.copy_(t, non_blocking=True)
+    return out
+
+
+def _np_order(items, cols: Dict[str, ColVal]) -> np.ndarray:
+    """The host permutation of an ORDER BY over collected rows (the
+    reference's _np_order, the external sort's): each key's u64 token (a
+    string's rank in its dictionary, a float's total-order bits, an
+    integer's bits with the sign flipped), inverted for DESC, NULL at the
+    bottom or the top of the range; np.lexsort, stable.  Keys must be
+    plain columns of the collected rows."""
+    from ..exprs.expr import BoundColumn
+    keys: List[np.ndarray] = []
+    for it in items:
+        if not isinstance(it.expr, BoundColumn) or it.expr.name not in cols:
+            raise MemoryLimitExceeded(
+                "host external sort requires plain column ORDER BY keys")
+        cv = cols[it.expr.name]
+        logical = dt.remove_nullable(cv.dtype)
+        v = dt.to_numpy_storage(cv.data, None if logical.is_dictionary
+                                else logical.np_dtype)
+        if logical.is_dictionary:
+            d = cv.dictionary
+            vals = d.values.astype(str) if d is not None and len(d) \
+                else np.zeros(0, str)
+            order = np.argsort(vals, kind="stable")
+            rank = np.empty(len(vals), np.int64)
+            rank[order] = np.arange(len(vals))
+            tok = rank[np.maximum(v.astype(np.int64), 0)].astype(np.uint64) \
+                if len(vals) else np.zeros(len(v), np.uint64)
+        elif v.dtype.kind == "f":
+            bits = v.astype(np.float64).view(np.uint64)
+            sign = (bits >> np.uint64(63)).astype(bool)
+            tok = np.where(sign, ~bits,
+                           bits | np.uint64(1 << 63)).astype(np.uint64)
+        elif v.dtype.kind in "ub":
+            tok = v.astype(np.uint64)
+        else:
+            with np.errstate(over="ignore"):
+                tok = v.astype(np.int64).astype(np.uint64) \
+                    ^ np.uint64(1 << 63)
+        if it.descending:
+            tok = ~tok
+        if cv.validity is not None:
+            is_null = cv.validity.numpy() == 0
+            tok = np.where(is_null,
+                           np.uint64(2**64 - 1) if it.nulls_last
+                           else np.uint64(0),
+                           np.clip(tok, np.uint64(1), np.uint64(2**64 - 2)))
+        keys.append(tok)
+    return np.lexsort(tuple(reversed(keys)))   # the last key is primary
+
+
 # -- the entry ---------------------------------------------------------------
 
-def _build_stream_program(session, plan: L.PlanNode, settings: Settings,
-                          thr: int) -> Optional[StreamProgram]:
-    """The streamed table, its split and its chunk source (the reference's
-    _build_stream_program, without its grace and generic branches, which
-    raise naming their programs).  None where no streaming applies."""
-    from ..storage.table import NotStreamable
+def _program(session, split, settings: Settings, sources, table,
+             grace=None):
+    """The program of a split: StreamProgram for an aggregation,
+    TopKProgram or CollectProgram for the others."""
+    if isinstance(split, StreamSplit):
+        return StreamProgram(session, split, settings, sources, table,
+                             _carry_cap(split, table, settings), grace)
+    cls = TopKProgram if split.kind == "topk" else CollectProgram
+    return cls(session, split, settings, sources, table, grace)
+
+
+def _grace_sources(session, split, grace_j: GraceJoin, table, columns,
+                   chunk_rows: int, part_idx, thr: int, settings):
+    """Both sides hash-partitioned into the grace join's buckets: -> (a
+    probe ChunkSource a bucket over its rows, with the bucket, and the
+    program's grace argument: the build table's key and its buckets'
+    sources).  Counts GraceJoinBuckets."""
+    from ..storage.table import ChunkSource
     catalog = session.catalog
+    build_table = catalog.get_table(*grace_j.build_key)
+    build_cols = list(grace_j.build_scan.column_names)
+    P = _grace_bucket_count(build_table.physical_bytes(set(build_cols)),
+                            thr, settings)
+    grace_j.n_buckets = P
+    parts = table.parts if part_idx is None \
+        else [table.parts[i] for i in part_idx]
+    probe_sel = _partition_rows(parts, grace_j.probe_cols, grace_j.kinds, P)
+    build_sel = _partition_rows(build_table.parts, grace_j.build_cols,
+                                grace_j.kinds, P)
+    builds = _grace_build_buckets(build_table, build_cols, build_sel)
+    sources, donor = [], None
+    for b in range(P):
+        src = ChunkSource(table, columns, chunk_rows, part_idx=part_idx,
+                          row_sel=probe_sel[b], layout_donor=donor)
+        donor = donor or src
+        sources.append((src, b))
+    # a bucket is a chunk or a few: the read pool would not spread their
+    # encoding, so the buckets of both sides are encoded here at once
+    # (into each source's encode cache)
+    with ThreadPoolExecutor(_host_workers()) as pool:
+        list(pool.map(lambda src: [src.chunk(i) for i in
+                                   range(src.num_chunks)],
+                      [src for src, _ in sources] + builds))
+    _count(session, "GraceJoinBuckets", P)
+    return sources, (grace_j.build_key, builds)
+
+
+def scans_over_threshold(catalog, plan: L.PlanNode,
+                         thr: int) -> Dict[Tuple[str, str], int]:
+    """The tables the plan scans above the streaming threshold, each with
+    the bytes of the columns it reads."""
     scans: List[L.ScanNode] = []
     _collect_scans(plan, scans)
     over: Dict[Tuple[str, str], int] = {}
@@ -1177,22 +1877,32 @@ def _build_stream_program(session, plan: L.PlanNode, settings: Settings,
         b = t.physical_bytes(set(s.column_names)) if t.num_rows else 0
         if b > thr:
             over[key] = max(over.get(key, 0), b)
+    return over
+
+
+def _build_stream_program(session, plan: L.PlanNode, settings: Settings,
+                          thr: int):
+    """The streamed table, its split, its chunk sources (a grace join's
+    buckets among them) and its program (the reference's
+    _build_stream_program).  None where no streaming applies."""
+    from ..storage.table import NotStreamable
+    catalog = session.catalog
+    over = scans_over_threshold(catalog, plan, thr)
     for big in sorted(over, key=lambda k: -over[k]):
-        split = find_split(plan, big)
-        if split is None:
-            split = find_generic_split(plan, big, settings)
+        split = find_split(plan, big) or find_generic_split(plan, big,
+                                                            settings)
         if split is None:
             continue
         table = catalog.get_table(*big)
-        grace_key, compatible = _detect_grace(split, split.scan, catalog,
-                                              thr)
+        grace_j, compatible = _detect_grace(split, split.scan, catalog, thr)
         if not compatible:
             continue
         others = set(over) - {big}
-        if grace_key is not None:
-            others.discard(grace_key)
-            if grace_key in split.upper_scan_keys \
-                    or split.lower_scan_keys.count(grace_key) != 1:
+        if grace_j is not None:
+            others.discard(grace_j.build_key)
+            # the build table is read only as that join's build side
+            if grace_j.build_key in split.upper_scan_keys \
+                    or split.lower_scan_keys.count(grace_j.build_key) != 1:
                 continue
         if others:
             continue                  # another big table cannot stream
@@ -1202,25 +1912,28 @@ def _build_stream_program(session, plan: L.PlanNode, settings: Settings,
         part_idx, spans = _prune_parts(lower_root, split.scan, table,
                                        session)
         try:
-            _check_streamable(table, columns)
-            chunk_rows = _blowup_chunk_rows(
-                split, catalog, settings,
-                _chunk_rows_for(table, columns, settings), table.num_rows)
-            check_not_streamed(split, grace_key)
-            psel, sel_key = host_prewhere_sel(
-                lower_root, split.scan, table, part_idx, spans, session,
-                settings)
-            src = table.chunk_source(columns, chunk_rows, part_idx=part_idx,
-                                     spans=spans, row_sel=psel,
-                                     sel_key=sel_key)
+            chunk_rows = _split_chunk_rows(split, table, columns, catalog,
+                                           settings)
+            check_not_streamed(split)
+            grace = None
+            if grace_j is None:
+                psel, sel_key = host_prewhere_sel(
+                    lower_root, split.scan, table, part_idx, spans, session,
+                    settings)
+                sources = [(table.chunk_source(
+                    columns, chunk_rows, part_idx=part_idx, spans=spans,
+                    row_sel=psel, sel_key=sel_key), None)]
+            else:
+                sources, grace = _grace_sources(
+                    session, split, grace_j, table, columns, chunk_rows,
+                    part_idx, thr, settings)
         except NotStreamable:
             continue
-        return StreamProgram(session, split, settings, src, table,
-                             _carry_cap(split, table, settings))
+        return _program(session, split, settings, sources, table, grace)
     return None
 
 
-def _versions(catalog, prog: StreamProgram):
+def _versions(catalog, prog):
     """Each table the program reads, by its uid and version: a cached
     program holds its tables' chunk sources, so it stands only while the
     same tables hold the same rows."""
@@ -1239,7 +1952,7 @@ def try_streaming(session, stmt, settings: Settings, sql: str):
     thr = _stream_threshold(settings)
     catalog = session.catalog
     if not any(t.num_rows and t.physical_bytes() > thr
-               for db in catalog.databases.values()
+               for name, db in catalog.databases.items() if name != _TMP_DB
                for t in db.tables.values()):
         return None
     skey = json.dumps(settings.as_dict(), sort_keys=True, default=str) \
@@ -1267,3 +1980,94 @@ def try_streaming(session, stmt, settings: Settings, sql: str):
             cache.clear()
         cache[(sql, skey)] = (prog, _versions(catalog, prog))
     return prog.split.upper, cols, ctx
+
+
+# -- blow-up streaming -------------------------------------------------------
+
+def _collect_numbers(node: L.PlanNode, out: List[L.NumbersNode]) -> None:
+    if isinstance(node, L.NumbersNode):
+        out.append(node)
+    for c in node.children():
+        _collect_numbers(c, out)
+
+
+def _materialize_numbers(session, nn: L.NumbersNode) -> None:
+    """A hidden table (database _TMP_DB) holding a numbers() source, so
+    that a ChunkSource can stream it; at most four are kept."""
+    from ..storage.table import Database, Table
+    catalog = session.catalog
+    db = catalog.databases.get(_TMP_DB)
+    if db is None:
+        db = catalog.databases[_TMP_DB] = Database(_TMP_DB)
+    name = f"numbers_{nn.start}_{nn.count}"
+    if name in db.tables:
+        return
+    if len(db.tables) >= 4:
+        db.tables.clear()
+    t = Table(name, [("number", dt.UInt64)], device=catalog.device)
+    t.insert_pydict({"number": np.arange(nn.start, nn.start + nn.count,
+                                         dtype=np.uint64)})
+    db.tables[name] = t
+
+
+def try_blowup_streaming(session, plan: L.PlanNode, settings: Settings):
+    """The second chance after the governor refuses a plan (the
+    reference's try_blowup_streaming): where the excess is an expanding
+    join's intermediate, chunk that join's probe side so that each
+    chunk's joined block fits the budget.  Candidates: the stored scans,
+    largest first, then numbers() sources of at most 2^27 rows (turned
+    into hidden tables).  -> (upper plan, host columns, ExecContext) and
+    counts BlowupStreamedQueries, or None (the caller raises the
+    refusal); MemoryLimitExceeded where one joined block cannot fit."""
+    from ..storage.table import NotStreamable
+    catalog = session.catalog
+    budget = effective_memory_budget(settings)
+    if estimate_plan_device_bytes(plan, catalog, settings) <= budget:
+        return None
+    cands, seen = [], set()
+    scans: List[L.ScanNode] = []
+    _collect_scans(plan, scans)
+    for s in scans:
+        key = (s.database, s.table)
+        if key not in seen:
+            seen.add(key)
+            t = catalog.get_table(*key)
+            cands.append((t.physical_bytes(set(s.column_names))
+                          if t.num_rows else 0, None, key))
+    cands.sort(key=lambda c: -c[0])
+    nums: List[L.NumbersNode] = []
+    _collect_numbers(plan, nums)
+    cands += [(0, nn, None) for nn in nums if nn.count <= _NUMBERS_MAT_LIMIT]
+    for _, nn, key in cands:
+        if nn is not None:
+            key = (_TMP_DB, f"numbers_{nn.start}_{nn.count}")
+            plan2 = _replace_node(plan, nn, L.ScanNode(
+                key[0], key[1], list(nn.schema), ["number"]))
+        else:
+            plan2 = plan
+        split = find_split(plan2, key) \
+            or find_generic_split(plan2, key, settings)
+        if split is None:
+            continue
+        if nn is not None:
+            _materialize_numbers(session, nn)
+        table = catalog.get_table(*key)
+        columns = list(split.scan.column_names)
+        try:
+            chunk_rows = _split_chunk_rows(split, table, columns, catalog,
+                                           settings)
+            f, row = _chain_blowup(split, catalog, settings)
+            other = estimate_plan_scan_bytes(plan2, catalog) - (
+                table.physical_bytes(set(columns)) if table.num_rows else 0)
+            # 2x: the chunk is padded up to the pad unit
+            if other + chunk_rows * max(f, 1) * row > budget * 2:
+                continue
+            check_not_streamed(split)
+            src = table.chunk_source(columns, chunk_rows)
+        except NotStreamable:
+            continue
+        prog = _program(session, split, settings, [(src, None)], table)
+        cols, ctx = prog.run(session)
+        _count(session, "BlowupStreamedQueries", 1)
+        return split.upper, cols, ctx
+    return None

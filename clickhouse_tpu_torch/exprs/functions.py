@@ -675,6 +675,43 @@ def _dict_rank_lut(d: Dictionary, device) -> torch.Tensor:
     return torch.from_numpy(rank).to(device)
 
 
+_CMP_MIRROR = {torch.eq: torch.eq, torch.ne: torch.ne, torch.lt: torch.gt,
+               torch.gt: torch.lt, torch.le: torch.ge, torch.ge: torch.le}
+
+
+def _narrow_values(cv: ColVal):
+    """An integer column's values in the type they are kept in (a scanned
+    column's narrow storage, an intDiv/modulo term formed in its source's
+    type), or None."""
+    if isinstance(cv, TermColVal):
+        return cv.term.build_narrow()
+    if isinstance(cv, StoredColVal) and not cv.storage.is_floating_point() \
+            and cv.storage.dtype != torch.bool:
+        return cv.storage
+    return None
+
+
+def _narrow_cmp(op, a: ColVal, b: ColVal, ct: np.dtype):
+    """A comparison of a narrow-kept integer column with an integer
+    constant that its type holds, in that type (no widened column), or
+    None.  Signed comparisons only (ct a signed integer type), so the
+    values compare as they would widened."""
+    if ct.kind != "i":
+        return None
+    if a.is_const and not b.is_const:
+        a, b, op = b, a, _CMP_MIRROR[op]
+    if not b.is_const or b.dtype.nullable or storage_np(b).kind not in "iu":
+        return None
+    x = _narrow_values(a)
+    if x is None:
+        return None
+    c = int(b.data.item())
+    info = torch.iinfo(x.dtype)
+    if not info.min <= c <= info.max:
+        return None
+    return op(x, c)
+
+
 def _cmp_exec(op, equality: bool, name: str):
     def ex(args, out_dtype):
         a, b = args
@@ -700,6 +737,10 @@ def _cmp_exec(op, equality: bool, name: str):
                 b = cast_exec([b], a0.with_nullable(b.dtype.nullable))
         sa, sb = storage_np(a), storage_np(b)
         ct = np.promote_types(sa, sb)
+        narrow = _narrow_cmp(op, a, b, ct)
+        if narrow is not None:
+            return ColVal(out_dtype, narrow.to(torch.uint8),
+                          _and_validity(args))
         x = dt.cast_tensor(a.data, sa, ct)
         y = dt.cast_tensor(b.data, sb, ct)
         if ct == np.uint64:              # unsigned order of int64 bits

@@ -34,7 +34,7 @@ __all__ = ["LAUNCHES", "LAUNCH_ROWS", "KernelBuildError", "build", "library",
            "K1Term", "K1Args", "K6_MAX_SPECS", "K6_MAX_DATA", "K6_MAX_FORMS",
            "K6_MAX_MASKS", "K6Form", "K6Spec", "K6Count", "K6Args", "K7_MAX_ENTRIES", "K7Word",
            "K7Out", "K7Args", "K8_MAX_KEYS", "K8_MAX_WORDS", "K8Args", "K9Args",
-           "K11_MAX_WIDTH"]
+           "K11_MAX_WIDTH", "K14Args"]
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -50,7 +50,7 @@ LAUNCHES: Dict[str, int] = {"masked_reduce": 0, "dense_group_reduce": 0,
                             "dense_join": 0, "hash_join": 0,
                             "expand_matches": 0, "prefix_match": 0,
                             "vector_distance": 0, "calendar_part": 0,
-                            "unpack_pairs": 0}
+                            "unpack_pairs": 0, "compact_rows": 0}
 # kernel name -> row count of each launch since the last reset
 LAUNCH_ROWS: Dict[str, List[int]] = {k: [] for k in LAUNCHES}
 
@@ -58,11 +58,11 @@ _LOCK = threading.Lock()
 _LIB: Optional[ctypes.CDLL] = None
 
 
-K1_MAX_TERMS = 4       # kMaxTerms of csrc/masked_reduce.cu
+K1_MAX_TERMS = 4       # kMaxTerms of csrc/k1_terms.cuh
 
 
 class K1Term(ctypes.Structure):
-    """ChttK1Term of csrc/masked_reduce.cu (one `column CMP constant`)."""
+    """ChttK1Term of csrc/k1_terms.cuh (one `column CMP constant`)."""
     _fields_ = [("col", ctypes.c_void_p), ("valid", ctypes.c_void_p),
                 ("lo", ctypes.c_ulonglong), ("span", ctypes.c_ulonglong),
                 ("xorv", ctypes.c_ulonglong), ("dtype", ctypes.c_int),
@@ -80,6 +80,15 @@ class K1Args(ctypes.Structure):
                 ("head", ctypes.c_longlong), ("dtype", ctypes.c_int),
                 ("data_vec", ctypes.c_int), ("mask_vec", ctypes.c_int),
                 ("uns", ctypes.c_int), ("n_terms", ctypes.c_int),
+                ("pad", ctypes.c_int), ("terms", K1Term * K1_MAX_TERMS)]
+
+
+class K14Args(ctypes.Structure):
+    """ChttCompactArgs of csrc/compact_rows.cu (one call of K14)."""
+    _fields_ = [("mask", ctypes.c_void_p), ("out", ctypes.c_void_p),
+                ("count", ctypes.c_void_p), ("status", ctypes.c_void_p),
+                ("n", ctypes.c_longlong), ("tiles", ctypes.c_int),
+                ("mask_vec", ctypes.c_int), ("n_terms", ctypes.c_int),
                 ("pad", ctypes.c_int), ("terms", K1Term * K1_MAX_TERMS)]
 
 
@@ -326,6 +335,10 @@ def library() -> ctypes.CDLL:
             lib.chtt_calendar_part.restype = I
             lib.chtt_unpack_pairs.argtypes = [P, LL, I, I, LL, I, P, I, P]
             lib.chtt_unpack_pairs.restype = I
+            lib.chtt_compact_rows.argtypes = [P, P]
+            lib.chtt_compact_rows.restype = I
+            lib.chtt_compact_tile_rows.argtypes = []
+            lib.chtt_compact_tile_rows.restype = I
             lib.chtt_error_string.argtypes = [I]
             lib.chtt_error_string.restype = ctypes.c_char_p
             _LIB = lib

@@ -1,17 +1,28 @@
 """Filter helpers (reference: clickhouse_tpu/ops/filter_ops.py).
 
-Filters stay masked (a predicate ANDs into the block's row mask), so the
-slice needs only the count of selected rows, which K1 computes.
+Filters stay masked (a predicate ANDs into the block's row mask), so a
+query needs the count of selected rows, which K1 computes, and, where
+only the selected rows may leave the device (a streamed collect), their
+indices in row order: ``compact_rows`` (K14, csrc/compact_rows.cu), the
+port of the reference's ``gather_compaction_indices`` (:26) and
+``compact_arrays`` (:42).  K14 reads a ``RowMask``'s parts itself (the row
+bound, K1's filter terms and the bool mask), so no bool array is built
+for it.
+
+A CPU tensor takes the plain version; a CUDA tensor launches the kernel
+or raises.
 """
 from __future__ import annotations
 
-from typing import Union
+import ctypes
+from typing import Tuple, Union
 
 import torch
 
-from .agg_ops import RowMask, masked_reduce
+from . import _native
+from .agg_ops import RowMask, _k1_term, masked_reduce
 
-__all__ = ["count_mask"]
+__all__ = ["count_mask", "compact_rows", "compact_rows_bytes"]
 
 
 def count_mask(mask: Union[torch.Tensor, RowMask]) -> torch.Tensor:
@@ -20,3 +31,82 @@ def count_mask(mask: Union[torch.Tensor, RowMask]) -> torch.Tensor:
     if isinstance(mask, RowMask):
         return mask.count()
     return masked_reduce("sum", None, mask.to(torch.bool))
+
+
+def _rows_of(mask: Union[torch.Tensor, RowMask]) -> RowMask:
+    if isinstance(mask, RowMask):
+        return mask
+    if mask.dim() != 1:
+        raise ValueError("compact_rows: the mask must be 1-d")
+    return RowMask.of(mask.to(torch.bool))
+
+
+def compact_rows(mask: Union[torch.Tensor, RowMask]
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """-> (idx, count): idx an int32 (capacity,) tensor whose slot j <
+    count holds the row of the j-th selected row, in row order (the slots
+    from count on are unspecified), count a 0-d int64 tensor on the mask's
+    device.  The selection is a bool mask's set rows, or a RowMask's rows
+    (below its row bound, where its mask holds and every term passes)."""
+    rows = _rows_of(mask)
+    if len(rows.terms) > _native.K1_MAX_TERMS:
+        raise ValueError(f"compact_rows: more than {_native.K1_MAX_TERMS} "
+                         f"terms")
+    if rows.capacity >= 1 << 31:
+        raise ValueError("compact_rows: 2^31 rows or more")
+    if rows.device.type == "cpu":
+        return _compact_rows_plain(rows)
+    if rows.device.type != "cuda":
+        raise RuntimeError(f"compact_rows: no kernel for {rows.device}")
+    return _compact_rows_cuda(rows)
+
+
+def compact_rows_bytes(n_rows: int, kept: int) -> int:
+    """Bytes K14 moves over a bool mask: a byte a row read once, 4 bytes a
+    kept row written and the count."""
+    return n_rows + 4 * kept + 8
+
+
+def _compact_rows_plain(rows: RowMask) -> Tuple[torch.Tensor, torch.Tensor]:
+    sel = rows.tensor()
+    hit = torch.nonzero(sel).squeeze(1).to(torch.int32)
+    idx = torch.zeros(rows.capacity, dtype=torch.int32, device=sel.device)
+    idx[:hit.shape[0]] = hit
+    return idx, torch.tensor(hit.shape[0], dtype=torch.int64,
+                             device=sel.device)
+
+
+def _compact_rows_cuda(rows: RowMask) -> Tuple[torch.Tensor, torch.Tensor]:
+    dev = rows.device
+    cap = rows.capacity
+    n = max(min(rows.n_rows, cap), 0)
+    idx = torch.empty(cap, dtype=torch.int32, device=dev)
+    count = torch.zeros((), dtype=torch.int64, device=dev)
+    if n == 0:
+        return idx, count                 # no row: no launch
+    mask = rows.mask
+    for c in [mask] + [c for t in rows.terms for c in (t.storage, t.validity)]:
+        if c is None:
+            continue
+        if c.dim() != 1 or c.shape[0] != cap or c.device != dev \
+                or not c.is_contiguous() \
+                or c.data_ptr() % c.element_size():
+            raise ValueError("compact_rows: the mask and the terms' columns "
+                             "must be contiguous, aligned 1-d tensors of "
+                             "the capacity on one device")
+    if mask is not None and mask.dtype != torch.bool:
+        raise ValueError("compact_rows: mask must be bool")
+    lib = _native.library()
+    tiles = -(-n // lib.chtt_compact_tile_rows())
+    status = torch.empty(tiles + 1, dtype=torch.int64, device=dev)
+    args = _native.K14Args(
+        mask=None if mask is None else mask.data_ptr(), out=idx.data_ptr(),
+        count=count.data_ptr(), status=status.data_ptr(), n=n, tiles=tiles,
+        mask_vec=int(mask is not None and mask.data_ptr() % 16 == 0),
+        n_terms=len(rows.terms))
+    for i, t in enumerate(rows.terms):
+        args.terms[i] = _k1_term(t, 0)
+    rc = lib.chtt_compact_rows(ctypes.byref(args), _native.stream_ptr(dev))
+    _native.check(rc, "compact_rows")
+    _native.count_launch("compact_rows", n)
+    return idx, count

@@ -58,13 +58,19 @@ class Part:
     def is_unique(self, name: str) -> Optional[bool]:
         """True iff this part's values in `name` are all distinct (the
         planner's N:1-join statistic; computed lazily, cached).  None when
-        unknown (too large / non-numeric)."""
+        unknown (non-numeric, or too large to sort and not strictly
+        increasing: a part of increasing values is unique at any size,
+        found in one pass)."""
         if name in self._unique:
             return self._unique[name]
         v = self.columns.get(name)
         if v is None or v.dtype == object or v.ndim != 1 \
-                or v.dtype.kind not in ("i", "u", "f") \
-                or len(v) > self.UNIQUE_STAT_MAX_ROWS:
+                or v.dtype.kind not in ("i", "u", "f"):
+            return None
+        if len(v) > 1 and bool(np.all(v[1:] > v[:-1])):
+            self._unique[name] = True
+            return True
+        if len(v) > self.UNIQUE_STAT_MAX_ROWS:
             return None
         u = bool(len(np.unique(v)) == len(v))
         self._unique[name] = u
@@ -360,7 +366,9 @@ class ChunkSource:
     ENCODE_CACHE_BYTES (the page cache's role); for a table on a CUDA
     device in page-locked memory (``pin``), from which the card copies
     without a staging copy.  ``pack=False`` sends every column in its
-    storage type (the transport measured against the packing).
+    storage type (the transport measured against the packing).  A
+    ``layout_donor`` (another source of the table) lends its layout: a
+    grace join's bucket sources share one.
     """
 
     # host bytes of encoded chunks kept for repeated scans
@@ -372,7 +380,8 @@ class ChunkSource:
     def __init__(self, table: "Table", columns: List[str], chunk_rows: int,
                  part_idx: Optional[tuple] = None,
                  spans: Optional[tuple] = None,
-                 row_sel: Optional[list] = None, pack: bool = True):
+                 row_sel: Optional[list] = None, pack: bool = True,
+                 layout_donor: Optional["ChunkSource"] = None):
         chunk_rows += chunk_rows & 1      # even: the packing pairs values
         self.table = table
         self.columns = columns
@@ -400,6 +409,13 @@ class ChunkSource:
         self._enc_cache: Dict[int, tuple] = {}
         self._enc_cache_bytes = 0
         self._enc_lock = threading.Lock()
+        if layout_donor is not None:
+            d = layout_donor
+            self.storage, self.dictionaries = d.storage, d.dictionaries
+            self._sorted_dict_values = d._sorted_dict_values
+            self._dict_hashes, self.nullable = d._dict_hashes, d.nullable
+            self.packed = d.packed
+            return
         self.storage: Dict[str, np.dtype] = {}
         self.dictionaries: Dict[str, Dictionary] = {}
         self._sorted_dict_values: Dict[str, np.ndarray] = {}

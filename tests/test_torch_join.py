@@ -283,6 +283,17 @@ def test_max_joined_rows_overflow(sessions, autotune):
     assert e.value.needed > 2000
 
 
+def test_cross_join_above_2_24_rows():
+    """A cross join of 20M rows, above 2^24: its output capacity is the
+    product of the two sides' rows, held to the closed form.  The
+    reference caps that capacity at 2^24 rows and raises CapacityError
+    here (after about two minutes on a CPU, so it is not run)."""
+    sql = ("SELECT count(), sum(n1.number) FROM numbers(5000) n1 "
+           "CROSS JOIN numbers(4000) n2")
+    assert tch.connect(device="cpu").execute(sql).rows() == [
+        (20_000_000, 4000 * (5000 * 4999 // 2))]
+
+
 def test_asof_join_raises_naming_asof(sessions):
     with pytest.raises(NotImplementedError_, match="ASOF"):
         sessions[1].execute("SELECT fk, label FROM fact ASOF LEFT JOIN dimd "

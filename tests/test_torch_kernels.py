@@ -18,7 +18,7 @@ import pytest
 import torch
 
 from chip_smoke import (CMPS, K4_ROWS, K5_CASES, K6_SORTED_LAYOUTS,
-                        K13_CASES, k13_case,
+                        K13_CASES, k13_case, K14_CASES, k14_rows,
                         K6_TERM_DIVISORS, K7_CASES, K8_CASES,
                         K9_CASES, K10_CASES, K11_CASES, K12_DTYPES,
                         SORT_KEY_CHAINS, U64_EDGE, grouped_rows, k5_args,
@@ -1207,3 +1207,23 @@ def test_unpack_pairs_matches_plain(dev, case):
     assert torch.equal(got, _unpack_pairs_plain(d, w4, lo, bpp, 2 * half,
                                                 out_dtype))
     assert torch.equal(got.cpu(), torch.from_numpy(want).to(out_dtype))
+
+
+@pytest.mark.parametrize("case", K14_CASES, ids=[c[0] for c in K14_CASES])
+def test_compact_rows_matches_plain(dev, case):
+    """K14 against its plain version: the count and the first `count`
+    indices (the slots past it are unspecified), one launch a call, over
+    bool masks, row bounds, K1 terms with and without a mask and views
+    1 and 3 rows in."""
+    from clickhouse_tpu_torch.ops.filter_ops import (_compact_rows_plain,
+                                                     compact_rows)
+    rows = k14_rows(case, dev)
+    before = _native.LAUNCHES["compact_rows"]
+    idx, count = compact_rows(rows)
+    assert _native.LAUNCHES["compact_rows"] == before + 1
+    pidx, pcount = _compact_rows_plain(rows)
+    c = int(count)
+    assert c == int(pcount) == int(rows.tensor().sum())
+    assert idx.dtype == torch.int32 and idx.shape == (rows.capacity,)
+    assert torch.equal(idx[:c], pidx[:c])
+

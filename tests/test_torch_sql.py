@@ -601,16 +601,18 @@ def test_max_groups_overflow(sessions, autotune):
 
 def test_streamed_size_raises_typed_error(sessions):
     """Above max_device_block_bytes an aggregation streams (as the
-    reference's); a shape whose streaming program is not ported raises
-    naming it (TopKProgram: ORDER BY ... LIMIT)."""
+    reference's), and so does ORDER BY ... LIMIT (TopKProgram, which once
+    raised naming itself): the reference's rows."""
     js, ts = sessions
     sql = "SELECT count() FROM hits SETTINGS max_device_block_bytes = 1000"
     before = ts.profile_events.get("StreamedQueries", 0)
     assert ts.execute(sql).rows() == js.execute(sql).rows() == [(N_HITS,)]
     assert ts.profile_events.get("StreamedQueries", 0) == before + 1
-    with pytest.raises(NotImplementedError_, match="TopKProgram"):
-        ts.execute("SELECT x FROM hits ORDER BY x LIMIT 5 SETTINGS "
-                   "max_device_block_bytes = 1000")
+    sql = "SELECT x FROM hits ORDER BY x LIMIT 5"
+    got = ts.execute(sql + " SETTINGS max_device_block_bytes = 1000").rows()
+    assert ts.profile_events.get("StreamedQueries", 0) == before + 2
+    assert got == js.execute(sql + " SETTINGS max_device_block_bytes = "
+                             "1000").rows() == js.execute(sql).rows()
 
 
 def test_connect_without_gpu_raises():

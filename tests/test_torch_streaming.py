@@ -9,10 +9,11 @@ ten a table).  Each port run that streams is held to the reference's
 streamed rows and to the port's own whole-block rows: integers and strings
 exactly, floats within a relative 1e-9 (the chunks' partial sums add in
 another order than one block's).  ``rows_read`` and the pruning events
-must equal the reference's.  The shapes that the reference streams
-through programs the port has not ported (TopKProgram, CollectProgram, a
-grace join, blow-up streaming, a holistic aggregate through
-CollectProgram) must raise ``NotImplementedError_`` naming the program.
+must equal the reference's.  The shapes that stream through the other
+programs (TopKProgram, CollectProgram, a grace join, blow-up streaming, a
+holistic aggregate through CollectProgram) are held to the reference's
+rows here once each; tests/test_torch_stream_programs.py holds every
+reference case of them.
 
 K13's plain version (ops/chunk_ops.py) is held against the reference's
 own unpack (``_chunk_block``, run through JAX on the CPU) over bytes from
@@ -198,14 +199,13 @@ def test_every_mergeable_aggregate_streams(sessions, agg, grouped):
     "WHERE dim.k >= 0",
 ], ids=["inner-grouped", "left-filtered"])
 def test_probe_side_join_streams(sessions, sql):
-    """The probe side streams, the build side is read whole a chunk."""
+    """The probe side streams, the build side is read whole a chunk; with
+    both tables above the threshold, both engines take the grace join."""
     _both(sessions, sql, PROBE)
     js, ts = sessions
-    # both tables above the threshold: the reference's grace join
-    want = _streamed(js, sql, STREAM).rows()
-    assert want
-    with pytest.raises(NotImplementedError_, match="grace join"):
-        ts.execute(sql, settings=STREAM)
+    before = _events(ts, "GraceJoinBuckets")
+    assert _both(sessions, sql, STREAM)
+    assert _events(ts, "GraceJoinBuckets") > before
 
 
 def test_autotune_rescues_chunk_overflow(sessions):
@@ -451,7 +451,7 @@ def test_mixed_conjuncts_partial_host_eval(sessions):
                     "WHERE k = 13 AND cat != 'c1'")
 
 
-# -- the shapes left for later -----------------------------------------------
+# -- the other programs ------------------------------------------------------
 
 @pytest.mark.parametrize("sql,settings,program", [
     ("SELECT id, v FROM big ORDER BY v LIMIT 7", STREAM, "TopKProgram"),
@@ -465,27 +465,28 @@ def test_mixed_conjuncts_partial_host_eval(sessions):
 ], ids=["topk", "topk-prewhere", "collect", "holistic", "grace"])
 def test_unported_stream_programs_raise_naming_them(sessions, sql, settings,
                                                     program):
-    """Where the reference streams through a program the port has not
-    ported, the port raises naming it (never runs whole-block)."""
+    """Each shape that the reference streams through another program than
+    the aggregation's (once raised naming the program) now streams
+    through the port's: the reference's rows, in order, and the port's
+    whole-block rows; the grace join counts its buckets."""
     js, ts = sessions
-    assert _rows_match(js.execute(sql, settings=settings).rows(),
-                       js.execute(sql).rows())
-    before = _events(ts, "StreamedQueries")
-    with pytest.raises(NotImplementedError_, match=program):
-        ts.execute(sql, settings=settings)
-    assert _events(ts, "StreamedQueries") == before
+    before = _events(ts, "GraceJoinBuckets")
+    assert _both(sessions, sql, settings)
+    assert (_events(ts, "GraceJoinBuckets") > before) == (
+        program == "grace join")
 
 
 def test_blowup_streaming_raises_naming_it():
-    """A cross join's intermediate over the budget: the reference chunks
-    its probe side (blow-up streaming), the port raises naming it; a
-    joined block that cannot fit raises MemoryLimitExceeded in both."""
+    """A cross join's intermediate over the budget: both engines chunk its
+    probe side (blow-up streaming, BlowupStreamedQueries) to the same
+    answer; a joined block that cannot fit raises MemoryLimitExceeded in
+    both."""
     sql = "SELECT count(*) FROM numbers(10000) n1 CROSS JOIN numbers(1000) n2"
     st = {"max_memory_usage": 16000000, "max_joined_block_size_rows": 1000}
     assert jch.connect().execute(sql, settings=st).rows() == [(10_000_000,)]
     ts = tch.connect(device="cpu")
-    with pytest.raises(NotImplementedError_, match="blow-up streaming"):
-        ts.execute(sql, settings=st)
+    assert ts.execute(sql, settings=st).rows() == [(10_000_000,)]
+    assert _events(ts, "BlowupStreamedQueries") == 1
     with pytest.raises(MemoryLimitExceeded, match="expanding join"):
         ts.execute(sql, settings={**st,
                                   "max_joined_block_size_rows": 10000000})
