@@ -19,8 +19,12 @@
                                       # Q5b, Q6 and Q5np streamed over 1B
                                       # rows, the other programs' Q5t, Q5c,
                                       # Q5h, Q5t2, Q5t3, Q6g and Q6x,
-                                      # K13 at
-                                      # their chunks and K14 at Q5c's
+                                      # K13 at their chunks and K14 at
+                                      # Q5c's and Q5h's and a dense mask
+    python3 chip_smoke.py --k14       # only K14's cases and K14 at Q5c's
+                                      # and Q5h's first chunk masks (made
+                                      # on the card) and a dense 2^27-row
+                                      # mask (an older checkout's alike)
     python3 chip_smoke.py --sass calendar_part  # one source's nvcc time,
                                       # registers, spills, shared bytes and
                                       # SASS CALLs a kernel (or
@@ -89,8 +93,13 @@ non-zero without them.  Phases, each of which fails the run:
      K12_DIVISORS with their anchors, the constants of
      K12_CONSTANT_EDGES); K13 over K13_CASES; K14 over K14_CASES (the
      count and the first `count` indices: one row to a 2^27-row chunk,
-     empty, full, one bit, the tiles' edges, a row bound, K1 terms with
-     and without a mask, views 1 and 3 rows in); integer results must agree
+     empty, full, one bit, the first version's tile edges, a row bound,
+     K1 terms with and without a mask, views 1 and 3 rows in, and, at
+     K14's tile as the library reports it, a tile and a row, three tiles
+     and 17 rows with bits at every tile's and run's edges, row bounds
+     inside a thread's runs, every tile empty but the last, a mask view 1
+     row in over several tiles and a dense 2^27-row mask); integer
+     results must agree
      exactly, K1's and K2's float sums within rtol 1e-12, K6's within
      n_g * eps * sum(|x|) a group of n_g rows (its atomics add a group's
      parts in a varying order); then SELECT without FROM, numbers() and
@@ -203,7 +212,10 @@ non-zero without them.  Phases, each of which fails the run:
      grace join, 8 buckets) and Q6x (blow-up streaming of a cross join),
      each checked for its counter, program, chunks, numpy's answer,
      exactly its stream_paths and a peak below the 12 GiB budget; then K14
-     at Q5c's chunks (K14's cases of K14_CASES run in phase 2).
+     at Q5c's and Q5h's chunks and at a dense 2^27-row mask, each beside
+     its plain version, torch.nonzero, K1's count of the same mask and a
+     fill of the kept slots (the phase split; k14_time) (K14's cases of
+     K14_CASES run in phase 2).
 
 The second-to-last line is a JSON object of per-kernel results (name,
 route, source, replaces, launches, ms, plain_ms, bound_ms, bound_by,
@@ -334,7 +346,13 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 L2_FLUSH_BYTES = 128 << 20  # > the H100's 50 MB L2
 SLEEP_CYCLES = 1_000_000    # ~0.5 ms of device time to cover host enqueue
 # per-kernel keys of the kernels line beyond the contract's
-EXTRA_KEYS = ("level1_ms", "merge_ms", "entry64_ms", "entry64_bound_ms",
+EXTRA_KEYS = ("k1_count_ms", "fill_ms", "q5h_ms", "q5h_plain_ms",
+              "q5h_library_ms", "q5h_k1_count_ms", "q5h_fill_ms",
+              "q5h_bytes", "q5h_bound_ms", "q5h_shape", "dense_ms",
+              "dense_plain_ms", "dense_library_ms", "dense_k1_count_ms",
+              "dense_fill_ms", "dense_bytes", "dense_bound_ms",
+              "dense_shape", "level1_ms", "merge_ms", "entry64_ms",
+              "entry64_bound_ms",
               "one_slot_ms", "zipf_ms", "wide_s_ms", "counts_only_ms",
               "sums_only_ms", "mask_form_ms", "mask_form_plain_ms",
               "mask_form_library_ms", "mask_form_bytes",
@@ -4427,7 +4445,11 @@ PROGRAM_SQL = (
 )
 PROGRAM_EVENT = {"Q6g": "GraceJoinBuckets", "Q6x": "BlowupStreamedQueries"}
 # K14's cases: (name, capacity, row bound or None, the mask (a density, a
-# bit in the middle or the tiles' edges, or None), K1 terms, rows in)
+# bit in the middle, the first version's tile edges, every run's edges, a
+# density in the last tile alone, or None), K1 terms, rows in).  A size
+# given as (tiles, rows) is that many of K14's tiles (read from the
+# library, chtt_compact_tile_rows) and rows.
+K14_STEP = 4096                         # rows of a tile's step (a run a thread)
 K14_CASES = (("one row", 1, None, 1.0, 0, 0),
              ("a tile and a row", 4097, None, 0.5, 0, 0),
              ("empty", 3 * 4096 + 17, None, 0.0, 0, 0),
@@ -4440,7 +4462,19 @@ K14_CASES = (("one row", 1, None, 1.0, 0, 0),
              ("terms alone", 1_000_003, None, None, 2, 0),
              ("views 1 row in", 100_003, None, 0.3, 2, 1),
              ("views 3 rows in", 100_003, None, 0.3, 2, 3),
-             ("a chunk at 0.1 %", STREAM_CHUNK_ROWS, None, 0.001, 0, 0))
+             ("a chunk at 0.1 %", STREAM_CHUNK_ROWS, None, 0.001, 0, 0),
+             ("a new tile and a row", (1, 1), None, 0.5, 0, 0),
+             ("three new tiles and 17 rows, tile and run edges", (3, 17),
+              None, "runs", 0, 0),
+             ("a row bound inside a thread's runs", (2, 100),
+              (1, 5 * K14_STEP + 3 * 16 + 7), 0.5, 0, 0),
+             ("a row bound inside a thread's runs, terms", (2, 100),
+              (1, 9 * K14_STEP + 200 * 16 + 9), 0.6, 2, 0),
+             ("every tile empty but the last", (5, 33), None, ("last", 0.5),
+              0, 0),
+             ("a mask view 1 row in over new tiles", (3, 5), None, 0.3, 0,
+              1),
+             ("a dense 2^27-row mask", STREAM_CHUNK_ROWS, None, 0.5, 0, 0))
 
 
 def stream_paths(chunks: dict, slices: int = 0) -> dict:
@@ -4538,12 +4572,21 @@ def check_k13(dev):
           f"int64)", flush=True)
 
 
+def k14_tile_rows() -> int:
+    """Rows of K14's tile, as the built kernel reports them."""
+    from clickhouse_tpu_torch.ops import _native
+    return _native.library().chtt_compact_tile_rows()
+
+
 def k14_rows(case, dev):
     """A K14_CASES case as the RowMask K14 reads: a bool mask, a row
     bound, K1 terms over an int32 and an int8 column with validity, each
     a view `shift` rows into its tensor."""
     from clickhouse_tpu_torch.ops.agg_ops import RowMask, Term
     _, cap, bound, mask, n_terms, shift = case
+    tile = k14_tile_rows()
+    cap, bound = (v if v is None or isinstance(v, int)
+                  else v[0] * tile + v[1] for v in (cap, bound))
     rng = np.random.default_rng(cap + 7 * n_terms + shift)
     n = cap + shift
     m = None
@@ -4554,6 +4597,17 @@ def k14_rows(case, dev):
         m = np.zeros(n, bool)
         for r in (0, 15, 16, 4095, 4096, 8191, 8192, cap - 1):
             m[shift + min(r, cap - 1)] = True
+    elif mask == "runs":
+        # each run's first and last row (so each step's and tile's edges),
+        # the row after each tile's first and the last row
+        r = np.arange(cap)
+        m = np.zeros(n, bool)
+        m[shift:] = (r % 16 == 0) | (r % 16 == 15) | (r % tile == 1) \
+            | (r == cap - 1)
+    elif isinstance(mask, tuple):          # ("last", density)
+        m = np.zeros(n, bool)
+        last = shift + (cap - 1) // tile * tile
+        m[last:] = rng.random(n - last) < mask[1]
     elif mask is not None:
         m = rng.random(n) < mask
     terms = []
@@ -4590,9 +4644,11 @@ def check_k14(dev):
             fail(f"K14 ({case[0]}): count {c} against {int(pcount)}, or "
                  f"other indices than its plain version")
     print(f"K14 matches its plain version over {len(K14_CASES)} cases (one "
-          f"row to a 2^27-row chunk, empty, full, one bit, the tiles' edges, "
-          f"a row bound, K1 terms with and without a mask, views 1 and 3 "
-          f"rows in)", flush=True)
+          f"row to a 2^27-row chunk, empty, full, one bit, the tiles' edges "
+          f"(tiles of {k14_tile_rows()} rows) and each run's, a row bound "
+          f"inside a thread's runs, every tile empty but the last, K1 terms "
+          f"with and without a mask, views 1 and 3 rows in, a dense 2^27-row "
+          f"mask)", flush=True)
 
 
 def h2d_roofline(dev):
@@ -4905,7 +4961,7 @@ def streaming_phase(ch, dev, launches, launch_rows):
     del s
     gc.collect()
     torch.cuda.empty_cache()
-    k14 = k14_shape(masks)
+    k14 = k14_shape(masks, dev)
     del masks
     torch.cuda.empty_cache()
     return k13_shape(bytes_of), k14, record
@@ -4922,7 +4978,7 @@ def program_phase(s, dev, want, rows, roof, launches, launch_rows, record):
     STREAM_WARM warm walls, wire rate, chunk copies replayed (Q5c: the
     bytes io_stats says it copied back, against the reference's whole
     chunks) and device-busy time.  -> the row masks K14 was given over
-    Q5c's chunks (a run apart)."""
+    Q5c's and Q5h's chunks (a run apart), by query."""
     from clickhouse_tpu_torch.exec import streaming
     from clickhouse_tpu_torch.ops import _native, filter_ops
     from clickhouse_tpu_torch.storage import read_pool
@@ -4953,7 +5009,7 @@ def program_phase(s, dev, want, rows, roof, launches, launch_rows, record):
         pool_runs[0] += 1
         return iter_ordered(self)
     read_pool.ParallelChunkReader.iter_ordered = counted
-    problems, masks = [], []
+    problems, masks = [], {}
     try:
         for name, sql, cls in PROGRAM_SQL:
             event = PROGRAM_EVENT.get(name, "StreamedQueries")
@@ -5085,18 +5141,18 @@ def program_phase(s, dev, want, rows, roof, launches, launch_rows, record):
                   f" streamed {streamed}); counters {moved}; launches "
                   f"{ {k: v for k, v in mine.items() if v} }" + extra,
                   flush=True)
-        # K14's inputs over Q5c's chunks, a run apart (the timed runs hold
-        # nothing extra)
+        # K14's inputs over Q5c's and Q5h's chunks, a run apart (the timed
+        # runs hold nothing extra)
         compact = filter_ops.compact_rows
-
-        def compact_watch(rows):
-            masks.append(rows)
-            return compact(rows)
-        filter_ops.compact_rows = compact_watch
-        try:
-            s.execute(dict((n, q) for n, q, _ in PROGRAM_SQL)["Q5c"])
-        finally:
-            filter_ops.compact_rows = compact
+        for name in ("Q5c", "Q5h"):
+            def compact_watch(rows, seen=masks.setdefault(name, [])):
+                seen.append(rows)
+                return compact(rows)
+            filter_ops.compact_rows = compact_watch
+            try:
+                s.execute(dict((n, q) for n, q, _ in PROGRAM_SQL)[name])
+            finally:
+                filter_ops.compact_rows = compact
     finally:
         streaming._program = program
         read_pool.ParallelChunkReader.iter_ordered = iter_ordered
@@ -5105,39 +5161,85 @@ def program_phase(s, dev, want, rows, roof, launches, launch_rows, record):
     return masks
 
 
-def k14_shape(masks):
-    """K14 replayed on the row masks of Q5c's chunks against its plain
-    version and torch.nonzero(mask).squeeze(1): ms, plain_ms, library_ms,
-    bytes (the mask, 4 bytes a kept row, the count) and bound_ms of the
-    first chunk (the others printed)."""
+def k14_dense_mask(dev):
+    """A 2^27-row bool mask, each row kept with probability 0.5 (seeded)."""
+    g = torch.Generator(device=dev)
+    g.manual_seed(14)
+    return torch.rand(STREAM_CHUNK_ROWS, generator=g, device=dev) < 0.5
+
+
+def k14_time(label, rows):
+    """K14 on one RowMask against its plain version (must agree), timed
+    beside its plain version, torch.nonzero(mask).squeeze(1) (a bool mask
+    without terms), and, for the phase split, K1's count of the same
+    selection (the card's practical rate for reading it) and a fill of
+    the kept rows' int32 slots (their writes alone); prints a line.
+    -> its numbers."""
     from clickhouse_tpu_torch.ops.filter_ops import (_compact_rows_plain,
                                                      compact_rows,
                                                      compact_rows_bytes)
+    idx, count = compact_rows(rows)
+    pidx, pcount = _compact_rows_plain(rows)
+    c = int(count)
+    if c != int(pcount) or not torch.equal(idx[:c], pidx[:c]):
+        fail(f"K14 at {label} differs from its plain version")
+    del pidx
+    n = min(rows.n_rows, rows.capacity)
+    ms = cuda_ms(lambda: compact_rows(rows))
+    plain_ms = cuda_ms(lambda: _compact_rows_plain(rows), reps=3)
+    lib_ms = cuda_ms(lambda: torch.nonzero(rows.mask).squeeze(1)) \
+        if rows.mask is not None and not rows.terms else None
+    read_ms = cuda_ms(rows.count)
+    kept = idx[:c]
+    fill_ms = cuda_ms(kept.zero_) if c else 0.0
+    del idx, kept
+    nb = compact_rows_bytes(n, c)
+    print(f"K14 at {label} ({n} rows, {c} kept, a bool mask"
+          f"{' and terms' if rows.terms else ''}): {ms:.4f} ms, plain "
+          f"{plain_ms:.4f} ms, torch.nonzero "
+          f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}; K1's count "
+          f"of the same mask {read_ms:.4f} ms ({n / read_ms / 1e6:.1f} GB/s)"
+          f", the kept slots' fill {fill_ms:.4f} ms, the rest (scan, "
+          f"look-back chain, staging) {ms - read_ms - fill_ms:.4f} ms; {nb} "
+          f"bytes, bound {bound_ms(nb):.4f} ms (share "
+          f"{bound_ms(nb) / ms:.2f})", flush=True)
+    return {"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+            "k1_count_ms": read_ms, "fill_ms": fill_ms, "bytes": nb,
+            "bound_ms": bound_ms(nb), "shape": f"{n} rows, {c} kept"}
+
+
+def k14_shape(masks, dev):
+    """K14 replayed on the row masks of Q5c's and Q5h's chunks (masks:
+    {query: [RowMask a chunk]}) and on a dense 2^27-row mask (k14_time
+    each).  -> the numbers of Q5c's first chunk, Q5h's (q5h_*) and the
+    dense mask's (dense_*)."""
     out = {"max_abs_err": 0.0}
-    for i, rows in enumerate(masks):
-        idx, count = compact_rows(rows)
-        pidx, pcount = _compact_rows_plain(rows)
-        c = int(count)
-        if c != int(pcount) or not torch.equal(idx[:c], pidx[:c]):
-            fail(f"K14 at Q5c's chunk {i} differs from its plain version")
-        del idx, pidx
-        n = min(rows.n_rows, rows.capacity)
-        ms = cuda_ms(lambda: compact_rows(rows))
-        plain_ms = cuda_ms(lambda: _compact_rows_plain(rows), reps=3)
-        lib_ms = cuda_ms(lambda: torch.nonzero(rows.mask).squeeze(1)) \
-            if rows.mask is not None and not rows.terms else None
-        nb = compact_rows_bytes(n, c)
-        print(f"K14 at Q5c's chunk {i} ({n} rows, {c} kept, a bool mask"
-              f"{' and terms' if rows.terms else ''}): {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms, torch.nonzero "
-              f"{'none' if lib_ms is None else f'{lib_ms:.4f} ms'}, {nb} "
-              f"bytes, bound {bound_ms(nb):.4f} ms (share "
-              f"{bound_ms(nb) / ms:.2f})", flush=True)
-        if i == 0:
-            out.update({"ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-                        "bytes": nb, "bound_ms": bound_ms(nb),
-                        "shape": f"{n} rows, {c} kept"})
+    for name, pre in (("Q5c", ""), ("Q5h", "q5h_")):
+        for i, rows in enumerate(masks[name]):
+            r = k14_time(f"{name}'s chunk {i}", rows)
+            if i == 0:
+                out.update({pre + k: v for k, v in r.items()})
+    from clickhouse_tpu_torch.ops.agg_ops import RowMask
+    r = k14_time("a dense 2^27-row mask (50 %)",
+                 RowMask.of(k14_dense_mask(dev)))
+    out.update({"dense_" + k: v for k, v in r.items()})
     return out
+
+
+def k14_turn(dev):
+    """K14's cases, then K14 timed (k14_time) on the masks of Q5c's and
+    Q5h's first chunks, made on the card as the streaming phase's table
+    holds them (x = (row * 2654435761) % 1_000_003; x % 1000 = 7 and x %
+    100 = 7), and on a dense 2^27-row mask: `--k14`, run in this tree and
+    in an unpacked older checkout alike."""
+    from clickhouse_tpu_torch.ops.agg_ops import RowMask
+    check_k14(dev)
+    x = torch.arange(STREAM_CHUNK_ROWS, dtype=torch.int64, device=dev) \
+        * 2654435761 % 1_000_003
+    for name, m in (("Q5c's chunk 0", 1000), ("Q5h's chunk 0", 100)):
+        k14_time(name + " (made on the card)", RowMask.of(x % m == 7))
+    del x
+    k14_time("a dense 2^27-row mask (50 %)", RowMask.of(k14_dense_mask(dev)))
 
 
 def dt_of(np_dtype):
@@ -5248,6 +5350,9 @@ def main():
     if sys.argv[1:] == ["--k9"]:
         k9_turn(dev)
         return
+    if sys.argv[1:] == ["--k14"]:
+        k14_turn(dev)
+        return
     if sys.argv[1:] == ["--k6"]:
         # K6's three main-path uses and their queries' device-busy time;
         # copied into an unpacked older checkout it times that tree alike
@@ -5256,7 +5361,7 @@ def main():
     if sys.argv[1:] == ["--streaming"]:
         # K13's and K14's cases, then Q5, Q5b, Q6 and Q5np streamed over
         # 1B rows and PROGRAM_SQL's queries on their paths, K13 at their
-        # chunks and K14 at Q5c's
+        # chunks and K14 at Q5c's, Q5h's and a dense mask
         check_k13(dev)
         check_k14(dev)
         launches = {k: 0 for k in _native.LAUNCHES}

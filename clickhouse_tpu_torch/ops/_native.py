@@ -89,7 +89,7 @@ class K14Args(ctypes.Structure):
                 ("count", ctypes.c_void_p), ("status", ctypes.c_void_p),
                 ("n", ctypes.c_longlong), ("tiles", ctypes.c_int),
                 ("mask_vec", ctypes.c_int), ("n_terms", ctypes.c_int),
-                ("pad", ctypes.c_int), ("terms", K1Term * K1_MAX_TERMS)]
+                ("epoch", ctypes.c_uint), ("terms", K1Term * K1_MAX_TERMS)]
 
 
 K6_MAX_SPECS = 8       # kMaxSpecs of csrc/segment_reduce.cu
@@ -339,6 +339,8 @@ def library() -> ctypes.CDLL:
             lib.chtt_compact_rows.restype = I
             lib.chtt_compact_tile_rows.argtypes = []
             lib.chtt_compact_tile_rows.restype = I
+            lib.chtt_compact_scratch_words.argtypes = []
+            lib.chtt_compact_scratch_words.restype = I
             lib.chtt_error_string.argtypes = [I]
             lib.chtt_error_string.restype = ctypes.c_char_p
             _LIB = lib

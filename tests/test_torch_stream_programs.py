@@ -445,6 +445,12 @@ def test_topk_desc_extremes(ddl, insert, queries):
 
 # -- K14's plain version against the reference's compaction ------------------
 
+# rows of K14's tile: must equal kTile of csrc/compact_rows.cu (no kernel
+# runs on the CPU to report it)
+K14_TILE = 65_536
+K14_STEP = 4096         # a tile's step: a run of 16 rows a thread
+
+
 def _masks():
     rng = np.random.default_rng(14)
     n = 3 * 4096 + 17
@@ -452,10 +458,26 @@ def _masks():
     edges[[0, 15, 16, 4095, 4096, 8191, 8192, n - 1]] = True
     one = np.zeros(n, bool)
     one[5000] = True
+    big = 3 * K14_TILE + 17
+    r = np.arange(big)
+    runs = (r % 16 == 0) | (r % 16 == 15) | (r == big - 1)
+    tile_edges = np.zeros(big, bool)
+    tile_edges[[0, K14_STEP - 1, K14_STEP, K14_TILE - 1, K14_TILE,
+                2 * K14_TILE - 1, 2 * K14_TILE, 3 * K14_TILE - 1,
+                3 * K14_TILE, big - 1]] = True
+    last = np.zeros(5 * K14_TILE + 33, bool)
+    last[5 * K14_TILE:] = rng.random(33) < 0.5
+    bound = np.zeros(2 * K14_TILE + 100, bool)
+    cut = K14_TILE + 5 * K14_STEP + 3 * 16 + 7    # inside a thread's runs
+    bound[:cut] = rng.random(cut) < 0.5
     return {"empty": np.zeros(n, bool), "full": np.ones(n, bool),
             "one-bit": one, "tile-edges": edges,
             "random-1pct": rng.random(n) < 0.01,
-            "random-50pct": rng.random(n) < 0.5}
+            "random-50pct": rng.random(n) < 0.5,
+            "k14-tile-and-a-row": rng.random(K14_TILE + 1) < 0.5,
+            "k14-tile-edges": tile_edges, "k14-run-edges": runs,
+            "k14-last-tile-only": last, "k14-cut-inside-runs": bound,
+            "k14-tiles-1pct": rng.random(big) < 0.01}
 
 
 @pytest.mark.parametrize("name", list(_masks()))
