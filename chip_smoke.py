@@ -25,6 +25,10 @@
                                       # and Q5h's first chunk masks (made
                                       # on the card) and a dense 2^27-row
                                       # mask (an older checkout's alike)
+    python3 chip_smoke.py --sketch    # only K15's and K16's cases, Qu1-Qu3,
+                                      # Qs1 and Qs2 over hits, Q5u and Q5ub
+                                      # streamed over big, and K15 and K16
+                                      # at their inputs
     python3 chip_smoke.py --sass calendar_part  # one source's nvcc time,
                                       # registers, spills, shared bytes and
                                       # SASS CALLs a kernel (or
@@ -33,7 +37,7 @@
 Needs one NVIDIA Hopper card, nvcc and PyTorch built for CUDA; exits
 non-zero without them.  Phases, each of which fails the run:
 
-  1. build the fourteen hand-written kernels (csrc/*.cu) with nvcc for sm_90a,
+  1. build the sixteen hand-written kernels (csrc/*.cu) with nvcc for sm_90a,
      one nvcc a source, all started together;
   2. hold each kernel against its plain PyTorch version on the card: edge
      cases (K1 with and without filter terms over every storage type and
@@ -396,7 +400,13 @@ EXTRA_KEYS = ("k1_count_ms", "fill_ms", "q5h_ms", "q5h_plain_ms",
               "yyyymmdd64_ms", "yyyymmdd64_plain_ms", "yyyymmdd64_bytes",
               "yyyymmdd64_bound_ms", "yyyymmdd64_kernels_per_call",
               "q5_ms", "q5_plain_ms", "q5_bytes", "q5_bound_ms", "q5_shape",
-              "shape")
+              "shape", "scatter_amax_ms", "sorted_sector_bytes",
+              "sorted_gather_ms",
+              "sorted_sector_floor_ms", "finalize_ms", "finalize_plain_ms",
+              "finalize_bytes", "finalize_bound_ms", "finalize_off_by_one",
+              "finalize_shape", "merge_plain_ms", "merge_bytes",
+              "merge_bound_ms", "merge_shape", "launches_update",
+              "launches_merge", "launches_finalize")
 F64_EPS = 2.0 ** -52
 CMPS = ["equals", "notEquals", "less", "lessOrEquals", "greater",
         "greaterOrEquals"]
@@ -4785,14 +4795,14 @@ def stream_agree(name, rows, want) -> bool:
         c == counts[k] and sm == sums[k] for k, c, sm in rows)
 
 
-def streaming_phase(ch, dev, launches, launch_rows):
+def streaming_phase(ch, dev, launches, launch_rows, sketch=None):
     """Q5, Q5b and Q6 (and Q5np, packed and not) over 1B rows through
     connect(device="cuda"): each streams (StreamedQueries), reads the
     expected chunks, equals numpy, launches exactly stream_paths and holds
     less device memory above what was allocated before it than its
     streamed column's bytes; prints the H2D roofline, each query's cold
     and warm walls, wire rate, io_stats, device-busy time and peak; then
-    program_phase over the same tables.  -> (K13's replay record, K14's,
+    program_phase over the same tables, and sketch(session) where given.  -> (K13's replay record, K14's,
     the queries' numbers)."""
     import gc
     from clickhouse_tpu_torch.ops import _native
@@ -4958,6 +4968,9 @@ def streaming_phase(ch, dev, launches, launch_rows):
     gc.collect()
     masks = program_phase(s, dev, want, rows, roof, launches, launch_rows,
                           record)
+    if sketch is not None:
+        s._stream_cache.clear()
+        sketch(s)
     del s
     gc.collect()
     torch.cuda.empty_cache()
@@ -5276,6 +5289,743 @@ def k13_shape(bytes_of):
     return out
 
 
+
+# -- slice 19: the sketch aggregates and the row hashes (K15, K16) ---------
+QU1 = "SELECT uniq(x) FROM hits"
+QU2 = ("SELECT x % 1024 AS k, uniq(x), uniqCombined(x, x % 7) FROM hits "
+       "GROUP BY k ORDER BY k LIMIT 10")
+QU3 = "SELECT count() FROM hits WHERE cityHash64(x) % 16 = 3"
+QS1 = ("SELECT x % 1024 AS k, topK(5)(x % 37), entropy(x % 37) FROM hits "
+       "GROUP BY k ORDER BY k LIMIT 10")
+QS2 = ("SELECT x % 1024 AS k, groupArray(8)(x), groupUniqArray(8)(x % 5) "
+       "FROM hits GROUP BY k ORDER BY k LIMIT 10")
+SKETCH_QUERIES = (("Qu1", QU1), ("Qu2", QU2), ("Qu3", QU3), ("Qs1", QS1),
+                  ("Qs2", QS2))
+SKETCH_STREAM_SQL = (
+    ("Q5u", "SELECT uniq(x) FROM big SETTINGS stream_readers = 2"),
+    ("Q5ub", "SELECT x % 1024 AS k, uniq(x) FROM big GROUP BY k ORDER BY k "
+             "LIMIT 10 SETTINGS stream_readers = 2"))
+# the kernels each sketch query must reach, each at least once
+SKETCH_PATHS = {
+    "Qu1": ("hll_update", "hll_finalize"),
+    "Qu2": ("radix_sort_pairs", "segment_bounds", "hll_update",
+            "hll_finalize"),
+    "Qu3": ("row_hash", "masked_reduce"),
+    "Qs1": ("radix_sort_pairs", "segment_bounds", "segment_reduce_sorted"),
+    "Qs2": ("radix_sort_pairs", "segment_bounds", "segment_reduce_sorted"),
+    "Q5u": ("unpack_pairs", "hll_update", "hll_merge", "hll_finalize"),
+    "Q5ub": ("unpack_pairs", "radix_sort_pairs", "segment_bounds",
+             "hll_update", "hll_merge", "hll_finalize")}
+HLL_KERNELS = ("hll_update", "hll_merge", "hll_finalize")
+# every x of hits and big: each residue of the prime 1,000,003 appears
+HLL_DISTINCT = 1_000_003
+ENTROPY_RTOL = 1e-9     # the port sums a run's terms, numpy p log2 p
+SKETCH_REPS = 5         # timed runs of each sketch query
+_GOLDEN = np.uint64(0x9E3779B97F4A7C15)
+
+
+def hash_combine_np(h, x):
+    """ops/hash_ops.hash_combine over uint64 in numpy."""
+    with np.errstate(over="ignore"):
+        return mix64_np(h ^ (mix64_np(x) + _GOLDEN + (h << np.uint64(6))
+                             + (h >> np.uint64(2))))
+
+
+def hll_registers_np(gid, h, groups, m):
+    """(groups, m) uint8 registers of the hashes h in groups gid."""
+    log2m = m.bit_length() - 1
+    reg = (h & np.uint64(m - 1)).astype(np.int64)
+    w = (h >> np.uint64(log2m)) | (np.uint64(1) << np.uint64(64 - log2m))
+    low = w & (~w + np.uint64(1))
+    rho = np.log2(low.astype(np.float64)).astype(np.uint8) + np.uint8(1)
+    out = np.zeros((groups, m), np.uint8)
+    np.maximum.at(out, (gid, reg), rho)
+    return out
+
+
+def hll_estimate_np(regs):
+    """The reference's finalize of (groups, m) registers in numpy
+    float32."""
+    g, m = regs.shape
+    b = regs.reshape(g, m // 8, 8).astype(np.float32)
+    z = np.zeros(g, np.float32)
+    v = np.zeros(g, np.int64)
+    for k in range(8):
+        z = z + np.exp2(-b[:, :, k]).sum(axis=1, dtype=np.float32)
+        v = v + (b[:, :, k] == 0).sum(axis=1)
+    alpha = 0.7213 / (1.0 + 1.079 / m)
+    e = np.float32(alpha * m * m) / np.maximum(z, np.float32(1e-9))
+    lc = np.float32(m) * np.log(np.float32(m) / np.maximum(v, 1).astype(
+        np.float32))
+    e = np.where((e <= 2.5 * m) & (v > 0), lc, e)
+    return np.round(e).astype(np.int64)
+
+
+def sketch_answers(x: np.ndarray):
+    """numpy's answers to the sketch queries over hits' x (and big's, the
+    same distinct values): the registers of Qu1 (m = 4,096) and Qu2's two
+    uniqs (1,024 groups of m = 64) from the distinct values, the
+    estimates, Qu3's count, Qs1's top 5 and entropy, and Qs2's arrays
+    from the first 400,000 rows."""
+    t0 = time.perf_counter()
+    counts = np.bincount(x, minlength=HLL_DISTINCT)
+    vals = np.flatnonzero(counts).astype(np.int64)
+    if len(vals) != HLL_DISTINCT:
+        fail(f"hits holds {len(vals)} distinct x, not {HLL_DISTINCT}")
+    u = vals.view(np.uint64)
+    h = mix64_np(u)
+    k = vals % 1024
+    r1 = hll_registers_np(np.zeros(len(vals), np.int64), h, 1, 4096)
+    r2 = hll_registers_np(k, h, 1024, 64)
+    r3 = hll_registers_np(k, hash_combine_np(h, (vals % 7).view(np.uint64)),
+                          1024, 64)
+    e1, e2, e3 = (hll_estimate_np(r) for r in (r1, r2, r3))
+    want = {"Qu1": [(int(e1[0]),)], "Qu1:registers": r1,
+            "Qu2": [(g, int(e2[g]), int(e3[g])) for g in range(10)],
+            "Qu2:registers": (r2, r3),
+            "Qu3": [(int(counts[vals[(h % np.uint64(16)) == 3]].sum()),)]}
+    want["Q5u"], want["Q5u:registers"] = want["Qu1"], r1
+    want["Q5ub"] = [(g, int(e2[g])) for g in range(10)]
+    want["Q5ub:registers"] = (r2,)
+    qs1 = []
+    for g in range(10):
+        sel = vals[k == g]
+        cnt = np.bincount(sel % 37, weights=counts[sel], minlength=37)
+        vs = np.flatnonzero(cnt)
+        order = vs[np.lexsort((vs, -cnt[vs]))]
+        p = cnt[vs] / cnt[vs].sum()
+        qs1.append((g, [int(v) for v in order[:5]],
+                    float(-(p * np.log2(p)).sum())))
+    want["Qs1"] = qs1
+    head = x[:400_000]
+    qs2 = []
+    for g in range(10):
+        rows = head[head % 1024 == g]
+        v5 = rows % 5
+        _, first = np.unique(v5, return_index=True)
+        qs2.append((g, [int(v) for v in rows[:8]],
+                    [int(v) for v in v5[np.sort(first)][:8]]))
+    want["Qs2"] = qs2
+    print(f"sketch answers (numpy, {len(vals)} distinct x): "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return want
+
+
+def sketch_agree(name, rows, want) -> bool:
+    """Exact rows, but an HLL estimate within 1 of numpy's float32 one
+    (the kernel sums 2^-register in another order) and an entropy within
+    ENTROPY_RTOL."""
+    w = want[name]
+    estimates = name in ("Qu1", "Qu2", "Q5u", "Q5ub")
+    if len(rows) != len(w):
+        return False
+    for got, exp in zip(rows, w):
+        if len(got) != len(exp):
+            return False
+        for i, (a, b) in enumerate(zip(got, exp)):
+            if isinstance(b, float):
+                ok = math.isclose(a, b, rel_tol=ENTROPY_RTOL)
+            elif isinstance(b, list):
+                ok = list(a) == b
+            elif estimates and (i > 0 or name in ("Qu1", "Q5u")):
+                ok = abs(a - b) <= 1
+            else:
+                ok = a == b
+            if not ok:
+                return False
+    return True
+
+
+class SketchWatch:
+    """Watches the sketch path while a query runs (each call passed on as
+    it is): the states each HLL finalize is given, and the inputs of the
+    first K15 call, of the first K16 update, finalize and merge of each
+    query, to replay them."""
+
+    def __init__(self):
+        from clickhouse_tpu_torch.exprs import agg_sketch
+        from clickhouse_tpu_torch.ops import hash_ops, sketch_ops
+        self.mods = (agg_sketch, hash_ops, sketch_ops)
+        self.query, self.states, self.args = "", {}, {}
+        fin = agg_sketch.HLLUniqAgg.finalize
+        orig = {"row_hash": hash_ops.row_hash,
+                "hll_update": sketch_ops.hll_update,
+                "hll_merge": sketch_ops.hll_merge}
+        self.orig = dict(orig, finalize=fin)
+
+        def finalize(agg, st):
+            if self.query:
+                self.states.setdefault(self.query, []).append(st[0])
+            return fin(agg, st)
+
+        def keep(name):
+            def call(*a, **kw):
+                key = (self.query, name)
+                if self.query and (name == "hll_merge"
+                                   or key not in self.args):
+                    self.args[key] = (a, kw)   # a merge: the last one
+                return orig[name](*a, **kw)
+            return call
+        agg_sketch.HLLUniqAgg.finalize = finalize
+        hash_ops.row_hash = keep("row_hash")
+        sketch_ops.hll_update = keep("hll_update")
+        sketch_ops.hll_merge = keep("hll_merge")
+
+    def close(self):
+        agg_sketch, hash_ops, sketch_ops = self.mods
+        agg_sketch.HLLUniqAgg.finalize = self.orig["finalize"]
+        hash_ops.row_hash = self.orig["row_hash"]
+        sketch_ops.hll_update = self.orig["hll_update"]
+        sketch_ops.hll_merge = self.orig["hll_merge"]
+
+
+def check_registers(name, states, want):
+    """The port's HLL states of a query against numpy's registers, bit for
+    bit: each state's first rows are numpy's groups, the rest empty."""
+    exp = want.get(f"{name}:registers")
+    if exp is None:
+        return
+    exp = exp if isinstance(exp, tuple) else (exp,)
+    if len(states) != len(exp):
+        fail(f"{name} finalized {len(states)} HLL states, not {len(exp)}")
+    for st, r in zip(states, exp):
+        g = r.shape[0]
+        if st.shape[1] != r.shape[1]:
+            fail(f"{name}'s state has m = {st.shape[1]}, numpy's "
+                 f"{r.shape[1]}")
+        if not np.array_equal(st[:g].cpu().numpy(), r):
+            fail(f"{name}'s registers differ from numpy's")
+        if bool(st[g:].any()):
+            fail(f"{name}'s state holds registers past its {g} groups")
+    print(f"{name}: {len(states)} HLL state(s) of "
+          f"{tuple(states[0].shape)} registers equal numpy's bit for bit",
+          flush=True)
+
+
+def sketch_query(s, name, sql, want, watch, per_query, launches,
+                 launch_rows, timed=True):
+    """One sketch query on its path: numpy's answer, its registers, the
+    kernels of SKETCH_PATHS, its peak beside the governor's estimate,
+    then its wall (median of SKETCH_REPS) and device-busy time."""
+    from clickhouse_tpu_torch.exec.streaming import estimate_plan_device_bytes
+    from clickhouse_tpu_torch.ops import _native
+    from clickhouse_tpu_torch.sql import parse
+    watch.query = name
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _native.reset_launches()
+    t0 = time.perf_counter()
+    rows = s.execute(sql).rows()
+    torch.cuda.synchronize()
+    first = time.perf_counter() - t0
+    mine = dict(_native.LAUNCHES)
+    rows_of = {k: list(v) for k, v in _native.LAUNCH_ROWS.items()}
+    peak = torch.cuda.max_memory_allocated() - base
+    per_query[name] = mine
+    watch.query = ""                   # the timed runs are not watched
+    if not sketch_agree(name, rows, want):
+        fail(f"{name} returned {rows[:4]}, numpy says {want[name][:4]}")
+    check_registers(name, watch.states.pop(name, []), want)
+    missing = [k for k in SKETCH_PATHS[name] if mine[k] < 1]
+    if missing:
+        fail(f"{name} launched no {missing}: "
+             f"{ {k: v for k, v in mine.items() if v} }")
+    for k, v in rows_of.items():
+        launches[k] += mine[k]
+        launch_rows[k] += v
+    est = estimate_plan_device_bytes(s._plan(parse(sql), s.settings),
+                                     s.catalog, s.settings)
+    rec = {"first_s": first, "peak": peak, "estimate": est,
+           "launches": {k: v for k, v in mine.items() if v}}
+    if timed:
+        walls = []
+        for _ in range(SKETCH_REPS):
+            t0 = time.perf_counter()
+            s.execute(sql)
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+        busy, ops, wall, top = device_busy(s, sql, reps=2)
+        rec.update(wall_ms=statistics.median(walls) * 1e3, busy_ms=busy,
+                   ops=ops, top=top)
+    print(f"{name}: matches numpy; launches {rec['launches']} (rows a "
+          f"launch { {k: v for k, v in rows_of.items() if v} }); first run "
+          f"{first:.3f} s; peak {peak} bytes above what was allocated "
+          f"before it, the governor's estimate {est} bytes"
+          + (f"; wall median {rec['wall_ms']:.3f} ms of {SKETCH_REPS}; "
+             f"device busy {rec['busy_ms']:.3f} ms a run, "
+             f"{rec['ops']:g} device operations; top "
+             + "; ".join(f"{n} {t:.3f}" for n, t in rec["top"])
+             if timed else ""), flush=True)
+    return rec
+
+
+def sketch_phase(s, want, watch, per_query, launches, launch_rows):
+    """Qu1-Qu3, Qs1 and Qs2 over hits through the session, each on its
+    kernel path and against numpy (registers bit for bit)."""
+    out = {}
+    for name, sql in SKETCH_QUERIES:
+        out[name] = sketch_query(s, name, sql, want, watch, per_query,
+                                 launches, launch_rows)
+    print("Qu1, Qu2, Qu3, Qs1 and Qs2 match numpy, each on its kernel path",
+          flush=True)
+    return out
+
+
+def sketch_stream_phase(s, want, watch, per_query, launches, launch_rows):
+    """Q5u and Q5ub over big (1B rows, streamed): each streams, its carry
+    merged by K16, its registers numpy's; a cold and STREAM_WARM warm
+    runs timed."""
+    out = {}
+    for name, sql in SKETCH_STREAM_SQL:
+        before = s.profile_events.get("StreamedQueries", 0)
+        rec = sketch_query(s, name, sql, want, watch, per_query, launches,
+                           launch_rows, timed=False)
+        if s.profile_events.get("StreamedQueries", 0) != before + 1:
+            fail(f"{name} did not stream")
+        warm = []
+        for _ in range(STREAM_WARM):
+            t0 = time.perf_counter()
+            s.execute(sql)
+            torch.cuda.synchronize()
+            warm.append(time.perf_counter() - t0)
+        busy, ops, wall, top = device_busy(s, sql, reps=1)
+        rec.update(warm_s=statistics.median(warm), busy_ms=busy, top=top)
+        print(f"{name}: cold {rec['first_s']:.3f} s, warm median "
+              f"{rec['warm_s']:.3f} s of {STREAM_WARM}; device busy "
+              f"{busy:.3f} ms of {wall:.3f} ms wall (a floor: the trace may "
+              f"miss the feeder's copies), {ops:g} device operations; top "
+              + "; ".join(f"{n} {t:.3f}" for n, t in top[:5]), flush=True)
+        out[name] = rec
+    return out
+
+
+# K15's cases: (name, column types); the values seeded, K15_ROWS rows
+K15_ROWS = 1_000_003
+K15_CASES = ("int8", "int16", "int32", "int64", "uint8", "bool",
+             "u64_above_2_63", "f32", "f64", "f64_in_f32", "code",
+             "term_mod", "term_div_int8", "nullable_data", "const_and_col",
+             "cols2", "cols3", "cols4", "cols6", "view_1", "view_3",
+             "one_row")
+
+
+def k15_case(name, dev, n=K15_ROWS):
+    """(HashArgs on dev, rows) of a K15 case: every storage type, UInt64
+    above 2^63, a Float64 stored as float32, a dictionary code, intDiv /
+    modulo terms, a NULL row's stored value (K15 hashes it; the caller's
+    validity masks it), a constant, 2-6 columns, views 1 and 3 rows in,
+    one row."""
+    from clickhouse_tpu_torch.ops.hash_ops import HashArg
+    from clickhouse_tpu_torch.ops.scan_ops import Term
+    rng = np.random.default_rng(len(name) * 7 + 19)
+    if name == "one_row":
+        n = 1
+        return [HashArg(torch.tensor([-7], dtype=torch.int64, device=dev)),
+                HashArg(torch.tensor([2.5], device=dev), "f32")], n
+
+    def col(dtype, lo=None, hi=None, rows=n):
+        if dtype == "bool":
+            return torch.from_numpy(rng.random(rows) < 0.5).to(dev)
+        if dtype in ("float32", "float64"):
+            v = rng.normal(0, 1e3, rows).astype(dtype)
+            v[:min(rows, 4)] = [np.nan, -0.0, 0.0, np.inf][:min(rows, 4)]
+            return torch.from_numpy(v).to(dev)
+        info = np.iinfo(dtype)
+        v = rng.integers(info.min if lo is None else lo,
+                         info.max if hi is None else hi, rows, dtype=dtype)
+        return torch.from_numpy(v).to(dev)
+    i32 = col("int32")
+    if name in ("int8", "int16", "int32", "int64", "uint8", "bool"):
+        return [HashArg(col(name))], n
+    if name == "u64_above_2_63":
+        v = col("int64")
+        v[::3] = v[::3] | (-(1 << 63))
+        return [HashArg(v)], n
+    if name in ("f32", "f64"):
+        return [HashArg(col("float32" if name == "f32" else "float64"),
+                        name)], n
+    if name == "f64_in_f32":
+        return [HashArg(col("float32"), "f64")], n
+    if name == "code":
+        return [HashArg(col("int32", 0, 25_000_000))], n
+    if name == "term_mod":
+        return [HashArg(Term(i32, "mod", 7, torch.int64))], n
+    if name == "term_div_int8":
+        return [HashArg(Term(col("int8"), "div", -3, torch.int64))], n
+    if name == "nullable_data":
+        v = col("int64")
+        v[::5] = 0                       # NULL rows' stored zeros
+        return [HashArg(v)], n
+    if name == "const_and_col":
+        return [HashArg(torch.tensor(-5, dtype=torch.int64, device=dev)),
+                HashArg(i32)], n
+    if name.startswith("cols"):
+        pool = [HashArg(i32), HashArg(col("float32"), "f32"),
+                HashArg(col("int16")), HashArg(col("float64"), "f64"),
+                HashArg(Term(i32, "div", 1000, torch.int64)),
+                HashArg(col("bool"))]
+        return pool[:int(name[4:])], n
+    off = int(name[-1])
+    big = col("int32", rows=n + off)
+    return [HashArg(big[off:]), HashArg(col("int16", rows=n + off)[off:])], n
+
+
+def check_k15(dev):
+    """K15 against its plain version on the card over K15_CASES: bit for
+    bit."""
+    from clickhouse_tpu_torch.ops import hash_ops
+    for name in K15_CASES:
+        args, n = k15_case(name, dev)
+        got = hash_ops.row_hash(args, n)
+        plain = hash_ops._fold(hash_ops.plain_values(args, n), args[0].kind)
+        if not torch.equal(got, plain):
+            fail(f"K15 ({name}) differs from its plain version")
+    print(f"K15 matches its plain version bit for bit over "
+          f"{len(K15_CASES)} cases (every storage type, UInt64 above 2^63, "
+          f"floats with NaN/-0.0/inf, a Float64 stored as float32, codes, "
+          f"terms, a NULL row's data, a constant, 1-6 columns, views, one "
+          f"row)", flush=True)
+
+
+# K16's update cases: (name, log2 m, grouping, rows, extra)
+K16_UPDATE_CASES = tuple(
+    [(f"trivial_m{1 << b}", b, "trivial", 1_000_003, None)
+     for b in range(6, 13)]
+    + [("trivial_mask_rows", 12, "trivial", 2_000_001, "mask_rows"),
+       ("trivial_three_args", 10, "trivial", 1_000_003, "three_args"),
+       ("trivial_six_args", 12, "trivial", 300_001, "six_args")]
+    + [(f"sorted_m{1 << b}", b, "sorted", 1_000_003, None)
+       for b in (6, 8, 10, 12)]
+    + [("sorted_mask_skew", 6, "sorted", 2_000_001, "mask_skew"),
+       ("sorted_two_args", 6, "sorted", 1_000_003, "two_args")])
+
+
+def k16_update_case(case, dev):
+    """(args, m, cap_g, keyword arguments of hll_update) of a K16 update
+    case: x as the hits column (int32), a mask, a row bound below the
+    column, 2, 3 and 6 columns; the sort grouping's perm (random) and
+    group ids (ascending, some rows past cap_g), a group of 40 % of the
+    rows."""
+    from clickhouse_tpu_torch.ops.hash_ops import HashArg
+    from clickhouse_tpu_torch.ops.scan_ops import Term
+    name, log2m, kind, n, extra = case
+    rng = np.random.default_rng(log2m * 31 + n % 97)
+    x = torch.from_numpy((rng.integers(0, 1 << 40, n) % 1_000_003)
+                         .astype(np.int32)).to(dev)
+    args = [HashArg(x)]
+    if extra == "two_args":
+        args.append(HashArg(Term(x, "mod", 7, torch.int64)))
+    if extra == "three_args":
+        args += [HashArg(Term(x, "mod", 7, torch.int64)),
+                 HashArg(torch.from_numpy(rng.normal(0, 1, n).astype(
+                     np.float32)).to(dev), "f64")]
+    if extra == "six_args":
+        args += [HashArg(Term(x, "div", d, torch.int64))
+                 for d in (3, 5, 7, 11, 13)]
+    m = 1 << log2m
+    mask = torch.from_numpy(rng.random(n) < 0.7).to(dev) \
+        if extra in ("mask_rows", "mask_skew") else None
+    if kind == "trivial":
+        kw = {"n_rows": n - 1000 if extra == "mask_rows" else None,
+              "mask": mask}
+        return args, m, 1024, kw
+    cap_g = 1 << 14
+    g = rng.integers(0, cap_g + 64, n)
+    if extra == "mask_skew":
+        g[rng.random(n) < 0.4] = 7
+    gid = torch.from_numpy(np.minimum(np.sort(g), cap_g).astype(np.int32)
+                           ).to(dev)
+    perm = torch.from_numpy(rng.permutation(n).astype(np.int32)).to(dev)
+    return args, m, cap_g, {"perm": perm, "gid": gid, "mask": mask}
+
+
+# K16's merge and finalize cases: (name, log2 m, groups, partial rows)
+K16_MERGE_CASES = (("q5ub_carry", 6, 1 << 22, 1 << 23),
+                   ("empty_groups", 8, 50_000, 60_000),
+                   ("m4096", 12, 1024, 2048),
+                   ("trivial", 12, 1024, 2048))
+
+
+def k16_registers(seed, rows, m, dev):
+    """(rows, m) registers as data makes them, drawn on dev: rho is 1 +
+    the trailing zeros of a random byte (geometric, 1-9), 60 % of them
+    empty."""
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    b = torch.randint(0, 256, (rows, m), generator=gen, device=dev)
+    lut = torch.tensor([9] + [(v & -v).bit_length() for v in range(1, 256)],
+                       dtype=torch.uint8, device=dev)
+    r = lut[b]
+    r[torch.rand((rows, m), generator=gen, device=dev) < 0.6] = 0
+    return r
+
+
+def k16_merge_case(case, dev):
+    """(partial states, groups, keyword arguments of hll_merge): the
+    partial rows' groups ascending with empty groups among them, read
+    through a random perm, a mask of the partials that take part; the
+    trivial case one group of every row."""
+    name, log2m, groups, rows = case
+    rng = np.random.default_rng(log2m + rows % 101)
+    st = k16_registers(log2m + rows % 101, rows, 1 << log2m, dev)
+    mask = torch.from_numpy(rng.random(rows) < 0.9).to(dev)
+    if name == "trivial":
+        return st, groups, {"mask": mask}
+    gid = np.sort(rng.integers(0, groups, rows))
+    if name == "empty_groups":
+        gid = np.sort(rng.integers(0, groups // 3, rows) * 3)
+    starts = np.searchsorted(gid, np.arange(groups))
+    ends = np.searchsorted(gid, np.arange(groups), side="right")
+    return st, groups, {
+        "starts": torch.from_numpy(starts).to(dev),
+        "ends": torch.from_numpy(ends).to(dev),
+        "perm": torch.from_numpy(rng.permutation(rows).astype(np.int32)).to(
+            dev), "mask": mask}
+
+
+def k16_estimates_agree(got, plain, what):
+    """K16's estimates against its plain version's: within 1 (the float32
+    sum's order), and 1 off for at most 1 % of the groups."""
+    d = (got - plain).abs()
+    off = int((d > 0).sum())
+    if int(d.max()) > 1 or off > max(2, got.numel() // 100):
+        fail(f"K16's finalize ({what}) is {int(d.max())} off its plain "
+             f"version ({off} groups differ)")
+    return off
+
+
+def check_k16(dev):
+    """K16's three entries against their plain versions on the card: the
+    update under the trivial grouping and the sort grouping at m from 64
+    to 4,096 (bit for bit), the merge over K16_MERGE_CASES (bit for bit)
+    and the finalize of each merged state (within 1)."""
+    from clickhouse_tpu_torch.ops import sketch_ops
+    for case in K16_UPDATE_CASES:
+        args, m, cap_g, kw = k16_update_case(case, dev)
+        got = sketch_ops.hll_update(args, m, cap_g, **kw)
+        n = kw.get("n_rows")
+        n = n if n is not None else (kw["perm"].shape[0] if "perm" in kw
+                                     else args[0].tensor().shape[0])
+        plain = sketch_ops._hll_update_plain(
+            args, m.bit_length() - 1, cap_g, n, kw.get("perm"),
+            kw.get("gid"), kw.get("mask"))
+        if not torch.equal(got, plain):
+            fail(f"K16's update ({case[0]}) differs from its plain version")
+    off = 0
+    for case in K16_MERGE_CASES:
+        st, groups, kw = k16_merge_case(case, dev)
+        got = sketch_ops.hll_merge(st, groups, **kw)
+        plain = sketch_ops._hll_merge_plain(
+            st, groups, kw.get("starts"), kw.get("ends"), kw.get("perm"),
+            kw.get("mask"))
+        if not torch.equal(got, plain):
+            fail(f"K16's merge ({case[0]}) differs from its plain version")
+        off += k16_estimates_agree(sketch_ops.hll_finalize(got),
+                                   sketch_ops._hll_finalize_plain(plain),
+                                   case[0])
+        del st, got, plain
+    print(f"K16 matches its plain versions: {len(K16_UPDATE_CASES)} update "
+          f"cases bit for bit (GROUP BY () and the sort grouping, m "
+          f"64-4,096, masks, row bounds, 1-6 columns), "
+          f"{len(K16_MERGE_CASES)} merges bit for bit (Q5ub's carry, empty "
+          f"groups, m 4,096, GROUP BY ()), their finalizes within 1 ({off} "
+          f"groups 1 off)", flush=True)
+
+
+def sketch_shapes(dev, watch):
+    """K15 and K16 replayed on the inputs the main path gave them, each
+    beside its plain version and its bound (bytes / 3.35 TB/s): K15 at
+    Qu3's; K16's update at Qu1's (GROUP BY ()) and Qu2's (the sort
+    grouping: the value read through perm, its gather-sector floor), its
+    finalize at Qu2's state and its merge at Q5ub's last carry merge
+    (or, in a run without it, at K16_MERGE_CASES' carry).  Library: none
+    (no PyTorch call computes splitmix64 or an HLL register max); for
+    information, scatter_reduce_(..., "amax") of Qu1's precomputed
+    (index, rho)."""
+    from clickhouse_tpu_torch.ops import hash_ops, sketch_ops
+    out = {}
+    (a, kw) = watch.args[("Qu3", "row_hash")]
+    args, n = a[0], a[1] if len(a) > 1 else kw.get("n")
+    got = hash_ops.row_hash(args, n)
+    plain = hash_ops._fold(hash_ops.plain_values(args, n), args[0].kind)
+    err = max_abs_err(got, plain)
+    del got, plain
+    nb = hash_ops.row_hash_bytes(args, n)
+    k15 = {"ms": cuda_ms(lambda: hash_ops.row_hash(args, n)),
+           "plain_ms": cuda_ms(lambda: hash_ops._fold(
+               hash_ops.plain_values(args, n), args[0].kind), reps=3),
+           "bytes": nb, "bound_ms": bound_ms(nb), "library_ms": None,
+           "max_abs_err": err,
+           "shape": f"{n} rows, {[str(x.tensor().dtype) for x in args]}"}
+    out["row_hash"] = k15
+    print(f"K15 at Qu3's inputs ({k15['shape']}): {k15['ms']:.4f} ms, plain "
+          f"{k15['plain_ms']:.4f} ms, {nb} bytes, bound "
+          f"{k15['bound_ms']:.4f} ms (share "
+          f"{k15['bound_ms'] / k15['ms']:.3f})", flush=True)
+
+    def update(name):
+        (a, kw) = watch.args[(name, "hll_update")]
+        args, m, cap_g = a
+        return args, m, cap_g, kw
+    hll = {"library_ms": None}
+    args, m, cap_g, kw = update("Qu1")
+    n = kw.get("n_rows") if kw.get("n_rows") is not None \
+        else args[0].tensor().shape[0]
+    got = sketch_ops.hll_update(args, m, cap_g, **kw)
+    plain = sketch_ops._hll_update_plain(args, m.bit_length() - 1, cap_g, n,
+                                         None, None, kw.get("mask"))
+    hll["max_abs_err"] = max_abs_err(got, plain)
+    del got, plain
+    nb = sketch_ops.hll_update_bytes(args, n, cap_g, m, False)
+    hll.update(ms=cuda_ms(lambda: sketch_ops.hll_update(args, m, cap_g,
+                                                        **kw)),
+               plain_ms=cuda_ms(lambda: sketch_ops._hll_update_plain(
+                   args, m.bit_length() - 1, cap_g, n, None, None,
+                   kw.get("mask")), reps=3),
+               bytes=nb, bound_ms=bound_ms(nb),
+               shape=f"GROUP BY (): {n} rows, m = {m}, {cap_g} slots")
+    h = hash_ops.row_hash(args[:1], args[0].tensor().shape[0])[:n]
+    reg, rho = sketch_ops._reg_rho(h, m.bit_length() - 1)
+    state = torch.zeros(cap_g * m, dtype=torch.uint8, device=dev)
+    hll["scatter_amax_ms"] = cuda_ms(lambda: state.scatter_reduce_(
+        0, reg, rho, "amax"))
+    del h, reg, rho, state
+    print(f"K16's update at Qu1's inputs ({hll['shape']}): {hll['ms']:.4f} "
+          f"ms, plain {hll['plain_ms']:.4f} ms, {nb} bytes, bound "
+          f"{hll['bound_ms']:.4f} ms (share {hll['bound_ms'] / hll['ms']:.3f})"
+          f"; for information, scatter_reduce_(amax) of the precomputed "
+          f"(register, rho) {hll['scatter_amax_ms']:.4f} ms", flush=True)
+    args, m, cap_g, kw = update("Qu2")
+    perm, gid = kw["perm"], kw["gid"]
+    n = perm.shape[0]
+    got = sketch_ops.hll_update(args, m, cap_g, **kw)
+    plain = sketch_ops._hll_update_plain(args, m.bit_length() - 1, cap_g, n,
+                                         perm, gid, kw.get("mask"))
+    hll["max_abs_err"] = max(hll["max_abs_err"], max_abs_err(got, plain))
+    del got, plain
+    nb = sketch_ops.hll_update_bytes(args, n, cap_g, m, True)
+    perm64 = perm.long()
+    # the value read through perm costs a 32-byte sector a row
+    sectors = nb + sum(n * (32 - a.tensor().element_size()) for a in args
+                       if a.tensor().dim() == 1)
+    hll.update(
+        sorted_ms=cuda_ms(lambda: sketch_ops.hll_update(args, m, cap_g,
+                                                        **kw)),
+        sorted_plain_ms=cuda_ms(lambda: sketch_ops._hll_update_plain(
+            args, m.bit_length() - 1, cap_g, n, perm, gid, kw.get("mask")),
+            reps=3),
+        sorted_bytes=nb, sorted_bound_ms=bound_ms(nb),
+        sorted_sector_bytes=sectors, sorted_sector_floor_ms=bound_ms(sectors),
+        # for information: the value's gather through perm alone
+        sorted_gather_ms=cuda_ms(lambda: args[0].tensor().index_select(
+            0, perm64)),
+        sorted_shape=f"the sort grouping: {n} rows through perm, m = {m}, "
+                     f"{cap_g} slots, {len(args)} column(s)")
+    print(f"K16's update at Qu2's inputs ({hll['sorted_shape']}): "
+          f"{hll['sorted_ms']:.4f} ms, plain {hll['sorted_plain_ms']:.4f} "
+          f"ms, {nb} bytes, bound {hll['sorted_bound_ms']:.4f} ms (share "
+          f"{hll['sorted_bound_ms'] / hll['sorted_ms']:.3f}); the gather "
+          f"sectors' floor {hll['sorted_sector_floor_ms']:.4f} ms; for "
+          f"information, index_select of the first column by perm "
+          f"{hll['sorted_gather_ms']:.4f} ms", flush=True)
+    state = sketch_ops.hll_update(args, m, cap_g, **kw)
+    del args, kw, perm, gid, perm64
+    got = sketch_ops.hll_finalize(state)
+    off = k16_estimates_agree(got, sketch_ops._hll_finalize_plain(state),
+                              "Qu2's state")
+    nb = sketch_ops.hll_finalize_bytes(state.shape[0], state.shape[1])
+    hll.update(
+        finalize_ms=cuda_ms(lambda: sketch_ops.hll_finalize(state)),
+        finalize_plain_ms=cuda_ms(lambda: sketch_ops._hll_finalize_plain(
+            state), reps=3),
+        finalize_bytes=nb, finalize_bound_ms=bound_ms(nb),
+        finalize_off_by_one=off,
+        finalize_shape=f"{tuple(state.shape)} registers")
+    print(f"K16's finalize at Qu2's state ({hll['finalize_shape']}): "
+          f"{hll['finalize_ms']:.4f} ms, plain "
+          f"{hll['finalize_plain_ms']:.4f} ms, {nb} bytes, bound "
+          f"{hll['finalize_bound_ms']:.4f} ms (share "
+          f"{hll['finalize_bound_ms'] / hll['finalize_ms']:.3f}); {off} "
+          f"estimates 1 off the plain version's", flush=True)
+    del state, got
+    key = ("Q5ub", "hll_merge")
+    if key in watch.args:
+        (a, kw) = watch.args[key]
+        st, groups = a
+        where = "Q5ub's last carry merge"
+    else:
+        st, groups, kw = k16_merge_case(K16_MERGE_CASES[0], dev)
+        where = "K16_MERGE_CASES' carry (Q5ub not run)"
+    got = sketch_ops.hll_merge(st, groups, **kw)
+    plain = sketch_ops._hll_merge_plain(st, groups, kw.get("starts"),
+                                        kw.get("ends"), kw.get("perm"),
+                                        kw.get("mask"))
+    hll["max_abs_err"] = max(hll["max_abs_err"], max_abs_err(got, plain))
+    del got, plain
+    nb = sketch_ops.hll_merge_bytes(st, groups, **kw)
+    hll.update(
+        merge_ms=cuda_ms(lambda: sketch_ops.hll_merge(st, groups, **kw)),
+        merge_plain_ms=cuda_ms(lambda: sketch_ops._hll_merge_plain(
+            st, groups, kw.get("starts"), kw.get("ends"), kw.get("perm"),
+            kw.get("mask")), reps=3),
+        merge_bytes=nb, merge_bound_ms=bound_ms(nb),
+        merge_shape=f"{where}: {tuple(st.shape)} partial registers into "
+                    f"{groups} groups")
+    print(f"K16's merge at {hll['merge_shape']}: {hll['merge_ms']:.4f} ms, "
+          f"plain {hll['merge_plain_ms']:.4f} ms, {nb} bytes, bound "
+          f"{hll['merge_bound_ms']:.4f} ms (share "
+          f"{hll['merge_bound_ms'] / hll['merge_ms']:.3f})", flush=True)
+    out["hll"] = hll
+    watch.args.clear()
+    return out
+
+
+def load_big(ch):
+    """A cuda session with big (x Int64): STREAM_ROWS rows of bench.py's
+    formula in STREAM_PIECE parts, as load_stream_tables makes it (the
+    --sketch phase's own, without the other tables)."""
+    s = ch.connect(device="cuda")
+    s.execute("CREATE TABLE big (x Int64)")
+    t0 = time.perf_counter()
+    for lo in range(0, STREAM_ROWS, STREAM_PIECE):
+        x = (np.arange(lo, min(lo + STREAM_PIECE, STREAM_ROWS),
+                       dtype=np.int64) * 2654435761) % 1_000_003
+        s.insert_pydict("big", {"x": x})
+        del x
+    print(f"big ({STREAM_ROWS} rows) built in {time.perf_counter() - t0:.1f}"
+          f" s", flush=True)
+    return s
+
+
+def sketch_turn(ch, dev):
+    """--sketch: K15's and K16's cases, the sketch queries over hits and
+    big on their paths, and K15 and K16 at their inputs."""
+    from clickhouse_tpu_torch.ops import _native
+    check_k15(dev)
+    check_k16(dev)
+    s, x = load_hits(ch)
+    want = sketch_answers(x)
+    del x
+    launches = {k: 0 for k in _native.LAUNCHES}
+    launch_rows = {k: [] for k in _native.LAUNCHES}
+    watch = SketchWatch()
+    try:
+        sketch_phase(s, want, watch, {}, launches, launch_rows)
+        del s
+        torch.cuda.empty_cache()
+        sb = load_big(ch)
+        sketch_stream_phase(sb, want, watch, {}, launches, launch_rows)
+        del sb
+    finally:
+        watch.close()
+    torch.cuda.empty_cache()
+    shapes = sketch_shapes(dev, watch)
+    print(json.dumps({k: {kk: vv for kk, vv in v.items()}
+                      for k, v in shapes.items()}), flush=True)
+    print(json.dumps({"launches": {k: launches[k] for k in
+                                   ("row_hash",) + HLL_KERNELS}}), flush=True)
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this check needs a GPU")
@@ -5372,6 +6122,9 @@ def main():
                               "unpack_pairs", "compact_rows")}}),
               flush=True)
         return
+    if sys.argv[1:] == ["--sketch"]:
+        sketch_turn(ch, dev)
+        return
     if sys.argv[1:] == ["--aggregates"]:
         # K6's cases (both entries), Q2u, Q2ug, Q2q, Q2s2 and Q2g on their
         # path, K6's sorted-order entry at Q2ug's inputs, and the five
@@ -5396,7 +6149,8 @@ def main():
 
     for check in (check_k1, check_k2, check_k3, check_k4, check_k5,
                   check_k6, check_k6_sorted, check_k7, check_k8, check_k9,
-                  check_k10, check_k11, check_k12, check_k13, check_k14):
+                  check_k10, check_k11, check_k12, check_k13, check_k14,
+                  check_k15, check_k16):
         check(dev)
         print(f"[{time.perf_counter() - t0:.1f} s] {check.__name__} done",
               flush=True)
@@ -5409,6 +6163,7 @@ def main():
     want = expected_answers(x)
     want.update(slice12_answers(x))
     want.update(join_answers(*load_join_tables(s)))
+    want.update(sketch_answers(x))
     del x
     load_hits_s(s)
     want.update(string_answers())
@@ -5483,6 +6238,7 @@ def main():
                                 check is not None))
         return out
     unwatch_dense = watch_dense(memory)
+    sketch_watch = SketchWatch()
     agg_ops._masked_reduce_cuda = k1_watch
     sort_ops._radix_sort_cuda = k4_watch
     sort_ops.sort_rows = sort_rows_watch
@@ -5498,6 +6254,8 @@ def main():
             s, want, per_query, launches, launch_rows, memory)
         k12_calls = slice13_path(s, want, per_query, launches, launch_rows,
                                  memory)
+        sketch_recs = sketch_phase(s, want, sketch_watch, per_query,
+                                   launches, launch_rows)
     finally:
         unwatch_dense()
         agg_ops._masked_reduce_cuda = k1_cuda
@@ -5534,9 +6292,19 @@ def main():
     gc.collect()
     torch.cuda.empty_cache()
     shapes["unpack_pairs"], shapes["compact_rows"], _ = streaming_phase(
-        ch, dev, launches, launch_rows)
+        ch, dev, launches, launch_rows, sketch=lambda sb: sketch_recs.update(
+            sketch_stream_phase(sb, want, sketch_watch, per_query, launches,
+                                launch_rows)))
+    sketch_watch.close()
     print(f"[{time.perf_counter() - t0:.1f} s] streaming phase done",
           flush=True)
+    shapes.update(sketch_shapes(dev, sketch_watch))
+    print(f"[{time.perf_counter() - t0:.1f} s] K15 and K16 at their inputs "
+          f"done", flush=True)
+    launches["hll"] = sum(launches[k] for k in HLL_KERNELS)
+    launch_rows["hll"] = list(launch_rows["hll_update"])
+    shapes["hll"].update({f"launches_{k[4:]}": launches[k]
+                          for k in HLL_KERNELS})
     for name in ("radix_sort_pairs", "segment_reduce", "segment_bounds"):
         shapes[name]["launches_per_query"] = {
             q: per_query[q][name] + (per_query[q]["segment_reduce_sorted"]
@@ -5687,7 +6455,11 @@ def kernel_line(card, shapes, launches, launch_rows):
                    "clickhouse_tpu/exec/streaming.py:930"),
                "compact_rows": (
                    "clickhouse_tpu_torch/csrc/compact_rows.cu",
-                   "clickhouse_tpu/ops/filter_ops.py:26")}
+                   "clickhouse_tpu/ops/filter_ops.py:26"),
+               "row_hash": ("clickhouse_tpu_torch/csrc/row_hash.cu",
+                            "clickhouse_tpu/ops/hash_ops.py:179"),
+               "hll": ("clickhouse_tpu_torch/csrc/hll.cu",
+                       "clickhouse_tpu/exprs/agg_sketch.py:301")}
     kernels = []
     for name, (src, repl) in sources.items():
         r = shapes[name]

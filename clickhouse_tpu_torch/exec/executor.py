@@ -389,7 +389,8 @@ def _stage1(node: L.AggregateNode, child: ExecBlock,
     gctx = agg_reg.GroupContext(row_valid=rows, grouping=None,
                                 keys=key_arrays,
                                 max_bytes=ctx.memory_headroom,
-                                mergeable=ctx.merge_states)
+                                mergeable=ctx.merge_states,
+                                checks=ctx.checks, settings=ctx.settings)
     per_agg_inputs = []
     for item in node.aggregates:
         arg_cvs = []

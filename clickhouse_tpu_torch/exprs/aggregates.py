@@ -39,7 +39,9 @@ NULLS, the variance family, covariance and correlation, skewness and
 kurtosis, argMin/argMax, groupBitAnd/Or/Xor, uniqExact (countDistinct,
 groupBitmap, uniqThetaSketch), and quantileExact/median with their exact
 spellings, `quantiles(...)` giving an Array (the High, Exclusive and
-Inclusive spellings by ClickHouse's rules, not the reference's).  sum/count/avg of integers
+Inclusive spellings by ClickHouse's rules, not the reference's), and the
+sketches of agg_sketch.py (uniq and its HLL spellings, groupArray,
+groupUniqArray, topK, entropy).  sum/count/avg of integers
 may take the dense grouping; the rest take the sort grouping (or K1 under
 GROUP BY ()).  min/max (and argMin/argMax's order) of a String compare its
 dictionary ranks.  Every other aggregate name and combinator raises the
@@ -86,6 +88,10 @@ class GroupContext:
     # the states will be merged (a streamed chunk's): the aggregates that
     # keep presence add the count of their rows as the last state
     mergeable: bool = False
+    # the executor's capacity checks and the query's settings (groupArray's
+    # width: group_array_max_size)
+    checks: Optional[list] = None
+    settings: Optional[object] = None
 
     @property
     def capacity(self) -> int:
@@ -1177,18 +1183,24 @@ class GroupBitXorAgg(GroupBitAgg):
 
 def _register_base() -> Dict[str, type]:
     """The reference's _register_base (exprs/aggregates.py:743-884), less
-    the names whose class lives in agg_sketch.py / agg_ext*.py (not
-    ported), and less quantilesExactWeighted, a weighted spelling the
-    reference serves with the unweighted class."""
+    the names whose class lives in agg_ext*.py (not ported), and less
+    quantilesExactWeighted, a weighted spelling the reference serves with
+    the unweighted class."""
+    from . import agg_sketch as sk
     base: Dict[str, type] = {}
     for _cls in [CountAgg, SumAgg, MinAgg, MaxAgg, AvgAgg, AnyAgg, VarPopAgg,
                  VarSampAgg, StddevPopAgg, StddevSampAgg, ArgMinAgg,
                  ArgMaxAgg, UniqExactAgg, MedianAgg, CovarPopAgg,
                  CovarSampAgg, CorrAgg, SkewPopAgg, SkewSampAgg, KurtPopAgg,
                  KurtSampAgg, AvgWeightedAgg, SumWithOverflowAgg,
-                 GroupBitAndAgg, GroupBitOrAgg, GroupBitXorAgg]:
+                 GroupBitAndAgg, GroupBitOrAgg, GroupBitXorAgg,
+                 sk.GroupArrayAgg, sk.GroupUniqArrayAgg, sk.TopKAgg,
+                 sk.EntropyAgg, sk.HLLUniqAgg]:
         base[_cls.name.lower()] = _cls
     for alias, cls in {
+            "uniqcombined": sk.HLLUniqAgg, "uniqcombined64": sk.HLLUniqAgg,
+            "uniqhll12": sk.HLLUniqAgg, "uniqtheta": sk.HLLUniqAgg,
+            "grouparraydistinct": sk.GroupUniqArrayAgg,
             "anylast": AnyAgg, "anyheavy": AnyAgg, "any_value": AnyAgg,
             "first_value": AnyAgg, "last_value": AnyAgg,
             "any_respect_nulls": AnyRespectNullsAgg,
@@ -1345,4 +1357,9 @@ def get_aggregate(name: str, arg_types: List[dt.DType],
     if lname in _QUANTILE_NAMES:
         q = float(params[0]) if params else 0.5
         return cls(arg_types, q), has_if
+    from .agg_sketch import SIZED
+    if lname in SIZED:
+        size = int(params[0]) if params else None
+        return cls(arg_types, size or 10) if lname == "topk" \
+            else cls(arg_types, size), has_if
     return cls(arg_types), has_if

@@ -389,8 +389,14 @@ def _div_rem(x, y, unsigned64: bool):
 
 def _div_rem_const(x, b: ColVal, st, which: int):
     """The quotient (which 0) or the remainder (1) of _div_rem by the
-    nonzero constant b, built alone: one result a row, no divisor column."""
+    nonzero constant b, built alone: one result a row, no divisor column;
+    a UInt64 by a power of two a shift or a mask (cityHash64(x) % 16)."""
     if st == np.uint64:
+        c = _const_int(b, st) & ((1 << 64) - 1)
+        if c & (c - 1) == 0:
+            k = c.bit_length() - 1
+            return ((x >> k) & ((1 << (64 - k)) - 1) if k else x) \
+                if which == 0 else x & (c - 1)
         return _udivmod64(x, _as(b, st))[which]
     c = _const_int(b, st)
     if c == -1:                     # MIN / -1 wraps, as in _div_rem
@@ -1344,26 +1350,44 @@ def _on_device_dict(a: ColVal) -> bool:
         and len(a.dictionary) > 0
 
 
-def _length_type(ts):
-    if ts and (ts[0].is_array or dt.is_map(dt.remove_nullable(ts[0]))):
-        raise NotImplementedError_(
-            "length of an Array or Map is not ported to the CUDA engine yet")
-    return dt.UInt64.with_nullable(ts[0].nullable)
+def _sized_type(out: dt.DType):
+    def resolve(ts):
+        if ts and dt.is_map(dt.remove_nullable(ts[0])):
+            raise NotImplementedError_(
+                "length of a Map is not ported to the CUDA engine yet")
+        return out.with_nullable(ts[0].nullable)
+    return resolve
 
 
-register("length", _length_type,
-         _string_fn_lut(lambda s: len(s.encode()), np.uint64,
-                        vec_fn=lambda sv: np.char.str_len(
-                            np.char.encode(sv, "utf-8"))),
+def _array_or_string(of_lengths, string_exec):
+    """A function of a String (its LUT) or of an Array's lengths."""
+    def run(args, out_dtype):
+        a = args[0]
+        if not a.dtype.is_array:
+            return string_exec(args, out_dtype)
+        lens = a.lengths if a.lengths is not None else torch.full(
+            a.data.shape[:-1], a.data.shape[-1], dtype=torch.int32,
+            device=a.data.device)
+        return ColVal(out_dtype, of_lengths(lens.to(torch.int64)).to(
+            dt.remove_nullable(out_dtype).torch_dtype), a.validity)
+    return run
+
+
+register("length", _sized_type(dt.UInt64), _array_or_string(
+    lambda n: n, _string_fn_lut(lambda s: len(s.encode()), np.uint64,
+                                vec_fn=lambda sv: np.char.str_len(
+                                    np.char.encode(sv, "utf-8")))),
          case_insensitive=True)
 register("lengthUTF8", lambda ts: dt.UInt64.with_nullable(ts[0].nullable),
          _string_fn_lut(len, np.uint64, vec_fn=np.char.str_len))
-register("empty", lambda ts: dt.UInt8.with_nullable(ts[0].nullable),
-         _string_fn_lut(lambda s: np.uint8(len(s) == 0), np.uint8,
-                        vec_fn=lambda sv: np.char.str_len(sv) == 0))
-register("notEmpty", lambda ts: dt.UInt8.with_nullable(ts[0].nullable),
-         _string_fn_lut(lambda s: np.uint8(len(s) != 0), np.uint8,
-                        vec_fn=lambda sv: np.char.str_len(sv) != 0))
+register("empty", _sized_type(dt.UInt8), _array_or_string(
+    lambda n: n == 0, _string_fn_lut(
+        lambda s: np.uint8(len(s) == 0), np.uint8,
+        vec_fn=lambda sv: np.char.str_len(sv) == 0)))
+register("notEmpty", _sized_type(dt.UInt8), _array_or_string(
+    lambda n: n != 0, _string_fn_lut(
+        lambda s: np.uint8(len(s) != 0), np.uint8,
+        vec_fn=lambda sv: np.char.str_len(sv) != 0)))
 register("lower", lambda ts: dt.String.with_nullable(ts[0].nullable),
          _string_fn_lut(str.lower, object, vec_fn=np.char.lower),
          case_insensitive=True)
@@ -1547,6 +1571,33 @@ def _concat_pair(a: ColVal, b: ColVal, out_dtype) -> ColVal:
 
 register("concat", lambda ts: dt.String.with_nullable(
     any(t.nullable for t in ts)), _concat_exec, case_insensitive=True)
+
+
+# -- hashing (reference functions.py:1495-1507) ------------------------------
+# cityHash64 and sipHash64 are the reference's splitmix64 row hash
+# (ops/hash_ops.hash_columns) of their arguments' values, through K15.  A
+# String argument raises (S3: the reference hashes its dictionary code;
+# a hash over the bytes waits for the byte-hash slice), as do the byte
+# hashes (xxHash64 is the reference's byte-wise host function).
+
+def _hash_exec(args, out_dtype):
+    from ..ops import hash_ops
+    from .agg_sketch import hash_arg
+    for a in args:
+        if a.dtype.is_dictionary:
+            raise NotImplementedError_(
+                "cityHash64/sipHash64 of a String: a hash of the bytes is "
+                "not ported to the CUDA engine yet (S3: the reference "
+                "hashes the dictionary code)")
+    hargs = [hash_arg(a) for a in args]
+    n = next((h.tensor().shape[0] for h in hargs if h.tensor().dim()), None)
+    h = hash_ops.row_hash(hargs, n)
+    return ColVal(out_dtype, h if n is not None else h.reshape(()),
+                  _and_validity(args))
+
+
+register("cityHash64", lambda ts: dt.UInt64, _hash_exec)
+register("sipHash64", lambda ts: dt.UInt64, _hash_exec)
 
 
 # -- arrays (padded (rows, max_len) + lengths; SURVEY §2.1 ColumnArray) ------

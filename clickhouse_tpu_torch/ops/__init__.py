@@ -1,7 +1,7 @@
 """Device operators and the engine's hand-written CUDA kernels.
 
-Twelve kernels carry the main path, each beside its plain PyTorch version in
-the module that uses it:
+Sixteen kernels carry the main path, each beside its plain PyTorch version
+in the module that uses it:
 
   K1 agg_ops.masked_reduce             (csrc/masked_reduce.cu)
   K2 mxu_segsum.dense_group_reduce     (csrc/dense_group_reduce.cu)
@@ -15,10 +15,15 @@ the module that uses it:
   K10 string_ops.prefix_match          (csrc/prefix_match.cu)
   K11 vector_ops.vector_distance       (csrc/vector_distance.cu)
   K12 calendar_ops.calendar_part       (csrc/calendar_part.cu)
+  K13 chunk_ops.unpack_pairs           (csrc/unpack_pairs.cu)
+  K14 filter_ops.compact_rows          (csrc/compact_rows.cu)
+  K15 hash_ops.row_hash                (csrc/row_hash.cu)
+  K16 sketch_ops.hll_update, hll_merge, hll_finalize (csrc/hll.cu)
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches its kernel or raises.  ``_native`` builds the kernels at the first
 launch.
 """
 from . import (hash_ops, agg_ops, calendar_ops, filter_ops, join_ops,
-               mxu_segsum, scan_ops, sort_ops, string_ops, vector_ops)
+               mxu_segsum, scan_ops, sketch_ops, sort_ops, string_ops,
+               vector_ops)

@@ -34,7 +34,8 @@ __all__ = ["LAUNCHES", "LAUNCH_ROWS", "KernelBuildError", "build", "library",
            "K1Term", "K1Args", "K6_MAX_SPECS", "K6_MAX_DATA", "K6_MAX_FORMS",
            "K6_MAX_MASKS", "K6Form", "K6Spec", "K6Count", "K6Args", "K7_MAX_ENTRIES", "K7Word",
            "K7Out", "K7Args", "K8_MAX_KEYS", "K8_MAX_WORDS", "K8Args", "K9Args",
-           "K11_MAX_WIDTH", "K14Args"]
+           "K11_MAX_WIDTH", "K14Args", "MAX_HASH_COLS", "HashCol",
+           "K16Args"]
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -50,7 +51,9 @@ LAUNCHES: Dict[str, int] = {"masked_reduce": 0, "dense_group_reduce": 0,
                             "dense_join": 0, "hash_join": 0,
                             "expand_matches": 0, "prefix_match": 0,
                             "vector_distance": 0, "calendar_part": 0,
-                            "unpack_pairs": 0, "compact_rows": 0}
+                            "unpack_pairs": 0, "compact_rows": 0,
+                            "row_hash": 0, "hll_update": 0, "hll_merge": 0,
+                            "hll_finalize": 0}
 # kernel name -> row count of each launch since the last reset
 LAUNCH_ROWS: Dict[str, List[int]] = {k: [] for k in LAUNCHES}
 
@@ -211,6 +214,30 @@ class K9Args(ctypes.Structure):
 K11_MAX_WIDTH = 4096   # kMaxWidth of csrc/vector_distance.cu
 
 
+MAX_HASH_COLS = 4      # kMaxHashCols of csrc/hash64.cuh
+
+
+class HashCol(ctypes.Structure):
+    """ChttHashCol of csrc/hash64.cuh (one column of a row hash: its
+    storage, how its values become u64 bits, an optional intDiv/modulo
+    term by the host's multiplier, and stride 0 for a constant)."""
+    _fields_ = [("data", ctypes.c_void_p), ("dtype", ctypes.c_int),
+                ("kind", ctypes.c_int), ("term", ctypes.c_int),
+                ("c", ctypes.c_int), ("magic", ctypes.c_uint),
+                ("shift1", ctypes.c_int), ("shift2", ctypes.c_int),
+                ("stride", ctypes.c_int)]
+
+
+class K16Args(ctypes.Structure):
+    """ChttHllArgs of csrc/hll.cu (one update of K16)."""
+    _fields_ = [("cols", HashCol * MAX_HASH_COLS),
+                ("n_cols", ctypes.c_int), ("log2m", ctypes.c_int),
+                ("n", ctypes.c_longlong), ("cap_g", ctypes.c_longlong),
+                ("perm", ctypes.c_void_p),
+                ("gid", ctypes.c_void_p), ("mask", ctypes.c_void_p),
+                ("state", ctypes.c_void_p)]
+
+
 class KernelBuildError(RuntimeError):
     """nvcc is missing or refused the sources (message holds its stderr)."""
 
@@ -341,6 +368,15 @@ def library() -> ctypes.CDLL:
             lib.chtt_compact_tile_rows.restype = I
             lib.chtt_compact_scratch_words.argtypes = []
             lib.chtt_compact_scratch_words.restype = I
+            lib.chtt_row_hash.argtypes = [P, I, LL, P, I, P]
+            lib.chtt_row_hash.restype = I
+            lib.chtt_hll_update.argtypes = [P, I, P]
+            lib.chtt_hll_update.restype = I
+            lib.chtt_hll_merge.argtypes = [P, P, P, P, P, LL, LL, I, P, I,
+                                           P]
+            lib.chtt_hll_merge.restype = I
+            lib.chtt_hll_finalize.argtypes = [P, LL, I, P, I, P]
+            lib.chtt_hll_finalize.restype = I
             lib.chtt_error_string.argtypes = [I]
             lib.chtt_error_string.restype = ctypes.c_char_p
             _LIB = lib

@@ -19,6 +19,8 @@ import torch
 
 from chip_smoke import (CMPS, K4_ROWS, K5_CASES, K6_SORTED_LAYOUTS,
                         K13_CASES, k13_case, K14_CASES, k14_rows,
+                        K15_CASES, k15_case, K16_MERGE_CASES,
+                        K16_UPDATE_CASES, k16_merge_case, k16_update_case,
                         K6_TERM_DIVISORS, K7_CASES, K8_CASES,
                         K9_CASES, K10_CASES, K11_CASES, K12_DTYPES,
                         SORT_KEY_CHAINS, U64_EDGE, grouped_rows, k5_args,
@@ -380,13 +382,23 @@ def test_launch_counters_count_kernel_launches(dev):
     from clickhouse_tpu_torch.ops.chunk_ops import unpack_pairs
     unpack_pairs(torch.zeros(10, dtype=torch.uint8, device=dev), 20, 0, 5,
                  4, torch.int32)
+    from clickhouse_tpu_torch.ops.filter_ops import compact_rows
+    compact_rows(ones)
+    from clickhouse_tpu_torch.ops import hash_ops, sketch_ops
+    arg = hash_ops.HashArg(x)
+    hash_ops.row_hash([arg])
+    st = sketch_ops.hll_update([arg], 64, 4)
+    sketch_ops.hll_merge(st, 2)
+    sketch_ops.hll_finalize(st)
     assert _native.LAUNCHES == {"masked_reduce": 1, "dense_group_reduce": 1,
                                 "topk_smallest": 1, "radix_sort_pairs": 1,
                                 "segment_bounds": 1, "segment_reduce": 1,
                                 "segment_reduce_sorted": 1, "dense_join": 1, "hash_join": 1,
                                 "expand_matches": 1, "prefix_match": 1,
                                 "vector_distance": 1, "calendar_part": 1,
-                                "unpack_pairs": 1}
+                                "unpack_pairs": 1, "compact_rows": 1,
+                                "row_hash": 1, "hll_update": 1,
+                                "hll_merge": 1, "hll_finalize": 1}
 
 
 # -- K11 vector_distance -------------------------------------------------------
@@ -1227,3 +1239,101 @@ def test_compact_rows_matches_plain(dev, case):
     assert idx.dtype == torch.int32 and idx.shape == (rows.capacity,)
     assert torch.equal(idx[:c], pidx[:c])
 
+
+# -- K15 row_hash and K16 hll --------------------------------------------------
+
+@pytest.mark.parametrize("name", K15_CASES)
+def test_row_hash_matches_plain(dev, name):
+    """K15 against its plain version, bit for bit: every storage type,
+    UInt64 above 2^63, floats with NaN/-0.0/inf, a Float64 stored as
+    float32, codes, terms, a constant, 1-6 columns (past four a second
+    launch from the carried hash), views, one row."""
+    from clickhouse_tpu_torch.ops import hash_ops
+    args, n = k15_case(name, dev)
+    before = _native.LAUNCHES["row_hash"]
+    got = hash_ops.row_hash(args, n)
+    assert _native.LAUNCHES["row_hash"] == before + (2 if len(args) > 4
+                                                    else 1)
+    want = hash_ops._fold(hash_ops.plain_values(args, n), args[0].kind)
+    assert torch.equal(got, want)
+
+
+@pytest.mark.parametrize("case", K16_UPDATE_CASES,
+                         ids=[c[0] for c in K16_UPDATE_CASES])
+def test_hll_update_matches_plain(dev, case):
+    """K16's update against its plain version, bit for bit (a register's
+    max does not depend on the order the rows come in): GROUP BY () at m
+    64-4,096 with masks, a row bound and 3 and 6 columns; the sort
+    grouping's perm and group ids, rows past cap_g, a 40 % group, a
+    mask."""
+    from clickhouse_tpu_torch.ops import sketch_ops
+    args, m, cap_g, kw = k16_update_case(case, dev)
+    before = _native.LAUNCHES["hll_update"]
+    got = sketch_ops.hll_update(args, m, cap_g, **kw)
+    assert _native.LAUNCHES["hll_update"] == before + 1
+    n = kw.get("n_rows")
+    n = n if n is not None else (kw["perm"].shape[0] if "perm" in kw
+                                 else args[0].tensor().shape[0])
+    want = sketch_ops._hll_update_plain(args, m.bit_length() - 1, cap_g, n,
+                                        kw.get("perm"), kw.get("gid"),
+                                        kw.get("mask"))
+    assert got.shape == (cap_g, m) and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("case", K16_MERGE_CASES,
+                         ids=[c[0] for c in K16_MERGE_CASES])
+def test_hll_merge_and_finalize_match_plain(dev, case):
+    """K16's merge against its plain version bit for bit (K5's bounds
+    through perm, empty groups, a mask, GROUP BY ()'s one group), and its
+    finalize within 1 of the plain version's float32 estimate (the sum of
+    2^-register in another order), 1 off for at most 1 % of the groups;
+    an empty group's estimate 0."""
+    from clickhouse_tpu_torch.ops import sketch_ops
+    st, groups, kw = k16_merge_case(case, dev)
+    got = sketch_ops.hll_merge(st, groups, **kw)
+    want = sketch_ops._hll_merge_plain(st, groups, kw.get("starts"),
+                                       kw.get("ends"), kw.get("perm"),
+                                       kw.get("mask"))
+    assert torch.equal(got, want)
+    est = sketch_ops.hll_finalize(got)
+    plain = sketch_ops._hll_finalize_plain(want)
+    d = (est - plain).abs()
+    assert int(d.max()) <= 1 and int((d > 0).sum()) <= max(2, groups // 100)
+    assert not bool(est[~got.bool().any(dim=1)].any())
+
+
+def test_sketch_queries_on_the_card_match_the_cpu(dev):
+    """uniq (GROUP BY () and the sort grouping), cityHash64, topK, entropy
+    and groupArray through a CUDA session against a CPU session over the
+    same 70,000 rows: the rows equal, an HLL estimate within 1."""
+    import clickhouse_tpu_torch as tch
+    from clickhouse_tpu_torch.interop import table_from_numpy
+    rng = np.random.default_rng(5)
+    cols = {"k": rng.integers(0, 50, 70_000).astype(np.int32),
+            "x": rng.integers(0, 1 << 40, 70_000),
+            "f": rng.normal(0, 1, 70_000)}
+    types = {"k": "Int32", "x": "Int64", "f": "Float64"}
+    cuda, cpu = tch.connect(device="cuda"), tch.connect(device="cpu")
+    for s in (cuda, cpu):
+        table_from_numpy(s, "sk", cols, types)
+    for sql in ("SELECT uniq(x), uniqIf(f, k > 3) FROM sk",
+                "SELECT k, uniq(x, f), uniqHLL12(k) FROM sk GROUP BY k "
+                "ORDER BY k",
+                "SELECT count() FROM sk WHERE cityHash64(x, k) % 4 = 1",
+                "SELECT k, topK(3)(x % 5), entropy(x % 9), groupArray(4)(x) "
+                "FROM sk GROUP BY k ORDER BY k"):
+        _native.reset_launches()
+        got, want = cuda.execute(sql).rows(), cpu.execute(sql).rows()
+        assert len(got) == len(want), sql
+        for g, w in zip(got, want):
+            for a, b in zip(g, w):
+                if isinstance(b, float):
+                    assert abs(a - b) <= 1e-9 * max(1.0, abs(b)), sql
+                elif isinstance(b, list):
+                    assert list(a) == list(b), sql
+                else:
+                    assert abs(a - b) <= (1 if "uniq" in sql else 0), sql
+        if "uniq" in sql:
+            assert _native.LAUNCHES["hll_update"] >= 1
+        if "cityHash64" in sql:
+            assert _native.LAUNCHES["row_hash"] == 1

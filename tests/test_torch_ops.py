@@ -1167,6 +1167,11 @@ DIVERGENCES = {
         "SELECT startsWith(s, u) FROM p", "TypeError",
         [(1,), (1,), (1,), (0,)]),
         "clickhouse_tpu/exprs/functions.py:1405"),
+    # S3: cityHash64 of a String hashes its dictionary code, not its
+    # bytes; the port refuses until the byte hashes are ported
+    "s3_city_hash_of_a_string": (lambda: _sql_divergence(
+        "SELECT cityHash64(s) FROM g", "NotImplementedError"),
+        "clickhouse_tpu/exprs/functions.py:1496-1507"),
     # S4: the totals row shows a String key as its dictionary's first
     # value, not the type's default ''
     "s4_totals_string_key": (lambda: _sql_divergence(

@@ -349,8 +349,8 @@ def test_ddl_insert_values_and_drop(sessions):
 
 
 @pytest.mark.parametrize("sql,err,match", [
-    ("SELECT uniq(a) FROM t", UnknownFunction, "uniq"),
-    ("SELECT cityHash64(a) FROM t", UnknownFunction, "cityHash64"),
+    ("SELECT uniqUpTo(3)(a) FROM t", UnknownFunction, "uniqUpTo"),
+    ("SELECT xxHash64(a) FROM t", UnknownFunction, "xxHash64"),
     ("SELECT x FROM hits ORDER BY x", None, None),
     ("SELECT x, count() FROM hits GROUP BY x", None, None),
     ("SELECT a, min(f) FROM t GROUP BY a", None, None),
@@ -369,7 +369,7 @@ def test_ddl_insert_values_and_drop(sessions):
     ("SELECT a, uniqExact(b) FROM t GROUP BY a", None, None),
     ("SELECT a, argMax(b, f) FROM t GROUP BY a", None, None),
     ("SELECT a, groupBitOr(b) FROM t GROUP BY a", None, None),
-    ("SELECT a, uniq(b) FROM t GROUP BY a", UnknownFunction, "uniq"),
+    ("SELECT a, uniq(b) FROM t GROUP BY a", None, None),
     ("SELECT a, quantile(0.5)(f) FROM t GROUP BY a", None, None),
     ("SELECT a, uniqExactState(b) FROM t GROUP BY a", NotImplementedError_,
      "uniqExactState"),
@@ -393,9 +393,11 @@ def test_unported_paths_raise_typed_errors(sessions, sql, err, match):
     """Unported paths raise typed errors naming them (an unported
     aggregate under GROUP BY names the aggregate, not its argument); the
     paths ported since (err None: the full sort, the sort grouping,
-    k > 4,096, WITH TOTALS, uniqExact, argMax, groupBitOr and quantile
-    under GROUP BY, and isFinite, the case that named an unported scalar
-    before cityHash64 did) answer as the reference does."""
+    k > 4,096, WITH TOTALS, uniqExact, argMax, groupBitOr, uniq and
+    quantile under GROUP BY, and isFinite, the case that named an
+    unported scalar before cityHash64 did) answer as the reference does;
+    uniqUpTo and xxHash64 took the places of uniq and cityHash64, ported
+    since."""
     if err is None:
         _both(sessions, sql)
         return

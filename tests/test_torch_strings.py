@@ -174,12 +174,17 @@ def test_a_needle_column_raises(sessions, sql):
 
 @pytest.mark.parametrize("type_name", ["Array(Int32)", "Map(String, Int64)"])
 def test_length_of_an_array_or_map_raises(type_name):
-    """length over an Array or Map (no such column is ported yet) raises a
-    typed error when the analyzer resolves it."""
+    """length over a Map (no such column is ported yet) raises a typed
+    error when the analyzer resolves it; over an Array (its lengths read
+    since groupArray was ported) it resolves to UInt64."""
     from clickhouse_tpu_torch.core import dtypes as tdt
     from clickhouse_tpu_torch.exprs import functions
-    with pytest.raises(NotImplementedError_, match="Array or Map"):
-        functions.get("length").resolve([tdt.parse_type_name(type_name)])
+    t = tdt.parse_type_name(type_name)
+    if t.is_array:
+        assert functions.get("length").resolve([t]) == tdt.UInt64
+        return
+    with pytest.raises(NotImplementedError_, match="Map"):
+        functions.get("length").resolve([t])
 
 
 def test_startswith_takes_prefix_match_for_every_size(sessions,
