@@ -406,7 +406,11 @@ EXTRA_KEYS = ("k1_count_ms", "fill_ms", "q5h_ms", "q5h_plain_ms",
               "finalize_bytes", "finalize_bound_ms", "finalize_off_by_one",
               "finalize_shape", "merge_plain_ms", "merge_bytes",
               "merge_bound_ms", "merge_shape", "launches_update",
-              "launches_merge", "launches_finalize")
+              "launches_merge", "launches_finalize", "launches_update_rows",
+              "launches_cells", "split", "rows_ms", "rows_plain_ms",
+              "rows_bytes", "rows_bound_ms", "rows_shape", "cells_ms",
+              "cells_plain_ms", "cells_bytes", "cells_bound_ms",
+              "cells_shape", "layouts")
 F64_EPS = 2.0 ** -52
 CMPS = ["equals", "notEquals", "less", "lessOrEquals", "greater",
         "greaterOrEquals"]
@@ -5308,15 +5312,19 @@ SKETCH_STREAM_SQL = (
 # the kernels each sketch query must reach, each at least once
 SKETCH_PATHS = {
     "Qu1": ("hll_update", "hll_finalize"),
-    "Qu2": ("radix_sort_pairs", "segment_bounds", "hll_update",
-            "hll_finalize"),
+    "Qu2": ("radix_sort_pairs", "segment_bounds", "hll_update_rows",
+            "hll_cells", "hll_finalize"),
     "Qu3": ("row_hash", "masked_reduce"),
     "Qs1": ("radix_sort_pairs", "segment_bounds", "segment_reduce_sorted"),
     "Qs2": ("radix_sort_pairs", "segment_bounds", "segment_reduce_sorted"),
     "Q5u": ("unpack_pairs", "hll_update", "hll_merge", "hll_finalize"),
     "Q5ub": ("unpack_pairs", "radix_sort_pairs", "segment_bounds",
-             "hll_update", "hll_merge", "hll_finalize")}
-HLL_KERNELS = ("hll_update", "hll_merge", "hll_finalize")
+             "hll_update_rows", "hll_cells", "hll_merge", "hll_finalize")}
+# the kernels a sketch query must not reach: Qu2's and Q5ub's keys (x %
+# 1024) take K16's row-order entry, never its perm entry
+SKETCH_NOT = {"Qu2": ("hll_update",), "Q5ub": ("hll_update",)}
+HLL_KERNELS = ("hll_update", "hll_update_rows", "hll_cells", "hll_merge",
+               "hll_finalize")
 # every x of hits and big: each residue of the prime 1,000,003 appears
 HLL_DISTINCT = 1_000_003
 ENTROPY_RTOL = 1e-9     # the port sums a run's terms, numpy p log2 p
@@ -5439,8 +5447,8 @@ def sketch_agree(name, rows, want) -> bool:
 class SketchWatch:
     """Watches the sketch path while a query runs (each call passed on as
     it is): the states each HLL finalize is given, and the inputs of the
-    first K15 call, of the first K16 update, finalize and merge of each
-    query, to replay them."""
+    first K15 call, of the first K16 update, cells' copy, finalize and
+    merge of each query, to replay them."""
 
     def __init__(self):
         from clickhouse_tpu_torch.exprs import agg_sketch
@@ -5450,6 +5458,8 @@ class SketchWatch:
         fin = agg_sketch.HLLUniqAgg.finalize
         orig = {"row_hash": hash_ops.row_hash,
                 "hll_update": sketch_ops.hll_update,
+                "hll_update_rows": sketch_ops.hll_update_rows,
+                "hll_cells": sketch_ops.hll_cells,
                 "hll_merge": sketch_ops.hll_merge}
         self.orig = dict(orig, finalize=fin)
 
@@ -5469,14 +5479,17 @@ class SketchWatch:
         agg_sketch.HLLUniqAgg.finalize = finalize
         hash_ops.row_hash = keep("row_hash")
         sketch_ops.hll_update = keep("hll_update")
+        sketch_ops.hll_update_rows = keep("hll_update_rows")
+        sketch_ops.hll_cells = keep("hll_cells")
         sketch_ops.hll_merge = keep("hll_merge")
 
     def close(self):
         agg_sketch, hash_ops, sketch_ops = self.mods
         agg_sketch.HLLUniqAgg.finalize = self.orig["finalize"]
         hash_ops.row_hash = self.orig["row_hash"]
-        sketch_ops.hll_update = self.orig["hll_update"]
-        sketch_ops.hll_merge = self.orig["hll_merge"]
+        for name in ("hll_update", "hll_update_rows", "hll_cells",
+                     "hll_merge"):
+            setattr(sketch_ops, name, self.orig[name])
 
 
 def check_registers(name, states, want):
@@ -5531,6 +5544,10 @@ def sketch_query(s, name, sql, want, watch, per_query, launches,
     missing = [k for k in SKETCH_PATHS[name] if mine[k] < 1]
     if missing:
         fail(f"{name} launched no {missing}: "
+             f"{ {k: v for k, v in mine.items() if v} }")
+    barred = [k for k in SKETCH_NOT.get(name, ()) if mine[k]]
+    if barred:
+        fail(f"{name} launched {barred}: "
              f"{ {k: v for k, v in mine.items() if v} }")
     for k, v in rows_of.items():
         launches[k] += mine[k]
@@ -5693,20 +5710,39 @@ K16_UPDATE_CASES = tuple(
     [(f"trivial_m{1 << b}", b, "trivial", 1_000_003, None)
      for b in range(6, 13)]
     + [("trivial_mask_rows", 12, "trivial", 2_000_001, "mask_rows"),
+       ("trivial_bool_arg", 10, "trivial", 1_000_003, "bool_arg"),
        ("trivial_three_args", 10, "trivial", 1_000_003, "three_args"),
        ("trivial_six_args", 12, "trivial", 300_001, "six_args")]
     + [(f"sorted_m{1 << b}", b, "sorted", 1_000_003, None)
        for b in (6, 8, 10, 12)]
     + [("sorted_mask_skew", 6, "sorted", 2_000_001, "mask_skew"),
-       ("sorted_two_args", 6, "sorted", 1_000_003, "two_args")])
+       ("sorted_two_args", 6, "sorted", 1_000_003, "two_args")]
+    # the row-order entry: Qu2's key (x % 1024, 256 KB of u32 cells), m =
+    # 4,096 over 1,024 slots (16 MB of cells), 16 slots
+    # at m = 1,024, two keys, a Nullable key (validity, data zeroed where
+    # NULL, a negative least value), an int64 key, an int8 key with a
+    # constant key, slots of no group and groups past cap_g, a mask, a
+    # row bound, two columns, an int64 column
+    + [("rows_qu2", 6, "rows", 1_000_003, "qu2"),
+       ("rows_m4096_cells", 12, "rows", 1_000_003, "qu2"),
+       ("rows_m1024_16_slots", 10, "rows", 1_000_003, "span16"),
+       ("rows_two_keys", 6, "rows", 1_000_003, "two_keys"),
+       ("rows_nullable", 8, "rows", 1_000_003, "nullable"),
+       ("rows_int64_key", 6, "rows", 1_000_003, "int64"),
+       ("rows_int8_const_key", 8, "rows", 300_001, "int8_const"),
+       ("rows_missing_groups", 6, "rows", 1_000_003, "missing"),
+       ("rows_mask_two_args", 6, "rows", 2_000_001, "mask_two_args"),
+       ("rows_row_bound", 6, "rows", 1_000_003, "row_bound"),
+       ("rows_int64_arg", 6, "rows", 1_000_003, "int64_arg")])
 
 
 def k16_update_case(case, dev):
     """(args, m, cap_g, keyword arguments of hll_update) of a K16 update
-    case: x as the hits column (int32), a mask, a row bound below the
-    column, 2, 3 and 6 columns; the sort grouping's perm (random) and
-    group ids (ascending, some rows past cap_g), a group of 40 % of the
-    rows."""
+    case: x as the hits column (int32), a Bool or an int64 column in its
+    place, a mask, a row bound below the column, 2, 3 and 6 columns; the
+    sort grouping's perm (random) and group ids (ascending, some rows past
+    cap_g), a group of 40 % of the rows; the row-order entry's keys and
+    table (k16_rows_case)."""
     from clickhouse_tpu_torch.ops.hash_ops import HashArg
     from clickhouse_tpu_torch.ops.scan_ops import Term
     name, log2m, kind, n, extra = case
@@ -5714,6 +5750,10 @@ def k16_update_case(case, dev):
     x = torch.from_numpy((rng.integers(0, 1 << 40, n) % 1_000_003)
                          .astype(np.int32)).to(dev)
     args = [HashArg(x)]
+    if extra == "bool_arg":
+        args = [HashArg(torch.from_numpy(rng.random(n) < 0.5).to(dev))]
+    if extra == "int64_arg":
+        args = [HashArg(x.to(torch.int64) * 2654435761 - (1 << 40))]
     if extra == "two_args":
         args.append(HashArg(Term(x, "mod", 7, torch.int64)))
     if extra == "three_args":
@@ -5730,6 +5770,8 @@ def k16_update_case(case, dev):
         kw = {"n_rows": n - 1000 if extra == "mask_rows" else None,
               "mask": mask}
         return args, m, 1024, kw
+    if kind == "rows":
+        return k16_rows_case(extra, rng, x, args, m, n, dev)
     cap_g = 1 << 14
     g = rng.integers(0, cap_g + 64, n)
     if extra == "mask_skew":
@@ -5738,6 +5780,99 @@ def k16_update_case(case, dev):
                            ).to(dev)
     perm = torch.from_numpy(rng.permutation(n).astype(np.int32)).to(dev)
     return args, m, cap_g, {"perm": perm, "gid": gid, "mask": mask}
+
+
+def k16_rows_case(extra, rng, x, args, m, n, dev):
+    """(args, m, cap_g, keyword arguments) of a row-order K16 update case
+    (k16_update_case's "rows" kind): its keys (sketch_ops.SlotKey) and
+    slot -> group table as a sort grouping gives them (the groups in slot
+    order, those with no row absent; cap_g 1 << 14 unless the case cuts
+    it)."""
+    from clickhouse_tpu_torch.ops.hash_ops import HashArg
+    from clickhouse_tpu_torch.ops.scan_ops import Term
+    from clickhouse_tpu_torch.ops.sketch_ops import SlotKey
+    xn = x.cpu().numpy().astype(np.int64)
+    kw = {"n_rows": None, "mask": None}
+    if extra in ("qu2", "missing", "mask_two_args", "row_bound",
+                 "int64_arg"):
+        cols = [((xn % 1024).astype(np.int32), 0, 1024)]
+    elif extra == "span16":
+        cols = [((xn % 16).astype(np.int16), 0, 16)]
+    elif extra == "two_keys":
+        cols = [((xn % 32).astype(np.int32), 0, 32),
+                ((xn % 7 - 3).astype(np.int8), -3, 7)]
+    elif extra == "nullable":
+        valid = rng.random(n) < 0.8
+        data = np.where(valid, xn % 101 - 60, 0).astype(np.int32)
+        cols = [(valid, 0, 2), (data, -60, 101)]
+    elif extra == "int64":
+        cols = [(xn % 600 - (1 << 40), -(1 << 40), 600)]
+    else:                                  # int8_const
+        cols = [(np.asarray(3, np.int64), 2, 4),
+                ((xn % 200 - 100).astype(np.int8), -100, 200)]
+    slots, mult, slot = 1, 1, np.zeros(n, np.int64)
+    for v, lo, span in cols:
+        slot += (np.broadcast_to(v, (n,)).astype(np.int64) - lo) * mult
+        mult *= span
+    slots = mult
+    present = np.zeros(slots, bool)
+    present[slot] = True
+    if extra == "missing":
+        present[rng.random(slots) < 0.2] = False
+    table = np.where(present, np.cumsum(present) - 1, -1).astype(np.int32)
+    cap_g = 1 << 14 if extra != "missing" else 700
+    if extra == "mask_two_args":
+        kw["mask"] = torch.from_numpy(rng.random(n) < 0.6).to(dev)
+        args = args + [HashArg(Term(x, "mod", 7, torch.int64))]
+    if extra == "row_bound":
+        kw["n_rows"] = n - 777
+    kw["keys"] = [SlotKey(torch.tensor(v, device=dev), lo, span)
+                  for v, lo, span in cols]
+    kw["table"] = torch.from_numpy(table).to(dev)
+    return args, m, cap_g, kw
+
+
+def k16_update(args, m, cap_g, kw, plain=False):
+    """K16's update of a K16_UPDATE_CASES case (its entry by the case's
+    keyword arguments), or its plain version."""
+    from clickhouse_tpu_torch.ops import sketch_ops
+    log2m = m.bit_length() - 1
+    if "keys" in kw:
+        if not plain:
+            return sketch_ops.hll_update_rows(
+                args, m, cap_g, kw["keys"], kw["table"],
+                n_rows=kw["n_rows"], mask=kw["mask"])
+        n = sketch_ops._rows_of_keys(args, kw["keys"], kw["mask"],
+                                     kw["n_rows"])
+        return sketch_ops._hll_update_rows_plain(
+            args, log2m, cap_g, n, kw["keys"], kw["table"], kw["mask"])
+    if not plain:
+        return sketch_ops.hll_update(args, m, cap_g, **kw)
+    n = kw.get("n_rows")
+    n = n if n is not None else (kw["perm"].shape[0] if "perm" in kw
+                                 else args[0].tensor().shape[0])
+    return sketch_ops._hll_update_plain(args, log2m, cap_g, n,
+                                        kw.get("perm"), kw.get("gid"),
+                                        kw.get("mask"))
+
+
+# K16's cells' copy cases: (name, log2 m, slots, cap_g)
+K16_CELLS_CASES = (("m64", 6, 1024, 1 << 14), ("m4096", 12, 1024, 2048),
+                   ("groups_past_cap", 10, 16, 12))
+
+
+def k16_cells_case(case, dev):
+    """(cells, table, cap_g) of a K16_CELLS_CASES case: (slots, m) int32
+    registers 0-65, half of them empty; each slot a distinct group of
+    [0, slots + 8), a fifth of them none (-1), some at cap_g and above."""
+    name, log2m, slots, cap_g = case
+    rng = np.random.default_rng(log2m * 7 + slots)
+    cells = rng.integers(0, 66, (slots, 1 << log2m)).astype(np.int32)
+    cells[rng.random(cells.shape) < 0.5] = 0
+    table = rng.permutation(slots + 8)[:slots].astype(np.int32)
+    table[rng.random(slots) < 0.2] = -1
+    return (torch.from_numpy(cells).to(dev), torch.from_numpy(table).to(dev),
+            cap_g)
 
 
 # K16's merge and finalize cases: (name, log2 m, groups, partial rows)
@@ -5796,21 +5931,21 @@ def k16_estimates_agree(got, plain, what):
 
 def check_k16(dev):
     """K16's three entries against their plain versions on the card: the
-    update under the trivial grouping and the sort grouping at m from 64
-    to 4,096 (bit for bit), the merge over K16_MERGE_CASES (bit for bit)
+    update under the trivial grouping and the sort grouping (through perm
+    and in row order) at m from 64 to 4,096 (bit for bit), the merge over K16_MERGE_CASES (bit for bit)
     and the finalize of each merged state (within 1)."""
     from clickhouse_tpu_torch.ops import sketch_ops
     for case in K16_UPDATE_CASES:
         args, m, cap_g, kw = k16_update_case(case, dev)
-        got = sketch_ops.hll_update(args, m, cap_g, **kw)
-        n = kw.get("n_rows")
-        n = n if n is not None else (kw["perm"].shape[0] if "perm" in kw
-                                     else args[0].tensor().shape[0])
-        plain = sketch_ops._hll_update_plain(
-            args, m.bit_length() - 1, cap_g, n, kw.get("perm"),
-            kw.get("gid"), kw.get("mask"))
-        if not torch.equal(got, plain):
+        got = k16_update(args, m, cap_g, kw)
+        if not torch.equal(got, k16_update(args, m, cap_g, kw, plain=True)):
             fail(f"K16's update ({case[0]}) differs from its plain version")
+    for case in K16_CELLS_CASES:
+        cells, table, cap_g = k16_cells_case(case, dev)
+        if not torch.equal(sketch_ops.hll_cells(cells, table, cap_g),
+                           sketch_ops._hll_cells_plain(cells, table, cap_g)):
+            fail(f"K16's cells' copy ({case[0]}) differs from its plain "
+                 f"version")
     off = 0
     for case in K16_MERGE_CASES:
         st, groups, kw = k16_merge_case(case, dev)
@@ -5825,20 +5960,122 @@ def check_k16(dev):
                                    case[0])
         del st, got, plain
     print(f"K16 matches its plain versions: {len(K16_UPDATE_CASES)} update "
-          f"cases bit for bit (GROUP BY () and the sort grouping, m "
-          f"64-4,096, masks, row bounds, 1-6 columns), "
+          f"cases bit for bit (GROUP BY (), the sort grouping through perm "
+          f"and in row order from its keys: m 64-4,096, 256 KB and 16 MB "
+          f"of cells, 1-2 keys, a Nullable key, masks, row bounds, 1-6 "
+          f"columns), {len(K16_CELLS_CASES)} cells' copies bit for bit, "
           f"{len(K16_MERGE_CASES)} merges bit for bit (Q5ub's carry, empty "
           f"groups, m 4,096, GROUP BY ()), their finalizes within 1 ({off} "
           f"groups 1 off)", flush=True)
 
 
+# K16's row-order entry against its perm entry, over hits' x keyed by x %
+# slots: (slots, log2 m, cap_g).  Qu2's 1,024 slots at m = 64 (256 KB of
+# cells), 2,048 and 3,072, and 1,024 at m = 4,096 (16 MB: the most the
+# route takes, HLL_ROWS_MAX_CELLS)
+K16_LAYOUT_CASES = ((1024, 6, 1 << 22), (2048, 6, 1 << 22),
+                    (3072, 6, 1 << 22), (1024, 12, 2048))
+
+
+def k16_perm_of(keys, table, n, cap_g, mask):
+    """perm and group ids (int32) of the sort grouping of the first n rows
+    by their keys' slots, as group_by_sort gives them: the rows in slot
+    order (stable), a row's group table[slot] (cap_g where none)."""
+    slot = torch.zeros(n, dtype=torch.int64, device=table.device)
+    mult = 1
+    for k in keys:
+        v = k.data[:n] if k.data.dim() else k.data.expand(n)
+        slot += (v.to(torch.int64) - k.lo) * mult
+        mult *= k.span
+    perm = torch.sort(slot, stable=True).indices
+    g = table.to(torch.int64)[slot[perm]]
+    del slot
+    return perm.to(torch.int32), torch.where(g < 0, cap_g, g).to(torch.int32)
+
+
+def k16_split(args, m, cap_g, n, mask):
+    """K16's GROUP BY () update at Qu1's inputs taken apart, each a whole
+    call with its state's fill and the update's blocks: the hashes alone,
+    the shared registers with nothing flushed (chtt_hll_split), the
+    update; the state's fill alone."""
+    import ctypes
+    from clickhouse_tpu_torch.ops import _native, sketch_ops
+    from clickhouse_tpu_torch.ops.hash_ops import MAX_HASH_COLS, fold_args
+    a = fold_args(args, MAX_HASH_COLS)
+    log2m = m.bit_length() - 1
+    dev = args[0].tensor().device
+    lib = _native.library()
+
+    def part(probe):
+        def run():
+            state = torch.zeros((cap_g, m), dtype=torch.uint8, device=dev)
+            ka, keep = sketch_ops._hll_args(a, log2m, cap_g, n, mask, state)
+            blocks = _native.grid_blocks(
+                dev, n, per_sm=lib.chtt_hll_rows_per_sm(ctypes.byref(ka)))
+            _native.check(lib.chtt_hll_split(ctypes.byref(ka), probe, blocks,
+                                             _native.stream_ptr(dev)),
+                          "hll_update's split")
+            del keep
+            return state
+        return run
+    out = {"hash_ms": cuda_ms(part(1)), "no_flush_ms": cuda_ms(part(2)),
+           "update_ms": cuda_ms(lambda: sketch_ops.hll_update(
+               args, m, cap_g, n_rows=n, mask=mask)),
+           "state_fill_ms": cuda_ms(lambda: torch.zeros(
+               (cap_g, m), dtype=torch.uint8, device=dev))}
+    print("K16's GROUP BY () update split at Qu1's inputs (ms, each call "
+          "with its state's fill): " + ", ".join(
+              f"{k[:-3]} {v:.4f}" for k, v in out.items()), flush=True)
+    return out
+
+
+def k16_layouts(args, n, mask):
+    """K16's update over hits' x keyed by x % slots (K16_LAYOUT_CASES):
+    the row-order entry (u32 cells) and the perm entry (perm and group ids
+    of the same grouping), the states equal, each timed."""
+    from clickhouse_tpu_torch.ops import sketch_ops
+    x = args[0].tensor()
+    out = []
+    for slots, log2m, cap_g in K16_LAYOUT_CASES:
+        m = 1 << log2m
+        keys = [sketch_ops.SlotKey((x[:n] % slots).to(torch.int32), 0,
+                                   slots)]
+        table = torch.arange(slots, dtype=torch.int32, device=x.device)
+        perm, gid = k16_perm_of(keys, table, n, cap_g, mask)
+
+        runs = {"cells": lambda: sketch_ops.hll_update_rows(
+                    args, m, cap_g, keys, table, n_rows=n, mask=mask),
+                "perm": lambda: sketch_ops.hll_update(
+                    args, m, cap_g, perm=perm, gid=gid, mask=mask)}
+        first = None
+        for f in runs.values():
+            st = f()
+            if first is None:
+                first = st
+            elif not torch.equal(st, first):
+                fail(f"K16's layouts differ at {slots} slots, m = {m}")
+        del first, st
+        rec = {"slots": slots, "m": m, "cap_g": cap_g,
+               **{f"{k}_ms": cuda_ms(f) for k, f in runs.items()}}
+        print(f"K16's update keyed by x % {slots} (m = {m}, {cap_g} slots): "
+              + ", ".join(f"{k} {rec[k + '_ms']:.4f} ms" for k in runs),
+              flush=True)
+        out.append(rec)
+        del perm, gid, keys, runs
+    return out
+
+
 def sketch_shapes(dev, watch):
     """K15 and K16 replayed on the inputs the main path gave them, each
     beside its plain version and its bound (bytes / 3.35 TB/s): K15 at
-    Qu3's; K16's update at Qu1's (GROUP BY ()) and Qu2's (the sort
-    grouping: the value read through perm, its gather-sector floor), its
-    finalize at Qu2's state and its merge at Q5ub's last carry merge
-    (or, in a run without it, at K16_MERGE_CASES' carry).  Library: none
+    Qu3's; K16's update at Qu1's (GROUP BY (), and its split: k16_split)
+    and Qu2's (the sort grouping in row order, its cells' copy, and its
+    perm entry on the same grouping's perm and group ids: the value read
+    through perm, its gather-sector floor), its layouts against the perm
+    entry
+    (k16_layouts), its finalize at Qu2's state and its merge at Q5ub's
+    last carry merge (or, in a run without it, at K16_MERGE_CASES'
+    carry).  Library: none
     (no PyTorch call computes splitmix64 or an HLL register max); for
     information, scatter_reduce_(..., "amax") of Qu1's precomputed
     (index, rho)."""
@@ -5863,12 +6100,8 @@ def sketch_shapes(dev, watch):
           f"{k15['bound_ms']:.4f} ms (share "
           f"{k15['bound_ms'] / k15['ms']:.3f})", flush=True)
 
-    def update(name):
-        (a, kw) = watch.args[(name, "hll_update")]
-        args, m, cap_g = a
-        return args, m, cap_g, kw
     hll = {"library_ms": None}
-    args, m, cap_g, kw = update("Qu1")
+    (args, m, cap_g), kw = watch.args[("Qu1", "hll_update")]
     n = kw.get("n_rows") if kw.get("n_rows") is not None \
         else args[0].tensor().shape[0]
     got = sketch_ops.hll_update(args, m, cap_g, **kw)
@@ -5876,7 +6109,7 @@ def sketch_shapes(dev, watch):
                                          None, None, kw.get("mask"))
     hll["max_abs_err"] = max_abs_err(got, plain)
     del got, plain
-    nb = sketch_ops.hll_update_bytes(args, n, cap_g, m, False)
+    nb = sketch_ops.hll_update_bytes(args, n, cap_g, m, mask=kw.get("mask"))
     hll.update(ms=cuda_ms(lambda: sketch_ops.hll_update(args, m, cap_g,
                                                         **kw)),
                plain_ms=cuda_ms(lambda: sketch_ops._hll_update_plain(
@@ -5895,25 +6128,67 @@ def sketch_shapes(dev, watch):
           f"{hll['bound_ms']:.4f} ms (share {hll['bound_ms'] / hll['ms']:.3f})"
           f"; for information, scatter_reduce_(amax) of the precomputed "
           f"(register, rho) {hll['scatter_amax_ms']:.4f} ms", flush=True)
-    args, m, cap_g, kw = update("Qu2")
-    perm, gid = kw["perm"], kw["gid"]
-    n = perm.shape[0]
-    got = sketch_ops.hll_update(args, m, cap_g, **kw)
-    plain = sketch_ops._hll_update_plain(args, m.bit_length() - 1, cap_g, n,
-                                         perm, gid, kw.get("mask"))
-    hll["max_abs_err"] = max(hll["max_abs_err"], max_abs_err(got, plain))
-    del got, plain
-    nb = sketch_ops.hll_update_bytes(args, n, cap_g, m, True)
+    hll["split"] = k16_split(args, m, cap_g, n, kw.get("mask"))
+    (args, m, cap_g, keys, table), kw = watch.args[("Qu2", "hll_update_rows")]
+    mask = kw.get("mask")
+    n = sketch_ops._rows_of_keys(args, keys, mask, kw.get("n_rows"))
+    log2m = m.bit_length() - 1
+    state = sketch_ops.hll_update_rows(args, m, cap_g, keys, table, **kw)
+    plain = sketch_ops._hll_update_rows_plain(args, log2m, cap_g, n, keys,
+                                              table, mask)
+    hll["max_abs_err"] = max(hll["max_abs_err"], max_abs_err(state, plain))
+    del plain
+    nb = sketch_ops.hll_update_bytes(args, n, cap_g, m, keys=keys, mask=mask)
+    hll.update(
+        rows_ms=cuda_ms(lambda: sketch_ops.hll_update_rows(
+            args, m, cap_g, keys, table, **kw)),
+        rows_plain_ms=cuda_ms(lambda: sketch_ops._hll_update_rows_plain(
+            args, log2m, cap_g, n, keys, table, mask), reps=3),
+        rows_bytes=nb, rows_bound_ms=bound_ms(nb),
+        rows_shape=f"the sort grouping in row order: {n} rows, "
+                   f"{len(keys)} key(s) of {table.shape[0]} slots, m = {m}, "
+                   f"{cap_g} slots, {len(args)} column(s)")
+    print(f"K16's row-order update at Qu2's inputs ({hll['rows_shape']}): "
+          f"{hll['rows_ms']:.4f} ms, plain {hll['rows_plain_ms']:.4f} ms, "
+          f"{nb} bytes, bound {hll['rows_bound_ms']:.4f} ms (share "
+          f"{hll['rows_bound_ms'] / hll['rows_ms']:.3f})", flush=True)
+    (cells, table_c, cap_c), _ = watch.args[("Qu2", "hll_cells")]
+    got = sketch_ops.hll_cells(cells, table_c, cap_c)
+    hll["max_abs_err"] = max(hll["max_abs_err"], max_abs_err(
+        got, sketch_ops._hll_cells_plain(cells, table_c, cap_c)))
+    del got
+    nb = sketch_ops.hll_cells_bytes(cells.shape[0], cells.shape[1], cap_c)
+    hll.update(
+        cells_ms=cuda_ms(lambda: sketch_ops.hll_cells(cells, table_c, cap_c)),
+        cells_plain_ms=cuda_ms(lambda: sketch_ops._hll_cells_plain(
+            cells, table_c, cap_c), reps=3),
+        cells_bytes=nb, cells_bound_ms=bound_ms(nb),
+        cells_shape=f"{tuple(cells.shape)} u32 cells into {cap_c} group "
+                    f"rows")
+    print(f"K16's cells' copy at Qu2's inputs ({hll['cells_shape']}): "
+          f"{hll['cells_ms']:.4f} ms (in the row-order update's), plain "
+          f"{hll['cells_plain_ms']:.4f} ms, {nb} bytes, bound "
+          f"{hll['cells_bound_ms']:.4f} ms (share "
+          f"{hll['cells_bound_ms'] / hll['cells_ms']:.3f})", flush=True)
+    del cells, table_c
+    # the perm entry at the same inputs: the grouping's perm and group ids
+    # made from the keys (a stable sort of the slots)
+    perm, gid = k16_perm_of(keys, table, n, cap_g, mask)
+    kw_perm = {"perm": perm, "gid": gid, "mask": mask}
+    got = sketch_ops.hll_update(args, m, cap_g, **kw_perm)
+    if not torch.equal(got, state):
+        fail("K16's perm entry and row-order entry differ at Qu2's inputs")
+    del got
+    nb = sketch_ops.hll_update_bytes(args, n, cap_g, m, True, mask=mask)
     perm64 = perm.long()
     # the value read through perm costs a 32-byte sector a row
     sectors = nb + sum(n * (32 - a.tensor().element_size()) for a in args
                        if a.tensor().dim() == 1)
     hll.update(
         sorted_ms=cuda_ms(lambda: sketch_ops.hll_update(args, m, cap_g,
-                                                        **kw)),
+                                                        **kw_perm)),
         sorted_plain_ms=cuda_ms(lambda: sketch_ops._hll_update_plain(
-            args, m.bit_length() - 1, cap_g, n, perm, gid, kw.get("mask")),
-            reps=3),
+            args, log2m, cap_g, n, perm, gid, mask), reps=3),
         sorted_bytes=nb, sorted_bound_ms=bound_ms(nb),
         sorted_sector_bytes=sectors, sorted_sector_floor_ms=bound_ms(sectors),
         # for information: the value's gather through perm alone
@@ -5921,15 +6196,16 @@ def sketch_shapes(dev, watch):
             0, perm64)),
         sorted_shape=f"the sort grouping: {n} rows through perm, m = {m}, "
                      f"{cap_g} slots, {len(args)} column(s)")
-    print(f"K16's update at Qu2's inputs ({hll['sorted_shape']}): "
+    print(f"K16's perm update at Qu2's inputs ({hll['sorted_shape']}): "
           f"{hll['sorted_ms']:.4f} ms, plain {hll['sorted_plain_ms']:.4f} "
           f"ms, {nb} bytes, bound {hll['sorted_bound_ms']:.4f} ms (share "
           f"{hll['sorted_bound_ms'] / hll['sorted_ms']:.3f}); the gather "
           f"sectors' floor {hll['sorted_sector_floor_ms']:.4f} ms; for "
           f"information, index_select of the first column by perm "
           f"{hll['sorted_gather_ms']:.4f} ms", flush=True)
-    state = sketch_ops.hll_update(args, m, cap_g, **kw)
-    del args, kw, perm, gid, perm64
+    del perm, gid, perm64, kw_perm
+    hll["layouts"] = k16_layouts(args, n, mask)
+    del args, kw, keys, table, mask
     got = sketch_ops.hll_finalize(state)
     off = k16_estimates_agree(got, sketch_ops._hll_finalize_plain(state),
                               "Qu2's state")
@@ -6302,7 +6578,8 @@ def main():
     print(f"[{time.perf_counter() - t0:.1f} s] K15 and K16 at their inputs "
           f"done", flush=True)
     launches["hll"] = sum(launches[k] for k in HLL_KERNELS)
-    launch_rows["hll"] = list(launch_rows["hll_update"])
+    launch_rows["hll"] = launch_rows["hll_update"] \
+        + launch_rows["hll_update_rows"]
     shapes["hll"].update({f"launches_{k[4:]}": launches[k]
                           for k in HLL_KERNELS})
     for name in ("radix_sort_pairs", "segment_reduce", "segment_bounds"):

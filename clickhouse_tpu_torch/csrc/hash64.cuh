@@ -75,28 +75,35 @@ __device__ __forceinline__ long long int_term(int v, const ChttHashCol& c) {
   return (long long)(c.term != HT_NONE ? hash_term(v, c) : v);
 }
 
+// A read-only load: through the non-coherent cache, or (CS) marked as
+// streamed (evict first), which leaves L1 to data read again.
+template <bool CS, typename T>
+__device__ __forceinline__ T ld_ro(const T* p) {
+  return CS ? __ldcs(p) : __ldg(p);
+}
+
 // Column c's stored value at row `row`, as loaded: an integer sign- or
 // zero-extended (Bool, uint8 zero), a float's bits.  DT is the column's
 // storage type where the kernel is built for it (its switch folds away),
 // else -1 (read c.dtype).  The loads of several rows are issued before
 // any is used (hash_of).
-template <int DT = -1>
+template <int DT = -1, bool CS = false>
 __device__ __forceinline__ u64 load_raw(const ChttHashCol& c, long long row) {
   const long long i = row * c.stride;
   switch (DT < 0 ? c.dtype : DT) {
     case DT_BOOL:
     case DT_U8:
-      return (u64)__ldg((const unsigned char*)c.data + i);
+      return (u64)ld_ro<CS>((const unsigned char*)c.data + i);
     case DT_I8:
-      return (u64)(long long)__ldg((const signed char*)c.data + i);
+      return (u64)(long long)ld_ro<CS>((const signed char*)c.data + i);
     case DT_I16:
-      return (u64)(long long)__ldg((const short*)c.data + i);
+      return (u64)(long long)ld_ro<CS>((const short*)c.data + i);
     case DT_I32:
-      return (u64)(long long)__ldg((const int*)c.data + i);
+      return (u64)(long long)ld_ro<CS>((const int*)c.data + i);
     case DT_F32:
-      return (u64)__float_as_uint(__ldg((const float*)c.data + i));
+      return (u64)__float_as_uint(ld_ro<CS>((const float*)c.data + i));
     default:  // DT_I64, DT_F64: the 8 bytes as they are
-      return (u64)__ldg((const long long*)c.data + i);
+      return (u64)ld_ro<CS>((const long long*)c.data + i);
   }
 }
 
@@ -142,15 +149,15 @@ __device__ __forceinline__ u64 row_hash_of(const ChttHashCol* cols,
   return h;
 }
 
-// The raw values of the n_cols columns at row `row`.
-template <int DT0>
+// The raw values of the n_cols columns at row `row` (CS: streamed loads).
+template <int DT0, bool CS = false>
 __device__ __forceinline__ void load_row(const ChttHashCol* cols, int n_cols,
                                          long long row,
                                          u64 (&raw)[kMaxHashCols]) {
-  raw[0] = load_raw<DT0>(cols[0], row);
+  raw[0] = load_raw<DT0, CS>(cols[0], row);
 #pragma unroll
   for (int k = 1; k < kMaxHashCols; ++k)
-    raw[k] = k < n_cols ? load_raw(cols[k], row) : 0;
+    raw[k] = k < n_cols ? load_raw<-1, CS>(cols[k], row) : 0;
 }
 
 // Calls f.template operator()<DT>() with the constant DT of storage type

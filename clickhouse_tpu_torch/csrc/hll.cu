@@ -1,6 +1,7 @@
-// K16: HyperLogLog registers (ops/sketch_ops.py), three entries: the
-// update, the merge and the finalize of HLLUniqAgg (uniq, uniqCombined,
-// uniqCombined64, uniqHLL12, uniqTheta).
+// K16: HyperLogLog registers (ops/sketch_ops.py): the update (with the
+// copy of its keyed cells, an entry of its own), the merge and the
+// finalize of HLLUniqAgg (uniq, uniqCombined, uniqCombined64, uniqHLL12,
+// uniqTheta).
 //
 // Replaces HLLUniqAgg.update (clickhouse_tpu/exprs/agg_sketch.py:301),
 // .merge (:346) and .finalize (:355).  The TPU has no scatter, so the
@@ -14,20 +15,44 @@
 // (a) update: a row's register is h & (m - 1) and its rho 1 + the count of
 // trailing zeros of (h >> log2 m) | 2^(64 - log2 m), h the row hash
 // (hash64.cuh) of the argument columns as stored, formed in registers: no
-// hash is written.  Under GROUP BY () (no perm, no gid) each block keeps
-// the m registers in shared memory as u32 words (shared atomicMax), then
-// takes one global byte max each (a CAS on the byte's 32-bit word; CUDA
-// has no byte atomicMax).  Under the sort grouping the rows are taken in
-// sorted order, a warp's tile of them at a time: the group id and the row
-// id (perm) are coalesced reads, the value is read through perm (one
-// random access a row) and the (group, register) byte takes a global byte
-// max.  Both read the state byte first and skip the CAS where it already
-// holds rho or more, which after the first rows is nearly always; a
-// thread's rows' loads are all issued before the first hash, and each
-// kernel is built for each storage type of the first column.  Measured
-// on an H100 (PERF.md): the sorted update is set by the gather through
-// perm (the same gather alone, as index_select, takes as long).  Bound: bytes (the columns'
-// storage, perm and gid read once, the state written once).
+// hash is written.  The registers depend only on the set of (group, hash)
+// pairs, so the rows may come in any order.  Two ways in:
+//   - in row order (k_hll_update_rows): GROUP BY () (one slot), or the
+//     sort grouping where every key has a small proven range.  A row's
+//     slot is its keys' digits (value - lo) in mixed radix, first key
+//     fastest, formed in registers from the keys (int32): no perm and no
+//     group id is read, every load is coalesced and marked streamed.
+//     GROUP BY (): each block keeps the m registers in shared memory, a
+//     u32 each (shared atomicMax, read first and skipped where the
+//     register holds rho), and byte-maxes them into the state once at its
+//     end.  Measured on an H100 (PERF.md): the hashes alone take 0.41 of
+//     its 0.49 ms at Qu1 (K15's hash of the same column, 0.47, is alike);
+//     that end flush costs 0.01, and each block's registers written as a
+//     partial row and folded by a second kernel took as long.
+//     Keyed: a u32 cell a (slot, register) in device memory (the live
+//     registers: at most HLL_ROWS_MAX_CELLS), read through L1 (a stale
+//     value is a lower one: it costs an atomic, never an answer) and
+//     raised by atomicMax where rho is above it; k_hll_cells (its own
+//     entry) copies them as bytes into each slot's group (a slot -> group
+//     table from the grouping's unique keys).  Measured on an H100
+//     (PERF.md): a byte a register in shared memory with a CAS on its
+//     word, a block's partial rows and a fold, took 2.3-3.5 ms at Qu2's
+//     65,536 registers against the cells' 0.68 (a block saw ~4 rows a
+//     register, so half the rows took a CAS), a global byte CAS on the
+//     state 15-21 ms.
+//   - through perm (k_hll_update_sorted): the other sort groupings (wide,
+//     float or unbounded keys).  A warp's tile of sorted positions at a
+//     time: the group id and the row id (perm) are coalesced reads, the
+//     value is read through perm (one random access a row) and the
+//     (group, register) byte takes a global byte max (a CAS on its 32-bit
+//     word, read first: CUDA has no byte atomicMax).
+// A thread's rows' loads are all issued before the first hash, and each
+// kernel is built for each storage type of the first column.  Measured on
+// an H100 (PERF.md): the perm entry is set by its gather through perm (the
+// same gather alone, as index_select, takes as long), which the row-order
+// entry does not make.  Bound: bytes (the columns' and keys' storage, the
+// mask, perm and gid where read, once; the state written once; the cells'
+// copy: the cells and the table read, the state written).
 // (b) merge: a thread a (group, 4-register word): the per-byte max
 // (__vmaxu4) over the rows of the group's partial states, read through
 // perm from K5's starts and ends (K6's sorted entry's layout), a mask
@@ -39,21 +64,50 @@
 // read once, 8 bytes a group written).  The float32 sum is taken in
 // another order than the reference's, so an estimate may differ from it
 // by 1 where the sum's last bit differs.
-//
-// A first version, right before fast.
 #include "hash64.cuh"
+
+constexpr int kMaxSlotKeys = 4;
+
+// One GROUP BY key of the row-order update (ops/_native.K16SlotKey): its
+// int32 values (stride 0: one value for every row; the wrapper hands a key
+// of another type as its digits), the least value of its proven range,
+// the range's span and the slot's multiplier (the product of the earlier
+// keys' spans).
+struct ChttSlotKey {
+  const int* data;
+  long long lo;
+  long long span;
+  long long mult;
+  int stride;
+  int pad;
+};
+
+// What a row-order GROUP BY () launch does: the update, or (chtt_hll_split,
+// a measurement) a part of it.
+enum HllProbe {
+  HP_UPDATE = 0,     // the update, its registers into the state
+  HP_HASH = 1,       // the rows' hashes alone, no register
+  HP_NO_FLUSH = 2,   // the registers, nothing flushed into the state
+};
 
 // One update (ops/_native.K16Args).
 struct ChttHllArgs {
   ChttHashCol cols[kMaxHashCols];
   int n_cols;
   int log2m;
-  long long n;            // rows (trivial) or sorted positions (perm/gid)
+  long long n;            // rows (row order) or sorted positions (perm)
   long long cap_g;        // group rows of the state
-  const int* perm;        // sorted position -> row (NULL: GROUP BY ())
+  const int* perm;        // sorted position -> row (NULL: row order)
   const int* gid;         // group of each sorted position (with perm)
   const unsigned char* mask;  // raw-order row mask (NULL: every row)
-  unsigned char* state;   // (cap_g, m) registers
+  unsigned char* state;   // (cap_g, m) registers, zeroed by the caller
+                          // (the keyed row-order update writes none)
+  // the row-order entry (perm NULL)
+  ChttSlotKey keys[kMaxSlotKeys];
+  int n_keys;             // 0: GROUP BY (), one slot
+  int pad;
+  long long slots;        // S, the product of the keys' spans
+  unsigned* cells;        // keyed: S * m u32 registers, zeroed
 };
 
 namespace {
@@ -75,53 +129,124 @@ __device__ __forceinline__ void byte_max(unsigned char* p, unsigned v) {
   }
 }
 
+// A row's register h & (m - 1) and its rho, 1 + the trailing zeros of
+// (h >> log2m) | 2^(64 - log2m): the place of h's lowest set bit at or
+// above bit log2m, counted from log2m, or 65 - log2m where there is none
+// (no variable 64-bit shift).
 __device__ __forceinline__ void reg_rho(u64 h, int log2m, unsigned* reg,
                                         unsigned* rho) {
-  *reg = (unsigned)(h & ((1ull << log2m) - 1ull));
-  const u64 wg = (h >> log2m) | (1ull << (64 - log2m));
-  *rho = (unsigned)__ffsll((long long)wg);   // 1 + trailing zeros
+  *reg = (unsigned)h & ((1u << log2m) - 1u);
+  const u64 hi = h & ~((1ull << log2m) - 1ull);
+  *rho = hi != 0 ? (unsigned)(__ffsll((long long)hi) - log2m)
+                 : (unsigned)(65 - log2m);
 }
 
-// GROUP BY (): registers in shared memory, one global byte max each.  A
-// thread's kUnroll rows' values (and mask bytes) are loaded before any is
-// hashed.
-template <int DT0>
-__global__ void __launch_bounds__(kThreads)
-    k_hll_update_shared(const ChttHllArgs a) {
+
+// The row-order update.  NK: the keys the instance reads (a launch's
+// n_keys is at most NK; 0: GROUP BY (), the registers in shared memory).
+// ONE: the hash is of one integer column, with no term (uniq(x)): hash64
+// of its value, no column or term dispatch a row.  PROBE: HllProbe.  A
+// thread's kUnroll rows' values, key values and mask bytes are loaded
+// before any is hashed.  The instances of GROUP BY () and of one key are
+// held to 64 registers: 4 blocks an SM.
+template <int DT0, int NK, bool ONE, int PROBE>
+__global__ void __launch_bounds__(kThreads, NK <= 1 ? 4 : 1)
+    k_hll_update_rows(const ChttHllArgs a) {
   extern __shared__ unsigned sreg[];
-  const int m = 1 << a.log2m;
-  for (int r = threadIdx.x; r < m; r += blockDim.x) sreg[r] = 0;
-  __syncthreads();
-  const long long stride = (long long)gridDim.x * blockDim.x;
-  for (long long base = (long long)blockIdx.x * blockDim.x + threadIdx.x;
+  const int log2m = a.log2m;
+  if (NK == 0) {
+    for (int i = threadIdx.x; i < (1 << log2m); i += kThreads) sreg[i] = 0;
+    __syncthreads();
+  }
+  u64 hx = 0;
+  const long long stride = (long long)gridDim.x * kThreads;
+  for (long long base = (long long)blockIdx.x * kThreads + threadIdx.x;
        base < a.n; base += stride * kUnroll) {
     u64 raw[kUnroll][kMaxHashCols];
+    int kv[kUnroll][NK > 0 ? NK : 1];
     bool ok[kUnroll];
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       const long long r = base + u * stride;
       ok[u] = r < a.n;
       if (ok[u]) {
-        load_row<DT0>(a.cols, a.n_cols, r, raw[u]);
-        if (a.mask != nullptr) ok[u] = __ldg(a.mask + r) != 0;
+        if (ONE)
+          raw[u][0] = load_raw<DT0, true>(a.cols[0], r);
+        else
+          load_row<DT0, true>(a.cols, a.n_cols, r, raw[u]);
+#pragma unroll
+        for (int k = 0; k < NK; ++k)
+          kv[u][k] = k < a.n_keys
+                         ? ld_ro<true>(a.keys[k].data + r * a.keys[k].stride)
+                         : 0;
+        if (a.mask != nullptr) ok[u] = ld_ro<true>(a.mask + r) != 0;
       }
     }
 #pragma unroll
     for (int u = 0; u < kUnroll; ++u) {
       if (!ok[u]) continue;
+      long long slot = 0;
+      bool in = true;
+#pragma unroll
+      for (int k = 0; k < NK; ++k) {
+        if (k < a.n_keys) {
+          const long long d = (long long)kv[u][k] - a.keys[k].lo;
+          in = in && (unsigned long long)d < (unsigned long long)a.keys[k].span;
+          slot += d * a.keys[k].mult;
+        }
+      }
+      if (!in) continue;                 // outside the proven range
+      const u64 h =
+          ONE ? chtt_hash64(DT0 == DT_BOOL ? (u64)(raw[u][0] != 0) : raw[u][0])
+              : row_hash_of<DT0>(a.cols, a.n_cols, raw[u]);
+      if (PROBE == HP_HASH) {
+        hx ^= h;
+        continue;
+      }
       unsigned reg, rho;
-      reg_rho(row_hash_of<DT0>(a.cols, a.n_cols, raw[u]), a.log2m, &reg,
-              &rho);
-      if (rho > sreg[reg]) atomicMax(&sreg[reg], rho);
+      reg_rho(h, log2m, &reg, &rho);
+      if (NK == 0) {
+        if (rho > sreg[reg]) atomicMax(&sreg[reg], rho);
+      } else {
+        unsigned* cell = a.cells + (slot << log2m) + reg;
+        if (rho > __ldca(cell)) atomicMax(cell, rho);
+      }
     }
   }
+  if (PROBE == HP_HASH) {
+    if (hx == 0x5DEECE66Dull) a.state[0] = 1;  // keeps the hashes computed
+    return;
+  }
+  if (NK > 0 || PROBE == HP_NO_FLUSH) return;
   __syncthreads();
-  for (int r = threadIdx.x; r < m; r += blockDim.x)
-    if (sreg[r]) byte_max(a.state + r, sreg[r]);
+  for (int i = threadIdx.x; i < (1 << log2m); i += kThreads)
+    if (sreg[i]) byte_max(a.state + i, sreg[i]);
 }
 
-// The sort grouping: a warp takes kTile consecutive sorted positions at a
-// time (the group ids and row ids coalesced), the values through perm.
+// The keyed update's u32 cells into the state: chunk q (16 registers) of
+// slot q / C (C = m / 16) as 16 bytes, written to the slot's group
+// slot_group[slot] (none where it is -1 or cap_g and above).
+__global__ void __launch_bounds__(kThreads)
+    k_hll_cells(const uint4* __restrict__ cells, long long chunks, int log2c,
+                const int* __restrict__ slot_group, long long cap_g,
+                uint4* __restrict__ state) {
+  const long long q = (long long)blockIdx.x * kThreads + threadIdx.x;
+  if (q >= chunks) return;
+  const long long g = __ldg(slot_group + (q >> log2c));
+  if (g < 0 || g >= cap_g) return;
+  unsigned w[4];
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const uint4 v = __ldg(cells + 4 * q + j);
+    w[j] = v.x | (v.y << 8) | (v.z << 16) | (v.w << 24);
+  }
+  state[(g << log2c) + (q & ((1ll << log2c) - 1))] =
+      make_uint4(w[0], w[1], w[2], w[3]);
+}
+
+// The sort grouping through perm: a warp takes kTile consecutive sorted
+// positions at a time (the group ids and row ids coalesced), the values
+// through perm.
 constexpr int kTile = 32 * kUnroll;
 
 template <int DT0>
@@ -161,20 +286,66 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-struct LaunchUpdate {
-  const ChttHllArgs& a;
-  int blocks;
-  cudaStream_t st;
+typedef void (*HllKernel)(const ChttHllArgs);
+
+// The row-order instance of a launch: GROUP BY () (no key), at most 1
+// key or up to 4; those of at most one key also for one integer column
+// with no term (`one`; never a float column).
+struct PickRows {
+  int n_keys;
+  bool one;
   template <int DT>
-  int operator()() const {
-    if (a.perm == nullptr)
-      k_hll_update_shared<DT><<<blocks, kThreads,
-                                sizeof(unsigned) << a.log2m, st>>>(a);
-    else
-      k_hll_update_sorted<DT><<<blocks, kThreads, 0, st>>>(a);
-    return chtt_last_error();
+  HllKernel operator()() const {
+    constexpr bool kInt = DT != DT_F32 && DT != DT_F64;
+    if (n_keys == 0)
+      return one ? k_hll_update_rows<DT, 0, kInt, HP_UPDATE>
+                 : k_hll_update_rows<DT, 0, false, HP_UPDATE>;
+    if (n_keys > 1)
+      return k_hll_update_rows<DT, kMaxSlotKeys, false, HP_UPDATE>;
+    return one ? k_hll_update_rows<DT, 1, kInt, HP_UPDATE>
+               : k_hll_update_rows<DT, 1, false, HP_UPDATE>;
   }
 };
+
+// GROUP BY ()'s parts over one integer column (chtt_hll_split).
+struct PickSplit {
+  int probe;
+  template <int DT>
+  HllKernel operator()() const {
+    if constexpr (DT == DT_F32 || DT == DT_F64)
+      return nullptr;
+    else
+      return probe == HP_HASH ? k_hll_update_rows<DT, 0, true, HP_HASH>
+                              : k_hll_update_rows<DT, 0, true, HP_NO_FLUSH>;
+  }
+};
+
+template <typename F>
+HllKernel pick_by_dtype(int dt, F f) {
+  switch (dt) {
+    case DT_BOOL: return f.template operator()<DT_BOOL>();
+    case DT_I8: return f.template operator()<DT_I8>();
+    case DT_U8: return f.template operator()<DT_U8>();
+    case DT_I16: return f.template operator()<DT_I16>();
+    case DT_I32: return f.template operator()<DT_I32>();
+    case DT_I64: return f.template operator()<DT_I64>();
+    case DT_F32: return f.template operator()<DT_F32>();
+    default: return f.template operator()<DT_F64>();
+  }
+}
+
+struct PickSorted {
+  template <int DT>
+  HllKernel operator()() const {
+    return k_hll_update_sorted<DT>;
+  }
+};
+
+// Dynamic shared bytes of a row-order launch: GROUP BY ()'s registers
+// (16 KB at most).
+int rows_smem(const ChttHllArgs& a) {
+  return a.n_keys == 0 ? 4 << a.log2m : 0;
+}
 
 // (b): out word q of group q / W = the byte max over the group's rows.
 __global__ void __launch_bounds__(kThreads)
@@ -262,22 +433,114 @@ __global__ void __launch_bounds__(kThreads)
 
 bool log2m_ok(int log2m) { return log2m >= 6 && log2m <= 12; }
 
-}  // namespace
+// A row-order launch's arguments: its keys and slots, the state where
+// GROUP BY () writes it, the cells where keyed.
+bool rows_ok(const ChttHllArgs& a) {
+  if (a.n_keys < 0 || a.n_keys > kMaxSlotKeys || a.slots < 1 ||
+      a.slots > (1ll << 30) || (a.n_keys == 0 && a.state == nullptr) ||
+      (a.n_keys > 0 && a.cells == nullptr))
+    return false;
+  long long mult = 1;
+  for (int k = 0; k < a.n_keys; ++k) {
+    const ChttSlotKey& key = a.keys[k];
+    if (key.data == nullptr || (key.stride != 0 && key.stride != 1) ||
+        key.span < 1 || key.mult != mult)
+      return false;
+    mult *= key.span;
+    if (mult > a.slots) return false;
+  }
+  return mult == a.slots;
+}
 
-// One update (ChttHllArgs): perm and gid both NULL for GROUP BY ().
-extern "C" int chtt_hll_update(const ChttHllArgs* a, int blocks,
-                               void* stream) {
+bool update_ok(const ChttHllArgs* a) {
   if (a == nullptr || a->n_cols < 1 || a->n_cols > kMaxHashCols ||
       !log2m_ok(a->log2m) || a->n < 0 || a->cap_g < 1 ||
-      a->state == nullptr || blocks < 1 ||
       (a->perm == nullptr) != (a->gid == nullptr))
-    return (int)cudaErrorInvalidValue;
+    return false;
   for (int k = 0; k < a->n_cols; ++k)
     if (!hash_col_ok(a->cols[k]) || (k > 0 && a->cols[k].kind == HK_HASH))
-      return (int)cudaErrorInvalidValue;
+      return false;
+  return a->perm != nullptr ? a->state != nullptr : rows_ok(*a);
+}
+
+// One integer column with no term: the `one` instances.
+bool one_int(const ChttHllArgs& a) {
+  const ChttHashCol& c = a.cols[0];
+  return a.n_cols == 1 && c.kind == HK_INT && c.term == HT_NONE;
+}
+
+HllKernel rows_kernel(const ChttHllArgs& a) {
+  return pick_by_dtype(a.cols[0].dtype, PickRows{a.n_keys, one_int(a)});
+}
+
+}  // namespace
+
+// Blocks an SM of a row-order update (a->perm NULL): its instance's
+// occupancy (the keyed instances ask for all of the SM's L1 for the
+// cells); 0 where the arguments are refused.
+extern "C" int chtt_hll_rows_per_sm(const ChttHllArgs* a) {
+  if (!update_ok(a) || a->perm != nullptr) return 0;
+  const HllKernel k = rows_kernel(*a);
+  if (a->n_keys > 0 &&
+      cudaFuncSetAttribute((const void*)k,
+                           cudaFuncAttributePreferredSharedMemoryCarveout,
+                           0) != cudaSuccess)
+    return 0;
+  int occ = 0;
+  if (cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+          &occ, (const void*)k, kThreads, rows_smem(*a)) != cudaSuccess)
+    return 0;
+  return occ;
+}
+
+// One update (ChttHllArgs) in `blocks` blocks.  perm and gid: the sort
+// grouping through perm.  Else in row order: GROUP BY () into the state,
+// keyed into a->cells (chtt_hll_cells copies them into the state).
+extern "C" int chtt_hll_update(const ChttHllArgs* a, int blocks,
+                               void* stream) {
+  if (!update_ok(a) || blocks < 1) return (int)cudaErrorInvalidValue;
   if (a->n == 0) return 0;
-  return by_dtype(a->cols[0].dtype,
-                  LaunchUpdate{*a, blocks, (cudaStream_t)stream});
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (a->perm != nullptr)
+    pick_by_dtype(a->cols[0].dtype, PickSorted{})<<<blocks, kThreads, 0,
+                                                    st>>>(*a);
+  else
+    rows_kernel(*a)<<<blocks, kThreads, rows_smem(*a), st>>>(*a);
+  return chtt_last_error();
+}
+
+// A part of GROUP BY ()'s update over one integer column with no term, for
+// its measurement: probe HP_HASH (the hashes alone) or HP_NO_FLUSH (the
+// registers, nothing flushed), in `blocks` blocks.
+extern "C" int chtt_hll_split(const ChttHllArgs* a, int probe, int blocks,
+                              void* stream) {
+  if (!update_ok(a) || a->perm != nullptr || a->n_keys != 0 ||
+      !one_int(*a) || blocks < 1 || (probe != HP_HASH && probe != HP_NO_FLUSH))
+    return (int)cudaErrorInvalidValue;
+  const HllKernel k = pick_by_dtype(a->cols[0].dtype, PickSplit{probe});
+  if (k == nullptr) return (int)cudaErrorInvalidValue;
+  if (a->n == 0) return 0;
+  k<<<blocks, kThreads, rows_smem(*a), (cudaStream_t)stream>>>(*a);
+  return chtt_last_error();
+}
+
+// The keyed row-order update's cells (slots * m u32, 16-byte aligned) into
+// state (cap_g, m), zeroed: slot s's registers as bytes in row
+// slot_group[s] (int32; none where -1 or cap_g and above).
+extern "C" int chtt_hll_cells(const void* cells, long long slots, int log2m,
+                              const void* slot_group, long long cap_g,
+                              void* state, void* stream) {
+  if (cells == nullptr || slot_group == nullptr || state == nullptr ||
+      !log2m_ok(log2m) || slots < 0 || cap_g < 1 || ((size_t)cells & 15) ||
+      ((size_t)state & 15))
+    return (int)cudaErrorInvalidValue;
+  const long long chunks = slots << (log2m - 4);
+  if (chunks == 0) return 0;
+  k_hll_cells<<<(unsigned)((chunks + kThreads - 1) / kThreads), kThreads, 0,
+                (cudaStream_t)stream>>>((const uint4*)cells, chunks,
+                                        log2m - 4, (const int*)slot_group,
+                                        cap_g, (uint4*)state);
+  return chtt_last_error();
 }
 
 // in: n_in partial states of m registers; out: n_groups merged states.

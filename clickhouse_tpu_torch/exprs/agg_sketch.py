@@ -5,9 +5,11 @@ clickhouse_tpu/exprs/agg_sketch.py).
   HyperLogLog, :class:`HLLUniqAgg`.  Its state is (groups, m) uint8
   registers, the reference's limbs byte for byte; K16 (ops/sketch_ops.py)
   updates them from each row's hash over its arguments as stored (the
-  query's grouping gives each row's group: GROUP BY () or the sort
-  grouping's perm and group ids), merges partial states (the streamed
-  carry) and finalizes them.  m follows the grouping's slots as the
+  query's grouping gives each row's group: GROUP BY (); under the sort
+  grouping a slot of the keys' proven ranges, taken in row order, where
+  every key has one and the slots are few, else the grouping's perm and
+  group ids), merges partial states (the streamed carry) and finalizes
+  them.  m follows the grouping's slots as the
   reference's _m_for_cap: 4,096 under GROUP BY () (1,024 slots), 64 at the
   sort grouping's 2^22.
 * ``groupArray([N])``, ``groupUniqArray([N])`` (``groupArrayDistinct``):
@@ -29,6 +31,7 @@ reads the rows in order (K14), the rest sort their one group.
 """
 from __future__ import annotations
 
+import math
 from typing import List, Optional
 
 import numpy as np
@@ -320,8 +323,10 @@ class HLLUniqAgg(AggregateFunction):
     states built over two dictionaries are not merged (S3).
 
     Step 1 reduces nothing; step 2 (sorted_step) is K16's update over the
-    query's grouping; merge is K16's byte max over the merged groups'
-    partial states; finalize is K16's estimate."""
+    query's grouping (under the sort grouping its row-order entry where
+    the keys' ranges give few registers: :meth:`_slot_keys`); merge is K16's
+    byte max over the merged groups' partial states; finalize is K16's
+    estimate."""
     name = "uniq"
     two_step = True
 
@@ -376,9 +381,64 @@ class HLLUniqAgg(AggregateFunction):
             sel = rows.tensor() if rows.terms else rows.mask
             return [sketch_ops.hll_update(hargs, m, cap_g,
                                           n_rows=rows.n_rows, mask=sel)]
-        return [sketch_ops.hll_update(hargs, m, cap_g, perm=g.perm,
-                                      gid=g.group_ids,
-                                      mask=g._sort_mask(mask))]
+        sel = g._sort_mask(mask)
+        keys = self._slot_keys(ctx, m)
+        table = None if keys is None else self._slot_table(ctx, g, keys, m)
+        if table is None:
+            return [sketch_ops.hll_update(hargs, m, cap_g, perm=g.perm,
+                                          gid=g.group_ids, mask=sel)]
+        n_rows = None
+        if sel is None:
+            # the grouping's own rows (the perm entry's rows with a group)
+            rows = g.row_valid_ref
+            n_rows = rows.n_rows
+            if rows.mask is not None or rows.terms:
+                sel = rows.tensor()
+        return [sketch_ops.hll_update_rows(hargs, m, cap_g, keys, table,
+                                           n_rows=n_rows, mask=sel)]
+
+    @staticmethod
+    def _slot_keys(ctx: GroupContext, m: int
+                   ) -> Optional[List[sketch_ops.SlotKey]]:
+        """The GROUP BY keys as K16's row-order update reads them, or None
+        where one is a float, has no proven bounds or the product of the
+        spans times m passes HLL_ROWS_MAX_CELLS.  A key after a Bool key
+        (a Nullable key's data, zeroed where NULL, after its validity) has
+        0 in its range."""
+        keys, slots, after_bool = [], m, False
+        for k in ctx.keys:
+            if k.bounds is None or k.data.is_floating_point():
+                return None
+            lo, hi = int(k.bounds[0]), int(k.bounds[1])
+            if after_bool:
+                lo, hi = min(lo, 0), max(hi, 0)
+            if lo < -2**63 or hi >= 2**63 or hi < lo:
+                return None
+            slots *= hi - lo + 1
+            if slots > sketch_ops.HLL_ROWS_MAX_CELLS:
+                return None
+            keys.append(sketch_ops.SlotKey(k.data, lo, hi - lo + 1))
+            after_bool = k.data.dtype == torch.bool
+        if not keys or len(keys) > sketch_ops.MAX_SLOT_KEYS:
+            return None
+        return keys
+
+    def _slot_table(self, ctx: GroupContext, g: agg_ops.Grouping,
+                    keys: List[sketch_ops.SlotKey], m: int):
+        """g's slot -> group table (built once a grouping: one host read
+        checks its groups' keys against the ranges), or None where a key
+        leaves its range; the table and the update's cells and key copies
+        held."""
+        if g.slot_table is None:
+            ctx.hold(4 * math.prod(k.span for k in keys),
+                     f"{self.name}'s slot table")
+            g.slot_table = (sketch_ops.hll_slot_table(
+                g.unique_keys, g.num_groups, keys),)
+        if g.slot_table[0] is not None:
+            ctx.hold(sketch_ops.hll_rows_scratch_bytes(
+                keys, m, g.num_groups.device),
+                f"{self.name}'s register cells and key copies")
+        return g.slot_table[0]
 
     def merge(self, states, g, mask):
         s = states[0]

@@ -35,7 +35,7 @@ __all__ = ["LAUNCHES", "LAUNCH_ROWS", "KernelBuildError", "build", "library",
            "K6_MAX_MASKS", "K6Form", "K6Spec", "K6Count", "K6Args", "K7_MAX_ENTRIES", "K7Word",
            "K7Out", "K7Args", "K8_MAX_KEYS", "K8_MAX_WORDS", "K8Args", "K9Args",
            "K11_MAX_WIDTH", "K14Args", "MAX_HASH_COLS", "HashCol",
-           "K16Args"]
+           "K16_MAX_SLOT_KEYS", "K16SlotKey", "K16Args"]
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -52,8 +52,9 @@ LAUNCHES: Dict[str, int] = {"masked_reduce": 0, "dense_group_reduce": 0,
                             "expand_matches": 0, "prefix_match": 0,
                             "vector_distance": 0, "calendar_part": 0,
                             "unpack_pairs": 0, "compact_rows": 0,
-                            "row_hash": 0, "hll_update": 0, "hll_merge": 0,
-                            "hll_finalize": 0}
+                            "row_hash": 0, "hll_update": 0,
+                            "hll_update_rows": 0, "hll_cells": 0,
+                            "hll_merge": 0, "hll_finalize": 0}
 # kernel name -> row count of each launch since the last reset
 LAUNCH_ROWS: Dict[str, List[int]] = {k: [] for k in LAUNCHES}
 
@@ -228,6 +229,18 @@ class HashCol(ctypes.Structure):
                 ("stride", ctypes.c_int)]
 
 
+K16_MAX_SLOT_KEYS = 4  # kMaxSlotKeys of csrc/hll.cu
+
+
+class K16SlotKey(ctypes.Structure):
+    """ChttSlotKey of csrc/hll.cu (one GROUP BY key of K16's row-order
+    update: its int32 values, proven least value, span and slot
+    multiplier)."""
+    _fields_ = [("data", ctypes.c_void_p), ("lo", ctypes.c_longlong),
+                ("span", ctypes.c_longlong), ("mult", ctypes.c_longlong),
+                ("stride", ctypes.c_int), ("pad", ctypes.c_int)]
+
+
 class K16Args(ctypes.Structure):
     """ChttHllArgs of csrc/hll.cu (one update of K16)."""
     _fields_ = [("cols", HashCol * MAX_HASH_COLS),
@@ -235,7 +248,10 @@ class K16Args(ctypes.Structure):
                 ("n", ctypes.c_longlong), ("cap_g", ctypes.c_longlong),
                 ("perm", ctypes.c_void_p),
                 ("gid", ctypes.c_void_p), ("mask", ctypes.c_void_p),
-                ("state", ctypes.c_void_p)]
+                ("state", ctypes.c_void_p),
+                ("keys", K16SlotKey * K16_MAX_SLOT_KEYS),
+                ("n_keys", ctypes.c_int), ("pad", ctypes.c_int),
+                ("slots", ctypes.c_longlong), ("cells", ctypes.c_void_p)]
 
 
 class KernelBuildError(RuntimeError):
@@ -372,6 +388,12 @@ def library() -> ctypes.CDLL:
             lib.chtt_row_hash.restype = I
             lib.chtt_hll_update.argtypes = [P, I, P]
             lib.chtt_hll_update.restype = I
+            lib.chtt_hll_rows_per_sm.argtypes = [P]
+            lib.chtt_hll_rows_per_sm.restype = I
+            lib.chtt_hll_split.argtypes = [P, I, I, P]
+            lib.chtt_hll_split.restype = I
+            lib.chtt_hll_cells.argtypes = [P, LL, I, P, LL, P, P]
+            lib.chtt_hll_cells.restype = I
             lib.chtt_hll_merge.argtypes = [P, P, P, P, P, LL, LL, I, P, I,
                                            P]
             lib.chtt_hll_merge.restype = I

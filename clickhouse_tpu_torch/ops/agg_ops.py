@@ -428,6 +428,10 @@ class Grouping:
     row_valid_ref: Optional[RowMask] = None
     # the keys ordering the rows within each group (sort only)
     secondary: Tuple[sort_ops.SortKey, ...] = ()
+    # K16's row-order update's slot -> group table, built once by its first
+    # user (sort only): (table,), or (None,) where a group's key leaves its
+    # proven range
+    slot_table: Optional[tuple] = None
 
     def group_valid(self) -> torch.Tensor:
         if self.present is not None:

@@ -127,7 +127,7 @@ def _compact_rows_cuda(rows: RowMask) -> Tuple[torch.Tensor, torch.Tensor]:
     for c in [mask] + [c for t in rows.terms for c in (t.storage, t.validity)]:
         if c is None:
             continue
-        if c.dim() != 1 or c.shape[0] != cap or c.device != dev \
+        if c.dim() != 1 or c.shape[0] != cap or c.device != idx.device \
                 or not c.is_contiguous() \
                 or c.data_ptr() % c.element_size():
             raise ValueError("compact_rows: the mask and the terms' columns "

@@ -20,7 +20,8 @@ import torch
 from chip_smoke import (CMPS, K4_ROWS, K5_CASES, K6_SORTED_LAYOUTS,
                         K13_CASES, k13_case, K14_CASES, k14_rows,
                         K15_CASES, k15_case, K16_MERGE_CASES,
-                        K16_UPDATE_CASES, k16_merge_case, k16_update_case,
+                        K16_UPDATE_CASES, K16_CELLS_CASES, k16_cells_case,
+                        k16_merge_case, k16_update, k16_update_case,
                         K6_TERM_DIVISORS, K7_CASES, K8_CASES,
                         K9_CASES, K10_CASES, K11_CASES, K12_DTYPES,
                         SORT_KEY_CHAINS, U64_EDGE, grouped_rows, k5_args,
@@ -388,6 +389,9 @@ def test_launch_counters_count_kernel_launches(dev):
     arg = hash_ops.HashArg(x)
     hash_ops.row_hash([arg])
     st = sketch_ops.hll_update([arg], 64, 4)
+    sketch_ops.hll_update_rows([arg], 64, 4, [sketch_ops.SlotKey(x, 0, 10)],
+                               torch.arange(10, dtype=torch.int32,
+                                            device=dev))
     sketch_ops.hll_merge(st, 2)
     sketch_ops.hll_finalize(st)
     assert _native.LAUNCHES == {"masked_reduce": 1, "dense_group_reduce": 1,
@@ -398,6 +402,7 @@ def test_launch_counters_count_kernel_launches(dev):
                                 "vector_distance": 1, "calendar_part": 1,
                                 "unpack_pairs": 1, "compact_rows": 1,
                                 "row_hash": 1, "hll_update": 1,
+                                "hll_update_rows": 1, "hll_cells": 1,
                                 "hll_merge": 1, "hll_finalize": 1}
 
 
@@ -1265,19 +1270,33 @@ def test_hll_update_matches_plain(dev, case):
     max does not depend on the order the rows come in): GROUP BY () at m
     64-4,096 with masks, a row bound and 3 and 6 columns; the sort
     grouping's perm and group ids, rows past cap_g, a 40 % group, a
-    mask."""
-    from clickhouse_tpu_torch.ops import sketch_ops
+    mask; the row-order entry (its own counter, and its cells' copy's)
+    over its keys: Qu2's 256 KB and 16 MB of u32 cells, two keys, a
+    Nullable key, an int64 and an int8 key, a constant key, slots of no
+    group, a mask, a row bound."""
     args, m, cap_g, kw = k16_update_case(case, dev)
-    before = _native.LAUNCHES["hll_update"]
-    got = sketch_ops.hll_update(args, m, cap_g, **kw)
-    assert _native.LAUNCHES["hll_update"] == before + 1
-    n = kw.get("n_rows")
-    n = n if n is not None else (kw["perm"].shape[0] if "perm" in kw
-                                 else args[0].tensor().shape[0])
-    want = sketch_ops._hll_update_plain(args, m.bit_length() - 1, cap_g, n,
-                                        kw.get("perm"), kw.get("gid"),
-                                        kw.get("mask"))
+    counters = {"hll_update_rows": 1, "hll_cells": 1} if "keys" in kw \
+        else {"hll_update": 1}
+    before = dict(_native.LAUNCHES)
+    got = k16_update(args, m, cap_g, kw)
+    assert {k: v - before[k] for k, v in _native.LAUNCHES.items()
+            if v != before[k]} == {**counters, **(
+                {"row_hash": 1} if len(args) > 4 else {})}
+    want = k16_update(args, m, cap_g, kw, plain=True)
     assert got.shape == (cap_g, m) and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("case", K16_CELLS_CASES,
+                         ids=[c[0] for c in K16_CELLS_CASES])
+def test_hll_cells_matches_plain(dev, case):
+    """K16's cells' copy against its plain version bit for bit (m 64 to
+    4,096, slots of no group and groups past cap_g), one launch."""
+    from clickhouse_tpu_torch.ops import sketch_ops
+    cells, table, cap_g = k16_cells_case(case, dev)
+    before = _native.LAUNCHES["hll_cells"]
+    got = sketch_ops.hll_cells(cells, table, cap_g)
+    assert _native.LAUNCHES["hll_cells"] == before + 1
+    assert torch.equal(got, sketch_ops._hll_cells_plain(cells, table, cap_g))
 
 
 @pytest.mark.parametrize("case", K16_MERGE_CASES,
@@ -1334,6 +1353,7 @@ def test_sketch_queries_on_the_card_match_the_cpu(dev):
                 else:
                     assert abs(a - b) <= (1 if "uniq" in sql else 0), sql
         if "uniq" in sql:
-            assert _native.LAUNCHES["hll_update"] >= 1
+            assert _native.LAUNCHES["hll_update"] \
+                + _native.LAUNCHES["hll_update_rows"] >= 1
         if "cityHash64" in sql:
             assert _native.LAUNCHES["row_hash"] == 1

@@ -17,6 +17,16 @@ device="cpu")`` over the same seeded numpy tables.
   (its (group, limb) ids do not ascend there), so the port's are held to
   numpy's registers of the same (group, hash) pairs and the reference's
   defect is pinned (``test_uniq_if_under_grouping_divergence``).
+* K16's row-order entry (keys with small proven ranges: the row's slot
+  from its keys, a slot -> group table): its registers are the
+  reference's limbs and the perm entry's for a key from -5, two keys,
+  m = 64 and 4,096, two arguments and rows outside the grouping; numpy's
+  for uniqIf and a Nullable key; the route each key shape takes (Qu2's
+  key, two keys within and past HLL_ROWS_MAX_CELLS, a wide and a float
+  key); a key outside its bounds falls back to the perm entry; streamed
+  chunks take it; chip_smoke's row-order cases against the perm entry's
+  plain version; its cells' copy (``hll_cells``) against numpy, and its
+  two steps together against the update.
 * Estimates equal the reference's, or differ by 1 where the float32 sum of
   2^-register adds in another order; such cases are counted and must be
   few.
@@ -43,6 +53,8 @@ import clickhouse_tpu as jch
 import clickhouse_tpu_torch as tch
 from clickhouse_tpu.exprs import agg_sketch as jsk
 from clickhouse_tpu.ops import scan_ops as jscan
+from chip_smoke import K16_CELLS_CASES, K16_UPDATE_CASES, k16_cells_case, \
+    k16_perm_of, k16_update, k16_update_case
 from clickhouse_tpu_torch.core.column import Dictionary
 from clickhouse_tpu_torch.core.errors import (CapacityError,
                                               NotImplementedError_)
@@ -223,6 +235,242 @@ def test_grouped_registers_are_the_references_limbs(states, sql, m):
         assert p.shape[1] == m and p.shape == r.shape
         assert np.array_equal(p, r)
     assert _estimates_close(got, want)
+
+
+# -- K16's row-order route under the sort grouping ----------------------------
+
+@pytest.fixture
+def routes(monkeypatch):
+    """The K16 update entries the port's HLL steps take, in call order:
+    "rows" (the row-order entry), "perm" (the perm entry) or "trivial"
+    (GROUP BY ())."""
+    seen = []
+
+    def spy(name):
+        orig = getattr(sketch_ops, name)
+
+        def call(*a, **kw):
+            seen.append("rows" if name == "hll_update_rows" else
+                        "perm" if kw.get("perm") is not None else "trivial")
+            return orig(*a, **kw)
+        monkeypatch.setattr(sketch_ops, name, call)
+    spy("hll_update")
+    spy("hll_update_rows")
+    return seen
+
+
+def _perm_route_states(sql, states, monkeypatch):
+    """The port's HLL states of sql with the row-order route turned off
+    (every key refused): the perm entry's."""
+    with monkeypatch.context() as mp:
+        mp.setattr(tsk.HLLUniqAgg, "_slot_keys",
+                   staticmethod(lambda ctx, m: None))
+        return _captured(sql, states)[2]
+
+
+ROUTE_SQL = [
+    ("SELECT k - 5 AS kk, uniq(i64), uniq(i64, f32) FROM t GROUP BY kk "
+     "ORDER BY kk", 1024),
+    ("SELECT k, i8 % 3 AS j, uniq(i32) FROM t GROUP BY k, j ORDER BY k, j",
+     1024),
+    ("SELECT k, uniq(u64) FROM t140 GROUP BY k ORDER BY k", 64),
+    ("SELECT k, uniq(i64), uniq(s) FROM t GROUP BY k ORDER BY k "
+     "SETTINGS max_groups = 1024", 4096),
+    ("SELECT k, uniq(i64) FROM t WHERE i32 > 0 GROUP BY k ORDER BY k",
+     1024),
+]
+
+
+@pytest.mark.parametrize("sql,m", ROUTE_SQL,
+                         ids=["negative-lo-two-args", "two-keys", "m64",
+                              "m4096", "rows-outside-the-grouping"])
+def test_row_order_route_registers_are_the_references_limbs(
+        states, routes, monkeypatch, sql, m):
+    """Keys with small proven ranges take K16's row-order entry (a key
+    from -5, two keys, m = 64 and m = 4,096, two hash arguments, rows a
+    WHERE leaves outside the grouping): its registers are the
+    reference's limbs and the perm entry's, bit for bit."""
+    got, want, port, ref = _captured(sql, states)
+    assert routes and set(routes) == {"rows"}
+    assert port and len(port) == len(ref)
+    for p, r in zip(port, ref):
+        assert p.shape[1] == m and np.array_equal(p, r)
+    assert _estimates_close(got, want)
+    perm = _perm_route_states(sql, states, monkeypatch)
+    assert routes[len(port):] == ["perm"] * len(port)
+    assert all(np.array_equal(a, b) for a, b in zip(port, perm))
+
+
+def _np_nullable_key_registers(c, cap_g, m):
+    """numpy's registers of uniq(i64) by nv % 7 (the NULL group first,
+    then the values ascending)."""
+    nv = np.array([-1 if v is None else v % 7 for v in c["nv"]], np.int64)
+    gid = np.searchsorted(np.unique(nv), nv)
+    return _np_registers(gid, c["i64"], cap_g, m)
+
+
+def test_row_order_route_masks_and_nullable_keys_are_numpys(
+        states, routes, monkeypatch):
+    """An aggregate mask (uniqIf) and a Nullable key (its validity, then
+    its data zeroed where NULL) in row order: numpy's registers and the
+    perm entry's, bit for bit."""
+    c = _reference_columns("t")
+    # (a mask of its own: the reference caches each statement's plan, and
+    # its state reaches the fixture only from a plan traced under it)
+    sql = "SELECT k, uniqIf(i64, i32 < 0) FROM t GROUP BY k ORDER BY k"
+    _, _, port, _ = _captured(sql, states)
+    assert routes == ["rows"]
+    keep = c["i32"] < 0
+    gid = np.searchsorted(np.unique(c["k"]), c["k"])
+    assert np.array_equal(port[0], _np_registers(
+        gid[keep], c["i64"][keep], port[0].shape[0], 1024))
+    assert np.array_equal(port[0], _perm_route_states(sql, states,
+                                                      monkeypatch)[0])
+    del routes[:]
+    sql = "SELECT nv % 7 AS kk, uniq(i64) FROM t GROUP BY kk ORDER BY kk"
+    got, want, port, _ = _captured(sql, states)
+    assert routes == ["rows"]
+    assert np.array_equal(port[0], _np_nullable_key_registers(
+        c, port[0].shape[0], 1024))
+    assert np.array_equal(port[0], _perm_route_states(sql, states,
+                                                      monkeypatch)[0])
+    assert _estimates_close(got, want)
+
+
+ROWS_CASES = [c for c in K16_UPDATE_CASES if c[2] == "rows"]
+
+
+@pytest.mark.parametrize("case", ROWS_CASES, ids=[c[0] for c in ROWS_CASES])
+def test_row_order_plain_matches_the_perm_plain(case):
+    """chip_smoke's row-order K16 cases on the CPU (the entry takes its
+    plain version there): the perm entry's plain version over the same
+    grouping's perm and group ids gives the same registers, bit for bit
+    (Qu2's key at m = 64 and 4,096, two keys, a Nullable key, int64,
+    int8 and constant keys, slots of no group and groups past cap_g, a
+    mask, a row bound, two columns)."""
+    args, m, cap_g, kw = k16_update_case(case, torch.device("cpu"))
+    got = k16_update(args, m, cap_g, kw)
+    n = sketch_ops._rows_of_keys(args, kw["keys"], kw["mask"], kw["n_rows"])
+    perm, gid = k16_perm_of(kw["keys"], kw["table"], n, cap_g, kw["mask"])
+    want = sketch_ops.hll_update(args, m, cap_g, perm=perm, gid=gid,
+                                 mask=kw["mask"])
+    assert got.any() and torch.equal(got, want)
+
+
+@pytest.mark.parametrize("case", K16_CELLS_CASES,
+                         ids=[c[0] for c in K16_CELLS_CASES])
+def test_cells_copy_plain_matches_numpy(case):
+    """K16's cells' copy (its plain version, what the CPU runs): each slot's
+    registers as bytes in its group's row, numpy's, bit for bit; slots of
+    no group and groups past cap_g write nothing."""
+    cells, table, cap_g = k16_cells_case(case, torch.device("cpu"))
+    want = np.zeros((cap_g, cells.shape[1]), np.uint8)
+    for slot, g in enumerate(table.numpy()):
+        if 0 <= g < cap_g:
+            want[g] = cells[slot].numpy()
+    assert np.array_equal(sketch_ops.hll_cells(cells, table, cap_g).numpy(),
+                          want)
+
+
+@pytest.mark.parametrize("case", ROWS_CASES[:4],
+                         ids=[c[0] for c in ROWS_CASES[:4]])
+def test_row_order_cells_then_copy_is_the_update(case):
+    """The keyed row-order update's two steps on the CPU: its registers
+    a slot (the plain update with each slot its own group) copied by
+    hll_cells into the slots' groups give the update's registers, bit for
+    bit."""
+    args, m, cap_g, kw = k16_update_case(case, torch.device("cpu"))
+    keys, table = kw["keys"], kw["table"]
+    n = sketch_ops._rows_of_keys(args, keys, kw["mask"], kw["n_rows"])
+    slots = table.shape[0]
+    cells = sketch_ops._hll_update_rows_plain(
+        args, m.bit_length() - 1, slots, n, keys,
+        torch.arange(slots, dtype=torch.int32), kw["mask"])
+    got = sketch_ops.hll_cells(cells.to(torch.int32), table, cap_g)
+    assert got.any() and torch.equal(got, k16_update(args, m, cap_g, kw))
+
+
+HITS_ROWS = 20_000
+
+
+@pytest.fixture(scope="module")
+def hits_session():
+    """A small hits (x Int64 of bench.py's formula) in the port."""
+    ts = tch.connect(device="cpu")
+    ts.execute("CREATE TABLE hits (x Int64)")
+    ts.insert_pydict("hits", {"x": (np.arange(HITS_ROWS, dtype=np.int64)
+                                    * 2654435761) % 1_000_003})
+    return ts
+
+
+@pytest.mark.parametrize("keys,route", [
+    ("x % 1024", "rows"), ("x % 100, x % 160", "rows"), ("x", "perm"),
+    ("toFloat64(x % 10)", "perm"), ("x % 100, x % 170", "perm")],
+    ids=["qu2-key", "two-keys-16000-slots", "wide", "float",
+         "two-keys-17000-slots"])
+def test_route_choice(hits_session, routes, states, monkeypatch, keys,
+                      route):
+    """Qu2's SQL over a small hits (m = 256 at its 20,480 group slots)
+    takes the row-order entry, as do two keys of 16,000 slots (4,096,000
+    registers); a key of a million values, a float key and two keys of
+    17,000 slots (past HLL_ROWS_MAX_CELLS registers) take the perm
+    entry.  Both routes give the same registers."""
+    assert sketch_ops.HLL_ROWS_MAX_CELLS == 1 << 22
+    sql = (f"SELECT {keys}, uniq(x), uniqCombined(x, x % 7) FROM hits "
+           f"GROUP BY {keys} ORDER BY {keys} LIMIT 10")
+    del states["port"][:]
+    rows = hits_session.execute(sql).rows()
+    assert routes == [route, route]
+    port = list(states["port"])
+    with monkeypatch.context() as mp:
+        mp.setattr(tsk.HLLUniqAgg, "_slot_keys",
+                   staticmethod(lambda ctx, m: None))
+        del states["port"][:]
+        assert hits_session.execute(sql).rows() == rows
+    assert all(np.array_equal(a, b) for a, b in zip(port, states["port"]))
+
+
+def test_key_outside_its_bounds_takes_the_perm_route(routes):
+    """A key whose values leave its proven bounds (keys 6-9 against
+    (0, 5)) changes no answer: the slot table's check finds a group's key
+    outside and the step takes the perm entry; with true bounds the
+    row-order entry gives the same registers, numpy's."""
+    from clickhouse_tpu_torch.core import dtypes as dt
+    from clickhouse_tpu_torch.exprs.aggregates import GroupContext
+    from clickhouse_tpu_torch.exprs.expr import ColVal
+    from clickhouse_tpu_torch.ops import agg_ops
+    from clickhouse_tpu_torch.ops.sort_ops import SortKey
+    rng = np.random.default_rng(11)
+    k = rng.integers(0, 10, 3000).astype(np.int32)
+    x = rng.integers(0, 1 << 40, 3000)
+    rows = agg_ops.RowMask.of(torch.ones(3000, dtype=torch.bool))
+    want = _np_registers(k, x, 1024, 4096)
+    for bounds, route in (((0, 5), "perm"), ((0, 9), "rows")):
+        g = agg_ops.group_by_sort([SortKey(torch.from_numpy(k))], rows, 1024)
+        ctx = GroupContext(row_valid=rows, grouping=g, keys=[
+            SortKey(torch.from_numpy(k), bounds=bounds)])
+        agg = tsk.HLLUniqAgg([dt.Int64])
+        del routes[:]
+        st = agg.sorted_step(ctx, g, [ColVal(dt.Int64, torch.from_numpy(x))],
+                             None, [])[0]
+        assert routes == [route]
+        assert np.array_equal(st.numpy(), want)
+    keys = [sketch_ops.SlotKey(torch.from_numpy(k), 0, 10)]
+    assert sketch_ops.hll_slot_table(g.unique_keys, g.num_groups,
+                                     keys) is not None
+    assert sketch_ops.hll_slot_table(
+        g.unique_keys, torch.tensor(11), keys) is None
+
+
+def test_streamed_chunks_take_the_row_order_route(routes):
+    """Q5ub's shape streamed (chunks of 1,024 rows): each chunk's step sees
+    the GROUP BY keys and takes the row-order entry over its own
+    grouping's slot table; the answers are the reference's streamed."""
+    js, ts = _sessions()
+    sql = "SELECT k, uniq(i64) FROM t GROUP BY k ORDER BY k"
+    got = ts.execute(sql, settings=STREAM).rows()
+    assert len(routes) >= 5 and set(routes) == {"rows"}
+    assert _estimates_close(got, js.execute(sql, settings=STREAM).rows())
 
 
 def _estimates_close(got, want, limit=2) -> bool:
