@@ -29,6 +29,11 @@
                                       # Qs1 and Qs2 over hits, Q5u and Q5ub
                                       # streamed over big, and K15 and K16
                                       # at their inputs
+    python3 chip_smoke.py --window    # only K17's and K18's cases, the
+                                      # window, union and set-operation
+                                      # queries Qw1-Qw5, Qr1-Qr3, Qi1-Qi2
+                                      # over hits, their times, and K17
+                                      # and K18 at Qw5's and Qw3's inputs
     python3 chip_smoke.py --sass calendar_part  # one source's nvcc time,
                                       # registers, spills, shared bytes and
                                       # SASS CALLs a kernel (or
@@ -37,7 +42,7 @@
 Needs one NVIDIA Hopper card, nvcc and PyTorch built for CUDA; exits
 non-zero without them.  Phases, each of which fails the run:
 
-  1. build the sixteen hand-written kernels (csrc/*.cu) with nvcc for sm_90a,
+  1. build the eighteen hand-written kernels (csrc/*.cu) with nvcc for sm_90a,
      one nvcc a source, all started together;
   2. hold each kernel against its plain PyTorch version on the card: edge
      cases (K1 with and without filter terms over every storage type and
@@ -102,7 +107,12 @@ non-zero without them.  Phases, each of which fails the run:
      K14's tile as the library reports it, a tile and a row, three tiles
      and 17 rows with bits at every tile's and run's edges, row bounds
      inside a thread's runs, every tile empty but the last, a mask view 1
-     row in over several tiles and a dense 2^27-row mask); integer
+     row in over several tiles and a dense 2^27-row mask); K17 over every
+     op, both directions, K17_DTYPES, K17_LAYOUTS and K17_MASKS at
+     K17_ROWS rows and a sum that wraps (check_k17); K18 over K18_ROWS
+     rows in 1, 7 and n/50 segments, queries on, between and beyond the
+     keys, both sides, signed and unsigned, clamped segment ids
+     (check_k18); integer
      results must agree
      exactly, K1's and K2's float sums within rtol 1e-12, K6's within
      n_g * eps * sum(|x|) a group of n_g rows (its atomics add a group's
@@ -160,7 +170,15 @@ non-zero without them.  Phases, each of which fails the run:
      conversions, launching exactly SLICE13_PATHS, each K12 launch (one a
      calendar function) over every row; Q2's and Q2t's peaks are split
      by allocation (watch_dense: the dense grouping's slots and ids, K2's
-     inputs and outputs);
+     inputs and outputs); then the window, union and set-operation
+     queries over hits (WINDOW_QUERIES: Qw1-Qw5 window functions under
+     PARTITION BY x % 1024 ORDER BY x and one partition, each column
+     checked by its sum and the sum of cityHash64(x, w); Qr1, Qr2 ROLLUP
+     and CUBE; Qr3 UNION ALL of two 100M-row blocks; Qi1, Qi2 INTERSECT
+     and EXCEPT over 200M rows) against numpy (window_answers), each
+     launching WINDOW_PATHS (K17 for every window query and set
+     operation, K18 for the RANGE offset frames), its peak beside the
+     governor's estimate and the window's held working set;
   4. replay each kernel on the exact inputs the main path gave it (its
      largest launch on the main path), held against its plain version, and
      time it, its plain version and, where one exists, the single PyTorch
@@ -190,7 +208,12 @@ non-zero without them.  Phases, each of which fails the run:
      lengths=group rows); K12 at Qt2's toHour and toDayOfWeek, Qt1's
      minute bucket, Qt3's toYYYYMMDD, Qt4's month step and toStartOfDay
      over t's int32 storage, and toYYYYMMDD over t widened to int64 (the
-     64-bit path; library none); fails unless Q4's K7 call
+     64-bit path; library none); K17 at Qw5's one-segment running sum
+     beside torch.cumsum (and its max beside torch.cummax, Qw1's bool sum,
+     the peer bounds' forward and reverse "first"), K18 at Qw5's RANGE
+     edge beside torch.searchsorted and at Qw3's partitions
+     (window_shapes); the window queries' walls and device-busy times
+     (window_times); fails unless Q4's K7 call
      carries label alone and
      Q4h's K8 call one word; time each query (median wall time of 20
      runs, synchronised) with its peak memory beside the governor's
@@ -410,7 +433,10 @@ EXTRA_KEYS = ("k1_count_ms", "fill_ms", "q5h_ms", "q5h_plain_ms",
               "launches_cells", "split", "rows_ms", "rows_plain_ms",
               "rows_bytes", "rows_bound_ms", "rows_shape", "cells_ms",
               "cells_plain_ms", "cells_bytes", "cells_bound_ms",
-              "cells_shape", "layouts")
+              "cells_shape", "layouts", "max_ms", "cummax_ms",
+              "bool_sum_ms", "bool_sum_bound_ms", "first_index_ms",
+              "reverse_first_index_ms", "first_index_bound_ms", "qw3_ms",
+              "qw3_bytes", "qw3_bound_ms")
 F64_EPS = 2.0 ** -52
 CMPS = ["equals", "notEquals", "less", "lessOrEquals", "greater",
         "greaterOrEquals"]
@@ -6302,6 +6328,692 @@ def sketch_turn(ch, dev):
                                    ("row_hash",) + HLL_KERNELS}}), flush=True)
 
 
+# -- K17 segmented_scan and K18 segmented_search ------------------------------
+
+K17_ROWS = (1, 4095, 4096, 4097, 3 * 4096 + 17, 1_000_003)
+K17_DTYPES = ("bool", "int8", "uint8", "int16", "int32", "int64", "uint64",
+              "float32", "float64", "row_index")
+K17_LAYOUTS = ("one_segment", "one_row_segments", "random_segments",
+               "tile_edges")
+K17_MASKS = ("none", "random", "all_masked")
+
+
+def k17_values(rng, name, n, dev):
+    """(data or None, unsigned) of K17_DTYPES' `name` over n rows: extremes
+    that wrap a sum, UInt64 bits at and above 2^63, NaN and -0.0."""
+    if name == "row_index":
+        return None, False
+    if name == "bool":
+        return torch.from_numpy(rng.random(n) < 0.5).to(dev), False
+    if name in ("float32", "float64"):
+        x = rng.normal(0, 1e3, n)
+        x[rng.random(n) < 0.01] = np.nan
+        x[rng.random(n) < 0.01] = -0.0
+        return torch.from_numpy(x.astype(name)).to(dev), False
+    if name == "uint64":
+        v = rng.integers(-(1 << 63), (1 << 63) - 1, n, dtype=np.int64)
+        v[rng.random(n) < 0.1] = -1
+        return torch.from_numpy(v).to(dev), True
+    info = np.iinfo(name)
+    v = rng.integers(info.min, int(info.max) + 1, n, dtype=np.int64)
+    v[rng.random(n) < 0.05] = info.max
+    v[rng.random(n) < 0.05] = info.min
+    return torch.from_numpy(v.astype(name)).to(dev), False
+
+
+def k17_boundary(rng, layout, n, dev):
+    if layout == "one_segment":
+        return None
+    if layout == "one_row_segments":
+        return torch.ones(n, dtype=torch.bool, device=dev)
+    b = rng.random(n) < (0.01 if layout == "random_segments" else 0.0)
+    if layout == "tile_edges":
+        b[::4096] = True
+        b[4095::4096] = True
+    return torch.from_numpy(b).to(dev)
+
+
+def k17_mask(rng, kind, n, dev):
+    if kind == "none":
+        return None
+    if kind == "all_masked":
+        return torch.zeros(n, dtype=torch.bool, device=dev)
+    return torch.from_numpy(rng.random(n) < 0.7).to(dev)
+
+
+def k17_agree(op, got, want, data, boundary, mask, reverse):
+    """Integers and min/max/first/last exact (NaN where NaN); float sums
+    within n * eps of the scan of |x| (the kernel adds a tile's values in
+    another order than the plain version's doubling passes)."""
+    from clickhouse_tpu_torch.ops.scan_ops import _segmented_scan_plain
+    if got.dtype != want.dtype or got.shape != want.shape:
+        fail(f"K17 {op}: {got.dtype}{tuple(got.shape)} against "
+             f"{want.dtype}{tuple(want.shape)}")
+    if not (op == "sum" and got.is_floating_point()):
+        same = torch.equal(got, want) if not got.is_floating_point() else \
+            bool(((got == want) | (torch.isnan(got) & torch.isnan(want)))
+                 .all())
+        if not same:
+            bad = int(((got != want) & ~(torch.isnan(got.double())
+                                         & torch.isnan(want.double())))
+                      .nonzero()[0])
+            what = data.dtype if data is not None else "row index"
+            fail(f"K17 {op} reverse={reverse} {what}: row {bad} "
+                 f"{got[bad].item()} against {want[bad].item()}")
+        return 0.0
+    scale = _segmented_scan_plain(
+        "sum", torch.nan_to_num(data.double().abs(), posinf=0.0), boundary,
+        mask, reverse, False, data.shape[0])
+    eps = np.finfo(np.float32 if got.dtype == torch.float32
+                   else np.float64).eps
+    g, w = got.double(), want.double()
+    nan = torch.isnan(w)
+    if not torch.equal(torch.isnan(g), nan):
+        fail(f"K17 sum: NaN rows differ")
+    err = (g - w).abs()[~nan]
+    tol = (scale * data.shape[0] * eps + 1e-300)[~nan]
+    if bool((err > tol).any()):
+        fail(f"K17 float sum beyond n * eps * scan(|x|): {float(err.max())}")
+    return float(err.max()) if err.numel() else 0.0
+
+
+def check_k17(dev):
+    """K17 against its plain version on the card: every op, both
+    directions, K17_DTYPES (bool, every integer width, UInt64 bits at and
+    above 2^63, floats with NaN and -0.0, the row index), K17_LAYOUTS (one
+    segment, one-row segments, random segments, boundaries at every
+    tile's first and last row), masks of none, some and every row, at
+    K17_ROWS rows (one row, a tile less one, a tile, a tile and a row,
+    three tiles and 17 rows, a million rows), and a sum that wraps past
+    2^63."""
+    from clickhouse_tpu_torch.ops import _native
+    from clickhouse_tpu_torch.ops.scan_ops import (SCAN_OPS,
+                                                   _segmented_scan_plain,
+                                                   segmented_scan)
+    rng = np.random.default_rng(17)
+    calls = 0
+    err = 0.0
+    for n in K17_ROWS:
+        for name in K17_DTYPES:
+            data, uns = k17_values(rng, name, n, dev)
+            for layout in K17_LAYOUTS:
+                if n < 5000 and layout == "tile_edges":
+                    continue
+                boundary = k17_boundary(rng, layout, n, dev)
+                for mkind in K17_MASKS:
+                    if n == 1_000_003 and mkind == "all_masked" \
+                            and layout != "random_segments":
+                        continue
+                    mask = k17_mask(rng, mkind, n, dev)
+                    for op in SCAN_OPS:
+                        if data is None and (op not in ("first", "min",
+                                                        "sum")
+                                             or boundary is None
+                                             and mask is None):
+                            continue
+                        for reverse in (False, True):
+                            got = segmented_scan(op, data, boundary, mask,
+                                                 reverse=reverse,
+                                                 unsigned=uns)
+                            want = _segmented_scan_plain(
+                                op, data, boundary, mask, reverse, uns, n)
+                            err = max(err, k17_agree(op, got, want, data,
+                                                     boundary, mask,
+                                                     reverse))
+                            calls += 1
+    # a sum past INT64_MAX wraps mod 2^64 as the plain version's
+    big = torch.full((8193,), (1 << 62) + 12345, dtype=torch.int64,
+                     device=dev)
+    got = segmented_scan("sum", big, None)
+    want = _segmented_scan_plain("sum", big, None, None, False, False, 8193)
+    if not torch.equal(got, want) or int(got[1]) >= 0:
+        fail("K17 sum does not wrap mod 2^64")
+    torch.cuda.synchronize()
+    print(f"K17 segmented_scan: {calls + 1} calls agree with the plain "
+          f"version (max float error {err:.3g}); launches "
+          f"{_native.LAUNCHES['segmented_scan']}", flush=True)
+
+
+K18_ROWS = (1, 1000, 1_000_003)
+
+
+def check_k18(dev):
+    """K18 against its plain version on the card: tables of K18_ROWS rows
+    in 1, 7 and ~n/50 segments (and empty segments), queries below,
+    above and equal to their segment's keys and between them, both
+    sides, signed and unsigned (values above 2^63), the one-segment form,
+    segment ids outside [0, segments) (clamped), and the reference's
+    searchsorted_seg and searchsorted forms."""
+    from clickhouse_tpu_torch.ops import _native
+    from clickhouse_tpu_torch.ops.search import (_segmented_search_plain,
+                                                 searchsorted,
+                                                 searchsorted_seg,
+                                                 segmented_search)
+    rng = np.random.default_rng(18)
+    calls = 0
+    for n in K18_ROWS:
+        for n_seg in (1, 7, max(1, n // 50)):
+            for uns in (False, True):
+                seg = np.sort(rng.integers(0, n_seg, n))
+                lo = -(1 << 63) if uns else -(1 << 40)
+                vals = rng.integers(lo, 1 << 40, n, dtype=np.int64)
+                if uns:
+                    vals[rng.random(n) < 0.3] |= np.int64(-(1 << 63))
+                order_key = vals ^ np.int64(-(1 << 63)) if uns else vals
+                o = np.lexsort((order_key, seg))
+                seg, vals, order_key = seg[o], vals[o], order_key[o]
+                starts = np.searchsorted(seg, np.arange(n_seg), "left")
+                ends = np.searchsorted(seg, np.arange(n_seg), "right")
+                q = np.concatenate([vals, vals + 1, vals - 1,
+                                    rng.integers(lo, 1 << 40, n),
+                                    np.full(3, -(1 << 63)),
+                                    np.full(3, (1 << 63) - 1)])
+                qg = np.concatenate([seg, seg, seg,
+                                     rng.integers(0, n_seg, n),
+                                     [0, n_seg - 1, n_seg + 5],
+                                     [0, n_seg - 1, -3]]).astype(np.int32)
+                t = torch.from_numpy(vals).to(dev)
+                qt = torch.from_numpy(q).to(dev)
+                gt = torch.from_numpy(qg).to(dev)
+                st = torch.from_numpy(starts).to(dev)
+                en = torch.from_numpy(ends).to(dev)
+                for side in ("left", "right"):
+                    for gid in (gt, None):
+                        kw = dict(gid=gid, starts=st if gid is not None
+                                  else None,
+                                  ends=en if gid is not None else None)
+                        if gid is None:
+                            tt = torch.sort(t ^ (-(1 << 63)) if uns else t
+                                            ).values
+                            tt = tt ^ (-(1 << 63)) if uns else tt
+                        else:
+                            tt = t
+                        got = segmented_search(tt, qt, side, unsigned=uns,
+                                               **kw)
+                        want = _segmented_search_plain(
+                            tt, qt, side, gid, kw["starts"], kw["ends"],
+                            uns)
+                        if not torch.equal(got, want):
+                            bad = int((got != want).nonzero()[0])
+                            fail(f"K18 n={n} segments={n_seg} side={side} "
+                                 f"unsigned={uns}: query {bad} "
+                                 f"{got[bad].item()} against "
+                                 f"{want[bad].item()}")
+                        calls += 1
+                sg = torch.from_numpy(seg).to(dev)
+                got = searchsorted_seg(sg, t, sg, qt[:n], "right",
+                                       unsigned=uns)
+                ref = np.array([np.searchsorted(
+                    order_key[starts[g]:ends[g]], ok, "right") + starts[g]
+                    for g, ok in zip(seg[:200], order_key[:200])])
+                if not np.array_equal(got[:200].cpu().numpy(), ref):
+                    fail("K18 searchsorted_seg against numpy")
+                calls += 1
+    a = torch.arange(0, 3000, 3, device=dev)
+    v = torch.arange(-5, 3005, device=dev)
+    if not torch.equal(searchsorted(a, v, "left").cpu(),
+                       torch.searchsorted(a.cpu(), v.cpu())):
+        fail("K18 searchsorted against torch.searchsorted")
+    torch.cuda.synchronize()
+    print(f"K18 segmented_search: {calls + 1} calls agree with the plain "
+          f"version; launches {_native.LAUNCHES['segmented_search']}",
+          flush=True)
+
+
+P_WIN = "PARTITION BY x % 1024 ORDER BY x"
+# each window column w is checked by sum(w) and sum(cityHash64(x, w)) (both
+# wrap mod 2^64): rows tied on x are alike, so the pair checks the whole
+# multiset of (x, w); a float column by its sum alone
+WINDOW_COLUMNS = {
+    "Qw1": (("rn", f"row_number() OVER ({P_WIN})"),
+            ("rk", f"rank() OVER ({P_WIN})"),
+            ("dr", f"dense_rank() OVER ({P_WIN})")),
+    "Qw2": (("a", f"sum(x) OVER ({P_WIN})"),
+            ("b", f"sum(x) OVER ({P_WIN} ROWS BETWEEN 100 PRECEDING AND "
+                  f"CURRENT ROW)"),
+            ("c", "avg(x) OVER (PARTITION BY x % 1024)")),
+    "Qw3": (("s", f"sum(x) OVER ({P_WIN} RANGE BETWEEN 1000 PRECEDING AND "
+                  f"1000 FOLLOWING)"),
+            ("n", f"count() OVER ({P_WIN} RANGE BETWEEN 1000 PRECEDING AND "
+                  f"1000 FOLLOWING)")),
+    "Qw4": (("mx", f"max(x) OVER ({P_WIN} ROWS BETWEEN UNBOUNDED PRECEDING "
+                   f"AND CURRENT ROW)"),
+            ("mn", f"min(x) OVER ({P_WIN} ROWS BETWEEN CURRENT ROW AND "
+                   f"UNBOUNDED FOLLOWING)"),
+            ("m5", f"max(x) OVER ({P_WIN} ROWS BETWEEN 5 PRECEDING AND 5 "
+                   f"FOLLOWING)"),
+            ("lg", f"lag(x) OVER ({P_WIN})"),
+            ("ld", f"lead(x, 2) OVER ({P_WIN})"),
+            ("lv", f"last_value(x) OVER ({P_WIN} ROWS BETWEEN 3 PRECEDING "
+                   f"AND 3 FOLLOWING)")),
+    "Qw5": (("rs", "sum(x) OVER (ORDER BY x ROWS UNBOUNDED PRECEDING)"),
+            ("rc", "count() OVER (ORDER BY x RANGE BETWEEN 10 PRECEDING AND "
+                   "10 FOLLOWING)")),
+}
+FLOAT_WINDOW_COLUMNS = ("c",)
+
+
+def window_sql(name):
+    cols = WINDOW_COLUMNS[name]
+    outer = []
+    for c, _ in cols:
+        outer.append(f"sum({c})")
+        if c not in FLOAT_WINDOW_COLUMNS:
+            outer.append(f"sum(cityHash64(x, {c}))")
+    inner = ", ".join(f"{e} AS {c}" for c, e in cols)
+    return f"SELECT {', '.join(outer)} FROM (SELECT x, {inner} FROM hits)"
+
+
+WINDOW_QUERIES = tuple((q, window_sql(q)) for q in WINDOW_COLUMNS) + (
+    ("Qr1", "SELECT x % 16 AS a, x % 7 AS b, count(), sum(x) FROM hits "
+            "GROUP BY ROLLUP(a, b)"),
+    ("Qr2", "SELECT x % 16 AS a, x % 7 AS b, count(), sum(x) FROM hits "
+            "GROUP BY CUBE(a, b)"),
+    ("Qr3", "SELECT count(), sum(y) FROM (SELECT x AS y FROM hits WHERE "
+            "x < 300000 UNION ALL SELECT x + 1 AS y FROM hits WHERE "
+            "x > 700000)"),
+    ("Qi1", "SELECT x FROM hits WHERE x % 1000 = 7 INTERSECT SELECT x FROM "
+            "hits WHERE x % 7 = 0"),
+    ("Qi2", "SELECT x FROM hits WHERE x % 1000 = 7 EXCEPT SELECT x FROM "
+            "hits WHERE x % 7 = 0"))
+# the kernels each query must launch (at least once), and those it must not
+WINDOW_PATHS = {"Qw1": ("radix_sort_pairs", "segment_bounds",
+                        "segmented_scan"),
+                "Qw2": ("radix_sort_pairs", "segment_bounds",
+                        "segmented_scan"),
+                "Qw3": ("radix_sort_pairs", "segment_bounds",
+                        "segmented_scan", "segmented_search"),
+                "Qw4": ("radix_sort_pairs", "segment_bounds",
+                        "segmented_scan"),
+                "Qw5": ("radix_sort_pairs", "segment_bounds",
+                        "segmented_scan", "segmented_search"),
+                "Qr1": ("dense_group_reduce",), "Qr2": ("dense_group_reduce",),
+                "Qr3": ("masked_reduce",),
+                "Qi1": ("radix_sort_pairs", "segment_bounds",
+                        "segmented_scan"),
+                "Qi2": ("radix_sort_pairs", "segment_bounds",
+                        "segmented_scan")}
+# K18 launches exactly: a RANGE offset frame's two edges, shared by the
+# calls over that frame
+WINDOW_SEARCHES = {"Qw3": 2, "Qw5": 2}
+WINDOW_REPS = 3          # timed runs of each query (and traced runs)
+WINDOW_FLOAT_RTOL = 1e-12   # avg's sum: float64 prefix differences
+WINDOW_BUDGET = 40 << 30    # max_device_memory_bytes for the window queries
+
+
+def _hash_sum(h0, w, valid=None) -> tuple:
+    """(sum(w), sum(hash_combine(h0, w))) mod 2^64 over the rows, in
+    8M-row slices on 8 threads (numpy lets go of the GIL)."""
+    from concurrent.futures import ThreadPoolExecutor
+    n = w.shape[0]
+    step = 1 << 23
+
+    def part(i):
+        ww = w[i:i + step].astype(np.uint64)
+        hh = hash_combine_np(h0[i:i + step], ww)
+        if valid is not None:
+            v = valid[i:i + step]
+            ww, hh = ww[v], hh[v]
+        return (int(ww.sum(dtype=np.uint64)), int(hh.sum(dtype=np.uint64)))
+    with ThreadPoolExecutor(8) as ex:
+        parts = list(ex.map(part, range(0, n, step)))
+    m = (1 << 64) - 1
+    return (sum(p[0] for p in parts) & m, sum(p[1] for p in parts) & m)
+
+
+def _distinct_hash_sum(d, c, w) -> tuple:
+    """The same over rows where each distinct x d (count c) has one w."""
+    m = (1 << 64) - 1
+    with np.errstate(over="ignore"):
+        h = hash_combine_np(mix64_np(d.astype(np.uint64)),
+                            w.astype(np.uint64))
+        cu = c.astype(np.uint64)
+        return (int((w.astype(np.uint64) * cu).sum(dtype=np.uint64)) & m,
+                int((h * cu).sum(dtype=np.uint64)) & m)
+
+
+def window_answers(x: np.ndarray):
+    """numpy's answers to WINDOW_QUERIES over hits' x: the sorted rows of
+    P_WIN built from each distinct x's count (one stable order of the
+    packed key (x % 1024) << 20 | x, made without a 100M-row sort), the
+    window columns per distinct value where tied rows share them, per row
+    where they do not."""
+    t0 = time.perf_counter()
+    M = 1_000_003
+    cnt = np.bincount(x, minlength=M)
+    vals = np.flatnonzero(cnt)
+    m = (1 << 64) - 1
+    want = {}
+
+    def pairs_of(name, got):
+        row = []
+        for (col, _), pair in zip(WINDOW_COLUMNS[name], got):
+            row.extend(pair if col not in FLOAT_WINDOW_COLUMNS
+                       else pair[:1])
+        want[name] = [tuple(row)]
+
+    # P's order of the distinct values, their partitions and counts
+    key = ((vals % 1024) << 20) | vals
+    d = vals[np.argsort(key, kind="stable")]
+    dk = ((d % 1024) << 20) | d
+    c = cnt[d]
+    part = d % 1024
+    cum = np.cumsum(c)
+    first = cum - c                               # a value's first row
+    pb = np.r_[True, part[1:] != part[:-1]]
+    pidx = np.cumsum(pb) - 1
+    pstart_d = first[pb][pidx]                    # its partition's first row
+    pend_d = np.r_[first[pb][1:], cum[-1]][pidx] - 1
+    n = int(cum[-1])
+    xs = np.repeat(d, c)                          # the rows in P's order
+    h0 = mix64_np(xs.astype(np.uint64))
+    row_pstart = np.repeat(pstart_d, c)
+    row_pend = np.repeat(pend_d, c)
+    i = np.arange(n, dtype=np.int64)
+    # Qw1
+    rn = i - row_pstart + 1
+    rank_d = first - pstart_d + 1
+    dense_d = np.arange(len(d)) - np.flatnonzero(pb)[pidx] + 1
+    pairs_of("Qw1", [_hash_sum(h0, rn), _distinct_hash_sum(d, c, rank_d),
+                     _distinct_hash_sum(d, c, dense_d)])
+    del rn
+    # Qw2: running with peers, ROWS 100 PRECEDING, the partition's mean
+    dc = d * c
+    seg_cum = np.cumsum(dc)
+    a_d = seg_cum - np.r_[0, seg_cum][np.flatnonzero(pb)][pidx]
+    S = np.cumsum(xs)
+    lo = np.maximum(i - 100, row_pstart)
+    b = S - np.where(lo > 0, S[np.maximum(lo - 1, 0)], 0)
+    psum = np.add.reduceat(dc, np.flatnonzero(pb)).astype(np.float64)
+    pcnt = np.add.reduceat(c, np.flatnonzero(pb))
+    c_sum = float((psum / pcnt * pcnt).sum())
+    pairs_of("Qw2", [_distinct_hash_sum(d, c, a_d), _hash_sum(h0, b),
+                     (c_sum,)])
+    del S, lo, b
+    # Qw3: the values within 1000 of each value in its partition
+    lo_k = np.searchsorted(dk, ((d % 1024) << 20) | np.maximum(d - 1000, 0),
+                           "left")
+    hi_k = np.searchsorted(dk, ((d % 1024) << 20) | (d + 1000), "right")
+    cs_ = np.r_[0, np.cumsum(dc)]
+    cc_ = np.r_[0, np.cumsum(c)]
+    pairs_of("Qw3", [_distinct_hash_sum(d, c, cs_[hi_k] - cs_[lo_k]),
+                     _distinct_hash_sum(d, c, cc_[hi_k] - cc_[lo_k])])
+    # Qw4: x ascends within a partition
+    m5 = xs[np.minimum(i + 5, row_pend)]
+    lag_ok = i - 1 >= row_pstart
+    lg = xs[np.maximum(i - 1, 0)]
+    ld_ok = i + 2 <= row_pend
+    ld = xs[np.minimum(i + 2, n - 1)]
+    lv = xs[np.minimum(i + 3, row_pend)]
+    pairs_of("Qw4", [_distinct_hash_sum(d, c, d), _distinct_hash_sum(d, c, d),
+                     _hash_sum(h0, m5), _hash_sum(h0, lg, lag_ok),
+                     _hash_sum(h0, ld, ld_ok), _hash_sum(h0, lv)])
+    del m5, lg, ld, lv, lag_ok, ld_ok, xs, h0, row_pstart, row_pend
+    # Qw5: one partition ordered by x
+    c2 = cnt[vals]
+    xs2 = np.repeat(vals, c2)
+    rs = np.cumsum(xs2)
+    h2 = mix64_np(xs2.astype(np.uint64))
+    cc2 = np.r_[0, np.cumsum(c2)]
+    lo2 = np.searchsorted(vals, vals - 10, "left")
+    hi2 = np.searchsorted(vals, vals + 10, "right")
+    pairs_of("Qw5", [_hash_sum(h2, rs),
+                     _distinct_hash_sum(vals, c2, cc2[hi2] - cc2[lo2])])
+    del xs2, rs, h2, i
+    # Qr1, Qr2: the groups of (a, b) and their rollups
+    a, b_ = vals % 16, vals % 7
+    cells_c = np.zeros((16, 7), np.int64)
+    cells_s = np.zeros((16, 7), np.int64)
+    np.add.at(cells_c, (a, b_), c2)
+    np.add.at(cells_s, (a, b_), vals * c2)
+
+    def rows(sets):
+        out = []
+        for keep_a, keep_b in sets:
+            cc = cells_c.sum(axis=tuple(ax for ax, k in ((0, keep_a),
+                                                          (1, keep_b))
+                                        if not k), keepdims=True)
+            ss = cells_s.sum(axis=tuple(ax for ax, k in ((0, keep_a),
+                                                          (1, keep_b))
+                                        if not k), keepdims=True)
+            for ia in range(cc.shape[0]):
+                for ib in range(cc.shape[1]):
+                    if cc[ia, ib]:
+                        out.append((ia if keep_a else 0, ib if keep_b else 0,
+                                    int(cc[ia, ib]), int(ss[ia, ib])))
+        return sorted(out)
+    want["Qr1"] = rows(((1, 1), (1, 0), (0, 0)))
+    want["Qr2"] = rows(((1, 1), (1, 0), (0, 1), (0, 0)))
+    lo_v, hi_v = vals < 300000, vals > 700000
+    want["Qr3"] = [(int(c2[lo_v].sum() + c2[hi_v].sum()),
+                    int((vals[lo_v] * c2[lo_v]).sum()
+                        + ((vals[hi_v] + 1) * c2[hi_v]).sum()))]
+    left = vals % 1000 == 7
+    both = left & (vals % 7 == 0)
+    want["Qi1"] = sorted((int(v),) for v in np.repeat(vals[both], c2[both]))
+    only = left & ~both
+    want["Qi2"] = sorted((int(v),) for v in np.repeat(vals[only], c2[only]))
+    print(f"numpy's window answers: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return want
+
+
+def window_agree(name, rows, want) -> bool:
+    if name in ("Qr1", "Qr2", "Qi1", "Qi2"):
+        return sorted(rows) == want
+    if name == "Qw2":
+        got, exp = rows[0], want[0]
+        return got[:4] == exp[:4] and abs(got[4] - exp[4]) <= \
+            WINDOW_FLOAT_RTOL * abs(exp[4])
+    return rows == want
+
+
+def window_path(s, want, per_query, launches, launch_rows, memory=None):
+    """Qw1-Qw5, Qr1-Qr3 and Qi1-Qi2 once each through the public API,
+    each against numpy, with the launch counters set to 0 just before it
+    and read just after; fails unless each query launched the kernels of
+    WINDOW_PATHS.  Prints each query's peak device memory beside the
+    governor's estimate."""
+    from clickhouse_tpu_torch.exec import executor
+    from clickhouse_tpu_torch.exec.streaming import \
+        estimate_plan_device_bytes
+    from clickhouse_tpu_torch.ops import _native
+    from clickhouse_tpu_torch.sql import parse
+    held = []
+    hold = executor._hold_bytes
+
+    def hold_watch(ctx, need, what):
+        held.append(need)
+        return hold(ctx, need, what)
+    executor._hold_bytes = hold_watch
+    try:
+        for name, sql in WINDOW_QUERIES:
+            del held[:]
+            _window_query(s, name, sql, want, per_query, launches,
+                          launch_rows, held)
+    finally:
+        executor._hold_bytes = hold
+
+
+def _window_query(s, name, sql, want, per_query, launches, launch_rows,
+                  held):
+    """One query of window_path: against numpy, its launches and its
+    peak beside the governor's estimate and `held`, what the executor held
+    against the budget (_hold_bytes)."""
+    from clickhouse_tpu_torch.exec.streaming import \
+        estimate_plan_device_bytes
+    from clickhouse_tpu_torch.ops import _native
+    from clickhouse_tpu_torch.sql import parse
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _native.reset_launches()
+    t0 = time.perf_counter()
+    rows = s.execute(sql, settings={
+        "max_device_memory_bytes": WINDOW_BUDGET}).rows()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    per_query[name] = dict(_native.LAUNCHES)
+    rows_of = {k: list(v) for k, v in _native.LAUNCH_ROWS.items()}
+    peak = torch.cuda.max_memory_allocated() - base
+    if not window_agree(name, rows, want[name]):
+        fail(f"{name} returned {rows[:4]}..., numpy says "
+             f"{want[name][:4]}...")
+    for k, v in rows_of.items():
+        launches[k] += per_query[name][k]
+        launch_rows[k] += v
+    missing = [k for k in WINDOW_PATHS[name] if not per_query[name][k]]
+    if missing:
+        fail(f"{name} did not launch {missing}: {per_query[name]}")
+    if per_query[name]["segmented_search"] != WINDOW_SEARCHES.get(name, 0):
+        fail(f"{name} launched K18 {per_query[name]['segmented_search']} "
+             f"times, not {WINDOW_SEARCHES.get(name, 0)}")
+    est = estimate_plan_device_bytes(s._plan(parse(sql), s.settings),
+                                     s.catalog, s.settings)
+    used = {k: v for k, v in per_query[name].items() if v}
+    print(f"{name}: matches numpy; first run {wall:.3f} s; launches "
+          f"{used}; K17 rows {rows_of['segmented_scan'][:6]}, K18 rows "
+          f"{rows_of['segmented_search']}; peak {peak} bytes above "
+          f"what was allocated before it; the governor's estimate "
+          f"{est}; held by the window or set operation "
+          f"{max(held, default=0)}", flush=True)
+
+
+def window_shapes(dev):
+    """K17 and K18 alone at Qw5's and Qw3's inputs (made as the executor
+    makes them, on the card): K17 the one-segment unmasked sum of Qw5's x
+    in sorted order (int32 storage read, int64 written) and its max, K18
+    Qw5's RANGE frame's left edge (one segment) and Qw3's (a partition a
+    query), each beside its plain version and a PyTorch call of the same
+    function: torch.cumsum and torch.cummax for K17, torch.searchsorted
+    for K18's one-segment form."""
+    from clickhouse_tpu_torch.ops import search as search_ops
+    from clickhouse_tpu_torch.ops.scan_ops import (_segmented_scan_plain,
+                                                   segmented_scan)
+    from clickhouse_tpu_torch.ops.search import _segmented_search_plain
+    x = ((torch.arange(N_ROWS, device=dev, dtype=torch.int64) * 2654435761)
+         % 1_000_003)
+    xs, _ = torch.sort(x)
+    x32 = xs.to(torch.int32)
+    out = {}
+    # K17 at Qw5: the running sum of the sorted x over one segment
+    got = segmented_scan("sum", x32, None)
+    want = _segmented_scan_plain("sum", x32, None, None, False, False,
+                                 N_ROWS)
+    err = max_abs_err(got, want)
+    lib = torch.cumsum(x32, 0)
+    if not torch.equal(lib, got):
+        fail("K17 against torch.cumsum at Qw5")
+    ms = cuda_ms(lambda: segmented_scan("sum", x32, None))
+    plain = cuda_ms(lambda: _segmented_scan_plain(
+        "sum", x32, None, None, False, False, N_ROWS), reps=3)
+    lib_ms = cuda_ms(lambda: torch.cumsum(x32, 0))
+    nb = N_ROWS * 4 + N_ROWS * 8
+    mx_ms = cuda_ms(lambda: segmented_scan("max", x32, None))
+    cummax_ms = cuda_ms(lambda: torch.cummax(x32, 0))
+    # K17 at Qw1's dense_rank: a bool's sum over 1,024 partitions
+    pb = torch.zeros(N_ROWS, dtype=torch.bool, device=dev)
+    pb[::N_ROWS // 1024] = True
+    tie = pb | torch.cat([torch.ones(1, dtype=torch.bool, device=dev),
+                          xs[1:] != xs[:-1]])
+    bool_ms = cuda_ms(lambda: segmented_scan("sum", tie, pb))
+    first_ms = cuda_ms(lambda: segmented_scan("first", None, tie))
+    rev_ms = cuda_ms(lambda: segmented_scan("first", None, tie,
+                                            reverse=True))
+    out["segmented_scan"] = {
+        "ms": ms, "plain_ms": plain, "bytes": nb, "bound_ms": bound_ms(nb),
+        "library_ms": lib_ms, "max_abs_err": err, "max_ms": mx_ms,
+        "cummax_ms": cummax_ms, "bool_sum_ms": bool_ms,
+        "bool_sum_bound_ms": bound_ms(N_ROWS * 2 * 1 + N_ROWS * 8),
+        "first_index_ms": first_ms, "reverse_first_index_ms": rev_ms,
+        "first_index_bound_ms": bound_ms(N_ROWS * 1 + N_ROWS * 8)}
+    del got, want, lib, tie, pb
+    # K18 at Qw5: the tokens of the sorted x, queries x - 10 (one segment)
+    tok = xs ^ (-(1 << 63))
+    q = (xs - 10) ^ (-(1 << 63))
+    got = search_ops.segmented_search(tok, q, "left", unsigned=True)
+    want = _segmented_search_plain(tok, q, "left", None, None, None, True)
+    err = max_abs_err(got, want)
+    lib = torch.searchsorted(xs, xs - 10)
+    if not torch.equal(lib, got):
+        fail("K18 against torch.searchsorted at Qw5")
+    ms = cuda_ms(lambda: search_ops.segmented_search(tok, q, "left",
+                                                     unsigned=True))
+    plain = cuda_ms(lambda: _segmented_search_plain(
+        tok, q, "left", None, None, None, True), reps=3)
+    lib_ms = cuda_ms(lambda: torch.searchsorted(xs, xs - 10))
+    nb = 3 * N_ROWS * 8
+    # K18 at Qw3: P's sorted tokens, a partition a query
+    key = ((x % 1024) << 20) | x
+    ks, perm = torch.sort(key)
+    xp = x.index_select(0, perm)
+    part = xp % 1024
+    tok3 = xp ^ (-(1 << 63))
+    q3 = (xp - 1000) ^ (-(1 << 63))
+    gid = part.to(torch.int32)
+    starts = torch.searchsorted(part, torch.arange(1024, device=dev))
+    ends = torch.searchsorted(part, torch.arange(1024, device=dev),
+                              right=True)
+    got3 = search_ops.segmented_search(tok3, q3, "left", gid=gid,
+                                       starts=starts, ends=ends,
+                                       unsigned=True)
+    want3 = _segmented_search_plain(tok3, q3, "left", gid, starts, ends,
+                                    True)
+    err = max(err, max_abs_err(got3, want3))
+    ms3 = cuda_ms(lambda: search_ops.segmented_search(
+        tok3, q3, "left", gid=gid, starts=starts, ends=ends, unsigned=True))
+    nb3 = 3 * N_ROWS * 8 + N_ROWS * 4
+    out["segmented_search"] = {
+        "ms": ms, "plain_ms": plain, "bytes": nb, "bound_ms": bound_ms(nb),
+        "library_ms": lib_ms, "max_abs_err": err, "qw3_ms": ms3,
+        "qw3_bytes": nb3, "qw3_bound_ms": bound_ms(nb3)}
+    for k, v in out.items():
+        print(f"{k} at its inputs: {json.dumps(v)}", flush=True)
+    return out
+
+
+def window_times(s):
+    """Each window query's median wall of WINDOW_REPS runs and its
+    device-busy time from a torch.profiler trace of WINDOW_REPS runs."""
+    for name, sql in WINDOW_QUERIES:
+        cfg = {"max_device_memory_bytes": WINDOW_BUDGET}
+        times = []
+        for _ in range(WINDOW_REPS):
+            t0 = time.perf_counter()
+            s.execute(sql, settings=cfg)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        busy, ops, wall, top = device_busy(
+            s, sql + f" SETTINGS max_device_memory_bytes = {WINDOW_BUDGET}",
+            reps=WINDOW_REPS)
+        print(f"{name} median wall {statistics.median(times) * 1e3:.3f} ms "
+              f"over {WINDOW_REPS} runs; under torch.profiler: device busy "
+              f"{busy:.4f} ms of {wall:.3f} ms wall a run, {ops:g} device "
+              f"operations a run; top: "
+              + "; ".join(f"{n} {t:.4f}" for n, t in top), flush=True)
+
+
+def window_turn(ch, dev, s=None, want=None):
+    """--window: K17's and K18's cases, the window, union and set-operation
+    queries over hits on their paths, their times, and K17 and K18 at
+    Qw5's and Qw3's inputs.  -> (shapes, launches, launch_rows)."""
+    from clickhouse_tpu_torch.ops import _native
+    t0 = time.perf_counter()
+    check_k17(dev)
+    check_k18(dev)
+    if s is None:
+        s, x = load_hits(ch)
+        want = window_answers(x)
+        del x
+    launches = {k: 0 for k in _native.LAUNCHES}
+    launch_rows = {k: [] for k in _native.LAUNCHES}
+    window_path(s, want, {}, launches, launch_rows)
+    window_times(s)
+    shapes = window_shapes(dev)
+    print(f"window phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    return shapes, launches, launch_rows
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this check needs a GPU")
@@ -6401,6 +7113,11 @@ def main():
     if sys.argv[1:] == ["--sketch"]:
         sketch_turn(ch, dev)
         return
+    if sys.argv[1:] == ["--window"]:
+        shapes, launches, _ = window_turn(ch, dev)
+        print(json.dumps({"launches": {k: launches[k] for k in (
+            "segmented_scan", "segmented_search")}, **shapes}), flush=True)
+        return
     if sys.argv[1:] == ["--aggregates"]:
         # K6's cases (both entries), Q2u, Q2ug, Q2q, Q2s2 and Q2g on their
         # path, K6's sorted-order entry at Q2ug's inputs, and the five
@@ -6426,7 +7143,7 @@ def main():
     for check in (check_k1, check_k2, check_k3, check_k4, check_k5,
                   check_k6, check_k6_sorted, check_k7, check_k8, check_k9,
                   check_k10, check_k11, check_k12, check_k13, check_k14,
-                  check_k15, check_k16):
+                  check_k15, check_k16, check_k17, check_k18):
         check(dev)
         print(f"[{time.perf_counter() - t0:.1f} s] {check.__name__} done",
               flush=True)
@@ -6440,6 +7157,7 @@ def main():
     want.update(slice12_answers(x))
     want.update(join_answers(*load_join_tables(s)))
     want.update(sketch_answers(x))
+    want.update(window_answers(x))
     del x
     load_hits_s(s)
     want.update(string_answers())
@@ -6532,6 +7250,7 @@ def main():
                                  memory)
         sketch_recs = sketch_phase(s, want, sketch_watch, per_query,
                                    launches, launch_rows)
+        window_path(s, want, per_query, launches, launch_rows)
     finally:
         unwatch_dense()
         agg_ops._masked_reduce_cuda = k1_cuda
@@ -6541,6 +7260,7 @@ def main():
         Dictionary.device_chars = device_chars
     print(f"[{time.perf_counter() - t0:.1f} s] main path done", flush=True)
     time_queries(s)
+    window_times(s)
     print(f"[{time.perf_counter() - t0:.1f} s] query times done", flush=True)
 
     args = main_path_args(s)
@@ -6560,6 +7280,7 @@ def main():
     shapes.update(vector_shapes(dev, vector_args(s)))
     shapes.update(calendar_shapes(dev, s))
     shapes["calendar_part"]["k12_calls"] = k12_calls
+    shapes.update(window_shapes(dev))
     print(f"[{time.perf_counter() - t0:.1f} s] kernel times done",
           flush=True)
     # the streaming phase over 1B rows, after the earlier tables are freed
@@ -6736,7 +7457,13 @@ def kernel_line(card, shapes, launches, launch_rows):
                "row_hash": ("clickhouse_tpu_torch/csrc/row_hash.cu",
                             "clickhouse_tpu/ops/hash_ops.py:179"),
                "hll": ("clickhouse_tpu_torch/csrc/hll.cu",
-                       "clickhouse_tpu/exprs/agg_sketch.py:301")}
+                       "clickhouse_tpu/exprs/agg_sketch.py:301"),
+               "segmented_scan": (
+                   "clickhouse_tpu_torch/csrc/segmented_scan.cu",
+                   "clickhouse_tpu/ops/scan_ops.py:86"),
+               "segmented_search": (
+                   "clickhouse_tpu_torch/csrc/segmented_search.cu",
+                   "clickhouse_tpu/ops/search.py:52")}
     kernels = []
     for name, (src, repl) in sources.items():
         r = shapes[name]

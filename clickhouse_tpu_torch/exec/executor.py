@@ -54,14 +54,15 @@ import torch
 from ..core import dtypes as dt
 from ..core.block import Block
 from ..core.column import Dictionary, pad_to
-from ..core.errors import (AnalysisError, CapacityError,
+from ..core.errors import (AnalysisError, CapacityError, ExecutionError,
                            MemoryLimitExceeded, NotImplementedError_)
 from ..core.settings import Settings
 from ..exprs import aggregates as agg_reg
 from ..exprs.expr import (DEVICE_KEY, BoundCall, BoundColumn, BoundLiteral,
                           ColVal, StoredColVal, TermColVal, _literal_colval,
                           colval_from_column, evaluate, storage_np)
-from ..ops import _native, agg_ops, filter_ops, join_ops, scan_ops, sort_ops
+from ..ops import (_native, agg_ops, filter_ops, join_ops, scan_ops,
+                   search, sort_ops)
 from ..plan import logical as L
 
 __all__ = ["ExecBlock", "ExecContext", "execute_plan", "materialize"]
@@ -742,18 +743,28 @@ def _exec_limit(node: L.LimitNode, ctx: ExecContext) -> ExecBlock:
     return ExecBlock(child.cols, agg_ops.RowMask.of(keep), child.capacity)
 
 
-def _group_rows(child: ExecBlock, keys, ctx: ExecContext, what: str):
+def _group_rows(child: ExecBlock, keys, ctx: ExecContext, what: str,
+                secondary=(), max_bytes="headroom"):
     """The sort grouping (K4, K5) of the block's rows by keys, (ColVal,
     bound expression) pairs, at most max_groups slots (a capacity check
-    the session's autotuner retries).  -> (grouping, slots)."""
+    the session's autotuner retries); secondary: SortKeys ordering the
+    rows within a group; max_bytes: the limit on the sort's working set
+    (default what the governor's estimate leaves).  -> (grouping,
+    slots)."""
     cap = child.capacity
     sort_keys: List[sort_ops.SortKey] = []
     for cv, e in keys:
         cv = cv.broadcast(cap)
         sort_keys.extend(_sort_keys(cv, _key_bounds(cv, e, ctx)))
+    if not sort_keys and not secondary:
+        # one group of every row, in row order
+        sort_keys = [sort_ops.SortKey(torch.zeros(
+            cap, dtype=torch.bool, device=ctx.device), bounds=(0, 0))]
     cap_g = pad_to(min(cap, ctx.settings.max_groups))
-    g = agg_ops.group_by_sort(sort_keys, child.rows, cap_g,
-                              max_bytes=ctx.memory_headroom)
+    g = agg_ops.group_by_sort(
+        sort_keys, child.rows, cap_g, secondary=secondary,
+        max_bytes=ctx.memory_headroom if max_bytes == "headroom"
+        else max_bytes)
     ctx.checks.append(Check(g.num_groups, cap_g,
                             f"{what} cardinality exceeded max_groups; raise "
                             f"the max_groups setting", setting="max_groups"))
@@ -1304,6 +1315,636 @@ def _default_scalar(cv: ColVal) -> torch.Tensor:
     return torch.zeros((), dtype=cv.data.dtype, device=dev)
 
 
+# -- window functions --------------------------------------------------------
+
+def _hold_bytes(ctx: ExecContext, need: int, what: str) -> Optional[int]:
+    """Hold an operator's working set (beyond what the governor's estimate
+    counts) against what the estimate leaves of the budget, before the
+    operator allocates it.  -> what is left for its sort grouping (None:
+    no limit)."""
+    left = ctx.memory_headroom
+    if left is None:
+        return None
+    if need > left:
+        raise MemoryLimitExceeded(
+            f"{what} would need {need} bytes of device memory "
+            f"({max(left, 0)} bytes of the budget left)")
+    return left - need
+
+
+def _window_order_key(cv: ColVal, si: L.SortItem, ctx: ExecContext,
+                      cap: int) -> sort_ops.SortKey:
+    """A window's ORDER BY item as a secondary sort key: a non-NULL
+    integer with proven bounds within int32 as its int32 values (less
+    their upper bound where DESC: K4 sorts its narrow passes), anything
+    else as its order token (NULLS FIRST/LAST, DESC, strings by rank,
+    floats; u64 bits, its range read from the device)."""
+    cv = cv.broadcast(cap)
+    t = dt.remove_nullable(cv.dtype)
+    if cv.validity is None and not cv.dtype.is_dictionary \
+            and t.np_dtype.kind in ("i", "u") and t.np_dtype != np.uint64:
+        b = _key_bounds(cv, si.expr, ctx)
+        if b is not None and -2**31 <= b[0] and b[1] < 2**31 \
+                and b[1] - b[0] < 2**31:
+            k = _sort_keys(cv, b)[0]
+            if not si.descending:
+                return k
+            return sort_ops.SortKey(
+                (b[1] - k.data.to(torch.int32)).to(torch.int32),
+                bounds=(0, b[1] - b[0]))
+    return sort_ops.SortKey(_token_for_sort(cv, si, cap), unsigned=True)
+
+
+def _boundary(gid: torch.Tensor) -> torch.Tensor:
+    """True at each sorted row that starts a group (row 0 included)."""
+    pb = torch.ones(gid.shape[0], dtype=torch.bool, device=gid.device)
+    if gid.shape[0] > 1:
+        torch.ne(gid[1:], gid[:-1], out=pb[1:])
+    return pb
+
+
+class _WindowSort:
+    """One window's partitions: the sort grouping (K4, K5) by the
+    PARTITION BY keys with the ORDER BY keys as secondaries, and what the
+    window's calls share over it (the reference sorts for every call;
+    calls over one PARTITION BY and ORDER BY share one sort here).  Rows
+    are in sorted order: a partition's rows are consecutive, valid rows
+    first (an invalid row has no group), each partition ordered."""
+
+    def __init__(self, item: L.WindowItem, child: ExecBlock, schema,
+                 ctx: ExecContext, max_bytes: Optional[int]):
+        cap = child.capacity
+        env = child.env()
+        self.item, self.cap = item, cap
+        for e in item.partition_by:
+            _not_array_key(e, schema, "PARTITION BY")
+        for si in item.order_by:
+            _not_array_key(si.expr, schema, "a window's ORDER BY")
+        self.order_cvs = [evaluate(si.expr, env, ctx.memory_headroom
+                                   ).broadcast(cap) for si in item.order_by]
+        okeys = [_window_order_key(cv, si, ctx, cap)
+                 for cv, si in zip(self.order_cvs, item.order_by)]
+        pkeys = [(evaluate(e, env, ctx.memory_headroom), e)
+                 for e in item.partition_by]
+        g, cap_g = _group_rows(child, pkeys, ctx, "window PARTITION BY",
+                               secondary=okeys, max_bytes=max_bytes)
+        self.g, self.cap_g, self.okeys = g, cap_g, okeys
+        self.n = g.perm.shape[0]
+        self.perm = g.perm.long()
+        gid = g.group_ids
+        self.valid_s = gid < cap_g
+        self.gidc = torch.clamp(gid, max=cap_g - 1)
+        self.pb = _boundary(gid)
+        self._cache: Dict[str, torch.Tensor] = {}
+        # the frames (repr((mode, lo, hi))) two or more calls share
+        self.shared_frames: set = set()
+
+    def _lazy(self, name, build):
+        if name not in self._cache:
+            self._cache[name] = build()
+        return self._cache[name]
+
+    @property
+    def s_row(self) -> torch.Tensor:
+        """Each sorted row's partition's first row (int64)."""
+        return self._lazy("s_row", lambda: self.g.starts.index_select(
+            0, self.gidc))
+
+    @property
+    def e_row(self) -> torch.Tensor:
+        """Each sorted row's partition's last row (int64)."""
+        return self._lazy("e_row", lambda: self.g.ends.index_select(
+            0, self.gidc) - 1)
+
+    @property
+    def tie_b(self) -> torch.Tensor:
+        """True where a sorted row starts its peer group (its partition
+        starts, or an ORDER BY key differs from the row before)."""
+        def build():
+            tie = self.pb.clone()
+            for k in self.okeys:
+                ts = k.data.expand(self.cap).index_select(0, self.g.perm)
+                tie[1:] |= ts[1:] != ts[:-1]
+            return tie
+        return self._lazy("tie_b", build)
+
+    @property
+    def tie_first(self) -> torch.Tensor:
+        """Each row's peer group's first row: K17's "first" of the row
+        index over the peer groups."""
+        return self._lazy("tie_first", lambda: scan_ops.segmented_scan(
+            "first", None, self.tie_b))
+
+    @property
+    def tie_last(self) -> torch.Tensor:
+        """Each row's peer group's last row: K17's reverse "first"."""
+        return self._lazy("tie_last", lambda: scan_ops.segmented_scan(
+            "first", None, self.tie_b, reverse=True))
+
+    def range_edge(self, off: int, side: str) -> torch.Tensor:
+        """Sorted index of the first (side left) / last (right) row of the
+        partition whose ORDER BY value lies within `off` of the row's: K18
+        over the sorted ORDER BY tokens, each row's query its value
+        shifted by off (saturated at its logical type's bounds) within
+        its own partition's rows."""
+        si = self.item.order_by[0]
+        cvs = _gather_colval(self.order_cvs[0], self.perm, self.cap)
+        n = self.n
+        tok = self._lazy("order_token", lambda: _token_for_sort(cvs, si, n))
+        delta = off if not si.descending else -off
+        data = cvs.data
+        logical = dt.remove_nullable(cvs.dtype).np_dtype
+        if logical.kind == "b":
+            raise NotImplementedError_(
+                "a RANGE offset frame over a Bool ORDER BY is not ported to "
+                "the CUDA engine yet")
+        if logical == np.uint64:
+            # unsigned saturation over the u64 bits (signed after a flip)
+            u = data ^ _I64_SIGN
+            if delta >= 0:
+                top = _as_i64((((1 << 64) - 1 - delta) ^ (1 << 63)))
+                sh = torch.where(u > top, torch.full_like(data, -1),
+                                 data + delta)
+            else:
+                low = _as_i64((-delta) ^ (1 << 63))
+                sh = torch.where(u < low, torch.zeros_like(data),
+                                 data + delta)
+        elif logical.kind in ("i", "u"):
+            info = np.iinfo(logical)
+            x = data.to(torch.int64)
+            if delta >= 0:
+                sh = torch.where(x > int(info.max) - delta,
+                                 torch.full_like(x, int(info.max)), x + delta)
+            else:
+                sh = torch.where(x < int(info.min) - delta,
+                                 torch.full_like(x, int(info.min)), x + delta)
+        else:
+            sh = data + delta
+        qtok = _token_for_sort(ColVal(cvs.dtype, sh, cvs.validity,
+                                      cvs.dictionary), si, n)
+        del sh
+        pos = search.segmented_search(tok, qtok, side, gid=self.gidc,
+                                      starts=self.g.starts, ends=self.g.ends,
+                                      unsigned=True)
+        return pos if side == "left" else pos - 1
+
+
+_I64_SIGN = -(1 << 63)
+
+
+def _as_i64(v: int) -> int:
+    """A u64 value as its int64 bits."""
+    return v - (1 << 64) if v >= 1 << 63 else v
+
+
+def _sorted_values(cv: ColVal, perm: torch.Tensor, cap: int) -> torch.Tensor:
+    """A window argument's values in sorted order: a column stored narrow
+    gathered as stored, a Term's source gathered and formed."""
+    cv = cv.broadcast(cap)
+    if isinstance(cv, TermColVal):
+        return cv.term.index_select(0, perm)
+    src = cv.storage if isinstance(cv, StoredColVal) else cv.data
+    return src.index_select(0, perm)
+
+
+def _frame_of(item: L.WindowItem):
+    """(mode, lo, hi) of a call's frame: None unbounded, 0 the current
+    row, a signed offset."""
+    if item.frame == "full":
+        return "rows", None, None
+    if item.frame == "running":
+        return "range", None, 0
+    return item.frame
+
+
+# device bytes a sorted row of one window holds while its calls run, at
+# most: the permutation as int64, the clamped group ids, the partitions'
+# first and last rows, the peer groups' first and last rows (int64 each),
+# the partition, peer and validity flags
+_WINDOW_SORT_ROW_BYTES = 48
+
+
+def _window_bytes(item: L.WindowItem, n: int, cap: int) -> int:
+    """Device bytes one window call holds beside its window's shared
+    arrays (_WINDOW_SORT_ROW_BYTES) and sort, at most: a numbering or an
+    offset (row_number, rank, dense_rank, lag, lead) three int64 arrays a
+    sorted row, a frame's bounds, values, scans and gathers eight, four
+    more for a RANGE offset frame's tokens and K18's results; and the
+    result in row order with its validity (9 bytes a row)."""
+    mode, lo, hi = _frame_of(item)
+    arrays = 3 if item.fn in ("row_number", "rank", "dense_rank", "lag",
+                              "lead") else 8
+    if mode == "range" and (lo not in (None, 0) or hi not in (None, 0)):
+        arrays += 4
+    return 8 * arrays * n + 9 * cap + scan_ops.segmented_scan_bytes(n)
+
+
+def _frame_bounds(ws: _WindowSort, mode, lo, hi):
+    """Each sorted row's frame [lo_idx, hi_idx] clipped to its partition,
+    and whether it holds a row."""
+    n = ws.n
+    i_arr = _arange(n, ws.perm.device)
+    s_row, e_row = ws.s_row, ws.e_row
+    if mode == "rows":
+        lo0 = s_row if lo is None else i_arr + lo
+        hi0 = e_row if hi is None else i_arr + hi
+    else:
+        lo0 = s_row if lo is None else (
+            ws.tie_first if lo == 0 else ws.range_edge(lo, "left"))
+        hi0 = e_row if hi is None else (
+            ws.tie_last if hi == 0 else ws.range_edge(hi, "right"))
+    nonempty = (lo0 <= hi0) & (lo0 <= e_row) & (hi0 >= s_row)
+    lo_idx = torch.clamp(torch.maximum(lo0, s_row), 0, n - 1)
+    hi_idx = torch.clamp(torch.minimum(hi0, e_row), 0, n - 1)
+    return nonempty, lo_idx, hi_idx
+
+
+def _window_extreme(fn: str, v_s: torch.Tensor, argmask, unsigned: bool,
+                    lo_idx, hi_idx, width: int) -> torch.Tensor:
+    """min/max over frames whose both edges move: a sparse range-min
+    table (level k holds the extreme of the 2^k rows from each row), each
+    frame covered by two overlapping power-of-two spans of its level.
+    Built level by level with two levels held at a time (the reference
+    stacks every level: exec/executor.py:1166-1203); plain torch."""
+    is_bool = v_s.dtype == torch.bool
+    base = v_s.to(torch.int64) if is_bool else v_s
+    if unsigned:
+        base = base ^ _I64_SIGN           # u64 order as int64 order
+    if base.is_floating_point():
+        ident = float("inf") if fn == "min" else float("-inf")
+    else:
+        info = torch.iinfo(base.dtype)
+        ident = info.max if fn == "min" else info.min
+    op = torch.minimum if fn == "min" else torch.maximum
+    level = base if argmask is None else torch.where(
+        argmask, base, torch.full_like(base, ident))
+    n = level.shape[0]
+    length = torch.clamp(hi_idx - lo_idx + 1, min=1)
+    levels = max(1, int(width).bit_length())
+    kk = torch.clamp(torch.floor(torch.log2(length.to(torch.float64))).to(
+        torch.int64), 0, levels - 1)
+    out = torch.zeros_like(base)
+    for k in range(levels):
+        if k:
+            step = 1 << (k - 1)
+            shifted = torch.full_like(level, ident)
+            shifted[:max(n - step, 0)] = level[step:]
+            level = op(level, shifted)
+            del shifted
+        a1 = level.index_select(0, lo_idx)
+        a2 = level.index_select(0, torch.maximum(hi_idx - (1 << k) + 1,
+                                                 lo_idx))
+        out = torch.where(kk == k, op(a1, a2), out)
+    if unsigned:
+        out = out ^ _I64_SIGN
+    return out.to(torch.bool) if is_bool else out
+
+
+def _window_frame_agg(item: L.WindowItem, fn: str, ws: _WindowSort,
+                      cv0: Optional[ColVal], v_s, argmask):
+    """Aggregate window functions over a frame, in sorted order (the
+    reference's _window_frame_agg, exec/executor.py:1033; ClickHouse's
+    WindowTransform).  Every row's frame [lo, hi] is found at once: ROWS
+    offsets by arithmetic, peers by K17's peer bounds, RANGE offsets by
+    K18; sums and counts are K17 prefix sums differenced at the frame's
+    edges, min and max K17 running or suffix scans, or the sparse table
+    where both edges move.  argmask: the sorted rows whose argument is
+    not NULL (None: every row).  -> (values, validity, dictionary)."""
+    mode, lo, hi = _frame_of(item)
+    if mode == "range" and (lo not in (None, 0) or hi not in (None, 0)):
+        if len(item.order_by) != 1:
+            raise ExecutionError("RANGE OFFSET frames require exactly one "
+                                 "ORDER BY expression")
+        if ws.order_cvs[0].dtype.is_dictionary:
+            raise ExecutionError("RANGE OFFSET frames require a numeric "
+                                 "ORDER BY expression")
+    # calls of the window over one frame share its bounds (Qw3's sum and
+    # count: one pair of K18 searches); a frame of one call is not kept
+    frame = repr((mode, lo, hi))
+    if frame in ws.shared_frames:
+        nonempty, lo_idx, hi_idx = ws._lazy(
+            f"frame {frame}", lambda: _frame_bounds(ws, mode, lo, hi))
+    else:
+        nonempty, lo_idx, hi_idx = _frame_bounds(ws, mode, lo, hi)
+    # a ROWS frame that ends (starts) at the row itself reads a running
+    # (suffix) scan at the row: no gather
+    hi_is_row = mode == "rows" and hi == 0
+    lo_is_row = mode == "rows" and lo == 0
+
+    def frame_sum(data, mask):
+        pre = scan_ops.segmented_scan("sum", data, ws.pb, mask)
+        at_hi = pre if hi_is_row else pre.index_select(0, hi_idx)
+        zero = torch.zeros((), dtype=pre.dtype, device=pre.device)
+        if lo is None:
+            return torch.where(nonempty, at_hi, zero)
+        prev = torch.where(lo_idx > ws.s_row, pre.index_select(
+            0, torch.clamp(lo_idx - 1, min=0)), zero)
+        return torch.where(nonempty, at_hi - prev, zero)
+
+    if argmask is None:
+        # every row of a frame counts: its length
+        fcnt = torch.where(nonempty, hi_idx - lo_idx + 1,
+                           torch.zeros_like(lo_idx))
+    else:
+        fcnt = frame_sum(argmask, None)
+    if fn == "count":
+        return fcnt, None, None
+
+    if fn in ("sum", "avg"):
+        st = dt.remove_nullable(item.field.dtype).torch_dtype
+        acc = v_s.to(torch.float64) if fn == "avg" or st.is_floating_point \
+            else v_s
+        out_s = frame_sum(acc, argmask)
+        if fn == "avg":
+            out_s = torch.where(
+                fcnt > 0, out_s / torch.clamp(fcnt, min=1).to(torch.float64),
+                torch.full((), float("nan"), dtype=torch.float64,
+                           device=out_s.device))
+        return out_s, None, None
+
+    dict_ = cv0.dictionary
+    unsigned = not cv0.dtype.is_dictionary \
+        and dt.remove_nullable(cv0.dtype).np_dtype == np.uint64
+    if fn in ("min", "max"):
+        if lo is None:
+            pre = scan_ops.segmented_scan(fn, v_s, ws.pb, argmask,
+                                          unsigned=unsigned)
+            out_s = pre if hi_is_row else pre.index_select(0, hi_idx)
+        elif hi is None:
+            suf = scan_ops.segmented_scan(fn, v_s, ws.pb, argmask,
+                                          reverse=True, unsigned=unsigned)
+            out_s = suf if lo_is_row else suf.index_select(0, lo_idx)
+        else:
+            width = hi - lo + 1 if mode == "rows" else ws.n
+            out_s = _window_extreme(fn, v_s, argmask, unsigned, lo_idx,
+                                    hi_idx, width)
+        out_s = torch.where(nonempty & (fcnt > 0), out_s,
+                            torch.zeros((), dtype=out_s.dtype,
+                                        device=out_s.device))
+        return out_s, None, dict_
+
+    # any, first_value, last_value
+    if fn == "any":
+        # the first non-NULL value in the frame (AggregateFunctionAny)
+        if argmask is None:
+            idx0, ok = lo_idx, nonempty
+        else:
+            nxt = scan_ops.segmented_scan("min", None, ws.pb, argmask,
+                                          reverse=True)
+            at = nxt.index_select(0, lo_idx)
+            idx0 = torch.clamp(at, 0, ws.n - 1)
+            ok = nonempty & (at <= hi_idx)
+    else:
+        idx0 = lo_idx if fn == "first_value" else hi_idx
+        ok = nonempty
+        if argmask is not None:
+            ok = ok & argmask.index_select(0, idx0)
+    out_s = torch.where(ok, v_s.index_select(0, idx0),
+                        torch.zeros((), dtype=v_s.dtype, device=v_s.device))
+    validity = ok.to(torch.uint8) \
+        if argmask is not None or item.field.dtype.nullable else None
+    return out_s, validity, dict_
+
+
+def _window_call(item: L.WindowItem, ws: _WindowSort, child: ExecBlock,
+                 ctx: ExecContext):
+    """One window call's values in sorted order -> (values, validity,
+    dictionary)."""
+    fn = item.fn
+    n = ws.n
+    dev = ws.perm.device
+    cv0 = v_s = argmask = None
+    if item.args:
+        cv0 = evaluate(item.args[0], child.env(), ctx.memory_headroom
+                       ).broadcast(child.capacity)
+        if fn not in ("row_number", "rank", "dense_rank", "count"):
+            v_s = _sorted_values(cv0, ws.perm, child.capacity)
+        if cv0.validity is not None:
+            argmask = cv0.validity.to(torch.bool).index_select(0, ws.perm)
+    if fn == "row_number":
+        return _arange(n, dev) - ws.s_row + 1, None, None
+    if fn == "rank":
+        return ws.tie_first - ws.s_row + 1, None, None
+    if fn == "dense_rank":
+        return scan_ops.segmented_scan("sum", ws.tie_b, ws.pb), None, None
+    if fn in ("lag", "lead"):
+        shift = item.shift if fn == "lag" else -item.shift
+        idx = _arange(n, dev) - shift
+        idx_c = torch.clamp(idx, 0, max(n - 1, 0))
+        ok = (idx >= 0) & (idx < n) & ws.valid_s \
+            & (ws.gidc.index_select(0, idx_c) == ws.gidc)
+        out_s = torch.where(ok, v_s.index_select(0, idx_c),
+                            torch.zeros((), dtype=v_s.dtype, device=dev))
+        return out_s, ok.to(torch.uint8), cv0.dictionary
+    if fn in ("count", "sum", "avg", "min", "max", "any", "first_value",
+              "last_value"):
+        return _window_frame_agg(item, fn, ws, cv0, v_s, argmask)
+    raise NotImplementedError_(f"window function '{fn}'")
+
+
+def _window_key(item: L.WindowItem) -> str:
+    """The calls of one window (PARTITION BY and ORDER BY alike) share its
+    sort."""
+    return repr((item.partition_by, [(si.expr, si.descending, si.nulls_last)
+                                     for si in item.order_by]))
+
+
+def _exec_window(node: L.WindowNode, ctx: ExecContext) -> ExecBlock:
+    """Window functions over sorted partitions (the reference's
+    _exec_window, exec/executor.py:1232; ClickHouse's WindowTransform):
+    the sort grouping (K4, K5) by the PARTITION BY keys with the ORDER BY
+    keys as secondaries, a call's values computed in sorted order
+    (row_number and rank from the partitions' bounds, K17's scans, K18's
+    searches), and each result scattered back to row order through the
+    permutation (the reference sorts by the inverse permutation).  Before
+    it allocates, a call holds its working set (_window_bytes, and its
+    sort's) against what the governor's estimate leaves of the budget,
+    and raises MemoryLimitExceeded naming the call."""
+    child = execute_plan(node.child, ctx)
+    cap = child.capacity
+    rows = child.rows
+    n = min(cap, rows.n_rows) if rows.mask is None and not rows.terms \
+        else cap
+    cols = dict(child.cols)
+    sorts: Dict[str, _WindowSort] = {}
+    frames: Dict[Tuple[str, str], int] = {}
+    for item in node.items:
+        if item.fn not in ("row_number", "rank", "dense_rank", "lag",
+                           "lead"):
+            f = (_window_key(item), repr(_frame_of(item)))
+            frames[f] = frames.get(f, 0) + 1
+    held = 0
+    for item in node.items:
+        what = f"the window function {item.field.display} over {n} rows"
+        key = _window_key(item)
+        kept = {f for (k, f), c in frames.items() if k == key and c > 1}
+        # a kept frame's bounds: two int64 arrays and a flag a row
+        shared = 0 if key in sorts \
+            else (_WINDOW_SORT_ROW_BYTES + 17 * len(kept)) * n
+        left = _hold_bytes(ctx, held + shared + _window_bytes(item, n, cap),
+                           what)
+        if key not in sorts:
+            try:
+                sorts[key] = _WindowSort(item, child, node.child.schema, ctx,
+                                         left)
+            except MemoryLimitExceeded as e:
+                raise MemoryLimitExceeded(f"{what}: {e}") from None
+            sorts[key].shared_frames = kept
+            held += shared
+        ws = sorts[key]
+        out_s, validity_s, dict_ = _window_call(item, ws, child, ctx)
+        st = out_s.dtype if item.field.dtype.is_dictionary \
+            else dt.remove_nullable(item.field.dtype).torch_dtype
+        out = torch.zeros(cap, dtype=st, device=ctx.device)
+        out.index_copy_(0, ws.perm, out_s.to(st))
+        validity = None
+        if validity_s is not None:
+            validity = torch.zeros(cap, dtype=torch.uint8, device=ctx.device)
+            validity.index_copy_(0, ws.perm, validity_s)
+        cols[item.field.id] = ColVal(item.field.dtype, out, validity, dict_)
+        del out_s, validity_s
+        held += 9 * cap
+    return ExecBlock(cols, rows, cap)
+
+
+# -- UNION ALL, INTERSECT, EXCEPT ---------------------------------------------
+
+def _pad_width(x: torch.Tensor, width: int) -> torch.Tensor:
+    """An Array's (rows, max_len) matrix padded with zeros to width."""
+    if x.dim() >= 2 and x.shape[-1] < width:
+        return torch.nn.functional.pad(x, (0, width - x.shape[-1]))
+    return x
+
+
+def _union_column(f: L.Field, pieces: List[ColVal]) -> ColVal:
+    """One output column of UNION ALL: the branches' rows one after
+    another, String codes recoded into one dictionary (Dictionary.unify),
+    validity where a branch has it, an Array's rows padded to the widest
+    branch with their lengths.  A column every branch stores narrow in one
+    type stays narrow."""
+    dev = pieces[0].storage.device
+    want = dt.remove_nullable(f.dtype).np_dtype
+    is_arr = dt.remove_nullable(f.dtype).is_array
+    width = max((cv.data.shape[-1] for cv in pieces if cv.data.dim() >= 2),
+                default=0) if is_arr else 0
+    validity = None
+    if any(cv.validity is not None for cv in pieces):
+        validity = torch.cat([
+            cv.validity.to(torch.uint8) if cv.validity is not None
+            else torch.ones(cv.storage.shape[0], dtype=torch.uint8,
+                            device=dev) for cv in pieces])
+    stored = [cv.storage for cv in pieces
+              if isinstance(cv, StoredColVal) and storage_np(cv) == want]
+    if not f.dtype.is_dictionary and not is_arr \
+            and len(stored) == len(pieces) \
+            and len({t.dtype for t in stored}) == 1:
+        return StoredColVal(f.dtype, torch.cat(stored), validity)
+    dict_ = None
+    if f.dtype.is_dictionary:
+        merged, recoded = None, []
+        for cv in pieces:
+            d = cv.dictionary or Dictionary(np.asarray([], dtype=object))
+            x0 = _pad_width(cv.data, width) if is_arr else cv.data
+            if merged is None:
+                merged = d
+                recoded.append(x0)
+                continue
+            # unify keeps the merged dictionary's codes; an empty
+            # dictionary's codes are padding only
+            merged, _, rb = Dictionary.unify(merged, d)
+            recoded.append(torch.from_numpy(rb).to(dev).index_select(
+                0, torch.clamp(x0.reshape(-1), min=0).long()).reshape(
+                x0.shape) if len(rb) else x0)
+        data, dict_ = torch.cat(recoded), merged
+    else:
+        data = torch.cat([_pad_width(dt.cast_tensor(
+            cv.data, storage_np(cv), want), width) for cv in pieces])
+    lengths = None
+    if is_arr:
+        lens = []
+        for cv in pieces:
+            lv = cv.lengths
+            if lv is None:                # full-width rows
+                lv = torch.full((cv.data.shape[0],), cv.data.shape[-1],
+                                dtype=torch.int32, device=dev)
+            elif lv.dim() == 0:
+                lv = lv.expand(cv.data.shape[0])
+            lens.append(lv.to(torch.int32))
+        lengths = torch.cat(lens)
+    return ColVal(f.dtype, data, validity, dict_, lengths=lengths)
+
+
+def _exec_union(node: L.UnionNode, ctx: ExecContext,
+                blocks: Optional[List[ExecBlock]] = None) -> ExecBlock:
+    """UNION ALL (and ROLLUP, CUBE, GROUPING SETS and FULL JOIN, which the
+    analyzer plans as a union of branches): the branches' blocks one
+    after another (the reference's _exec_union, exec/executor.py:1799).
+    An output column's proven bounds are its branches' together."""
+    if blocks is None:
+        blocks = [execute_plan(c, ctx) for c in node.inputs]
+    cols: Dict[str, ColVal] = {}
+    for i, f in enumerate(node.schema):
+        pieces = [b.cols[c.schema[i].id].broadcast(b.capacity)
+                  for b, c in zip(blocks, node.inputs)]
+        cols[f.id] = _union_column(f, pieces)
+        bs = [ctx.field_bounds.get(c.schema[i].id) for c in node.inputs]
+        if all(b is not None for b in bs):
+            ctx.field_bounds[f.id] = (min(b[0] for b in bs),
+                                      max(b[1] for b in bs))
+    valid = torch.cat([b.valid for b in blocks])
+    return ExecBlock(cols, agg_ops.RowMask.of(valid),
+                     sum(b.capacity for b in blocks))
+
+
+def _exec_setop(node: L.SetOpNode, ctx: ExecContext) -> ExecBlock:
+    """INTERSECT / EXCEPT, ALL (multisets) or DISTINCT (the reference's
+    _exec_setop, exec/executor.py:1881; ClickHouse's
+    IntersectOrExceptTransform): ONE sort grouping (K4, K5) of both
+    sides' rows brings equal rows together; a left row's occurrence
+    index within its group is K17's running count of the group's left
+    rows; the i-th left occurrence survives iff i < the group's right
+    rows (INTERSECT ALL) or i >= them (EXCEPT ALL); DISTINCT keeps a
+    group's first left row where the right side has (INTERSECT) or lacks
+    (EXCEPT) the value.  The flags go back to row order by a scatter
+    through the permutation."""
+    left = execute_plan(node.left, ctx)
+    right = execute_plan(node.right, ctx)
+    eb = _exec_union(L.UnionNode([node.left, node.right], node.schema), ctx,
+                     [left, right])
+    cap, lcap = eb.capacity, left.capacity
+    what = f"{node.op.upper()}{'' if node.distinct else ' ALL'}"
+    for f in node.schema:
+        _not_array_key(BoundColumn(f.id, f.dtype), node.schema, what)
+    # beside the sort: the permutation as int64, the running counts and
+    # their tiles, the flags
+    left_bytes = _hold_bytes(ctx, 8 * cap + scan_ops.segmented_scan_bytes(
+        cap) + 4 * cap, f"{what} over {cap} rows")
+    g, cap_g = _group_rows(eb, [(eb.cols[f.id], BoundColumn(f.id, f.dtype))
+                                for f in node.schema], ctx, what,
+                           max_bytes=left_bytes)
+    n = g.perm.shape[0]
+    keep = torch.zeros(cap, dtype=torch.bool, device=ctx.device)
+    if n:
+        gid = g.group_ids
+        la = (gid < cap_g) & (g.perm < lcap)      # a left row, in a group
+        seen = scan_ops.segmented_scan("sum", la, _boundary(gid))
+        # a group's left rows: the running count at its last row
+        n_left = torch.where(g.ends > g.starts, seen.index_select(
+            0, torch.clamp(g.ends - 1, 0, n - 1)), torch.zeros_like(g.ends))
+        n_right = (g.ends - g.starts - n_left).index_select(
+            0, torch.clamp(gid, max=cap_g - 1))
+        pos = seen - 1
+        if node.distinct:
+            keep_s = la & (pos == 0) & ((n_right > 0) if node.op ==
+                                        "intersect" else (n_right == 0))
+        elif node.op == "intersect":
+            keep_s = la & (pos < n_right)
+        else:
+            keep_s = la & (pos >= n_right)
+        keep.scatter_(0, g.perm.long(), keep_s)
+    return ExecBlock(eb.cols, eb.rows.and_mask(keep), cap)
+
+
 _DISPATCH: Dict[type, Callable] = {
     L.OneRowNode: _exec_onerow,
     L.NumbersNode: _exec_numbers,
@@ -1317,6 +1958,9 @@ _DISPATCH: Dict[type, Callable] = {
     L.DistinctNode: _exec_distinct,
     L.JoinNode: _exec_join,
     L.BlockSourceNode: _exec_blocksource,
+    L.WindowNode: _exec_window,
+    L.UnionNode: _exec_union,
+    L.SetOpNode: _exec_setop,
 }
 
 

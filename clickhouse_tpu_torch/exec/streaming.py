@@ -650,14 +650,13 @@ def _check_streamable(table, columns) -> None:
 
 def check_not_streamed(split) -> None:
     """Raise NotImplementedError_ naming a node above the split that the
-    engine cannot run (a window function over a collect's rows), before
+    engine cannot run (an ArrayJoinNode over a collect's rows), before
     any chunk is read."""
     todo = [split.upper]
     while todo:
         node = todo.pop()
         if type(node) not in _DISPATCH:
-            what = "a window function (WindowNode)" \
-                if isinstance(node, L.WindowNode) else type(node).__name__
+            what = type(node).__name__
             program = {"topk": "TopKProgram", "collect": "CollectProgram"
                        }.get(getattr(split, "kind", None), "StreamProgram")
             raise NotImplementedError_(

@@ -35,7 +35,7 @@ __all__ = ["LAUNCHES", "LAUNCH_ROWS", "KernelBuildError", "build", "library",
            "K6_MAX_MASKS", "K6Form", "K6Spec", "K6Count", "K6Args", "K7_MAX_ENTRIES", "K7Word",
            "K7Out", "K7Args", "K8_MAX_KEYS", "K8_MAX_WORDS", "K8Args", "K9Args",
            "K11_MAX_WIDTH", "K14Args", "MAX_HASH_COLS", "HashCol",
-           "K16_MAX_SLOT_KEYS", "K16SlotKey", "K16Args"]
+           "K16_MAX_SLOT_KEYS", "K16SlotKey", "K16Args", "K17Args"]
 
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
@@ -54,7 +54,8 @@ LAUNCHES: Dict[str, int] = {"masked_reduce": 0, "dense_group_reduce": 0,
                             "unpack_pairs": 0, "compact_rows": 0,
                             "row_hash": 0, "hll_update": 0,
                             "hll_update_rows": 0, "hll_cells": 0,
-                            "hll_merge": 0, "hll_finalize": 0}
+                            "hll_merge": 0, "hll_finalize": 0,
+                            "segmented_scan": 0, "segmented_search": 0}
 # kernel name -> row count of each launch since the last reset
 LAUNCH_ROWS: Dict[str, List[int]] = {k: [] for k in LAUNCHES}
 
@@ -254,6 +255,17 @@ class K16Args(ctypes.Structure):
                 ("slots", ctypes.c_longlong), ("cells", ctypes.c_void_p)]
 
 
+class K17Args(ctypes.Structure):
+    """ChttScanArgs of csrc/segmented_scan.cu (one scan of K17)."""
+    _fields_ = [("data", ctypes.c_void_p), ("boundary", ctypes.c_void_p),
+                ("mask", ctypes.c_void_p), ("out", ctypes.c_void_p),
+                ("tiles", ctypes.c_void_p), ("n", ctypes.c_longlong),
+                ("ident", ctypes.c_ulonglong), ("op", ctypes.c_int),
+                ("acc", ctypes.c_int), ("dtype", ctypes.c_int),
+                ("out_dtype", ctypes.c_int), ("reverse", ctypes.c_int),
+                ("pad", ctypes.c_int)]
+
+
 class KernelBuildError(RuntimeError):
     """nvcc is missing or refused the sources (message holds its stderr)."""
 
@@ -399,6 +411,13 @@ def library() -> ctypes.CDLL:
             lib.chtt_hll_merge.restype = I
             lib.chtt_hll_finalize.argtypes = [P, LL, I, P, I, P]
             lib.chtt_hll_finalize.restype = I
+            lib.chtt_segmented_scan.argtypes = [P, P]
+            lib.chtt_segmented_scan.restype = I
+            lib.chtt_scan_tile_rows.argtypes = []
+            lib.chtt_scan_tile_rows.restype = I
+            lib.chtt_segmented_search.argtypes = [P, LL, P, LL, P, P, P, LL,
+                                                  I, I, P, P]
+            lib.chtt_segmented_search.restype = I
             lib.chtt_error_string.argtypes = [I]
             lib.chtt_error_string.restype = ctypes.c_char_p
             _LIB = lib

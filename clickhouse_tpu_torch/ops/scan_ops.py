@@ -45,7 +45,9 @@ from .sort_ops import SortKey, order_value
 __all__ = ["segment_bounds", "segment_bounds_bytes", "k5_scratch_bytes",
            "segment_reduce", "segment_reduce_many", "segment_reduce_sorted",
            "fsumx_column", "spec_key", "gid_of_bounds", "bounds_of_gid",
-           "Term", "COUNTED_OPS", "Spec", "K5_TILE_ROWS"]
+           "Term", "COUNTED_OPS", "Spec", "K5_TILE_ROWS", "SCAN_OPS",
+           "K17_TILE_ROWS", "segmented_scan", "segmented_scan_bytes",
+           "scan_out_dtype", "running_reduce"]
 
 @dataclasses.dataclass(frozen=True, eq=False)
 class Term:
@@ -792,3 +794,248 @@ def _segment_reduce_plain(op, data, mask, perm, gid, cap_g, unsigned):
                                   include_self=True)
             acc = acc | (r << b)
     return _finish(op, acc[:cap_g], cnt, data, unsigned)
+
+
+# -- K17: segmented scans -----------------------------------------------------
+# Replaces the reference's _segmented_scan (clickhouse_tpu/ops/scan_ops.py:86)
+# and running_reduce (:100): lax.associative_scan over (value, flag) pairs,
+# and, for a suffix scan, the same over [::-1] copies of every array.
+
+SCAN_OPS = ("sum", "min", "max", "first", "last")
+_SCAN_OP = {"sum": 0, "min": 1, "max": 2, "first": 3, "last": 4}
+_ACC_I64, _ACC_U64, _ACC_F64 = 0, 1, 2
+_NARROW_INTS = (torch.bool, torch.int8, torch.uint8, torch.int16,
+                torch.int32)
+
+
+def scan_out_dtype(op: str, dtype: torch.dtype) -> torch.dtype:
+    """The dtype of a scan's result: a sum widens integers and bools to
+    int64 (UInt64 bits where the values are unsigned: the sum wraps mod
+    2^64 either way) and keeps a float's type; min, max, first and last
+    keep the input's type."""
+    if op == "sum" and not dtype.is_floating_point:
+        return torch.int64
+    return dtype
+
+
+def _scan_ident(op: str, dtype: torch.dtype, unsigned: bool) -> int:
+    """The identity a masked-out row takes in a sum, min or max, as int64
+    bits of the value (a float's bits as float64): the reference's
+    iinfo(dtype) bounds, +-inf for floats, True/False for bools."""
+    if op not in ("min", "max"):
+        return 0
+    if dtype.is_floating_point:
+        v = float("inf") if op == "min" else float("-inf")
+        return int(torch.tensor(v, dtype=torch.float64).view(torch.int64))
+    if dtype == torch.bool:
+        return 1 if op == "min" else 0
+    if unsigned:
+        return -1 if op == "min" else 0        # UInt64 bits
+    info = torch.iinfo(dtype)
+    return info.max if op == "min" else info.min
+
+
+def segmented_scan(op: str, data: Optional[torch.Tensor],
+                   boundary: Optional[torch.Tensor],
+                   mask: Optional[torch.Tensor] = None, *,
+                   reverse: bool = False,
+                   unsigned: bool = False) -> torch.Tensor:
+    """Inclusive segmented scan of `data` (K17, csrc/segmented_scan.cu).
+
+    op       -- sum | min | max | first | last
+    data     -- 1-d bool/int8/uint8/int16/int32/int64/float32/float64
+                values, or None for the row index itself (int64, nothing
+                read)
+    boundary -- bool, True at each segment's first row; None: one segment
+    mask     -- bool rows to include, or None (every row).  A masked-out
+                row passes the carry through: a sum adds 0, a min or max
+                its identity (the type's bound, +-inf), and first and last
+                skip it (the reference's running_reduce)
+    reverse  -- scan from the last row to the first: a row's result
+                combines it with the rows after it in its segment (the
+                suffix scans of the window frames), reading the same
+                boundary flags (a segment ends where the next row starts
+                one); no array is reversed
+    unsigned -- int64 data holding UInt64 bits (min and max compare them
+                unsigned)
+
+    A sum widens integers to int64 and wraps mod 2^64 (scan_out_dtype); a
+    float min or max propagates NaN as jnp.minimum/maximum do.  first and
+    last follow the reference's combine exactly: with no masked-in row so
+    far in the segment, first gives the current row's value and last the
+    segment's first row's.
+    -> the scanned values, one a row.
+
+    A CPU tensor takes the plain version; a CUDA tensor launches the
+    kernel (three launches: tile aggregates, their scan, the downsweep).
+    """
+    if op not in _SCAN_OP:
+        raise ValueError(f"segmented_scan: op {op!r}")
+    ref = data if data is not None else boundary if boundary is not None \
+        else mask
+    if ref is None:
+        raise ValueError("segmented_scan: no data, boundary or mask to "
+                         "size the scan")
+    total, dev = ref.shape[0], ref.device
+    for t in (data, boundary, mask):
+        if t is not None and (t.dim() != 1 or t.shape[0] != total
+                              or t.device != dev):
+            raise ValueError("segmented_scan: 1-d tensors of one length "
+                             "on one device")
+    for t in (boundary, mask):
+        if t is not None and t.dtype != torch.bool:
+            raise ValueError("segmented_scan: boundary and mask are bool")
+    if data is not None and data.dtype not in _NARROW_INTS + (
+            torch.int64, torch.float32, torch.float64):
+        raise ValueError(f"segmented_scan: data of {data.dtype}")
+    if dev.type == "cpu":
+        return _segmented_scan_plain(op, data, boundary, mask, reverse,
+                                     unsigned, total)
+    if dev.type != "cuda":
+        raise RuntimeError(f"segmented_scan: no kernel for {dev}")
+    return _segmented_scan_cuda(op, data, boundary, mask, reverse, unsigned,
+                                total, dev)
+
+
+def segmented_scan_bytes(n: int) -> int:
+    """Device bytes a segmented_scan call over n rows allocates: its
+    int64 output and K17's tile aggregates (16 bytes a tile)."""
+    return 8 * n + 16 * (-(-n // K17_TILE_ROWS) + 1)
+
+
+K17_TILE_ROWS = 4096     # kTile of csrc/segmented_scan.cu
+
+
+def _scan_acc(op: str, dtype: torch.dtype, unsigned: bool) -> int:
+    """How the kernel combines values: as float64, as u64 (a min or max of
+    UInt64 bits) or as int64 bits."""
+    if dtype.is_floating_point:
+        return _ACC_F64
+    return _ACC_U64 if unsigned and op in ("min", "max") else _ACC_I64
+
+
+def _segmented_scan_cuda(op, data, boundary, mask, reverse, unsigned, n,
+                         dev):
+    dtype = data.dtype if data is not None else torch.int64
+    out = torch.empty(n, dtype=scan_out_dtype(op, dtype), device=dev)
+    if n == 0:
+        return out
+    acc = _scan_acc(op, dtype, unsigned)
+    tiles = -(-n // K17_TILE_ROWS)
+    scratch = torch.empty(16 * tiles, dtype=torch.uint8, device=dev)
+    data = data.contiguous() if data is not None else None
+    boundary = boundary.contiguous() if boundary is not None else None
+    mask = mask.contiguous() if mask is not None else None
+    args = _native.K17Args(
+        data=data.data_ptr() if data is not None else None,
+        boundary=boundary.data_ptr() if boundary is not None else None,
+        mask=mask.data_ptr() if mask is not None else None,
+        out=out.data_ptr(), tiles=scratch.data_ptr(), n=n,
+        ident=_scan_ident(op, dtype, unsigned) & 0xFFFFFFFFFFFFFFFF,
+        op=_SCAN_OP[op], acc=acc,
+        dtype=_native.dtype_code(dtype) if data is not None else -1,
+        out_dtype=_native.dtype_code(out.dtype), reverse=int(reverse))
+    rc = _native.library().chtt_segmented_scan(
+        ctypes.byref(args), _native.stream_ptr(dev))
+    _native.check(rc, "segmented_scan")
+    _native.count_launch("segmented_scan", n)
+    return out
+
+
+def _scan_values(op, data, mask, unsigned, n, dev):
+    """The scan's values as int64 bits (floats as float64 bits) with the
+    masked-out rows at the identity (sum, min, max), and the has flags."""
+    dtype = data.dtype if data is not None else torch.int64
+    x = torch.arange(n, dtype=torch.int64, device=dev) if data is None \
+        else data[:n]
+    if dtype.is_floating_point:
+        bits = x.to(torch.float64).view(torch.int64)
+    else:
+        bits = x.to(torch.int64)
+    has = torch.ones(n, dtype=torch.bool, device=dev) if mask is None \
+        else mask[:n]
+    if op in ("sum", "min", "max") and mask is not None:
+        bits = torch.where(has, bits, torch.full_like(
+            bits, _scan_ident(op, dtype, unsigned)))
+    return bits, has
+
+
+def _scan_combine(op, acc, a, b, af, bf, ah, bh):
+    """The segmented combine of scan-order neighbours a (earlier) and b,
+    over int64 bits; -> (value, has)."""
+    if op == "sum":
+        if acc == _ACC_F64:
+            v = (a.view(torch.float64) + b.view(torch.float64)).view(
+                torch.int64)
+        else:
+            v = a + b                  # wraps mod 2^64
+    elif op in ("min", "max"):
+        if acc == _ACC_F64:
+            x, y = a.view(torch.float64), b.view(torch.float64)
+            better = y < x if op == "min" else y > x
+            pick_b = ~torch.isnan(x) & (torch.isnan(y) | better)
+        else:
+            x, y = (a ^ _SIGN, b ^ _SIGN) if acc == _ACC_U64 else (a, b)
+            pick_b = y < x if op == "min" else y > x
+        v = torch.where(pick_b, b, a)
+    elif op == "first":
+        v = torch.where(ah, a, b)
+    else:
+        v = torch.where(bh, b, a)
+    v = torch.where(bf, b, v)
+    h = torch.where(bf, bh, ah | bh)
+    return v, h
+
+
+def _segmented_scan_plain(op, data, boundary, mask, reverse, unsigned, n):
+    """Plain PyTorch version of K17: a Hillis-Steele scan, log2(n) passes
+    of the segmented combine over the whole array (what the reference's
+    associative_scan computes), a reverse scan combining each row with
+    the row d after it."""
+    dev = (data if data is not None else boundary if boundary is not None
+           else mask).device
+    dtype = data.dtype if data is not None else torch.int64
+    acc = _scan_acc(op, dtype, unsigned)
+    v, h = _scan_values(op, data, mask, unsigned, n, dev)
+    f = torch.zeros(n, dtype=torch.bool, device=dev) if boundary is None \
+        else boundary[:n].clone()
+    if reverse and boundary is not None:
+        # row i resets the reverse scan where row i + 1 starts a segment
+        f = torch.cat([boundary[1:n], torch.zeros(1, dtype=torch.bool,
+                                                  device=dev)]) if n else f
+    d = 1
+    while d < n:
+        if reverse:
+            a, af, ah = v[d:], f[d:], h[d:]
+            b, bf, bh = v[:n - d], f[:n - d], h[:n - d]
+        else:
+            a, af, ah = v[:n - d], f[:n - d], h[:n - d]
+            b, bf, bh = v[d:], f[d:], h[d:]
+        nv, nh = _scan_combine(op, acc, a, b, af, bf, ah, bh)
+        nf = af | bf
+        v, h, f = v.clone(), h.clone(), f.clone()
+        if reverse:
+            v[:n - d], h[:n - d], f[:n - d] = nv, nh, nf
+        else:
+            v[d:], h[d:], f[d:] = nv, nh, nf
+        d <<= 1
+    out_dtype = scan_out_dtype(op, dtype)
+    if acc == _ACC_F64:
+        return v.view(torch.float64).to(out_dtype)
+    if out_dtype == torch.bool:
+        return v != 0
+    return v.to(out_dtype)
+
+
+def running_reduce(op: str, data: torch.Tensor, boundary: torch.Tensor,
+                   mask: Optional[torch.Tensor] = None, *,
+                   reverse: bool = False,
+                   unsigned: bool = False) -> torch.Tensor:
+    """Per-row inclusive running reduction within segments (the
+    reference's running_reduce, window frames UNBOUNDED PRECEDING ..
+    CURRENT ROW; reverse: CURRENT ROW .. UNBOUNDED FOLLOWING): one K17
+    scan.  Masked rows pass the carry through.  op: sum | min | max |
+    first | last."""
+    return segmented_scan(op, data, boundary.to(torch.bool),
+                          None if mask is None else mask.to(torch.bool),
+                          reverse=reverse, unsigned=unsigned)

@@ -1261,19 +1261,21 @@ class Analyzer:
     def plan_windows(self, plan: L.PlanNode, scope_after: Scope,
                      exprs: List[ast.Expr], binder):
         """Collect window calls, build the WindowNode, return substitution
-        map text(call) -> placeholder identifier name."""
+        map window_key(call) -> placeholder identifier name (a call's text
+        with its frame and NULLS order: calls that differ only there are
+        two columns, W1)."""
         win_items: List[L.WindowItem] = []
         win_map: Dict[str, str] = {}
         fields: List[L.Field] = []
 
         def collect(e: ast.Expr):
             if isinstance(e, ast.FuncCall) and e.over is not None:
-                text = ast.format_expr(e)
-                if text in win_map:
+                key = ast.window_key(e)
+                if key in win_map:
                     return
-                item = self._bind_window(e, binder, text)
+                item = self._bind_window(e, binder, ast.format_expr(e))
                 placeholder = f"__win{len(win_items)}"
-                win_map[text] = placeholder
+                win_map[key] = placeholder
                 f = L.Field(item.field.id, placeholder, item.field.dtype)
                 item.field = f
                 win_items.append(item)
@@ -2244,9 +2246,9 @@ def _replace_windows(e: ast.Expr, win_map: Dict[str, str]) -> ast.Expr:
     """Substitute collected window calls with their placeholder columns."""
     if isinstance(e, ast.FuncCall):
         if e.over is not None:
-            text = ast.format_expr(e)
-            if text in win_map:
-                return ast.Identifier(win_map[text])
+            key = ast.window_key(e)
+            if key in win_map:
+                return ast.Identifier(win_map[key])
         return ast.FuncCall(e.name,
                             [_replace_windows(a, win_map) for a in e.args],
                             e.params, e.distinct, e.over)

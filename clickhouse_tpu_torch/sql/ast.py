@@ -521,6 +521,16 @@ class ExistsTable:
     table: str
 
 
+def window_key(e: "FuncCall") -> str:
+    """What makes two window calls one: the call's text (format_expr, which
+    names the column), its frame, and its ORDER BY items' NULLS FIRST/LAST.
+    format_expr writes neither of the last two, so two calls that differ
+    only there would share one result (W1, the reference's keying by the
+    text alone: clickhouse_tpu/plan/analyzer.py:1270-1276, :2247-2249)."""
+    nulls = tuple(o.nulls_last for o in e.over.order_by)
+    return f"{format_expr(e)} FRAME {e.over.frame!r} NULLS {nulls!r}"
+
+
 def format_expr(e: Expr) -> str:
     """Debug/EXPLAIN rendering of an expression."""
     if isinstance(e, Identifier):

@@ -394,6 +394,9 @@ def test_launch_counters_count_kernel_launches(dev):
                                             device=dev))
     sketch_ops.hll_merge(st, 2)
     sketch_ops.hll_finalize(st)
+    from clickhouse_tpu_torch.ops import search
+    scan_ops.segmented_scan("sum", x, None)
+    search.segmented_search(x, x, "left")
     assert _native.LAUNCHES == {"masked_reduce": 1, "dense_group_reduce": 1,
                                 "topk_smallest": 1, "radix_sort_pairs": 1,
                                 "segment_bounds": 1, "segment_reduce": 1,
@@ -403,7 +406,8 @@ def test_launch_counters_count_kernel_launches(dev):
                                 "unpack_pairs": 1, "compact_rows": 1,
                                 "row_hash": 1, "hll_update": 1,
                                 "hll_update_rows": 1, "hll_cells": 1,
-                                "hll_merge": 1, "hll_finalize": 1}
+                                "hll_merge": 1, "hll_finalize": 1,
+                                "segmented_scan": 1, "segmented_search": 1}
 
 
 # -- K11 vector_distance -------------------------------------------------------
@@ -1357,3 +1361,125 @@ def test_sketch_queries_on_the_card_match_the_cpu(dev):
                 + _native.LAUNCHES["hll_update_rows"] >= 1
         if "cityHash64" in sql:
             assert _native.LAUNCHES["row_hash"] == 1
+
+
+# -- K17 segmented_scan, K18 segmented_search ---------------------------------
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("layout", ["one_segment", "random_segments",
+                                    "tile_edges"])
+@pytest.mark.parametrize("name", ["bool", "int8", "int32", "int64",
+                                  "uint64", "float32", "float64",
+                                  "row_index"])
+def test_segmented_scan_matches_plain(dev, name, layout, reverse):
+    """K17 against its plain version: every op, masks of none, some and
+    every row, 100,003 rows (integers, first and last exact; float sums
+    within n * eps of the scan of |x|: chip_smoke.k17_agree)."""
+    from chip_smoke import k17_agree, k17_boundary, k17_mask, k17_values
+    from clickhouse_tpu_torch.ops.scan_ops import (SCAN_OPS,
+                                                   _segmented_scan_plain,
+                                                   segmented_scan)
+    rng = np.random.default_rng(len(name) * 7 + len(layout) + reverse)
+    n = 100_003
+    data, uns = k17_values(rng, name, n, dev)
+    boundary = k17_boundary(rng, layout, n, dev)
+    for mkind in ("none", "random", "all_masked"):
+        mask = k17_mask(rng, mkind, n, dev)
+        for op in SCAN_OPS:
+            if data is None and op not in ("first", "min", "sum"):
+                continue
+            if data is None and boundary is None and mask is None:
+                continue
+            got = segmented_scan(op, data, boundary, mask, reverse=reverse,
+                                 unsigned=uns)
+            want = _segmented_scan_plain(op, data, boundary, mask, reverse,
+                                         uns, n)
+            k17_agree(op, got, want, data, boundary, mask, reverse)
+
+
+def test_segmented_scan_launches_once_a_call(dev):
+    from clickhouse_tpu_torch.ops.scan_ops import segmented_scan
+    _native.reset_launches()
+    segmented_scan("sum", torch.ones(10, dtype=torch.int32, device=dev),
+                   None)
+    assert _native.LAUNCHES["segmented_scan"] == 1
+
+
+@pytest.mark.parametrize("unsigned", [False, True])
+@pytest.mark.parametrize("side", ["left", "right"])
+def test_segmented_search_matches_plain(dev, side, unsigned):
+    """K18 against its plain version over 300,000 rows in 1,000 segments
+    (some empty), queries equal to, between, below and above the keys,
+    segment ids outside the segments, and the one-segment form."""
+    from clickhouse_tpu_torch.ops.search import (_segmented_search_plain,
+                                                 segmented_search)
+    rng = np.random.default_rng(int(unsigned) * 2 + (side == "right"))
+    n, n_seg = 300_000, 1000
+    seg = np.sort(rng.integers(0, n_seg, n))
+    vals = rng.integers(-(1 << 62), 1 << 62, n, dtype=np.int64)
+    if unsigned:
+        vals[rng.random(n) < 0.5] |= np.int64(-(1 << 63))
+    key = vals ^ np.int64(-(1 << 63)) if unsigned else vals
+    o = np.lexsort((key, seg))
+    seg, vals = seg[o], vals[o]
+    starts = np.searchsorted(seg, np.arange(n_seg), "left")
+    ends = np.searchsorted(seg, np.arange(n_seg), "right")
+    q = np.concatenate([vals, vals + 1, vals - 1,
+                        np.array([-(1 << 63), (1 << 63) - 1, 0])])
+    gid = np.concatenate([seg, seg, seg, [-1, n_seg + 3, 5]]).astype(
+        np.int32)
+    t = torch.from_numpy(vals).to(dev)
+    args = dict(gid=torch.from_numpy(gid).to(dev),
+                starts=torch.from_numpy(starts).to(dev),
+                ends=torch.from_numpy(ends).to(dev))
+    qt = torch.from_numpy(q).to(dev)
+    got = segmented_search(t, qt, side, unsigned=unsigned, **args)
+    want = _segmented_search_plain(t, qt, side, args["gid"], args["starts"],
+                                   args["ends"], unsigned)
+    assert torch.equal(got, want)
+    flip = -(1 << 63) if unsigned else 0
+    one = torch.sort(t ^ flip).values ^ flip
+    got = segmented_search(one, qt, side, unsigned=unsigned)
+    want = _segmented_search_plain(one, qt, side, None, None, None, unsigned)
+    assert torch.equal(got, want)
+
+
+def test_window_queries_match_the_cpu(dev):
+    """Window, union and set-operation queries on the card against a CPU
+    session, each launching K17 (and K18 for a RANGE offset frame)."""
+    import clickhouse_tpu_torch as tch
+    from clickhouse_tpu_torch.interop import table_from_numpy
+    rng = np.random.default_rng(21)
+    cols = {"g": rng.integers(0, 30, 80_000), "x": rng.integers(0, 5000,
+                                                                80_000),
+            "v": rng.normal(0, 1, 80_000)}
+    types = {"g": "Int64", "x": "Int64", "v": "Float64"}
+    cuda, cpu = tch.connect(device="cuda"), tch.connect(device="cpu")
+    for s in (cuda, cpu):
+        table_from_numpy(s, "wk", cols, types)
+    w = "PARTITION BY g ORDER BY x"
+    for sql, kernels in (
+            (f"SELECT g, x, rank() OVER ({w}), dense_rank() OVER ({w}), "
+             f"sum(x) OVER ({w}) FROM wk ORDER BY g, x, 3, 4", ("scan",)),
+            (f"SELECT sum(s), sum(c) FROM (SELECT sum(x) OVER ({w} RANGE "
+             f"BETWEEN 50 PRECEDING AND 20 FOLLOWING) AS s, count() OVER "
+             f"({w} RANGE BETWEEN 50 PRECEDING AND 20 FOLLOWING) AS c "
+             f"FROM wk)", ("scan", "search")),
+            (f"SELECT sum(a), sum(b), sum(c) FROM (SELECT min(x) OVER ({w} "
+             f"ROWS BETWEEN CURRENT ROW AND UNBOUNDED FOLLOWING) AS a, "
+             f"max(v) OVER ({w} ROWS BETWEEN 3 PRECEDING AND 3 FOLLOWING) "
+             f"AS b, lag(x, 2) OVER ({w}) AS c FROM wk)", ("scan",)),
+            ("SELECT x FROM wk WHERE g < 10 INTERSECT SELECT x FROM wk "
+             "WHERE g > 20 ORDER BY x", ("scan",))):
+        _native.reset_launches()
+        got, want = cuda.execute(sql).rows(), cpu.execute(sql).rows()
+        assert len(got) == len(want), sql
+        for g, w_ in zip(got, want):
+            for a, b in zip(g, w_):
+                if isinstance(b, float):
+                    assert abs(a - b) <= 1e-9 * max(1.0, abs(b)), sql
+                else:
+                    assert a == b, sql
+        assert _native.LAUNCHES["segmented_scan"] >= 1, sql
+        if "search" in kernels:
+            assert _native.LAUNCHES["segmented_search"] >= 1, sql

@@ -1127,6 +1127,25 @@ def _s6():
                            "SETTINGS max_groups = 1024", want)
 
 
+def _w1():
+    """W1: sum(x) over P's default frame and over ROWS BETWEEN 1 PRECEDING
+    AND CURRENT ROW, P = PARTITION BY x % 16 ORDER BY x (h's x are
+    distinct): numpy's sums of the two columns."""
+    x = _sql_sessions()[2]
+    o = np.lexsort((x, x % 16))
+    xs, part = x[o], x[o] % 16
+    start = np.r_[True, part[1:] != part[:-1]]
+    run = np.cumsum(xs) - np.repeat(np.r_[0, np.cumsum(xs)][
+        np.flatnonzero(start)], np.diff(np.r_[np.flatnonzero(start),
+                                              len(xs)]))
+    pair = xs + np.where(start, 0, np.r_[0, xs[:-1]])
+    return _sql_divergence(
+        "SELECT sum(a), sum(b) FROM (SELECT sum(x) OVER (PARTITION BY x % "
+        "16 ORDER BY x) AS a, sum(x) OVER (PARTITION BY x % 16 ORDER BY x "
+        "ROWS BETWEEN 1 PRECEDING AND CURRENT ROW) AS b FROM h)",
+        [(int(run.sum()), int(pair.sum()))])
+
+
 def _s7_want():
     """concat('y', s, '-', s, u) over table p, row by row in numpy."""
     s = np.array(["ab", "b", "ba", "c"])
@@ -1247,6 +1266,11 @@ DIVERGENCES = {
         "SELECT subtractNanoseconds(toDateTime('2033-05-18 03:33:20'), 13)",
         [(datetime.datetime(2033, 5, 18, 3, 33, 19),)]),
         "clickhouse_tpu/exprs/functions_ext4.py:740-758"),
+    # W1: two window calls that differ only in their frame share one
+    # result (the calls are keyed by a text that leaves the frame out)
+    "w1_window_frame_shared": (
+        _w1, "clickhouse_tpu/sql/ast.py:542-551, "
+        "clickhouse_tpu/plan/analyzer.py:1270-1276, :2247-2249"),
     # D9: XLA flushes a subnormal float64 result to zero on the CPU
     "d9_subnormal_result": (lambda: _sql_divergence(
         "SELECT exp10(-311)", [(float(np.power(10.0, -311)),)]),
@@ -1610,3 +1634,136 @@ def test_expand_matches_matches_reference(left, any_join, cap, form):
     np.testing.assert_array_equal(got[2].numpy(), np.asarray(ref[2]))
     assert not got[2].numpy()[live:].any()
     assert not got[0].numpy()[live:].any()
+
+
+# -- K17 segmented_scan, K18 segmented_search --------------------------------
+# The plain versions against the reference's running_reduce (its reverse
+# scans built from [::-1] copies, as the reference's window frames build
+# them) and searchsorted_seg / searchsorted.  Integers, first and last are
+# exact; a float sum within n * eps * the running sum of |x| (the
+# reference's associative_scan and the plain version's doubling passes add
+# in other orders; a float32 sum accumulates in float64 in the port).  A
+# masked min or max is compared where its segment has had a masked-in row:
+# before that it holds the identity, the bound of the storage type, which
+# for UInt16 and UInt32 (stored int32 and int64 in the port) is another
+# number; the sign of a zero picked between -0.0 and +0.0 is not compared.
+
+SCAN_DTYPES = ["bool", "int8", "uint8", "int16", "uint16", "int32", "uint32",
+               "int64", "uint64", "float32", "float64"]
+
+
+def _ref_scan(op, x, boundary, mask, reverse):
+    if not reverse:
+        return np.asarray(jscan.running_reduce(
+            op, jnp.asarray(x), jnp.asarray(boundary),
+            None if mask is None else jnp.asarray(mask)))
+    rb = np.r_[boundary[1:], True][::-1]
+    out = jscan.running_reduce(
+        op, jnp.asarray(x[::-1]), jnp.asarray(rb),
+        None if mask is None else jnp.asarray(mask[::-1]))
+    return np.asarray(out)[::-1]
+
+
+def _np_seen(boundary, mask, reverse):
+    """Whether a row's segment has had a masked-in row up to it."""
+    m = np.ones(len(boundary), bool) if mask is None else mask
+    b, mm = (np.r_[boundary[1:], True][::-1], m[::-1]) if reverse \
+        else (boundary, m)
+    seg = np.cumsum(b) - 1
+    cnt = np.cumsum(mm)
+    first = np.flatnonzero(b)
+    before = np.r_[0, cnt][first][seg]
+    seen = cnt - before > 0
+    return seen[::-1] if reverse else seen
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("op", ["sum", "min", "max", "first", "last"])
+@pytest.mark.parametrize("name", SCAN_DTYPES)
+def test_running_reduce_matches_reference(name, op, reverse):
+    rng = np.random.default_rng(sum(map(ord, name + op)) + reverse)
+    n = 1500
+    x = _values(rng, name, n)
+    if np.dtype(name).kind == "f":
+        x[rng.random(n) < 0.02] = np.nan
+    boundary = rng.random(n) < 0.03
+    boundary[0] = True
+    for mask in (None, rng.random(n) < 0.6):
+        # the reference's min and max take no bool (iinfo): its uint8
+        ref_x = x.astype(np.uint8) if name == "bool" and op in (
+            "min", "max") else x
+        want = _ref_scan(op, ref_x, boundary, mask, reverse)
+        got = tscan.running_reduce(
+            op, _t(x), _t(boundary), None if mask is None else _t(mask),
+            reverse=reverse, unsigned=x.dtype == np.uint64)
+        g = tdt.to_numpy_storage(got, want.dtype if ref_x is x else x.dtype)
+        keep = np.ones(n, bool)
+        if op in ("min", "max") and mask is not None:
+            keep = _np_seen(boundary, mask, reverse)
+        g, w = g[keep], want[keep]
+        if w.dtype.kind != "f":
+            assert g.astype(w.dtype).tolist() == w.tolist()
+            continue
+        g64, w64 = g.astype(np.float64), w.astype(np.float64)
+        assert np.isnan(g64).tolist() == np.isnan(w64).tolist()
+        ok = ~np.isnan(w64)
+        if op != "sum":
+            assert g64[ok].tolist() == w64[ok].tolist()
+            continue
+        absx = np.nan_to_num(np.abs(x.astype(np.float64)))
+        scale = _ref_scan("sum", absx, boundary, mask, reverse)[keep]
+        eps = np.finfo(x.dtype).eps
+        assert (np.abs(g64 - w64)[ok] <= n * eps * scale[ok] + 1e-300).all()
+
+
+def test_segmented_scan_row_index():
+    """The row index as data (nothing read): the executor's peer
+    bounds."""
+    tie = np.array([1, 0, 0, 1, 1, 0, 1, 0], bool)
+    first = tscan.segmented_scan("first", None, _t(tie))
+    last = tscan.segmented_scan("first", None, _t(tie), reverse=True)
+    assert first.tolist() == [0, 0, 0, 3, 4, 4, 6, 6]
+    assert last.tolist() == [2, 2, 2, 3, 5, 5, 7, 7]
+
+
+@pytest.mark.parametrize("side", ["left", "right"])
+@pytest.mark.parametrize("name", ["int32", "int64", "uint64", "float64"])
+def test_searchsorted_seg_matches_reference(name, side):
+    from clickhouse_tpu.ops import search as jsearch
+    from clickhouse_tpu_torch.ops import search as tsearch
+    rng = np.random.default_rng(len(name) + len(side))
+    n, nq = 3000, 2500
+    seg = np.sort(rng.integers(0, 40, n)).astype(np.int32)
+    key = _values(rng, name, n)
+    if np.dtype(name).kind == "f":
+        key = np.round(key / 1e5) + 0.0          # no -0.0: one order
+    key = key[np.lexsort((key, seg))]
+    qseg = rng.integers(-1, 42, nq).astype(np.int32)
+    qkey = np.concatenate([key[rng.integers(0, n, nq // 2)],
+                           _values(rng, name, nq - nq // 2)])
+    if np.dtype(name).kind == "f":
+        qkey = np.round(qkey / 1e5) + 0.0
+    want = np.asarray(jsearch.searchsorted_seg(
+        jnp.asarray(seg), jnp.asarray(key), jnp.asarray(qseg),
+        jnp.asarray(qkey), side=side))
+    got = tsearch.searchsorted_seg(_t(seg), _t(key), _t(qseg), _t(qkey),
+                                   side, unsigned=name == "uint64")
+    assert got.tolist() == want.astype(np.int64).tolist()
+    a = np.sort(key)
+    want1 = np.asarray(jsearch.searchsorted(jnp.asarray(a),
+                                            jnp.asarray(qkey), side=side))
+    got1 = tsearch.searchsorted(_t(a), _t(qkey), side,
+                                unsigned=name == "uint64")
+    assert got1.tolist() == want1.astype(np.int64).tolist()
+
+
+def test_segmented_search_clamps_segment_ids():
+    from clickhouse_tpu_torch.ops import search as tsearch
+    table = torch.tensor([1, 5, 9, 2, 4], dtype=torch.int64)
+    starts = torch.tensor([0, 3], dtype=torch.int64)
+    ends = torch.tensor([3, 5], dtype=torch.int64)
+    q = torch.tensor([5, 5, 3, 3], dtype=torch.int64)
+    gid = torch.tensor([-4, 0, 1, 9], dtype=torch.int32)
+    got = tsearch.segmented_search(table, q, "right", gid=gid, starts=starts,
+                                   ends=ends)
+    assert got.tolist() == [2, 2, 4, 4]

@@ -357,8 +357,7 @@ def test_ddl_insert_values_and_drop(sessions):
     ("SELECT a, count() FROM t GROUP BY a SETTINGS group_by_algorithm='sort'",
      None, None),
     ("SELECT x FROM hits ORDER BY x LIMIT 5000", None, None),
-    ("SELECT a FROM t UNION ALL SELECT a FROM t", NotImplementedError_,
-     "UnionNode"),
+    ("SELECT a FROM t UNION ALL SELECT a FROM t", None, None),
     ("ALTER TABLE t DELETE WHERE a = 1", NotImplementedError_,
      "AlterTable"),
     ("SELECT a, count() FROM t GROUP BY a WITH TOTALS", None, None),
@@ -394,8 +393,8 @@ def test_unported_paths_raise_typed_errors(sessions, sql, err, match):
     aggregate under GROUP BY names the aggregate, not its argument); the
     paths ported since (err None: the full sort, the sort grouping,
     k > 4,096, WITH TOTALS, uniqExact, argMax, groupBitOr, uniq and
-    quantile under GROUP BY, and isFinite, the case that named an
-    unported scalar before cityHash64 did) answer as the reference does;
+    quantile under GROUP BY, UNION ALL, and isFinite, the case that named
+    an unported scalar before cityHash64 did) answer as the reference does;
     uniqUpTo and xxHash64 took the places of uniq and cityHash64, ported
     since."""
     if err is None:

@@ -26,8 +26,7 @@ import torch
 
 import clickhouse_tpu as jch
 import clickhouse_tpu_torch as tch
-from clickhouse_tpu_torch.core.errors import (MemoryLimitExceeded,
-                                              NotImplementedError_)
+from clickhouse_tpu_torch.core.errors import MemoryLimitExceeded
 
 STREAM = {"max_device_block_bytes": 1, "stream_chunk_rows": 1024}
 GRACE = {**STREAM, "grace_join_buckets": 4}
@@ -280,16 +279,18 @@ def test_holistic_aggregate_streams_via_collect(sessions):
 
 
 def test_window_upper_raises_naming_the_window(sessions):
-    """A window function above a collect's rows is not ported: the port
-    raises naming it before it reads a chunk (the reference answers)."""
+    """A window function above a collect's rows raised naming the window
+    before WindowNode was ported; the collect now streams and the window
+    runs over its rows: the streamed answer is the reference's (streamed
+    and whole) and the port's whole-block one."""
     js, ts = sessions
     sql = ("SELECT id, row_number() OVER (ORDER BY v) AS rn FROM big "
            "WHERE k = 5 ORDER BY rn LIMIT 6")
     assert js.execute(sql, settings=STREAM).rows() == js.execute(sql).rows()
-    before = ts.profile_events.get("StreamedQueries", 0)
-    with pytest.raises(NotImplementedError_, match="window"):
-        ts.execute(sql, settings=STREAM)
-    assert ts.profile_events.get("StreamedQueries", 0) == before
+    rows = _both(sessions, sql)
+    assert [r[1] for r in rows] == [1, 2, 3, 4, 5, 6]
+    prog = next(p for (q, _), (p, _) in ts._stream_cache.items() if q == sql)
+    assert type(prog).__name__ == "CollectProgram"
 
 
 # -- the grace join (TestGraceJoin) ------------------------------------------
