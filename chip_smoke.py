@@ -34,6 +34,9 @@
                                       # queries Qw1-Qw5, Qr1-Qr3, Qi1-Qi2
                                       # over hits, their times, and K17
                                       # and K18 at Qw5's and Qw3's inputs
+    python3 chip_smoke.py --scan-search  # only K17's and K18's cases and
+                                      # the two kernels at Qw5's and Qw3's
+                                      # inputs (an older checkout's alike)
     python3 chip_smoke.py --sass calendar_part  # one source's nvcc time,
                                       # registers, spills, shared bytes and
                                       # SASS CALLs a kernel (or
@@ -109,9 +112,14 @@ non-zero without them.  Phases, each of which fails the run:
      inside a thread's runs, every tile empty but the last, a mask view 1
      row in over several tiles and a dense 2^27-row mask); K17 over every
      op, both directions, K17_DTYPES, K17_LAYOUTS and K17_MASKS at
-     K17_ROWS rows and a sum that wraps (check_k17); K18 over K18_ROWS
-     rows in 1, 7 and n/50 segments, queries on, between and beyond the
-     keys, both sides, signed and unsigned, clamped segment ids
+     K17_ROWS rows (the edges of its 512-row warp-tile), K17_CHUNK_ROWS
+     rows with boundaries at every chunk's edges, a float64 sum twice bit
+     for bit and a sum that wraps (check_k17); K18 over K18_ROWS rows in
+     1, 7 and n/50 segments, queries on, between and beyond the keys,
+     both sides, signed and unsigned, clamped segment ids, and K18_CASES
+     (sorted queries, tiles straddling segments, empty segments, +-(2^63
+     - 1), a query out of order in each tile, a stretch wider than the
+     shared-memory window), each in the branch it is built for
      (check_k18); integer
      results must agree
      exactly, K1's and K2's float sums within rtol 1e-12, K6's within
@@ -210,9 +218,10 @@ non-zero without them.  Phases, each of which fails the run:
      over t's int32 storage, and toYYYYMMDD over t widened to int64 (the
      64-bit path; library none); K17 at Qw5's one-segment running sum
      beside torch.cumsum (and its max beside torch.cummax, Qw1's bool sum,
-     the peer bounds' forward and reverse "first"), K18 at Qw5's RANGE
-     edge beside torch.searchsorted and at Qw3's partitions
-     (window_shapes); the window queries' walls and device-busy times
+     the peer bounds' forward and reverse "first", its three passes
+     apart), K18 at Qw5's RANGE edge beside torch.searchsorted and at
+     Qw3's partitions with their tiles by branch (window_shapes); the
+     window queries' walls and device-busy times
      (window_times); fails unless Q4's K7 call
      carries label alone and
      Q4h's K8 call one word; time each query (median wall time of 20
@@ -436,7 +445,7 @@ EXTRA_KEYS = ("k1_count_ms", "fill_ms", "q5h_ms", "q5h_plain_ms",
               "cells_shape", "layouts", "max_ms", "cummax_ms",
               "bool_sum_ms", "bool_sum_bound_ms", "first_index_ms",
               "reverse_first_index_ms", "first_index_bound_ms", "qw3_ms",
-              "qw3_bytes", "qw3_bound_ms")
+              "qw3_bytes", "qw3_bound_ms", "qw5_tiles", "qw3_tiles")
 F64_EPS = 2.0 ** -52
 CMPS = ["equals", "notEquals", "less", "lessOrEquals", "greater",
         "greaterOrEquals"]
@@ -6330,7 +6339,13 @@ def sketch_turn(ch, dev):
 
 # -- K17 segmented_scan and K18 segmented_search ------------------------------
 
-K17_ROWS = (1, 4095, 4096, 4097, 3 * 4096 + 17, 1_000_003)
+K17_TILE = 512          # K17_TILE_ROWS: a warp-tile of csrc/segmented_scan.cu
+K17_WARPS_PER_SM = 24   # kWarpsPerSm: chunks a card of SMs holds at once
+K17_ROWS = (1, 17, K17_TILE - 1, K17_TILE, K17_TILE + 1, 3 * K17_TILE + 17,
+            4097, 1_000_003)
+# enough rows that a chunk holds several warp-tiles (over 132 SMs x 24
+# warps x 512 rows)
+K17_CHUNK_ROWS = 9_000_011
 K17_DTYPES = ("bool", "int8", "uint8", "int16", "int32", "int64", "uint64",
               "float32", "float64", "row_index")
 K17_LAYOUTS = ("one_segment", "one_row_segments", "random_segments",
@@ -6361,15 +6376,30 @@ def k17_values(rng, name, n, dev):
     return torch.from_numpy(v.astype(name)).to(dev), False
 
 
-def k17_boundary(rng, layout, n, dev):
+def k17_chunk_rows(n, sms):
+    """Rows of one of K17's chunks over n rows on a card of `sms` SMs (the
+    .cu's plan: warp-tiles spread over sms x K17_WARPS_PER_SM warps)."""
+    tiles = -(-n // K17_TILE)
+    return -(-tiles // (sms * K17_WARPS_PER_SM)) * K17_TILE
+
+
+def k17_boundary(rng, layout, n, dev, chunk=None):
+    """K17_LAYOUTS' `layout` over n rows (None: one segment); "tile_edges"
+    starts segments at every warp-tile's first and last row, and
+    "chunk_edges" at every chunk's of `chunk` rows (with a few random
+    ones)."""
     if layout == "one_segment":
         return None
     if layout == "one_row_segments":
         return torch.ones(n, dtype=torch.bool, device=dev)
-    b = rng.random(n) < (0.01 if layout == "random_segments" else 0.0)
+    b = rng.random(n) < (0.01 if layout == "random_segments" else
+                         1e-5 if layout == "chunk_edges" else 0.0)
     if layout == "tile_edges":
-        b[::4096] = True
-        b[4095::4096] = True
+        b[::K17_TILE] = True
+        b[K17_TILE - 1::K17_TILE] = True
+    if layout == "chunk_edges":
+        b[::chunk] = True
+        b[chunk - 1::chunk] = True
     return torch.from_numpy(b).to(dev)
 
 
@@ -6417,50 +6447,89 @@ def k17_agree(op, got, want, data, boundary, mask, reverse):
     return float(err.max()) if err.numel() else 0.0
 
 
+def k17_calls(data, boundary, mask):
+    """The (op, reverse) pairs K17 is checked over for one input: every op
+    both ways (the row index, nothing read, needs a boundary or a
+    mask)."""
+    from clickhouse_tpu_torch.ops.scan_ops import SCAN_OPS
+    if data is None and boundary is None and mask is None:
+        return []
+    return [(op, rev) for op in SCAN_OPS for rev in (False, True)]
+
+
+def k17_float_repeats(dev, n):
+    """A float64 sum with boundaries over n rows, twice: the two results
+    must agree bit for bit (K17 adds in a fixed order)."""
+    from clickhouse_tpu_torch.ops.scan_ops import segmented_scan
+    rng = np.random.default_rng(n)
+    x = torch.from_numpy(rng.normal(0, 1e6, n)).to(dev)
+    b = torch.from_numpy(rng.random(n) < 1e-4).to(dev)
+    one = segmented_scan("sum", x, b).view(torch.int64)
+    two = segmented_scan("sum", x, b).view(torch.int64)
+    if not torch.equal(one, two):
+        fail(f"K17 float64 sum over {n} rows differs from run to run")
+
+
 def check_k17(dev):
     """K17 against its plain version on the card: every op, both
     directions, K17_DTYPES (bool, every integer width, UInt64 bits at and
-    above 2^63, floats with NaN and -0.0, the row index), K17_LAYOUTS (one
-    segment, one-row segments, random segments, boundaries at every
-    tile's first and last row), masks of none, some and every row, at
-    K17_ROWS rows (one row, a tile less one, a tile, a tile and a row,
-    three tiles and 17 rows, a million rows), and a sum that wraps past
-    2^63."""
-    from clickhouse_tpu_torch.ops import _native
-    from clickhouse_tpu_torch.ops.scan_ops import (SCAN_OPS,
-                                                   _segmented_scan_plain,
+    above 2^63, floats with NaN and -0.0, the row index: every kernel
+    instance), K17_LAYOUTS (one segment, one-row segments, random
+    segments, boundaries at every warp-tile's first and last row), masks
+    of none, some and every row, at K17_ROWS rows (one row, part of a
+    thread's 16, a warp-tile less one, a warp-tile, a warp-tile and a
+    row, three and 17 rows, a million rows); K17_CHUNK_ROWS rows with
+    boundaries at every chunk's first and last row, chunks of several
+    warp-tiles; a float64 sum over 100,003 and K17_CHUNK_ROWS rows twice,
+    bit for bit; and a sum that wraps past 2^63."""
+    from clickhouse_tpu_torch.ops import _native, scan_ops
+    from clickhouse_tpu_torch.ops.scan_ops import (_segmented_scan_plain,
                                                    segmented_scan)
+    if _native.library().chtt_scan_tile_rows() != K17_TILE \
+            or scan_ops.K17_TILE_ROWS != K17_TILE:
+        fail("K17's warp-tile is not chip_smoke.K17_TILE")
     rng = np.random.default_rng(17)
     calls = 0
     err = 0.0
+
+    def run(data, uns, boundary, mask):
+        nonlocal calls, err
+        for op, reverse in k17_calls(data, boundary, mask):
+            n = (data if data is not None else boundary if boundary
+                 is not None else mask).shape[0]
+            got = segmented_scan(op, data, boundary, mask, reverse=reverse,
+                                 unsigned=uns)
+            want = _segmented_scan_plain(op, data, boundary, mask, reverse,
+                                         uns, n)
+            err = max(err, k17_agree(op, got, want, data, boundary, mask,
+                                     reverse))
+            calls += 1
+
     for n in K17_ROWS:
         for name in K17_DTYPES:
             data, uns = k17_values(rng, name, n, dev)
             for layout in K17_LAYOUTS:
-                if n < 5000 and layout == "tile_edges":
+                if n < 2 * K17_TILE and layout == "tile_edges":
                     continue
                 boundary = k17_boundary(rng, layout, n, dev)
                 for mkind in K17_MASKS:
                     if n == 1_000_003 and mkind == "all_masked" \
                             and layout != "random_segments":
                         continue
-                    mask = k17_mask(rng, mkind, n, dev)
-                    for op in SCAN_OPS:
-                        if data is None and (op not in ("first", "min",
-                                                        "sum")
-                                             or boundary is None
-                                             and mask is None):
-                            continue
-                        for reverse in (False, True):
-                            got = segmented_scan(op, data, boundary, mask,
-                                                 reverse=reverse,
-                                                 unsigned=uns)
-                            want = _segmented_scan_plain(
-                                op, data, boundary, mask, reverse, uns, n)
-                            err = max(err, k17_agree(op, got, want, data,
-                                                     boundary, mask,
-                                                     reverse))
-                            calls += 1
+                    run(data, uns, boundary, k17_mask(rng, mkind, n, dev))
+    n = K17_CHUNK_ROWS
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    chunk = k17_chunk_rows(n, sms)
+    if _native.library().chtt_scan_chunks(n, sms) != -(-n // chunk):
+        fail("K17's chunks are not chip_smoke.k17_chunk_rows'")
+    for name in ("bool", "int32", "uint64", "float64", "row_index"):
+        data, uns = k17_values(rng, name, n, dev)
+        for layout in ("one_segment", "chunk_edges"):
+            boundary = k17_boundary(rng, layout, n, dev, chunk)
+            for mkind in ("none", "random"):
+                run(data, uns, boundary, k17_mask(rng, mkind, n, dev))
+    k17_float_repeats(dev, 100_003)
+    k17_float_repeats(dev, K17_CHUNK_ROWS)
     # a sum past INT64_MAX wraps mod 2^64 as the plain version's
     big = torch.full((8193,), (1 << 62) + 12345, dtype=torch.int64,
                      device=dev)
@@ -6469,12 +6538,153 @@ def check_k17(dev):
     if not torch.equal(got, want) or int(got[1]) >= 0:
         fail("K17 sum does not wrap mod 2^64")
     torch.cuda.synchronize()
-    print(f"K17 segmented_scan: {calls + 1} calls agree with the plain "
-          f"version (max float error {err:.3g}); launches "
+    print(f"K17 segmented_scan: {calls + 3} calls agree with the plain "
+          f"version (max float error {err:.3g}; chunks of {chunk} rows at "
+          f"{n} rows; float64 sums repeat bit for bit); launches "
           f"{_native.LAUNCHES['segmented_scan']}", flush=True)
 
 
 K18_ROWS = (1, 1000, 1_000_003)
+K18_TILE = 2048          # queries a block of csrc/segmented_search.cu
+K18_BRANCHES = ("window", "unordered", "wide")
+K18_CASES = ("one_segment_sorted", "many_segments_sorted", "straddle",
+             "sparse_wide", "one_out_of_order", "empty_segments",
+             "extremes", "extremes_unsigned")
+_I64_MIN, _I64_MAX = -(1 << 63), (1 << 63) - 1
+
+
+def _k18_sorted(rng, n, n_seg, lo, hi, uns):
+    """n rows in n_seg segments (some empty), sorted by (segment, key as
+    u64 where uns): (seg, vals)."""
+    seg = np.sort(rng.integers(0, n_seg, n))
+    vals = rng.integers(lo, hi, n, dtype=np.int64)
+    if uns:
+        vals[rng.random(n) < 0.4] |= np.int64(_I64_MIN)
+    key = vals ^ np.int64(_I64_MIN) if uns else vals
+    o = np.lexsort((key, seg))
+    return seg[o], vals[o]
+
+
+def k18_case(name, small=False):
+    """A K18_CASES case as numpy arrays: {"table": int64, "seg": each
+    table row's segment (sorted) or None for the one-segment form,
+    "n_seg", "queries": int64, "qseg": int32 or None, "unsigned",
+    "expect": the branch of K18_BRANCHES its tiles should take}.  small:
+    sizes for the CPU tests (the same shapes, fewer rows)."""
+    rng = np.random.default_rng(K18_CASES.index(name) + 180)
+    k = 10 if small else 1
+    if name in ("one_segment_sorted", "one_out_of_order"):
+        n = 1_000_003 // k
+        vals = np.sort(rng.integers(0, n // 10, n)).astype(np.int64)
+        q = vals - 10
+        if name == "one_out_of_order":
+            q[1000::K18_TILE] += n // 10
+        return {"table": vals, "seg": None, "n_seg": 1, "queries": q,
+                "qseg": None, "unsigned": False,
+                "expect": "unordered" if name == "one_out_of_order"
+                else "window"}
+    if name in ("many_segments_sorted", "straddle"):
+        n, n_seg = (300_000 // k, 1000 // k) if name == "many_segments_sorted" \
+            else (300_000 // k, 200 // k)
+        uns = name == "straddle"
+        seg, vals = _k18_sorted(rng, n, n_seg, -(1 << 40), 1 << 40, uns)
+        q = vals if uns else vals - 5
+        return {"table": vals, "seg": seg, "n_seg": n_seg, "queries": q,
+                "qseg": seg.astype(np.int32), "unsigned": uns,
+                "expect": "window"}
+    if name == "sparse_wide":
+        n = 1_000_003 // k
+        vals = np.sort(rng.integers(-(1 << 50), 1 << 50, n))
+        q = np.sort(rng.integers(-(1 << 50), 1 << 50, 40_000 // k))
+        return {"table": vals, "seg": np.zeros(n, np.int64), "n_seg": 1,
+                "queries": q, "qseg": np.zeros(len(q), np.int32),
+                "unsigned": False, "expect": "wide"}
+    if name == "empty_segments":
+        # most segments empty; a query into every segment besides the
+        # rows' own, in (segment, key) order
+        n, n_seg = 50_000 // k, 20_000 // k
+        seg, vals = _k18_sorted(rng, n, n_seg // 8, -(1 << 30), 1 << 30,
+                                False)
+        seg = seg * 8
+        qseg = np.concatenate([seg, np.arange(n_seg)])
+        q = np.concatenate([vals + 1, rng.integers(-(1 << 31), 1 << 31,
+                                                   n_seg)])
+        o = np.lexsort((q, qseg))
+        return {"table": vals, "seg": seg, "n_seg": n_seg, "queries": q[o],
+                "qseg": qseg[o].astype(np.int32), "unsigned": False,
+                "expect": "window"}
+    # extremes: values and queries at INT64_MIN, +-(2^63 - 1) and between,
+    # signed over one segment, unsigned over many
+    uns = name == "extremes_unsigned"
+    n, n_seg = 200_000 // k, (1 if not uns else 50)
+    seg, vals = _k18_sorted(rng, n, n_seg, -(1 << 62), 1 << 62, uns)
+    ends = np.flatnonzero(np.r_[seg[1:] != seg[:-1], True])
+    vals[ends] = -1 if uns else _I64_MAX        # each segment's largest
+    starts = np.r_[0, ends[:-1] + 1]
+    vals[starts] = 0 if uns else _I64_MIN
+    q = np.concatenate([np.full(3000, -_I64_MAX), vals,
+                        np.full(3000, _I64_MAX)])
+    qseg = np.concatenate([np.zeros(3000, np.int64), seg,
+                           np.full(3000, n_seg - 1)])
+    key = q ^ np.int64(_I64_MIN) if uns else q
+    o = np.lexsort((key, qseg))
+    return {"table": vals, "seg": seg if uns else None, "n_seg": n_seg,
+            "queries": q[o], "qseg": qseg[o].astype(np.int32) if uns
+            else None, "unsigned": uns, "expect": "window"}
+
+
+def k18_tensors(case, dev):
+    """A k18_case's table, queries, gid, starts, ends on `dev`."""
+    t = torch.from_numpy(case["table"]).to(dev)
+    q = torch.from_numpy(case["queries"]).to(dev)
+    if case["qseg"] is None:
+        return t, q, None, None, None
+    ar = np.arange(case["n_seg"])
+    starts = np.searchsorted(case["seg"], ar, "left")
+    ends = np.searchsorted(case["seg"], ar, "right")
+    return (t, q, torch.from_numpy(case["qseg"]).to(dev),
+            torch.from_numpy(starts).to(dev), torch.from_numpy(ends).to(dev))
+
+
+def k18_branches(table, queries, side, gid, starts, ends, unsigned):
+    """The tiles of one K18 call by the branch each took (K18_BRANCHES),
+    through the wrapper's launch with the diagnostic counters (no launch
+    counted); {} in a tree without them (an older checkout)."""
+    from clickhouse_tpu_torch.ops import search as search_ops
+    if not hasattr(search_ops, "_search_launch"):
+        return {}
+    counts = torch.zeros(3, dtype=torch.int64, device=table.device)
+    out = torch.empty(queries.shape[0], dtype=torch.int64,
+                      device=table.device)
+    search_ops._search_launch(table, queries, side, gid, starts, ends,
+                              unsigned, out, counts)
+    return dict(zip(K18_BRANCHES, counts.tolist()))
+
+
+def check_k18_case(name, dev):
+    """One K18_CASES case, both sides: the kernel against its plain
+    version, and its tiles in the branch the case is built for (every
+    tile, but for "unordered": at least one) -> the branch counts."""
+    from clickhouse_tpu_torch.ops.search import (_segmented_search_plain,
+                                                 segmented_search)
+    case = k18_case(name)
+    t, q, gid, starts, ends = k18_tensors(case, dev)
+    uns = case["unsigned"]
+    tiles = -(-q.shape[0] // K18_TILE)
+    for side in ("left", "right"):
+        got = segmented_search(t, q, side, gid=gid, starts=starts, ends=ends,
+                               unsigned=uns)
+        want = _segmented_search_plain(t, q, side, gid, starts, ends, uns)
+        if not torch.equal(got, want):
+            bad = int((got != want).nonzero()[0])
+            fail(f"K18 {name} side={side}: query {bad} {got[bad].item()} "
+                 f"against {want[bad].item()}")
+        br = k18_branches(t, q, side, gid, starts, ends, uns)
+        want_n = 1 if case["expect"] == "unordered" else tiles
+        if br[case["expect"]] < want_n:
+            fail(f"K18 {name} side={side}: tiles by branch {br}, expected "
+                 f"{case['expect']} for {want_n} of {tiles}")
+    return br
 
 
 def check_k18(dev):
@@ -6483,7 +6693,11 @@ def check_k18(dev):
     above and equal to their segment's keys and between them, both
     sides, signed and unsigned (values above 2^63), the one-segment form,
     segment ids outside [0, segments) (clamped), and the reference's
-    searchsorted_seg and searchsorted forms."""
+    searchsorted_seg and searchsorted forms; then K18_CASES (sorted
+    queries over one segment and many, tiles straddling segments' ends,
+    empty segments, queries at +-(2^63 - 1), one query out of order in
+    each tile, a stretch wider than the shared-memory window), each in
+    the branch it is built for."""
     from clickhouse_tpu_torch.ops import _native
     from clickhouse_tpu_torch.ops.search import (_segmented_search_plain,
                                                  searchsorted,
@@ -6554,10 +6768,12 @@ def check_k18(dev):
     if not torch.equal(searchsorted(a, v, "left").cpu(),
                        torch.searchsorted(a.cpu(), v.cpu())):
         fail("K18 searchsorted against torch.searchsorted")
+    branches = {name: check_k18_case(name, dev) for name in K18_CASES}
+    calls += 2 * len(K18_CASES)
     torch.cuda.synchronize()
     print(f"K18 segmented_search: {calls + 1} calls agree with the plain "
-          f"version; launches {_native.LAUNCHES['segmented_search']}",
-          flush=True)
+          f"version; tiles by branch (right side): {json.dumps(branches)}; "
+          f"launches {_native.LAUNCHES['segmented_search']}", flush=True)
 
 
 P_WIN = "PARTITION BY x % 1024 ORDER BY x"
@@ -6879,6 +7095,36 @@ def _window_query(s, name, sql, want, per_query, launches, launch_rows,
           f"{max(held, default=0)}", flush=True)
 
 
+K17_PASSES = {1: "reduce", 2: "carry_scan", 3: "downsweep", 0: "whole"}
+
+
+def k17_split(op, data, boundary, mask=None, reverse=False):
+    """K17 at one input taken apart: each pass of one call alone through
+    the library's chtt_segmented_scan_split (K17_PASSES; the arguments as
+    the wrapper makes them, the scratch's contents whatever the last pass
+    left), and the whole call through the same entry.  {} in a tree
+    without the entry (an older checkout)."""
+    import ctypes
+    from clickhouse_tpu_torch.ops import _native, scan_ops
+    lib = _native.library()
+    if not hasattr(lib, "chtt_segmented_scan_split") \
+            or not hasattr(scan_ops, "_scan_args"):
+        return {}
+    dev = data.device if data is not None else boundary.device
+    n = (data if data is not None else boundary).shape[0]
+    args, out, keep = scan_ops._scan_args(op, data, boundary, mask, reverse,
+                                          False, n, dev)
+
+    def part(p):
+        return lambda: _native.check(lib.chtt_segmented_scan_split(
+            ctypes.byref(args), p, _native.stream_ptr(dev)), "K17 split")
+    res = {f"{name}_ms": cuda_ms(part(p)) for p, name in K17_PASSES.items()}
+    del keep, out
+    print("K17 split (ms, each pass of one call alone): " + ", ".join(
+        f"{k[:-3]} {v:.4f}" for k, v in res.items()), flush=True)
+    return res
+
+
 def window_shapes(dev):
     """K17 and K18 alone at Qw5's and Qw3's inputs (made as the executor
     makes them, on the card): K17 the one-segment unmasked sum of Qw5's x
@@ -6886,7 +7132,8 @@ def window_shapes(dev):
     Qw5's RANGE frame's left edge (one segment) and Qw3's (a partition a
     query), each beside its plain version and a PyTorch call of the same
     function: torch.cumsum and torch.cummax for K17, torch.searchsorted
-    for K18's one-segment form."""
+    for K18's one-segment form; K17's sum also pass by pass (k17_split)
+    and K18's tiles by branch at both (k18_branches)."""
     from clickhouse_tpu_torch.ops import search as search_ops
     from clickhouse_tpu_torch.ops.scan_ops import (_segmented_scan_plain,
                                                    segmented_scan)
@@ -6909,6 +7156,7 @@ def window_shapes(dev):
         "sum", x32, None, None, False, False, N_ROWS), reps=3)
     lib_ms = cuda_ms(lambda: torch.cumsum(x32, 0))
     nb = N_ROWS * 4 + N_ROWS * 8
+    split = k17_split("sum", x32, None)
     mx_ms = cuda_ms(lambda: segmented_scan("max", x32, None))
     cummax_ms = cuda_ms(lambda: torch.cummax(x32, 0))
     # K17 at Qw1's dense_rank: a bool's sum over 1,024 partitions
@@ -6926,7 +7174,8 @@ def window_shapes(dev):
         "cummax_ms": cummax_ms, "bool_sum_ms": bool_ms,
         "bool_sum_bound_ms": bound_ms(N_ROWS * 2 * 1 + N_ROWS * 8),
         "first_index_ms": first_ms, "reverse_first_index_ms": rev_ms,
-        "first_index_bound_ms": bound_ms(N_ROWS * 1 + N_ROWS * 8)}
+        "first_index_bound_ms": bound_ms(N_ROWS * 1 + N_ROWS * 8),
+        "split": split}
     del got, want, lib, tie, pb
     # K18 at Qw5: the tokens of the sorted x, queries x - 10 (one segment)
     tok = xs ^ (-(1 << 63))
@@ -6963,10 +7212,14 @@ def window_shapes(dev):
     ms3 = cuda_ms(lambda: search_ops.segmented_search(
         tok3, q3, "left", gid=gid, starts=starts, ends=ends, unsigned=True))
     nb3 = 3 * N_ROWS * 8 + N_ROWS * 4
+    tiles5 = k18_branches(tok, q, "left", None, None, None, True)
+    tiles3 = k18_branches(tok3, q3, "left", gid, starts, ends, True)
+    print(f"K18 tiles by branch: Qw5 {tiles5}, Qw3 {tiles3}", flush=True)
     out["segmented_search"] = {
         "ms": ms, "plain_ms": plain, "bytes": nb, "bound_ms": bound_ms(nb),
         "library_ms": lib_ms, "max_abs_err": err, "qw3_ms": ms3,
-        "qw3_bytes": nb3, "qw3_bound_ms": bound_ms(nb3)}
+        "qw3_bytes": nb3, "qw3_bound_ms": bound_ms(nb3),
+        "qw5_tiles": tiles5, "qw3_tiles": tiles3}
     for k, v in out.items():
         print(f"{k} at its inputs: {json.dumps(v)}", flush=True)
     return out
@@ -7112,6 +7365,14 @@ def main():
         return
     if sys.argv[1:] == ["--sketch"]:
         sketch_turn(ch, dev)
+        return
+    if sys.argv[1:] == ["--scan-search"]:
+        # K17's and K18's cases and the two kernels at Qw5's and Qw3's
+        # inputs (no query); copied into an older checkout it times that
+        # tree alike
+        check_k17(dev)
+        check_k18(dev)
+        print(json.dumps(window_shapes(dev)), flush=True)
         return
     if sys.argv[1:] == ["--window"]:
         shapes, launches, _ = window_turn(ch, dev)

@@ -259,11 +259,11 @@ class K17Args(ctypes.Structure):
     """ChttScanArgs of csrc/segmented_scan.cu (one scan of K17)."""
     _fields_ = [("data", ctypes.c_void_p), ("boundary", ctypes.c_void_p),
                 ("mask", ctypes.c_void_p), ("out", ctypes.c_void_p),
-                ("tiles", ctypes.c_void_p), ("n", ctypes.c_longlong),
+                ("states", ctypes.c_void_p), ("n", ctypes.c_longlong),
                 ("ident", ctypes.c_ulonglong), ("op", ctypes.c_int),
                 ("acc", ctypes.c_int), ("dtype", ctypes.c_int),
                 ("out_dtype", ctypes.c_int), ("reverse", ctypes.c_int),
-                ("pad", ctypes.c_int)]
+                ("sms", ctypes.c_int)]
 
 
 class KernelBuildError(RuntimeError):
@@ -413,10 +413,14 @@ def library() -> ctypes.CDLL:
             lib.chtt_hll_finalize.restype = I
             lib.chtt_segmented_scan.argtypes = [P, P]
             lib.chtt_segmented_scan.restype = I
+            lib.chtt_segmented_scan_split.argtypes = [P, I, P]
+            lib.chtt_segmented_scan_split.restype = I
+            lib.chtt_scan_chunks.argtypes = [LL, I]
+            lib.chtt_scan_chunks.restype = LL
             lib.chtt_scan_tile_rows.argtypes = []
             lib.chtt_scan_tile_rows.restype = I
             lib.chtt_segmented_search.argtypes = [P, LL, P, LL, P, P, P, LL,
-                                                  I, I, P, P]
+                                                  I, I, P, P, P]
             lib.chtt_segmented_search.restype = I
             lib.chtt_error_string.argtypes = [I]
             lib.chtt_error_string.restype = ctypes.c_char_p

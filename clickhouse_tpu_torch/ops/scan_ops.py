@@ -867,7 +867,8 @@ def segmented_scan(op: str, data: Optional[torch.Tensor],
     -> the scanned values, one a row.
 
     A CPU tensor takes the plain version; a CUDA tensor launches the
-    kernel (three launches: tile aggregates, their scan, the downsweep).
+    kernel (three launches: the chunks' states, their scan, the
+    downsweep).
     """
     if op not in _SCAN_OP:
         raise ValueError(f"segmented_scan: op {op!r}")
@@ -898,12 +899,13 @@ def segmented_scan(op: str, data: Optional[torch.Tensor],
 
 
 def segmented_scan_bytes(n: int) -> int:
-    """Device bytes a segmented_scan call over n rows allocates: its
-    int64 output and K17's tile aggregates (16 bytes a tile)."""
+    """Device bytes a segmented_scan call over n rows allocates at most:
+    its int64 output and K17's chunk states (16 bytes a chunk, at most
+    one a warp-tile of K17_TILE_ROWS rows)."""
     return 8 * n + 16 * (-(-n // K17_TILE_ROWS) + 1)
 
 
-K17_TILE_ROWS = 4096     # kTile of csrc/segmented_scan.cu
+K17_TILE_ROWS = 512      # kWarpRows of csrc/segmented_scan.cu
 
 
 def _scan_acc(op: str, dtype: torch.dtype, unsigned: bool) -> int:
@@ -914,29 +916,42 @@ def _scan_acc(op: str, dtype: torch.dtype, unsigned: bool) -> int:
     return _ACC_U64 if unsigned and op in ("min", "max") else _ACC_I64
 
 
-def _segmented_scan_cuda(op, data, boundary, mask, reverse, unsigned, n,
-                         dev):
+def _scan_args(op, data, boundary, mask, reverse, unsigned, n, dev):
+    """K17's launch arguments over n > 0 rows -> (K17Args, out, the
+    tensors the arguments point into)."""
     dtype = data.dtype if data is not None else torch.int64
     out = torch.empty(n, dtype=scan_out_dtype(op, dtype), device=dev)
-    if n == 0:
-        return out
     acc = _scan_acc(op, dtype, unsigned)
-    tiles = -(-n // K17_TILE_ROWS)
-    scratch = torch.empty(16 * tiles, dtype=torch.uint8, device=dev)
-    data = data.contiguous() if data is not None else None
-    boundary = boundary.contiguous() if boundary is not None else None
-    mask = mask.contiguous() if mask is not None else None
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    chunks = _native.library().chtt_scan_chunks(n, sms)
+    scratch = torch.empty(16 * chunks, dtype=torch.uint8, device=dev)
+    # the kernel reads 16-byte vectors
+    data, boundary, mask = (_native.aligned16(t.contiguous())
+                            if t is not None else None
+                            for t in (data, boundary, mask))
     args = _native.K17Args(
         data=data.data_ptr() if data is not None else None,
         boundary=boundary.data_ptr() if boundary is not None else None,
         mask=mask.data_ptr() if mask is not None else None,
-        out=out.data_ptr(), tiles=scratch.data_ptr(), n=n,
+        out=out.data_ptr(), states=scratch.data_ptr(), n=n,
         ident=_scan_ident(op, dtype, unsigned) & 0xFFFFFFFFFFFFFFFF,
         op=_SCAN_OP[op], acc=acc,
         dtype=_native.dtype_code(dtype) if data is not None else -1,
-        out_dtype=_native.dtype_code(out.dtype), reverse=int(reverse))
+        out_dtype=_native.dtype_code(out.dtype), reverse=int(reverse),
+        sms=sms)
+    return args, out, (data, boundary, mask, scratch)
+
+
+def _segmented_scan_cuda(op, data, boundary, mask, reverse, unsigned, n,
+                         dev):
+    if n == 0:
+        dtype = data.dtype if data is not None else torch.int64
+        return torch.empty(0, dtype=scan_out_dtype(op, dtype), device=dev)
+    args, out, keep = _scan_args(op, data, boundary, mask, reverse,
+                                 unsigned, n, dev)
     rc = _native.library().chtt_segmented_scan(
         ctypes.byref(args), _native.stream_ptr(dev))
+    del keep
     _native.check(rc, "segmented_scan")
     _native.count_launch("segmented_scan", n)
     return out

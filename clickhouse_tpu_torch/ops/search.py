@@ -5,11 +5,12 @@ costs tens of nanoseconds, so the reference finds positions with sorts:
 ``searchsorted_via_sort`` (:31) and ``searchsorted_seg`` (:52) sort the
 table and the queries together and count the table entries before each
 query, and ``searchsorted`` (:77) takes that route from 2^18 queries on.
-The card reads at random well, so every one of them is K18 here: one
-binary search a query, within the query's own segment of the table
-(``segmented_search``), or within the whole table.  The answers are the
-reference's: ``searchsorted_via_sort``'s observable result is
-``searchsorted``'s, so it has no entry of its own.
+Every one of them is K18 here: each query's binary search within its own
+segment of the table (``segmented_search``), or within the whole table;
+a tile of sorted queries searches one stretch of the table copied into
+shared memory.  The answers are the reference's:
+``searchsorted_via_sort``'s observable result is ``searchsorted``'s, so
+it has no entry of its own.
 
 A CPU tensor takes the plain version (``torch.searchsorted`` over one
 segment, a vectorised bisection over many); a CUDA tensor launches the
@@ -72,26 +73,39 @@ def segmented_search(table: torch.Tensor, queries: torch.Tensor,
 
 def _segmented_search_cuda(table, queries, side, gid, starts, ends,
                            unsigned):
-    dev = table.device
     n_q = queries.shape[0]
-    out = torch.empty(n_q, dtype=torch.int64, device=dev)
+    out = torch.empty(n_q, dtype=torch.int64, device=table.device)
     if n_q == 0:
         return out
-    table, queries = table.contiguous(), queries.contiguous()
+    _search_launch(table, queries, side, gid, starts, ends, unsigned, out)
+    _native.count_launch("segmented_search", n_q)
+    return out
+
+
+def _search_launch(table, queries, side, gid, starts, ends, unsigned, out,
+                   counts=None):
+    """One K18 launch into `out`.  counts: None, or an int64 tensor of 3
+    to which each block of 2,048 queries adds one for the branch it took
+    (the shared-memory window, queries out of order, a stretch wider than
+    the window): a diagnostic the main path never passes."""
+    dev = table.device
+    table = table.contiguous()
+    # the kernel reads the queries and segment ids as 16-byte vectors
+    queries = _native.aligned16(queries.contiguous())
     if gid is not None:
-        gid, starts, ends = gid.contiguous(), starts.contiguous(), \
-            ends.contiguous()
+        gid = _native.aligned16(gid.contiguous())
+        starts, ends = starts.contiguous(), ends.contiguous()
     rc = _native.library().chtt_segmented_search(
-        table.data_ptr(), table.shape[0], queries.data_ptr(), n_q,
+        table.data_ptr(), table.shape[0], queries.data_ptr(),
+        queries.shape[0],
         gid.data_ptr() if gid is not None else None,
         starts.data_ptr() if gid is not None else None,
         ends.data_ptr() if gid is not None else None,
         starts.shape[0] if gid is not None else 0,
         int(side == "right"), int(unsigned), out.data_ptr(),
+        counts.data_ptr() if counts is not None else None,
         _native.stream_ptr(dev))
     _native.check(rc, "segmented_search")
-    _native.count_launch("segmented_search", n_q)
-    return out
 
 
 def _segmented_search_plain(table, queries, side, gid, starts, ends,

@@ -1397,6 +1397,82 @@ def test_segmented_scan_matches_plain(dev, name, layout, reverse):
             k17_agree(op, got, want, data, boundary, mask, reverse)
 
 
+@pytest.mark.parametrize("n", [513, 3 * 512 + 17])
+@pytest.mark.parametrize("name", ["bool", "int8", "uint8", "int16", "int32",
+                                  "int64", "uint64", "float32", "float64",
+                                  "row_index"])
+def test_segmented_scan_instances(dev, name, n):
+    """Every K17 kernel instance (chip_smoke.K17_DTYPES, every op) with
+    and without boundaries (at every 512-row warp-tile's first and last
+    row) and a mask, both directions, at a warp-tile and a row and at
+    three warp-tiles and 17 rows, against the plain version
+    (chip_smoke.k17_agree)."""
+    from chip_smoke import (K17_TILE, k17_agree, k17_boundary, k17_calls,
+                            k17_mask, k17_values)
+    from clickhouse_tpu_torch.ops.scan_ops import (_segmented_scan_plain,
+                                                   segmented_scan)
+    assert _native.library().chtt_scan_tile_rows() == K17_TILE
+    rng = np.random.default_rng(n + len(name))
+    data, uns = k17_values(rng, name, n, dev)
+    for layout in ("one_segment", "tile_edges"):
+        boundary = k17_boundary(rng, layout, n, dev)
+        for mkind in ("none", "random"):
+            mask = k17_mask(rng, mkind, n, dev)
+            for op, reverse in k17_calls(data, boundary, mask):
+                got = segmented_scan(op, data, boundary, mask,
+                                     reverse=reverse, unsigned=uns)
+                want = _segmented_scan_plain(op, data, boundary, mask,
+                                             reverse, uns, n)
+                k17_agree(op, got, want, data, boundary, mask, reverse)
+
+
+@pytest.mark.parametrize("name", ["int32", "uint64", "float64", "row_index"])
+def test_segmented_scan_chunk_edges(dev, name):
+    """K17 over chip_smoke.K17_CHUNK_ROWS rows, chunks of several
+    warp-tiles each, with boundaries at every chunk's first and last row,
+    masks of none and some rows, against the plain version."""
+    from chip_smoke import (K17_CHUNK_ROWS, k17_agree, k17_boundary,
+                            k17_calls, k17_chunk_rows, k17_mask, k17_values)
+    from clickhouse_tpu_torch.ops.scan_ops import (_segmented_scan_plain,
+                                                   segmented_scan)
+    n = K17_CHUNK_ROWS
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    rng = np.random.default_rng(len(name))
+    data, uns = k17_values(rng, name, n, dev)
+    boundary = k17_boundary(rng, "chunk_edges", n, dev,
+                            k17_chunk_rows(n, sms))
+    for mkind in ("none", "random"):
+        mask = k17_mask(rng, mkind, n, dev)
+        for op, reverse in k17_calls(data, boundary, mask):
+            got = segmented_scan(op, data, boundary, mask, reverse=reverse,
+                                 unsigned=uns)
+            want = _segmented_scan_plain(op, data, boundary, mask, reverse,
+                                         uns, n)
+            k17_agree(op, got, want, data, boundary, mask, reverse)
+
+
+def test_segmented_scan_float_sum_repeats(dev):
+    """A float64 sum with boundaries repeats bit for bit (K17 adds in a
+    fixed order), over one chunk and over many."""
+    from chip_smoke import K17_CHUNK_ROWS, k17_float_repeats
+    k17_float_repeats(dev, 100_003)
+    k17_float_repeats(dev, K17_CHUNK_ROWS)
+
+
+@pytest.mark.parametrize("name", ["one_segment_sorted",
+                                  "many_segments_sorted", "straddle",
+                                  "sparse_wide", "one_out_of_order",
+                                  "empty_segments", "extremes",
+                                  "extremes_unsigned"])
+def test_segmented_search_cases(dev, name):
+    """K18 over chip_smoke.K18_CASES, both sides, against the plain
+    version, each case's tiles in the branch it is built for (the
+    shared-memory window, queries out of order, a stretch wider than the
+    window: chip_smoke.check_k18_case)."""
+    from chip_smoke import check_k18_case
+    check_k18_case(name, dev)
+
+
 def test_segmented_scan_launches_once_a_call(dev):
     from clickhouse_tpu_torch.ops.scan_ops import segmented_scan
     _native.reset_launches()

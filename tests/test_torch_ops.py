@@ -1677,6 +1677,35 @@ def _np_seen(boundary, mask, reverse):
     return seen[::-1] if reverse else seen
 
 
+def _assert_scan_like_reference(op, x, boundary, mask, reverse, got):
+    """The port's scan `got` of numpy values x against the reference's
+    running_reduce over the same rows (the comparison the header above
+    states)."""
+    n = len(x)
+    # the reference's min and max take no bool (iinfo): its uint8
+    ref_x = x.astype(np.uint8) if x.dtype == bool and op in (
+        "min", "max") else x
+    want = _ref_scan(op, ref_x, boundary, mask, reverse)
+    g = tdt.to_numpy_storage(got, want.dtype if ref_x is x else x.dtype)
+    keep = np.ones(n, bool)
+    if op in ("min", "max") and mask is not None:
+        keep = _np_seen(boundary, mask, reverse)
+    g, w = g[keep], want[keep]
+    if w.dtype.kind != "f":
+        assert g.astype(w.dtype).tolist() == w.tolist()
+        return
+    g64, w64 = g.astype(np.float64), w.astype(np.float64)
+    assert np.isnan(g64).tolist() == np.isnan(w64).tolist()
+    ok = ~np.isnan(w64)
+    if op != "sum":
+        assert g64[ok].tolist() == w64[ok].tolist()
+        return
+    absx = np.nan_to_num(np.abs(x.astype(np.float64)))
+    scale = _ref_scan("sum", absx, boundary, mask, reverse)[keep]
+    eps = np.finfo(x.dtype).eps
+    assert (np.abs(g64 - w64)[ok] <= n * eps * scale[ok] + 1e-300).all()
+
+
 @pytest.mark.parametrize("reverse", [False, True])
 @pytest.mark.parametrize("op", ["sum", "min", "max", "first", "last"])
 @pytest.mark.parametrize("name", SCAN_DTYPES)
@@ -1689,31 +1718,42 @@ def test_running_reduce_matches_reference(name, op, reverse):
     boundary = rng.random(n) < 0.03
     boundary[0] = True
     for mask in (None, rng.random(n) < 0.6):
-        # the reference's min and max take no bool (iinfo): its uint8
-        ref_x = x.astype(np.uint8) if name == "bool" and op in (
-            "min", "max") else x
-        want = _ref_scan(op, ref_x, boundary, mask, reverse)
         got = tscan.running_reduce(
             op, _t(x), _t(boundary), None if mask is None else _t(mask),
             reverse=reverse, unsigned=x.dtype == np.uint64)
-        g = tdt.to_numpy_storage(got, want.dtype if ref_x is x else x.dtype)
-        keep = np.ones(n, bool)
-        if op in ("min", "max") and mask is not None:
-            keep = _np_seen(boundary, mask, reverse)
-        g, w = g[keep], want[keep]
-        if w.dtype.kind != "f":
-            assert g.astype(w.dtype).tolist() == w.tolist()
-            continue
-        g64, w64 = g.astype(np.float64), w.astype(np.float64)
-        assert np.isnan(g64).tolist() == np.isnan(w64).tolist()
-        ok = ~np.isnan(w64)
-        if op != "sum":
-            assert g64[ok].tolist() == w64[ok].tolist()
-            continue
-        absx = np.nan_to_num(np.abs(x.astype(np.float64)))
-        scale = _ref_scan("sum", absx, boundary, mask, reverse)[keep]
-        eps = np.finfo(x.dtype).eps
-        assert (np.abs(g64 - w64)[ok] <= n * eps * scale[ok] + 1e-300).all()
+        _assert_scan_like_reference(op, x, boundary, mask, reverse, got)
+
+
+@pytest.mark.parametrize("layout", ["tile_edges", "one_row_segments",
+                                    "one_segment"])
+@pytest.mark.parametrize("name", ["bool", "int8", "uint8", "int16", "int32",
+                                  "int64", "uint64", "float32", "float64",
+                                  "row_index"])
+def test_scan_cases_match_reference(name, layout):
+    """chip_smoke's K17 case builders (k17_values, k17_boundary,
+    k17_mask: every K17_DTYPES entry, NaN and -0.0, UInt64 bits above
+    2^63) over 1,500 rows (two of K17's warp-tiles and part of a third;
+    the length of the test above, whose compiled reference scans it
+    shares), through K17's plain version against the reference's
+    running_reduce: every op both ways, masks of none, some and every
+    row.  The cases the card holds K17 to are so known right first."""
+    from chip_smoke import k17_boundary, k17_calls, k17_mask, k17_values
+    rng = np.random.default_rng(len(name) * 3 + len(layout))
+    n = 1500
+    data, uns = k17_values(rng, name, n, "cpu")
+    b = k17_boundary(rng, layout, n, "cpu")
+    x = np.arange(n, dtype=np.int64) if data is None else data.numpy()
+    if uns:
+        x = x.view(np.uint64)
+    boundary = np.zeros(n, bool) if b is None else b.numpy().copy()
+    boundary[0] = True
+    for mkind in ("none", "random", "all_masked"):
+        mask = k17_mask(rng, mkind, n, "cpu")
+        m = None if mask is None else mask.numpy()
+        for op, reverse in k17_calls(data, b, mask):
+            got = tscan._segmented_scan_plain(op, data, b, mask, reverse,
+                                              uns, n)
+            _assert_scan_like_reference(op, x, boundary, m, reverse, got)
 
 
 def test_segmented_scan_row_index():
@@ -1755,6 +1795,40 @@ def test_searchsorted_seg_matches_reference(name, side):
     got1 = tsearch.searchsorted(_t(a), _t(qkey), side,
                                 unsigned=name == "uint64")
     assert got1.tolist() == want1.astype(np.int64).tolist()
+
+
+@pytest.mark.parametrize("side", ["left", "right"])
+@pytest.mark.parametrize("name", ["one_segment_sorted",
+                                  "many_segments_sorted", "straddle",
+                                  "sparse_wide", "one_out_of_order",
+                                  "empty_segments", "extremes",
+                                  "extremes_unsigned"])
+def test_search_cases_match_reference(name, side):
+    """chip_smoke's K18 cases (k18_case at its CPU size: sorted queries
+    over one segment and many, tiles straddling segments' ends, a stretch
+    wider than K18's window, a query out of order in every tile, empty
+    segments, queries at +-(2^63 - 1)) through K18's plain version against
+    the reference's searchsorted_seg (searchsorted for the one-segment
+    form), exactly.  The cases the card holds K18 to are so known right
+    first."""
+    from chip_smoke import k18_case, k18_tensors
+    from clickhouse_tpu.ops import search as jsearch
+    from clickhouse_tpu_torch.ops import search as tsearch
+    case = k18_case(name, small=True)
+    t, q, gid, starts, ends = k18_tensors(case, "cpu")
+    got = tsearch._segmented_search_plain(t, q, side, gid, starts, ends,
+                                          case["unsigned"])
+    key, qkey = case["table"], case["queries"]
+    if case["unsigned"]:
+        key, qkey = key.view(np.uint64), qkey.view(np.uint64)
+    if gid is None:
+        want = jsearch.searchsorted(jnp.asarray(key), jnp.asarray(qkey),
+                                    side=side)
+    else:
+        want = jsearch.searchsorted_seg(
+            jnp.asarray(case["seg"].astype(np.int32)), jnp.asarray(key),
+            jnp.asarray(case["qseg"]), jnp.asarray(qkey), side=side)
+    assert got.tolist() == np.asarray(want).astype(np.int64).tolist()
 
 
 def test_segmented_search_clamps_segment_ids():
