@@ -34,6 +34,11 @@
                                       # queries Qw1-Qw5, Qr1-Qr3, Qi1-Qi2
                                       # over hits, their times, and K17
                                       # and K18 at Qw5's and Qw3's inputs
+    python3 chip_smoke.py --tail      # only the executor tail: K9 and
+                                      # K18 at its shapes, ARRAY JOIN,
+                                      # FINAL, ASOF, WITH FILL and WITH
+                                      # RECURSIVE at full size (TAIL_QUERIES)
+                                      # and the tail kernels at their inputs
     python3 chip_smoke.py --scan-search  # only K17's and K18's cases and
                                       # the two kernels at Qw5's and Qw3's
                                       # inputs (an older checkout's alike)
@@ -253,6 +258,16 @@ non-zero without them.  Phases, each of which fails the run:
      fill of the kept slots (the phase split; k14_time) (K14's cases of
      K14_CASES run in phase 2).
 
+  6. (before 5, after the kernel times) the executor tail (tail_phase):
+     K9 at ARRAY JOIN's shape and K18 at ASOF's against their plain
+     versions; arr (25M rows of ragged arrays, 87.5M elements), rmt and
+     rmtv (100M rows each in four inserts), smt, cmt and vcmt (cut to
+     25M rows here; 100M under --tail), quotes (10M), trades (100M) and
+     tree (2^20 - 1 nodes); Qa1-Qa4, Qf1-Qf5, Qj1-Qj2, Qfill and
+     Qrec1-Qrec2 against numpy, each launching TAIL_PATHS; their times;
+     K4, K5, K6 (both entries), K8, K9, K17 and K18 replayed at those
+     queries' inputs (the tail_* keys of the kernels line).
+
 The second-to-last line is a JSON object of per-kernel results (name,
 route, source, replaces, launches, ms, plain_ms, bound_ms, bound_by,
 library_ms, ...); the last line is {"ok": true, "device": {...}}.
@@ -382,7 +397,11 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 L2_FLUSH_BYTES = 128 << 20  # > the H100's 50 MB L2
 SLEEP_CYCLES = 1_000_000    # ~0.5 ms of device time to cover host enqueue
 # per-kernel keys of the kernels line beyond the contract's
-EXTRA_KEYS = ("k1_count_ms", "fill_ms", "q5h_ms", "q5h_plain_ms",
+EXTRA_KEYS = ("tail_ms", "tail_plain_ms", "tail_library_ms",
+              "tail_bytes", "tail_bound_ms", "tail_shape",
+              "tail_sorted_ms", "tail_sorted_plain_ms",
+              "tail_sorted_bytes", "tail_sorted_bound_ms",
+              "tail_sorted_shape", "k1_count_ms", "fill_ms", "q5h_ms", "q5h_plain_ms",
               "q5h_library_ms", "q5h_k1_count_ms", "q5h_fill_ms",
               "q5h_bytes", "q5h_bound_ms", "q5h_shape", "dense_ms",
               "dense_plain_ms", "dense_library_ms", "dense_k1_count_ms",
@@ -7267,6 +7286,702 @@ def window_turn(ch, dev, s=None, want=None):
     return shapes, launches, launch_rows
 
 
+# -- the executor tail: ARRAY JOIN, FINAL, ASOF, WITH FILL, WITH RECURSIVE --
+
+N_ARR = 25_000_000          # arr: 87.5M array elements (lengths i % 8)
+N_FINAL = 100_000_000       # each MergeTree-family table, four inserts
+N_FINAL_CUT = 25_000_000    # smt, cmt and vcmt in the whole smoke
+FINAL_PARTS = 4
+FINAL_P = 10_000_019        # k = (i * 2654435761) % FINAL_P: ~10 rows a key
+FINAL_TABLES = (("rmt", "ReplacingMergeTree", False),
+                ("rmtv", "ReplacingMergeTree(v)", False),
+                ("smt", "SummingMergeTree", True),
+                ("cmt", "CollapsingMergeTree(sign)", True),
+                ("vcmt", "VersionedCollapsingMergeTree(sign, ver)", True))
+N_QUOTES = 10_000_000
+N_TRADES = 100_000_000
+N_SYMS = 10_000
+TREE_LEVELS = 20            # tree: 2^20 - 1 = 1,048,575 nodes
+TAIL_BUDGET = 40 << 30      # max_device_memory_bytes for the tail queries
+TAIL_REPS = 3               # timed and traced runs of each tail query
+TAIL_QUERIES = (
+    ("Qa1", "SELECT tag, count() FROM arr ARRAY JOIN tags AS tag GROUP BY "
+            "tag ORDER BY count() DESC, tag LIMIT 10"),
+    ("Qa2", "SELECT sum(t * x) FROM arr ARRAY JOIN tags AS t, w AS x"),
+    ("Qa3", "SELECT count(), sum(id) FROM arr LEFT ARRAY JOIN tags AS t "
+            "WHERE t = 0"),
+    ("Qa4", "SELECT sum(arraySum(w)), countIf(has(tags, 7)), "
+            "sum(indexOf(tags, 7)) FROM arr"),
+    ("Qf1", "SELECT count(), sum(p) FROM rmt FINAL"),
+    ("Qf2", "SELECT count(), sum(p) FROM rmtv FINAL"),
+    ("Qf3", "SELECT count(), sum(p), sum(v) FROM smt FINAL"),
+    ("Qf4", "SELECT count(), sum(p) FROM cmt FINAL"),
+    ("Qf5", "SELECT count(), sum(p) FROM vcmt FINAL"),
+    ("Qj1", "SELECT count(), sum(q.px) FROM trades t ASOF JOIN quotes q "
+            "ON t.sym = q.sym AND t.ts >= q.ts"),
+    ("Qj2", "SELECT count(), sum(q.px) FROM trades t ASOF LEFT JOIN quotes q "
+            "ON t.sym = q.sym AND t.ts < q.ts"),
+    # the grid runs from b's least value over 10,001 points: more than the
+    # default fill_max_rows (8,192), which would cut it
+    ("Qfill", "SELECT intDiv(x, 100) AS b, count() FROM hits "
+              "WHERE x % 200 < 100 GROUP BY b ORDER BY b WITH FILL STEP 1 "
+              "SETTINGS fill_max_rows = 16384"),
+    ("Qrec1", "WITH RECURSIVE sub AS (SELECT id FROM tree WHERE id = 0 "
+              "UNION ALL SELECT tree.id FROM tree JOIN sub "
+              "ON tree.parent = sub.id) SELECT count(), sum(id) FROM sub"),
+    ("Qrec2", "WITH RECURSIVE r AS (SELECT 1 AS n UNION ALL SELECT n + 1 "
+              "FROM r WHERE n < 100) SELECT count(), sum(n) FROM r"))
+# settings of every tail query, and the FINAL queries' (about 10M keys:
+# more than the default max_groups, which would re-plan once)
+TAIL_SETTINGS = {"max_device_memory_bytes": TAIL_BUDGET}
+FINAL_SETTINGS = {"max_groups": 1 << 24}
+# the ARRAY JOIN queries' budget: the governor's estimate (the
+# reference's: 16 rows an input row, 128 bytes an array field) counts
+# 400M rows of 132-260 bytes, 52-104 GB, above the card's 80 GB
+ARRAY_JOIN_BUDGET = 1 << 37
+
+
+def tail_settings(name, sql):
+    """The settings a tail query runs with."""
+    cfg = dict(TAIL_SETTINGS)
+    if " FINAL" in sql:
+        cfg.update(FINAL_SETTINGS)
+    if "ARRAY JOIN" in sql:
+        cfg["max_device_memory_bytes"] = ARRAY_JOIN_BUDGET
+    return cfg
+_SORT_GROUPING = ("radix_sort_pairs", "segment_bounds")
+# kernels each tail query must launch (at least once each)
+TAIL_PATHS = {
+    "Qa1": ("expand_matches",) + _SORT_GROUPING,
+    "Qa2": ("expand_matches", "masked_reduce"),
+    "Qa3": ("expand_matches", "masked_reduce"),
+    "Qa4": ("masked_reduce",),
+    "Qf1": _SORT_GROUPING + ("masked_reduce",),
+    "Qf2": _SORT_GROUPING + ("masked_reduce",),
+    "Qf3": _SORT_GROUPING + ("segment_reduce", "masked_reduce"),
+    "Qf4": _SORT_GROUPING + ("segment_reduce_sorted", "masked_reduce"),
+    "Qf5": _SORT_GROUPING + ("segment_reduce_sorted", "segmented_scan",
+                             "masked_reduce"),
+    "Qj1": _SORT_GROUPING + ("hash_join", "segmented_search",
+                             "masked_reduce"),
+    "Qj2": _SORT_GROUPING + ("hash_join", "segmented_search",
+                             "masked_reduce"),
+    "Qfill": ("dense_group_reduce", "radix_sort_pairs"),
+    "Qrec1": ("masked_reduce",),
+    "Qrec2": ("masked_reduce",)}
+# the tail kernels whose main-path inputs are replayed, and the query
+# that gives them (tail_shapes)
+TAIL_CAPTURE = {"expand_matches": "Qa2", "radix_sort_pairs": "Qf1",
+                "segment_bounds": "Qf1", "segment_reduce": "Qf3",
+                "segment_reduce_sorted": "Qf4", "segmented_scan": "Qf5",
+                "segmented_search": "Qj1", "hash_join": "Qj1"}
+K9_ZERO_START_ROWS = (1, 4095, 4096, 4097, 1_000_003)
+K18_QUERY_SEGMENT_ROWS = (1, 2047, 2049, 1_000_003)
+
+
+def arr_columns(n=None):
+    """arr's columns: id = i, tags[i] = [(i * 31 + j * 7) % 10000 for j <
+    i % 8], w[i][j] = (i + 3 j) % 101 - 50, as ArrayRows (a padded matrix
+    and its lengths)."""
+    from clickhouse_tpu_torch.core.column import ArrayRows
+    n = N_ARR if n is None else n
+    i = np.arange(n, dtype=np.int32)          # i * 31 + 49 < 2^31
+    lens = i % 8
+    j = np.arange(8, dtype=np.int32)
+    inside = j[None, :] < lens[:, None]
+    tags = np.where(inside, (i[:, None] * 31 + j[None, :] * 7) % 10000, 0)
+    w = np.where(inside, (i[:, None] + 3 * j[None, :]) % 101 - 50, 0)
+    return {"id": i.astype(np.uint32),
+            "tags": ArrayRows(tags.astype(np.uint32), lens),
+            "w": ArrayRows(w, lens)}
+
+
+def arr_answers(n=None):
+    """Qa1-Qa4 over arr from numpy, an element position j at a time."""
+    n = N_ARR if n is None else n
+    i = np.arange(n, dtype=np.int32)
+    lens = i % 8
+    counts = np.zeros(10000, np.int64)
+    qa2 = 0
+    zero_rows = int((lens == 0).sum())
+    zero_ids = int(i[lens == 0].astype(np.int64).sum())
+    wsum = 0
+    first7 = np.zeros(n, np.int8)
+    for j in range(8):
+        inside = lens > j
+        t = ((i * 31 + j * 7) % 10000)[inside]
+        x = ((i + 3 * j) % 101 - 50)[inside]
+        counts += np.bincount(t, minlength=10000)
+        qa2 += int(np.dot(t.astype(np.int64), x.astype(np.int64)))
+        zero = t == 0
+        zero_rows += int(zero.sum())
+        zero_ids += int(i[inside][zero].astype(np.int64).sum())
+        wsum += int(x.sum(dtype=np.int64))
+        rows7 = np.flatnonzero(inside)[t == 7]
+        rows7 = rows7[first7[rows7] == 0]
+        first7[rows7] = j + 1
+    tags = np.arange(10000)
+    o = np.lexsort((tags, -counts))[:10]
+    return {"Qa1": [(int(t), int(c)) for t, c in zip(tags[o], counts[o])],
+            "Qa2": [(qa2,)], "Qa3": [(zero_rows, zero_ids)],
+            "Qa4": [(wsum, int((first7 > 0).sum()),
+                     int(first7.sum(dtype=np.int64)))]}
+
+
+def final_columns(n=None):
+    """The MergeTree-family tables' columns: k = (i * 2654435761) %
+    FINAL_P, v = (i * 7919) % 1000, p = (i * 40503) % 2000003 - 1000001,
+    sign +1 with probability 0.7 (seed 23), ver = (i * 13) % 3."""
+    n = N_FINAL if n is None else n
+    i = np.arange(n, dtype=np.int64)
+    sign = np.where(np.random.default_rng(23).random(n) < 0.7, 1,
+                    -1).astype(np.int8)
+    return {"k": ((i * 2654435761) % FINAL_P).astype(np.uint32),
+            "v": ((i * 7919) % 1000).astype(np.uint32),
+            "p": (i * 40503) % 2000003 - 1000001, "sign": sign,
+            "ver": ((i * 13) % 3).astype(np.uint8)}
+
+
+def final_answers(cols, n, names=("rmt", "rmtv", "smt", "cmt", "vcmt")):
+    """The FINAL answers of the tables `names` over the first n rows from
+    numpy (table -> row of Qf1-Qf5).  Row i's key is i %
+    FINAL_P's image under a bijection, so the rows laid out as a (rows /
+    FINAL_P, FINAL_P) matrix hold a key a column, oldest first (narrow
+    matrices; p is read only at the kept rows)."""
+    P = FINAL_P
+    R = -(-n // P)
+    pad = R * P - n
+
+    def mat(a, fill, dtype):
+        return np.concatenate([a[:n].astype(dtype, copy=False),
+                               np.full(pad, fill, dtype)]).reshape(R, P)
+
+    def p_at(r, c):                   # p of the rows (r, c)
+        return int(cols["p"][r.astype(np.int64) * P + c].sum())
+    valid = mat(np.ones(n, bool), False, bool)
+    keys = min(n, P)                  # row 0 of a column is its oldest
+    c = np.arange(P)
+    rr = np.arange(R, dtype=np.int8)[:, None]
+    out = {}
+    # Replacing: each key's newest row, the last P rows; (v): its highest
+    # v, the newest at ties
+    out["rmt"] = (keys, int(cols["p"][max(n - P, 0):n].sum()))
+    if "rmtv" in names:
+        v = mat(cols["v"], -1, np.int16)
+        best = R - 1 - np.argmax(v[::-1], axis=0)
+        del v
+        out["rmtv"] = (keys, p_at(best[:keys], c[:keys]))
+    out["smt"] = (keys, int(cols["p"][:n].sum()),
+                  int(cols["v"][:n].sum(dtype=np.int64)))
+    if "cmt" not in names and "vcmt" not in names:
+        return out
+    s = mat(cols["sign"], 0, np.int8)
+    isp, isn = s > 0, s < 0
+    pc, nc = isp.sum(0, dtype=np.int16), isn.sum(0, dtype=np.int16)
+    last_pos = np.where(isp, rr, np.int8(-1)).max(0)
+    first_neg = np.where(isn, rr, np.int8(R)).min(0)
+    last_row = np.where(valid, rr, np.int8(-1)).max(0)
+    keepable = (((last_pos == last_row) & (pc > 0)) | (pc != nc)) \
+        & ((pc > 0) | (nc > 0))
+    kneg = keepable & (pc <= nc) & (nc > 0)
+    kpos = keepable & (pc >= nc) & (pc > 0)
+    out["cmt"] = (int(kneg.sum() + kpos.sum()),
+                  p_at(first_neg[kneg], c[kneg]) + p_at(last_pos[kpos],
+                                                        c[kpos]))
+    ver = mat(cols["ver"], 255, np.uint8)
+    count = total = 0
+    for vv in range(3):
+        m = ver == vv
+        sp, sn = m & isp, m & isn
+        surplus = sp.sum(0, dtype=np.int16) - sn.sum(0, dtype=np.int16)
+        major = np.where(surplus > 0, sp, sn & (surplus < 0))
+        from_end = np.cumsum(major[::-1], axis=0, dtype=np.int16)[::-1]
+        keep = major & (from_end <= np.abs(surplus))
+        r, cc = np.nonzero(keep)
+        count += len(r)
+        total += p_at(r, cc)
+    out["vcmt"] = (count, total)
+    return out
+
+
+def asof_columns():
+    """quotes: sym = i % N_SYMS, ts = 10 i, px = (7 i + i // N_SYMS) % 1000
+    + 1 (a symbol's quotes differ); trades: sym = (7919 i) % N_SYMS
+    (symbols interleaved), ts = i (in time order)."""
+    qi = np.arange(N_QUOTES, dtype=np.int64)
+    ti = np.arange(N_TRADES, dtype=np.int64)
+    return ({"sym": (qi % N_SYMS).astype(np.uint16), "ts": qi * 10,
+             "px": ((qi * 7 + qi // N_SYMS) % 1000 + 1).astype(np.int32)},
+            {"sym": (((ti % N_SYMS) * 7919) % N_SYMS).astype(np.uint16),
+             "ts": ti})
+
+
+def asof_answers():
+    """Qj1 and Qj2 from numpy: a symbol's m-th quote is row sym + N_SYMS m,
+    at ts 10 sym + 10 N_SYMS m (m < N_QUOTES / N_SYMS), so a trade's last
+    quote at or before it and first quote after it are closed forms
+    (int32: every value stays below 2^31)."""
+    ti = np.arange(N_TRADES, dtype=np.int32)
+    sym = ((ti % N_SYMS) * 7919) % N_SYMS
+    per = N_QUOTES // N_SYMS
+    d = ti - 10 * sym
+    del ti
+    m = d // (10 * N_SYMS)              # last m with quote ts <= t.ts
+    def px(mm):                          # the quote sym + N_SYMS mm's
+        return (7 * (sym + N_SYMS * mm) + mm) % 1000 + 1
+    hit = d >= 0
+    px1 = px(np.minimum(m, per - 1))
+    qj1 = (int(hit.sum()), int(px1[hit].sum(dtype=np.int64)))
+    m += 1                               # first m with quote ts > t.ts
+    hit2 = m < per
+    px2 = px(np.minimum(m, per - 1))
+    return {"Qj1": [qj1],
+            "Qj2": [(N_TRADES, int(px2[hit2].sum(dtype=np.int64)))]}
+
+
+def tail_hits_answers(x):
+    """Qfill over hits' x from numpy: the counts of each even b =
+    intDiv(x, 100) with x % 200 < 100, and 0 at each odd b between."""
+    b = x[x % 200 < 100] // 100
+    counts = np.bincount(b)
+    return {"Qfill": [(int(v), int(counts[v]) if v < len(counts) else 0)
+                      for v in range(int(b.min()), int(b.max()) + 1)]}
+
+
+def load_tail_tables(s, cut):
+    """arr, the five MergeTree-family tables (four inserts each; smt, cmt
+    and vcmt at N_FINAL_CUT rows where `cut`), quotes, trades and tree in
+    session s, their device blocks built.  -> numpy's answers."""
+    t0 = time.perf_counter()
+    s.execute("CREATE TABLE arr (id UInt32, tags Array(UInt32), "
+              "w Array(Int32))")
+    s.insert_pydict("arr", arr_columns())
+    want = arr_answers()
+    cols = final_columns()
+    for name, engine, short in FINAL_TABLES:
+        n = N_FINAL_CUT if cut and short else N_FINAL
+        s.execute(f"CREATE TABLE {name} (k UInt32, v UInt32, p Int64, "
+                  f"sign Int8, ver UInt8) ENGINE = {engine} ORDER BY k")
+        step = n // FINAL_PARTS
+        for a in range(0, n, step):
+            s.insert_pydict(name, {c: v[a:min(a + step, n)]
+                                   for c, v in cols.items()})
+    sizes = {}
+    for name, _, short in FINAL_TABLES:
+        sizes.setdefault(N_FINAL_CUT if cut and short else N_FINAL,
+                         []).append(name)
+    answers = {n_: final_answers(cols, n_, names)
+               for n_, names in sizes.items()}
+    for q, (name, _, short) in zip(("Qf1", "Qf2", "Qf3", "Qf4", "Qf5"),
+                                   FINAL_TABLES):
+        n = N_FINAL_CUT if cut and short else N_FINAL
+        want[q] = [answers[n][name]]
+        print(f"{q}: {name} holds {n} rows", flush=True)
+    del cols, answers
+    quotes, trades = asof_columns()
+    s.execute("CREATE TABLE quotes (sym UInt16, ts Int64, px Int32)")
+    s.insert_pydict("quotes", quotes)
+    s.execute("CREATE TABLE trades (sym UInt16, ts Int64)")
+    s.insert_pydict("trades", trades)
+    del quotes, trades
+    want.update(asof_answers())
+    ids = np.arange((1 << TREE_LEVELS) - 1, dtype=np.int64)
+    s.execute("CREATE TABLE tree (id Int64, parent Int64)")
+    s.insert_pydict("tree", {"id": ids, "parent": (ids - 1) // 2})
+    want["Qrec1"] = [(len(ids), int(ids.sum()))]
+    want["Qrec2"] = [(100, 5050)]
+    for name in ("arr", "rmt", "rmtv", "smt", "cmt", "vcmt", "quotes",
+                 "trades", "tree"):
+        s.catalog.get_table("default", name).read_block()
+    if s.device.type == "cuda":
+        torch.cuda.synchronize()
+    print(f"tail tables built, inserted and on the device: "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    return want
+
+
+class TailWatch:
+    """Keeps the arguments of the largest call of each TAIL_CAPTURE
+    kernel's launch wrapper while its query runs (each call passed on as
+    it is)."""
+
+    def __init__(self):
+        from clickhouse_tpu_torch.ops import join_ops, scan_ops, search, \
+            sort_ops
+        self.query = ""
+        self.args = {}
+        self.saved = []
+        spied = (("expand_matches", join_ops, "_expand_matches_cuda",
+                  lambda a, k: a[0].matched.shape[0]),
+                 ("radix_sort_pairs", sort_ops, "_radix_sort_cuda",
+                  lambda a, k: a[0].shape[0]),
+                 ("segment_bounds", scan_ops, "_segment_bounds_cuda",
+                  lambda a, k: a[0][0].shape[0]),
+                 ("segment_reduce", scan_ops, "_segment_reduce_many_cuda",
+                  lambda a, k: a[6]),
+                 ("segmented_scan", scan_ops, "_segmented_scan_cuda",
+                  lambda a, k: a[6]),
+                 ("segmented_search", search, "_segmented_search_cuda",
+                  lambda a, k: a[1].shape[0]),
+                 ("hash_join", join_ops, "probe_join_table",
+                  lambda a, k: a[1][0].shape[0]))
+        for name, mod, attr, rows_of in spied:
+            fn = getattr(mod, attr)
+            self.saved.append((mod, attr, fn))
+
+            def spy(*a, _fn=fn, _name=name, _rows=rows_of, **k):
+                key = _name
+                if _name == "segment_reduce" and a[1] is None:
+                    key = "segment_reduce_sorted"      # no perm: sorted
+                if TAIL_CAPTURE.get(key) == self.query:
+                    rows = _rows(a, k)
+                    if rows >= self.args.get(key, (-1,))[0]:
+                        self.args[key] = (rows, a, k)
+                return _fn(*a, **k)
+            setattr(mod, attr, spy)
+
+    def close(self):
+        for mod, attr, fn in self.saved:
+            setattr(mod, attr, fn)
+
+
+def tail_query(s, name, sql, want, per_query, launches, launch_rows):
+    """One tail query through the public API against numpy, with the
+    launch counters set to 0 just before it and read just after; fails
+    unless it launched each kernel of TAIL_PATHS[name].  Prints its first
+    run's wall, its launches, and its peak device memory above what was
+    allocated before it beside the governor's estimate."""
+    from clickhouse_tpu_torch.exec.streaming import \
+        estimate_plan_device_bytes
+    from clickhouse_tpu_torch.ops import _native
+    from clickhouse_tpu_torch.sql import parse
+    cfg = tail_settings(name, sql)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _native.reset_launches()
+    t0 = time.perf_counter()
+    rows = s.execute(sql, settings=cfg).rows()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    per_query[name] = dict(_native.LAUNCHES)
+    rows_of = {k: list(v) for k, v in _native.LAUNCH_ROWS.items()}
+    peak = torch.cuda.max_memory_allocated() - base
+    if rows != want[name]:
+        fail(f"{name} returned {rows[:5]}..., numpy says {want[name][:5]}...")
+    for k, v in rows_of.items():
+        launches[k] += per_query[name][k]
+        launch_rows[k] += v
+    missing = [k for k in TAIL_PATHS[name] if not per_query[name][k]]
+    if name == "Qrec1" and not (per_query[name]["dense_join"]
+                                or per_query[name]["hash_join"]):
+        missing.append("dense_join or hash_join")
+    if missing:
+        fail(f"{name} did not launch {missing}: {per_query[name]}")
+    est = "not estimated (a fixpoint of SELECTs)" if name.startswith("Qrec") \
+        else estimate_plan_device_bytes(
+            s._plan(parse(sql), s.settings.copy_with(cfg)), s.catalog,
+            s.settings.copy_with(cfg))
+    used = {k: v for k, v in per_query[name].items() if v}
+    big = {k: max(v) for k, v in rows_of.items() if v}
+    print(f"{name}: matches numpy; first run {wall:.3f} s; launches {used}; "
+          f"the largest launch's rows {big}; peak {peak} bytes above what "
+          f"was allocated before it; the governor's estimate {est}",
+          flush=True)
+
+
+def tail_path(s, want, per_query, launches, launch_rows, watch=None):
+    """Every tail query once (TAIL_QUERIES), each on its kernel path; the
+    watch keeps the inputs tail_shapes replays."""
+    for name, sql in TAIL_QUERIES:
+        if watch is not None:
+            watch.query = name
+        try:
+            tail_query(s, name, sql, want, per_query, launches, launch_rows)
+        finally:
+            if watch is not None:
+                watch.query = ""
+
+
+def tail_times(s):
+    """Each tail query's median wall of TAIL_REPS runs and its device-busy
+    time from a torch.profiler trace of TAIL_REPS runs, with the top
+    device operations."""
+    for name, sql in TAIL_QUERIES:
+        cfg = tail_settings(name, sql)
+        times = []
+        for _ in range(TAIL_REPS):
+            t0 = time.perf_counter()
+            s.execute(sql, settings=cfg)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        clause = (", " if " SETTINGS " in sql else " SETTINGS ") \
+            + ", ".join(f"{k} = {v}" for k, v in cfg.items())
+        busy, ops, wall, top = device_busy(s, sql + clause, reps=TAIL_REPS)
+        print(f"{name} median wall {statistics.median(times) * 1e3:.3f} ms "
+              f"over {TAIL_REPS} runs; under torch.profiler: device busy "
+              f"{busy:.4f} ms of {wall:.3f} ms wall a run, {ops:g} device "
+              f"operations a run; top: "
+              + "; ".join(f"{n} {t:.4f}" for n, t in top), flush=True)
+
+
+def k9_zero_starts_case(n, seed=29):
+    """ARRAY JOIN's K9 input: n rows, each a probe with seg_start 0 and
+    seg_len its length (0-7, a run of long rows), every row matched where
+    its length is not 0; out capacity the lengths' sum."""
+    from clickhouse_tpu_torch.ops.join_ops import ProbeResult
+    rng = np.random.default_rng(seed + n)
+    lens = rng.integers(0, 8, n).astype(np.int32)
+    lens[n // 3:n // 3 + min(n, 5000)] = 7
+    lens_t = torch.from_numpy(lens)
+    probe = ProbeResult(lens_t > 0, torch.zeros(n, dtype=torch.int32),
+                        lens_t)
+    valid = torch.from_numpy(rng.random(n) < 0.9)
+    return probe, valid, int(lens.sum()) + 1
+
+
+def check_k9_zero_starts(dev):
+    """K9 at ARRAY JOIN's shape (every seg_start 0) against its plain
+    version: K9_ZERO_START_ROWS rows, with and without a row mask, a row
+    count mid-tile, and a capacity below the count."""
+    from clickhouse_tpu_torch.ops.join_ops import (ProbeResult,
+                                                   _expand_matches_plain,
+                                                   expand_matches)
+    for n in K9_ZERO_START_ROWS:
+        probe, valid, cap = k9_zero_starts_case(n)
+        probe = ProbeResult(*(t.to(dev) for t in (
+            probe.matched, probe.seg_start, probe.seg_len)))
+        for pv, rows, c in ((None, n, cap), (valid.to(dev), n, cap),
+                            (None, max(n - 17, 0), cap),
+                            (None, n, max(cap // 2, 1))):
+            got = expand_matches(probe, pv, c, n_rows=rows)
+            want = _expand_matches_plain(probe, pv, c, False, False, rows)
+            for a, b in zip(got, want):
+                max_abs_err(a, b)
+    print(f"K9 at ARRAY JOIN's shape (seg_start 0) agrees: "
+          f"{K9_ZERO_START_ROWS} rows", flush=True)
+
+
+def k18_query_segments_case(n, seed=31):
+    """ASOF's K18 input: a table of 4n sorted tokens in n/4 + 1 key
+    segments (some empty), and n queries out of order, each with its own
+    segment (a segment a query: gid = arange), tokens on, between and
+    beyond the table's, unsigned."""
+    rng = np.random.default_rng(seed + n)
+    n_seg = n // 4 + 1
+    seg = np.sort(rng.integers(0, n_seg, 4 * n))
+    tok = rng.integers(0, 1 << 40, 4 * n, dtype=np.int64) | np.int64(
+        1 << 62)
+    tok[rng.random(4 * n) < 0.3] |= np.int64(-(1 << 63))
+    o = np.lexsort((tok ^ np.int64(-(1 << 63)), seg))
+    seg, tok = seg[o], tok[o]
+    ar = np.arange(n_seg)
+    s_starts = np.searchsorted(seg, ar, "left")
+    s_ends = np.searchsorted(seg, ar, "right")
+    qseg = rng.integers(0, n_seg, n)
+    q = tok[rng.integers(0, 4 * n, n)] + rng.integers(-1, 2, n)
+    return (torch.from_numpy(tok), torch.from_numpy(q),
+            torch.arange(n, dtype=torch.int32),
+            torch.from_numpy(s_starts[qseg]), torch.from_numpy(s_ends[qseg]))
+
+
+def check_k18_query_segments(dev):
+    """K18 at ASOF's shape (a segment a query, queries out of order)
+    against its plain version, both sides."""
+    from clickhouse_tpu_torch.ops.search import (_segmented_search_plain,
+                                                 segmented_search)
+    for n in K18_QUERY_SEGMENT_ROWS:
+        t, q, gid, starts, ends = (x.to(dev) for x in
+                                   k18_query_segments_case(n))
+        for side in ("left", "right"):
+            got = segmented_search(t, q, side, gid=gid, starts=starts,
+                                   ends=ends, unsigned=True)
+            want = _segmented_search_plain(t, q, side, gid, starts, ends,
+                                           True)
+            max_abs_err(got, want)
+    print(f"K18 at ASOF's shape (a segment a query, out of order) agrees: "
+          f"{K18_QUERY_SEGMENT_ROWS} queries", flush=True)
+
+
+def tail_record(got, want, ms, plain_ms, library_ms, library, nbytes_,
+                shape, **extra):
+    err = max(max_abs_err(a, b) for a, b in zip(got, want))
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                library_ms=library_ms, library=library, bytes=nbytes_,
+                shape=shape, **extra)
+
+
+def tail_shapes(dev, watch):
+    """Each tail kernel replayed on the inputs its query gave it
+    (TAIL_CAPTURE), held against its plain version and timed beside it
+    and a library call where one computes the same function; K18's tiles
+    by branch at Qj1.  -> {kernel: record}."""
+    from clickhouse_tpu_torch.ops import join_ops, scan_ops, search
+    recs = {}
+    got_args = watch.args
+    missing = [k for k in TAIL_CAPTURE if k not in got_args]
+    if missing:
+        fail(f"the tail path gave no input to {missing}")
+    # K9 at the ARRAY JOIN's expansion
+    _, a, k = got_args["expand_matches"]
+    probe, pv, cap, left, anyj, rows = a[:6]
+    n = probe.matched.shape[0]
+    lens = probe.seg_len.to(torch.int64)
+    ids = torch.arange(n, device=dev)
+    recs["expand_matches"] = tail_record(
+        join_ops._expand_matches_cuda(*a, **k),
+        join_ops._expand_matches_plain(probe, pv, cap, left, anyj, rows),
+        cuda_ms(lambda: join_ops._expand_matches_cuda(*a, **k)),
+        cuda_ms(lambda: join_ops._expand_matches_plain(
+            probe, pv, cap, left, anyj, rows), reps=3),
+        cuda_ms(lambda: torch.repeat_interleave(ids, lens)),
+        "torch.repeat_interleave(rows, lengths)",
+        k9_bytes(n, cap, pv is not None),
+        f"Qa2: {n} rows of seg_start 0, {int(lens.sum())} elements, "
+        f"{cap} slots")
+    del probe, pv, lens, ids, a, k
+    # K18 at the ASOF search
+    _, a, k = got_args["segmented_search"]
+    t, q, side, gid, starts, ends, uns = a
+    recs["segmented_search"] = tail_record(
+        [search._segmented_search_cuda(*a)],
+        [search._segmented_search_plain(*a)],
+        cuda_ms(lambda: search._segmented_search_cuda(*a)),
+        cuda_ms(lambda: search._segmented_search_plain(*a), reps=3),
+        None, "none (a segment a query)",
+        q.shape[0] * (8 + 4 + 8 + 8 + 8) + t.shape[0] * 8,
+        f"Qj1: {q.shape[0]} queries, a segment each, side {side}, over "
+        f"{t.shape[0]} build tokens",
+        branches=k18_branches(t, q, side, gid, starts, ends, uns))
+    del a, k, t, q, gid, starts, ends
+    # K8's probe at the ASOF key groups
+    _, a, k = got_args["hash_join"]
+    table, keys, valid = a
+    bw, pw = join_ops._key_pairs("probe_join_table", table.key_cols, keys)
+    real = torch.arange(table.group_capacity, device=dev) < table.num_groups
+    src = [table.seg_start, table.seg_len]
+
+    def plain():
+        m, (ss, sl) = join_ops._take_words(
+            join_ops._first_match_plain(bw, real, pw, valid), src)
+        return m, ss, sl
+    got = join_ops.probe_join_table(table, keys, valid)
+    recs["hash_join"] = tail_record(
+        [got.matched, got.seg_start, got.seg_len], plain(),
+        cuda_ms(lambda: join_ops.probe_join_table(table, keys, valid)),
+        cuda_ms(plain, reps=3), None, "none",
+        sum(nbytes(w) for w in pw) + (0 if valid is None else nbytes(valid))
+        + pw[0].shape[0] * 9 + nbytes(table.buckets),
+        f"Qj1: {pw[0].shape[0]} probe rows, {len(pw)} key word(s), "
+        f"{table.group_capacity} group slots")
+    del a, k, table, keys, valid, bw, pw, got, src
+    # K4 and K5 at FINAL's sort grouping
+    _, a, _ = got_args["radix_sort_pairs"]
+    recs["radix_sort_pairs"] = k4_record(*a)
+    recs["radix_sort_pairs"]["shape"] = "Qf1: " + \
+        recs["radix_sort_pairs"]["shape"]
+    _, a, _ = got_args["segment_bounds"]
+    recs["segment_bounds"] = k5_record(*a)
+    recs["segment_bounds"]["shape"] = "Qf1: " + \
+        recs["segment_bounds"]["shape"]
+    # K6: SummingMergeTree's sums (permuted entry), CollapsingMergeTree's
+    # counts and positions (sorted-order entry)
+    for key, q in (("segment_reduce", "Qf3"),
+                   ("segment_reduce_sorted", "Qf4")):
+        _, a, _ = got_args[key]
+        specs, perm, gid, cap_g, group_rows, bounds, n = a
+        ggid = gid if bounds is None else scan_ops.gid_of_bounds(
+            bounds[0], bounds[1], n)
+        recs[key] = tail_record(
+            scan_ops._segment_reduce_many_cuda(*a),
+            [scan_ops._segment_reduce_plain(op, d, m, perm, ggid, cap_g, u)
+             for op, d, m, u in specs],
+            cuda_ms(lambda: scan_ops._segment_reduce_many_cuda(*a)),
+            cuda_ms(lambda: [scan_ops._segment_reduce_plain(
+                op, d, m, perm, ggid, cap_g, u) for op, d, m, u in specs],
+                reps=3), None, "none",
+            k6_bytes(specs, n, cap_g, group_rows,
+                     permuted=bounds is None)[0],
+            f"{q}: {len(specs)} reduction(s) ({', '.join(sp[0] for sp in specs)})"
+            f" over {n} rows in {cap_g} group slots"
+            + (", sorted-order entry" if bounds is not None else ""))
+        del a, specs, perm, gid, ggid
+    # K17: VersionedCollapsingMergeTree's reverse count
+    _, a, _ = got_args["segmented_scan"]
+    op, data, boundary, mask, reverse, uns, n, _ = a
+    recs["segmented_scan"] = tail_record(
+        [scan_ops._segmented_scan_cuda(*a)],
+        [scan_ops._segmented_scan_plain(op, data, boundary, mask, reverse,
+                                        uns, n)],
+        cuda_ms(lambda: scan_ops._segmented_scan_cuda(*a)),
+        cuda_ms(lambda: scan_ops._segmented_scan_plain(
+            op, data, boundary, mask, reverse, uns, n), reps=3),
+        None, "none (torch.cumsum does not reset at segments)",
+        nbytes(data, boundary) + (0 if mask is None else nbytes(mask))
+        + n * 8,
+        f"Qf5: reverse {op} of {n} {data.dtype} rows")
+    del a
+    report(recs)
+    print("K18's tiles by branch at Qj1: "
+          f"{recs['segmented_search'].pop('branches')}", flush=True)
+    return recs
+
+
+def merge_tail_shapes(shapes, tail):
+    """The tail kernels' records as tail_* keys of their kernels' entries
+    (the sorted-order K6 as tail_sorted_*), each entry's max_abs_err the
+    larger of the two."""
+    for name, rec in tail.items():
+        kernel, prefix = ("segment_reduce", "tail_sorted_") \
+            if name == "segment_reduce_sorted" else (name, "tail_")
+        r = shapes[kernel]
+        r["max_abs_err"] = max(r["max_abs_err"], rec["max_abs_err"])
+        for key in ("ms", "plain_ms", "library_ms", "bytes", "bound_ms",
+                    "shape"):
+            if prefix + key in EXTRA_KEYS:
+                r[prefix + key] = rec[key]
+
+
+def tail_phase(ch, dev, s=None, fill_want=None, cut=False, per_query=None,
+               launches=None, launch_rows=None):
+    """--tail, and the whole smoke's tail: K9's and K18's cases at this
+    slice's shapes, the tail tables (load_tail_tables), TAIL_QUERIES on
+    their paths against numpy, their times, and the tail kernels at their
+    inputs.  -> (shapes, launches, launch_rows)."""
+    from clickhouse_tpu_torch.ops import _native
+    t0 = time.perf_counter()
+    check_k9_zero_starts(dev)
+    check_k18_query_segments(dev)
+    if s is None:
+        s, x = load_hits(ch)
+        fill_want = tail_hits_answers(x)
+        del x
+    want = dict(fill_want)
+    want.update(load_tail_tables(s, cut))
+    per_query = {} if per_query is None else per_query
+    if launches is None:
+        launches = {k: 0 for k in _native.LAUNCHES}
+        launch_rows = {k: [] for k in _native.LAUNCHES}
+    watch = TailWatch()
+    try:
+        tail_path(s, want, per_query, launches, launch_rows, watch)
+    finally:
+        watch.close()
+    print(f"[{time.perf_counter() - t0:.1f} s] tail queries done",
+          flush=True)
+    tail_times(s)
+    shapes = tail_shapes(dev, watch)
+    watch.args.clear()
+    for name in ("arr", "rmt", "rmtv", "smt", "cmt", "vcmt", "quotes",
+                 "trades", "tree"):
+        s.execute(f"DROP TABLE {name}")
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"tail phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    return shapes, launches, launch_rows
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this check needs a GPU")
@@ -7374,6 +8089,14 @@ def main():
         check_k18(dev)
         print(json.dumps(window_shapes(dev)), flush=True)
         return
+    if sys.argv[1:] == ["--tail"]:
+        # K9's and K18's cases at this slice's shapes, the tail tables at
+        # full size, TAIL_QUERIES on their paths, their times and the tail
+        # kernels at their inputs
+        shapes, launches, _ = tail_phase(ch, dev)
+        print(json.dumps({"launches": {k: v for k, v in launches.items()
+                                       if v}, **shapes}), flush=True)
+        return
     if sys.argv[1:] == ["--window"]:
         shapes, launches, _ = window_turn(ch, dev)
         print(json.dumps({"launches": {k: launches[k] for k in (
@@ -7419,6 +8142,7 @@ def main():
     want.update(join_answers(*load_join_tables(s)))
     want.update(sketch_answers(x))
     want.update(window_answers(x))
+    fill_want = tail_hits_answers(x)
     del x
     load_hits_s(s)
     want.update(string_answers())
@@ -7544,6 +8268,13 @@ def main():
     shapes.update(window_shapes(dev))
     print(f"[{time.perf_counter() - t0:.1f} s] kernel times done",
           flush=True)
+    # the executor tail (its own tables, smt, cmt and vcmt cut to
+    # N_FINAL_CUT rows), its kernels' launches counted with the main path's
+    tail, _, _ = tail_phase(ch, dev, s, fill_want, cut=True,
+                            per_query=per_query, launches=launches,
+                            launch_rows=launch_rows)
+    merge_tail_shapes(shapes, tail)
+    print(f"[{time.perf_counter() - t0:.1f} s] tail phase done", flush=True)
     # the streaming phase over 1B rows, after the earlier tables are freed
     import gc
     del s

@@ -15,7 +15,8 @@
   max_len) matrix, max_len a multiple of 8, zero past each row's length,
   and int32 ``lengths`` (ClickHouse's size0 + data substreams with a
   static width).  A 2-D numpy matrix becomes one without a Python loop a
-  row (10M x 128 embeddings).
+  row (10M x 128 embeddings), and so do ragged rows given as
+  ``ArrayRows`` (a padded matrix and each row's length).
 
 Array(String), Array(Tuple), arrays of other inner types, and
 AggregateFunction columns are not ported yet.
@@ -31,7 +32,8 @@ import torch
 from . import dtypes as dt
 from .errors import NotImplementedError_
 
-__all__ = ["Column", "Dictionary", "column_from_numpy", "PAD_MULTIPLE",
+__all__ = ["ArrayRows", "Column", "Dictionary", "column_from_numpy",
+           "PAD_MULTIPLE",
            "pad_to", "narrow_storage", "check_array_type", "array_width",
            "hash_tokens128"]
 
@@ -303,6 +305,62 @@ def check_array_type(t: dt.DType) -> None:
             f"columns hold a plain number type)")
 
 
+@dataclasses.dataclass
+class ArrayRows:
+    """Array(T) rows as a (rows, width) numpy matrix, zero past each row's
+    length, and the int lengths: ClickHouse's ColumnArray (its offsets and
+    data) padded.  ``insert_pydict`` takes it for an Array column and
+    copies it in with no Python loop a row."""
+    matrix: np.ndarray
+    lengths: np.ndarray
+
+    def __post_init__(self):
+        self.matrix = np.asarray(self.matrix)
+        self.lengths = np.asarray(self.lengths, np.int32)
+        if self.matrix.ndim != 2 or self.lengths.shape != (
+                self.matrix.shape[0],) or (self.lengths < 0).any() \
+                or (self.lengths > self.matrix.shape[1]).any():
+            raise ValueError("ArrayRows: a 2-d matrix and a length a row "
+                             "within its width")
+
+    dtype = np.dtype(object)        # not a plain column: no part stats
+    ndim = 2
+
+    def __len__(self) -> int:
+        return self.matrix.shape[0]
+
+    @staticmethod
+    def of(piece) -> "ArrayRows":
+        """A part's Array column (ArrayRows, a 2-D matrix of full rows, or
+        a list a row) as ArrayRows."""
+        if isinstance(piece, ArrayRows):
+            return piece
+        piece = np.asarray(piece)
+        if piece.ndim == 2 and piece.dtype != object:
+            return ArrayRows(piece, np.full(len(piece), piece.shape[1]))
+        lists = [list(v) if v is not None else [] for v in piece]
+        lens = np.asarray([len(v) for v in lists], np.int32)
+        mat = np.zeros((len(lists), int(lens.max(initial=0))))
+        if any(isinstance(x, int) for v in lists for x in v) \
+                and not any(isinstance(x, float) for v in lists for x in v):
+            mat = mat.astype(np.int64)
+        for i, v in enumerate(lists):
+            mat[i, :len(v)] = v
+        return ArrayRows(mat, lens)
+
+    @staticmethod
+    def concat(pieces) -> "ArrayRows":
+        rows = [ArrayRows.of(p) for p in pieces]
+        width = max((r.matrix.shape[1] for r in rows), default=0)
+        dtype = np.result_type(*[r.matrix.dtype for r in rows])
+        mat = np.zeros((sum(len(r) for r in rows), width), dtype)
+        at = 0
+        for r in rows:
+            mat[at:at + len(r), :r.matrix.shape[1]] = r.matrix
+            at += len(r)
+        return ArrayRows(mat, np.concatenate([r.lengths for r in rows]))
+
+
 def array_width(k: int) -> int:
     """The padded width of arrays of at most k elements (a multiple of
     8, at least 8)."""
@@ -314,9 +372,13 @@ def _array_column(values: np.ndarray, dtype: Optional[dt.DType], n: int,
     """An Array(T) column: a (cap, max_len) matrix and int32 lengths.  A
     2-D numeric matrix is copied in once, with no loop a row; a list a row
     goes through a loop, as the reference's."""
-    two_d = values.ndim == 2 and values.dtype != object
+    two_d = values.ndim == 2 and values.dtype != object \
+        and not isinstance(values, ArrayRows)
     if dtype is None:
-        if two_d:
+        if isinstance(values, ArrayRows):
+            kind = values.matrix.dtype.kind
+            dtype = dt.Array(dt.Float64 if kind == "f" else dt.Int64)
+        elif two_d:
             kind = values.dtype.kind
         else:
             flat = [x for v in values if v is not None for x in v]
@@ -325,11 +387,19 @@ def _array_column(values: np.ndarray, dtype: Optional[dt.DType], n: int,
                     "Array(String) columns are not ported to the CUDA "
                     "engine yet")
             kind = "f" if any(isinstance(x, float) for x in flat) else "i"
-        dtype = dt.Array(dt.Float64 if kind == "f" else dt.Int64)
+        if dtype is None:
+            dtype = dt.Array(dt.Float64 if kind == "f" else dt.Int64)
     check_array_type(dtype)
     inner = dt.array_inner(dtype)
     lens = np.zeros(cap, np.int32)
-    if two_d:
+    if isinstance(values, ArrayRows):
+        d = values.matrix.shape[1]
+        mat = np.zeros((cap, array_width(int(values.lengths.max(
+            initial=0)))), inner.np_dtype)
+        w = min(d, mat.shape[1])
+        mat[:n, :w] = values.matrix[:, :w]
+        lens[:n] = values.lengths
+    elif two_d:
         d = values.shape[1]
         mat = np.zeros((cap, array_width(d)), inner.np_dtype)
         mat[:n, :d] = values
@@ -351,7 +421,8 @@ def column_from_numpy(values: np.ndarray, dtype: Optional[dt.DType] = None,
                       device) -> Column:
     """Build a Column on `device` from host data, dictionary-encoding
     strings."""
-    values = np.asarray(values)
+    if not isinstance(values, ArrayRows):
+        values = np.asarray(values)
     n = len(values)
     cap = capacity or pad_to(n)
     if dtype is not None and (dtype.agg_state is not None

@@ -13,14 +13,17 @@ reductions and counts hand the parts to K1, which reads each term's column
 in its narrow storage: ``SELECT count() FROM t WHERE x > c`` is one pass.
 The route is chosen by the predicate's form alone.
 
-Ported nodes: OneRow (SELECT without FROM), Numbers (numbers()), Scan,
-Filter, Project, Aggregate (GROUP BY (), dense and sort GROUP BY, WITH
-TOTALS), BlockSource (the streamed aggregation's merged groups), Sort (top-k for a LIMIT up to 4,096 rows, else a full stable
-sort; LIMIT 0 launches nothing), Limit, LimitBy, Distinct and Join (INNER,
-LEFT, RIGHT as the analyzer's swapped LEFT, SEMI, ANTI, ANY and CROSS,
-with USING, residual ON predicates and NULL keys; ASOF raises).  Every
-other node, and every path of these nodes that is not ported, raises
-``NotImplementedError_`` naming it.
+Ported nodes: OneRow (SELECT without FROM), Numbers (numbers()), Scan
+(with FINAL over the MergeTree family but AggregatingMergeTree), Filter,
+Project, Aggregate (GROUP BY (), dense and sort GROUP BY, WITH TOTALS),
+BlockSource (the streamed aggregation's merged groups), Sort (top-k for
+a LIMIT up to 4,096 rows, else a full stable sort; LIMIT 0 launches
+nothing; WITH FILL), Limit, LimitBy, Distinct, ArrayJoin (K9's
+expansion), Window, Union, SetOp and Join (INNER, LEFT, RIGHT as the
+analyzer's swapped LEFT, SEMI, ANTI, ANY, ASOF and CROSS, with USING,
+residual ON predicates and NULL keys).  Every other node, and every path
+of these nodes that is not ported, raises ``NotImplementedError_`` naming
+it.
 
 DISTINCT and LIMIT BY group the rows with the sort grouping (K4, K5):
 DISTINCT emits one row a group in ascending key order, LIMIT BY keeps the
@@ -58,9 +61,11 @@ from ..core.errors import (AnalysisError, CapacityError, ExecutionError,
                            MemoryLimitExceeded, NotImplementedError_)
 from ..core.settings import Settings
 from ..exprs import aggregates as agg_reg
+from ..exprs.functions import _array_lengths
 from ..exprs.expr import (DEVICE_KEY, BoundCall, BoundColumn, BoundLiteral,
-                          ColVal, StoredColVal, TermColVal, _literal_colval,
-                          colval_from_column, evaluate, storage_np)
+                          ColVal, GatheredColVal, StoredColVal, TermColVal,
+                          _literal_colval, colval_from_column, evaluate,
+                          storage_np)
 from ..ops import (_native, agg_ops, filter_ops, join_ops, scan_ops,
                    search, sort_ops)
 from ..plan import logical as L
@@ -209,9 +214,6 @@ def execute_plan(node: L.PlanNode, ctx: ExecContext) -> ExecBlock:
 
 
 def _exec_scan(node: L.ScanNode, ctx: ExecContext) -> ExecBlock:
-    if node.final:
-        raise NotImplementedError_(
-            "SELECT ... FINAL is not ported to the CUDA engine yet")
     blk = ctx.table_blocks[(node.database, node.table)]
     cols = {}
     for f, storage_name in zip(node.schema, node.column_names):
@@ -221,7 +223,192 @@ def _exec_scan(node: L.ScanNode, ctx: ExecContext) -> ExecBlock:
         ctx.field_bounds.update(node.column_stats)
     n = int(blk.num_rows)
     ctx.count("rows_scanned", n)
-    return ExecBlock(cols, agg_ops.RowMask(cap, ctx.device, n), cap)
+    eb = ExecBlock(cols, agg_ops.RowMask(cap, ctx.device, n), cap)
+    if node.final:
+        eb = _apply_final(node, eb, ctx)
+    return eb
+
+
+_FINAL_ENGINES = ("replacingmergetree", "summingmergetree",
+                  "aggregatingmergetree", "collapsingmergetree",
+                  "versionedcollapsingmergetree")
+
+
+def _apply_final(node: L.ScanNode, eb: ExecBlock, ctx: ExecContext
+                 ) -> ExecBlock:
+    """FINAL read: fold the rows of equal sort key at read time, as the
+    MergeTree family's merges fold them (ClickHouse's Replacing/Summing/
+    Collapsing SortedAlgorithm; reference exec/executor.py:179-297).
+
+    The rows are grouped by the ORDER BY columns with the sort grouping
+    (K4, K5).  K4 is stable, so a key's rows keep their insertion order
+    within its segment and its newest row is the segment's last; a keep
+    flag is written at perm[ends[g] - 1], one write a group.
+    ReplacingMergeTree(ver) sorts by (key, ver): the last row has the
+    highest version, the newest among equal versions (ClickHouse's rule
+    and the reference's own merge's, storage/merges.py:75-76; its FINAL
+    keeps the newest row whatever its version, R1).  SummingMergeTree
+    writes K6's sums of the numeric non-key columns at the kept rows.
+    More keys than max_groups raise CapacityError naming it (the session
+    re-plans); the reference drops the keys past its slots."""
+    from ..storage.table import base_engine
+    engine = base_engine(node.engine).lower()
+    if engine not in _FINAL_ENGINES or not node.order_by_cols:
+        return eb
+    if engine == "aggregatingmergetree":
+        raise NotImplementedError_(
+            "SELECT ... FINAL over AggregatingMergeTree is not ported to the "
+            "CUDA engine yet (AggregateFunction columns and their -State/"
+            "-Merge combinators)")
+    key_fields = [f for f, n in zip(node.schema, node.column_names)
+                  if n in node.order_by_cols]
+    if not key_fields:
+        return eb            # the sort key columns were pruned away
+    name_to_field = {n: f for f, n in zip(node.schema, node.column_names)}
+    args = list(node.engine_args)
+    if engine in ("collapsingmergetree", "versionedcollapsingmergetree"):
+        return _apply_final_collapsing(node, eb, ctx, engine, key_fields,
+                                       name_to_field, args)
+    cap = eb.capacity
+    secondary = []
+    if engine == "replacingmergetree" and args \
+            and args[0] in name_to_field:
+        ver = name_to_field[args[0]]
+        cv = eb.cols[ver.id].broadcast(cap)
+        secondary = _sort_keys(cv, _key_bounds(
+            cv, BoundColumn(ver.id, ver.dtype), ctx))
+    summed = []
+    if engine == "summingmergetree":
+        key_ids = {f.id for f in key_fields}
+        for f in node.schema:
+            cv = eb.cols[f.id]
+            if f.id not in key_ids and not cv.dtype.is_dictionary \
+                    and not cv.dtype.is_array \
+                    and storage_np(cv).kind in ("i", "u", "f"):
+                summed.append(f)
+    # the keep flags (a byte a row and a dummy), and each summed column's
+    # sums and its new rows
+    left = _hold_bytes(ctx, cap + 1 + sum(
+        16 * pad_to(min(cap, ctx.settings.max_groups))
+        + 8 * (cap + 1) for _ in summed), "FINAL")
+    g, cap_g, real, last = _final_grouping(node, eb, ctx, key_fields,
+                                           secondary, left)
+    keep = _flags_at(cap, [(last, real)], ctx.device)
+    cols = eb.cols
+    if summed:
+        cols = dict(eb.cols)
+        # K6 reads each column as stored (narrow storage holds its values)
+        sums = g.reduce_many([("sum", eb.cols[f.id].broadcast(cap).storage,
+                               None, False) for f in summed])
+        idx = torch.where(real, last, cap)
+        for f, total in zip(summed, sums):
+            cv = eb.cols[f.id].broadcast(cap)
+            logical = storage_np(cv)
+            vals = dt.cast_tensor(total, np.float64 if
+                                  total.is_floating_point() else np.int64,
+                                  logical)
+            buf = torch.zeros(cap + 1, dtype=vals.dtype, device=ctx.device)
+            buf.index_copy_(0, idx, vals)
+            cols[f.id] = ColVal(cv.dtype, buf[:cap], cv.validity,
+                                cv.dictionary)
+    return ExecBlock(cols, eb.rows.and_mask(keep), cap)
+
+
+def _final_grouping(node: L.ScanNode, eb: ExecBlock, ctx: ExecContext,
+                    key_fields, secondary, max_bytes):
+    """The sort grouping of FINAL's rows by its key fields (secondary keys
+    ordering each key's rows), with a max_groups check.  -> (grouping,
+    cap_g, real: the slots holding a group, last: each slot's last row)."""
+    cap = eb.capacity
+    keys = []
+    for f in key_fields:
+        cv = eb.cols[f.id].broadcast(cap)
+        keys.extend(_sort_keys(cv, _key_bounds(
+            cv, BoundColumn(f.id, f.dtype), ctx)))
+    cap_g = pad_to(min(cap, ctx.settings.max_groups))
+    g = agg_ops.group_by_sort(keys, eb.rows, cap_g, secondary=secondary,
+                              max_bytes=max_bytes)
+    ctx.checks.append(Check(g.num_groups, cap_g,
+                            "FINAL key cardinality exceeded max_groups; "
+                            "raise the max_groups setting",
+                            setting="max_groups"))
+    real = g.group_valid()
+    n = g.perm.shape[0]
+    last = g.perm.index_select(0, (g.ends - 1).clamp(0, max(n - 1, 0))
+                               ).to(torch.int64)
+    return g, cap_g, real, last
+
+
+def _flags_at(cap: int, writes, device) -> torch.Tensor:
+    """A bool (cap,) row mask, True at each (rows, where) pair's rows where
+    `where` holds (one write a group slot; the others go to a dummy
+    row)."""
+    keep = torch.zeros(cap + 1, dtype=torch.bool, device=device)
+    for rows, where in writes:
+        keep.index_fill_(0, torch.where(where, rows, cap), True)
+    return keep[:cap]
+
+
+def _apply_final_collapsing(node: L.ScanNode, eb: ExecBlock,
+                            ctx: ExecContext, engine: str, key_fields,
+                            name_to_field, args) -> ExecBlock:
+    """FINAL fold of the Collapsing family (ClickHouse's
+    CollapsingSortedAlgorithm.cpp:88-114: p > n keeps the last positive
+    row, p < n the first negative, p == n with a trailing positive keeps
+    both; VersionedCollapsingAlgorithm.cpp: the |p - n| last rows of the
+    majority sign of each (key, version) survive).  p and n, and the
+    positions of the last positive, the first negative and the last row,
+    are one launch of K6's sorted-order entry (the row ids, perm itself,
+    as data); the versioned surplus is a reverse K17 count over the
+    majority sign's mask in sorted order."""
+    cap = eb.capacity
+    sign_f = name_to_field.get(args[0] if args else "sign")
+    if sign_f is None:
+        return eb
+    if engine == "versionedcollapsingmergetree":
+        ver_f = name_to_field.get(args[1]) if len(args) > 1 else None
+        if ver_f is None:
+            return eb
+        key_fields = list(key_fields) + [ver_f]
+    sign = eb.cols[sign_f.id].broadcast(cap)
+    sign = sign.storage if isinstance(sign, StoredColVal) else sign.data
+    # the sort and K5's, K6's (or K17's) masks and outputs and the flags
+    left = _hold_bytes(ctx, 3 * cap + 1 + 8 * cap + 40 * pad_to(min(
+        cap, ctx.settings.max_groups)), "FINAL")
+    g, cap_g, real, last = _final_grouping(node, eb, ctx, key_fields, (),
+                                           left)
+    n = g.perm.shape[0]
+    sign_s = sign.index_select(0, g.perm)      # sorted order
+    isp, isn = sign_s > 0, sign_s < 0
+    if engine == "collapsingmergetree":
+        p, n_, last_pos, first_neg = g.reduce_sorted(
+            [("count", None, isp, False), ("count", None, isn, False),
+             ("max", g.perm, isp, False), ("min", g.perm, isn, False)])
+        last_pos, first_neg = last_pos.to(torch.int64), \
+            first_neg.to(torch.int64)
+        last_is_positive = (last_pos == last) & (p > 0)
+        keepable = real & (last_is_positive | (p != n_)) & ((p > 0)
+                                                            | (n_ > 0))
+        keep = _flags_at(cap, [(first_neg, keepable & (p <= n_) & (n_ > 0)),
+                               (last_pos, keepable & (p >= n_) & (p > 0))],
+                         ctx.device)
+        return ExecBlock(eb.cols, eb.rows.and_mask(keep), cap)
+    # versioned: the last |p - n| rows of the majority sign survive
+    p, n_ = g.reduce_sorted([("count", None, isp, False),
+                             ("count", None, isn, False)])
+    surplus = p - n_
+    gid = g.group_ids.to(torch.int64).clamp(max=cap_g - 1)
+    sur_s = surplus.index_select(0, gid)
+    major = torch.where(sur_s > 0, isp, isn & (sur_s < 0)) \
+        & (g.group_ids < cap_g)
+    boundary = _flags_at(n, [(g.starts.clamp(max=max(n - 1, 0)),
+                              real & (g.ends > g.starts))], ctx.device) \
+        if n else torch.zeros(0, dtype=torch.bool, device=ctx.device)
+    from_end = scan_ops.segmented_scan("sum", major, boundary, reverse=True)
+    keep_s = major & (from_end <= sur_s.abs())
+    keep = torch.zeros(cap, dtype=torch.bool, device=ctx.device)
+    keep.index_copy_(0, g.perm.to(torch.int64), keep_s)
+    return ExecBlock(eb.cols, eb.rows.and_mask(keep), cap)
 
 
 def _exec_filter(node: L.FilterNode, ctx: ExecContext) -> ExecBlock:
@@ -671,9 +858,123 @@ def _token_for_sort(cv: ColVal, item: L.SortItem,
 def _exec_sort(node: L.SortNode, ctx: ExecContext) -> ExecBlock:
     child = execute_plan(node.child, ctx)
     if any(i.fill is not None for i in node.items):
-        raise NotImplementedError_(
-            "ORDER BY ... WITH FILL is not ported to the CUDA engine yet")
+        return _sort_with_fill(node, child, ctx)
     return _sort_block(node, child, ctx)
+
+
+def _sort_with_fill(node: L.SortNode, child: ExecBlock, ctx: ExecContext
+                    ) -> ExecBlock:
+    """ORDER BY x WITH FILL [FROM a] [TO b] [STEP s] (ClickHouse's
+    FillingTransform, reference exec/executor.py:863-956): the block and a
+    grid of pad_to(fill_max_rows) points after it (the grid cut there),
+    the other columns at their defaults on the grid's rows (NULL where
+    Nullable, '' for a String: the reference shows the dictionary's first
+    value, R2), sorted together by the ORDER BY items and then the grid
+    flag (K4: the block's rows first at equal keys), and each grid point
+    equal to the row before it dropped."""
+    item = node.items[0]
+    if item.fill is None or any(i.fill is not None for i in node.items[1:]):
+        raise NotImplementedError_(
+            "WITH FILL is supported on the primary ORDER BY key only")
+    if not isinstance(item.expr, BoundColumn):
+        raise NotImplementedError_(
+            "WITH FILL requires a plain column ORDER BY key")
+    cap = child.capacity
+    dev = ctx.device
+    cv = evaluate(item.expr, child.env(), ctx.memory_headroom).broadcast(cap)
+    if cv.dtype.is_dictionary or cv.dtype.is_array:
+        raise NotImplementedError_("WITH FILL requires a numeric key")
+    f_from, f_to, f_step = item.fill
+    desc = item.descending
+    step = f_step if f_step is not None else (-1 if desc else 1)
+    capf = pad_to(ctx.settings.fill_max_rows)
+    ext_cap = cap + capf
+    # the block and the grid, their sorted copies and the sort's tokens
+    left = _hold_bytes(ctx, 2 * ext_cap * sum(
+        _row_bytes(c) for c in child.cols.values()) + 9 * ext_cap
+        * (len(node.items) + 1), "WITH FILL")
+    is_f = cv.data.is_floating_point()
+    wt = cv.data.dtype if is_f else torch.int64
+    data = cv.data.to(wt)
+    valid = child.valid
+    dvalid = valid if cv.validity is None \
+        else valid & cv.validity.to(torch.bool)
+    big = float("inf") if is_f else torch.iinfo(torch.int64).max
+    small = float("-inf") if is_f else torch.iinfo(torch.int64).min
+    vmin = torch.where(dvalid, data, torch.full((), big, dtype=wt,
+                                                 device=dev)).amin() \
+        if cap else torch.full((), big, dtype=wt, device=dev)
+    vmax = torch.where(dvalid, data, torch.full((), small, dtype=wt,
+                                                 device=dev)).amax() \
+        if cap else torch.full((), small, dtype=wt, device=dev)
+    any_row = dvalid.any()
+
+    def lit(v):
+        return torch.tensor(v, device=dev).to(wt)
+    lo = lit(f_from) if f_from is not None else (vmax if desc else vmin)
+    series = lo + torch.arange(capf, device=dev).to(wt) * lit(step)
+    if desc:
+        ok = (series > lit(f_to)) if f_to is not None else (series >= vmin)
+        ok = ok & (series <= lo)
+    else:
+        ok = (series < lit(f_to)) if f_to is not None else (series <= vmax)
+        ok = ok & (series >= lo)
+    if f_from is None or f_to is None:
+        ok = ok & any_row
+    fill_fid = item.expr.name
+    cols = {}
+    for fid, c in child.cols.items():
+        c = c.broadcast(cap)
+        if fid == fill_fid:
+            fdata = torch.cat([c.data, series.to(c.data.dtype)])
+            fv = None if c.validity is None else torch.cat(
+                [c.validity.to(torch.uint8),
+                 torch.ones(capf, dtype=torch.uint8, device=dev)])
+            cols[fid] = ColVal(c.dtype, fdata, fv)
+            continue
+        d = c.dictionary
+        pad = torch.zeros((capf,) + tuple(c.data.shape[1:]),
+                          dtype=c.data.dtype, device=dev)
+        if c.dtype.is_dictionary:
+            # the grid's rows hold '' (ClickHouse's default String)
+            vals = list(d.values) if d is not None else []
+            code = vals.index("") if "" in vals else len(vals)
+            d = d if code < len(vals) else Dictionary(
+                np.asarray(vals + [""], dtype=object))
+            pad = pad.fill_(code)
+        fdata = torch.cat([c.data, pad])
+        if c.dtype.nullable:
+            v0 = c.validity.to(torch.uint8) if c.validity is not None \
+                else torch.ones(cap, dtype=torch.uint8, device=dev)
+            fv = torch.cat([v0, torch.zeros(capf, dtype=torch.uint8,
+                                            device=dev)])
+        elif c.validity is not None:
+            fv = torch.cat([c.validity.to(torch.uint8),
+                            torch.ones(capf, dtype=torch.uint8, device=dev)])
+        else:
+            fv = None
+        lens = None
+        if c.lengths is not None:
+            lens = torch.cat([c.lengths.expand(cap), torch.zeros(
+                capf, dtype=c.lengths.dtype, device=dev)])
+        cols[fid] = ColVal(c.dtype, fdata, fv, d, lengths=lens)
+    ext_valid = torch.cat([valid, ok])
+    is_fill = torch.cat([torch.zeros(cap, dtype=torch.uint8, device=dev),
+                         torch.ones(capf, dtype=torch.uint8, device=dev)])
+    eb = ExecBlock(cols, agg_ops.RowMask.of(ext_valid), ext_cap)
+    tokens = [_token_for_sort(evaluate(i.expr, eb.env(), left), i, ext_cap)
+              for i in node.items]
+    tokens.append(is_fill)                # the block's rows first at ties
+    perm = sort_ops.sort_permutation(tokens, ext_valid, max_bytes=left)
+    out_cols = {fid: _gather_colval(c, perm, ext_cap)
+                for fid, c in eb.cols.items()}
+    n_valid = ext_valid.sum()
+    in_range = _arange(ext_cap, dev) < n_valid
+    kv = out_cols[fill_fid].data
+    isf_s = is_fill.index_select(0, perm).to(torch.bool)
+    dup = isf_s & torch.cat([torch.zeros(1, dtype=torch.bool, device=dev),
+                             kv[1:] == kv[:-1]])
+    return ExecBlock(out_cols, agg_ops.RowMask.of(in_range & ~dup), ext_cap)
 
 
 def _sort_block(node: L.SortNode, child: ExecBlock, ctx: ExecContext
@@ -814,6 +1115,83 @@ def _exec_distinct(node: L.DistinctNode, ctx: ExecContext) -> ExecBlock:
     cols = {f.id: _gather_colval(cv, first, cap)
             for f, cv in zip(node.schema, cvs)}
     return ExecBlock(cols, agg_ops.RowMask.of(g.group_valid()), cap_g)
+
+
+def _exec_array_join(node: L.ArrayJoinNode, ctx: ExecContext) -> ExecBlock:
+    """arrayJoin: one output row an array element (ArrayJoinTransform).
+    Each row is a probe whose matches are its elements: K9 (seg_start 0,
+    seg_len the row's length) writes (row, element) into the output slots,
+    probe-major as the reference's expansion; the output capacity is the
+    reference's, and a larger expansion raises CapacityError naming
+    max_array_join_rows (the session re-plans with it raised)."""
+    child = execute_plan(node.child, ctx)
+    cap = child.capacity
+    arr = evaluate(node.array_expr, child.env(),
+                   ctx.memory_headroom).broadcast(cap)
+    lens = _array_lengths(arr).to(torch.int32).contiguous()
+    max_len = arr.data.shape[-1]
+    s = ctx.settings
+    if s.max_array_join_rows > 0:
+        out_cap = pad_to(s.max_array_join_rows)
+    else:
+        out_cap = pad_to(min(cap * max_len, max(cap * 4, 1 << 16)))
+    counted = child.rows.mask is None and not child.rows.terms
+    # K9's slots and status words, the zero starts and the match flags,
+    # and each carried column's rows gathered into the slots
+    _check_join_bytes(ctx, join_ops.expand_matches_bytes(cap, out_cap)
+                      + 5 * cap + out_cap * (8 + sum(
+                          _row_bytes(cv) for cv in child.cols.values())),
+                      cap)
+    probe = join_ops.ProbeResult(
+        matched=lens > 0,
+        seg_start=torch.zeros(cap, dtype=torch.int32, device=ctx.device),
+        seg_len=lens)
+    row, k, live, total = join_ops.expand_matches(
+        probe, None if counted else child.valid, out_cap,
+        n_rows=child.rows.n_rows)
+    ctx.checks.append(Check(total, out_cap,
+                            "arrayJoin expansion exceeded capacity; raise "
+                            "the max_array_join_rows setting",
+                            setting="max_array_join_rows"))
+    row = row.to(torch.int64)
+    # an Array column's rows are gathered only where they are read (an
+    # element of them, by arrayElement, from the source)
+    cols = {fid: GatheredColVal(cv.broadcast(cap), row) if cv.dtype.is_array
+            else _gather_colval(cv, row, cap)
+            for fid, cv in child.cols.items()}
+    # each slot's element, read alone (a constant array from its one row)
+    k = k.to(torch.int64).clamp(0, max(max_len - 1, 0))
+    if arr.data.stride(0) == 0:
+        elem = arr.data[0].index_select(0, k)
+    else:
+        elem = arr.data.contiguous().view(-1).index_select(
+            0, row * max_len + k)
+    # the element's bounds: the array's own (a literal list's), and, run
+    # eagerly (compile_queries = 0), the min and max over the padded matrix
+    # as the reference reads them (two scalars cross, not the matrix)
+    ebounds = arr.bounds
+    inner = dt.array_inner(dt.remove_nullable(arr.dtype)).np_dtype
+    if ebounds is None and not s.compile_queries and arr.dictionary is None \
+            and inner.kind in "iu" and arr.data.numel():
+        flip = -(1 << 63) if inner == np.uint64 else 0   # unsigned order
+        lo, hi = int(arr.data.amin() ^ flip), int(arr.data.amax() ^ flip)
+        ebounds = (lo ^ flip, hi ^ flip) if not flip else \
+            ((lo ^ flip) & ((1 << 64) - 1), (hi ^ flip) & ((1 << 64) - 1))
+    cols[node.out_field.id] = ColVal(node.out_field.dtype, elem, None,
+                                     arr.dictionary, bounds=ebounds)
+    # K9's flags: the slots below the expansion's count
+    return ExecBlock(cols, agg_ops.RowMask.of(live), out_cap)
+
+
+def _row_bytes(cv: ColVal) -> int:
+    """Device bytes a row of the column takes (an Array's row of its
+    matrix, a validity byte)."""
+    t = dt.remove_nullable(cv.dtype)
+    if t.is_array:
+        data = cv.data
+        width = data.shape[-1] if data is not None and data.dim() else 1
+        return width * dt.array_inner(t).itemsize + 4
+    return max(t.itemsize, 1) + (cv.validity is not None)
 
 
 def _exec_blocksource(node: L.BlockSourceNode, ctx: ExecContext
@@ -1148,10 +1526,104 @@ def _join_propagate(node: L.JoinNode, left: ExecBlock, right: ExecBlock,
     return out
 
 
+def _join_asof(node: L.JoinNode, left: ExecBlock, right: ExecBlock,
+               lkeys, rkeys, probe_ok, build_ok, ctx: ExecContext
+               ) -> ExecBlock:
+    """ASOF JOIN (ClickHouse's AsofRowRefs; reference join_ops.py:131-230):
+    each probe row takes, among the build rows of its equality keys, the
+    one whose asof value is closest on the operator's side.  The asof
+    values are order tokens, descending for < and <= (as the reference
+    encodes them), so every operator is "the last build token <= (< for
+    the strict ones) the probe's".  The build side is grouped by its keys
+    with the tokens as secondary keys (K4's stable passes, K5): within a
+    key's segment the tokens ascend and, among equal tokens, the rows keep
+    their insertion order, so the last is the newest (the reference's row
+    id as its last sort key).  K8 finds each probe's segment; K18 searches
+    the probe's token within it (right for <= and >=, left for < and >)
+    and the match is the position before the answer where that lies in
+    the segment."""
+    s = ctx.settings
+    lcap, rcap = left.capacity, right.capacity
+    dev = ctx.device
+    left_ids = {f.id for f in node.left.schema}
+    for f in node.schema:
+        if f.id not in left_ids and node.reads(f.id) \
+                and right.cols[f.id].dtype.is_array:
+            raise NotImplementedError_(
+                "ASOF JOIN with Array-typed right columns is not supported")
+    lt = evaluate(node.asof_left, left.env(),
+                  ctx.memory_headroom).broadcast(lcap)
+    rt = evaluate(node.asof_right, right.env(),
+                  ctx.memory_headroom).broadcast(rcap)
+    ct = np.promote_types(storage_np(lt), storage_np(rt))
+    desc = node.asof_op in ("<", "<=")
+    uns = ct == np.uint64
+    bt = sort_ops.order_token(dt.cast_tensor(rt.data, storage_np(rt), ct),
+                              descending=desc, unsigned=uns)
+    pt = sort_ops.order_token(dt.cast_tensor(lt.data, storage_np(lt), ct),
+                              descending=desc, unsigned=uns)
+    if lt.validity is not None:
+        v = lt.validity.to(torch.bool)
+        probe_ok = v if probe_ok is None else probe_ok & v
+    if rt.validity is not None:
+        build_ok = build_ok & rt.validity.to(torch.bool)
+    cap_g = pad_to(min(rcap, s.max_join_build_rows))
+    # K8's table and probe, the build tokens in sorted order, and K18's
+    # queries, segments and answers (a segment a probe row)
+    _check_join_bytes(ctx, join_ops.hash_join_bytes(cap_g, lcap, 2)
+                      + 8 * rcap + 36 * lcap, lcap)
+    table = join_ops.build_join_table(
+        rkeys, build_ok, cap_g, max_bytes=ctx.memory_headroom,
+        secondary=[sort_ops.SortKey(bt, unsigned=True)])
+    ctx.checks.append(Check(table.num_groups, cap_g,
+                            "ASOF JOIN build keys exceeded "
+                            "max_join_build_rows; raise the setting",
+                            setting="max_join_build_rows"))
+    pr = join_ops.probe_join_table(table, lkeys, probe_ok)
+    order = table.row_order
+    tokens = bt.index_select(0, order)
+    seg_start = pr.seg_start.to(torch.int64)
+    pos = search.segmented_search(
+        tokens, pt.contiguous(),
+        "left" if node.asof_op in ("<", ">") else "right",
+        gid=_arange(lcap, dev, torch.int32), starts=seg_start,
+        ends=seg_start + pr.seg_len.to(torch.int64), unsigned=True)
+    del tokens
+    match = pr.matched & (pos > seg_start)
+    b_idx = order.index_select(
+        0, (pos - 1).clamp(0, max(order.shape[0] - 1, 0))).to(torch.int64)
+    left_outer = node.kind == "left"
+    cols: Dict[str, ColVal] = {}
+    for f in node.schema:
+        if not node.reads(f.id):
+            continue
+        if f.id in left_ids:
+            cols[f.id] = left.cols[f.id]
+            continue
+        cv = _gather_colval(right.cols[f.id], b_idx, rcap)
+        stored = isinstance(cv, StoredColVal)
+        data = cv.storage if stored else cv.data
+        validity = cv.validity
+        if left_outer and (s.join_use_nulls or cv.dtype.nullable):
+            v = validity if validity is not None else torch.ones(
+                data.shape, dtype=torch.uint8, device=dev)
+            validity = torch.where(match, v, 0).to(torch.uint8)
+        else:
+            data = torch.where(match, data, torch.zeros(
+                (), dtype=data.dtype, device=dev) if stored or not left_outer
+                else _default_scalar(cv))
+        cols[f.id] = StoredColVal(cv.dtype, data, validity) if stored \
+            else ColVal(cv.dtype, data, validity, cv.dictionary)
+    rows = left.rows if left_outer else left.rows.and_mask(match)
+    out = ExecBlock(cols, rows, lcap)
+    if node.residual is not None:
+        pred = evaluate(node.residual, out.env(), ctx.memory_headroom)
+        out = ExecBlock(out.cols, out.rows.and_mask(_bool_mask(pred, lcap)),
+                        lcap)
+    return out
+
+
 def _exec_join(node: L.JoinNode, ctx: ExecContext) -> ExecBlock:
-    if node.strictness == "asof":
-        raise NotImplementedError_(
-            "ASOF JOIN is not ported to the CUDA engine yet")
     left = execute_plan(node.left, ctx)
     right = execute_plan(node.right, ctx)
     lcap, rcap = left.capacity, right.capacity
@@ -1186,6 +1658,14 @@ def _exec_join(node: L.JoinNode, ctx: ExecContext) -> ExecBlock:
     for v in rvs:
         build_ok = build_ok & v
 
+    if node.strictness == "asof":
+        probe_ok = None
+        if left.rows.mask is not None or left.rows.terms or lvs:
+            probe_ok = left.valid
+            for v in lvs:
+                probe_ok = probe_ok & v
+        return _join_asof(node, left, right, lkeys, rkeys, probe_ok,
+                          build_ok, ctx)
     if _propagate_ok(node, right):
         # the probe rows past the scan's row count need no mask: the
         # output's row mask drops them
@@ -1961,6 +2441,7 @@ _DISPATCH: Dict[type, Callable] = {
     L.WindowNode: _exec_window,
     L.UnionNode: _exec_union,
     L.SetOpNode: _exec_setop,
+    L.ArrayJoinNode: _exec_array_join,
 }
 
 

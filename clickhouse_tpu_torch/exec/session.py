@@ -139,7 +139,11 @@ class Session:
         that cannot raises MemoryLimitExceeded, unless an expanding
         join's probe side streams in chunks that fit
         (exec/streaming.try_blowup_streaming, counted in
-        BlowupStreamedQueries)."""
+        BlowupStreamedQueries).  WITH RECURSIVE runs as a fixpoint of such
+        SELECTs over scratch tables (exec/recursive.py)."""
+        from .recursive import has_recursive_ctes, run_recursive_select
+        if has_recursive_ctes(stmt):
+            return run_recursive_select(self, stmt, overrides, sql)
         from .streaming import (_stream_threshold, scans_over_threshold,
                                 try_blowup_streaming, try_streaming)
         settings = self._query_settings(stmt, overrides)
@@ -276,6 +280,11 @@ class Session:
                     f"engine yet ({e})") from None
             if t.is_array:
                 check_array_type(t)
+            if dt.remove_nullable(t).agg_state is not None:
+                raise NotImplementedError_(
+                    f"{c.type_name} columns are not ported to the CUDA "
+                    f"engine yet (AggregateFunction columns and the "
+                    f"-State/-Merge combinators)")
             schema.append((c.name, t))
         t = Table(stmt.table, schema, stmt.engine,
                   order_by=[ast.format_expr(e) for e in (stmt.order_by or [])],

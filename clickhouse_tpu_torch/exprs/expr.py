@@ -22,7 +22,8 @@ from ..core import dtypes as dt
 from ..core.column import Column, Dictionary
 from ..core.errors import NotImplementedError_, TypeError_, UnknownIdentifier
 
-__all__ = ["ColVal", "StoredColVal", "TermColVal", "BoundExpr", "BoundColumn",
+__all__ = ["ColVal", "StoredColVal", "TermColVal", "GatheredColVal",
+           "BoundExpr", "BoundColumn",
            "BoundLiteral", "BoundCall", "BoundInList", "evaluate",
            "colval_from_column", "storage_np", "DEVICE_KEY"]
 
@@ -145,6 +146,35 @@ class TermColVal(_LazyColVal):
     @property
     def term(self):
         return self._term
+
+
+class GatheredColVal(_LazyColVal):
+    """An Array column's rows at `rows` (an expansion's slots), gathered at
+    the first read of its data or lengths; arrayElement reads the one
+    element a row it needs from `source` instead (the executor's ARRAY
+    JOIN carries the arrays it expands this way)."""
+
+    def __init__(self, source: ColVal, rows):
+        self.source = source
+        self.rows = rows
+        self._lengths = None
+        validity = None if source.validity is None \
+            else source.validity.index_select(0, rows)
+        super().__init__(source.dtype, validity)
+        self.dictionary = source.dictionary
+
+    def _build(self):
+        return self.source.data.index_select(0, self.rows)
+
+    @property
+    def lengths(self):
+        if self._lengths is None and self.source.lengths is not None:
+            self._lengths = self.source.lengths.index_select(0, self.rows)
+        return self._lengths
+
+    @lengths.setter
+    def lengths(self, value):
+        self._lengths = value
 
 
 def colval_from_column(col: Column) -> ColVal:

@@ -34,7 +34,8 @@ from ..core import dtypes as dt
 from ..core.column import Dictionary
 from ..core.errors import NotImplementedError_, TypeError_, UnknownFunction
 from ..ops import calendar_ops, scan_ops
-from .expr import ColVal, StoredColVal, TermColVal, storage_np
+from .expr import (ColVal, GatheredColVal, StoredColVal, TermColVal,
+                   storage_np)
 
 __all__ = ["get", "exists", "register", "ScalarFunction", "FUNCTIONS",
            "canonical_name"]
@@ -1647,7 +1648,15 @@ def _array_ctor_exec(args, out_dtype):
     data = torch.cat([stacked, pad], dim=-1)
     lengths = torch.full(stacked.shape[:-1], k, dtype=torch.int32,
                          device=dev)
-    return ColVal(out_dtype, data, _and_validity(args), lengths=lengths)
+    # a literal list of integers carries its values' bounds, as the
+    # reference's host-concrete constant does
+    hosts = [_host_number(a) for a in args]
+    bounds = None
+    if data.dim() == 1 and inner.np_dtype.kind in "iu" \
+            and all(isinstance(h, (int, np.integer)) for h in hosts):
+        bounds = (int(min(hosts)), int(max(hosts)))
+    return ColVal(out_dtype, data, _and_validity(args), bounds=bounds,
+                  lengths=lengths)
 
 
 register("array", _resolve_array_ctor, _array_ctor_exec)
@@ -1657,6 +1666,195 @@ def _array_arg(a: ColVal) -> ColVal:
     if not a.dtype.is_array:
         raise TypeError_("Expected an Array argument")
     return a
+
+
+def _array_lengths(a: ColVal) -> torch.Tensor:
+    """An Array's lengths (full-width rows where none are recorded)."""
+    if a.lengths is not None:
+        return a.lengths
+    return torch.full(a.data.shape[:-1], a.data.shape[-1], dtype=torch.int32,
+                      device=a.data.device)
+
+
+def _no_map(name: str, a: ColVal) -> None:
+    if dt.is_map(a.dtype):
+        raise NotImplementedError_(
+            f"{name} of a {a.dtype} is not ported to the CUDA engine yet "
+            f"(Map columns)")
+
+
+def _array_element_exec(args, out_dtype):
+    """arr[i]: 1-based, a negative index counting from the end, the type's
+    default (0) outside the array."""
+    a, i = args
+    _no_map("arrayElement", a)
+    _array_arg(a)
+    # an expansion's gathered rows: the element read from their source
+    src, rows = (a.source, a.rows) if isinstance(a, GatheredColVal) \
+        else (a, None)
+    idx = _as(i, np.int64)
+    lens = _array_lengths(src).to(torch.int64)
+    if rows is not None:
+        lens = lens.index_select(0, rows)
+    pos = torch.where(idx > 0, idx - 1, lens + idx)
+    ok = (pos >= 0) & (pos < lens)
+    width = src.data.shape[-1]
+    pos_c = pos.clamp(0, max(width - 1, 0))
+    if src.data.dim() == 1:         # a constant array
+        data = src.data[pos_c]
+    elif rows is not None:
+        flat = rows * width + pos_c.expand(rows.shape)
+        data = src.data.contiguous().view(-1).index_select(0, flat)
+    else:
+        pos_c = pos_c.expand(src.data.shape[:-1])
+        data = torch.gather(src.data, -1, pos_c[..., None])[..., 0]
+    data = torch.where(ok, data, torch.zeros((), dtype=data.dtype,
+                                             device=data.device))
+    return ColVal(out_dtype, data, _and_validity(args))
+
+
+def _resolve_array_element(ts):
+    if dt.is_map(ts[0]):
+        return dt.map_inner(ts[0])[1]
+    return dt.array_inner(ts[0])
+
+
+register("arrayElement", _resolve_array_element, _array_element_exec)
+
+
+def _element_eq(a: ColVal, v: ColVal) -> torch.Tensor:
+    """Each element of `a` against the row's needle `v` (numbers compared
+    in their common type), inside each row's length."""
+    _array_arg(a)
+    if v.dtype.is_dictionary:
+        raise TypeError_("has/indexOf of a String needle in an Array of "
+                         "numbers")
+    inner = dt.array_inner(dt.remove_nullable(a.dtype)).np_dtype
+    ct = np.promote_types(inner, storage_np(v))
+    x = dt.cast_tensor(a.data, inner, ct)
+    y = dt.cast_tensor(v.data, storage_np(v), ct)
+    eq = x == (y[..., None] if y.dim() else y)
+    return eq & _elem_mask(ColVal(a.dtype, a.data,
+                                  lengths=_array_lengths(a)))
+
+
+def _has_exec(args, out_dtype):
+    hit = _element_eq(*args).any(dim=-1)
+    return ColVal(out_dtype, hit.to(torch.uint8), _and_validity(args))
+
+
+register("has", lambda ts: dt.UInt8.with_nullable(any(t.nullable
+                                                      for t in ts)),
+         _has_exec)
+
+
+def _index_of_exec(args, out_dtype):
+    eq = _element_eq(*args)
+    ml = eq.shape[-1]
+    idx = torch.arange(ml, dtype=torch.int64, device=eq.device)
+    first = torch.where(eq, idx, ml).amin(dim=-1) if ml else \
+        torch.zeros(eq.shape[:-1], dtype=torch.int64, device=eq.device)
+    return ColVal(out_dtype, torch.where(first < ml, first + 1, 0),
+                  _and_validity(args))
+
+
+register("indexOf", lambda ts: dt.UInt64.with_nullable(
+    any(t.nullable for t in ts)), _index_of_exec)
+
+
+def _arr_reduce(op, out_type_fn):
+    """arraySum/arrayAvg/arrayMin/arrayMax over each row's elements (an
+    empty array gives 0)."""
+    def resolve(ts):
+        return out_type_fn(dt.array_inner(ts[0])).with_nullable(
+            ts[0].nullable)
+
+    def ex(args, out_dtype):
+        a = _array_arg(args[0])
+        lens = _array_lengths(a)
+        m = _elem_mask(ColVal(a.dtype, a.data, lengths=lens))
+        inner = dt.array_inner(dt.remove_nullable(a.dtype)).np_dtype
+        st = dt.remove_nullable(out_dtype).np_dtype
+        x = dt.cast_tensor(a.data, inner, st)
+        zero = torch.zeros((), dtype=x.dtype, device=x.device)
+        if op in ("sum", "avg"):
+            data = torch.where(m, x, zero).sum(dim=-1, dtype=x.dtype)
+            if op == "avg":
+                data = data / lens.clamp(min=1).to(x.dtype)
+        else:
+            if x.is_floating_point():
+                ident = float("inf") if op == "min" else float("-inf")
+            else:
+                ii = torch.iinfo(x.dtype)
+                ident = int(ii.max if op == "min" else ii.min)
+            filled = torch.where(m, x, torch.full((), ident, dtype=x.dtype,
+                                                  device=x.device))
+            if st == np.uint64 and op != "sum":     # unsigned order
+                key = filled ^ torch.tensor(-(1 << 63), device=x.device)
+                key = torch.where(m, key, torch.full(
+                    (), (1 << 63) - 1 if op == "min" else -(1 << 63),
+                    dtype=x.dtype, device=x.device))
+                red = key.amin(-1) if op == "min" else key.amax(-1)
+                data = red ^ torch.tensor(-(1 << 63), device=x.device)
+            elif filled.shape[-1]:
+                data = filled.amin(-1) if op == "min" else filled.amax(-1)
+            else:
+                data = torch.zeros(filled.shape[:-1], dtype=x.dtype,
+                                   device=x.device)
+            data = torch.where(lens > 0, data, zero)
+        return ColVal(out_dtype, data, _and_validity(args))
+    return resolve, ex
+
+
+for _n, _op, _ot in [("arraySum", "sum",
+                      lambda t: dt.Float64 if dt.is_float(t) else dt.Int64),
+                     ("arrayAvg", "avg", lambda t: dt.Float64),
+                     ("arrayMin", "min", lambda t: t),
+                     ("arrayMax", "max", lambda t: t)]:
+    _r, _e = _arr_reduce(_op, _ot)
+    register(_n, _r, _e)
+
+
+def _empty_array_int64_exec(args, out_dtype):
+    dev = args[0].data.device if args else torch.device("cpu")
+    return ColVal(out_dtype, torch.zeros(8, dtype=torch.int64, device=dev),
+                  lengths=torch.zeros((), dtype=torch.int32, device=dev))
+
+
+register("emptyArrayInt64", lambda ts: dt.Array(dt.Int64),
+         _empty_array_int64_exec)
+
+
+def _exec_range(args, out_dtype):
+    """range(n): [0, 1, ..., n - 1] as UInt64, n a constant or a column
+    whose proven bound is at most 2^16 (the reference's limit)."""
+    a = args[0]
+    if len(args) > 1:
+        raise NotImplementedError_("range(start, end[, step]) with multiple "
+                                   "arguments is not supported yet")
+    hi = None
+    if a.is_const:
+        h = _host_number(a)
+        hi = int(h) if h is not None else int(_as(a, np.int64).item())
+    if hi is None and a.bounds is not None:
+        hi = int(a.bounds[1])
+    if hi is None or hi > (1 << 16):
+        raise NotImplementedError_("range() needs a bounded length")
+    width = max(hi, 1)
+    dev = a.data.device
+    elems = torch.arange(width, dtype=torch.int64, device=dev)
+    if a.is_const:
+        return ColVal(out_dtype, elems[:max(hi, 0)], None,
+                      lengths=torch.tensor(max(hi, 0), dtype=torch.int32,
+                                           device=dev))
+    lens = _as(a, np.int64).clamp(0, width).to(torch.int32)
+    mat = torch.where(elems[None, :] < lens[:, None], elems[None, :],
+                      torch.zeros((), dtype=torch.int64, device=dev))
+    return ColVal(out_dtype, mat, a.validity, lengths=lens)
+
+
+register("range", lambda ts: dt.Array(dt.UInt64), _exec_range,
+         case_insensitive=True)
 
 
 # -- type conversions --------------------------------------------------------

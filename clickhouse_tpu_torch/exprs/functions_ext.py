@@ -391,10 +391,76 @@ def _arrfn(ex):
         out = ex(new_args, out_dtype)
         if saw_array and all_const and out.data.dim() >= 1 \
                 and out.data.shape[0] == 1:
+            lens = out.lengths
             return ColVal(out.dtype, out.data[0], out.validity,
-                          out.dictionary)
+                          out.dictionary, lengths=None if lens is None
+                          else lens.reshape(()))
         return out
     return wrapped
+
+
+# -- array functions of ARRAY JOIN (reference: functions_ext.py:929-1182) --
+
+def _arr_same(ts):
+    return ts[0]
+
+
+def _exec_array_concat(args, out_dtype):
+    """arrayConcat(a, b, ...): each row's elements one array after
+    another, in a matrix as wide as the arguments' together."""
+    arrs = [_array_arg(a) for a in args]
+    inner = dt.array_inner(dt.remove_nullable(out_dtype)).np_dtype
+    cap = max(a.data.shape[0] for a in arrs)
+    width = sum(a.data.shape[1] for a in arrs)
+    dev = arrs[0].data.device
+    j = torch.arange(width, dtype=torch.int64, device=dev)[None, :]
+    out = torch.zeros((cap, width), dtype=dt.torch_dtype_of(inner),
+                      device=dev)
+    offset = torch.zeros((cap, 1), dtype=torch.int64, device=dev)
+    for a in arrs:
+        w = a.data.shape[1]
+        data = dt.cast_tensor(a.data, dt.array_inner(
+            dt.remove_nullable(a.dtype)).np_dtype, inner).expand(cap, w)
+        lens = a.lengths.to(torch.int64).expand(cap)[:, None]
+        rel = j - offset
+        take = torch.gather(data, 1, rel.clamp(0, max(w - 1, 0)).expand(
+            cap, width))
+        out = torch.where((rel >= 0) & (rel < lens), take, out)
+        offset = offset + lens
+    lens = sum(a.lengths.to(torch.int64).expand(cap) for a in arrs)
+    return ColVal(out_dtype, out, _and_validity(args),
+                  lengths=lens.clamp(max=width).to(torch.int32))
+
+
+register("arrayConcat", _arr_same, _arrfn(_exec_array_concat))
+
+
+def _exec_array_enumerate(args, out_dtype):
+    """arrayEnumerate(arr) -> [1, 2, ..., length(arr)]."""
+    a = _array_arg(args[0])
+    w = max(a.data.shape[1], 1)
+    j = torch.arange(1, w + 1, dtype=torch.int64, device=a.data.device)
+    data = torch.where(j[None, :] <= a.lengths[:, None].to(torch.int64),
+                       j[None, :], torch.zeros((), dtype=torch.int64,
+                                               device=j.device))
+    return ColVal(out_dtype, data, a.validity, lengths=a.lengths)
+
+
+register("arrayEnumerate",
+         lambda ts: dt.Array(dt.UInt32).with_nullable(ts[0].nullable),
+         _arrfn(_exec_array_enumerate))
+
+
+def _exec_empty_array_to_single(args, out_dtype):
+    """emptyArrayToSingle: an empty array becomes [default element] (the
+    LEFT ARRAY JOIN primitive)."""
+    a = _array_arg(args[0])
+    return ColVal(out_dtype, a.data, a.validity,
+                  lengths=a.lengths.clamp(min=1))
+
+
+register("emptyArrayToSingle", _arr_same,
+         _arrfn(_exec_empty_array_to_single))
 
 
 def _rows(x: ColVal) -> torch.Tensor:

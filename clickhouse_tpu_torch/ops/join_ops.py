@@ -549,13 +549,17 @@ def propagate_join(build_keys: Sequence[torch.Tensor],
 
 def build_join_table(keys: Sequence[torch.Tensor],
                      row_valid: torch.Tensor, group_capacity: int, *,
-                     max_bytes: Optional[int] = None) -> JoinTable:
+                     max_bytes: Optional[int] = None,
+                     secondary: Sequence[sort_ops.SortKey] = ()
+                     ) -> JoinTable:
     """The 1:N join's build side: its rows grouped by key (K4, K5), and, on
     the card, K8's table over the unique keys (group index a bucket).
-    max_bytes: the grouping's limit on its working set."""
+    max_bytes: the grouping's limit on its working set; secondary: keys
+    ordering each key's rows (ASOF's token), stably."""
     _check_key_count(len(keys))
     g = agg_ops.group_by_sort([sort_ops.SortKey(k) for k in keys],
-                              row_valid, group_capacity, max_bytes=max_bytes)
+                              row_valid, group_capacity, max_bytes=max_bytes,
+                              secondary=secondary)
     gidx = torch.arange(group_capacity, dtype=torch.int64,
                         device=g.num_groups.device)
     real = gidx < g.num_groups

@@ -32,7 +32,7 @@ import torch
 
 from ..core import dtypes as dt
 from ..core.block import Block
-from ..core.column import (Column, Dictionary, column_from_numpy,
+from ..core.column import (ArrayRows, Column, Dictionary, column_from_numpy,
                            hash_tokens128, pad_to)
 from ..core.errors import AnalysisError, NotImplementedError_, UnknownTable
 
@@ -103,12 +103,21 @@ class Part:
     def from_pydict(data: Dict[str, np.ndarray]) -> "Part":
         n = len(next(iter(data.values()))) if data else 0
         minmax = {}
-        for name, vals in data.items():
-            v = np.asarray(vals)
+        cols = {k: v if isinstance(v, ArrayRows) else np.asarray(v)
+                for k, v in data.items()}
+        for name, v in cols.items():
             if v.dtype != object and v.ndim == 1 and v.dtype.kind in "iuf" \
                     and len(v):
                 minmax[name] = (float(v.min()), float(v.max()))
-        return Part({k: np.asarray(v) for k, v in data.items()}, n, minmax)
+        return Part(cols, n, minmax)
+
+
+def base_engine(name: str) -> str:
+    """Replicated<X> merges like <X> locally (coordination is orthogonal)
+    (reference: storage/table.py:base_engine)."""
+    if name.startswith("Replicated"):
+        return name[len("Replicated"):] or "MergeTree"
+    return name
 
 
 class Table:
@@ -148,7 +157,8 @@ class Table:
         n = None
         for name in self.schema:
             if name in data:
-                n = len(np.asarray(data[name]))
+                n = len(data[name]) if isinstance(data[name], ArrayRows) \
+                    else len(np.asarray(data[name]))
                 break
         n = 0 if n is None else n
         cols = {}
@@ -157,7 +167,9 @@ class Table:
                 raise NotImplementedError_(
                     f"{ctype} columns are not ported to the CUDA engine yet")
             if name in data:
-                v = np.asarray(data[name])
+                v = data[name]
+                if not (ctype.is_array and isinstance(v, ArrayRows)):
+                    v = np.asarray(v)
                 if len(v) != n:
                     raise AnalysisError("INSERT column length mismatch")
             elif ctype.is_dictionary:
@@ -298,6 +310,8 @@ def _array_rows(pieces: List[np.ndarray]) -> np.ndarray:
     array of a list a row."""
     if len(pieces) == 1:
         return pieces[0]
+    if any(isinstance(p, ArrayRows) for p in pieces):
+        return ArrayRows.concat(pieces)
     if all(p.ndim == 2 and p.dtype != object for p in pieces) \
             and len({p.shape[1] for p in pieces}) == 1:
         return np.concatenate(pieces)

@@ -21,7 +21,7 @@ import pytest
 import clickhouse_tpu as jch
 import clickhouse_tpu_torch as tch
 from clickhouse_tpu.sql.parser import parse as jparse
-from clickhouse_tpu_torch.core.errors import CapacityError, NotImplementedError_
+from clickhouse_tpu_torch.core.errors import CapacityError
 from clickhouse_tpu_torch.interop import table_from_numpy
 from clickhouse_tpu_torch.plan import logical as TL
 from clickhouse_tpu_torch.sql.parser import parse as tparse
@@ -295,9 +295,11 @@ def test_cross_join_above_2_24_rows():
 
 
 def test_asof_join_raises_naming_asof(sessions):
-    with pytest.raises(NotImplementedError_, match="ASOF"):
-        sessions[1].execute("SELECT fk, label FROM fact ASOF LEFT JOIN dimd "
-                            "ON fact.i = dimd.label AND fact.fk >= dimd.k")
+    """ASOF JOIN, which raised naming ASOF before it was ported, now
+    answers as the reference does (rows in the reference's order: the
+    probe rows in place)."""
+    _both(sessions, "SELECT fk, label FROM fact ASOF LEFT JOIN dimd "
+                    "ON fact.i = dimd.label AND fact.fk >= dimd.k")
 
 
 def test_full_join_raises_naming_union(sessions):

@@ -28,7 +28,9 @@ from chip_smoke import (CMPS, K4_ROWS, K5_CASES, K6_SORTED_LAYOUTS,
                         k6_many_specs, k12_cases, sorted_gid,
                         k7_args, k7_outputs, k8_args, k8_results, k9_args,
                         k10_args, k11_case, k11_error, make_term,
-                        sort_key_columns, term_cases)
+                        sort_key_columns, term_cases,
+                        K9_ZERO_START_ROWS, k9_zero_starts_case,
+                        K18_QUERY_SEGMENT_ROWS, k18_query_segments_case)
 from clickhouse_tpu_torch.ops import _native
 from clickhouse_tpu_torch.ops.calendar_ops import (_calendar_part_plain,
                                                    calendar_part)
@@ -1559,3 +1561,95 @@ def test_window_queries_match_the_cpu(dev):
         assert _native.LAUNCHES["segmented_scan"] >= 1, sql
         if "search" in kernels:
             assert _native.LAUNCHES["segmented_search"] >= 1, sql
+
+
+# -- the executor tail: K9 at ARRAY JOIN's shape, K18 at ASOF's ---------------
+
+@pytest.mark.parametrize("n", K9_ZERO_START_ROWS)
+def test_expand_matches_zero_starts_matches_plain(dev, n):
+    """K9 at ARRAY JOIN's shape (chip_smoke.k9_zero_starts_case: every
+    seg_start 0, lengths 0-7) against its plain version, with and without
+    a row mask, a row count mid-tile and a capacity below the count."""
+    probe, valid, cap = k9_zero_starts_case(n)
+    probe = ProbeResult(*(t.to(dev) for t in (
+        probe.matched, probe.seg_start, probe.seg_len)))
+    for pv, rows, c in ((None, n, cap), (valid.to(dev), n, cap),
+                        (None, max(n - 17, 0), cap),
+                        (None, n, max(cap // 2, 1))):
+        got = expand_matches(probe, pv, c, n_rows=rows)
+        want = _expand_matches_plain(probe, pv, c, False, False, rows)
+        for a, b in zip(got, want):
+            _exact(a, b)
+
+
+@pytest.mark.parametrize("side", ["left", "right"])
+@pytest.mark.parametrize("n", K18_QUERY_SEGMENT_ROWS)
+def test_segmented_search_a_segment_a_query_matches_plain(dev, n, side):
+    """K18 at ASOF's shape (chip_smoke.k18_query_segments_case: a segment
+    a query, queries out of order, unsigned tokens) against its plain
+    version."""
+    from clickhouse_tpu_torch.ops.search import (_segmented_search_plain,
+                                                 segmented_search)
+    t, q, gid, starts, ends = (x.to(dev) for x in
+                               k18_query_segments_case(n))
+    got = segmented_search(t, q, side, gid=gid, starts=starts, ends=ends,
+                           unsigned=True)
+    assert torch.equal(got, _segmented_search_plain(t, q, side, gid, starts,
+                                                    ends, True))
+
+
+def test_tail_queries_on_the_card_match_the_cpu(dev):
+    """ARRAY JOIN, FINAL over each engine, ASOF JOIN, WITH FILL and WITH
+    RECURSIVE on the card against a CPU session, each launching its
+    kernels (K9; K4 and K5, K6's entries, K17; K8 and K18)."""
+    import clickhouse_tpu_torch as tch
+    from clickhouse_tpu_torch.core.column import ArrayRows
+    rng = np.random.default_rng(23)
+    n = 50_000
+    lens = rng.integers(0, 8, n)
+    mat = rng.integers(0, 500, (n, 8)) * (np.arange(8)[None, :]
+                                          < lens[:, None])
+    cuda, cpu = tch.connect(device="cuda"), tch.connect(device="cpu")
+    for s in (cuda, cpu):
+        s.execute("CREATE TABLE a (id Int64, t Array(Int64))")
+        s.insert_pydict("a", {"id": np.arange(n),
+                              "t": ArrayRows(mat, lens)})
+        for name, engine in (("r", "ReplacingMergeTree(v)"),
+                             ("sm", "SummingMergeTree"),
+                             ("c", "CollapsingMergeTree(sign)"),
+                             ("vc", "VersionedCollapsingMergeTree(sign, "
+                                    "ver)")):
+            s.execute(f"CREATE TABLE {name} (k Int64, v Int64, sign Int8, "
+                      f"ver UInt8) ENGINE = {engine} ORDER BY k")
+            for seed in range(3):
+                r = np.random.default_rng(seed)
+                s.insert_pydict(name, {
+                    "k": r.integers(0, 5000, n), "v": r.integers(0, 9, n),
+                    "sign": np.where(r.random(n) < 0.6, 1, -1),
+                    "ver": r.integers(0, 3, n)})
+        s.execute("CREATE TABLE q (s Int64, ts Int64, px Int64)")
+        s.insert_pydict("q", {"s": np.arange(n) % 97, "ts": np.arange(n) * 3,
+                              "px": np.arange(n) % 1000})
+        s.execute("CREATE TABLE tr (s Int64, ts Int64)")
+        s.insert_pydict("tr", {"s": (np.arange(4 * n) * 7) % 100,
+                               "ts": np.arange(4 * n)})
+    for sql, kernels in (
+            ("SELECT x, count() FROM a ARRAY JOIN t AS x GROUP BY x "
+             "ORDER BY x", ("expand_matches",)),
+            ("SELECT count(), sum(v) FROM r FINAL",
+             ("radix_sort_pairs", "segment_bounds")),
+            ("SELECT count(), sum(v) FROM sm FINAL", ("segment_reduce",)),
+            ("SELECT count(), sum(v) FROM c FINAL",
+             ("segment_reduce_sorted",)),
+            ("SELECT count(), sum(v) FROM vc FINAL", ("segmented_scan",)),
+            ("SELECT count(), sum(px) FROM tr ASOF LEFT JOIN q "
+             "ON tr.s = q.s AND tr.ts >= q.ts",
+             ("hash_join", "segmented_search")),
+            ("SELECT id % 50 AS b, count() FROM a WHERE id % 7 = 0 GROUP BY b "
+             "ORDER BY b WITH FILL FROM -3 TO 60", ("radix_sort_pairs",)),
+            ("WITH RECURSIVE r AS (SELECT 1 AS n UNION ALL SELECT n + 1 "
+             "FROM r WHERE n < 30) SELECT sum(n) FROM r", ())):
+        _native.reset_launches()
+        assert cuda.execute(sql).rows() == cpu.execute(sql).rows(), sql
+        for k in kernels:
+            assert _native.LAUNCHES[k] >= 1, (sql, k)

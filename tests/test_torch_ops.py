@@ -1095,6 +1095,20 @@ def _sql_sessions():
                        + ")")
             js.insert_pydict(name, cols)
             table_from_numpy(ts, name, cols, types)
+        # R1, R3: MergeTree-family tables read with FINAL; R2: WITH FILL
+        # beside a String column
+        keys = np.arange(3000, dtype=np.int64)
+        for s in (js, ts):
+            s.execute("CREATE TABLE rv (k UInt32, v UInt32, p Int64) "
+                      "ENGINE = ReplacingMergeTree(v) ORDER BY k")
+            s.execute("INSERT INTO rv VALUES (1, 5, 100), (2, 1, 200)")
+            s.execute("INSERT INTO rv VALUES (1, 3, 101), (2, 2, 201)")
+            s.execute("CREATE TABLE rm (k Int64, v Int64) "
+                      "ENGINE = ReplacingMergeTree ORDER BY k")
+            s.insert_pydict("rm", {"k": keys, "v": keys})
+            s.insert_pydict("rm", {"k": keys[::2], "v": keys[::2] + 1})
+            s.execute("CREATE TABLE fs (a Int64, s String)")
+            s.execute("INSERT INTO fs VALUES (1, 'x'), (3, 'w')")
         _SQL_SESSIONS.extend([js, ts, x])
     return _SQL_SESSIONS
 
@@ -1275,6 +1289,25 @@ DIVERGENCES = {
     "d9_subnormal_result": (lambda: _sql_divergence(
         "SELECT exp10(-311)", [(float(np.power(10.0, -311)),)]),
         "XLA's CPU float mode (flush to zero)"),
+    # R1: FINAL over ReplacingMergeTree(ver) keeps each key's newest row
+    # whatever its version; ClickHouse (and the reference's own merge,
+    # storage/merges.py:75-76) keeps the highest version
+    "r1_replacing_final_ignores_version": (lambda: _sql_divergence(
+        "SELECT k, v, p FROM rv FINAL ORDER BY k",
+        [(1, 5, 100), (2, 2, 201)]),
+        "clickhouse_tpu/exec/executor.py:200-205"),
+    # R2: WITH FILL's generated rows show a String column's dictionary
+    # code 0, its first value, not the type's default ''
+    "r2_fill_string_default": (lambda: _sql_divergence(
+        "SELECT a, s FROM fs ORDER BY a WITH FILL",
+        [(1, "x"), (2, ""), (3, "w")]),
+        "clickhouse_tpu/exec/executor.py:919-921"),
+    # R3: FINAL over more keys than max_groups drops the keys past its
+    # slots, with no capacity check (the port re-plans with more)
+    "r3_final_past_max_groups": (lambda: _sql_divergence(
+        "SELECT count(), sum(v) FROM rm FINAL SETTINGS max_groups = 1024",
+        [(3000, 3000 * 2999 // 2 + 1500)]),
+        "clickhouse_tpu/exec/executor.py:200, :205"),
 }
 
 

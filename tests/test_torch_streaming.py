@@ -28,8 +28,7 @@ import torch
 import clickhouse_tpu as jch
 import clickhouse_tpu_torch as tch
 from clickhouse_tpu_torch.core.errors import (CapacityError,
-                                              MemoryLimitExceeded,
-                                              NotImplementedError_)
+                                              MemoryLimitExceeded)
 
 STREAM = {"max_device_block_bytes": 1, "stream_chunk_rows": 1024}
 # a threshold between the dimension table's bytes and the big table's: the
@@ -308,20 +307,16 @@ def test_external_group_by_setting_triggers(sessions):
 
 @pytest.mark.parametrize("mod", [jch, tch], ids=["reference", "port"])
 def test_final_read_does_not_stream(mod):
-    """FINAL folds need the whole table: neither engine streams it (the
-    port's whole-block path refuses FINAL itself, naming it)."""
+    """FINAL folds need the whole table: neither engine streams it, and
+    both answer on the whole block."""
     s = mod.connect() if mod is jch else mod.connect(device="cpu")
     s.execute("CREATE TABLE r (k Int64, v Int64) "
               "ENGINE = ReplacingMergeTree ORDER BY k")
     s.insert_pydict("r", {"k": np.arange(2000, dtype=np.int64),
                           "v": np.ones(2000, np.int64)})
     before = s.profile_events.get("StreamedQueries", 0)
-    if mod is jch:
-        assert s.execute("SELECT count() FROM r FINAL",
-                         settings=STREAM).rows() == [(2000,)]
-    else:
-        with pytest.raises(NotImplementedError_, match="FINAL"):
-            s.execute("SELECT count() FROM r FINAL", settings=STREAM)
+    assert s.execute("SELECT count() FROM r FINAL",
+                     settings=STREAM).rows() == [(2000,)]
     assert s.profile_events.get("StreamedQueries", 0) == before
 
 
