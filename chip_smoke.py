@@ -464,7 +464,13 @@ EXTRA_KEYS = ("tail_ms", "tail_plain_ms", "tail_library_ms",
               "cells_shape", "layouts", "max_ms", "cummax_ms",
               "bool_sum_ms", "bool_sum_bound_ms", "first_index_ms",
               "reverse_first_index_ms", "first_index_bound_ms", "qw3_ms",
-              "qw3_bytes", "qw3_bound_ms", "qw5_tiles", "qw3_tiles")
+              "qw3_bytes", "qw3_bound_ms", "qw5_tiles", "qw3_tiles",
+              "pack_ms", "pack_plain_ms", "pack_library_ms", "pack_bytes",
+              "pack_bound_ms", "pack_shape", "dst_ms", "dst_plain_ms",
+              "dst_bytes", "dst_bound_ms", "dst_shape", "launches_pack",
+              "launches_unpack", "states_ms", "states_plain_ms",
+              "states_library_ms", "states_bytes", "states_bound_ms",
+              "states_shape")
 F64_EPS = 2.0 ** -52
 CMPS = ["equals", "notEquals", "less", "lessOrEquals", "greater",
         "greaterOrEquals"]
@@ -7982,6 +7988,600 @@ def tail_phase(ch, dev, s=None, fill_want=None, cut=False, per_query=None,
     return shapes, launches, launch_rows
 
 
+# -- aggregate states: -State/-Merge, AggregatingMergeTree FINAL, the state
+# functions and the combinators (--states)
+
+N_SROW_CUT = 50_000_000      # srow in the whole smoke (its time budget)
+STATE_BUDGET = 40 << 30      # max_device_memory_bytes of the state phase
+STATE_REPS = 3               # timed and traced runs of each state query
+STATE_SETTINGS = {"max_device_memory_bytes": STATE_BUDGET}
+STATE_AVG_RTOL = 1e-9
+# K19's layouts held against the plain version: a state's column types
+# (B = 4: groupBitOr(UInt32); 9: maxState(UInt8) with its presence count;
+# 12: argMax(UInt32, Int64); 16: avg; 20: argMax(UInt32, Int64) with its
+# count; 24: varPop; 40: skewPop; 4,096: uniq's registers)
+K19_LAYOUTS = {4: [(torch.int32, 1)], 9: [(torch.uint8, 1), (torch.int64, 1)],
+               12: [(torch.int64, 1), (torch.int32, 1)],
+               16: [(torch.float64, 1), (torch.int64, 1)],
+               20: [(torch.int64, 1), (torch.int32, 1), (torch.int64, 1)],
+               24: [(torch.float64, 1), (torch.float64, 1), (torch.int64, 1)],
+               40: [(torch.float64, 1)] * 4 + [(torch.int64, 1)],
+               4096: [(torch.uint8, 4096)]}
+STATE_INSERTS = (
+    ("Isagg", [f"INSERT INTO sagg SELECT intDiv(x, 4) AS k, countState(), "
+               f"sumState(x), avgState(x), maxState(x) FROM hits WHERE "
+               f"x % 4 = {i} GROUP BY k" for i in range(4)]),
+    ("Isrow", ["INSERT INTO srow SELECT x % 1024, initializeAggregation("
+               "'sumState', x), initializeAggregation('maxState', x) FROM "
+               "hits{limit}"]),
+    ("Isu", [f"INSERT INTO su SELECT x % 1024 AS k, uniqState(x) FROM hits "
+             f"WHERE x % 2 = {i} GROUP BY k" for i in range(2)]))
+STATE_QUERIES = (
+    ("Qm1", "SELECT k, countMerge(c), sumMerge(s), avgMerge(a), "
+            "maxMerge(mx) FROM sagg GROUP BY k ORDER BY k"),
+    ("Qm2", "SELECT count(), sum(finalizeAggregation(s)), "
+            "max(finalizeAggregation(mx)) FROM sagg FINAL"),
+    ("Qm3", "SELECT k, sumMerge(s), maxMerge(mx) FROM srow GROUP BY k "
+            "ORDER BY k"),
+    ("Qm4", "SELECT count(), sum(finalizeAggregation(s)) FROM srow FINAL"),
+    ("Qm5", "SELECT k, uniqMerge(u) FROM su GROUP BY k ORDER BY k"),
+    ("Qm6", "SELECT uniqMerge(u) FROM su"),
+    ("Qm7", "SELECT k, runningAccumulate(s) FROM (SELECT x AS k, "
+            "sumState(x) AS s FROM hits GROUP BY k ORDER BY k)"),
+    ("Qc1", "SELECT sumArray(tags), maxArray(w), avgArray(w), "
+            "countArray(tags) FROM arr"),
+    ("Qc2", "SELECT id % 1024 AS g, sumForEach(w) FROM arr GROUP BY g "
+            "ORDER BY g"),
+    ("Qc3", "SELECT x % 1024 AS k, sumDistinct(intDiv(x, 1000)) FROM hits "
+            "GROUP BY k ORDER BY k"),
+    ("Qc4", "SELECT maxOrNull(x), sumOrDefault(x) FROM hits "
+            "WHERE x > 2000000"),
+    ("Qc4b", "SELECT x % 7 AS k, minOrNull(x) FROM hits WHERE x > 999990 "
+             "GROUP BY k ORDER BY k"))
+_UNPACK = ("state_unpack",)
+# kernels each state statement must launch (at least once each)
+STATE_PATHS = {
+    "Isagg": _SORT_GROUPING + ("segment_reduce", "state_pack"),
+    "Isrow": ("state_pack",),
+    "Isu": _SORT_GROUPING + ("hll_update_rows", "hll_cells", "state_pack"),
+    "Qm1": _SORT_GROUPING + _UNPACK + ("segment_reduce",),
+    "Qm2": _SORT_GROUPING + _UNPACK + ("segment_reduce", "state_pack",
+                                       "masked_reduce"),
+    "Qm3": _SORT_GROUPING + _UNPACK + ("segment_reduce",),
+    "Qm4": _SORT_GROUPING + _UNPACK + ("segment_reduce", "state_pack",
+                                       "masked_reduce"),
+    "Qm5": _SORT_GROUPING + _UNPACK + ("hll_merge", "hll_finalize"),
+    "Qm6": _UNPACK + ("hll_merge", "hll_finalize"),
+    "Qm7": _SORT_GROUPING + _UNPACK + ("segment_reduce", "state_pack",
+                                       "segmented_scan"),
+    "Qc1": ("masked_reduce",),
+    "Qc2": _SORT_GROUPING + ("segment_reduce",),
+    "Qc3": _SORT_GROUPING + ("segment_reduce",),
+    "Qc4": ("masked_reduce",),
+    "Qc4b": _SORT_GROUPING + ("segment_reduce",)}
+# the state kernels whose main-path inputs are replayed (the largest call
+# of the statement named)
+STATE_CAPTURE = {("state_unpack", "Qm3"), ("state_pack", "Isrow"),
+                 ("state_pack", "Qm4"), ("hll_merge", "Qm5"),
+                 ("segmented_scan", "Qm7"), ("segment_reduce", "Qm3"),
+                 ("radix_sort_pairs", "Qm4"), ("segment_bounds", "Qm4")}
+
+
+def k19_columns(layout, n, dev, seed):
+    g = torch.Generator(device="cpu").manual_seed(seed)
+    out = []
+    for d, w in layout:
+        shape = (n,) if w == 1 else (n, w)
+        if d.is_floating_point:
+            t = torch.randn(shape, generator=g, dtype=d)
+        else:
+            t = torch.randint(-(1 << 62), 1 << 62, shape, generator=g,
+                              dtype=torch.int64).to(d)
+        out.append(t.to(dev))
+    return out
+
+
+def check_k19(dev):
+    """K19 against its plain version at every layout of K19_LAYOUTS, with
+    0, 1, a tile plus one and many rows, packing with and without
+    dst_rows (the other rows of the matrix kept) and unpacking with and
+    without src_rows (rows repeated): bit for bit."""
+    from clickhouse_tpu_torch.ops import _native, state_ops
+    lib = _native.library()
+    cases = 0
+    for width, layout in K19_LAYOUTS.items():
+        tile = lib.chtt_state_tile_rows(width)
+        big = 20_000 if width >= 1024 else 1_000_003
+        for n in (0, 1, tile + 1, big):
+            cols = k19_columns(layout, n, dev, seed=width * 7 + n)
+            got = state_ops.pack_state_rows(cols)
+            want = state_ops._pack_plain(
+                cols, None, torch.empty_like(got))
+            if not torch.equal(got, want):
+                fail(f"K19 pack differs at B = {width}, {n} rows")
+            rows_out = n + 5
+            base = torch.randint(0, 256, (rows_out, width), dtype=torch.uint8,
+                                 device=dev)
+            dst = torch.randperm(rows_out, device=dev)[:n]
+            a, b = base.clone(), base.clone()
+            state_ops.pack_state_rows(cols, dst_rows=dst, out=a)
+            state_ops._pack_plain(cols, dst, b)
+            if not torch.equal(a, b):
+                fail(f"K19 pack with dst_rows differs at B = {width}, "
+                     f"{n} rows")
+            for src in (None, torch.randint(0, rows_out, (n + 3,),
+                                            device=dev)):
+                packed = got if src is None else a
+                g2 = state_ops.unpack_state_rows(packed, layout, src)
+                w2 = state_ops._unpack_plain(packed, layout, src)
+                if not all(torch.equal(x, y) for x, y in zip(g2, w2)):
+                    fail(f"K19 unpack differs at B = {width}, {n} rows, "
+                         f"src_rows {src is not None}")
+            if n and not all(torch.equal(x, y) for x, y in zip(
+                    state_ops.unpack_state_rows(got, layout), cols)):
+                fail(f"K19 unpack does not give back its columns at B = "
+                     f"{width}")
+            cases += 1
+    torch.cuda.synchronize()
+    print(f"K19 agrees with its plain version bit for bit: {cases} cases, "
+          f"B in {sorted(K19_LAYOUTS)}, each packed with and without "
+          f"dst_rows and unpacked with and without src_rows", flush=True)
+
+
+def state_answers(x, n_srow):
+    """numpy's answers to the state statements over hits' x (srow from its
+    first n_srow rows) and arr (arr_columns): closed forms over the
+    distinct values present and their counts."""
+    t0 = time.perf_counter()
+    cnt = np.bincount(x, minlength=HLL_DISTINCT).astype(np.int64)
+    v = np.flatnonzero(cnt).astype(np.int64)
+    cnt = cnt[v]
+    want = {}
+    kk = v // 4
+    c = np.bincount(kk, weights=cnt).astype(np.int64)
+    s = np.bincount(kk, weights=cnt * v).astype(np.int64)
+    mx = np.full(len(c), -1, np.int64)
+    np.maximum.at(mx, kk, v)
+    keys = np.flatnonzero(c)
+    want["Qm1"] = [(int(k), int(c[k]), int(s[k]), float(s[k]) / float(c[k]),
+                    int(mx[k])) for k in keys]
+    want["Qm2"] = [(len(keys), int(s.sum()), int(mx.max()))]
+    xs = x[:n_srow]
+    k3 = xs % 1024
+    s3 = np.bincount(k3, weights=xs, minlength=1024)
+    seen = np.flatnonzero(np.bincount(xs))
+    mx3 = np.full(1024, -1, np.int64)
+    np.maximum.at(mx3, seen % 1024, seen)
+    keys3 = np.flatnonzero(mx3 >= 0)
+    want["Qm3"] = [(int(k), int(s3[k]), int(mx3[k])) for k in keys3]
+    want["Qm4"] = [(len(keys3), int(xs.sum(dtype=np.int64)))]
+    h = mix64_np(v.view(np.uint64))
+    parts, present = [], []
+    for i in range(2):
+        sel = v % 2 == i
+        parts.append(hll_registers_np(v[sel] % 1024, h[sel], 1024, 4096))
+        present.append(np.unique(v[sel] % 1024))
+    both = np.union1d(present[0], present[1])
+    est = hll_estimate_np(np.maximum(parts[0], parts[1]))
+    want["Qm5"] = [(int(k), int(est[k])) for k in both]
+    want["Qm6"] = [(int(hll_estimate_np(hll_registers_np(
+        np.zeros(len(v), np.int64), h, 1, 4096))[0]),)]
+    want["su:registers"] = [(p, r[p]) for p, r in zip(present, parts)]
+    want["Qm7"] = list(zip(v.tolist(), np.cumsum(v * cnt).tolist()))
+    # arr (arr_columns): tags[i][j] = (i * 31 + j * 7) % 10000 and
+    # w[i][j] = (i + 3 j) % 101 - 50 for j < i % 8
+    i = np.arange(N_ARR, dtype=np.int64)
+    lens = i % 8
+    tsum = wsum = 0
+    wmax = -1 << 62
+    g = i % 1024
+    fe = np.zeros((8, 1024), np.int64)
+    for j in range(8):
+        inside = lens > j
+        t = (i[inside] * 31 + j * 7) % 10000
+        w = (i[inside] + 3 * j) % 101 - 50
+        tsum += int(t.sum())
+        wsum += int(w.sum())
+        wmax = max(wmax, int(w.max(initial=wmax)))
+        fe[j] = np.bincount(g[inside], weights=w, minlength=1024)
+    want["Qc1"] = [(tsum, wmax, wsum / int(lens.sum()), int(lens.sum()))]
+    want["Qc2"] = [(gg, [int(fe[j, gg]) for j in range(gg % 8)])
+                   for gg in range(min(1024, N_ARR))]
+    pair = np.unique((v % 1024) * 1001 + v // 1000)
+    sums = np.bincount(pair // 1001, weights=pair % 1001, minlength=1024)
+    want["Qc3"] = [(int(k), int(sums[k])) for k in np.unique(v % 1024)]
+    want["Qc4"] = [(None, 0)]
+    top = v[v > 999990]
+    want["Qc4b"] = [(k, int(top[top % 7 == k].min()))
+                    for k in sorted(set((top % 7).tolist()))]
+    print(f"state answers (numpy): {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return want
+
+
+def state_agree(name, rows, want) -> bool:
+    """Exact rows; avgMerge within STATE_AVG_RTOL; an HLL estimate within
+    1 of numpy's float32 one (the kernel sums 2^-register in another
+    order)."""
+    w = want[name]
+    if len(rows) != len(w):
+        return False
+    for got, exp in zip(rows, w):
+        if len(got) != len(exp):
+            return False
+        for j, (a, b) in enumerate(zip(got, exp)):
+            if isinstance(b, float):
+                if abs(a - b) > STATE_AVG_RTOL * max(abs(b), 1e-300):
+                    return False
+            elif name in ("Qm5", "Qm6") and j == len(exp) - 1:
+                if abs(a - b) > 1:
+                    return False
+            elif a != b:
+                return False
+    return True
+
+
+class StateWatch:
+    """Keeps the arguments of the largest call of each STATE_CAPTURE
+    (kernel, statement) pair's launch wrapper (each call passed on as it
+    is)."""
+
+    def __init__(self):
+        from clickhouse_tpu_torch.ops import scan_ops, sketch_ops, \
+            sort_ops, state_ops
+        self.query = ""
+        self.args = {}
+        self.saved = []
+        spied = (("state_pack", state_ops, "_pack_cuda",
+                  lambda a: a[0][0].shape[0]),
+                 ("state_unpack", state_ops, "_unpack_cuda",
+                  lambda a: a[2][0].shape[0] * a[3]),
+                 ("hll_merge", sketch_ops, "_hll_merge_cuda",
+                  lambda a: a[0].shape[0]),
+                 ("segmented_scan", scan_ops, "_segmented_scan_cuda",
+                  lambda a: a[6]),
+                 ("segment_reduce", scan_ops, "_segment_reduce_many_cuda",
+                  lambda a: a[6]),
+                 ("radix_sort_pairs", sort_ops, "_radix_sort_cuda",
+                  lambda a: a[0].shape[0]),
+                 ("segment_bounds", scan_ops, "_segment_bounds_cuda",
+                  lambda a: a[0][0].shape[0]))
+        for name, mod, attr, rows_of in spied:
+            fn = getattr(mod, attr)
+            self.saved.append((mod, attr, fn))
+
+            def spy(*a, _fn=fn, _name=name, _rows=rows_of, **k):
+                key = (_name, self.query)
+                if key in STATE_CAPTURE:
+                    rows = _rows(a)
+                    if rows >= self.args.get(key, (-1,))[0]:
+                        self.args[key] = (rows, a, k)
+                return _fn(*a, **k)
+            setattr(mod, attr, spy)
+
+    def close(self):
+        for mod, attr, fn in self.saved:
+            setattr(mod, attr, fn)
+
+
+def load_state_tables(s, srow_rows):
+    """sagg, srow (srow_rows rows), su and arr in session s, filled by
+    STATE_INSERTS (arr by arr_columns); prints each INSERT's seconds."""
+    from clickhouse_tpu_torch.core.column import state_width
+    t0 = time.perf_counter()
+    s.execute("CREATE TABLE sagg (k UInt32, c AggregateFunction(count), "
+              "s AggregateFunction(sum, Int64), a AggregateFunction(avg, "
+              "Int64), mx AggregateFunction(max, Int64)) "
+              "ENGINE = AggregatingMergeTree ORDER BY k")
+    s.execute("CREATE TABLE srow (k UInt32, s AggregateFunction(sum, Int64), "
+              "mx AggregateFunction(max, Int64)) "
+              "ENGINE = AggregatingMergeTree ORDER BY k")
+    s.execute("CREATE TABLE su (k UInt32, u AggregateFunction(uniq, Int64)) "
+              "ENGINE = AggregatingMergeTree ORDER BY k")
+    s.execute("CREATE TABLE arr (id UInt32, tags Array(UInt32), "
+              "w Array(Int32))")
+    s.insert_pydict("arr", arr_columns())
+    s.catalog.get_table("default", "arr").read_block()
+    srow_b = sum(state_width(s.catalog.get_table("default", "srow")
+                             .schema[c]) for c in ("s", "mx"))
+    print(f"state tables created, arr inserted: "
+          f"{time.perf_counter() - t0:.1f} s; srow: {srow_rows} rows of "
+          f"{srow_b} state bytes", flush=True)
+
+
+def state_statement(s, name, sqls, want, per_query, launches, launch_rows):
+    """One state statement (an INSERT's statements, or a query checked
+    against numpy) through the public API, the launch counters set to 0
+    just before it and read just after; fails unless it launched each
+    kernel of STATE_PATHS[name].  Prints its wall, its launches, its peak
+    above what was allocated before it beside the governor's estimate."""
+    from clickhouse_tpu_torch.exec.streaming import \
+        estimate_plan_device_bytes
+    from clickhouse_tpu_torch.ops import _native
+    from clickhouse_tpu_torch.sql import parse
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _native.reset_launches()
+    t0 = time.perf_counter()
+    rows = None
+    for sql in sqls:
+        rows = s.execute(sql, settings=STATE_SETTINGS).rows()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    per_query[name] = dict(_native.LAUNCHES)
+    rows_of = {k: list(v) for k, v in _native.LAUNCH_ROWS.items()}
+    peak = torch.cuda.max_memory_allocated() - base
+    if name in want and not state_agree(name, rows, want):
+        fail(f"{name} returned {rows[:3]}..., numpy says "
+             f"{want[name][:3]}...")
+    for k, v in rows_of.items():
+        launches[k] += per_query[name][k]
+        launch_rows[k] += v
+    missing = [k for k in STATE_PATHS[name] if not per_query[name][k]]
+    if missing:
+        fail(f"{name} did not launch {missing}: {per_query[name]}")
+    cfg = s.settings.copy_with(STATE_SETTINGS)
+    ests = [estimate_plan_device_bytes(
+        s._plan(parse(q if name.startswith("Q") else q.split(" ", 3)[3]),
+                cfg), s.catalog, cfg) for q in sqls]
+    used = {k: v for k, v in per_query[name].items() if v}
+    big = {k: max(v) for k, v in rows_of.items() if v}
+    what = "matches numpy" if name in want else "inserted"
+    print(f"{name}: {what}; {wall:.3f} s; launches {used}; the largest "
+          f"launch's rows {big}; peak {peak} bytes above what was allocated "
+          f"before it; the governor's estimate {max(ests)}", flush=True)
+
+
+def state_path(s, want, srow_rows, per_query, launches, launch_rows,
+               watch):
+    """The state inserts and queries once each, on their paths; su's
+    stored registers checked against numpy's bit for bit."""
+    limit = "" if srow_rows >= N_ROWS else f" LIMIT {srow_rows}"
+    for name, sqls in STATE_INSERTS:
+        watch.query = name
+        try:
+            state_statement(s, name, [q.format(limit=limit) for q in sqls],
+                            want, per_query, launches, launch_rows)
+        finally:
+            watch.query = ""
+    print(f"AggregateStateSlots (uniqState's rows, over the groups "
+          f"present): {s.profile_events.get('AggregateStateSlots')}",
+          flush=True)
+    check_su_registers(s, want)
+    for name, sql in STATE_QUERIES:
+        watch.query = name
+        try:
+            state_statement(s, name, [sql], want, per_query, launches,
+                            launch_rows)
+        finally:
+            watch.query = ""
+
+
+def check_su_registers(s, want):
+    """su's stored uniq states (its two parts in insertion order, each in
+    key order) against numpy's registers, bit for bit."""
+    stored = s.execute("SELECT k, u FROM su").rows()
+    at = 0
+    for part, (keys, regs) in enumerate(want["su:registers"]):
+        rows = stored[at:at + len(keys)]
+        at += len(keys)
+        got = np.frombuffer(b"".join(r[1] for r in rows),
+                            np.uint8).reshape(len(rows), -1)
+        if [r[0] for r in rows] != keys.tolist() \
+                or not np.array_equal(got, regs):
+            fail(f"su's part {part} registers are not numpy's")
+    if at != len(stored):
+        fail(f"su holds {len(stored)} rows, numpy {at}")
+    print(f"su's stored uniq states: numpy's registers bit for bit ({at} "
+          f"rows of m = 4,096)", flush=True)
+
+
+def state_times(s):
+    """Each state query's median wall of STATE_REPS runs and its device-busy
+    time from a torch.profiler trace, with the top device operations."""
+    clause = ", ".join(f"{k} = {v}" for k, v in STATE_SETTINGS.items())
+    for name, sql in STATE_QUERIES:
+        times = []
+        for _ in range(STATE_REPS):
+            t0 = time.perf_counter()
+            s.execute(sql, settings=STATE_SETTINGS)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        busy, ops, wall, top = device_busy(s, f"{sql} SETTINGS {clause}",
+                                           reps=STATE_REPS)
+        print(f"{name} median wall {statistics.median(times) * 1e3:.3f} ms "
+              f"over {STATE_REPS} runs; under torch.profiler: device busy "
+              f"{busy:.4f} ms of {wall:.3f} ms wall a run, {ops:g} device "
+              f"operations a run; top: "
+              + "; ".join(f"{n} {t:.4f}" for n, t in top), flush=True)
+
+
+def state_shapes(dev, watch):
+    """The state kernels replayed on the inputs their statements gave them
+    (STATE_CAPTURE), each held against its plain version and timed beside
+    it and a library call where one computes the same function.  ->
+    {kernel: record}; K19's pack records as pack_* (srow's insert) and
+    dst_* (Qm4's FINAL, at the kept rows) keys of its entry."""
+    from clickhouse_tpu_torch.ops import scan_ops, sketch_ops, state_ops
+    got_args = watch.args
+    missing = [k for k in STATE_CAPTURE if k not in got_args]
+    if missing:
+        fail(f"the state path gave no input to {missing}")
+    recs = {}
+    # K19's unpack at Qm3 (srow's widest column)
+    _, a, _ = got_args[("state_unpack", "Qm3")]
+    packed, src, cols, width = a
+    layout = [(c.dtype, 1 if c.dim() == 1 else c.shape[1]) for c in cols]
+    offs = np.cumsum([0] + [c.element_size() * (1 if c.dim() == 1 else
+                                                 c.shape[1]) for c in cols])
+    n = packed.shape[0]
+    rec = recs["state_rows"] = tail_record(
+        state_ops.unpack_state_rows(packed, layout, src),
+        state_ops._unpack_plain(packed, layout, src),
+        cuda_ms(lambda: state_ops.unpack_state_rows(packed, layout, src)),
+        cuda_ms(lambda: state_ops._unpack_plain(packed, layout, src),
+                reps=5),
+        cuda_ms(lambda: [packed[:, offs[i]:offs[i + 1]].contiguous()
+                         for i in range(len(cols))]),
+        "a .contiguous() of each column's bytes",
+        state_ops.state_rows_bytes(n, [int(offs[-1])]),
+        f"Qm3: unpack of {n} rows of {width} bytes into {len(cols)} "
+        f"column(s)")
+    # K19's pack at srow's insert (no dst_rows) and at Qm4's kept rows
+    for key, q in (("pack", "Isrow"), ("dst", "Qm4")):
+        _, a, _ = got_args[("state_pack", q)]
+        pcols, dst, out, width = a
+        n = pcols[0].shape[0]
+        base = out.clone()
+
+        def kernel():
+            return state_ops.pack_state_rows(
+                pcols, dst, None if dst is None else out)
+
+        def plain():
+            return state_ops._pack_plain(pcols, dst, torch.empty(
+                (n, width), dtype=torch.uint8, device=dev) if dst is None
+                else out)
+        g1 = kernel().clone()
+        out.copy_(base)
+        w1 = plain().clone()
+        err = max_abs_err(g1, w1)
+        nb = state_ops.state_rows_bytes(n, [width], dst is not None)
+        rec[f"{key}_ms"] = cuda_ms(kernel)
+        rec[f"{key}_plain_ms"] = cuda_ms(plain, reps=5)
+        rec[f"{key}_bytes"] = nb
+        rec[f"{key}_bound_ms"] = bound_ms(nb)
+        rec[f"{key}_shape"] = (
+            f"{q}: pack of {n} rows of {width} bytes from {len(pcols)} "
+            f"column(s)" + ("" if dst is None else
+                            f" at {n} kept rows of {out.shape[0]}"))
+        if key == "pack":
+            rec["pack_library_ms"] = cuda_ms(lambda: torch.cat(
+                [state_ops._bytes_of(c) for c in pcols], dim=1))
+        rec["max_abs_err"] = max(rec["max_abs_err"], err)
+        del pcols, dst, out, base, g1, w1
+    print(f"state_rows pack at srow's insert: kernel {rec['pack_ms']:.4f} "
+          f"ms, plain {rec['pack_plain_ms']:.4f} ms, torch.cat "
+          f"{rec['pack_library_ms']:.4f} ms, bound "
+          f"{rec['pack_bound_ms']:.4f} ms ({rec['pack_shape']}); at Qm4's "
+          f"kept rows: kernel {rec['dst_ms']:.4f} ms, plain "
+          f"{rec['dst_plain_ms']:.4f} ms ({rec['dst_shape']})", flush=True)
+    # K16's merge at Qm5 (m = 4,096)
+    _, a, _ = got_args[("hll_merge", "Qm5")]
+    states, n_groups, log2m, starts, ends, perm, mask = a
+    recs["hll"] = tail_record(
+        [sketch_ops._hll_merge_cuda(*a)],
+        [sketch_ops._hll_merge_plain(states, n_groups, starts, ends, perm,
+                                     mask)],
+        cuda_ms(lambda: sketch_ops._hll_merge_cuda(*a)),
+        cuda_ms(lambda: sketch_ops._hll_merge_plain(
+            states, n_groups, starts, ends, perm, mask), reps=3),
+        None, "none",
+        sketch_ops.hll_merge_bytes(states, n_groups, starts=starts,
+                                   ends=ends, perm=perm, mask=mask),
+        f"Qm5: merge of {states.shape[0]} states of m = {1 << log2m} into "
+        f"{n_groups} group slots")
+    del a, states, starts, ends, perm, mask
+    # K17 at Qm7: a cumulative sum of the states down one segment
+    _, a, _ = got_args[("segmented_scan", "Qm7")]
+    op, data, boundary, mask, reverse, uns, n, _ = a
+    recs["segmented_scan"] = tail_record(
+        [scan_ops._segmented_scan_cuda(*a)],
+        [scan_ops._segmented_scan_plain(op, data, boundary, mask, reverse,
+                                        uns, n)],
+        cuda_ms(lambda: scan_ops._segmented_scan_cuda(*a)),
+        cuda_ms(lambda: scan_ops._segmented_scan_plain(
+            op, data, boundary, mask, reverse, uns, n), reps=3),
+        cuda_ms(lambda: torch.cumsum(data, 0)) if op == "sum" and
+        boundary is None and mask is None else None,
+        "torch.cumsum (one segment)",
+        nbytes(data) + (0 if boundary is None else nbytes(boundary))
+        + (0 if mask is None else nbytes(mask)) + n * 8,
+        f"Qm7: {op} of {n} {data.dtype} states over one segment")
+    del a
+    # K6 at Qm3's merges, K4 and K5 at Qm4's FINAL grouping
+    _, a, _ = got_args[("segment_reduce", "Qm3")]
+    specs, perm, gid, cap_g, group_rows, bounds, n = a
+    recs["segment_reduce"] = tail_record(
+        scan_ops._segment_reduce_many_cuda(*a),
+        [scan_ops._segment_reduce_plain(op, d, m, perm, gid, cap_g, u)
+         for op, d, m, u in specs],
+        cuda_ms(lambda: scan_ops._segment_reduce_many_cuda(*a)),
+        cuda_ms(lambda: [scan_ops._segment_reduce_plain(
+            op, d, m, perm, gid, cap_g, u) for op, d, m, u in specs],
+            reps=3), None, "none",
+        k6_bytes(specs, n, cap_g, group_rows)[0],
+        f"Qm3: {len(specs)} merge(s) ({', '.join(sp[0] for sp in specs)}) "
+        f"of {n} states in {cap_g} group slots")
+    del a, specs, perm, gid
+    _, a, _ = got_args[("radix_sort_pairs", "Qm4")]
+    recs["radix_sort_pairs"] = k4_record(*a)
+    recs["radix_sort_pairs"]["shape"] = "Qm4: " \
+        + recs["radix_sort_pairs"]["shape"]
+    _, a, _ = got_args[("segment_bounds", "Qm4")]
+    recs["segment_bounds"] = k5_record(*a)
+    recs["segment_bounds"]["shape"] = "Qm4: " \
+        + recs["segment_bounds"]["shape"]
+    del a
+    report(recs)
+    return recs
+
+
+def merge_state_shapes(shapes, states):
+    """K19's record as the state_rows entry; the other kernels' records as
+    states_* keys of their entries, each entry's max_abs_err the larger."""
+    shapes["state_rows"] = states["state_rows"]
+    for name, rec in states.items():
+        if name == "state_rows":
+            continue
+        r = shapes[name]
+        r["max_abs_err"] = max(r["max_abs_err"], rec["max_abs_err"])
+        for key in ("ms", "plain_ms", "library_ms", "bytes", "bound_ms",
+                    "shape"):
+            r["states_" + key] = rec[key]
+
+
+def states_phase(ch, dev, s=None, want=None, cut=False, per_query=None,
+                 launches=None, launch_rows=None):
+    """--states, and the whole smoke's: K19's cases, the state tables
+    (srow at N_SROW_CUT rows where `cut`), the state statements on their
+    paths against numpy, their times and the state kernels at their
+    inputs.  -> (shapes, launches, launch_rows)."""
+    from clickhouse_tpu_torch.ops import _native
+    t0 = time.perf_counter()
+    check_k19(dev)
+    srow_rows = N_SROW_CUT if cut else N_ROWS
+    if s is None:
+        s, x = load_hits(ch)
+        want = state_answers(x, srow_rows)
+        del x
+    per_query = {} if per_query is None else per_query
+    if launches is None:
+        launches = {k: 0 for k in _native.LAUNCHES}
+        launch_rows = {k: [] for k in _native.LAUNCHES}
+    load_state_tables(s, srow_rows)
+    watch = StateWatch()
+    try:
+        state_path(s, want, srow_rows, per_query, launches, launch_rows,
+                   watch)
+    finally:
+        watch.close()
+    print(f"[{time.perf_counter() - t0:.1f} s] state statements done",
+          flush=True)
+    state_times(s)
+    shapes = state_shapes(dev, watch)
+    watch.args.clear()
+    for name in ("sagg", "srow", "su", "arr"):
+        s.execute(f"DROP TABLE {name}")
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"state phase: {time.perf_counter() - t0:.1f} s", flush=True)
+    return shapes, launches, launch_rows
+
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this check needs a GPU")
@@ -8097,6 +8697,17 @@ def main():
         print(json.dumps({"launches": {k: v for k, v in launches.items()
                                        if v}, **shapes}), flush=True)
         return
+    if sys.argv[1:] == ["--states"]:
+        # K19's cases, the state tables at full size (srow 100M rows), the
+        # state statements on their paths, their times and the state
+        # kernels at their inputs
+        t_phase = time.perf_counter()
+        shapes, launches, _ = states_phase(ch, dev)
+        print(f"--states phase: {time.perf_counter() - t_phase:.1f} s",
+              flush=True)
+        print(json.dumps({"launches": {k: v for k, v in launches.items()
+                                       if v}, **shapes}), flush=True)
+        return
     if sys.argv[1:] == ["--window"]:
         shapes, launches, _ = window_turn(ch, dev)
         print(json.dumps({"launches": {k: launches[k] for k in (
@@ -8143,6 +8754,7 @@ def main():
     want.update(sketch_answers(x))
     want.update(window_answers(x))
     fill_want = tail_hits_answers(x)
+    state_want = state_answers(x, N_SROW_CUT)
     del x
     load_hits_s(s)
     want.update(string_answers())
@@ -8275,6 +8887,15 @@ def main():
                             launch_rows=launch_rows)
     merge_tail_shapes(shapes, tail)
     print(f"[{time.perf_counter() - t0:.1f} s] tail phase done", flush=True)
+    # the aggregate states (srow cut to N_SROW_CUT rows), their launches
+    # counted with the main path's
+    t_states = time.perf_counter()
+    states, _, _ = states_phase(ch, dev, s, state_want, cut=True,
+                                per_query=per_query, launches=launches,
+                                launch_rows=launch_rows)
+    del state_want
+    print(f"[{time.perf_counter() - t0:.1f} s] state phase done "
+          f"({time.perf_counter() - t_states:.1f} s)", flush=True)
     # the streaming phase over 1B rows, after the earlier tables are freed
     import gc
     del s
@@ -8290,11 +8911,18 @@ def main():
     shapes.update(sketch_shapes(dev, sketch_watch))
     print(f"[{time.perf_counter() - t0:.1f} s] K15 and K16 at their inputs "
           f"done", flush=True)
+    merge_state_shapes(shapes, states)
     launches["hll"] = sum(launches[k] for k in HLL_KERNELS)
     launch_rows["hll"] = launch_rows["hll_update"] \
         + launch_rows["hll_update_rows"]
     shapes["hll"].update({f"launches_{k[4:]}": launches[k]
                           for k in HLL_KERNELS})
+    launches["state_rows"] = launches["state_pack"] \
+        + launches["state_unpack"]
+    launch_rows["state_rows"] = launch_rows["state_pack"] \
+        + launch_rows["state_unpack"]
+    shapes["state_rows"].update(launches_pack=launches["state_pack"],
+                                launches_unpack=launches["state_unpack"])
     for name in ("radix_sort_pairs", "segment_reduce", "segment_bounds"):
         shapes[name]["launches_per_query"] = {
             q: per_query[q][name] + (per_query[q]["segment_reduce_sorted"]
@@ -8455,13 +9083,15 @@ def kernel_line(card, shapes, launches, launch_rows):
                    "clickhouse_tpu/ops/scan_ops.py:86"),
                "segmented_search": (
                    "clickhouse_tpu_torch/csrc/segmented_search.cu",
-                   "clickhouse_tpu/ops/search.py:52")}
+                   "clickhouse_tpu/ops/search.py:52"),
+               "state_rows": ("clickhouse_tpu_torch/csrc/state_rows.cu",
+                              "clickhouse_tpu/exprs/aggregates.py:1004")}
     kernels = []
     for name, (src, repl) in sources.items():
         r = shapes[name]
         full = N_VECS if name == "vector_distance" else \
             STREAM_CHUNK_ROWS if name in ("unpack_pairs", "compact_rows") \
-            else N_ROWS
+            else N_SROW_CUT if name == "state_rows" else N_ROWS
         big = sum(1 for m in launch_rows[name] if m >= full)
         print(f"{name}: {launches[name]} launches on the main path, {big} "
               f"of them over {full} rows", flush=True)

@@ -18,8 +18,13 @@
   row (10M x 128 embeddings), and so do ragged rows given as
   ``ArrayRows`` (a padded matrix and each row's length).
 
-Array(String), Array(Tuple), arrays of other inner types, and
-AggregateFunction columns are not ported yet.
+* AggregateFunction(fn, T...) is the reference's layout: a (capacity, B)
+  uint8 matrix, each row one packed state of B bytes (exprs/aggregates.py
+  state_spec); it comes in as a (rows, B) uint8 matrix or a bytes object
+  a row, whose length must be B.
+
+Array(String), Array(Tuple) and arrays of other inner types are not
+ported yet.
 """
 from __future__ import annotations
 
@@ -35,6 +40,7 @@ from .errors import NotImplementedError_
 __all__ = ["ArrayRows", "Column", "Dictionary", "column_from_numpy",
            "PAD_MULTIPLE",
            "pad_to", "narrow_storage", "check_array_type", "array_width",
+           "state_matrix", "state_width",
            "hash_tokens128"]
 
 # Pad every column to a multiple of 1024 rows, as the reference does.
@@ -416,6 +422,39 @@ def _array_column(values: np.ndarray, dtype: Optional[dt.DType], n: int,
                   lengths=dt.tensor_from_numpy(lens, device))
 
 
+def state_width(dtype: dt.DType) -> int:
+    """B: the bytes of one state of an AggregateFunction(...) type."""
+    from ..exprs.aggregates import make_merge_for_dtype, state_width_bytes
+    return state_width_bytes(make_merge_for_dtype(dtype).spec)
+
+
+def state_matrix(values, dtype: dt.DType) -> np.ndarray:
+    """An AggregateFunction column's host values as its (rows, B) uint8
+    matrix: a matrix as it is, a bytes object a row stacked (None: a zero
+    state).  A row of another width than B raises TypeError_, naming the
+    layout."""
+    from .errors import TypeError_
+    width = state_width(dtype)
+    if isinstance(values, np.ndarray) and values.ndim == 2 \
+            and values.dtype != object:
+        if values.shape[1] != width:
+            raise TypeError_(
+                f"{dtype} states are {width} bytes in the CUDA engine's "
+                f"layout; got rows of {values.shape[1]}")
+        return values.astype(np.uint8, copy=False)
+    mat = np.zeros((len(values), width), np.uint8)
+    for i, v in enumerate(values):
+        if v is None:
+            continue
+        if not isinstance(v, (bytes, bytearray)) or len(v) != width:
+            raise TypeError_(
+                f"{dtype} states are {width} bytes in the CUDA engine's "
+                f"layout; got {type(v).__name__} of "
+                f"{len(v) if hasattr(v, '__len__') else '?'} bytes")
+        mat[i] = np.frombuffer(bytes(v), np.uint8)
+    return mat
+
+
 def column_from_numpy(values: np.ndarray, dtype: Optional[dt.DType] = None,
                       capacity: Optional[int] = None, *,
                       device) -> Column:
@@ -425,8 +464,12 @@ def column_from_numpy(values: np.ndarray, dtype: Optional[dt.DType] = None,
         values = np.asarray(values)
     n = len(values)
     cap = capacity or pad_to(n)
-    if dtype is not None and (dtype.agg_state is not None
-                              or dt.is_composite(dtype)):
+    if dtype is not None and dtype.agg_state is not None:
+        mat = state_matrix(values, dtype)
+        out = np.zeros((cap, mat.shape[1]), np.uint8)
+        out[:n] = mat
+        return Column(dtype, dt.tensor_from_numpy(out, device), None)
+    if dtype is not None and dt.is_composite(dtype):
         raise NotImplementedError_(
             f"{dtype} columns are not ported to the CUDA engine yet")
     if (dtype is not None and dtype.is_array) or values.ndim == 2 or (

@@ -56,7 +56,7 @@ import torch
 
 from ..core import dtypes as dt
 from ..core.block import Block
-from ..core.column import Dictionary, pad_to
+from ..core.column import PAD_MULTIPLE, Dictionary, pad_to
 from ..core.errors import (AnalysisError, CapacityError, ExecutionError,
                            MemoryLimitExceeded, NotImplementedError_)
 from ..core.settings import Settings
@@ -248,18 +248,15 @@ def _apply_final(node: L.ScanNode, eb: ExecBlock, ctx: ExecContext
     highest version, the newest among equal versions (ClickHouse's rule
     and the reference's own merge's, storage/merges.py:75-76; its FINAL
     keeps the newest row whatever its version, R1).  SummingMergeTree
-    writes K6's sums of the numeric non-key columns at the kept rows.
+    writes K6's sums of the numeric non-key columns at the kept rows;
+    AggregatingMergeTree merges each AggregateFunction column's states by
+    key and writes the packed merged state (K19) at the kept rows.
     More keys than max_groups raise CapacityError naming it (the session
     re-plans); the reference drops the keys past its slots."""
     from ..storage.table import base_engine
     engine = base_engine(node.engine).lower()
     if engine not in _FINAL_ENGINES or not node.order_by_cols:
         return eb
-    if engine == "aggregatingmergetree":
-        raise NotImplementedError_(
-            "SELECT ... FINAL over AggregatingMergeTree is not ported to the "
-            "CUDA engine yet (AggregateFunction columns and their -State/"
-            "-Merge combinators)")
     key_fields = [f for f, n in zip(node.schema, node.column_names)
                   if n in node.order_by_cols]
     if not key_fields:
@@ -286,15 +283,41 @@ def _apply_final(node: L.ScanNode, eb: ExecBlock, ctx: ExecContext
                     and not cv.dtype.is_array \
                     and storage_np(cv).kind in ("i", "u", "f"):
                 summed.append(f)
-    # the keep flags (a byte a row and a dummy), and each summed column's
-    # sums and its new rows
+    folded = []
+    if engine == "aggregatingmergetree":
+        key_ids = {f.id for f in key_fields}
+        folded = [f for f in node.schema
+                  if f.id not in key_ids and f.dtype.agg_state is not None]
+    slots = pad_to(min(cap, ctx.settings.max_groups))
+    # the keep flags (a byte a row and a dummy), each summed column's sums
+    # and its new rows, and each folded state column's unpacked states,
+    # merged states and new rows
     left = _hold_bytes(ctx, cap + 1 + sum(
-        16 * pad_to(min(cap, ctx.settings.max_groups))
-        + 8 * (cap + 1) for _ in summed), "FINAL")
+        16 * slots + 8 * (cap + 1) for _ in summed) + sum(
+        cv.data.shape[1] * (2 * cap + 1 + slots) + 8 * slots
+        for cv in (eb.cols[f.id] for f in folded)), "FINAL")
     g, cap_g, real, last = _final_grouping(node, eb, ctx, key_fields,
                                            secondary, left)
     keep = _flags_at(cap, [(last, real)], ctx.device)
     cols = eb.cols
+    if folded:
+        # AggregatingSortedAlgorithm: a key's states merged into one (the
+        # -Merge of the column's type: K6, or K16 for uniq), packed by K19
+        # at the key's kept row only (the groups fill the first slots: one
+        # host read of their count)
+        cols = dict(eb.cols)
+        n_keys = min(int(g.num_groups), cap_g)
+        dst = last[:n_keys]
+        for f in folded:
+            cv = eb.cols[f.id].broadcast(cap)
+            inner = agg_reg.make_merge_for_dtype(f.dtype).inner
+            merged = inner.merge(agg_reg.unpack_states(inner, cv.data), g,
+                                 eb.rows)
+            out = torch.zeros((cap, cv.data.shape[1]), dtype=torch.uint8,
+                              device=ctx.device)
+            agg_reg.pack_states(inner, [m[:n_keys] for m in merged],
+                                dst_rows=dst, out=out)
+            cols[f.id] = ColVal(cv.dtype, out)
     if summed:
         cols = dict(eb.cols)
         # K6 reads each column as stored (narrow storage holds its values)
@@ -619,6 +642,7 @@ def _stage1(node: L.AggregateNode, child: ExecBlock,
                                          max_bytes=ctx.memory_headroom)
         # the grouping's perm and group ids stay while the aggregates run
         gctx.hold(8 * grouping.perm.shape[0], "the sort grouping")
+        grouping = _narrow_wide_states(grouping, per_agg_inputs, ctx)
     gctx.grouping = grouping
 
     if grouping.kind == "dense":
@@ -665,6 +689,29 @@ def _stage1(node: L.AggregateNode, child: ExecBlock,
             states = item.fn.sorted_step(actx, g, arg_cvs, cond, states)
         states_per_agg.append((item, arg_cvs, states))
     return grouping, group_counts, states_per_agg
+
+
+# a stored state this wide a slot (uniq's 4,096 bytes) is built over the
+# groups present, not the grouping's slots
+WIDE_STATE_BYTES = 1024
+
+
+def _narrow_wide_states(grouping, per_agg_inputs, ctx: ExecContext):
+    """The sort grouping narrowed to the slots its groups fill (one host
+    read of the group count) where an aggregate stores or merges a state
+    of WIDE_STATE_BYTES or more a slot; the slots are counted in the
+    profile (AggregateStateSlots).  A streamed chunk's grouping keeps its
+    slots (the carry lines the chunks' states up by them)."""
+    wide = [x[0].fn for x in per_agg_inputs
+            if getattr(x[0].fn, "spec", None) is not None
+            and agg_reg.state_width_bytes(x[0].fn.spec) >= WIDE_STATE_BYTES]
+    cap_g = grouping.num_groups_cap
+    if not wide or cap_g <= PAD_MULTIPLE or ctx.merge_states:
+        return grouping
+    slots = min(cap_g, pad_to(int(grouping.num_groups)))
+    ctx.count("AggregateStateSlots", slots)
+    return grouping if slots == cap_g \
+        else agg_ops.narrow_groups(grouping, slots)
 
 
 def _same_keys(a, b) -> bool:
@@ -809,7 +856,7 @@ def _aggregate_local(node: L.AggregateNode, child: ExecBlock, key_cvs,
                                 setting="max_groups"))
     return _finalize(node, key_cvs, grouping.unique_keys,
                      grouping.num_groups, group_counts, states_per_agg,
-                     cap_g, global_agg, ctx,
+                     grouping.num_groups_cap, global_agg, ctx,
                      group_valid=None if global_agg
                      else grouping.group_valid())
 
@@ -2484,11 +2531,16 @@ def materialize(block: ExecBlock, schema: List[L.Field],
     out: Dict[str, np.ndarray] = {}
     for f in schema:
         cv = block.cols[f.id].broadcast(block.capacity)
-        if dt.is_composite(cv.dtype) or cv.dtype.agg_state is not None:
+        if dt.is_composite(cv.dtype):
             raise NotImplementedError_(
                 f"{cv.dtype} results are not ported to the CUDA engine yet")
-        data = dt.to_numpy_storage(
-            pick(cv.data), dt.remove_nullable(cv.dtype).np_dtype)
+        if cv.dtype.agg_state is not None:
+            # the (rows, B) state matrix as it is: Result.rows() makes a
+            # bytes object of each row, an INSERT stores the matrix
+            data = pick(cv.data).cpu().numpy()
+        else:
+            data = dt.to_numpy_storage(
+                pick(cv.data), dt.remove_nullable(cv.dtype).np_dtype)
         if cv.dtype.is_array:
             data = _array_rows(cv, data, pick)
         elif cv.dtype.is_dictionary:

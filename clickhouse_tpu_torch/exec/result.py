@@ -50,6 +50,8 @@ class Result:
 
     @staticmethod
     def _pylist(v: np.ndarray) -> list:
+        if v.ndim == 2:           # AggregateFunction states: a row's bytes
+            return [row.tobytes() for row in v]
         out = []
         for x in v:
             if isinstance(x, np.integer):

@@ -23,7 +23,7 @@ import torch
 
 from ..core import dtypes as dt
 from ..core import typed
-from ..core.column import check_array_type, pad_to
+from ..core.column import check_array_type, pad_to, state_width
 from ..core.errors import (AnalysisError, CapacityError, MemoryLimitExceeded,
                            NotImplementedError_)
 from ..core.settings import Settings
@@ -280,11 +280,8 @@ class Session:
                     f"engine yet ({e})") from None
             if t.is_array:
                 check_array_type(t)
-            if dt.remove_nullable(t).agg_state is not None:
-                raise NotImplementedError_(
-                    f"{c.type_name} columns are not ported to the CUDA "
-                    f"engine yet (AggregateFunction columns and the "
-                    f"-State/-Merge combinators)")
+            if t.agg_state is not None:
+                state_width(t)        # the state's layout, or a typed error
             schema.append((c.name, t))
         t = Table(stmt.table, schema, stmt.engine,
                   order_by=[ast.format_expr(e) for e in (stmt.order_by or [])],
@@ -324,8 +321,11 @@ class Session:
             data = {n: np.asarray(v, dtype=object) for n, v in cols.items()}
         else:
             settings = self._query_settings(stmt, overrides or {})
-            data, _ = self._execute(self._plan(stmt.select, settings),
-                                    settings)
+            data, ictx = self._execute(self._plan(stmt.select, settings),
+                                       settings)
+            for k, v in ictx.profile.items():
+                if k != "rows_scanned":
+                    self._count(k, v)
             data = dict(zip(stmt.columns or table.schema.keys(),
                             data.values()))
         table.insert_pydict(_align_insert(data, table))
@@ -358,10 +358,12 @@ def _align_insert(data: Dict[str, np.ndarray], table: Table
             raise AnalysisError(f"Unknown column '{name}' in INSERT")
         ctype = table.schema[name]
         v = np.asarray(vals)
-        if ctype.agg_state is not None or dt.is_composite(ctype):
+        if dt.is_composite(ctype):
             raise NotImplementedError_(
                 f"{ctype} columns are not ported to the CUDA engine yet")
-        if ctype.is_array:
+        if ctype.agg_state is not None:
+            out[name] = vals      # Table.insert_pydict makes its matrix
+        elif ctype.is_array:
             if v.ndim == 2 and v.dtype != object:
                 out[name] = v        # a vector matrix goes in as it is
                 continue

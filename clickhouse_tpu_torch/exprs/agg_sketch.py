@@ -332,16 +332,26 @@ class HLLUniqAgg(AggregateFunction):
 
     # the (groups x registers) budget of _m_for_cap (reference :287)
     PAIR_BUDGET = 1 << 23
+    # a stored state's register count, whatever the grouping (reference
+    # :285): pinned by pin_state_layout (-State, -Merge)
+    STATE_M = 4096
 
     def __init__(self, arg_types):
         super().__init__(arg_types)
         self._dicts: Optional[list] = None
+        self.fixed_m: Optional[int] = None
+
+    def pin_state_layout(self):
+        self.fixed_m = self.STATE_M
 
     def result_type(self):
         return dt.UInt64
 
     def _m_for_cap(self, cap_g: int) -> int:
-        """The register count of cap_g group slots (reference :293)."""
+        """The register count of cap_g group slots (reference :293), or
+        the pinned one."""
+        if self.fixed_m is not None:
+            return self.fixed_m
         m = 4096
         while m > 64 and cap_g * m > HLLUniqAgg.PAIR_BUDGET:
             m //= 2

@@ -21,8 +21,11 @@ when the grouping asks for mergeable states (GroupContext.mergeable), the
 count of the rows it saw as its last state, so a partial group that a -If
 condition or a NULL left with no such row takes no part in the merge.
 What a state holds is fixed by the aggregate and `mergeable` alone, so
-every chunk of a streamed query gives the same states.  -State and -Merge
-are not ported.
+every chunk of a streamed query gives the same states.  -State packs the
+mergeable states into an AggregateFunction column's rows and -Merge
+unpacks and merges them (the state layer below get_aggregate's registry;
+K19, ops/state_ops.py); the -Array, -ForEach, -Distinct and -OrNull/
+-OrDefault combinators are in agg_ext.py.
 
 Two-step aggregates run a second step after reduce_many (`sorted_step`):
 argMin/argMax take the rows at their group's best order value; the
@@ -44,8 +47,8 @@ sketches of agg_sketch.py (uniq and its HLL spellings, groupArray,
 groupUniqArray, topK, entropy).  sum/count/avg of integers
 may take the dense grouping; the rest take the sort grouping (or K1 under
 GROUP BY ()).  min/max (and argMin/argMax's order) of a String compare its
-dictionary ranks.  Every other aggregate name and combinator raises the
-reference's typed errors (UnknownFunction / NotImplementedError_).
+dictionary ranks.  Every other aggregate name raises the reference's typed
+errors (UnknownFunction / NotImplementedError_).
 """
 from __future__ import annotations
 
@@ -229,6 +232,11 @@ class AggregateFunction:
                cond: Optional[torch.Tensor]) -> List[torch.Tensor]:
         specs, finish = self.reductions(ctx, args, cond)
         return finish(ctx.grouping.reduce_many(specs))
+
+    def pin_state_layout(self) -> None:
+        """Make the state's layout independent of the grouping (before it
+        is stored as a value: -State, -Merge); uniq pins its register
+        count."""
 
     def finalize(self, states):
         """-> (data, validity or None[, lengths]), each (num_groups_cap,)
@@ -682,7 +690,7 @@ class ArgMinMaxAgg(AggregateFunction):
             list)
 
     def merge_ops(self):
-        # a mergeable order state is signed (sorted_step flips UInt64 bits)
+        # a mergeable order state is an int64 in signed order (_order_state)
         return [("min" if self.minimize else "max", False), ("any", False)]
 
     def merge(self, states, g, mask):
@@ -712,15 +720,19 @@ class ArgMinMaxAgg(AggregateFunction):
 
     def sorted_step(self, ctx, g, args, cond, states):
         """-> [order state, value state] (+ the presence count).  A
-        mergeable order state of UInt64 bits has its top bit flipped, so
-        the merge compares every order state signed."""
+        mergeable order state is the order token with its top bit flipped
+        (_order_state), so the merge compares every order state signed and
+        a stored state holds the reference's token."""
         mask = self._row_mask(ctx, args, cond)
         o, uns = self._order(ctx, args[1])
         first = states[0]
-        if ctx.mergeable and uns:
-            first = first ^ torch.iinfo(torch.int64).min
+        if ctx.mergeable:
+            first = _order_state(first, uns, self.arg_types[1])
         best = _bits(states[0])
         v = self._spec_value(ctx, args[0])
+        if g.kind == "perrow":           # a row a group: its own value
+            return [first, self._logical(g.reduce("any", v, mask))] \
+                + states[1:]
         if g.kind == "trivial":
             ctx.hold(o.shape[0], f"{self.name}'s rows at the best value")
             at_best = _bits(o) == best[0]
@@ -1300,10 +1312,8 @@ REFERENCE_AGGREGATES = frozenset({
     "varpop", "varpopstable", "varsamp", "varsampstable", "welchttest",
     "windowfunnel"})
 
-# combinators get_aggregate knows and refuses as not ported
-_UNPORTED_COMBINATORS = ("state", "merge", "array", "foreach", "distinct",
-                         "ornull", "ordefault")
-_COMBINATORS = ("if",) + _UNPORTED_COMBINATORS
+_COMBINATORS = ("if", "state", "merge", "array", "foreach", "distinct",
+                "ornull", "ordefault")
 
 
 def is_aggregate_name(name: str) -> bool:
@@ -1325,41 +1335,407 @@ def is_aggregate_name(name: str) -> bool:
     return base in REFERENCE_AGGREGATES
 
 
+# -- -State / -Merge -----------------------------------------------------------
+# A state stored as a value (an AggregateFunction column, ClickHouse's
+# ColumnAggregateFunction) is the aggregate's mergeable state columns packed
+# byte-wise into a fixed-width row: the reference's layout (its state_spec,
+# exprs/aggregates.py:966-997, which traces update() for it; here each
+# class's layout is declared by _reference_layout), and for the aggregates
+# that keep presence (min, max, any, argMin/argMax, groupBitAnd) their
+# int64 row count after it (M1: a state that saw no row takes no part in a
+# merge; the reference's holds 0, which a merge takes as a value).  K19
+# (ops/state_ops.py) packs and unpacks the rows.
+
+_I32, _I64, _U8, _U64, _F64 = (np.dtype(x) for x in (
+    "int32", "int64", "uint8", "uint64", "float64"))
+_SIGN = -(1 << 63)
+
+
+def _arg_np(t: dt.DType) -> np.dtype:
+    return np.dtype(dt.remove_nullable(t).np_dtype)
+
+
+def _reference_layout(inst: AggregateFunction) -> List[Tuple[np.dtype, int]]:
+    """The reference's state columns of `inst`: [(numpy dtype, width)]."""
+    from . import agg_sketch as sk
+    if isinstance(inst, sk.HLLUniqAgg):
+        # the reference's m / 8 u64 limbs of register bytes, as bytes
+        return [(_U8, inst.STATE_M)]
+    if isinstance(inst, CountAgg):
+        return [(_I64, 1)]
+    if isinstance(inst, SumAgg):
+        k = _arg_np(inst.arg_types[0]).kind
+        return [(_F64 if k == "f" else _U64 if k == "u" else _I64, 1)]
+    if isinstance(inst, (MinMaxAgg, AnyAgg, GroupBitAgg)):
+        return [(_arg_np(inst.arg_types[0]), 1)]
+    if isinstance(inst, AnyRespectNullsAgg):
+        return [(_arg_np(inst.arg_types[0]), 1), (_I32, 1)]
+    if isinstance(inst, AvgAgg):
+        return [(_F64, 1), (_I64, 1)]
+    if isinstance(inst, SumSquaresMixin):
+        return [(_F64, 1)] * 2 + [(_I64, 1)]
+    if isinstance(inst, CovarAgg):
+        return [(_F64, 1)] * 3 + [(_I64, 1)]
+    if isinstance(inst, CorrAgg):
+        return [(_F64, 1)] * 5 + [(_I64, 1)]
+    if isinstance(inst, MomentsAgg):
+        return [(_F64, 1)] * 4 + [(_I64, 1)]
+    if isinstance(inst, AvgWeightedAgg):
+        return [(_F64, 1)] * 2
+    if isinstance(inst, ArgMinMaxAgg):
+        # the order as the reference's u64 order token, then the value
+        return [(_U64, 1), (_arg_np(inst.arg_types[0]), 1)]
+    raise NotImplementedError_(
+        f"states of {inst.name} are not ported to the CUDA engine yet")
+
+
+def state_spec(inst: AggregateFunction) -> List[Tuple[np.dtype, int]]:
+    """[(numpy dtype, width)]: the stored state's columns, in order (the
+    reference's, then the presence count where one is kept)."""
+    return _reference_layout(inst) \
+        + ([(_I64, 1)] if inst.keeps_presence else [])
+
+
+def state_width_bytes(spec) -> int:
+    return sum(d.itemsize * w for d, w in spec)
+
+
+def _layout_torch(d: np.dtype) -> torch.dtype:
+    """The tensor type holding a stored state column of numpy type d
+    (unsigned types as the signed type of their width: the same bytes)."""
+    if d.kind == "f":
+        return torch.float32 if d.itemsize == 4 else torch.float64
+    return {1: torch.uint8 if d.kind in "ub" else torch.int8,
+            2: torch.int16, 4: torch.int32, 8: torch.int64}[d.itemsize]
+
+
+def _to_layout(s: torch.Tensor, d: np.dtype) -> torch.Tensor:
+    want = _layout_torch(d)
+    if s.dtype == torch.bool:
+        s = s.to(torch.uint8)
+    return s if s.dtype == want else s.to(want)
+
+
+def _from_layout(c: torch.Tensor, d: np.dtype) -> torch.Tensor:
+    """A stored column as the port's state: UInt16/UInt32 widened to their
+    logical tensor type without sign, the rest as they are."""
+    if d.kind != "u" or d.itemsize in (1, 8):
+        return c
+    want = dt.from_numpy_dtype(d).torch_dtype
+    return c.to(want) & ((1 << (8 * d.itemsize)) - 1)
+
+
+def _order_state(first: torch.Tensor, unsigned: bool,
+                 t: dt.DType) -> torch.Tensor:
+    """argMin/argMax's mergeable order state: its order token (the
+    reference's order_token, ascending) with the top bit flipped, an int64
+    whose signed order is the order, whatever the argument's type."""
+    if first.is_floating_point():
+        from ..ops.hash_ops import sortable_bits
+        return sortable_bits(first)[0] ^ _SIGN
+    if unsigned:                 # UInt64 bits or a float's token
+        return first ^ _SIGN
+    first = first.to(torch.int64)
+    return first ^ _SIGN if _arg_np(t).kind in "ub" else first
+
+
+def state_columns(inst: AggregateFunction, states: List[torch.Tensor]
+                  ) -> List[torch.Tensor]:
+    """Mergeable states (GroupContext.mergeable) as the stored columns."""
+    cols = [_to_layout(s, d) for (d, _), s in zip(state_spec(inst), states)]
+    if isinstance(inst, ArgMinMaxAgg):
+        tok = states[0] ^ _SIGN
+        cols[0] = tok if inst.minimize else ~tok
+    return cols
+
+
+def merge_states(inst: AggregateFunction, cols: List[torch.Tensor]
+                 ) -> List[torch.Tensor]:
+    """Stored columns as the mergeable states inst.merge takes."""
+    out = [_from_layout(c, d) for (d, _), c in zip(state_spec(inst), cols)]
+    if isinstance(inst, ArgMinMaxAgg):
+        tok = cols[0] if inst.minimize else ~cols[0]
+        out[0] = tok ^ _SIGN
+    return out
+
+
+def pack_states(inst: AggregateFunction, states: List[torch.Tensor],
+                dst_rows: Optional[torch.Tensor] = None,
+                out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Mergeable states -> the (rows, B) uint8 state rows (K19's pack; with
+    dst_rows, state row g written at row dst_rows[g] of out)."""
+    from ..ops import state_ops
+    return state_ops.pack_state_rows(state_columns(inst, states),
+                                     dst_rows=dst_rows, out=out)
+
+
+def unpack_states(inst: AggregateFunction, packed: torch.Tensor,
+                  src_rows: Optional[torch.Tensor] = None
+                  ) -> List[torch.Tensor]:
+    """(rows, B) uint8 state rows -> inst's mergeable states (K19's
+    unpack).  Rows of another width than the layout's raise TypeError_."""
+    from ..ops import state_ops
+    spec = state_spec(inst)
+    width = state_width_bytes(spec)
+    if packed.dim() != 2 or packed.shape[1] != width:
+        got = packed.shape[1] if packed.dim() == 2 else packed.shape
+        raise TypeError_(
+            f"a state of {inst.name} is {width} bytes in the CUDA engine's "
+            f"layout ({', '.join(f'{w} x {d}' for d, w in spec)}); got "
+            f"{got}")
+    cols = state_ops.unpack_state_rows(
+        packed, [(_layout_torch(d), w) for d, w in spec], src_rows)
+    return merge_states(inst, cols)
+
+
+def _merging(ctx: GroupContext) -> GroupContext:
+    return ctx if ctx.mergeable else dataclasses.replace(ctx, mergeable=True)
+
+
+def _custom_merge(inst: AggregateFunction) -> bool:
+    """inst merges with a step of its own (argMin/argMax, uniq), not one
+    reduce_many of merge_specs."""
+    return type(inst).merge is not AggregateFunction.merge
+
+
+class StateAgg(AggregateFunction):
+    """-State: the inner aggregate's mergeable states, packed into state
+    rows (K19) in place of its value."""
+
+    def __init__(self, inner: AggregateFunction, params=()):
+        super().__init__(list(inner.arg_types))
+        inner.pin_state_layout()
+        self.inner = inner
+        self.name = inner.name + "State"
+        self.two_step = inner.two_step
+        self.respect_nulls = inner.respect_nulls
+        self.keeps_presence = inner.keeps_presence
+        self.spec = state_spec(inner)
+        self._params = tuple(params or ())
+
+    def result_type(self):
+        return dt.AggregateState(self.inner.name, self.inner.arg_types,
+                                 self._params)
+
+    def merge_ops(self):
+        return self.inner.merge_ops()
+
+    def merge(self, states, g, mask):
+        return self.inner.merge(states, g, mask)
+
+    def merge_specs(self, states, mask):
+        return self.inner.merge_specs(states, mask)
+
+    def reductions(self, ctx, args, cond):
+        ctx.hold(ctx.grouping.num_groups_cap * state_width_bytes(self.spec),
+                 f"{self.name}'s packed states")
+        return self.inner.reductions(_merging(ctx), args, cond)
+
+    def sorted_step(self, ctx, g, args, cond, states):
+        return self.inner.sorted_step(_merging(ctx), g, args, cond, states)
+
+    def finalize(self, states):
+        return pack_states(self.inner, states), None
+
+
+class MergeAgg(AggregateFunction):
+    """-Merge: rows carry packed states of the inner aggregate; K19
+    unpacks them and the inner aggregate's merge combines them by group
+    (one reduce_many with the query's other aggregates, K6 or K1; argMin/
+    argMax and uniq merge in a step of their own, uniq on K16)."""
+
+    def __init__(self, inner: AggregateFunction, spec,
+                 arg_types: List[dt.DType]):
+        super().__init__(arg_types)
+        inner.pin_state_layout()
+        self.inner = inner
+        self.spec = spec
+        self.name = inner.name + "Merge"
+        self.keeps_presence = inner.keeps_presence
+        self.two_step = _custom_merge(inner)
+
+    def result_type(self):
+        return self.inner.result_type()
+
+    def merge_ops(self):
+        return self.inner.merge_ops()
+
+    def merge(self, states, g, mask):
+        return self.inner.merge(states, g, mask)
+
+    def merge_specs(self, states, mask):
+        return self.inner.merge_specs(states, mask)
+
+    def _unpacked(self, ctx: GroupContext, args: List[ColVal]):
+        packed = args[0].broadcast(ctx.capacity).data
+        ctx.hold(packed.shape[0] * state_width_bytes(self.spec),
+                 f"{self.name}'s unpacked states")
+        return unpack_states(self.inner, packed)
+
+    def reductions(self, ctx, args, cond):
+        if self.two_step:
+            return [], list
+        mask = self._row_mask(ctx, args, cond)
+        return self.inner.merge_specs(self._unpacked(ctx, args), mask), list
+
+    def sorted_step(self, ctx, g, args, cond, states):
+        mask = self._row_mask(ctx, args, cond)
+        return self.inner.merge(self._unpacked(ctx, args), g, mask)
+
+    def finalize(self, states):
+        return self.inner.finalize(states)
+
+
+def _state_inner(st: dt.DType) -> AggregateFunction:
+    """The aggregate whose states an AggregateFunction(...) type holds,
+    its layout pinned."""
+    fn_name, arg_names, sparams = st.agg_state
+    inner, _ = get_aggregate(fn_name,
+                             [dt.parse_type_name(a) for a in arg_names],
+                             list(sparams) if sparams else None)
+    _check_mergeable(inner, fn_name)
+    inner.pin_state_layout()
+    return inner
+
+
+def make_merge_for_dtype(state_dtype: dt.DType) -> MergeAgg:
+    """The -Merge aggregate of an AggregateFunction(...) column type
+    (AggregatingMergeTree FINAL, finalizeAggregation, runningAccumulate)."""
+    inner = _state_inner(dt.remove_nullable(state_dtype))
+    return MergeAgg(inner, state_spec(inner), [state_dtype])
+
+
+def _check_mergeable(inst: AggregateFunction, name: str) -> None:
+    """The reference's refusal of a state it cannot merge (TypeError_);
+    uniqExact's, which the reference merges by adding distinct counts
+    (not ClickHouse's answer), is not ported."""
+    if isinstance(inst, UniqExactAgg):
+        raise NotImplementedError_(
+            f"'{name}': states of uniqExact are not ported to the CUDA "
+            f"engine yet")
+    if _custom_merge(inst):
+        return
+    try:
+        inst.merge_ops()
+    except NotImplementedError_:
+        raise TypeError_(f"{inst.name} states cannot be merged; "
+                         f"repartition by key instead") from None
+
+
+_COMBINATOR_SUFFIXES = ("array", "foreach", "distinct")
+
+
 def get_aggregate(name: str, arg_types: List[dt.DType],
                   params: Optional[list] = None
                   ) -> Tuple[AggregateFunction, bool]:
     """-> (instance, has_if_combinator).  Raises UnknownFunction.  The
     parameters are the reference's: a quantile's level (quantileGK's
-    leading accuracy dropped), every level of a `quantiles` spelling."""
+    leading accuracy dropped), every level of a `quantiles` spelling.
+
+    Combinator suffixes peel right to left as the reference's get_aggregate
+    (exprs/aggregates.py:1119-1230) peels them: -If, -State or -Merge, one
+    of -Array, -ForEach, -Distinct, and -OrNull / -OrDefault."""
     lname = name.lower()
-    has_if = False
-    if lname not in _BASE and lname.endswith("if") and len(lname) > 2:
-        has_if = True
-        lname = lname[:-2]
+    has_if, mode, comb, orfill = False, None, None, None
+    while lname not in _BASE:
+        if lname.endswith("if") and len(lname) > 2:
+            has_if = True
+            lname = lname[:-2]
+        elif lname.endswith("state") and mode is None and len(lname) > 5:
+            mode, lname = "state", lname[:-5]
+        elif lname.endswith("merge") and mode is None and len(lname) > 5:
+            mode, lname = "merge", lname[:-5]
+        elif comb is None and any(lname.endswith(c) and lname[:-len(c)]
+                                  in _BASE for c in _COMBINATOR_SUFFIXES):
+            comb = next(c for c in _COMBINATOR_SUFFIXES
+                        if lname.endswith(c) and lname[:-len(c)] in _BASE)
+            lname = lname[:-len(comb)]
+        elif lname.endswith("ornull") and lname[:-6] in _BASE:
+            orfill, lname = "ornull", lname[:-6]
+        elif lname.endswith("ordefault") and lname[:-9] in _BASE:
+            orfill, lname = "ordefault", lname[:-9]
+        else:
+            break
+    if has_if:
         arg_types = arg_types[:-1]  # last arg is the condition
     if lname not in _BASE:
-        for suf in _UNPORTED_COMBINATORS:
-            if lname.endswith(suf) and is_aggregate_name(lname[:-len(suf)]):
-                raise NotImplementedError_(
-                    f"Combinator -{suf} ('{name}') is not ported to the "
-                    f"CUDA engine yet")
-        if is_aggregate_name(lname):
+        if is_aggregate_name(name):
             raise UnknownFunction(
                 f"Aggregate function '{name}' is not ported to the CUDA "
                 f"engine yet")
         raise UnknownFunction(f"Unknown aggregate function '{name}'")
+    if (comb is not None or orfill is not None) and mode is not None:
+        raise NotImplementedError_(
+            f"'{name}': -{(comb or orfill).capitalize()} under -{mode} is "
+            f"not ported to the CUDA engine yet")
+    if comb is not None or orfill is not None:
+        return _combinator(name, lname, comb, orfill, arg_types,
+                           params), has_if
+    if mode == "merge":
+        st = dt.remove_nullable(arg_types[0]) if arg_types else None
+        if st is None or not dt.is_agg_state(st):
+            raise TypeError_(
+                f"{name} requires an AggregateFunction(...) argument, got "
+                f"{arg_types[0] if arg_types else 'none'}")
+        fn_name = st.agg_state[0]
+        if fn_name.lower() != lname:
+            raise TypeError_(f"{name} cannot merge a state of '{fn_name}'")
+        inner = _state_inner(st)
+        return MergeAgg(inner, state_spec(inner), list(arg_types)), has_if
+    inst = _base_instance(lname, arg_types, params)
+    if mode == "state":
+        _check_mergeable(inst, name)
+        for t in arg_types:
+            if dt.remove_nullable(t).is_dictionary:
+                raise NotImplementedError_(
+                    f"{name}: -State over String/dictionary arguments is "
+                    "not supported yet")
+        inst = StateAgg(inst, params)
+    return inst, has_if
+
+
+def _base_instance(lname: str, arg_types, params) -> AggregateFunction:
     cls = _BASE[lname]
     if lname in ("quantilegk", "quantilesgk") and params:
         params = params[1:]
     if lname in _MULTI_Q:
         qs = [float(p) for p in params] if params else [0.5]
-        return cls(arg_types, qs=qs), has_if
+        return cls(arg_types, qs=qs)
     if lname in _QUANTILE_NAMES:
         q = float(params[0]) if params else 0.5
-        return cls(arg_types, q), has_if
+        return cls(arg_types, q)
     from .agg_sketch import SIZED
     if lname in SIZED:
         size = int(params[0]) if params else None
         return cls(arg_types, size or 10) if lname == "topk" \
-            else cls(arg_types, size), has_if
-    return cls(arg_types), has_if
+            else cls(arg_types, size)
+    return cls(arg_types)
+
+
+def _combinator(name, lname, comb, orfill, arg_types, params
+                ) -> AggregateFunction:
+    """-Array, -ForEach, -Distinct, each under -OrNull/-OrDefault or not
+    (exprs/agg_ext.py)."""
+    from . import agg_ext as ax
+    if comb is None:
+        return ax.OrNullAgg(_base_instance(lname, arg_types, params),
+                            orfill == "ornull")
+    if comb in ("array", "foreach") and arg_types:
+        t = dt.remove_nullable(arg_types[0])
+        if t.is_array and dt.array_inner(t).is_dictionary:
+            raise NotImplementedError_(
+                f"{name} over {arg_types[0]}: Array(String) columns are not "
+                f"ported to the CUDA engine yet")
+    if comb == "array":
+        inst = ax.make_array_combinator(lname, _BASE[lname], arg_types)
+    elif comb == "foreach":
+        inst = ax.make_foreach_combinator(lname, arg_types)
+    else:
+        inst = ax.DistinctAgg(_base_instance(lname, arg_types, params))
+    if inst is None:
+        raise NotImplementedError_(
+            f"Combinator '-{comb.capitalize()}' does not apply to "
+            f"'{lname}' with these argument types")
+    if orfill is not None:
+        inst = ax.OrNullAgg(inst, orfill == "ornull")
+    return inst

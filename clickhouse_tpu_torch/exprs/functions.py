@@ -1895,3 +1895,4 @@ register("toString", lambda ts: dt.String.with_nullable(ts[0].nullable),
 from . import conv as _conv_module  # noqa: E402,F401  (registers _cast etc.)
 from . import functions_ext as _ext_module  # noqa: E402,F401
 from . import functions_ext5 as _ext5_module  # noqa: E402,F401
+from . import functions_state as _state_module  # noqa: E402,F401

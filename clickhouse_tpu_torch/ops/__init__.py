@@ -1,6 +1,6 @@
 """Device operators and the engine's hand-written CUDA kernels.
 
-Sixteen kernels carry the main path, each beside its plain PyTorch version
+Nineteen kernels carry the main path, each beside its plain PyTorch version
 in the module that uses it:
 
   K1 agg_ops.masked_reduce             (csrc/masked_reduce.cu)
@@ -19,11 +19,14 @@ in the module that uses it:
   K14 filter_ops.compact_rows          (csrc/compact_rows.cu)
   K15 hash_ops.row_hash                (csrc/row_hash.cu)
   K16 sketch_ops.hll_update, hll_merge, hll_finalize (csrc/hll.cu)
+  K17 scan_ops.segmented_scan          (csrc/segmented_scan.cu)
+  K18 search.segmented_search          (csrc/segmented_search.cu)
+  K19 state_ops.pack_state_rows, unpack_state_rows (csrc/state_rows.cu)
 
 A wrapper given CPU tensors runs the plain version; given CUDA tensors it
 launches its kernel or raises.  ``_native`` builds the kernels at the first
 launch.
 """
 from . import (hash_ops, agg_ops, calendar_ops, filter_ops, join_ops,
-               mxu_segsum, scan_ops, sketch_ops, sort_ops, string_ops,
-               vector_ops)
+               mxu_segsum, scan_ops, sketch_ops, sort_ops, state_ops,
+               string_ops, vector_ops)

@@ -55,7 +55,8 @@ LAUNCHES: Dict[str, int] = {"masked_reduce": 0, "dense_group_reduce": 0,
                             "row_hash": 0, "hll_update": 0,
                             "hll_update_rows": 0, "hll_cells": 0,
                             "hll_merge": 0, "hll_finalize": 0,
-                            "segmented_scan": 0, "segmented_search": 0}
+                            "segmented_scan": 0, "segmented_search": 0,
+                            "state_pack": 0, "state_unpack": 0}
 # kernel name -> row count of each launch since the last reset
 LAUNCH_ROWS: Dict[str, List[int]] = {k: [] for k in LAUNCHES}
 
@@ -422,6 +423,12 @@ def library() -> ctypes.CDLL:
             lib.chtt_segmented_search.argtypes = [P, LL, P, LL, P, P, P, LL,
                                                   I, I, P, P, P]
             lib.chtt_segmented_search.restype = I
+            lib.chtt_state_tile_rows.argtypes = [I]
+            lib.chtt_state_tile_rows.restype = I
+            lib.chtt_state_pack.argtypes = [P, P, I, LL, I, P, P, I, P]
+            lib.chtt_state_pack.restype = I
+            lib.chtt_state_unpack.argtypes = [P, LL, I, P, P, P, I, I, P]
+            lib.chtt_state_unpack.restype = I
             lib.chtt_error_string.argtypes = [I]
             lib.chtt_error_string.restype = ctypes.c_char_p
             _LIB = lib

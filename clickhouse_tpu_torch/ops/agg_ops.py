@@ -613,6 +613,18 @@ def group_by_sort(keys: Sequence[sort_ops.SortKey],
                     row_valid_ref=rows, secondary=tuple(secondary))
 
 
+def narrow_groups(g: Grouping, slots: int) -> Grouping:
+    """The sort grouping g over its first `slots` group slots, which hold
+    every group (slots >= g.num_groups): the same rows, groups and order,
+    fewer empty slots (an aggregate whose state is wide a slot: -State of
+    uniq, 4,096 bytes a slot)."""
+    gid = torch.clamp(g.group_ids, max=slots)
+    return dataclasses.replace(
+        g, group_ids=gid, num_groups_cap=slots, starts=g.starts[:slots],
+        ends=g.ends[:slots], unique_keys=[k[:slots] for k in g.unique_keys],
+        slot_table=None)
+
+
 # device bytes a row of the dense grouping and its K2 pass hold at their
 # peak, counted as if all were live at once: the int64 slot array and one
 # key's int64 offsets beside it (16), the int32 ids (4), and the dense

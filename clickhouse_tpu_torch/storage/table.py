@@ -33,6 +33,7 @@ import torch
 from ..core import dtypes as dt
 from ..core.block import Block
 from ..core.column import (ArrayRows, Column, Dictionary, column_from_numpy,
+                           state_matrix,
                            hash_tokens128, pad_to)
 from ..core.errors import AnalysisError, NotImplementedError_, UnknownTable
 
@@ -157,8 +158,7 @@ class Table:
         n = None
         for name in self.schema:
             if name in data:
-                n = len(data[name]) if isinstance(data[name], ArrayRows) \
-                    else len(np.asarray(data[name]))
+                n = len(data[name])
                 break
         n = 0 if n is None else n
         cols = {}
@@ -168,7 +168,13 @@ class Table:
                     f"{ctype} columns are not ported to the CUDA engine yet")
             if name in data:
                 v = data[name]
-                if not (ctype.is_array and isinstance(v, ArrayRows)):
+                if ctype.agg_state is not None:
+                    # one (rows, B) matrix, never a bytes object a row (a
+                    # list of bytes as objects: numpy's bytes type drops
+                    # trailing NULs)
+                    v = state_matrix(v if isinstance(v, np.ndarray)
+                                     else np.asarray(v, dtype=object), ctype)
+                elif not (ctype.is_array and isinstance(v, ArrayRows)):
                     v = np.asarray(v)
                 if len(v) != n:
                     raise AnalysisError("INSERT column length mismatch")
@@ -176,6 +182,8 @@ class Table:
                 v = np.asarray([""] * n, dtype=object)
             elif ctype.is_array:
                 v = np.zeros((n, 0), ctype.np_dtype)     # empty arrays
+            elif ctype.agg_state is not None:
+                v = state_matrix([None] * n, ctype)      # zero states
             else:
                 v = np.zeros(n, ctype.np_dtype)
             cols[name] = v
@@ -350,12 +358,15 @@ class NotStreamable(Exception):
 
 def check_streamable(table: "Table", name: str) -> None:
     """Raise NotStreamable for a column that chunks cannot carry: one not
-    stored in the table (a derived subcolumn) or an Array."""
+    stored in the table (a derived subcolumn), an Array or an
+    AggregateFunction column."""
     t = table.schema.get(name)
     if t is None:
         raise NotStreamable(f"derived subcolumn '{name}'")
     if t.is_array:
         raise NotStreamable(f"Array column '{name}'")
+    if t.agg_state is not None:
+        raise NotStreamable(f"AggregateFunction column '{name}'")
 
 
 def _tensor_np(np_dtype) -> np.dtype:

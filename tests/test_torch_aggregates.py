@@ -549,8 +549,9 @@ def test_float_statistics_are_held_to_the_budget():
 
 
 def test_unported_aggregates_still_raise_typed_errors(sessions):
-    """uniqUpTo, groupArraySorted, the weighted spellings and
-    -State/-Merge raise naming themselves; a statistic or a quantile of a String raises TypeError_
+    """uniqUpTo, groupArraySorted, the weighted spellings and -State of
+    uniqExact raise naming themselves; a statistic or a quantile of a
+    String, and -Merge of a column that holds no state, raise TypeError_
     (ClickHouse's ILLEGAL_TYPE_OF_ARGUMENT)."""
     ts = sessions[1]
     for sql, err, match in (
@@ -567,7 +568,7 @@ def test_unported_aggregates_still_raise_typed_errors(sessions):
             ("SELECT k, uniqExactState(a) FROM t GROUP BY k",
              NotImplementedError_, "uniqExactState"),
             ("SELECT k, varPopMerge(a) FROM t GROUP BY k",
-             NotImplementedError_, "varPopMerge")):
+             TypeError_, "varPopMerge")):
         with pytest.raises(err, match=match):
             ts.execute(sql)
 

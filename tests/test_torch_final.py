@@ -220,15 +220,35 @@ def test_final_with_more_keys_than_max_groups():
 
 
 def test_aggregating_merge_tree_final_raises_naming_it():
-    """AggregatingMergeTree needs AggregateFunction columns and their
-    -State/-Merge combinators, which the port does not have yet: CREATE of
-    such a column raises naming it, and FINAL over the engine raises."""
-    ts = tch.connect(device="cpu")
-    with pytest.raises(NotImplementedError_, match="AggregateFunction"):
-        ts.execute("CREATE TABLE a (k Int64, c AggregateFunction(sum, "
-                   "UInt64)) ENGINE = AggregatingMergeTree ORDER BY k")
-    ts.execute("CREATE TABLE b (k Int64, c Int64) "
-               "ENGINE = AggregatingMergeTree ORDER BY k")
-    ts.execute("INSERT INTO b VALUES (1, 2)")
-    with pytest.raises(NotImplementedError_, match="AggregatingMergeTree"):
-        ts.execute("SELECT * FROM b FINAL")
+    """AggregatingMergeTree FINAL, which raised naming the engine until its
+    AggregateFunction columns and -State/-Merge were ported, now folds as
+    the reference does: a key's states merged into one (count, sum, max
+    and uniq columns over two parts with duplicate keys), and a table of
+    that engine without a state column keeps a row a key.  An
+    AggregateFunction whose state is not ported still raises naming it."""
+    sessions = _pair()
+    _run(sessions,
+         "CREATE TABLE src (k Int64, v Int64, u UInt32)",
+         "INSERT INTO src VALUES (1, 1, 5), (1, 2, 5), (2, -2, 7), "
+         "(3, 9, 3), (3, 9, 4), (2, 8, 1)",
+         "CREATE TABLE a (k Int64, c AggregateFunction(count, Int64), "
+         "s AggregateFunction(sum, Int64), m AggregateFunction(max, Int64), "
+         "u AggregateFunction(uniq, UInt32)) "
+         "ENGINE = AggregatingMergeTree ORDER BY k",
+         "INSERT INTO a SELECT k, countState(v), sumState(v), maxState(v), "
+         "uniqState(u) FROM src GROUP BY k",
+         "INSERT INTO a SELECT k, countState(v), sumState(v), maxState(v), "
+         "uniqState(u) FROM src WHERE k < 3 GROUP BY k",
+         "CREATE TABLE b (k Int64, c Int64) "
+         "ENGINE = AggregatingMergeTree ORDER BY k",
+         "INSERT INTO b VALUES (1, 2), (1, 3), (2, 4)")
+    got = _both(sessions, "SELECT k, finalizeAggregation(c), "
+                "finalizeAggregation(s), finalizeAggregation(m), "
+                "finalizeAggregation(u) FROM a FINAL ORDER BY k")
+    assert got == [(1, 4, 6, 2, 1), (2, 4, 12, 8, 2), (3, 2, 18, 9, 2)]
+    _both(sessions, "SELECT count() FROM a FINAL")
+    _both(sessions, "SELECT k FROM b FINAL ORDER BY k")
+    with pytest.raises(NotImplementedError_, match="uniqExact"):
+        sessions[1].execute("CREATE TABLE e (k Int64, c AggregateFunction("
+                            "uniqExact, Int64)) ENGINE = "
+                            "AggregatingMergeTree ORDER BY k")

@@ -1653,3 +1653,92 @@ def test_tail_queries_on_the_card_match_the_cpu(dev):
         assert cuda.execute(sql).rows() == cpu.execute(sql).rows(), sql
         for k in kernels:
             assert _native.LAUNCHES[k] >= 1, (sql, k)
+
+
+# -- K19: state_rows ---------------------------------------------------------
+
+K19_LAYOUTS = {4: [(torch.int32, 1)], 9: [(torch.uint8, 1), (torch.int64, 1)],
+               12: [(torch.int64, 1), (torch.int32, 1)],
+               16: [(torch.float64, 1), (torch.int64, 1)],
+               20: [(torch.int64, 1), (torch.int32, 1), (torch.int64, 1)],
+               24: [(torch.float64, 1), (torch.float64, 1),
+                    (torch.int64, 1)],
+               40: [(torch.float64, 1)] * 4 + [(torch.int64, 1)],
+               4096: [(torch.uint8, 4096)]}
+
+
+@pytest.mark.parametrize("width", sorted(K19_LAYOUTS))
+def test_k19_matches_plain(dev, width):
+    """K19's pack and unpack against their plain versions, bit for bit, at
+    B = 4 to 4,096 with 0, 1, a tile plus one and many rows, with and
+    without dst_rows (the matrix's other rows kept) and src_rows."""
+    from clickhouse_tpu_torch.ops import _native, state_ops
+    layout = K19_LAYOUTS[width]
+    tile = _native.library().chtt_state_tile_rows(width)
+    g = torch.Generator().manual_seed(width)
+    for n in (0, 1, tile + 1, 3 * tile + 7, 20_011):
+        cols = [(torch.randn((n,) if w == 1 else (n, w), generator=g,
+                             dtype=d) if d.is_floating_point else
+                 torch.randint(-(1 << 62), 1 << 62, (n,) if w == 1
+                               else (n, w), generator=g).to(d)).to(dev)
+                for d, w in layout]
+        got = state_ops.pack_state_rows(cols)
+        assert torch.equal(got, state_ops._pack_plain(
+            cols, None, torch.empty_like(got)))
+        out = torch.randint(0, 256, (n + 9, width), dtype=torch.uint8,
+                            generator=g).to(dev)
+        dst = torch.randperm(n + 9, generator=g)[:n].to(dev)
+        a, b = out.clone(), out.clone()
+        state_ops.pack_state_rows(cols, dst_rows=dst, out=a)
+        state_ops._pack_plain(cols, dst, b)
+        assert torch.equal(a, b)
+        src = torch.randint(0, n + 9, (2 * n + 1,), generator=g).to(dev)
+        for packed, rows in ((got, None), (a, src)):
+            for x, y in zip(state_ops.unpack_state_rows(packed, layout, rows),
+                            state_ops._unpack_plain(packed, layout, rows)):
+                assert torch.equal(x, y)
+        for x, y in zip(state_ops.unpack_state_rows(got, layout), cols):
+            assert torch.equal(x, y)
+
+
+def test_state_statements_on_card_match_cpu():
+    """-State/-Merge, AggregatingMergeTree FINAL, the state functions and
+    the combinators on the card against a CPU session, each through the
+    kernels of its path (K19 among them)."""
+    import clickhouse_tpu_torch as ch
+    from clickhouse_tpu_torch.ops import _native
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    r = np.random.default_rng(24)
+    n = 300_000
+    cols = {"k": r.integers(0, 5000, n), "v": r.integers(-10**6, 10**6, n),
+            "u": r.integers(0, 1 << 32, n, dtype=np.int64)}
+    cpu, cuda = ch.connect(device="cpu"), ch.connect(device="cuda")
+    for s in (cpu, cuda):
+        s.execute("CREATE TABLE t (k Int64, v Int64, u UInt32)")
+        s.insert_pydict("t", cols)
+        s.execute("CREATE TABLE a (k Int64, s AggregateFunction(sum, Int64), "
+                  "m AggregateFunction(max, UInt32), q AggregateFunction("
+                  "uniq, Int64)) ENGINE = AggregatingMergeTree ORDER BY k")
+        for i in range(3):
+            s.execute(f"INSERT INTO a SELECT k, sumState(v), maxState(u), "
+                      f"uniqState(v) FROM t WHERE v % 3 = {i} GROUP BY k")
+    for sql, kernels in (
+            ("SELECT k, sumMerge(s), maxMerge(m), uniqMerge(q) FROM a "
+             "GROUP BY k ORDER BY k", ("state_unpack", "segment_reduce",
+                                       "hll_merge")),
+            ("SELECT count(), sum(finalizeAggregation(s)), "
+             "max(finalizeAggregation(m)) FROM a FINAL",
+             ("state_unpack", "state_pack")),
+            ("SELECT uniqMerge(q) FROM a", ("hll_merge",)),
+            ("SELECT k, runningAccumulate(st) FROM (SELECT k, sumState(v) "
+             "AS st FROM t GROUP BY k ORDER BY k)", ("segmented_scan",)),
+            ("SELECT sum(finalizeAggregation(initializeAggregation("
+             "'maxState', v))) FROM t", ("state_pack", "state_unpack")),
+            ("SELECT k % 7 AS g, sumDistinct(intDiv(v, 1000)), "
+             "maxOrNull(u) FROM t GROUP BY g ORDER BY g",
+             ("segment_reduce",))):
+        _native.reset_launches()
+        assert cuda.execute(sql).rows() == cpu.execute(sql).rows(), sql
+        for k in kernels:
+            assert _native.LAUNCHES[k] >= 1, (sql, k)

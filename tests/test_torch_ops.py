@@ -1109,6 +1109,9 @@ def _sql_sessions():
             s.insert_pydict("rm", {"k": keys[::2], "v": keys[::2] + 1})
             s.execute("CREATE TABLE fs (a Int64, s String)")
             s.execute("INSERT INTO fs VALUES (1, 'x'), (3, 'w')")
+            # M1, A8: states of groups, one with no row passing v > 4
+            s.execute("CREATE TABLE ms (k Int64, v Int64)")
+            s.execute("INSERT INTO ms VALUES (1, 5), (1, 7), (2, 3), (3, 6)")
         _SQL_SESSIONS.extend([js, ts, x])
     return _SQL_SESSIONS
 
@@ -1308,6 +1311,17 @@ DIVERGENCES = {
         "SELECT count(), sum(v) FROM rm FINAL SETTINGS max_groups = 1024",
         [(3000, 3000 * 2999 // 2 + 1500)]),
         "clickhouse_tpu/exec/executor.py:200, :205"),
+    # M1: a min state that saw no row (group 2: no v > 4) holds 0, which
+    # -Merge takes as a value; ClickHouse's empty state takes no part
+    "m1_min_merge_of_an_empty_state": (lambda: _sql_divergence(
+        "SELECT minMerge(st) FROM (SELECT k, minStateIf(v, v > 4) AS st "
+        "FROM ms GROUP BY k)", [(5,)]),
+        "clickhouse_tpu/exprs/aggregates.py:1089-1092"),
+    # A8: uniqMerge under GROUP BY () asserts the sort grouping
+    "a8_uniq_merge_global": (lambda: _sql_divergence(
+        "SELECT uniqMerge(st) FROM (SELECT k, uniqState(v) AS st FROM ms "
+        "GROUP BY k)", [(4,)]),
+        "clickhouse_tpu/exprs/agg_sketch.py:348"),
 }
 
 
