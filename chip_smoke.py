@@ -42,6 +42,14 @@
     python3 chip_smoke.py --scan-search  # only K17's and K18's cases and
                                       # the two kernels at Qw5's and Qw3's
                                       # inputs (an older checkout's alike)
+    python3 chip_smoke.py --states    # only K19's cases, the state
+                                      # tables at full size, the state
+                                      # statements, the state kernels at
+                                      # their inputs and K19 at every
+                                      # layout of K19_LAYOUTS
+    python3 chip_smoke.py --states --k19-against FILE.cu  # the same, and
+                                      # K19 beside FILE's build (an older
+                                      # state_rows.cu) in turns
     python3 chip_smoke.py --sass calendar_part  # one source's nvcc time,
                                       # registers, spills, shared bytes and
                                       # SASS CALLs a kernel (or
@@ -7997,16 +8005,32 @@ STATE_REPS = 3               # timed and traced runs of each state query
 STATE_SETTINGS = {"max_device_memory_bytes": STATE_BUDGET}
 STATE_AVG_RTOL = 1e-9
 # K19's layouts held against the plain version: a state's column types
-# (B = 4: groupBitOr(UInt32); 9: maxState(UInt8) with its presence count;
-# 12: argMax(UInt32, Int64); 16: avg; 20: argMax(UInt32, Int64) with its
-# count; 24: varPop; 40: skewPop; 4,096: uniq's registers)
-K19_LAYOUTS = {4: [(torch.int32, 1)], 9: [(torch.uint8, 1), (torch.int64, 1)],
+# (B = 2: an Int16 column; 4: groupBitOr(UInt32); 6: a UInt16 and a UInt32;
+# 9: maxState(UInt8) with its presence count; 12: argMax(UInt32, Int64);
+# 16: avg; 20: argMax(UInt32, Int64) with its count; 24: varPop; 36: four
+# Float64 and a UInt32 (a word of 4 bytes); 40: skewPop; 4,096: uniq's
+# registers).  The word width of the word path (the indexed launches) at
+# 16-byte-aligned bases: 2, 4, 2, 1, 4, 8, 4, 8, 4, 8, 16
+K19_LAYOUTS = {2: [(torch.int16, 1)], 4: [(torch.int32, 1)],
+               6: [(torch.int16, 1), (torch.int32, 1)],
+               9: [(torch.uint8, 1), (torch.int64, 1)],
                12: [(torch.int64, 1), (torch.int32, 1)],
                16: [(torch.float64, 1), (torch.int64, 1)],
                20: [(torch.int64, 1), (torch.int32, 1), (torch.int64, 1)],
                24: [(torch.float64, 1), (torch.float64, 1), (torch.int64, 1)],
+               36: [(torch.float64, 1)] * 4 + [(torch.int32, 1)],
                40: [(torch.float64, 1)] * 4 + [(torch.int64, 1)],
                4096: [(torch.uint8, 4096)]}
+# K19 on views whose base lies off a 16-byte boundary: name -> (layout,
+# the packed matrix's byte offset, {column: its byte offset}); the last
+# two narrow the word width (16 -> 1 and 16 -> 4)
+K19_VIEWS = {"m[1:] of B = 12": (K19_LAYOUTS[12], 12, {}),
+             "x[1:] of an int32 column": (K19_LAYOUTS[12], 0, {1: 4}),
+             "m[1:] of B = 9": (K19_LAYOUTS[9], 9, {}),
+             "x[1:] of an int16 column, m[1:] of B = 6": (
+                 K19_LAYOUTS[6], 6, {0: 2}),
+             "the matrix a byte in, B = 16": (K19_LAYOUTS[16], 1, {}),
+             "uniq's registers 4 bytes in": (K19_LAYOUTS[4096], 0, {0: 4})}
 STATE_INSERTS = (
     ("Isagg", [f"INSERT INTO sagg SELECT intDiv(x, 4) AS k, countState(), "
                f"sumState(x), avgState(x), maxState(x) FROM hits WHERE "
@@ -8081,11 +8105,61 @@ def k19_columns(layout, n, dev, seed):
     return out
 
 
+def k19_view(name, n, dev, seed):
+    """K19_VIEWS[name] at n rows: (layout, columns, packed matrix), each
+    a view of random bytes at its byte offset."""
+    layout, packed_at, cols_at = K19_VIEWS[name]
+    g = torch.Generator(device=dev).manual_seed(seed)
+
+    def at(off, shape, dtype):
+        nb = int(np.prod(shape)) * dtype.itemsize
+        flat = torch.randint(0, 256, (off + nb,), dtype=torch.uint8,
+                             device=dev, generator=g)
+        return flat[off:].view(dtype).view(shape)
+    cols = [at(cols_at.get(i, 0), (n,) if w == 1 else (n, w), d)
+            for i, (d, w) in enumerate(layout)]
+    width = sum(d.itemsize * w for d, w in layout)
+    return layout, cols, at(packed_at, (n, width), torch.uint8)
+
+
+def check_k19_views(dev):
+    """K19 against its plain version on K19_VIEWS (bases off a 16-byte
+    boundary, two of them narrowing the word), packing with and without
+    dst_rows and unpacking with and without src_rows: bit for bit."""
+    from clickhouse_tpu_torch.ops import _native, state_ops
+    cases = 0
+    for name, (layout, _, _) in K19_VIEWS.items():
+        tile = _native.library().chtt_state_tile_rows(
+            sum(d.itemsize * w for d, w in layout))
+        for n in (1, tile + 1, 20_011 if "uniq" in name else 1_000_003):
+            layout, cols, packed = k19_view(name, n, dev, seed=n)
+            a, b = packed.clone(), packed.clone()
+            state_ops.pack_state_rows(cols, out=packed)
+            state_ops._pack_plain(cols, None, a)
+            dst = torch.randperm(n, device=dev)
+            state_ops._pack_plain(cols, dst, b)
+            if not torch.equal(packed, a):
+                fail(f"K19 pack differs on {name}, {n} rows")
+            state_ops.pack_state_rows(cols, dst_rows=dst, out=packed)
+            if not torch.equal(packed, b):
+                fail(f"K19 pack with dst_rows differs on {name}, {n} rows")
+            for src in (None, dst):
+                if not same_bytes(
+                        state_ops.unpack_state_rows(packed, layout, src),
+                        state_ops._unpack_plain(packed, layout, src)):
+                    fail(f"K19 unpack differs on {name}, {n} rows, "
+                         f"src_rows {src is not None}")
+            cases += 1
+    torch.cuda.synchronize()
+    print(f"K19 agrees with its plain version bit for bit on misaligned "
+          f"views: {cases} cases ({', '.join(K19_VIEWS)})", flush=True)
+
+
 def check_k19(dev):
     """K19 against its plain version at every layout of K19_LAYOUTS, with
     0, 1, a tile plus one and many rows, packing with and without
     dst_rows (the other rows of the matrix kept) and unpacking with and
-    without src_rows (rows repeated): bit for bit."""
+    without src_rows (rows repeated): bit for bit; then K19_VIEWS."""
     from clickhouse_tpu_torch.ops import _native, state_ops
     lib = _native.library()
     cases = 0
@@ -8126,6 +8200,193 @@ def check_k19(dev):
     print(f"K19 agrees with its plain version bit for bit: {cases} cases, "
           f"B in {sorted(K19_LAYOUTS)}, each packed with and without "
           f"dst_rows and unpacked with and without src_rows", flush=True)
+    check_k19_views(dev)
+
+
+K19_TABLE_BYTES = 3_200_000_000   # bytes K19 moves at each layout's row
+
+
+class K19Against:
+    """Another state_rows.cu, of the C interface before the word path (a
+    block count and no word width), built alone with the package's flags
+    under its _build/ and called on the package's inputs, so that a run
+    times the two kernels alike."""
+
+    def __init__(self, path, dev):
+        import ctypes
+        from clickhouse_tpu_torch.ops import _native
+        so = _native.BUILD_DIR / "k19_against" / "libk19_against.so"
+        so.parent.mkdir(parents=True, exist_ok=True)
+        t0 = time.perf_counter()
+        p = subprocess.run([_native._nvcc(), *_native.NVCC_FLAGS, "-shared",
+                            "-I", str(_native.CSRC_DIR), "-o", str(so),
+                            path], capture_output=True, text=True)
+        if p.returncode:
+            fail(f"nvcc of {path} exited {p.returncode}: {p.stderr[-4000:]}")
+        print(f"{path}: built in {time.perf_counter() - t0:.1f} s",
+              flush=True)
+        lib = ctypes.CDLL(str(so))
+        P, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+        lib.chtt_state_tile_rows.argtypes = [I]
+        lib.chtt_state_tile_rows.restype = I
+        lib.chtt_state_pack.argtypes = [P, P, I, LL, I, P, P, I, P]
+        lib.chtt_state_pack.restype = I
+        lib.chtt_state_unpack.argtypes = [P, LL, I, P, P, P, I, I, P]
+        lib.chtt_state_unpack.restype = I
+        self.lib, self.dev, self.path, self.P = lib, dev, path, P
+
+    def _args(self, cols, width):
+        import ctypes
+        from clickhouse_tpu_torch.ops import _native
+        n = cols[0].shape[0]
+        tile = self.lib.chtt_state_tile_rows(width)
+        ptrs = (self.P * len(cols))(*[c.data_ptr() for c in cols])
+        cb = (ctypes.c_int * len(cols))(*[
+            c.element_size() * (1 if c.dim() == 1 else c.shape[1])
+            for c in cols])
+        return (ptrs, cb, n, _native.grid_blocks(self.dev, -(-n // tile),
+                                                 threads=1, per_sm=8),
+                _native.stream_ptr(self.dev))
+
+    def pack(self, cols, dst, out, width):
+        ptrs, cb, n, blocks, stream = self._args(cols, width)
+        rc = self.lib.chtt_state_pack(
+            ptrs, cb, len(cols), n, width,
+            None if dst is None else dst.data_ptr(), out.data_ptr(), blocks,
+            stream)
+        if rc:
+            fail(f"{self.path}: state_pack returned {rc}")
+        return out
+
+    def unpack(self, packed, src, layout, width):
+        n = packed.shape[0] if src is None else src.shape[0]
+        cols = [torch.empty((n,) if w == 1 else (n, w), dtype=d,
+                            device=self.dev) for d, w in layout]
+        ptrs, cb, n, blocks, stream = self._args(cols, width)
+        rc = self.lib.chtt_state_unpack(
+            packed.data_ptr(), n, width,
+            None if src is None else src.data_ptr(), ptrs, cb, len(cols),
+            blocks, stream)
+        if rc:
+            fail(f"{self.path}: state_unpack returned {rc}")
+        return cols
+
+
+def k19_turns(new, old):
+    """(new ms, old ms): cuda_ms of each in turns old, new, new, old, each
+    the mean of its two."""
+    o1, n1, n2, o2 = cuda_ms(old), cuda_ms(new), cuda_ms(new), cuda_ms(old)
+    return (n1 + n2) / 2, (o1 + o2) / 2
+
+
+def same_bytes(xs, ys) -> bool:
+    """Whether each pair of tensors of xs and ys holds the same bytes."""
+    return all(torch.equal(x.view(torch.uint8), y.view(torch.uint8))
+               for x, y in zip(xs, ys))
+
+
+def k19_path(cols, packed, width, tile, pack):
+    """One launch of K19 without an index down the path asked (through
+    tiles, as the wrapper takes it, or the word path, which the wrapper
+    takes with an index): both paths timed at each layout."""
+    from clickhouse_tpu_torch.ops import _native, state_ops
+    ptrs, cb, w = state_ops._ptrs(cols, packed)
+    lib, n = _native.library(), cols[0].shape[0]
+    stream = _native.stream_ptr(packed.device)
+    _native.check(lib.chtt_state_pack(
+        ptrs, cb, len(cols), n, width, w, int(tile), None,
+        packed.data_ptr(), stream) if pack else lib.chtt_state_unpack(
+        packed.data_ptr(), n, width, w, int(tile), None, ptrs, cb,
+        len(cols), stream), "state_rows")
+
+
+def k19_table(dev, against=None):
+    """K19 at every layout of K19_LAYOUTS over rows that move
+    K19_TABLE_BYTES (16-byte-aligned bases), packing and unpacking, held
+    against its plain version bit for bit and timed beside it, the
+    library calls (torch.cat of the columns' bytes; a .contiguous() of
+    each column's bytes), each of its two paths forced (tile_*, word_*)
+    and, given `against` (a K19Against), that build (in turns).  Prints a
+    line a layout; -> the rows."""
+    from clickhouse_tpu_torch.ops import state_ops
+    rows = []
+    for width, layout in K19_LAYOUTS.items():
+        n = K19_TABLE_BYTES // (2 * width)
+        g = torch.Generator(device=dev).manual_seed(width)
+        cols = [torch.randint(0, 256, (n * d.itemsize * w,),
+                              dtype=torch.uint8, device=dev, generator=g)
+                .view(d).view((n,) if w == 1 else (n, w)) for d, w in layout]
+        packed = state_ops.pack_state_rows(cols)
+        out = torch.empty_like(packed)
+        if not torch.equal(packed, state_ops._pack_plain(cols, None, out)) \
+                or not same_bytes(state_ops.unpack_state_rows(packed, layout),
+                                  cols):
+            fail(f"K19 differs from its plain version at B = {width}, "
+                 f"{n} rows")
+        if against is not None and not (
+                torch.equal(against.pack(cols, None, out, width), packed)
+                and same_bytes(against.unpack(packed, None, layout, width),
+                               cols)):
+            fail(f"{against.path} differs from the plain version at B = "
+                 f"{width}")
+        offs = np.cumsum([0] + [d.itemsize * w for d, w in layout])
+        nb = state_ops.state_rows_bytes(n, [width])
+        rec = {"B": width, "rows": n, "bytes": nb, "bound_ms": bound_ms(nb),
+               "word": state_ops._ptrs(cols, packed)[2]}
+        back = [torch.empty_like(c) for c in cols]
+        for path in ("tile", "word"):
+            k19_path(cols, out, width, path == "tile", True)
+            k19_path(back, packed, width, path == "tile", False)
+            if not torch.equal(out, packed) or not same_bytes(back, cols):
+                fail(f"K19's {path} path differs from the plain version "
+                     f"at B = {width}")
+            for key, args in (("pack", (cols, out)),
+                              ("unpack", (back, packed))):
+                rec[f"{path}_{key}_ms"] = cuda_ms(
+                    lambda: k19_path(*args, width, path == "tile",
+                                     key == "pack"))
+        del back
+
+        def pack():
+            return state_ops.pack_state_rows(cols, out=out)
+
+        def unpack():
+            return state_ops.unpack_state_rows(packed, layout)
+        if against is None:
+            rec["pack_ms"], rec["unpack_ms"] = cuda_ms(pack), cuda_ms(unpack)
+        else:
+            rec["pack_ms"], rec["pack_against_ms"] = k19_turns(
+                pack, lambda: against.pack(cols, None, out, width))
+            rec["unpack_ms"], rec["unpack_against_ms"] = k19_turns(
+                unpack, lambda: against.unpack(packed, None, layout, width))
+        rec["pack_plain_ms"] = cuda_ms(
+            lambda: state_ops._pack_plain(cols, None, out), reps=5)
+        rec["unpack_plain_ms"] = cuda_ms(
+            lambda: state_ops._unpack_plain(packed, layout, None), reps=5)
+        rec["pack_library_ms"] = cuda_ms(lambda: torch.cat(
+            [state_ops._bytes_of(c) for c in cols], dim=1))
+        rec["unpack_library_ms"] = cuda_ms(
+            lambda: [packed[:, offs[i]:offs[i + 1]].contiguous()
+                     for i in range(len(cols))])
+        print(f"K19 at B = {width} ({rec['word']}-byte words), {n} rows, "
+              f"{nb} bytes, bound {rec['bound_ms']:.4f} ms: pack "
+              f"{rec['pack_ms']:.4f} ms (share "
+              f"{rec['bound_ms'] / rec['pack_ms']:.3f}), unpack "
+              f"{rec['unpack_ms']:.4f} ms (share "
+              f"{rec['bound_ms'] / rec['unpack_ms']:.3f}); plain "
+              f"{rec['pack_plain_ms']:.4f} / {rec['unpack_plain_ms']:.4f}; "
+              f"torch.cat {rec['pack_library_ms']:.4f}, .contiguous() "
+              f"{rec['unpack_library_ms']:.4f}; forced: tiles "
+              f"{rec['tile_pack_ms']:.4f} / {rec['tile_unpack_ms']:.4f}, "
+              f"the word path {rec['word_pack_ms']:.4f} / "
+              f"{rec['word_unpack_ms']:.4f}"
+              + ("" if against is None else
+                 f"; {against.path}: pack {rec['pack_against_ms']:.4f}, "
+                 f"unpack {rec['unpack_against_ms']:.4f}"), flush=True)
+        rows.append(rec)
+        del cols, packed, out
+        torch.cuda.empty_cache()
+    return rows
 
 
 def state_answers(x, n_srow):
@@ -8397,12 +8658,14 @@ def state_times(s):
               + "; ".join(f"{n} {t:.4f}" for n, t in top), flush=True)
 
 
-def state_shapes(dev, watch):
+def state_shapes(dev, watch, against=None):
     """The state kernels replayed on the inputs their statements gave them
     (STATE_CAPTURE), each held against its plain version and timed beside
     it and a library call where one computes the same function.  ->
     {kernel: record}; K19's pack records as pack_* (srow's insert) and
-    dst_* (Qm4's FINAL, at the kept rows) keys of its entry."""
+    dst_* (Qm4's FINAL, at the kept rows) keys of its entry.  Given
+    `against` (a K19Against), K19 and that build are timed in turns on
+    the same inputs (against_ms, pack_against_ms, dst_against_ms)."""
     from clickhouse_tpu_torch.ops import scan_ops, sketch_ops, state_ops
     got_args = watch.args
     missing = [k for k in STATE_CAPTURE if k not in got_args]
@@ -8416,10 +8679,19 @@ def state_shapes(dev, watch):
     offs = np.cumsum([0] + [c.element_size() * (1 if c.dim() == 1 else
                                                  c.shape[1]) for c in cols])
     n = packed.shape[0]
+
+    def unpack():
+        return state_ops.unpack_state_rows(packed, layout, src)
+    if against is None:
+        ms, old_ms = cuda_ms(unpack), None
+    else:
+        if not same_bytes(against.unpack(packed, src, layout, width),
+                          unpack()):
+            fail(f"{against.path} differs from K19 at Qm3's unpack")
+        ms, old_ms = k19_turns(unpack, lambda: against.unpack(
+            packed, src, layout, width))
     rec = recs["state_rows"] = tail_record(
-        state_ops.unpack_state_rows(packed, layout, src),
-        state_ops._unpack_plain(packed, layout, src),
-        cuda_ms(lambda: state_ops.unpack_state_rows(packed, layout, src)),
+        unpack(), state_ops._unpack_plain(packed, layout, src), ms,
         cuda_ms(lambda: state_ops._unpack_plain(packed, layout, src),
                 reps=5),
         cuda_ms(lambda: [packed[:, offs[i]:offs[i + 1]].contiguous()
@@ -8428,6 +8700,8 @@ def state_shapes(dev, watch):
         state_ops.state_rows_bytes(n, [int(offs[-1])]),
         f"Qm3: unpack of {n} rows of {width} bytes into {len(cols)} "
         f"column(s)")
+    if against is not None:
+        rec["against_ms"] = old_ms
     # K19's pack at srow's insert (no dst_rows) and at Qm4's kept rows
     for key, q in (("pack", "Isrow"), ("dst", "Qm4")):
         _, a, _ = got_args[("state_pack", q)]
@@ -8448,7 +8722,20 @@ def state_shapes(dev, watch):
         w1 = plain().clone()
         err = max_abs_err(g1, w1)
         nb = state_ops.state_rows_bytes(n, [width], dst is not None)
-        rec[f"{key}_ms"] = cuda_ms(kernel)
+        if against is None:
+            rec[f"{key}_ms"] = cuda_ms(kernel)
+        else:
+            out.copy_(base)
+
+            def old():
+                return against.pack(pcols, dst, out if dst is not None
+                                    else torch.empty((n, width),
+                                                     dtype=torch.uint8,
+                                                     device=dev), width)
+            if not torch.equal(old(), g1):
+                fail(f"{against.path} differs from K19 at {q}'s pack")
+            rec[f"{key}_ms"], rec[f"{key}_against_ms"] = k19_turns(
+                kernel, old)
         rec[f"{key}_plain_ms"] = cuda_ms(plain, reps=5)
         rec[f"{key}_bytes"] = nb
         rec[f"{key}_bound_ms"] = bound_ms(nb)
@@ -8467,6 +8754,13 @@ def state_shapes(dev, watch):
           f"{rec['pack_bound_ms']:.4f} ms ({rec['pack_shape']}); at Qm4's "
           f"kept rows: kernel {rec['dst_ms']:.4f} ms, plain "
           f"{rec['dst_plain_ms']:.4f} ms ({rec['dst_shape']})", flush=True)
+    if against is not None:
+        print(f"K19 beside {against.path} on the same inputs, in turns: "
+              f"Qm3's unpack {rec['ms']:.4f} against "
+              f"{rec['against_ms']:.4f} ms, srow's pack {rec['pack_ms']:.4f} "
+              f"against {rec['pack_against_ms']:.4f} ms, Qm4's kept rows "
+              f"{rec['dst_ms']:.4f} against {rec['dst_against_ms']:.4f} ms",
+              flush=True)
     # K16's merge at Qm5 (m = 4,096)
     _, a, _ = got_args[("hll_merge", "Qm5")]
     states, n_groups, log2m, starts, ends, perm, mask = a
@@ -8543,11 +8837,14 @@ def merge_state_shapes(shapes, states):
 
 
 def states_phase(ch, dev, s=None, want=None, cut=False, per_query=None,
-                 launches=None, launch_rows=None):
+                 launches=None, launch_rows=None, table=False,
+                 against=None):
     """--states, and the whole smoke's: K19's cases, the state tables
     (srow at N_SROW_CUT rows where `cut`), the state statements on their
     paths against numpy, their times and the state kernels at their
-    inputs.  -> (shapes, launches, launch_rows)."""
+    inputs (K19 beside `against`, a K19Against, where given), and where
+    `table`, K19 at every layout (k19_table).  -> (shapes, launches,
+    launch_rows)."""
     from clickhouse_tpu_torch.ops import _native
     t0 = time.perf_counter()
     check_k19(dev)
@@ -8570,13 +8867,15 @@ def states_phase(ch, dev, s=None, want=None, cut=False, per_query=None,
     print(f"[{time.perf_counter() - t0:.1f} s] state statements done",
           flush=True)
     state_times(s)
-    shapes = state_shapes(dev, watch)
+    shapes = state_shapes(dev, watch, against)
     watch.args.clear()
     for name in ("sagg", "srow", "su", "arr"):
         s.execute(f"DROP TABLE {name}")
     import gc
     gc.collect()
     torch.cuda.empty_cache()
+    if table:
+        shapes["state_rows"]["layouts"] = k19_table(dev, against)
     print(f"state phase: {time.perf_counter() - t0:.1f} s", flush=True)
     return shapes, launches, launch_rows
 
@@ -8697,12 +8996,18 @@ def main():
         print(json.dumps({"launches": {k: v for k, v in launches.items()
                                        if v}, **shapes}), flush=True)
         return
-    if sys.argv[1:] == ["--states"]:
+    if sys.argv[1:2] == ["--states"] and (
+            len(sys.argv) == 2 or sys.argv[2:3] == ["--k19-against"]
+            and len(sys.argv) == 4):
         # K19's cases, the state tables at full size (srow 100M rows), the
-        # state statements on their paths, their times and the state
-        # kernels at their inputs
+        # state statements on their paths, their times, the state kernels
+        # at their inputs and K19 at every layout; with --k19-against
+        # FILE, K19 beside FILE's build on the same inputs
         t_phase = time.perf_counter()
-        shapes, launches, _ = states_phase(ch, dev)
+        against = K19Against(sys.argv[3], dev) if len(sys.argv) == 4 \
+            else None
+        shapes, launches, _ = states_phase(ch, dev, table=True,
+                                           against=against)
         print(f"--states phase: {time.perf_counter() - t_phase:.1f} s",
               flush=True)
         print(json.dumps({"launches": {k: v for k, v in launches.items()

@@ -425,9 +425,9 @@ def library() -> ctypes.CDLL:
             lib.chtt_segmented_search.restype = I
             lib.chtt_state_tile_rows.argtypes = [I]
             lib.chtt_state_tile_rows.restype = I
-            lib.chtt_state_pack.argtypes = [P, P, I, LL, I, P, P, I, P]
+            lib.chtt_state_pack.argtypes = [P, P, I, LL, I, I, I, P, P, P]
             lib.chtt_state_pack.restype = I
-            lib.chtt_state_unpack.argtypes = [P, LL, I, P, P, P, I, I, P]
+            lib.chtt_state_unpack.argtypes = [P, LL, I, I, I, P, P, P, I, P]
             lib.chtt_state_unpack.restype = I
             lib.chtt_error_string.argtypes = [I]
             lib.chtt_error_string.restype = ctypes.c_char_p

@@ -24,10 +24,11 @@ import torch
 from . import _native
 
 __all__ = ["pack_state_rows", "unpack_state_rows", "state_rows_bytes",
-           "K19_MAX_COLS", "K19_TILE_BYTES"]
+           "k19_plan", "K19_MAX_COLS", "K19_TILE_BYTES"]
 
 K19_MAX_COLS = 16          # kMaxCols of csrc/state_rows.cu
 K19_TILE_BYTES = 32768     # kTileBytes: a packed row is at most this wide
+K19_WORDS = (16, 8, 4, 2, 1)   # the kernel's word widths
 
 _ELEM = (torch.bool, torch.int8, torch.uint8, torch.int16, torch.int32,
          torch.int64, torch.float32, torch.float64)
@@ -42,6 +43,21 @@ def state_rows_bytes(n: int, widths: Sequence[int],
     """Bytes K19 moves for n rows of state columns of `widths` bytes a row:
     each column once, the packed matrix once, and the row index."""
     return 2 * n * sum(widths) + (8 * n if index else 0)
+
+
+def k19_plan(widths: Sequence[int], ptrs: Sequence[int]
+             ) -> Tuple[int, List[Tuple[int, int]]]:
+    """K19's word width for state columns of `widths` bytes a row and base
+    addresses `ptrs` (the packed matrix's and each column's): the largest
+    of 16, 8, 4, 2 and 1 that divides every width, their sum B and every
+    address.  -> (w, words): words[j] = (column, word in that column's
+    row) of the packed row's word j, for the B // w words of a row, the
+    position a thread of the word path keeps (an indexed launch)."""
+    B = sum(widths)
+    w = next(w for w in K19_WORDS
+             if all(x % w == 0 for x in (B, *widths, *ptrs)))
+    words = [(c, k) for c, cb in enumerate(widths) for k in range(cb // w)]
+    return w, words
 
 
 def _check_cols(cols: Sequence[torch.Tensor], what: str) -> int:
@@ -150,15 +166,14 @@ def _unpack_plain(packed, layout, src_rows) -> List[torch.Tensor]:
     return out
 
 
-def _ptrs(cols: Sequence[torch.Tensor]):
-    ptrs = (ctypes.c_void_p * len(cols))(*[c.data_ptr() for c in cols])
-    cb = (ctypes.c_int * len(cols))(*[_row_bytes(c) for c in cols])
-    return ptrs, cb
-
-
-def _blocks(dev, n: int, width: int) -> int:
-    tile = _native.library().chtt_state_tile_rows(width)
-    return _native.grid_blocks(dev, -(-n // tile), threads=1, per_sm=8)
+def _ptrs(cols: Sequence[torch.Tensor], packed: torch.Tensor):
+    """The columns' pointers and row bytes for C, and K19's word width."""
+    addrs = [c.data_ptr() for c in cols]
+    widths = [_row_bytes(c) for c in cols]
+    w, _ = k19_plan(widths, [packed.data_ptr(), *addrs])
+    ptrs = (ctypes.c_void_p * len(cols))(*addrs)
+    cb = (ctypes.c_int * len(cols))(*widths)
+    return ptrs, cb, w
 
 
 def _pack_cuda(cols, dst_rows, out, width) -> torch.Tensor:
@@ -166,12 +181,12 @@ def _pack_cuda(cols, dst_rows, out, width) -> torch.Tensor:
     if n == 0:
         return out                       # no launch
     cols = [c.contiguous() for c in cols]
-    ptrs, cb = _ptrs(cols)
+    ptrs, cb, w = _ptrs(cols, out)
     dev = out.device
     rc = _native.library().chtt_state_pack(
-        ptrs, cb, len(cols), n, width,
+        ptrs, cb, len(cols), n, width, w, dst_rows is None,
         None if dst_rows is None else dst_rows.contiguous().data_ptr(),
-        out.data_ptr(), _blocks(dev, n, width), _native.stream_ptr(dev))
+        out.data_ptr(), _native.stream_ptr(dev))
     _native.check(rc, "state_pack")
     _native.count_launch("state_pack", n)
     return out
@@ -182,13 +197,12 @@ def _unpack_cuda(packed, src_rows, cols, width) -> List[torch.Tensor]:
     if n == 0:
         return cols                      # no launch
     packed = packed.contiguous()
-    ptrs, cb = _ptrs(cols)
+    ptrs, cb, w = _ptrs(cols, packed)
     dev = packed.device
     rc = _native.library().chtt_state_unpack(
-        packed.data_ptr(), n, width,
+        packed.data_ptr(), n, width, w, src_rows is None,
         None if src_rows is None else src_rows.contiguous().data_ptr(),
-        ptrs, cb, len(cols), _blocks(dev, n, width),
-        _native.stream_ptr(dev))
+        ptrs, cb, len(cols), _native.stream_ptr(dev))
     _native.check(rc, "state_unpack")
     _native.count_launch("state_unpack", n)
     return cols

@@ -30,7 +30,8 @@ from chip_smoke import (CMPS, K4_ROWS, K5_CASES, K6_SORTED_LAYOUTS,
                         k10_args, k11_case, k11_error, make_term,
                         sort_key_columns, term_cases,
                         K9_ZERO_START_ROWS, k9_zero_starts_case,
-                        K18_QUERY_SEGMENT_ROWS, k18_query_segments_case)
+                        K18_QUERY_SEGMENT_ROWS, k18_query_segments_case,
+                        K19_VIEWS, k19_view)
 from clickhouse_tpu_torch.ops import _native
 from clickhouse_tpu_torch.ops.calendar_ops import (_calendar_part_plain,
                                                    calendar_part)
@@ -1657,12 +1658,15 @@ def test_tail_queries_on_the_card_match_the_cpu(dev):
 
 # -- K19: state_rows ---------------------------------------------------------
 
-K19_LAYOUTS = {4: [(torch.int32, 1)], 9: [(torch.uint8, 1), (torch.int64, 1)],
+K19_LAYOUTS = {2: [(torch.int16, 1)], 4: [(torch.int32, 1)],
+               6: [(torch.int16, 1), (torch.int32, 1)],
+               9: [(torch.uint8, 1), (torch.int64, 1)],
                12: [(torch.int64, 1), (torch.int32, 1)],
                16: [(torch.float64, 1), (torch.int64, 1)],
                20: [(torch.int64, 1), (torch.int32, 1), (torch.int64, 1)],
                24: [(torch.float64, 1), (torch.float64, 1),
                     (torch.int64, 1)],
+               36: [(torch.float64, 1)] * 4 + [(torch.int32, 1)],
                40: [(torch.float64, 1)] * 4 + [(torch.int64, 1)],
                4096: [(torch.uint8, 4096)]}
 
@@ -1699,6 +1703,32 @@ def test_k19_matches_plain(dev, width):
                 assert torch.equal(x, y)
         for x, y in zip(state_ops.unpack_state_rows(got, layout), cols):
             assert torch.equal(x, y)
+
+
+@pytest.mark.parametrize("name", sorted(K19_VIEWS))
+def test_k19_views_match_plain(dev, name):
+    """K19 on chip_smoke.K19_VIEWS (the packed matrix or a column whose
+    base lies off a 16-byte boundary: m[1:], x[1:], byte offsets that
+    narrow the word) against its plain version, bit for bit, packing with
+    and without dst_rows and unpacking with and without src_rows."""
+    from clickhouse_tpu_torch.ops import _native, state_ops
+    layout = K19_VIEWS[name][0]
+    tile = _native.library().chtt_state_tile_rows(
+        sum(d.itemsize * w for d, w in layout))
+    for n in (1, tile + 1, 3 * tile + 7):
+        layout, cols, packed = k19_view(name, n, dev, seed=n)
+        want = packed.clone()
+        state_ops._pack_plain(cols, None, want)
+        state_ops.pack_state_rows(cols, out=packed)
+        assert torch.equal(packed, want)
+        dst = torch.randperm(n, device=dev)
+        state_ops._pack_plain(cols, dst, want)
+        state_ops.pack_state_rows(cols, dst_rows=dst, out=packed)
+        assert torch.equal(packed, want)
+        for src in (None, dst):
+            for x, y in zip(state_ops.unpack_state_rows(packed, layout, src),
+                            state_ops._unpack_plain(packed, layout, src)):
+                assert torch.equal(x.view(torch.uint8), y.view(torch.uint8))
 
 
 def test_state_statements_on_card_match_cpu():

@@ -630,14 +630,20 @@ def test_running_accumulate_of_a_big_block():
 
 # -- K19's plain version against the reference ---------------------------------
 
-# state layouts of the widths K19 is held at on the card: B = 4, 9, 12, 16,
-# 20, 24, 40 and 4,096
-LAYOUTS = {4: ["uint32"], 9: ["uint8", "int64"], 12: ["uint64", "uint32"],
+# state layouts of the widths K19 is held at on the card: B = 2, 4, 6, 9,
+# 12, 16, 20, 24, 36, 40 and 4,096
+LAYOUTS = {2: ["int16"], 4: ["uint32"], 6: ["uint16", "uint32"],
+           9: ["uint8", "int64"], 12: ["uint64", "uint32"],
            16: ["float64", "int64"], 20: ["uint64", "int32", "int64"],
            24: ["float64", "float64", "int64"],
+           36: ["float64"] * 4 + ["uint32"],
            40: ["float64"] * 4 + ["int64"], 4096: [("uint8", 4096)],
            "every": ["bool", "int8", "uint8", "int16", "uint16", "int32",
                      "uint32", "float32", "int64", "uint64", "float64"]}
+# K19's word width at each layout with every base address 16-aligned: the
+# largest of 16, 8, 4, 2, 1 dividing B and each column's row bytes
+K19_WORD = {2: 2, 4: 4, 6: 2, 9: 1, 12: 4, 16: 8, 20: 4, 24: 8, 36: 4,
+            40: 8, 4096: 16, "every": 1}
 
 
 def _layout(name):
@@ -713,6 +719,54 @@ def test_k19_plain_matches_reference(layout, n):
     for p, t in zip(picked, tcols):
         assert torch.equal(p, t[torch.cat([torch.arange(n),
                                            torch.arange(min(n, 1))])])
+
+
+@pytest.mark.parametrize("offset", [0, 1, 2, 4, 8])
+@pytest.mark.parametrize("side", ["packed", "column"])
+@pytest.mark.parametrize("layout", sorted(LAYOUTS, key=str))
+def test_k19_plan_word_width(layout, side, offset):
+    """k19_plan's word width at each layout, with the packed matrix's or
+    the last column's address `offset` bytes past a 16-byte boundary, and
+    its word table: word j of the packed row is word k of column c's row,
+    the same bytes as the reference's layout puts there."""
+    spec = _layout(layout)
+    widths = [d.itemsize * w for d, w in spec]
+    ptrs = [1 << 20] + [(i + 2) << 20 for i in range(len(widths))]
+    ptrs[0 if side == "packed" else -1] += offset
+    w, words = state_ops.k19_plan(widths, ptrs)
+    want = K19_WORD[layout]
+    if offset:
+        want = min(want, offset & -offset)
+    assert w == want
+    starts = np.cumsum([0] + widths)
+    assert len(words) == starts[-1] // w
+    assert [int(starts[c]) + k * w for c, k in words] == \
+        list(range(0, int(starts[-1]), w))
+
+
+@pytest.mark.parametrize("case", ["row_slice", "column_slice",
+                                  "prefix_slice"])
+def test_k19_plan_of_views(case):
+    """The width _ptrs takes from tensors: a packed matrix sliced a row in
+    (m[1:] of B = 12: 12 bytes past its base), an int32 column sliced an
+    element in (4 bytes), and a prefix slice (the base kept)."""
+    m = torch.zeros((5, 12), dtype=torch.uint8)
+    a, b = torch.zeros(5, dtype=torch.int64), torch.zeros(6, dtype=torch.int32)
+    if case == "row_slice":
+        cols, packed, want = [a[1:], b[2:]], m[1:], 4
+    elif case == "column_slice":
+        cols, packed, want = [torch.zeros(4, dtype=torch.int32), b[1:5]], \
+            torch.zeros((4, 8), dtype=torch.uint8), 4
+    else:
+        cols, packed, want = [a[:3], a[:3]], torch.zeros((3, 16),
+                                                          dtype=torch.uint8), 8
+    ptrs, cb, w = state_ops._ptrs(cols, packed)
+    assert w == want and list(cb) == [c.element_size() for c in cols]
+    assert list(ptrs) == [c.data_ptr() for c in cols]
+    assert state_ops.k19_plan([12], [16]) == (4, [(0, 0), (0, 1), (0, 2)])
+    assert state_ops.k19_plan([8, 4], [0, 0, 0]) == (4, [(0, 0), (0, 1),
+                                                         (1, 0)])
+    assert state_ops.k19_plan([8, 8], [0, 0, 0]) == (8, [(0, 0), (1, 0)])
 
 
 def test_k19_refuses_bad_shapes():
