@@ -47,6 +47,12 @@
                                       # statements, the state kernels at
                                       # their inputs and K19 at every
                                       # layout of K19_LAYOUTS
+    python3 chip_smoke.py --aggtail   # only the aggregate tail: events,
+                                      # Qe1-Qe3, Qg1, Qg2, Qg2w, Qq1, Qx1
+                                      # and Qx2 at full size against numpy,
+                                      # K4-K6 and K17 at their inputs, and
+                                      # every tail name at 1M rows on the
+                                      # card against the CPU path
     python3 chip_smoke.py --states --k19-against FILE.cu  # the same, and
                                       # K19 beside FILE's build (an older
                                       # state_rows.cu) in turns
@@ -285,6 +291,7 @@ import math
 import statistics
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -405,7 +412,7 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 L2_FLUSH_BYTES = 128 << 20  # > the H100's 50 MB L2
 SLEEP_CYCLES = 1_000_000    # ~0.5 ms of device time to cover host enqueue
 # per-kernel keys of the kernels line beyond the contract's
-EXTRA_KEYS = ("tail_ms", "tail_plain_ms", "tail_library_ms",
+EXTRA_KEYS = ("aggtail", "tail_ms", "tail_plain_ms", "tail_library_ms",
               "tail_bytes", "tail_bound_ms", "tail_shape",
               "tail_sorted_ms", "tail_sorted_plain_ms",
               "tail_sorted_bytes", "tail_sorted_bound_ms",
@@ -7825,12 +7832,59 @@ def tail_record(got, want, ms, plain_ms, library_ms, library, nbytes_,
                 shape=shape, **extra)
 
 
+def k6_replay(a, query):
+    """K6 (_segment_reduce_many_cuda's arguments a, either entry) held
+    against its plain version a spec at a time, timed beside it.  ->
+    record of the kernels line."""
+    from clickhouse_tpu_torch.ops import scan_ops
+    specs, perm, gid, cap_g, group_rows, bounds, n = a
+    ggid = gid if bounds is None else scan_ops.gid_of_bounds(
+        bounds[0], bounds[1], n)
+
+    def plain():
+        return [scan_ops._segment_reduce_plain(op, d, m, perm, ggid, cap_g,
+                                               u) for op, d, m, u in specs]
+    types = sorted({str(getattr(sp[1], "dtype", "a Term"))
+                    for sp in specs if sp[1] is not None})
+    return tail_record(
+        scan_ops._segment_reduce_many_cuda(*a), plain(),
+        cuda_ms(lambda: scan_ops._segment_reduce_many_cuda(*a)),
+        cuda_ms(plain, reps=3), None, "none",
+        k6_bytes(specs, n, cap_g, group_rows, permuted=bounds is None)[0],
+        f"{query}: {len(specs)} reduction(s) "
+        f"({', '.join(sp[0] for sp in specs)}"
+        + (f" of {', '.join(types)}" if types else "")
+        + f"{', masked' if any(sp[2] is not None for sp in specs) else ''})"
+        f" over {n} rows in {cap_g} group slots"
+        + (", sorted-order entry" if bounds is not None else ""))
+
+
+def k17_replay(a, query):
+    """K17 (_segmented_scan_cuda's arguments a) held against its plain
+    version, timed beside it.  -> record of the kernels line."""
+    from clickhouse_tpu_torch.ops import scan_ops
+    op, data, boundary, mask, reverse, uns, n, _ = a
+    got = scan_ops._segmented_scan_cuda(*a)
+    return tail_record(
+        [got], [scan_ops._segmented_scan_plain(op, data, boundary, mask,
+                                               reverse, uns, n)],
+        cuda_ms(lambda: scan_ops._segmented_scan_cuda(*a)),
+        cuda_ms(lambda: scan_ops._segmented_scan_plain(
+            op, data, boundary, mask, reverse, uns, n), reps=3),
+        None, "none (torch.cumsum does not reset at segments)",
+        nbytes(data, boundary, mask, got),
+        f"{query}: {'reverse ' if reverse else ''}{op} of {n} "
+        f"{'row indices' if data is None else data.dtype}"
+        f"{' rows, masked' if mask is not None else ' rows'}"
+        f"{', segmented' if boundary is not None else ', one segment'}")
+
+
 def tail_shapes(dev, watch):
     """Each tail kernel replayed on the inputs its query gave it
     (TAIL_CAPTURE), held against its plain version and timed beside it
     and a library call where one computes the same function; K18's tiles
     by branch at Qj1.  -> {kernel: record}."""
-    from clickhouse_tpu_torch.ops import join_ops, scan_ops, search
+    from clickhouse_tpu_torch.ops import join_ops, search
     recs = {}
     got_args = watch.args
     missing = [k for k in TAIL_CAPTURE if k not in got_args]
@@ -7902,39 +7956,9 @@ def tail_shapes(dev, watch):
     # counts and positions (sorted-order entry)
     for key, q in (("segment_reduce", "Qf3"),
                    ("segment_reduce_sorted", "Qf4")):
-        _, a, _ = got_args[key]
-        specs, perm, gid, cap_g, group_rows, bounds, n = a
-        ggid = gid if bounds is None else scan_ops.gid_of_bounds(
-            bounds[0], bounds[1], n)
-        recs[key] = tail_record(
-            scan_ops._segment_reduce_many_cuda(*a),
-            [scan_ops._segment_reduce_plain(op, d, m, perm, ggid, cap_g, u)
-             for op, d, m, u in specs],
-            cuda_ms(lambda: scan_ops._segment_reduce_many_cuda(*a)),
-            cuda_ms(lambda: [scan_ops._segment_reduce_plain(
-                op, d, m, perm, ggid, cap_g, u) for op, d, m, u in specs],
-                reps=3), None, "none",
-            k6_bytes(specs, n, cap_g, group_rows,
-                     permuted=bounds is None)[0],
-            f"{q}: {len(specs)} reduction(s) ({', '.join(sp[0] for sp in specs)})"
-            f" over {n} rows in {cap_g} group slots"
-            + (", sorted-order entry" if bounds is not None else ""))
-        del a, specs, perm, gid, ggid
+        recs[key] = k6_replay(got_args[key][1], q)
     # K17: VersionedCollapsingMergeTree's reverse count
-    _, a, _ = got_args["segmented_scan"]
-    op, data, boundary, mask, reverse, uns, n, _ = a
-    recs["segmented_scan"] = tail_record(
-        [scan_ops._segmented_scan_cuda(*a)],
-        [scan_ops._segmented_scan_plain(op, data, boundary, mask, reverse,
-                                        uns, n)],
-        cuda_ms(lambda: scan_ops._segmented_scan_cuda(*a)),
-        cuda_ms(lambda: scan_ops._segmented_scan_plain(
-            op, data, boundary, mask, reverse, uns, n), reps=3),
-        None, "none (torch.cumsum does not reset at segments)",
-        nbytes(data, boundary) + (0 if mask is None else nbytes(mask))
-        + n * 8,
-        f"Qf5: reverse {op} of {n} {data.dtype} rows")
-    del a
+    recs["segmented_scan"] = k17_replay(got_args["segmented_scan"][1], "Qf5")
     report(recs)
     print("K18's tiles by branch at Qj1: "
           f"{recs['segmented_search'].pop('branches')}", flush=True)
@@ -8881,6 +8905,703 @@ def states_phase(ch, dev, s=None, want=None, cut=False, per_query=None,
 
 
 
+# -- slice 26: the aggregate tail (events, Qe1-Qx2, the tail names at 1M) ----
+
+N_EVENTS = 100_000_000       # events: the web-analytics funnel table
+EVENT_USERS = 1 << 20        # uid = row % EVENT_USERS: ~95 events a user
+EVENT_WINDOW = 3600          # windowFunnel's window, seconds
+AGGTAIL_REPS = 3             # timed and traced runs of each tail query
+AGGTAIL_SETTINGS = {"max_device_memory_bytes": 40 << 30}
+# GROUP BY x: ~100 rows a group, ~1M groups; the moving sums are of t's
+# second of the day, which differs from row to row of a group, so their
+# sum weighs each row by its place in its group
+MOVING_SETTINGS = {"max_groups": 1 << 21, "group_array_max_size": 128}
+AGGTAIL_QUERIES = (
+    ("Qe1", "SELECT lvl, count() FROM (SELECT uid, windowFunnel(3600)(t, "
+            "e = 0, e = 1, e = 2) AS lvl FROM events GROUP BY uid) "
+            "GROUP BY lvl ORDER BY lvl"),
+    ("Qe2", "SELECT sumForEach(r) FROM (SELECT uid, retention(e = 0, "
+            "e = 1, e = 2) AS r FROM events GROUP BY uid)"),
+    ("Qe3", "SELECT sum(m) FROM (SELECT uid, sequenceMatch('(?1)(?2)')(t, "
+            "e = 0, e = 2) AS m FROM events GROUP BY uid)"),
+    ("Qg1", "SELECT x % 1024 AS k, groupArraySorted(10)(x), "
+            "groupArrayLast(10)(x), groupArraySample(10)(x), "
+            "uniqUpTo(1000)(intDiv(x, 1000)) FROM hits GROUP BY k "
+            "ORDER BY k"),
+    ("Qg2", "SELECT sum(arraySum(m)) FROM (SELECT x, "
+            "groupArrayMovingSum(toInt64(t) % 86400) AS m FROM hits_t "
+            "GROUP BY x)"),
+    ("Qg2w", "SELECT sum(arraySum(m)) FROM (SELECT x, "
+             "groupArrayMovingSum(10)(toInt64(t) % 86400) AS m FROM hits_t "
+             "GROUP BY x)"),
+    ("Qq1", "SELECT x % 1024 AS k, quantileExactWeighted(0.9)(x, x % 7 + 1), "
+            "quantilesExactWeighted(0.1, 0.5, 0.9)(x, x % 7 + 1) FROM hits "
+            "GROUP BY k ORDER BY k"),
+    ("Qx1", "SELECT x % 1024 AS k, rankCorr(x, d), cramersV(x % 7, d % 5), "
+            "theilsU(x % 7, d % 5), deltaSum(x), deltaSumTimestamp(x, d), "
+            "exponentialTimeDecayedAvg(3600)(x, t) FROM hits_t GROUP BY k "
+            "ORDER BY k"),
+    ("Qx2", "SELECT x % 1024 AS k, intervalLengthSum(t, t + x % 600), "
+            "maxIntersections(d, d + x % 3), "
+            "topKWeighted(10)(x % 1000, x % 7) FROM hits_t GROUP BY k "
+            "ORDER BY k"))
+_K6_SORTED = ("segment_reduce_sorted",)
+# kernels each tail query must launch (at least once each): the sort
+# grouping (K4, K5), K6 (its permuted or sorted-order entry) and K17
+# (a count over the grouping's own rows is its groups' bounds: no K6)
+AGGTAIL_PATHS = {
+    "Qe1": _SORT_GROUPING + _K6_SORTED,
+    "Qe2": _SORT_GROUPING + ("segment_reduce",),
+    "Qe3": _SORT_GROUPING + _K6_SORTED,
+    "Qg1": _SORT_GROUPING + _K6_SORTED,
+    "Qg2": _SORT_GROUPING + ("segmented_scan",),
+    "Qg2w": _SORT_GROUPING + ("segmented_scan",),
+    "Qq1": _SORT_GROUPING + ("segmented_scan",) + _K6_SORTED,
+    "Qx1": _SORT_GROUPING + ("segment_reduce", "segmented_scan")
+    + _K6_SORTED,
+    "Qx2": _SORT_GROUPING + ("segmented_scan",) + _K6_SORTED}
+# the kernel inputs of the tail queries replayed against their plain
+# versions (aggtail_shapes): label -> (kernel, query); of the query's calls
+# the one of the highest AGGTAIL_RANK is kept
+AGGTAIL_CAPTURE = {
+    "events": ("radix_sort_pairs", "Qx2"),   # maxIntersections' 2n events
+    "token": ("radix_sort_pairs", "Qg1"),    # groupArraySample's 62 bits
+    "events_bounds": ("segment_bounds", "Qx2"),
+    "retention": ("segment_reduce", "Qe2"),  # three uint8 maxes, permuted
+    "funnel": ("segment_reduce_sorted", "Qe1"),  # a step's min and count
+    "sums": ("segment_reduce_sorted", "Qx1"),    # rankCorr's float64 sums
+    "weights": ("segmented_scan", "Qq1"),    # the running weights
+    "max": ("segmented_scan", "Qx2"),        # intervalLengthSum's max
+    "last": ("segmented_scan", "Qx1")}       # deltaSum's masked last
+AGGTAIL_RANK = {
+    "events": lambda a: (a[0].shape[0], a[1]),
+    "token": lambda a: (a[1], a[0].shape[0]),
+    "events_bounds": lambda a: a[0][0].shape[0],
+    "retention": lambda a: (a[6], len(a[0])),
+    "funnel": lambda a: (a[6], len(a[0])),
+    "sums": lambda a: (sum(getattr(sp[1], "dtype", None) == torch.float64
+                           for sp in a[0]), a[6]),
+    "weights": lambda a: a[6],
+    "max": lambda a: (a[0] == "max", a[6]),
+    "last": lambda a: (a[0] == "last", a[3] is not None, a[6])}
+AGGTAIL_RTOL = 1e-9          # float statistics against numpy
+# cramersVBiasCorrected is the square root of a difference of two O(1)
+# float64 terms that cancel where a and b are nearly independent: their
+# roundoff (a few ulp, ~1e-15) is sqrt(1e-15) = 3.2e-8 where it is 0, so
+# the card and the CPU path (sums in other orders) agree within this
+SQRT_CANCEL_ATOL = 5e-8
+_TOKEN_MASK = (1 << 62) - 1
+_GOLDEN = 0x9E3779B97F4A7C15
+
+
+def aggtail_settings(name):
+    return {**AGGTAIL_SETTINGS,
+            **(MOVING_SETTINGS if name.startswith("Qg2") else {})}
+
+
+def events_columns(n=None, users=None):
+    """events (uid UInt32, t DateTime, e UInt8): uid = row % users, t
+    hits_t's second of July 2013 for the row, e a hash of the row mod 4."""
+    n = N_EVENTS if n is None else n
+    users = EVENT_USERS if users is None else users
+    i = np.arange(n, dtype=np.int64)
+    t = T_JULY_2013 + (i * 2654435761) % JULY_SECONDS
+    e = ((i.astype(np.uint64) * np.uint64(_GOLDEN)) >> np.uint64(60)) \
+        .astype(np.uint8) % 4
+    return {"uid": (i % users).astype(np.uint32), "t": t, "e": e}
+
+
+def load_events(s, n=None, users=None):
+    """events in session s, on the device; -> its columns as numpy."""
+    t0 = time.perf_counter()
+    cols = events_columns(n, users)
+    t1 = time.perf_counter()
+    s.execute("CREATE TABLE events (uid UInt32, t DateTime, e UInt8)")
+    s.insert_pydict("events", cols)
+    blk = s.catalog.get_table("default", "events").read_block()
+    if blk["t"].data.is_cuda:
+        torch.cuda.synchronize()
+    print(f"events: {len(cols['t'])} rows made in {t1 - t0:.1f} s; insert "
+          f"+ device block {time.perf_counter() - t1:.1f} s", flush=True)
+    return cols
+
+
+def events_answers(cols, users=None):
+    """Qe1-Qe3 by numpy: the rows as a (rows a user, users) matrix (uid =
+    row % users), each user's earliest chain a min down its column (the
+    reference's anchored reading of windowFunnel and sequenceMatch)."""
+    users = EVENT_USERS if users is None else users
+    t, e = cols["t"], cols["e"]
+    n = len(t)
+    inf = 1 << 62
+    rows = -(-n // users)
+    pad = rows * users - n
+    T = np.concatenate([t, np.full(pad, inf, np.int64)]).reshape(rows, users)
+    E = np.concatenate([e, np.full(pad, 255, np.uint8)]).reshape(rows, users)
+    present = np.arange(users) < n
+    t1 = np.where(E == 0, T, inf).min(axis=0)
+    t2 = np.where((E == 1) & (T > t1) & (T <= t1 + EVENT_WINDOW), T,
+                  inf).min(axis=0)
+    t3 = np.where((E == 2) & (T > t2) & (T <= t1 + EVENT_WINDOW), T,
+                  inf).min(axis=0)
+    lvl = ((t1 < inf).astype(np.int64) + (t2 < inf) + (t3 < inf))[present]
+    want = {"Qe1": [(int(v), int(c)) for v, c in
+                    zip(*np.unique(lvl, return_counts=True))]}
+    r0 = (E == 0).any(axis=0)[present]
+    r1 = r0 & (E == 1).any(axis=0)[present]
+    r2 = r0 & (E == 2).any(axis=0)[present]
+    want["Qe2"] = [([int(r0.sum()), int(r1.sum()), int(r2.sum())],)]
+    m = ((E == 2) & (T > t1)).any(axis=0)[present]
+    want["Qe3"] = [(int(m.sum()),)]
+    return want
+
+
+def _crosstab_np(tab, which):
+    """cramersV or theilsU of a contingency table (the reference's
+    formulas)."""
+    tab = tab[tab.sum(1) > 0][:, tab.sum(0) > 0].astype(np.float64)
+    T = tab.sum()
+    na, nb = tab.sum(1), tab.sum(0)
+    cell = tab > 0
+    S = float((tab[cell] ** 2 / np.outer(na, nb)[cell]).sum())
+    chi2 = T * max(S - 1.0, 0.0)
+    R, C = float(tab.shape[0]), float(tab.shape[1])
+    if which == "cramersV":
+        return float(np.sqrt(chi2 / max(T * max(min(R, C) - 1.0, 1.0),
+                                        1e-300)))
+    h_a = float((na / T * np.log(T / na)).sum())
+    h_ab = float((tab[cell] / T * np.log(
+        np.broadcast_to(nb, tab.shape)[cell] / tab[cell])).sum())
+    return (h_a - h_ab) / h_a if h_a > 1e-300 else 0.0
+
+
+def moving_sums_answer(x, t, cnt, window=None) -> int:
+    """Qg2's (Qg2w's) answer: the sum over hits_t's groups of equal x of
+    arraySum(groupArrayMovingSum([window])(t % 86400)).  arraySum of a
+    group's running sums (of the last `window`) weighs each row's value
+    by the rows from it to its group's end (at most `window`); x repeats
+    every 1,000,003 rows, so a row's place in its group is row // P.
+    cnt: the count of each value of x."""
+    P = 1_000_003
+    n = len(x)
+    if n > P and not np.array_equal(x[P:], x[:n - P]):
+        fail("aggtail answers: x does not repeat every 1,000,003 rows")
+    left = cnt[x] - np.arange(n, dtype=np.int64) // P
+    if window is not None:
+        left = np.minimum(left, window)
+    return int(((t % 86400) * left).sum())
+
+
+def hits_tail_answers(cols):
+    """Qg1-Qx2 by numpy over hits_t's columns (its x is hits' x): the
+    distinct values' counts (x = (row * 2654435761) % 1,000,003), each
+    group's values k, k + 1024, ... in order down a (values / 1024, 1024)
+    matrix; stable radix sorts by 16-bit keys for the row and day orders;
+    one sort of packed (group, start, length) keys for intervalLengthSum.
+    No sort of 100M rows by value."""
+    t0 = time.perf_counter()
+    x, t, d = cols["x"], cols["t"], cols["d"].astype(np.int64)
+    n = len(x)
+    P = 1_000_003
+    Q = -(-P // 1024)
+    cnt = np.bincount(x, minlength=Q * 1024).astype(np.int64)
+    cm = cnt.reshape(Q, 1024)
+    cum = cm.cumsum(axis=0)
+    k = x % 1024
+    keys = np.flatnonzero(cm.sum(axis=0))
+    want = {}
+    # Qg1: sorted, last, sample, uniqUpTo
+    tail = x[-min(n, 400_000):]
+    o = np.argsort((tail % 1024).astype(np.int16), kind="stable")
+    tk = (tail % 1024)[o]
+    ends = np.searchsorted(tk, keys, "right")
+    tok = (np.arange(n, dtype=np.int64).astype(np.uint64)
+           * np.uint64(_GOLDEN)).view(np.int64) & _TOKEN_MASK
+    per = max(n / 1024, 1.0)
+    th = _TOKEN_MASK if per <= 64 else int(_TOKEN_MASK * (64 / per))
+    cand = np.flatnonzero(tok <= th)
+    co = cand[np.lexsort((tok[cand], k[cand]))]
+    ck = k[co]
+    c_lo = np.searchsorted(ck, keys, "left")
+    pv = np.flatnonzero(cnt)
+    pairs = np.unique((pv % 1024) * 1001 + pv // 1000)
+    uniq = np.bincount(pairs // 1001, minlength=1024)
+    rows = []
+    for g, kk in enumerate(keys):
+        total = int(cum[-1, kk])
+        srt = [int(np.searchsorted(cum[:, kk], j, "right")) * 1024 + int(kk)
+               for j in range(min(10, total))]
+        in_tail = int(ends[g] - (np.searchsorted(tk, kk, "left")))
+        if in_tail < min(10, total):
+            fail(f"aggtail answers: group {kk} has {in_tail} rows in the "
+                 f"tail window")
+        last = tail[o][ends[g] - min(10, total):ends[g]].tolist()
+        hi = int(np.searchsorted(ck, kk, "right"))
+        if hi - c_lo[g] < min(10, total):
+            fail(f"aggtail answers: group {kk} has too few sample "
+                 f"candidates")
+        sample = x[co[c_lo[g]:c_lo[g] + min(10, total)]].tolist()
+        rows.append((int(kk), srt, last, sample, min(int(uniq[kk]), 1001)))
+    want["Qg1"] = rows
+    want["Qg2"] = [(moving_sums_answer(x, t, cnt),)]
+    want["Qg2w"] = [(moving_sums_answer(x, t, cnt, 10),)]
+    # Qq1: weighted quantiles down each group's column
+    vals = np.arange(Q * 1024, dtype=np.int64)
+    wcum = (cnt * (vals % 7 + 1)).reshape(Q, 1024).cumsum(axis=0) \
+        .astype(np.float64)
+    rows = []
+    for kk in keys:
+        col = wcum[:, kk]
+
+        def at(q):
+            return int(np.argmax(col >= q * col[-1] - 1e-12)) * 1024 + int(kk)
+        rows.append((int(kk), at(0.9), [at(0.1), at(0.5), at(0.9)]))
+    want["Qq1"] = rows
+    # Qx1: rankCorr(x, d) from the groups' value and day counts
+    dmin = int(d.min())
+    nd = int(d.max()) - dmin + 1
+    rank_x = (cum - cm + (cm + 1) / 2.0).reshape(-1)
+    D = np.bincount(k * nd + (d - dmin), minlength=1024 * nd) \
+        .reshape(1024, nd).astype(np.float64)
+    rank_d = (D.cumsum(axis=1) - D + (D + 1) / 2.0).reshape(-1)
+    rx = rank_x[x]
+    ry = rank_d[k * nd + (d - dmin)]
+    sums = [np.bincount(k, weights=w, minlength=1024)
+            for w in (rx * ry, rx, ry, rx * rx, ry * ry)]
+    m = np.bincount(k, minlength=1024).astype(np.float64)
+    del rx, ry
+    sxy, sx, sy, sxx, syy = sums
+    nf = np.maximum(m, 1.0)
+    cov = sxy - sx * sy / nf
+    den = np.sqrt(np.maximum((sxx - sx * sx / nf) * (syy - sy * sy / nf),
+                             0.0))
+    rank_corr = np.where(den > 0, cov / np.maximum(den, 1e-300), 0.0)
+    tab = np.bincount(k * 35 + (x % 7) * 5 + d % 5,
+                      minlength=1024 * 35).reshape(1024, 7, 5)
+    o = np.argsort(k.astype(np.int16), kind="stable")
+    xs, ks, ts_ = x[o], k[o], t[o]
+    same = ks[1:] == ks[:-1]
+    rise = np.where(same, np.maximum(xs[1:] - xs[:-1], 0), 0)
+    dsum = np.bincount(ks[1:], weights=rise, minlength=1024)
+    starts = np.searchsorted(ks, keys, "left")
+    tmax = np.zeros(1024, np.int64)
+    tmax[keys] = np.maximum.reduceat(ts_, starts)
+    del xs, ks, ts_, o, rise, same
+    w = np.exp(-(tmax[k] - t) / 3600.0)
+    ema = np.bincount(k, weights=x * w, minlength=1024) \
+        / np.maximum(np.bincount(k, weights=w, minlength=1024), 1e-300)
+    del w
+    od = np.argsort((k * nd + (d - dmin)).astype(np.int16), kind="stable")
+    xs, ks = x[od], k[od]
+    same = ks[1:] == ks[:-1]
+    rise = np.where(same, np.maximum(xs[1:] - xs[:-1], 0), 0)
+    dts = np.bincount(ks[1:], weights=rise, minlength=1024)
+    del xs, ks, od, rise, same
+    want["Qx1"] = [(int(kk), float(rank_corr[kk]),
+                    _crosstab_np(tab[kk], "cramersV"),
+                    _crosstab_np(tab[kk], "theilsU"), int(dsum[kk]),
+                    float(dts[kk]), float(ema[kk])) for kk in keys]
+    # Qx2: intervalLengthSum over (group, start, length) keys in one sort
+    key = np.sort((k << 42) | ((t - T_JULY_2013) << 10) | (x % 600))
+    gk = key >> 42
+    s_ = (key >> 10) & 0xFFFFFFFF
+    e_ = s_ + (key & 1023)
+    run = np.maximum.accumulate((gk << 32) | e_) & 0xFFFFFFFF
+    prev = np.empty_like(run)
+    prev[0] = -1
+    prev[1:] = np.where(gk[1:] == gk[:-1], run[:-1], -1)
+    ils = np.bincount(gk, weights=np.maximum(e_ - np.maximum(s_, prev), 0),
+                      minlength=1024)
+    del key, gk, s_, e_, run, prev
+    npos = nd + 3
+    S = np.bincount(k * npos + (d - dmin), minlength=1024 * npos) \
+        .reshape(1024, npos)
+    E = np.bincount(k * npos + (d + x % 3 - dmin), minlength=1024 * npos) \
+        .reshape(1024, npos)
+    depth = np.where(S > 0, np.cumsum(S - E, axis=1), -1).max(axis=1)
+    wk = np.bincount((vals % 1024) * 1000 + vals % 1000,
+                     weights=cnt * (vals % 7), minlength=1024 * 1000) \
+        .reshape(1024, 1000)
+    seen = np.bincount((vals % 1024) * 1000 + vals % 1000, weights=cnt,
+                       minlength=1024 * 1000).reshape(1024, 1000) > 0
+    rows = []
+    for kk in keys:
+        v = np.flatnonzero(seen[kk])
+        top = v[np.lexsort((v, -wk[kk, v]))][:10]
+        rows.append((int(kk), int(ils[kk]), int(max(depth[kk], 0)),
+                     top.tolist()))
+    want["Qx2"] = rows
+    print(f"aggregate tail answers (numpy): {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return want
+
+
+def aggtail_agree(rows, want, loose=()) -> bool:
+    """Integers and arrays exact; floats within AGGTAIL_RTOL (of the value
+    or of 1, whichever is larger), NaN where numpy has NaN; the columns
+    `loose` within SQRT_CANCEL_ATOL besides."""
+    def close(a, b, atol):
+        if isinstance(b, list):
+            return isinstance(a, list) and len(a) == len(b) \
+                and all(close(x, y, atol) for x, y in zip(a, b))
+        if isinstance(b, float):
+            if a is None or b != b or a != a:
+                return a is not None and a != a and b != b
+            return abs(a - b) <= max(AGGTAIL_RTOL * max(abs(b), 1.0), atol)
+        return a == b
+    return len(rows) == len(want) and all(
+        len(g) == len(w) and all(
+            close(a, b, SQRT_CANCEL_ATOL if j in loose else 0.0)
+            for j, (a, b) in enumerate(zip(g, w)))
+        for g, w in zip(rows, want))
+
+
+def aggtail_query(s, name, sql, want, per_query, launches, launch_rows):
+    """One tail query through the public API, checked against numpy, the
+    launch counters set to 0 just before it and read just after; fails
+    unless it launched each kernel of AGGTAIL_PATHS[name].  Prints its
+    wall, its K4/K5/K6/K17 launches, and its peak above what was allocated
+    before it beside the governor's estimate."""
+    from clickhouse_tpu_torch.exec.streaming import \
+        estimate_plan_device_bytes
+    from clickhouse_tpu_torch.ops import _native
+    from clickhouse_tpu_torch.sql import parse
+    settings = aggtail_settings(name)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    _native.reset_launches()
+    t0 = time.perf_counter()
+    rows = s.execute(sql, settings=settings).rows()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    per_query[name] = dict(_native.LAUNCHES)
+    rows_of = {kk: list(v) for kk, v in _native.LAUNCH_ROWS.items()}
+    peak = torch.cuda.max_memory_allocated() - base
+    if not aggtail_agree(rows, want[name]):
+        bad = next((i for i, (g, w) in enumerate(zip(rows, want[name]))
+                    if not aggtail_agree([g], [w])), None)
+        fail(f"{name} returned {len(rows)} rows, numpy {len(want[name])}; "
+             f"first difference at row {bad}: "
+             f"{rows[bad] if bad is not None else rows[:2]} against "
+             f"{want[name][bad] if bad is not None else want[name][:2]}")
+    for kk, v in rows_of.items():
+        launches[kk] += per_query[name][kk]
+        launch_rows[kk] += v
+    missing = [kk for kk in AGGTAIL_PATHS[name] if not per_query[name][kk]]
+    if missing:
+        fail(f"{name} did not launch {missing}: {per_query[name]}")
+    cfg = s.settings.copy_with(settings)
+    est = estimate_plan_device_bytes(s._plan(parse(sql), cfg), s.catalog, cfg)
+    used = {kk: per_query[name][kk] for kk in (
+        "radix_sort_pairs", "segment_bounds", "segment_reduce",
+        "segment_reduce_sorted", "segmented_scan", "masked_reduce",
+        "dense_group_reduce", "compact_rows") if per_query[name][kk]}
+    print(f"{name}: matches numpy ({len(rows)} rows); {wall:.3f} s; "
+          f"launches {used}; peak {peak} bytes above what was allocated "
+          f"before it; the governor's estimate {est}", flush=True)
+
+
+class AggTailWatch:
+    """Keeps, of each AGGTAIL_CAPTURE label's kernel, the arguments of
+    the call of the highest AGGTAIL_RANK while its query runs (each call
+    passed on as it is).  plain: watch the CPU path's entries instead of
+    the launches (the tests' check of the ranks; their arguments come in
+    the same places)."""
+
+    def __init__(self, plain=False):
+        from clickhouse_tpu_torch.ops import scan_ops, sort_ops
+        self.query = ""
+        self.args = {}
+        self.saved = []
+        for kernel, mod, attr, plain_attr in (
+                ("radix_sort_pairs", sort_ops, "_radix_sort_cuda",
+                 "_radix_sort_pairs_plain"),
+                ("segment_bounds", scan_ops, "_segment_bounds_cuda",
+                 "_segment_bounds_plain"),
+                ("segment_reduce", scan_ops, "_segment_reduce_many_cuda",
+                 "_segment_reduce_entry"),
+                ("segmented_scan", scan_ops, "_segmented_scan_cuda",
+                 "_segmented_scan_plain")):
+            attr = plain_attr if plain else attr
+            fn = getattr(mod, attr)
+            self.saved.append((mod, attr, fn))
+
+            def spy(*a, _fn=fn, _kernel=kernel):
+                kernel_ = _kernel
+                if _kernel == "segment_reduce" and a[1] is None:
+                    kernel_ = "segment_reduce_sorted"   # no perm: sorted
+                for label, (k, q) in AGGTAIL_CAPTURE.items():
+                    if k == kernel_ and q == self.query:
+                        rank = AGGTAIL_RANK[label](a)
+                        if label not in self.args \
+                                or rank >= self.args[label][0]:
+                            self.args[label] = (rank, a)
+                return _fn(*a)
+            setattr(mod, attr, spy)
+
+    def close(self):
+        for mod, attr, fn in self.saved:
+            setattr(mod, attr, fn)
+
+
+def aggtail_shapes(s):
+    """Each AGGTAIL_CAPTURE query run once more under AggTailWatch (apart
+    from its checked run, so that the kept inputs do not add to its
+    peak), then its kernels replayed on the inputs it gave them, held
+    against their plain versions and timed beside them (and K4 and K5
+    beside torch.sort and torch.unique_consecutive), the inputs freed
+    before the next query.  -> {label: record}."""
+    recs = {}
+    watch = AggTailWatch()
+    try:
+        for name in dict.fromkeys(q for _, q in AGGTAIL_CAPTURE.values()):
+            watch.query = name
+            s.execute(dict(AGGTAIL_QUERIES)[name],
+                      settings=aggtail_settings(name))
+            torch.cuda.synchronize()
+            watch.query = ""
+            for label, (kernel, q) in AGGTAIL_CAPTURE.items():
+                if q != name:
+                    continue
+                if label not in watch.args:
+                    fail(f"{name} gave {kernel} no input ({label})")
+                a = watch.args.pop(label)[1]
+                if kernel == "radix_sort_pairs":
+                    rec = k4_record(*a)
+                    rec["shape"] = f"{name}: {rec['shape']}"
+                elif kernel == "segment_bounds":
+                    rec = k5_record(*a)
+                    rec["shape"] = f"{name}: {rec['shape']}"
+                elif kernel == "segmented_scan":
+                    rec = k17_replay(a, name)
+                else:
+                    rec = k6_replay(a, name)
+                recs[label] = rec
+                del a
+                report({f"{kernel} ({label})": rec})
+    finally:
+        watch.close()
+    return recs
+
+
+def merge_aggtail_shapes(shapes, recs):
+    """The tail replays as the `aggtail` object of their kernels' entries
+    ({label: ms, plain_ms, library_ms, bytes, bound_ms, shape}; the sorted
+    K6's under segment_reduce), each entry's max_abs_err the larger."""
+    for label, rec in recs.items():
+        kernel = AGGTAIL_CAPTURE[label][0].replace("_sorted", "")
+        r = shapes[kernel]
+        r["max_abs_err"] = max(r["max_abs_err"], rec["max_abs_err"])
+        r.setdefault("aggtail", {})[label] = {
+            key: rec[key] for key in ("ms", "plain_ms", "library_ms",
+                                      "bytes", "bound_ms", "shape")}
+
+
+def aggtail_times(s):
+    """Each tail query's median wall of AGGTAIL_REPS runs and its
+    device-busy time from a torch.profiler trace, with the top device
+    operations."""
+    for name, sql in AGGTAIL_QUERIES:
+        settings = aggtail_settings(name)
+        times = []
+        for _ in range(AGGTAIL_REPS):
+            t0 = time.perf_counter()
+            s.execute(sql, settings=settings)
+            torch.cuda.synchronize()
+            times.append(time.perf_counter() - t0)
+        clause = ", ".join(f"{kk} = {v}" for kk, v in settings.items())
+        busy, ops, wall, top = device_busy(s, f"{sql} SETTINGS {clause}",
+                                           reps=AGGTAIL_REPS)
+        print(f"{name} median wall {statistics.median(times) * 1e3:.3f} ms "
+              f"over {AGGTAIL_REPS} runs; under torch.profiler: device busy "
+              f"{busy:.4f} ms of {wall:.3f} ms wall a run, {ops:g} device "
+              f"operations a run; top: "
+              + "; ".join(f"{nm} {tt:.4f}" for nm, tt in top), flush=True)
+
+
+# every one of the tail's 39 names, by module, over tail1m (card and CPU)
+TAIL_CALLS = {
+    "ext": ["deltaSum(x)", "quantileExactWeighted(0.3)(x, w)",
+            "quantileInterpolatedWeighted(0.6)(x, w)",
+            "quantileTimingWeighted(0.9)(x, w)",
+            "quantileTDigestWeighted(0.5)(f, w)",
+            "quantileBFloat16Weighted(0.25)(x, w)",
+            "medianExactWeighted(x, w)", "medianInterpolatedWeighted(f, w)",
+            "medianTimingWeighted(x, w)", "medianTDigestWeighted(x, w)",
+            "quantilesExactWeighted(0.1, 0.5, 0.9)(x, w)", "uniqUpTo(4)(a)"],
+    "moving": ["groupArrayMovingSum(x)", "groupArrayMovingAvg(x)",
+               "groupArrayMovingSum(3)(x)", "groupArrayMovingAvg(3)(f)"],
+    "ext2": ["windowFunnel(40)(ts, e = 0, e = 1, e = 2)",
+             "sequenceMatch('(?1)(?2)')(ts, e = 0, e = 2)",
+             "retention(e = 0, e = 1, e = 2)", "rankCorr(x, f)",
+             "boundingRatio(ts, f)"],
+    "ext3": ["groupArraySorted(5)(x)", "groupArrayLast(5)(x)",
+             "groupArraySample(5)(x)", "singleValueOrNull(c)",
+             "exponentialMovingAverage(5)(f, ts)",
+             "exponentialTimeDecayedSum(5)(f, ts)",
+             "exponentialTimeDecayedCount(5)(ts)",
+             "exponentialTimeDecayedAvg(5)(f, ts)",
+             "exponentialTimeDecayedMax(5)(f, ts)",
+             "intervalLengthSum(i0, i1)", "maxIntersections(i0, i1)",
+             "maxIntersectionsPosition(i0, i1)", "cramersV(a, b)",
+             "cramersVBiasCorrected(a, b)", "theilsU(a, b)",
+             "contingency(a, b)"],
+    "ext4": ["topKWeighted(5)(a, w)", "deltaSumTimestamp(x, ts)",
+             "nothing(x)", "aggThrow(0)(x)"]}
+TAIL1M_ROWS = 1_000_000
+TAIL1M_GROUPS = 50_000       # ~20 rows a group: the moving sums' width
+TAIL1M_TYPES = {"k": "Int32", "x": "Int64", "f": "Float64", "w": "UInt8",
+                "ts": "Int64", "e": "UInt8", "a": "Int32", "b": "Int32",
+                "c": "Int64", "i0": "Int64", "i1": "Int64"}
+TAIL1M_COND = "k % 7 != 3 AND x > -20"
+
+
+def tail1m_columns(n=None, groups=None):
+    n = TAIL1M_ROWS if n is None else n
+    groups = TAIL1M_GROUPS if groups is None else groups
+    rng = np.random.default_rng(26)
+    k = (np.arange(n, dtype=np.int64) * 7919 % groups).astype(np.int32)
+    x = rng.integers(-60, 60, n).astype(np.int64)
+    i0 = rng.integers(0, 3000, n).astype(np.int64)
+    return {"k": k, "x": x, "f": np.round(rng.normal(3, 10, n), 3),
+            "w": rng.integers(1, 8, n).astype(np.uint8),
+            "ts": rng.permutation(n).astype(np.int64),
+            "e": rng.integers(0, 4, n).astype(np.uint8),
+            "a": rng.integers(0, 6, n).astype(np.int32),
+            "b": rng.integers(0, 5, n).astype(np.int32),
+            "c": np.where(k % 3 == 0, 7, x).astype(np.int64),
+            "i0": i0, "i1": i0 + rng.integers(0, 200, n)}
+
+
+def tail1m_sqls():
+    """(module, form, sql, loose): every module's calls GROUP BY k, with
+    -If, and (but the moving sums, whose width is the whole table's) GROUP
+    BY (); loose: the result columns of cramersVBiasCorrected
+    (aggtail_agree's SQRT_CANCEL_ATOL)."""
+    out = []
+    for mod, calls in TAIL_CALLS.items():
+        for form in ("sort", "if", "global"):
+            if form == "global" and mod == "moving":
+                continue
+            cs = calls if form != "if" else [
+                f"{c[:c.index('(')]}If{c[c.index('('):-1]}, {TAIL1M_COND})"
+                for c in calls]
+            head = "SELECT " if form == "global" else "SELECT k, "
+            tail = " FROM tail1m" if form == "global" else \
+                " FROM tail1m GROUP BY k ORDER BY k"
+            loose = {i + (form != "global") for i, c in enumerate(calls)
+                     if c.startswith("cramersVBiasCorrected")}
+            out.append((mod, form, head + ", ".join(cs) + tail
+                        + " SETTINGS group_array_max_size = 64", loose))
+    return out
+
+
+def tail1m_check(ch, s, n=None, groups=None):
+    """Every one of the tail's names over tail1m on the card (session s)
+    and on the port's CPU path, in each form; fails unless the rows are
+    the same (floats within AGGTAIL_RTOL: the kernels add in other orders
+    than the plain versions)."""
+    from clickhouse_tpu_torch.interop import table_from_numpy
+    t0 = time.perf_counter()
+    cols = tail1m_columns(n, groups)
+    cpu = ch.connect(device="cpu")
+    for sess in (s, cpu):
+        table_from_numpy(sess, "tail1m", cols, TAIL1M_TYPES)
+    t_card = t_cpu = 0.0
+    checked = 0
+    for mod, form, sql, loose in tail1m_sqls():
+        t1 = time.perf_counter()
+        got = s.execute(sql).rows()
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        want = cpu.execute(sql).rows()
+        t3 = time.perf_counter()
+        t_card += t2 - t1
+        t_cpu += t3 - t2
+        if not aggtail_agree(got, want, loose):
+            bad = next(i for i, (g, w) in enumerate(zip(got, want))
+                       if not aggtail_agree([g], [w], loose))
+            col = next(j for j, (a, b) in enumerate(zip(got[bad],
+                                                        want[bad]))
+                       if not aggtail_agree([[a]], [[b]],
+                                            {0} if j in loose else ()))
+            fail(f"tail1m {mod} {form}: the card's row {bad} column {col} "
+                 f"{got[bad][col]!r} is not the CPU path's "
+                 f"{want[bad][col]!r} ({sql[:200]}...)")
+        checked += len(got)
+    s.execute("DROP TABLE tail1m")
+    names = sum(len(c) for c in TAIL_CALLS.values())
+    print(f"the tail's {names} calls over {len(cols['k'])} rows: the card's "
+          f"rows are the CPU path's ({checked} rows in "
+          f"{len(tail1m_sqls())} queries; card {t_card:.1f} s, CPU "
+          f"{t_cpu:.1f} s; {time.perf_counter() - t0:.1f} s in all)",
+          flush=True)
+
+
+class Beside(threading.Thread):
+    """fn(*args) on a thread of its own, beside the card's work (numpy
+    releases the GIL over large arrays); result() waits for it and raises
+    what it raised."""
+
+    def __init__(self, fn, *args):
+        super().__init__(daemon=True)
+        self.fn, self.args, self.out, self.err = fn, args, None, None
+        self.start()
+
+    def run(self):
+        try:
+            self.out = self.fn(*self.args)
+        except BaseException as e:          # re-raised by result()
+            self.err = e
+
+    def result(self):
+        self.join()
+        if self.err is not None:
+            raise self.err
+        return self.out
+
+
+def aggtail_phase(ch, dev, s=None, hits_t=None, per_query=None,
+                  launches=None, launch_rows=None, want=None):
+    """--aggtail, and the whole smoke's: events, the tail queries over
+    events, hits and hits_t against numpy on their paths, their times, and
+    the tail's K4, K5, K6 and K17 at their inputs (aggtail_shapes), and
+    every tail name over tail1m on the card against the CPU path.  want:
+    hits_tail_answers' (a Beside computing them), else computed here.  ->
+    ({label: record}, launches, launch_rows)."""
+    from clickhouse_tpu_torch.ops import _native
+    t0 = time.perf_counter()
+    if s is None:
+        s = ch.connect(device="cuda")
+        hits_t = load_hits_t(s)
+        x = hits_t["x"]
+        s.execute("CREATE TABLE hits (x Int64)")
+        s.insert_pydict("hits", {"x": x})
+    per_query = {} if per_query is None else per_query
+    if launches is None:
+        launches = {kk: 0 for kk in _native.LAUNCHES}
+        launch_rows = {kk: [] for kk in _native.LAUNCHES}
+    want = hits_tail_answers(hits_t) if want is None else want.result()
+    want.update(events_answers(load_events(s)))
+    for name, sql in AGGTAIL_QUERIES:
+        aggtail_query(s, name, sql, want, per_query, launches, launch_rows)
+    print(f"[{time.perf_counter() - t0:.1f} s] aggregate tail queries done",
+          flush=True)
+    recs = aggtail_shapes(s)
+    print(f"[{time.perf_counter() - t0:.1f} s] the tail's kernels at their "
+          f"inputs done", flush=True)
+    aggtail_times(s)
+    s.execute("DROP TABLE events")
+    tail1m_check(ch, s)
+    import gc
+    gc.collect()
+    torch.cuda.empty_cache()
+    print(f"aggregate tail phase: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return recs, launches, launch_rows
+
+
 def main():
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false: this check needs a GPU")
@@ -9013,6 +9734,16 @@ def main():
         print(json.dumps({"launches": {k: v for k, v in launches.items()
                                        if v}, **shapes}), flush=True)
         return
+    if sys.argv[1:] == ["--aggtail"]:
+        # the aggregate tail: events, hits and hits_t at full size, the
+        # tail queries on their paths against numpy, their times, and
+        # every tail name at 1M rows on the card against the CPU path
+        recs, launches, _ = aggtail_phase(ch, dev)
+        print(json.dumps({"launches": {k: launches[k] for k in (
+            "radix_sort_pairs", "segment_bounds", "segment_reduce",
+            "segment_reduce_sorted", "segmented_scan")}, "aggtail": recs}),
+            flush=True)
+        return
     if sys.argv[1:] == ["--window"]:
         shapes, launches, _ = window_turn(ch, dev)
         print(json.dumps({"launches": {k: launches[k] for k in (
@@ -9064,7 +9795,11 @@ def main():
     load_hits_s(s)
     want.update(string_answers())
     want.update(vector_answers(load_vecs(s)))
-    want.update(slice13_answers(load_hits_t(s)))
+    hits_t = load_hits_t(s)
+    want.update(slice13_answers(hits_t))
+    # the aggregate tail's numpy answers, beside the card's phases until
+    # the tail phase needs them
+    aggtail_want = Beside(hits_tail_answers, hits_t)
     print(f"[{time.perf_counter() - t0:.1f} s] tables loaded", flush=True)
 
     # the main path, once, through the public API: each query with the
@@ -9201,6 +9936,17 @@ def main():
     del state_want
     print(f"[{time.perf_counter() - t0:.1f} s] state phase done "
           f"({time.perf_counter() - t_states:.1f} s)", flush=True)
+    # the aggregate tail (events, the tail queries over hits and hits_t,
+    # every tail name at 1M rows against the CPU path), its launches
+    # counted with the main path's
+    t_aggtail = time.perf_counter()
+    aggtail, _, _ = aggtail_phase(ch, dev, s, hits_t, per_query=per_query,
+                                  launches=launches, launch_rows=launch_rows,
+                                  want=aggtail_want)
+    merge_aggtail_shapes(shapes, aggtail)
+    del hits_t, aggtail_want
+    print(f"[{time.perf_counter() - t0:.1f} s] aggregate tail phase done "
+          f"({time.perf_counter() - t_aggtail:.1f} s)", flush=True)
     # the streaming phase over 1B rows, after the earlier tables are freed
     import gc
     del s

@@ -244,6 +244,13 @@ def _apply_final(node: L.ScanNode, eb: ExecBlock, ctx: ExecContext
     (K4, K5).  K4 is stable, so a key's rows keep their insertion order
     within its segment and its newest row is the segment's last; a keep
     flag is written at perm[ends[g] - 1], one write a group.
+    AggregatingMergeTree merges each key's states newest first, as the
+    reference's FINAL grouping orders them (anti_rowid), where the order
+    can matter: for a merge that keeps one partial by its lowest row id
+    (any, argMin/argMax at ties; aggregates.merge_keeps_a_row) K19
+    unpacks the states in reverse row order and the merge runs over
+    agg_ops.reversed_rows(g), so it keeps the newest.  Every other merge
+    (sum, max, ...) reads the states as stored, over g.
     ReplacingMergeTree(ver) sorts by (key, ver): the last row has the
     highest version, the newest among equal versions (ClickHouse's rule
     and the reference's own merge's, storage/merges.py:75-76; its FINAL
@@ -289,10 +296,14 @@ def _apply_final(node: L.ScanNode, eb: ExecBlock, ctx: ExecContext
         folded = [f for f in node.schema
                   if f.id not in key_ids and f.dtype.agg_state is not None]
     slots = pad_to(min(cap, ctx.settings.max_groups))
+    newest_first = {f.id for f in folded if agg_reg.merge_keeps_a_row(
+        agg_reg.make_merge_for_dtype(f.dtype).inner)}
     # the keep flags (a byte a row and a dummy), each summed column's sums
-    # and its new rows, and each folded state column's unpacked states,
-    # merged states and new rows
-    left = _hold_bytes(ctx, cap + 1 + sum(
+    # and its new rows, each folded state column's unpacked states, merged
+    # states and new rows, and the newest-first merges' reversed rows
+    # (int64 indices and an int32 perm)
+    reversed_bytes = 12 * cap if newest_first else 0
+    left = _hold_bytes(ctx, cap + 1 + reversed_bytes + sum(
         16 * slots + 8 * (cap + 1) for _ in summed) + sum(
         cv.data.shape[1] * (2 * cap + 1 + slots) + 8 * slots
         for cv in (eb.cols[f.id] for f in folded)), "FINAL")
@@ -308,11 +319,20 @@ def _apply_final(node: L.ScanNode, eb: ExecBlock, ctx: ExecContext
         cols = dict(eb.cols)
         n_keys = min(int(g.num_groups), cap_g)
         dst = last[:n_keys]
+        if newest_first:
+            gr = agg_ops.reversed_rows(g, cap)
+            back = torch.arange(cap - 1, -1, -1, dtype=torch.int64,
+                                device=ctx.device)
         for f in folded:
             cv = eb.cols[f.id].broadcast(cap)
             inner = agg_reg.make_merge_for_dtype(f.dtype).inner
-            merged = inner.merge(agg_reg.unpack_states(inner, cv.data), g,
-                                 eb.rows)
+            if f.id in newest_first:
+                merged = inner.merge(agg_reg.unpack_states(inner, cv.data,
+                                                           back),
+                                     gr, gr.row_valid_ref)
+            else:
+                merged = inner.merge(agg_reg.unpack_states(inner, cv.data),
+                                     g, eb.rows)
             out = torch.zeros((cap, cv.data.shape[1]), dtype=torch.uint8,
                               device=ctx.device)
             agg_reg.pack_states(inner, [m[:n_keys] for m in merged],

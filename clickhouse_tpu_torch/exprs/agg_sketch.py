@@ -42,7 +42,7 @@ from ..core.errors import NotImplementedError_, TypeError_
 from ..ops import agg_ops, filter_ops, scan_ops, sketch_ops, sort_ops
 from ..ops.hash_ops import HashArg
 from .aggregates import (AggregateFunction, GroupContext, _SortedValues,
-                         _rows_of, _take, _take_mask)
+                         _rows_of, _take, _take_mask, notm_key)
 from .expr import ColVal, StoredColVal, TermColVal
 
 __all__ = ["GroupArrayAgg", "GroupUniqArrayAgg", "TopKAgg", "EntropyAgg",
@@ -144,20 +144,35 @@ class _ArrayResult(AggregateFunction):
 
 
 class GroupArrayAgg(_ArrayResult):
-    """groupArray([N])(x): each group's first N values in row order."""
+    """groupArray([N])(x): each group's first N values in row order.
+
+    Its subclasses (exprs/agg_ext3.py: groupArraySorted, groupArrayLast,
+    groupArraySample) take two hooks: :meth:`_order_cols` (the reference's),
+    secondary keys that order each group's masked-in rows before row
+    order; and :meth:`_first_row`, where in those rows the N values start
+    (groupArrayLast's last N: the reference collects them newest first and
+    flips each row, which takes a sort key and a transform more)."""
     name = "groupArray"
 
     def secondary(self, ctx, args, cond):
         """Row order within each group: the masked-in rows first (a
-        masked-out flag), else the keys alone; None under an unmasked
-        GROUP BY (), which reads the rows as they are."""
+        masked-out flag), then the order columns; the keys alone where
+        there is neither; None under an unmasked GROUP BY () without order
+        columns, which reads the rows as they are."""
         mask = self._row_mask(ctx, args, cond)
-        if mask is ctx.row_valid:
-            return [] if ctx.keys else None
-        m = mask.tensor() if isinstance(mask, agg_ops.RowMask) else mask
-        return [sort_ops.SortKey(ctx.built("notm", (m,), lambda: ~m,
-                                           m.shape[0], "masked-out flags"),
-                                 bounds=(0, 1))]
+        keys = notm_key(ctx, mask) + self._order_cols(ctx, args)
+        return keys if keys or ctx.keys else None
+
+    def _order_cols(self, ctx: GroupContext, args: List[ColVal]
+                    ) -> List[sort_ops.SortKey]:
+        """Secondary keys ordering each group's masked-in rows (before row
+        order: K4 is stable)."""
+        return []
+
+    def _first_row(self, lens: torch.Tensor, width: int) -> torch.Tensor:
+        """The offset, in each group's ordered masked-in rows, of the first
+        value collected (the first N: 0)."""
+        return torch.zeros_like(lens)
 
     def reductions(self, ctx, args, cond):
         return [("count", None, self._row_mask(ctx, args, cond), False)], \
@@ -167,17 +182,16 @@ class GroupArrayAgg(_ArrayResult):
         lens = states[0]
         width = self._width(ctx)
         v = self._spec_value(ctx, args[0])
-        cap_g = lens.shape[0]
+        off = self._first_row(lens, width)
         if g.kind == "trivial":
             idx, _ = filter_ops.compact_rows(ctx.row_valid)
             n = idx.shape[0]
-            starts = torch.zeros(cap_g, dtype=torch.int64, device=idx.device)
             mat = _prefix_matrix(v, lambda p: idx.index_select(0, p).long(),
-                                 lens, starts, width, self._dtype(), n)
+                                 lens, off, width, self._dtype(), n)
         else:
             mat = _prefix_matrix(
                 v, lambda p: g.perm.index_select(0, p).long(), lens,
-                g.starts, width, self._dtype(), g.perm.shape[0])
+                g.starts + off, width, self._dtype(), g.perm.shape[0])
         return self._states(ctx, mat, lens, width)
 
 

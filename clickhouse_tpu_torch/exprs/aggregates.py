@@ -44,11 +44,15 @@ groupBitmap, uniqThetaSketch), and quantileExact/median with their exact
 spellings, `quantiles(...)` giving an Array (the High, Exclusive and
 Inclusive spellings by ClickHouse's rules, not the reference's), and the
 sketches of agg_sketch.py (uniq and its HLL spellings, groupArray,
-groupUniqArray, topK, entropy).  sum/count/avg of integers
-may take the dense grouping; the rest take the sort grouping (or K1 under
-GROUP BY ()).  min/max (and argMin/argMax's order) of a String compare its
-dictionary ranks.  Every other aggregate name raises the reference's typed
-errors (UnknownFunction / NotImplementedError_).
+groupUniqArray, topK, entropy), and the tail of agg_ext.py ... agg_ext4.py
+(the weighted quantiles, uniqUpTo, the moving and ordered groupArrays,
+deltaSum, windowFunnel, retention, the decayed, interval and cross-tab
+statistics and the rest whose result is not a Tuple).  sum/count/avg of
+integers may take the dense grouping; the rest take the sort grouping (or
+K1 under GROUP BY ()).  min/max (and argMin/argMax's order) of a String
+compare its dictionary ranks.  The names whose result is a Tuple
+(TUPLE_AGGREGATES) and every other unknown name raise the reference's
+typed errors (UnknownFunction / NotImplementedError_).
 """
 from __future__ import annotations
 
@@ -511,10 +515,16 @@ class AnyRespectNullsAgg(AggregateFunction):
 
 
 def _numeric(agg: AggregateFunction, *which: int) -> None:
-    """A statistic takes numbers: raise TypeError_ for another argument."""
+    """A statistic takes numbers: raise TypeError_ for another argument, or
+    for one of `which` not given."""
+    if which and max(which) >= len(agg.arg_types):
+        raise TypeError_(f"Aggregate function {agg.name} takes "
+                         f"{max(which) + 1} arguments, got "
+                         f"{len(agg.arg_types)}")
     for i in which:
         t = dt.remove_nullable(agg.arg_types[i])
-        if t.is_dictionary or t.is_array or t.np_dtype.kind not in "iufb":
+        if t.is_dictionary or t.is_array or dt.is_map(t) \
+                or t.np_dtype.kind not in "iufb":
             raise TypeError_(f"Illegal type {agg.arg_types[i]} of argument "
                              f"of aggregate function {agg.name}")
 
@@ -767,6 +777,28 @@ class ArgMaxAgg(ArgMinMaxAgg):
     name, minimize = "argMax", False
 
 
+def notm_key(ctx: GroupContext, mask) -> List[sort_ops.SortKey]:
+    """[the masked-out flag as a secondary key] where an aggregate's rows
+    are not the grouping's own (its masked-in rows then sort first in each
+    group), else []."""
+    if mask is ctx.row_valid:
+        return []
+    m = mask.tensor() if isinstance(mask, agg_ops.RowMask) else mask
+    return [sort_ops.SortKey(ctx.built("notm", (m,), lambda: ~m, m.shape[0],
+                                       "masked-out flags"), bounds=(0, 1))]
+
+
+def value_key(cv: ColVal, capacity: int) -> sort_ops.SortKey:
+    """A column as a secondary key: its storage (_value's, as stored),
+    unsigned where it holds UInt64 bits, with its proven bounds (floats by
+    their token: -0.0 below +0.0, NaNs last)."""
+    v = cv.broadcast(capacity).storage
+    unsigned = dt.remove_nullable(cv.dtype).np_dtype == np.uint64 \
+        and v.dtype == torch.int64
+    b = cv.bounds if cv.dictionary is None else None
+    return sort_ops.SortKey(v, unsigned=unsigned, bounds=b)
+
+
 class _SortedValues(AggregateFunction):
     """A holistic aggregate over its argument's values in order within
     each group: the sort grouping by (keys, masked-out flag, value), so
@@ -777,19 +809,7 @@ class _SortedValues(AggregateFunction):
 
     def secondary(self, ctx, args, cond):
         mask = self._row_mask(ctx, args, cond)
-        out = []
-        if mask is not ctx.row_valid:
-            m = mask.tensor() if isinstance(mask, agg_ops.RowMask) else mask
-            out.append(sort_ops.SortKey(
-                ctx.built("notm", (m,), lambda: ~m, m.shape[0],
-                          "masked-out flags"), bounds=(0, 1)))
-        cv = args[0]
-        v = cv.broadcast(ctx.capacity).storage    # _value's, as stored
-        unsigned = dt.remove_nullable(cv.dtype).np_dtype == np.uint64 \
-            and v.dtype == torch.int64
-        b = cv.bounds if cv.dictionary is None else None
-        out.append(sort_ops.SortKey(v, unsigned=unsigned, bounds=b))
-        return out
+        return notm_key(ctx, mask) + [value_key(args[0], ctx.capacity)]
 
 
 class UniqExactAgg(_SortedValues):
@@ -1195,9 +1215,11 @@ class GroupBitXorAgg(GroupBitAgg):
 
 def _register_base() -> Dict[str, type]:
     """The reference's _register_base (exprs/aggregates.py:743-884), less
-    the names whose class lives in agg_ext*.py (not ported), and less
-    quantilesExactWeighted, a weighted spelling the reference serves with
-    the unweighted class."""
+    the names whose result is a Tuple (TUPLE_AGGREGATES: the port has no
+    Tuple value yet).  quantilesExactWeighted takes the weighted class (the
+    reference serves it with the unweighted one: A3)."""
+    from . import agg_ext as ax, agg_ext2 as ax2, agg_ext3 as ax3
+    from . import agg_ext4 as ax4
     from . import agg_sketch as sk
     base: Dict[str, type] = {}
     for _cls in [CountAgg, SumAgg, MinAgg, MaxAgg, AvgAgg, AnyAgg, VarPopAgg,
@@ -1238,7 +1260,55 @@ def _register_base() -> Dict[str, type]:
     for name in _MEDIAN_NAMES:
         base[name] = MedianExactHighAgg if name == "medianexacthigh" \
             else MedianAgg
+    # the aggregate tail of agg_ext.py ... agg_ext4.py
+    for _cls in [ax.DeltaSumAgg, ax.QuantileExactWeightedAgg, ax.UniqUpToAgg,
+                 ax.GroupArrayMovingSumAgg, ax.GroupArrayMovingAvgAgg,
+                 ax2.WindowFunnelAgg, ax2.SequenceMatchAgg, ax2.RetentionAgg,
+                 ax2.RankCorrAgg, ax2.BoundingRatioAgg,
+                 ax3.GroupArraySortedAgg, ax3.GroupArrayLastAgg,
+                 ax3.GroupArraySampleAgg, ax3.SingleValueOrNullAgg,
+                 ax3.ExponentialMovingAverageAgg,
+                 ax3.ExponentialTimeDecayedSumAgg,
+                 ax3.ExponentialTimeDecayedCountAgg,
+                 ax3.ExponentialTimeDecayedAvgAgg,
+                 ax3.ExponentialTimeDecayedMaxAgg, ax3.IntervalLengthSumAgg,
+                 ax3.MaxIntersectionsAgg, ax3.MaxIntersectionsPositionAgg,
+                 ax3.CramersVAgg, ax3.CramersVBiasCorrectedAgg,
+                 ax3.TheilsUAgg, ax3.ContingencyAgg, ax4.TopKWeightedAgg,
+                 ax4.DeltaSumTimestampAgg, ax4.NothingAgg, ax4.AggThrowAgg]:
+        base[_cls.name.lower()] = _cls
+    # the weighted quantile spellings (reference :814-816, :843-846,
+    # :872-875): the exact weighted rule; the Interpolated ones mirror the
+    # reference's (A5), the TDigest, Timing and BFloat16 ones are
+    # approximate in ClickHouse, so the exact answer stands
+    for name in _WEIGHTED_NAMES:
+        base[name] = ax.MedianExactWeightedAgg if name.startswith("median") \
+            else ax.QuantileExactWeightedAgg
     return base
+
+
+_WEIGHTED_NAMES = (
+    "quantileinterpolatedweighted", "quantiletimingweighted",
+    "quantiletdigestweighted", "quantilebfloat16weighted",
+    "quantilesexactweighted", "medianexactweighted",
+    "medianinterpolatedweighted", "mediantimingweighted",
+    "mediantdigestweighted")
+# the reference's names whose result is a Tuple: they wait for the Tuple
+# column type (each raises UnknownFunction naming it)
+TUPLE_AGGREGATES = frozenset({
+    "summap", "minmap", "maxmap", "summappedarrays", "minmappedarrays",
+    "maxmappedarrays", "sumcount", "simplelinearregression",
+    "stochasticlinearregression", "studentttest", "welchttest", "meanztest",
+    "mannwhitneyutest", "kolmogorovsmirnovtest", "analysisofvariance",
+    "anova"})
+# the parameters of the tail: sizes (the reference's _SIZED), a window, a
+# count, or the parameters as a list (param_ctor)
+_TAIL_SIZED = ("topkweighted", "grouparraysorted", "grouparraylast",
+               "grouparraysample")
+_PARAM_LIST = ("windowfunnel", "sequencematch", "exponentialmovingaverage",
+               "exponentialtimedecayedsum", "exponentialtimedecayedcount",
+               "exponentialtimedecayedavg", "exponentialtimedecayedmax",
+               "aggthrow")
 
 
 _QUANTILE_RULES = {"quantileexacthigh": QuantileExactHighAgg,
@@ -1498,6 +1568,15 @@ def _custom_merge(inst: AggregateFunction) -> bool:
     return type(inst).merge is not AggregateFunction.merge
 
 
+def merge_keeps_a_row(inst: AggregateFunction) -> bool:
+    """Whether inst's merge can keep one partial by its row id, so that
+    the order of the partials decides its result: an `any` among its
+    merges (any, anyLast, any RESPECT NULLS), or a merge step of its own
+    (argMin/argMax keep the lowest row id at ties)."""
+    return _custom_merge(inst) or any(op == "any"
+                                      for op, _ in inst.merge_ops())
+
+
 class StateAgg(AggregateFunction):
     """-State: the inner aggregate's mergeable states, packed into state
     rows (K19) in place of its value."""
@@ -1620,6 +1699,7 @@ def _check_mergeable(inst: AggregateFunction, name: str) -> None:
     except NotImplementedError_:
         raise TypeError_(f"{inst.name} states cannot be merged; "
                          f"repartition by key instead") from None
+    state_spec(inst)         # a mergeable state with no stored layout yet
 
 
 _COMBINATOR_SUFFIXES = ("array", "foreach", "distinct")
@@ -1659,6 +1739,10 @@ def get_aggregate(name: str, arg_types: List[dt.DType],
     if has_if:
         arg_types = arg_types[:-1]  # last arg is the condition
     if lname not in _BASE:
+        if lname in TUPLE_AGGREGATES:
+            raise UnknownFunction(
+                f"Aggregate function '{name}' returns a Tuple, which the "
+                f"CUDA engine has no column for yet")
         if is_aggregate_name(name):
             raise UnknownFunction(
                 f"Aggregate function '{name}' is not ported to the CUDA "
@@ -1705,10 +1789,22 @@ def _base_instance(lname: str, arg_types, params) -> AggregateFunction:
         q = float(params[0]) if params else 0.5
         return cls(arg_types, q)
     from .agg_sketch import SIZED
-    if lname in SIZED:
+    if lname in SIZED or lname in _TAIL_SIZED:
         size = int(params[0]) if params else None
-        return cls(arg_types, size or 10) if lname == "topk" \
+        return cls(arg_types, size or 10) if lname in ("topk", "topkweighted") \
             else cls(arg_types, size)
+    if lname == "quantilesexactweighted":
+        return cls(arg_types, qs=[float(p) for p in params] if params
+                   else [0.5])
+    if lname in _WEIGHTED_NAMES and not lname.startswith("median") \
+            or lname == "quantileexactweighted":
+        return cls(arg_types, float(params[0]) if params else 0.5)
+    if lname == "uniqupto":
+        return cls(arg_types, int(params[0]) if params else 5)
+    if lname in ("grouparraymovingsum", "grouparraymovingavg"):
+        return cls(arg_types, int(params[0]) if params else None)
+    if lname in _PARAM_LIST:
+        return cls(arg_types, params)
     return cls(arg_types)
 
 

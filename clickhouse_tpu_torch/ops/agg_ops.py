@@ -613,6 +613,18 @@ def group_by_sort(keys: Sequence[sort_ops.SortKey],
                     row_valid_ref=rows, secondary=tuple(secondary))
 
 
+def reversed_rows(g: Grouping, capacity: int) -> Grouping:
+    """The sort grouping g over data of `capacity` rows in reverse row
+    order (the data's row i is g's row capacity - 1 - i): perm mapped so,
+    every row one of its rows.  A reduction that keeps one row by its
+    lowest row id (`any`, argMin/argMax's merge at ties) then keeps each
+    group's newest row."""
+    return dataclasses.replace(
+        g, perm=(capacity - 1) - g.perm,
+        row_valid_ref=RowMask(capacity, g.perm.device, capacity),
+        slot_table=None)
+
+
 def narrow_groups(g: Grouping, slots: int) -> Grouping:
     """The sort grouping g over its first `slots` group slots, which hold
     every group (slots >= g.num_groups): the same rows, groups and order,

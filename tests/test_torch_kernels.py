@@ -1772,3 +1772,48 @@ def test_state_statements_on_card_match_cpu():
         assert cuda.execute(sql).rows() == cpu.execute(sql).rows(), sql
         for k in kernels:
             assert _native.LAUNCHES[k] >= 1, (sql, k)
+
+
+def test_aggregate_tail_on_card_matches_cpu():
+    """Every one of the aggregate tail's 39 names (chip_smoke.TAIL_CALLS)
+    GROUP BY k, with -If and GROUP BY (), on the card against a CPU
+    session (floats within chip_smoke.AGGTAIL_RTOL), each module's queries
+    through the sort grouping's kernels and K6, the ordered ones through
+    K17; then AggregatingMergeTree FINAL's newest-first merge (argMax at
+    ties, any) on the card against the CPU."""
+    import chip_smoke as cs
+    import clickhouse_tpu_torch as ch
+    from clickhouse_tpu_torch.interop import table_from_numpy
+    from clickhouse_tpu_torch.ops import _native
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU")
+    cols = cs.tail1m_columns(200_000, 10_000)
+    cpu, cuda = ch.connect(device="cpu"), ch.connect(device="cuda")
+    for s in (cpu, cuda):
+        table_from_numpy(s, "tail1m", cols, cs.TAIL1M_TYPES)
+    for mod, form, sql, loose in cs.tail1m_sqls():
+        _native.reset_launches()
+        got = cuda.execute(sql).rows()
+        want = cpu.execute(sql).rows()
+        bad = [(i, j, a, b) for i, (g, w) in enumerate(zip(got, want))
+               for j, (a, b) in enumerate(zip(g, w))
+               if not cs.aggtail_agree([[a]], [[b]],
+                                       {0} if j in loose else ())]
+        assert len(got) == len(want) and not bad, (sql, bad[:5])
+        kernels = ("segment_reduce_sorted",) if form == "global" else \
+            ("radix_sort_pairs", "segment_bounds")
+        if mod in ("moving", "ext3"):
+            kernels += ("segmented_scan",)
+        for k in kernels:
+            assert _native.LAUNCHES[k] >= 1, (sql, k)
+    for s in (cpu, cuda):
+        s.execute("CREATE TABLE am (k Int64, a AggregateFunction(argMax, "
+                  "Int64, UInt8), n AggregateFunction(any, Int64)) "
+                  "ENGINE = AggregatingMergeTree ORDER BY k")
+        for i in range(3):
+            s.execute(f"INSERT INTO am SELECT k % 100 AS g, argMaxState(x + "
+                      f"{1000 * i}, toUInt8(1)), anyState(x + {1000 * i}) "
+                      f"FROM tail1m WHERE ts % 3 != {i} GROUP BY g")
+    sql = ("SELECT k, finalizeAggregation(a), finalizeAggregation(n) FROM "
+           "am FINAL ORDER BY k")
+    assert cuda.execute(sql).rows() == cpu.execute(sql).rows()

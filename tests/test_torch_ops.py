@@ -1112,8 +1112,87 @@ def _sql_sessions():
             # M1, A8: states of groups, one with no row passing v > 4
             s.execute("CREATE TABLE ms (k Int64, v Int64)")
             s.execute("INSERT INTO ms VALUES (1, 5), (1, 7), (2, 3), (3, 6)")
+            # A2, A3, A9: the aggregate tail's weighted quantiles and moving
+            # sums over a few rows
+            s.execute("CREATE TABLE tl (k Int64, x Int64, w UInt8, "
+                      "big Int64)")
+            s.execute("INSERT INTO tl VALUES (1, 1, 1, 9007199254740993), "
+                      "(1, 2, 1, 1), (1, 3, 10, 0), (2, 5, 2, 7), "
+                      "(2, 4, 3, 0)")
+        # A11: deltaSum over UInt64 values above 2^63, in row order
+        for s in (js, ts):
+            s.execute("CREATE TABLE tu (u UInt64)")
+            s.insert_pydict("tu", {"u": np.array([1, (1 << 63) + 5, 3],
+                                                 np.uint64)})
+        # A7: the tail's run counts under a mask, over seeded rows
+        tr = _tail_rows()
+        js.execute("CREATE TABLE tr (k Int64, a Int64, b Int64, w Int64, "
+                   "c Int64)")
+        js.insert_pydict("tr", tr)
+        table_from_numpy(ts, "tr", tr, {c: "Int64" for c in tr})
         _SQL_SESSIONS.extend([js, ts, x])
     return _SQL_SESSIONS
+
+
+def _tail_rows():
+    """tr: 600 seeded rows, six keys, small a and b, weights and a
+    condition column."""
+    rng = np.random.default_rng(7)
+    n = 600
+    return {"k": rng.integers(0, 6, n), "a": rng.integers(0, 5, n),
+            "b": rng.integers(0, 4, n), "w": rng.integers(1, 9, n),
+            "c": rng.integers(-3, 4, n)}
+
+
+def _tail_groups():
+    """tr's rows with c > 0, a key at a time."""
+    t = _tail_rows()
+    return t, [np.flatnonzero((t["k"] == k) & (t["c"] > 0))
+               for k in range(6)]
+
+
+def _a7_topk_weighted():
+    t, groups = _tail_groups()
+    want = []
+    for k, rows in enumerate(groups):
+        vals, inv = np.unique(t["a"][rows], return_inverse=True)
+        sums = np.bincount(inv, weights=t["w"][rows]).astype(np.int64)
+        want.append((k, [int(v) for v in vals[np.lexsort((vals, -sums))][:2]]))
+    return _sql_divergence("SELECT k, topKWeightedIf(2)(a, w, c > 0) FROM tr "
+                           "GROUP BY k ORDER BY k", want)
+
+
+def _a7_cramers_v():
+    t, groups = _tail_groups()
+    want = []
+    for k, rows in enumerate(groups):
+        a, b = t["a"][rows], t["b"][rows]
+        ua, ia = np.unique(a, return_inverse=True)
+        ub, ib = np.unique(b, return_inverse=True)
+        nab = np.zeros((len(ua), len(ub)))
+        np.add.at(nab, (ia, ib), 1.0)
+        e = np.outer(nab.sum(1), nab.sum(0))
+        chi2 = len(a) * max(float((nab[nab > 0] ** 2 / e[nab > 0]).sum())
+                            - 1.0, 0.0)
+        want.append((k, round(float(np.sqrt(
+            chi2 / (len(a) * max(min(len(ua), len(ub)) - 1, 1)))), 9)))
+    return _sql_divergence("SELECT k, round(cramersVIf(a, b, c > 0), 9) "
+                           "FROM tr GROUP BY k ORDER BY k", want)
+
+
+def _a7_rank_corr():
+    t, groups = _tail_groups()
+
+    def ranks(v):
+        s = np.sort(v)
+        return (np.searchsorted(s, v) + np.searchsorted(s, v, "right")
+                - 1) / 2.0 + 1.0
+    want = []
+    for k, rows in enumerate(groups):
+        rx, ry = ranks(t["a"][rows]), ranks(t["b"][rows])
+        want.append((k, round(float(np.corrcoef(rx, ry)[0, 1]), 9)))
+    return _sql_divergence("SELECT k, round(rankCorrIf(a, b, c > 0), 9) "
+                           "FROM tr GROUP BY k ORDER BY k", want)
 
 
 def _answer(session, sql, read=lambda r: r.rows()):
@@ -1322,6 +1401,44 @@ DIVERGENCES = {
         "SELECT uniqMerge(st) FROM (SELECT k, uniqState(v) AS st FROM ms "
         "GROUP BY k)", [(4,)]),
         "clickhouse_tpu/exprs/agg_sketch.py:348"),
+    # A3: quantilesExactWeighted maps to the unweighted quantiles (weights
+    # 1, 1, 10 put the weighted median at 3)
+    "a3_quantiles_exact_weighted": (lambda: _sql_divergence(
+        "SELECT quantilesExactWeighted(0.5)(x, w) FROM tl WHERE k = 1",
+        [([3],)]),
+        "clickhouse_tpu/exprs/aggregates.py:874-875"),
+    # A2 (weighted): quantileExactWeightedIf over a group whose rows all
+    # fail the condition reads a neighbouring group's value; ClickHouse's
+    # empty state gives 0
+    "a2_weighted_quantile_empty_group": (lambda: _sql_divergence(
+        "SELECT k, quantileExactWeightedIf(0.5)(x, w, x > 100) FROM tl "
+        "GROUP BY k ORDER BY k", [(1, 0), (2, 0)]),
+        "clickhouse_tpu/exprs/agg_ext.py:244-246"),
+    # A9: groupArrayMovingSum(N) drops its window (ClickHouse sums the
+    # last N values) ...
+    "a9_moving_sum_window": (lambda: _sql_divergence(
+        "SELECT groupArrayMovingSum(2)(x) FROM tl WHERE k = 1",
+        [([1, 3, 5],)]),
+        "clickhouse_tpu/exprs/aggregates.py:1220"),
+    # ... and sums integers through float64, inexact above 2^53
+    "a9_moving_sum_exact": (lambda: _sql_divergence(
+        "SELECT groupArrayMovingSum(big) FROM tl WHERE k = 1",
+        [([9007199254740993, 9007199254740994, 9007199254740994],)]),
+        "clickhouse_tpu/exprs/agg_ext.py:728"),
+    # A11: deltaSum of a UInt64 compares the values as signed int64, so a
+    # rise to 2^63 + 5 reads as a fall (ClickHouse compares unsigned)
+    "a11_delta_sum_uint64": (lambda: _sql_divergence(
+        "SELECT deltaSum(u) FROM tu", [((1 << 63) + 4,)]),
+        "clickhouse_tpu/exprs/agg_ext.py:162-196"),
+    # A7 (the tail): topKWeighted, cramersV and rankCorr under a mask count
+    # their runs over run ids that do not ascend (the masked-out rows take
+    # the id cap between groups), so later groups' runs are miscounted
+    "a7_topk_weighted_if": (
+        _a7_topk_weighted, "clickhouse_tpu/exprs/agg_ext4.py:47-60"),
+    "a7_cramers_v_if": (
+        _a7_cramers_v, "clickhouse_tpu/exprs/agg_ext3.py:424-434"),
+    "a7_rank_corr_if": (
+        _a7_rank_corr, "clickhouse_tpu/exprs/agg_ext2.py:171-176"),
 }
 
 

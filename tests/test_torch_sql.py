@@ -349,7 +349,7 @@ def test_ddl_insert_values_and_drop(sessions):
 
 
 @pytest.mark.parametrize("sql,err,match", [
-    ("SELECT uniqUpTo(3)(a) FROM t", UnknownFunction, "uniqUpTo"),
+    ("SELECT sumCount(a) FROM t", UnknownFunction, "sumCount"),
     ("SELECT xxHash64(a) FROM t", UnknownFunction, "xxHash64"),
     ("SELECT x FROM hits ORDER BY x", None, None),
     ("SELECT x, count() FROM hits GROUP BY x", None, None),

@@ -241,18 +241,38 @@ MERGEABLE = _mergeable_names()
 _NOT_STORED = ("countdistinct", "entropy", "grouparray", "grouparraydistinct",
                "groupbitmap", "groupuniqarray", "topk", "uniqexact",
                "uniqthetasketch")
+# the aggregate tail (exprs/agg_ext*.py): holistic, or mergeable with no
+# stored layout yet (singleValueOrNull, retention, nothing); aggThrow(p)
+# raises when it is made for p > 0
+_TAIL_NOT_STORED = (
+    "boundingratio", "contingency", "cramersv", "cramersvbiascorrected",
+    "deltasum", "deltasumtimestamp", "exponentialmovingaverage",
+    "exponentialtimedecayedavg", "exponentialtimedecayedcount",
+    "exponentialtimedecayedmax", "exponentialtimedecayedsum",
+    "grouparraylast", "grouparraymovingavg", "grouparraymovingsum",
+    "grouparraysample", "grouparraysorted", "intervallengthsum",
+    "maxintersections", "maxintersectionsposition", "nothing", "rankcorr",
+    "retention", "sequencematch", "singlevalueornull", "theilsu",
+    "topkweighted", "uniqupto", "windowfunnel", "aggthrow")
+_TAIL_PARAMS = {"sequencematch": ["(?1)"], "aggthrow": [0]}
 
 
 def test_every_registry_name_is_stored_or_refused():
     """Every aggregate of the registry either stores its state (and is
-    compared below) or is a holistic one whose -State raises."""
+    compared below) or is a holistic one whose -State raises (the tail's
+    two-argument ones made over two Int64 columns)."""
     from clickhouse_tpu_torch.core import dtypes as dt
     for name in sorted(tagg._BASE):
         if name in MERGEABLE:
             continue
-        assert name in _NOT_STORED or "quantile" in name \
-            or "median" in name, name
-        inst, _ = tagg.get_aggregate(name, [dt.Int64])
+        assert name in _NOT_STORED or name in _TAIL_NOT_STORED \
+            or "quantile" in name or "median" in name, name
+        two = "weighted" in name or name in _TAIL_NOT_STORED and name not in (
+            "uniqupto", "deltasum", "grouparraymovingsum",
+            "grouparraymovingavg", "grouparraysorted", "grouparraylast",
+            "grouparraysample")
+        inst, _ = tagg.get_aggregate(name, [dt.Int64] * (2 if two else 1),
+                                     _TAIL_PARAMS.get(name))
         with pytest.raises((TypeError_, NotImplementedError_)):
             tagg._check_mergeable(inst, name)
 
@@ -493,6 +513,66 @@ def test_final_over_parts_with_duplicate_keys():
     assert est == ref
     _both("SELECT count(), sum(finalizeAggregation(s)) FROM am FINAL",
           sessions)
+
+
+def test_final_merges_ties_newest_first():
+    """F12: FINAL merges each key's states newest insertion first, as the
+    reference's FINAL grouping orders them (anti_rowid), so a merge that
+    keeps one partial keeps the newest part's: argMax at an order value
+    every part ties on, and any.  Three inserts of every key; the rows of
+    the reference and numpy's newest part."""
+    sessions = _fresh()
+    cols = sessions[2]
+    for s in sessions[:2]:
+        s.execute("CREATE TABLE at (k Int64, am AggregateFunction(argMax, "
+                  "Int64, UInt8), an AggregateFunction(any, Int64), "
+                  "mx AggregateFunction(max, Int64)) "
+                  "ENGINE = AggregatingMergeTree ORDER BY k")
+        for i in range(3):
+            s.execute(f"INSERT INTO at SELECT k, argMaxState(v + {1000 * i}, "
+                      f"toUInt8(1)), anyState(v + {1000 * i}), maxState(v) "
+                      f"FROM src WHERE u % 3 != {i} GROUP BY k")
+    got = _both("SELECT k, finalizeAggregation(am), finalizeAggregation(an), "
+                "finalizeAggregation(mx) FROM at FINAL ORDER BY k", sessions)
+    k, u, v = cols["k"], cols["u"], cols["v"]
+    for key, am, an, mx in got:
+        rows = np.flatnonzero((k == key) & (u % 3 != 2))
+        assert am == an == int(v[rows[0]]) + 2000, (key, am, an)
+        assert mx == int(v[k == key].max())
+
+
+@pytest.mark.parametrize("state,newest_first", [
+    ("sumState(v)", False), ("maxState(v)", False), ("avgState(f)", False),
+    ("groupBitAndState(u)", False), ("anyState(v)", True),
+    ("anyLastState(v)", True), ("argMaxState(v, toUInt8(1))", True),
+    ("argMinState(v, u)", True)])
+def test_final_reverses_only_merges_that_keep_a_row(state, newest_first,
+                                                    monkeypatch):
+    """FINAL puts a key's states newest first (agg_ops.reversed_rows) only
+    for a merge that keeps one partial by its row id (any, anyLast,
+    argMin/argMax); the others merge the states as stored.  Either way
+    the rows are the reference's."""
+    from clickhouse_tpu_torch.ops import agg_ops
+    reversed_rows = agg_ops.reversed_rows
+    calls = []
+
+    def watch(*a):
+        calls.append(a[1])
+        return reversed_rows(*a)
+    monkeypatch.setattr(agg_ops, "reversed_rows", watch)
+    sessions = _fresh()
+    fn = state[:state.index("State")]
+    args = "Int64, UInt8" if "toUInt8" in state else "Int64, Int64" \
+        if fn.startswith("arg") else "Float64" if fn == "avg" else "Int64"
+    for s in sessions[:2]:
+        s.execute(f"CREATE TABLE fr (k Int64, st AggregateFunction({fn}, "
+                  f"{args})) ENGINE = AggregatingMergeTree ORDER BY k")
+        for i in range(2):
+            s.execute(f"INSERT INTO fr SELECT k, {state} FROM src "
+                      f"WHERE u % 2 = {i} GROUP BY k")
+    _both("SELECT k, finalizeAggregation(st) FROM fr FINAL ORDER BY k",
+          sessions)
+    assert bool(calls) == newest_first, (state, calls)
 
 
 def test_final_past_max_groups_replans():
